@@ -352,7 +352,6 @@ def main(argv=None):
             yield q.popleft().result()
 
     reverse_model = metadata.get("reverse", False)
-    written = set()
     with torch.inference_mode(), \
             helpers.open_file_or_stdout(args.output) as fh:
         pending = []
@@ -380,13 +379,9 @@ def main(argv=None):
                     batch_reads, pool.map(finalize_one, batch_reads, offs)):
                 nsample += p["nsample"]
                 progress.step()
-                if p["read_id"] in written:
-                    sys.stderr.write("* Warning: duplicate read id {}; "
-                                     "keeping the first call.\n"
-                                     .format(p["read_id"]))
-                    continue
+                # a read id found twice gets a record for every copy, as
+                # in bin/basecall.py
                 if basecall is not None and len(basecall) > 0:
-                    written.add(p["read_id"])
                     fh.write("{}{}\n{}\n".format(
                         startcharacter, p["read_id"],
                         basecall[::-1] if args.reverse else basecall))

@@ -65,3 +65,34 @@ def params_to_jax(net):
     for name, child in net.named_children():
         tree[name] = params_to_jax(child)
     return tree
+
+
+def _name_tree(net, prefix):
+    if isinstance(net, nn.ModuleList):
+        return [_name_tree(m, "{}{}.".format(prefix, i))
+                for i, m in enumerate(net)]
+    tree = {name: prefix + name
+            for name, _ in net.named_parameters(recurse=False)}
+    for name, child in net.named_children():
+        tree[name] = _name_tree(child, prefix + name + ".")
+    return tree
+
+
+def _leaves(tree, out):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _leaves(tree[k], out)
+    elif isinstance(tree, list):
+        for v in tree:
+            _leaves(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def leaf_names(net):
+    """`net`'s parameter names in the leaf order of the JAX parameter
+    pytree (`jax.tree.leaves`: dict keys sorted, lists in order), the
+    order of the JAX trainer's per-tensor clip thresholds and gradient
+    maxima; an Lstm's parameters come as b, iW, sW."""
+    return _leaves(_name_tree(net, ""), [])

@@ -10,8 +10,12 @@ Read: superblock versions 0-3, object header versions 1 and 2 (with
 continuation blocks), groups stored as a symbol table (v1 B-tree, local
 heap) or as compact link messages, attributes of fixed-point, float,
 enum, fixed-length and variable-length string types, contiguous and
-compact datasets.  Chunked or compressed datasets, dense link storage and
-shared messages raise NotImplementedError (install h5py for those).
+compact datasets, and chunked datasets (layout message version 3, chunks
+indexed by a v1 B-tree) through the deflate (zlib) and shuffle filters:
+the layout of mapped-signal files and of h5py-written fast5.  Dense link storage (groups of more than 8 links
+written with libver >= 1.8), layout version 4 chunk indexes, other
+filters and shared messages raise NotImplementedError (install h5py for
+those).
 
 Write (`Writer`): superblock 0, version-1 object headers, groups as link
 messages, contiguous datasets and scalar or array attributes of numeric
@@ -20,6 +24,7 @@ and fixed-length string types; h5py and libhdf5 read what it writes.
 
 import mmap
 import struct
+import zlib
 
 import numpy as np
 
@@ -153,21 +158,27 @@ class File:
     # -- groups --------------------------------------------------------------
 
     def links(self, messages):
-        """{name: object header address} of a group, sorted by name."""
-        links = {}
+        """{name: object header address} of a group, in h5py's order: by
+        creation order where the group tracks it, else by name."""
+        links, order = {}, {}
+        tracked = False
         for mtype, data in messages:
             if mtype == 0x11:           # symbol table
                 heap = self._local_heap(_u(data, 8, 8))
                 self._btree(_u(data, 0, 8), heap, links)
             elif mtype == 0x02:         # link info
+                tracked = bool(data[1] & 1)
                 p = 2 + (8 if data[1] & 1 else 0)
                 if _u(data, p, 8) != _UNDEF:
                     raise NotImplementedError(
                         "HDF5 groups with dense link storage")
             elif mtype == 0x06:         # link
-                name, addr = self._link(data)
+                name, addr, corder = self._link(data)
                 if addr is not None:
                     links[name] = addr
+                    order[name] = corder
+        if tracked and None not in order.values():
+            return dict(sorted(links.items(), key=lambda kv: order[kv[0]]))
         return dict(sorted(links.items()))
 
     def _local_heap(self, addr):
@@ -201,7 +212,9 @@ class File:
         if flags & 0x08:
             ltype = data[p]
             p += 1
+        corder = None
         if flags & 0x04:
+            corder = _u(data, p, 8)
             p += 8
         if flags & 0x10:
             p += 1
@@ -210,8 +223,27 @@ class File:
         p += nlen_size
         name = bytes(data[p:p + nlen]).decode()
         if ltype != 0:          # soft or external link: not followed
-            return name, None
-        return name, _u(data, p + nlen, 8)
+            return name, None, corder
+        return name, _u(data, p + nlen, 8), corder
+
+    def chunks(self, addr, ndims):
+        """(offsets, filter mask, stored bytes) of every chunk under the
+        v1 B-tree (type 1, raw data chunks) at addr."""
+        buf = self._buf
+        _expect(buf, addr, b"TREE")
+        level, nused = buf[addr + 5], _u(buf, addr + 6, 2)
+        keysize = 8 + 8 * ndims
+        p = addr + 24
+        for i in range(nused):
+            key = p + i * (keysize + 8)
+            child = _u(buf, key + keysize, 8)
+            if level > 0:
+                yield from self.chunks(child, ndims)
+                continue
+            size, mask = _u(buf, key, 4), _u(buf, key + 4, 4)
+            offsets = tuple(_u(buf, key + 8 + 8 * d, 8)
+                            for d in range(ndims - 1))
+            yield offsets, mask, bytes(buf[child:child + size])
 
     # -- values --------------------------------------------------------------
 
@@ -293,6 +325,50 @@ def _dtype(dt):
     raise NotImplementedError("HDF5 datatype class {}".format(cls))
 
 
+def _filters(msg):
+    """[(filter id, client data)] of a filter pipeline message, in the
+    order the writer applied them."""
+    if msg is None:
+        return []
+    version, nfilt = msg[0], msg[1]
+    p = 8 if version == 1 else 2
+    out = []
+    for _ in range(nfilt):
+        fid = _u(msg, p, 2)
+        named = version == 1 or fid >= 256
+        nlen = _u(msg, p + 2, 2) if named else 0
+        p += 4 if named else 2
+        nvals = _u(msg, p + 2, 2)
+        p += 4
+        p += _pad8(nlen) if version == 1 else nlen
+        vals = [_u(msg, p + 4 * k, 4) for k in range(nvals)]
+        p += 4 * nvals
+        if version == 1 and nvals % 2:
+            p += 4
+        out.append((fid, vals))
+    return out
+
+
+def _unfilter(data, filters, mask):
+    """Undo a chunk's filters (the pipeline in reverse); bit i of mask
+    set means filter i was skipped for this chunk."""
+    for i in range(len(filters) - 1, -1, -1):
+        if mask & (1 << i):
+            continue
+        fid, vals = filters[i]
+        if fid == 1:                    # deflate
+            data = zlib.decompress(data)
+        elif fid == 2:                  # shuffle: byte planes
+            esize = vals[0] if vals else 1
+            n = len(data) // esize * esize
+            planes = np.frombuffer(data[:n], dtype=np.uint8)
+            data = (planes.reshape(esize, -1).T.tobytes()
+                    + bytes(data[n:]))
+        else:
+            raise NotImplementedError("HDF5 filter {}".format(fid))
+    return data
+
+
 def _shape(ds):
     version, rank = ds[0], ds[1]
     if version == 1:
@@ -353,20 +429,48 @@ class Dataset(_Node):
         return None
 
     def __getitem__(self, key):
-        if self._find(0x0B) is not None:
-            raise NotImplementedError("compressed HDF5 datasets need h5py")
         lay = self._find(0x08)
         if lay[0] not in (3, 4):     # same compact/contiguous fields
             raise NotImplementedError("HDF5 layout version {}".format(lay[0]))
-        if lay[1] == 0:
+        if lay[1] == 2:
+            raw = self._chunked(lay)
+        elif self._find(0x0B) is not None:
+            raise NotImplementedError("filtered HDF5 datasets that are not "
+                                      "chunked")
+        elif lay[1] == 0:
             raw = lay[4:4 + _u(lay, 2, 2)]
         elif lay[1] == 1:
             addr, size = _u(lay, 2, 8), _u(lay, 10, 8)
             raw = b"" if addr == _UNDEF else self._f._buf[addr:addr + size]
         else:
-            raise NotImplementedError("chunked HDF5 datasets need h5py")
+            raise NotImplementedError("HDF5 layout class {}".format(lay[1]))
         value = self._f.decode(self._find(0x03), self._find(0x01), raw)
         return value if key == () or key is Ellipsis else value[key]
+
+    def _chunked(self, lay):
+        """Raw bytes (C order) of a chunked dataset, chunks unfiltered and
+        placed; chunks never written read as zeros (the default fill)."""
+        if lay[0] != 3:
+            raise NotImplementedError(
+                "HDF5 chunk index of layout version {} (only the v1 B-tree "
+                "of version 3)".format(lay[0]))
+        ndims = lay[2]
+        btree = _u(lay, 3, 8)
+        dims = [_u(lay, 11 + 4 * i, 4) for i in range(ndims)]
+        chunk, esize = tuple(dims[:-1]), dims[-1]
+        shape = _shape(self._find(0x01))
+        out = np.zeros(tuple(shape) + (esize,), dtype=np.uint8)
+        filters = _filters(self._find(0x0B))
+        if btree != _UNDEF:
+            for offsets, mask, data in self._f.chunks(btree, ndims):
+                data = _unfilter(data, filters, mask)
+                block = np.frombuffer(data, dtype=np.uint8)[
+                    :int(np.prod(chunk)) * esize].reshape(chunk + (esize,))
+                dst = tuple(slice(o, min(o + c, n))
+                            for o, c, n in zip(offsets, chunk, shape))
+                out[dst] = block[tuple(slice(0, d.stop - d.start)
+                                       for d in dst)]
+        return out.tobytes()
 
 
 # -- writer ------------------------------------------------------------------

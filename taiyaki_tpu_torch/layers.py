@@ -11,6 +11,9 @@ Tensor convention: time x batch x features (TBF) throughout.
 
 Only the layers of the mLstm_flipflop basecaller are ported; every other
 layer of the JAX package raises NotImplementedError naming itself.
+Parameters are trainable: the convolutions and the head take their
+gradients from autograd, the LSTM layers from the backward kernel of
+`ops.rnn.lstm_layer`.
 """
 
 import numpy as np
@@ -60,8 +63,9 @@ def truncated_normal(rng, shape, sd):
 
 
 def _param(*shape):
-    """An f32 parameter of `shape`, zero until weights are loaded."""
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    """A trainable f32 parameter of `shape`, zero until weights are
+    loaded."""
+    return nn.Parameter(torch.zeros(*shape))
 
 
 def _linear_init(rng, size, insize, has_bias):
@@ -251,7 +255,10 @@ class Lstm(Layer):
 
     def forward(self, x, reverse=False):
         from taiyaki_tpu_torch.ops.rnn import lstm_layer
-        return lstm_layer(x, self.iW, self.b, self.sW, reverse=reverse)
+        # has_bias=False keeps the zero b, initialised to zero and not
+        # trained, as in the JAX package
+        b = self.b if self.has_bias else self.b.detach()
+        return lstm_layer(x, self.iW, b, self.sW, reverse=reverse)
 
 
 # -- output heads ------------------------------------------------------------

@@ -1,0 +1,339 @@
+"""Training: optimizer and schedules, batch preparation, loss and step
+(port of taiyaki_tpu/train.py).
+
+One step runs the network forward (the LSTM forward kernel with its
+backward residuals), the CRF loss (lattice forward kernel) plus logZ/nblk
+(logZ forward kernel), autograd's backward (CRF backward, logZ posteriors
+and LSTM backward kernels; cuDNN for the convolutions), a per-tensor
+clip by value and an AdamW update whose learning rate, and with
+min_momentum its beta1, follow the JAX package's optax schedules.
+
+Everything runs on an explicit torch device; random draws come from
+numpy (the global state for chunk sampling, as in the JAX package, and
+explicit Generators elsewhere), so one seed draws the same data in both
+packages.  Gradients, clip thresholds and `grad_maxs` follow the JAX
+parameter pytree's leaf order (`convert.leaf_names`).
+"""
+
+import math
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from taiyaki_tpu_torch import flipflopfings
+from taiyaki_tpu_torch.convert import leaf_names
+from taiyaki_tpu_torch.data import chunk_selection
+from taiyaki_tpu_torch.ops import flipflop as ffops
+
+
+# -- optimizer ---------------------------------------------------------------
+
+def _cosine_interpolate(start, end, pct):
+    return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1.0)
+
+
+def make_schedule(lr_max, niteration, warmup_batches, lr_warmup, lr_min):
+    """Learning rate of optimizer step `count` (0 for the first step), as
+    optax computes it in the JAX package: cosine_onecycle_schedule, or with
+    no warmup cosine_decay_schedule from lr_max down to lr_min."""
+    if warmup_batches <= 0:
+        alpha = lr_min / lr_max
+
+        def schedule(count):
+            count = min(float(count), float(niteration))
+            decay = 0.5 * (1.0 + math.cos(math.pi * count / niteration))
+            return lr_max * ((1.0 - alpha) * decay + alpha)
+        return schedule
+
+    div_factor = lr_max / lr_warmup
+    final_div_factor = lr_warmup / lr_min
+    bounds = [0, int(warmup_batches / niteration * niteration),
+              int(niteration)]
+    values = np.cumprod([lr_max / div_factor, div_factor,
+                         1.0 / (div_factor * final_div_factor)])
+
+    def schedule(count):
+        for k in range(2):
+            if bounds[k] <= count < bounds[k + 1]:
+                pct = (count - bounds[k]) / (bounds[k + 1] - bounds[k])
+                return float(_cosine_interpolate(values[k], values[k + 1],
+                                                 pct))
+        return float(values[-1])
+    return schedule
+
+
+def make_b1_schedule(b1, min_momentum, niteration, warmup_batches):
+    """Adam beta1 of optimizer step `count`: fixed at b1, or with
+    min_momentum annealed inversely to the learning rate (b1 down to
+    min_momentum over the warmup and back over the decay)."""
+    if min_momentum is None:
+        return lambda count: b1
+    m_max, m_min = b1, min_momentum
+    warm = max(1, warmup_batches)
+    decay_steps = max(1, niteration - warm)
+
+    def schedule(count):
+        if count < warm:
+            frac = min(count / warm, 1.0)
+            return m_max + (m_min - m_max) * 0.5 * (1.0 - math.cos(
+                math.pi * frac))
+        frac = min(max((count - warm) / decay_steps, 0.0), 1.0)
+        return m_min + (m_max - m_min) * 0.5 * (1.0 - math.cos(
+            math.pi * frac))
+    return schedule
+
+
+class Optimizer:
+    """torch.optim.AdamW over `params` (in leaf order) with the learning
+    rate and beta1 of each step written into its param group from the
+    schedules before the step, as optax's inject_hyperparams does."""
+
+    def __init__(self, params, schedule, b1_schedule, b2, eps,
+                 weight_decay):
+        self.params = list(params)
+        self.schedule = schedule
+        self.b1_schedule = b1_schedule
+        self.b2 = b2
+        self.count = 0
+        self.opt = torch.optim.AdamW(
+            self.params, lr=schedule(0), betas=(b1_schedule(0), b2),
+            eps=eps, weight_decay=weight_decay)
+
+    def step(self, grads):
+        """One update with `grads` (one tensor per parameter)."""
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        group = self.opt.param_groups[0]
+        group["lr"] = self.schedule(self.count)
+        group["betas"] = (self.b1_schedule(self.count), self.b2)
+        self.opt.step()
+        self.count += 1
+
+
+def make_optimizer(params, lr_max, niteration, warmup_batches, lr_warmup,
+                   lr_min, adam_betas=(0.9, 0.999), eps=1e-6,
+                   weight_decay=0.01, min_momentum=None):
+    """AdamW with the one-cycle cosine learning rate (and optionally
+    momentum cycling) of the JAX package's make_optimizer.
+
+    Returns:
+        (Optimizer, schedule): schedule(count) is the learning rate of
+        step `count`.
+    """
+    schedule = make_schedule(lr_max, niteration, warmup_batches, lr_warmup,
+                             lr_min)
+    b1_schedule = make_b1_schedule(adam_betas[0], min_momentum, niteration,
+                                   warmup_batches)
+    return (Optimizer(params, schedule, b1_schedule, adam_betas[1], eps,
+                      weight_decay), schedule)
+
+
+def linear_ramp(start, final, niter):
+    """Per-iteration linear schedule (sharpening, mod factor)."""
+    def value(curr_iter):
+        return float(start + (final - start) * min(1.0, curr_iter / niter))
+    return value
+
+
+# -- gradient clipping -------------------------------------------------------
+
+class GradientCapper:
+    """Per-tensor clip by value at the rolling median + n MADs of recent
+    per-tensor gradient maxima (inf until the window fills)."""
+
+    def __init__(self, nparams, n_mads, window=1000):
+        from taiyaki_tpu_torch.maths import RollingMAD
+        self.rolling_mads = (None if n_mads is None
+                             else RollingMAD(nparams, n_mads, window))
+        self._threshs = np.full(nparams, np.inf, dtype=np.float32)
+
+    @property
+    def thresholds(self):
+        return self._threshs
+
+    def update(self, grad_maxs):
+        """Feed this step's per-tensor |grad| maxima; returns the
+        thresholds for the next step."""
+        if self.rolling_mads is None:
+            return self._threshs
+        out = self.rolling_mads.update(grad_maxs)
+        if out is not None:
+            self._threshs = np.asarray(out, dtype=np.float32)
+        return self._threshs
+
+
+# -- batch preparation -------------------------------------------------------
+
+Batch = namedtuple("Batch", ("signal", "seqs", "seqlens", "mod_cats"))
+
+
+def chunk_len_buckets(chunk_len_min, chunk_len_max, stride, nbuckets=8):
+    """Fixed set of chunk lengths (multiples of stride) spanning the
+    range."""
+    lo = max(stride, (chunk_len_min // stride) * stride)
+    hi = max(lo, (chunk_len_max // stride) * stride)
+    vals = np.unique(np.round(
+        np.linspace(lo, hi, nbuckets) / stride).astype(np.int64) * stride)
+    return [int(v) for v in vals]
+
+
+def max_seqlen_for_chunk(chunk_len, stride, path_buffer=1.1):
+    """Padded sequence length bound for a chunk length: a chunk passing the
+    path-buffer filter has seq_len < chunk_len / (stride * path_buffer)."""
+    return int(np.ceil(chunk_len / (stride * path_buffer)))
+
+
+def bucket_seqlen(actual_max_seqlen, bound, granularity=128):
+    """min(bound, ceil(actual/granularity)*granularity), at least
+    granularity; granularity None or 0 returns bound."""
+    if not granularity:
+        return bound
+    bucket = int(np.ceil(max(1, actual_max_seqlen) / granularity))
+    return min(bound, max(granularity, bucket * granularity))
+
+
+def sub_batch_size_for_chunk(min_sub_batch_size, chunk_len_max, chunk_len):
+    """Sub-batch size inversely proportional to the chunk length."""
+    return int(min_sub_batch_size * chunk_len_max / chunk_len + 0.5)
+
+
+def prepare_batch(chunks, chunk_len, max_seqlen, alphabet_info,
+                  reverse=False):
+    """Accepted chunks as padded numpy arrays.
+
+    Returns:
+        Batch(signal [chunk_len, n, 1] f32, seqs [n, max_seqlen] i32,
+              seqlens [n] i32, mod_cats None); chunks whose sequence is
+        longer than max_seqlen are dropped.
+    """
+    chunks = [c for c in chunks if c.seq_len <= max_seqlen]
+    n = len(chunks)
+    signal = np.zeros((chunk_len, n, 1), dtype=np.float32)
+    seqs = np.zeros((n, max_seqlen), dtype=np.int32)
+    seqlens = np.zeros(n, dtype=np.int32)
+    revop = np.flip if reverse else np.asarray
+    for i, chunk in enumerate(chunks):
+        signal[:, i, 0] = revop(chunk.current)
+        labels = revop(chunk.sequence)
+        seqlens[i] = len(labels)
+        coded = flipflopfings.flipflop_code(np.ascontiguousarray(labels),
+                                            alphabet_info.ncan_base)
+        seqs[i, :len(coded)] = coded
+    return Batch(signal, seqs, seqlens, None)
+
+
+def sample_batch(read_data, batch_chunk_len, sub_batch_size, max_seqlen,
+                 alphabet_info, filter_params, reverse=False,
+                 standardize=True, select_strands_randomly=True,
+                 first_strand_index=0, log=None, seqlen_granularity=None):
+    """Sample and filter chunks and assemble a Batch; with
+    seqlen_granularity, sequences pad to the smallest multiple of it that
+    fits the batch instead of to max_seqlen.
+
+    Returns:
+        (Batch, rejection_counts)
+    """
+    chunk_batch, rejections = chunk_selection.sample_chunks(
+        read_data, sub_batch_size, batch_chunk_len, filter_params,
+        standardize=standardize,
+        select_strands_randomly=select_strands_randomly,
+        first_strand_index=first_strand_index)
+    if len(chunk_batch) < sub_batch_size and log is not None:
+        log.write("* Warning: only {} chunks passed filters (asked for "
+                  "{}).\n".format(len(chunk_batch), sub_batch_size))
+    if seqlen_granularity:
+        actual = max((c.seq_len for c in chunk_batch), default=1)
+        max_seqlen = bucket_seqlen(actual, max_seqlen, seqlen_granularity)
+    batch = prepare_batch(chunk_batch, batch_chunk_len, max_seqlen,
+                          alphabet_info, reverse=reverse)
+    return batch, rejections
+
+
+def batch_to_device(batch, device):
+    """A numpy Batch as tensors on `device`."""
+    return Batch(torch.from_numpy(np.ascontiguousarray(batch.signal))
+                 .to(device),
+                 torch.from_numpy(batch.seqs).to(device),
+                 torch.from_numpy(batch.seqlens).to(device), None)
+
+
+# -- loss & step -------------------------------------------------------------
+
+def make_loss_fn(net):
+    """Training loss of a batch on the device: CRF flip-flop loss +
+    logZ/nblk per row, averaged over the rows with a sequence (rows with
+    seqlens == 0 are padding and cost nothing)."""
+
+    def loss_fn(batch, sharpen):
+        outputs = net(batch.signal)
+        nblk = outputs.shape[0]
+        lossvector = ffops.crf_flipflop_loss(outputs, batch.seqs,
+                                             batch.seqlens, sharpen)
+        logz = ffops.flipflop_logz(outputs) / nblk
+        real = batch.seqlens > 0
+        lossvector = lossvector + torch.where(real, logz,
+                                              torch.zeros_like(logz))
+        nvalid = torch.clamp(real.sum(), min=1)
+        return lossvector.sum() / nvalid
+
+    return loss_fn
+
+
+def leaf_params(net):
+    """`net`'s parameters in the JAX parameter pytree's leaf order."""
+    named = dict(net.named_parameters())
+    return [named[name] for name in leaf_names(net)]
+
+
+def make_grad_step(net):
+    """(loss, grads in leaf order) of one sub-batch."""
+    loss_fn = make_loss_fn(net)
+    params = leaf_params(net)
+
+    def gstep(batch, sharpen):
+        loss = loss_fn(batch, sharpen)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        return loss.detach(), grads
+
+    return gstep
+
+
+def accumulate_grads(acc, grads):
+    """Running sum of gradient lists."""
+    if acc is None:
+        return [g.clone() for g in grads]
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    return acc
+
+
+def make_apply_step(optimizer):
+    """Average accumulated grads over n_sub, measure each tensor's max
+    |grad|, clip by value at clip_threshs and take one optimizer step.
+    Returns grad_maxs (a tensor, in leaf order)."""
+
+    def astep(grads, n_sub, clip_threshs):
+        grads = [g / n_sub for g in grads]
+        grad_maxs = torch.stack([g.abs().max() for g in grads])
+        clipped = [torch.clamp(g, -float(t), float(t))
+                   for g, t in zip(grads, clip_threshs)]
+        optimizer.step(clipped)
+        return grad_maxs
+
+    return astep
+
+
+def make_train_step(net, optimizer):
+    """step(batch, sharpen, clip_threshs) -> (loss, grad_maxs): forward,
+    backward, clip and update in one call."""
+    gstep = make_grad_step(net)
+    astep = make_apply_step(optimizer)
+
+    def step(batch, sharpen, clip_threshs):
+        loss, grads = gstep(batch, sharpen)
+        return loss, astep(grads, 1.0, clip_threshs)
+
+    return step

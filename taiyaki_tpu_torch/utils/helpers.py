@@ -18,14 +18,19 @@ needs only `params`.
 """
 
 import builtins
+import hashlib
 import os
 import pickle
+import platform
 import re
 import sys
+import time
 import types
 import warnings
 
-from taiyaki_tpu_torch import MODEL_VERSION
+import numpy as np
+
+from taiyaki_tpu_torch import MODEL_VERSION, __version__
 from taiyaki_tpu_torch.alphabet import AlphabetInfo
 
 
@@ -239,3 +244,94 @@ def open_file_or_stdout(filename):
     if filename is None or filename == "-":
         return _StdoutGuard()
     return open(filename, "w")
+
+
+# -- training logs -------------------------------------------------------------
+
+class WindowedExpSmoother:
+    """Exponentially-weighted average over a fixed window of the newest
+    values."""
+
+    def __init__(self, alpha=0.95, n_vals=100):
+        assert 0.0 <= alpha <= 1.0
+        self.alpha = alpha
+        self.weights = np.power(alpha, np.arange(n_vals))
+        self.vals = np.full(n_vals, np.nan)
+        self.n_valid = 0
+
+    @property
+    def value(self):
+        if self.n_valid == 0:
+            return np.nan
+        n = min(self.n_valid, len(self.vals))
+        return np.average(self.vals[:n], weights=self.weights[:n])
+
+    def update(self, val):
+        self.vals[1:] = self.vals[:-1]
+        self.vals[0] = val
+        self.n_valid += 1
+
+
+class Logger:
+    """Tee log messages to an unbuffered file and stdout."""
+
+    def __init__(self, log_file_name=None, quiet=False):
+        self.fh = (None if log_file_name is None
+                   else open(log_file_name, "wb", 0))
+        self.quiet = quiet
+
+    def write(self, message):
+        if not self.quiet:
+            sys.stdout.write(message)
+            sys.stdout.flush()
+        if self.fh is not None:
+            self.fh.write(message.encode("utf-8"))
+
+    def close(self):
+        if self.fh is not None:
+            self.fh.close()
+            self.fh = None
+
+
+def file_md5(filename, nblock=1024):
+    """MD5 hex digest of a file."""
+    hasher = hashlib.md5()
+    block_size = nblock * hasher.block_size
+    with open(filename, "rb") as fh:
+        for blk in iter(lambda: fh.read(block_size), b""):
+            hasher.update(blk)
+    return hasher.hexdigest()
+
+
+def prepare_outdir(outdir, overwrite=False):
+    """Create the output directory; refuse to reuse one unless
+    overwrite."""
+    if os.path.exists(outdir):
+        if not overwrite:
+            sys.exit("Output directory {} exists — use --overwrite to "
+                     "proceed".format(outdir))
+        if not os.path.isdir(outdir):
+            raise NotADirectoryError(
+                "{} exists and is not a directory".format(outdir))
+    else:
+        os.makedirs(outdir, exist_ok=True)
+
+
+def formatted_env_info(device):
+    """Provenance header for model.log."""
+    import torch
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else platform.processor() or "cpu")
+    lines = [
+        "* Taiyaki-TPU (PyTorch port) version {}".format(__version__),
+        "* Platform is {}".format(platform.platform()),
+        "* Python is {}".format(sys.executable),
+        "* Python version is {}".format(sys.version.replace("\n", " ")),
+        "* PyTorch version {} (CUDA {})".format(torch.__version__,
+                                               torch.version.cuda),
+        "* Using device {} ({})".format(device, name),
+        "* Command line:",
+        "* \"" + " ".join(sys.argv) + "\"",
+        "* Started on {}".format(time.strftime("%c")),
+    ]
+    return "\n".join(lines) + "\n"

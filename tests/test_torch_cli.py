@@ -1,5 +1,6 @@
-"""The port's basecall CLI end to end on the CPU, against bin/basecall.py;
-the import guard; the device default; unported models.
+"""The port's basecall CLI end to end on the CPU, against bin/basecall.py
+(repeated read ids included); the import guard over every module of the
+port and chip_smoke.py; the device default; unported models.
 
 The JAX CLI runs once (module fixture), as its compile dominates."""
 
@@ -157,6 +158,35 @@ def test_cli_unported_options_stop(calls, flag):
         basecall.main(flag + ["--device", "cpu", reads, model])
 
 
+def test_duplicate_read_ids_get_a_record_each(calls, tmp_path):
+    """One read id in two fast5 files: both CLIs write a record for each
+    copy, and their fastas are identical."""
+    _, _, model, _ = calls
+    reads = tmp_path / "dup"
+    reads.mkdir()
+    write_reads(str(reads / "a.fast5"), [900, 1300], seed=3)
+    write_reads(str(reads / "b.fast5"), [900], seed=3)
+    common = ["--device", "cpu", "--chunk_size", str(CHUNK), "--overlap",
+              str(OVERLAP), "--quiet", str(reads), model]
+    text = {}
+    for tag, cmd in (
+            ("jax", [sys.executable, os.path.join(REPO, "bin", "basecall.py"),
+                     "--ndevices", "1"]),
+            ("port", [sys.executable, "-m",
+                      "taiyaki_tpu_torch.cli.basecall"])):
+        path = str(tmp_path / (tag + ".fa"))
+        r = subprocess.run(cmd + ["--output", path] + common, cwd=REPO,
+                           env=_env(), capture_output=True, text=True,
+                           timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        with open(path) as fh:
+            text[tag] = fh.read()
+    headers = [line for line in text["port"].splitlines()
+               if line.startswith(">")]
+    assert sorted(headers) == [">read00", ">read00", ">read01"]
+    assert text["port"] == text["jax"]
+
+
 def test_mgru_checkpoint_raises_naming_grumod():
     from taiyaki_tpu_torch.utils import helpers
     ckpt = os.path.join(REPO, "taiyaki_tpu", "models",
@@ -192,6 +222,10 @@ def test_port_sources_import_no_jax():
 
 def test_importing_the_cli_loads_no_jax():
     code = ("import sys, taiyaki_tpu_torch.cli.basecall, "
+            "taiyaki_tpu_torch.cli.train_flipflop, taiyaki_tpu_torch.train, "
+            "taiyaki_tpu_torch.ops.crf, taiyaki_tpu_torch.ops.rnn, "
+            "taiyaki_tpu_torch.data.mapped_signal_files, "
+            "taiyaki_tpu_torch.data.chunk_selection, "
             "taiyaki_tpu_torch.models.mLstm_flipflop, "
             "taiyaki_tpu_torch.utils.helpers; "
             "print(sorted(m for m in sys.modules "

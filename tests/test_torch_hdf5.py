@@ -71,6 +71,67 @@ def test_reader_walks_large_symbol_tables(tmp_path):
         assert f["g0123"].attrs["i"] == 123
 
 
+@pytest.mark.parametrize("name", ["mapped_remap_samref.hdf5",
+                                  "mapped_remap_modref.hdf5"])
+def test_reader_reads_chunked_mapped_signal_files(name):
+    """The repo's mapped reads: every dataset chunked with deflate and
+    shuffle, read_ids a chunked, gzipped variable-length string dataset,
+    groups in creation order."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "RESULTS", "training_ingredients", name)
+    with hdf5.File(path) as ours, h5py.File(path, "r") as theirs:
+        assert list(ours.keys()) == list(theirs.keys())
+        assert [v.decode() for v in theirs["read_ids"][()]] == \
+            list(ours["read_ids"][()])
+        assert dict(ours.attrs).keys() == dict(theirs.attrs).keys()
+        _same(ours["Reads"], theirs["Reads"])
+
+
+def test_reader_reads_chunked_nd_datasets(tmp_path):
+    """2-D chunks with ragged edges, gzip and shuffle, a chunk never
+    written (fill zeros), enough chunks for a B-tree of more than one
+    level; a filter it does not know is refused."""
+    path = str(tmp_path / "c.h5")
+    rng = np.random.default_rng(2)
+    want = {
+        "ints": rng.integers(-9999, 9999, (37, 23)).astype("i4"),
+        "floats": rng.normal(size=(41, 5)).astype("f8"),
+        "long": rng.integers(0, 100, 20000).astype("i2"),
+    }
+    with h5py.File(path, "w") as f:
+        f.create_dataset("ints", data=want["ints"], chunks=(8, 5),
+                         compression="gzip", shuffle=True)
+        f.create_dataset("checked", data=want["ints"], chunks=(8, 5),
+                         fletcher32=True)
+        f.create_dataset("floats", data=want["floats"], chunks=(7, 5),
+                         compression="gzip")
+        f.create_dataset("long", data=want["long"], chunks=(50,),
+                         shuffle=True)
+        sparse = f.create_dataset("sparse", shape=(30,), dtype="f4",
+                                  chunks=(10,), compression="gzip")
+        sparse[12:15] = [1.0, 2.0, 3.0]
+    with hdf5.File(path) as ours:
+        for k, v in want.items():
+            got = ours[k][()]
+            assert got.dtype == v.dtype
+            np.testing.assert_array_equal(got, v)
+        np.testing.assert_array_equal(
+            ours["sparse"][()], np.r_[[0.0] * 12, [1, 2, 3], [0.0] * 15])
+        with pytest.raises(NotImplementedError, match="filter 3"):
+            ours["checked"][()]
+
+
+def test_reader_follows_tracked_creation_order(tmp_path):
+    path = str(tmp_path / "o.h5")
+    names = ["zeta", "alpha", "mid"]
+    with h5py.File(path, "w", track_order=True) as f:
+        for n in names:
+            f.create_group(n)
+    with hdf5.File(path) as ours, h5py.File(path, "r") as theirs:
+        assert list(ours.keys()) == list(theirs.keys()) == names
+
+
 def test_writer_output_reads_in_h5py(tmp_path):
     path = str(tmp_path / "w.fast5")
     rng = np.random.default_rng(1)

@@ -1,0 +1,348 @@
+"""The port's training stack on the CPU against the JAX package: optimizer
+schedules against optax, one whole training step of mLstm_flipflop at size
+16 against train.make_train_step + optax, the sub-batch path, batch
+helpers, the data path on the repo's mapped reads, and the training CLI
+against bin/train_flipflop.py.
+
+Tolerances: schedules 1e-5 relative (optax evaluates them in f32, and its
+cosine interpolation end + (start - end) * k cancels digits near lr_min
+by up to lr_max / lr_min); loss
+1e-5 relative and each gradient 1e-4 of its tensor's largest value (f32
+through 5 recurrent layers and the lattice in another order).  Parameters
+after one AdamW step: Adam divides by sqrt(v) + eps with eps = 1e-6, so a
+gradient difference d moves an update by up to lr * d / eps; the bound is
+lr * max|d grad| / eps + 1e-6 * |param| (f32 rounding of the parameter).
+The CLI's batch.log losses: 1e-5 relative at the first iteration, then
+1e-4 (the same Adam bound carried through later steps)."""
+
+import os
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from taiyaki_tpu import train as jtrain
+from taiyaki_tpu.data import chunk_selection as jcs
+from taiyaki_tpu.data import mapped_signal_files as jmsf
+from taiyaki_tpu.models import mLstm_flipflop as jmodel
+from taiyaki_tpu_torch import train as ttrain
+from taiyaki_tpu_torch.convert import leaf_names, load_jax_params
+from taiyaki_tpu_torch.data import chunk_selection as tcs
+from taiyaki_tpu_torch.data import hdf5
+from taiyaki_tpu_torch.data import mapped_signal_files as tmsf
+from taiyaki_tpu_torch.models import mLstm_flipflop as tmodel
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+READS = os.path.join(REPO, "RESULTS", "training_ingredients",
+                     "mapped_remap_samref.hdf5")
+
+
+def _env():
+    """The subprocess environment: CPU, and one JAX device (the suite's
+    conftest asks for 8 virtual ones, which would put bin/train_flipflop.py
+    on its data-parallel mesh path with another batch size)."""
+    flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
+                     if "xla_force_host_platform_device_count" not in f)
+    return dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
+                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                              ""))
+
+
+@pytest.mark.parametrize("warmup,min_momentum", [(3, None), (3, 0.85),
+                                                 (0, None)])
+def test_schedules_match_optax_over_a_cycle(warmup, min_momentum):
+    niter = 12
+    opt, sched = jtrain.make_optimizer(4e-3, niter, warmup, 2e-4, 1e-4,
+                                       min_momentum=min_momentum)
+    lr = ttrain.make_schedule(4e-3, niter, warmup, 2e-4, 1e-4)
+    b1 = ttrain.make_b1_schedule(0.9, min_momentum, niter, warmup)
+    want_lr = np.array([float(sched(k)) for k in range(niter + 2)])
+    np.testing.assert_allclose([lr(k) for k in range(niter + 2)], want_lr,
+                               rtol=1e-5)
+    if min_momentum is None:
+        assert all(b1(k) == 0.9 for k in range(niter))
+        return
+    p = {"a": jnp.ones(2)}
+    state = opt.init(p)
+    want_b1 = []
+    for _ in range(niter):
+        _, state = opt.update({"a": jnp.zeros(2)}, state, p)
+        want_b1.append(float(state.hyperparams["b1"]))
+    np.testing.assert_allclose([b1(k) for k in range(niter)], want_b1,
+                               rtol=1e-5)
+
+
+def test_batch_helpers_match_jax():
+    assert ttrain.chunk_len_buckets(3000, 8000, 5) == \
+        jtrain.chunk_len_buckets(3000, 8000, 5)
+    assert ttrain.chunk_len_buckets(300, 400, 2, 3) == \
+        jtrain.chunk_len_buckets(300, 400, 2, 3)
+    for args in ((4000, 5), (8000, 5, 1.2)):
+        assert ttrain.max_seqlen_for_chunk(*args) == \
+            jtrain.max_seqlen_for_chunk(*args)
+    for args in ((300, 728), (1, 728), (700, 728), (300, 728, None)):
+        assert ttrain.bucket_seqlen(*args) == jtrain.bucket_seqlen(*args)
+    assert ttrain.sub_batch_size_for_chunk(128, 8000, 3000) == \
+        jtrain.sub_batch_size_for_chunk(128, 8000, 3000)
+    ramp_t, ramp_j = (m.linear_ramp(1.0, 3.0, 4) for m in (ttrain, jtrain))
+    assert [ramp_t(i) for i in range(6)] == [ramp_j(i) for i in range(6)]
+
+
+def test_gradient_capper_matches_jax():
+    rng = np.random.default_rng(0)
+    caps = (ttrain.GradientCapper(3, 2.0, window=5),
+            jtrain.GradientCapper(3, 2.0, window=5))
+    for _ in range(8):
+        g = rng.uniform(size=3)
+        got, want = (c.update(g) for c in caps)
+        np.testing.assert_array_equal(got, want)
+    assert np.isfinite(caps[0].thresholds).all()
+    assert np.isinf(ttrain.GradientCapper(2, None).update([1.0, 2.0])).all()
+
+
+@pytest.mark.parametrize("reader", ["h5py", "own"])
+def test_reads_and_chunks_match_jax(reader, monkeypatch):
+    """The port's reader (through h5py, or through data.hdf5 as on a
+    machine without h5py) gives the JAX reader's reads in its order, and
+    one numpy seed draws the same filter parameters and chunks."""
+    if reader == "own":
+        monkeypatch.setattr(tmsf, "open_file", hdf5.File)
+    with jmsf.MappedSignalReader(READS) as msr:
+        jreads = list(msr.reads())
+    with tmsf.MappedSignalReader(READS) as msr:
+        treads = list(msr.reads())
+        assert msr.get_alphabet_information().alphabet == "ACGT"
+        assert sorted(msr.get_read_ids()) == sorted(r.read_id for r in jreads)
+    assert [r.read_id for r in treads] == [r.read_id for r in jreads]
+    for a, b in zip(treads, jreads):
+        for k in ("Dacs", "Ref_to_signal", "Reference"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+        assert (a.shift_frompA, a.scale_frompA) == (b.shift_frompA,
+                                                    b.scale_frompA)
+    out = []
+    for reads, cs in ((jreads, jcs), (treads, tcs)):
+        np.random.seed(3)
+        fp = cs.sample_filter_parameters(reads, 50, 4000, 3.0, 10.0, 0.5, 5,
+                                         1.1)
+        chunks, rej = cs.sample_chunks(reads, 12, 4000, fp)
+        out.append((tuple(fp), dict(rej), chunks))
+    assert out[0][0] == out[1][0] and out[0][1] == out[1][1]
+    assert len(out[0][2]) == len(out[1][2]) == 12
+    for a, b in zip(out[0][2], out[1][2]):
+        assert (a.read_id, a.start_sample) == (b.read_id, b.start_sample)
+        np.testing.assert_array_equal(a.current, b.current)
+        np.testing.assert_array_equal(a.sequence, b.sequence)
+
+
+def _batch(seed, n=6, chunk_len=500):
+    """One seeded batch from the repo's reads, drawn by the JAX package's
+    sampler (the port's is held equal to it above)."""
+    with jmsf.MappedSignalReader(READS) as msr:
+        alphabet = msr.get_alphabet_information()
+        reads = list(msr.reads())
+    np.random.seed(seed)
+    fp = jcs.sample_filter_parameters(reads, 50, chunk_len, 3.0, 10.0, 0.5,
+                                      5, 1.1)
+    batch, _ = jtrain.sample_batch(reads, chunk_len, n,
+                                   jtrain.max_seqlen_for_chunk(chunk_len, 5),
+                                   alphabet, fp, seqlen_granularity=128)
+    batch = jtrain.Batch(batch.signal, batch.seqs, batch.seqlens.copy(),
+                         None)
+    batch.seqlens[-1] = 0               # one padding row, as _pad_batch
+    return batch
+
+
+def _to_jax(batch):
+    return jtrain.Batch(*(None if a is None else jnp.asarray(a)
+                          for a in batch))
+
+
+def _nets(seed):
+    jnet = jmodel.network(size=16, stride=5, winlen=19)
+    params = jnet.init(np.random.default_rng(seed))
+    tnet = load_jax_params(tmodel.network(size=16, stride=5, winlen=19),
+                           params)
+    return jnet, params, tnet
+
+
+def _check_params_after_step(tnet, new_params, grad_diff, lr):
+    want = jax.tree.leaves(new_params)
+    named = dict(tnet.named_parameters())
+    for name, w, d in zip(leaf_names(tnet), want, grad_diff):
+        got = named[name].detach().numpy()
+        w = np.asarray(w)
+        tol = lr * d / 1e-6 + 1e-6 * np.abs(w) + 1e-7
+        assert (np.abs(got - w) <= tol).all(), name
+
+
+def test_train_step_matches_jax():
+    """Loss, every gradient in the JAX leaf order, grad_maxs and the
+    parameters after one clipped AdamW step."""
+    batch = _batch(seed=2)
+    jnet, params, tnet = _nets(seed=7)
+    lr0 = 1e-4
+    opt, _ = jtrain.make_optimizer(4e-3, 10, 2, lr0, 1e-4)
+    threshs = np.full(len(jax.tree.leaves(params)), np.inf, np.float32)
+    threshs[0] = 1e-3                     # clip one tensor
+    jloss, jgrads = jax.value_and_grad(jtrain.make_loss_fn(jnet))(
+        params, _to_jax(batch), 1.0)
+    new_params, _, jloss2, jmaxs = jax.jit(jtrain.make_train_step(jnet, opt))(
+        params, opt.init(params), _to_jax(batch), 1.0, 1.0,
+        jnp.asarray(threshs))
+
+    named = dict(tnet.named_parameters())
+    topt, _ = ttrain.make_optimizer([named[n] for n in leaf_names(tnet)],
+                                    4e-3, 10, 2, lr0, 1e-4)
+    tbatch = ttrain.batch_to_device(batch, torch.device("cpu"))
+    tloss, tgrads = ttrain.make_grad_step(tnet)(tbatch, 1.0)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    diffs = []
+    for g, w in zip(tgrads, jax.tree.leaves(jgrads)):
+        w = np.asarray(w)
+        d = np.abs(g.numpy() - w).max()
+        assert d <= 1e-4 * max(np.abs(w).max(), 1e-30), d
+        diffs.append(d)
+    tmaxs = ttrain.make_apply_step(topt)(tgrads, 1.0, threshs)
+    np.testing.assert_allclose(tmaxs.numpy(), np.asarray(jmaxs), rtol=1e-4)
+    assert float(jloss2) == pytest.approx(float(jloss), rel=1e-6)
+    _check_params_after_step(tnet, new_params, diffs, lr0)
+
+
+def test_sub_batch_accumulation_matches_jax():
+    """Two sub-batches accumulated, averaged, clipped and applied once."""
+    batches = [_batch(seed=4, n=4), _batch(seed=5, n=4)]
+    jnet, params, tnet = _nets(seed=8)
+    lr0 = 2e-4
+    opt, _ = jtrain.make_optimizer(4e-3, 10, 2, lr0, 1e-4)
+    nleaf = len(jax.tree.leaves(params))
+    threshs = np.full(nleaf, np.inf, np.float32)
+    gstep = jax.jit(jtrain.make_grad_step(jnet))
+    acc = None
+    for b in batches:
+        _, g = gstep(params, _to_jax(b), 1.0, 1.0)
+        acc = jtrain.accumulate_grads(acc, g)
+    new_params, _, jmaxs = jtrain.make_apply_step(opt)(
+        params, opt.init(params), acc, 2.0, jnp.asarray(threshs))
+
+    named = dict(tnet.named_parameters())
+    topt, _ = ttrain.make_optimizer([named[n] for n in leaf_names(tnet)],
+                                    4e-3, 10, 2, lr0, 1e-4)
+    tgstep = ttrain.make_grad_step(tnet)
+    tacc = None
+    for b in batches:
+        _, g = tgstep(ttrain.batch_to_device(b, torch.device("cpu")), 1.0)
+        tacc = ttrain.accumulate_grads(tacc, g)
+    diffs = [float(np.abs(g.numpy() - np.asarray(w)).max())
+             for g, w in zip(tacc, jax.tree.leaves(acc))]
+    tmaxs = ttrain.make_apply_step(topt)(tacc, 2.0, threshs)
+    np.testing.assert_allclose(tmaxs.numpy(), np.asarray(jmaxs), rtol=1e-4)
+    _check_params_after_step(tnet, new_params, [d / 2 for d in diffs], lr0)
+
+
+CLI_ARGS = ["--device", "cpu", "--size", "16", "--stride", "2", "--winlen",
+            "9", "--niteration", "3", "--warmup_batches", "1",
+            "--chunk_len_min", "300", "--chunk_len_max", "400",
+            "--min_sub_batch_size", "4", "--save_every", "2",
+            "--sample_nreads_before_filtering", "50",
+            "--reporting_sub_batches", "10", "--seed", "5", "--quiet"]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """bin/train_flipflop.py and the port's CLI, same arguments and seed,
+    mLstm_flipflop on the repo's mapped reads."""
+    d = tmp_path_factory.mktemp("train")
+    out = {}
+    for tag, cmd, model in (
+            ("jax", [os.path.join(REPO, "bin", "train_flipflop.py")],
+             os.path.join(REPO, "taiyaki_tpu", "models",
+                          "mLstm_flipflop.py")),
+            ("port", ["-m", "taiyaki_tpu_torch.cli.train_flipflop"],
+             os.path.join(REPO, "taiyaki_tpu_torch", "models",
+                          "mLstm_flipflop.py"))):
+        outdir = str(d / tag)
+        r = subprocess.run([sys.executable] + cmd + CLI_ARGS
+                           + ["--outdir", outdir, model, READS], cwd=REPO,
+                           env=_env(), capture_output=True, text=True,
+                           timeout=900)
+        assert r.returncode == 0, r.stderr[-3000:]
+        out[tag] = outdir
+    return out
+
+
+def _log(outdir, name):
+    with open(os.path.join(outdir, name)) as fh:
+        return [line.split("\t") for line in fh.read().splitlines()]
+
+
+def test_cli_batch_log_matches_jax(trained):
+    jrows, trows = (_log(trained[k], "batch.log") for k in ("jax", "port"))
+    assert trows[0] == jrows[0]
+    assert len(trows) == len(jrows) == 4
+    for i, (t, j) in enumerate(zip(trows[1:], jrows[1:])):
+        assert (t[0], t[3], t[5]) == (j[0], j[3], j[5])
+        rtol = 1e-5 if i == 0 else 1e-4
+        np.testing.assert_allclose(float(t[1]), float(j[1]), rtol=rtol)
+        np.testing.assert_allclose(
+            [float(v) for v in t[2].split(",")],
+            [float(v) for v in j[2].split(",")], rtol=10 * rtol)
+        np.testing.assert_allclose(float(t[4]), float(j[4]), rtol=1e-5)
+    jval, tval = (_log(trained[k], "validation.log") for k in ("jax",
+                                                              "port"))
+    assert [r[0] for r in tval] == [r[0] for r in jval] == ["iter", "2"]
+    np.testing.assert_allclose(float(tval[1][1]), float(jval[1][1]),
+                               rtol=1e-4)
+
+
+def test_cli_checkpoint_loads_in_jax(trained):
+    """The port's final checkpoint loads in the JAX package with the
+    port's parameters and equals the JAX run's within the Adam bound."""
+    from taiyaki_tpu.utils import helpers as jhelpers
+    net, params, _, meta, kwargs, opt_state = jhelpers.load_model(
+        os.path.join(trained["port"], "model_final.checkpoint"))
+    _, jparams, *_ = jhelpers.load_model(
+        os.path.join(trained["jax"], "model_final.checkpoint"))
+    with open(os.path.join(trained["port"], "model_final.params"),
+              "rb") as fh:
+        raw = pickle.load(fh)
+    assert opt_state is None and meta["version"] == 3
+    assert kwargs["alphabet_info"].alphabet == "ACGT"
+    got, want = jax.tree.leaves(params), jax.tree.leaves(jparams)
+    assert jax.tree.structure(params) == jax.tree.structure(jparams)
+    for g, w, r in zip(got, want, jax.tree.leaves(raw)):
+        np.testing.assert_array_equal(g, r)
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-5)
+    x = np.random.default_rng(0).normal(size=(60, 2, 1)).astype(np.float32)
+    assert np.isfinite(np.asarray(net.apply(params, jnp.asarray(x)))).all()
+    for name in ("model.log", "model_checkpoint_00001.checkpoint",
+                 "model_checkpoint_00001.params"):
+        assert os.path.exists(os.path.join(trained["port"], name))
+
+
+def test_cli_default_device_is_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    r = subprocess.run(
+        [sys.executable, "-m", "taiyaki_tpu_torch.cli.train_flipflop",
+         "--outdir", str(tmp_path / "o"), "--niteration", "2",
+         os.path.join(REPO, "taiyaki_tpu_torch", "models",
+                      "mLstm_flipflop.py"), READS], cwd=REPO, env=_env(),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "CUDA" in r.stderr
+
+
+@pytest.mark.parametrize("flag", [["--multihost"], ["--remat"],
+                                  ["--mod_prior_factor", "1.0"]])
+def test_cli_unported_options_stop(flag, tmp_path):
+    from taiyaki_tpu_torch.cli import train_flipflop
+    with pytest.raises(SystemExit, match="not ported"):
+        train_flipflop.main(flag + [
+            "--device", "cpu", "--outdir", str(tmp_path / "o"),
+            os.path.join(REPO, "taiyaki_tpu_torch", "models",
+                         "mLstm_flipflop.py"), READS])
