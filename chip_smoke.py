@@ -8,31 +8,44 @@ card; run from the root of a checkout:
 2. Kernels: each against its plain PyTorch twin on the card, with its time
    (CUDA events), the twin's time, one PyTorch call computing the same
    function where there is one, and its bound.  Basecall kernels at the
-   basecall path's shapes (T=1000 blocks, B=128 chunks, H=256, S=40);
-   training kernels at the production training shape (T=800 blocks,
-   B=256 chunks, H=D=256, L=512 lattice positions, S=40): the LSTM
-   forward with its backward residuals, the LSTM backward (both
-   directions) and the CRF forward and backward.
-3. Training path: `taiyaki_tpu_torch.cli.train_flipflop` on the card, on
-   the repo's mapped reads (RESULTS/training_ingredients/
-   mapped_remap_samref.hdf5), mLstm_flipflop 256/5/19, chunk 4000,
-   256 chunks per batch, 8 iterations: every loss finite, checkpoints
-   written, every kernel of the path launched.
-4. Card against CPU: one training step (loss and every gradient) on the
-   same batch and seeded weights at full width, 8 chunks.
-5. Basecall path: the trained checkpoint of phase 3 calls synthetic fast5
-   reads (8 x 100k samples and one read shorter than a chunk) through
-   `taiyaki_tpu_torch.cli.basecall` with its defaults, fasta and fastq.
-   Two reads are called again on the CPU: the calls must be equal, or,
-   where a Viterbi tie flips a base, the card's path must score the CPU's
-   best score within 1e-4 under the CPU's scores.
-6. Profiles: stage wall times and device time by kernel of one basecall
-   batch and of one training step (torch.profiler).
-7. A `kernels` JSON line, the card line, and the result line
+   basecall path's shapes (T=1000 blocks, B=128 chunks, H=256, S=40; the
+   GRU forward also at H=96, the shipped remap model's width); LSTM and
+   CRF training kernels at the mLstm training shape (T=800 blocks, B=256
+   chunks, H=D=256, L=512 lattice positions, S=40); the CRF again at
+   L=3712 (T=4000, above the mGru default chunk range's bound of 3637);
+   the GRU forward and recomputing backward at the mGru training shape
+   (T=2000, B=256, H=D=256), both directions.
+3. mLstm_flipflop 256/5/19, as in the earlier slices:
+   a. training path: `taiyaki_tpu_torch.cli.train_flipflop` on the
+      repo's mapped reads (RESULTS/training_ingredients/
+      mapped_remap_samref.hdf5), chunk 4000, 256 chunks per batch, 8
+      iterations: every loss finite, checkpoints written, every kernel of
+      the path launched;
+   b. card against CPU: one training step (loss and every gradient) on
+      the same batch and seeded weights at full width, 8 chunks;
+   c. basecall path: the trained checkpoint of (a) calls synthetic fast5
+      reads (8 x 100k samples and one read shorter than a chunk) through
+      `taiyaki_tpu_torch.cli.basecall` with its defaults, fasta and
+      fastq.  Two reads are called again on the CPU: the calls must be
+      equal, or, where a Viterbi tie flips a base, the card's path must
+      score the CPU's best score within 1e-4 under the CPU's scores;
+   d. profiles: stage wall times and device time by kernel of one
+      basecall batch and of one training step (torch.profiler).
+4. mGru_flipflop 256/2/19 (this slice), the same phases: (a) training,
+   chunk 4000 (T=2000 blocks), 256 chunks, 8 iterations; (b) card
+   against CPU, 8 chunks; (c) basecalling synthetic reads with a seeded
+   checkpoint at size 256 (a briefly trained one calls few bases), and
+   the three real reads of the mapped reads, written as fast5, with the
+   shipped remap checkpoint (taiyaki_tpu/models/mGru_flipflop_remapping_
+   model_r9_DNA.checkpoint): every read gets a record, the card's calls
+   equal the CPU's (or the tie rule of 3c), and each call's semi-global
+   identity against the read's reference is at least 0.80; (d) profiles.
+5. A `kernels` JSON line, the card line, and the result line
    {"ok": true, "device": {...}}.
 
-Exits non-zero, printing no result line, if there is no card or any phase
-fails.  Imports nothing of JAX.
+Every kernel counter is set to 0 just before each path and read just
+after.  Exits non-zero, printing no result line, if there is no card or
+any phase fails.  Imports nothing of JAX.
 """
 
 import argparse
@@ -53,9 +66,23 @@ PEAK_BYTES_PER_S = 3.35e12
 T, B, H, NBASE = 1000, 128, 256, 4
 # production training shape (misc/rnn_roofline.py, misc/crf_fusion_probe.py)
 TT, TB, TL, S = 800, 256, 512, 40
+# samples per training chunk, and the mGru training shape (bench.py's mGru
+# cell: chunk 4000 at stride 2)
+CHUNK = 4000
+GT = 2000
+# a lattice above the mGru default chunk range's bound, ceil(8000 / 2.2)
+# = 3637 positions, padded to a multiple of 128
+LT, LB, LL = 4000, 64, 3712
 ROOT = os.path.dirname(os.path.abspath(__file__))
 READS_HDF5 = os.path.join(ROOT, "RESULTS", "training_ingredients",
                           "mapped_remap_samref.hdf5")
+REMAP_MODEL = os.path.join(ROOT, "taiyaki_tpu", "models",
+                           "mGru_flipflop_remapping_model_r9_DNA.checkpoint")
+# the two model files of the port's paths: (name, file, stride)
+MLSTM = ("mLstm_flipflop", os.path.join(
+    ROOT, "taiyaki_tpu_torch", "models", "mLstm_flipflop.py"), 5)
+MGRU = ("mGru_flipflop", os.path.join(
+    ROOT, "taiyaki_tpu_torch", "models", "mGru_flipflop.py"), 2)
 
 
 class SmokeFailure(Exception):
@@ -295,15 +322,20 @@ def check_lstm_train(torch, dev, rng):
         bound_by=b_by, library_ms=lib_b)
 
 
-def check_crf(torch, dev, rng):
-    """The CRF forward and backward at the production training shape
-    against their twins (no PyTorch call computes either)."""
+def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5):
+    """The CRF forward and backward at T=tt, B=tb, L=tl against their
+    twins (no PyTorch call computes either).  The gradient is held to
+    g_tol: 1e-5 at the training shape; over T=4000 steps the log-space
+    forward and backward lattices and the score of kernel and twin each
+    drift apart by up to their 1e-4 tolerance, a posterior p =
+    exp(fwd + bwd - score) moves by at most 3e-4 p, and a gradient
+    entry sums posteriors of total at most 1, so 3e-4 there."""
     from taiyaki_tpu_torch import flipflopfings
     from taiyaki_tpu_torch.ops import crf, flipflop
-    lp = _tensor(torch, dev, rng.normal(size=(TT, TB, S)))
-    seqlens = rng.integers(TL // 2, TL + 1, size=TB).astype(np.int32)
-    seqs = np.zeros((TB, TL), np.int32)
-    for i in range(TB):
+    lp = _tensor(torch, dev, rng.normal(size=(tt, tb, S)))
+    seqlens = rng.integers(tl // 2, tl + 1, size=tb).astype(np.int32)
+    seqs = np.zeros((tb, tl), np.int32)
+    for i in range(tb):
         seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(
             rng.integers(0, NBASE, size=seqlens[i]))
     stay, move = flipflop.make_seq_indices(torch.from_numpy(seqs), NBASE)
@@ -325,9 +357,10 @@ def check_crf(torch, dev, rng):
     s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
     g_err = max_abs_diff(g1, g0)
     g_rerun = max_abs_diff(g1, g2)
+    del f0, s0, lat0, g0, g2
     check(s_err <= s_tol, "crf_fwd: score err {} > {}".format(s_err, s_tol))
     check(l_err <= 1e-4, "crf_fwd: lattice err {} > 1e-4".format(l_err))
-    check(g_err <= 1e-5, "crf_bwd: max |err| {} > 1e-5".format(g_err))
+    check(g_err <= g_tol, "crf_bwd: max |err| {} > {}".format(g_err, g_tol))
     check(g_rerun <= 1e-6, "crf_bwd: run-to-run {} > 1e-6".format(g_rerun))
     f_ms = cuda_ms(torch, lambda: crf.crf_fwd(lp, *idx, valid), reps=5)
     f_plain = cuda_ms(torch, lambda: crf.crf_fwd_plain(lp, *idx, valid),
@@ -339,18 +372,19 @@ def check_crf(torch, dev, rng):
     # positions this data needs: each row's valid ones; per position and
     # step ~10 f32 operations forward (logaddexp, max), ~20 backward
     npos = int(seqlens.sum())
-    idx_bytes = 4 * 6 * TB * TL
-    f_bound, f_by = bound_ms(4 * (TT * TB * S + TT * TB * TL + TB * TL + TB)
-                             + idx_bytes, 10 * TT * npos)
-    b_bound, b_by = bound_ms(4 * (2 * TT * TB * S + TT * TB * TL)
-                             + idx_bytes, 20 * TT * npos)
+    idx_bytes = 4 * 6 * tb * tl
+    f_bound, f_by = bound_ms(4 * (tt * tb * S + tt * tb * tl + tb * tl + tb)
+                             + idx_bytes, 10 * tt * npos)
+    b_bound, b_by = bound_ms(4 * (2 * tt * tb * S + tt * tb * tl)
+                             + idx_bytes, 20 * tt * npos)
     say("crf_fwd T={} B={} L={} S={}: score err {:.3g} (tol {:.3g}), "
         "lattice {:.3g} (tol 1e-4), kernel {:.3f} ms, plain {:.3f} ms, "
-        "bound {:.4f} ms ({})".format(TT, TB, TL, S, s_err, s_tol, l_err,
+        "bound {:.4f} ms ({})".format(tt, tb, tl, S, s_err, s_tol, l_err,
                                       f_ms, f_plain, f_bound, f_by))
-    say("crf_bwd: d lp max |err| {:.3g} (tol 1e-5), run to run {:.3g} (tol "
-        "1e-6), kernel {:.3f} ms, plain {:.3f} ms, bound {:.4f} ms "
-        "({})".format(g_err, g_rerun, b_ms, b_plain, b_bound, b_by))
+    say("crf_bwd T={} B={} L={}: d lp max |err| {:.3g} (tol {:.0e}), run to "
+        "run {:.3g} (tol 1e-6), kernel {:.3f} ms, plain {:.3f} ms, bound "
+        "{:.4f} ms ({})".format(tt, tb, tl, g_err, g_tol, g_rerun, b_ms,
+                                b_plain, b_bound, b_by))
     return [dict(name="crf_fwd", route="cuda",
                  source="taiyaki_tpu_torch/csrc/crf.cu",
                  replaces="taiyaki_tpu/ops/pallas_crf.py:423",
@@ -363,102 +397,242 @@ def check_crf(torch, dev, rng):
                  bound_ms=b_bound, bound_by=b_by, library_ms=None)]
 
 
+def _gru_inputs(torch, dev, rng, t, b, d, h):
+    x = _tensor(torch, dev, rng.normal(size=(t, b, d)))
+    iW = _tensor(torch, dev, rng.normal(size=(3 * h, d)) / np.sqrt(d))
+    bias = _tensor(torch, dev, 0.5 * rng.normal(size=3 * h))
+    sW = _tensor(torch, dev, rng.normal(size=(3 * h, h)) / np.sqrt(h))
+    return x, iW, bias, sW
+
+
+def _torch_gru(torch, dev, x, iW, b, sW):
+    """cuDNN's GRU holding the same weights, its hidden bias zero: the
+    same function (gate order r, z, n).  A yardstick only."""
+    ref = torch.nn.GRU(x.shape[2], sW.shape[1]).to(dev)
+    with torch.no_grad():
+        ref.weight_ih_l0.copy_(iW)
+        ref.weight_hh_l0.copy_(sW)
+        ref.bias_ih_l0.copy_(b)
+        ref.bias_hh_l0.zero_()
+    return ref
+
+
+def _gru_fwd_bound(t, b, d, h):
+    return bound_ms(4 * (t * b * d + 3 * h * (d + h + 1) + t * b * h),
+                    2 * t * b * (d + h) * 3 * h)
+
+
+def check_gru(torch, dev, rng):
+    """The GRU forward (kernel 7) at the basecall shape (T=1000, B=128) at
+    H=D=256 and at the shipped remap model's H=D=96, both directions,
+    against its twin; cuDNN's GRU forward as the library yardstick."""
+    from taiyaki_tpu_torch.ops import gru
+    out = {}
+    for h in (H, 96):
+        x, iW, b, sW = _gru_inputs(torch, dev, rng, T, B, h, h)
+        err, ms, plain = 0.0, {}, {}
+        for reverse in (False, True):
+            got = gru.gru_fwd(x, iW, b, sW, reverse=reverse)
+            want = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  "gru_fwd: bad output")
+            err = max(err, max_abs_diff(got, want))
+            ms[reverse] = cuda_ms(torch, lambda: gru.gru_fwd(
+                x, iW, b, sW, reverse=reverse), reps=5)
+            plain[reverse] = cuda_ms(torch, lambda: gru.gru_fwd_plain(
+                x, iW, b, sW, reverse=reverse), reps=2)
+        check(err <= 1e-4, "gru_fwd H={}: max |err| {} > 1e-4".format(h, err))
+        ref = _torch_gru(torch, dev, x, iW, b, sW)
+        with torch.no_grad():
+            lib_err = (ref(x)[0] - gru.gru_fwd(x, iW, b, sW)).abs().max()
+            lib_ms = cuda_ms(torch, lambda: ref(x), reps=5)
+        bound, by = _gru_fwd_bound(T, B, h, h)
+        say("gru_fwd    T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), kernel "
+            "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / {:.3f} ms, "
+            "torch.nn.GRU {:.3f} ms (|diff| {:.3g}), bound {:.3f} ms ({}); "
+            "serial floor: {} dependent steps".format(
+                T, B, h, err, ms[False], ms[True], plain[False],
+                plain[True], lib_ms, lib_err.item(), bound, by, T))
+        out[h] = dict(name="gru_fwd", route="cuda",
+                      source="taiyaki_tpu_torch/csrc/gru.cu",
+                      replaces="taiyaki_tpu/ops/pallas_rnn.py:995",
+                      max_abs_err=err, ms=ms[False], plain_ms=plain[False],
+                      bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    return out[H], out[96]
+
+
+def check_gru_train(torch, dev, rng):
+    """The GRU forward and the recomputing backward (kernel 8) at the mGru
+    training shape (T=2000, B=256, H=D=256), both directions, against
+    their twins; cuDNN's GRU forward with grad and its backward as the
+    library yardsticks."""
+    from taiyaki_tpu_torch.ops import gru
+    x, iW, b, sW = _gru_inputs(torch, dev, rng, GT, TB, H, H)
+    dh = _tensor(torch, dev, rng.normal(size=(GT, TB, H)))
+    f_err = b_err = 0.0
+    f_ms, f_plain, b_ms, b_plain = {}, {}, {}, {}
+    for reverse in (False, True):
+        got = gru.gru_fwd(x, iW, b, sW, reverse=reverse)
+        h = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse)
+        torch.cuda.synchronize()
+        f_err = max(f_err, max_abs_diff(got, h))
+        del got
+        args = (dh, h, x, sW, iW, b)
+        gk = gru.gru_bwd_recompute(*args, reverse=reverse)
+        gp = gru.gru_bwd_recompute_plain(*args, reverse=reverse)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(g).all()) for g in gk),
+              "gru_bwd_recompute: non-finite output")
+        b_err = max([b_err, rel_err(gk[0], gp[0])]
+                    + [rel_err(g.sum(0), w.sum(0))
+                       for g, w in zip(gk[1:], gp[1:])])
+        del gk, gp
+        f_ms[reverse] = cuda_ms(torch, lambda: gru.gru_fwd(
+            x, iW, b, sW, reverse=reverse), reps=3)
+        f_plain[reverse] = cuda_ms(torch, lambda: gru.gru_fwd_plain(
+            x, iW, b, sW, reverse=reverse), reps=1)
+        b_ms[reverse] = cuda_ms(torch, lambda: gru.gru_bwd_recompute(
+            *args, reverse=reverse), reps=3)
+        b_plain[reverse] = cuda_ms(torch, lambda: gru.gru_bwd_recompute_plain(
+            *args, reverse=reverse), reps=1)
+        del args, h
+        torch.cuda.empty_cache()
+    check(f_err <= 1e-4, "gru_fwd (training shape): max |err| {} > 1e-4"
+          .format(f_err))
+    check(b_err <= 1e-4, "gru_bwd_recompute: max relative err {} > 1e-4"
+          .format(b_err))
+    ref = _torch_gru(torch, dev, x, iW, b, sW)
+    xr = x.clone().requires_grad_()
+    lib_f = cuda_ms(torch, lambda: ref(xr), reps=3)
+    out = ref(xr)[0]
+    lib_b = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, [xr] + list(ref.parameters()), dh, retain_graph=True), reps=3)
+    del out, xr, ref
+    f_bound, f_by = _gru_fwd_bound(GT, TB, H, H)
+    # gx and gh rebuilt, the dh chain, d_x, d_iW, d_sW: six products
+    b_bound, b_by = bound_ms(
+        4 * (4 * GT * TB * H + 2 * 3 * H * 2 * H + 2 * 3 * H),
+        6 * 2 * GT * TB * 3 * H * H)
+    say("gru_fwd    T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), kernel "
+        "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / {:.3f} ms, "
+        "torch.nn.GRU forward with grad {:.3f} ms, bound {:.3f} ms "
+        "({})".format(GT, TB, H, f_err, f_ms[False], f_ms[True],
+                      f_plain[False], f_plain[True], lib_f, f_bound, f_by))
+    say("gru_bwd_recompute T={} B={} D=H={}: max relative err {:.3g} (tol "
+        "1e-4), kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
+        "{:.3f} ms, torch.nn.GRU backward {:.3f} ms, bound {:.3f} ms "
+        "({})".format(GT, TB, H, b_err, b_ms[False], b_ms[True],
+                      b_plain[False], b_plain[True], lib_b, b_bound, b_by))
+    fwd_row = dict(ms=f_ms[False], plain_ms=f_plain[False], bound_ms=f_bound,
+                   max_abs_err=f_err, library_ms=lib_f)
+    return fwd_row, dict(
+        name="gru_bwd_recompute", route="cuda",
+        source="taiyaki_tpu_torch/csrc/gru.cu",
+        replaces="taiyaki_tpu/ops/pallas_rnn.py:1311", max_abs_err=b_err,
+        ms=b_ms[False], plain_ms=b_plain[False], bound_ms=b_bound,
+        bound_by=b_by, library_ms=lib_b)
+
+
 # -- phases 3 and 4 ----------------------------------------------------------
 
-def train_path(torch, work, seed, counters):
-    """The training CLI on the card; returns (launches, stats, outdir)."""
+def train_path(torch, work, seed, counters, model):
+    """The training CLI on the card with the model file of `model` (name,
+    path, stride) at size 256; returns (launches, stats, outdir)."""
     from taiyaki_tpu_torch.cli import train_flipflop
-    outdir = os.path.join(work, "train")
-    model_py = os.path.join(ROOT, "taiyaki_tpu_torch", "models",
-                            "mLstm_flipflop.py")
+    name, model_py, stride = model
+    outdir = os.path.join(work, "train_" + name)
     for fn in counters.values():
         fn.launches = 0
     stats = train_flipflop.main([
-        "--size", str(H), "--stride", "5", "--winlen", "19",
-        "--chunk_len_min", "4000", "--chunk_len_max", "4000",
+        "--size", str(H), "--stride", str(stride), "--winlen", "19",
+        "--chunk_len_min", str(CHUNK), "--chunk_len_max", str(CHUNK),
         "--min_sub_batch_size", str(TB), "--niteration", "8",
         "--warmup_batches", "2", "--save_every", "4",
         "--sample_nreads_before_filtering", "1000",
         "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
         "--outdir", outdir, model_py, READS_HDF5])
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    for name, n in launches.items():
-        check(n > 0, "training path never launched kernel {}".format(name))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        check(n > 0, "{} training path never launched kernel {}".format(
+            name, k))
     with open(os.path.join(outdir, "batch.log")) as fh:
         rows = [line.split("\t") for line in fh.read().splitlines()[1:]]
     losses = [float(r[1]) for r in rows]
     check(len(losses) == 8 and all(np.isfinite(losses)),
-          "batch.log losses {}".format(losses))
-    for name in ("model_checkpoint_00001", "model_checkpoint_00002",
+          "{} batch.log losses {}".format(name, losses))
+    for ckpt in ("model_checkpoint_00001", "model_checkpoint_00002",
                  "model_final"):
-        check(os.path.exists(os.path.join(outdir, name + ".checkpoint")),
-              "no checkpoint {}".format(name))
-    say("training path (mLstm_flipflop {}/5/19, chunk 4000, {} chunks, 8 "
-        "iterations): losses {}; {:.3f} s in the loop (validation and "
-        "checkpoints included): {:.4f} steps/s, {:.2f} trained ksample/s; "
-        "launches {}".format(
-            H, TB, ", ".join("{:.5f}".format(v) for v in losses),
-            stats["seconds"], stats["iterations"] / stats["seconds"],
-            stats["samples"] / stats["seconds"] / 1e3, launches))
+        check(os.path.exists(os.path.join(outdir, ckpt + ".checkpoint")),
+              "no checkpoint {}".format(ckpt))
+    say("training path ({} {}/{}/19, chunk {}, {} chunks, 8 iterations): "
+        "losses {}; {:.3f} s in the loop (validation and checkpoints "
+        "included): {:.4f} steps/s, {:.2f} trained ksample/s; launches "
+        "{}".format(name, H, stride, CHUNK, TB,
+                    ", ".join("{:.5f}".format(v) for v in losses),
+                    stats["seconds"], stats["iterations"] / stats["seconds"],
+                    stats["samples"] / stats["seconds"] / 1e3, launches))
     return launches, stats, outdir
 
 
-def step_batch(seed, nchunk):
-    """A seeded batch of nchunk 4000-sample chunks from the repo's reads,
-    and the mLstm_flipflop factory kwargs."""
+def step_batch(seed, nchunk, model):
+    """A seeded batch of nchunk CHUNK-sample chunks from the repo's reads,
+    and the factory kwargs of `model` at size 256."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.data import chunk_selection, mapped_signal_files
+    stride = model[2]
     with mapped_signal_files.MappedSignalReader(READS_HDF5) as msr:
         alphabet = msr.get_alphabet_information()
         reads = list(msr.reads())
     np.random.seed(seed)
     fp = chunk_selection.sample_filter_parameters(
-        reads, 200, 4000, 3.0, 10.0, 0.5, 5, 1.1)
-    batch, _ = train.sample_batch(reads, 4000, nchunk,
-                                  train.max_seqlen_for_chunk(4000, 5),
+        reads, 200, CHUNK, 3.0, 10.0, 0.5, 5, 1.1)
+    batch, _ = train.sample_batch(reads, CHUNK, nchunk,
+                                  train.max_seqlen_for_chunk(CHUNK, stride),
                                   alphabet, fp, seqlen_granularity=128)
-    return batch, dict(insize=1, size=H, winlen=19, stride=5,
+    return batch, dict(insize=1, size=H, winlen=19, stride=stride,
                        alphabet_info=alphabet)
 
 
-def new_net(seed, kwargs, device):
+def new_net(seed, kwargs, device, model):
     from taiyaki_tpu_torch.convert import load_jax_params
     from taiyaki_tpu_torch.utils import helpers
-    model_py = os.path.join(ROOT, "taiyaki_tpu_torch", "models",
-                            "mLstm_flipflop.py")
-    net, _, _ = helpers.new_model(model_py, **kwargs)
+    net, _, _ = helpers.new_model(model[1], **kwargs)
     params = net.init(np.random.default_rng(seed))
     return load_jax_params(net, params).to(device)
 
 
-def card_vs_cpu(torch, dev, seed):
+def card_vs_cpu(torch, dev, seed, model):
     """One training step's loss and gradients on the card and on the CPU
     twins, same batch and weights, full width, 8 chunks.  Tolerances: loss
-    1e-5 relative (f32 sums in another order through 800 steps of 5
-    recurrent layers and the lattice); each gradient 1e-5 of its
+    1e-5 relative (f32 sums in another order through 800 or 2000 steps
+    of 5 recurrent layers and the lattice); each gradient 1e-5 of its
     tensor's largest value."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.convert import leaf_names
-    batch, kwargs = step_batch(seed, 8)
+    batch, kwargs = step_batch(seed, 8, model)
     res = []
     for device in (dev, torch.device("cpu")):
-        net = new_net(seed, kwargs, device)
+        net = new_net(seed, kwargs, device, model)
+        t0 = time.perf_counter()
         loss, grads = train.make_grad_step(net)(
             train.batch_to_device(batch, device), 1.0)
-        res.append((float(loss), [g.cpu() for g in grads]))
-    (lc, gc), (lp, gp) = res
+        res.append((float(loss), [g.cpu() for g in grads],
+                    time.perf_counter() - t0))
+    (lc, gc, tc), (lp, gp, tp) = res
     l_err = abs(lc - lp) / max(1.0, abs(lp))
     errs = [rel_err(a, b) for a, b in zip(gc, gp)]
     g_err = max(errs)
     worst = leaf_names(net)[int(np.argmax(errs))]
-    check(l_err <= 1e-5, "card vs CPU: loss {} vs {}".format(lc, lp))
-    check(g_err <= 1e-5, "card vs CPU: gradient err {} ({})".format(
-        g_err, worst))
-    say("card vs CPU, one step (8 chunks x 4000 samples, size {}): loss {} "
-        "vs {} (relative err {:.3g}, tol 1e-5); {} gradients, largest "
-        "relative err {:.3g} in {} (tol 1e-5)".format(
-            H, lc, lp, l_err, len(gc), g_err, worst))
+    check(l_err <= 1e-5, "card vs CPU ({}): loss {} vs {}".format(
+        model[0], lc, lp))
+    check(g_err <= 1e-5, "card vs CPU ({}): gradient err {} ({})".format(
+        model[0], g_err, worst))
+    say("card vs CPU, one {} step (8 chunks x {} samples, size {}): loss "
+        "{} vs {} (relative err {:.3g}, tol 1e-5); {} gradients, largest "
+        "relative err {:.3g} in {} (tol 1e-5); CPU twins {:.1f} s".format(
+            model[0], CHUNK, H, lc, lp, l_err, len(gc), g_err, worst, tp))
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -489,6 +663,23 @@ def read_fastx(path):
     return {lines[i][1:]: lines[i + 1] for i in range(0, len(lines), step)}
 
 
+def semiglobal_identity(call, ref):
+    """1 - (edit distance of `ref` against the best-matching stretch of
+    `call`) / len(ref): the call's unaligned ends are free, every base of
+    the reference counts."""
+    a = np.frombuffer(ref.encode(), np.uint8)
+    b = np.frombuffer(call.encode(), np.uint8)
+    j = np.arange(len(b) + 1)
+    prev = np.zeros(len(b) + 1, np.int64)     # leading call bases free
+    for i in range(1, len(a) + 1):
+        cur = np.empty_like(prev)
+        cur[0] = i
+        cur[1:] = np.minimum(prev[1:] + 1, prev[:-1] + (b != a[i - 1]))
+        # a call base against no reference base, along the row
+        prev = np.minimum.accumulate(cur - j) + j
+    return 1.0 - prev.min() / len(a)          # trailing call bases free
+
+
 def path_score(trans, path, nbase):
     """Score of a flip-flop state path [T+1] under scores [T, S]."""
     nff = 2 * nbase
@@ -510,12 +701,13 @@ def tie_check(torch, model, reads_dir, read_ids, dev):
     for fname, rid in fast5utils.iterate_fast5_reads(reads_dir):
         if rid in read_ids:
             wanted[rid] = fname
+    net, params, *_ = helpers.load_model(model)
+    stride = net.stride
     chunks = np.concatenate([basecall.prepare_read(
-        rid, basecall.get_signal(wanted[rid], rid), T * 5, 100 * 5, None,
-        False)["chunks"] for rid in read_ids], axis=1)
+        rid, basecall.get_signal(wanted[rid], rid), T * stride,
+        100 * stride, None, False)["chunks"] for rid in read_ids], axis=1)
     res = []
     for device in (dev, torch.device("cpu")):
-        net, params, *_ = helpers.load_model(model)
         net = load_jax_params(net, params).to(device).eval()
         caller = basecall.Basecaller(net, 40, True, 1.0, chunks.shape[1],
                                      device, want_trans=True)
@@ -538,12 +730,12 @@ def tie_check(torch, model, reads_dir, read_ids, dev):
     return chunks.shape[1], ndiff, gap, trans_err
 
 
-def main_path(torch, dev, seed, work, model, counters):
+def main_path(torch, dev, seed, work, model, counters, tag):
     """Basecall synthetic reads with the checkpoint `model` through the
     basecall CLI on the card; returns (launches, stats, reads dir)."""
     from taiyaki_tpu_torch.cli import basecall
     rng = np.random.default_rng(seed)
-    reads = os.path.join(work, "reads")
+    reads = os.path.join(work, "reads_" + tag)
     os.makedirs(reads)
     names = ["read{:02d}".format(i) for i in range(9)]
     lengths = [100000] * 8 + [3000]          # the last is under one chunk
@@ -555,7 +747,7 @@ def main_path(torch, dev, seed, work, model, counters):
 
     for fn in counters.values():
         fn.launches = 0
-    fa = os.path.join(work, "calls.fa")
+    fa = os.path.join(work, tag + ".fa")
     stats = basecall.main(["--output", fa, "--quiet", reads, model])
     launches = {name: fn.launches for name, fn in counters.items()}
     torch.cuda.synchronize()
@@ -570,15 +762,15 @@ def main_path(torch, dev, seed, work, model, counters):
         stats["nsample"]))
     for name, n in launches.items():
         check(n > 0, "basecall path never launched kernel {}".format(name))
-    say("basecall path (fasta, defaults): {} reads, {} samples, {} bases in "
-        "{:.3f} s: {:.3f} reads/s, {:.3f} ksample/s, {:.3f} kbase/s; "
+    say("basecall path ({}; fasta, defaults): {} reads, {} samples, {} bases "
+        "in {:.3f} s: {:.3f} reads/s, {:.3f} ksample/s, {:.3f} kbase/s; "
         "launches {}".format(
-            stats["ncalled"], stats["nsample"], stats["nbase"],
+            tag, stats["ncalled"], stats["nsample"], stats["nbase"],
             stats["seconds"], stats["ncalled"] / stats["seconds"],
             stats["nsample"] / stats["seconds"] / 1e3,
             stats["nbase"] / stats["seconds"] / 1e3, launches))
 
-    fq = os.path.join(work, "calls.fq")
+    fq = os.path.join(work, tag + ".fq")
     stats_q = basecall.main(["--output", fq, "--quiet", "--fastq", reads,
                              model])
     with open(fq) as fh:
@@ -588,11 +780,11 @@ def main_path(torch, dev, seed, work, model, counters):
         check(lines[i + 1] == calls[lines[i][1:]]
               and len(lines[i + 3]) == len(lines[i + 1]),
               "fastq call of {} differs from fasta".format(lines[i][1:]))
-    say("basecall path (fastq): {} reads in {:.3f} s: {:.3f} ksample/s".format(
-        stats_q["ncalled"], stats_q["seconds"],
+    say("basecall path ({}; fastq): {} reads in {:.3f} s: {:.3f} ksample/s"
+        .format(tag, stats_q["ncalled"], stats_q["seconds"],
         stats_q["nsample"] / stats_q["seconds"] / 1e3))
 
-    cpu_fa = os.path.join(work, "cpu.fa")
+    cpu_fa = os.path.join(work, tag + "_cpu.fa")
     basecall.main(["--output", cpu_fa, "--quiet", "--device", "cpu",
                    "--limit", "2", reads, model])
     cpu_calls = read_fastx(cpu_fa)
@@ -609,6 +801,98 @@ def main_path(torch, dev, seed, work, model, counters):
     return launches, stats, reads
 
 
+def write_real_reads(path):
+    """The repo's mapped reads as one fast5 (hdf5.Writer, as a machine
+    without h5py writes it); returns {read id: (reference sequence,
+    samples)}."""
+    from taiyaki_tpu_torch.data import mapped_signal_files
+    from taiyaki_tpu_torch.data.hdf5 import Writer
+    with mapped_signal_files.MappedSignalReader(READS_HDF5) as msr:
+        alphabet = msr.get_alphabet_information().alphabet
+        reads = list(msr.reads())
+    refs = {}
+    with Writer(path) as f5:
+        for r in reads:
+            grp = f5.create_group("read_" + r.read_id)
+            ch = grp.create_group("channel_id")
+            for k in ("digitisation", "offset", "range"):
+                ch.attrs[k] = getattr(r, k)
+            ch.attrs["sampling_rate"] = 4000.0
+            raw = grp.create_group("Raw")
+            raw.attrs["read_id"] = r.read_id
+            raw.attrs["start_time"] = 0
+            raw.attrs["duration"] = len(r.Dacs)
+            raw.create_dataset("Signal", data=r.Dacs.astype("i2"))
+            refs[r.read_id] = ("".join(alphabet[i] for i in r.Reference),
+                               len(r.Dacs))
+    return refs
+
+
+def real_reads(torch, dev, work, counters):
+    """The three real reads called with the shipped mGru remap checkpoint
+    by the basecall CLI with its defaults on the card, then on the CPU
+    twins: every read gets a record, the calls are equal (or the Viterbi
+    tie rule of main_path holds), each identity is at least 0.80."""
+    from taiyaki_tpu_torch.cli import basecall
+    reads = os.path.join(work, "reads_real")
+    os.makedirs(reads)
+    refs = write_real_reads(os.path.join(reads, "real.fast5"))
+    for fn in counters.values():
+        fn.launches = 0
+    fa = os.path.join(work, "real.fa")
+    stats = basecall.main(["--output", fa, "--quiet", reads, REMAP_MODEL])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls = read_fastx(fa)
+    check(sorted(calls) == sorted(refs), "real reads: records {} of {}"
+          .format(sorted(calls), sorted(refs)))
+    for k, n in launches.items():
+        check(n > 0, "real-read basecall never launched kernel {}".format(k))
+    cpu_fa = os.path.join(work, "real_cpu.fa")
+    basecall.main(["--output", cpu_fa, "--quiet", "--device", "cpu", reads,
+                   REMAP_MODEL])
+    cpu_calls = read_fastx(cpu_fa)
+    same = [rid for rid in refs if cpu_calls.get(rid) == calls[rid]]
+    nchunk, ndiff, gap, trans_err = tie_check(torch, REMAP_MODEL, reads,
+                                              sorted(refs), dev)
+    check(len(same) == len(refs) or ndiff > 0,
+          "real reads: card and CPU calls differ with equal chunk paths")
+    ident = {rid: semiglobal_identity(calls[rid], ref)
+             for rid, (ref, _) in refs.items()}
+    say("real reads (shipped mGru remap checkpoint, size 96, stride 4; "
+        "defaults): {} reads, {} samples, {} bases in {:.3f} s: {:.3f} "
+        "ksample/s; launches {}; card vs CPU: {} of {} calls identical, {} "
+        "of {} chunks with another Viterbi path (score gap {:.3g}, tol "
+        "1e-4), max |posterior diff| {:.3g}; semi-global identity against "
+        "the reference: {}".format(
+            stats["ncalled"], stats["nsample"], stats["nbase"],
+            stats["seconds"], stats["nsample"] / stats["seconds"] / 1e3,
+            launches, len(same), len(refs), ndiff, nchunk, gap, trans_err,
+            ", ".join("{} ({} samples, {} bases called, reference {}) "
+                      "{:.4f}".format(rid, refs[rid][1], len(calls[rid]),
+                                      len(refs[rid][0]), ident[rid])
+                      for rid in sorted(refs))))
+    worst = min(ident.values())
+    check(worst >= 0.80, "real reads: identity {:.4f} < 0.80".format(worst))
+    return launches, stats
+
+
+def seeded_checkpoint(work, seed, model):
+    """A checkpoint of `model` at size 256 with weights drawn from a
+    seed."""
+    from taiyaki_tpu_torch.convert import load_jax_params, params_to_jax
+    from taiyaki_tpu_torch.utils import helpers
+    kwargs = dict(insize=1, size=H, winlen=19, stride=model[2])
+    net, source, meta = helpers.new_model(
+        model[1], model_metadata={"reverse": False, "standardize": True},
+        **kwargs)
+    load_jax_params(net, net.init(np.random.default_rng(seed)))
+    outdir = os.path.join(work, "seeded_" + model[0])
+    os.makedirs(outdir)
+    return helpers.save_model(outdir, net, params_to_jax(net), source,
+                              kwargs, meta)
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -617,7 +901,7 @@ def _device_us(evt):
 
 
 def profile_batch(torch, dev, model, reads_dir):
-    """Where one 128-chunk batch of the main path spends its time: host
+    """Where one 128-chunk batch of a basecall path spends its time: host
     wall time of each stage (synchronised), then torch.profiler's device
     time by kernel and the device's busy share over the batch."""
     from taiyaki_tpu_torch.cli import basecall
@@ -625,14 +909,15 @@ def profile_batch(torch, dev, model, reads_dir):
     from taiyaki_tpu_torch.data import fast5utils
     from taiyaki_tpu_torch.ops import decode
     from taiyaki_tpu_torch.utils import helpers
+    net, params, *_ = helpers.load_model(model)
+    net = load_jax_params(net, params).to(dev).eval()
+    stride = net.stride
     parts = []
     for fname, rid in fast5utils.iterate_fast5_reads(reads_dir):
         parts.append(basecall.prepare_read(
-            rid, basecall.get_signal(fname, rid), T * 5, 100 * 5, None,
-            False)["chunks"])
+            rid, basecall.get_signal(fname, rid), T * stride, 100 * stride,
+            None, False)["chunks"])
     chunks = np.concatenate(parts, axis=1)[:, :B]
-    net, params, *_ = helpers.load_model(model)
-    net = load_jax_params(net, params).to(dev).eval()
     caller = basecall.Basecaller(net, 40, True, 1.0, B, dev,
                                  want_errprobs=True)
     x = torch.from_numpy(chunks).to(dev)
@@ -668,8 +953,8 @@ def profile_batch(torch, dev, model, reads_dir):
     total = sum(walls.values())
     say("basecall batch of {} chunks x {} samples, stage wall times (ms, "
         "synchronised): {} ; total {:.3f} ms".format(
-            B, T * 5, ", ".join("{} {:.3f}".format(k, v)
-                                for k, v in walls.items()), total))
+            B, T * stride, ", ".join("{} {:.3f}".format(k, v)
+                                     for k, v in walls.items()), total))
     say_profile("one call_chunks", kern, wall, total)
 
 
@@ -703,14 +988,15 @@ def say_profile(what, kern, wall, total):
             sorted(kern, key=lambda k: -k[1])[:10])))
 
 
-def profile_train_step(torch, dev, seed):
-    """Where one training step (256 chunks x 4000 samples) spends its
-    time: synchronised wall time of each stage (forward by layer, CRF
-    loss, logZ, backward, clip + optimizer), then device time by kernel."""
+def profile_train_step(torch, dev, seed, model):
+    """Where one training step of `model` (256 chunks x CHUNK samples)
+    spends its time: synchronised wall time of each stage (forward by
+    layer, CRF loss, logZ, backward, clip + optimizer), then device time
+    by kernel."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.ops import flipflop as ffops
-    batch, kwargs = step_batch(seed, TB)
-    net = new_net(seed, kwargs, dev)
+    batch, kwargs = step_batch(seed, TB, model)
+    net = new_net(seed, kwargs, dev, model)
     params = train.leaf_params(net)
     optimizer, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
     threshs = np.full(len(params), np.inf, np.float32)
@@ -750,11 +1036,12 @@ def profile_train_step(torch, dev, seed):
     walls = stages()
     total = sum(walls.values())
     kern, wall = device_profile(torch, lambda: step(b, 1.0, threshs))
-    say("training step of {} chunks x 4000 samples, stage wall times (ms, "
-        "synchronised): {} ; total {:.3f} ms".format(
-            TB, ", ".join("{} {:.3f}".format(k, v)
-                          for k, v in walls.items()), total))
-    say_profile("one training step", kern, wall, total)
+    say("{} training step of {} chunks x {} samples (T={} blocks, L={}), "
+        "stage wall times (ms, synchronised): {} ; total {:.3f} ms".format(
+            model[0], TB, CHUNK, CHUNK // model[2], batch.seqs.shape[1],
+            ", ".join("{} {:.3f}".format(k, v) for k, v in walls.items()),
+            total))
+    say_profile("one {} training step".format(model[0]), kern, wall, total)
 
 
 def run(seed):
@@ -768,7 +1055,7 @@ def run(seed):
         raise SmokeFailure("run chip_smoke.py from the root of a checkout "
                            "(taiyaki_tpu_torch/ not found)")
     sys.path.insert(0, ROOT)
-    from taiyaki_tpu_torch.ops import crf, cuda_lib, logz, lstm
+    from taiyaki_tpu_torch.ops import crf, cuda_lib, gru, logz, lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -790,37 +1077,80 @@ def run(seed):
     acts_row, bwd_row = check_lstm_train(torch, dev, rng)
     kernels += [bwd_row] + check_crf(torch, dev, rng)
     torch.cuda.empty_cache()
+    long_crf = check_crf(torch, dev, rng, LT, LB, LL, g_tol=3e-4)
+    torch.cuda.empty_cache()
+    gru_row, gru96_row = check_gru(torch, dev, rng)
+    gru_train_row, gru_bwd_row = check_gru_train(torch, dev, rng)
+    kernels += [gru_row, gru_bwd_row]
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
                 "logz_posteriors": logz.logz_posteriors,
                 "lstm_bwd_acts": lstm.lstm_bwd_acts, "crf_fwd": crf.crf_fwd,
-                "crf_bwd": crf.crf_bwd}
-    basecall_kernels = ("lstm_fwd", "logz_fwd", "logz_posteriors")
+                "crf_bwd": crf.crf_bwd, "gru_fwd": gru.gru_fwd,
+                "gru_bwd_recompute": gru.gru_bwd_recompute}
+    lstm_train = ("lstm_fwd", "lstm_bwd_acts", "crf_fwd", "crf_bwd",
+                  "logz_fwd", "logz_posteriors")
+    gru_train = ("gru_fwd", "gru_bwd_recompute", "crf_fwd", "crf_bwd",
+                 "logz_fwd", "logz_posteriors")
+    lstm_call = ("lstm_fwd", "logz_fwd", "logz_posteriors")
+    gru_call = ("gru_fwd", "logz_fwd", "logz_posteriors")
+
+    def pick(names):
+        return {k: counters[k] for k in names}
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    launches = {}
     try:
-        train_launches, _, outdir = train_path(torch, work, seed, counters)
+        launches["mLstm training"], _, outdir = train_path(
+            torch, work, seed, pick(lstm_train), MLSTM)
         torch.cuda.empty_cache()
-        card_vs_cpu(torch, dev, seed)
+        card_vs_cpu(torch, dev, seed, MLSTM)
         model = os.path.join(outdir, "model_final.checkpoint")
-        call_launches, _, reads = main_path(
-            torch, dev, seed, work, model,
-            {k: counters[k] for k in basecall_kernels})
+        launches["mLstm basecall"], _, reads = main_path(
+            torch, dev, seed, work, model, pick(lstm_call), "mLstm")
         profile_batch(torch, dev, model, reads)
         torch.cuda.empty_cache()
-        profile_train_step(torch, dev, seed)
+        profile_train_step(torch, dev, seed, MLSTM)
+        torch.cuda.empty_cache()
+
+        launches["mGru training"], _, _ = train_path(
+            torch, work, seed, pick(gru_train), MGRU)
+        torch.cuda.empty_cache()
+        card_vs_cpu(torch, dev, seed, MGRU)
+        launches["mGru real reads"], _ = real_reads(torch, dev, work,
+                                                    pick(gru_call))
+        model = seeded_checkpoint(work, seed, MGRU)
+        launches["mGru basecall"], _, reads = main_path(
+            torch, dev, seed, work, model, pick(gru_call), "mGru")
+        profile_batch(torch, dev, model, reads)
+        torch.cuda.empty_cache()
+        profile_train_step(torch, dev, seed, MGRU)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    say("launches: training path {}; basecall path {}".format(
-        train_launches, call_launches))
+    say("launches by path: {}".format(json.dumps(launches)))
     say("lstm_fwd emit=acts (training shape): {}".format(json.dumps(
         acts_row)))
-    # kernels 1-3 report the basecall path (slice 1), kernels 4-6 the
-    # training path (this slice)
+    say("gru_fwd (mGru training shape): {}".format(json.dumps(
+        gru_train_row)))
+    say("gru_fwd (H=96, the shipped remap model's width): {}".format(
+        json.dumps({k: gru96_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "max_abs_err",
+                                              "library_ms")})))
+    say("crf at L={} (T={}, B={}): {}".format(LL, LT, LB, json.dumps(
+        [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                            "max_abs_err")} for r in long_crf])))
+    # the path each row's launches come from: kernels 1-3 the mLstm
+    # basecall path (slice 1), 4-6 the mLstm training path (slice 2),
+    # 7 the mGru basecall path and 8 the mGru training path (this slice)
+    source = {"lstm_fwd": "mLstm basecall", "logz_fwd": "mLstm basecall",
+              "logz_posteriors": "mLstm basecall",
+              "lstm_bwd_acts": "mLstm training", "crf_fwd": "mLstm training",
+              "crf_bwd": "mLstm training", "gru_fwd": "mGru basecall",
+              "gru_bwd_recompute": "mGru training"}
     for k in kernels:
-        k["launches"] = (call_launches[k["name"]]
-                         if k["name"] in basecall_kernels
-                         else train_launches[k["name"]])
+        k["launches"] = launches[source[k["name"]]][k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -31,7 +31,11 @@
 // with the indices each thread holds in registers.
 //
 // Layout: one block of 256 threads per batch row, P positions per thread
-// (l = tid + p*256, P up to 8, so L <= 2048).  The state vector lives in
+// (l = tid + p*256, P in 1, 2, 4, 8, 16, 32 by L, so L <= 8192; the
+// mGru default chunk range needs L <= 3637, P = 16).  The per-position
+// indices stay in registers; at P = 32 they outgrow the 255 a thread may
+// hold and the compiler spills the rest to local memory (cached in L1),
+// which costs time, not correctness.  The state vector lives in
 // shared memory, double-buffered and stored before renormalisation: the
 // step's max is only known after a block-wide reduction, and the next step
 // subtracts it when it reads the vector, so each forward step needs one
@@ -40,6 +44,9 @@
 // posteriors into S bins uses shared-memory atomics on unnormalised
 // exponentials (exact zeros skipped), divided by the sum afterwards; the
 // order of those float additions varies from run to run.
+//
+// Shared memory: 2L + a few dozen floats, 64 KB at L = 8192, under the
+// 227 KB a block may use.
 //
 // Bound: the serial chain of T steps of a few hundred cycles each (loads,
 // block reductions, exp/log), not bytes: at T=800, B=256, L=512 the lattice
@@ -359,6 +366,8 @@ int launch_bwd(const float* lp, const int* sidx, const int* midx,
     if (L <= 2 * THREADS) return CALL(2);                       \
     if (L <= 4 * THREADS) return CALL(4);                       \
     if (L <= 8 * THREADS) return CALL(8);                       \
+    if (L <= 16 * THREADS) return CALL(16);                     \
+    if (L <= 32 * THREADS) return CALL(32);                     \
     return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" {

@@ -14,16 +14,12 @@
 //
 // Kernels:
 //
-// 1. gate_gemm_kernel: C[M, N] = A[M, K] . W[N, K]^T (+ bias).  Forward:
-//    gx = x . iW^T + b, which the TPU kernel computes in its own body per
-//    time block (pallas_rnn.py:805-817).  Backward: d_x = dpre . iW (W =
-//    iW^T).  A tiled f32 SIMT GEMM over the whole card (128x128 output
-//    tiles, 8x8 per thread, k-major shared tiles).  Bound: operations,
-//    2*M*N*K FLOP against the 67 TFLOP/s f32 rate (no tensor cores: the
-//    port is f32 without TF32).  Its [T, B, 4H] operand makes one round
-//    trip through device memory that the TPU kernel avoids; at T=800,
-//    B=256, H=256 that is 0.84 GB, ~0.25 ms at 3.35 TB/s, small beside the
-//    recurrence.
+// 1. gate_gemm_kernel (gemm.cuh): gx = x . iW^T + b, which the TPU kernel
+//    computes in its own body per time block (pallas_rnn.py:805-817);
+//    in the backward d_x = dpre . iW.  Its [T, B, 4H] operand makes one
+//    round trip through device memory that the TPU kernel avoids; at
+//    T=800, B=256, H=256 that is 0.84 GB, ~0.25 ms at 3.35 TB/s, small
+//    beside the recurrence.
 //
 // 2. lstm_rec_kernel: the forward recurrence.  One block per tile of
 //    BT = 8 batch rows, one thread per hidden unit j; thread j owns the
@@ -50,15 +46,9 @@
 //    sequential time grid (pallas_rnn.py:272-278); Hopper blocks carry
 //    nothing across blocks, so those products are left to kernel 4.
 //
-// 4. atb_gemm_kernel: C_z[N1, N2] = sum over rows k of slice z of
-//    A[k, :]^T B[k + shift, :], with rows of B outside [0, K) read as zero.
-//    d_iW = dpre^T x (shift 0) and d_sW = dpre^T h_prev, where h_prev is h
-//    one step earlier in the recurrence's direction: shift -B for a
-//    forward layer, +B for a reversed one.  The reduction dimension
-//    K = T*B is long and the output small (1024 x 256), so the grid splits
-//    K into slices (grid.z) that each write a partial; the caller sums
-//    them, as it sums the TPU kernel's per-tile partials.  Bound:
-//    operations, 2*K*N1*N2 FLOP at the f32 rate.
+// 4. atb_gemm_kernel (gemm.cuh): d_iW = dpre^T x and d_sW = dpre^T h_prev
+//    as split-K partials over slices of the T*B rows, h_prev read by a
+//    -B (forward layer) or +B (reversed layer) row shift.
 //
 // Rows of the last batch tile past B run on zeros and are never stored.
 
@@ -66,145 +56,9 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "gemm.cuh"
+
 namespace {
-
-constexpr int GEMM_BM = 128;
-constexpr int GEMM_BN = 128;
-constexpr int GEMM_BK = 16;
-constexpr int GEMM_TM = 8;
-constexpr int GEMM_TN = 8;
-constexpr int GEMM_THREADS = (GEMM_BM / GEMM_TM) * (GEMM_BN / GEMM_TN);
-constexpr int GEMM_PAD = 4;  // keeps rows 16-byte aligned, spreads banks
-
-// acc += As^T Ws over one staged k tile (both tiles k-major)
-__device__ __forceinline__ void gemm_tile_fma(
-    const float (*As)[GEMM_BM + GEMM_PAD], const float (*Ws)[GEMM_BN + GEMM_PAD],
-    int tx, int ty, float (*acc)[GEMM_TN])
-{
-#pragma unroll
-    for (int kk = 0; kk < GEMM_BK; ++kk) {
-        float a[GEMM_TM], w[GEMM_TN];
-#pragma unroll
-        for (int i = 0; i < GEMM_TM; i += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                &As[kk][ty * GEMM_TM + i]);
-            a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < GEMM_TN; j += 4) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                &Ws[kk][tx * GEMM_TN + j]);
-            w[j] = v.x; w[j + 1] = v.y; w[j + 2] = v.z; w[j + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < GEMM_TM; ++i)
-#pragma unroll
-            for (int j = 0; j < GEMM_TN; ++j)
-                acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-}
-
-// C[M, N] = A[M, K] . W[N, K]^T + bias[N] (bias may be null); all
-// row-major, f32 FMA.
-__global__ void __launch_bounds__(GEMM_THREADS)
-gate_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                 const float* __restrict__ bias, float* __restrict__ C,
-                 int M, int N, int K)
-{
-    __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + GEMM_PAD];
-    __shared__ __align__(16) float Ws[GEMM_BK][GEMM_BN + GEMM_PAD];
-    const int tid = threadIdx.x;
-    const int tx = tid % (GEMM_BN / GEMM_TN);
-    const int ty = tid / (GEMM_BN / GEMM_TN);
-    const int m0 = blockIdx.y * GEMM_BM;
-    const int n0 = blockIdx.x * GEMM_BN;
-
-    float acc[GEMM_TM][GEMM_TN];
-#pragma unroll
-    for (int i = 0; i < GEMM_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < GEMM_TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += GEMM_BK) {
-        // stage both tiles k-major; consecutive threads read consecutive k
-        for (int i = tid; i < GEMM_BM * GEMM_BK; i += GEMM_THREADS) {
-            const int r = i / GEMM_BK, c = i % GEMM_BK;
-            const int k = k0 + c;
-            const int m = m0 + r, n = n0 + r;
-            As[c][r] = (m < M && k < K) ? A[(size_t)m * K + k] : 0.f;
-            Ws[c][r] = (n < N && k < K) ? W[(size_t)n * K + k] : 0.f;
-        }
-        __syncthreads();
-        gemm_tile_fma(As, Ws, tx, ty, acc);
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < GEMM_TM; ++i) {
-        const int m = m0 + ty * GEMM_TM + i;
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < GEMM_TN; ++j) {
-            const int n = n0 + tx * GEMM_TN + j;
-            if (n < N)
-                C[(size_t)m * N + n] = acc[i][j]
-                    + (bias != nullptr ? bias[n] : 0.f);
-        }
-    }
-}
-
-// C[z, N1, N2] = sum_{k in slice z} A[k, :]^T . B[k + shift, :]; rows of B
-// outside [0, K) count as zero.  A [K, N1], B [K, N2], row-major.
-__global__ void __launch_bounds__(GEMM_THREADS)
-atb_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                float* __restrict__ C, int K, int N1, int N2, int shift,
-                int kslice)
-{
-    __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + GEMM_PAD];
-    __shared__ __align__(16) float Bs[GEMM_BK][GEMM_BN + GEMM_PAD];
-    const int tid = threadIdx.x;
-    const int tx = tid % (GEMM_BN / GEMM_TN);
-    const int ty = tid / (GEMM_BN / GEMM_TN);
-    const int m0 = blockIdx.y * GEMM_BM;
-    const int n0 = blockIdx.x * GEMM_BN;
-    const int kbeg = blockIdx.z * kslice;
-    const int kend = min(K, kbeg + kslice);
-
-    float acc[GEMM_TM][GEMM_TN];
-#pragma unroll
-    for (int i = 0; i < GEMM_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < GEMM_TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = kbeg; k0 < kend; k0 += GEMM_BK) {
-        // rows of A and B are contiguous: consecutive threads read
-        // consecutive columns of one row
-        for (int i = tid; i < GEMM_BM * GEMM_BK; i += GEMM_THREADS) {
-            const int c = i / GEMM_BM, r = i % GEMM_BM;
-            const int k = k0 + c;
-            const int kb = k + shift;
-            const int m = m0 + r, n = n0 + r;
-            As[c][r] = (k < kend && m < N1) ? A[(size_t)k * N1 + m] : 0.f;
-            Bs[c][r] = (k < kend && n < N2 && kb >= 0 && kb < K)
-                ? B[(size_t)kb * N2 + n] : 0.f;
-        }
-        __syncthreads();
-        gemm_tile_fma(As, Bs, tx, ty, acc);
-        __syncthreads();
-    }
-
-    float* Cz = C + (size_t)blockIdx.z * N1 * N2;
-#pragma unroll
-    for (int i = 0; i < GEMM_TM; ++i) {
-        const int m = m0 + ty * GEMM_TM + i;
-        if (m >= N1) continue;
-#pragma unroll
-        for (int j = 0; j < GEMM_TN; ++j) {
-            const int n = n0 + tx * GEMM_TN + j;
-            if (n < N2) Cz[(size_t)m * N2 + n] = acc[i][j];
-        }
-    }
-}
 
 __device__ __forceinline__ float sigmoidf_(float x)
 {
@@ -391,14 +245,6 @@ lstm_bwd_rec_kernel(const float* __restrict__ dh_out,
         for (int q = 0; q < 4; ++q)
             db_part[(size_t)blockIdx.x * H4 + q * H + j] = db[q];
     }
-}
-
-int set_smem(const void* fn, size_t smem)
-{
-    if (smem <= 48 * 1024) return 0;
-    return static_cast<int>(cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem)));
 }
 
 }  // namespace

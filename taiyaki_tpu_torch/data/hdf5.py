@@ -2,20 +2,24 @@
 
 fast5 files are HDF5.  Where h5py is installed, `open_file` returns an
 `h5py.File` and nothing here is used.  Where it is not (the port's GPU
-hosts carry only PyTorch's stack), this module reads the uncompressed
-subset of HDF5 that fast5 reads need, with the h5py calls fast5utils
+hosts carry only PyTorch's stack), this module reads the subset of HDF5
+that fast5 and mapped-signal reads need, with the h5py calls the port
 makes: `keys()`, `f["a/b"]`, `dict(g.attrs)`, `dset[()]`.
 
-Read: superblock versions 0-3, object header versions 1 and 2 (with
+Read: superblock versions 0-3, object headers versions 1 and 2 (with
 continuation blocks), groups stored as a symbol table (v1 B-tree, local
-heap) or as compact link messages, attributes of fixed-point, float,
-enum, fixed-length and variable-length string types, contiguous and
-compact datasets, and chunked datasets (layout message version 3, chunks
-indexed by a v1 B-tree) through the deflate (zlib) and shuffle filters:
-the layout of mapped-signal files and of h5py-written fast5.  Dense link storage (groups of more than 8 links
-written with libver >= 1.8), layout version 4 chunk indexes, other
-filters and shared messages raise NotImplementedError (install h5py for
-those).
+heap), as compact link messages or densely (a fractal heap indexed by a
+version 2 B-tree: groups of more than 8 links written with libver >=
+1.8), attributes in the object header or dense likewise, of fixed-point,
+float, enum, fixed-length and variable-length string types; contiguous
+and compact datasets, and chunked datasets through the deflate (zlib),
+shuffle and fletcher32 (checksum verified) filters: layout version 3
+(chunks indexed by a v1 B-tree, the layout of mapped-signal files and of
+h5py-written fast5) and layout version 4 with the single-chunk,
+fixed-array and extensible-array chunk indexes (what libver="latest"
+writes for datasets with at most one unlimited dimension).  The implicit and version 2 B-tree chunk indexes,
+huge and tiny fractal-heap objects, other filters and shared messages
+raise NotImplementedError naming themselves (install h5py for those).
 
 Write (`Writer`): superblock 0, version-1 object headers, groups as link
 messages, contiguous datasets and scalar or array attributes of numeric
@@ -169,17 +173,23 @@ class File:
             elif mtype == 0x02:         # link info
                 tracked = bool(data[1] & 1)
                 p = 2 + (8 if data[1] & 1 else 0)
-                if _u(data, p, 8) != _UNDEF:
-                    raise NotImplementedError(
-                        "HDF5 groups with dense link storage")
+                heap, names = _u(data, p, 8), _u(data, p + 8, 8)
+                if heap != _UNDEF:      # dense: links in a fractal heap
+                    fheap = _FractalHeap(self._buf, heap)
+                    for rec in _btree2_records(self._buf, names):
+                        self._add_link(links, order,
+                                       fheap.get(bytes(rec[4:11])))
             elif mtype == 0x06:         # link
-                name, addr, corder = self._link(data)
-                if addr is not None:
-                    links[name] = addr
-                    order[name] = corder
+                self._add_link(links, order, data)
         if tracked and None not in order.values():
             return dict(sorted(links.items(), key=lambda kv: order[kv[0]]))
         return dict(sorted(links.items()))
+
+    def _add_link(self, links, order, data):
+        name, addr, corder = self._link(data)
+        if addr is not None:
+            links[name] = addr
+            order[name] = corder
 
     def _local_heap(self, addr):
         buf = self._buf
@@ -283,29 +293,156 @@ class File:
     def attributes(self, messages):
         out = {}
         for mtype, data in messages:
-            if mtype != 0x0C:
-                continue
-            version = data[0]
-            nsz, dsz, ssz = _u(data, 2, 2), _u(data, 4, 2), _u(data, 6, 2)
-            pad = _pad8 if version == 1 else (lambda n: n)
-            p = 9 if version == 3 else 8
-            name = bytes(data[p:p + nsz]).rstrip(b"\0").decode()
-            p += pad(nsz)
-            dtm = data[p:p + dsz]
-            p += pad(dsz)
-            spm = data[p:p + ssz]
-            p += pad(ssz)
-            try:
-                out[name] = self.decode(dtm, spm, data[p:])
-            except NotImplementedError:
-                out[name] = None
+            if mtype == 0x0C:
+                self._add_attribute(out, data)
+            elif mtype == 0x15:         # attribute info: dense storage
+                p = 2 + (2 if data[1] & 1 else 0)
+                heap, names = _u(data, p, 8), _u(data, p + 8, 8)
+                if heap == _UNDEF:
+                    continue
+                fheap = _FractalHeap(self._buf, heap)
+                for rec in _btree2_records(self._buf, names):
+                    if rec[8] & 0x02:
+                        raise NotImplementedError("shared HDF5 messages")
+                    self._add_attribute(out, fheap.get(bytes(rec[:8])))
         return out
+
+    def _add_attribute(self, out, data):
+        version = data[0]
+        nsz, dsz, ssz = _u(data, 2, 2), _u(data, 4, 2), _u(data, 6, 2)
+        pad = _pad8 if version == 1 else (lambda n: n)
+        p = 9 if version == 3 else 8
+        name = bytes(data[p:p + nsz]).rstrip(b"\0").decode()
+        p += pad(nsz)
+        dtm = data[p:p + dsz]
+        p += pad(dsz)
+        spm = data[p:p + ssz]
+        p += pad(ssz)
+        try:
+            out[name] = self.decode(dtm, spm, data[p:])
+        except NotImplementedError:
+            out[name] = None
 
 
 def _expect(buf, addr, signature):
     if buf[addr:addr + 4] != signature:
         raise OSError("corrupt HDF5 file: no {} at {}".format(
             signature.decode(), addr))
+
+
+def _log2(n):
+    """floor(log2(n)) for n > 0."""
+    return n.bit_length() - 1
+
+
+def _enc_size(n):
+    """Bytes HDF5 uses to encode counts up to n (H5VM_limit_enc_size)."""
+    return _log2(n) // 8 + 1
+
+
+class _FractalHeap:
+    """The managed objects of a fractal heap (FRHP): `get(heap_id)` gives
+    an object's bytes.  Only unfiltered heaps; huge and tiny objects (an
+    object larger than the heap's largest managed size, or one stored in
+    its ID) raise."""
+
+    def __init__(self, buf, addr):
+        _expect(buf, addr, b"FRHP")
+        self._buf = buf
+        if _u(buf, addr + 7, 2):
+            raise NotImplementedError("filtered HDF5 fractal heaps")
+        max_managed = _u(buf, addr + 10, 4)
+        self._width = _u(buf, addr + 110, 2)
+        self._start = _u(buf, addr + 112, 8)
+        max_direct = _u(buf, addr + 120, 8)
+        max_heap_bits = _u(buf, addr + 128, 2)
+        root, rows = _u(buf, addr + 132, 8), _u(buf, addr + 140, 2)
+        self._off_size = (max_heap_bits + 7) // 8
+        self._len_size = min((_log2(max_direct) + 7) // 8,
+                             _enc_size(max_managed))
+        self._direct_rows = _log2(max_direct) - _log2(self._start) + 2
+        # (heap offset, file address, size) of every direct block
+        self._blocks = []
+        if root == _UNDEF:
+            return
+        if rows == 0:
+            self._blocks.append((0, root, self._start))
+        else:
+            self._indirect(root, rows)
+
+    def _row_size(self, row):
+        return self._start if row == 0 else self._start << (row - 1)
+
+    def _indirect(self, addr, nrows):
+        buf = self._buf
+        _expect(buf, addr, b"FHIB")
+        p = addr + 13 + self._off_size
+        for row in range(nrows):
+            size = self._row_size(row)
+            for _ in range(self._width):
+                child = _u(buf, p, 8)
+                p += 8
+                if child == _UNDEF:
+                    continue
+                if row < self._direct_rows:
+                    _expect(buf, child, b"FHDB")
+                    self._blocks.append(
+                        (_u(buf, child + 13, self._off_size), child, size))
+                else:
+                    self._indirect(child, _log2(size) - _log2(
+                        self._start * self._width) + 1)
+
+    def get(self, heap_id):
+        kind = (heap_id[0] >> 4) & 3
+        if kind != 0:
+            raise NotImplementedError("{} objects in HDF5 fractal heaps"
+                                      .format({1: "huge", 2: "tiny"}
+                                              .get(kind, "unknown")))
+        off = _u(heap_id, 1, self._off_size)
+        length = _u(heap_id, 1 + self._off_size, self._len_size)
+        for start, addr, size in self._blocks:
+            if start <= off < start + size:
+                p = addr + off - start
+                return self._buf[p:p + length]
+        raise OSError("corrupt HDF5 file: fractal heap offset {} is in no "
+                      "block".format(off))
+
+
+def _btree2_records(buf, addr):
+    """Every record (bytes) of the version 2 B-tree at addr, in no
+    particular order."""
+    _expect(buf, addr, b"BTHD")
+    node_size, rec_size = _u(buf, addr + 6, 4), _u(buf, addr + 10, 2)
+    depth = _u(buf, addr + 12, 2)
+    root, root_nrec = _u(buf, addr + 16, 8), _u(buf, addr + 24, 2)
+    # records per node and the sizes of the child pointers' counts at
+    # each depth, as the library derives them (H5B2hdr.c)
+    max_nrec = [(node_size - 10) // rec_size]
+    cum = [max_nrec[0]]
+    nrec_size = _enc_size(max_nrec[0])
+    cum_size = [0]
+    for d in range(1, depth + 1):
+        ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+        max_nrec.append((node_size - 10 - ptr) // (rec_size + ptr))
+        cum.append((max_nrec[d] + 1) * cum[d - 1] + max_nrec[d])
+        cum_size.append(_enc_size(cum[d]))
+
+    def walk(node, nrec, d):
+        _expect(buf, node, b"BTLF" if d == 0 else b"BTIN")
+        p = node + 6
+        for i in range(nrec):
+            yield buf[p + i * rec_size:p + (i + 1) * rec_size]
+        if d == 0:
+            return
+        p += nrec * rec_size
+        for _ in range(nrec + 1):
+            child = _u(buf, p, 8)
+            child_nrec = _u(buf, p + 8, nrec_size)
+            p += 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            yield from walk(child, child_nrec, d - 1)
+
+    if root != _UNDEF and root_nrec:
+        yield from walk(root, root_nrec, depth)
 
 
 def _dtype(dt):
@@ -349,6 +486,29 @@ def _filters(msg):
     return out
 
 
+def _fletcher32(data):
+    """libhdf5's Fletcher-32 (H5_checksum_fletcher32): big-endian 16-bit
+    words, both sums folded to 16 bits after every 360 words, the second
+    kept to 32 bits as the C code's uint32 keeps it."""
+    n = len(data) // 2
+    words = np.frombuffer(data[:2 * n], dtype=">u2").astype(np.uint64)
+    s1 = s2 = 0
+    for i in range(0, n, 360):
+        c = np.cumsum(words[i:i + 360])
+        s2 = (s2 + len(c) * s1 + int(c.sum())) & 0xffffffff
+        s1 += int(c[-1])
+        s1 = (s1 & 0xffff) + (s1 >> 16)
+        s2 = (s2 & 0xffff) + (s2 >> 16)
+    if len(data) % 2:
+        s1 += data[-1] << 8
+        s2 += s1
+        s1 = (s1 & 0xffff) + (s1 >> 16)
+        s2 = (s2 & 0xffff) + (s2 >> 16)
+    s1 = (s1 & 0xffff) + (s1 >> 16)
+    s2 = (s2 & 0xffff) + (s2 >> 16)
+    return (s2 << 16) | s1
+
+
 def _unfilter(data, filters, mask):
     """Undo a chunk's filters (the pipeline in reverse); bit i of mask
     set means filter i was skipped for this chunk."""
@@ -364,6 +524,14 @@ def _unfilter(data, filters, mask):
             planes = np.frombuffer(data[:n], dtype=np.uint8)
             data = (planes.reshape(esize, -1).T.tobytes()
                     + bytes(data[n:]))
+        elif fid == 3:                  # fletcher32: checksum appended
+            body, stored = bytes(data[:-4]), _u(data, len(data) - 4, 4)
+            want = _fletcher32(body)
+            # libhdf5 before 1.6.3 stored the sum byte-swapped
+            if stored not in (want, int.from_bytes(
+                    want.to_bytes(4, "little"), "big")):
+                raise IOError("HDF5 chunk fails its fletcher32 checksum")
+            data = body
         else:
             raise NotImplementedError("HDF5 filter {}".format(fid))
     return data
@@ -450,27 +618,178 @@ class Dataset(_Node):
     def _chunked(self, lay):
         """Raw bytes (C order) of a chunked dataset, chunks unfiltered and
         placed; chunks never written read as zeros (the default fill)."""
-        if lay[0] != 3:
-            raise NotImplementedError(
-                "HDF5 chunk index of layout version {} (only the v1 B-tree "
-                "of version 3)".format(lay[0]))
-        ndims = lay[2]
-        btree = _u(lay, 3, 8)
-        dims = [_u(lay, 11 + 4 * i, 4) for i in range(ndims)]
+        space = self._find(0x01)
+        shape = _shape(space)
+        if lay[0] == 3:
+            ndims = lay[2]
+            dims = [_u(lay, 11 + 4 * i, 4) for i in range(ndims)]
+            index = _u(lay, 3, 8)
+            chunks = (() if index == _UNDEF
+                      else self._f.chunks(index, ndims))
+        else:
+            flags, ndims, enc = lay[2], lay[3], lay[4]
+            dims = [_u(lay, 5 + enc * i, enc) for i in range(ndims)]
+            chunks = _v4_chunks(self._f._buf, lay, 5 + enc * ndims, flags,
+                                tuple(dims[:-1]), dims[-1], shape,
+                                _maxshape(space))
         chunk, esize = tuple(dims[:-1]), dims[-1]
-        shape = _shape(self._find(0x01))
         out = np.zeros(tuple(shape) + (esize,), dtype=np.uint8)
         filters = _filters(self._find(0x0B))
-        if btree != _UNDEF:
-            for offsets, mask, data in self._f.chunks(btree, ndims):
-                data = _unfilter(data, filters, mask)
-                block = np.frombuffer(data, dtype=np.uint8)[
-                    :int(np.prod(chunk)) * esize].reshape(chunk + (esize,))
-                dst = tuple(slice(o, min(o + c, n))
-                            for o, c, n in zip(offsets, chunk, shape))
-                out[dst] = block[tuple(slice(0, d.stop - d.start)
-                                       for d in dst)]
+        for offsets, mask, data in chunks:
+            data = _unfilter(data, filters, mask)
+            block = np.frombuffer(data, dtype=np.uint8)[
+                :int(np.prod(chunk)) * esize].reshape(chunk + (esize,))
+            dst = tuple(slice(o, min(o + c, n))
+                        for o, c, n in zip(offsets, chunk, shape))
+            out[dst] = block[tuple(slice(0, d.stop - d.start)
+                                   for d in dst)]
         return out.tobytes()
+
+
+def _maxshape(ds):
+    """Maximum dimensions of a dataspace (None where unlimited), or its
+    dimensions where it stores none."""
+    shape = _shape(ds)
+    if not ds[2] & 1:
+        return shape
+    p = (8 if ds[0] == 1 else 4) + 8 * len(shape)
+    return tuple(None if _u(ds, p + 8 * i, 8) == _UNDEF
+                 else _u(ds, p + 8 * i, 8) for i in range(len(shape)))
+
+
+def _v4_chunks(buf, lay, p, flags, chunk, esize, shape, maxshape):
+    """(offsets, filter mask, stored bytes) of every chunk of a layout
+    version 4 chunked dataset, whose chunk index type is at lay[p]."""
+    kind = lay[p]
+    nbytes = int(np.prod(chunk)) * esize
+    if kind == 1:                       # single chunk: the whole dataset
+        size, mask = nbytes, 0
+        if flags & 0x02:                # filtered
+            size, mask = _u(lay, p + 1, 8), _u(lay, p + 9, 4)
+            p += 12
+        addr = _u(lay, p + 1, 8)
+        if addr != _UNDEF:
+            yield (0,) * len(chunk), mask, bytes(buf[addr:addr + size])
+        return
+    if kind == 2:
+        raise NotImplementedError("HDF5 chunk index: implicit")
+    if kind == 5:
+        raise NotImplementedError(
+            "HDF5 chunk index: version 2 B-tree (datasets with more than "
+            "one unlimited dimension)")
+    if kind == 3:                       # fixed array
+        entries = _fixed_array(buf, _u(lay, p + 2, 8))
+    elif kind == 4:                     # extensible array
+        if any(m is None for m in maxshape[1:]):
+            raise NotImplementedError(
+                "HDF5 extensible-array chunk index over an unlimited "
+                "dimension other than the first")
+        entries = _extensible_array(buf, _u(lay, p + 6, 8))
+    else:
+        raise NotImplementedError("HDF5 chunk index type {}".format(kind))
+    # chunks are numbered in C order over the chunk grid of the maximum
+    # dimensions (the first, if unlimited, varies slowest)
+    grid = [-(-(m if m is not None else n) // c)
+            for m, n, c in zip(maxshape, shape, chunk)]
+    for i, (addr, entry) in enumerate(entries):
+        if addr == _UNDEF:
+            continue
+        if len(entry) > 8:              # filtered: size, filter mask
+            size = _u(entry, 8, len(entry) - 12)
+            mask = _u(entry, len(entry) - 4, 4)
+        else:
+            size, mask = nbytes, 0
+        scaled = []
+        for g in reversed(grid[1:]):
+            i, r = divmod(i, g)
+            scaled.append(r)
+        scaled.append(i)
+        yield (tuple(s * c for s, c in zip(reversed(scaled), chunk)), mask,
+               bytes(buf[addr:addr + size]))
+
+
+def _fixed_array(buf, addr):
+    """[(chunk address, raw entry)] of a fixed array (FAHD)."""
+    _expect(buf, addr, b"FAHD")
+    esize, page_bits = buf[addr + 6], buf[addr + 7]
+    n, dblk = _u(buf, addr + 8, 8), _u(buf, addr + 16, 8)
+    _expect(buf, dblk, b"FADB")
+    page = 1 << page_bits
+    if n <= page:
+        p = dblk + 14
+        return [(_u(buf, p + i * esize, 8),
+                 bytes(buf[p + i * esize:p + (i + 1) * esize]))
+                for i in range(n)]
+    npages = -(-n // page)
+    bitmap = dblk + 14
+    start = bitmap + (npages + 7) // 8 + 4
+    out = []
+    for i in range(n):
+        pg = i // page
+        if not buf[bitmap + pg // 8] & (0x80 >> (pg % 8)):
+            out.append((_UNDEF, b""))   # page never written
+            continue
+        e = start + pg * (page * esize + 4) + (i % page) * esize
+        out.append((_u(buf, e, 8), bytes(buf[e:e + esize])))
+    return out
+
+
+def _extensible_array(buf, addr):
+    """[(chunk address, raw entry)] of an extensible array (EAHD), the
+    lookup of H5EA.c."""
+    _expect(buf, addr, b"EAHD")
+    esize, max_bits, idx_elmts = buf[addr + 6], buf[addr + 7], buf[addr + 8]
+    min_elmts, min_ptrs, page_bits = (buf[addr + 9], buf[addr + 10],
+                                      buf[addr + 11])
+    nset, iblock = _u(buf, addr + 44, 8), _u(buf, addr + 60, 8)
+    if iblock == _UNDEF:
+        return []
+    _expect(buf, iblock, b"EAIB")
+    off_size = (max_bits + 7) // 8
+    page = 1 << page_bits
+    nsblks = 1 + max_bits - _log2(min_elmts)
+    iblock_sblks = 2 * _log2(min_ptrs)
+    dblk_addrs = iblock + 14 + idx_elmts * esize
+    sblk_addrs = dblk_addrs + 2 * (min_ptrs - 1) * 8
+    info, start_idx, start_dblk = [], 0, 0
+    for u in range(nsblks):
+        ndblks, nelmts = 1 << (u // 2), min_elmts << ((u + 1) // 2)
+        info.append((ndblks, nelmts, start_idx, start_dblk))
+        start_idx += ndblks * nelmts
+        start_dblk += ndblks
+
+    def element(i):
+        if i < idx_elmts:
+            return iblock + 14 + i * esize
+        j = i - idx_elmts
+        sblk = _log2(j // min_elmts + 1)
+        ndblks, nelmts, first, first_dblk = info[sblk]
+        e = j - first
+        if sblk < iblock_sblks:
+            dblk = _u(buf, dblk_addrs + 8 * (first_dblk + e // nelmts), 8)
+        else:
+            sb = _u(buf, sblk_addrs + 8 * (sblk - iblock_sblks), 8)
+            if sb == _UNDEF:
+                return None
+            _expect(buf, sb, b"EASB")
+            init = ((nelmts // page + 7) // 8) * ndblks \
+                if nelmts > page else 0
+            dblk = _u(buf, sb + 14 + off_size + init + 8 * (e // nelmts), 8)
+        if dblk == _UNDEF:
+            return None
+        _expect(buf, dblk, b"EADB")
+        e %= nelmts
+        if nelmts <= page:
+            return dblk + 14 + off_size + e * esize
+        return (dblk + 14 + off_size + 4 + (e // page) * (page * esize + 4)
+                + (e % page) * esize)
+
+    out = []
+    for i in range(nset):
+        p = element(i)
+        out.append((_UNDEF, b"") if p is None
+                   else (_u(buf, p, 8), bytes(buf[p:p + esize])))
+    return out
 
 
 # -- writer ------------------------------------------------------------------

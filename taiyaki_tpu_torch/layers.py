@@ -9,11 +9,11 @@ seed gives the same weights in both packages.
 
 Tensor convention: time x batch x features (TBF) throughout.
 
-Only the layers of the mLstm_flipflop basecaller are ported; every other
-layer of the JAX package raises NotImplementedError naming itself.
-Parameters are trainable: the convolutions and the head take their
-gradients from autograd, the LSTM layers from the backward kernel of
-`ops.rnn.lstm_layer`.
+Only the layers of the mLstm_flipflop and mGru_flipflop models are
+ported; every other layer of the JAX package raises NotImplementedError
+naming itself.  Parameters are trainable: the convolutions and the head
+take their gradients from autograd, the LSTM and GRU layers from the
+backward kernels of `ops.rnn.lstm_layer` and `ops.rnn.gru_layer`.
 """
 
 import numpy as np
@@ -93,8 +93,9 @@ def _not_ported(name):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "layer {} is not ported to taiyaki_tpu_torch yet (the port "
-            "runs the mLstm_flipflop basecaller: Serial, Reverse, "
-            "Convolution, Lstm, GlobalNormFlipFlop)".format(name))
+            "runs the mLstm_flipflop and mGru_flipflop models: Serial, "
+            "Reverse, Convolution, Lstm, GruMod, GlobalNormFlipFlop)"
+            .format(name))
     return type(name, (Layer,), {"__init__": __init__,
                                  "__doc__": "Not ported yet."})
 
@@ -113,7 +114,6 @@ Product = _not_ported("Product")
 Residual = _not_ported("Residual")
 GatedResidual = _not_ported("GatedResidual")
 SoftChoice = _not_ported("SoftChoice")
-GruMod = _not_ported("GruMod")
 CudnnGru = _not_ported("CudnnGru")
 GlobalNormFlipFlopCatMod = _not_ported("GlobalNormFlipFlopCatMod")
 
@@ -184,7 +184,7 @@ class Reverse(Layer):
         return {"layer": self.layer.init(rng)}
 
     def forward(self, x):
-        if isinstance(self.layer, Lstm):
+        if isinstance(self.layer, (Lstm, GruMod)):
             return self.layer(x, reverse=True)
         return torch.flip(self.layer(torch.flip(x, (0,))), (0,))
 
@@ -259,6 +259,39 @@ class Lstm(Layer):
         # trained, as in the JAX package
         b = self.b if self.has_bias else self.b.detach()
         return lstm_layer(x, self.iW, b, self.sW, reverse=reverse)
+
+
+class GruMod(Layer):
+    """Guppy-compatible GRU: torch/CUDNN GRU cell equations with the
+    redundant hidden bias pinned to zero; gates stacked in CUDNN's order
+    r, z, n (iW [3H, insize], sW [3H, H], b [3H]).  With has_bias=False, b
+    stays zero."""
+
+    def __init__(self, insize, size, has_bias=True):
+        super().__init__()
+        self.insize = insize
+        self.size = size
+        self.has_bias = has_bias
+        self.iW = _param(3 * size, insize)
+        self.sW = _param(3 * size, size)
+        self.b = _param(3 * size)
+
+    def init(self, rng):
+        params = {
+            "iW": orthonormal_matrix(rng, 3 * self.size, self.insize),
+            "sW": orthonormal_matrix(rng, 3 * self.size, self.size),
+        }
+        if self.has_bias:
+            params["b"] = truncated_normal(rng, (3 * self.size,), sd=0.5)
+        else:
+            params["b"] = np.zeros(3 * self.size, dtype=np.float32)
+        return params
+
+    def forward(self, x, reverse=False):
+        from taiyaki_tpu_torch.ops.rnn import gru_layer
+        # see Lstm.forward on has_bias=False
+        b = self.b if self.has_bias else self.b.detach()
+        return gru_layer(x, self.iW, b, self.sW, reverse=reverse)
 
 
 # -- output heads ------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 from taiyaki_tpu_torch.ops import cuda_lib
 
 NEG = -1e30
-MAX_L = 2048     # 256 threads x up to 8 positions each (csrc/crf.cu)
+MAX_L = 8192     # 256 threads x up to 32 positions each (csrc/crf.cu)
 MAX_S = 128
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],

@@ -1,6 +1,7 @@
 """The port's basecall CLI end to end on the CPU, against bin/basecall.py
-(repeated read ids included); the import guard over every module of the
-port and chip_smoke.py; the device default; unported models.
+(repeated read ids included; a real read with the shipped GRU
+checkpoint); the import guard over every module of the port and
+chip_smoke.py; the device default.
 
 The JAX CLI runs once (module fixture), as its compile dominates."""
 
@@ -187,12 +188,79 @@ def test_duplicate_read_ids_get_a_record_each(calls, tmp_path):
     assert text["port"] == text["jax"]
 
 
-def test_mgru_checkpoint_raises_naming_grumod():
-    from taiyaki_tpu_torch.utils import helpers
-    ckpt = os.path.join(REPO, "taiyaki_tpu", "models",
-                        "mGru_flipflop_remapping_model_r9_DNA.checkpoint")
-    with pytest.raises(NotImplementedError, match="GruMod"):
-        helpers.load_model(ckpt)
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_real_read_calls_match_jax_on_shipped_gru_checkpoint(tmp_path):
+    """The shortest real read of the repo's mapped reads (19 039
+    samples), written as fast5 with h5py, called with the shipped
+    mGru_flipflop remap checkpoint (size 96, stride 4) by both CLIs with
+    their defaults but for batches of 8 chunks (the read has 6; the JAX
+    CLI pads every batch to the batch size): the fastas are equal byte for
+    byte, and the call's semi-global identity against the read's
+    reference is the JAX call's 0.870 (at least 0.80)."""
+    import h5py
+    reads = tmp_path / "reads"
+    reads.mkdir()
+    src = os.path.join(REPO, "RESULTS", "training_ingredients",
+                       "mapped_remap_samref.hdf5")
+    with h5py.File(src, "r") as f:
+        rid = min(f["Reads"], key=lambda k: len(f["Reads"][k]["Dacs"]))
+        g = f["Reads"][rid]
+        dacs = g["Dacs"][()]
+        ref = "".join("ACGT"[i] for i in g["Reference"][()])
+        with h5py.File(str(reads / "real.fast5"), "w") as out:
+            grp = out.create_group("read_" + rid)
+            ch = grp.create_group("channel_id")
+            for k in ("digitisation", "offset", "range"):
+                ch.attrs[k] = g.attrs[k]
+            ch.attrs["sampling_rate"] = 4000.0
+            raw = grp.create_group("Raw")
+            raw.attrs["read_id"] = rid
+            raw.attrs["start_time"] = 0
+            raw.attrs["duration"] = len(dacs)
+            raw.create_dataset("Signal", data=dacs.astype("i2"))
+    assert len(dacs) == 19039
+    model = os.path.join(REPO, "taiyaki_tpu", "models",
+                         "mGru_flipflop_remapping_model_r9_DNA.checkpoint")
+    text = {}
+    for tag, cmd in (
+            ("jax", [sys.executable, os.path.join(REPO, "bin", "basecall.py"),
+                     "--ndevices", "1"]),
+            ("port", [sys.executable, "-m",
+                      "taiyaki_tpu_torch.cli.basecall"])):
+        path = str(tmp_path / (tag + ".fa"))
+        r = subprocess.run(cmd + ["--device", "cpu", "--quiet",
+                                  "--max_concurrent_chunks", "8", "--output",
+                                  path, str(reads), model], cwd=REPO,
+                           env=_env(), capture_output=True, text=True,
+                           timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        with open(path) as fh:
+            text[tag] = fh.read()
+    assert text["port"] == text["jax"]
+    header, call = text["port"].split()
+    assert header == ">" + rid
+    identity = _chip_smoke().semiglobal_identity(call, ref)
+    assert identity >= 0.80
+    assert round(identity, 3) == 0.870
+
+
+def test_semiglobal_identity_counts_edits_against_the_reference():
+    ident = _chip_smoke().semiglobal_identity
+    assert ident("ACGTACGT", "ACGTACGT") == 1.0
+    # the call's overhanging ends are free; the reference is not
+    assert ident("TTTACGTACGTGG", "ACGTACGT") == 1.0
+    assert ident("ACGTACGT", "TTACGTACGT") == 0.8
+    assert ident("ACGAACGT", "ACGTACGT") == 1 - 1 / 8     # substitution
+    assert ident("ACGTTACGT", "ACGTACGT") == 1 - 1 / 8    # insertion
+    assert ident("ACGACGT", "ACGTACGT") == 1 - 1 / 8      # deletion
 
 
 def _port_sources():
@@ -227,6 +295,8 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.data.mapped_signal_files, "
             "taiyaki_tpu_torch.data.chunk_selection, "
             "taiyaki_tpu_torch.models.mLstm_flipflop, "
+            "taiyaki_tpu_torch.models.mGru_flipflop, "
+            "taiyaki_tpu_torch.ops.gru, "
             "taiyaki_tpu_torch.utils.helpers; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {!r}))".format(FORBIDDEN))

@@ -181,6 +181,31 @@ def test_loss_and_gradient_match_jax_with_sharpening():
     assert not t_lp.grad[:, 1].any()
 
 
+def test_loss_and_gradient_match_jax_above_2048_positions():
+    """A lattice of 2304 positions (more than the 2048 the CUDA kernels
+    once took) against the JAX package's scan path, loss and gradient."""
+    T, L = 2600, 2304
+    rng = np.random.default_rng(12)
+    lp = rng.normal(size=(T, 2, 40)).astype(np.float32)
+    seqlens = np.array([L, 1700], np.int32)
+    seqs = np.zeros((2, L), np.int32)
+    for b in range(2):
+        seqs[b, :seqlens[b]] = jfff.flipflop_code(
+            rng.integers(0, 4, size=seqlens[b]))
+    want, vjp = jax.vjp(lambda x: jff.crf_flipflop_loss(
+        x, jnp.asarray(seqs), jnp.asarray(seqlens), 1.0), jnp.asarray(lp))
+    t_lp = torch.from_numpy(lp).requires_grad_()
+    got = tff.crf_flipflop_loss(t_lp, torch.from_numpy(seqs),
+                                torch.from_numpy(seqlens), 1.0)
+    got.sum().backward()
+    assert tcrf.MAX_L >= 4096
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(t_lp.grad.numpy(),
+                               np.asarray(vjp(jnp.ones(2))[0]),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_loss_without_grad_skips_the_lattice(monkeypatch):
     lp, seqs, seqlens, _, _ = _case(seed=7)
     seen = []

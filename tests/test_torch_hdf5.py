@@ -1,6 +1,6 @@
 """The port's own HDF5 reader and writer (data.hdf5) against h5py, and
-fast5 reading through it; a checkpoint written by the port loads in the
-JAX package."""
+fast5 and mapped-signal reading through it; a checkpoint written by the
+port loads in the JAX package."""
 
 import h5py
 import numpy as np
@@ -54,11 +54,130 @@ def test_reader_matches_h5py(tmp_path, libver, n):
 
 
 def test_reader_refuses_dense_link_storage(tmp_path):
+    """Dense link storage, refused before the reader knew fractal heaps,
+    now reads as h5py reads it; what it still refuses is named."""
     path = str(tmp_path / "dense.fast5")
     _h5py_fast5(path, n=12, libver="latest")
-    with hdf5.File(path) as f:
-        with pytest.raises(NotImplementedError, match="dense"):
-            f.keys()
+    with hdf5.File(path) as ours, h5py.File(path, "r") as theirs:
+        assert len(ours.keys()) == 12
+        _same(ours, theirs)
+    with h5py.File(path, "a") as f:
+        f.create_dataset("grid", data=np.ones((4, 4)), chunks=(2, 2),
+                         maxshape=(None, None))
+    with hdf5.File(path) as ours:
+        with pytest.raises(NotImplementedError, match="version 2 B-tree"):
+            ours["grid"][()]
+
+
+@pytest.mark.parametrize("libver,track_order", [("v108", True),
+                                                ("latest", False)])
+def test_reader_reads_dense_groups(tmp_path, libver, track_order):
+    """40 links in one group (a fractal heap with an indirect block,
+    indexed by a version 2 B-tree of more than one level), keys in
+    creation order where the group tracks it."""
+    path = str(tmp_path / "d.h5")
+    names = ["g{:02d}".format((7 * i) % 40) for i in range(40)]
+    with h5py.File(path, "w", libver=libver, track_order=track_order) as f:
+        for i, n in enumerate(names):
+            f.create_group(n).attrs["i"] = i
+    with hdf5.File(path) as ours, h5py.File(path, "r") as theirs:
+        assert list(ours.keys()) == list(theirs.keys())
+        assert list(ours.keys()) == (names if track_order
+                                     else sorted(names))
+        _same(ours, theirs)
+
+
+@pytest.mark.parametrize("libver", ["v108", "latest"])
+def test_reader_reads_dense_attributes(tmp_path, libver):
+    path = str(tmp_path / "a.h5")
+    with h5py.File(path, "w", libver=libver) as f:
+        g = f.create_group("g")
+        for i in range(30):
+            g.attrs["attr{:02d}".format(i)] = np.arange(i + 1,
+                                                        dtype="f4")
+        g.attrs["name"] = "read_7"
+        d = f.create_dataset("d", data=np.arange(5))
+        for i in range(12):
+            d.attrs["k{}".format(i)] = i
+    with hdf5.File(path) as ours, h5py.File(path, "r") as theirs:
+        _same(ours, theirs)
+        assert len(ours["g"].attrs) == 31
+
+
+@pytest.mark.parametrize("batch_format", [False, True])
+def test_mapped_signal_file_of_jax_writer_reads_without_h5py(
+        tmp_path, monkeypatch, batch_format):
+    """12 reads written by the JAX package's MappedSignalWriter (per-read
+    layout: libver v108, a dense Reads group, dense read attributes; or
+    the batch layout) read through the port's MappedSignalReader on its
+    own HDF5 reader give what the JAX reader gives through h5py."""
+    import os
+    from taiyaki_tpu.data import mapped_signal_files as jmsf
+    from taiyaki_tpu_torch.data import mapped_signal_files as tmsf
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "RESULTS", "training_ingredients",
+        "mapped_remap_samref.hdf5")
+    with jmsf.MappedSignalReader(src) as msr:
+        alphabet = msr.get_alphabet_information()
+        reads = list(msr.reads())
+    path = str(tmp_path / "m.hdf5")
+    with jmsf.MappedSignalWriter(path, alphabet,
+                                 batch_format=batch_format) as w:
+        for i in range(12):
+            rd = reads[i % 3].get_read_dictionary()
+            rd["read_id"] = "{}_{:02d}".format(rd["read_id"], i)
+            w.write_read(rd)
+    with jmsf.MappedSignalReader(path) as msr:
+        want = list(msr.reads())
+    monkeypatch.setattr(tmsf, "open_file", hdf5.File)
+    with tmsf.MappedSignalReader(path) as msr:
+        assert isinstance(msr.hdf5, hdf5.File)
+        got = list(msr.reads())
+        assert msr.get_alphabet_information().alphabet == "ACGT"
+    assert [r.read_id for r in got] == [r.read_id for r in want]
+    assert len(got) == 12
+    for a, b in zip(got, want):
+        for k in ("Dacs", "Ref_to_signal", "Reference"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+        for k in ("shift_frompA", "scale_frompA", "range", "offset",
+                  "digitisation"):
+            assert getattr(a, k) == getattr(b, k), k
+
+
+@pytest.mark.parametrize("index", ["single", "fixed", "extensible",
+                                   "extensible_2d", "paged"])
+def test_reader_reads_layout4_chunk_indexes(tmp_path, index):
+    """libver="latest" chunked datasets, gzip, shuffle and fletcher32: one
+    chunk (the single-chunk index), fixed dimensions (fixed array; over
+    1024 chunks it is paged), one unlimited dimension (extensible array),
+    and a chunk never written (zeros)."""
+    path = str(tmp_path / "c.h5")
+    rng = np.random.default_rng(3)
+    data, kw = {
+        "single": (rng.integers(0, 99, (30, 7)).astype("i4"),
+                   dict(chunks=(30, 7))),
+        "fixed": (rng.normal(size=(37, 11)), dict(chunks=(8, 5))),
+        "extensible": (rng.integers(-9, 9, 1000).astype("i2"),
+                       dict(chunks=(13,), maxshape=(None,))),
+        "extensible_2d": (rng.normal(size=(50, 7)).astype("f4"),
+                          dict(chunks=(3, 2), maxshape=(None, 7))),
+        "paged": (rng.integers(0, 9, 3000).astype("i2"),
+                  dict(chunks=(2,))),
+    }[index]
+    with h5py.File(path, "w", libver="latest") as f:
+        f.create_dataset("d", data=data, compression="gzip", shuffle=True,
+                         fletcher32=True, **kw)
+        sparse = f.create_dataset("sparse", shape=(100,), dtype="f4",
+                                  chunks=(5,), compression="gzip",
+                                  **({"maxshape": (None,)}
+                                     if "extensible" in index else {}))
+        sparse[41:43] = [1.0, 2.0]
+    with hdf5.File(path) as ours, h5py.File(path, "r") as theirs:
+        got = ours["d"][()]
+        assert got.dtype == data.dtype
+        np.testing.assert_array_equal(got, data)
+        np.testing.assert_array_equal(ours["sparse"][()],
+                                      theirs["sparse"][()])
 
 
 def test_reader_walks_large_symbol_tables(tmp_path):
@@ -91,7 +210,8 @@ def test_reader_reads_chunked_mapped_signal_files(name):
 def test_reader_reads_chunked_nd_datasets(tmp_path):
     """2-D chunks with ragged edges, gzip and shuffle, a chunk never
     written (fill zeros), enough chunks for a B-tree of more than one
-    level; a filter it does not know is refused."""
+    level, fletcher32 checked (a flipped bit fails); a filter it does not
+    know (lzf) is refused."""
     path = str(tmp_path / "c.h5")
     rng = np.random.default_rng(2)
     want = {
@@ -104,6 +224,8 @@ def test_reader_reads_chunked_nd_datasets(tmp_path):
                          compression="gzip", shuffle=True)
         f.create_dataset("checked", data=want["ints"], chunks=(8, 5),
                          fletcher32=True)
+        f.create_dataset("lzf", data=want["ints"], chunks=(8, 5),
+                         compression="lzf")
         f.create_dataset("floats", data=want["floats"], chunks=(7, 5),
                          compression="gzip")
         f.create_dataset("long", data=want["long"], chunks=(50,),
@@ -118,7 +240,19 @@ def test_reader_reads_chunked_nd_datasets(tmp_path):
             np.testing.assert_array_equal(got, v)
         np.testing.assert_array_equal(
             ours["sparse"][()], np.r_[[0.0] * 12, [1, 2, 3], [0.0] * 15])
-        with pytest.raises(NotImplementedError, match="filter 3"):
+        np.testing.assert_array_equal(ours["checked"][()], want["ints"])
+        with pytest.raises(NotImplementedError, match="filter 32000"):
+            ours["lzf"][()]
+    # a flipped bit fails the fletcher32 checksum
+    with h5py.File(path, "r") as f:
+        addr = f["checked"].id.get_chunk_info(0).byte_offset
+    with open(path, "r+b") as fh:
+        fh.seek(addr)
+        byte = fh.read(1)[0]
+        fh.seek(addr)
+        fh.write(bytes([byte ^ 1]))
+    with hdf5.File(path) as ours:
+        with pytest.raises(IOError, match="fletcher32"):
             ours["checked"][()]
 
 

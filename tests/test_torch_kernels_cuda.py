@@ -10,8 +10,10 @@ order, carried through the recurrence); LSTM backward 1e-4 relative to
 the largest value of each output (sums of up to T*B products in another
 order); logZ rtol 1e-5 / atol 1e-3 over T up to 1000; lattices atol 1e-4;
 posteriors atol 1e-5; the CRF score 1e-3 + 1e-5 |score| and its gradient
-atol 1e-5 (posteriors, each in [0, 1]), 1e-6 from run to run (the order
-of the shared-memory atomic adds).
+atol 1e-5 (posteriors, each in [0, 1]; 3e-4 over lattices of thousands of
+steps, see CRF_SHAPES), 1e-6 from run to run (the order
+of the shared-memory atomic adds); GRU h atol 1e-4 and its backward 1e-4
+relative, as the LSTM's.
 """
 
 import math
@@ -20,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from taiyaki_tpu_torch.ops import crf, lstm, logz
+from taiyaki_tpu_torch.ops import crf, gru, lstm, logz
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -186,13 +188,20 @@ def _lattice_close(got, want, atol):
     return (got[live] - want[live]).abs().max().item() <= atol
 
 
-CRF_SHAPES = [(37, 5, 12, 0), (41, 9, 300, 0), (30, 6, 20, 3),
-              (800, 256, 512, 0)]
+# (T, B, L, mod columns, gradient atol).  Over the long lattices (T of
+# 4000 and 7000 steps) the log-space forward and backward lattices and the
+# score of kernel and twin each drift apart by up to their 1e-4
+# tolerance, so a posterior p = exp(fwd + bwd - score) moves by at most
+# 3e-4 p, and a gradient entry sums posteriors of total at most 1: the
+# gradient is held to 3e-4 there.
+CRF_SHAPES = [(37, 5, 12, 0, 1e-5), (41, 9, 300, 0, 1e-5),
+              (30, 6, 20, 3, 1e-5), (800, 256, 512, 0, 1e-5),
+              (4000, 6, 3712, 0, 3e-4), (7000, 3, 8192, 0, 3e-4)]
 
 
 @pytest.mark.parametrize("shape", CRF_SHAPES)
 def test_crf_kernels_match_twins(dev, shape):
-    T, B, L, nmod = shape
+    T, B, L, nmod, g_tol = shape
     lp, sidx, midx, mmidx, mfact, valid, last = _crf_inputs(
         T, B, L, nmod=nmod, dev=dev)
     f0, s0, lat0 = crf.crf_fwd_plain(lp, sidx, midx, mmidx, mfact, valid)
@@ -211,5 +220,40 @@ def test_crf_kernels_match_twins(dev, shape):
     assert _lattice_close(f1, f0, 1e-4)
     assert torch.isfinite(g1).all()
     assert (g1[:, 1] == 0).all()            # the empty row
-    torch.testing.assert_close(g1, g0, rtol=0, atol=1e-5)
+    torch.testing.assert_close(g1, g0, rtol=0, atol=g_tol)
     torch.testing.assert_close(g1, g2, rtol=0, atol=1e-6)
+
+
+def _gru_inputs(T, B, D, H, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(T, B, D)).astype(np.float32)
+    iW = (rng.normal(size=(3 * H, D)) / np.sqrt(D)).astype(np.float32)
+    b = (0.5 * rng.normal(size=3 * H)).astype(np.float32)
+    sW = (rng.normal(size=(3 * H, H)) / np.sqrt(H)).astype(np.float32)
+    dh = rng.normal(size=(T, B, H)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (x, iW, b, sW, dh)]
+
+
+GRU_SHAPES = [(37, 13, 7, 16), (19, 24, 12, 17), (5, 3, 300, 40),
+              (300, 64, 96, 96), (200, 128, 256, 256)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", GRU_SHAPES)
+def test_gru_kernels_match_twins(dev, shape, reverse):
+    x, iW, b, sW, dh = (a.to(dev) for a in _gru_inputs(*shape))
+    want = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse)
+    nf, nb = gru.gru_fwd.launches, gru.gru_bwd_recompute.launches
+    got = gru.gru_fwd(x, iW, b, sW, reverse=reverse)
+    bw = gru.gru_bwd_recompute_plain(dh, want, x, sW, iW, b, reverse=reverse)
+    bk = gru.gru_bwd_recompute(dh, want, x, sW, iW, b, reverse=reverse)
+    torch.cuda.synchronize()
+    assert (gru.gru_fwd.launches, gru.gru_bwd_recompute.launches) == \
+        (nf + 1, nb + 1)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() < 1e-4
+    assert bk[0].shape == bw[0].shape
+    assert _rel_err(bk[0], bw[0]) < 1e-4
+    for g, w in zip(bk[1:], bw[1:]):
+        assert g.shape[1:] == w.shape[1:]
+        assert _rel_err(g.sum(0), w.sum(0)) < 1e-4

@@ -1,4 +1,4 @@
-"""The port's layers and LSTM against the JAX package on the CPU, same
+"""The port's layers, LSTM and GRU against the JAX package on the CPU, same
 seeded numpy inputs and weights.  Tolerances: 1e-5 for one layer (f32, the
 same arithmetic in another order), 1e-4 for a whole network."""
 
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from taiyaki_tpu import layers as jlayers
+from taiyaki_tpu.models import mGru_flipflop as jgru_model
 from taiyaki_tpu.models import mLstm_flipflop as jmodel
 from taiyaki_tpu.ops import pallas_rnn
 from taiyaki_tpu.ops import rnn as jrnn
@@ -16,6 +17,7 @@ from taiyaki_tpu_torch import activation as tact
 from taiyaki_tpu_torch import layers as tlayers
 from taiyaki_tpu_torch.convert import (load_jax_params, params_from_jax,
                                        params_to_jax)
+from taiyaki_tpu_torch.models import mGru_flipflop as tgru_model
 from taiyaki_tpu_torch.models import mLstm_flipflop as tmodel
 from taiyaki_tpu_torch.ops import lstm as tlstm
 from taiyaki_tpu_torch.ops import rnn as trnn
@@ -93,6 +95,62 @@ def test_lstm_layer_equals_wrapper_and_no_bias():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_grumod_matches_cpu_scan(reverse):
+    x = _x((50, 8, 12))
+    jl, tl = jlayers.GruMod(12, 17), tlayers.GruMod(12, 17)
+    if reverse:
+        jl, tl = jlayers.Reverse(jl), tlayers.Reverse(tl)
+    got, want = _run(jl, tl, x)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_grumod_init_draws_the_jax_weights():
+    """iW, sW, then b, from one numpy Generator, as the JAX layer draws
+    them; has_bias=False draws no b and keeps it zero."""
+    for has_bias in (True, False):
+        jp = jlayers.GruMod(7, 9, has_bias).init(np.random.default_rng(2))
+        tp = tlayers.GruMod(7, 9, has_bias).init(np.random.default_rng(2))
+        assert sorted(jp) == sorted(tp) == ["b", "iW", "sW"]
+        for k in jp:
+            assert tp[k].dtype == jp[k].dtype == np.float32
+            np.testing.assert_array_equal(tp[k], jp[k])
+
+
+def test_mgru_flipflop_matches_net_apply():
+    x = _x((300, 4, 1), seed=6)
+    jnet = jgru_model.network(size=16, stride=2, winlen=19)
+    tnet = tgru_model.network(size=16, stride=2, winlen=19)
+    got, want = _run(jnet, tnet, x, seed=12)
+    assert tnet.stride == jnet.stride == 2
+    assert got.shape == want.shape == (150, 4, 40)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ckpt", [
+    "taiyaki_tpu/models/mGru_flipflop_remapping_model_r9_DNA.checkpoint",
+    "RESULTS/train_remap_samref/model_final.checkpoint"])
+def test_gru_checkpoints_load_and_match_jax(ckpt):
+    """The repo's trained GRU checkpoints (the stride-4 remap model of
+    size 96, and a stride-2 size-17 model the JAX trainer wrote) load into
+    the port, fit its network and give the JAX package's outputs."""
+    import os
+    from taiyaki_tpu.utils import helpers as jhelpers
+    from taiyaki_tpu_torch.utils import helpers as thelpers
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ckpt)
+    jnet, jparams, *_ = jhelpers.load_model(path)
+    tnet, tparams, *_ = thelpers.load_model(path)
+    load_jax_params(tnet, tparams)
+    assert tnet.stride == jnet.stride
+    assert isinstance(tnet.sublayers[2], tlayers.GruMod)
+    x = _x((400, 3, 1), seed=13)
+    want = np.asarray(jnet.apply(jparams, jnp.asarray(x)))
+    with torch.inference_mode():
+        got = tnet(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_global_norm_flipflop_matches_jax():
     x = _x((30, 4, 16))
     got, want = _run(jlayers.GlobalNormFlipFlop(16, 4),
@@ -162,7 +220,7 @@ def test_params_mismatch_raises():
         params_from_jax(net, params)
 
 
-@pytest.mark.parametrize("name", ["FeedForward", "GruMod", "Parallel",
+@pytest.mark.parametrize("name", ["FeedForward", "CudnnGru", "Parallel",
                                   "GlobalNormFlipFlopCatMod"])
 def test_unported_layer_raises(name):
     with pytest.raises(NotImplementedError, match=name):

@@ -2,7 +2,7 @@
 schedules against optax, one whole training step of mLstm_flipflop at size
 16 against train.make_train_step + optax, the sub-batch path, batch
 helpers, the data path on the repo's mapped reads, and the training CLI
-against bin/train_flipflop.py.
+against bin/train_flipflop.py (mLstm_flipflop and mGru_flipflop).
 
 Tolerances: schedules 1e-5 relative (optax evaluates them in f32, and its
 cosine interpolation end + (start - end) * k cancels digits near lr_min
@@ -252,22 +252,20 @@ CLI_ARGS = ["--device", "cpu", "--size", "16", "--stride", "2", "--winlen",
             "--reporting_sub_batches", "10", "--seed", "5", "--quiet"]
 
 
-@pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def _train_both(d, model):
     """bin/train_flipflop.py and the port's CLI, same arguments and seed,
-    mLstm_flipflop on the repo's mapped reads."""
-    d = tmp_path_factory.mktemp("train")
+    the model file `model` of each package on the repo's mapped reads."""
     out = {}
-    for tag, cmd, model in (
+    for tag, cmd, pkg in (
             ("jax", [os.path.join(REPO, "bin", "train_flipflop.py")],
-             os.path.join(REPO, "taiyaki_tpu", "models",
-                          "mLstm_flipflop.py")),
+             "taiyaki_tpu"),
             ("port", ["-m", "taiyaki_tpu_torch.cli.train_flipflop"],
-             os.path.join(REPO, "taiyaki_tpu_torch", "models",
-                          "mLstm_flipflop.py"))):
+             "taiyaki_tpu_torch")):
         outdir = str(d / tag)
         r = subprocess.run([sys.executable] + cmd + CLI_ARGS
-                           + ["--outdir", outdir, model, READS], cwd=REPO,
+                           + ["--outdir", outdir,
+                              os.path.join(REPO, pkg, "models", model),
+                              READS], cwd=REPO,
                            env=_env(), capture_output=True, text=True,
                            timeout=900)
         assert r.returncode == 0, r.stderr[-3000:]
@@ -275,12 +273,26 @@ def trained(tmp_path_factory):
     return out
 
 
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Both CLIs on mLstm_flipflop."""
+    return _train_both(tmp_path_factory.mktemp("train"),
+                       "mLstm_flipflop.py")
+
+
+@pytest.fixture(scope="module")
+def trained_gru(tmp_path_factory):
+    """Both CLIs on mGru_flipflop."""
+    return _train_both(tmp_path_factory.mktemp("train_gru"),
+                       "mGru_flipflop.py")
+
+
 def _log(outdir, name):
     with open(os.path.join(outdir, name)) as fh:
         return [line.split("\t") for line in fh.read().splitlines()]
 
 
-def test_cli_batch_log_matches_jax(trained):
+def _logs_match(trained):
     jrows, trows = (_log(trained[k], "batch.log") for k in ("jax", "port"))
     assert trows[0] == jrows[0]
     assert len(trows) == len(jrows) == 4
@@ -297,6 +309,16 @@ def test_cli_batch_log_matches_jax(trained):
     assert [r[0] for r in tval] == [r[0] for r in jval] == ["iter", "2"]
     np.testing.assert_allclose(float(tval[1][1]), float(jval[1][1]),
                                rtol=1e-4)
+
+
+def test_cli_batch_log_matches_jax(trained):
+    _logs_match(trained)
+
+
+def test_cli_batch_log_matches_jax_mgru(trained_gru):
+    """The same for mGru_flipflop (size 16, stride 2): the GRU layers'
+    forward and recomputing backward through three AdamW steps."""
+    _logs_match(trained_gru)
 
 
 def test_cli_checkpoint_loads_in_jax(trained):
