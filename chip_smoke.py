@@ -14,7 +14,11 @@ card; run from the root of a checkout:
    chunks, H=D=256, L=512 lattice positions, S=40); the CRF again at
    L=3712 (T=4000, above the mGru default chunk range's bound of 3637);
    the GRU forward and recomputing backward at the mGru training shape
-   (T=2000, B=256, H=D=256), both directions.
+   (T=2000, B=256, H=D=256), both directions.  Beside each default
+   backward, on the same inputs, the backwards of the JAX trainer's other
+   residual policies: the LSTM's from stored pre (kernel 11) and
+   rebuilding pre (kernel 12), the GRU's from stored gate streams (kernel
+   13), with the forward modes that feed them.
 3. mLstm_flipflop 256/5/19, as in the earlier slices:
    a. training path: `taiyaki_tpu_torch.cli.train_flipflop` on the
       repo's mapped reads (RESULTS/training_ingredients/
@@ -40,7 +44,15 @@ card; run from the root of a checkout:
    model_r9_DNA.checkpoint): every read gets a record, the card's calls
    equal the CPU's (or the tie rule of 3c), and each call's semi-global
    identity against the read's reference is at least 0.80; (d) profiles.
-5. A `kernels` JSON line, the card line, and the result line
+5. Residual policies: the training path again under each switch of the
+   JAX trainer (TAIYAKI_TPU_ACTS_BWD=0 and TAIYAKI_TPU_RECOMPUTE=1 for
+   mLstm, TAIYAKI_TPU_NO_RECOMPUTE=1 for mGru; 4 iterations each): its
+   backward kernel launched, the default backward not; the card-vs-CPU
+   step under each switch, whose card gradients must also equal the
+   default policy's on the card; and for all five policy/model pairs a
+   full training step's time and peak device memory, and one layer's
+   forward and backward time.
+6. A `kernels` JSON line, the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Every kernel counter is set to 0 just before each path and read just
@@ -49,6 +61,7 @@ any phase fails.  Imports nothing of JAX.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -83,6 +96,12 @@ MLSTM = ("mLstm_flipflop", os.path.join(
     ROOT, "taiyaki_tpu_torch", "models", "mLstm_flipflop.py"), 5)
 MGRU = ("mGru_flipflop", os.path.join(
     ROOT, "taiyaki_tpu_torch", "models", "mGru_flipflop.py"), 2)
+# the residual policies of each cell (the JAX trainer's switches), the
+# default first: (name, switches)
+LSTM_POLICIES = (("acts", {}), ("pre", {"TAIYAKI_TPU_ACTS_BWD": "0"}),
+                 ("recompute", {"TAIYAKI_TPU_RECOMPUTE": "1"}))
+GRU_POLICIES = (("recompute", {}), ("stored",
+                                    {"TAIYAKI_TPU_NO_RECOMPUTE": "1"}))
 
 
 class SmokeFailure(Exception):
@@ -240,11 +259,22 @@ def _tensor(torch, dev, a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
 
+def _bwd_err(torch, got, want, what):
+    """Largest relative error of a backward's outputs against its twin's
+    (weight-gradient partials summed), after checking they are finite."""
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "{}: non-finite output".format(what))
+    return max([rel_err(got[0], want[0])]
+               + [rel_err(g.sum(0), w.sum(0))
+                  for g, w in zip(got[1:], want[1:])])
+
+
 def check_lstm_train(torch, dev, rng):
-    """The forward with emit="acts" and the backward at the production
-    training shape, both directions, against their twins; cuDNN's LSTM
-    (torch.nn.LSTM) forward with grad and its backward as the library
-    yardsticks."""
+    """The forward with emit="acts", "pre" and "c" and the three backwards
+    (from acts, kernel 4; from pre, kernel 11; rebuilding pre, kernel 12)
+    at the production training shape, both directions, against their
+    twins, on the same inputs; cuDNN's LSTM (torch.nn.LSTM) forward with
+    grad and its backward as the library yardsticks."""
     from taiyaki_tpu_torch.ops import lstm
     D = H
     x = _tensor(torch, dev, rng.normal(size=(TT, TB, D)))
@@ -252,36 +282,57 @@ def check_lstm_train(torch, dev, rng):
     b = _tensor(torch, dev, 0.5 * rng.normal(size=4 * H))
     sW = _tensor(torch, dev, rng.normal(size=(4 * H, H)) / np.sqrt(H))
     dh = _tensor(torch, dev, rng.normal(size=(TT, TB, H)))
-    f_err = b_err = 0.0
-    f_ms, f_plain, b_ms, b_plain = {}, {}, {}, {}
+    bwds = {"lstm_bwd_acts": (lstm.lstm_bwd_acts, lstm.lstm_bwd_acts_plain),
+            "lstm_bwd_fusedw": (lstm.lstm_bwd_fusedw,
+                                lstm.lstm_bwd_fusedw_plain),
+            "lstm_bwd_recompute": (lstm.lstm_bwd_recompute,
+                                   lstm.lstm_bwd_recompute_plain)}
+    emits = ("acts", "pre", "c")
+    f_err = dict.fromkeys(emits, 0.0)
+    b_err = dict.fromkeys(bwds, 0.0)
+    f_ms, f_plain = {}, {}
+    b_ms = {k: {} for k in bwds}
+    b_plain = {k: {} for k in bwds}
     for reverse in (False, True):
-        got = lstm.lstm_fwd(x, iW, b, sW, reverse=reverse, emit="acts")
-        want = lstm.lstm_fwd_plain(x, iW, b, sW, reverse=reverse,
-                                   emit="acts")
-        torch.cuda.synchronize()
-        f_err = max([f_err] + [max_abs_diff(g, w) for g, w in zip(got, want)])
-        h, c, acts, tc = want
-        args = (dh, acts, tc, lstm.prev_state(c, reverse), h, x, sW, iW)
-        gk = lstm.lstm_bwd_acts(*args, reverse=reverse)
-        gp = lstm.lstm_bwd_acts_plain(*args, reverse=reverse)
-        torch.cuda.synchronize()
-        check(all(bool(torch.isfinite(g).all()) for g in gk),
-              "lstm_bwd_acts: non-finite output")
-        b_err = max([b_err, rel_err(gk[0], gp[0])]
-                    + [rel_err(g.sum(0), w.sum(0))
-                       for g, w in zip(gk[1:], gp[1:])])
-        f_ms[reverse] = cuda_ms(torch, lambda: lstm.lstm_fwd(
-            x, iW, b, sW, reverse=reverse, emit="acts"), reps=3)
-        f_plain[reverse] = cuda_ms(torch, lambda: lstm.lstm_fwd_plain(
-            x, iW, b, sW, reverse=reverse, emit="acts"), reps=1)
-        b_ms[reverse] = cuda_ms(torch, lambda: lstm.lstm_bwd_acts(
-            *args, reverse=reverse), reps=3)
-        b_plain[reverse] = cuda_ms(torch, lambda: lstm.lstm_bwd_acts_plain(
-            *args, reverse=reverse), reps=1)
-        del got, want, gk, gp, args, h, c, acts, tc
-    check(f_err <= 1e-4, "lstm_fwd(acts): max |err| {} > 1e-4".format(f_err))
-    check(b_err <= 1e-4, "lstm_bwd_acts: max relative err {} > 1e-4".format(
-        b_err))
+        want = {e: lstm.lstm_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                       emit=e) for e in ("acts", "pre")}
+        want["c"] = want["pre"][:2]
+        for e in emits:
+            got = lstm.lstm_fwd(x, iW, b, sW, reverse=reverse, emit=e)
+            torch.cuda.synchronize()
+            f_err[e] = max([f_err[e]] + [max_abs_diff(g, w) for g, w in
+                                         zip(got, want[e])])
+            del got
+        h, c, acts, tc = want["acts"]
+        pre = want["pre"][2]
+        c_prev = lstm.prev_state(c, reverse)
+        args = {"lstm_bwd_acts": (dh, acts, tc, c_prev, h, x, sW, iW),
+                "lstm_bwd_fusedw": (dh, pre, c, c_prev, h, x, sW, iW),
+                "lstm_bwd_recompute": (dh, c, h, x, sW, iW, b)}
+        for k, (kernel, plain) in bwds.items():
+            gk = kernel(*args[k], reverse=reverse)
+            gp = plain(*args[k], reverse=reverse)
+            torch.cuda.synchronize()
+            b_err[k] = max(b_err[k], _bwd_err(torch, gk, gp, k))
+            del gk, gp
+            b_ms[k][reverse] = cuda_ms(torch, lambda: kernel(
+                *args[k], reverse=reverse), reps=3)
+            b_plain[k][reverse] = cuda_ms(torch, lambda: plain(
+                *args[k], reverse=reverse), reps=1)
+        if not reverse:
+            for e in emits:
+                f_ms[e] = cuda_ms(torch, lambda: lstm.lstm_fwd(
+                    x, iW, b, sW, emit=e), reps=3)
+                f_plain[e] = cuda_ms(torch, lambda: lstm.lstm_fwd_plain(
+                    x, iW, b, sW, emit=e), reps=1)
+        del want, args, h, c, acts, tc, pre, c_prev
+        torch.cuda.empty_cache()
+    for e in emits:
+        check(f_err[e] <= 1e-4, "lstm_fwd({}): max |err| {} > 1e-4".format(
+            e, f_err[e]))
+    for k in bwds:
+        check(b_err[k] <= 1e-4, "{}: max relative err {} > 1e-4".format(
+            k, b_err[k]))
     ref = torch.nn.LSTM(D, H).to(dev)
     with torch.no_grad():
         ref.weight_ih_l0.copy_(iW)
@@ -294,32 +345,48 @@ def check_lstm_train(torch, dev, rng):
     lib_b = cuda_ms(torch, lambda: torch.autograd.grad(
         out, [xr] + list(ref.parameters()), dh, retain_graph=True), reps=3)
     del out, xr
+    # bytes of one [T, B, H] f32 stream, and of the weights
     nbh = 4 * TT * TB * H
-    f_bytes = 4 * (TT * TB * D + 4 * H * (D + H + 1)) + 4 * nbh + nbh
+    nw = 4 * 4 * H * (D + H + 1)
+    x_bytes = 4 * TT * TB * D
     f_flops = 2 * TT * TB * 4 * H * (D + H)
-    f_bound, f_by = bound_ms(f_bytes, f_flops)
-    b_bytes = (4 * nbh + nbh + 2 * 4 * TT * TB * D
-               + 2 * 4 * 4 * H * (D + H) + 4 * 4 * H)
+    # streams written beside h, in [T, B, H] units
+    f_out = {"acts": 1 + 4 + 1, "pre": 1 + 4, "c": 1}
+    f_bound = {e: bound_ms(x_bytes + nw + (1 + f_out[e]) * nbh, f_flops)
+               for e in emits}
+    # the chain and d_sW (4H x H each), d_x and d_iW (4H x D each); the
+    # rebuilding backward adds x iW^T and h_prev sW^T
     b_flops = 2 * TT * TB * 4 * H * (2 * H + 2 * D)
-    b_bound, b_by = bound_ms(b_bytes, b_flops)
-    say("lstm_fwd(acts) T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), "
-        "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / {:.3f} ms, "
-        "torch.nn.LSTM forward with grad {:.3f} ms, bound {:.3f} ms "
-        "({})".format(TT, TB, H, f_err, f_ms[False], f_ms[True],
-                      f_plain[False], f_plain[True], lib_f, f_bound, f_by))
-    say("lstm_bwd_acts T={} B={} D=H={}: max relative err {:.3g} (tol "
-        "1e-4), kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
-        "{:.3f} ms, torch.nn.LSTM backward {:.3f} ms, bound {:.3f} ms "
-        "({})".format(TT, TB, H, b_err, b_ms[False], b_ms[True],
-                      b_plain[False], b_plain[True], lib_b, b_bound, b_by))
-    acts_row = dict(ms=f_ms[False], plain_ms=f_plain[False],
-                    bound_ms=f_bound, max_abs_err=f_err, library_ms=lib_f)
-    return acts_row, dict(
-        name="lstm_bwd_acts", route="cuda",
-        source="taiyaki_tpu_torch/csrc/lstm.cu",
-        replaces="taiyaki_tpu/ops/pallas_rnn.py:385", max_abs_err=b_err,
-        ms=b_ms[False], plain_ms=b_plain[False], bound_ms=b_bound,
-        bound_by=b_by, library_ms=lib_b)
+    stored_bytes = 8 * nbh + 2 * x_bytes + 2 * nw
+    b_bound = {
+        "lstm_bwd_acts": bound_ms(stored_bytes, b_flops),
+        "lstm_bwd_fusedw": bound_ms(stored_bytes, b_flops),
+        "lstm_bwd_recompute": bound_ms(3 * nbh + 2 * x_bytes + 2 * nw,
+                                       2 * TT * TB * 4 * H * (3 * H + 3 * D))}
+    for e in emits:
+        say("lstm_fwd({}) T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), "
+            "kernel {:.3f} ms, plain {:.3f} ms, torch.nn.LSTM forward with "
+            "grad {:.3f} ms, bound {:.3f} ms ({})".format(
+                e, TT, TB, H, f_err[e], f_ms[e], f_plain[e], lib_f,
+                *f_bound[e]))
+    for k in bwds:
+        say("{} T={} B={} D=H={}: max relative err {:.3g} (tol 1e-4), "
+            "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
+            "{:.3f} ms, torch.nn.LSTM backward {:.3f} ms, bound {:.3f} ms "
+            "({})".format(k, TT, TB, H, b_err[k], b_ms[k][False],
+                          b_ms[k][True], b_plain[k][False],
+                          b_plain[k][True], lib_b, *b_bound[k]))
+    fwd_rows = {e: dict(ms=f_ms[e], plain_ms=f_plain[e],
+                        bound_ms=f_bound[e][0], max_abs_err=f_err[e],
+                        library_ms=lib_f) for e in emits}
+    replaces = {"lstm_bwd_acts": 385, "lstm_bwd_fusedw": 456,
+                "lstm_bwd_recompute": 625}
+    return fwd_rows, [dict(
+        name=k, route="cuda", source="taiyaki_tpu_torch/csrc/lstm.cu",
+        replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[k]),
+        max_abs_err=b_err[k], ms=b_ms[k][False], plain_ms=b_plain[k][False],
+        bound_ms=b_bound[k][0], bound_by=b_bound[k][1], library_ms=lib_b)
+        for k in bwds]
 
 
 def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5):
@@ -463,45 +530,64 @@ def check_gru(torch, dev, rng):
 
 
 def check_gru_train(torch, dev, rng):
-    """The GRU forward and the recomputing backward (kernel 8) at the mGru
-    training shape (T=2000, B=256, H=D=256), both directions, against
-    their twins; cuDNN's GRU forward with grad and its backward as the
-    library yardsticks."""
-    from taiyaki_tpu_torch.ops import gru
+    """The GRU forward without and with its gate streams (kernel 7), the
+    recomputing backward (kernel 8) and the backward from stored gate
+    streams (kernel 13) at the mGru training shape (T=2000, B=256,
+    H=D=256), both directions, against their twins on the same inputs;
+    cuDNN's GRU forward with grad and its backward as the library
+    yardsticks."""
+    from taiyaki_tpu_torch.ops import gru, lstm
     x, iW, b, sW = _gru_inputs(torch, dev, rng, GT, TB, H, H)
     dh = _tensor(torch, dev, rng.normal(size=(GT, TB, H)))
-    f_err = b_err = 0.0
-    f_ms, f_plain, b_ms, b_plain = {}, {}, {}, {}
+    bwds = {"gru_bwd_recompute": (gru.gru_bwd_recompute,
+                                  gru.gru_bwd_recompute_plain),
+            "gru_bwd_fusedw": (gru.gru_bwd_fusedw, gru.gru_bwd_fusedw_plain)}
+    f_err = {False: 0.0, True: 0.0}
+    b_err = dict.fromkeys(bwds, 0.0)
+    f_ms, f_plain = {}, {}
+    b_ms = {k: {} for k in bwds}
+    b_plain = {k: {} for k in bwds}
     for reverse in (False, True):
-        got = gru.gru_fwd(x, iW, b, sW, reverse=reverse)
-        h = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse)
-        torch.cuda.synchronize()
-        f_err = max(f_err, max_abs_diff(got, h))
-        del got
-        args = (dh, h, x, sW, iW, b)
-        gk = gru.gru_bwd_recompute(*args, reverse=reverse)
-        gp = gru.gru_bwd_recompute_plain(*args, reverse=reverse)
-        torch.cuda.synchronize()
-        check(all(bool(torch.isfinite(g).all()) for g in gk),
-              "gru_bwd_recompute: non-finite output")
-        b_err = max([b_err, rel_err(gk[0], gp[0])]
-                    + [rel_err(g.sum(0), w.sum(0))
-                       for g, w in zip(gk[1:], gp[1:])])
-        del gk, gp
-        f_ms[reverse] = cuda_ms(torch, lambda: gru.gru_fwd(
-            x, iW, b, sW, reverse=reverse), reps=3)
-        f_plain[reverse] = cuda_ms(torch, lambda: gru.gru_fwd_plain(
-            x, iW, b, sW, reverse=reverse), reps=1)
-        b_ms[reverse] = cuda_ms(torch, lambda: gru.gru_bwd_recompute(
-            *args, reverse=reverse), reps=3)
-        b_plain[reverse] = cuda_ms(torch, lambda: gru.gru_bwd_recompute_plain(
-            *args, reverse=reverse), reps=1)
-        del args, h
+        want = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                 emit_residuals=True)
+        for res in (False, True):
+            got = gru.gru_fwd(x, iW, b, sW, reverse=reverse,
+                              emit_residuals=res)
+            torch.cuda.synchronize()
+            # h alone, or (h, gh, gx)
+            outs = got if res else (got,)
+            f_err[res] = max([f_err[res]] + [max_abs_diff(g, w)
+                                             for g, w in zip(outs, want)])
+            del got, outs
+        h, gh, gx = want
+        args = {"gru_bwd_recompute": (dh, h, x, sW, iW, b),
+                "gru_bwd_fusedw": (dh, gx, gh, lstm.prev_state(h, reverse),
+                                   x, sW, iW)}
+        for k, (kernel, plain) in bwds.items():
+            gk = kernel(*args[k], reverse=reverse)
+            gp = plain(*args[k], reverse=reverse)
+            torch.cuda.synchronize()
+            b_err[k] = max(b_err[k], _bwd_err(torch, gk, gp, k))
+            del gk, gp
+            b_ms[k][reverse] = cuda_ms(torch, lambda: kernel(
+                *args[k], reverse=reverse), reps=3)
+            b_plain[k][reverse] = cuda_ms(torch, lambda: plain(
+                *args[k], reverse=reverse), reps=1)
+        for res in (False, True):
+            f_ms[res, reverse] = cuda_ms(torch, lambda: gru.gru_fwd(
+                x, iW, b, sW, reverse=reverse, emit_residuals=res), reps=3)
+        if not reverse:
+            for res in (False, True):
+                f_plain[res] = cuda_ms(torch, lambda: gru.gru_fwd_plain(
+                    x, iW, b, sW, emit_residuals=res), reps=1)
+        del want, args, h, gh, gx
         torch.cuda.empty_cache()
-    check(f_err <= 1e-4, "gru_fwd (training shape): max |err| {} > 1e-4"
-          .format(f_err))
-    check(b_err <= 1e-4, "gru_bwd_recompute: max relative err {} > 1e-4"
-          .format(b_err))
+    for res in (False, True):
+        check(f_err[res] <= 1e-4, "gru_fwd (training shape, emit_residuals="
+              "{}): max |err| {} > 1e-4".format(res, f_err[res]))
+    for k in bwds:
+        check(b_err[k] <= 1e-4, "{}: max relative err {} > 1e-4".format(
+            k, b_err[k]))
     ref = _torch_gru(torch, dev, x, iW, b, sW)
     xr = x.clone().requires_grad_()
     lib_f = cuda_ms(torch, lambda: ref(xr), reps=3)
@@ -509,67 +595,103 @@ def check_gru_train(torch, dev, rng):
     lib_b = cuda_ms(torch, lambda: torch.autograd.grad(
         out, [xr] + list(ref.parameters()), dh, retain_graph=True), reps=3)
     del out, xr, ref
-    f_bound, f_by = _gru_fwd_bound(GT, TB, H, H)
-    # gx and gh rebuilt, the dh chain, d_x, d_iW, d_sW: six products
-    b_bound, b_by = bound_ms(
-        4 * (4 * GT * TB * H + 2 * 3 * H * 2 * H + 2 * 3 * H),
-        6 * 2 * GT * TB * 3 * H * H)
-    say("gru_fwd    T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), kernel "
-        "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / {:.3f} ms, "
-        "torch.nn.GRU forward with grad {:.3f} ms, bound {:.3f} ms "
-        "({})".format(GT, TB, H, f_err, f_ms[False], f_ms[True],
-                      f_plain[False], f_plain[True], lib_f, f_bound, f_by))
-    say("gru_bwd_recompute T={} B={} D=H={}: max relative err {:.3g} (tol "
-        "1e-4), kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
-        "{:.3f} ms, torch.nn.GRU backward {:.3f} ms, bound {:.3f} ms "
-        "({})".format(GT, TB, H, b_err, b_ms[False], b_ms[True],
-                      b_plain[False], b_plain[True], lib_b, b_bound, b_by))
-    fwd_row = dict(ms=f_ms[False], plain_ms=f_plain[False], bound_ms=f_bound,
-                   max_abs_err=f_err, library_ms=lib_f)
-    return fwd_row, dict(
-        name="gru_bwd_recompute", route="cuda",
-        source="taiyaki_tpu_torch/csrc/gru.cu",
-        replaces="taiyaki_tpu/ops/pallas_rnn.py:1311", max_abs_err=b_err,
-        ms=b_ms[False], plain_ms=b_plain[False], bound_ms=b_bound,
-        bound_by=b_by, library_ms=lib_b)
+    f_bound = {False: _gru_fwd_bound(GT, TB, H, H)}
+    # gh and gx written beside h: six more [T, B, H] streams
+    f_bound[True] = bound_ms(
+        4 * (GT * TB * H + 3 * H * (2 * H + 1) + 7 * GT * TB * H),
+        2 * GT * TB * 2 * H * 3 * H)
+    nw = 4 * (2 * 3 * H * 2 * H + 2 * 3 * H)
+    one = 2 * GT * TB * 3 * H * H
+    b_bound = {
+        # gx and gh rebuilt, the dh chain, d_x, d_iW, d_sW: six products
+        "gru_bwd_recompute": bound_ms(4 * 4 * GT * TB * H + nw, 6 * one),
+        # dh, gx, gh, h_prev, x in, d_x out: four products
+        "gru_bwd_fusedw": bound_ms(4 * 10 * GT * TB * H + nw, 4 * one)}
+    for res in (False, True):
+        say("gru_fwd(emit_residuals={}) T={} B={} D=H={}: max|err| {:.3g} "
+            "(tol 1e-4), kernel {:.3f} ms fwd / {:.3f} ms reverse, plain "
+            "{:.3f} ms, torch.nn.GRU forward with grad {:.3f} ms, bound "
+            "{:.3f} ms ({})".format(res, GT, TB, H, f_err[res],
+                                    f_ms[res, False], f_ms[res, True],
+                                    f_plain[res], lib_f, *f_bound[res]))
+    for k in bwds:
+        say("{} T={} B={} D=H={}: max relative err {:.3g} (tol 1e-4), "
+            "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
+            "{:.3f} ms, torch.nn.GRU backward {:.3f} ms, bound {:.3f} ms "
+            "({})".format(k, GT, TB, H, b_err[k], b_ms[k][False],
+                          b_ms[k][True], b_plain[k][False],
+                          b_plain[k][True], lib_b, *b_bound[k]))
+    fwd_rows = {res: dict(ms=f_ms[res, False], plain_ms=f_plain[res],
+                          bound_ms=f_bound[res][0], max_abs_err=f_err[res],
+                          library_ms=lib_f) for res in (False, True)}
+    replaces = {"gru_bwd_recompute": 1311, "gru_bwd_fusedw": 1184}
+    return fwd_rows, [dict(
+        name=k, route="cuda", source="taiyaki_tpu_torch/csrc/gru.cu",
+        replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[k]),
+        max_abs_err=b_err[k], ms=b_ms[k][False], plain_ms=b_plain[k][False],
+        bound_ms=b_bound[k][0], bound_by=b_bound[k][1], library_ms=lib_b)
+        for k in bwds]
 
 
 # -- phases 3 and 4 ----------------------------------------------------------
 
-def train_path(torch, work, seed, counters, model):
+@contextlib.contextmanager
+def switches(env):
+    """The residual-policy switches `env` set in os.environ, restored on
+    exit."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def train_path(torch, work, seed, counters, model, policy=None,
+               niter=8, idle=()):
     """The training CLI on the card with the model file of `model` (name,
-    path, stride) at size 256; returns (launches, stats, outdir)."""
+    path, stride) at size 256, under the switch of `policy` (name,
+    environment) if given, for `niter` iterations; the kernels `idle`
+    (the default backward) must not launch.  Returns (launches, stats,
+    outdir)."""
     from taiyaki_tpu_torch.cli import train_flipflop
     name, model_py, stride = model
-    outdir = os.path.join(work, "train_" + name)
+    tag = name if policy is None else "{} {}".format(name, policy[0])
+    outdir = os.path.join(work, "train_" + tag.replace(" ", "_"))
     for fn in counters.values():
         fn.launches = 0
-    stats = train_flipflop.main([
-        "--size", str(H), "--stride", str(stride), "--winlen", "19",
-        "--chunk_len_min", str(CHUNK), "--chunk_len_max", str(CHUNK),
-        "--min_sub_batch_size", str(TB), "--niteration", "8",
-        "--warmup_batches", "2", "--save_every", "4",
-        "--sample_nreads_before_filtering", "1000",
-        "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
-        "--outdir", outdir, model_py, READS_HDF5])
+    with switches({} if policy is None else policy[1]):
+        stats = train_flipflop.main([
+            "--size", str(H), "--stride", str(stride), "--winlen", "19",
+            "--chunk_len_min", str(CHUNK), "--chunk_len_max", str(CHUNK),
+            "--min_sub_batch_size", str(TB), "--niteration", str(niter),
+            "--warmup_batches", "2", "--save_every", str(niter // 2),
+            "--sample_nreads_before_filtering", "1000",
+            "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
+            "--outdir", outdir, model_py, READS_HDF5])
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     for k, n in launches.items():
-        check(n > 0, "{} training path never launched kernel {}".format(
-            name, k))
+        check((n == 0) if k in idle else (n > 0),
+              "{} training path launched kernel {} {} times".format(
+                  tag, k, n))
     with open(os.path.join(outdir, "batch.log")) as fh:
         rows = [line.split("\t") for line in fh.read().splitlines()[1:]]
     losses = [float(r[1]) for r in rows]
-    check(len(losses) == 8 and all(np.isfinite(losses)),
-          "{} batch.log losses {}".format(name, losses))
+    check(len(losses) == niter and all(np.isfinite(losses)),
+          "{} batch.log losses {}".format(tag, losses))
     for ckpt in ("model_checkpoint_00001", "model_checkpoint_00002",
                  "model_final"):
         check(os.path.exists(os.path.join(outdir, ckpt + ".checkpoint")),
-              "no checkpoint {}".format(ckpt))
-    say("training path ({} {}/{}/19, chunk {}, {} chunks, 8 iterations): "
+              "{}: no checkpoint {}".format(tag, ckpt))
+    say("training path ({} {}/{}/19, chunk {}, {} chunks, {} iterations): "
         "losses {}; {:.3f} s in the loop (validation and checkpoints "
         "included): {:.4f} steps/s, {:.2f} trained ksample/s; launches "
-        "{}".format(name, H, stride, CHUNK, TB,
+        "{}".format(tag, H, stride, CHUNK, TB, niter,
                     ", ".join("{:.5f}".format(v) for v in losses),
                     stats["seconds"], stats["iterations"] / stats["seconds"],
                     stats["samples"] / stats["seconds"] / 1e3, launches))
@@ -603,36 +725,125 @@ def new_net(seed, kwargs, device, model):
     return load_jax_params(net, params).to(device)
 
 
-def card_vs_cpu(torch, dev, seed, model):
+def card_vs_cpu(torch, dev, seed, model, policies=()):
     """One training step's loss and gradients on the card and on the CPU
-    twins, same batch and weights, full width, 8 chunks.  Tolerances: loss
-    1e-5 relative (f32 sums in another order through 800 or 2000 steps
-    of 5 recurrent layers and the lattice); each gradient 1e-5 of its
-    tensor's largest value."""
+    twins, same batch and weights, full width, 8 chunks: by default, and
+    under each of `policies` (name, switches), whose card gradients must
+    also equal the default's on the card.  Tolerances: loss 1e-5 relative
+    (f32 sums in another order through 800 or 2000 steps of 5 recurrent
+    layers and the lattice); each gradient 1e-5 of its tensor's largest
+    value."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.convert import leaf_names
     batch, kwargs = step_batch(seed, 8, model)
-    res = []
-    for device in (dev, torch.device("cpu")):
-        net = new_net(seed, kwargs, device, model)
-        t0 = time.perf_counter()
-        loss, grads = train.make_grad_step(net)(
-            train.batch_to_device(batch, device), 1.0)
-        res.append((float(loss), [g.cpu() for g in grads],
-                    time.perf_counter() - t0))
-    (lc, gc, tc), (lp, gp, tp) = res
-    l_err = abs(lc - lp) / max(1.0, abs(lp))
-    errs = [rel_err(a, b) for a, b in zip(gc, gp)]
-    g_err = max(errs)
-    worst = leaf_names(net)[int(np.argmax(errs))]
-    check(l_err <= 1e-5, "card vs CPU ({}): loss {} vs {}".format(
-        model[0], lc, lp))
-    check(g_err <= 1e-5, "card vs CPU ({}): gradient err {} ({})".format(
-        model[0], g_err, worst))
-    say("card vs CPU, one {} step (8 chunks x {} samples, size {}): loss "
-        "{} vs {} (relative err {:.3g}, tol 1e-5); {} gradients, largest "
-        "relative err {:.3g} in {} (tol 1e-5); CPU twins {:.1f} s".format(
-            model[0], CHUNK, H, lc, lp, l_err, len(gc), g_err, worst, tp))
+    names = None
+
+    def step(device, env):
+        nonlocal names
+        with switches(env):
+            net = new_net(seed, kwargs, device, model)
+            t0 = time.perf_counter()
+            loss, grads = train.make_grad_step(net)(
+                train.batch_to_device(batch, device), 1.0)
+            grads = [g.cpu() for g in grads]
+        names = leaf_names(net)
+        return float(loss), grads, time.perf_counter() - t0
+
+    def compare(what, a, b):
+        l_err = abs(a[0] - b[0]) / max(1.0, abs(b[0]))
+        errs = [rel_err(x, y) for x, y in zip(a[1], b[1])]
+        worst = names[int(np.argmax(errs))]
+        check(l_err <= 1e-5, "{} ({}): loss {} vs {}".format(
+            what, model[0], a[0], b[0]))
+        check(max(errs) <= 1e-5, "{} ({}): gradient err {} ({})".format(
+            what, model[0], max(errs), worst))
+        return ("loss {} vs {} (relative err {:.3g}, tol 1e-5); {} "
+                "gradients, largest relative err {:.3g} in {} (tol "
+                "1e-5)".format(a[0], b[0], l_err, len(a[1]), max(errs),
+                               worst))
+
+    card, cpu = step(dev, {}), step(torch.device("cpu"), {})
+    say("card vs CPU, one {} step (8 chunks x {} samples, size {}): {}; CPU "
+        "twins {:.1f} s".format(model[0], CHUNK, H,
+                                compare("card vs CPU", card, cpu), cpu[2]))
+    for name, env in policies:
+        pcard, pcpu = step(dev, env), step(torch.device("cpu"), env)
+        say("{} {} step: card vs the default on the card: {} (loss {}); "
+            "card vs CPU: {}; CPU twins {:.1f} s".format(
+                model[0], name, compare(name + " vs default", pcard, card),
+                "bitwise equal" if pcard[0] == card[0] else "not bitwise",
+                compare(name + " card vs CPU", pcard, pcpu), pcpu[2]))
+
+
+def layer_bwd_ms(torch, dev, model, policy, T):
+    """Forward with grad and backward (ms, CUDA events) of one recurrent
+    layer of `model` under `policy`, at the training step's shape (T
+    blocks, 256 chunks, H=D=256); the backward runs on a retained graph
+    and must give the same gradients every time."""
+    from taiyaki_tpu_torch.ops import rnn
+    cell = "lstm" if model is MLSTM else "gru"
+    G = (4 if cell == "lstm" else 3) * H
+    rng = np.random.default_rng(0)
+    leaves = [_tensor(torch, dev, a).requires_grad_() for a in (
+        rng.normal(size=(T, TB, H)), rng.normal(size=(G, H)) / np.sqrt(H),
+        0.5 * rng.normal(size=G), rng.normal(size=(G, H)) / np.sqrt(H))]
+    dh = _tensor(torch, dev, rng.normal(size=(T, TB, H)))
+    layer = rnn.lstm_layer if cell == "lstm" else rnn.gru_layer
+    with switches(policy[1]):
+        f_ms = cuda_ms(torch, lambda: layer(*leaves), reps=2)
+        h = layer(*leaves)
+    first = torch.autograd.grad(h, leaves, dh, retain_graph=True)
+    b_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        h, leaves, dh, retain_graph=True), reps=3)
+    again = torch.autograd.grad(h, leaves, dh)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(first, again)),
+          "{} {}: a retained graph gave other gradients".format(
+              model[0], policy[0]))
+    return f_ms, b_ms
+
+
+def policy_steps(torch, dev, seed):
+    """Each residual policy's full training step (256 chunks x CHUNK
+    samples; mean synchronised wall time of 2 steps after a warm-up) and
+    its peak device memory (torch.cuda.max_memory_allocated over one
+    step), with one layer's forward and backward at the step's shape.
+    Returns {(model, policy): numbers}."""
+    from taiyaki_tpu_torch import train
+    out = {}
+    for model, policies in ((MLSTM, LSTM_POLICIES), (MGRU, GRU_POLICIES)):
+        batch, kwargs = step_batch(seed, TB, model)
+        for policy in policies:
+            with switches(policy[1]):
+                net = new_net(seed, kwargs, dev, model)
+                params = train.leaf_params(net)
+                opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
+                threshs = np.full(len(params), np.inf, np.float32)
+                b = train.batch_to_device(batch, dev)
+                step = train.make_train_step(net, opt)
+                step(b, 1.0, threshs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    step(b, 1.0, threshs)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3 / 2
+                peak = torch.cuda.max_memory_allocated(dev)
+            del net, params, opt, b, step
+            torch.cuda.empty_cache()
+            f_ms, b_ms = layer_bwd_ms(torch, dev, model, policy,
+                                      CHUNK // model[2])
+            torch.cuda.empty_cache()
+            out[model[0], policy[0]] = dict(
+                step_ms=step_ms, peak_gb=peak / 1e9, layer_fwd_ms=f_ms,
+                layer_bwd_ms=b_ms)
+            say("residual policy {} {}: training step {:.3f} ms ({} chunks x "
+                "{} samples), peak device memory {:.3f} GB; one layer at "
+                "T={}, B={}, H=D={}: forward with grad {:.3f} ms, backward "
+                "{:.3f} ms".format(model[0], policy[0], step_ms, TB, CHUNK,
+                                   peak / 1e9, CHUNK // model[2], TB, H,
+                                   f_ms, b_ms))
+    return out
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1074,39 +1285,57 @@ def run(seed):
 
     rng = np.random.default_rng(seed)
     kernels = [check_lstm(torch, dev, rng)] + check_logz(torch, dev, rng)
-    acts_row, bwd_row = check_lstm_train(torch, dev, rng)
-    kernels += [bwd_row] + check_crf(torch, dev, rng)
+    lstm_fwd_rows, lstm_bwd_rows = check_lstm_train(torch, dev, rng)
+    kernels += lstm_bwd_rows + check_crf(torch, dev, rng)
     torch.cuda.empty_cache()
     long_crf = check_crf(torch, dev, rng, LT, LB, LL, g_tol=3e-4)
     torch.cuda.empty_cache()
     gru_row, gru96_row = check_gru(torch, dev, rng)
-    gru_train_row, gru_bwd_row = check_gru_train(torch, dev, rng)
-    kernels += [gru_row, gru_bwd_row]
+    gru_fwd_rows, gru_bwd_rows = check_gru_train(torch, dev, rng)
+    kernels += [gru_row] + gru_bwd_rows
     torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
                 "logz_posteriors": logz.logz_posteriors,
-                "lstm_bwd_acts": lstm.lstm_bwd_acts, "crf_fwd": crf.crf_fwd,
-                "crf_bwd": crf.crf_bwd, "gru_fwd": gru.gru_fwd,
-                "gru_bwd_recompute": gru.gru_bwd_recompute}
-    lstm_train = ("lstm_fwd", "lstm_bwd_acts", "crf_fwd", "crf_bwd",
-                  "logz_fwd", "logz_posteriors")
-    gru_train = ("gru_fwd", "gru_bwd_recompute", "crf_fwd", "crf_bwd",
-                 "logz_fwd", "logz_posteriors")
+                "lstm_bwd_acts": lstm.lstm_bwd_acts,
+                "lstm_bwd_fusedw": lstm.lstm_bwd_fusedw,
+                "lstm_bwd_recompute": lstm.lstm_bwd_recompute,
+                "crf_fwd": crf.crf_fwd, "crf_bwd": crf.crf_bwd,
+                "gru_fwd": gru.gru_fwd,
+                "gru_bwd_recompute": gru.gru_bwd_recompute,
+                "gru_bwd_fusedw": gru.gru_bwd_fusedw}
+    loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
+    lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
+                 "recompute": "lstm_bwd_recompute"}
+    gru_bwds = {"recompute": "gru_bwd_recompute", "stored": "gru_bwd_fusedw"}
     lstm_call = ("lstm_fwd", "logz_fwd", "logz_posteriors")
     gru_call = ("gru_fwd", "logz_fwd", "logz_posteriors")
 
     def pick(names):
         return {k: counters[k] for k in names}
 
+    def train_policy(model, fwd, bwds, policy, niter):
+        """The training path under `policy`: its backward launched, the
+        cell's other backwards (the default among them) not."""
+        return train_path(torch, work, seed,
+                          pick((fwd,) + loss + tuple(bwds.values())), model,
+                          policy=policy, niter=niter,
+                          idle=[v for k, v in bwds.items()
+                                if k != policy[0]])[0]
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     launches = {}
     try:
         launches["mLstm training"], _, outdir = train_path(
-            torch, work, seed, pick(lstm_train), MLSTM)
+            torch, work, seed, pick(("lstm_fwd", "lstm_bwd_acts") + loss),
+            MLSTM)
         torch.cuda.empty_cache()
-        card_vs_cpu(torch, dev, seed, MLSTM)
+        for policy in LSTM_POLICIES[1:]:
+            launches["mLstm training " + policy[0]] = train_policy(
+                MLSTM, "lstm_fwd", lstm_bwds, policy, 4)
+            torch.cuda.empty_cache()
+        card_vs_cpu(torch, dev, seed, MLSTM, LSTM_POLICIES[1:])
         model = os.path.join(outdir, "model_final.checkpoint")
         launches["mLstm basecall"], _, reads = main_path(
             torch, dev, seed, work, model, pick(lstm_call), "mLstm")
@@ -1116,9 +1345,13 @@ def run(seed):
         torch.cuda.empty_cache()
 
         launches["mGru training"], _, _ = train_path(
-            torch, work, seed, pick(gru_train), MGRU)
+            torch, work, seed, pick(("gru_fwd", "gru_bwd_recompute") + loss),
+            MGRU)
         torch.cuda.empty_cache()
-        card_vs_cpu(torch, dev, seed, MGRU)
+        launches["mGru training stored"] = train_policy(
+            MGRU, "gru_fwd", gru_bwds, GRU_POLICIES[1], 4)
+        torch.cuda.empty_cache()
+        card_vs_cpu(torch, dev, seed, MGRU, GRU_POLICIES[1:])
         launches["mGru real reads"], _ = real_reads(torch, dev, work,
                                                     pick(gru_call))
         model = seeded_checkpoint(work, seed, MGRU)
@@ -1127,13 +1360,20 @@ def run(seed):
         profile_batch(torch, dev, model, reads)
         torch.cuda.empty_cache()
         profile_train_step(torch, dev, seed, MGRU)
+        torch.cuda.empty_cache()
+        policies = policy_steps(torch, dev, seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say("launches by path: {}".format(json.dumps(launches)))
-    say("lstm_fwd emit=acts (training shape): {}".format(json.dumps(
-        acts_row)))
-    say("gru_fwd (mGru training shape): {}".format(json.dumps(
-        gru_train_row)))
+    say("residual policies (training step, peak memory, one layer): "
+        "{}".format(json.dumps({"{} {}".format(*k): v
+                                for k, v in policies.items()})))
+    for e, row in lstm_fwd_rows.items():
+        say("lstm_fwd emit={} (training shape): {}".format(e, json.dumps(
+            row)))
+    for res, row in gru_fwd_rows.items():
+        say("gru_fwd emit_residuals={} (mGru training shape): {}".format(
+            res, json.dumps(row)))
     say("gru_fwd (H=96, the shipped remap model's width): {}".format(
         json.dumps({k: gru96_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "max_abs_err",
@@ -1142,17 +1382,23 @@ def run(seed):
         [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                             "max_abs_err")} for r in long_crf])))
     # the path each row's launches come from: kernels 1-3 the mLstm
-    # basecall path (slice 1), 4-6 the mLstm training path (slice 2),
-    # 7 the mGru basecall path and 8 the mGru training path (this slice)
+    # basecall path, 4-6 the mLstm training path, 7 the mGru basecall path,
+    # 8 the mGru training path, and 11-13 the training paths under the
+    # residual switches
     source = {"lstm_fwd": "mLstm basecall", "logz_fwd": "mLstm basecall",
               "logz_posteriors": "mLstm basecall",
               "lstm_bwd_acts": "mLstm training", "crf_fwd": "mLstm training",
               "crf_bwd": "mLstm training", "gru_fwd": "mGru basecall",
-              "gru_bwd_recompute": "mGru training"}
+              "gru_bwd_recompute": "mGru training",
+              "lstm_bwd_fusedw": "mLstm training pre",
+              "lstm_bwd_recompute": "mLstm training recompute",
+              "gru_bwd_fusedw": "mGru training stored"}
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    check(len(kernels) == len(counters) == 11, "kernels line: {} rows".format(
+        len(kernels)))
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))
     print(card)

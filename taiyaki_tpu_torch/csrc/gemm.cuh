@@ -1,9 +1,12 @@
 // Tiled f32 GEMMs shared by the recurrent layers (lstm.cu, gru.cu).
 //
-// 1. gate_gemm_kernel: C[M, N] = A[M, K] . W[N, K]^T (+ bias).  The input
-//    products of the layer forwards (gx = x . W^T + b), which the TPU
-//    kernels compute in their own bodies per time block, and the backward
-//    d_x = dgates . W (W passed transposed).  128x128 output tiles, 8x8 per
+// 1. gate_gemm_kernel: C[M, N] = A[M, K] . W[N, K]^T (+ bias) (+ C, with
+//    ACCUMULATE).  The input products of the layer forwards (gx = x .
+//    W^T + b), which the TPU kernels compute in their own bodies per time
+//    block, the backward d_x = dgates . W (W passed transposed), and the
+//    gate streams the recomputing backwards rebuild (gh = h_prev . sW^T;
+//    the LSTM's pre = gx + h_prev . sW^T, its second product accumulated
+//    onto the first).  128x128 output tiles, 8x8 per
 //    thread, k-major shared tiles, SIMT FMA.  Bound: operations, 2*M*N*K
 //    FLOP against the 67 TFLOP/s f32 rate (no tensor cores: the port is
 //    f32 without TF32).
@@ -64,8 +67,10 @@ __device__ __forceinline__ void gemm_tile_fma(
     }
 }
 
-// C[M, N] = A[M, K] . W[N, K]^T + bias[N] (bias may be null); all
-// row-major, f32 FMA.
+// C[M, N] = A[M, K] . W[N, K]^T + bias[N] (bias may be null), plus the
+// C it finds with ACCUMULATE (a template flag, so the plain product's
+// epilogue carries no branch); all row-major, f32 FMA.
+template <bool ACCUMULATE>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gate_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
                  const float* __restrict__ bias, float* __restrict__ C,
@@ -106,9 +111,11 @@ gate_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
         for (int j = 0; j < GEMM_TN; ++j) {
             const int n = n0 + tx * GEMM_TN + j;
-            if (n < N)
-                C[(size_t)m * N + n] = acc[i][j]
-                    + (bias != nullptr ? bias[n] : 0.f);
+            if (n < N) {
+                float v = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
+                if (ACCUMULATE) v += C[(size_t)m * N + n];
+                C[(size_t)m * N + n] = v;
+            }
         }
     }
 }
@@ -169,11 +176,17 @@ atb_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // Launch helpers: each returns cudaGetLastError() after its launch.
 inline cudaError_t launch_gate_gemm(const float* A, const float* W,
                                     const float* bias, float* C, int M, int N,
-                                    int K, cudaStream_t st)
+                                    int K, cudaStream_t st,
+                                    bool accumulate = false)
 {
     if (M <= 0 || N <= 0) return cudaSuccess;
     dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-    gate_gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, W, bias, C, M, N, K);
+    if (accumulate)
+        gate_gemm_kernel<true><<<grid, GEMM_THREADS, 0, st>>>(A, W, bias, C,
+                                                             M, N, K);
+    else
+        gate_gemm_kernel<false><<<grid, GEMM_THREADS, 0, st>>>(A, W, bias, C,
+                                                              M, N, K);
     return cudaGetLastError();
 }
 

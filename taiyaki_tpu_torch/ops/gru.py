@@ -1,12 +1,15 @@
-"""GRU layer forward and recomputing backward: the CUDA kernels
-(csrc/gru.cu) and their plain twins.
+"""GRU layer forward and backwards: the CUDA kernels (csrc/gru.cu) and
+their plain twins.
 
 `gru_fwd` computes what the TPU kernel taiyaki_tpu/ops/pallas_rnn.py:995
-`gru_fused_fwd` computes with emit_residuals=False: the hidden states of
-one GRU layer, the input product x . iW^T + b included, in f32.
+`gru_fused_fwd` computes: the hidden states of one GRU layer, the input
+product x . iW^T + b included, in f32, and with emit_residuals=True the
+gate streams gh = h_prev . sW^T and gx = x . iW^T + b beside them.
 `gru_bwd_recompute` computes what pallas_rnn.py:1311 `gru_bwd_recompute`
 computes: from dh, h and x alone (the gate streams are rebuilt) d_x and
-the weight gradients as partial sums, which the caller adds up.  Gate
+the weight gradients as partial sums, which the caller adds up;
+`gru_bwd_fusedw` the same from the stored gate streams, as
+pallas_rnn.py:1184 `gru_bwd_fusedw`.  Gate
 order is CUDNN's (r, z, n); the cell has no hidden bias:
     r = sigmoid(gx_r + gh_r), z = sigmoid(gx_z + gh_z),
     n = tanh(gx_n + r * gh_n), h' = (1 - z) n + z h.
@@ -20,12 +23,13 @@ launches, or the wrapper raises.
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib
-from taiyaki_tpu_torch.ops.lstm import (BATCH_TILE, _check_args,
-                                        _check_hidden, _nsplit, prev_state)
+from taiyaki_tpu_torch.ops.lstm import (_check_args, _check_hidden,
+                                        bwd_outputs, prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_gru_fwd": [_P] * 6 + [_I] * 5 + [_P],
-               "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P]}
+_SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 5 + [_P],
+               "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P],
+               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P]}
 
 
 def _cell(gx_t, gh_t, h):
@@ -38,24 +42,29 @@ def _cell(gx_t, gh_t, h):
     return r, z, n, (1.0 - z) * n + z * h
 
 
-def gru_fwd_plain(x, iW, b, sW, reverse=False):
+def gru_fwd_plain(x, iW, b, sW, reverse=False, emit_residuals=False):
     """Plain PyTorch GRU forward: x [T, B, D], iW [3H, D], b [3H],
-    sW [3H, H] -> h [T, B, H]."""
+    sW [3H, H] -> h [T, B, H]; with emit_residuals (h, gh, gx), gh and gx
+    [T, B, 3H] (the order of the JAX package)."""
     T, B, _ = x.shape
     H = sW.shape[1]
     gx = torch.matmul(x, iW.t()) + b
     h = x.new_zeros(B, H)
     out = x.new_empty(T, B, H)
+    gh = x.new_empty(T, B, 3 * H) if emit_residuals else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        h = _cell(gx[t], torch.matmul(h, sW.t()), h)[3]
+        gh_t = torch.matmul(h, sW.t())
+        h = _cell(gx[t], gh_t, h)[3]
         out[t] = h
-    return out
+        if emit_residuals:
+            gh[t] = gh_t
+    return (out, gh, gx) if emit_residuals else out
 
 
-def gru_fwd(x, iW, b, sW, reverse=False):
+def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False):
     """GRU layer forward; same contract as `gru_fwd_plain`."""
     if x.device.type == "cpu":
-        return gru_fwd_plain(x, iW, b, sW, reverse)
+        return gru_fwd_plain(x, iW, b, sW, reverse, emit_residuals)
     cuda_lib.check_cuda(x, "gru_fwd")
     T, B, D = x.shape
     H = sW.shape[1]
@@ -66,33 +75,35 @@ def gru_fwd(x, iW, b, sW, reverse=False):
     lib = cuda_lib.load("gru", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
+        # gx scratch, kept as the output gx under emit_residuals
         gx = torch.empty(T, B, 3 * H, device=x.device)
         h = torch.empty(T, B, H, device=x.device)
+        gh = (torch.empty(T, B, 3 * H, device=x.device) if emit_residuals
+              else None)
         err = lib.tt_gru_fwd(
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
-            T, B, D, H, int(bool(reverse)), cuda_lib.stream(x.device))
+            cuda_lib.ptr(gh), T, B, D, H, int(bool(reverse)),
+            cuda_lib.stream(x.device))
         gru_fwd.launches += 1
     cuda_lib.check(lib, err, "gru_fwd kernel")
-    return h
+    return (h, gh, gx) if emit_residuals else h
 
 
-def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
-    """Plain PyTorch GRU backward, rebuilding the gate streams.
+def gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
+    """Plain PyTorch GRU backward from the stored gate streams.
 
     Args:
         dh: [T, B, H] gradient of the layer's output h.
-        h: [T, B, H] hidden states of the forward; x: [T, B, D] its input.
-        sW: [3H, H]; iW: [3H, D]; b: [3H].
+        gx, gh: [T, B, 3H] the forward's gate streams; h_prev: [T, B, H]
+            the state entering each step; x: [T, B, D] the layer's input.
+        sW: [3H, H]; iW: [3H, D].
 
     Returns:
         (d_x [T, B, D], d_sW [1, 3H, H], d_iW [1, 3H, D], d_b [1, 3H]):
         the weight gradients as one partial each.
     """
     T, B, H = dh.shape
-    h_prev = prev_state(h, reverse)
-    gx = torch.matmul(x, iW.t()) + b
-    gh = torch.matmul(h_prev, sW.t())
     dgx = dh.new_empty(T, B, 3 * H)
     dgh = dh.new_empty(T, B, 3 * H)
     dh_c = dh.new_zeros(B, H)
@@ -113,6 +124,16 @@ def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
     return d_x, d_sW[None], d_iW[None], fx.sum(0)[None]
 
 
+def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
+    """Plain PyTorch GRU backward, rebuilding the gate streams gx = x .
+    iW^T + b and gh = h_prev . sW^T from h [T, B, H] (the forward's
+    hidden states) and b [3H]; the rest as `gru_bwd_fusedw_plain`."""
+    h_prev = prev_state(h, reverse)
+    gx = torch.matmul(x, iW.t()) + b
+    gh = torch.matmul(h_prev, sW.t())
+    return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
+
+
 def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False):
     """GRU layer backward; contract of `gru_bwd_recompute_plain`, except
     that the kernel returns d_sW and d_iW as [nsplit, ...] partials over
@@ -127,8 +148,6 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False):
         ("dh", dh, (T, B, H)), ("h", h, (T, B, H)), ("x", x, (T, B, D)),
         ("sW", sW, (3 * H, H)), ("iW", iW, (3 * H, D)), ("b", b, (3 * H,))))
     _check_hidden("gru_bwd_recompute", H)
-    nsplit = _nsplit(T * B)
-    ntile = -(-B // BATCH_TILE)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
@@ -136,21 +155,52 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False):
         # gx and gh, overwritten in place by dgx and dgh
         g_x = torch.empty(T, B, 3 * H, device=dev)
         g_h = torch.empty(T, B, 3 * H, device=dev)
-        d_x = torch.empty(T, B, D, device=dev)
-        d_sW = torch.empty(nsplit, 3 * H, H, device=dev)
-        d_iW = torch.empty(nsplit, 3 * H, D, device=dev)
-        d_b = torch.empty(ntile, 3 * H, device=dev)
+        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev)
         err = lib.tt_gru_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(iW), cuda_lib.ptr(b), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(g_x), cuda_lib.ptr(g_h),
-            cuda_lib.ptr(d_x), cuda_lib.ptr(d_sW), cuda_lib.ptr(d_iW),
-            cuda_lib.ptr(d_b), T, B, D, H, int(bool(reverse)), nsplit,
+            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
             cuda_lib.stream(dev))
         gru_bwd_recompute.launches += 1
     cuda_lib.check(lib, err, "gru_bwd_recompute kernel")
-    return d_x, d_sW, d_iW, d_b
+    return out
+
+
+def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
+    """GRU layer backward from the stored gate streams; contract of
+    `gru_bwd_fusedw_plain`, with the partials of `gru_bwd_recompute`.  gx
+    and gh are read, never written: the gradients go to scratch of their
+    own."""
+    if dh.device.type == "cpu":
+        return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
+    cuda_lib.check_cuda(dh, "gru_bwd_fusedw")
+    T, B, H = dh.shape
+    D = x.shape[2]
+    _check_args("gru_bwd_fusedw", dh.device, (
+        ("dh", dh, (T, B, H)), ("gx", gx, (T, B, 3 * H)),
+        ("gh", gh, (T, B, 3 * H)), ("h_prev", h_prev, (T, B, H)),
+        ("x", x, (T, B, D)), ("sW", sW, (3 * H, H)),
+        ("iW", iW, (3 * H, D))))
+    _check_hidden("gru_bwd_fusedw", H)
+    lib = cuda_lib.load("gru", _SIGNATURES)
+    dev = dh.device
+    with torch.cuda.device(dev):
+        iwt = iW.t().contiguous()
+        dgx = torch.empty(T, B, 3 * H, device=dev)
+        dgh = torch.empty(T, B, 3 * H, device=dev)
+        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev)
+        err = lib.tt_gru_bwd_fusedw(
+            cuda_lib.ptr(dh), cuda_lib.ptr(gx), cuda_lib.ptr(gh),
+            cuda_lib.ptr(h_prev), cuda_lib.ptr(x), cuda_lib.ptr(sW),
+            cuda_lib.ptr(iwt), cuda_lib.ptr(dgx), cuda_lib.ptr(dgh),
+            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
+            cuda_lib.stream(dev))
+        gru_bwd_fusedw.launches += 1
+    cuda_lib.check(lib, err, "gru_bwd_fusedw kernel")
+    return out
 
 
 gru_fwd.launches = 0
 gru_bwd_recompute.launches = 0
+gru_bwd_fusedw.launches = 0

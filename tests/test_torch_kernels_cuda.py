@@ -8,12 +8,14 @@ imports no JAX, so it runs on a machine with only PyTorch and CUDA:
 Tolerances: LSTM h (and c, acts, tanh c) atol 1e-4 (f32 sums in another
 order, carried through the recurrence); LSTM backward 1e-4 relative to
 the largest value of each output (sums of up to T*B products in another
-order); logZ rtol 1e-5 / atol 1e-3 over T up to 1000; lattices atol 1e-4;
+order; the same for the backwards from stored pre and rebuilding pre);
+logZ rtol 1e-5 / atol 1e-3 over T up to 1000; lattices atol 1e-4;
 posteriors atol 1e-5; the CRF score 1e-3 + 1e-5 |score| and its gradient
 atol 1e-5 (posteriors, each in [0, 1]; 3e-4 over lattices of thousands of
 steps, see CRF_SHAPES), 1e-6 from run to run (the order
 of the shared-memory atomic adds); GRU h atol 1e-4 and its backward 1e-4
-relative, as the LSTM's.
+relative, as the LSTM's (gh and gx of the forward atol 1e-4, as h).
+A retained graph gives bitwise the same gradients twice.
 """
 
 import math
@@ -22,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from taiyaki_tpu_torch.ops import crf, gru, lstm, logz
+from taiyaki_tpu_torch.ops import crf, gru, lstm, logz, rnn
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -257,3 +259,158 @@ def test_gru_kernels_match_twins(dev, shape, reverse):
     for g, w in zip(bk[1:], bw[1:]):
         assert g.shape[1:] == w.shape[1:]
         assert _rel_err(g.sum(0), w.sum(0)) < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_pre_and_c_kernels_match_twin(dev, shape, reverse):
+    """The forward's emit="pre" and emit="c" modes (kernel 1)."""
+    args = [a.to(dev) for a in _lstm_inputs(*shape)]
+    for emit in ("pre", "c"):
+        want = lstm.lstm_fwd_plain(*args, reverse=reverse, emit=emit)
+        n = lstm.lstm_fwd.launches
+        got = lstm.lstm_fwd(*args, reverse=reverse, emit=emit)
+        torch.cuda.synchronize()
+        assert lstm.lstm_fwd.launches == n + 1
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert (g - w).abs().max().item() < 1e-4
+
+
+def _check_partials(got, want):
+    assert got[0].shape == want[0].shape
+    assert _rel_err(got[0], want[0]) < 1e-4
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape[1:] == w.shape[1:]
+        assert _rel_err(g.sum(0), w.sum(0)) < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_fusedw_and_recompute_kernels_match_twins(dev, shape, reverse):
+    """Kernel 11 (from stored pre) and kernel 12 (rebuilding pre)."""
+    T, B, D, H = shape
+    x, iW, b, sW = (a.to(dev) for a in _lstm_inputs(*shape))
+    h, c, pre = lstm.lstm_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                    emit="pre")
+    dh = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(T, B, H)).astype(np.float32)).to(dev)
+    c_prev = lstm.prev_state(c, reverse)
+    nf, nr = lstm.lstm_bwd_fusedw.launches, lstm.lstm_bwd_recompute.launches
+    got = lstm.lstm_bwd_fusedw(dh, pre, c, c_prev, h, x, sW, iW,
+                               reverse=reverse)
+    want = lstm.lstm_bwd_fusedw_plain(dh, pre, c, c_prev, h, x, sW, iW,
+                                      reverse=reverse)
+    _check_partials(got, want)
+    got = lstm.lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=reverse)
+    want = lstm.lstm_bwd_recompute_plain(dh, c, h, x, sW, iW, b,
+                                         reverse=reverse)
+    torch.cuda.synchronize()
+    _check_partials(got, want)
+    assert (lstm.lstm_bwd_fusedw.launches,
+            lstm.lstm_bwd_recompute.launches) == (nf + 1, nr + 1)
+
+
+def test_lstm_backwards_reject_bad_input(dev):
+    T, B, D, H = 6, 3, 5, 8
+    x, iW, b, sW = (a.to(dev) for a in _lstm_inputs(T, B, D, H))
+    h, c, pre = lstm.lstm_fwd_plain(x, iW, b, sW, emit="pre")
+    dh = torch.ones_like(h)
+    with pytest.raises(ValueError, match="pre"):
+        lstm.lstm_bwd_fusedw(dh, pre[:, :, :-1].contiguous(), c, c, h, x,
+                             sW, iW)
+    with pytest.raises(ValueError, match="float32"):
+        lstm.lstm_bwd_recompute(dh, c.double(), h, x, sW, iW, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm.lstm_bwd_recompute(dh, c, h, x, sW, iW.t().contiguous().t(), b)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", GRU_SHAPES)
+def test_gru_residual_kernels_match_twins(dev, shape, reverse):
+    """The forward with emit_residuals (kernel 7) and kernel 13; kernel 13
+    leaves the gate streams it reads as they were."""
+    x, iW, b, sW, dh = (a.to(dev) for a in _gru_inputs(*shape))
+    want = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse,
+                             emit_residuals=True)
+    nf, nb = gru.gru_fwd.launches, gru.gru_bwd_fusedw.launches
+    got = gru.gru_fwd(x, iW, b, sW, reverse=reverse, emit_residuals=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() < 1e-4
+    h, gh, gx = want
+    h_prev = lstm.prev_state(h, reverse)
+    kept = (gx.clone(), gh.clone())
+    bk = gru.gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=reverse)
+    bw = gru.gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW,
+                                  reverse=reverse)
+    torch.cuda.synchronize()
+    assert (gru.gru_fwd.launches, gru.gru_bwd_fusedw.launches) == \
+        (nf + 1, nb + 1)
+    assert torch.equal(gx, kept[0]) and torch.equal(gh, kept[1])
+    _check_partials(bk, bw)
+
+
+def test_gru_fusedw_rejects_bad_input(dev):
+    x, iW, b, sW, dh = (a.to(dev) for a in _gru_inputs(6, 3, 5, 8))
+    h, gh, gx = gru.gru_fwd_plain(x, iW, b, sW, emit_residuals=True)
+    with pytest.raises(ValueError, match="gh"):
+        gru.gru_bwd_fusedw(dh, gx, gh[:-1].contiguous(), h, x, sW, iW)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru.gru_bwd_fusedw(dh, gx.transpose(0, 1).contiguous()
+                           .transpose(0, 1), gh, h, x, sW, iW)
+
+
+POLICY_ENVS = [("lstm", {}), ("lstm", {"TAIYAKI_TPU_ACTS_BWD": "0"}),
+               ("lstm", {"TAIYAKI_TPU_RECOMPUTE": "1"}), ("gru", {}),
+               ("gru", {"TAIYAKI_TPU_NO_RECOMPUTE": "1"})]
+POLICY_KERNEL = {"lstm": ("lstm_bwd_acts", "lstm_bwd_fusedw",
+                          "lstm_bwd_recompute"),
+                 "gru": ("gru_bwd_recompute", "gru_bwd_fusedw")}
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,env", POLICY_ENVS)
+def test_layer_policy_on_card(dev, cell, env, reverse, monkeypatch):
+    """Each policy's layer on the card launches its backward kernel and
+    no other, gives the CPU twins' gradients (1e-4 relative), and a
+    retained graph gives the same gradients twice."""
+    for name in ("TAIYAKI_TPU_ACTS_BWD", "TAIYAKI_TPU_RECOMPUTE",
+                 "TAIYAKI_TPU_NO_RECOMPUTE"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    mod, layer = ((lstm, rnn.lstm_layer) if cell == "lstm"
+                  else (gru, rnn.gru_layer))
+    make = _lstm_inputs if cell == "lstm" else _gru_inputs
+    x, iW, b, sW = make(41, 11, 9, 24)[:4]
+    dh = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(41, 11, 24)).astype(np.float32))
+    grads = {}
+    for device in ("cpu", dev):
+        leaves = [a.to(device).requires_grad_() for a in (x, iW, b, sW)]
+        before = {k: getattr(mod, k).launches for k in POLICY_KERNEL[cell]}
+        h = layer(*leaves, reverse=reverse)
+        first = torch.autograd.grad(h, leaves, dh.to(device),
+                                    retain_graph=True)
+        second = torch.autograd.grad(h, leaves, dh.to(device))
+        torch.cuda.synchronize()
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
+        grads[device if device == "cpu" else "cuda"] = first
+        ran = {k for k in POLICY_KERNEL[cell]
+               if getattr(mod, k).launches != before[k]}
+        assert ran == (set() if device == "cpu" else {_policy_kernel(cell)})
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_err(g.cpu(), w) < 1e-4
+
+
+def _policy_kernel(cell):
+    """The backward kernel the current switches choose for `cell`."""
+    if cell == "lstm":
+        return {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
+                "recompute": "lstm_bwd_recompute"}[rnn.lstm_policy()]
+    return {"recompute": "gru_bwd_recompute",
+            "stored": "gru_bwd_fusedw"}[rnn.gru_policy()]

@@ -29,12 +29,14 @@ import torch
 from taiyaki_tpu import train as jtrain
 from taiyaki_tpu.data import chunk_selection as jcs
 from taiyaki_tpu.data import mapped_signal_files as jmsf
+from taiyaki_tpu.models import mGru_flipflop as jgru_model
 from taiyaki_tpu.models import mLstm_flipflop as jmodel
 from taiyaki_tpu_torch import train as ttrain
 from taiyaki_tpu_torch.convert import leaf_names, load_jax_params
 from taiyaki_tpu_torch.data import chunk_selection as tcs
 from taiyaki_tpu_torch.data import hdf5
 from taiyaki_tpu_torch.data import mapped_signal_files as tmsf
+from taiyaki_tpu_torch.models import mGru_flipflop as tgru_model
 from taiyaki_tpu_torch.models import mLstm_flipflop as tmodel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -162,10 +164,10 @@ def _to_jax(batch):
                           for a in batch))
 
 
-def _nets(seed):
-    jnet = jmodel.network(size=16, stride=5, winlen=19)
+def _nets(seed, models=(jmodel, tmodel)):
+    jnet = models[0].network(size=16, stride=5, winlen=19)
     params = jnet.init(np.random.default_rng(seed))
-    tnet = load_jax_params(tmodel.network(size=16, stride=5, winlen=19),
+    tnet = load_jax_params(models[1].network(size=16, stride=5, winlen=19),
                            params)
     return jnet, params, tnet
 
@@ -180,11 +182,27 @@ def _check_params_after_step(tnet, new_params, grad_diff, lr):
         assert (np.abs(got - w) <= tol).all(), name
 
 
-def test_train_step_matches_jax():
+# the model files of each package, and the port's residual switch (the
+# JAX package's CPU path takes no switch: it is the reference for all)
+STEP_CASES = {
+    "mLstm": ((jmodel, tmodel), {}),
+    "mLstm-ACTS_BWD=0": ((jmodel, tmodel), {"TAIYAKI_TPU_ACTS_BWD": "0"}),
+    "mLstm-RECOMPUTE=1": ((jmodel, tmodel), {"TAIYAKI_TPU_RECOMPUTE": "1"}),
+    "mGru-NO_RECOMPUTE=1": ((jgru_model, tgru_model),
+                            {"TAIYAKI_TPU_NO_RECOMPUTE": "1"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_train_step_matches_jax(case, monkeypatch):
     """Loss, every gradient in the JAX leaf order, grad_maxs and the
-    parameters after one clipped AdamW step."""
+    parameters after one clipped AdamW step; the port under each residual
+    policy's switch."""
+    models, env = STEP_CASES[case]
     batch = _batch(seed=2)
-    jnet, params, tnet = _nets(seed=7)
+    jnet, params, tnet = _nets(seed=7, models=models)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     lr0 = 1e-4
     opt, _ = jtrain.make_optimizer(4e-3, 10, 2, lr0, 1e-4)
     threshs = np.full(len(jax.tree.leaves(params)), np.inf, np.float32)
