@@ -52,7 +52,27 @@ card; run from the root of a checkout:
    default policy's on the card; and for all five policy/model pairs a
    full training step's time and peak device memory, and one layer's
    forward and backward time.
-6. A `kernels` JSON line, the card line, and the result line
+6. mLstm_cat_mod_flipflop 256/5/19 (this slice) on the repo's mapped
+   reads with modified bases (RESULTS/training_ingredients/
+   mapped_remap_modref.hdf5, alphabet AYCZGT, 46 output columns):
+   kernels 9-10 (the CRF on score streams) against their twins at the
+   training shape (T=800, B=256, L=512, and L=640, the training step's
+   instance); the fused kernels 5-6 at the cat_mod width, with the
+   gradient's canonical and mod columns reported apart and the streams
+   route's scattered gradient held against the same twin; a lattice past the fused kernels' 8192
+   positions (T=10000, B=8, L=9000) through the cat_mod loss, which takes
+   the streams route with no switch, and kernels 9-10 against their
+   twins there; (a) training, 8 iterations by default (kernels 5-6 with
+   the mod column folded in, 9-10 idle) and 4 under
+   TAIYAKI_TPU_NO_SCORE_FUSE=1 (9-10 launched, 5-6 idle), whose losses
+   equal the default's; (b) card against CPU, one 8-chunk step on each
+   route; (c) --modified_base_output basecalling of the trained
+   checkpoint, and of a seeded one that calls bases with a mod, on the
+   three modref reads, written as fast5, on the card and the CPU: one mod
+   row per called base, equal calls (or the tie rule of 3c), equal mod
+   scores where the calls agree; (d) one synchronised training step and
+   its peak device memory on each route.
+7. A `kernels` JSON line, the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Every kernel counter is set to 0 just before each path and read just
@@ -79,6 +99,9 @@ PEAK_BYTES_PER_S = 3.35e12
 T, B, H, NBASE = 1000, 128, 256, 4
 # production training shape (misc/rnn_roofline.py, misc/crf_fusion_probe.py)
 TT, TB, TL, S = 800, 256, 512, 40
+# the lattice width of the mLstm training steps' batch of 256 chunks x
+# 4000 samples (their log lines give it), another kernel 9-10 instance
+TRAIN_L = 640
 # samples per training chunk, and the mGru training shape (bench.py's mGru
 # cell: chunk 4000 at stride 2)
 CHUNK = 4000
@@ -89,6 +112,8 @@ LT, LB, LL = 4000, 64, 3712
 ROOT = os.path.dirname(os.path.abspath(__file__))
 READS_HDF5 = os.path.join(ROOT, "RESULTS", "training_ingredients",
                           "mapped_remap_samref.hdf5")
+MODREF_HDF5 = os.path.join(ROOT, "RESULTS", "training_ingredients",
+                           "mapped_remap_modref.hdf5")
 REMAP_MODEL = os.path.join(ROOT, "taiyaki_tpu", "models",
                            "mGru_flipflop_remapping_model_r9_DNA.checkpoint")
 # the two model files of the port's paths: (name, file, stride)
@@ -96,6 +121,18 @@ MLSTM = ("mLstm_flipflop", os.path.join(
     ROOT, "taiyaki_tpu_torch", "models", "mLstm_flipflop.py"), 5)
 MGRU = ("mGru_flipflop", os.path.join(
     ROOT, "taiyaki_tpu_torch", "models", "mGru_flipflop.py"), 2)
+MLSTM_CATMOD = ("mLstm_cat_mod_flipflop", os.path.join(
+    ROOT, "taiyaki_tpu_torch", "models", "mLstm_cat_mod_flipflop.py"), 5)
+# the cat_mod loss's two routes: the fused kernels 5-6 (default) and the
+# score streams with kernels 9-10 (the JAX trainer's switch)
+STREAMS = ("streams", {"TAIYAKI_TPU_NO_SCORE_FUSE": "1"})
+CATMOD_ROUTES = (("fused", {}), STREAMS)
+# output columns of a cat_mod head on the modref alphabet (4 canonical
+# bases, 2 mods): 40 transitions + 4 + 2
+SC = 46
+# a lattice past the fused kernels' 8192 positions, T >= L so that every
+# row has a path
+XT, XB, XL = 10000, 8, 9000
 # the residual policies of each cell (the JAX trainer's switches), the
 # default first: (name, switches)
 LSTM_POLICIES = (("acts", {}), ("pre", {"TAIYAKI_TPU_ACTS_BWD": "0"}),
@@ -111,6 +148,15 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def is_cat_mod(model):
+    return "cat_mod" in model[0]
+
+
+def reads_of(model):
+    """The mapped reads a model trains on: with mod labels for cat_mod."""
+    return MODREF_HDF5 if is_cat_mod(model) else READS_HDF5
 
 
 def say(msg):
@@ -389,25 +435,47 @@ def check_lstm_train(torch, dev, rng):
         for k in bwds]
 
 
-def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5):
-    """The CRF forward and backward at T=tt, B=tb, L=tl against their
-    twins (no PyTorch call computes either).  The gradient is held to
-    g_tol: 1e-5 at the training shape; over T=4000 steps the log-space
-    forward and backward lattices and the score of kernel and twin each
-    drift apart by up to their 1e-4 tolerance, a posterior p =
-    exp(fwd + bwd - score) moves by at most 3e-4 p, and a gradient
-    entry sums posteriors of total at most 1, so 3e-4 there."""
+def _crf_case(torch, dev, rng, tt, tb, tl, s):
+    """Scores [tt, tb, s] and the lattice index vectors of random ragged
+    sequences (L=tl, lengths tl/2 .. tl); past 40 columns, a cat_mod
+    column with a weight for every move, as the cat_mod loss folds it."""
     from taiyaki_tpu_torch import flipflopfings
-    from taiyaki_tpu_torch.ops import crf, flipflop
-    lp = _tensor(torch, dev, rng.normal(size=(tt, tb, S)))
+    from taiyaki_tpu_torch.ops import flipflop
+    lp = _tensor(torch, dev, rng.normal(size=(tt, tb, s)))
     seqlens = rng.integers(tl // 2, tl + 1, size=tb).astype(np.int32)
     seqs = np.zeros((tb, tl), np.int32)
     for i in range(tb):
         seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(
             rng.integers(0, NBASE, size=seqlens[i]))
     stay, move = flipflop.make_seq_indices(torch.from_numpy(seqs), NBASE)
+    mm = mf = None
+    if s > S:
+        mm = torch.from_numpy(rng.integers(S, s, size=(tb, tl - 1))
+                              .astype(np.int32))
+        mf = torch.from_numpy(rng.uniform(0.5, 8.0, size=(tb, tl - 1))
+                              .astype(np.float32))
     args = [a.to(dev) for a in flipflop._lattice_inputs(
-        stay, move, torch.from_numpy(seqlens), S)]
+        stay, move, torch.from_numpy(seqlens), s, mm, mf)]
+    return lp, seqlens, args
+
+
+def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
+    """The CRF forward and backward at T=tt, B=tb, L=tl (and s output
+    columns, cat_mod past 40) against their twins (no PyTorch call
+    computes either).  The gradient is held to g_tol times the largest
+    mod weight (1 for a canonical model): 1e-5 at the training shape;
+    over T=4000 steps the log-space forward and backward lattices and the
+    score of kernel and twin each drift apart by up to their 1e-4
+    tolerance, a posterior p = exp(fwd + bwd - score) moves by at most
+    3e-4 p, and a gradient entry sums posteriors of total at most 1, so
+    3e-4 there.  A mod column's entry sums posteriors times their weight,
+    so its rounding, and the run-to-run tolerance (1e-6 for a sum of
+    posteriors), scale with the largest weight.  At the cat_mod width the
+    canonical and the mod columns are reported apart, and the streams
+    route's gradient (kernels 9-10 and the scatter) is held to the same
+    tolerance against this twin on the same inputs."""
+    from taiyaki_tpu_torch.ops import crf
+    lp, seqlens, args = _crf_case(torch, dev, rng, tt, tb, tl, s)
     sidx, midx, mmidx, mfact, valid, last = args
     idx = (sidx, midx, mmidx, mfact)
     f1, s1, lat1 = crf.crf_fwd(lp, *idx, valid)
@@ -424,11 +492,34 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5):
     s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
     g_err = max_abs_diff(g1, g0)
     g_rerun = max_abs_diff(g1, g2)
+    weight = max(1.0, mfact.max().item())
+    g_tol *= weight
+    rr_tol = 1e-6 * weight
+    cols = ""
+    if s > S:
+        from taiyaki_tpu_torch.ops import flipflop
+        stay, move = flipflop._select_streams(lp, sidx, midx, mmidx, mfact)
+        _, _, lat_s = crf.crf_fwd_streams(stay, move, valid)
+        post = crf.crf_bwd_posteriors(stay, move, lat_s, valid, last)
+        del stay, move, lat_s
+        g_route = flipflop._scatter_posteriors(lp.shape, *post, sidx, midx,
+                                               mmidx, mfact)
+        del post
+        r_err = max_abs_diff(g_route, g0)
+        del g_route
+        can_err = max_abs_diff(g1[..., :S], g0[..., :S])
+        mod_err = max_abs_diff(g1[..., S:], g0[..., S:])
+        check(r_err <= g_tol, "streams route d lp: max |err| {} > {}".format(
+            r_err, g_tol))
+        cols = (" (canonical columns {:.3g}, mod columns {:.3g}; the streams "
+                "route's scattered d lp against this twin {:.3g})".format(
+                    can_err, mod_err, r_err))
     del f0, s0, lat0, g0, g2
     check(s_err <= s_tol, "crf_fwd: score err {} > {}".format(s_err, s_tol))
     check(l_err <= 1e-4, "crf_fwd: lattice err {} > 1e-4".format(l_err))
     check(g_err <= g_tol, "crf_bwd: max |err| {} > {}".format(g_err, g_tol))
-    check(g_rerun <= 1e-6, "crf_bwd: run-to-run {} > 1e-6".format(g_rerun))
+    check(g_rerun <= rr_tol, "crf_bwd: run-to-run {} > {}".format(
+        g_rerun, rr_tol))
     f_ms = cuda_ms(torch, lambda: crf.crf_fwd(lp, *idx, valid), reps=5)
     f_plain = cuda_ms(torch, lambda: crf.crf_fwd_plain(lp, *idx, valid),
                       reps=1)
@@ -438,20 +529,23 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5):
         lp, *idx, lat1, valid, last), reps=1)
     # positions this data needs: each row's valid ones; per position and
     # step ~10 f32 operations forward (logaddexp, max), ~20 backward
+    # bytes: lp read and d lp written in full, the lattice written in full
+    # and read back at the valid positions only
     npos = int(seqlens.sum())
     idx_bytes = 4 * 6 * tb * tl
-    f_bound, f_by = bound_ms(4 * (tt * tb * S + tt * tb * tl + tb * tl + tb)
+    f_bound, f_by = bound_ms(4 * (tt * tb * s + tt * tb * tl + tb * tl + tb)
                              + idx_bytes, 10 * tt * npos)
-    b_bound, b_by = bound_ms(4 * (2 * tt * tb * S + tt * tb * tl)
+    b_bound, b_by = bound_ms(4 * (2 * tt * tb * s + tt * npos)
                              + idx_bytes, 20 * tt * npos)
     say("crf_fwd T={} B={} L={} S={}: score err {:.3g} (tol {:.3g}), "
         "lattice {:.3g} (tol 1e-4), kernel {:.3f} ms, plain {:.3f} ms, "
-        "bound {:.4f} ms ({})".format(tt, tb, tl, S, s_err, s_tol, l_err,
+        "bound {:.4f} ms ({})".format(tt, tb, tl, s, s_err, s_tol, l_err,
                                       f_ms, f_plain, f_bound, f_by))
-    say("crf_bwd T={} B={} L={}: d lp max |err| {:.3g} (tol {:.0e}), run to "
-        "run {:.3g} (tol 1e-6), kernel {:.3f} ms, plain {:.3f} ms, bound "
-        "{:.4f} ms ({})".format(tt, tb, tl, g_err, g_tol, g_rerun, b_ms,
-                                b_plain, b_bound, b_by))
+    say("crf_bwd T={} B={} L={} S={}: d lp max |err| {:.3g} (tol {:.3g})"
+        "{}, run to run {:.3g} (tol {:.3g}), kernel {:.3f} ms, plain {:.3f} "
+        "ms, bound {:.4f} ms ({})".format(tt, tb, tl, s, g_err, g_tol, cols,
+                                          g_rerun, rr_tol, b_ms, b_plain,
+                                          b_bound, b_by))
     return [dict(name="crf_fwd", route="cuda",
                  source="taiyaki_tpu_torch/csrc/crf.cu",
                  replaces="taiyaki_tpu/ops/pallas_crf.py:423",
@@ -462,6 +556,162 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5):
                  replaces="taiyaki_tpu/ops/pallas_crf.py:565",
                  max_abs_err=g_err, ms=b_ms, plain_ms=b_plain,
                  bound_ms=b_bound, bound_by=b_by, library_ms=None)]
+
+
+def check_crf_streams(torch, dev, rng, tt=TT, tb=TB, tl=TL, p_tol=1e-5):
+    """Kernels 9-10 (the CRF on score streams) at T=tt, B=tb, L=tl against
+    their twins, on streams that the route's own gather selects from
+    cat_mod scores (SC columns, a weighted mod column in every move); no
+    PyTorch call computes either.  Tolerances: score 1e-3 + 1e-5 |score|,
+    lattice 1e-4 on live states (as kernel 5), posteriors p_tol (1e-5 at
+    the training shape; 3e-4 over thousands of steps, as kernel 6's
+    gradient), bitwise equal from run to run (no atomics).  Also times the
+    route's gather of the two streams and its scatter of the posteriors
+    into d lp.  Returns the two kernel rows."""
+    from taiyaki_tpu_torch.ops import crf, flipflop
+    lp, seqlens, args = _crf_case(torch, dev, rng, tt, tb, tl, SC)
+    sidx, midx, mmidx, mfact, valid, last = args
+    stay, move = flipflop._select_streams(lp, sidx, midx, mmidx, mfact)
+    f1, s1, lat1 = crf.crf_fwd_streams(stay, move, valid)
+    p1 = crf.crf_bwd_posteriors(stay, move, lat1, valid, last)
+    p2 = crf.crf_bwd_posteriors(stay, move, lat1, valid, last)
+    f0, s0, lat0 = crf.crf_fwd_streams_plain(stay, move, valid)
+    p0 = crf.crf_bwd_posteriors_plain(stay, move, lat0, valid, last)
+    torch.cuda.synchronize()
+    live = lat0 > crf.NEG / 2
+    check(bool((lat1[~live] <= crf.NEG / 2).all()),
+          "crf_fwd_streams: impossible states differ")
+    l_err = max((lat1[live] - lat0[live]).abs().max().item(),
+                (f1 - f0).abs().masked_fill(f0 <= crf.NEG / 2, 0).max()
+                .item())
+    s_err = (s1 - s0).abs().max().item()
+    s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
+    p_err = max(max_abs_diff(a, b) for a, b in zip(p1, p0))
+    rerun = all(bool(torch.equal(a, b)) for a, b in zip(p1, p2))
+    mass = p1[0].sum().item() + p1[1].sum().item()
+    del f0, s0, lat0, p0, p2
+    check(s_err <= s_tol, "crf_fwd_streams: score err {} > {}".format(
+        s_err, s_tol))
+    check(l_err <= 1e-4, "crf_fwd_streams: lattice err {} > 1e-4".format(
+        l_err))
+    check(p_err <= p_tol, "crf_bwd_posteriors: max |err| {} > {}".format(
+        p_err, p_tol))
+    check(rerun, "crf_bwd_posteriors: not bitwise equal run to run")
+    # every row has a path: each step's posteriors sum to 1
+    check(abs(mass - tt * tb) <= 1e-3 * tt * tb,
+          "crf_bwd_posteriors: total mass {} of {}".format(mass, tt * tb))
+    reps = 5 if tt <= TT else 2
+    f_ms = cuda_ms(torch, lambda: crf.crf_fwd_streams(stay, move, valid),
+                   reps=reps)
+    f_plain = cuda_ms(torch, lambda: crf.crf_fwd_streams_plain(
+        stay, move, valid), reps=1, warmup=0)
+    b_ms = cuda_ms(torch, lambda: crf.crf_bwd_posteriors(
+        stay, move, lat1, valid, last), reps=reps)
+    b_plain = cuda_ms(torch, lambda: crf.crf_bwd_posteriors_plain(
+        stay, move, lat1, valid, last), reps=1, warmup=0)
+    sel_ms = cuda_ms(torch, lambda: flipflop._select_streams(
+        lp, sidx, midx, mmidx, mfact), reps=reps)
+    scat_ms = cuda_ms(torch, lambda: flipflop._scatter_posteriors(
+        lp.shape, p1[0], p1[1].clone(), sidx, midx, mmidx, mfact), reps=reps)
+    # bytes: each stream read once where this data needs it (stay and the
+    # lattice at valid positions, move at those a move enters forward and
+    # leaves backward), each output written once in full; operations on
+    # this data's valid positions, ~10 a position and step forward
+    # (logaddexp, max), ~20 backward (two exps, max, sum, logaddexp)
+    npos = int(seqlens.sum())
+    pos = torch.arange(tl, device=dev)[None]
+    ok = valid != 0
+    n_fmove = int(ok[:, 1:].sum().item())
+    n_bmove = int((ok & (pos < last.long()[:, None])).sum().item())
+    stream = 4 * tt * tb * tl
+    f_bound, f_by = bound_ms(4 * tt * (npos + n_fmove) + stream
+                             + 4 * (2 * tb * tl + tb), 10 * tt * npos)
+    b_bound, b_by = bound_ms(4 * tt * (2 * npos + n_bmove) + 2 * stream
+                             + 4 * (tb * tl + tb), 20 * tt * npos)
+    say("crf_fwd_streams T={} B={} L={} (cat_mod streams, S={}): score err "
+        "{:.3g} (tol {:.3g}), lattice {:.3g} (tol 1e-4), kernel {:.3f} ms, "
+        "plain {:.3f} ms, bound {:.4f} ms ({})".format(
+            tt, tb, tl, SC, s_err, s_tol, l_err, f_ms, f_plain, f_bound,
+            f_by))
+    say("crf_bwd_posteriors T={} B={} L={}: max |err| {:.3g} (tol {:.0e}), "
+        "bitwise run to run, kernel {:.3f} ms, plain {:.3f} ms, bound "
+        "{:.4f} ms ({}); the route's gather of both streams {:.3f} ms, "
+        "scatter into d lp {:.3f} ms".format(
+            tt, tb, tl, p_err, p_tol, b_ms, b_plain, b_bound, b_by, sel_ms,
+            scat_ms))
+    return [dict(name="crf_fwd_streams", route="cuda",
+                 source="taiyaki_tpu_torch/csrc/crf.cu",
+                 replaces="taiyaki_tpu/ops/pallas_crf.py:108",
+                 max_abs_err=max(s_err, l_err), ms=f_ms, plain_ms=f_plain,
+                 bound_ms=f_bound, bound_by=f_by, library_ms=None),
+            dict(name="crf_bwd_posteriors", route="cuda",
+                 source="taiyaki_tpu_torch/csrc/crf.cu",
+                 replaces="taiyaki_tpu/ops/pallas_crf.py:218",
+                 max_abs_err=p_err, ms=b_ms, plain_ms=b_plain,
+                 bound_ms=b_bound, bound_by=b_by, library_ms=None)]
+
+
+def _catmod_case(rng, tt, tb, tl, lo):
+    """Cat_mod loss inputs on the host: scores [tt, tb, SC], sequences of
+    lo .. tl positions with random mod categories of the modref alphabet
+    (A and C carry one mod each), its offsets and weights."""
+    from taiyaki_tpu_torch import flipflopfings
+    offsets = np.array([0, 2, 4, 5, 6], np.int32)
+    x = rng.normal(size=(tt, tb, SC)).astype(np.float32)
+    seqlens = rng.integers(lo, tl + 1, size=tb).astype(np.int32)
+    seqs = np.zeros((tb, tl), np.int32)
+    cats = np.zeros((tb, tl), np.int32)
+    for i in range(tb):
+        bases = rng.integers(0, NBASE, size=seqlens[i])
+        seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(bases)
+        cats[i, :seqlens[i]] = np.where(bases < 2, rng.integers(
+            0, 2, size=seqlens[i]), 0)
+    weights = rng.uniform(0.5, 2.0, size=6).astype(np.float32)
+    return x, seqs, seqlens, cats, offsets, weights
+
+
+def long_lattice(torch, dev, rng, counters):
+    """A lattice past the fused kernels' 8192 positions (T=XT, B=XB,
+    L=XL) through the cat_mod loss with no switch set: it takes the
+    streams route (kernels 9-10 launched once each, 5-6 never); the loss
+    is finite, every row has a path, the gradient is finite and each
+    step's posteriors sum to one per row.  Then kernels 9-10 against
+    their twins at that shape."""
+    from taiyaki_tpu_torch.ops import flipflop
+    check(XL > 8192 and XT >= XL, "the long lattice must pass 8192")
+    x, seqs, seqlens, cats, offsets, weights = _catmod_case(
+        rng, XT, XB, XL, XL - 300)
+    for fn in counters.values():
+        fn.launches = 0
+    tx = torch.from_numpy(x).to(dev).requires_grad_()
+    with switches({"TAIYAKI_TPU_NO_SCORE_FUSE": "0",
+                   "TAIYAKI_TPU_F32_SCORES": "0"}):
+        loss = flipflop.cat_mod_flipflop_loss(
+            tx, *(torch.from_numpy(a).to(dev) for a in (seqs, seqlens, cats)),
+            offsets, weights)
+        loss.sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(launches == {"crf_fwd": 0, "crf_bwd": 0, "crf_fwd_streams": 1,
+                       "crf_bwd_posteriors": 1},
+          "long lattice: launches {}".format(launches))
+    costs = loss.detach().cpu().numpy()
+    check(bool(np.isfinite(costs).all()) and bool((costs != 0).all())
+          and bool(torch.isfinite(tx.grad).all()),
+          "long lattice: costs {}".format(costs))
+    # d cost / d lp sums -1/T per row and step over the transition columns
+    mass = -tx.grad[:, :, :S].sum().item() * XT
+    check(abs(mass - XT * XB) <= 1e-3 * XT * XB,
+          "long lattice: posterior mass {}".format(mass))
+    say("long lattice T={} B={} L={} (S={}) through the cat_mod loss, no "
+        "switch: launches {}; costs {}".format(
+            XT, XB, XL, SC, launches,
+            ", ".join("{:.5f}".format(c) for c in costs)))
+    del tx, loss
+    torch.cuda.empty_cache()
+    rows = check_crf_streams(torch, dev, rng, XT, XB, XL, p_tol=3e-4)
+    torch.cuda.empty_cache()
+    return launches, rows
 
 
 def _gru_inputs(torch, dev, rng, t, b, d, h):
@@ -654,10 +904,10 @@ def switches(env):
 def train_path(torch, work, seed, counters, model, policy=None,
                niter=8, idle=()):
     """The training CLI on the card with the model file of `model` (name,
-    path, stride) at size 256, under the switch of `policy` (name,
-    environment) if given, for `niter` iterations; the kernels `idle`
-    (the default backward) must not launch.  Returns (launches, stats,
-    outdir)."""
+    path, stride) at size 256 on its mapped reads (`reads_of`), under the
+    switch of `policy` (name, environment) if given, for `niter`
+    iterations; the kernels `idle` (the default backward) must not
+    launch.  Returns (launches, stats, outdir)."""
     from taiyaki_tpu_torch.cli import train_flipflop
     name, model_py, stride = model
     tag = name if policy is None else "{} {}".format(name, policy[0])
@@ -672,7 +922,7 @@ def train_path(torch, work, seed, counters, model, policy=None,
             "--warmup_batches", "2", "--save_every", str(niter // 2),
             "--sample_nreads_before_filtering", "1000",
             "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
-            "--outdir", outdir, model_py, READS_HDF5])
+            "--outdir", outdir, model_py, reads_of(model)])
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     for k, n in launches.items():
@@ -699,22 +949,42 @@ def train_path(torch, work, seed, counters, model, policy=None,
 
 
 def step_batch(seed, nchunk, model):
-    """A seeded batch of nchunk CHUNK-sample chunks from the repo's reads,
-    and the factory kwargs of `model` at size 256."""
+    """A seeded batch of nchunk CHUNK-sample chunks from the model's
+    mapped reads (with mod categories for a cat_mod model), and the
+    factory kwargs of `model` at size 256."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.data import chunk_selection, mapped_signal_files
+    from taiyaki_tpu_torch.utils import helpers
     stride = model[2]
-    with mapped_signal_files.MappedSignalReader(READS_HDF5) as msr:
+    with mapped_signal_files.MappedSignalReader(reads_of(model)) as msr:
         alphabet = msr.get_alphabet_information()
         reads = list(msr.reads())
+    kwargs = dict(insize=1, size=H, winlen=19, stride=stride,
+                  alphabet_info=alphabet)
+    labels = {}
+    if is_cat_mod(model):
+        head = helpers.new_model(model[1], **kwargs)[0].sublayers[-1]
+        labels = dict(can_labels=head.can_labels, mod_labels=head.mod_labels)
     np.random.seed(seed)
     fp = chunk_selection.sample_filter_parameters(
         reads, 200, CHUNK, 3.0, 10.0, 0.5, 5, 1.1)
     batch, _ = train.sample_batch(reads, CHUNK, nchunk,
                                   train.max_seqlen_for_chunk(CHUNK, stride),
-                                  alphabet, fp, seqlen_granularity=128)
-    return batch, dict(insize=1, size=H, winlen=19, stride=stride,
-                       alphabet_info=alphabet)
+                                  alphabet, fp, seqlen_granularity=128,
+                                  **labels)
+    return batch, kwargs
+
+
+def loss_args(net):
+    """make_grad_step's cat_mod arguments for `net` (unit weights) and
+    the mod factor of the --mod_factor ramp's start; none for a canonical
+    net."""
+    from taiyaki_tpu_torch import layers
+    if not layers.is_cat_mod_model(net):
+        return (), ()
+    head = net.sublayers[-1]
+    weights = np.ones(head.ncan_base + head.nmod_base, np.float32)
+    return (True, head.can_mods_offsets, weights), (8.0,)
 
 
 def new_net(seed, kwargs, device, model):
@@ -732,7 +1002,8 @@ def card_vs_cpu(torch, dev, seed, model, policies=()):
     also equal the default's on the card.  Tolerances: loss 1e-5 relative
     (f32 sums in another order through 800 or 2000 steps of 5 recurrent
     layers and the lattice); each gradient 1e-5 of its tensor's largest
-    value."""
+    value.  A cat_mod step weighs the mod columns x8, the --mod_factor
+    ramp's start."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.convert import leaf_names
     batch, kwargs = step_batch(seed, 8, model)
@@ -742,9 +1013,10 @@ def card_vs_cpu(torch, dev, seed, model, policies=()):
         nonlocal names
         with switches(env):
             net = new_net(seed, kwargs, device, model)
+            args, factor = loss_args(net)
             t0 = time.perf_counter()
-            loss, grads = train.make_grad_step(net)(
-                train.batch_to_device(batch, device), 1.0)
+            loss, grads = train.make_grad_step(net, *args)(
+                train.batch_to_device(batch, device), 1.0, *factor)
             grads = [g.cpu() for g in grads]
         names = leaf_names(net)
         return float(loss), grads, time.perf_counter() - t0
@@ -802,34 +1074,44 @@ def layer_bwd_ms(torch, dev, model, policy, T):
     return f_ms, b_ms
 
 
+def timed_step(torch, dev, seed, model, batch, kwargs):
+    """A full training step of `model` on `batch` (seeded weights, AdamW,
+    no clip; a cat_mod model at the mod factor of loss_args): the mean
+    synchronised wall time (ms) of 2 steps after a warm-up and the peak
+    device memory (bytes, torch.cuda.max_memory_allocated) over them.
+    Returns (step ms, peak, net, batch on the device)."""
+    from taiyaki_tpu_torch import train
+    net = new_net(seed, kwargs, dev, model)
+    args, factor = loss_args(net)
+    params = train.leaf_params(net)
+    opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
+    threshs = np.full(len(params), np.inf, np.float32)
+    b = train.batch_to_device(batch, dev)
+    step = train.make_train_step(net, opt, *args)
+    step(b, 1.0, threshs, *factor)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step(b, 1.0, threshs, *factor)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    return step_ms, torch.cuda.max_memory_allocated(dev), net, b
+
+
 def policy_steps(torch, dev, seed):
     """Each residual policy's full training step (256 chunks x CHUNK
     samples; mean synchronised wall time of 2 steps after a warm-up) and
     its peak device memory (torch.cuda.max_memory_allocated over one
     step), with one layer's forward and backward at the step's shape.
     Returns {(model, policy): numbers}."""
-    from taiyaki_tpu_torch import train
     out = {}
     for model, policies in ((MLSTM, LSTM_POLICIES), (MGRU, GRU_POLICIES)):
         batch, kwargs = step_batch(seed, TB, model)
         for policy in policies:
             with switches(policy[1]):
-                net = new_net(seed, kwargs, dev, model)
-                params = train.leaf_params(net)
-                opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
-                threshs = np.full(len(params), np.inf, np.float32)
-                b = train.batch_to_device(batch, dev)
-                step = train.make_train_step(net, opt)
-                step(b, 1.0, threshs)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-                t0 = time.perf_counter()
-                for _ in range(2):
-                    step(b, 1.0, threshs)
-                torch.cuda.synchronize()
-                step_ms = (time.perf_counter() - t0) * 1e3 / 2
-                peak = torch.cuda.max_memory_allocated(dev)
-            del net, params, opt, b, step
+                step_ms, peak = timed_step(torch, dev, seed, model, batch,
+                                           kwargs)[:2]
             torch.cuda.empty_cache()
             f_ms, b_ms = layer_bwd_ms(torch, dev, model, policy,
                                       CHUNK // model[2])
@@ -847,6 +1129,22 @@ def policy_steps(torch, dev, seed):
 
 
 # -- phase 5 -----------------------------------------------------------------
+
+def same_losses(outdir, other, n):
+    """The batch.log losses of the training run in `other` equal the
+    first n of `outdir`'s (1e-5 relative)."""
+    logs = []
+    for d in (outdir, other):
+        with open(os.path.join(d, "batch.log")) as fh:
+            logs.append([float(line.split("\t")[1])
+                         for line in fh.read().splitlines()[1:]][:n])
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(*logs))
+    check(len(logs[1]) == n and err <= 1e-5,
+          "losses {} vs {} (relative err {})".format(logs[1], logs[0], err))
+    say("the {} losses of {} equal {}'s first {} (max relative err {:.3g}, "
+        "tol 1e-5)".format(n, os.path.basename(other),
+                           os.path.basename(outdir), n, err))
+
 
 def write_reads(path, names, lengths, rng):
     """A multi-read fast5 of synthetic step-like signals."""
@@ -900,10 +1198,12 @@ def path_score(trans, path, nbase):
     return start + float(trans[np.arange(len(src)), col].sum())
 
 
-def tie_check(torch, model, reads_dir, read_ids, dev):
+def tie_check(torch, model, reads_dir, read_ids, dev, mods=False):
     """Per chunk of `read_ids`: the card's Viterbi path against the CPU's;
     a differing path must score the CPU's best within 1e-4 under the CPU's
-    scores.  Returns (chunks, differing chunks, max |score gap|)."""
+    scores.  Returns (chunks, differing chunks, max |score gap|, max
+    |posterior difference|), and with `mods` (a cat_mod model) the max
+    |difference| of the mod columns, card against CPU."""
     from taiyaki_tpu_torch.cli import basecall
     from taiyaki_tpu_torch.convert import load_jax_params
     from taiyaki_tpu_torch.data import fast5utils
@@ -921,7 +1221,7 @@ def tie_check(torch, model, reads_dir, read_ids, dev):
     for device in (dev, torch.device("cpu")):
         net = load_jax_params(net, params).to(device).eval()
         caller = basecall.Basecaller(net, 40, True, 1.0, chunks.shape[1],
-                                     device, want_trans=True)
+                                     device, want_trans=True, want_mods=mods)
         with torch.inference_mode():
             out = caller.call_chunks(torch.from_numpy(chunks).to(device))
         res.append({k: v.cpu().numpy() for k, v in out.items()})
@@ -938,6 +1238,9 @@ def tie_check(torch, model, reads_dir, read_ids, dev):
           "(tie tolerance 1e-4)".format(gap))
     trans_err = float(np.abs(np.exp(gpu["trans"]) - np.exp(cpu["trans"]))
                       .max())
+    if mods:
+        return (chunks.shape[1], ndiff, gap, trans_err,
+                float(np.abs(gpu["mods"] - cpu["mods"]).max()))
     return chunks.shape[1], ndiff, gap, trans_err
 
 
@@ -1012,13 +1315,13 @@ def main_path(torch, dev, seed, work, model, counters, tag):
     return launches, stats, reads
 
 
-def write_real_reads(path):
-    """The repo's mapped reads as one fast5 (hdf5.Writer, as a machine
-    without h5py writes it); returns {read id: (reference sequence,
-    samples)}."""
+def write_real_reads(path, mapped=READS_HDF5):
+    """The reads of a mapped-signal file of the repo as one fast5
+    (hdf5.Writer, as a machine without h5py writes it); returns {read id:
+    (reference sequence, samples)}."""
     from taiyaki_tpu_torch.data import mapped_signal_files
     from taiyaki_tpu_torch.data.hdf5 import Writer
-    with mapped_signal_files.MappedSignalReader(READS_HDF5) as msr:
+    with mapped_signal_files.MappedSignalReader(mapped) as msr:
         alphabet = msr.get_alphabet_information().alphabet
         reads = list(msr.reads())
     refs = {}
@@ -1088,12 +1391,144 @@ def real_reads(torch, dev, work, counters):
     return launches, stats
 
 
+def catmod_basecall(torch, dev, work, model, counters, what):
+    """The cat_mod checkpoint `model` (`what` names it) calls the three
+    modref reads (written as fast5) through the basecall CLI with
+    --modified_base_output on the card, then on the CPU twins: every read
+    gets a mod table of one row per called base and one column per mod,
+    the calls are equal (or the Viterbi tie rule of main_path holds), and
+    where the calls agree the card's mod scores equal the CPU's within
+    1e-4 (NaN where a mod does not apply to the base); the output's mod
+    columns over every chunk too.  Returns (launches, stats)."""
+    from taiyaki_tpu_torch.cli import basecall
+    from taiyaki_tpu_torch.data import fast5utils, hdf5
+    reads = os.path.join(work, "reads_modref")
+    if not os.path.isdir(reads):
+        os.makedirs(reads)
+        write_real_reads(os.path.join(reads, "modref.fast5"), MODREF_HDF5)
+    refs = sorted(rid for _, rid in fast5utils.iterate_fast5_reads(reads))
+    out = {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        fa = os.path.join(work, "modref_{}_{}.fa".format(what, tag))
+        mods = os.path.join(work, "modref_{}_{}.hdf5".format(what, tag))
+        if tag == "card":
+            for fn in counters.values():
+                fn.launches = 0
+        stats = basecall.main(extra + ["--output", fa, "--quiet",
+                                       "--modified_base_output", mods, reads,
+                                       model])
+        if tag == "card":
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            card_stats = stats
+        f = hdf5.File(mods)
+        names = [n.decode() for n in f["mod_long_names"][()]]
+        tables = {rid: f["Reads"][rid][()] for rid in f["Reads"].keys()}
+        f.close()
+        out[tag] = read_fastx(fa), names, tables
+    for k, n in launches.items():
+        check(n > 0, "cat_mod basecall never launched kernel {}".format(k))
+    (calls, names, tables), (cpu_calls, cpu_names, cpu_tables) = (
+        out["card"], out["cpu"])
+    check(names == cpu_names == ["6mA", "5mC"], "mod_long_names {} / {}"
+          .format(names, cpu_names))
+    check(sorted(tables) == sorted(cpu_tables) == sorted(refs),
+          "mod tables for {} of reads {}".format(sorted(tables),
+                                                 sorted(refs)))
+    for rid, table in tables.items():
+        check(table.dtype == np.float32
+              and table.shape == (len(calls.get(rid, "")), 2),
+              "{}: mod table {} {} for {} called bases".format(
+                  rid, table.dtype, table.shape, len(calls.get(rid, ""))))
+    same = [rid for rid in refs if calls.get(rid) == cpu_calls.get(rid)]
+    nchunk, ndiff, gap, trans_err, stream_err = tie_check(
+        torch, model, reads, sorted(refs), dev, mods=True)
+    check(len(same) == len(refs) or ndiff > 0,
+          "modref reads: card and CPU calls differ with equal chunk paths")
+    check(stream_err <= 1e-4, "mod columns of the output: card vs CPU max "
+          "|err| {} > 1e-4".format(stream_err))
+    m_err, nscore = 0.0, 0
+    for rid in same:
+        a, b = tables[rid], cpu_tables[rid]
+        check(bool((np.isnan(a) == np.isnan(b)).all()),
+              "{}: mod scores defined at other bases".format(rid))
+        ok = ~np.isnan(a)
+        nscore += int(ok.sum())
+        if ok.any():
+            m_err = max(m_err, float(np.abs(a[ok] - b[ok]).max()))
+    check(m_err <= 1e-4, "mod scores: card vs CPU max |err| {} > 1e-4"
+          .format(m_err))
+    nbase = sum(len(c) for c in calls.values())
+    say("cat_mod basecall ({} mLstm_cat_mod checkpoint, the 3 modref "
+        "reads, --modified_base_output): {} reads, {} samples, {} bases in "
+        "{:.3f} s: {:.3f} ksample/s; launches {}; card vs CPU: {} of {} "
+        "calls identical, {} of {} chunks with another Viterbi path (score "
+        "gap {:.3g}, tol 1e-4), max |posterior diff| {:.3g}; mod tables "
+        "{} (rows = called bases), {} mod scores compared (a called A or "
+        "C has one), max |card - CPU| {:.3g} (tol 1e-4); called bases by "
+        "letter {}; the output's mod columns over all chunks, max |card - "
+        "CPU| {:.3g} (tol 1e-4)".format(
+            what, card_stats["ncalled"], card_stats["nsample"], nbase,
+            card_stats["seconds"],
+            card_stats["nsample"] / card_stats["seconds"] / 1e3, launches,
+            len(same), len(refs), ndiff, nchunk, gap, trans_err,
+            {rid: t.shape for rid, t in sorted(tables.items())}, nscore,
+            m_err, {b: sum(c.count(b) for c in calls.values())
+                    for b in "ACGT"}, stream_err))
+    return launches, card_stats
+
+
+def catmod_steps(torch, dev, seed):
+    """One cat_mod training step on each route (256 chunks x CHUNK
+    samples; mean synchronised wall time of 2 steps after a warm-up), its
+    peak device memory, and the cat_mod loss's forward and backward alone
+    on the network's outputs (mean of 3, synchronised).  Returns {route:
+    numbers}."""
+    from taiyaki_tpu_torch.ops import flipflop
+    batch, kwargs = step_batch(seed, TB, MLSTM_CATMOD)
+    out = {}
+    for route, env in CATMOD_ROUTES:
+        with switches(env):
+            step_ms, peak, net, b = timed_step(torch, dev, seed, MLSTM_CATMOD,
+                                               batch, kwargs)
+            with torch.no_grad():
+                y = net(b.signal)
+            (_, offsets, weights), (factor,) = loss_args(net)
+
+            def loss_once():
+                yy = y.detach().requires_grad_()
+                flipflop.cat_mod_flipflop_loss(
+                    yy, b.seqs, b.seqlens, b.mod_cats, offsets,
+                    weights * np.float32(factor)).sum().backward()
+            loss_once()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                loss_once()
+            torch.cuda.synchronize()
+            loss_ms = (time.perf_counter() - t0) * 1e3 / 3
+        del net, b, y
+        torch.cuda.empty_cache()
+        out[route] = dict(step_ms=step_ms, peak_gb=peak / 1e9,
+                          loss_fwd_bwd_ms=loss_ms)
+        say("cat_mod route {}: training step {:.3f} ms ({} chunks x {} "
+            "samples, L={}, S={}), peak device memory {:.3f} GB; the "
+            "cat_mod loss forward and backward alone {:.3f} ms".format(
+                route, step_ms, TB, CHUNK, batch.seqs.shape[1], SC,
+                peak / 1e9, loss_ms))
+    return out
+
+
 def seeded_checkpoint(work, seed, model):
     """A checkpoint of `model` at size 256 with weights drawn from a
     seed."""
     from taiyaki_tpu_torch.convert import load_jax_params, params_to_jax
+    from taiyaki_tpu_torch.data import mapped_signal_files
     from taiyaki_tpu_torch.utils import helpers
     kwargs = dict(insize=1, size=H, winlen=19, stride=model[2])
+    if is_cat_mod(model):
+        with mapped_signal_files.MappedSignalReader(reads_of(model)) as msr:
+            kwargs["alphabet_info"] = msr.get_alphabet_information()
     net, source, meta = helpers.new_model(
         model[1], model_metadata={"reverse": False, "standardize": True},
         **kwargs)
@@ -1294,6 +1729,13 @@ def run(seed):
     gru_fwd_rows, gru_bwd_rows = check_gru_train(torch, dev, rng)
     kernels += [gru_row] + gru_bwd_rows
     torch.cuda.empty_cache()
+    stream_rows = check_crf_streams(torch, dev, rng)
+    kernels += stream_rows
+    torch.cuda.empty_cache()
+    catmod_crf = check_crf(torch, dev, rng, s=SC)
+    torch.cuda.empty_cache()
+    check_crf_streams(torch, dev, rng, tl=TRAIN_L)
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -1304,8 +1746,11 @@ def run(seed):
                 "crf_fwd": crf.crf_fwd, "crf_bwd": crf.crf_bwd,
                 "gru_fwd": gru.gru_fwd,
                 "gru_bwd_recompute": gru.gru_bwd_recompute,
-                "gru_bwd_fusedw": gru.gru_bwd_fusedw}
+                "gru_bwd_fusedw": gru.gru_bwd_fusedw,
+                "crf_fwd_streams": crf.crf_fwd_streams,
+                "crf_bwd_posteriors": crf.crf_bwd_posteriors}
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
+    streams = ("crf_fwd_streams", "crf_bwd_posteriors")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
                  "recompute": "lstm_bwd_recompute"}
     gru_bwds = {"recompute": "gru_bwd_recompute", "stored": "gru_bwd_fusedw"}
@@ -1361,6 +1806,34 @@ def run(seed):
         torch.cuda.empty_cache()
         profile_train_step(torch, dev, seed, MGRU)
         torch.cuda.empty_cache()
+
+        # cat_mod: the long lattice, then training on each route
+        launches["long lattice"], long_rows = long_lattice(
+            torch, dev, rng, pick(("crf_fwd", "crf_bwd") + streams))
+        launches["mLstm cat_mod training"], _, outdir = train_path(
+            torch, work, seed, pick(("lstm_fwd", "lstm_bwd_acts") + loss
+                                    + streams), MLSTM_CATMOD,
+            idle=streams)
+        torch.cuda.empty_cache()
+        launches["mLstm cat_mod training streams"], _, s_outdir = \
+            train_path(torch, work, seed,
+                       pick(("lstm_fwd", "lstm_bwd_acts") + loss + streams),
+                       MLSTM_CATMOD, policy=STREAMS, niter=4,
+                       idle=("crf_fwd", "crf_bwd"))
+        same_losses(outdir, s_outdir, 4)
+        torch.cuda.empty_cache()
+        card_vs_cpu(torch, dev, seed, MLSTM_CATMOD, (STREAMS,))
+        launches["mLstm cat_mod basecall"], _ = catmod_basecall(
+            torch, dev, work, os.path.join(outdir, "model_final.checkpoint"),
+            pick(lstm_call), "trained")
+        # an 8-step model may call no base; seeded weights (seed 1 calls
+        # C at every base of these reads) give mod scores to compare
+        catmod_basecall(torch, dev, work,
+                        seeded_checkpoint(work, seed, MLSTM_CATMOD),
+                        pick(lstm_call), "seeded")
+        torch.cuda.empty_cache()
+        routes = catmod_steps(torch, dev, seed)
+        torch.cuda.empty_cache()
         policies = policy_steps(torch, dev, seed)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1381,10 +1854,21 @@ def run(seed):
     say("crf at L={} (T={}, B={}): {}".format(LL, LT, LB, json.dumps(
         [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                             "max_abs_err")} for r in long_crf])))
+    say("crf at the cat_mod width S={} (T={}, B={}, L={}, a weighted mod "
+        "column in every move): {}".format(SC, TT, TB, TL, json.dumps(
+            [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                "max_abs_err")} for r in catmod_crf])))
+    say("crf on score streams at L={} (T={}, B={}): {}".format(
+        XL, XT, XB, json.dumps(
+            [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                "max_abs_err")} for r in long_rows])))
+    say("cat_mod routes (training step, peak memory, loss alone): {}"
+        .format(json.dumps(routes)))
     # the path each row's launches come from: kernels 1-3 the mLstm
     # basecall path, 4-6 the mLstm training path, 7 the mGru basecall path,
-    # 8 the mGru training path, and 11-13 the training paths under the
-    # residual switches
+    # 8 the mGru training path, 11-13 the training paths under the
+    # residual switches, and 9-10 the cat_mod training path under
+    # TAIYAKI_TPU_NO_SCORE_FUSE=1
     source = {"lstm_fwd": "mLstm basecall", "logz_fwd": "mLstm basecall",
               "logz_posteriors": "mLstm basecall",
               "lstm_bwd_acts": "mLstm training", "crf_fwd": "mLstm training",
@@ -1392,12 +1876,14 @@ def run(seed):
               "gru_bwd_recompute": "mGru training",
               "lstm_bwd_fusedw": "mLstm training pre",
               "lstm_bwd_recompute": "mLstm training recompute",
-              "gru_bwd_fusedw": "mGru training stored"}
+              "gru_bwd_fusedw": "mGru training stored",
+              "crf_fwd_streams": "mLstm cat_mod training streams",
+              "crf_bwd_posteriors": "mLstm cat_mod training streams"}
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    check(len(kernels) == len(counters) == 11, "kernels line: {} rows".format(
+    check(len(kernels) == len(counters) == 13, "kernels line: {} rows".format(
         len(kernels)))
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))

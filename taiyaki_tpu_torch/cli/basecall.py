@@ -9,6 +9,11 @@ transition probabilities (logZ forward and posterior kernels), log, Viterbi
 consecutive reads are pooled into shared batches, the last part of a batch
 is padded by repeating its last chunk, and a read shorter than a chunk is
 zero-padded to the chunk length and trimmed after, as in bin/basecall.py.
+With --modified_base_output and a cat_mod model, only the canonical
+transition columns go to the posterior and Viterbi; the mod columns are
+stitched and read per called base (`flipflopfings.path_mod_scores`) into
+an HDF5 file (`data.hdf5.Writer`): `mod_long_names` and
+`Reads/<read_id>` f32 [nbase, nmods], NaN where a mod does not apply.
 All arithmetic is f32 (TF32 is switched off for matrix products and
 convolutions).  --device defaults to the card; --device cpu runs the plain
 PyTorch twins of the kernels.
@@ -87,7 +92,8 @@ def get_parser():
         help="Multiply network outputs by this factor before decoding")
     parser.add_argument(
         "--modified_base_output", default=None,
-        help="HDF5 file for modified-base scores (not ported yet)")
+        help="HDF5 file for the per-base modified-base scores of a cat_mod "
+             "model")
     parser.add_argument(
         "model", action=FileExists,
         help="Checkpoint holding the trained network to call with")
@@ -160,7 +166,8 @@ class Basecaller:
     batches of up to `max_batch` chunks on one device."""
 
     def __init__(self, net, n_can_state, posterior, temperature, max_batch,
-                 device, want_errprobs=False, want_trans=False):
+                 device, want_errprobs=False, want_trans=False,
+                 want_mods=False):
         from taiyaki_tpu_torch import flipflopfings, qscores
         self.net = net
         self.n_can_state = n_can_state
@@ -170,6 +177,7 @@ class Basecaller:
         self.device = device
         self.want_errprobs = want_errprobs
         self.want_trans = want_trans
+        self.want_mods = want_mods
         self.nbases = flipflopfings.nbase_flipflop(n_can_state)
         mask = np.zeros((n_can_state, self.nbases), dtype=np.float32)
         for b in range(self.nbases):
@@ -191,7 +199,8 @@ class Basecaller:
 
     def call_chunks(self, chunks):
         """chunks [T, n, 1] on the device -> {"paths", ("errprobs"),
-        ("trans": the scores Viterbi decoded)}."""
+        ("trans": the scores Viterbi decoded), ("mods": the output's
+        columns past the canonical transitions)}."""
         from taiyaki_tpu_torch.ops import decode
         out = self.net(chunks)
         trans = out[:, :, :self.n_can_state] * self.temperature
@@ -199,6 +208,8 @@ class Basecaller:
             trans = torch.log(decode.flipflop_make_trans(trans) + 1e-8)
         _, _, paths = decode.flipflop_viterbi(trans)
         res = {"paths": paths}
+        if self.want_mods:
+            res["mods"] = out[:, :, self.n_can_state:]
         if self.want_errprobs:
             res["errprobs"] = self.errprobs(trans, paths)
         if self.want_trans:
@@ -223,15 +234,22 @@ class Basecaller:
     @staticmethod
     def gather(handles):
         """Results to the host: (paths [nblk+1, nchunk] int32,
-        errprobs [nblk+1, nchunk] or 0 rows)."""
-        out_paths, out_errp = [], []
+        errprobs [nblk+1, nchunk] or 0 rows, mods [nblk, nchunk, nmodcol]
+        or 0 columns)."""
+        out_paths, out_errp, out_mods = [], [], []
         for k, res in handles:
-            out_paths.append(res["paths"][:, :k].cpu().numpy())
+            paths = res["paths"][:, :k].cpu().numpy()
+            out_paths.append(paths)
             out_errp.append(res["errprobs"][:, :k].cpu().numpy()
                             if "errprobs" in res
                             else np.zeros((0, k), np.float32))
+            out_mods.append(res["mods"][:, :k].cpu().numpy()
+                            if "mods" in res
+                            else np.zeros((paths.shape[0] - 1, k, 0),
+                                          np.float32))
         return (np.concatenate(out_paths, axis=1),
-                np.concatenate(out_errp, axis=1))
+                np.concatenate(out_errp, axis=1),
+                np.concatenate(out_mods, axis=1))
 
 
 def prepare_read(read_id, signal, chunk_size, overlap, read_params,
@@ -259,8 +277,11 @@ def prepare_read(read_id, signal, chunk_size, overlap, read_params,
 
 
 def finalize_read(prep, paths, errprobs, chunk_size, stride, alphabet,
-                  fastq, qscore_scale, qscore_offset):
-    """Stitch one read's paths and assemble its call (and q-string)."""
+                  fastq, qscore_scale, qscore_offset, mods=None,
+                  can_nmods=None):
+    """Stitch one read's paths and assemble its call (and q-string, and
+    with can_nmods its mod scores from `mods`).  Returns (basecall,
+    qstring or None, mod scores [nbase, nmods] or None)."""
     from taiyaki_tpu_torch import qscores
     from taiyaki_tpu_torch.flipflopfings import path_to_str
     chunk_starts = prep["chunk_starts"]
@@ -270,6 +291,8 @@ def finalize_read(prep, paths, errprobs, chunk_size, stride, alphabet,
         nblk = -(-true_len // stride)
         paths = paths[:nblk + 1]
         errprobs = errprobs[:nblk + 1]
+        if mods is not None:
+            mods = mods[:nblk]
     best_path = basecall_helpers.stitch_chunks(
         paths, chunk_starts, chunk_ends, stride)
     qstring = None
@@ -280,18 +303,29 @@ def finalize_read(prep, paths, errprobs, chunk_size, stride, alphabet,
             stitched_errprobs, best_path, qscore_scale, qscore_offset)
     basecall = path_to_str(best_path, alphabet=alphabet,
                            include_first_source=False)
-    return basecall, qstring
+    mod_scores = None
+    if can_nmods is not None:
+        from taiyaki_tpu_torch.flipflopfings import path_mod_scores
+        stitched_mods = basecall_helpers.stitch_chunks(
+            mods, chunk_starts, chunk_ends, stride)
+        # the move path[t] -> path[t+1] and its mod row both come from
+        # output block t (path_mod_scores)
+        n = min(len(best_path), len(stitched_mods) + 1)
+        mod_scores = path_mod_scores(best_path[:n], stitched_mods, can_nmods)
+    return basecall, qstring, mod_scores
 
 
 def main(argv=None):
     """Run the basecaller; returns counts and wall time as a dict."""
     args = get_parser().parse_args(argv)
+    if args.modified_base_output is not None and args.beam is not None:
+        # the beam returns bases with no block alignment, so per-base mod
+        # scores cannot be read off it
+        sys.exit("* Error: --modified_base_output requires the Viterbi "
+                 "decoder (drop --beam)")
     if args.beam is not None:
         sys.exit("* Error: --beam is not ported to taiyaki_tpu_torch yet; "
                  "use bin/basecall.py")
-    if args.modified_base_output is not None:
-        sys.exit("* Error: --modified_base_output is not ported to "
-                 "taiyaki_tpu_torch yet; use bin/basecall.py")
     if args.ndevices is not None and args.ndevices > 1:
         sys.exit("* Error: --ndevices > 1 is not ported to "
                  "taiyaki_tpu_torch yet")
@@ -300,8 +334,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     device = select_device(args.device)
 
+    from taiyaki_tpu_torch import layers
     from taiyaki_tpu_torch.convert import load_jax_params
-    from taiyaki_tpu_torch.data import fast5utils
+    from taiyaki_tpu_torch.data import fast5utils, hdf5
     from taiyaki_tpu_torch.flipflopfings import nstate_flipflop
     from taiyaki_tpu_torch.utils import helpers
 
@@ -322,6 +357,18 @@ def main(argv=None):
     if params is None:
         sys.exit("* Error: pass a .checkpoint (a model description .py has "
                  "no trained weights)")
+    can_nmods = mod_writer = mod_reads = None
+    if args.modified_base_output is not None:
+        if not layers.is_cat_mod_model(net):
+            sys.exit("* Error: --modified_base_output requires a cat_mod "
+                     "model")
+        head = net.sublayers[-1]
+        can_nmods = head.can_nmods
+        mod_writer = hdf5.Writer(args.modified_base_output)
+        mod_writer.create_dataset(
+            "mod_long_names",
+            data=np.array([n.encode() for n in head.ordered_mod_long_names]))
+        mod_reads = mod_writer.create_group("Reads")
     net = load_jax_params(net, params).to(device).eval()
     stride = net.stride
     chunk_size = args.chunk_size * stride
@@ -329,7 +376,8 @@ def main(argv=None):
     caller = Basecaller(net, nstate_flipflop(len(args.alphabet)),
                         args.posterior, args.temperature,
                         args.max_concurrent_chunks, device,
-                        want_errprobs=args.fastq)
+                        want_errprobs=args.fastq,
+                        want_mods=can_nmods is not None)
 
     sys.stderr.write("* Calling reads on {}.\n".format(device))
     nbase = ncalled = nread = nsample = 0
@@ -362,7 +410,7 @@ def main(argv=None):
 
         def finalize_batch(batch_reads, handles):
             nonlocal nbase, ncalled, nsample
-            paths, errprobs = caller.gather(handles)
+            paths, errprobs, mods = caller.gather(handles)
             offs, off = [], 0
             for p in batch_reads:
                 offs.append(off)
@@ -373,12 +421,22 @@ def main(argv=None):
                 return finalize_read(
                     p, paths[:, off:off + k], errprobs[:, off:off + k],
                     chunk_size, stride, args.alphabet, args.fastq,
-                    args.qscore_scale, args.qscore_offset)
+                    args.qscore_scale, args.qscore_offset,
+                    mods[:, off:off + k], can_nmods)
 
-            for p, (basecall, qstring) in zip(
+            for p, (basecall, qstring, mod_scores) in zip(
                     batch_reads, pool.map(finalize_one, batch_reads, offs)):
                 nsample += p["nsample"]
                 progress.step()
+                if mod_scores is not None:
+                    if p["read_id"] in mod_reads:
+                        # one read in two input files: keep the first table
+                        sys.stderr.write(
+                            "* Warning: duplicate read id {}; keeping the "
+                            "first mod-score table.\n".format(p["read_id"]))
+                    else:
+                        mod_reads.create_dataset(
+                            p["read_id"], data=mod_scores.astype(np.float32))
                 # a read id found twice gets a record for every copy, as
                 # in bin/basecall.py
                 if basecall is not None and len(basecall) > 0:
@@ -419,6 +477,8 @@ def main(argv=None):
         flush()   # queue the tail pool, finalize the previous batch
         flush()   # finalize the tail batch
     pool.shutdown()
+    if mod_writer is not None:
+        mod_writer.close()
     total_time = time.time() - t0
     sys.stderr.write("* Called {} reads in {:.2f}s\n".format(
         nread, total_time))

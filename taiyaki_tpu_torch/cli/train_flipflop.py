@@ -9,8 +9,11 @@ every random draw are those of bin/train_flipflop.py, so one --seed
 draws the same initial weights, validation reads and chunks in both.
 Each iteration samples a batch (on a prefetch thread, one iteration
 ahead), runs one training step (`train.make_train_step`: LSTM, CRF and
-logZ kernels forward and backward, clip, AdamW) and logs it.  Outputs in
---outdir: model.log, batch.log (iter, loss, gradientmax, gradientcap,
+logZ kernels forward and backward, clip, AdamW) and logs it.  A cat_mod
+model (a GlobalNormFlipFlopCatMod head) trains on the mapped reads' mod
+labels with the cat_mod loss, its mod weights (1, or the log-odds priors
+of --mod_prior_factor) scaled per iteration by the --mod_factor ramp.
+Outputs in --outdir: model.log, batch.log (iter, loss, gradientmax, gradientcap,
 learning_rate, chunk_len), validation.log and model_checkpoint_XXXXX /
 model_final .checkpoint and .params in the JAX package's checkpoint
 format (no optimizer state).  --device defaults to the card; --device cpu
@@ -198,12 +201,14 @@ def get_parser():
                      metavar=('start', 'final', 'niter'),
                      action=ParseToNamedTuple,
                      type=(Positive(float), Positive(float), Positive(int)),
-                     help='Modified-base loss weight ramp (cat_mod models, '
-                          'not ported yet)')
+                     help='Linear ramp of the modified-base loss weight '
+                          'from "start" to "final" over "niter" iterations '
+                          '(cat_mod models)')
     mod.add_argument('--mod_prior_factor', type=float,
-                     help='Mod-base prior exponent (not ported yet)')
+                     help='Weight mod categories by their log-odds priors '
+                          'raised to this power (default: unweighted)')
     mod.add_argument('--num_mod_weight_reads', type=int, default=5000,
-                     help='Reads for the mod-base prior (not ported yet)')
+                     help='Reads sampled for the mod-base priors')
 
     parser.add_argument('--version', nargs=0,
                         action=display_version_and_exit, metavar=__version__,
@@ -228,7 +233,8 @@ def _pad_batch(batch, target):
     reps = [min(i, n - 1) for i in range(target)]
     seqlens = batch.seqlens[reps].copy()
     seqlens[n:] = 0
-    return Batch(batch.signal[:, reps, :], batch.seqs[reps], seqlens, None)
+    return Batch(batch.signal[:, reps, :], batch.seqs[reps], seqlens,
+                 None if batch.mod_cats is None else batch.mod_cats[reps])
 
 
 def main(argv=None):
@@ -236,9 +242,7 @@ def main(argv=None):
     "device"} of the training loop."""
     args = get_parser().parse_args(argv)
     for flag, name in ((args.multihost, '--multihost'),
-                       (args.remat, '--remat'),
-                       (args.mod_prior_factor is not None,
-                        '--mod_prior_factor')):
+                       (args.remat, '--remat')):
         if flag:
             sys.exit('* Error: {} is not ported to taiyaki_tpu_torch yet; '
                      'use bin/train_flipflop.py'.format(name))
@@ -316,11 +320,41 @@ def main(argv=None):
                       'port resumes the parameters only)', RuntimeWarning)
         log.write('* Optimizer state in the checkpoint is not loaded; the '
                   'optimizer starts afresh.\n')
-    if not isinstance(net.sublayers[-1], layers.GlobalNormFlipFlop):
-        sys.exit('* Error: only canonical flip-flop models are ported')
-    if alphabet_info.nbase != net.sublayers[-1].nbase:
-        sys.exit('* Error: number of bases in alphabet does not match '
-                 'model')
+    head = net.sublayers[-1]
+    is_cat_mod = layers.is_cat_mod_model(net)
+    if is_cat_mod:
+        if not alphabet_info.is_compatible_model(net):
+            sys.exit('* Error: model alphabet does not match mapped signal '
+                     'file alphabet')
+        can_mods_offsets = head.can_mods_offsets
+        can_labels, mod_labels = head.can_labels, head.mod_labels
+        if args.mod_prior_factor is None:
+            mod_cat_weights = np.ones(head.ncan_base + head.nmod_base,
+                                      dtype=np.float32)
+        else:
+            mod_cat_weights = alphabet_info.compute_log_odds_weights(
+                read_data, args.num_mod_weight_reads)
+            log.write('* Computed modbase log odds priors:  {}\n'.format(
+                '  '.join('{}:{:.4f}'.format(*x) for x in
+                          zip(alphabet_info.alphabet, mod_cat_weights))))
+            if args.mod_prior_factor != 1.0:
+                mod_cat_weights = np.power(mod_cat_weights,
+                                           args.mod_prior_factor)
+                log.write('* Applied mod_prior_factor to modbase log odds '
+                          'priors:  {}\n'.format(
+                              '  '.join('{}:{:.4f}'.format(*x) for x in
+                                        zip(alphabet_info.alphabet,
+                                            mod_cat_weights))))
+    else:
+        if not isinstance(head, layers.GlobalNormFlipFlop):
+            sys.exit('* Error: only flip-flop and cat_mod flip-flop models '
+                     'are ported')
+        if alphabet_info.nbase != head.nbase:
+            sys.exit('* Error: number of bases in alphabet does not match '
+                     'model')
+        can_mods_offsets = can_labels = mod_labels = None
+        mod_cat_weights = None
+    cat_mod = (is_cat_mod, can_mods_offsets, mod_cat_weights)
     net = load_jax_params(net, params).to(device).train()
     stride = net.stride
     params = train.leaf_params(net)
@@ -355,9 +389,9 @@ def main(argv=None):
         log.write('* Gradients will be clipped (by value) at {:3.2f} MADs '
                   'above the median of the last 1000 gradient maximums.\n'
                   .format(args.gradient_clip_num_mads))
-    step_fn = train.make_train_step(net, optimizer)
+    step_fn = train.make_train_step(net, optimizer, *cat_mod)
     if args.sub_batches > 1:
-        grad_fn = train.make_grad_step(net)
+        grad_fn = train.make_grad_step(net, *cat_mod)
         apply_fn = train.make_apply_step(optimizer)
 
     # ---- filters & reporting data ---------------------------------------
@@ -406,14 +440,17 @@ def main(argv=None):
             reporting_data, val_chunk_len, args.min_sub_batch_size,
             val_max_seqlen, alphabet_info, filter_params,
             reverse=args.reverse, standardize=args.standardize,
+            can_labels=can_labels, mod_labels=mod_labels,
             select_strands_randomly=False, first_strand_index=first_strand,
             seqlen_granularity=seqlen_gran)
         first_strand += sum(vrej.values())
         if vb.signal.shape[1] > 0:
             reporting_batches.append(vb)
-    loss_fn = train.make_loss_fn(net)
+    loss_fn = train.make_loss_fn(net, *cat_mod)
     sharpen_sched = train.linear_ramp(args.sharpen.min, args.sharpen.max,
                                       args.sharpen.niter)
+    mod_factor_sched = train.linear_ramp(
+        args.mod_factor.start, args.mod_factor.final, args.mod_factor.niter)
 
     # ---- training loop --------------------------------------------------
     score_smoothed = helpers.WindowedExpSmoother()
@@ -436,7 +473,8 @@ def main(argv=None):
             batch, rejections = train.sample_batch(
                 read_data, batch_chunk_len, sub_batch_size, max_seqlen,
                 alphabet_info, filter_params, reverse=args.reverse,
-                standardize=args.standardize, log=log,
+                standardize=args.standardize, can_labels=can_labels,
+                mod_labels=mod_labels, log=log,
                 seqlen_granularity=seqlen_gran)
             for k, v in rejections.items():
                 rejections_total[k] += v
@@ -514,6 +552,7 @@ def main(argv=None):
             _write_trace(prof, args.outdir, log)
             prof = None
         sharpen = sharpen_sched(curr_iter)
+        mod_factor = mod_factor_sched(curr_iter)
         (batch_chunk_len, batches, rejections,
          (iter_samples, iter_bases)) = next_batches.result()
         if curr_iter + 1 < args.niteration:
@@ -525,12 +564,13 @@ def main(argv=None):
         used_threshs = capper.thresholds.copy()
         if args.sub_batches == 1:
             for batch in batches:
-                loss, grad_maxs = step_fn(batch, sharpen, used_threshs)
+                loss, grad_maxs = step_fn(batch, sharpen, used_threshs,
+                                          mod_factor)
                 losses.append(loss)
         else:
             acc = None
             for batch in batches:
-                loss, grads = grad_fn(batch, sharpen)
+                loss, grads = grad_fn(batch, sharpen, mod_factor)
                 acc = train.accumulate_grads(acc, grads)
                 losses.append(loss)
             grad_maxs = apply_fn(acc, float(args.sub_batches), used_threshs)
@@ -553,7 +593,7 @@ def main(argv=None):
                 for vb in reporting_batches:
                     vlosses.append(float(loss_fn(
                         train.batch_to_device(vb, device),
-                        args.sharpen.max)))
+                        args.sharpen.max, args.mod_factor.final)))
                     vbases += int(np.sum(vb.seqlens))
             rloss = float(np.mean(vlosses)) if vlosses else float('nan')
             dt = time.time() - t0

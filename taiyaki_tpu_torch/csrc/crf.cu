@@ -52,6 +52,33 @@
 // block reductions, exp/log), not bytes: at T=800, B=256, L=512 the lattice
 // is 0.42 GB, ~0.13 ms of device-memory time, while the chain is
 // milliseconds.  B blocks run side by side, so B >= 132 fills the card.
+//
+// Kernels 9-10 (tt_crf_fwd_streams, tt_crf_bwd_posteriors) replace the
+// unfused TPU kernels pallas_crf.py:108 `crf_forward` and pallas_crf.py:218
+// `crf_backward_posteriors`: the same recursions on pre-selected f32 score
+// streams stay [T, B, L] and move [T, B, L] (column l the move l -> l+1),
+// which the caller gathers from lp (ops/flipflop.py).  The forward writes
+// the lattice; the backward writes the posteriors post_stay and post_move
+// [T, B, L] of each step's 2L-1 transitions, which the caller scatters into
+// d lp.  Positions are masked by index (l == 0, valid[l], l < last), never
+// by the padding value of a stream.
+//
+// Bound: bytes.  Each step reads two (forward) or three (backward) [L]
+// rows and writes one or two, so the streams are 1.26 GB (forward) and
+// 2.10 GB (backward) at T=800, B=256, L=512: 0.38 and 0.63 ms of device
+// memory time, against a chain of a few microseconds a step.  The design
+// keeps the chain short: one block per batch row with the [L] vector in
+// shared memory (the shift by one position is a read of the neighbour's
+// entry), coalesced loads (l = tid + p * NT), the next step's rows loaded
+// into registers at the top of each step, before its stores and barriers,
+// so their latency hides behind the step's work; one barrier a step
+// forward (a block max), two backward (the max, then the posteriors' sum).
+// L reaches 16384 (1024 threads x 16 positions; shared memory 2L floats
+// plus a few dozen, 128 KB), twice the fused kernels' 8192, so every
+// lattice those refuse has a route.  Above 2048 positions the blocks grow
+// to 512 and 1024 threads, whose register budget (128, 64) makes the
+// compiler spill the per-position registers of the largest cases: that
+// costs time there, not correctness.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -85,6 +112,15 @@ __device__ __forceinline__ float warp_sum(float v)
     for (int off = 16; off > 0; off >>= 1)
         v += __shfl_xor_sync(FULL, v, off);
     return v;
+}
+
+// a move's score with its weighted cat_mod column, rounded after the
+// product and after the sum (no fused multiply-add), as the plain twins
+// and the streams route's gather compute it, so that the two routes see
+// the same scores
+__device__ __forceinline__ float mod_fold(float move, float fact, float mod)
+{
+    return __fadd_rn(move, __fmul_rn(fact, mod));
 }
 
 // score of column idx in the staged row (0 outside [0, S))
@@ -152,8 +188,9 @@ crf_fwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                 const float stay = f + pick(row, sidx[p], S);
                 float move = NEG;
                 if (mok[p]) {
-                    const float sc = pick(row, midx[p], S)
-                        + mfact[p] * pick(row, mmidx[p], S);
+                    const float sc = mod_fold(pick(row, midx[p], S),
+                                              mfact[p],
+                                              pick(row, mmidx[p], S));
                     move = (cur[l - 1] - prev) + sc;
                 }
                 nw = logaddexpf_(stay, move);
@@ -257,10 +294,15 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                 ts[p] = fc[p] + bn + stay;
                 float mpart = NEG;
                 if (mok[p]) {
-                    const float move = pick(row, midx[p], S)
-                        + mfact[p] * pick(row, mmidx[p], S);
-                    mpart = move + (cur[l + 1] - prev);
-                    tm[p] = fc[p] + mpart;
+                    const float move = mod_fold(pick(row, midx[p], S),
+                                                mfact[p],
+                                                pick(row, mmidx[p], S));
+                    const float bs = cur[l + 1] - prev;
+                    // (fc + bwd) + move, in the twin's order: cat_mod
+                    // moves reach tens of nats, so another order rounds
+                    // the posteriors of the weighted mod columns apart
+                    tm[p] = fc[p] + bs + move;
+                    mpart = move + bs;
                 }
                 nw = logaddexpf_(stay + bn, mpart);
             }
@@ -359,7 +401,271 @@ int launch_bwd(const float* lp, const int* sidx, const int* midx,
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---- kernels 9-10: the recursions on selected score streams --------------
+
+// Block max of v over NT threads through red[NT / 32] (one barrier).
+template <int NT>
+__device__ __forceinline__ float block_max(float v, float* red, int lane,
+                                           int warp)
+{
+    v = warp_max(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    float m = red[0];
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, red[w]);
+    return m;
+}
+
+template <int NT, int P>
+__global__ void __launch_bounds__(NT)
+crf_fwd_streams_kernel(const float* __restrict__ stay,
+                       const float* __restrict__ move,
+                       const int* __restrict__ valid,
+                       float* __restrict__ fwd_final,
+                       float* __restrict__ score_out,
+                       float* __restrict__ lattice, int T, int B, int L)
+{
+    constexpr int NW = NT / 32;
+    extern __shared__ __align__(16) float smem[];
+    float* state = smem;                       // [2][L], unrenormalised
+    float* red = smem + 2 * L;                 // [2][NW]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t row = (size_t)blockIdx.x * L;
+    const size_t tstride = (size_t)B * L;
+
+    // per position: validity, this step's stay score and the score of the
+    // move into it (column l - 1)
+    bool ok[P];
+    float st[P], mv[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        const int l = tid + p * NT;
+        ok[p] = l < L && valid[row + l] != 0;
+        if (l < L) state[l] = (l == 0 && ok[p]) ? 0.f : NEG;
+        st[p] = (ok[p] && T > 0) ? stay[row + l] : 0.f;
+        mv[p] = (ok[p] && l > 0 && T > 0) ? move[row + l - 1] : 0.f;
+    }
+    __syncthreads();
+
+    float prev = 0.f, score = 0.f;
+    for (int t = 0; t < T; ++t) {
+        const float* cur = state + (t & 1) * L;
+        float* nxt = state + ((t + 1) & 1) * L;
+        const size_t off = (size_t)(t + 1) * tstride + row;
+        float nst[P], nmv[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {           // step t + 1's loads first
+            const int l = tid + p * NT;
+            const bool more = ok[p] && t + 1 < T;
+            nst[p] = more ? stay[off + l] : 0.f;
+            nmv[p] = (more && l > 0) ? move[off + l - 1] : 0.f;
+        }
+        float m = NEG;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const int l = tid + p * NT;
+            if (l < L) {
+                const float f = ok[p] ? cur[l] - prev : NEG;
+                if (lattice != nullptr)
+                    lattice[(size_t)t * tstride + row + l] = f;
+                float nw = NEG;
+                if (ok[p]) {
+                    const float mpart =
+                        l > 0 ? (cur[l - 1] - prev) + mv[p] : NEG;
+                    nw = logaddexpf_(f + st[p], mpart);
+                }
+                nxt[l] = nw;
+                m = fmaxf(m, nw);
+            }
+            st[p] = nst[p];
+            mv[p] = nmv[p];
+        }
+        prev = block_max<NT>(m, red + (t & 1) * NW, lane, warp);
+        score += prev;
+    }
+    const float* fin = state + (T & 1) * L;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        const int l = tid + p * NT;
+        if (l < L) fwd_final[row + l] = ok[p] ? fin[l] - prev : NEG;
+    }
+    if (tid == 0) score_out[blockIdx.x] = score;
+}
+
+template <int NT, int P>
+__global__ void __launch_bounds__(NT)
+crf_bwd_posteriors_kernel(const float* __restrict__ stay,
+                          const float* __restrict__ move,
+                          const float* __restrict__ lattice,
+                          const int* __restrict__ valid,
+                          const int* __restrict__ lastpos,
+                          float* __restrict__ post_stay,
+                          float* __restrict__ post_move, int T, int B, int L)
+{
+    constexpr int NW = NT / 32;
+    extern __shared__ __align__(16) float smem[];
+    float* state = smem;                       // [2][L], unrenormalised
+    float* red = smem + 2 * L;                 // [2][2][NW] term and state max
+    float* sums = red + 4 * NW;                // [2][NW]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t row = (size_t)blockIdx.x * L;
+    const size_t tstride = (size_t)B * L;
+    const int last = lastpos[blockIdx.x];
+
+    // per position: validity, whether the move out of it (to l + 1) is
+    // allowed, and this step's stay and move scores and forward lattice
+    bool ok[P], mok[P];
+    float st[P], mv[P], fc[P];
+    const size_t off0 = (size_t)(T > 0 ? T - 1 : 0) * tstride + row;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+        const int l = tid + p * NT;
+        ok[p] = l < L && valid[row + l] != 0;
+        mok[p] = ok[p] && l < last;
+        if (l < L) state[l] = (l == last && ok[p]) ? 0.f : NEG;
+        st[p] = (ok[p] && T > 0) ? stay[off0 + l] : 0.f;
+        mv[p] = (mok[p] && T > 0) ? move[off0 + l] : 0.f;
+        fc[p] = (ok[p] && T > 0) ? lattice[off0 + l] : NEG;
+    }
+    __syncthreads();
+
+    float prev = 0.f;
+    for (int s = 0; s < T; ++s) {
+        const int t = T - 1 - s;
+        const int buf = s & 1;
+        const float* cur = state + buf * L;
+        float* nxt = state + (buf ^ 1) * L;
+        const size_t off = (size_t)(t > 0 ? t - 1 : 0) * tstride + row;
+        float nst[P], nmv[P], nfc[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {           // step t - 1's loads first
+            const int l = tid + p * NT;
+            const bool more = ok[p] && t > 0;
+            nst[p] = more ? stay[off + l] : 0.f;
+            nmv[p] = (more && mok[p]) ? move[off + l] : 0.f;
+            nfc[p] = more ? lattice[off + l] : NEG;
+        }
+        float ts[P], tm[P];
+        float mt = NEG, mn = NEG;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const int l = tid + p * NT;
+            ts[p] = NEG;
+            tm[p] = NEG;
+            if (l < L) {
+                float nw = NEG;
+                if (ok[p]) {
+                    const float bn = cur[l] - prev;
+                    ts[p] = fc[p] + bn + st[p];
+                    float mpart = NEG;
+                    if (mok[p]) {
+                        const float bs = cur[l + 1] - prev;
+                        tm[p] = fc[p] + bs + mv[p];
+                        mpart = mv[p] + bs;
+                    }
+                    nw = logaddexpf_(st[p] + bn, mpart);
+                }
+                nxt[l] = nw;
+                mt = fmaxf(mt, fmaxf(ts[p], tm[p]));
+                mn = fmaxf(mn, nw);
+            }
+        }
+        mt = warp_max(mt);
+        mn = warp_max(mn);
+        float* r = red + buf * 2 * NW;
+        if (lane == 0) {
+            r[warp] = mt;
+            r[NW + warp] = mn;
+        }
+        __syncthreads();
+        float tmax = r[0], factor = r[NW];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) {
+            tmax = fmaxf(tmax, r[w]);
+            factor = fmaxf(factor, r[NW + w]);
+        }
+        float part = 0.f;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            ts[p] = ts[p] > 0.5f * NEG ? expf(ts[p] - tmax) : 0.f;
+            tm[p] = tm[p] > 0.5f * NEG ? expf(tm[p] - tmax) : 0.f;
+            part += ts[p] + tm[p];
+        }
+        part = warp_sum(part);
+        if (lane == 0) sums[buf * NW + warp] = part;
+        __syncthreads();
+        float den = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) den += sums[buf * NW + w];
+        // a row with no path gets all-zero posteriors (pallas_crf.py:197)
+        den = den > 0.f ? den : 1.f;
+        const size_t out = (size_t)t * tstride + row;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const int l = tid + p * NT;
+            if (l < L) {
+                post_stay[out + l] = ts[p] / den;
+                post_move[out + l] = tm[p] / den;
+            }
+            st[p] = nst[p];
+            mv[p] = nmv[p];
+            fc[p] = nfc[p];
+        }
+        prev = factor;
+    }
+}
+
+template <int NT, int P>
+int launch_fwd_streams(const float* stay, const float* move,
+                       const int* valid, float* fwd_final, float* score,
+                       float* lattice, int T, int B, int L, cudaStream_t st)
+{
+    const size_t smem = sizeof(float) * (2 * L + 2 * (NT / 32));
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            crf_fwd_streams_kernel<NT, P>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    crf_fwd_streams_kernel<NT, P><<<B, NT, smem, st>>>(
+        stay, move, valid, fwd_final, score, lattice, T, B, L);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT, int P>
+int launch_bwd_posteriors(const float* stay, const float* move,
+                          const float* lattice, const int* valid,
+                          const int* last, float* post_stay,
+                          float* post_move, int T, int B, int L,
+                          cudaStream_t st)
+{
+    const size_t smem = sizeof(float) * (2 * L + 6 * (NT / 32));
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            crf_bwd_posteriors_kernel<NT, P>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    crf_bwd_posteriors_kernel<NT, P><<<B, NT, smem, st>>>(
+        stay, move, lattice, valid, last, post_stay, post_move, T, B, L);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// (threads, positions per thread) by lattice width: up to 16384 positions
+#define TT_STREAM_CASES(CALL)                                   \
+    if (L <= 256) return CALL(256, 1);                          \
+    if (L <= 512) return CALL(256, 2);                          \
+    if (L <= 1024) return CALL(256, 4);                         \
+    if (L <= 2048) return CALL(256, 8);                         \
+    if (L <= 4096) return CALL(512, 8);                         \
+    if (L <= 8192) return CALL(1024, 8);                        \
+    if (L <= 16384) return CALL(1024, 16);                      \
+    return static_cast<int>(cudaErrorInvalidValue);
 
 #define TT_P_CASES(CALL)                                        \
     if (L <= THREADS) return CALL(1);                           \
@@ -408,6 +714,36 @@ int tt_crf_bwd(const float* lp, const int* sidx, const int* midx,
                                 valid, last, grad, T, B, S, L, st)
     TT_P_CASES(TT_BWD)
 #undef TT_BWD
+}
+
+// stay, move [T, B, L]; valid [B, L] int32 -> fwd_final [B, L], score [B]
+// (the summed renormalisers), lattice [T, B, L] (may be null).
+int tt_crf_fwd_streams(const float* stay, const float* move,
+                       const int* valid, float* fwd_final, float* score,
+                       float* lattice, int T, int B, int L, void* stream)
+{
+    if (B == 0 || L == 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TT_FWDS(NT, P) launch_fwd_streams<NT, P>(                     \
+        stay, move, valid, fwd_final, score, lattice, T, B, L, st)
+    TT_STREAM_CASES(TT_FWDS)
+#undef TT_FWDS
+}
+
+// ... + lattice [T, B, L] of tt_crf_fwd_streams, last [B] int32 ->
+// post_stay, post_move [T, B, L].
+int tt_crf_bwd_posteriors(const float* stay, const float* move,
+                          const float* lattice, const int* valid,
+                          const int* last, float* post_stay,
+                          float* post_move, int T, int B, int L,
+                          void* stream)
+{
+    if (B == 0 || T == 0 || L == 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TT_BWDP(NT, P) launch_bwd_posteriors<NT, P>(                  \
+        stay, move, lattice, valid, last, post_stay, post_move, T, B, L, st)
+    TT_STREAM_CASES(TT_BWDP)
+#undef TT_BWDP
 }
 
 }  // extern "C"

@@ -861,6 +861,9 @@ class _WGroup(_WNode):
         super().__init__()
         self.children = {}
 
+    def __contains__(self, name):
+        return name in self.children
+
     def create_group(self, name):
         head, _, rest = name.strip("/").partition("/")
         grp = self.children.setdefault(head, _WGroup())
@@ -924,7 +927,8 @@ class Writer(_WGroup):
                                      + nm + struct.pack("<Q", addr)))
         else:
             data = node.data
-            addr = self._align(out)
+            # an empty dataset has no storage: its address is undefined
+            addr = self._align(out) if data.nbytes else _UNDEF
             out.extend(data.tobytes())
             msgs.append(_message(0x01, _encode_space(data.shape)))
             msgs.append(_message(0x03, _encode_dtype(data.dtype)))

@@ -9,7 +9,7 @@ seed gives the same weights in both packages.
 
 Tensor convention: time x batch x features (TBF) throughout.
 
-Only the layers of the mLstm_flipflop and mGru_flipflop models are
+Only the layers of the mLstm and mGru models (flip-flop and cat_mod) are
 ported; every other layer of the JAX package raises NotImplementedError
 naming itself.  Parameters are trainable: the convolutions and the head
 take their gradients from autograd, the LSTM and GRU layers from the
@@ -93,8 +93,9 @@ def _not_ported(name):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "layer {} is not ported to taiyaki_tpu_torch yet (the port "
-            "runs the mLstm_flipflop and mGru_flipflop models: Serial, "
-            "Reverse, Convolution, Lstm, GruMod, GlobalNormFlipFlop)"
+            "runs the mLstm and mGru flip-flop and cat_mod models: Serial, "
+            "Reverse, Convolution, Lstm, GruMod, GlobalNormFlipFlop, "
+            "GlobalNormFlipFlopCatMod)"
             .format(name))
     return type(name, (Layer,), {"__init__": __init__,
                                  "__doc__": "Not ported yet."})
@@ -115,7 +116,6 @@ Residual = _not_ported("Residual")
 GatedResidual = _not_ported("GatedResidual")
 SoftChoice = _not_ported("SoftChoice")
 CudnnGru = _not_ported("CudnnGru")
-GlobalNormFlipFlopCatMod = _not_ported("GlobalNormFlipFlopCatMod")
 
 
 def birnn(forward, backward):
@@ -321,3 +321,105 @@ class GlobalNormFlipFlop(Layer):
         if self.has_bias:
             y = y + self.b
         return self.scale * self.activation(y)
+
+
+class GlobalNormFlipFlopCatMod(Layer):
+    """Flip-flop head with a categorical modified-base score stream.
+
+    Output: the 2*nbase*(nbase+1) transition scores (5 tanh) followed by
+    one log-softmax per canonical base over its group of the raw mod
+    columns (the shared canonical column 0 and that base's mods), width
+    ncan_base + nmod_base.  The attributes are the JAX head's (can_nmods,
+    output_alphabet, ordered_mod_long_names, can_mods_offsets,
+    can_labels, mod_labels), as the trainer and the basecaller read
+    them."""
+
+    def __init__(self, insize, alphabet_info, has_bias=True):
+        super().__init__()
+        self.insize = insize
+        self.has_bias = has_bias
+        self.alphabet = alphabet_info.alphabet
+        self.collapse_alphabet = alphabet_info.collapse_alphabet
+        self.mod_long_names = alphabet_info.mod_long_names
+        self.mod_name_conv = alphabet_info.mod_name_conv
+        self.can_bases = alphabet_info.can_bases
+        self.mod_bases = alphabet_info.mod_bases
+        self.ncan_base = alphabet_info.ncan_base
+        self.nmod_base = alphabet_info.nmod_base
+        self.ntrans_states = 2 * self.ncan_base * (self.ncan_base + 1)
+        self._compute_label_conversions()
+        self._compute_mods_info()
+        # raw linear output: transitions, one canonical column, the mods
+        self.size = self.ntrans_states + 1 + self.nmod_base
+        self.W = _param(self.size, insize)
+        if has_bias:
+            self.b = _param(self.size)
+        for i, idx in enumerate(self.can_indices):
+            self.register_buffer("_group{}".format(i),
+                                 torch.from_numpy(idx.astype(np.int64)),
+                                 persistent=False)
+
+    @property
+    def nbase(self):
+        return self.ncan_base
+
+    def _compute_label_conversions(self):
+        """Each alphabet label's canonical label and mod category."""
+        can_labels, mod_labels = [], []
+        per_can_count = {b: 0 for b in self.can_bases}
+        for b, can_b in zip(self.alphabet, self.collapse_alphabet):
+            can_labels.append(self.can_bases.find(can_b))
+            if b in self.can_bases:
+                mod_labels.append(0)
+            else:
+                per_can_count[can_b] += 1
+                mod_labels.append(per_can_count[can_b])
+        self.can_labels = np.array(can_labels)
+        self.mod_labels = np.array(mod_labels)
+
+    def _compute_mods_info(self):
+        """Output ordering: the alphabet of the output, the mods' long
+        names in it, each base's mod count and group offsets, and the raw
+        columns of each group."""
+        self.output_alphabet = ""
+        for can_b in self.can_bases:
+            self.output_alphabet += can_b
+            for b, can_bi in zip(self.alphabet, self.collapse_alphabet):
+                if can_bi == can_b and b != can_b:
+                    self.output_alphabet += b
+        self.ordered_mod_long_names = (
+            None if self.mod_long_names is None else
+            [self.mod_name_conv[b] for b in self.alphabet
+             if b in self.mod_bases])
+        self.can_nmods = np.array(
+            [sum(b == can_b for b in self.collapse_alphabet) - 1
+             for can_b in self.can_bases])
+        self.can_mods_offsets = np.cumsum(
+            np.concatenate([[0], self.can_nmods + 1])).astype(np.int32)
+        self.can_indices = []
+        curr = 0
+        for nmod in self.can_nmods:
+            self.can_indices.append(
+                np.concatenate([[0], np.arange(curr + 1, curr + 1 + nmod)]))
+            curr += nmod
+        self.out_size = self.ntrans_states + self.ncan_base + self.nmod_base
+
+    def init(self, rng):
+        return _linear_init(rng, self.size, self.insize, self.has_bias)
+
+    def forward(self, x):
+        y = torch.matmul(x, self.W.t())
+        if self.has_bias:
+            y = y + self.b
+        trans = 5.0 * torch.tanh(y[..., :self.ntrans_states])
+        raw = y[..., self.ntrans_states:]
+        groups = [F.log_softmax(raw[..., getattr(self, "_group{}".format(i))],
+                                dim=-1)
+                  for i in range(len(self.can_indices))]
+        return torch.cat([trans] + groups, dim=-1)
+
+
+def is_cat_mod_model(net):
+    """True if the network's last layer is a cat_mod head."""
+    assert isinstance(net, Serial)
+    return isinstance(net.sublayers[-1], GlobalNormFlipFlopCatMod)

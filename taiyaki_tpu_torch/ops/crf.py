@@ -1,6 +1,12 @@
 """Flip-flop CRF lattice forward and backward: the CUDA kernels
 (csrc/crf.cu) and their plain twins.
 
+Two pairs.  The fused pair (kernels 5-6) selects scores from lp itself;
+the streams pair (kernels 9-10, `crf_fwd_streams` and
+`crf_bwd_posteriors`) runs the same recursions on stay and move score
+streams [T, B, L] that the caller selected, and leaves the scatter of
+posteriors into d lp to the caller (`ops.flipflop` chooses the pair).
+
 `crf_fwd` computes what the TPU kernel taiyaki_tpu/ops/pallas_crf.py:423
 `crf_forward_fused` computes and `crf_bwd` what pallas_crf.py:565
 `crf_backward_fused` computes, with the same arguments: transition scores
@@ -25,9 +31,12 @@ from taiyaki_tpu_torch.ops import cuda_lib
 NEG = -1e30
 MAX_L = 8192     # 256 threads x up to 32 positions each (csrc/crf.cu)
 MAX_S = 128
+MAX_L_STREAMS = 16384   # kernels 9-10: 1024 threads x 16 positions
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],
-               "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P]}
+               "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P],
+               "tt_crf_fwd_streams": [_P] * 6 + [_I] * 3 + [_P],
+               "tt_crf_bwd_posteriors": [_P] * 7 + [_I] * 3 + [_P]}
 
 
 def _select(lp_t, idx):
@@ -210,3 +219,143 @@ def crf_bwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, lattice,
 
 crf_fwd.launches = 0
 crf_bwd.launches = 0
+
+
+# -- kernels 9-10: the recursions on selected score streams -------------------
+
+def crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice=True):
+    """Plain forward pass on score streams, as pallas_crf.crf_forward
+    computes it: stay_all, move_all [T, B, L] (move column l is the move
+    l -> l+1), valid [B, L].
+
+    Returns:
+        (fwd_final [B, L], score [B]: the summed per-step renormalisers,
+         without fwd_final at the row's last position; lattice [T, B, L],
+         the renormalised forward vector before every step, or None).
+    """
+    T, B, L = stay_all.shape
+    dev = stay_all.device
+    ok = valid != 0
+    pos = torch.arange(L, device=dev)[None, :]
+    fwd = torch.where((pos == 0) & ok, torch.zeros(B, L, device=dev),
+                      torch.full((B, L), NEG, device=dev))
+    score = stay_all.new_zeros(B)
+    lattice = stay_all.new_empty(T, B, L) if emit_lattice else None
+    neg_col = torch.full((B, 1), NEG, device=dev)
+    for t in range(T):
+        if lattice is not None:
+            lattice[t] = fwd
+        move = torch.cat([neg_col, fwd[:, :-1] + move_all[t, :, :-1]], dim=1)
+        new = torch.logaddexp(fwd + stay_all[t], move)
+        new = torch.where(ok, new, _neg_like(new))
+        factor = new.amax(dim=1, keepdim=True)
+        fwd = torch.where(ok, new - factor, _neg_like(new))
+        score = score + factor[:, 0]
+    return fwd, score, lattice
+
+
+def crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid, last):
+    """Plain backward pass on score streams, as
+    pallas_crf.crf_backward_posteriors computes it.
+
+    Returns:
+        (post_stay [T, B, L], post_move [T, B, L]): each step's posterior
+        over its 2L-1 transitions; post_move column l is the move
+        l -> l+1.  A row with no path gets zeros.
+    """
+    T, B, L = stay_all.shape
+    dev = stay_all.device
+    ok = valid != 0
+    pos = torch.arange(L, device=dev)[None, :]
+    last = last.long()[:, None]
+    move_ok = ok & (pos < last)
+    bwd = torch.where((pos == last) & ok, torch.zeros(B, L, device=dev),
+                      torch.full((B, L), NEG, device=dev))
+    neg_col = torch.full((B, 1), NEG, device=dev)
+    post_stay = stay_all.new_empty(T, B, L)
+    post_move = stay_all.new_empty(T, B, L)
+    for t in range(T - 1, -1, -1):
+        fc, stay, move = lattice[t], stay_all[t], move_all[t]
+        bwd_shift = torch.cat([bwd[:, 1:], neg_col], dim=1)
+        stay_terms = torch.where(ok, fc + bwd + stay, _neg_like(fc))
+        move_terms = torch.where(move_ok, fc + bwd_shift + move,
+                                 _neg_like(fc))
+        tmax = torch.maximum(stay_terms.amax(dim=1, keepdim=True),
+                             move_terms.amax(dim=1, keepdim=True))
+        ex_s = torch.where(stay_terms > NEG / 2, torch.exp(stay_terms - tmax),
+                           torch.zeros_like(fc))
+        ex_m = torch.where(move_terms > NEG / 2, torch.exp(move_terms - tmax),
+                           torch.zeros_like(fc))
+        den = ex_s.sum(dim=1, keepdim=True) + ex_m.sum(dim=1, keepdim=True)
+        den = torch.where(den > 0, den, torch.ones_like(den))
+        post_stay[t] = ex_s / den
+        post_move[t] = ex_m / den
+        mpart = torch.where(move_ok, move + bwd_shift, _neg_like(move))
+        new = torch.where(ok, torch.logaddexp(stay + bwd, mpart),
+                          _neg_like(stay))
+        factor = new.amax(dim=1, keepdim=True)
+        bwd = torch.where(ok, new - factor, _neg_like(new))
+    return post_stay, post_move
+
+
+def _check_streams(what, stay_all, move_all, valid):
+    cuda_lib.check_cuda(stay_all, what)
+    T, B, L = stay_all.shape
+    _check(what, stay_all.device, (
+        ("stay_all", stay_all, (T, B, L), torch.float32),
+        ("move_all", move_all, (T, B, L), torch.float32),
+        ("valid", valid, (B, L), torch.int32)))
+    if L > MAX_L_STREAMS:
+        raise ValueError("{}: L {} beyond the kernel's {}".format(
+            what, L, MAX_L_STREAMS))
+    return T, B, L
+
+
+def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
+    """CRF forward pass on score streams (kernel 9); contract of
+    `crf_fwd_streams_plain`."""
+    if stay_all.device.type == "cpu":
+        return crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice)
+    T, B, L = _check_streams("crf_fwd_streams", stay_all, move_all, valid)
+    lib = cuda_lib.load("crf", _SIGNATURES)
+    dev = stay_all.device
+    with torch.cuda.device(dev):
+        fwd = torch.empty(B, L, device=dev)
+        score = torch.empty(B, device=dev)
+        lattice = torch.empty(T, B, L, device=dev) if emit_lattice else None
+        err = lib.tt_crf_fwd_streams(
+            cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
+            cuda_lib.ptr(valid), cuda_lib.ptr(fwd), cuda_lib.ptr(score),
+            cuda_lib.ptr(lattice), T, B, L, cuda_lib.stream(dev))
+        crf_fwd_streams.launches += 1
+    cuda_lib.check(lib, err, "crf_fwd_streams kernel")
+    return fwd, score, lattice
+
+
+def crf_bwd_posteriors(stay_all, move_all, lattice, valid, last):
+    """CRF backward pass on score streams (kernel 10); contract of
+    `crf_bwd_posteriors_plain`."""
+    if stay_all.device.type == "cpu":
+        return crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid,
+                                        last)
+    T, B, L = _check_streams("crf_bwd_posteriors", stay_all, move_all, valid)
+    _check("crf_bwd_posteriors", stay_all.device, (
+        ("lattice", lattice, (T, B, L), torch.float32),
+        ("last", last, (B,), torch.int32)))
+    lib = cuda_lib.load("crf", _SIGNATURES)
+    dev = stay_all.device
+    with torch.cuda.device(dev):
+        post_stay = torch.empty(T, B, L, device=dev)
+        post_move = torch.empty(T, B, L, device=dev)
+        err = lib.tt_crf_bwd_posteriors(
+            cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
+            cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
+            cuda_lib.ptr(post_stay), cuda_lib.ptr(post_move), T, B, L,
+            cuda_lib.stream(dev))
+        crf_bwd_posteriors.launches += 1
+    cuda_lib.check(lib, err, "crf_bwd_posteriors kernel")
+    return post_stay, post_move
+
+
+crf_fwd_streams.launches = 0
+crf_bwd_posteriors.launches = 0

@@ -1,17 +1,24 @@
 """Flip-flop CRF loss and partition function (port of
 taiyaki_tpu/ops/flipflop.py).
 
-`crf_flipflop_loss` runs the CRF lattice kernels of `ops.crf` (the forward
-in the forward pass, the backward in the backward pass) and
-`flipflop_logz` the logZ kernels of `ops.logz` (forward and posteriors),
-each as a `torch.autograd.Function`.  Values follow the JAX package's CPU
-scan: the loss is -score/nblk, zero for an empty row; logZ counts the
-initial logsumexp of the start vector, log(nbase), which the forward
-kernel leaves out and this module adds back.
+`crf_flipflop_loss` and `cat_mod_flipflop_loss` run the CRF lattice
+kernels of `ops.crf` (the forward in the forward pass, the backward in
+the backward pass) and `flipflop_logz` the logZ kernels of `ops.logz`
+(forward and posteriors), each as a `torch.autograd.Function`.  The CRF
+takes one of two routes (`use_score_streams`): by default the fused
+kernels 5-6, which select scores from lp themselves; or the JAX package's
+unfused route, which gathers stay and move score streams [T, B, L] here,
+runs kernels 9-10 on them and scatters the posteriors back into d lp.
+Values follow the JAX package's CPU scan: the loss is -score/nblk, zero
+for an empty row; logZ counts the initial logsumexp of the start vector,
+log(nbase), which the forward kernel leaves out and this module adds
+back.
 """
 
 import math
+import os
 
+import numpy as np
 import torch
 
 from taiyaki_tpu_torch import flipflopfings
@@ -65,31 +72,108 @@ def _lattice_inputs(stay_idx, move_idx, seqlens, nstate, modmove_idx=None,
             last.contiguous())
 
 
+def use_score_streams(nstate, npos):
+    """Whether the CRF loss takes the score-stream route (kernels 9-10)
+    rather than the fused kernels 5-6: under either of the JAX trainer's
+    switches TAIYAKI_TPU_NO_SCORE_FUSE=1 and TAIYAKI_TPU_F32_SCORES=1
+    (taiyaki_tpu/ops/flipflop.py `_use_score_fusion`), or for a lattice
+    the fused kernels do not take (nstate > crf.MAX_S or npos >
+    crf.MAX_L), the counterpart of the JAX package's `_fused_setup`
+    finding no tile.  Chosen from switches and shapes alone, before any
+    launch."""
+    if os.environ.get("TAIYAKI_TPU_NO_SCORE_FUSE") == "1" \
+            or os.environ.get("TAIYAKI_TPU_F32_SCORES") == "1":
+        return True
+    return nstate > crf.MAX_S or npos > crf.MAX_L
+
+
+def _expand(idx, T, S):
+    """An [B, L] index vector as a [T, B, L] view for gather and
+    scatter_add_ (no copy over T), clamped into [0, S): the columns it
+    clamps are masked by position in kernels 9-10 (move column L-1 is
+    never a transition) or weigh 0 (a mod column's padding)."""
+    return idx.clamp(0, S - 1).long()[None].expand(T, *idx.shape)
+
+
+def _select_streams(lp, sidx, midx, mmidx, mfact):
+    """Stay and move score streams [T, B, L] gathered from lp [T, B, S];
+    the move stream adds mfact x the cat_mod column (mmidx None for a
+    canonical model).  The JAX package's `_select_all_scores`."""
+    T, _, S = lp.shape
+    stay_all = lp.gather(2, _expand(sidx, T, S))
+    move_all = lp.gather(2, _expand(midx, T, S))
+    if mmidx is not None:
+        # the product and the sum each rounded, as kernels 5-6 fold it
+        move_all.add_(lp.gather(2, _expand(mmidx, T, S)).mul_(mfact[None]))
+    return stay_all, move_all
+
+
+def _scatter_posteriors(shape, post_stay, post_move, sidx, midx, mmidx,
+                        mfact):
+    """d(score)/d lp [T, B, S]: the posteriors scattered back into their
+    columns (the stay column, the move column and mfact x the mod column).
+    scatter_add_ sums with atomics on the card, in an order that changes
+    from run to run.  post_move is scaled in place."""
+    T, _, S = shape
+    grad = post_stay.new_zeros(shape)
+    grad.scatter_add_(2, _expand(sidx, T, S), post_stay)
+    grad.scatter_add_(2, _expand(midx, T, S), post_move)
+    if mmidx is not None:
+        grad.scatter_add_(2, _expand(mmidx, T, S),
+                          post_move.mul_(mfact[None]))
+    return grad
+
+
 class _CrfLossCore(torch.autograd.Function):
     """cost [B] of (sharpened) scores lp [T, B, S]; the gradient is
-    -posterior/nblk, zeroed for rows with seqlens == 0."""
+    -posterior/nblk, zeroed for rows with seqlens == 0.  modmove_idx and
+    modmove_fact are None for a canonical model.  The route (fused
+    kernels 5-6 or the streams and kernels 9-10) is chosen once per call
+    by `use_score_streams`."""
 
     @staticmethod
-    def forward(ctx, lp, stay_idx, move_idx, seqlens):
-        nblk = lp.shape[0]
+    def forward(ctx, lp, stay_idx, move_idx, modmove_idx, modmove_fact,
+                seqlens):
+        T, _, S = lp.shape
         lp = lp.contiguous()
-        idx = _lattice_inputs(stay_idx, move_idx, seqlens, lp.shape[2])
+        idx = _lattice_inputs(stay_idx, move_idx, seqlens, S, modmove_idx,
+                              modmove_fact)
         sidx, midx, mmidx, mfact, valid, last = idx
-        fwd, score, lattice = crf.crf_fwd(lp, sidx, midx, mmidx, mfact,
-                                          valid,
-                                          emit_lattice=ctx.needs_input_grad[0])
+        grad = ctx.needs_input_grad[0]
+        ctx.streams = use_score_streams(S, sidx.shape[1])
+        if ctx.streams:
+            mod = (None, None) if modmove_idx is None else (mmidx, mfact)
+            stay_all, move_all = _select_streams(lp, sidx, midx, *mod)
+            fwd, score, lattice = crf.crf_fwd_streams(
+                stay_all, move_all, valid, emit_lattice=grad)
+            saved = (stay_all, move_all) if grad else (None, None)
+        else:
+            fwd, score, lattice = crf.crf_fwd(lp, sidx, midx, mmidx, mfact,
+                                              valid, emit_lattice=grad)
+            saved = (lp, None)
         score = score + fwd.gather(1, last.long()[:, None])[:, 0]
-        ctx.save_for_backward(lp, lattice, seqlens, *idx)
-        return _masked_cost(score, seqlens, nblk)
+        ctx.has_mod = modmove_idx is not None
+        ctx.lp_shape = lp.shape
+        ctx.save_for_backward(*saved, lattice, seqlens, *idx)
+        return _masked_cost(score, seqlens, T)
 
     @staticmethod
     def backward(ctx, g):
-        lp, lattice, seqlens, sidx, midx, mmidx, mfact, valid, last = \
-            ctx.saved_tensors
-        post = crf.crf_bwd(lp, sidx, midx, mmidx, mfact, lattice, valid,
-                           last)
+        # (stay_all, move_all) on the streams route, (lp, None) fused
+        first, second, lattice, seqlens, sidx, midx, mmidx, mfact, valid, \
+            last = ctx.saved_tensors
+        if ctx.streams:
+            post_stay, post_move = crf.crf_bwd_posteriors(
+                first, second, lattice, valid, last)
+            mod = (mmidx, mfact) if ctx.has_mod else (None, None)
+            post = _scatter_posteriors(ctx.lp_shape, post_stay, post_move,
+                                       sidx, midx, *mod)
+        else:
+            post = crf.crf_bwd(first, sidx, midx, mmidx, mfact, lattice,
+                               valid, last)
         gm = torch.where(seqlens > 0, g, torch.zeros_like(g))
-        return (-post / lp.shape[0]) * gm[None, :, None], None, None, None
+        return ((-post / ctx.lp_shape[0]) * gm[None, :, None], None, None,
+                None, None, None)
 
 
 def crf_flipflop_loss(logprob, seqs, seqlens, sharpfact=1.0):
@@ -109,7 +193,56 @@ def crf_flipflop_loss(logprob, seqs, seqlens, sharpfact=1.0):
     nbase = flipflopfings.nbase_flipflop(logprob.shape[2])
     stay_idx, move_idx = make_seq_indices(seqs, nbase)
     lp = (sharpfact * logprob).float()
-    return _CrfLossCore.apply(lp, stay_idx, move_idx, seqlens) / sharpfact
+    return _CrfLossCore.apply(lp, stay_idx, move_idx, None, None,
+                              seqlens) / sharpfact
+
+
+def cat_mod_flipflop_loss(logprob, seqs, seqlens, mod_cats, can_mods_offsets,
+                          mod_cat_weights, sharpfact=1.0):
+    """Flip-flop CRF loss with categorical modified-base scores (port of
+    taiyaki_tpu/ops/flipflop.py `cat_mod_flipflop_loss`).  Each move into
+    position p also scores weight x logprob[mod column of p], the column
+    of (canonical base of p, mod category of p) past the 2*nbase*(nbase+1)
+    transition columns.
+
+    Sharpening applies to the canonical transition columns only, and the
+    gradient is the core DP gradient at the sharpened scores with neither
+    the sharpening chain factor nor the 1/sharpfact (straight-through, the
+    reference's convention): mod columns get no 1/sharpfact.
+
+    Args:
+        logprob: [nblk, batch, nstate] with nstate = 2*nbase*(nbase+1) +
+            can_mods_offsets[-1].
+        seqs: [batch, npos] padded flip-flop codes.
+        seqlens: [batch] sequence lengths.
+        mod_cats: [batch, npos] mod category per position (0 = canonical).
+        can_mods_offsets: [nbase + 1] ints (numpy), the offset of each
+            canonical base's group in the mod columns.
+        mod_cat_weights: [can_mods_offsets[-1]] per-category loss weights.
+        sharpfact: canonical-column sharpening factor.
+
+    Returns:
+        [batch] f32 costs.
+    """
+    ntrans = logprob.shape[2]
+    offsets = np.asarray(can_mods_offsets)
+    n_can_trans = ntrans - int(offsets[-1])
+    nbase = flipflopfings.nbase_flipflop(n_can_trans)
+    dev = logprob.device
+    stay_idx, move_idx = make_seq_indices(seqs, nbase)
+    # mod column of each entered position p >= 1
+    mod_seq = (torch.as_tensor(offsets, dtype=torch.long, device=dev)[
+        torch.remainder(seqs[:, 1:], nbase).long()] + mod_cats[:, 1:].long())
+    modmove_idx = (n_can_trans + mod_seq).int()
+    modmove_fact = torch.as_tensor(np.asarray(mod_cat_weights),
+                                   dtype=torch.float32, device=dev)[mod_seq]
+    trans_sharp = torch.where(torch.arange(ntrans, device=dev) < n_can_trans,
+                              float(sharpfact), 1.0)
+    lp32 = logprob.float()
+    lp = lp32 + (lp32 * trans_sharp - lp32).detach()
+    core = _CrfLossCore.apply(lp, stay_idx, move_idx, modmove_idx,
+                              modmove_fact, seqlens)
+    return core + (core / sharpfact - core).detach()
 
 
 class _LogZ(torch.autograd.Function):

@@ -2,11 +2,13 @@
 (port of taiyaki_tpu/train.py).
 
 One step runs the network forward (the LSTM forward kernel with its
-backward residuals), the CRF loss (lattice forward kernel) plus logZ/nblk
-(logZ forward kernel), autograd's backward (CRF backward, logZ posteriors
-and LSTM backward kernels; cuDNN for the convolutions), a per-tensor
-clip by value and an AdamW update whose learning rate, and with
-min_momentum its beta1, follow the JAX package's optax schedules.
+backward residuals), the CRF loss (lattice forward kernel; for a cat_mod
+model the cat_mod loss, whose mod weights scale by the step's mod factor)
+plus logZ/nblk of the canonical columns (logZ forward kernel), autograd's
+backward (CRF backward, logZ posteriors and LSTM backward kernels; cuDNN
+for the convolutions), a per-tensor clip by value and an AdamW update
+whose learning rate, and with min_momentum its beta1, follow the JAX
+package's optax schedules.
 
 Everything runs on an explicit torch device; random draws come from
 numpy (the global state for chunk sampling, as in the JAX package, and
@@ -199,34 +201,42 @@ def sub_batch_size_for_chunk(min_sub_batch_size, chunk_len_max, chunk_len):
 
 
 def prepare_batch(chunks, chunk_len, max_seqlen, alphabet_info,
-                  reverse=False):
-    """Accepted chunks as padded numpy arrays.
+                  reverse=False, can_labels=None, mod_labels=None):
+    """Accepted chunks as padded numpy arrays; with a cat_mod head's
+    label tables (can_labels, mod_labels) the sequences are coded from
+    the canonical labels and mod_cats holds each position's category.
 
     Returns:
         Batch(signal [chunk_len, n, 1] f32, seqs [n, max_seqlen] i32,
-              seqlens [n] i32, mod_cats None); chunks whose sequence is
-        longer than max_seqlen are dropped.
+              seqlens [n] i32, mod_cats [n, max_seqlen] i32 or None);
+        chunks whose sequence is longer than max_seqlen are dropped.
     """
     chunks = [c for c in chunks if c.seq_len <= max_seqlen]
     n = len(chunks)
     signal = np.zeros((chunk_len, n, 1), dtype=np.float32)
     seqs = np.zeros((n, max_seqlen), dtype=np.int32)
     seqlens = np.zeros(n, dtype=np.int32)
+    is_mod = mod_labels is not None
+    mod_cats = np.zeros((n, max_seqlen), dtype=np.int32) if is_mod else None
     revop = np.flip if reverse else np.asarray
     for i, chunk in enumerate(chunks):
         signal[:, i, 0] = revop(chunk.current)
         labels = revop(chunk.sequence)
         seqlens[i] = len(labels)
+        if is_mod:
+            mod_cats[i, :len(labels)] = mod_labels[labels]
+            labels = can_labels[labels]
         coded = flipflopfings.flipflop_code(np.ascontiguousarray(labels),
                                             alphabet_info.ncan_base)
         seqs[i, :len(coded)] = coded
-    return Batch(signal, seqs, seqlens, None)
+    return Batch(signal, seqs, seqlens, mod_cats)
 
 
 def sample_batch(read_data, batch_chunk_len, sub_batch_size, max_seqlen,
                  alphabet_info, filter_params, reverse=False,
-                 standardize=True, select_strands_randomly=True,
-                 first_strand_index=0, log=None, seqlen_granularity=None):
+                 standardize=True, can_labels=None, mod_labels=None,
+                 select_strands_randomly=True, first_strand_index=0,
+                 log=None, seqlen_granularity=None):
     """Sample and filter chunks and assemble a Batch; with
     seqlen_granularity, sequences pad to the smallest multiple of it that
     fits the batch instead of to max_seqlen.
@@ -246,31 +256,43 @@ def sample_batch(read_data, batch_chunk_len, sub_batch_size, max_seqlen,
         actual = max((c.seq_len for c in chunk_batch), default=1)
         max_seqlen = bucket_seqlen(actual, max_seqlen, seqlen_granularity)
     batch = prepare_batch(chunk_batch, batch_chunk_len, max_seqlen,
-                          alphabet_info, reverse=reverse)
+                          alphabet_info, reverse=reverse,
+                          can_labels=can_labels, mod_labels=mod_labels)
     return batch, rejections
 
 
 def batch_to_device(batch, device):
     """A numpy Batch as tensors on `device`."""
-    return Batch(torch.from_numpy(np.ascontiguousarray(batch.signal))
-                 .to(device),
-                 torch.from_numpy(batch.seqs).to(device),
-                 torch.from_numpy(batch.seqlens).to(device), None)
+    return Batch(*(None if a is None
+                   else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in batch))
 
 
 # -- loss & step -------------------------------------------------------------
 
-def make_loss_fn(net):
-    """Training loss of a batch on the device: CRF flip-flop loss +
-    logZ/nblk per row, averaged over the rows with a sequence (rows with
-    seqlens == 0 are padding and cost nothing)."""
+def make_loss_fn(net, is_cat_mod=False, can_mods_offsets=None,
+                 mod_cat_weights=None):
+    """Training loss of a batch on the device: CRF flip-flop loss (the
+    cat_mod loss with weights mod_cat_weights x mod_factor for a cat_mod
+    model) + logZ/nblk of the transition columns per row, averaged over
+    the rows with a sequence (rows with seqlens == 0 are padding and cost
+    nothing)."""
+    if is_cat_mod:
+        weights = np.asarray(mod_cat_weights, dtype=np.float32)
 
-    def loss_fn(batch, sharpen):
+    def loss_fn(batch, sharpen, mod_factor=1.0):
         outputs = net(batch.signal)
         nblk = outputs.shape[0]
-        lossvector = ffops.crf_flipflop_loss(outputs, batch.seqs,
-                                             batch.seqlens, sharpen)
-        logz = ffops.flipflop_logz(outputs) / nblk
+        ntrans = outputs.shape[2]
+        if is_cat_mod:
+            ntrans -= int(can_mods_offsets[-1])
+            lossvector = ffops.cat_mod_flipflop_loss(
+                outputs, batch.seqs, batch.seqlens, batch.mod_cats,
+                can_mods_offsets, weights * np.float32(mod_factor), sharpen)
+        else:
+            lossvector = ffops.crf_flipflop_loss(outputs, batch.seqs,
+                                                 batch.seqlens, sharpen)
+        logz = ffops.flipflop_logz(outputs[:, :, :ntrans]) / nblk
         real = batch.seqlens > 0
         lossvector = lossvector + torch.where(real, logz,
                                               torch.zeros_like(logz))
@@ -286,13 +308,15 @@ def leaf_params(net):
     return [named[name] for name in leaf_names(net)]
 
 
-def make_grad_step(net):
+def make_grad_step(net, is_cat_mod=False, can_mods_offsets=None,
+                   mod_cat_weights=None):
     """(loss, grads in leaf order) of one sub-batch."""
-    loss_fn = make_loss_fn(net)
+    loss_fn = make_loss_fn(net, is_cat_mod, can_mods_offsets,
+                           mod_cat_weights)
     params = leaf_params(net)
 
-    def gstep(batch, sharpen):
-        loss = loss_fn(batch, sharpen)
+    def gstep(batch, sharpen, mod_factor=1.0):
+        loss = loss_fn(batch, sharpen, mod_factor)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -326,14 +350,16 @@ def make_apply_step(optimizer):
     return astep
 
 
-def make_train_step(net, optimizer):
-    """step(batch, sharpen, clip_threshs) -> (loss, grad_maxs): forward,
-    backward, clip and update in one call."""
-    gstep = make_grad_step(net)
+def make_train_step(net, optimizer, is_cat_mod=False, can_mods_offsets=None,
+                    mod_cat_weights=None):
+    """step(batch, sharpen, clip_threshs, mod_factor) -> (loss,
+    grad_maxs): forward, backward, clip and update in one call."""
+    gstep = make_grad_step(net, is_cat_mod, can_mods_offsets,
+                           mod_cat_weights)
     astep = make_apply_step(optimizer)
 
-    def step(batch, sharpen, clip_threshs):
-        loss, grads = gstep(batch, sharpen)
+    def step(batch, sharpen, clip_threshs, mod_factor=1.0):
+        loss, grads = gstep(batch, sharpen, mod_factor)
         return loss, astep(grads, 1.0, clip_threshs)
 
     return step

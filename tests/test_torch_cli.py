@@ -1,7 +1,7 @@
 """The port's basecall CLI end to end on the CPU, against bin/basecall.py
 (repeated read ids included; a real read with the shipped GRU
-checkpoint); the import guard over every module of the port and
-chip_smoke.py; the device default.
+checkpoint); the import guard over every module of the port,
+chip_smoke.py and chip_ab.py; the device default.
 
 The JAX CLI runs once (module fixture), as its compile dominates."""
 
@@ -153,9 +153,12 @@ def test_cli_default_device_is_cuda(calls):
                                   ["--modified_base_output", "m.h5"],
                                   ["--ndevices", "2"]])
 def test_cli_unported_options_stop(calls, flag):
+    """Options not ported stop; --modified_base_output, ported, stops on
+    this canonical checkpoint as bin/basecall.py does."""
     from taiyaki_tpu_torch.cli import basecall
     _, _, model, reads = calls
-    with pytest.raises(SystemExit, match="not ported"):
+    why = {"--modified_base_output": "requires a cat_mod model"}
+    with pytest.raises(SystemExit, match=why.get(flag[0], "not ported")):
         basecall.main(flag + ["--device", "cpu", reads, model])
 
 
@@ -269,6 +272,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_ab.py")
 
 
 def test_port_sources_import_no_jax():
@@ -296,6 +300,8 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.data.chunk_selection, "
             "taiyaki_tpu_torch.models.mLstm_flipflop, "
             "taiyaki_tpu_torch.models.mGru_flipflop, "
+            "taiyaki_tpu_torch.models.mLstm_cat_mod_flipflop, "
+            "taiyaki_tpu_torch.models.mGru_cat_mod_flipflop, "
             "taiyaki_tpu_torch.ops.gru, "
             "taiyaki_tpu_torch.utils.helpers; "
             "print(sorted(m for m in sys.modules "

@@ -15,7 +15,12 @@ atol 1e-5 (posteriors, each in [0, 1]; 3e-4 over lattices of thousands of
 steps, see CRF_SHAPES), 1e-6 from run to run (the order
 of the shared-memory atomic adds); GRU h atol 1e-4 and its backward 1e-4
 relative, as the LSTM's (gh and gx of the forward atol 1e-4, as h).
-A retained graph gives bitwise the same gradients twice.
+A retained graph gives bitwise the same gradients twice.  The CRF on
+score streams (kernels 9-10): the same score and lattice tolerances, its
+posteriors atol 1e-5 (3e-4 over lattices of thousands of steps, as the
+fused kernels' gradient), bitwise equal from run to run (no atomics); the
+gradient the route scatters from them against the fused kernels' 1e-5,
+1e-6 from run to run (scatter_add_'s atomics).
 """
 
 import math
@@ -156,9 +161,10 @@ def test_lstm_bwd_kernel_matches_twin(dev, shape, reverse):
         assert _rel_err(g.sum(0), w.sum(0)) < 1e-4
 
 
-def _crf_inputs(T, B, L, seed=2, nmod=0, dev="cpu"):
+def _crf_inputs(T, B, L, seed=2, nmod=0, dev="cpu", wmax=1.0):
     """Scores, lattice index vectors of random sequences with ragged
-    lengths (row 1 empty, row 2 longer than T allows: no path)."""
+    lengths (row 1 empty, row 2 longer than T allows: no path); with nmod,
+    mod weights in [0.1, wmax)."""
     from taiyaki_tpu_torch import flipflopfings
     from taiyaki_tpu_torch.ops import flipflop
     rng = np.random.default_rng(seed)
@@ -177,7 +183,7 @@ def _crf_inputs(T, B, L, seed=2, nmod=0, dev="cpu"):
     if nmod:
         mm = torch.from_numpy(rng.integers(40, S, size=(B, L - 1))
                               .astype(np.int32))
-        mf = torch.from_numpy(rng.uniform(0.1, 1.0, size=(B, L - 1))
+        mf = torch.from_numpy(rng.uniform(0.1, wmax, size=(B, L - 1))
                               .astype(np.float32))
     idx = flipflop._lattice_inputs(stay, move, torch.from_numpy(seqlens), S,
                                    mm, mf)
@@ -224,6 +230,28 @@ def test_crf_kernels_match_twins(dev, shape):
     assert (g1[:, 1] == 0).all()            # the empty row
     torch.testing.assert_close(g1, g0, rtol=0, atol=g_tol)
     torch.testing.assert_close(g1, g2, rtol=0, atol=1e-6)
+
+
+def test_crf_bwd_catmod_weights_match_twin(dev):
+    """Kernel 6 and the streams route (kernels 9-10 and the scatter) at
+    the cat_mod width with weights up to 8 (the --mod_factor ramp's
+    start): a mod column's gradient sums posteriors times their weight,
+    so both are held to 1e-5 times the largest weight."""
+    from taiyaki_tpu_torch.ops import flipflop
+    lp, sidx, midx, mmidx, mfact, valid, last = _crf_inputs(
+        800, 32, 512, nmod=6, dev=dev, wmax=8.0)
+    _, _, lat0 = crf.crf_fwd_plain(lp, sidx, midx, mmidx, mfact, valid)
+    g0 = crf.crf_bwd_plain(lp, sidx, midx, mmidx, mfact, lat0, valid, last)
+    _, _, lat1 = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid)
+    g1 = crf.crf_bwd(lp, sidx, midx, mmidx, mfact, lat1, valid, last)
+    stay, move = flipflop._select_streams(lp, sidx, midx, mmidx, mfact)
+    _, _, lat_s = crf.crf_fwd_streams(stay, move, valid)
+    post = crf.crf_bwd_posteriors(stay, move, lat_s, valid, last)
+    g_route = flipflop._scatter_posteriors(lp.shape, *post, sidx, midx,
+                                           mmidx, mfact)
+    atol = 1e-5 * mfact.max().item()
+    torch.testing.assert_close(g1, g0, rtol=0, atol=atol)
+    torch.testing.assert_close(g_route, g0, rtol=0, atol=atol)
 
 
 def _gru_inputs(T, B, D, H, seed=0):
@@ -414,3 +442,114 @@ def _policy_kernel(cell):
                 "recompute": "lstm_bwd_recompute"}[rnn.lstm_policy()]
     return {"recompute": "gru_bwd_recompute",
             "stored": "gru_bwd_fusedw"}[rnn.gru_policy()]
+
+
+# (T, B, L, mod columns, posterior atol): every block shape of kernels
+# 9-10 (L up to 256, 512, 1024, 2048, 4096, 8192 and 16384), the training
+# shape, and lattices past the fused kernels' 8192 positions with T >= L,
+# so that rows have a path.
+STREAM_SHAPES = [(37, 5, 12, 0, 1e-5), (41, 9, 300, 3, 1e-5),
+                 (60, 4, 900, 0, 1e-5), (800, 256, 512, 0, 1e-5),
+                 (2000, 3, 1900, 2, 3e-4), (4000, 3, 3712, 0, 3e-4),
+                 (7000, 3, 8192, 0, 3e-4), (10000, 3, 9000, 3, 3e-4)]
+
+
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_crf_stream_kernels_match_twins(dev, shape):
+    from taiyaki_tpu_torch.ops import flipflop
+    T, B, L, nmod, p_tol = shape
+    lp, sidx, midx, mmidx, mfact, valid, last = _crf_inputs(
+        T, B, L, nmod=nmod, dev=dev)
+    mod = (mmidx, mfact) if nmod else (None, None)
+    stay_all, move_all = flipflop._select_streams(lp, sidx, midx, *mod)
+    f0, s0, lat0 = crf.crf_fwd_streams_plain(stay_all, move_all, valid)
+    p0 = crf.crf_bwd_posteriors_plain(stay_all, move_all, lat0, valid, last)
+    nf, nb = crf.crf_fwd_streams.launches, crf.crf_bwd_posteriors.launches
+    f1, s1, lat1 = crf.crf_fwd_streams(stay_all, move_all, valid)
+    p1 = crf.crf_bwd_posteriors(stay_all, move_all, lat1, valid, last)
+    p2 = crf.crf_bwd_posteriors(stay_all, move_all, lat1, valid, last)
+    _, s3, none = crf.crf_fwd_streams(stay_all, move_all, valid,
+                                      emit_lattice=False)
+    torch.cuda.synchronize()
+    assert (crf.crf_fwd_streams.launches,
+            crf.crf_bwd_posteriors.launches) == (nf + 2, nb + 2)
+    assert none is None and torch.equal(s1, s3)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(lat1, lat0, 1e-4)
+    assert _lattice_close(f1, f0, 1e-4)
+    for got, want, again in zip(p1, p0, p2):
+        assert torch.isfinite(got).all() and (got[:, 1] == 0).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=p_tol)
+        assert torch.equal(got, again)
+    assert p1[0].sum().item() > 0
+    # the gradient the route scatters from them, against kernels 5-6's
+    # (whose lattice limit is 8192)
+    if L <= crf.MAX_L:
+        g = [flipflop._scatter_posteriors(lp.shape, p1[0], p1[1].clone(),
+                                          sidx, midx, *mod) for _ in "ab"]
+        _, _, flat = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid)
+        want = crf.crf_bwd(lp, sidx, midx, mmidx, mfact, flat, valid, last)
+        torch.testing.assert_close(g[0], want, rtol=0, atol=p_tol)
+        torch.testing.assert_close(g[0], g[1], rtol=0, atol=1e-6)
+
+
+def test_crf_stream_kernels_reject_bad_input(dev):
+    stay = torch.zeros(3, 2, crf.MAX_L_STREAMS + 1, device=dev)
+    valid = torch.ones(2, crf.MAX_L_STREAMS + 1, dtype=torch.int32,
+                       device=dev)
+    with pytest.raises(ValueError, match="16384"):
+        crf.crf_fwd_streams(stay, stay, valid)
+    stay, valid = stay[:, :, :8].contiguous(), valid[:, :8].contiguous()
+    with pytest.raises(ValueError, match="float32"):
+        crf.crf_fwd_streams(stay.double(), stay, valid)
+    with pytest.raises(ValueError, match="lattice"):
+        crf.crf_bwd_posteriors(stay, stay, stay[:2].contiguous(), valid,
+                               torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("env", ["TAIYAKI_TPU_NO_SCORE_FUSE",
+                                 "TAIYAKI_TPU_F32_SCORES", None])
+def test_cat_mod_loss_routes_on_card(dev, env, monkeypatch):
+    """The cat_mod loss on the card under each switch (or past the fused
+    width, with MAX_L lowered) launches kernels 9-10 and not 5-6, and
+    gives the CPU twins' value (1e-5 relative) and gradient (1e-5)."""
+    from taiyaki_tpu_torch import flipflopfings
+    from taiyaki_tpu_torch.ops import flipflop
+    for name in ("TAIYAKI_TPU_NO_SCORE_FUSE", "TAIYAKI_TPU_F32_SCORES"):
+        monkeypatch.delenv(name, raising=False)
+    if env is None:
+        monkeypatch.setattr(crf, "MAX_L", 8)
+    else:
+        monkeypatch.setenv(env, "1")
+    rng = np.random.default_rng(7)
+    T, B, L = 60, 6, 30
+    offsets = np.array([0, 2, 3, 5, 6], np.int32)
+    x = rng.normal(size=(T, B, 40 + 6)).astype(np.float32)
+    seqlens = rng.integers(2, L + 1, size=B).astype(np.int32)
+    seqs = np.zeros((B, L), np.int32)
+    cats = np.zeros((B, L), np.int32)
+    for i in range(B):
+        bases = rng.integers(0, 4, size=seqlens[i])
+        seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(bases)
+        cats[i, :seqlens[i]] = np.where(np.isin(bases, [0, 2]),
+                                        rng.integers(0, 2, seqlens[i]), 0)
+    weights = rng.uniform(0.5, 2.0, size=6).astype(np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        tx = torch.from_numpy(x).to(device).requires_grad_()
+        before = [k.launches for k in (crf.crf_fwd, crf.crf_bwd,
+                                       crf.crf_fwd_streams,
+                                       crf.crf_bwd_posteriors)]
+        loss = flipflop.cat_mod_flipflop_loss(
+            tx, *(torch.from_numpy(a).to(device)
+                  for a in (seqs, seqlens, cats)), offsets, weights, 2.0)
+        loss.sum().backward()
+        after = [k.launches for k in (crf.crf_fwd, crf.crf_bwd,
+                                      crf.crf_fwd_streams,
+                                      crf.crf_bwd_posteriors)]
+        ran = [a - b for a, b in zip(after, before)]
+        assert ran == ([0, 0, 0, 0] if device == "cpu" else [0, 0, 1, 1])
+        out[str(device)] = (loss.detach().cpu(), tx.grad.cpu())
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gg, gc, rtol=0, atol=1e-5)

@@ -221,7 +221,7 @@ def test_params_mismatch_raises():
 
 
 @pytest.mark.parametrize("name", ["FeedForward", "CudnnGru", "Parallel",
-                                  "GlobalNormFlipFlopCatMod"])
+                                  "Window"])
 def test_unported_layer_raises(name):
     with pytest.raises(NotImplementedError, match=name):
         getattr(tlayers, name)(4, 4)

@@ -380,9 +380,20 @@ def test_cli_default_device_is_cuda(tmp_path):
 @pytest.mark.parametrize("flag", [["--multihost"], ["--remat"],
                                   ["--mod_prior_factor", "1.0"]])
 def test_cli_unported_options_stop(flag, tmp_path):
+    """Options not ported stop; --mod_prior_factor, ported, stops on the
+    repo's modref reads, which lack a label whose prior it needs, as
+    bin/train_flipflop.py does."""
     from taiyaki_tpu_torch.cli import train_flipflop
-    with pytest.raises(SystemExit, match="not ported"):
+    model, reads, err, why = "mLstm_flipflop.py", READS, SystemExit, \
+        "not ported"
+    if flag[0] == "--mod_prior_factor":
+        model, err, why = "mLstm_cat_mod_flipflop.py", NotImplementedError, \
+            "must occur"
+        reads = os.path.join(os.path.dirname(READS),
+                             "mapped_remap_modref.hdf5")
+    with pytest.raises(err, match=why):
         train_flipflop.main(flag + [
-            "--device", "cpu", "--outdir", str(tmp_path / "o"),
-            os.path.join(REPO, "taiyaki_tpu_torch", "models",
-                         "mLstm_flipflop.py"), READS])
+            "--device", "cpu", "--size", "16", "--outdir",
+            str(tmp_path / "o"),
+            os.path.join(REPO, "taiyaki_tpu_torch", "models", model),
+            reads])
