@@ -23,6 +23,13 @@ makes:
 
 It prints one line `AB <tree> {json}` per run, removes what it wrote, and
 exits non-zero if there is no card or a run fails.
+
+    python3 chip_ab.py --basecall PARENT_TREE CHANGE_TREE
+
+runs the basecall CLI alone, on one seeded size-256 checkpoint of each
+model written once for both trees (no training in the process), three
+measured calls after a first, in the order parent, change, change,
+parent, parent, change.
 """
 
 import json
@@ -128,24 +135,84 @@ def measure(reads, work):
     return out
 
 
+def measure_basecall(reads, work, checkpoints):
+    """ksample/s of the basecall CLI of the tree in the working directory
+    on each checkpoint ({model: path}), three calls after a first."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from taiyaki_tpu_torch.cli import basecall
+    from taiyaki_tpu_torch.ops import cuda_lib
+    if not torch.cuda.is_available():
+        sys.exit("chip_ab: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.build_all()
+    out = {}
+    for name, ckpt in json.loads(checkpoints).items():
+        rates = []
+        for i in range(4):
+            st = basecall.main([
+                "--output", os.path.join(work, "{}{}.fa".format(name, i)),
+                "--quiet", reads, ckpt])
+            rates.append(st["nsample"] / st["seconds"] / 1e3)
+        out[name + "_basecall_ksample_s"] = rates[1:]
+    return out
+
+
+def seeded_checkpoints(tmp, tree):
+    """{model: path} of a size-256 checkpoint of each model with weights
+    drawn from seed 1, written by the package of `tree` (on sys.path)."""
+    from taiyaki_tpu_torch.convert import load_jax_params, params_to_jax
+    from taiyaki_tpu_torch.utils import helpers
+    out = {}
+    for name, stride in MODELS:
+        kwargs = dict(insize=1, size=256, winlen=19, stride=stride)
+        net, source, meta = helpers.new_model(
+            os.path.join(tree, "taiyaki_tpu_torch", "models",
+                         name + ".py"),
+            model_metadata={"reverse": False, "standardize": True},
+            **kwargs)
+        load_jax_params(net, net.init(np.random.default_rng(1)))
+        outdir = os.path.join(tmp, name)
+        os.makedirs(outdir)
+        out[name] = helpers.save_model(outdir, net, params_to_jax(net),
+                                       source, kwargs, meta)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--measure"]:
         print("AB " + json.dumps(measure(*sys.argv[2:4])), flush=True)
         return
-    if len(sys.argv) != 3:
+    if sys.argv[1:2] == ["--measure-basecall"]:
+        print("AB " + json.dumps(measure_basecall(*sys.argv[2:5])),
+              flush=True)
+        return
+    basecall_only = sys.argv[1:2] == ["--basecall"]
+    trees = sys.argv[2:] if basecall_only else sys.argv[1:]
+    if len(trees) != 2:
         sys.exit(__doc__)
-    parent, change = (os.path.abspath(d) for d in sys.argv[1:])
+    parent, change = (os.path.abspath(d) for d in trees)
+    order = ((parent, change, change, parent, parent, change)
+             if basecall_only else (parent, change, change, parent))
     failed = False
     with tempfile.TemporaryDirectory(prefix="chip_ab_") as tmp:
         reads = os.path.join(tmp, "reads")
         os.makedirs(reads)
         sys.path.insert(0, change)
         write_reads(os.path.join(reads, "r.fast5"), 8, 100000, 1)
-        for k, tree in enumerate((parent, change, change, parent)):
+        if basecall_only:
+            extra = [json.dumps(seeded_checkpoints(tmp, change))]
+        for k, tree in enumerate(order):
             work = os.path.join(tmp, "run{}".format(k))
-            r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--measure", reads, work], cwd=tree,
-                               capture_output=True, text=True)
+            os.makedirs(work)
+            cmd = ([sys.executable, os.path.abspath(__file__),
+                    "--measure-basecall", reads, work] + extra
+                   if basecall_only else
+                   [sys.executable, os.path.abspath(__file__), "--measure",
+                    reads, work])
+            r = subprocess.run(cmd, cwd=tree, capture_output=True,
+                               text=True)
             lines = [ln for ln in r.stdout.splitlines()
                      if ln.startswith("AB ")]
             if r.returncode != 0 or not lines:

@@ -72,7 +72,23 @@ card; run from the root of a checkout:
    row per called base, equal calls (or the tie rule of 3c), equal mod
    scores where the calls agree; (d) one synchronised training step and
    its peak device memory on each route.
-7. A `kernels` JSON line, the card line, and the result line
+7. The recurrences on given gates (this slice): kernels 14-17 (the
+   LSTM and GRU recurrences and gradient chains of ops/rnn.py's
+   `lstm_scan` and `gru_scan`) against their twins at the mLstm (T=800)
+   and mGru (T=2000) training shapes, B=256, H=256, both directions, the
+   backwards also with iW (d_x, D=256); then the scan path: both ops
+   forward and backward through torch.autograd.grad, both directions,
+   and on the same inputs scan(x . iW^T + b) against the whole layer
+   (kernels 1 and 4, 7 and 8): h, d gates_x . iW against d_x, d_sW.
+8. The JAX trainer's own defaults (this slice): the training CLI at
+   --size 384 with chunks of 3000-8000 samples in 8 buckets and
+   sub-batches of 341 ... 128 chunks, 4 iterations; a step's time and
+   peak memory at 341 chunks x 3000 samples and at 128 x 8000; a
+   card-against-CPU step on 5 chunks of 3000 samples at size 384.  And
+   a lattice of 20000 positions (T=20100, B=1) through the cat_mod loss
+   and kernels 9-10 against their twins there: the kernels' instance
+   that keeps the lattice vector in device memory.
+9. A `kernels` JSON line (17 rows), the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Every kernel counter is set to 0 just before each path and read just
@@ -131,8 +147,15 @@ CATMOD_ROUTES = (("fused", {}), STREAMS)
 # bases, 2 mods): 40 transitions + 4 + 2
 SC = 46
 # a lattice past the fused kernels' 8192 positions, T >= L so that every
-# row has a path
+# row has a path; and one past kernels 9-10's 16384 positions in shared
+# memory (their device-memory instance)
 XT, XB, XL = 10000, 8, 9000
+YT, YB, YL = 20100, 1, 20000
+# the JAX trainer's defaults (bin/_bin_argparse.py:20, :112-116;
+# taiyaki_tpu/train.py:174-177): size 384, chunks of 3000-8000 samples in
+# 8 buckets, sub-batches of int(128 * 8000 / chunk + 0.5) chunks (341 at
+# 3000 samples, 128 at 8000)
+DSIZE, DMIN, DMAX, DSUB = 384, 3000, 8000, 128
 # the residual policies of each cell (the JAX trainer's switches), the
 # default first: (name, switches)
 LSTM_POLICIES = (("acts", {}), ("pre", {"TAIYAKI_TPU_ACTS_BWD": "0"}),
@@ -670,17 +693,19 @@ def _catmod_case(rng, tt, tb, tl, lo):
     return x, seqs, seqlens, cats, offsets, weights
 
 
-def long_lattice(torch, dev, rng, counters):
-    """A lattice past the fused kernels' 8192 positions (T=XT, B=XB,
-    L=XL) through the cat_mod loss with no switch set: it takes the
-    streams route (kernels 9-10 launched once each, 5-6 never); the loss
-    is finite, every row has a path, the gradient is finite and each
+def long_lattice(torch, dev, rng, counters, shape=(XT, XB, XL)):
+    """A lattice past the fused kernels' 8192 positions (T, B, L = shape;
+    XT, XB, XL, and YT, YB, YL past kernels 9-10's 16384 positions in
+    shared memory) through the cat_mod loss with no switch set: it takes
+    the streams route (kernels 9-10 launched once each, 5-6 never); the
+    loss is finite, every row has a path, the gradient is finite and each
     step's posteriors sum to one per row.  Then kernels 9-10 against
     their twins at that shape."""
     from taiyaki_tpu_torch.ops import flipflop
-    check(XL > 8192 and XT >= XL, "the long lattice must pass 8192")
+    tt, tb, tl = shape
+    check(tl > 8192 and tt >= tl, "the long lattice must pass 8192")
     x, seqs, seqlens, cats, offsets, weights = _catmod_case(
-        rng, XT, XB, XL, XL - 300)
+        rng, tt, tb, tl, tl - 300)
     for fn in counters.values():
         fn.launches = 0
     tx = torch.from_numpy(x).to(dev).requires_grad_()
@@ -700,16 +725,16 @@ def long_lattice(torch, dev, rng, counters):
           and bool(torch.isfinite(tx.grad).all()),
           "long lattice: costs {}".format(costs))
     # d cost / d lp sums -1/T per row and step over the transition columns
-    mass = -tx.grad[:, :, :S].sum().item() * XT
-    check(abs(mass - XT * XB) <= 1e-3 * XT * XB,
+    mass = -tx.grad[:, :, :S].sum().item() * tt
+    check(abs(mass - tt * tb) <= 1e-3 * tt * tb,
           "long lattice: posterior mass {}".format(mass))
     say("long lattice T={} B={} L={} (S={}) through the cat_mod loss, no "
         "switch: launches {}; costs {}".format(
-            XT, XB, XL, SC, launches,
+            tt, tb, tl, SC, launches,
             ", ".join("{:.5f}".format(c) for c in costs)))
     del tx, loss
     torch.cuda.empty_cache()
-    rows = check_crf_streams(torch, dev, rng, XT, XB, XL, p_tol=3e-4)
+    rows = check_crf_streams(torch, dev, rng, tt, tb, tl, p_tol=3e-4)
     torch.cuda.empty_cache()
     return launches, rows
 
@@ -883,6 +908,140 @@ def check_gru_train(torch, dev, rng):
         for k in bwds]
 
 
+def _scan_bounds(G, t, b, h, d):
+    """(forward, backward, backward with iW) bounds of the recurrence on
+    given gates with G gate rows per unit: the operations of the
+    recurrent product (2 T B GH H, and d_x's 2 T B GH D), the streams and
+    weights read once and the outputs written once."""
+    gates, state, w = 4 * t * b * G * h, 4 * t * b * h, 4 * G * h * h
+    flops = 2 * t * b * G * h * h
+    dx = (2 * t * b * G * h * d, 4 * (t * b * d + G * h * d))
+    if G == 4:
+        # gx, sW in; h, c, pre out / dh, c, c_prev, pre, sW in; dpre out
+        fwd_bytes = 2 * gates + 2 * state + w
+        bwd_bytes = 2 * gates + 3 * state + w
+    else:
+        # gx, sW in; h, gh out / dh, h_prev, gx, gh, sW in; dgx, dgh out
+        fwd_bytes = 2 * gates + state + w
+        bwd_bytes = 4 * gates + 2 * state + w
+    return (bound_ms(fwd_bytes, flops), bound_ms(bwd_bytes, flops),
+            bound_ms(bwd_bytes + dx[1], flops + dx[0]))
+
+
+def check_scan(torch, dev, rng):
+    """Kernels 14-17, the LSTM and GRU recurrences on given gates, against
+    their twins at the mLstm (T=TT) and mGru (T=GT) training shapes (B=TB,
+    H=256), both directions, the backwards also with iW (d_x, D=256); the
+    forwards leave gates_x as it was.  Tolerances as the layer kernels':
+    outputs 1e-4, backwards 1e-4 relative.  cuDNN's LSTM and GRU (D=H,
+    forward with grad, backward) as yardsticks: they include the input
+    product these kernels do not compute.  Returns the four rows."""
+    from taiyaki_tpu_torch.ops import gru, lstm
+    rows = []
+    for cell, t, mod, G in (("lstm", TT, lstm, 4), ("gru", GT, gru, 3)):
+        fwd, fwd_plain = (getattr(mod, cell + "_scan_fwd" + k)
+                          for k in ("", "_plain"))
+        bwd, bwd_plain = (getattr(mod, cell + "_scan_bwd" + k)
+                          for k in ("", "_plain"))
+        x = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
+        iW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
+        b = _tensor(torch, dev, 0.5 * rng.normal(size=G * H))
+        sW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
+        dh = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
+        gx = torch.matmul(x, iW.t()) + b
+        kept = gx.clone()
+        f_err = b_err = 0.0
+        ms, plain = {}, {}
+        for reverse in (False, True):
+            want = fwd_plain(gx, sW, reverse=reverse, residuals=True)
+            got = fwd(gx, sW, reverse=reverse, residuals=True)
+            h_only = fwd(gx, sW, reverse=reverse)
+            torch.cuda.synchronize()
+            f_err = max([f_err] + [max_abs_diff(g, w) for g, w in zip(
+                got + (h_only,), want + (want[0],))])
+            del got, h_only
+            if cell == "lstm":
+                h, c, pre = want
+                res = (dh, pre, c, lstm.prev_state(c, reverse), sW)
+            else:
+                h, gh = want
+                res = (dh, gx, gh, lstm.prev_state(h, reverse), sW)
+            for iw in (None, iW):
+                gk = bwd(*res, reverse=reverse, iW=iw)
+                gp = bwd_plain(*res, reverse=reverse, iW=iw)
+                torch.cuda.synchronize()
+                gk, gp = (gk, gp) if isinstance(gk, tuple) else ((gk,), (gp,))
+                check(all(bool(torch.isfinite(g).all()) for g in gk),
+                      "{}_scan_bwd: non-finite output".format(cell))
+                b_err = max([b_err] + [rel_err(g, w) for g, w in zip(gk, gp)])
+                del gk, gp
+            ms["fwd", reverse] = cuda_ms(torch, lambda: fwd(
+                gx, sW, reverse=reverse, residuals=True), reps=3)
+            for iw in (None, iW):
+                ms["bwd", iw is not None, reverse] = cuda_ms(
+                    torch, lambda: bwd(*res, reverse=reverse, iW=iw), reps=3)
+            if not reverse:
+                plain["fwd"] = cuda_ms(torch, lambda: fwd_plain(
+                    gx, sW, residuals=True), reps=1, warmup=0)
+                plain["bwd"] = cuda_ms(torch, lambda: bwd_plain(*res),
+                                       reps=1, warmup=0)
+            del want, res
+            torch.cuda.empty_cache()
+        check(bool(torch.equal(gx, kept)), "{}_scan_fwd wrote its gates_x"
+              .format(cell))
+        check(f_err <= 1e-4, "{}_scan_fwd: max |err| {} > 1e-4".format(
+            cell, f_err))
+        check(b_err <= 1e-4, "{}_scan_bwd: max relative err {} > 1e-4"
+              .format(cell, b_err))
+        ref = (torch.nn.LSTM(H, H) if cell == "lstm"
+               else torch.nn.GRU(H, H)).to(dev)
+        with torch.no_grad():
+            ref.weight_ih_l0.copy_(iW)
+            ref.weight_hh_l0.copy_(sW)
+            ref.bias_ih_l0.copy_(b)
+            ref.bias_hh_l0.zero_()
+        xr = x.clone().requires_grad_()
+        lib_f = cuda_ms(torch, lambda: ref(xr), reps=3)
+        out = ref(xr)[0]
+        lib_b = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, [xr] + list(ref.parameters()), dh, retain_graph=True),
+            reps=3)
+        del out, xr, ref, x, gx, kept
+        torch.cuda.empty_cache()
+        f_bound, b_bound, bx_bound = _scan_bounds(G, t, TB, H, H)
+        lib = "torch.nn.{}".format("LSTM" if cell == "lstm" else "GRU")
+        say("{}_scan_fwd T={} B={} H={}: max|err| {:.3g} (tol 1e-4), kernel "
+            "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} ms, {} forward "
+            "with grad (its input product included) {:.3f} ms, bound {:.3f} "
+            "ms ({})".format(cell, t, TB, H, f_err, ms["fwd", False],
+                             ms["fwd", True], plain["fwd"], lib, lib_f,
+                             *f_bound))
+        say("{}_scan_bwd T={} B={} H={}: max relative err {:.3g} (tol 1e-4, "
+            "with and without iW), kernel {:.3f} ms fwd / {:.3f} ms reverse, "
+            "with iW (d_x, D={}) {:.3f} / {:.3f} ms, plain {:.3f} ms, {} "
+            "backward (its input product's gradients included) {:.3f} ms, "
+            "bound {:.3f} ms ({}), with iW {:.3f} ms ({})".format(
+                cell, t, TB, H, b_err, ms["bwd", False, False],
+                ms["bwd", False, True], H, ms["bwd", True, False],
+                ms["bwd", True, True], plain["bwd"], lib, lib_b, *b_bound,
+                *bx_bound))
+        replaces = {"lstm": (141, 726), "gru": (1082, 1407)}[cell]
+        src = "taiyaki_tpu_torch/csrc/{}.cu".format(cell)
+        rows.append(dict(
+            name=cell + "_scan_fwd", route="cuda", source=src,
+            replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[0]),
+            max_abs_err=f_err, ms=ms["fwd", False], plain_ms=plain["fwd"],
+            bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f))
+        rows.append(dict(
+            name=cell + "_scan_bwd", route="cuda", source=src,
+            replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[1]),
+            max_abs_err=b_err, ms=ms["bwd", False, False],
+            plain_ms=plain["bwd"], bound_ms=b_bound[0],
+            bound_by=b_bound[1], library_ms=lib_b,
+            iw_ms=ms["bwd", True, False], iw_bound_ms=bx_bound[0]))
+    return rows
+
+
 # -- phases 3 and 4 ----------------------------------------------------------
 
 @contextlib.contextmanager
@@ -948,10 +1107,10 @@ def train_path(torch, work, seed, counters, model, policy=None,
     return launches, stats, outdir
 
 
-def step_batch(seed, nchunk, model):
-    """A seeded batch of nchunk CHUNK-sample chunks from the model's
+def step_batch(seed, nchunk, model, chunk=CHUNK, size=H):
+    """A seeded batch of nchunk chunk-sample chunks from the model's
     mapped reads (with mod categories for a cat_mod model), and the
-    factory kwargs of `model` at size 256."""
+    factory kwargs of `model` at `size`."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.data import chunk_selection, mapped_signal_files
     from taiyaki_tpu_torch.utils import helpers
@@ -959,7 +1118,7 @@ def step_batch(seed, nchunk, model):
     with mapped_signal_files.MappedSignalReader(reads_of(model)) as msr:
         alphabet = msr.get_alphabet_information()
         reads = list(msr.reads())
-    kwargs = dict(insize=1, size=H, winlen=19, stride=stride,
+    kwargs = dict(insize=1, size=size, winlen=19, stride=stride,
                   alphabet_info=alphabet)
     labels = {}
     if is_cat_mod(model):
@@ -967,9 +1126,9 @@ def step_batch(seed, nchunk, model):
         labels = dict(can_labels=head.can_labels, mod_labels=head.mod_labels)
     np.random.seed(seed)
     fp = chunk_selection.sample_filter_parameters(
-        reads, 200, CHUNK, 3.0, 10.0, 0.5, 5, 1.1)
-    batch, _ = train.sample_batch(reads, CHUNK, nchunk,
-                                  train.max_seqlen_for_chunk(CHUNK, stride),
+        reads, 200, chunk, 3.0, 10.0, 0.5, 5, 1.1)
+    batch, _ = train.sample_batch(reads, chunk, nchunk,
+                                  train.max_seqlen_for_chunk(chunk, stride),
                                   alphabet, fp, seqlen_granularity=128,
                                   **labels)
     return batch, kwargs
@@ -995,9 +1154,11 @@ def new_net(seed, kwargs, device, model):
     return load_jax_params(net, params).to(device)
 
 
-def card_vs_cpu(torch, dev, seed, model, policies=()):
+def card_vs_cpu(torch, dev, seed, model, policies=(), nchunk=8,
+                chunk=CHUNK, size=H):
     """One training step's loss and gradients on the card and on the CPU
-    twins, same batch and weights, full width, 8 chunks: by default, and
+    twins, same batch and weights (nchunk chunks of `chunk` samples, the
+    model at `size`; full width, 8 chunks by default): by default, and
     under each of `policies` (name, switches), whose card gradients must
     also equal the default's on the card.  Tolerances: loss 1e-5 relative
     (f32 sums in another order through 800 or 2000 steps of 5 recurrent
@@ -1006,7 +1167,7 @@ def card_vs_cpu(torch, dev, seed, model, policies=()):
     ramp's start."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.convert import leaf_names
-    batch, kwargs = step_batch(seed, 8, model)
+    batch, kwargs = step_batch(seed, nchunk, model, chunk, size)
     names = None
 
     def step(device, env):
@@ -1035,8 +1196,8 @@ def card_vs_cpu(torch, dev, seed, model, policies=()):
                                worst))
 
     card, cpu = step(dev, {}), step(torch.device("cpu"), {})
-    say("card vs CPU, one {} step (8 chunks x {} samples, size {}): {}; CPU "
-        "twins {:.1f} s".format(model[0], CHUNK, H,
+    say("card vs CPU, one {} step ({} chunks x {} samples, size {}): {}; CPU "
+        "twins {:.1f} s".format(model[0], batch.signal.shape[1], chunk, size,
                                 compare("card vs CPU", card, cpu), cpu[2]))
     for name, env in policies:
         pcard, pcpu = step(dev, env), step(torch.device("cpu"), env)
@@ -1125,6 +1286,134 @@ def policy_steps(torch, dev, seed):
                 "{:.3f} ms".format(model[0], policy[0], step_ms, TB, CHUNK,
                                    peak / 1e9, CHUNK // model[2], TB, H,
                                    f_ms, b_ms))
+    return out
+
+
+def scan_path(torch, dev, rng, counters):
+    """The public ops `lstm_scan` and `gru_scan` (taiyaki_tpu_torch/ops/
+    rnn.py) forward and backward through torch.autograd.grad, both
+    directions, at the mLstm (T=TT) and mGru (T=GT) training shapes (B=TB,
+    H=D=256), each cell's counters (kernels 14-17) set to 0 just before
+    its path and read just after.  Then, on the same inputs, scan(x . iW^T
+    + b, sW) against the whole layer on x (lstm_layer on kernels 1 and 4,
+    gru_layer on 7 and 8): h within 1e-4; d gates_x . iW against the
+    layer's d_x and d_sW against the layer's, 1e-4 relative.  Returns
+    {"lstm_scan": launches, "gru_scan": launches}."""
+    from taiyaki_tpu_torch.ops import rnn
+    launches = {}
+    for cell, t, G in (("lstm", TT, 4), ("gru", GT, 3)):
+        scan, layer = ((rnn.lstm_scan, rnn.lstm_layer) if cell == "lstm"
+                       else (rnn.gru_scan, rnn.gru_layer))
+        x = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
+        iW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
+        b = _tensor(torch, dev, 0.5 * rng.normal(size=G * H))
+        sW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
+        dh = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
+        names = (cell + "_scan_fwd", cell + "_scan_bwd")
+        for k in names:
+            counters[k].launches = 0
+        out = {}
+        for reverse in (False, True):
+            gx = (torch.matmul(x, iW.t()) + b).requires_grad_()
+            swr = sW.clone().requires_grad_()
+            h = scan(gx, swr, reverse=reverse)
+            out[reverse] = (h.detach(),) + torch.autograd.grad(
+                h, (gx, swr), dh)
+            del h, gx
+        torch.cuda.synchronize()
+        launches[cell + "_scan"] = {k: counters[k].launches for k in names}
+        check(all(n > 0 for n in launches[cell + "_scan"].values()),
+              "{}_scan path: launches {}".format(cell,
+                                                 launches[cell + "_scan"]))
+        h_err = dx_err = dsw_err = 0.0
+        for reverse in (False, True):
+            leaves = [a.clone().requires_grad_() for a in (x, iW, b, sW)]
+            hl = layer(*leaves, reverse=reverse)
+            d_x, _, _, d_swl = torch.autograd.grad(hl, leaves, dh)
+            h, d_gx, d_sw = out.pop(reverse)
+            check(all(bool(torch.isfinite(a).all()) for a in (h, d_gx, d_sw)),
+                  "{}_scan path: non-finite output".format(cell))
+            h_err = max(h_err, max_abs_diff(h, hl.detach()))
+            dx_err = max(dx_err, rel_err(torch.matmul(d_gx, iW), d_x))
+            dsw_err = max(dsw_err, rel_err(d_sw, d_swl))
+            del leaves, hl, d_x, d_swl, h, d_gx, d_sw
+        torch.cuda.empty_cache()
+        check(h_err <= 1e-4 and max(dx_err, dsw_err) <= 1e-4,
+              "{}_scan against {}_layer: h {}, d_x {}, d_sW {}".format(
+                  cell, cell, h_err, dx_err, dsw_err))
+        say("{}_scan path T={} B={} H={} (autograd, both directions): "
+            "launches {}; against {}_layer on x: h max|err| {:.3g} (tol "
+            "1e-4), d gates_x . iW vs d_x {:.3g}, d_sW {:.3g} (relative, "
+            "tol 1e-4)".format(cell, t, TB, H, launches[cell + "_scan"],
+                               cell, h_err, dx_err, dsw_err))
+    return launches
+
+
+def defaults_path(torch, work, seed, counters):
+    """The training CLI at the JAX trainer's own defaults: mLstm_flipflop
+    at --size 384 (DSIZE), chunks of 3000-8000 samples in its 8 buckets
+    and sub-batches of 341 ... 128 chunks, a new T each step; 4
+    iterations (warmup 2, checkpoints and one validation batch at 2 and
+    4).  Every kernel of the path launched, every loss finite, the chunk
+    lengths the buckets'.  Returns (launches, stats)."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.cli import train_flipflop
+    outdir = os.path.join(work, "train_defaults")
+    for fn in counters.values():
+        fn.launches = 0
+    # the defaults' values, named so that a rehearsal can shrink them
+    stats = train_flipflop.main([
+        "--size", str(DSIZE), "--chunk_len_min", str(DMIN),
+        "--chunk_len_max", str(DMAX), "--min_sub_batch_size", str(DSUB),
+        "--niteration", "4", "--warmup_batches", "2", "--save_every", "2",
+        "--sample_nreads_before_filtering", "1000",
+        "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
+        "--outdir", outdir, MLSTM[1], READS_HDF5])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(all(n > 0 for n in launches.values()),
+          "trainer defaults path: launches {}".format(launches))
+    with open(os.path.join(outdir, "batch.log")) as fh:
+        rows = [line.split("\t") for line in fh.read().splitlines()[1:]]
+    losses = [float(r[1]) for r in rows]
+    lens = [int(r[5]) for r in rows]
+    buckets = train.chunk_len_buckets(DMIN, DMAX, MLSTM[2])
+    check(len(losses) == 4 and all(np.isfinite(losses))
+          and set(lens) <= set(buckets),
+          "trainer defaults path: losses {}, chunk lengths {}".format(
+              losses, lens))
+    say("trainer defaults path (mLstm {}/5/19, buckets {}, 4 iterations): "
+        "chunk lengths {}, sub-batches {} chunks; losses {}; {:.3f} s in "
+        "the loop: {:.4f} steps/s, {:.2f} trained ksample/s; launches "
+        "{}".format(DSIZE, buckets, lens, [
+            train.sub_batch_size_for_chunk(DSUB, DMAX, n) for n in lens],
+            ", ".join("{:.5f}".format(v) for v in losses), stats["seconds"],
+            stats["iterations"] / stats["seconds"],
+            stats["samples"] / stats["seconds"] / 1e3, launches))
+    return launches, stats
+
+
+def defaults_steps(torch, dev, seed):
+    """A training step of mLstm_flipflop at size 384 at the trainer's
+    largest sub-batch (341 chunks of 3000 samples) and at its longest
+    chunks (128 of 8000): mean synchronised wall time of 2 steps after a
+    warm-up, and peak device memory.  Returns {shape: numbers}."""
+    from taiyaki_tpu_torch import train
+    out = {}
+    for chunk in (DMIN, DMAX):
+        nchunk = train.sub_batch_size_for_chunk(DSUB, DMAX, chunk)
+        batch, kwargs = step_batch(seed, nchunk, MLSTM, chunk, DSIZE)
+        step_ms, peak = timed_step(torch, dev, seed, MLSTM, batch,
+                                   kwargs)[:2]
+        torch.cuda.empty_cache()
+        n = batch.signal.shape[1]
+        out["{} x {}".format(n, chunk)] = dict(
+            step_ms=step_ms, peak_gb=peak / 1e9, L=batch.seqs.shape[1],
+            ksample_per_s=n * chunk / step_ms)
+        say("trainer defaults step (mLstm {}/5/19, {} chunks x {} samples, "
+            "L={}): {:.3f} ms, {:.2f} trained ksample/s, peak device memory "
+            "{:.3f} GB".format(DSIZE, n, chunk, batch.seqs.shape[1],
+                               step_ms, n * chunk / step_ms, peak / 1e9))
     return out
 
 
@@ -1634,14 +1923,15 @@ def say_profile(what, kern, wall, total):
             sorted(kern, key=lambda k: -k[1])[:10])))
 
 
-def profile_train_step(torch, dev, seed, model):
-    """Where one training step of `model` (256 chunks x CHUNK samples)
-    spends its time: synchronised wall time of each stage (forward by
-    layer, CRF loss, logZ, backward, clip + optimizer), then device time
-    by kernel."""
+def profile_train_step(torch, dev, seed, model, nchunk=TB, chunk=CHUNK,
+                       size=H):
+    """Where one training step of `model` (nchunk chunks x chunk samples,
+    size `size`; 256 x CHUNK at 256 by default) spends its time:
+    synchronised wall time of each stage (forward by layer, CRF loss,
+    logZ, backward, clip + optimizer), then device time by kernel."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.ops import flipflop as ffops
-    batch, kwargs = step_batch(seed, TB, model)
+    batch, kwargs = step_batch(seed, nchunk, model, chunk, size)
     net = new_net(seed, kwargs, dev, model)
     params = train.leaf_params(net)
     optimizer, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
@@ -1682,9 +1972,11 @@ def profile_train_step(torch, dev, seed, model):
     walls = stages()
     total = sum(walls.values())
     kern, wall = device_profile(torch, lambda: step(b, 1.0, threshs))
-    say("{} training step of {} chunks x {} samples (T={} blocks, L={}), "
-        "stage wall times (ms, synchronised): {} ; total {:.3f} ms".format(
-            model[0], TB, CHUNK, CHUNK // model[2], batch.seqs.shape[1],
+    say("{} training step of {} chunks x {} samples (size {}, T={} blocks, "
+        "L={}), stage wall times (ms, synchronised): {} ; total {:.3f} "
+        "ms".format(
+            model[0], batch.signal.shape[1], chunk, size, chunk // model[2],
+            batch.seqs.shape[1],
             ", ".join("{} {:.3f}".format(k, v) for k, v in walls.items()),
             total))
     say_profile("one {} training step".format(model[0]), kern, wall, total)
@@ -1701,6 +1993,7 @@ def run(seed):
         raise SmokeFailure("run chip_smoke.py from the root of a checkout "
                            "(taiyaki_tpu_torch/ not found)")
     sys.path.insert(0, ROOT)
+    from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.ops import crf, cuda_lib, gru, logz, lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1736,6 +2029,8 @@ def run(seed):
     torch.cuda.empty_cache()
     check_crf_streams(torch, dev, rng, tl=TRAIN_L)
     torch.cuda.empty_cache()
+    kernels += check_scan(torch, dev, rng)
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -1748,7 +2043,11 @@ def run(seed):
                 "gru_bwd_recompute": gru.gru_bwd_recompute,
                 "gru_bwd_fusedw": gru.gru_bwd_fusedw,
                 "crf_fwd_streams": crf.crf_fwd_streams,
-                "crf_bwd_posteriors": crf.crf_bwd_posteriors}
+                "crf_bwd_posteriors": crf.crf_bwd_posteriors,
+                "lstm_scan_fwd": lstm.lstm_scan_fwd,
+                "lstm_scan_bwd": lstm.lstm_scan_bwd,
+                "gru_scan_fwd": gru.gru_scan_fwd,
+                "gru_scan_bwd": gru.gru_scan_bwd}
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
     streams = ("crf_fwd_streams", "crf_bwd_posteriors")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
@@ -1807,9 +2106,12 @@ def run(seed):
         profile_train_step(torch, dev, seed, MGRU)
         torch.cuda.empty_cache()
 
-        # cat_mod: the long lattice, then training on each route
+        # cat_mod: the long lattices, then training on each route
         launches["long lattice"], long_rows = long_lattice(
             torch, dev, rng, pick(("crf_fwd", "crf_bwd") + streams))
+        launches["longest lattice"], longest_rows = long_lattice(
+            torch, dev, rng, pick(("crf_fwd", "crf_bwd") + streams),
+            (YT, YB, YL))
         launches["mLstm cat_mod training"], _, outdir = train_path(
             torch, work, seed, pick(("lstm_fwd", "lstm_bwd_acts") + loss
                                     + streams), MLSTM_CATMOD,
@@ -1835,6 +2137,23 @@ def run(seed):
         routes = catmod_steps(torch, dev, seed)
         torch.cuda.empty_cache()
         policies = policy_steps(torch, dev, seed)
+        torch.cuda.empty_cache()
+
+        # the recurrences on given gates (kernels 14-17)
+        launches.update(scan_path(torch, dev, rng, counters))
+        torch.cuda.empty_cache()
+        # the JAX trainer's own defaults
+        launches["mLstm trainer defaults"], _ = defaults_path(
+            torch, work, seed, pick(("lstm_fwd", "lstm_bwd_acts") + loss))
+        torch.cuda.empty_cache()
+        defaults = defaults_steps(torch, dev, seed)
+        torch.cuda.empty_cache()
+        profile_train_step(torch, dev, seed, MLSTM,
+                           train.sub_batch_size_for_chunk(DSUB, DMAX, DMIN),
+                           DMIN, DSIZE)
+        torch.cuda.empty_cache()
+        card_vs_cpu(torch, dev, seed, MLSTM, nchunk=5, chunk=DMIN,
+                    size=DSIZE)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say("launches by path: {}".format(json.dumps(launches)))
@@ -1862,13 +2181,24 @@ def run(seed):
         XL, XT, XB, json.dumps(
             [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                 "max_abs_err")} for r in long_rows])))
+    say("crf on score streams at L={} (T={}, B={}; device-memory "
+        "instance): {}".format(YL, YT, YB, json.dumps(
+            [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                "max_abs_err")} for r in longest_rows])))
     say("cat_mod routes (training step, peak memory, loss alone): {}"
         .format(json.dumps(routes)))
+    say("trainer defaults steps (mLstm {}/5/19): {}".format(
+        DSIZE, json.dumps(defaults)))
+    for k in kernels:
+        if "iw_ms" in k:
+            say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
+                k["name"], H, k["iw_ms"], k["iw_bound_ms"]))
     # the path each row's launches come from: kernels 1-3 the mLstm
     # basecall path, 4-6 the mLstm training path, 7 the mGru basecall path,
     # 8 the mGru training path, 11-13 the training paths under the
     # residual switches, and 9-10 the cat_mod training path under
-    # TAIYAKI_TPU_NO_SCORE_FUSE=1
+    # TAIYAKI_TPU_NO_SCORE_FUSE=1, 14-17 the paths of lstm_scan and
+    # gru_scan
     source = {"lstm_fwd": "mLstm basecall", "logz_fwd": "mLstm basecall",
               "logz_posteriors": "mLstm basecall",
               "lstm_bwd_acts": "mLstm training", "crf_fwd": "mLstm training",
@@ -1878,13 +2208,17 @@ def run(seed):
               "lstm_bwd_recompute": "mLstm training recompute",
               "gru_bwd_fusedw": "mGru training stored",
               "crf_fwd_streams": "mLstm cat_mod training streams",
-              "crf_bwd_posteriors": "mLstm cat_mod training streams"}
+              "crf_bwd_posteriors": "mLstm cat_mod training streams",
+              "lstm_scan_fwd": "lstm_scan", "lstm_scan_bwd": "lstm_scan",
+              "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    check(len(kernels) == len(counters) == 13, "kernels line: {} rows".format(
+    check(len(kernels) == len(counters) == 17, "kernels line: {} rows".format(
         len(kernels)))
+    check(all(k["launches"] > 0 for k in kernels),
+          "kernels line: a kernel its path did not launch")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}))
     print(card)

@@ -16,7 +16,8 @@ of --mod_prior_factor) scaled per iteration by the --mod_factor ramp.
 Outputs in --outdir: model.log, batch.log (iter, loss, gradientmax, gradientcap,
 learning_rate, chunk_len), validation.log and model_checkpoint_XXXXX /
 model_final .checkpoint and .params in the JAX package's checkpoint
-format (no optimizer state).  --device defaults to the card; --device cpu
+format, the optimizer state included (a checkpoint given as `model`
+resumes it).  --device defaults to the card; --device cpu
 runs the kernels' plain twins.  f32 throughout (TF32 off).
 """
 
@@ -24,7 +25,6 @@ import argparse
 import os
 import sys
 import time
-import warnings
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -315,11 +315,6 @@ def main(argv=None):
                            **model_kwargs)
     if params is None:
         params = net.init(rng)
-    if opt_state_ckpt is not None:
-        warnings.warn('the checkpoint\'s optimizer state is not loaded (the '
-                      'port resumes the parameters only)', RuntimeWarning)
-        log.write('* Optimizer state in the checkpoint is not loaded; the '
-                  'optimizer starts afresh.\n')
     head = net.sublayers[-1]
     is_cat_mod = layers.is_cat_mod_model(net)
     if is_cat_mod:
@@ -375,6 +370,8 @@ def main(argv=None):
     if args.min_momentum is not None:
         log.write('* Momentum cycling between {} and {} (inverse to LR).\n'
                   .format(args.adam[0], args.min_momentum))
+    if opt_state_ckpt is not None:
+        optimizer.load_jax_state(net, opt_state_ckpt)
     log.write('* Learning rate increases from {:.2e} to {:.2e} over {} '
               'iterations using cosine schedule.\n'.format(
                   lr_warmup, args.lr_max, args.warmup_batches))
@@ -534,10 +531,22 @@ def main(argv=None):
             time_last = time.time()
             total_bases = total_samples = 0
 
+    # a checkpoint's weights and optimizer state are copied to the host
+    # when it is taken and written to disk on a writer thread, overlapping
+    # the steps that follow; each save first waits for the one before
+    writer = ThreadPoolExecutor(max_workers=1)
+    writing = None
+
     def save(index):
-        return helpers.save_model(args.outdir, net, params_to_jax(net),
-                                  model_source, model_kwargs, metadata,
-                                  index)
+        nonlocal writing
+        if writing is not None:
+            writing.result()
+        writing = writer.submit(
+            helpers.save_model, args.outdir, net, params_to_jax(net),
+            model_source, model_kwargs, metadata, index,
+            optimizer.jax_state(net))
+        return os.path.join(args.outdir,
+                            helpers.checkpoint_name(index) + '.checkpoint')
 
     prof = None
     for curr_iter in range(args.niteration):
@@ -613,6 +622,8 @@ def main(argv=None):
         prof.__exit__(None, None, None)
         _write_trace(prof, args.outdir, log)
     save(None)
+    writing.result()
+    writer.shutdown()
     log.write('\n* Training complete.\n')
     for lg in (log, batch_log, val_log):
         lg.close()

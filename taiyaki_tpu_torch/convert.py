@@ -31,7 +31,7 @@ def params_from_jax(net, params):
     Returns an OrderedDict of f32 CPU tensors with `net.state_dict()`'s
     keys and shapes; raises if the pytree does not fit `net`.
     """
-    flat = _flatten(params, "", OrderedDict())
+    flat = flat_params(params)
     want = net.state_dict()
     if set(flat) != set(want):
         raise ValueError(
@@ -67,6 +67,17 @@ def params_to_jax(net):
     return tree
 
 
+def flat_params(tree):
+    """A JAX parameter pytree (or one shaped like it) as {state_dict key:
+    leaf}."""
+    return _flatten(tree, "", OrderedDict())
+
+
+def name_tree(net):
+    """`net`'s parameter pytree with each leaf its state_dict key."""
+    return _name_tree(net, "")
+
+
 def _name_tree(net, prefix):
     if isinstance(net, nn.ModuleList):
         return [_name_tree(m, "{}{}.".format(prefix, i))
@@ -95,4 +106,4 @@ def leaf_names(net):
     pytree (`jax.tree.leaves`: dict keys sorted, lists in order), the
     order of the JAX trainer's per-tensor clip thresholds and gradient
     maxima; an Lstm's parameters come as b, iW, sW."""
-    return _leaves(_name_tree(net, ""), [])
+    return _leaves(name_tree(net), [])

@@ -79,6 +79,21 @@
 // to 512 and 1024 threads, whose register budget (128, 64) makes the
 // compiler spill the per-position registers of the largest cases: that
 // costs time there, not correctness.
+//
+// Past 16384 positions (a chunk of over 80 000 samples at stride 5, which
+// the JAX package trains on its unfused route) a second instance of each
+// (crf_fwd_streams_gmem_kernel, crf_bwd_posteriors_gmem_kernel) keeps the
+// row's [L] vector in device memory instead: a caller-allocated scratch of
+// [B, 2, L] floats, double-buffered per row as the shared-memory one, 160
+// KB a row at L = 20000, so it stays in the 50 MB L2.  Any L fits: each of
+// 1024 threads walks positions l = tid, tid + 1024, ... in a loop and
+// reads its scores at the step (no registers per position).  The same
+// barriers order the reads of one step before the writes of the next
+// (__syncthreads orders device memory within a block); the backward
+// keeps no terms in registers, so it writes the unnormalised
+// exponentials into the posterior outputs and divides them there once
+// the step's sum is known.  Each position's arithmetic is the
+// shared-memory instance's, in the same order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -654,9 +669,163 @@ int launch_bwd_posteriors(const float* stay, const float* move,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The instances past MAX_L_SMEM positions: the [2][L] vector of each row in
+// device memory (gstate [B, 2, L]), any L.
+constexpr int MAX_L_SMEM = 16384;
+constexpr int GMEM_NT = 1024;
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
+crf_fwd_streams_gmem_kernel(const float* __restrict__ stay,
+                            const float* __restrict__ move,
+                            const int* __restrict__ valid,
+                            float* __restrict__ fwd_final,
+                            float* __restrict__ score_out,
+                            float* __restrict__ lattice, float* gstate,
+                            int T, int B, int L)
+{
+    constexpr int NW = NT / 32;
+    __shared__ float red[2 * NW];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t row = (size_t)blockIdx.x * L;
+    const size_t tstride = (size_t)B * L;
+    float* state = gstate + 2 * row;           // [2][L], unrenormalised
+
+    for (int l = tid; l < L; l += NT)
+        state[l] = (l == 0 && valid[row + l] != 0) ? 0.f : NEG;
+    __syncthreads();
+
+    float prev = 0.f, score = 0.f;
+    for (int t = 0; t < T; ++t) {
+        const float* cur = state + (t & 1) * L;
+        float* nxt = state + ((t + 1) & 1) * L;
+        const size_t off = (size_t)t * tstride + row;
+        float m = NEG;
+        for (int l = tid; l < L; l += NT) {
+            const bool ok = valid[row + l] != 0;
+            const float f = ok ? cur[l] - prev : NEG;
+            if (lattice != nullptr) lattice[off + l] = f;
+            float nw = NEG;
+            if (ok) {
+                const float mpart =
+                    l > 0 ? (cur[l - 1] - prev) + move[off + l - 1] : NEG;
+                nw = logaddexpf_(f + stay[off + l], mpart);
+            }
+            nxt[l] = nw;
+            m = fmaxf(m, nw);
+        }
+        prev = block_max<NT>(m, red + (t & 1) * NW, lane, warp);
+        score += prev;
+    }
+    const float* fin = state + (T & 1) * L;
+    for (int l = tid; l < L; l += NT)
+        fwd_final[row + l] = valid[row + l] != 0 ? fin[l] - prev : NEG;
+    if (tid == 0) score_out[blockIdx.x] = score;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(NT)
+crf_bwd_posteriors_gmem_kernel(const float* __restrict__ stay,
+                               const float* __restrict__ move,
+                               const float* __restrict__ lattice,
+                               const int* __restrict__ valid,
+                               const int* __restrict__ lastpos,
+                               float* __restrict__ post_stay,
+                               float* __restrict__ post_move,
+                               float* gstate, int T, int B, int L)
+{
+    constexpr int NW = NT / 32;
+    __shared__ float red[4 * NW];              // [2][2][NW] term and state max
+    __shared__ float sums[2 * NW];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t row = (size_t)blockIdx.x * L;
+    const size_t tstride = (size_t)B * L;
+    const int last = lastpos[blockIdx.x];
+    float* state = gstate + 2 * row;           // [2][L], unrenormalised
+
+    for (int l = tid; l < L; l += NT)
+        state[l] = (l == last && valid[row + l] != 0) ? 0.f : NEG;
+    __syncthreads();
+
+    float prev = 0.f;
+    for (int s = 0; s < T; ++s) {
+        const int t = T - 1 - s;
+        const int buf = s & 1;
+        const float* cur = state + buf * L;
+        float* nxt = state + (buf ^ 1) * L;
+        const size_t off = (size_t)t * tstride + row;
+        // the step's new state, and the max of its transition terms
+        float mt = NEG, mn = NEG;
+        for (int l = tid; l < L; l += NT) {
+            float nw = NEG;
+            if (valid[row + l] != 0) {
+                const float st = stay[off + l];
+                const float fc = lattice[off + l];
+                const float bn = cur[l] - prev;
+                float tm = NEG, mpart = NEG;
+                if (l < last) {
+                    const float mv = move[off + l];
+                    const float bs = cur[l + 1] - prev;
+                    tm = fc + bs + mv;
+                    mpart = mv + bs;
+                }
+                nw = logaddexpf_(st + bn, mpart);
+                mt = fmaxf(mt, fmaxf(fc + bn + st, tm));
+            }
+            nxt[l] = nw;
+            mn = fmaxf(mn, nw);
+        }
+        mt = warp_max(mt);
+        mn = warp_max(mn);
+        float* r = red + buf * 2 * NW;
+        if (lane == 0) {
+            r[warp] = mt;
+            r[NW + warp] = mn;
+        }
+        __syncthreads();
+        float tmax = r[0], factor = r[NW];
+#pragma unroll
+        for (int w = 1; w < NW; ++w) {
+            tmax = fmaxf(tmax, r[w]);
+            factor = fmaxf(factor, r[NW + w]);
+        }
+        // the terms again (cur is not written before the next barrier),
+        // exponentiated into the outputs
+        float part = 0.f;
+        for (int l = tid; l < L; l += NT) {
+            float ts = NEG, tm = NEG;
+            if (valid[row + l] != 0) {
+                const float fc = lattice[off + l];
+                const float bn = cur[l] - prev;
+                ts = fc + bn + stay[off + l];
+                if (l < last) tm = fc + (cur[l + 1] - prev) + move[off + l];
+            }
+            ts = ts > 0.5f * NEG ? expf(ts - tmax) : 0.f;
+            tm = tm > 0.5f * NEG ? expf(tm - tmax) : 0.f;
+            post_stay[off + l] = ts;
+            post_move[off + l] = tm;
+            part += ts + tm;
+        }
+        part = warp_sum(part);
+        if (lane == 0) sums[buf * NW + warp] = part;
+        __syncthreads();
+        float den = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) den += sums[buf * NW + w];
+        // a row with no path gets all-zero posteriors (pallas_crf.py:197)
+        den = den > 0.f ? den : 1.f;
+        for (int l = tid; l < L; l += NT) {
+            post_stay[off + l] = post_stay[off + l] / den;
+            post_move[off + l] = post_move[off + l] / den;
+        }
+        prev = factor;
+    }
+}
+
 }  // namespace
 
 // (threads, positions per thread) by lattice width: up to 16384 positions
+// in shared memory
 #define TT_STREAM_CASES(CALL)                                   \
     if (L <= 256) return CALL(256, 1);                          \
     if (L <= 512) return CALL(256, 2);                          \
@@ -717,13 +886,23 @@ int tt_crf_bwd(const float* lp, const int* sidx, const int* midx,
 }
 
 // stay, move [T, B, L]; valid [B, L] int32 -> fwd_final [B, L], score [B]
-// (the summed renormalisers), lattice [T, B, L] (may be null).
+// (the summed renormalisers), lattice [T, B, L] (may be null).  Past
+// 16384 positions the vector lives in gstate [B, 2, L] (scratch; may be
+// null below).
 int tt_crf_fwd_streams(const float* stay, const float* move,
                        const int* valid, float* fwd_final, float* score,
-                       float* lattice, int T, int B, int L, void* stream)
+                       float* lattice, float* gstate, int T, int B, int L,
+                       void* stream)
 {
     if (B == 0 || L == 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (L > MAX_L_SMEM) {
+        if (gstate == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+        crf_fwd_streams_gmem_kernel<GMEM_NT><<<B, GMEM_NT, 0, st>>>(
+            stay, move, valid, fwd_final, score, lattice, gstate, T, B, L);
+        return static_cast<int>(cudaGetLastError());
+    }
 #define TT_FWDS(NT, P) launch_fwd_streams<NT, P>(                     \
         stay, move, valid, fwd_final, score, lattice, T, B, L, st)
     TT_STREAM_CASES(TT_FWDS)
@@ -731,15 +910,23 @@ int tt_crf_fwd_streams(const float* stay, const float* move,
 }
 
 // ... + lattice [T, B, L] of tt_crf_fwd_streams, last [B] int32 ->
-// post_stay, post_move [T, B, L].
+// post_stay, post_move [T, B, L]; gstate as tt_crf_fwd_streams'.
 int tt_crf_bwd_posteriors(const float* stay, const float* move,
                           const float* lattice, const int* valid,
                           const int* last, float* post_stay,
-                          float* post_move, int T, int B, int L,
-                          void* stream)
+                          float* post_move, float* gstate, int T, int B,
+                          int L, void* stream)
 {
     if (B == 0 || T == 0 || L == 0) return 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (L > MAX_L_SMEM) {
+        if (gstate == nullptr)
+            return static_cast<int>(cudaErrorInvalidValue);
+        crf_bwd_posteriors_gmem_kernel<GMEM_NT><<<B, GMEM_NT, 0, st>>>(
+            stay, move, lattice, valid, last, post_stay, post_move, gstate,
+            T, B, L);
+        return static_cast<int>(cudaGetLastError());
+    }
 #define TT_BWDP(NT, P) launch_bwd_posteriors<NT, P>(                  \
         stay, move, lattice, valid, last, post_stay, post_move, T, B, L, st)
     TT_STREAM_CASES(TT_BWDP)

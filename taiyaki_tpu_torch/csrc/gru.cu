@@ -20,6 +20,19 @@
 // - tt_gru_bwd_fusedw replaces pallas_rnn.py:1184 `gru_bwd_fusedw`: from
 //   dh and the forward's gx, gh and h_prev.
 //
+// The recurrence on given gates, without the input product (the public
+// op `gru_scan` of ops/rnn.py), runs the same chains:
+// - tt_gru_scan_fwd replaces pallas_rnn.py:1082 `gru_fwd`: h, and with gh
+//   non-null gh beside it, from gates_x [T, B, 3H] (kernel 2, reading the
+//   caller's gates, never writing them);
+// - tt_gru_scan_bwd replaces pallas_rnn.py:1407 `gru_bwd`: dgx and dgh
+//   [T, B, 3H] from dh, gates_x, gh and h_prev (kernel 3 with scratch of
+//   its own), and with iW also d_x = dgx . iW by kernel 1, the product the
+//   TPU kernel forms in its body (`_gru_bwd_dx_kernel`).
+// Bound: the serial chain, as for the layer kernels (at T=2000, B=256,
+// H=256 the operations bound is 3.0 ms and the bytes bound 1.1-2.2 ms,
+// against tens of ms of chain).
+//
 // Kernels:
 //
 // 1. gate_gemm_kernel (gemm.cuh).  Forward: gx = x . iW^T + b [T, B, 3H],
@@ -301,6 +314,23 @@ int launch_gru_rec(const float* gx, const float* swt, float* h, float* gh,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The backward chain (kernel 3) alone: dgx, dgh and the per-tile d_b.
+int launch_gru_bwd_rec(const float* dh, const float* hp, int hshift,
+                       const float* gx, const float* gh, float* dgx,
+                       float* dgh, const float* sw, float* db_part, int T,
+                       int B, int H, int reverse, cudaStream_t st)
+{
+    const size_t smem = 2 * sizeof(float) * 3 * H * REC_BT;
+    int rc;
+    if ((rc = set_smem((const void*)gru_bwd_rec_kernel<REC_BT>, smem)))
+        return rc;
+    const int threads = (H + 31) / 32 * 32;
+    const int blocks = (B + REC_BT - 1) / REC_BT;
+    gru_bwd_rec_kernel<REC_BT><<<blocks, threads, smem, st>>>(
+        dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // The chain (kernel 3) and the three products after it (d_x, d_iW, d_sW);
 // h_prev of step t is hp[t + hshift].
 int gru_bwd_chain(const float* dh, const float* hp, int hshift,
@@ -311,17 +341,10 @@ int gru_bwd_chain(const float* dh, const float* hp, int hshift,
                   cudaStream_t st)
 {
     const int M = T * B, H3 = 3 * H;
-    const size_t smem = 2 * sizeof(float) * H3 * REC_BT;
-    int rc;
-    if ((rc = set_smem((const void*)gru_bwd_rec_kernel<REC_BT>, smem)))
-        return rc;
-    const int threads = (H + 31) / 32 * 32;
-    const int blocks = (B + REC_BT - 1) / REC_BT;
-    gru_bwd_rec_kernel<REC_BT><<<blocks, threads, smem, st>>>(
-        dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-
+    int rc = launch_gru_bwd_rec(dh, hp, hshift, gx, gh, dgx, dgh, sw,
+                                db_part, T, B, H, reverse, st);
+    if (rc) return rc;
+    cudaError_t err;
     if ((err = launch_gate_gemm(dgx, iwt, nullptr, dx, M, D, H3, st))
             != cudaSuccess)
         return static_cast<int>(err);
@@ -418,6 +441,39 @@ int tt_gru_bwd_fusedw(const float* dh, const float* gx, const float* gh,
     return gru_bwd_chain(dh, hprev, 0, gx, gh, dgx, dgh, x, sw, iwt, dx,
                          dsw_part, diw_part, db_part, T, B, D, H, reverse,
                          nsplit, st);
+}
+
+// Kernel 16: the GRU recurrence on given gates.  gx [T, B, 3H] (read
+// only), swt = sW^T [H, 3H] -> h [T, B, H]; with gh non-null also gh
+// [T, B, 3H] = h_prev . sW^T.  Returns cudaGetLastError().
+int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
+                    int T, int B, int H, int reverse, void* stream)
+{
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (T * B == 0) return 0;
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    if (gh != nullptr)
+        return launch_gru_rec<true>(gx, swt, h, gh, T, B, H, reverse, st);
+    return launch_gru_rec<false>(gx, swt, h, nullptr, T, B, H, reverse, st);
+}
+
+// Kernel 17: the GRU gradient chain on the forward's residuals.  dh,
+// hprev [T, B, H], gx, gh [T, B, 3H] (read only), sw = sW [3H, H] -> dgx,
+// dgh [T, B, 3H]; db_part [ceil(B/8), 3H] is scratch.  With iwt = iW^T
+// [D, 3H] non-null also dx [T, B, D] = dgx . iW.
+int tt_gru_scan_bwd(const float* dh, const float* gx, const float* gh,
+                    const float* hprev, const float* sw, const float* iwt,
+                    float* dgx, float* dgh, float* dx, float* db_part, int T,
+                    int B, int D, int H, int reverse, void* stream)
+{
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (T * B == 0) return 0;
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    int rc = launch_gru_bwd_rec(dh, hprev, 0, gx, gh, dgx, dgh, sw, db_part,
+                                T, B, H, reverse, st);
+    if (rc || iwt == nullptr) return rc;
+    return static_cast<int>(launch_gate_gemm(dgx, iwt, nullptr, dx, T * B,
+                                             D, 3 * H, st));
 }
 
 }  // extern "C"

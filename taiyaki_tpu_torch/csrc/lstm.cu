@@ -19,6 +19,20 @@
 //   pallas_rnn.py:625 `lstm_bwd_recompute`: it rebuilds pre, then runs
 //   the chain of `from_pre`.
 //
+// The recurrence on given gates, without the input product (the public
+// op `lstm_scan` of ops/rnn.py), runs the same chains:
+// - tt_lstm_scan_fwd replaces pallas_rnn.py:141 `lstm_fwd`: h, and for the
+//   backward c and pre, from gates_x [T, B, 4H] (kernel 2 under EMIT_H, or
+//   EMIT_PRE on a copy of gates_x in the pre output, since EMIT_PRE writes
+//   pre over the stream it reads and gates_x belongs to the caller);
+// - tt_lstm_scan_bwd replaces pallas_rnn.py:726 `lstm_bwd`: dpre [T, B,
+//   4H] (= d gates_x) from dh, pre, c and c_prev (kernel 3 with FROM_PRE),
+//   and with iW also d_x = dpre . iW by kernel 1, the product the TPU
+//   kernel forms in its body (`_lstm_bwd_dx_kernel`).
+// Bound: the serial chain, as for the layer kernels (at T=800, B=256,
+// H=256 the operations bound is 1.6 ms and the bytes bound 0.6-0.7 ms,
+// against tens of ms of chain).
+//
 // Kernels:
 //
 // 1. gate_gemm_kernel (gemm.cuh): gx = x . iW^T + b, which the TPU kernel
@@ -313,6 +327,25 @@ int launch_lstm_rec(float* gx, const float* swt, float* h, float* c,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The backward chain (kernel 3) alone: dpre and the per-tile d_b.
+template <bool FROM_PRE>
+int launch_lstm_bwd_rec(const float* dh, const float* gates, const float* cs,
+                        const float* cprev, int cshift, const float* sw,
+                        float* dpre, float* db_part, int T, int B, int H,
+                        int reverse, cudaStream_t st)
+{
+    const size_t smem = 2 * sizeof(float) * 4 * H * REC_BT;
+    int rc;
+    if ((rc = set_smem((const void*)lstm_bwd_rec_kernel<REC_BT, FROM_PRE>,
+                       smem)))
+        return rc;
+    const int threads = (H + 31) / 32 * 32;
+    const int blocks = (B + REC_BT - 1) / REC_BT;
+    lstm_bwd_rec_kernel<REC_BT, FROM_PRE><<<blocks, threads, smem, st>>>(
+        dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // The chain (kernel 3) and the three products after it (d_x, d_iW, d_sW);
 // arguments as tt_lstm_bwd's, c_prev of step t being cprev[t + cshift].
 template <bool FROM_PRE>
@@ -324,17 +357,11 @@ int lstm_bwd_chain(const float* dh, const float* gates, const float* cs,
                    int nsplit, cudaStream_t st)
 {
     const int M = T * B, H4 = 4 * H;
-    const size_t smem = 2 * sizeof(float) * H4 * REC_BT;
-    int rc;
-    if ((rc = set_smem((const void*)lstm_bwd_rec_kernel<REC_BT, FROM_PRE>,
-                       smem)))
-        return rc;
-    const int threads = (H + 31) / 32 * 32;
-    const int blocks = (B + REC_BT - 1) / REC_BT;
-    lstm_bwd_rec_kernel<REC_BT, FROM_PRE><<<blocks, threads, smem, st>>>(
-        dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    int rc = launch_lstm_bwd_rec<FROM_PRE>(dh, gates, cs, cprev, cshift, sw,
+                                           dpre, db_part, T, B, H, reverse,
+                                           st);
+    if (rc) return rc;
+    cudaError_t err;
     if ((err = launch_gate_gemm(dpre, iwt, nullptr, dx, M, D, H4, st))
             != cudaSuccess)
         return static_cast<int>(err);
@@ -444,6 +471,50 @@ int tt_lstm_bwd_recompute(const float* dh, const float* c, const float* h,
     return lstm_bwd_chain<true>(dh, pre, c, c, reverse ? 1 : -1, h, x, sw,
                                 iwt, dpre, dx, dsw_part, diw_part, db_part,
                                 T, B, D, H, reverse, nsplit, st);
+}
+
+// Kernel 14: the LSTM recurrence on given gates.  gx [T, B, 4H] (read
+// only), swt = sW^T [H, 4H] -> h [T, B, H]; with pre non-null also c
+// [T, B, H] and pre [T, B, 4H] (gx copied into pre, then overwritten in
+// place by the chain).  Returns cudaGetLastError() after the first failing
+// launch or copy, else 0.
+int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
+                     float* h, float* c, int T, int B, int H, int reverse,
+                     void* stream)
+{
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (T * B == 0) return 0;
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    if (pre == nullptr)
+        return launch_lstm_rec<EMIT_H>(const_cast<float*>(gx), swt, h,
+                                       nullptr, nullptr, nullptr, T, B, H,
+                                       reverse, st);
+    cudaError_t err = cudaMemcpyAsync(pre, gx,
+                                      sizeof(float) * T * B * 4 * H,
+                                      cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_lstm_rec<EMIT_PRE>(pre, swt, h, c, nullptr, nullptr, T, B,
+                                     H, reverse, st);
+}
+
+// Kernel 15: the LSTM gradient chain on the forward's residuals.  dh, c,
+// cprev [T, B, H], pre [T, B, 4H], sw = sW [4H, H] -> dpre [T, B, 4H];
+// db_part [ceil(B/8), 4H] is scratch (the chain sums d_b, which the
+// recurrence on given gates has no use for).  With iwt = iW^T [D, 4H]
+// non-null also dx [T, B, D] = dpre . iW.
+int tt_lstm_scan_bwd(const float* dh, const float* pre, const float* c,
+                     const float* cprev, const float* sw, const float* iwt,
+                     float* dpre, float* dx, float* db_part, int T, int B,
+                     int D, int H, int reverse, void* stream)
+{
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (T * B == 0) return 0;
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    int rc = launch_lstm_bwd_rec<true>(dh, pre, c, cprev, 0, sw, dpre,
+                                       db_part, T, B, H, reverse, st);
+    if (rc || iwt == nullptr) return rc;
+    return static_cast<int>(launch_gate_gemm(dpre, iwt, nullptr, dx, T * B,
+                                             D, 4 * H, st));
 }
 
 }  // extern "C"

@@ -6,6 +6,8 @@ the streams pair (kernels 9-10, `crf_fwd_streams` and
 `crf_bwd_posteriors`) runs the same recursions on stay and move score
 streams [T, B, L] that the caller selected, and leaves the scatter of
 posteriors into d lp to the caller (`ops.flipflop` chooses the pair).
+The streams pair takes any L: past MAX_L_STREAMS positions its kernels'
+second instance keeps each row's vector in device memory.
 
 `crf_fwd` computes what the TPU kernel taiyaki_tpu/ops/pallas_crf.py:423
 `crf_forward_fused` computes and `crf_bwd` what pallas_crf.py:565
@@ -31,12 +33,14 @@ from taiyaki_tpu_torch.ops import cuda_lib
 NEG = -1e30
 MAX_L = 8192     # 256 threads x up to 32 positions each (csrc/crf.cu)
 MAX_S = 128
-MAX_L_STREAMS = 16384   # kernels 9-10: 1024 threads x 16 positions
+# kernels 9-10 keep a row's lattice vector in shared memory up to this
+# many positions (1024 threads x 16), in device memory past it
+MAX_L_STREAMS = 16384
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],
                "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P],
-               "tt_crf_fwd_streams": [_P] * 6 + [_I] * 3 + [_P],
-               "tt_crf_bwd_posteriors": [_P] * 7 + [_I] * 3 + [_P]}
+               "tt_crf_fwd_streams": [_P] * 7 + [_I] * 3 + [_P],
+               "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P]}
 
 
 def _select(lp_t, idx):
@@ -305,10 +309,13 @@ def _check_streams(what, stay_all, move_all, valid):
         ("stay_all", stay_all, (T, B, L), torch.float32),
         ("move_all", move_all, (T, B, L), torch.float32),
         ("valid", valid, (B, L), torch.int32)))
-    if L > MAX_L_STREAMS:
-        raise ValueError("{}: L {} beyond the kernel's {}".format(
-            what, L, MAX_L_STREAMS))
     return T, B, L
+
+
+def _state_scratch(B, L, dev):
+    """The device-memory lattice vectors [B, 2, L] of the kernels' instance
+    past MAX_L_STREAMS positions, or None below it."""
+    return torch.empty(B, 2, L, device=dev) if L > MAX_L_STREAMS else None
 
 
 def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
@@ -323,10 +330,12 @@ def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
         fwd = torch.empty(B, L, device=dev)
         score = torch.empty(B, device=dev)
         lattice = torch.empty(T, B, L, device=dev) if emit_lattice else None
+        gstate = _state_scratch(B, L, dev)
         err = lib.tt_crf_fwd_streams(
             cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
             cuda_lib.ptr(valid), cuda_lib.ptr(fwd), cuda_lib.ptr(score),
-            cuda_lib.ptr(lattice), T, B, L, cuda_lib.stream(dev))
+            cuda_lib.ptr(lattice), cuda_lib.ptr(gstate), T, B, L,
+            cuda_lib.stream(dev))
         crf_fwd_streams.launches += 1
     cuda_lib.check(lib, err, "crf_fwd_streams kernel")
     return fwd, score, lattice
@@ -347,11 +356,12 @@ def crf_bwd_posteriors(stay_all, move_all, lattice, valid, last):
     with torch.cuda.device(dev):
         post_stay = torch.empty(T, B, L, device=dev)
         post_move = torch.empty(T, B, L, device=dev)
+        gstate = _state_scratch(B, L, dev)
         err = lib.tt_crf_bwd_posteriors(
             cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
             cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
-            cuda_lib.ptr(post_stay), cuda_lib.ptr(post_move), T, B, L,
-            cuda_lib.stream(dev))
+            cuda_lib.ptr(post_stay), cuda_lib.ptr(post_move),
+            cuda_lib.ptr(gstate), T, B, L, cuda_lib.stream(dev))
         crf_bwd_posteriors.launches += 1
     cuda_lib.check(lib, err, "crf_bwd_posteriors kernel")
     return post_stay, post_move

@@ -16,6 +16,12 @@ order is CUDNN's (r, z, n); the cell has no hidden bias:
 The port takes any T as it is (no time padding); `reverse` walks time
 backwards and keeps the outputs in natural order.
 
+`gru_scan_fwd` and `gru_scan_bwd` are the recurrence on given input gates
+without the input product, what pallas_rnn.py:1082 `gru_fwd` and :1407
+`gru_bwd` compute: h (and the residual gh) from gates_x [T, B, 3H], and
+the gradients dgx (= d gates_x) and dgh, with iW also d_x.  They run the
+layer kernels' chains (csrc/gru.cu).
+
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
@@ -23,13 +29,16 @@ launches, or the wrapper raises.
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib
-from taiyaki_tpu_torch.ops.lstm import (_check_args, _check_hidden,
-                                        bwd_outputs, prev_state)
+from taiyaki_tpu_torch.ops.lstm import (BATCH_TILE, _check_args,
+                                        _check_hidden, bwd_outputs,
+                                        prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 5 + [_P],
                "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P],
-               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P]}
+               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P],
+               "tt_gru_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
+               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 5 + [_P]}
 
 
 def _cell(gx_t, gh_t, h):
@@ -46,19 +55,26 @@ def gru_fwd_plain(x, iW, b, sW, reverse=False, emit_residuals=False):
     """Plain PyTorch GRU forward: x [T, B, D], iW [3H, D], b [3H],
     sW [3H, H] -> h [T, B, H]; with emit_residuals (h, gh, gx), gh and gx
     [T, B, 3H] (the order of the JAX package)."""
-    T, B, _ = x.shape
-    H = sW.shape[1]
     gx = torch.matmul(x, iW.t()) + b
-    h = x.new_zeros(B, H)
-    out = x.new_empty(T, B, H)
-    gh = x.new_empty(T, B, 3 * H) if emit_residuals else None
+    out, gh = _gru_rec_plain(gx, sW, reverse, emit_residuals)
+    return (out, gh, gx) if emit_residuals else out
+
+
+def _gru_rec_plain(gx, sW, reverse, residuals):
+    """The recurrence on the input gates gx [T, B, 3H]: (h, gh), gh None
+    unless residuals."""
+    T, B, _ = gx.shape
+    H = sW.shape[1]
+    h = gx.new_zeros(B, H)
+    out = gx.new_empty(T, B, H)
+    gh = gx.new_empty(T, B, 3 * H) if residuals else None
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         gh_t = torch.matmul(h, sW.t())
         h = _cell(gx[t], gh_t, h)[3]
         out[t] = h
-        if emit_residuals:
+        if residuals:
             gh[t] = gh_t
-    return (out, gh, gx) if emit_residuals else out
+    return out, gh
 
 
 def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False):
@@ -104,6 +120,19 @@ def gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
         the weight gradients as one partial each.
     """
     T, B, H = dh.shape
+    dgx, dgh = _gru_dgrads_plain(dh, gx, gh, h_prev, sW, reverse)
+    d_x = torch.matmul(dgx, iW)
+    fx = dgx.reshape(T * B, 3 * H)
+    d_iW = torch.matmul(fx.t(), x.reshape(T * B, -1))
+    d_sW = torch.matmul(dgh.reshape(T * B, 3 * H).t(),
+                        h_prev.reshape(T * B, H))
+    return d_x, d_sW[None], d_iW[None], fx.sum(0)[None]
+
+
+def _gru_dgrads_plain(dh, gx, gh, h_prev, sW, reverse):
+    """The gradient chain: (dgx, dgh) [T, B, 3H] from dh, the gate streams
+    and h_prev, walking opposite to the forward direction."""
+    T, B, H = dh.shape
     dgx = dh.new_empty(T, B, 3 * H)
     dgh = dh.new_empty(T, B, 3 * H)
     dh_c = dh.new_zeros(B, H)
@@ -116,12 +145,7 @@ def gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
         dgx[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=1)
         dgh[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=1)
         dh_c = torch.matmul(dgh[t], sW) + d * z
-    d_x = torch.matmul(dgx, iW)
-    fx = dgx.reshape(T * B, 3 * H)
-    d_iW = torch.matmul(fx.t(), x.reshape(T * B, -1))
-    d_sW = torch.matmul(dgh.reshape(T * B, 3 * H).t(),
-                        h_prev.reshape(T * B, H))
-    return d_x, d_sW[None], d_iW[None], fx.sum(0)[None]
+    return dgx, dgh
 
 
 def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
@@ -201,6 +225,90 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
     return out
 
 
+def gru_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False):
+    """Plain PyTorch GRU recurrence on given input gates gates_x [T, B, 3H]
+    (= x . iW^T + b, gate order r, z, n), sW [3H, H] -> h [T, B, H]; with
+    residuals (h, gh [T, B, 3H])."""
+    out, gh = _gru_rec_plain(gates_x, sW, reverse, residuals)
+    return (out, gh) if residuals else out
+
+
+def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False):
+    """The GRU recurrence on given gates (kernel 16); contract of
+    `gru_scan_fwd_plain`.  gates_x is read, never written."""
+    if gates_x.device.type == "cpu":
+        return gru_scan_fwd_plain(gates_x, sW, reverse, residuals)
+    what = "gru_scan_fwd"
+    cuda_lib.check_cuda(gates_x, what)
+    T, B = gates_x.shape[:2]
+    H = sW.shape[1]
+    _check_args(what, gates_x.device, (
+        ("gates_x", gates_x, (T, B, 3 * H)), ("sW", sW, (3 * H, H))))
+    _check_hidden(what, H)
+    lib = cuda_lib.load("gru", _SIGNATURES)
+    dev = gates_x.device
+    with torch.cuda.device(dev):
+        swt = sW.t().contiguous()
+        h = torch.empty(T, B, H, device=dev)
+        gh = torch.empty(T, B, 3 * H, device=dev) if residuals else None
+        err = lib.tt_gru_scan_fwd(
+            cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(h),
+            cuda_lib.ptr(gh), T, B, H, int(bool(reverse)),
+            cuda_lib.stream(dev))
+        gru_scan_fwd.launches += 1
+    cuda_lib.check(lib, err, what + " kernel")
+    return (h, gh) if residuals else h
+
+
+def gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
+    """Plain PyTorch GRU gradient chain on the recurrence's residuals: dh,
+    h_prev [T, B, H], gates_x, gh [T, B, 3H], sW [3H, H] -> (dgx, dgh)
+    [T, B, 3H] (dgx = d gates_x); with iW [3H, D] (dgx, dgh, d_x = dgx .
+    iW [T, B, D]).  `reverse` is the forward's direction; the chain walks
+    opposite."""
+    dgx, dgh = _gru_dgrads_plain(dh, gates_x, gh, h_prev, sW, reverse)
+    if iW is None:
+        return dgx, dgh
+    return dgx, dgh, torch.matmul(dgx, iW)
+
+
+def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
+    """The GRU gradient chain on given gates (kernel 17); contract of
+    `gru_scan_bwd_plain`.  gates_x and gh are read, never written."""
+    if dh.device.type == "cpu":
+        return gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse, iW)
+    what = "gru_scan_bwd"
+    cuda_lib.check_cuda(dh, what)
+    T, B, H = dh.shape
+    specs = [("dh", dh, (T, B, H)), ("gates_x", gates_x, (T, B, 3 * H)),
+             ("gh", gh, (T, B, 3 * H)), ("h_prev", h_prev, (T, B, H)),
+             ("sW", sW, (3 * H, H))]
+    D = 0 if iW is None else iW.shape[1]
+    if iW is not None:
+        specs.append(("iW", iW, (3 * H, D)))
+    _check_args(what, dh.device, specs)
+    _check_hidden(what, H)
+    lib = cuda_lib.load("gru", _SIGNATURES)
+    dev = dh.device
+    with torch.cuda.device(dev):
+        iwt = None if iW is None else iW.t().contiguous()
+        dgx = torch.empty(T, B, 3 * H, device=dev)
+        dgh = torch.empty(T, B, 3 * H, device=dev)
+        d_x = None if iW is None else torch.empty(T, B, D, device=dev)
+        db = torch.empty(-(-B // BATCH_TILE), 3 * H, device=dev)
+        err = lib.tt_gru_scan_bwd(
+            cuda_lib.ptr(dh), cuda_lib.ptr(gates_x), cuda_lib.ptr(gh),
+            cuda_lib.ptr(h_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
+            cuda_lib.ptr(dgx), cuda_lib.ptr(dgh), cuda_lib.ptr(d_x),
+            cuda_lib.ptr(db), T, B, D, H, int(bool(reverse)),
+            cuda_lib.stream(dev))
+        gru_scan_bwd.launches += 1
+    cuda_lib.check(lib, err, what + " kernel")
+    return (dgx, dgh) if iW is None else (dgx, dgh, d_x)
+
+
 gru_fwd.launches = 0
+gru_scan_fwd.launches = 0
+gru_scan_bwd.launches = 0
 gru_bwd_recompute.launches = 0
 gru_bwd_fusedw.launches = 0

@@ -14,6 +14,12 @@ the batch and time, which the caller adds up.  The port takes any T as it
 is (no time padding, so no masked tail rows); `reverse` walks time
 backwards and keeps the outputs in natural order.
 
+`lstm_scan_fwd` and `lstm_scan_bwd` are the recurrence on given input
+gates without the input product, what pallas_rnn.py:141 `lstm_fwd` and
+:726 `lstm_bwd` compute: h (and the residuals c and pre) from gates_x
+[T, B, 4H], and the gate gradients dpre (= d gates_x), with iW also d_x.
+They run the layer kernels' chains (csrc/lstm.cu).
+
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
@@ -30,7 +36,9 @@ BATCH_TILE = 8
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_P],
                "tt_lstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
-               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 6 + [_P]}
+               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 6 + [_P],
+               "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
+               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 5 + [_P]}
 # the forward's emit modes, in the order csrc/lstm.cu numbers them, and
 # the residuals each returns after h
 RESIDUALS = {None: (), "c": ("c",), "pre": ("c", "pre"),
@@ -43,14 +51,23 @@ def lstm_fwd_plain(x, iW, b, sW, reverse=False, emit=None):
     sW [4H, H] -> h [T, B, H] (gate order i, f, g, o); with emit="c"
     (h, c [T, B, H]); emit="pre" (h, c, pre [T, B, 4H]); emit="acts"
     (h, c, acts [T, B, 4H], tc [T, B, H])."""
-    T, B, _ = x.shape
-    H = sW.shape[1]
-    gx = torch.matmul(x, iW.t()) + b
-    h = x.new_zeros(B, H)
-    c = x.new_zeros(B, H)
-    out = x.new_empty(T, B, H)
     keep = RESIDUALS[emit]
-    res = {k: x.new_empty(T, B, 4 * H if k in ("pre", "acts") else H)
+    out, res = _lstm_rec_plain(torch.matmul(x, iW.t()) + b, sW, reverse,
+                               keep)
+    if emit is None:
+        return out
+    return (out,) + tuple(res[k] for k in keep)
+
+
+def _lstm_rec_plain(gx, sW, reverse, keep):
+    """The recurrence on the input gates gx [T, B, 4H]: (h, {residual:
+    stream}) for the residuals named in `keep`."""
+    T, B, _ = gx.shape
+    H = sW.shape[1]
+    h = gx.new_zeros(B, H)
+    c = gx.new_zeros(B, H)
+    out = gx.new_empty(T, B, H)
+    res = {k: gx.new_empty(T, B, 4 * H if k in ("pre", "acts") else H)
            for k in keep}
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         pre = gx[t] + torch.matmul(h, sW.t())
@@ -67,9 +84,7 @@ def lstm_fwd_plain(x, iW, b, sW, reverse=False, emit=None):
             step["acts"] = torch.cat([i, f, g, o], dim=1)
         for k in keep:
             res[k][t] = step[k]
-    if emit is None:
-        return out
-    return (out,) + tuple(res[k] for k in keep)
+    return out, res
 
 
 def _check_args(what, device, specs):
@@ -150,6 +165,18 @@ def lstm_bwd_acts_plain(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False):
         the weight gradients as one partial each.
     """
     T, B, H = dh.shape
+    dpre = _lstm_dpre_plain(dh, acts, tc, c_prev, sW, reverse)
+    flat = dpre.reshape(T * B, 4 * H)
+    d_x = torch.matmul(dpre, iW)
+    d_iW = torch.matmul(flat.t(), x.reshape(T * B, -1))
+    d_sW = torch.matmul(flat.t(), prev_state(h, reverse).reshape(T * B, H))
+    return d_x, d_sW[None], d_iW[None], flat.sum(0)[None]
+
+
+def _lstm_dpre_plain(dh, acts, tc, c_prev, sW, reverse):
+    """The gradient chain: dpre [T, B, 4H] from dh, the activated gates,
+    tanh(c) and c_prev, walking opposite to the forward direction."""
+    T, B, H = dh.shape
     dpre = dh.new_empty(T, B, 4 * H)
     dh_c = dh.new_zeros(B, H)
     dc_c = dh.new_zeros(B, H)
@@ -165,11 +192,7 @@ def lstm_bwd_acts_plain(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False):
                              d_o * o * (1.0 - o)], dim=1)
         dh_c = torch.matmul(dpre[t], sW)
         dc_c = dc * f
-    flat = dpre.reshape(T * B, 4 * H)
-    d_x = torch.matmul(dpre, iW)
-    d_iW = torch.matmul(flat.t(), x.reshape(T * B, -1))
-    d_sW = torch.matmul(flat.t(), prev_state(h, reverse).reshape(T * B, H))
-    return d_x, d_sW[None], d_iW[None], flat.sum(0)[None]
+    return dpre
 
 
 def _acts_from_pre(pre, c):
@@ -300,7 +323,91 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False):
     return out
 
 
+def lstm_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False):
+    """Plain PyTorch LSTM recurrence on given input gates gates_x [T, B,
+    4H] (= x . iW^T + b, gate order i, f, g, o), sW [4H, H] -> h [T, B, H];
+    with residuals (h, c [T, B, H], pre [T, B, 4H])."""
+    out, res = _lstm_rec_plain(gates_x, sW, reverse,
+                               ("c", "pre") if residuals else ())
+    return (out, res["c"], res["pre"]) if residuals else out
+
+
+def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False):
+    """The LSTM recurrence on given gates (kernel 14); contract of
+    `lstm_scan_fwd_plain`.  gates_x is read, never written."""
+    if gates_x.device.type == "cpu":
+        return lstm_scan_fwd_plain(gates_x, sW, reverse, residuals)
+    what = "lstm_scan_fwd"
+    cuda_lib.check_cuda(gates_x, what)
+    T, B = gates_x.shape[:2]
+    H = sW.shape[1]
+    _check_args(what, gates_x.device, (
+        ("gates_x", gates_x, (T, B, 4 * H)), ("sW", sW, (4 * H, H))))
+    _check_hidden(what, H)
+    lib = cuda_lib.load("lstm", _SIGNATURES)
+    dev = gates_x.device
+    with torch.cuda.device(dev):
+        swt = sW.t().contiguous()
+        h = torch.empty(T, B, H, device=dev)
+        c = pre = None
+        if residuals:
+            c = torch.empty(T, B, H, device=dev)
+            pre = torch.empty(T, B, 4 * H, device=dev)
+        err = lib.tt_lstm_scan_fwd(
+            cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(pre),
+            cuda_lib.ptr(h), cuda_lib.ptr(c), T, B, H, int(bool(reverse)),
+            cuda_lib.stream(dev))
+        lstm_scan_fwd.launches += 1
+    cuda_lib.check(lib, err, what + " kernel")
+    return (h, c, pre) if residuals else h
+
+
+def lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse=False, iW=None):
+    """Plain PyTorch LSTM gradient chain on the recurrence's residuals:
+    dh, c, c_prev [T, B, H], pre [T, B, 4H], sW [4H, H] -> dpre [T, B, 4H]
+    (= d gates_x); with iW [4H, D] (dpre, d_x = dpre . iW [T, B, D]).
+    `reverse` is the forward's direction; the chain walks opposite."""
+    acts, tc = _acts_from_pre(pre, c)
+    dpre = _lstm_dpre_plain(dh, acts, tc, c_prev, sW, reverse)
+    return dpre if iW is None else (dpre, torch.matmul(dpre, iW))
+
+
+def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None):
+    """The LSTM gradient chain on given gates (kernel 15); contract of
+    `lstm_scan_bwd_plain`."""
+    if dh.device.type == "cpu":
+        return lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse, iW)
+    what = "lstm_scan_bwd"
+    cuda_lib.check_cuda(dh, what)
+    T, B, H = dh.shape
+    specs = [("dh", dh, (T, B, H)), ("pre", pre, (T, B, 4 * H)),
+             ("c", c, (T, B, H)), ("c_prev", c_prev, (T, B, H)),
+             ("sW", sW, (4 * H, H))]
+    D = 0 if iW is None else iW.shape[1]
+    if iW is not None:
+        specs.append(("iW", iW, (4 * H, D)))
+    _check_args(what, dh.device, specs)
+    _check_hidden(what, H)
+    lib = cuda_lib.load("lstm", _SIGNATURES)
+    dev = dh.device
+    with torch.cuda.device(dev):
+        iwt = None if iW is None else iW.t().contiguous()
+        dpre = torch.empty(T, B, 4 * H, device=dev)
+        d_x = None if iW is None else torch.empty(T, B, D, device=dev)
+        db = torch.empty(-(-B // BATCH_TILE), 4 * H, device=dev)
+        err = lib.tt_lstm_scan_bwd(
+            cuda_lib.ptr(dh), cuda_lib.ptr(pre), cuda_lib.ptr(c),
+            cuda_lib.ptr(c_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
+            cuda_lib.ptr(dpre), cuda_lib.ptr(d_x), cuda_lib.ptr(db), T, B,
+            D, H, int(bool(reverse)), cuda_lib.stream(dev))
+        lstm_scan_bwd.launches += 1
+    cuda_lib.check(lib, err, what + " kernel")
+    return dpre if iW is None else (dpre, d_x)
+
+
 lstm_fwd.launches = 0
+lstm_scan_fwd.launches = 0
+lstm_scan_bwd.launches = 0
 lstm_bwd_acts.launches = 0
 lstm_bwd_fusedw.launches = 0
 lstm_bwd_recompute.launches = 0

@@ -19,6 +19,14 @@ cells, and TAIYAKI_TPU_ACTS_BWD is read only when the LSTM stores its
 residuals.  On a CPU tensor the plain PyTorch twins run.  `reverse=True`
 runs the recurrence backwards in time with inputs and outputs in natural
 time order.
+
+`lstm_scan` and `gru_scan` are the recurrences over given input gates
+(the JAX package's ops/rnn.py:330 and :597, each with its own VJP): the
+forward keeps h, c and pre (LSTM, kernel 14) or h and gh (GRU, kernel
+16); the backward gives d gates_x from kernel 15 or 17 and d_sW =
+sum_t dgates_t^T h_prev_t as one torch.matmul over all steps (the JAX
+package's einsum outside Pallas).  With no grad, the forward kernel
+emits h alone.
 """
 
 import os
@@ -26,9 +34,9 @@ import os
 import torch
 
 from taiyaki_tpu_torch.ops.gru import gru_bwd_fusedw, gru_bwd_recompute, \
-    gru_fwd
+    gru_fwd, gru_scan_bwd, gru_scan_fwd
 from taiyaki_tpu_torch.ops.lstm import lstm_bwd_acts, lstm_bwd_fusedw, \
-    lstm_bwd_recompute, lstm_fwd, prev_state
+    lstm_bwd_recompute, lstm_fwd, lstm_scan_bwd, lstm_scan_fwd, prev_state
 
 
 def _recompute_pre(cell):
@@ -155,3 +163,87 @@ def gru_layer(x, iW, b, sW, reverse=False):
         h: [T, B, H] hidden states.
     """
     return _layer(_GruLayer, gru_fwd, x, iW, b, sW, reverse)
+
+
+def _d_sW(dgates, h, reverse):
+    """sum over steps of dgates_t^T h_prev_t [G, H]: the recurrent weights'
+    gradient, one product over all T*B rows."""
+    G, H = dgates.shape[-1], h.shape[-1]
+    return torch.matmul(dgates.reshape(-1, G).t(),
+                        prev_state(h, reverse).reshape(-1, H))
+
+
+class _LstmScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, gates_x, sW, reverse):
+        h, c, pre = lstm_scan_fwd(gates_x, sW, reverse=reverse,
+                                  residuals=True)
+        ctx.reverse = reverse
+        ctx.save_for_backward(h, c, pre, sW)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        h, c, pre, sW = ctx.saved_tensors
+        rev = ctx.reverse
+        dpre = lstm_scan_bwd(dh.contiguous(), pre, c, prev_state(c, rev), sW,
+                             reverse=rev)
+        d_sW = _d_sW(dpre, h, rev) if ctx.needs_input_grad[1] else None
+        return dpre, d_sW, None
+
+
+class _GruScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, gates_x, sW, reverse):
+        h, gh = gru_scan_fwd(gates_x, sW, reverse=reverse, residuals=True)
+        ctx.reverse = reverse
+        ctx.save_for_backward(h, gates_x, gh, sW)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        h, gates_x, gh, sW = ctx.saved_tensors
+        rev = ctx.reverse
+        dgx, dgh = gru_scan_bwd(dh.contiguous(), gates_x, gh,
+                                prev_state(h, rev), sW, reverse=rev)
+        d_sW = _d_sW(dgh, h, rev) if ctx.needs_input_grad[1] else None
+        return dgx, d_sW, None
+
+
+def _scan(fn, forward, gates_x, sW, reverse):
+    args = [t.contiguous() for t in (gates_x, sW)]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return fn.apply(*args, bool(reverse))
+    return forward(*args, reverse=reverse)
+
+
+def lstm_scan(gates_x, sW, reverse=False):
+    """LSTM over time given precomputed input gates.
+
+    Args:
+        gates_x: [T, B, 4H] = x @ iW.T + b (torch gate order i,f,g,o).
+        sW: [4H, H] recurrent weights.
+        reverse: run the recurrence backwards in time (inputs/outputs stay
+            in natural time order).
+
+    Returns:
+        h: [T, B, H] hidden states.
+    """
+    return _scan(_LstmScan, lstm_scan_fwd, gates_x, sW, reverse)
+
+
+def gru_scan(gates_x, sW, reverse=False):
+    """GRU over time given precomputed input gates.
+
+    Args:
+        gates_x: [T, B, 3H] = x @ iW.T + b (CUDNN gate order r,z,n).
+        sW: [3H, H] recurrent weights.
+        reverse: run the recurrence backwards in time (inputs/outputs stay
+            in natural time order).
+
+    Returns:
+        h: [T, B, H] hidden states.
+    """
+    return _scan(_GruScan, gru_scan_fwd, gates_x, sW, reverse)

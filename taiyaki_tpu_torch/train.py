@@ -24,9 +24,10 @@ import numpy as np
 import torch
 
 from taiyaki_tpu_torch import flipflopfings
-from taiyaki_tpu_torch.convert import leaf_names
+from taiyaki_tpu_torch.convert import flat_params, leaf_names, name_tree
 from taiyaki_tpu_torch.data import chunk_selection
 from taiyaki_tpu_torch.ops import flipflop as ffops
+from taiyaki_tpu_torch.utils.helpers import OptaxState, optax_class
 
 
 # -- optimizer ---------------------------------------------------------------
@@ -86,18 +87,58 @@ def make_b1_schedule(b1, min_momentum, niteration, warmup_batches):
     return schedule
 
 
+# the optax classes of the JAX trainer's optimizer state (optax 0.2), by
+# the module its checkpoints name each under
+_OPTAX_MODULES = {"ScaleByAdamState": "optax._src.transform",
+                  "EmptyState": "optax._src.base",
+                  "ScaleByScheduleState": "optax._src.transform",
+                  "InjectStatefulHyperparamsState": "optax.schedules._inject",
+                  "WrappedScheduleState": "optax.schedules._inject"}
+
+
+def _optax(name, *fields):
+    return optax_class(_OPTAX_MODULES[name], name)(*fields)
+
+
+def _optax_names(state):
+    """The class names of an optax state, nested as its tuples are."""
+    if isinstance(state, OptaxState):
+        return state.optax_name
+    if type(state) is tuple:
+        return tuple(_optax_names(x) for x in state)
+    return type(state).__name__
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
 class Optimizer:
     """torch.optim.AdamW over `params` (in leaf order) with the learning
     rate and beta1 of each step written into its param group from the
-    schedules before the step, as optax's inject_hyperparams does."""
+    schedules before the step, as optax's inject_hyperparams does.
+
+    `count` is the schedules' step count and `adam_count` Adam's; both
+    start at 0 and advance together, and both come from a checkpoint's
+    optimizer state (`load_jax_state`), which `jax_state` writes back in
+    the JAX trainer's optax layout: (ScaleByAdamState(count, mu, nu),
+    EmptyState(), ScaleByScheduleState(count)), or with momentum cycling
+    (`inject`) InjectStatefulHyperparamsState(count, hyperparams,
+    {"b1", "learning_rate": WrappedScheduleState(count)},
+    (ScaleByAdamState, EmptyState(), EmptyState()))."""
 
     def __init__(self, params, schedule, b1_schedule, b2, eps,
-                 weight_decay):
+                 weight_decay, inject=False):
         self.params = list(params)
         self.schedule = schedule
         self.b1_schedule = b1_schedule
-        self.b2 = b2
-        self.count = 0
+        self.b2, self.eps, self.weight_decay = b2, eps, weight_decay
+        self.inject = inject
+        self.count = self.adam_count = 0
         self.opt = torch.optim.AdamW(
             self.params, lr=schedule(0), betas=(b1_schedule(0), b2),
             eps=eps, weight_decay=weight_decay)
@@ -111,6 +152,74 @@ class Optimizer:
         group["betas"] = (self.b1_schedule(self.count), self.b2)
         self.opt.step()
         self.count += 1
+        self.adam_count += 1
+
+    def jax_state(self, net):
+        """The state as the JAX trainer's optax optimizer keeps it (numpy
+        leaves, `OptaxState`s), for `net`, whose parameters in leaf order
+        are this optimizer's."""
+        by_name = dict(zip(leaf_names(net), self.params))
+
+        def moment(key):
+            def leaf(name):
+                p = by_name[name]
+                v = self.opt.state.get(p, {}).get(key)
+                v = torch.zeros_like(p) if v is None else v
+                return v.detach().cpu().numpy().astype(np.float32)
+            return _tree_map(name_tree(net), leaf)
+
+        adam = _optax("ScaleByAdamState",
+                      np.asarray(self.adam_count, np.int32),
+                      moment("exp_avg"), moment("exp_avg_sq"))
+        count = np.asarray(self.count, np.int32)
+        if not self.inject:
+            return (adam, _optax("EmptyState"),
+                    _optax("ScaleByScheduleState", count))
+        # the hyperparameters optax computed at the last update
+        last = max(self.count - 1, 0)
+        hyper = {k: np.asarray(v, np.float32) for k, v in (
+            ("b1", self.b1_schedule(last)), ("b2", self.b2),
+            ("eps", self.eps), ("eps_root", 0.0),
+            ("learning_rate", self.schedule(last)),
+            ("weight_decay", self.weight_decay))}
+        return _optax("InjectStatefulHyperparamsState", count, hyper,
+                      {k: _optax("WrappedScheduleState", count)
+                       for k in ("b1", "learning_rate")},
+                      (adam, _optax("EmptyState"), _optax("EmptyState")))
+
+    def load_jax_state(self, net, state):
+        """Take Adam's moments and both step counts from `state`, a JAX
+        trainer's optax state in either layout of `jax_state` (as a
+        checkpoint holds it), so that training and its schedules continue
+        where it stopped.  Raises, naming its classes, on a layout that is
+        not this optimizer's."""
+        names = _optax_names(state)
+        if not self.inject and names == ("ScaleByAdamState", "EmptyState",
+                                         "ScaleByScheduleState"):
+            adam, count = state[0], state[2][0]
+        elif self.inject and names == "InjectStatefulHyperparamsState" \
+                and _optax_names(state[3]) == ("ScaleByAdamState",
+                                               "EmptyState", "EmptyState") \
+                and set(state[2]) == {"b1", "learning_rate"}:
+            adam, count = state[3][0], state[2]["learning_rate"][0]
+        else:
+            raise ValueError(
+                "the checkpoint's optimizer state {} is not the layout of "
+                "AdamW {} momentum cycling".format(
+                    names, "with" if self.inject else "without"))
+        mu, nu = (flat_params(t) for t in adam[1:3])
+        want = leaf_names(net)
+        if set(mu) != set(want) or set(nu) != set(want):
+            raise ValueError("the checkpoint's optimizer moments do not "
+                             "match the network's parameters")
+        for name, p in zip(want, self.params):
+            self.opt.state[p] = {
+                "step": torch.tensor(float(adam[0])),
+                "exp_avg": torch.as_tensor(np.asarray(
+                    mu[name], np.float32)).reshape(p.shape).to(p.device),
+                "exp_avg_sq": torch.as_tensor(np.asarray(
+                    nu[name], np.float32)).reshape(p.shape).to(p.device)}
+        self.adam_count, self.count = int(adam[0]), int(count)
 
 
 def make_optimizer(params, lr_max, niteration, warmup_batches, lr_warmup,
@@ -128,7 +237,8 @@ def make_optimizer(params, lr_max, niteration, warmup_batches, lr_warmup,
     b1_schedule = make_b1_schedule(adam_betas[0], min_momentum, niteration,
                                    warmup_batches)
     return (Optimizer(params, schedule, b1_schedule, adam_betas[1], eps,
-                      weight_decay), schedule)
+                      weight_decay, inject=min_momentum is not None),
+            schedule)
 
 
 def linear_ramp(start, final, niter):

@@ -12,9 +12,12 @@ whose model source imports from `taiyaki_tpu`.  The port executes that
 text with an `__import__` that maps `taiyaki_tpu` to `taiyaki_tpu_torch`
 (the stored text is not rewritten, and `taiyaki_tpu` is never imported),
 and unpickles with a restricted Unpickler that admits numpy arrays and
-plain builtin containers only: anything else (optimizer state of the JAX
-trainer, say) becomes a placeholder, with a warning, since basecalling
-needs only `params`.
+plain builtin containers only, and optax's optimizer-state classes as
+`OptaxState` tuples that keep their fields (the card's host has no optax);
+anything else becomes a placeholder, with a warning, since basecalling
+needs only `params`.  `save_model` writes `OptaxState`s back as the optax
+classes they stand for, without importing optax, so that the JAX trainer
+resumes the port's optimizer state.
 """
 
 import builtins
@@ -93,14 +96,65 @@ def new_model(model_file, model_metadata=None, **model_kwargs):
     return network, source, metadata
 
 
+class OptaxState(tuple):
+    """One of optax's optimizer-state NamedTuples, held without optax: its
+    fields in order, and the class it stands for (`optax_module`,
+    `optax_name`).  Pickles as that class (`save_model`)."""
+    __slots__ = ()
+    optax_module = optax_name = None
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "{}{}".format(self.optax_name, tuple.__repr__(self))
+
+
+_OPTAX_CLASSES = {}
+
+
+def optax_class(module, name):
+    """The `OptaxState` subclass standing for optax's `module`.`name`."""
+    key = (module, name)
+    if key not in _OPTAX_CLASSES:
+        _OPTAX_CLASSES[key] = type(name, (OptaxState,), {
+            "__slots__": (), "optax_module": module, "optax_name": name})
+    return _OPTAX_CLASSES[key]
+
+
+class _CheckpointPickler(pickle._Pickler):
+    """pickle's own Python pickler, writing each `OptaxState` class as a
+    reference to the optax class it stands for: stock pickle imports a
+    class before it names one, and optax is not installed everywhere."""
+
+    def save_global(self, obj, name=None):
+        if isinstance(obj, type) and issubclass(obj, OptaxState) \
+                and obj.optax_module is not None:
+            self.write(pickle.GLOBAL + "{}\n{}\n".format(
+                obj.optax_module, obj.optax_name).encode("utf-8"))
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def checkpoint_name(index=None):
+    """model_final (index None) or model_checkpoint_XXXXX: the base name
+    of a checkpoint's .checkpoint and .params files."""
+    return ("model_final" if index is None
+            else "model_checkpoint_{:05d}".format(index))
+
+
 def save_model(outdir, network, params, model_source, model_kwargs,
                metadata, index=None, optimizer_state=None):
     """Write model_final.checkpoint (index None) or
     model_checkpoint_XXXXX.checkpoint, plus .params with the raw parameter
     pytree, under outdir.  `params` is the numpy pytree
-    (`convert.params_to_jax(network)`)."""
-    basename = ("model_final" if index is None
-                else "model_checkpoint_{:05d}".format(index))
+    (`convert.params_to_jax(network)`); `optimizer_state` an optax state of
+    `OptaxState`s (`train.Optimizer.jax_state`) or None."""
+    basename = checkpoint_name(index)
     ckpt = {
         "model_source": canonical_source(model_source),
         "model_kwargs": dict(model_kwargs,
@@ -112,7 +166,7 @@ def save_model(outdir, network, params, model_source, model_kwargs,
     }
     model_file = os.path.join(outdir, basename + ".checkpoint")
     with open(model_file, "wb") as fh:
-        pickle.dump(ckpt, fh)
+        _CheckpointPickler(fh, pickle.DEFAULT_PROTOCOL).dump(ckpt)
     with open(os.path.join(outdir, basename + ".params"), "wb") as fh:
         pickle.dump(params, fh)
     return model_file
@@ -125,8 +179,8 @@ _SAFE_NUMPY = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
 
 
 class _CheckpointUnpickler(pickle.Unpickler):
-    """Admits numpy arrays, dtypes and builtin containers; every other
-    class becomes a placeholder."""
+    """Admits numpy arrays, dtypes and builtin containers, and optax's
+    classes as `OptaxState`s; every other class becomes a placeholder."""
 
     def find_class(self, module, name):
         root = module.split(".")[0]
@@ -135,6 +189,8 @@ class _CheckpointUnpickler(pickle.Unpickler):
                 or (root == "numpy" and (name in _SAFE_NUMPY
                                          or module == "numpy.dtypes")):
             return super().find_class(module, name)
+        if root == "optax":
+            return optax_class(module, name)
         warnings.warn("checkpoint holds {}.{}; loaded as a placeholder "
                       "(basecalling needs only the parameters)".format(
                           module, name), RuntimeWarning)

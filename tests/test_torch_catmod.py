@@ -43,6 +43,9 @@ from taiyaki_tpu_torch.data import mapped_signal_files as tmsf
 from taiyaki_tpu_torch.models import mGru_cat_mod_flipflop as tgru
 from taiyaki_tpu_torch.models import mLstm_cat_mod_flipflop as tlstm
 from taiyaki_tpu_torch.ops import flipflop as tff
+# one_torch_thread is an autouse fixture
+from test_torch_cli import (  # noqa: F401
+    one_torch_thread, subprocess_env)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODREF = os.path.join(REPO, "RESULTS", "training_ingredients",
@@ -53,14 +56,7 @@ ALPHABET = ("AYCZGT", "AACCGT", ["6mA", "5mC"])
 
 
 def _env():
-    """The subprocess environment: CPU, one JAX device (the suite's
-    conftest asks for 8 virtual ones, which would put the JAX trainer on
-    its data-parallel mesh path with another batch size)."""
-    flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
-                     if "xla_force_host_platform_device_count" not in f)
-    return dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
-                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                              ""))
+    return subprocess_env(one_jax_device=True)
 
 
 def _alphabets(spec=ALPHABET):

@@ -3,10 +3,14 @@
 checkpoint); the import guard over every module of the port,
 chip_smoke.py and chip_ab.py; the device default.
 
-The JAX CLI runs once (module fixture), as its compile dominates."""
+The JAX CLI runs once (a fixture whose run the xdist workers share), as
+its compile dominates."""
 
 import ast
+import fcntl
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 
@@ -19,10 +23,64 @@ FORBIDDEN = ("jax", "optax", "flax", "taiyaki_tpu")
 CHUNK, OVERLAP = 60, 10          # blocks; stride 5 -> 300-sample chunks
 
 
-def _env():
-    return dict(os.environ, JAX_PLATFORMS="cpu",
+def subprocess_env(one_jax_device=False):
+    """The environment of a CLI subprocess: the CPU, the repo on the path,
+    and one thread in each of PyTorch's and XLA's pools (the suite's xdist
+    workers already fill the host's cores; pools sized to every core
+    beside them make each small step many times slower).  With
+    one_jax_device, the suite conftest's 8 virtual JAX devices are
+    dropped: they would put bin/train_flipflop.py on its data-parallel
+    mesh path with another batch size."""
+    flags = os.environ.get("XLA_FLAGS", "").split()
+    if one_jax_device:
+        flags = [f for f in flags
+                 if "xla_force_host_platform_device_count" not in f]
+    return dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                MKL_NUM_THREADS="1",
+                XLA_FLAGS=" ".join(flags
+                                   + ["--xla_cpu_multi_thread_eigen=false"]),
                 PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                               ""))
+
+
+def shared_run(tmp_path_factory, name, make):
+    """make(directory) once per pytest run, its (picklable) result shared
+    by every xdist worker that asks for it: the first worker to take the
+    lock runs it in `name` under the run's common base directory, the
+    others wait and read its result.  (A module fixture runs again on
+    every worker that picks a test of its module.)"""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent          # the run's, above each worker's
+    d, result = base / name, base / name / "result.pickle"
+    with open(str(base / (name + ".lock")), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if result.exists():
+            with open(str(result), "rb") as fh:
+                return pickle.load(fh)
+        shutil.rmtree(str(d), ignore_errors=True)
+        d.mkdir()
+        value = make(d)
+        with open(str(result), "wb") as fh:
+            pickle.dump(value, fh)
+        return value
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread while a module's tests run in-process
+    (modules that call the port on the CPU import this fixture): beside
+    JAX's pools in the same worker, and the other workers, PyTorch's own
+    pool makes each small op hundreds of times slower."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _env():
+    return subprocess_env()
 
 
 def write_reads(path, lengths, seed=0):
@@ -64,10 +122,13 @@ def calls(tmp_path_factory):
     """A size-16 mLstm checkpoint written by the JAX package, 3 reads
     (one shorter than a chunk, one of several chunks), called by both
     CLIs with --fastq."""
+    return shared_run(tmp_path_factory, "cli_calls", _call_both)
+
+
+def _call_both(d):
     from taiyaki_tpu.models import mLstm_flipflop
     from taiyaki_tpu.utils import helpers as jhelpers
 
-    d = tmp_path_factory.mktemp("cli")
     kwargs = dict(insize=1, size=16, winlen=19, stride=5)
     net = mLstm_flipflop.network(**kwargs)
     params = net.init(np.random.default_rng(5))

@@ -20,7 +20,12 @@ score streams (kernels 9-10): the same score and lattice tolerances, its
 posteriors atol 1e-5 (3e-4 over lattices of thousands of steps, as the
 fused kernels' gradient), bitwise equal from run to run (no atomics); the
 gradient the route scatters from them against the fused kernels' 1e-5,
-1e-6 from run to run (scatter_add_'s atomics).
+1e-6 from run to run (scatter_add_'s atomics); past 16384 positions (their
+device-memory instance) the long lattices' tolerances.  The recurrences
+on given gates (kernels 14-17, ops/rnn.py's lstm_scan and gru_scan) as
+the layer kernels: outputs 1e-4, backwards 1e-4 relative, also against
+the whole layers through autograd.  The shapes include H=384, the JAX
+trainer's default size, on a batch that is not a multiple of 8.
 """
 
 import math
@@ -54,7 +59,7 @@ def _lstm_inputs(T, B, D, H, seed=0):
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape", [(37, 13, 7, 16), (5, 3, 300, 40),
-                                   (200, 128, 256, 256)])
+                                   (200, 128, 256, 256), (120, 37, 384, 384)])
 def test_lstm_kernel_matches_twin(dev, shape, reverse):
     args = _lstm_inputs(*shape)
     want = lstm.lstm_fwd_plain(*[a.to(dev) for a in args], reverse=reverse)
@@ -118,7 +123,10 @@ def _rel_err(got, want):
             / want.abs().max().clamp(min=1.0)).item()
 
 
-LSTM_SHAPES = [(37, 13, 7, 16), (5, 3, 300, 40), (800, 256, 256, 256)]
+# the last at the JAX trainer's default --size 384, on a batch that is
+# not a multiple of 8
+LSTM_SHAPES = [(37, 13, 7, 16), (5, 3, 300, 40), (800, 256, 256, 256),
+               (120, 37, 384, 384)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -265,7 +273,7 @@ def _gru_inputs(T, B, D, H, seed=0):
 
 
 GRU_SHAPES = [(37, 13, 7, 16), (19, 24, 12, 17), (5, 3, 300, 40),
-              (300, 64, 96, 96), (200, 128, 256, 256)]
+              (300, 64, 96, 96), (200, 128, 256, 256), (120, 37, 384, 384)]
 
 
 @pytest.mark.parametrize("reverse", [False, True])
@@ -494,11 +502,14 @@ def test_crf_stream_kernels_match_twins(dev, shape):
 
 
 def test_crf_stream_kernels_reject_bad_input(dev):
+    """Bad tensors raise; a lattice past MAX_L_STREAMS no longer does (the
+    device-memory instance takes it)."""
     stay = torch.zeros(3, 2, crf.MAX_L_STREAMS + 1, device=dev)
     valid = torch.ones(2, crf.MAX_L_STREAMS + 1, dtype=torch.int32,
                        device=dev)
-    with pytest.raises(ValueError, match="16384"):
-        crf.crf_fwd_streams(stay, stay, valid)
+    _, score, _ = crf.crf_fwd_streams(stay, stay, valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(score).all()
     stay, valid = stay[:, :, :8].contiguous(), valid[:, :8].contiguous()
     with pytest.raises(ValueError, match="float32"):
         crf.crf_fwd_streams(stay.double(), stay, valid)
@@ -553,3 +564,146 @@ def test_cat_mod_loss_routes_on_card(dev, env, monkeypatch):
     (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
     torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(gg, gc, rtol=0, atol=1e-5)
+
+
+def test_crf_stream_kernels_past_16384_match_twins(dev):
+    """Kernels 9-10 at L=20000 (T=20100, B=1), past the shared-memory
+    instance's 16384 positions: the device-memory instance against the
+    twins, at the long lattices' tolerances (posteriors 3e-4)."""
+    from taiyaki_tpu_torch import flipflopfings
+    from taiyaki_tpu_torch.ops import flipflop
+    T, L = 20100, 20000
+    rng = np.random.default_rng(11)
+    lp = torch.from_numpy(rng.normal(size=(T, 1, 40)).astype(np.float32))
+    seqs = np.zeros((1, L), np.int32)
+    seqs[0] = flipflopfings.flipflop_code(rng.integers(0, 4, size=L))
+    stay, move = flipflop.make_seq_indices(torch.from_numpy(seqs), 4)
+    sidx, midx, _, _, valid, last = (t.to(dev) for t in
+                                     flipflop._lattice_inputs(
+                                         stay, move,
+                                         torch.tensor([L], dtype=torch.int32),
+                                         40, None, None))
+    stay_all, move_all = flipflop._select_streams(lp.to(dev), sidx, midx,
+                                                  None, None)
+    f0, s0, lat0 = crf.crf_fwd_streams_plain(stay_all, move_all, valid)
+    p0 = crf.crf_bwd_posteriors_plain(stay_all, move_all, lat0, valid, last)
+    f1, s1, lat1 = crf.crf_fwd_streams(stay_all, move_all, valid)
+    p1 = crf.crf_bwd_posteriors(stay_all, move_all, lat1, valid, last)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(lat1, lat0, 1e-4)
+    assert _lattice_close(f1, f0, 1e-4)
+    for got, want in zip(p1, p0):
+        torch.testing.assert_close(got, want, rtol=0, atol=3e-4)
+    mass = p1[0].sum().item() + p1[1].sum().item()
+    assert abs(mass - T) <= 1e-3 * T
+
+
+def _scan_case(cell, shape, reverse, dev):
+    """gates_x = x . iW^T + b of a layer's inputs, sW, iW and dh."""
+    T, B, D, H = shape
+    make = _lstm_inputs if cell == "lstm" else _gru_inputs
+    x, iW, b, sW = (a.to(dev) for a in make(*shape)[:4])
+    dh = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(T, B, H)).astype(np.float32)).to(dev)
+    return torch.matmul(x, iW.t()) + b, sW, iW, dh
+
+
+@pytest.mark.parametrize("with_iw", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_scan_kernels_match_twins(dev, shape, reverse, with_iw):
+    """Kernels 14 (h; h, c, pre) and 15 (dpre; dpre, d_x) against their
+    twins; kernel 14 leaves gates_x as it was."""
+    gx, sW, iW, dh = _scan_case("lstm", shape, reverse, dev)
+    kept = gx.clone()
+    n = lstm.lstm_scan_fwd.launches, lstm.lstm_scan_bwd.launches
+    want = lstm.lstm_scan_fwd_plain(gx, sW, reverse=reverse, residuals=True)
+    got = lstm.lstm_scan_fwd(gx, sW, reverse=reverse, residuals=True)
+    h = lstm.lstm_scan_fwd(gx, sW, reverse=reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(gx, kept)
+    for g, w in zip(got + (h,), want + (want[0],)):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() < 1e-4
+    _, c, pre = want
+    iw = iW if with_iw else None
+    args = (dh, pre, c, lstm.prev_state(c, reverse), sW)
+    bk = lstm.lstm_scan_bwd(*args, reverse=reverse, iW=iw)
+    bw = lstm.lstm_scan_bwd_plain(*args, reverse=reverse, iW=iw)
+    torch.cuda.synchronize()
+    assert (lstm.lstm_scan_fwd.launches, lstm.lstm_scan_bwd.launches) == \
+        (n[0] + 2, n[1] + 1)
+    bk, bw = (bk, bw) if with_iw else ((bk,), (bw,))
+    for g, w in zip(bk, bw):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) < 1e-4
+
+
+@pytest.mark.parametrize("with_iw", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", GRU_SHAPES)
+def test_gru_scan_kernels_match_twins(dev, shape, reverse, with_iw):
+    """Kernels 16 (h; h, gh) and 17 (dgx, dgh; and d_x) against their
+    twins; neither writes the gate streams it reads."""
+    gx, sW, iW, dh = _scan_case("gru", shape, reverse, dev)
+    n = gru.gru_scan_fwd.launches, gru.gru_scan_bwd.launches
+    want = gru.gru_scan_fwd_plain(gx, sW, reverse=reverse, residuals=True)
+    got = gru.gru_scan_fwd(gx, sW, reverse=reverse, residuals=True)
+    h = gru.gru_scan_fwd(gx, sW, reverse=reverse)
+    torch.cuda.synchronize()
+    for g, w in zip(got + (h,), want + (want[0],)):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() < 1e-4
+    h0, gh = want
+    kept = gx.clone(), gh.clone()
+    iw = iW if with_iw else None
+    args = (dh, gx, gh, lstm.prev_state(h0, reverse), sW)
+    bk = gru.gru_scan_bwd(*args, reverse=reverse, iW=iw)
+    bw = gru.gru_scan_bwd_plain(*args, reverse=reverse, iW=iw)
+    torch.cuda.synchronize()
+    assert torch.equal(gx, kept[0]) and torch.equal(gh, kept[1])
+    assert (gru.gru_scan_fwd.launches, gru.gru_scan_bwd.launches) == \
+        (n[0] + 2, n[1] + 1)
+    assert len(bk) == len(bw) == (3 if with_iw else 2)
+    for g, w in zip(bk, bw):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_scan_of_input_gates_matches_layer_on_card(dev, cell, reverse):
+    """scan(x . iW^T + b, sW) on kernels 14-17 against the layer on x on
+    kernels 1, 4 (7, 8 for the GRU): h within 1e-4, d_x, d_iW, d_b and
+    d_sW within 1e-4 relative."""
+    layer, scan = ((rnn.lstm_layer, rnn.lstm_scan) if cell == "lstm"
+                   else (rnn.gru_layer, rnn.gru_scan))
+    make = _lstm_inputs if cell == "lstm" else _gru_inputs
+    args = [a.to(dev) for a in make(150, 19, 40, 48)[:4]]
+    dh = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(150, 19, 48)).astype(np.float32)).to(dev)
+    out = []
+    for how in ("scan", "layer"):
+        leaves = [a.clone().requires_grad_() for a in args]
+        x, iW, b, sW = leaves
+        h = (scan(torch.matmul(x, iW.t()) + b, sW, reverse=reverse)
+             if how == "scan" else layer(x, iW, b, sW, reverse=reverse))
+        out.append([h.detach()] + list(torch.autograd.grad(h, leaves, dh)))
+    torch.cuda.synchronize()
+    assert (out[0][0] - out[1][0]).abs().max().item() < 1e-4
+    for g, w in zip(out[0][1:], out[1][1:]):
+        assert _rel_err(g, w) < 1e-4
+
+
+def test_scan_kernels_reject_bad_input(dev):
+    gx, sW, iW, dh = _scan_case("lstm", (6, 3, 5, 8), False, dev)
+    with pytest.raises(ValueError, match="gates_x"):
+        lstm.lstm_scan_fwd(gx[:, :, :-1].contiguous(), sW)
+    h, c, pre = lstm.lstm_scan_fwd_plain(gx, sW, residuals=True)
+    with pytest.raises(ValueError, match="iW"):
+        lstm.lstm_scan_bwd(dh, pre, c, c, sW, iW=iW[:-1].contiguous())
+    gx, sW, iW, dh = _scan_case("gru", (6, 3, 5, 8), False, dev)
+    h, gh = gru.gru_scan_fwd_plain(gx, sW, residuals=True)
+    with pytest.raises(ValueError, match="float32"):
+        gru.gru_scan_bwd(dh, gx, gh.double(), h, sW)

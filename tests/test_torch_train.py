@@ -15,6 +15,7 @@ lr * max|d grad| / eps + 1e-6 * |param| (f32 rounding of the parameter).
 The CLI's batch.log losses: 1e-5 relative at the first iteration, then
 1e-4 (the same Adam bound carried through later steps)."""
 
+import io
 import os
 import pickle
 import subprocess
@@ -38,6 +39,9 @@ from taiyaki_tpu_torch.data import hdf5
 from taiyaki_tpu_torch.data import mapped_signal_files as tmsf
 from taiyaki_tpu_torch.models import mGru_flipflop as tgru_model
 from taiyaki_tpu_torch.models import mLstm_flipflop as tmodel
+# one_torch_thread is an autouse fixture
+from test_torch_cli import (  # noqa: F401
+    one_torch_thread, shared_run, subprocess_env)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 READS = os.path.join(REPO, "RESULTS", "training_ingredients",
@@ -45,14 +49,7 @@ READS = os.path.join(REPO, "RESULTS", "training_ingredients",
 
 
 def _env():
-    """The subprocess environment: CPU, and one JAX device (the suite's
-    conftest asks for 8 virtual ones, which would put bin/train_flipflop.py
-    on its data-parallel mesh path with another batch size)."""
-    flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
-                     if "xla_force_host_platform_device_count" not in f)
-    return dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags,
-                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
-                                                              ""))
+    return subprocess_env(one_jax_device=True)
 
 
 @pytest.mark.parametrize("warmup,min_momentum", [(3, None), (3, 0.85),
@@ -262,6 +259,105 @@ def test_sub_batch_accumulation_matches_jax():
     _check_params_after_step(tnet, new_params, [d / 2 for d in diffs], lr0)
 
 
+def _fixed_grads(params, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda p: jnp.asarray(
+        1e-2 * rng.normal(size=p.shape).astype(np.float32)), params)
+
+
+def _port_step(topt, grads):
+    topt.step([torch.from_numpy(np.array(g)) for g in jax.tree.leaves(grads)])
+
+
+OPT_LAYOUTS = {"adamw": None, "momentum_cycling": 0.85}
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("layout", sorted(OPT_LAYOUTS))
+def test_optimizer_state_resumes_across_packages(layout, direction,
+                                                 tmp_path):
+    """Two AdamW steps on fixed gradients in one package, saved by its
+    save_model with its optimizer state (either optax layout: plain AdamW,
+    or inject_hyperparams under --min_momentum); the checkpoint loads in
+    the other package, which takes the third step: its parameters equal
+    the first package's third step within 1e-6, and the state it loads
+    carries both step counts."""
+    import optax
+    from taiyaki_tpu.utils import helpers as jhelpers
+    from taiyaki_tpu_torch.convert import params_to_jax
+    from taiyaki_tpu_torch.utils import helpers as thelpers
+    mm = OPT_LAYOUTS[layout]
+    kwargs = dict(size=16, stride=5, winlen=19, insize=1,
+                  alphabet_info=None)
+    jnet, source, meta = jhelpers.new_model(
+        os.path.join(REPO, "taiyaki_tpu", "models", "mLstm_flipflop.py"),
+        **kwargs)
+    params = jnet.init(np.random.default_rng(3))
+    grads = [_fixed_grads(params, seed) for seed in range(3)]
+    opt, _ = jtrain.make_optimizer(4e-3, 10, 2, 1e-4, 1e-4,
+                                   min_momentum=mm)
+
+    def port_opt(tnet):
+        return ttrain.make_optimizer(ttrain.leaf_params(tnet), 4e-3, 10, 2,
+                                     1e-4, 1e-4, min_momentum=mm)[0]
+
+    jp, state = params, opt.init(params)
+    jsteps = []
+    for g in grads:
+        upd, state = opt.update(g, state, jp)
+        jp = optax.apply_updates(jp, upd)
+        jsteps.append((jax.tree.map(np.asarray, jp),
+                       jax.tree.map(np.asarray, state)))
+    if direction == "jax_to_port":
+        jhelpers.save_model(str(tmp_path), jnet, jsteps[1][0], source,
+                            kwargs, meta, optimizer_state=jsteps[1][1])
+        tnet, tparams, *_, tstate = thelpers.load_model(
+            str(tmp_path / "model_final.checkpoint"))
+        tnet = load_jax_params(tnet, tparams)
+        topt = port_opt(tnet)
+        topt.load_jax_state(tnet, tstate)
+        assert (topt.count, topt.adam_count) == (2, 2)
+        _port_step(topt, grads[2])
+        got, want = params_to_jax(tnet), jsteps[2][0]
+    else:
+        tnet = load_jax_params(tmodel.network(size=16, stride=5, winlen=19),
+                               params)
+        topt = port_opt(tnet)
+        for g in grads[:2]:
+            _port_step(topt, g)
+        thelpers.save_model(str(tmp_path), tnet, params_to_jax(tnet), source,
+                            kwargs, meta,
+                            optimizer_state=topt.jax_state(tnet))
+        _, p2, *_, jstate = jhelpers.load_model(
+            str(tmp_path / "model_final.checkpoint"))
+        assert jax.tree.structure(jstate) == jax.tree.structure(
+            jsteps[1][1])
+        for a, b in zip(jax.tree.leaves(jstate),
+                        jax.tree.leaves(jsteps[1][1])):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+        upd, _ = opt.update(grads[2], jstate, p2)
+        got = optax.apply_updates(p2, upd)
+        _port_step(topt, grads[2])
+        want = params_to_jax(tnet)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
+                                   atol=1e-6)
+
+
+def test_optimizer_state_of_another_layout_raises():
+    """A checkpoint's optax state that is not the optimizer's layout (the
+    plain AdamW state under --min_momentum) raises with its classes."""
+    from taiyaki_tpu_torch.utils import helpers as thelpers
+    jnet, params, tnet = _nets(seed=1)
+    opt, _ = jtrain.make_optimizer(4e-3, 10, 2, 1e-4, 1e-4)
+    state = pickle.dumps(jax.tree.map(np.asarray, opt.init(params)))
+    state = thelpers._CheckpointUnpickler(io.BytesIO(state)).load()
+    topt, _ = ttrain.make_optimizer(ttrain.leaf_params(tnet), 4e-3, 10, 2,
+                                    1e-4, 1e-4, min_momentum=0.85)
+    with pytest.raises(ValueError, match="ScaleByAdamState"):
+        topt.load_jax_state(tnet, state)
+
+
 CLI_ARGS = ["--device", "cpu", "--size", "16", "--stride", "2", "--winlen",
             "9", "--niteration", "3", "--warmup_batches", "1",
             "--chunk_len_min", "300", "--chunk_len_max", "400",
@@ -270,9 +366,10 @@ CLI_ARGS = ["--device", "cpu", "--size", "16", "--stride", "2", "--winlen",
             "--reporting_sub_batches", "10", "--seed", "5", "--quiet"]
 
 
-def _train_both(d, model):
-    """bin/train_flipflop.py and the port's CLI, same arguments and seed,
-    the model file `model` of each package on the repo's mapped reads."""
+def _train_both(d, model, extra=()):
+    """bin/train_flipflop.py and the port's CLI, same arguments (CLI_ARGS,
+    then `extra`) and seed, the model file `model` of each package (or one
+    checkpoint, given by its path) on the repo's mapped reads."""
     out = {}
     for tag, cmd, pkg in (
             ("jax", [os.path.join(REPO, "bin", "train_flipflop.py")],
@@ -280,7 +377,7 @@ def _train_both(d, model):
             ("port", ["-m", "taiyaki_tpu_torch.cli.train_flipflop"],
              "taiyaki_tpu_torch")):
         outdir = str(d / tag)
-        r = subprocess.run([sys.executable] + cmd + CLI_ARGS
+        r = subprocess.run([sys.executable] + cmd + CLI_ARGS + list(extra)
                            + ["--outdir", outdir,
                               os.path.join(REPO, pkg, "models", model),
                               READS], cwd=REPO,
@@ -293,16 +390,16 @@ def _train_both(d, model):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """Both CLIs on mLstm_flipflop."""
-    return _train_both(tmp_path_factory.mktemp("train"),
-                       "mLstm_flipflop.py")
+    """Both CLIs on mLstm_flipflop (one run, shared by the workers)."""
+    return shared_run(tmp_path_factory, "train",
+                      lambda d: _train_both(d, "mLstm_flipflop.py"))
 
 
 @pytest.fixture(scope="module")
 def trained_gru(tmp_path_factory):
-    """Both CLIs on mGru_flipflop."""
-    return _train_both(tmp_path_factory.mktemp("train_gru"),
-                       "mGru_flipflop.py")
+    """Both CLIs on mGru_flipflop (one run, shared by the workers)."""
+    return shared_run(tmp_path_factory, "train_gru",
+                      lambda d: _train_both(d, "mGru_flipflop.py"))
 
 
 def _log(outdir, name):
@@ -310,10 +407,10 @@ def _log(outdir, name):
         return [line.split("\t") for line in fh.read().splitlines()]
 
 
-def _logs_match(trained):
+def _logs_match(trained, niter=3):
     jrows, trows = (_log(trained[k], "batch.log") for k in ("jax", "port"))
     assert trows[0] == jrows[0]
-    assert len(trows) == len(jrows) == 4
+    assert len(trows) == len(jrows) == niter + 1
     for i, (t, j) in enumerate(zip(trows[1:], jrows[1:])):
         assert (t[0], t[3], t[5]) == (j[0], j[3], j[5])
         rtol = 1e-5 if i == 0 else 1e-4
@@ -339,18 +436,32 @@ def test_cli_batch_log_matches_jax_mgru(trained_gru):
     _logs_match(trained_gru)
 
 
+def test_cli_resume_matches_jax(trained, tmp_path):
+    """Both CLIs resume the JAX run's first checkpoint, its parameters and
+    its optimizer state (Adam's moments, the schedule's step count), for
+    2 iterations: batch.log rows equal at the pair tolerances (a port
+    that restarted Adam would differ from the second iteration on)."""
+    ckpt = os.path.join(trained["jax"], "model_checkpoint_00001.checkpoint")
+    _logs_match(_train_both(tmp_path, ckpt, ["--niteration", "2",
+                                             "--reporting_sub_batches", "1"]),
+                niter=2)
+
+
 def test_cli_checkpoint_loads_in_jax(trained):
     """The port's final checkpoint loads in the JAX package with the
-    port's parameters and equals the JAX run's within the Adam bound."""
+    port's parameters, equal to the JAX run's within the Adam bound, and
+    with an optimizer state of the JAX run's structure and step count."""
     from taiyaki_tpu.utils import helpers as jhelpers
     net, params, _, meta, kwargs, opt_state = jhelpers.load_model(
         os.path.join(trained["port"], "model_final.checkpoint"))
-    _, jparams, *_ = jhelpers.load_model(
+    _, jparams, *_, jopt_state = jhelpers.load_model(
         os.path.join(trained["jax"], "model_final.checkpoint"))
     with open(os.path.join(trained["port"], "model_final.params"),
               "rb") as fh:
         raw = pickle.load(fh)
-    assert opt_state is None and meta["version"] == 3
+    assert jax.tree.structure(opt_state) == jax.tree.structure(jopt_state)
+    assert int(opt_state[0].count) == int(jopt_state[0].count) == 3
+    assert meta["version"] == 3
     assert kwargs["alphabet_info"].alphabet == "ACGT"
     got, want = jax.tree.leaves(params), jax.tree.leaves(jparams)
     assert jax.tree.structure(params) == jax.tree.structure(jparams)
