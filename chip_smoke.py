@@ -18,7 +18,13 @@ card; run from the root of a checkout:
    backward, on the same inputs, the backwards of the JAX trainer's other
    residual policies: the LSTM's from stored pre (kernel 11) and
    rebuilding pre (kernel 12), the GRU's from stored gate streams (kernel
-   13), with the forward modes that feed them.
+   13), with the forward modes that feed them.  The forward recurrences
+   (kernels 1, 7, 14, 16) run on the plan of ops/rnn_plan.py, the cluster
+   instance at every width the repo uses: each check prints the
+   plan (C, BT, RB, KS, SMs busy, clusters resident at once) and times the
+   forced L2 instance beside it on the same inputs (within 1e-4 of it);
+   the L2 instance, still the plan's at H=512, is held against its twins
+   there.
 3. mLstm_flipflop 256/5/19, as in the earlier slices:
    a. training path: `taiyaki_tpu_torch.cli.train_flipflop` on the
       repo's mapped reads (RESULTS/training_ingredients/
@@ -92,7 +98,8 @@ card; run from the root of a checkout:
    {"ok": true, "device": {...}}.
 
 Every kernel counter is set to 0 just before each path and read just
-after.  Exits non-zero, printing no result line, if there is no card or
+after; the forward recurrences also count their cluster instance's
+launches, which on every path must be all of them.  Exits non-zero, printing no result line, if there is no card or
 any phase fails.  Imports nothing of JAX.
 """
 
@@ -214,6 +221,41 @@ def bound_ms(nbytes, flops):
                                  else "operations")
 
 
+def plan_of(cell, H, B):
+    """The forward recurrence's plan at (H, B) (ops/rnn_plan.py) and a line
+    for the log: the instance, C, BT, RB, KS, the SMs it keeps busy and,
+    for the cluster instance, how many of its clusters the card runs at
+    once (cudaOccupancyMaxActiveClusters), which must be as many as the
+    plan counts on for a wave."""
+    from taiyaki_tpu_torch.ops import gru, lstm, rnn_plan
+    gates = 4 if cell == "lstm" else 3
+    plan = rnn_plan.rec_plan(gates, H, B)
+    line = rnn_plan.describe(plan, H, B)
+    if plan.instance == "cluster":
+        occ = (lstm if gates == 4 else gru).cluster_occupancy(H, plan)
+        want = min(-(-B // plan.BT), rnn_plan.CLUSTERS_PER_WAVE[plan.C])
+        check(occ >= want, "{} H={} B={}: {} clusters resident, the plan "
+              "counts on {}".format(cell, H, B, occ, want))
+        line += "; {} clusters resident at once".format(occ)
+    return plan, line
+
+
+def against_l2(torch, fwd, reps, *args, **kw):
+    """The forward `fwd` on the forced L2 instance, beside the plan's
+    instance on the same inputs: (max |cluster - l2| over the outputs,
+    the L2 instance's time in ms)."""
+    got = fwd(*args, **kw)
+    l2 = fwd(*args, instance="l2", **kw)
+    torch.cuda.synchronize()
+    got, l2 = ((got, l2) if isinstance(got, tuple) else ((got,), (l2,)))
+    diff = max(max_abs_diff(g, w) for g, w in zip(got, l2))
+    check(diff <= 1e-4, "{}: cluster against L2 instance {} > 1e-4".format(
+        fwd.__name__, diff))
+    del got, l2
+    return diff, cuda_ms(torch, lambda: fwd(*args, instance="l2", **kw),
+                         reps=reps)
+
+
 # -- phase 2 -----------------------------------------------------------------
 
 def check_lstm(torch, dev, rng):
@@ -252,18 +294,23 @@ def check_lstm(torch, dev, rng):
     nbytes = 4 * (T * B * D + 4 * H * D + 4 * H + 4 * H * H + T * B * H)
     flops = 2 * T * B * 4 * H * (D + H)
     bound, by = bound_ms(nbytes, flops)
+    l2_diff, l2_ms = against_l2(torch, lstm.lstm_fwd, 2, x, iW, b, sW)
+    _, plan = plan_of("lstm", H, B)
     say("lstm_fwd   T={} B={} D=H={}: max|err| {:.3g} (tol {}), kernel "
         "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / {:.3f} ms, "
         "torch.nn.LSTM {:.3f} ms (|diff| {:.3g}), bound {:.3f} ms ({}); "
-        "serial floor: {} dependent steps".format(
+        "serial floor: {} dependent steps; plan {}; forced L2 instance "
+        "{:.3f} ms (|diff| {:.3g})".format(
             T, B, H, err, tol, ms[False], ms[True], plain_ms[False],
-            plain_ms[True], library_ms, lib_err, bound, by, T))
+            plain_ms[True], library_ms, lib_err, bound, by, T, plan, l2_ms,
+            l2_diff))
     return dict(name="lstm_fwd", route="cuda",
                 source="taiyaki_tpu_torch/csrc/lstm.cu",
                 replaces="taiyaki_tpu/ops/pallas_rnn.py:880",
                 max_abs_err=err, ms=ms[False],
                 plain_ms=plain_ms[False], bound_ms=bound, bound_by=by,
-                library_ms=library_ms)
+                library_ms=library_ms, l2_ms=l2_ms, l2_diff=l2_diff,
+                plan=plan)
 
 
 def check_logz(torch, dev, rng):
@@ -359,7 +406,7 @@ def check_lstm_train(torch, dev, rng):
     emits = ("acts", "pre", "c")
     f_err = dict.fromkeys(emits, 0.0)
     b_err = dict.fromkeys(bwds, 0.0)
-    f_ms, f_plain = {}, {}
+    f_ms, f_plain, f_l2 = {}, {}, {}
     b_ms = {k: {} for k in bwds}
     b_plain = {k: {} for k in bwds}
     for reverse in (False, True):
@@ -394,6 +441,8 @@ def check_lstm_train(torch, dev, rng):
                     x, iW, b, sW, emit=e), reps=3)
                 f_plain[e] = cuda_ms(torch, lambda: lstm.lstm_fwd_plain(
                     x, iW, b, sW, emit=e), reps=1)
+                f_l2[e] = against_l2(torch, lstm.lstm_fwd, 1, x, iW, b, sW,
+                                     emit=e)
         del want, args, h, c, acts, tc, pre, c_prev
         torch.cuda.empty_cache()
     for e in emits:
@@ -432,12 +481,14 @@ def check_lstm_train(torch, dev, rng):
         "lstm_bwd_fusedw": bound_ms(stored_bytes, b_flops),
         "lstm_bwd_recompute": bound_ms(3 * nbh + 2 * x_bytes + 2 * nw,
                                        2 * TT * TB * 4 * H * (3 * H + 3 * D))}
+    _, plan = plan_of("lstm", H, TB)
     for e in emits:
         say("lstm_fwd({}) T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), "
             "kernel {:.3f} ms, plain {:.3f} ms, torch.nn.LSTM forward with "
-            "grad {:.3f} ms, bound {:.3f} ms ({})".format(
+            "grad {:.3f} ms, bound {:.3f} ms ({}); plan {}; forced L2 "
+            "instance {:.3f} ms (|diff| {:.3g})".format(
                 e, TT, TB, H, f_err[e], f_ms[e], f_plain[e], lib_f,
-                *f_bound[e]))
+                *f_bound[e], plan, f_l2[e][1], f_l2[e][0]))
     for k in bwds:
         say("{} T={} B={} D=H={}: max relative err {:.3g} (tol 1e-4), "
             "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
@@ -447,7 +498,8 @@ def check_lstm_train(torch, dev, rng):
                           b_plain[k][True], lib_b, *b_bound[k]))
     fwd_rows = {e: dict(ms=f_ms[e], plain_ms=f_plain[e],
                         bound_ms=f_bound[e][0], max_abs_err=f_err[e],
-                        library_ms=lib_f) for e in emits}
+                        library_ms=lib_f, l2_ms=f_l2[e][1],
+                        l2_diff=f_l2[e][0], plan=plan) for e in emits}
     replaces = {"lstm_bwd_acts": 385, "lstm_bwd_fusedw": 456,
                 "lstm_bwd_recompute": 625}
     return fwd_rows, [dict(
@@ -790,17 +842,22 @@ def check_gru(torch, dev, rng):
             lib_err = (ref(x)[0] - gru.gru_fwd(x, iW, b, sW)).abs().max()
             lib_ms = cuda_ms(torch, lambda: ref(x), reps=5)
         bound, by = _gru_fwd_bound(T, B, h, h)
+        l2_diff, l2_ms = against_l2(torch, gru.gru_fwd, 2, x, iW, b, sW)
+        _, plan = plan_of("gru", h, B)
         say("gru_fwd    T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), kernel "
             "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / {:.3f} ms, "
             "torch.nn.GRU {:.3f} ms (|diff| {:.3g}), bound {:.3f} ms ({}); "
-            "serial floor: {} dependent steps".format(
+            "serial floor: {} dependent steps; plan {}; forced L2 instance "
+            "{:.3f} ms (|diff| {:.3g})".format(
                 T, B, h, err, ms[False], ms[True], plain[False],
-                plain[True], lib_ms, lib_err.item(), bound, by, T))
+                plain[True], lib_ms, lib_err.item(), bound, by, T, plan,
+                l2_ms, l2_diff))
         out[h] = dict(name="gru_fwd", route="cuda",
                       source="taiyaki_tpu_torch/csrc/gru.cu",
                       replaces="taiyaki_tpu/ops/pallas_rnn.py:995",
                       max_abs_err=err, ms=ms[False], plain_ms=plain[False],
-                      bound_ms=bound, bound_by=by, library_ms=lib_ms)
+                      bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                      l2_ms=l2_ms, l2_diff=l2_diff, plan=plan)
     return out[H], out[96]
 
 
@@ -819,7 +876,7 @@ def check_gru_train(torch, dev, rng):
             "gru_bwd_fusedw": (gru.gru_bwd_fusedw, gru.gru_bwd_fusedw_plain)}
     f_err = {False: 0.0, True: 0.0}
     b_err = dict.fromkeys(bwds, 0.0)
-    f_ms, f_plain = {}, {}
+    f_ms, f_plain, f_l2 = {}, {}, {}
     b_ms = {k: {} for k in bwds}
     b_plain = {k: {} for k in bwds}
     for reverse in (False, True):
@@ -855,6 +912,8 @@ def check_gru_train(torch, dev, rng):
             for res in (False, True):
                 f_plain[res] = cuda_ms(torch, lambda: gru.gru_fwd_plain(
                     x, iW, b, sW, emit_residuals=res), reps=1)
+                f_l2[res] = against_l2(torch, gru.gru_fwd, 1, x, iW, b, sW,
+                                       emit_residuals=res)
         del want, args, h, gh, gx
         torch.cuda.empty_cache()
     for res in (False, True):
@@ -882,13 +941,16 @@ def check_gru_train(torch, dev, rng):
         "gru_bwd_recompute": bound_ms(4 * 4 * GT * TB * H + nw, 6 * one),
         # dh, gx, gh, h_prev, x in, d_x out: four products
         "gru_bwd_fusedw": bound_ms(4 * 10 * GT * TB * H + nw, 4 * one)}
+    _, plan = plan_of("gru", H, TB)
     for res in (False, True):
         say("gru_fwd(emit_residuals={}) T={} B={} D=H={}: max|err| {:.3g} "
             "(tol 1e-4), kernel {:.3f} ms fwd / {:.3f} ms reverse, plain "
             "{:.3f} ms, torch.nn.GRU forward with grad {:.3f} ms, bound "
-            "{:.3f} ms ({})".format(res, GT, TB, H, f_err[res],
-                                    f_ms[res, False], f_ms[res, True],
-                                    f_plain[res], lib_f, *f_bound[res]))
+            "{:.3f} ms ({}); plan {}; forced L2 instance {:.3f} ms (|diff| "
+            "{:.3g})".format(res, GT, TB, H, f_err[res], f_ms[res, False],
+                             f_ms[res, True], f_plain[res], lib_f,
+                             *f_bound[res], plan, f_l2[res][1],
+                             f_l2[res][0]))
     for k in bwds:
         say("{} T={} B={} D=H={}: max relative err {:.3g} (tol 1e-4), "
             "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
@@ -898,7 +960,9 @@ def check_gru_train(torch, dev, rng):
                           b_plain[k][True], lib_b, *b_bound[k]))
     fwd_rows = {res: dict(ms=f_ms[res, False], plain_ms=f_plain[res],
                           bound_ms=f_bound[res][0], max_abs_err=f_err[res],
-                          library_ms=lib_f) for res in (False, True)}
+                          library_ms=lib_f, l2_ms=f_l2[res][1],
+                          l2_diff=f_l2[res][0], plan=plan)
+                for res in (False, True)}
     replaces = {"gru_bwd_recompute": 1311, "gru_bwd_fusedw": 1184}
     return fwd_rows, [dict(
         name=k, route="cuda", source="taiyaki_tpu_torch/csrc/gru.cu",
@@ -983,6 +1047,7 @@ def check_scan(torch, dev, rng):
             if not reverse:
                 plain["fwd"] = cuda_ms(torch, lambda: fwd_plain(
                     gx, sW, residuals=True), reps=1, warmup=0)
+                l2 = against_l2(torch, fwd, 1, gx, sW, residuals=True)
                 plain["bwd"] = cuda_ms(torch, lambda: bwd_plain(*res),
                                        reps=1, warmup=0)
             del want, res
@@ -1010,12 +1075,14 @@ def check_scan(torch, dev, rng):
         torch.cuda.empty_cache()
         f_bound, b_bound, bx_bound = _scan_bounds(G, t, TB, H, H)
         lib = "torch.nn.{}".format("LSTM" if cell == "lstm" else "GRU")
+        _, plan = plan_of(cell, H, TB)
         say("{}_scan_fwd T={} B={} H={}: max|err| {:.3g} (tol 1e-4), kernel "
             "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} ms, {} forward "
             "with grad (its input product included) {:.3f} ms, bound {:.3f} "
-            "ms ({})".format(cell, t, TB, H, f_err, ms["fwd", False],
+            "ms ({}); plan {}; forced L2 instance {:.3f} ms (|diff| "
+            "{:.3g})".format(cell, t, TB, H, f_err, ms["fwd", False],
                              ms["fwd", True], plain["fwd"], lib, lib_f,
-                             *f_bound))
+                             *f_bound, plan, l2[1], l2[0]))
         say("{}_scan_bwd T={} B={} H={}: max relative err {:.3g} (tol 1e-4, "
             "with and without iW), kernel {:.3f} ms fwd / {:.3f} ms reverse, "
             "with iW (d_x, D={}) {:.3f} / {:.3f} ms, plain {:.3f} ms, {} "
@@ -1031,7 +1098,8 @@ def check_scan(torch, dev, rng):
             name=cell + "_scan_fwd", route="cuda", source=src,
             replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[0]),
             max_abs_err=f_err, ms=ms["fwd", False], plain_ms=plain["fwd"],
-            bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f))
+            bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=lib_f,
+            l2_ms=l2[1], l2_diff=l2[0], plan=plan))
         rows.append(dict(
             name=cell + "_scan_bwd", route="cuda", source=src,
             replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[1]),
@@ -1040,6 +1108,54 @@ def check_scan(torch, dev, rng):
             bound_by=b_bound[1], library_ms=lib_b,
             iw_ms=ms["bwd", True, False], iw_bound_ms=bx_bound[0]))
     return rows
+
+
+def check_l2_512(torch, dev, rng):
+    """The L2 instance of the forward recurrences where no cluster plan
+    fits: the LSTM and GRU layers at H=D=512 (T=200, B=64), every emit
+    mode and gh, both directions, against their twins (1e-4); the plan
+    takes the L2 instance without being forced, and only it launches.
+    Returns {name: (max |err|, ms)}."""
+    from taiyaki_tpu_torch.ops import gru, lstm
+    h, t, b = 512, 200, 64
+    out = {}
+    for cell, mod, G, modes in (("lstm", lstm, 4, lstm.EMITS),
+                                ("gru", gru, 3, (False, True))):
+        fwd = getattr(mod, cell + "_fwd")
+        plain = getattr(mod, cell + "_fwd_plain")
+        plan, line = plan_of(cell, h, b)
+        check(plan.instance == "l2", "{} H={}: plan {}".format(cell, h, line))
+        x = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+        iW = _tensor(torch, dev, rng.normal(size=(G * h, h)) / np.sqrt(h))
+        bias = _tensor(torch, dev, 0.5 * rng.normal(size=G * h))
+        sW = _tensor(torch, dev, rng.normal(size=(G * h, h)) / np.sqrt(h))
+        key = "emit" if cell == "lstm" else "emit_residuals"
+        err = 0.0
+        before = {k: c.launches for k, c in fwd.by_instance.items()}
+        for mode in modes:
+            for reverse in (False, True):
+                got, want = (f(x, iW, bias, sW, reverse=reverse,
+                               **{key: mode}) for f in (fwd, plain))
+                torch.cuda.synchronize()
+                got, want = ((got, want) if isinstance(got, tuple)
+                             else ((got,), (want,)))
+                err = max([err] + [max_abs_diff(g, w)
+                                   for g, w in zip(got, want)])
+        n = 2 * len(modes)
+        after = {k: c.launches for k, c in fwd.by_instance.items()}
+        check(after == {"l2": before["l2"] + n, "cluster": before["cluster"]},
+              "{} H={}: launches by instance {} -> {}".format(
+                  cell, h, before, after))
+        check(err <= 1e-4, "{} H={} (L2 instance): max |err| {} > 1e-4"
+              .format(cell, h, err))
+        ms = cuda_ms(torch, lambda: fwd(x, iW, bias, sW), reps=2)
+        say("{}_fwd T={} B={} D=H={} on {}: max|err| {:.3g} (tol 1e-4, "
+            "every mode, both directions), {:.3f} ms".format(
+                cell, t, b, h, line, err, ms))
+        out[cell + "_fwd"] = (err, ms)
+        del x, iW, bias, sW
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phases 3 and 4 ----------------------------------------------------------
@@ -1289,7 +1405,7 @@ def policy_steps(torch, dev, seed):
     return out
 
 
-def scan_path(torch, dev, rng, counters):
+def scan_path(torch, dev, rng, counters, pick):
     """The public ops `lstm_scan` and `gru_scan` (taiyaki_tpu_torch/ops/
     rnn.py) forward and backward through torch.autograd.grad, both
     directions, at the mLstm (T=TT) and mGru (T=GT) training shapes (B=TB,
@@ -1309,7 +1425,7 @@ def scan_path(torch, dev, rng, counters):
         b = _tensor(torch, dev, 0.5 * rng.normal(size=G * H))
         sW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
         dh = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
-        names = (cell + "_scan_fwd", cell + "_scan_bwd")
+        names = tuple(pick((cell + "_scan_fwd", cell + "_scan_bwd")))
         for k in names:
             counters[k].launches = 0
         out = {}
@@ -2031,6 +2147,8 @@ def run(seed):
     torch.cuda.empty_cache()
     kernels += check_scan(torch, dev, rng)
     torch.cuda.empty_cache()
+    l2_512 = check_l2_512(torch, dev, rng)
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -2048,6 +2166,11 @@ def run(seed):
                 "lstm_scan_bwd": lstm.lstm_scan_bwd,
                 "gru_scan_fwd": gru.gru_scan_fwd,
                 "gru_scan_bwd": gru.gru_scan_bwd}
+    # the forward recurrences' launches of their cluster instance, counted
+    # beside each one's own counter wherever that is picked
+    forwards = ("lstm_fwd", "gru_fwd", "lstm_scan_fwd", "gru_scan_fwd")
+    for k in forwards:
+        counters[k + "[cluster]"] = counters[k].by_instance["cluster"]
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
     streams = ("crf_fwd_streams", "crf_bwd_posteriors")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
@@ -2057,7 +2180,8 @@ def run(seed):
     gru_call = ("gru_fwd", "logz_fwd", "logz_posteriors")
 
     def pick(names):
-        return {k: counters[k] for k in names}
+        return {k: counters[k] for n in names
+                for k in ((n, n + "[cluster]") if n in forwards else (n,))}
 
     def train_policy(model, fwd, bwds, policy, niter):
         """The training path under `policy`: its backward launched, the
@@ -2140,7 +2264,7 @@ def run(seed):
         torch.cuda.empty_cache()
 
         # the recurrences on given gates (kernels 14-17)
-        launches.update(scan_path(torch, dev, rng, counters))
+        launches.update(scan_path(torch, dev, rng, counters, pick))
         torch.cuda.empty_cache()
         # the JAX trainer's own defaults
         launches["mLstm trainer defaults"], _ = defaults_path(
@@ -2213,18 +2337,44 @@ def run(seed):
               "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
+    # every forward recurrence of every path ran its cluster instance
+    for path, counts in launches.items():
+        for k in forwards:
+            if k in counts:
+                check(counts[k + "[cluster]"] == counts[k] > 0,
+                      "{} path: {} launches, {} of them the cluster "
+                      "instance".format(path, counts[k],
+                                        counts[k + "[cluster]"]))
+    say("forward recurrences, the cluster instance against the forced L2 "
+        "instance: {}".format(json.dumps(
+            {k["name"]: {"ms": k["ms"], "l2_ms": k["l2_ms"],
+                         "library_ms": k["library_ms"],
+                         "max_abs_diff": k["l2_diff"], "plan": k["plan"]}
+             for k in kernels if "l2_ms" in k})))
+    say("the L2 instance at H=512 (max |err|, ms): {}".format(json.dumps(
+        l2_512)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    check(len(kernels) == len(counters) == 17, "kernels line: {} rows".format(
-        len(kernels)))
+    check(len(kernels) == len(counters) - len(forwards) == 17,
+          "kernels line: {} rows".format(len(kernels)))
     check(all(k["launches"] > 0 for k in kernels),
           "kernels line: a kernel its path did not launch")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in kernels]}))
+    print(json.dumps({"kernels": [
+        dict({key: k[key] for key in keys}, **(
+            {"launches_by_instance": _by_instance(
+                launches[source[k["name"]]], k["name"]),
+             "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}))
+        for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _by_instance(counts, name):
+    """A path's launches of the forward `name` by instance."""
+    cluster = counts[name + "[cluster]"]
+    return {"cluster": cluster, "l2": counts[name] - cluster}
 
 
 def main():

@@ -46,16 +46,38 @@
 //    round trip through device memory that the TPU kernel avoids, ~1 ms at
 //    3.35 TB/s against ~100 ms of chain.
 //
-// 2. gru_rec_kernel: the forward recurrence, on the LSTM kernel's pattern.
-//    One block per tile of BT = 8 batch rows, one thread per hidden unit j
-//    owning the gate rows j, H+j and 2H+j for the BT rows (24 accumulators)
-//    and its h in registers; h of the tile lives in shared memory,
-//    double-buffered so one barrier per step suffices.  sW^T ([H, 3H],
-//    768 KB at H = 256) does not fit in one SM's 227 KB of shared memory,
-//    so every step reads it again from L2 (coalesced: thread j reads
-//    column j of each row).  Bound: the serial chain of T dependent steps,
-//    each a BT x H x 3H product on one SM.  With RES it also stores the
-//    step's gh, a value it holds anyway.
+// 2. The forward recurrence, in two instances that compute the same
+//    function (within 1e-5 of each other; the sums over k run in another
+//    order), as the LSTM's (lstm.cu item 2); ops/rnn_plan.py `rec_plan`
+//    picks one by shape before the launch.  Both replace the recurrence
+//    of pallas_rnn.py:995 `gru_fused_fwd` (and, on given gates, of
+//    pallas_rnn.py:1082 `gru_fwd`).
+//    a. gru_rec_cluster_kernel<RB, RES> (the cluster instance, the plan's
+//       choice wherever it fits, up to H ~ 450): a cluster of C CTAs per
+//       tile of BT batch rows, rank q keeping the three gate rows of its
+//       H/C units over all H inputs in shared memory for the whole launch
+//       (as float4 with a zero fourth gate: 72 KB at the shipped remap
+//       model's H = 96 with C = 2, 128 KB at H = 256, C = 8), h exchanged
+//       by bulk copies between the ranks' shared memories with one
+//       mbarrier wait a step, the product in KS slices of k, the cells
+//       after it, the next step's input gates copied by cp.async during
+//       the product (rec_cluster.cuh: layout, protocol, per-step cost
+//       model).  The input gates are added after the product, as in the L2
+//       instance, and h_prev is read from the CTA's own h buffer.  At the
+//       basecall shape (B = 128) the plan runs 128 CTAs at H = 96 (C = 2,
+//       BT = 2) and 120 at H = 256 (C = 8, BT = 9); the L2 instance 16.
+//       Bound: the serial chain of T steps, each the product's
+//       shared-memory reads plus the exchange and the cells; at H = 96
+//       the fixed costs of a step (the cells, the exchange), not the
+//       product, take most of it.
+//    b. gru_rec_kernel<BT, RES> (the L2 instance, where the slice does not
+//       fit: H = 512).  One block per tile of BT = 8 batch rows, one thread
+//       per hidden unit j owning the gate rows j, H+j and 2H+j for the BT
+//       rows (24 accumulators) and its h in registers; h of the tile lives
+//       in shared memory, double-buffered so one barrier per step
+//       suffices; every step reads sW^T again from L2 (coalesced: thread j
+//       reads column j of each row).
+//    With RES either stores the step's gh, a value it holds anyway.
 //
 // 3. gru_bwd_rec_kernel: the backward recurrence, walking opposite to the
 //    forward.  It carries only dh: per step thread k reads gx, gh and
@@ -90,6 +112,7 @@
 #include <stddef.h>
 
 #include "gemm.cuh"
+#include "rec_cluster.cuh"
 
 namespace {
 
@@ -183,6 +206,76 @@ gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
         }
         __syncthreads();
     }
+}
+
+// The cluster instance of the forward recurrence: what gru_rec_kernel
+// computes, for the tile of BT rows of this cluster, rank q holding units
+// [q U, q U + U); the product in KS k slices of RB rows a lane
+// (rec_cluster.cuh).  Arguments as gru_rec_kernel's; C ranks of U units.
+template <int RB, bool RES>
+__global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
+gru_rec_cluster_kernel(const float* __restrict__ gx,
+                       const float* __restrict__ swt,
+                       float* __restrict__ h_out, float* __restrict__ gh_out,
+                       int T, int B, int H, int reverse, int C, int U, int BT,
+                       int KS)
+{
+    extern __shared__ __align__(16) float smem[];
+    const RecSmem m = rec_smem(smem, H, C, U, BT);
+    const int b0 = cluster_id() * BT;
+    const int nrow = min(BT, B - b0);
+    const int u0 = cluster_rank() * U;
+    const RecWork wk = rec_work(H, U, KS);
+    const bool works = wk.ul_c < U && u0 + wk.ul_c < H;
+    const int H3 = 3 * H;
+
+    const RecCells cl = rec_cells(H, U, BT, u0);
+    rec_prologue<3>(m, gx, swt, reverse ? T - 1 : 0, B, b0, nrow, H, C, U,
+                    u0, BT, cl);
+    for (int s = 0; s < T; ++s) {
+        const int t = reverse ? T - 1 - s : s;
+        const int nb = (s + 1) & 1;
+        const bool more = s + 1 < T;
+        const float* hc = m.hS + (s & 1) * C * U * BT;
+        rec_step_top<3>(m, gx, s, T, reverse ? t - 1 : t + 1, B, b0, nrow, H,
+                        C, U, u0, BT, cl);
+        if (works) rec_partials<3, RB>(m, hc, wk, U, BT);
+        __syncthreads();
+        cp_async_wait<1>();
+        const float4* g4 =
+            reinterpret_cast<const float4*>(m.ring + (s & 1) * BT * U * 4);
+#pragma unroll
+        for (int j = 0; j < REC_MAX_CELLS; ++j) {
+            if (j >= cl.n) break;
+            const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
+            if (row >= BT || u >= H) continue;
+            const float4 gh = rec_sum(m, make_float4(0.f, 0.f, 0.f, 0.f), KS,
+                                      U, BT, u_c, row);
+            float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+            if (row < nrow) {
+                const float4 g = g4[row * U + u_c];
+                g0 = g.x; g1 = g.y; g2 = g.z;
+            }
+            const float rg = sigmoidf_(g0 + gh.x);
+            const float zg = sigmoidf_(g1 + gh.y);
+            const float ng = tanhf(g2 + rg * gh.z);
+            const float h = (1.f - zg) * ng + zg * hc[(size_t)u * BT + row];
+            m.hS[(size_t)(nb * C * U + u) * BT + row] = h;
+            if (row < nrow) {
+                const size_t r = (size_t)t * B + b0 + row;
+                h_out[r * H + u] = h;
+                if (RES) {
+                    float* o = gh_out + r * H3 + u;
+                    o[0] = gh.x; o[H] = gh.y; o[2 * H] = gh.z;
+                }
+            }
+        }
+        if (more) {
+            rec_send(m, nb, C, U, BT, u0);
+            mbar_wait(m.bar + nb, (s >> 1) & 1);
+        }
+    }
+    cluster_sync();
 }
 
 // Backward recurrence for the BT-row batch tile of this block.  dh [T, B,
@@ -314,6 +407,50 @@ int launch_gru_rec(const float* gx, const float* swt, float* h, float* gh,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster instance (kernel 2a) on a plan of C ranks, BT rows a tile,
+// RB rows a lane and KS k slices.
+template <int RB, bool RES>
+int launch_gru_rec_cluster(const float* gx, const float* swt, float* h,
+                           float* gh, int T, int B, int H, int reverse, int C,
+                           int BT, int KS, int smem, cudaStream_t st)
+{
+    const int U = (H + C - 1) / C;
+    return rec_cluster_launch(gru_rec_cluster_kernel<RB, RES>, C,
+                              (B + BT - 1) / BT,
+                              rec_cluster_threads(U, BT, RB, KS), smem, st,
+                              gx, swt, h, gh, T, B, H, reverse, C, U, BT, KS);
+}
+
+// Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.
+template <bool RES>
+int launch_gru_rec_plan_res(const float* gx, const float* swt, float* h,
+                            float* gh, int T, int B, int H, int reverse,
+                            int instance, int C, int BT, int RB, int KS,
+                            int smem, cudaStream_t st)
+{
+    if (instance == INSTANCE_L2)
+        return launch_gru_rec<RES>(gx, swt, h, gh, T, B, H, reverse, st);
+    return rec_with_rb(RB, [&](auto rb) {
+        return launch_gru_rec_cluster<decltype(rb)::value, RES>(
+            gx, swt, h, gh, T, B, H, reverse, C, BT, KS, smem, st);
+    });
+}
+
+// gh non-null stores the residual gh.
+int launch_gru_rec_plan(const float* gx, const float* swt, float* h,
+                        float* gh, int T, int B, int H, int reverse,
+                        int instance, int C, int BT, int RB, int KS, int smem,
+                        cudaStream_t st)
+{
+    if (gh != nullptr)
+        return launch_gru_rec_plan_res<true>(gx, swt, h, gh, T, B, H,
+                                             reverse, instance, C, BT, RB,
+                                             KS, smem, st);
+    return launch_gru_rec_plan_res<false>(gx, swt, h, nullptr, T, B, H,
+                                          reverse, instance, C, BT, RB, KS,
+                                          smem, st);
+}
+
 // The backward chain (kernel 3) alone: dgx, dgh and the per-tile d_b.
 int launch_gru_bwd_rec(const float* dh, const float* hp, int hshift,
                        const float* gx, const float* gh, float* dgx,
@@ -366,22 +503,44 @@ const char* tt_error_string(int err)
 
 // h [T, B, H] = GRU over x [T, B, D]; gx [T, B, 3H] is caller-allocated
 // and holds x iW^T + b on return; swt = sW^T [H, 3H].  With gh non-null
-// (emit_residuals) also gh [T, B, 3H].  All f32, contiguous, on one
-// device.  Returns cudaGetLastError() after the first failing launch,
-// else 0.
+// (emit_residuals) also gh [T, B, 3H].  The recurrence runs on the plan
+// (instance, C, BT, RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance
+// 0 the L2 kernel (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; a plan it
+// cannot take returns cudaErrorInvalidValue before any launch.  All f32,
+// contiguous, on one device.  Returns cudaGetLastError() after the first
+// failing launch (or the cluster launch's own error), else 0.
 int tt_gru_fwd(const float* x, const float* iW, const float* b,
                const float* swt, float* gx, float* h, float* gh, int T,
-               int B, int D, int H, int reverse, void* stream)
+               int B, int D, int H, int reverse, int instance, int C, int BT,
+               int RB, int KS, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B;
     if (M == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = launch_gate_gemm(x, iW, b, gx, M, 3 * H, D, st);
+    cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
+                                     REC_BT, REC_MAX_THREADS);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (gh != nullptr)
-        return launch_gru_rec<true>(gx, swt, h, gh, T, B, H, reverse, st);
-    return launch_gru_rec<false>(gx, swt, h, nullptr, T, B, H, reverse, st);
+    err = launch_gate_gemm(x, iW, b, gx, M, 3 * H, D, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_gru_rec_plan(gx, swt, h, gh, T, B, H, reverse, instance, C,
+                               BT, RB, KS, smem, st);
+}
+
+// How many clusters of the cluster instance's plan (C ranks, BT rows a
+// tile, RB a lane, KS k slices, smem bytes) for H units the card runs at
+// once (cudaOccupancyMaxActiveClusters; 0 if none fits), or minus the
+// CUDA error.
+int tt_gru_cluster_occupancy(int H, int C, int BT, int RB, int KS, int smem)
+{
+    if (rec_cluster_check(H, C, BT, RB, KS, smem) != cudaSuccess)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    const int threads = rec_cluster_threads((H + C - 1) / C, BT, RB, KS);
+    return rec_with_rb(RB, [&](auto rb) {
+        return rec_cluster_occupancy(
+            gru_rec_cluster_kernel<decltype(rb)::value, false>, C, threads,
+            smem);
+    });
 }
 
 // GRU layer backward recomputing both gate streams.  Inputs: dh, h
@@ -445,16 +604,20 @@ int tt_gru_bwd_fusedw(const float* dh, const float* gx, const float* gh,
 
 // Kernel 16: the GRU recurrence on given gates.  gx [T, B, 3H] (read
 // only), swt = sW^T [H, 3H] -> h [T, B, H]; with gh non-null also gh
-// [T, B, 3H] = h_prev . sW^T.  Returns cudaGetLastError().
+// [T, B, 3H] = h_prev . sW^T.  The plan as tt_gru_fwd's.  Returns
+// cudaGetLastError().
 int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
-                    int T, int B, int H, int reverse, void* stream)
+                    int T, int B, int H, int reverse, int instance, int C,
+                    int BT, int RB, int KS, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    if (gh != nullptr)
-        return launch_gru_rec<true>(gx, swt, h, gh, T, B, H, reverse, st);
-    return launch_gru_rec<false>(gx, swt, h, nullptr, T, B, H, reverse, st);
+    cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
+                                     REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_gru_rec_plan(gx, swt, h, gh, T, B, H, reverse, instance, C,
+                               BT, RB, KS, smem, st);
 }
 
 // Kernel 17: the GRU gradient chain on the forward's residuals.  dh,

@@ -47,18 +47,42 @@
 //    the product the TPU kernel forms step by step inside its serial loop,
 //    pallas_rnn.py:587-592, leaves the chain).
 //
-// 2. lstm_rec_kernel: the forward recurrence.  One block per tile of
-//    BT = 8 batch rows, one thread per hidden unit j; thread j owns the
-//    four gate rows j, H+j, 2H+j, 3H+j for all BT rows (32 accumulators)
-//    and the cell state c of its unit in registers; h of the tile lives in
-//    shared memory, double-buffered so one barrier per step suffices.  The
-//    recurrent weights (sW^T, [H, 4H], 1 MB at H = 256) do not fit in one
-//    SM's 227 KB of shared memory, so every step reads them again from L2
-//    (coalesced: thread j reads column j of each row of sW^T).  What
-//    bounds it is the serial chain of T dependent steps, each a
-//    BT x H x 4H product on one SM.  The emit modes only add stores of
-//    values the step computes anyway; pre is written over gx (each value
-//    after its only read), so it needs no stream of its own.
+// 2. The forward recurrence, in two instances that compute the same
+//    function (within 1e-5 of each other; the sums over k run in another
+//    order); ops/rnn_plan.py `rec_plan` picks one by shape before the
+//    launch (tt_lstm_fwd's `instance`, C, BT, RB, KS and smem arguments).
+//    Both replace the recurrence of pallas_rnn.py:880 `lstm_fused_fwd`
+//    (and, on given gates, of pallas_rnn.py:141 `lstm_fwd`).
+//    a. lstm_rec_cluster_kernel<RB, EMIT> (the cluster instance, the plan's
+//       choice wherever its shared memory fits: every width the repo's
+//       models use, up to H ~ 450).  A cluster of C CTAs walks a tile of
+//       BT batch rows; rank q keeps the four gate rows of its H/C units,
+//       over all H inputs, in its shared memory for the whole launch (128
+//       KB at H = 256, C = 8) and receives the other ranks' blocks of h
+//       by bulk copies into its shared memory, one mbarrier wait a step;
+//       the product runs in KS slices of k (RB rows a lane, partial sums
+//       in shared memory), then each thread applies the cell to at most 4
+//       (unit, row) cells, the next step's input gates arriving by
+//       cp.async meanwhile (rec_cluster.cuh: layout, protocol, per-step
+//       cost model).  The plan fills the card: at B = 128, H = 256, C = 8
+//       and BT = 9 give 120 CTAs (15 clusters, as many clusters of 8 as
+//       an H100 runs at once); the L2 instance 16 blocks.  Bound: the
+//       serial chain, T steps of the product's shared-memory reads (the
+//       larger term at every shape the repo uses), the exchange and the
+//       cells; the operations bound (2 T B 4H (D + H) at 67 TFLOP/s) is
+//       2.0 ms at the basecall shape, the chain about twice that.
+//    b. lstm_rec_kernel<BT, EMIT> (the L2 instance, for the widths where
+//       the slice does not fit: an LSTM at H = 512 needs 4 MB of sW^T,
+//       262 KB a CTA even at C = 16).  One block per tile of BT = 8 batch
+//       rows, one thread per hidden unit j; thread j owns the four gate
+//       rows j, H+j, 2H+j, 3H+j for all BT rows (32 accumulators) and the
+//       cell state c of its unit in registers; h of the tile lives in
+//       shared memory, double-buffered so one barrier per step suffices.
+//       Every step reads sW^T again from L2 (coalesced: thread j reads
+//       column j of each row of sW^T).
+//    The emit modes only add stores of values the step computes anyway;
+//    pre is written over gx (each value after its only read), so it needs
+//    no stream of its own.
 //
 // 3. lstm_bwd_rec_kernel: the backward recurrence, the mirror of 2 in the
 //    opposite time direction.  Thread j computes the four gate gradients
@@ -91,6 +115,7 @@
 #include <type_traits>
 
 #include "gemm.cuh"
+#include "rec_cluster.cuh"
 
 namespace {
 
@@ -204,6 +229,89 @@ lstm_rec_kernel(gx_ptr<EMIT> __restrict__ gx, const float* __restrict__ swt,
         }
         __syncthreads();
     }
+}
+
+// The cluster instance of the forward recurrence: what lstm_rec_kernel
+// computes, for the tile of BT rows of this cluster, rank q holding units
+// [q U, q U + U); the product in KS k slices of RB rows a lane
+// (rec_cluster.cuh).  Arguments as lstm_rec_kernel's; C ranks of U units.
+template <int RB, int EMIT>
+__global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
+lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
+                        const float* __restrict__ swt,
+                        float* __restrict__ h_out, float* __restrict__ c_out,
+                        float* __restrict__ acts_out,
+                        float* __restrict__ tc_out, int T, int B, int H,
+                        int reverse, int C, int U, int BT, int KS)
+{
+    extern __shared__ __align__(16) float smem[];
+    const RecSmem m = rec_smem(smem, H, C, U, BT);
+    const int b0 = cluster_id() * BT;
+    const int nrow = min(BT, B - b0);
+    const int u0 = cluster_rank() * U;
+    const RecWork wk = rec_work(H, U, KS);
+    const bool works = wk.ul_c < U && u0 + wk.ul_c < H;
+    const int H4 = 4 * H;
+
+    const RecCells cl = rec_cells(H, U, BT, u0);
+    rec_prologue<4>(m, gx, swt, reverse ? T - 1 : 0, B, b0, nrow, H, C, U,
+                    u0, BT, cl);
+    float c[REC_MAX_CELLS];
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) c[j] = 0.f;
+
+    for (int s = 0; s < T; ++s) {
+        const int t = reverse ? T - 1 - s : s;
+        const int nb = (s + 1) & 1;
+        const bool more = s + 1 < T;
+        rec_step_top<4>(m, gx, s, T, reverse ? t - 1 : t + 1, B, b0, nrow, H,
+                        C, U, u0, BT, cl);
+        if (works)
+            rec_partials<4, RB>(m, m.hS + (s & 1) * C * U * BT, wk, U, BT);
+        __syncthreads();
+        cp_async_wait<1>();
+        const float4* g4 =
+            reinterpret_cast<const float4*>(m.ring + (s & 1) * BT * U * 4);
+#pragma unroll
+        for (int j = 0; j < REC_MAX_CELLS; ++j) {
+            if (j >= cl.n) break;
+            const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
+            if (row >= BT || u >= H) continue;
+            const float4 pre = rec_sum(
+                m, row < nrow ? g4[row * U + u_c]
+                              : make_float4(0.f, 0.f, 0.f, 0.f),
+                KS, U, BT, u_c, row);
+            const float ig = sigmoidf_(pre.x);
+            const float fg = sigmoidf_(pre.y);
+            const float gg = tanhf(pre.z);
+            const float og = sigmoidf_(pre.w);
+            c[j] = fg * c[j] + ig * gg;
+            const float tc = tanhf(c[j]);
+            const float h = og * tc;
+            m.hS[(size_t)(nb * C * U + u) * BT + row] = h;
+            if (row < nrow) {
+                const size_t r = (size_t)t * B + b0 + row;
+                const size_t o = r * H + u;
+                h_out[o] = h;
+                if (EMIT != EMIT_H) c_out[o] = c[j];
+                if constexpr (EMIT == EMIT_PRE) {
+                    float* g = gx + r * H4 + u;
+                    g[0] = pre.x; g[H] = pre.y; g[2 * H] = pre.z;
+                    g[3 * H] = pre.w;
+                }
+                if (EMIT == EMIT_ACTS) {
+                    tc_out[o] = tc;
+                    float* a = acts_out + r * H4 + u;
+                    a[0] = ig; a[H] = fg; a[2 * H] = gg; a[3 * H] = og;
+                }
+            }
+        }
+        if (more) {
+            rec_send(m, nb, C, U, BT, u0);
+            mbar_wait(m.bar + nb, (s >> 1) & 1);
+        }
+    }
+    cluster_sync();
 }
 
 // Backward recurrence for the BT-row batch tile of this block: gate
@@ -327,6 +435,38 @@ int launch_lstm_rec(float* gx, const float* swt, float* h, float* c,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster instance (kernel 2a) on a plan of C ranks, BT rows a tile,
+// RB rows a lane and KS k slices.
+template <int RB, int EMIT>
+int launch_lstm_rec_cluster(float* gx, const float* swt, float* h, float* c,
+                            float* acts, float* tc, int T, int B, int H,
+                            int reverse, int C, int BT, int KS, int smem,
+                            cudaStream_t st)
+{
+    const int U = (H + C - 1) / C;
+    return rec_cluster_launch(lstm_rec_cluster_kernel<RB, EMIT>, C,
+                              (B + BT - 1) / BT,
+                              rec_cluster_threads(U, BT, RB, KS), smem, st,
+                              static_cast<gx_ptr<EMIT>>(gx), swt, h, c, acts,
+                              tc, T, B, H, reverse, C, U, BT, KS);
+}
+
+// Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.
+template <int EMIT>
+int launch_lstm_rec_plan(float* gx, const float* swt, float* h, float* c,
+                         float* acts, float* tc, int T, int B, int H,
+                         int reverse, int instance, int C, int BT, int RB,
+                         int KS, int smem, cudaStream_t st)
+{
+    if (instance == INSTANCE_L2)
+        return launch_lstm_rec<EMIT>(gx, swt, h, c, acts, tc, T, B, H,
+                                     reverse, st);
+    return rec_with_rb(RB, [&](auto rb) {
+        return launch_lstm_rec_cluster<decltype(rb)::value, EMIT>(
+            gx, swt, h, c, acts, tc, T, B, H, reverse, C, BT, KS, smem, st);
+    });
+}
+
 // The backward chain (kernel 3) alone: dpre and the per-tile d_b.
 template <bool FROM_PRE>
 int launch_lstm_bwd_rec(const float* dh, const float* gates, const float* cs,
@@ -385,11 +525,16 @@ const char* tt_error_string(int err)
 // h [T, B, H] = LSTM over x [T, B, D]; gx is caller-allocated scratch
 // [T, B, 4H]; swt = sW^T [H, 4H].  `emit` 0: h only; 1: also c [T, B, H];
 // 2: also c, and pre [T, B, 4H] written over gx; 3: also c, tc [T, B, H]
-// and acts [T, B, 4H].  All f32, contiguous, on one device.  Returns
-// cudaGetLastError() after the first failing launch, else 0.
+// and acts [T, B, 4H].  The recurrence runs on the plan (instance, C, BT,
+// RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance 0 the L2 kernel
+// (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; a plan it cannot take
+// returns cudaErrorInvalidValue before any launch.  All f32, contiguous,
+// on one device.  Returns cudaGetLastError() after the first failing
+// launch (or the cluster launch's own error), else 0.
 int tt_lstm_fwd(const float* x, const float* iW, const float* b,
                 const float* swt, float* gx, float* h, float* c, float* acts,
                 float* tc, int T, int B, int D, int H, int reverse, int emit,
+                int instance, int C, int BT, int RB, int KS, int smem,
                 void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -397,22 +542,47 @@ int tt_lstm_fwd(const float* x, const float* iW, const float* b,
     if (M == 0) return 0;
     if (H > REC_MAX_THREADS || emit < EMIT_H || emit > EMIT_ACTS)
         return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = launch_gate_gemm(x, iW, b, gx, M, 4 * H, D, st);
+    cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
+                                     REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_gate_gemm(x, iW, b, gx, M, 4 * H, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     switch (emit) {
     case EMIT_H:
-        return launch_lstm_rec<EMIT_H>(gx, swt, h, nullptr, nullptr, nullptr,
-                                       T, B, H, reverse, st);
+        return launch_lstm_rec_plan<EMIT_H>(gx, swt, h, nullptr, nullptr,
+                                            nullptr, T, B, H, reverse,
+                                            instance, C, BT, RB, KS, smem, st);
     case EMIT_C:
-        return launch_lstm_rec<EMIT_C>(gx, swt, h, c, nullptr, nullptr, T, B,
-                                       H, reverse, st);
+        return launch_lstm_rec_plan<EMIT_C>(gx, swt, h, c, nullptr, nullptr,
+                                            T, B, H, reverse, instance, C,
+                                            BT, RB, KS, smem, st);
     case EMIT_PRE:
-        return launch_lstm_rec<EMIT_PRE>(gx, swt, h, c, nullptr, nullptr, T,
-                                         B, H, reverse, st);
+        return launch_lstm_rec_plan<EMIT_PRE>(gx, swt, h, c, nullptr,
+                                              nullptr, T, B, H, reverse,
+                                              instance, C, BT, RB, KS, smem,
+                                              st);
     default:
-        return launch_lstm_rec<EMIT_ACTS>(gx, swt, h, c, acts, tc, T, B, H,
-                                          reverse, st);
+        return launch_lstm_rec_plan<EMIT_ACTS>(gx, swt, h, c, acts, tc, T,
+                                               B, H, reverse, instance, C,
+                                               BT, RB, KS, smem, st);
     }
+}
+
+// How many clusters of the cluster instance's plan (C ranks, BT rows a
+// tile, RB a lane, KS k slices, smem bytes) for H units the card runs at
+// once (cudaOccupancyMaxActiveClusters; 0 if none fits), or minus the
+// CUDA error.
+int tt_lstm_cluster_occupancy(int H, int C, int BT, int RB, int KS,
+                              int smem)
+{
+    if (rec_cluster_check(H, C, BT, RB, KS, smem) != cudaSuccess)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    const int threads = rec_cluster_threads((H + C - 1) / C, BT, RB, KS);
+    return rec_with_rb(RB, [&](auto rb) {
+        return rec_cluster_occupancy(
+            lstm_rec_cluster_kernel<decltype(rb)::value, EMIT_H>, C, threads,
+            smem);
+    });
 }
 
 // LSTM layer backward from stored gates.  Inputs: dh, cprev, h [T, B, H],
@@ -476,25 +646,30 @@ int tt_lstm_bwd_recompute(const float* dh, const float* c, const float* h,
 // Kernel 14: the LSTM recurrence on given gates.  gx [T, B, 4H] (read
 // only), swt = sW^T [H, 4H] -> h [T, B, H]; with pre non-null also c
 // [T, B, H] and pre [T, B, 4H] (gx copied into pre, then overwritten in
-// place by the chain).  Returns cudaGetLastError() after the first failing
-// launch or copy, else 0.
+// place by the chain).  The plan as tt_lstm_fwd's.  Returns
+// cudaGetLastError() after the first failing launch or copy, else 0.
 int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
                      float* h, float* c, int T, int B, int H, int reverse,
+                     int instance, int C, int BT, int RB, int KS, int smem,
                      void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    if (pre == nullptr)
-        return launch_lstm_rec<EMIT_H>(const_cast<float*>(gx), swt, h,
-                                       nullptr, nullptr, nullptr, T, B, H,
-                                       reverse, st);
-    cudaError_t err = cudaMemcpyAsync(pre, gx,
-                                      sizeof(float) * T * B * 4 * H,
-                                      cudaMemcpyDeviceToDevice, st);
+    cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
+                                     REC_BT, REC_MAX_THREADS);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return launch_lstm_rec<EMIT_PRE>(pre, swt, h, c, nullptr, nullptr, T, B,
-                                     H, reverse, st);
+    if (pre == nullptr)
+        return launch_lstm_rec_plan<EMIT_H>(const_cast<float*>(gx), swt, h,
+                                            nullptr, nullptr, nullptr, T, B,
+                                            H, reverse, instance, C, BT,
+                                            RB, KS, smem, st);
+    err = cudaMemcpyAsync(pre, gx, sizeof(float) * T * B * 4 * H,
+                          cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_lstm_rec_plan<EMIT_PRE>(pre, swt, h, c, nullptr, nullptr,
+                                          T, B, H, reverse, instance, C, BT,
+                                          RB, KS, smem, st);
 }
 
 // Kernel 15: the LSTM gradient chain on the forward's residuals.  dh, c,

@@ -22,22 +22,27 @@ without the input product, what pallas_rnn.py:1082 `gru_fwd` and :1407
 the gradients dgx (= d gates_x) and dgh, with iW also d_x.  They run the
 layer kernels' chains (csrc/gru.cu).
 
+The forward recurrence (of `gru_fwd` and `gru_scan_fwd`) has a cluster
+and an L2 instance that compute the same values, picked by
+`rnn_plan.rec_plan` and counted per instance as the LSTM's (ops/lstm.py).
+
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
 
 import torch
 
-from taiyaki_tpu_torch.ops import cuda_lib
+from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
 from taiyaki_tpu_torch.ops.lstm import (BATCH_TILE, _check_args,
                                         _check_hidden, bwd_outputs,
                                         prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 5 + [_P],
+_SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 11 + [_P],
                "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P],
                "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P],
-               "tt_gru_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
+               "tt_gru_scan_fwd": [_P] * 4 + [_I] * 10 + [_P],
+               "tt_gru_cluster_occupancy": [_I] * 6,
                "tt_gru_scan_bwd": [_P] * 10 + [_I] * 5 + [_P]}
 
 
@@ -77,8 +82,12 @@ def _gru_rec_plain(gx, sW, reverse, residuals):
     return out, gh
 
 
-def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False):
-    """GRU layer forward; same contract as `gru_fwd_plain`."""
+def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
+            instance=None):
+    """GRU layer forward; same contract as `gru_fwd_plain`.  `instance`
+    ("cluster" or "l2") forces an instance of the recurrence on the card,
+    for tests and timing; None takes `rnn_plan.rec_plan`'s."""
+    rnn_plan.check_instance(instance)
     if x.device.type == "cpu":
         return gru_fwd_plain(x, iW, b, sW, reverse, emit_residuals)
     cuda_lib.check_cuda(x, "gru_fwd")
@@ -88,6 +97,7 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False):
         ("x", x, (T, B, D)), ("iW", iW, (3 * H, D)), ("b", b, (3 * H,)),
         ("sW", sW, (3 * H, H))))
     _check_hidden("gru_fwd", H)
+    plan = rnn_plan.rec_plan(3, H, B, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
@@ -100,8 +110,9 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False):
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
             cuda_lib.ptr(gh), T, B, D, H, int(bool(reverse)),
-            cuda_lib.stream(x.device))
+            *rnn_plan.c_args(plan), cuda_lib.stream(x.device))
         gru_fwd.launches += 1
+        gru_fwd.by_instance[plan.instance].launches += 1
     cuda_lib.check(lib, err, "gru_fwd kernel")
     return (h, gh, gx) if emit_residuals else h
 
@@ -233,9 +244,12 @@ def gru_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False):
     return (out, gh) if residuals else out
 
 
-def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False):
+def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
+                 instance=None):
     """The GRU recurrence on given gates (kernel 16); contract of
-    `gru_scan_fwd_plain`.  gates_x is read, never written."""
+    `gru_scan_fwd_plain`.  gates_x is read, never written.  `instance` as
+    `gru_fwd`'s."""
+    rnn_plan.check_instance(instance)
     if gates_x.device.type == "cpu":
         return gru_scan_fwd_plain(gates_x, sW, reverse, residuals)
     what = "gru_scan_fwd"
@@ -245,6 +259,7 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False):
     _check_args(what, gates_x.device, (
         ("gates_x", gates_x, (T, B, 3 * H)), ("sW", sW, (3 * H, H))))
     _check_hidden(what, H)
+    plan = rnn_plan.rec_plan(3, H, B, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = gates_x.device
     with torch.cuda.device(dev):
@@ -254,8 +269,9 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False):
         err = lib.tt_gru_scan_fwd(
             cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(h),
             cuda_lib.ptr(gh), T, B, H, int(bool(reverse)),
-            cuda_lib.stream(dev))
+            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
         gru_scan_fwd.launches += 1
+        gru_scan_fwd.by_instance[plan.instance].launches += 1
     cuda_lib.check(lib, err, what + " kernel")
     return (h, gh) if residuals else h
 
@@ -307,8 +323,21 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
     return (dgx, dgh) if iW is None else (dgx, dgh, d_x)
 
 
+def cluster_occupancy(H, plan):
+    """How many clusters of the cluster instance's `plan` for H units the
+    card runs at once (cudaOccupancyMaxActiveClusters), on the current
+    CUDA device."""
+    lib = cuda_lib.load("gru", _SIGNATURES)
+    n = lib.tt_gru_cluster_occupancy(H, plan.C, plan.BT, plan.RB,
+                                      plan.KS, plan.smem)
+    cuda_lib.check(lib, -min(n, 0), "tt_gru_cluster_occupancy")
+    return n
+
+
 gru_fwd.launches = 0
+gru_fwd.by_instance = rnn_plan.instance_counters()
 gru_scan_fwd.launches = 0
+gru_scan_fwd.by_instance = rnn_plan.instance_counters()
 gru_scan_bwd.launches = 0
 gru_bwd_recompute.launches = 0
 gru_bwd_fusedw.launches = 0

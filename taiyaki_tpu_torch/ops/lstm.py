@@ -20,24 +20,32 @@ gates without the input product, what pallas_rnn.py:141 `lstm_fwd` and
 [T, B, 4H], and the gate gradients dpre (= d gates_x), with iW also d_x.
 They run the layer kernels' chains (csrc/lstm.cu).
 
+The forward recurrence (of `lstm_fwd` and `lstm_scan_fwd`) has two
+instances that compute the same values, the cluster instance and the L2
+one; `rnn_plan.rec_plan` picks one by shape before the launch, and each
+wrapper counts its launches per instance (`<wrapper>.by_instance`).  The
+keyword `instance=` forces one, for tests and chip_smoke.py only.
+
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
 
 import torch
 
-from taiyaki_tpu_torch.ops import cuda_lib
+from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
 
-# the recurrences run one thread per hidden unit (csrc/lstm.cu)
-MAX_HIDDEN = 512
+# the L2 instance of the forward and the backward chains run one thread per
+# hidden unit (csrc/lstm.cu)
+MAX_HIDDEN = rnn_plan.MAX_HIDDEN
 # batch rows per block of the recurrence kernels: d_b comes back as one
 # partial per tile of this many rows
 BATCH_TILE = 8
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 6 + [_P],
+_SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 12 + [_P],
                "tt_lstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
                "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 6 + [_P],
-               "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
+               "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 10 + [_P],
+               "tt_lstm_cluster_occupancy": [_I] * 6,
                "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 5 + [_P]}
 # the forward's emit modes, in the order csrc/lstm.cu numbers them, and
 # the residuals each returns after h
@@ -103,10 +111,13 @@ def _check_hidden(what, H):
                          "kernel".format(what, H, MAX_HIDDEN))
 
 
-def lstm_fwd(x, iW, b, sW, reverse=False, emit=None):
-    """LSTM layer forward; same contract as `lstm_fwd_plain`."""
+def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
+    """LSTM layer forward; same contract as `lstm_fwd_plain`.  `instance`
+    ("cluster" or "l2") forces an instance of the recurrence on the card,
+    for tests and timing; None takes `rnn_plan.rec_plan`'s."""
     if emit not in EMITS:
         raise ValueError("lstm_fwd: emit must be one of {}".format(EMITS))
+    rnn_plan.check_instance(instance)
     if x.device.type == "cpu":
         return lstm_fwd_plain(x, iW, b, sW, reverse, emit)
     cuda_lib.check_cuda(x, "lstm_fwd")
@@ -116,6 +127,7 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None):
         ("x", x, (T, B, D)), ("iW", iW, (4 * H, D)), ("b", b, (4 * H,)),
         ("sW", sW, (4 * H, H))))
     _check_hidden("lstm_fwd", H)
+    plan = rnn_plan.rec_plan(4, H, B, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
@@ -133,8 +145,9 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None):
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
             cuda_lib.ptr(c), cuda_lib.ptr(acts), cuda_lib.ptr(tc),
             T, B, D, H, int(bool(reverse)), EMITS.index(emit),
-            cuda_lib.stream(x.device))
+            *rnn_plan.c_args(plan), cuda_lib.stream(x.device))
         lstm_fwd.launches += 1
+        lstm_fwd.by_instance[plan.instance].launches += 1
     cuda_lib.check(lib, err, "lstm_fwd kernel")
     return {None: h, "c": (h, c), "pre": (h, c, gx),
             "acts": (h, c, acts, tc)}[emit]
@@ -332,9 +345,12 @@ def lstm_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False):
     return (out, res["c"], res["pre"]) if residuals else out
 
 
-def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False):
+def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
+                  instance=None):
     """The LSTM recurrence on given gates (kernel 14); contract of
-    `lstm_scan_fwd_plain`.  gates_x is read, never written."""
+    `lstm_scan_fwd_plain`.  gates_x is read, never written.  `instance`
+    as `lstm_fwd`'s."""
+    rnn_plan.check_instance(instance)
     if gates_x.device.type == "cpu":
         return lstm_scan_fwd_plain(gates_x, sW, reverse, residuals)
     what = "lstm_scan_fwd"
@@ -344,6 +360,7 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False):
     _check_args(what, gates_x.device, (
         ("gates_x", gates_x, (T, B, 4 * H)), ("sW", sW, (4 * H, H))))
     _check_hidden(what, H)
+    plan = rnn_plan.rec_plan(4, H, B, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = gates_x.device
     with torch.cuda.device(dev):
@@ -356,8 +373,9 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False):
         err = lib.tt_lstm_scan_fwd(
             cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(pre),
             cuda_lib.ptr(h), cuda_lib.ptr(c), T, B, H, int(bool(reverse)),
-            cuda_lib.stream(dev))
+            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
         lstm_scan_fwd.launches += 1
+        lstm_scan_fwd.by_instance[plan.instance].launches += 1
     cuda_lib.check(lib, err, what + " kernel")
     return (h, c, pre) if residuals else h
 
@@ -405,8 +423,21 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None):
     return dpre if iW is None else (dpre, d_x)
 
 
+def cluster_occupancy(H, plan):
+    """How many clusters of the cluster instance's `plan` for H units the
+    card runs at once (cudaOccupancyMaxActiveClusters), on the current
+    CUDA device."""
+    lib = cuda_lib.load("lstm", _SIGNATURES)
+    n = lib.tt_lstm_cluster_occupancy(H, plan.C, plan.BT, plan.RB,
+                                       plan.KS, plan.smem)
+    cuda_lib.check(lib, -min(n, 0), "tt_lstm_cluster_occupancy")
+    return n
+
+
 lstm_fwd.launches = 0
+lstm_fwd.by_instance = rnn_plan.instance_counters()
 lstm_scan_fwd.launches = 0
+lstm_scan_fwd.by_instance = rnn_plan.instance_counters()
 lstm_scan_bwd.launches = 0
 lstm_bwd_acts.launches = 0
 lstm_bwd_fusedw.launches = 0

@@ -25,7 +25,10 @@ device-memory instance) the long lattices' tolerances.  The recurrences
 on given gates (kernels 14-17, ops/rnn.py's lstm_scan and gru_scan) as
 the layer kernels: outputs 1e-4, backwards 1e-4 relative, also against
 the whole layers through autograd.  The shapes include H=384, the JAX
-trainer's default size, on a batch that is not a multiple of 8.
+trainer's default size, on a batch that is not a multiple of 8.  The
+forward recurrences' cluster instance (the plan's choice at every width
+below ~450) against the forced L2 instance: 1e-4 (it sums over k in
+slices; the L2 instance, still taken at H=512, in one chain).
 """
 
 import math
@@ -34,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from taiyaki_tpu_torch.ops import crf, gru, lstm, logz, rnn
+from taiyaki_tpu_torch.ops import crf, gru, lstm, logz, rnn, rnn_plan
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -707,3 +710,170 @@ def test_scan_kernels_reject_bad_input(dev):
     h, gh = gru.gru_scan_fwd_plain(gx, sW, residuals=True)
     with pytest.raises(ValueError, match="float32"):
         gru.gru_scan_bwd(dh, gx, gh.double(), h, sW)
+
+
+# The forward recurrences' cluster instance (ops/rnn_plan.py, csrc/
+# rec_cluster.cuh), which every shape above already takes by default: here
+# also H=96 (the shipped remap model), an odd H, B=1, T=1 and batches that
+# are not a multiple of the plan's tile, every emit mode and RES, against
+# the twins and against the forced L2 instance.  The cluster instance sums
+# over k in KS slices, the L2 one in one chain: both within 1e-4 of each
+# other, as of the twins (on the card, at most 1e-5 apart, the largest on
+# the LSTM's pre).
+CLUSTER_LSTM_SHAPES = LSTM_SHAPES + [(60, 128, 96, 96), (40, 21, 100, 100),
+                                     (30, 1, 64, 256), (1, 9, 32, 256),
+                                     (50, 13, 256, 256)]
+CLUSTER_GRU_SHAPES = GRU_SHAPES + [(40, 21, 100, 100), (30, 1, 64, 256),
+                                   (1, 9, 32, 96), (50, 13, 256, 256)]
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _counts(fn):
+    return {k: c.launches for k, c in fn.by_instance.items()}
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", CLUSTER_LSTM_SHAPES)
+def test_lstm_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
+    T, B, D, H = shape
+    assert rnn_plan.rec_plan(4, H, B).instance == "cluster"
+    args = [a.to(dev) for a in _lstm_inputs(*shape)]
+    for emit in lstm.EMITS:
+        want = _as_tuple(lstm.lstm_fwd_plain(*args, reverse=reverse,
+                                             emit=emit))
+        n = _counts(lstm.lstm_fwd)
+        got = _as_tuple(lstm.lstm_fwd(*args, reverse=reverse, emit=emit))
+        l2 = _as_tuple(lstm.lstm_fwd(*args, reverse=reverse, emit=emit,
+                                     instance="l2"))
+        torch.cuda.synchronize()
+        assert _counts(lstm.lstm_fwd) == {"cluster": n["cluster"] + 1,
+                                          "l2": n["l2"] + 1}
+        assert len(got) == len(want) == len(l2)
+        for g, w, l in zip(got, want, l2):
+            assert g.shape == w.shape
+            assert (g - w).abs().max().item() < 1e-4
+            assert (g - l).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", CLUSTER_GRU_SHAPES)
+def test_gru_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
+    T, B, D, H = shape
+    assert rnn_plan.rec_plan(3, H, B).instance == "cluster"
+    x, iW, b, sW = (a.to(dev) for a in _gru_inputs(*shape)[:4])
+    for res in (False, True):
+        want = _as_tuple(gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                           emit_residuals=res))
+        n = _counts(gru.gru_fwd)
+        got = _as_tuple(gru.gru_fwd(x, iW, b, sW, reverse=reverse,
+                                    emit_residuals=res))
+        l2 = _as_tuple(gru.gru_fwd(x, iW, b, sW, reverse=reverse,
+                                   emit_residuals=res, instance="l2"))
+        torch.cuda.synchronize()
+        assert _counts(gru.gru_fwd) == {"cluster": n["cluster"] + 1,
+                                        "l2": n["l2"] + 1}
+        for g, w, l in zip(got, want, l2):
+            assert g.shape == w.shape
+            assert (g - w).abs().max().item() < 1e-4
+            assert (g - l).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,shape", [
+    ("lstm", s) for s in CLUSTER_LSTM_SHAPES[-5:] + [(200, 128, 256, 256)]]
+    + [("gru", s) for s in CLUSTER_GRU_SHAPES[-4:] + [(300, 64, 96, 96)]])
+def test_scan_forwards_on_cluster_plan(dev, cell, shape, reverse):
+    """Kernels 14 and 16 on the same plan as the layers: h and residuals
+    against the twins and the forced L2 instance; kernel 14's cluster run
+    leaves the caller's gates_x as it was."""
+    gx, sW, _, _ = _scan_case(cell, shape, reverse, dev)
+    kept = gx.clone()
+    mod = lstm if cell == "lstm" else gru
+    fwd = getattr(mod, cell + "_scan_fwd")
+    plain = getattr(mod, cell + "_scan_fwd_plain")
+    assert rnn_plan.rec_plan(4 if cell == "lstm" else 3, shape[3],
+                             shape[1]).instance == "cluster"
+    for residuals in (False, True):
+        want = _as_tuple(plain(gx, sW, reverse=reverse, residuals=residuals))
+        n = _counts(fwd)
+        got = _as_tuple(fwd(gx, sW, reverse=reverse, residuals=residuals))
+        l2 = _as_tuple(fwd(gx, sW, reverse=reverse, residuals=residuals,
+                           instance="l2"))
+        torch.cuda.synchronize()
+        assert torch.equal(gx, kept)
+        assert _counts(fwd) == {"cluster": n["cluster"] + 1,
+                                "l2": n["l2"] + 1}
+        for g, w, l in zip(got, want, l2):
+            assert g.shape == w.shape
+            assert (g - w).abs().max().item() < 1e-4
+            assert (g - l).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_l2_instance_held_at_512(dev, reverse):
+    """H=512 fits no cluster plan: the plan takes the L2 instance, which
+    stays as it was, for both layers and both scans."""
+    shape = (20, 9, 64, 512)
+    assert rnn_plan.rec_plan(4, 512, 9).instance == "l2"
+    assert rnn_plan.rec_plan(3, 512, 9).instance == "l2"
+    args = [a.to(dev) for a in _lstm_inputs(*shape)]
+    for emit in lstm.EMITS:
+        n = _counts(lstm.lstm_fwd)
+        got = _as_tuple(lstm.lstm_fwd(*args, reverse=reverse, emit=emit))
+        want = _as_tuple(lstm.lstm_fwd_plain(*args, reverse=reverse,
+                                             emit=emit))
+        torch.cuda.synchronize()
+        assert _counts(lstm.lstm_fwd) == dict(n, l2=n["l2"] + 1)
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() < 1e-4
+    x, iW, b, sW = (a.to(dev) for a in _gru_inputs(*shape)[:4])
+    for res in (False, True):
+        n = _counts(gru.gru_fwd)
+        got = _as_tuple(gru.gru_fwd(x, iW, b, sW, reverse=reverse,
+                                    emit_residuals=res))
+        want = _as_tuple(gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                           emit_residuals=res))
+        torch.cuda.synchronize()
+        assert _counts(gru.gru_fwd) == dict(n, l2=n["l2"] + 1)
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() < 1e-4
+    for cell, mod in (("lstm", lstm), ("gru", gru)):
+        gx, sW, _, _ = _scan_case(cell, shape, reverse, dev)
+        fwd = getattr(mod, cell + "_scan_fwd")
+        n = _counts(fwd)
+        got = _as_tuple(fwd(gx, sW, reverse=reverse, residuals=True))
+        want = _as_tuple(getattr(mod, cell + "_scan_fwd_plain")(
+            gx, sW, reverse=reverse, residuals=True))
+        torch.cuda.synchronize()
+        assert _counts(fwd) == dict(n, l2=n["l2"] + 1)
+        for g, w in zip(got, want):
+            assert (g - w).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("gates,H,B", [(4, 256, 128), (4, 256, 256),
+                                       (4, 384, 341), (3, 96, 128),
+                                       (3, 256, 256)])
+def test_cluster_plans_fit_on_the_card(dev, gates, H, B):
+    """cudaOccupancyMaxActiveClusters finds room for the plans of the
+    repo's shapes, as many clusters a wave as the plan counts on."""
+    plan = rnn_plan.rec_plan(gates, H, B)
+    mod = lstm if gates == 4 else gru
+    assert mod.cluster_occupancy(H, plan) >= min(
+        -(-B // plan.BT), rnn_plan.CLUSTERS_PER_WAVE[plan.C])
+
+
+def test_cluster_kernel_refuses_a_bad_plan(dev, monkeypatch):
+    """The C side checks the plan it is given: a byte count that is not
+    the layout's, rows a lane past its 10, or an unknown instance returns
+    cudaErrorInvalidValue and the wrapper raises."""
+    args = [a.to(dev) for a in _lstm_inputs(5, 8, 16, 32)]
+    good = rnn_plan.rec_plan(4, 32, 8)
+    assert good.instance == "cluster"
+    for bad in (good._replace(smem=good.smem + 16), good._replace(RB=11),
+                good._replace(BT=33)):
+        monkeypatch.setattr(rnn_plan, "rec_plan", lambda *a, _p=bad: _p)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            lstm.lstm_fwd(*args)
