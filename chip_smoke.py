@@ -21,10 +21,13 @@ card; run from the root of a checkout:
    13), with the forward modes that feed them.  The forward recurrences
    (kernels 1, 7, 14, 16) run on the plan of ops/rnn_plan.py, the cluster
    instance at every width the repo uses: each check prints the
-   plan (C, BT, RB, KS, SMs busy, clusters resident at once) and times the
-   forced L2 instance beside it on the same inputs (within 1e-4 of it);
-   the L2 instance, still the plan's at H=512, is held against its twins
-   there.
+   plan (C, BT, RB, KS, SMs busy, the card's clusters a wave) and times
+   the forced L2 instance beside it on the same inputs (within 1e-4 of
+   it); the L2 instance, still the plan's at H=512, is held against its
+   twins there.  The LSTM forward with emit="acts" also at the trainer
+   defaults' shapes (H=D=384; 341 chunks x T=600, three waves of clusters
+   of 16, and 128 x T=1600), both directions, against its twin and the L2
+   instance, timed beside both and cuDNN.
 3. mLstm_flipflop 256/5/19, as in the earlier slices:
    a. training path: `taiyaki_tpu_torch.cli.train_flipflop` on the
       repo's mapped reads (RESULTS/training_ingredients/
@@ -222,21 +225,19 @@ def bound_ms(nbytes, flops):
 
 
 def plan_of(cell, H, B):
-    """The forward recurrence's plan at (H, B) (ops/rnn_plan.py) and a line
-    for the log: the instance, C, BT, RB, KS, the SMs it keeps busy and,
-    for the cluster instance, how many of its clusters the card runs at
-    once (cudaOccupancyMaxActiveClusters), which must be as many as the
-    plan counts on for a wave."""
+    """The forward recurrence's plan at (H, B) (ops/rnn_plan.py, on the
+    clusters a wave this card reports) and a line for the log: the
+    instance, C, BT, RB, KS, the SMs it keeps busy and the card's
+    clusters a wave of each size."""
+    import torch
     from taiyaki_tpu_torch.ops import gru, lstm, rnn_plan
     gates = 4 if cell == "lstm" else 3
-    plan = rnn_plan.rec_plan(gates, H, B)
-    line = rnn_plan.describe(plan, H, B)
-    if plan.instance == "cluster":
-        occ = (lstm if gates == 4 else gru).cluster_occupancy(H, plan)
-        want = min(-(-B // plan.BT), rnn_plan.CLUSTERS_PER_WAVE[plan.C])
-        check(occ >= want, "{} H={} B={}: {} clusters resident, the plan "
-              "counts on {}".format(cell, H, B, occ, want))
-        line += "; {} clusters resident at once".format(occ)
+    per_wave = (lstm if gates == 4 else gru).clusters_per_wave(
+        torch.cuda.current_device())
+    plan = rnn_plan.rec_plan(gates, H, B, per_wave)
+    line = "{}; clusters a wave of {} ranks: {}".format(
+        rnn_plan.describe(plan, H, B, per_wave), rnn_plan.CLUSTER_SIZES,
+        per_wave)
     return plan, line
 
 
@@ -1154,6 +1155,75 @@ def check_l2_512(torch, dev, rng):
                 cell, t, b, h, line, err, ms))
         out[cell + "_fwd"] = (err, ms)
         del x, iW, bias, sW
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_defaults_fwd(torch, dev, rng):
+    """The LSTM forward as the trainer-defaults path runs it (size 384,
+    emit="acts", the plan's own instance), at the trainer's largest
+    sub-batch (341 chunks of 3000 samples: T=600 at stride 5, three waves
+    of clusters of 16) and its longest chunks (128 of 8000: T=1600), both
+    directions, against its twin and the forced L2 instance (1e-4); timed
+    beside the L2 instance and cuDNN's LSTM forward with grad.  Returns
+    {"B x T": numbers}."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.ops import lstm
+    h = d = DSIZE
+    out = {}
+    for chunk in (DMIN, DMAX):
+        b = train.sub_batch_size_for_chunk(DSUB, DMAX, chunk)
+        t = chunk // MLSTM[2]
+        x = _tensor(torch, dev, rng.normal(size=(t, b, d)))
+        iW = _tensor(torch, dev, rng.normal(size=(4 * h, d)) / np.sqrt(d))
+        bias = _tensor(torch, dev, 0.5 * rng.normal(size=4 * h))
+        sW = _tensor(torch, dev, rng.normal(size=(4 * h, h)) / np.sqrt(h))
+        plan, line = plan_of("lstm", h, b)
+        check(plan.instance == "cluster", "lstm H={} B={}: plan {}".format(
+            h, b, line))
+        err = 0.0
+        for reverse in (False, True):
+            got = lstm.lstm_fwd(x, iW, bias, sW, reverse=reverse,
+                                emit="acts")
+            want = lstm.lstm_fwd_plain(x, iW, bias, sW, reverse=reverse,
+                                       emit="acts")
+            torch.cuda.synchronize()
+            check(all(g.shape == w.shape and bool(torch.isfinite(g).all())
+                      for g, w in zip(got, want)),
+                  "lstm_fwd(acts) H={} B={}: bad output".format(h, b))
+            err = max([err] + [max_abs_diff(g, w)
+                               for g, w in zip(got, want)])
+            del got, want
+        check(err <= 1e-4, "lstm_fwd(acts) H={} B={} T={}: max |err| {} > "
+              "1e-4".format(h, b, t, err))
+        l2_diff, l2_ms = against_l2(torch, lstm.lstm_fwd, 1, x, iW, bias, sW,
+                                    emit="acts")
+        ms = cuda_ms(torch, lambda: lstm.lstm_fwd(x, iW, bias, sW,
+                                                  emit="acts"), reps=3)
+        plain_ms = cuda_ms(torch, lambda: lstm.lstm_fwd_plain(
+            x, iW, bias, sW, emit="acts"), reps=1)
+        ref = torch.nn.LSTM(d, h).to(dev)
+        with torch.no_grad():
+            ref.weight_ih_l0.copy_(iW)
+            ref.weight_hh_l0.copy_(sW)
+            ref.bias_ih_l0.copy_(bias)
+            ref.bias_hh_l0.zero_()
+        xr = x.clone().requires_grad_()
+        library_ms = cuda_ms(torch, lambda: ref(xr), reps=3)
+        nbh = 4 * t * b * h
+        bound, by = bound_ms(4 * t * b * d + 4 * 4 * h * (d + h + 1)
+                             + 7 * nbh, 2 * t * b * 4 * h * (d + h))
+        say("lstm_fwd(acts) T={} B={} D=H={} (trainer defaults, {} samples "
+            "a chunk): max|err| {:.3g} (tol 1e-4, both directions), kernel "
+            "{:.3f} ms, plain {:.3f} ms, torch.nn.LSTM forward with grad "
+            "{:.3f} ms, bound {:.3f} ms ({}); plan {}; forced L2 instance "
+            "{:.3f} ms (|diff| {:.3g})".format(
+                t, b, h, chunk, err, ms, plain_ms, library_ms, bound, by,
+                line, l2_ms, l2_diff))
+        out["{} x {}".format(b, t)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+            max_abs_err=err, l2_ms=l2_ms, l2_diff=l2_diff, plan=line)
+        del x, iW, bias, sW, ref, xr
         torch.cuda.empty_cache()
     return out
 
@@ -2149,6 +2219,7 @@ def run(seed):
     torch.cuda.empty_cache()
     l2_512 = check_l2_512(torch, dev, rng)
     torch.cuda.empty_cache()
+    defaults_fwd = check_defaults_fwd(torch, dev, rng)
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -2353,6 +2424,8 @@ def run(seed):
              for k in kernels if "l2_ms" in k})))
     say("the L2 instance at H=512 (max |err|, ms): {}".format(json.dumps(
         l2_512)))
+    say("lstm_fwd(acts) at the trainer defaults' shapes (size 384): {}"
+        .format(json.dumps(defaults_fwd)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     check(len(kernels) == len(counters) - len(forwards) == 17,

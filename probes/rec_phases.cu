@@ -1,248 +1,71 @@
 // Phase timing of the cluster instance's step (csrc/rec_cluster.cuh) on
-// the card: the LSTM cluster kernel's loop (emit mode h only) with clock64
-// stamps around its phases, for the committed design and the two earlier
-// versions of this redesign.  Build and run on the H100:
+// the card: the LSTM layer's own cluster kernel (lstm.cu,
+// lstm_rec_cluster_kernel, emit mode h) instantiated with its phase clock
+// (RecClock<true>), so that what is timed is the kernel the layers run.
+// Build and run on the H100, from the root of a checkout:
 //
-//     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-//         -o rec_phases probes/rec_phases.cu && ./rec_phases
+//     mkdir -p taiyaki_tpu_torch/_build && nvcc -std=c++17 -O3 \
+//         -gencode arch=compute_90a,code=sm_90a probes/rec_phases.cu \
+//         -o taiyaki_tpu_torch/_build/rec_phases \
+//         && taiyaki_tpu_torch/_build/rec_phases
 //
-// It prints, per configuration, the kernel's time (CUDA events, mean of 3
-// launches after one warm-up, T = 1000 steps) and the mean cycles a step
-// of CTA thread 0 in: the top of the step (its gate copies), the product,
-// the cells (activations, and in the earlier versions the exchange), the
-// send (the committed version's rec_send: fence, barrier, bulk copies;
-// in the first version the cluster barrier's arrive), and the wait for
-// the step's h; then cudaOccupancyMaxActiveClusters for each cluster size
-// at one CTA per SM.  The weights and gates are zero:
-// the timing does not depend on the values.
-//
-// Versions (the template's V):
-//  COMMITTED: the committed step (the header's rec_step_top, rec_partials,
-//    rec_sum and rec_send): the product in KS k slices of RB rows a lane,
-//    a __syncthreads, the cells, then one bulk copy of the rank's block of
-//    h to each other rank;
-//  SECOND: one lane per unit, RB rows a lane, one fmaf chain over all of k,
-//    the lane's own RB cells, each value sent to every rank by st.async
-//    completing on its mbarrier;
-//  FIRST: 8 units x 4 row groups a warp (RB = BT / 4), plain remote stores
-//    and one barrier.cluster arrive/wait a step;
-//  NO_PRODUCT (with SECOND or FIRST): the step without its product;
-//  FAST_CELL (with COMMITTED): the cells on __expf and __frcp_rn instead
-//    of expf, tanhf and the division (what the activations would cost so;
-//    not the kernels' arithmetic);
-//  NO_ACTIVATION, NO_SUM (with COMMITTED): the cells without their
-//    activations (h the sum of the gates) or without the sum of the
-//    partials (the input gates alone): what each part of a cell costs.
+// It prints, per plan, the kernel's time (CUDA events, mean of 3 launches
+// after one warm-up, T = 1000 steps) and the mean cycles a step of a CTA's
+// thread 0 in: the top of the step (its gate copies), the product (with
+// its __syncthreads), the cells, the send (rec_send: fence, barrier, bulk
+// copies) and the wait for the step's h.  The weights and gates are zero:
+// the timing does not depend on the values.  The plans are those
+// ops/rnn_plan.py picks for the repo's shapes on an H100 SXM, and C = 1 at
+// H = 96 beside C = 2.
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdio.h>
 
 #include <vector>
 
-#include "../taiyaki_tpu_torch/csrc/rec_cluster.cuh"
+#include "../taiyaki_tpu_torch/csrc/lstm.cu"
 
 namespace {
 
-__device__ __forceinline__ float sigmoidf_(float x)
-{
-    return 1.f / (1.f + expf(-x));
-}
-
-constexpr int COMMITTED = 0, SECOND = 1, FIRST = 2, NO_PRODUCT = 4,
-              FAST_CELL = 8, NO_ACTIVATION = 16, NO_SUM = 32;
-
-// the second version's exchange: v to the shared::cluster address `a`, its
-// 4 bytes completing on the mbarrier at shared::cluster address `bar`
-__device__ __forceinline__ void st_async(uint32_t a, float v, uint32_t bar)
-{
-    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
-                 "[%0], %1, [%2];" :: "r"(a), "f"(v), "r"(bar) : "memory");
-}
-
-// the cell with the hardware's approximate exp and reciprocal (what the
-// cells would cost so)
-__device__ __forceinline__ float fast_sigmoid(float x)
-{
-    return __frcp_rn(1.f + __expf(-x));
-}
-
-__device__ __forceinline__ float fast_tanh(float x)
-{
-    return 2.f * fast_sigmoid(2.f * x) - 1.f;
-}
-
-__device__ __forceinline__ float lstm_cell_fast(float4 pre, float& c)
-{
-    const float ig = fast_sigmoid(pre.x), fg = fast_sigmoid(pre.y);
-    const float gg = fast_tanh(pre.z), og = fast_sigmoid(pre.w);
-    c = fg * c + ig * gg;
-    return og * fast_tanh(c);
-}
-
-__device__ __forceinline__ float lstm_cell(float4 pre, float& c)
-{
-    const float ig = sigmoidf_(pre.x), fg = sigmoidf_(pre.y);
-    const float gg = tanhf(pre.z), og = sigmoidf_(pre.w);
-    c = fg * c + ig * gg;
-    return og * tanhf(c);
-}
-
-template <int RB, int V>
-__global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
-phases_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
-              float* __restrict__ h_out, long long* __restrict__ cycles,
-              int T, int B, int H, int C, int U, int BT, int KS)
-{
-    extern __shared__ __align__(16) float smem[];
-    const RecSmem m = rec_smem(smem, H, C, U, BT);
-    const int b0 = cluster_id() * BT;
-    const int nrow = min(BT, B - b0);
-    const int u0 = cluster_rank() * U;
-    RecWork wk = rec_work(H, U, KS);
-    if (V & FIRST)   // 8 units x 4 row groups a warp
-        wk = {0, H, 0, (int)(threadIdx.x >> 5) * 8 + (int)(threadIdx.x & 7),
-              (int)((threadIdx.x & 31) >> 3)};
-    const bool works = wk.ul_c < U && u0 + wk.ul_c < H;
-    const RecCells cl = rec_cells(H, U, BT, u0);
-    rec_prologue<4>(m, gx, swt, 0, B, b0, nrow, H, C, U, u0, BT, cl);
-    long long sum[5] = {0, 0, 0, 0, 0};
-    float c[REC_MAX_CELLS > RB ? REC_MAX_CELLS : RB];
-    for (int j = 0; j < REC_MAX_CELLS || j < RB; ++j) c[j] = 0.f;
-    for (int s = 0; s < T; ++s) {
-        const long long t0 = clock64();
-        const int nb = (s + 1) & 1;
-        const bool more = s + 1 < T;
-        const float* hc = m.hS + (s & 1) * C * U * BT;
-        float* hn = m.hS + nb * C * U * BT;
-        const float4* g4 =
-            reinterpret_cast<const float4*>(m.ring + (s & 1) * BT * U * 4);
-        long long t1, t2, t3;
-        if (!(V & (FIRST | SECOND))) {
-            // the committed step (the kernels' loop, emit mode h)
-            rec_step_top<4>(m, gx, s, T, s + 1, B, b0, nrow, H, C, U, u0,
-                            BT, cl);
-            t1 = clock64();
-            if (works) rec_partials<4, RB>(m, hc, wk, U, BT);
-            __syncthreads();
-            cp_async_wait<1>();
-            t2 = clock64();
-            for (int j = 0; j < REC_MAX_CELLS; ++j) {
-                if (j >= cl.n) break;
-                const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
-                if (row >= BT || u >= H) continue;
-                const float4 g = row < nrow ? g4[row * U + u_c]
-                                            : make_float4(0, 0, 0, 0);
-                const float4 pre =
-                    V & NO_SUM ? g : rec_sum(m, g, KS, U, BT, u_c, row);
-                const float h =
-                    V & NO_ACTIVATION ? pre.x + pre.y + pre.z + pre.w + c[j]
-                    : V & FAST_CELL ? lstm_cell_fast(pre, c[j])
-                                    : lstm_cell(pre, c[j]);
-                hn[(size_t)u * BT + row] = h;
-                if (row < nrow)
-                    h_out[((size_t)s * B + b0 + row) * H + u] = h;
-            }
-            t3 = clock64();
-            if (more) rec_send(m, nb, C, U, BT, u0);
-        } else {
-            // the earlier versions: a lane's own RB cells after its chain
-            if ((V & SECOND) && more && threadIdx.x == 0)
-                mbar_arrive_expect(m.bar + nb, 4 * H * BT);
-            if (more)
-                rec_prefetch<4>(m.ring + nb * BT * U * 4, gx, s + 1, B, b0,
-                                nrow, H, U, u0, cl);
-            cp_async_commit();
-            cp_async_wait<1>();
-            t1 = clock64();
-            float acc[4][RB];
-            if (works && !(V & NO_PRODUCT))
-                rec_product<4, RB>(reinterpret_cast<const float4*>(m.wS), hc,
-                                   wk, U, BT, acc);
-            t2 = clock64();
-            if (works) {
-                const int u = u0 + wk.ul_c;
-                for (int r = 0; r < RB; ++r) {
-                    const int row = wk.rg * RB + r;
-                    float4 g = row < nrow ? g4[row * U + wk.ul_c]
-                                          : make_float4(0, 0, 0, 0);
-                    if (!(V & NO_PRODUCT)) {
-                        g.x += acc[0][r]; g.y += acc[1][r];
-                        g.z += acc[2][r]; g.w += acc[3][r];
-                    }
-                    const float h = lstm_cell(g, c[r]);
-                    if (more && (V & SECOND)) {
-                        const uint32_t a =
-                            smem_addr(hn + (size_t)u * BT + row);
-                        const uint32_t mb = smem_addr(m.bar + nb);
-                        for (int q = 0; q < C; ++q)
-                            st_async(map_rank(a, q), h, map_rank(mb, q));
-                    }
-                    if (more && (V & FIRST)) {
-                        const uint32_t a =
-                            smem_addr(hn + (size_t)u * BT + row);
-                        for (int q = 0; q < C; ++q)
-                            asm volatile("st.shared::cluster.f32 [%0], %1;"
-                                         :: "r"(map_rank(a, q)), "f"(h)
-                                         : "memory");
-                    }
-                    if (row < nrow)
-                        h_out[((size_t)s * B + b0 + row) * H + u] = h;
-                }
-            }
-            t3 = clock64();
-            if ((V & FIRST) && more) cluster_arrive();
-        }
-        const long long t4 = clock64();
-        if (more) {
-            if (V & FIRST) cluster_wait();
-            else mbar_wait(m.bar + nb, (s >> 1) & 1);
-        }
-        const long long t5 = clock64();
-        sum[0] += t1 - t0; sum[1] += t2 - t1; sum[2] += t3 - t2;
-        sum[3] += t4 - t3; sum[4] += t5 - t4;
-    }
-    cluster_sync();
-    if (threadIdx.x == 0)
-        for (int i = 0; i < 5; ++i) cycles[blockIdx.x * 5 + i] = sum[i];
-}
-
-template <int RB, int V>
+template <int RB>
 void run(const char* what, int T, int B, int H, int C, int BT, int KS,
          const float* gx, const float* swt, float* h, long long* cyc)
 {
+    const auto kernel = lstm_rec_cluster_kernel<RB, EMIT_H, true>;
     const int U = (H + C - 1) / C;
-    const int threads = V & FIRST ? 32 * ((U + 7) / 8)
-                                  : rec_cluster_threads(U, BT, RB, KS);
+    const int threads = rec_cluster_threads(U, BT, RB, KS);
     const int smem = (int)rec_cluster_smem(H, C, U, BT, KS);
     const int ntiles = (B + BT - 1) / BT;
-    int rc = rec_cluster_launch(phases_kernel<RB, V>, C, ntiles, threads,
-                                smem, 0, gx, swt, h, cyc, T, B, H, C, U, BT,
-                                KS);
+    auto launch = [&]() {
+        return rec_cluster_launch(
+            kernel, C, ntiles, threads, smem, nullptr, gx, swt, h,
+            static_cast<float*>(nullptr), static_cast<float*>(nullptr),
+            static_cast<float*>(nullptr), T, B, H, 0, C, U, BT, KS, cyc);
+    };
+    int rc = launch();
     cudaDeviceSynchronize();
     cudaEvent_t e0, e1;
     cudaEventCreate(&e0);
     cudaEventCreate(&e1);
     cudaEventRecord(e0);
-    for (int i = 0; i < 3; ++i)
-        rc |= rec_cluster_launch(phases_kernel<RB, V>, C, ntiles, threads,
-                                 smem, 0, gx, swt, h, cyc, T, B, H, C, U, BT,
-                                 KS);
+    for (int i = 0; i < 3; ++i) rc |= launch();
     cudaEventRecord(e1);
     cudaEventSynchronize(e1);
     float ms;
     cudaEventElapsedTime(&ms, e0, e1);
     ms /= 3;
     const int n = C * ntiles;
-    std::vector<long long> v(5 * n);
-    cudaMemcpy(v.data(), cyc, 8 * v.size(), cudaMemcpyDeviceToHost);
-    double mean[5] = {0, 0, 0, 0, 0};
+    std::vector<long long> v(REC_PHASES * n);
+    cudaMemcpy(v.data(), cyc, sizeof(long long) * v.size(),
+               cudaMemcpyDeviceToHost);
+    double mean[REC_PHASES] = {0, 0, 0, 0, 0};
     for (int i = 0; i < n; ++i)
-        for (int j = 0; j < 5; ++j) mean[j] += (double)v[5 * i + j] / n / T;
-    printf("%-30s H=%d B=%d C=%d BT=%d RB=%d KS=%d: rc %d, %.3f ms (%.3f "
+        for (int j = 0; j < REC_PHASES; ++j)
+            mean[j] += (double)v[REC_PHASES * i + j] / n / T;
+    printf("%-28s H=%d B=%d C=%d BT=%d RB=%d KS=%d: rc %d, %.3f ms (%.3f "
            "us a step); cycles a step: top %.0f, product %.0f, cells %.0f, "
            "send %.0f, h wait %.0f\n", what, H, B, C, BT, RB, KS, rc, ms,
-           1e3 * ms / T, mean[0], mean[1], mean[2], mean[3], mean[4]);
+           1e3 * ms / T, mean[REC_TOP], mean[REC_PRODUCT], mean[REC_CELLS],
+           mean[REC_SEND], mean[REC_WAIT]);
 }
 
 }  // namespace
@@ -255,51 +78,21 @@ int main()
     cudaMalloc(&gx, sizeof(float) * T * BMAX * 4 * HMAX);
     cudaMalloc(&swt, sizeof(float) * HMAX * 4 * HMAX);
     cudaMalloc(&h, sizeof(float) * T * BMAX * HMAX);
-    cudaMalloc(&cyc, 8 * 5 * 4096);
+    cudaMalloc(&cyc, sizeof(long long) * REC_PHASES * 4096);
     cudaMemset(gx, 0, sizeof(float) * T * BMAX * 4 * HMAX);
     cudaMemset(swt, 0, sizeof(float) * HMAX * 4 * HMAX);
     setvbuf(stdout, nullptr, _IONBF, 0);
     int clk;
     cudaDeviceGetAttribute(&clk, cudaDevAttrClockRate, 0);
     printf("SM clock (maximum) %d kHz\n", clk);
-    // the first version at the basecall shape: 16 clusters of 8, two waves
-    run<2, FIRST>("first", T, 128, 256, 8, 8, 1, gx, swt, h, cyc);
-    run<2, FIRST | NO_PRODUCT>("first, no product", T, 128, 256, 8, 8, 1,
-                               gx, swt, h, cyc);
-    run<1, FIRST>("first, H=96", T, 128, 96, 4, 4, 1, gx, swt, h, cyc);
-    // the second at its plans of the basecall shapes
-    run<3, SECOND>("second", T, 128, 256, 8, 9, 1, gx, swt, h, cyc);
-    run<3, SECOND | NO_PRODUCT>("second, no product", T, 128, 256, 8, 9, 1,
-                                gx, swt, h, cyc);
-    run<1, SECOND>("second, H=96", T, 128, 96, 1, 1, 1, gx, swt, h, cyc);
-    // the committed design at the plans of the repo's shapes, and what
-    // the parts of a cell cost
-    run<9, COMMITTED>("committed, basecall", T, 128, 256, 8, 9, 12, gx, swt,
-                      h, cyc);
-    run<9, COMMITTED | NO_ACTIVATION>("  no activations", T, 128, 256, 8, 9,
-                                      12, gx, swt, h, cyc);
-    run<9, COMMITTED | NO_SUM>("  no sum of partials", T, 128, 256, 8, 9, 12,
-                               gx, swt, h, cyc);
-    run<9, COMMITTED | FAST_CELL>("  fast activations", T, 128, 256, 8, 9,
-                                  12, gx, swt, h, cyc);
-    run<6, COMMITTED>("committed, training", T, 256, 256, 8, 18, 4, gx, swt,
-                      h, cyc);
-    run<2, COMMITTED>("committed, H=96", T, 128, 96, 2, 2, 4, gx, swt, h,
-                      cyc);
-    run<2, COMMITTED | NO_ACTIVATION>("  no activations", T, 128, 96, 2, 2,
-                                      4, gx, swt, h, cyc);
-    run<2, COMMITTED | NO_SUM>("  no sum of partials", T, 128, 96, 2, 2, 4,
-                               gx, swt, h, cyc);
-    run<2, COMMITTED | FAST_CELL>("  fast activations", T, 128, 96, 2, 2, 4,
-                                  gx, swt, h, cyc);
-    run<1, COMMITTED>("  C=1 instead", T, 128, 96, 1, 1, 4, gx, swt, h, cyc);
-    run<9, COMMITTED>("committed, H=384, 341 rows", T, 341, 384, 16, 18, 2,
-                      gx, swt, h, cyc);
-    // clusters resident at once, one CTA per SM
-    for (int C = 1; C <= 16; C *= 2)
-        printf("cudaOccupancyMaxActiveClusters, clusters of %d: %d\n", C,
-               rec_cluster_occupancy(phases_kernel<1, COMMITTED>, C, 32,
-                                     REC_ONE_PER_SM));
+    run<9>("basecall, H=256", T, 128, 256, 8, 9, 12, gx, swt, h, cyc);
+    run<6>("training, H=256", T, 256, 256, 8, 18, 4, gx, swt, h, cyc);
+    run<2>("basecall, H=96", T, 128, 96, 2, 2, 4, gx, swt, h, cyc);
+    run<1>("  C=1 instead", T, 128, 96, 1, 1, 4, gx, swt, h, cyc);
+    run<9>("defaults, H=384, 341 rows", T, 341, 384, 16, 18, 2, gx, swt, h,
+           cyc);
+    run<5>("defaults, H=384, 128 rows", T, 128, 384, 16, 20, 1, gx, swt, h,
+           cyc);
     printf("%s\n", cudaGetErrorString(cudaGetLastError()));
     return 0;
 }

@@ -39,6 +39,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    per_wave = lstm.clusters_per_wave(torch.cuda.current_device())
+    print("clusters a wave of {} ranks: {}".format(
+        rnn_plan.CLUSTER_SIZES, per_wave), flush=True)
 
     def ms(fn, reps=2):
         fn()
@@ -55,7 +58,7 @@ def main():
     def forced(fwd, plan, *a):
         """fwd on `plan`, whatever rec_plan would choose."""
         chosen = rnn_plan.rec_plan
-        rnn_plan.rec_plan = lambda *_: plan
+        rnn_plan.rec_plan = lambda *_a, **_k: plan
         try:
             return fwd(*a)
         finally:
@@ -70,10 +73,11 @@ def main():
                                   rng.normal(size=(G * H, H)) / np.sqrt(H),
                                   0.5 * rng.normal(size=G * H),
                                   rng.normal(size=(G * H, H)) / np.sqrt(H)))
-        best = rnn_plan.rec_plan(G, H, B)
-        nwave = rnn_plan.waves(best.C, B, best.BT)
+        best = rnn_plan.rec_plan(G, H, B, per_wave)
+        nwave = rnn_plan.waves(best.C, B, best.BT, per_wave)
         others = [p for p in rnn_plan.cluster_plans(G, H)
-                  if rnn_plan.waves(p[0], B, p[1]) == nwave
+                  if per_wave[rnn_plan.CLUSTER_SIZES.index(p[0])]
+                  and rnn_plan.waves(p[0], B, p[1], per_wave) == nwave
                   and p != tuple(best[1:5])]
         random.seed(0)
         sample = random.sample(others, min(args.sample, len(others)))

@@ -235,14 +235,17 @@ lstm_rec_kernel(gx_ptr<EMIT> __restrict__ gx, const float* __restrict__ swt,
 // computes, for the tile of BT rows of this cluster, rank q holding units
 // [q U, q U + U); the product in KS k slices of RB rows a lane
 // (rec_cluster.cuh).  Arguments as lstm_rec_kernel's; C ranks of U units.
-template <int RB, int EMIT>
+// With CLOCK (probes/rec_phases.cu alone) the step's phases are timed
+// into `cycles` [blocks, REC_PHASES]; the layers pass nullptr.
+template <int RB, int EMIT, bool CLOCK = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
 lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
                         const float* __restrict__ swt,
                         float* __restrict__ h_out, float* __restrict__ c_out,
                         float* __restrict__ acts_out,
                         float* __restrict__ tc_out, int T, int B, int H,
-                        int reverse, int C, int U, int BT, int KS)
+                        int reverse, int C, int U, int BT, int KS,
+                        long long* __restrict__ cycles)
 {
     extern __shared__ __align__(16) float smem[];
     const RecSmem m = rec_smem(smem, H, C, U, BT);
@@ -259,17 +262,21 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
     float c[REC_MAX_CELLS];
 #pragma unroll
     for (int j = 0; j < REC_MAX_CELLS; ++j) c[j] = 0.f;
+    RecClock<CLOCK> clk;
 
     for (int s = 0; s < T; ++s) {
         const int t = reverse ? T - 1 - s : s;
         const int nb = (s + 1) & 1;
         const bool more = s + 1 < T;
+        clk.start();
         rec_step_top<4>(m, gx, s, T, reverse ? t - 1 : t + 1, B, b0, nrow, H,
                         C, U, u0, BT, cl);
+        clk.template lap<REC_TOP>();
         if (works)
             rec_partials<4, RB>(m, m.hS + (s & 1) * C * U * BT, wk, U, BT);
         __syncthreads();
         cp_async_wait<1>();
+        clk.template lap<REC_PRODUCT>();
         const float4* g4 =
             reinterpret_cast<const float4*>(m.ring + (s & 1) * BT * U * 4);
 #pragma unroll
@@ -306,12 +313,16 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
                 }
             }
         }
+        clk.template lap<REC_CELLS>();
         if (more) {
             rec_send(m, nb, C, U, BT, u0);
+            clk.template lap<REC_SEND>();
             mbar_wait(m.bar + nb, (s >> 1) & 1);
+            clk.template lap<REC_WAIT>();
         }
     }
     cluster_sync();
+    clk.store(cycles);
 }
 
 // Backward recurrence for the BT-row batch tile of this block: gate
@@ -448,7 +459,8 @@ int launch_lstm_rec_cluster(float* gx, const float* swt, float* h, float* c,
                               (B + BT - 1) / BT,
                               rec_cluster_threads(U, BT, RB, KS), smem, st,
                               static_cast<gx_ptr<EMIT>>(gx), swt, h, c, acts,
-                              tc, T, B, H, reverse, C, U, BT, KS);
+                              tc, T, B, H, reverse, C, U, BT, KS,
+                              static_cast<long long*>(nullptr));
 }
 
 // Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.

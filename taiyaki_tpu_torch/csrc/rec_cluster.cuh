@@ -120,7 +120,6 @@ constexpr int REC_SMEM_LIMIT = 232448;   // dynamic shared memory of a CTA
 constexpr int REC_ONE_PER_SM = 118784;   // over half an SM's 228 KB
 constexpr int REC_MAX_CLUSTER = 16;      // non-portable cluster size limit
 constexpr int REC_CLUSTER_THREADS = 512;
-constexpr int REC_MAX_RB = 10;           // rows a lane in the product
 constexpr int REC_MAX_BT = 32;           // rows a tile
 constexpr int REC_MAX_CELLS = 4;         // cells a thread
 
@@ -137,6 +136,14 @@ inline size_t rec_cluster_smem(int H, int C, int U, int BT, int KS)
            + 32 * (size_t)BT * U + 16 * (size_t)KS * BT * U;
 }
 
+// the rows a lane in the product the kernels are instantiated for
+// (ops/rnn_plan.py ROWS_A_LANE: the values the plans of the repo's shapes
+// take, and 1)
+__host__ __device__ constexpr bool rec_rows_a_lane(int RB)
+{
+    return RB == 1 || RB == 2 || RB == 4 || RB == 5 || RB == 6 || RB == 9;
+}
+
 // threads of a CTA: a warp per k slice, unit group and row group
 inline int rec_cluster_threads(int U, int BT, int RB, int KS)
 {
@@ -150,7 +157,7 @@ inline int rec_cluster_threads(int U, int BT, int RB, int KS)
 inline cudaError_t rec_cluster_check(int H, int C, int BT, int RB, int KS,
                                      int smem)
 {
-    if (C < 1 || C > REC_MAX_CLUSTER || H < 1 || RB < 1 || RB > REC_MAX_RB
+    if (C < 1 || C > REC_MAX_CLUSTER || H < 1 || !rec_rows_a_lane(RB)
             || BT < RB || BT > REC_MAX_BT || BT % RB != 0 || KS < 1
             || KS > H)
         return cudaErrorInvalidValue;
@@ -538,23 +545,56 @@ __device__ __forceinline__ void rec_step_top(const RecSmem& m,
     cp_async_commit();
 }
 
+// The phase clock of a step, for probes/rec_phases.cu: RecClock<true>
+// sums, on each thread, the clock64 cycles of the step's phases (REC_TOP
+// the gate copies, REC_PRODUCT the product and its barrier, REC_CELLS,
+// REC_SEND, REC_WAIT the wait for the step's h) over the steps, and thread
+// 0 stores them at out[REC_PHASES blockIdx.x ..].  RecClock<false>, the
+// kernels' own, is empty and compiles to nothing.
+constexpr int REC_TOP = 0, REC_PRODUCT = 1, REC_CELLS = 2, REC_SEND = 3,
+              REC_WAIT = 4, REC_PHASES = 5;
+
+template <bool ON>
+struct RecClock {
+    __device__ __forceinline__ void start() {}
+    template <int PHASE>
+    __device__ __forceinline__ void lap() {}
+    __device__ __forceinline__ void store(long long*) {}
+};
+
+template <>
+struct RecClock<true> {
+    long long sum[REC_PHASES] = {0, 0, 0, 0, 0};
+    long long last = 0;
+    __device__ __forceinline__ void start() { last = clock64(); }
+    template <int PHASE>
+    __device__ __forceinline__ void lap()
+    {
+        const long long now = clock64();
+        sum[PHASE] += now - last;
+        last = now;
+    }
+    __device__ __forceinline__ void store(long long* out)
+    {
+        if (threadIdx.x == 0)
+            for (int i = 0; i < REC_PHASES; ++i)
+                out[blockIdx.x * REC_PHASES + i] = sum[i];
+    }
+};
+
 // `f(std::integral_constant<int, RB>{})` for the runtime RB (rows a lane)
-// of a checked plan: the kernels are instantiated for RB = 1 ..
-// REC_MAX_RB.
+// of a checked plan: the kernels are instantiated for the RB that
+// rec_rows_a_lane takes.
 template <typename F>
 int rec_with_rb(int RB, F&& f)
 {
     switch (RB) {
     case 1: return f(std::integral_constant<int, 1>{});
     case 2: return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
     case 4: return f(std::integral_constant<int, 4>{});
     case 5: return f(std::integral_constant<int, 5>{});
     case 6: return f(std::integral_constant<int, 6>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 8: return f(std::integral_constant<int, 8>{});
     case 9: return f(std::integral_constant<int, 9>{});
-    case 10: return f(std::integral_constant<int, 10>{});
     }
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -30,6 +30,8 @@ On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
 
+import functools
+
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
@@ -97,7 +99,8 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
         ("x", x, (T, B, D)), ("iW", iW, (3 * H, D)), ("b", b, (3 * H,)),
         ("sW", sW, (3 * H, H))))
     _check_hidden("gru_fwd", H)
-    plan = rnn_plan.rec_plan(3, H, B, instance)
+    plan = rnn_plan.rec_plan(3, H, B, clusters_per_wave(
+        x.device.index), instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
@@ -259,7 +262,8 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
     _check_args(what, gates_x.device, (
         ("gates_x", gates_x, (T, B, 3 * H)), ("sW", sW, (3 * H, H))))
     _check_hidden(what, H)
-    plan = rnn_plan.rec_plan(3, H, B, instance)
+    plan = rnn_plan.rec_plan(3, H, B, clusters_per_wave(
+        gates_x.device.index), instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = gates_x.device
     with torch.cuda.device(dev):
@@ -332,6 +336,15 @@ def cluster_occupancy(H, plan):
                                       plan.KS, plan.smem)
     cuda_lib.check(lib, -min(n, 0), "tt_gru_cluster_occupancy")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def clusters_per_wave(index):
+    """How many clusters of each of rnn_plan.CLUSTER_SIZES CUDA device
+    `index` runs at once (`rnn_plan.clusters_per_wave`), read from the
+    card once: the plans fill that card, whatever its SMs and GPCs."""
+    with torch.cuda.device(index):
+        return rnn_plan.clusters_per_wave(cluster_occupancy)
 
 
 gru_fwd.launches = 0

@@ -22,13 +22,16 @@ They run the layer kernels' chains (csrc/lstm.cu).
 
 The forward recurrence (of `lstm_fwd` and `lstm_scan_fwd`) has two
 instances that compute the same values, the cluster instance and the L2
-one; `rnn_plan.rec_plan` picks one by shape before the launch, and each
+one; `rnn_plan.rec_plan` picks one before the launch, by shape and by
+the clusters the card runs at once (`clusters_per_wave`), and each
 wrapper counts its launches per instance (`<wrapper>.by_instance`).  The
 keyword `instance=` forces one, for tests and chip_smoke.py only.
 
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
+
+import functools
 
 import torch
 
@@ -127,7 +130,8 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
         ("x", x, (T, B, D)), ("iW", iW, (4 * H, D)), ("b", b, (4 * H,)),
         ("sW", sW, (4 * H, H))))
     _check_hidden("lstm_fwd", H)
-    plan = rnn_plan.rec_plan(4, H, B, instance)
+    plan = rnn_plan.rec_plan(4, H, B, clusters_per_wave(
+        x.device.index), instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
@@ -360,7 +364,8 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
     _check_args(what, gates_x.device, (
         ("gates_x", gates_x, (T, B, 4 * H)), ("sW", sW, (4 * H, H))))
     _check_hidden(what, H)
-    plan = rnn_plan.rec_plan(4, H, B, instance)
+    plan = rnn_plan.rec_plan(4, H, B, clusters_per_wave(
+        gates_x.device.index), instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = gates_x.device
     with torch.cuda.device(dev):
@@ -432,6 +437,15 @@ def cluster_occupancy(H, plan):
                                        plan.KS, plan.smem)
     cuda_lib.check(lib, -min(n, 0), "tt_lstm_cluster_occupancy")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def clusters_per_wave(index):
+    """How many clusters of each of rnn_plan.CLUSTER_SIZES CUDA device
+    `index` runs at once (`rnn_plan.clusters_per_wave`), read from the
+    card once: the plans fill that card, whatever its SMs and GPCs."""
+    with torch.cuda.device(index):
+        return rnn_plan.clusters_per_wave(cluster_occupancy)
 
 
 lstm_fwd.launches = 0

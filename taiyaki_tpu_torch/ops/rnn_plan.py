@@ -1,8 +1,10 @@
 """The launch plan of the forward recurrences (kernel 2 of csrc/lstm.cu and
 csrc/gru.cu): which of their two instances runs a layer of `gates` gate
 rows per hidden unit (4 for the LSTM, 3 for the GRU), H units and B batch
-rows, and on how many CTAs.  The plan is fixed by shape alone, before the
-launch; nothing on the path changes it after a failure.
+rows, and on how many CTAs.  The plan is fixed by the shape and by how
+many clusters of each size the card runs at once (read from the card once,
+`clusters_per_wave`), before the launch; nothing on the path changes it
+after a failure.
 
 The instances compute the same values (csrc/rec_cluster.cuh):
 - "cluster": a thread-block cluster of C CTAs walks each tile of BT batch
@@ -19,8 +21,9 @@ The instances compute the same values (csrc/rec_cluster.cuh):
 Among the cluster plans that fit (C ranks, BT rows a tile, RB rows a
 lane in the product, KS slices of its sum over k): one CTA per SM, the
 fewest waves of clusters (as many clusters of each size as the card runs
-at once), then the most SMs busy, then the least modelled step time
-(`step_cycles`), then the smaller cluster.
+at once, `per_wave`, which the wrappers read from the card), then the
+most SMs busy, then the least modelled step time (`step_cycles`), then
+the smaller cluster.
 """
 
 import collections
@@ -28,12 +31,11 @@ import functools
 
 SMEM_LIMIT = 232448            # dynamic shared memory a CTA may use
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# clusters of each size the card runs at once at one CTA per SM
-# (cudaOccupancyMaxActiveClusters on the H100 SXM: its GPCs hold 7
-# clusters of 16 and 15 of 8, not 132 / C)
-CLUSTERS_PER_WAVE = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 MAX_BATCH_TILE = 32
-MAX_ROWS_A_LANE = 10
+# rows a lane in the product: the kernels are instantiated for these alone
+# (rec_with_rb of csrc/rec_cluster.cuh), the values the plans of the
+# repo's shapes take and 1
+ROWS_A_LANE = (1, 2, 4, 5, 6, 9)
 MAX_WARPS = 16                 # 512 threads a CTA
 MAX_CELLS = 4                  # (unit, row) cells a thread
 MAX_HIDDEN = 512               # the L2 instance: one thread per unit
@@ -76,11 +78,11 @@ def warps(H, C, BT, RB, KS):
 
 def cluster_fits(H, C, BT, RB, KS):
     """Whether the cluster instance takes C ranks, BT rows a tile, RB rows
-    a lane and KS k slices for H units: every rank owns a unit, BT a
-    multiple of RB, at most 16 warps and 4 cells a thread, a rank's block
-    of h a multiple of 16 bytes (U BT of 4), the shared memory within
-    SMEM_LIMIT."""
-    if H < 1 or C not in CLUSTER_SIZES or not 1 <= RB <= MAX_ROWS_A_LANE \
+    a lane and KS k slices for H units: every rank owns a unit, RB one
+    of ROWS_A_LANE, BT a multiple of RB, at most 16 warps and 4 cells a
+    thread, a rank's block of h a multiple of 16 bytes (U BT of 4), the
+    shared memory within SMEM_LIMIT."""
+    if H < 1 or C not in CLUSTER_SIZES or RB not in ROWS_A_LANE \
             or not RB <= BT <= MAX_BATCH_TILE or BT % RB or not 1 <= KS <= H:
         return False
     U = -(-H // C)
@@ -109,28 +111,46 @@ def step_cycles(gates, H, C, BT, RB, KS):
             + cells + TOP_CYCLES + SYNC_CYCLES)
 
 
-def waves(C, B, BT):
+def waves(C, B, BT, per_wave):
     """(waves, SMs busy in the first wave) of a cluster plan at one CTA per
-    SM, CLUSTERS_PER_WAVE[C] clusters a wave."""
+    SM; per_wave[i] clusters of CLUSTER_SIZES[i] ranks run at once."""
     n = -(-max(B, 1) // BT)
-    per_wave = CLUSTERS_PER_WAVE[C]
-    return -(-n // per_wave), min(n, per_wave) * C
+    pw = per_wave[CLUSTER_SIZES.index(C)]
+    return -(-n // pw), min(n, pw) * C
+
+
+def probe_plan(C):
+    """The smallest cluster plan of C ranks (4 units a rank, one row, one
+    warp).  A CTA of any plan takes a whole SM (the launch reserves over
+    half of its shared memory), so the card runs as many clusters of this
+    plan at once as of any other plan of C ranks: `clusters_per_wave`
+    counts with it."""
+    return 4 * C, Plan("cluster", C, 1, 1, 1, cluster_smem(4 * C, C, 1, 1))
+
+
+def clusters_per_wave(occupancy):
+    """per_wave of the current card: occupancy(H, plan), a wrapper's
+    cudaOccupancyMaxActiveClusters, at probe_plan(C) for each cluster size
+    (0 where the card runs none, as a small partition may)."""
+    return tuple(occupancy(*probe_plan(C)) for C in CLUSTER_SIZES)
 
 
 @functools.lru_cache(maxsize=None)
 def cluster_plans(gates, H):
     """Every (C, BT, RB, KS) the cluster instance takes for H units."""
     return tuple((C, BT, RB, KS) for C in CLUSTER_SIZES
-                 for RB in range(1, MAX_ROWS_A_LANE + 1)
+                 for RB in ROWS_A_LANE
                  for BT in range(RB, MAX_BATCH_TILE + 1, RB)
                  for KS in range(1, MAX_WARPS + 1)
                  if cluster_fits(H, C, BT, RB, KS))
 
 
 @functools.lru_cache(maxsize=None)
-def rec_plan(gates, H, B, instance=None):
+def rec_plan(gates, H, B, per_wave, instance=None):
     """The plan of a forward recurrence: Plan(instance, C, BT, RB, KS,
-    smem).  `instance` None takes the cluster instance wherever it fits,
+    smem), on a card that runs per_wave[i] clusters of CLUSTER_SIZES[i]
+    ranks at once (`clusters_per_wave`; sizes it runs none of are left
+    out).  `instance` None takes the cluster instance wherever it fits,
     else the L2 one; "cluster" or "l2" forces one (tests and chip_smoke.py
     only, to time the two at one shape), raising ValueError where it
     cannot run."""
@@ -140,10 +160,15 @@ def rec_plan(gates, H, B, instance=None):
     if not 1 <= H <= MAX_HIDDEN:
         raise ValueError("rec_plan: hidden size {} is not in 1..{}".format(
             H, MAX_HIDDEN))
+    if len(per_wave) != len(CLUSTER_SIZES):
+        raise ValueError("rec_plan: per_wave needs a count for each of the "
+                         "cluster sizes {}".format(CLUSTER_SIZES))
     if instance in (None, "cluster"):
         best = None
         for C, BT, RB, KS in cluster_plans(gates, H):
-            nwave, busy = waves(C, B, BT)
+            if per_wave[CLUSTER_SIZES.index(C)] < 1:
+                continue
+            nwave, busy = waves(C, B, BT, per_wave)
             key = (nwave, -busy,
                    nwave * step_cycles(gates, H, C, BT, RB, KS), C, BT, RB,
                    KS)
@@ -155,7 +180,7 @@ def rec_plan(gates, H, B, instance=None):
     if instance == "cluster":
         raise ValueError("rec_plan: the cluster instance does not fit H={} "
                          "(shared memory over {} bytes at every cluster "
-                         "size)".format(H, SMEM_LIMIT))
+                         "size the card runs)".format(H, SMEM_LIMIT))
     return Plan("l2", 1, L2_BATCH_TILE, 1, 1, 8 * H * L2_BATCH_TILE)
 
 
@@ -172,12 +197,12 @@ def c_args(plan):
             plan.KS, plan.smem)
 
 
-def describe(plan, H, B):
+def describe(plan, H, B, per_wave):
     """One line for a log: instance, cluster, tiles, CTAs and bytes."""
     if plan.instance == "l2":
         return "l2 (one block per {} rows: {} blocks, sW^T from L2)".format(
             plan.BT, -(-B // plan.BT))
-    nwave, busy = waves(plan.C, B, plan.BT)
+    nwave, busy = waves(plan.C, B, plan.BT, per_wave)
     return ("cluster C={} BT={} RB={} KS={} ({} units, {} warps a CTA): {} "
             "CTAs, {} SMs busy, {} wave(s), {} B shared memory a CTA".format(
                 plan.C, plan.BT, plan.RB, plan.KS, -(-H // plan.C),

@@ -714,15 +714,16 @@ def test_scan_kernels_reject_bad_input(dev):
 
 # The forward recurrences' cluster instance (ops/rnn_plan.py, csrc/
 # rec_cluster.cuh), which every shape above already takes by default: here
-# also H=96 (the shipped remap model), an odd H, B=1, T=1 and batches that
-# are not a multiple of the plan's tile, every emit mode and RES, against
-# the twins and against the forced L2 instance.  The cluster instance sums
+# also H=96 (the shipped remap model), an odd H, B=1, T=1, batches that
+# are not a multiple of the plan's tile and the trainer defaults' largest
+# sub-batch (H=384, 341 rows: three waves of clusters of 16), every emit
+# mode and RES, against the twins and against the forced L2 instance.  The cluster instance sums
 # over k in KS slices, the L2 one in one chain: both within 1e-4 of each
 # other, as of the twins (on the card, at most 1e-5 apart, the largest on
 # the LSTM's pre).
-CLUSTER_LSTM_SHAPES = LSTM_SHAPES + [(60, 128, 96, 96), (40, 21, 100, 100),
-                                     (30, 1, 64, 256), (1, 9, 32, 256),
-                                     (50, 13, 256, 256)]
+CLUSTER_LSTM_SHAPES = LSTM_SHAPES + [(24, 341, 384, 384)] + [
+    (60, 128, 96, 96), (40, 21, 100, 100), (30, 1, 64, 256), (1, 9, 32, 256),
+    (50, 13, 256, 256)]
 CLUSTER_GRU_SHAPES = GRU_SHAPES + [(40, 21, 100, 100), (30, 1, 64, 256),
                                    (1, 9, 32, 96), (50, 13, 256, 256)]
 
@@ -735,11 +736,18 @@ def _counts(fn):
     return {k: c.launches for k, c in fn.by_instance.items()}
 
 
+def _plan(gates, H, B):
+    """The plan the wrappers take on this card."""
+    mod = lstm if gates == 4 else gru
+    return rnn_plan.rec_plan(gates, H, B, mod.clusters_per_wave(
+        torch.cuda.current_device()))
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape", CLUSTER_LSTM_SHAPES)
 def test_lstm_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
     T, B, D, H = shape
-    assert rnn_plan.rec_plan(4, H, B).instance == "cluster"
+    assert _plan(4, H, B).instance == "cluster"
     args = [a.to(dev) for a in _lstm_inputs(*shape)]
     for emit in lstm.EMITS:
         want = _as_tuple(lstm.lstm_fwd_plain(*args, reverse=reverse,
@@ -762,7 +770,7 @@ def test_lstm_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
 @pytest.mark.parametrize("shape", CLUSTER_GRU_SHAPES)
 def test_gru_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
     T, B, D, H = shape
-    assert rnn_plan.rec_plan(3, H, B).instance == "cluster"
+    assert _plan(3, H, B).instance == "cluster"
     x, iW, b, sW = (a.to(dev) for a in _gru_inputs(*shape)[:4])
     for res in (False, True):
         want = _as_tuple(gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse,
@@ -794,8 +802,8 @@ def test_scan_forwards_on_cluster_plan(dev, cell, shape, reverse):
     mod = lstm if cell == "lstm" else gru
     fwd = getattr(mod, cell + "_scan_fwd")
     plain = getattr(mod, cell + "_scan_fwd_plain")
-    assert rnn_plan.rec_plan(4 if cell == "lstm" else 3, shape[3],
-                             shape[1]).instance == "cluster"
+    assert _plan(4 if cell == "lstm" else 3, shape[3],
+                 shape[1]).instance == "cluster"
     for residuals in (False, True):
         want = _as_tuple(plain(gx, sW, reverse=reverse, residuals=residuals))
         n = _counts(fwd)
@@ -817,8 +825,8 @@ def test_l2_instance_held_at_512(dev, reverse):
     """H=512 fits no cluster plan: the plan takes the L2 instance, which
     stays as it was, for both layers and both scans."""
     shape = (20, 9, 64, 512)
-    assert rnn_plan.rec_plan(4, 512, 9).instance == "l2"
-    assert rnn_plan.rec_plan(3, 512, 9).instance == "l2"
+    assert _plan(4, 512, 9).instance == "l2"
+    assert _plan(3, 512, 9).instance == "l2"
     args = [a.to(dev) for a in _lstm_inputs(*shape)]
     for emit in lstm.EMITS:
         n = _counts(lstm.lstm_fwd)
@@ -857,23 +865,37 @@ def test_l2_instance_held_at_512(dev, reverse):
                                        (4, 384, 341), (3, 96, 128),
                                        (3, 256, 256)])
 def test_cluster_plans_fit_on_the_card(dev, gates, H, B):
-    """cudaOccupancyMaxActiveClusters finds room for the plans of the
-    repo's shapes, as many clusters a wave as the plan counts on."""
-    plan = rnn_plan.rec_plan(gates, H, B)
+    """The plans of the repo's shapes run as many clusters at once as the
+    card's count for their cluster size (read at the smallest plan), the
+    count the plan was made with; no size is counted past the card's SMs."""
     mod = lstm if gates == 4 else gru
-    assert mod.cluster_occupancy(H, plan) >= min(
-        -(-B // plan.BT), rnn_plan.CLUSTERS_PER_WAVE[plan.C])
+    per_wave = mod.clusters_per_wave(torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert all(0 < n and n * C <= sms
+               for n, C in zip(per_wave, rnn_plan.CLUSTER_SIZES))
+    plan = _plan(gates, H, B)
+    assert plan.instance == "cluster"
+    assert mod.cluster_occupancy(H, plan) == \
+        per_wave[rnn_plan.CLUSTER_SIZES.index(plan.C)]
 
 
 def test_cluster_kernel_refuses_a_bad_plan(dev, monkeypatch):
     """The C side checks the plan it is given: a byte count that is not
-    the layout's, rows a lane past its 10, or an unknown instance returns
-    cudaErrorInvalidValue and the wrapper raises."""
+    the layout's, rows a lane it has no instance for (3, 11) or a tile
+    past 32 rows returns cudaErrorInvalidValue and the wrapper raises; the
+    same plan with 2 rows a lane runs."""
     args = [a.to(dev) for a in _lstm_inputs(5, 8, 16, 32)]
-    good = rnn_plan.rec_plan(4, 32, 8)
+    good = _plan(4, 32, 8)
     assert good.instance == "cluster"
+    odd = rnn_plan.Plan("cluster", 1, 6, 3, 1, rnn_plan.cluster_smem(32, 1,
+                                                                     6, 1))
     for bad in (good._replace(smem=good.smem + 16), good._replace(RB=11),
-                good._replace(BT=33)):
-        monkeypatch.setattr(rnn_plan, "rec_plan", lambda *a, _p=bad: _p)
+                good._replace(BT=33), odd):
+        monkeypatch.setattr(rnn_plan, "rec_plan",
+                            lambda *a, _p=bad, **k: _p)
         with pytest.raises(RuntimeError, match="invalid argument"):
             lstm.lstm_fwd(*args)
+    monkeypatch.setattr(rnn_plan, "rec_plan",
+                        lambda *a, **k: odd._replace(RB=2))
+    got = lstm.lstm_fwd(*args)
+    assert (got - lstm.lstm_fwd_plain(*args)).abs().max().item() < 1e-4
