@@ -27,7 +27,15 @@ card; run from the root of a checkout:
    twins there.  The LSTM forward with emit="acts" also at the trainer
    defaults' shapes (H=D=384; 341 chunks x T=600, three waves of clusters
    of 16, and 128 x T=1600), both directions, against its twin and the L2
-   instance, timed beside both and cuDNN.
+   instance, timed beside both and cuDNN.  The backward chains (kernels
+   4, 8, 11-13, 15, 17; slice 8) run on the backward plan of ops/
+   rnn_plan.py (`bwd_plan`), their cluster instance at every width the
+   repo uses: each backward row is held against its twin and the forced
+   L2 instance of its chain (1e-4 relative), timed beside both and
+   cuDNN's backward, at the training shapes, at the trainer defaults'
+   shapes (H=D=384: 341 x T=600 and 128 x 1600) and at H=D=96 (T=1000,
+   B=256); at H=512 the LSTM's chain takes the L2 instance and the GRU's
+   a cluster of 16, each against its twins, each counted by instance.
 3. mLstm_flipflop 256/5/19, as in the earlier slices:
    a. training path: `taiyaki_tpu_torch.cli.train_flipflop` on the
       repo's mapped reads (RESULTS/training_ingredients/
@@ -101,8 +109,9 @@ card; run from the root of a checkout:
    {"ok": true, "device": {...}}.
 
 Every kernel counter is set to 0 just before each path and read just
-after; the forward recurrences also count their cluster instance's
-launches, which on every path must be all of them.  Exits non-zero, printing no result line, if there is no card or
+after; the recurrences (the forwards and the backward chains) also count
+their cluster instance's launches, which on every path must be all of
+them.  Exits non-zero, printing no result line, if there is no card or
 any phase fails.  Imports nothing of JAX.
 """
 
@@ -125,6 +134,8 @@ PEAK_BYTES_PER_S = 3.35e12
 T, B, H, NBASE = 1000, 128, 256, 4
 # production training shape (misc/rnn_roofline.py, misc/crf_fusion_probe.py)
 TT, TB, TL, S = 800, 256, 512, 40
+# the backward rows at the shipped remap model's width: T of that check
+BWD96_T = 1000
 # the lattice width of the mLstm training steps' batch of 256 chunks x
 # 4000 samples (their log lines give it), another kernel 9-10 instance
 TRAIN_L = 640
@@ -224,20 +235,22 @@ def bound_ms(nbytes, flops):
                                  else "operations")
 
 
-def plan_of(cell, H, B):
+def plan_of(cell, H, B, backward=False):
     """The forward recurrence's plan at (H, B) (ops/rnn_plan.py, on the
-    clusters a wave this card reports) and a line for the log: the
-    instance, C, BT, RB, KS, the SMs it keeps busy and the card's
-    clusters a wave of each size."""
+    clusters a wave this card reports), or with `backward` the backward
+    chain's, and a line for the log: the instance, C, BT, RB, KS (KL for
+    a backward), the SMs it keeps busy and the card's clusters a wave of
+    each size."""
     import torch
     from taiyaki_tpu_torch.ops import gru, lstm, rnn_plan
     gates = 4 if cell == "lstm" else 3
     per_wave = (lstm if gates == 4 else gru).clusters_per_wave(
         torch.cuda.current_device())
-    plan = rnn_plan.rec_plan(gates, H, B, per_wave)
+    plan = (rnn_plan.bwd_plan if backward else rnn_plan.rec_plan)(
+        gates, H, B, per_wave)
     line = "{}; clusters a wave of {} ranks: {}".format(
-        rnn_plan.describe(plan, H, B, per_wave), rnn_plan.CLUSTER_SIZES,
-        per_wave)
+        rnn_plan.describe(plan, H, B, per_wave, backward),
+        rnn_plan.CLUSTER_SIZES, per_wave)
     return plan, line
 
 
@@ -255,6 +268,22 @@ def against_l2(torch, fwd, reps, *args, **kw):
     del got, l2
     return diff, cuda_ms(torch, lambda: fwd(*args, instance="l2", **kw),
                          reps=reps)
+
+
+def bwd_against_l2(torch, bwd, reps, *args, **kw):
+    """The backward `bwd` on the forced L2 instance of its chain, beside
+    the plan's instance on the same inputs: (max relative difference over
+    the outputs, weight-gradient partials summed; the L2 instance's time
+    in ms over `reps` calls, None for 0)."""
+    got = bwd(*args, **kw)
+    l2 = bwd(*args, instance="l2", **kw)
+    torch.cuda.synchronize()
+    diff = _bwd_diff(torch, bwd.__name__, got, l2)
+    check(diff <= 1e-4, "{}: cluster against L2 instance {} > 1e-4 "
+          "(relative)".format(bwd.__name__, diff))
+    del got, l2
+    return diff, (cuda_ms(torch, lambda: bwd(*args, instance="l2", **kw),
+                          reps=reps) if reps else None)
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -386,12 +415,25 @@ def _bwd_err(torch, got, want, what):
                   for g, w in zip(got[1:], want[1:])])
 
 
+def _bwd_diff(torch, what, got, want):
+    """_bwd_err of a layer backward; of a gradient chain on given gates
+    (a tensor or a tuple of whole outputs), each output as it is."""
+    if "scan" not in what:
+        return _bwd_err(torch, got, want, what)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "{}: non-finite output".format(what))
+    return max(rel_err(g, w) for g, w in zip(got, want))
+
+
 def check_lstm_train(torch, dev, rng):
     """The forward with emit="acts", "pre" and "c" and the three backwards
     (from acts, kernel 4; from pre, kernel 11; rebuilding pre, kernel 12)
     at the production training shape, both directions, against their
-    twins, on the same inputs; cuDNN's LSTM (torch.nn.LSTM) forward with
-    grad and its backward as the library yardsticks."""
+    twins, on the same inputs, the backwards' chain on its plan's
+    (cluster) instance and against the forced L2 instance; cuDNN's LSTM
+    (torch.nn.LSTM) forward with grad and its backward as the library
+    yardsticks."""
     from taiyaki_tpu_torch.ops import lstm
     D = H
     x = _tensor(torch, dev, rng.normal(size=(TT, TB, D)))
@@ -407,7 +449,8 @@ def check_lstm_train(torch, dev, rng):
     emits = ("acts", "pre", "c")
     f_err = dict.fromkeys(emits, 0.0)
     b_err = dict.fromkeys(bwds, 0.0)
-    f_ms, f_plain, f_l2 = {}, {}, {}
+    b_l2 = dict.fromkeys(bwds, 0.0)
+    f_ms, f_plain, f_l2, b_l2_ms = {}, {}, {}, {}
     b_ms = {k: {} for k in bwds}
     b_plain = {k: {} for k in bwds}
     for reverse in (False, True):
@@ -432,6 +475,10 @@ def check_lstm_train(torch, dev, rng):
             torch.cuda.synchronize()
             b_err[k] = max(b_err[k], _bwd_err(torch, gk, gp, k))
             del gk, gp
+            diff, l2_ms = bwd_against_l2(torch, kernel, 0 if reverse else 1,
+                                         *args[k], reverse=reverse)
+            b_l2[k] = max(b_l2[k], diff)
+            b_l2_ms[k] = b_l2_ms.get(k, l2_ms)
             b_ms[k][reverse] = cuda_ms(torch, lambda: kernel(
                 *args[k], reverse=reverse), reps=3)
             b_plain[k][reverse] = cuda_ms(torch, lambda: plain(
@@ -483,6 +530,7 @@ def check_lstm_train(torch, dev, rng):
         "lstm_bwd_recompute": bound_ms(3 * nbh + 2 * x_bytes + 2 * nw,
                                        2 * TT * TB * 4 * H * (3 * H + 3 * D))}
     _, plan = plan_of("lstm", H, TB)
+    _, bplan = plan_of("lstm", H, TB, backward=True)
     for e in emits:
         say("lstm_fwd({}) T={} B={} D=H={}: max|err| {:.3g} (tol 1e-4), "
             "kernel {:.3f} ms, plain {:.3f} ms, torch.nn.LSTM forward with "
@@ -494,9 +542,11 @@ def check_lstm_train(torch, dev, rng):
         say("{} T={} B={} D=H={}: max relative err {:.3g} (tol 1e-4), "
             "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
             "{:.3f} ms, torch.nn.LSTM backward {:.3f} ms, bound {:.3f} ms "
-            "({})".format(k, TT, TB, H, b_err[k], b_ms[k][False],
-                          b_ms[k][True], b_plain[k][False],
-                          b_plain[k][True], lib_b, *b_bound[k]))
+            "({}); chain plan {}; forced L2 instance {:.3f} ms (relative "
+            "diff {:.3g})".format(k, TT, TB, H, b_err[k], b_ms[k][False],
+                                  b_ms[k][True], b_plain[k][False],
+                                  b_plain[k][True], lib_b, *b_bound[k],
+                                  bplan, b_l2_ms[k], b_l2[k]))
     fwd_rows = {e: dict(ms=f_ms[e], plain_ms=f_plain[e],
                         bound_ms=f_bound[e][0], max_abs_err=f_err[e],
                         library_ms=lib_f, l2_ms=f_l2[e][1],
@@ -507,8 +557,8 @@ def check_lstm_train(torch, dev, rng):
         name=k, route="cuda", source="taiyaki_tpu_torch/csrc/lstm.cu",
         replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[k]),
         max_abs_err=b_err[k], ms=b_ms[k][False], plain_ms=b_plain[k][False],
-        bound_ms=b_bound[k][0], bound_by=b_bound[k][1], library_ms=lib_b)
-        for k in bwds]
+        bound_ms=b_bound[k][0], bound_by=b_bound[k][1], library_ms=lib_b,
+        l2_ms=b_l2_ms[k], l2_diff=b_l2[k], plan=bplan) for k in bwds]
 
 
 def _crf_case(torch, dev, rng, tt, tb, tl, s):
@@ -866,9 +916,10 @@ def check_gru_train(torch, dev, rng):
     """The GRU forward without and with its gate streams (kernel 7), the
     recomputing backward (kernel 8) and the backward from stored gate
     streams (kernel 13) at the mGru training shape (T=2000, B=256,
-    H=D=256), both directions, against their twins on the same inputs;
-    cuDNN's GRU forward with grad and its backward as the library
-    yardsticks."""
+    H=D=256), both directions, against their twins on the same inputs,
+    the backwards' chain on its plan's (cluster) instance and against the
+    forced L2 instance; cuDNN's GRU forward with grad and its backward as
+    the library yardsticks."""
     from taiyaki_tpu_torch.ops import gru, lstm
     x, iW, b, sW = _gru_inputs(torch, dev, rng, GT, TB, H, H)
     dh = _tensor(torch, dev, rng.normal(size=(GT, TB, H)))
@@ -877,7 +928,8 @@ def check_gru_train(torch, dev, rng):
             "gru_bwd_fusedw": (gru.gru_bwd_fusedw, gru.gru_bwd_fusedw_plain)}
     f_err = {False: 0.0, True: 0.0}
     b_err = dict.fromkeys(bwds, 0.0)
-    f_ms, f_plain, f_l2 = {}, {}, {}
+    b_l2 = dict.fromkeys(bwds, 0.0)
+    f_ms, f_plain, f_l2, b_l2_ms = {}, {}, {}, {}
     b_ms = {k: {} for k in bwds}
     b_plain = {k: {} for k in bwds}
     for reverse in (False, True):
@@ -902,6 +954,10 @@ def check_gru_train(torch, dev, rng):
             torch.cuda.synchronize()
             b_err[k] = max(b_err[k], _bwd_err(torch, gk, gp, k))
             del gk, gp
+            diff, l2_ms = bwd_against_l2(torch, kernel, 0 if reverse else 1,
+                                         *args[k], reverse=reverse)
+            b_l2[k] = max(b_l2[k], diff)
+            b_l2_ms[k] = b_l2_ms.get(k, l2_ms)
             b_ms[k][reverse] = cuda_ms(torch, lambda: kernel(
                 *args[k], reverse=reverse), reps=3)
             b_plain[k][reverse] = cuda_ms(torch, lambda: plain(
@@ -943,6 +999,7 @@ def check_gru_train(torch, dev, rng):
         # dh, gx, gh, h_prev, x in, d_x out: four products
         "gru_bwd_fusedw": bound_ms(4 * 10 * GT * TB * H + nw, 4 * one)}
     _, plan = plan_of("gru", H, TB)
+    _, bplan = plan_of("gru", H, TB, backward=True)
     for res in (False, True):
         say("gru_fwd(emit_residuals={}) T={} B={} D=H={}: max|err| {:.3g} "
             "(tol 1e-4), kernel {:.3f} ms fwd / {:.3f} ms reverse, plain "
@@ -956,9 +1013,11 @@ def check_gru_train(torch, dev, rng):
         say("{} T={} B={} D=H={}: max relative err {:.3g} (tol 1e-4), "
             "kernel {:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} / "
             "{:.3f} ms, torch.nn.GRU backward {:.3f} ms, bound {:.3f} ms "
-            "({})".format(k, GT, TB, H, b_err[k], b_ms[k][False],
-                          b_ms[k][True], b_plain[k][False],
-                          b_plain[k][True], lib_b, *b_bound[k]))
+            "({}); chain plan {}; forced L2 instance {:.3f} ms (relative "
+            "diff {:.3g})".format(k, GT, TB, H, b_err[k], b_ms[k][False],
+                                  b_ms[k][True], b_plain[k][False],
+                                  b_plain[k][True], lib_b, *b_bound[k],
+                                  bplan, b_l2_ms[k], b_l2[k]))
     fwd_rows = {res: dict(ms=f_ms[res, False], plain_ms=f_plain[res],
                           bound_ms=f_bound[res][0], max_abs_err=f_err[res],
                           library_ms=lib_f, l2_ms=f_l2[res][1],
@@ -969,8 +1028,8 @@ def check_gru_train(torch, dev, rng):
         name=k, route="cuda", source="taiyaki_tpu_torch/csrc/gru.cu",
         replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(replaces[k]),
         max_abs_err=b_err[k], ms=b_ms[k][False], plain_ms=b_plain[k][False],
-        bound_ms=b_bound[k][0], bound_by=b_bound[k][1], library_ms=lib_b)
-        for k in bwds]
+        bound_ms=b_bound[k][0], bound_by=b_bound[k][1], library_ms=lib_b,
+        l2_ms=b_l2_ms[k], l2_diff=b_l2[k], plan=bplan) for k in bwds]
 
 
 def _scan_bounds(G, t, b, h, d):
@@ -1015,7 +1074,7 @@ def check_scan(torch, dev, rng):
         dh = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
         gx = torch.matmul(x, iW.t()) + b
         kept = gx.clone()
-        f_err = b_err = 0.0
+        f_err = b_err = b_l2 = 0.0
         ms, plain = {}, {}
         for reverse in (False, True):
             want = fwd_plain(gx, sW, reverse=reverse, residuals=True)
@@ -1040,6 +1099,12 @@ def check_scan(torch, dev, rng):
                       "{}_scan_bwd: non-finite output".format(cell))
                 b_err = max([b_err] + [rel_err(g, w) for g, w in zip(gk, gp)])
                 del gk, gp
+                diff, l2_ms = bwd_against_l2(
+                    torch, bwd, 1 if iw is None and not reverse else 0,
+                    *res, reverse=reverse, iW=iw)
+                b_l2 = max(b_l2, diff)
+                if l2_ms is not None:
+                    ms["bwd l2"] = l2_ms
             ms["fwd", reverse] = cuda_ms(torch, lambda: fwd(
                 gx, sW, reverse=reverse, residuals=True), reps=3)
             for iw in (None, iW):
@@ -1077,6 +1142,7 @@ def check_scan(torch, dev, rng):
         f_bound, b_bound, bx_bound = _scan_bounds(G, t, TB, H, H)
         lib = "torch.nn.{}".format("LSTM" if cell == "lstm" else "GRU")
         _, plan = plan_of(cell, H, TB)
+        _, bplan = plan_of(cell, H, TB, backward=True)
         say("{}_scan_fwd T={} B={} H={}: max|err| {:.3g} (tol 1e-4), kernel "
             "{:.3f} ms fwd / {:.3f} ms reverse, plain {:.3f} ms, {} forward "
             "with grad (its input product included) {:.3f} ms, bound {:.3f} "
@@ -1088,11 +1154,13 @@ def check_scan(torch, dev, rng):
             "with and without iW), kernel {:.3f} ms fwd / {:.3f} ms reverse, "
             "with iW (d_x, D={}) {:.3f} / {:.3f} ms, plain {:.3f} ms, {} "
             "backward (its input product's gradients included) {:.3f} ms, "
-            "bound {:.3f} ms ({}), with iW {:.3f} ms ({})".format(
+            "bound {:.3f} ms ({}), with iW {:.3f} ms ({}); chain plan {}; "
+            "forced L2 instance {:.3f} ms (relative diff {:.3g}, with and "
+            "without iW)".format(
                 cell, t, TB, H, b_err, ms["bwd", False, False],
                 ms["bwd", False, True], H, ms["bwd", True, False],
                 ms["bwd", True, True], plain["bwd"], lib, lib_b, *b_bound,
-                *bx_bound))
+                *bx_bound, bplan, ms["bwd l2"], b_l2))
         replaces = {"lstm": (141, 726), "gru": (1082, 1407)}[cell]
         src = "taiyaki_tpu_torch/csrc/{}.cu".format(cell)
         rows.append(dict(
@@ -1107,7 +1175,8 @@ def check_scan(torch, dev, rng):
             max_abs_err=b_err, ms=ms["bwd", False, False],
             plain_ms=plain["bwd"], bound_ms=b_bound[0],
             bound_by=b_bound[1], library_ms=lib_b,
-            iw_ms=ms["bwd", True, False], iw_bound_ms=bx_bound[0]))
+            iw_ms=ms["bwd", True, False], iw_bound_ms=bx_bound[0],
+            l2_ms=ms["bwd l2"], l2_diff=b_l2, plan=bplan))
     return rows
 
 
@@ -1116,7 +1185,11 @@ def check_l2_512(torch, dev, rng):
     fits: the LSTM and GRU layers at H=D=512 (T=200, B=64), every emit
     mode and gh, both directions, against their twins (1e-4); the plan
     takes the L2 instance without being forced, and only it launches.
-    Returns {name: (max |err|, ms)}."""
+    The backward rows there too, against their twins (1e-4 relative) on
+    the backward plan's instance, the only one that launches: the L2
+    instance for the LSTM's (its rows fit no cluster), the cluster one
+    for the GRU's, timed there beside the forced L2 instance.  Returns
+    {name: [max |err|, ms] or [max relative err, instance(, ms, L2 ms)]}."""
     from taiyaki_tpu_torch.ops import gru, lstm
     h, t, b = 512, 200, 64
     out = {}
@@ -1156,6 +1229,151 @@ def check_l2_512(torch, dev, rng):
         out[cell + "_fwd"] = (err, ms)
         del x, iW, bias, sW
         torch.cuda.empty_cache()
+        # the backward chains at H=512: the plan's instance (the LSTM's the
+        # L2 one; the GRU's three rows of 32 units fit a cluster of 16)
+        bplan, bline = plan_of(cell, h, b, backward=True)
+        check(bplan.instance == ("l2" if cell == "lstm" else "cluster"),
+              "{} backward H={}: plan {}".format(cell, h, bline))
+        for reverse in (False, True):
+            for name, fn, plain, args, kw in _bwd_rows(
+                    torch, dev, rng, cell, t, b, h, reverse):
+                before = {k: c.launches for k, c in fn.by_instance.items()}
+                got = fn(*args, reverse=reverse, **kw)
+                want = plain(*args, reverse=reverse, **kw)
+                torch.cuda.synchronize()
+                after = {k: c.launches for k, c in fn.by_instance.items()}
+                check(after == dict(before, **{
+                    bplan.instance: before[bplan.instance] + 1}),
+                      "{} H={}: launches by instance {} -> {}".format(
+                          name, h, before, after))
+                err = _bwd_diff(torch, name, got, want)
+                check(err <= 1e-4, "{} H={}: max relative err {} > "
+                      "1e-4".format(name, h, err))
+                prev = out.get(name, [0.0])
+                out[name] = [max(err, prev[0]), bplan.instance] + prev[2:]
+                if bplan.instance == "cluster" and not reverse:
+                    # the plan's cluster instance beside the forced L2 one
+                    out[name] += [cuda_ms(torch, lambda: fn(*args, **kw),
+                                          reps=1), bwd_against_l2(
+                        torch, fn, 1, *args, **kw)[1]]
+                del got, want, args
+        say("{} backwards T={} B={} D=H={} on {}: max relative err {} "
+            "(tol 1e-4, both directions)".format(
+                cell, t, b, h, bline, {k: v for k, v in out.items()
+                                       if k.startswith(cell + "_")
+                                       and "bwd" in k}))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_rows(torch, dev, rng, cell, t, b, h, reverse):
+    """(name, wrapper, twin, args, keywords) of the cell's backward rows
+    (kernels 4, 11, 12, 15 or 8, 13, 17) on one seeded layer's residuals
+    at T=t, B=b, H=D=h (the forwards on the card)."""
+    from taiyaki_tpu_torch.ops import gru, lstm
+    G = 4 if cell == "lstm" else 3
+    x = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+    iW = _tensor(torch, dev, rng.normal(size=(G * h, h)) / np.sqrt(h))
+    bias = _tensor(torch, dev, 0.5 * rng.normal(size=G * h))
+    sW = _tensor(torch, dev, rng.normal(size=(G * h, h)) / np.sqrt(h))
+    dh = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+    if cell == "lstm":
+        hh, c, acts, tc = lstm.lstm_fwd(x, iW, bias, sW, reverse=reverse,
+                                        emit="acts")
+        pre = lstm.lstm_fwd(x, iW, bias, sW, reverse=reverse, emit="pre")[2]
+        cp = lstm.prev_state(c, reverse)
+        return [("lstm_bwd_acts", lstm.lstm_bwd_acts,
+                 lstm.lstm_bwd_acts_plain,
+                 (dh, acts, tc, cp, hh, x, sW, iW), {}),
+                ("lstm_bwd_fusedw", lstm.lstm_bwd_fusedw,
+                 lstm.lstm_bwd_fusedw_plain,
+                 (dh, pre, c, cp, hh, x, sW, iW), {}),
+                ("lstm_bwd_recompute", lstm.lstm_bwd_recompute,
+                 lstm.lstm_bwd_recompute_plain,
+                 (dh, c, hh, x, sW, iW, bias), {}),
+                ("lstm_scan_bwd", lstm.lstm_scan_bwd,
+                 lstm.lstm_scan_bwd_plain, (dh, pre, c, cp, sW),
+                 {"iW": iW})]
+    hh, gh, gx = gru.gru_fwd(x, iW, bias, sW, reverse=reverse,
+                             emit_residuals=True)
+    hp = lstm.prev_state(hh, reverse)
+    return [("gru_bwd_recompute", gru.gru_bwd_recompute,
+             gru.gru_bwd_recompute_plain, (dh, hh, x, sW, iW, bias), {}),
+            ("gru_bwd_fusedw", gru.gru_bwd_fusedw, gru.gru_bwd_fusedw_plain,
+             (dh, gx, gh, hp, x, sW, iW), {}),
+            ("gru_scan_bwd", gru.gru_scan_bwd, gru.gru_scan_bwd_plain,
+             (dh, gx, gh, hp, sW), {"iW": iW})]
+
+
+def _cudnn_bwd_ms(torch, dev, cell, t, b, h, rng):
+    """cuDNN's LSTM or GRU backward (torch.nn, bias_hh zero, D=H=h) at
+    T=t, B=b, with the input product's gradients: ms, CUDA events."""
+    ref = (torch.nn.LSTM(h, h) if cell == "lstm"
+           else torch.nn.GRU(h, h)).to(dev)
+    xr = _tensor(torch, dev, rng.normal(size=(t, b, h))).requires_grad_()
+    dh = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+    out = ref(xr)[0]
+    ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, [xr] + list(ref.parameters()), dh, retain_graph=True), reps=2)
+    del ref, xr, dh, out
+    return ms
+
+
+def check_bwd_shapes(torch, dev, rng):
+    """The seven backward rows (kernels 4, 11, 12, 15; 8, 13, 17) at the
+    trainer defaults' shapes (H=D=384, 341 chunks x T=600 and 128 x
+    T=1600) and at the shipped remap model's width (H=D=96, T=1000,
+    B=256), both directions, on the chain plan's (cluster) instance
+    against their twins and the forced L2 instance (1e-4 relative); timed
+    beside the L2 instance and cuDNN's backward of the same cell.  Returns
+    {"B x T, H": {row: numbers}}."""
+    from taiyaki_tpu_torch import train
+    out = {}
+    shapes = [(DMIN // MLSTM[2], train.sub_batch_size_for_chunk(
+        DSUB, DMAX, DMIN), DSIZE), (DMAX // MLSTM[2], DSUB, DSIZE),
+        (BWD96_T, TB, 96)]
+    for t, b, h in shapes:
+        key = "{} x {}, H={}".format(b, t, h)
+        out[key] = {}
+        for cell in ("lstm", "gru"):
+            plan, line = plan_of(cell, h, b, backward=True)
+            check(plan.instance == "cluster", "{} backward H={} B={}: plan "
+                  "{}".format(cell, h, b, line))
+            err, l2, ms, l2_ms = {}, {}, {}, {}
+            for reverse in (False, True):
+                for name, fn, plain, args, kw in _bwd_rows(
+                        torch, dev, rng, cell, t, b, h, reverse):
+                    got = fn(*args, reverse=reverse, **kw)
+                    want = plain(*args, reverse=reverse, **kw)
+                    torch.cuda.synchronize()
+                    err[name] = max(err.get(name, 0.0), _bwd_diff(
+                        torch, name, got, want))
+                    del got, want
+                    diff, l2_t = bwd_against_l2(torch, fn,
+                                                0 if reverse else 1, *args,
+                                                reverse=reverse, **kw)
+                    l2[name] = max(l2.get(name, 0.0), diff)
+                    if not reverse:
+                        l2_ms[name] = l2_t
+                        ms[name] = cuda_ms(torch, lambda: fn(*args, **kw),
+                                           reps=2)
+                    del args
+                torch.cuda.empty_cache()
+            lib_ms = _cudnn_bwd_ms(torch, dev, cell, t, b, h, rng)
+            torch.cuda.empty_cache()
+            for name in err:
+                check(err[name] <= 1e-4, "{} at {}: max relative err {} > "
+                      "1e-4".format(name, key, err[name]))
+                out[key][name] = dict(ms=ms[name], l2_ms=l2_ms[name],
+                                      library_ms=lib_ms,
+                                      max_rel_err=err[name],
+                                      l2_diff=l2[name])
+                say("{} T={} B={} D=H={}: max relative err {:.3g} (tol "
+                    "1e-4, both directions), kernel {:.3f} ms, forced L2 "
+                    "instance {:.3f} ms (relative diff {:.3g}), torch.nn.{} "
+                    "backward {:.3f} ms; chain plan {}".format(
+                        name, t, b, h, err[name], ms[name], l2_ms[name],
+                        l2[name], cell.upper(), lib_ms, line))
     return out
 
 
@@ -1271,7 +1489,8 @@ def train_path(torch, work, seed, counters, model, policy=None,
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     for k, n in launches.items():
-        check((n == 0) if k in idle else (n > 0),
+        # a kernel's instance counter ("name[cluster]") idles with it
+        check((n == 0) if k.split("[")[0] in idle else (n > 0),
               "{} training path launched kernel {} {} times".format(
                   tag, k, n))
     with open(os.path.join(outdir, "batch.log")) as fh:
@@ -2220,6 +2439,9 @@ def run(seed):
     l2_512 = check_l2_512(torch, dev, rng)
     torch.cuda.empty_cache()
     defaults_fwd = check_defaults_fwd(torch, dev, rng)
+    torch.cuda.empty_cache()
+    bwd_shapes = check_bwd_shapes(torch, dev, rng)
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -2237,10 +2459,14 @@ def run(seed):
                 "lstm_scan_bwd": lstm.lstm_scan_bwd,
                 "gru_scan_fwd": gru.gru_scan_fwd,
                 "gru_scan_bwd": gru.gru_scan_bwd}
-    # the forward recurrences' launches of their cluster instance, counted
-    # beside each one's own counter wherever that is picked
-    forwards = ("lstm_fwd", "gru_fwd", "lstm_scan_fwd", "gru_scan_fwd")
-    for k in forwards:
+    # the recurrences' launches of their cluster instance (the forwards',
+    # and the backwards' chains), counted beside each one's own counter
+    # wherever that is picked
+    recurrences = ("lstm_fwd", "gru_fwd", "lstm_scan_fwd", "gru_scan_fwd",
+                   "lstm_bwd_acts", "lstm_bwd_fusedw", "lstm_bwd_recompute",
+                   "gru_bwd_recompute", "gru_bwd_fusedw", "lstm_scan_bwd",
+                   "gru_scan_bwd")
+    for k in recurrences:
         counters[k + "[cluster]"] = counters[k].by_instance["cluster"]
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
     streams = ("crf_fwd_streams", "crf_bwd_posteriors")
@@ -2252,7 +2478,8 @@ def run(seed):
 
     def pick(names):
         return {k: counters[k] for n in names
-                for k in ((n, n + "[cluster]") if n in forwards else (n,))}
+                for k in ((n, n + "[cluster]") if n in recurrences
+                          else (n,))}
 
     def train_policy(model, fwd, bwds, policy, niter):
         """The training path under `policy`: its backward launched, the
@@ -2408,27 +2635,31 @@ def run(seed):
               "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
-    # every forward recurrence of every path ran its cluster instance
+    # every recurrence (forward and backward chain) of every path ran its
+    # cluster instance
     for path, counts in launches.items():
-        for k in forwards:
-            if k in counts:
-                check(counts[k + "[cluster]"] == counts[k] > 0,
-                      "{} path: {} launches, {} of them the cluster "
-                      "instance".format(path, counts[k],
+        for k in recurrences:
+            if counts.get(k):
+                check(counts[k + "[cluster]"] == counts[k],
+                      "{} path: {} launches of {}, {} of them the cluster "
+                      "instance".format(path, counts[k], k,
                                         counts[k + "[cluster]"]))
-    say("forward recurrences, the cluster instance against the forced L2 "
-        "instance: {}".format(json.dumps(
-            {k["name"]: {"ms": k["ms"], "l2_ms": k["l2_ms"],
-                         "library_ms": k["library_ms"],
-                         "max_abs_diff": k["l2_diff"], "plan": k["plan"]}
-             for k in kernels if "l2_ms" in k})))
-    say("the L2 instance at H=512 (max |err|, ms): {}".format(json.dumps(
-        l2_512)))
+    say("recurrences, the cluster instance against the forced L2 instance "
+        "(max |diff| of the forwards, relative of the backwards): {}".format(
+            json.dumps({k["name"]: {"ms": k["ms"], "l2_ms": k["l2_ms"],
+                                    "library_ms": k["library_ms"],
+                                    "diff": k["l2_diff"], "plan": k["plan"]}
+                        for k in kernels if "l2_ms" in k})))
+    say("H=512 (forwards on the L2 instance: max |err|, ms; backwards: max "
+        "relative err, the instance the plan took, and on a cluster plan its "
+        "ms and the forced L2 instance's): {}".format(json.dumps(l2_512)))
+    say("backward rows at the trainer defaults' shapes and H=96: {}".format(
+        json.dumps(bwd_shapes)))
     say("lstm_fwd(acts) at the trainer defaults' shapes (size 384): {}"
         .format(json.dumps(defaults_fwd)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    check(len(kernels) == len(counters) - len(forwards) == 17,
+    check(len(kernels) == len(counters) - len(recurrences) == 17,
           "kernels line: {} rows".format(len(kernels)))
     check(all(k["launches"] > 0 for k in kernels),
           "kernels line: a kernel its path did not launch")
@@ -2445,7 +2676,7 @@ def run(seed):
 
 
 def _by_instance(counts, name):
-    """A path's launches of the forward `name` by instance."""
+    """A path's launches of the recurrence `name` by instance."""
     cluster = counts[name + "[cluster]"]
     return {"cluster": cluster, "l2": counts[name] - cluster}
 

@@ -79,25 +79,40 @@
 //       reads column j of each row).
 //    With RES either stores the step's gh, a value it holds anyway.
 //
-// 3. gru_bwd_rec_kernel: the backward recurrence, walking opposite to the
-//    forward.  It carries only dh: per step thread k reads gx, gh and
-//    h_prev for unit k of its rows and forms
+// 3. The backward recurrence, walking opposite to the forward, in two
+//    instances that compute the same function (within 1e-4 relative; the
+//    sums over the gates run in another order), picked by ops/rnn_plan.py
+//    `bwd_plan` before the launch as the LSTM's (lstm.cu item 3).  It
+//    carries only dh: per step each cell (unit k, row) reads gx, gh and
+//    h_prev and forms
 //        dz = dh (h_prev - n),  dn_pre = dh (1 - z)(1 - n^2),
 //        dr_pre = dn_pre gh_n r (1 - r),  dz_pre = dz z (1 - z),
 //        dgx = [dr_pre, dz_pre, dn_pre],  dgh = [dr_pre, dz_pre, dn_pre r],
 //    (pallas_rnn.py:1120-1137), writes dgx and dgh, sums d_b per batch
-//    tile in registers, puts dgh of the tile in shared memory
-//    (double-buffered, 48 KB at H = 256) and forms
-//        dh_prev[k] = sum_g dgh[g] sW[g, k] + dh z,
-//    reading column k of sW (3H values) from L2.  Bound: the serial chain.
-//    The recomputing backward passes its gx and gh scratch as dgx and dgh
-//    too, so the gradients overwrite them and no third stream is needed;
-//    the backward from stored streams must leave the forward's gx and gh
-//    as they are (autograd keeps them, and a retained graph reads them
-//    again) and writes to scratch of its own.  Every load of a step comes
-//    before its first store, so either way is safe.  h_prev is read from a
-//    stream at a time offset: h one step back in the forward's direction
-//    (recompute) or h_prev itself (offset 0).
+//    tile, and then
+//        dh_prev[k] = sum_g dgh[g] sW[g, k] + dh z.
+//    a. gru_bwd_rec_cluster_kernel<RB> (the cluster instance, wherever it
+//       fits: every width the repo's models use): rank q keeps the three
+//       gate rows of sW of its units over all H columns in shared memory
+//       (96 KB at H = 256, C = 8), forms a partial dh_prev over all H units
+//       from its own dgh, and sends each rank its block by a bulk copy;
+//       the owner sums the C partials in rank order and adds dh z, which
+//       it carries in registers (rec_cluster.cuh, the backward).  The next
+//       step's 8 input words of a cell arrive by cp.async during the
+//       product.  At B = 256, H = 256: C = 8, BT = 18, 120 CTAs.
+//    b. gru_bwd_rec_kernel<BT> (the L2 instance, where the slice does not
+//       fit: H = 512): thread k the cells of unit k for a tile of 8 rows,
+//       dgh of the tile in shared memory (double-buffered, 48 KB at H =
+//       256), column k of sW (3H values) read from L2 each step.
+//    Bound: the serial chain.  The recomputing backward passes its gx and
+//    gh scratch as dgx and dgh too, so the gradients overwrite them and no
+//    third stream is needed; the backward from stored streams must leave
+//    the forward's gx and gh as they are (autograd keeps them, and a
+//    retained graph reads them again) and writes to scratch of its own.
+//    Every load of a row precedes its stores in both instances, so either
+//    way is safe.  h_prev is read from a stream at a time offset: h one
+//    step back in the forward's direction (recompute) or h_prev itself
+//    (offset 0).
 //
 // 4. atb_gemm_kernel (gemm.cuh): d_iW = dgx^T x and d_sW = dgh^T h_prev as
 //    split-K partials over slices of the T*B rows, h_prev read from h by
@@ -278,13 +293,13 @@ gru_rec_cluster_kernel(const float* __restrict__ gx,
     cluster_sync();
 }
 
-// Backward recurrence for the BT-row batch tile of this block.  dh [T, B,
-// H] (gradient of the layer's output); h_prev of step t is hp[t + hshift]
-// (zero outside [0, T)); gx, gh [T, B, 3H] the gate streams; dgx, dgh
-// [T, B, 3H] their gradients, which may be gx and gh themselves; sw [3H, H]
-// = sW; db_part [nbt, 3H] per-tile bias gradients.  No __restrict__ on the
-// four streams, for the in-place case: every load of a step precedes its
-// stores.
+// Backward recurrence (the L2 instance) for the BT-row batch tile of this
+// block.  dh [T, B, H] (gradient of the layer's output); h_prev of step t
+// is hp[t + hshift] (zero outside [0, T)); gx, gh [T, B, 3H] the gate
+// streams; dgx, dgh [T, B, 3H] their gradients, which may be gx and gh
+// themselves; sw [3H, H] = sW; db_part [nbt, 3H] per-tile bias gradients.
+// No __restrict__ on the four streams, for the in-place case: every load
+// of a step precedes its stores.
 template <int BT>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
 gru_bwd_rec_kernel(const float* __restrict__ dh_out,
@@ -392,6 +407,146 @@ gru_bwd_rec_kernel(const float* __restrict__ dh_out,
     }
 }
 
+// Step t's inputs of this thread's cells into the ring [BT][U][8]: gx and
+// gh (3 each), h_prev (zero where t + hshift is outside [0, T)) and dh.
+// Rows past B are left alone (no cell reads them).  gx and gh may be the
+// streams the chain writes its gradients over: never at row t before
+// this step's cells (rec_cluster.cuh, the backward).
+__device__ __forceinline__ void gru_bwd_prefetch(
+    float* ring, const float* __restrict__ dh_out,
+    const float* __restrict__ hp, int hshift, const float* gx,
+    const float* gh, int t, int T, int B, int b0, int nrow, int H, int U,
+    int u0, const RecCells& cl)
+{
+    const int tp = t + hshift;
+    const bool has_prev = tp >= 0 && tp < T;
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            const int u = u0 + cl.u_c[j];
+            const size_t r = (size_t)t * B + b0 + cl.row[j];
+            float* d = ring + ((size_t)cl.row[j] * U + cl.u_c[j])
+                       * rec_bwd_ring(3);
+            const size_t og = r * 3 * H + u;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+                cp_async4(d + q, gx + og + q * H, true);
+                cp_async4(d + 3 + q, gh + og + q * H, true);
+            }
+            cp_async4(d + 6, has_prev
+                      ? hp + ((size_t)tp * B + b0 + cl.row[j]) * H + u
+                      : dh_out, has_prev);
+            cp_async4(d + 7, dh_out + r * H + u, true);
+        }
+    }
+}
+
+// The cluster instance of the backward recurrence: what gru_bwd_rec_kernel
+// computes, for the tile of BT rows of this cluster, rank q holding the
+// three gate rows of sW of units [q U, q U + U) and summing the partials
+// of those units (rec_cluster.cuh, the backward).  Arguments as
+// gru_bwd_rec_kernel's (dgx and dgh may be gx and gh); C ranks of U units;
+// db_part [ceil(B / BT), 3H].  With CLOCK (probes/rec_phases.cu alone)
+// the step's phases are timed into `cycles`; the layers pass nullptr.
+template <int RB, int KL, bool CLOCK = false>
+__global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
+gru_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
+                           const float* __restrict__ hp, int hshift,
+                           const float* gx, const float* gh, float* dgx,
+                           float* dgh, const float* __restrict__ sw,
+                           float* __restrict__ db_part, int T, int B, int H,
+                           int reverse, int C, int U, int BT,
+                           long long* __restrict__ cycles)
+{
+    extern __shared__ __align__(16) float smem[];
+    const RecBwdSmem m = rec_bwd_smem_of<3>(smem, H, C, U, BT);
+    const int tile = cluster_id();
+    const int b0 = tile * BT;
+    const int nrow = min(BT, B - b0);
+    const int q = cluster_rank();
+    const int u0 = q * U;
+    const int H3 = 3 * H;
+    const RecCells cl = rec_cells(H, U, BT, u0);
+
+    rec_bwd_prologue<3>(m, sw, H, U, u0, BT);
+    gru_bwd_prefetch(m.ring, dh_out, hp, hshift, gx, gh,
+                     reverse ? 0 : T - 1, T, B, b0, nrow, H, U, u0, cl);
+    cp_async_commit();
+    cp_async_wait<0>();
+    cluster_sync();
+    // dhz: the carried dh z of each cell, added to the next step's dh
+    float dhz[REC_MAX_CELLS], db[REC_MAX_CELLS][3];
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        dhz[j] = 0.f;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) db[j][g] = 0.f;
+    }
+    RecClock<CLOCK> clk;
+
+    for (int s = 0; s < T; ++s) {
+        // the gradient chain walks opposite to the forward direction
+        const int t = reverse ? s : T - 1 - s;
+        const int nb = (s + 1) & 1;
+        const bool more = s + 1 < T;
+        clk.start();
+        if (more && threadIdx.x == 0)
+            mbar_arrive_expect(m.bar + nb, 4 * (C - 1) * U * BT);
+        cp_async_wait<0>();
+        clk.template lap<REC_TOP>();
+#pragma unroll
+        for (int j = 0; j < REC_MAX_CELLS; ++j) {
+            if (j >= cl.n) break;
+            const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
+            if (row >= nrow || u >= H) continue;
+            const float* v = m.ring + ((size_t)row * U + u_c)
+                                      * rec_bwd_ring(3);
+            const float rg = sigmoidf_(v[0] + v[3]);
+            const float zg = sigmoidf_(v[1] + v[4]);
+            const float ng = tanhf(v[2] + rg * v[5]);
+            const float dsum = s > 0 ? rec_bwd_sum(m, s & 1, C, q, U, BT,
+                                                   u_c, row)
+                                     : 0.f;
+            const float dh = v[7] + (dsum + dhz[j]);
+            const float dz = dh * (v[6] - ng);
+            const float dn_pre = dh * (1.f - zg) * (1.f - ng * ng);
+            const float4 p = make_float4(dn_pre * v[5] * rg * (1.f - rg),
+                                         dz * zg * (1.f - zg), dn_pre * rg,
+                                         0.f);
+            dhz[j] = dh * zg;
+            const size_t og = ((size_t)t * B + b0 + row) * H3 + u;
+            dgx[og] = p.x;
+            dgx[og + H] = p.y;
+            dgx[og + 2 * H] = dn_pre;
+            dgh[og] = p.x;
+            dgh[og + H] = p.y;
+            dgh[og + 2 * H] = p.z;
+            db[j][0] += p.x;
+            db[j][1] += p.y;
+            db[j][2] += dn_pre;
+            reinterpret_cast<float4*>(m.dS)[(size_t)row * U + u_c] = p;
+        }
+        clk.template lap<REC_CELLS>();
+        if (more) {
+            __syncthreads();
+            gru_bwd_prefetch(m.ring, dh_out, hp, hshift, gx, gh,
+                             reverse ? t + 1 : t - 1, T, B, b0, nrow, H, U,
+                             u0, cl);
+            cp_async_commit();
+            rec_bwd_partials<3, RB, KL>(m, m.part + (size_t)nb * C * U * BT,
+                                        H, U, BT);
+            clk.template lap<REC_PRODUCT>();
+            rec_bwd_send(m, nb, C, U, BT);
+            clk.template lap<REC_SEND>();
+            mbar_wait(m.bar + nb, (s >> 1) & 1);
+            clk.template lap<REC_WAIT>();
+        }
+    }
+    cluster_sync();
+    rec_bwd_store_db<3>(m, cl, db, db_part, tile, H, U, u0, nrow);
+    clk.store(cycles);
+}
+
 template <bool RES>
 int launch_gru_rec(const float* gx, const float* swt, float* h, float* gh,
                    int T, int B, int H, int reverse, cudaStream_t st)
@@ -451,7 +606,8 @@ int launch_gru_rec_plan(const float* gx, const float* swt, float* h,
                                           smem, st);
 }
 
-// The backward chain (kernel 3) alone: dgx, dgh and the per-tile d_b.
+// The backward chain (kernel 3b, the L2 instance) alone: dgx, dgh and the
+// per-tile d_b.
 int launch_gru_bwd_rec(const float* dh, const float* hp, int hshift,
                        const float* gx, const float* gh, float* dgx,
                        float* dgh, const float* sw, float* db_part, int T,
@@ -468,18 +624,58 @@ int launch_gru_bwd_rec(const float* dh, const float* hp, int hshift,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The chain (kernel 3) and the three products after it (d_x, d_iW, d_sW);
-// h_prev of step t is hp[t + hshift].
+// The cluster instance of the chain (kernel 3a) on a plan of C ranks, BT
+// rows a tile and RB rows a lane.
+template <int RB, int KL>
+int launch_gru_bwd_rec_cluster(const float* dh, const float* hp, int hshift,
+                               const float* gx, const float* gh, float* dgx,
+                               float* dgh, const float* sw, float* db_part,
+                               int T, int B, int H, int reverse, int C,
+                               int BT, int smem, cudaStream_t st)
+{
+    const int U = (H + C - 1) / C;
+    return rec_cluster_launch(gru_bwd_rec_cluster_kernel<RB, KL>, C,
+                              (B + BT - 1) / BT,
+                              rec_bwd_threads(H, BT, RB, KL), smem, st, dh,
+                              hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B,
+                              H, reverse, C, U, BT,
+                              static_cast<long long*>(nullptr));
+}
+
+// Kernel 3 on a checked plan (rec_bwd_plan_check): the L2 or cluster
+// instance.
+int launch_gru_bwd_rec_plan(const float* dh, const float* hp, int hshift,
+                            const float* gx, const float* gh, float* dgx,
+                            float* dgh, const float* sw, float* db_part,
+                            int T, int B, int H, int reverse, int instance,
+                            int C, int BT, int RB, int KL, int smem,
+                            cudaStream_t st)
+{
+    if (instance == INSTANCE_L2)
+        return launch_gru_bwd_rec(dh, hp, hshift, gx, gh, dgx, dgh, sw,
+                                  db_part, T, B, H, reverse, st);
+    return rec_with_rb_kl(RB, KL, [&](auto rb, auto kl) {
+        return launch_gru_bwd_rec_cluster<decltype(rb)::value,
+                                          decltype(kl)::value>(
+            dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
+            C, BT, smem, st);
+    });
+}
+
+// The chain (kernel 3, on the plan's instance) and the three products
+// after it (d_x, d_iW, d_sW); h_prev of step t is hp[t + hshift].
 int gru_bwd_chain(const float* dh, const float* hp, int hshift,
                   const float* gx, const float* gh, float* dgx, float* dgh,
                   const float* x, const float* sw, const float* iwt,
                   float* dx, float* dsw_part, float* diw_part, float* db_part,
                   int T, int B, int D, int H, int reverse, int nsplit,
+                  int instance, int C, int BT, int RB, int KL, int smem,
                   cudaStream_t st)
 {
     const int M = T * B, H3 = 3 * H;
-    int rc = launch_gru_bwd_rec(dh, hp, hshift, gx, gh, dgx, dgh, sw,
-                                db_part, T, B, H, reverse, st);
+    int rc = launch_gru_bwd_rec_plan(dh, hp, hshift, gx, gh, dgx, dgh, sw,
+                                     db_part, T, B, H, reverse, instance, C,
+                                     BT, RB, KL, smem, st);
     if (rc) return rc;
     cudaError_t err;
     if ((err = launch_gate_gemm(dgx, iwt, nullptr, dx, M, D, H3, st))
@@ -547,12 +743,17 @@ int tt_gru_cluster_occupancy(int H, int C, int BT, int RB, int KS, int smem)
 // [T, B, H], x [T, B, D], iW [3H, D], b [3H], sw = sW [3H, H], iwt = iW^T
 // [D, 3H].  Scratch: g_x, g_h [T, B, 3H] (gx and gh, then dgx and dgh over
 // them).  Outputs: dx [T, B, D], dsw_part [nsplit, 3H, H], diw_part
-// [nsplit, 3H, D], db_part [ceil(B/8), 3H].
+// [nsplit, 3H, D], db_part [ceil(B/BT), 3H].  The chain runs on the plan
+// (instance, C, BT, RB, KL, smem) of ops/rnn_plan.py `bwd_plan`: instance
+// 0 the L2 kernel (C 1, BT 8, RB 1, KL 1, 24 H BT bytes), 1 the cluster
+// kernel; a plan it cannot take returns cudaErrorInvalidValue before any
+// launch.
 int tt_gru_bwd(const float* dh, const float* h, const float* x,
                const float* iW, const float* b, const float* sw,
                const float* iwt, float* g_x, float* g_h,
                float* dx, float* dsw_part, float* diw_part, float* db_part,
                int T, int B, int D, int H, int reverse, int nsplit,
+               int instance, int C, int BT, int RB, int KL, int smem,
                void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -560,10 +761,13 @@ int tt_gru_bwd(const float* dh, const float* h, const float* x,
     if (M == 0) return 0;
     if (H > REC_MAX_THREADS || nsplit < 1)
         return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
+                                         REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
 
     // gx = x iW^T + b and gh[t] = h_prev[t] sW^T, h_prev[t] = h[t -/+ 1],
     // zero at the boundary step
-    cudaError_t err = launch_gate_gemm(x, iW, b, g_x, M, H3, D, st);
+    err = launch_gate_gemm(x, iW, b, g_x, M, H3, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t step = (size_t)B * H3;
     float* gh_zero = reverse ? g_h + (size_t)(T - 1) * step : g_h;
@@ -579,27 +783,32 @@ int tt_gru_bwd(const float* dh, const float* h, const float* x,
     }
     return gru_bwd_chain(dh, h, reverse ? 1 : -1, g_x, g_h, g_x, g_h, x, sw,
                          iwt, dx, dsw_part, diw_part, db_part, T, B, D, H,
-                         reverse, nsplit, st);
+                         reverse, nsplit, instance, C, BT, RB, KL, smem,
+                         st);
 }
 
 // GRU layer backward from the forward's gate streams.  Inputs: dh, hprev
 // [T, B, H], gx, gh [T, B, 3H] (read only), x [T, B, D], sw = sW [3H, H],
-// iwt = iW^T [D, 3H].  Scratch: dgx, dgh [T, B, 3H].  Outputs as
+// iwt = iW^T [D, 3H].  Scratch: dgx, dgh [T, B, 3H].  Outputs and plan as
 // tt_gru_bwd's.
 int tt_gru_bwd_fusedw(const float* dh, const float* gx, const float* gh,
                       const float* hprev, const float* x, const float* sw,
                       const float* iwt, float* dgx, float* dgh, float* dx,
                       float* dsw_part, float* diw_part, float* db_part,
                       int T, int B, int D, int H, int reverse, int nsplit,
+                      int instance, int C, int BT, int RB, int KL, int smem,
                       void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS || nsplit < 1)
         return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
+                                         REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return gru_bwd_chain(dh, hprev, 0, gx, gh, dgx, dgh, x, sw, iwt, dx,
                          dsw_part, diw_part, db_part, T, B, D, H, reverse,
-                         nsplit, st);
+                         nsplit, instance, C, BT, RB, KL, smem, st);
 }
 
 // Kernel 16: the GRU recurrence on given gates.  gx [T, B, 3H] (read
@@ -622,18 +831,24 @@ int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
 
 // Kernel 17: the GRU gradient chain on the forward's residuals.  dh,
 // hprev [T, B, H], gx, gh [T, B, 3H] (read only), sw = sW [3H, H] -> dgx,
-// dgh [T, B, 3H]; db_part [ceil(B/8), 3H] is scratch.  With iwt = iW^T
-// [D, 3H] non-null also dx [T, B, D] = dgx . iW.
+// dgh [T, B, 3H]; db_part [ceil(B/BT), 3H] is scratch.  With iwt = iW^T
+// [D, 3H] non-null also dx [T, B, D] = dgx . iW.  The plan as
+// tt_gru_bwd's.
 int tt_gru_scan_bwd(const float* dh, const float* gx, const float* gh,
                     const float* hprev, const float* sw, const float* iwt,
                     float* dgx, float* dgh, float* dx, float* db_part, int T,
-                    int B, int D, int H, int reverse, void* stream)
+                    int B, int D, int H, int reverse, int instance, int C,
+                    int BT, int RB, int KL, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    int rc = launch_gru_bwd_rec(dh, hprev, 0, gx, gh, dgx, dgh, sw, db_part,
-                                T, B, H, reverse, st);
+    cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
+                                         REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int rc = launch_gru_bwd_rec_plan(dh, hprev, 0, gx, gh, dgx, dgh, sw,
+                                     db_part, T, B, H, reverse, instance, C,
+                                     BT, RB, KL, smem, st);
     if (rc || iwt == nullptr) return rc;
     return static_cast<int>(launch_gate_gemm(dgx, iwt, nullptr, dx, T * B,
                                              D, 3 * H, st));

@@ -84,23 +84,41 @@
 //    pre is written over gx (each value after its only read), so it needs
 //    no stream of its own.
 //
-// 3. lstm_bwd_rec_kernel: the backward recurrence, the mirror of 2 in the
-//    opposite time direction.  Thread j computes the four gate gradients
-//    of unit j for its BT rows, from the stored activations (no
-//    transcendentals) or, with FROM_PRE, from pre and c (four sigmoid or
-//    tanh and tanh(c) per row and step, as the TPU kernel's
-//    _lstm_cell_bwd), writes them to dpre [T, B, 4H], keeps dc in
-//    registers and sums d_b over its rows and steps (per batch tile
-//    partials, as the TPU kernel returns them).  c_prev is read from a
-//    stream at a time offset: c_prev itself (offset 0) or c one step back
+// 3. The backward recurrence, the mirror of 2 in the opposite time
+//    direction, in two instances that compute the same function (within
+//    1e-4 relative; the sums over the gates run in another order);
+//    ops/rnn_plan.py `bwd_plan` picks one by shape before the launch (the
+//    backwards' `instance`, C, BT, RB, KS and smem arguments).  Each cell
+//    (unit j, row) gets its four gate gradients from the stored
+//    activations (no transcendentals) or, with FROM_PRE, from pre and c
+//    (four sigmoid or tanh and tanh(c) per row and step, as the TPU
+//    kernel's _lstm_cell_bwd); they go to dpre [T, B, 4H], dc is carried
+//    in registers and d_b summed over the tile's rows and steps (per batch
+//    tile partials, as the TPU kernel returns them).  c_prev is read from
+//    a stream at a time offset: c_prev itself (offset 0) or c one step back
 //    in the forward's direction (the recomputing backward, which keeps no
-//    c_prev).  The gate gradients of the tile go to shared memory
-//    (double-buffered, 64 KB at H = 256), and thread j forms
-//    dh_{next}[j] = sum_g dpre[g] . sW[g, j], reading column j of sW from
-//    L2 each step.  Bound: the serial chain, as in 2.  The TPU kernels
-//    accumulate d_sW and d_iW in VMEM across their sequential time grid
-//    (pallas_rnn.py:272-278); Hopper blocks carry nothing across blocks,
-//    so those products are left to kernel 4.
+//    c_prev).  Then dh_{next}[j] = sum_g dpre[g] . sW[g, j].
+//    a. lstm_bwd_rec_cluster_kernel<RB, FROM_PRE> (the cluster instance,
+//       the plan's choice wherever it fits: every width the repo's models
+//       use).  The forward's cluster and tiles; rank q keeps the four
+//       gate rows of sW of its units over all H columns in shared memory
+//       (128 KB at H = 256, C = 8) and forms a partial dh_next over all H
+//       units from its own gate gradients; each rank's block of it goes to
+//       the unit's owner by a bulk copy, and the owner sums the C partials
+//       in rank order in its next step's cells.  The next step's inputs of
+//       a thread's cells (7 words) arrive by cp.async during the product
+//       (rec_cluster.cuh: layout, protocol, safety, per-step cost).  At
+//       B = 256, H = 256: C = 8, BT = 18, 120 CTAs in one wave (the L2
+//       instance 32 blocks).  Bound: the serial chain of T steps, each the
+//       product's shared-memory reads, the exchange and the cells.
+//    b. lstm_bwd_rec_kernel<BT, FROM_PRE> (the L2 instance, where the
+//       slice does not fit: H = 512).  One block per tile of BT = 8 rows,
+//       thread j the cells of unit j; the gate gradients of the tile go to
+//       shared memory (double-buffered, 64 KB at H = 256) and thread j
+//       reads column j of sW from L2 each step.
+//    The TPU kernels accumulate d_sW and d_iW in VMEM across their
+//    sequential time grid (pallas_rnn.py:272-278); Hopper blocks carry
+//    nothing across blocks, so those products are left to kernel 4.
 //
 // 4. atb_gemm_kernel (gemm.cuh): d_iW = dpre^T x and d_sW = dpre^T h_prev
 //    as split-K partials over slices of the T*B rows, h_prev read by a
@@ -325,8 +343,9 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
     clk.store(cycles);
 }
 
-// Backward recurrence for the BT-row batch tile of this block: gate
-// gradients dpre [T, B, 4H] and per-tile bias gradients db_part [nbt, 4H].
+// Backward recurrence (the L2 instance) for the BT-row batch tile of this
+// block: gate gradients dpre [T, B, 4H] and per-tile bias gradients
+// db_part [nbt, 4H].
 // dh [T, B, H] (gradient of the layer's output); gates [T, B, 4H] = acts,
 // or pre with FROM_PRE; cs [T, B, H] = tanh(c), or c with FROM_PRE;
 // c_prev of step t is cprev[t + cshift] (zero outside [0, T));
@@ -430,6 +449,146 @@ lstm_bwd_rec_kernel(const float* __restrict__ dh_out,
     }
 }
 
+// Step t's inputs of this thread's cells into the ring [BT][U][7]: the
+// four gates, tc (or c), c_prev (zero where t + cshift is outside [0, T))
+// and dh.  Rows past B are left alone (no cell reads them).
+__device__ __forceinline__ void lstm_bwd_prefetch(
+    float* ring, const float* __restrict__ dh_out,
+    const float* __restrict__ gates, const float* __restrict__ cs,
+    const float* __restrict__ cprev, int cshift, int t, int T, int B, int b0,
+    int nrow, int H, int U, int u0, const RecCells& cl)
+{
+    const int tp = t + cshift;
+    const bool has_prev = tp >= 0 && tp < T;
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            const int u = u0 + cl.u_c[j];
+            const size_t r = (size_t)t * B + b0 + cl.row[j];
+            float* d = ring + ((size_t)cl.row[j] * U + cl.u_c[j])
+                       * rec_bwd_ring(4);
+            const float* g = gates + r * 4 * H + u;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) cp_async4(d + q, g + q * H, true);
+            cp_async4(d + 4, cs + r * H + u, true);
+            cp_async4(d + 5, has_prev
+                      ? cprev + ((size_t)tp * B + b0 + cl.row[j]) * H + u
+                      : cs, has_prev);
+            cp_async4(d + 6, dh_out + r * H + u, true);
+        }
+    }
+}
+
+// The cluster instance of the backward recurrence: what lstm_bwd_rec_kernel
+// computes, for the tile of BT rows of this cluster, rank q holding the
+// four gate rows of sW of units [q U, q U + U) and summing the partials of
+// those units (rec_cluster.cuh, the backward).  Arguments as
+// lstm_bwd_rec_kernel's; C ranks of U units; db_part [ceil(B / BT), 4H].
+// With CLOCK (probes/rec_phases.cu alone) the step's phases are timed
+// into `cycles`; the layers pass nullptr.
+template <int RB, int KL, bool FROM_PRE, bool CLOCK = false>
+__global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
+lstm_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
+                            const float* __restrict__ gates,
+                            const float* __restrict__ cs,
+                            const float* __restrict__ cprev, int cshift,
+                            const float* __restrict__ sw,
+                            float* __restrict__ dpre,
+                            float* __restrict__ db_part, int T, int B, int H,
+                            int reverse, int C, int U, int BT,
+                            long long* __restrict__ cycles)
+{
+    extern __shared__ __align__(16) float smem[];
+    const RecBwdSmem m = rec_bwd_smem_of<4>(smem, H, C, U, BT);
+    const int tile = cluster_id();
+    const int b0 = tile * BT;
+    const int nrow = min(BT, B - b0);
+    const int q = cluster_rank();
+    const int u0 = q * U;
+    const int H4 = 4 * H;
+    const RecCells cl = rec_cells(H, U, BT, u0);
+
+    rec_bwd_prologue<4>(m, sw, H, U, u0, BT);
+    lstm_bwd_prefetch(m.ring, dh_out, gates, cs, cprev, cshift,
+                      reverse ? 0 : T - 1, T, B, b0, nrow, H, U, u0, cl);
+    cp_async_commit();
+    cp_async_wait<0>();
+    cluster_sync();
+    float dc_c[REC_MAX_CELLS], db[REC_MAX_CELLS][4];
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        dc_c[j] = 0.f;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) db[j][g] = 0.f;
+    }
+    RecClock<CLOCK> clk;
+
+    for (int s = 0; s < T; ++s) {
+        // the gradient chain walks opposite to the forward direction
+        const int t = reverse ? s : T - 1 - s;
+        const int nb = (s + 1) & 1;
+        const bool more = s + 1 < T;
+        clk.start();
+        if (more && threadIdx.x == 0)
+            mbar_arrive_expect(m.bar + nb, 4 * (C - 1) * U * BT);
+        cp_async_wait<0>();
+        clk.template lap<REC_TOP>();
+#pragma unroll
+        for (int j = 0; j < REC_MAX_CELLS; ++j) {
+            if (j >= cl.n) break;
+            const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
+            if (row >= nrow || u >= H) continue;
+            const float* v = m.ring + ((size_t)row * U + u_c)
+                                      * rec_bwd_ring(4);
+            float ig, fg, gg, og, tc;
+            if (FROM_PRE) {
+                ig = sigmoidf_(v[0]);
+                fg = sigmoidf_(v[1]);
+                gg = tanhf(v[2]);
+                og = sigmoidf_(v[3]);
+                tc = tanhf(v[4]);
+            } else {
+                ig = v[0]; fg = v[1]; gg = v[2]; og = v[3]; tc = v[4];
+            }
+            const float cp = v[5];
+            const float dh = v[6] + (s > 0 ? rec_bwd_sum(m, s & 1, C, q, U,
+                                                         BT, u_c, row)
+                                           : 0.f);
+            const float d_o = dh * tc;
+            const float dc = dh * og * (1.f - tc * tc) + dc_c[j];
+            float4 p;
+            p.x = dc * gg * ig * (1.f - ig);
+            p.y = dc * cp * fg * (1.f - fg);
+            p.z = dc * ig * (1.f - gg * gg);
+            p.w = d_o * og * (1.f - og);
+            dc_c[j] = dc * fg;
+            float* d = dpre + ((size_t)t * B + b0 + row) * H4 + u;
+            d[0] = p.x; d[H] = p.y; d[2 * H] = p.z; d[3 * H] = p.w;
+            db[j][0] += p.x; db[j][1] += p.y; db[j][2] += p.z;
+            db[j][3] += p.w;
+            reinterpret_cast<float4*>(m.dS)[(size_t)row * U + u_c] = p;
+        }
+        clk.template lap<REC_CELLS>();
+        if (more) {
+            __syncthreads();
+            lstm_bwd_prefetch(m.ring, dh_out, gates, cs, cprev, cshift,
+                              reverse ? t + 1 : t - 1, T, B, b0, nrow, H, U,
+                              u0, cl);
+            cp_async_commit();
+            rec_bwd_partials<4, RB, KL>(m, m.part + (size_t)nb * C * U * BT,
+                                        H, U, BT);
+            clk.template lap<REC_PRODUCT>();
+            rec_bwd_send(m, nb, C, U, BT);
+            clk.template lap<REC_SEND>();
+            mbar_wait(m.bar + nb, (s >> 1) & 1);
+            clk.template lap<REC_WAIT>();
+        }
+    }
+    cluster_sync();
+    rec_bwd_store_db<4>(m, cl, db, db_part, tile, H, U, u0, nrow);
+    clk.store(cycles);
+}
+
 template <int EMIT>
 int launch_lstm_rec(float* gx, const float* swt, float* h, float* c,
                     float* acts, float* tc, int T, int B, int H, int reverse,
@@ -498,20 +657,62 @@ int launch_lstm_bwd_rec(const float* dh, const float* gates, const float* cs,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The chain (kernel 3) and the three products after it (d_x, d_iW, d_sW);
-// arguments as tt_lstm_bwd's, c_prev of step t being cprev[t + cshift].
+// The cluster instance of the chain (kernel 3a) on a plan of C ranks, BT
+// rows a tile, RB rows and KL output units a lane.
+template <int RB, int KL, bool FROM_PRE>
+int launch_lstm_bwd_rec_cluster(const float* dh, const float* gates,
+                                const float* cs, const float* cprev,
+                                int cshift, const float* sw, float* dpre,
+                                float* db_part, int T, int B, int H,
+                                int reverse, int C, int BT, int smem,
+                                cudaStream_t st)
+{
+    const int U = (H + C - 1) / C;
+    return rec_cluster_launch(
+        lstm_bwd_rec_cluster_kernel<RB, KL, FROM_PRE>, C, (B + BT - 1) / BT,
+        rec_bwd_threads(H, BT, RB, KL), smem, st, dh, gates, cs, cprev,
+        cshift, sw, dpre, db_part, T, B, H, reverse, C, U, BT,
+        static_cast<long long*>(nullptr));
+}
+
+// Kernel 3 on a checked plan (rec_bwd_plan_check): the L2 or cluster
+// instance.
+template <bool FROM_PRE>
+int launch_lstm_bwd_rec_plan(const float* dh, const float* gates,
+                             const float* cs, const float* cprev, int cshift,
+                             const float* sw, float* dpre, float* db_part,
+                             int T, int B, int H, int reverse, int instance,
+                             int C, int BT, int RB, int KL, int smem,
+                             cudaStream_t st)
+{
+    if (instance == INSTANCE_L2)
+        return launch_lstm_bwd_rec<FROM_PRE>(dh, gates, cs, cprev, cshift,
+                                             sw, dpre, db_part, T, B, H,
+                                             reverse, st);
+    return rec_with_rb_kl(RB, KL, [&](auto rb, auto kl) {
+        return launch_lstm_bwd_rec_cluster<decltype(rb)::value,
+                                           decltype(kl)::value, FROM_PRE>(
+            dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H,
+            reverse, C, BT, smem, st);
+    });
+}
+
+// The chain (kernel 3, on the plan's instance) and the three products
+// after it (d_x, d_iW, d_sW); arguments as tt_lstm_bwd's, c_prev of step t
+// being cprev[t + cshift].
 template <bool FROM_PRE>
 int lstm_bwd_chain(const float* dh, const float* gates, const float* cs,
                    const float* cprev, int cshift, const float* h,
                    const float* x, const float* sw, const float* iwt,
                    float* dpre, float* dx, float* dsw_part, float* diw_part,
                    float* db_part, int T, int B, int D, int H, int reverse,
-                   int nsplit, cudaStream_t st)
+                   int nsplit, int instance, int C, int BT, int RB, int KL,
+                   int smem, cudaStream_t st)
 {
     const int M = T * B, H4 = 4 * H;
-    int rc = launch_lstm_bwd_rec<FROM_PRE>(dh, gates, cs, cprev, cshift, sw,
-                                           dpre, db_part, T, B, H, reverse,
-                                           st);
+    int rc = launch_lstm_bwd_rec_plan<FROM_PRE>(
+        dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse,
+        instance, C, BT, RB, KL, smem, st);
     if (rc) return rc;
     cudaError_t err;
     if ((err = launch_gate_gemm(dpre, iwt, nullptr, dx, M, D, H4, st))
@@ -602,45 +803,59 @@ int tt_lstm_cluster_occupancy(int H, int C, int BT, int RB, int KS,
 // with tc [T, B, H] (from_pre 0) or pre [T, B, 4H] with c [T, B, H]
 // (from_pre 1) as gates and cs.  Scratch: dpre [T, B, 4H].  Outputs:
 // dx [T, B, D], dsw_part [nsplit, 4H, H], diw_part [nsplit, 4H, D],
-// db_part [ceil(B/8), 4H].
+// db_part [ceil(B/BT), 4H].  The chain runs on the plan (instance, C, BT,
+// RB, KL, smem) of ops/rnn_plan.py `bwd_plan`: instance 0 the L2 kernel
+// (C 1, BT 8, RB 1, KL 1, 32 H BT bytes), 1 the cluster kernel; a plan it
+// cannot take returns cudaErrorInvalidValue before any launch.
 int tt_lstm_bwd(const float* dh, const float* gates, const float* cs,
                 const float* cprev, const float* h, const float* x,
                 const float* sw, const float* iwt, float* dpre, float* dx,
                 float* dsw_part, float* diw_part, float* db_part, int T,
                 int B, int D, int H, int reverse, int nsplit, int from_pre,
+                int instance, int C, int BT, int RB, int KL, int smem,
                 void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS || nsplit < 1)
         return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
+                                         REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (from_pre)
         return lstm_bwd_chain<true>(dh, gates, cs, cprev, 0, h, x, sw, iwt,
                                     dpre, dx, dsw_part, diw_part, db_part, T,
-                                    B, D, H, reverse, nsplit, st);
+                                    B, D, H, reverse, nsplit, instance, C, BT,
+                                    RB, KL, smem, st);
     return lstm_bwd_chain<false>(dh, gates, cs, cprev, 0, h, x, sw, iwt,
                                  dpre, dx, dsw_part, diw_part, db_part, T, B,
-                                 D, H, reverse, nsplit, st);
+                                 D, H, reverse, nsplit, instance, C, BT, RB,
+                                 KL, smem, st);
 }
 
 // LSTM layer backward rebuilding pre.  Inputs: dh, c, h [T, B, H], x
 // [T, B, D], iW [4H, D], b [4H], sw = sW [4H, H], iwt = iW^T [D, 4H].
-// Scratch: pre and dpre [T, B, 4H].  Outputs as tt_lstm_bwd's.
+// Scratch: pre and dpre [T, B, 4H].  Outputs and plan as tt_lstm_bwd's.
 int tt_lstm_bwd_recompute(const float* dh, const float* c, const float* h,
                           const float* x, const float* iW, const float* b,
                           const float* sw, const float* iwt, float* pre,
                           float* dpre, float* dx, float* dsw_part,
                           float* diw_part, float* db_part, int T, int B,
-                          int D, int H, int reverse, int nsplit, void* stream)
+                          int D, int H, int reverse, int nsplit, int instance,
+                          int C, int BT, int RB, int KL, int smem,
+                          void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int H4 = 4 * H;
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS || nsplit < 1)
         return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
+                                         REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
     // pre[t] = x[t] iW^T + b + h_prev[t] sW^T, h_prev[t] = h[t -/+ 1]; the
     // boundary step's h_prev is zero and adds nothing
-    cudaError_t err = launch_gate_gemm(x, iW, b, pre, T * B, H4, D, st);
+    err = launch_gate_gemm(x, iW, b, pre, T * B, H4, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (T > 1) {
         const float* hsrc = reverse ? h + (size_t)B * H : h;
@@ -652,7 +867,8 @@ int tt_lstm_bwd_recompute(const float* dh, const float* c, const float* h,
     // c_prev[t] = c[t - 1] forward, c[t + 1] reversed
     return lstm_bwd_chain<true>(dh, pre, c, c, reverse ? 1 : -1, h, x, sw,
                                 iwt, dpre, dx, dsw_part, diw_part, db_part,
-                                T, B, D, H, reverse, nsplit, st);
+                                T, B, D, H, reverse, nsplit, instance, C, BT,
+                                RB, KL, smem, st);
 }
 
 // Kernel 14: the LSTM recurrence on given gates.  gx [T, B, 4H] (read
@@ -686,19 +902,24 @@ int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
 
 // Kernel 15: the LSTM gradient chain on the forward's residuals.  dh, c,
 // cprev [T, B, H], pre [T, B, 4H], sw = sW [4H, H] -> dpre [T, B, 4H];
-// db_part [ceil(B/8), 4H] is scratch (the chain sums d_b, which the
+// db_part [ceil(B/BT), 4H] is scratch (the chain sums d_b, which the
 // recurrence on given gates has no use for).  With iwt = iW^T [D, 4H]
-// non-null also dx [T, B, D] = dpre . iW.
+// non-null also dx [T, B, D] = dpre . iW.  The plan as tt_lstm_bwd's.
 int tt_lstm_scan_bwd(const float* dh, const float* pre, const float* c,
                      const float* cprev, const float* sw, const float* iwt,
                      float* dpre, float* dx, float* db_part, int T, int B,
-                     int D, int H, int reverse, void* stream)
+                     int D, int H, int reverse, int instance, int C, int BT,
+                     int RB, int KL, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    int rc = launch_lstm_bwd_rec<true>(dh, pre, c, cprev, 0, sw, dpre,
-                                       db_part, T, B, H, reverse, st);
+    cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
+                                         REC_BT, REC_MAX_THREADS);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int rc = launch_lstm_bwd_rec_plan<true>(dh, pre, c, cprev, 0, sw, dpre,
+                                            db_part, T, B, H, reverse,
+                                            instance, C, BT, RB, KL, smem, st);
     if (rc || iwt == nullptr) return rc;
     return static_cast<int>(launch_gate_gemm(dpre, iwt, nullptr, dx, T * B,
                                              D, 4 * H, st));

@@ -1,5 +1,6 @@
-// The cluster instance of the forward recurrences (lstm.cu, gru.cu): the
-// machinery the LSTM and GRU kernels share.
+// The cluster instances of the recurrences (lstm.cu, gru.cu), forward and
+// backward chain: the machinery the LSTM and GRU kernels share.  The
+// backward's layout and protocol follow the forward's description.
 //
 // Design.  A thread-block cluster of C CTAs walks one tile of BT batch
 // rows through all T steps.  CTA rank q owns the hidden units
@@ -105,6 +106,72 @@
 // cudaOccupancyMaxActiveClusters must find room for at least one cluster
 // of the plan; otherwise, or if the launch is refused, the error is
 // returned (and the wrapper raises).
+//
+// The backward chains' cluster instance (lstm.cu and gru.cu kernel 3a)
+// walks the same tiles the other way in time, rank q owning the same
+// units.  Its product runs the other way too: dh_prev[k] = sum over the G
+// gates g and units j of dgate[g][j] sW[g H + j][k].  Rank q sums only
+// over its own G U gate rows, so its product is a *partial* dh_prev over
+// all H units of the tile; the C partials of a unit are summed by the
+// rank that owns it (a reduce-scatter).  Shared memory of a CTA:
+//     bar[2]              (one mbarrier per receive buffer)  16 bytes
+//     dS[BT][U][4]        (this step's gate gradients of the
+//                          own cells; a GRU's fourth is 0)   16 BT U bytes
+//     recv[2][C][U][BT]   (the other ranks' partials of the
+//                          own units, rank r's at r U BT)    8 C U BT bytes
+//     part[2][C U][BT]    (this rank's partial over all
+//                          units; block p goes to rank p)    8 C U BT bytes
+//     wS[U][G][H]         (the own gate rows of sW: row
+//                          g H + u0 + u at [u][g])           4 G H U bytes
+//     ring[BT][U][R]      (step s+1's inputs of the own
+//                          cells, R = 7 LSTM, 8 GRU words)   4 R BT U bytes
+// rec_bwd_smem below and ops/rnn_plan.py `bwd_smem` compute the same sum
+// (230,160 bytes for the LSTM at H = 256, C = 8, BT = 18; 199,696 for the
+// GRU, whose three gate rows are not padded to four).
+// A step s (time t = T-1-s, or s for a reversed layer):
+//  1. The cells: each thread waits for its own ring copies, sums its
+//     cells' C partials of step s-1 in rank order (its own block from
+//     part, the others from recv) onto dh, applies the cell's backward,
+//     keeps the carried dc (LSTM) or dh z (GRU) and the d_b sums in
+//     registers, stores the gate gradients to device memory and to dS.
+//  2. __syncthreads, then each thread copies step s+1's inputs of its
+//     cells into the ring (cp.async; it read its words of step s in 1) and
+//     the product runs: with nkg = ceil(H / (32 KL)), warp w takes the KL
+//     output units (w % nkg) 32 KL + lane + 32 i (i < KL) and row group
+//     w / nkg (RB rows); per own unit u it loads the KL G weights of its
+//     lane (consecutive lanes, consecutive words) and RB float4 of dS
+//     (broadcast), and issues KL G RB fmaf, the sum over u and g one
+//     chain an output, from zero.  Its KL RB sums go to part[b][k][rows]
+//     (b = (s+1) & 1).  Two units a lane (KL = 2) halve the broadcasts a
+//     fmaf: the shared-memory reads, not the fmaf, bound the product.
+//  3. The exchange, as the forward's: fence.proxy.async, __syncthreads,
+//     thread p sends block p of part[b] to recv[b][q] of rank p by one
+//     bulk copy completing on rank p's bar[b]; every thread waits for
+//     bar[b]'s phase (s >> 1) & 1.
+// Why the buffers are safe: recv[b] of rank q is written by rank r at
+// step s only after r's step s-1 wait, which needs q's step s-1 send,
+// which q issues after its step s-1 cells, the last reads of recv[b]
+// (recv[b] is read at steps s-1 and s+1).  part[b] is rewritten at step
+// s+2, after q's step s+1 wait, which needs every other rank's step s+1
+// send, issued after that rank's step s wait, which needed q's step s
+// blocks (read out of part[b]) in full.  dS is rewritten at step s+1's
+// cells, after step s's send barrier, which follows the product.  The
+// GRU's in-place case (the gate streams' gradients written over the
+// streams): step s+1's ring copies read time row t -/+ 1, never row t,
+// the only row step s writes, and each thread reads a row's inputs (step
+// s-1's copies, waited for) before it stores to that row.  The sum over
+// the own units is not split (a plan's KS field carries KL instead).
+// After the loop a cluster barrier; then the ring holds the cells' d_b
+// and each (unit, gate) of the tile is summed over the rows in order into
+// db_part[tile].
+// Cost of a step, in cycles (ops/rnn_plan.py `bwd_step_cycles`, its
+// constants from probes/rec_phases.cu; nw = nkg BT / RB warps, p = KL G +
+// RB + KL G RB instructions a unit): the product's issue U p ceil(nw / 4)
+// (its weight loads, dS loads and fmaf) plus its shared-memory reads nw U
+// (KL G + RB) (the probe finds the two barely overlap), or with few warps
+// its latency U (BWD_LATENCY + p); the exchange as the forward's; the
+// cells, per cell of a thread, BWD_CELL_CYCLES[G] plus C SUM_RANK_CYCLES
+// for the partials.
 
 #pragma once
 
@@ -186,6 +253,71 @@ inline cudaError_t rec_plan_check(int instance, int H, int C, int BT, int RB,
                    ? cudaSuccess : cudaErrorInvalidValue;
     if (instance == INSTANCE_CLUSTER)
         return rec_cluster_check(H, C, BT, RB, KS, smem);
+    return cudaErrorInvalidValue;
+}
+
+// words of a cell's inputs in the backward's ring: acts or pre (4), tc or
+// c, c_prev and dh for the LSTM; gx (3), gh (3), h_prev and dh for the GRU
+__host__ __device__ constexpr int rec_bwd_ring(int G)
+{
+    return G == 4 ? 7 : 8;
+}
+
+// bytes of shared memory of one CTA of the backward's cluster instance
+// (G gate rows a unit): mbarriers, dS, recv, part, the sW slice and the
+// ring (the layout above)
+inline size_t rec_bwd_smem(int G, int H, int C, int U, int BT)
+{
+    return 16 + 16 * (size_t)BT * U + 16 * (size_t)C * U * BT
+           + 4 * (size_t)G * H * U + 4 * (size_t)rec_bwd_ring(G) * BT * U;
+}
+
+// threads of a backward CTA: a warp per 32 KL output units and row group
+inline int rec_bwd_threads(int H, int BT, int RB, int KL)
+{
+    return 32 * ((H + 32 * KL - 1) / (32 * KL)) * (BT / RB);
+}
+
+// output units a lane in the backward's product the kernels are
+// instantiated for (ops/rnn_plan.py UNITS_A_LANE)
+constexpr int REC_BWD_MAX_KL = 2;
+
+// Checks a backward plan (C ranks, BT rows a tile, RB rows and KL output
+// units a lane) for G gate rows of H units: cudaSuccess, or
+// cudaErrorInvalidValue for one this instance cannot take.  `smem` must
+// be rec_bwd_smem's count.
+inline cudaError_t rec_bwd_check(int G, int H, int C, int BT, int RB,
+                                 int KL, int smem)
+{
+    if (G < 3 || G > 4 || C < 1 || C > REC_MAX_CLUSTER || H < 1
+            || !rec_rows_a_lane(RB) || BT < RB || BT > REC_MAX_BT
+            || BT % RB != 0 || KL < 1 || KL > REC_BWD_MAX_KL)
+        return cudaErrorInvalidValue;
+    const int U = (H + C - 1) / C;
+    const int threads = rec_bwd_threads(H, BT, RB, KL);
+    if ((H + U - 1) / U != C || threads > REC_CLUSTER_THREADS
+            || U * BT > REC_MAX_CELLS * threads || U * BT % 4 != 0)
+        return cudaErrorInvalidValue;
+    const size_t need = rec_bwd_smem(G, H, C, U, BT);
+    if (need > (size_t)REC_SMEM_LIMIT || need != (size_t)smem)
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
+// Checks a backward launch plan before any work is queued: the L2
+// instance takes C = 1, its tile of l2_bt rows (RB and KL 1) and 8 G H
+// l2_bt bytes, for H up to l2_max_h; the cluster one what rec_bwd_check
+// takes.
+inline cudaError_t rec_bwd_plan_check(int instance, int G, int H, int C,
+                                      int BT, int RB, int KL, int smem,
+                                      int l2_bt, int l2_max_h)
+{
+    if (instance == INSTANCE_L2)
+        return H <= l2_max_h && C == 1 && BT == l2_bt && RB == 1 && KL == 1
+                       && smem == 8 * G * H * l2_bt
+                   ? cudaSuccess : cudaErrorInvalidValue;
+    if (instance == INSTANCE_CLUSTER)
+        return rec_bwd_check(G, H, C, BT, RB, KL, smem);
     return cudaErrorInvalidValue;
 }
 
@@ -545,12 +677,187 @@ __device__ __forceinline__ void rec_step_top(const RecSmem& m,
     cp_async_commit();
 }
 
+// -- the backward chains' building blocks ------------------------------------
+
+// The shared memory of a backward CTA, cut as the layout above.
+struct RecBwdSmem {
+    uint64_t* bar;   // [2]
+    float* dS;       // [BT][U][4]
+    float* recv;     // [2][C][U][BT]
+    float* part;     // [2][C U][BT]
+    float* wS;       // [U][G][H]
+    float* ring;     // [BT][U][R]
+};
+
+template <int G>
+__device__ __forceinline__ RecBwdSmem rec_bwd_smem_of(float* smem, int H,
+                                                      int C, int U, int BT)
+{
+    RecBwdSmem m;
+    m.bar = reinterpret_cast<uint64_t*>(smem);
+    m.dS = smem + 4;
+    m.recv = m.dS + (size_t)BT * U * 4;
+    m.part = m.recv + (size_t)2 * C * U * BT;
+    m.wS = m.part + (size_t)2 * C * U * BT;
+    m.ring = m.wS + (size_t)G * H * U;
+    return m;
+}
+
+// The start of a backward kernel: mbarriers, this CTA's gate rows of sW
+// [G H, H] into wS[u][g][k] (row g H + u0 + u; zero past H) by cp.async,
+// dS zeroed (the rows past B and units past H stay zero, so they add
+// nothing to the product).  The caller then copies step 0's inputs,
+// waits for all copies and runs the cluster barrier.
+template <int G>
+__device__ __forceinline__ void rec_bwd_prologue(const RecBwdSmem& m,
+                                                 const float* __restrict__ sw,
+                                                 int H, int U, int u0, int BT)
+{
+    if (threadIdx.x == 0) {
+        mbar_init(m.bar);
+        mbar_init(m.bar + 1);
+        mbar_init_fence();
+    }
+    const int n = U * G * H;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int k = i % H;
+        const int g = (i / H) % G;
+        const int u = i / (H * G);
+        const bool ok = u0 + u < H;
+        cp_async4(m.wS + i,
+                  ok ? sw + ((size_t)g * H + u0 + u) * H + k : sw, ok);
+    }
+    for (int i = threadIdx.x; i < BT * U * 4; i += blockDim.x) m.dS[i] = 0.f;
+}
+
+// The sum over the C ranks, in rank order, of the partials of cell (u_c,
+// row) that step s-1 produced (b = s & 1): this rank's own block from
+// part[b], the others' from recv[b].
+__device__ __forceinline__ float rec_bwd_sum(const RecBwdSmem& m, int b,
+                                             int C, int q, int U, int BT,
+                                             int u_c, int row)
+{
+    const size_t blk = (size_t)U * BT;
+    const float* own = m.part + ((size_t)b * C + q) * blk;
+    const float* rv = m.recv + (size_t)b * C * blk;
+    const size_t o = (size_t)u_c * BT + row;
+    float v = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < C; ++r) v += (r == q ? own : rv + r * blk)[o];
+    return v;
+}
+
+// The product of a backward step: out[k][rows] = sum over the own units u
+// and gates g of wS[u][g][k] dS[row][u][g], for this thread's KL output
+// units k (lane + 32 i, i < KL, of its warp's group of 32 KL) and its RB
+// rows, one fmaf chain an output from zero.
+template <int G, int RB, int KL>
+__device__ __forceinline__ void rec_bwd_partials(const RecBwdSmem& m,
+                                                 float* __restrict__ out,
+                                                 int H, int U, int BT)
+{
+    const int nkg = (H + 32 * KL - 1) / (32 * KL);
+    const int w = threadIdx.x >> 5;
+    const int k0 = w % nkg * 32 * KL + (int)(threadIdx.x & 31);
+    const int rg = w / nkg;
+    if (k0 >= H) return;
+    int kl[KL];   // the lane's units, past H clamped for the loads
+#pragma unroll
+    for (int i = 0; i < KL; ++i) kl[i] = min(k0 + 32 * i, H - 1);
+    float acc[KL][RB];
+#pragma unroll
+    for (int i = 0; i < KL; ++i)
+#pragma unroll
+        for (int r = 0; r < RB; ++r) acc[i][r] = 0.f;
+    const float4* d = reinterpret_cast<const float4*>(m.dS)
+                      + (size_t)rg * RB * U;
+#pragma unroll 4
+    for (int u = 0; u < U; ++u) {
+        const float* wu = m.wS + (size_t)u * G * H;
+        float wv[KL][G];
+#pragma unroll
+        for (int i = 0; i < KL; ++i)
+#pragma unroll
+            for (int g = 0; g < G; ++g) wv[i][g] = wu[g * H + kl[i]];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+            const float4 dv = d[(size_t)r * U + u];
+#pragma unroll
+            for (int i = 0; i < KL; ++i) {
+                acc[i][r] = fmaf(wv[i][0], dv.x, acc[i][r]);
+                acc[i][r] = fmaf(wv[i][1], dv.y, acc[i][r]);
+                acc[i][r] = fmaf(wv[i][2], dv.z, acc[i][r]);
+                if constexpr (G == 4)
+                    acc[i][r] = fmaf(wv[i][3], dv.w, acc[i][r]);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < KL; ++i) {
+        if (k0 + 32 * i >= H) break;
+        float* o = out + (size_t)(k0 + 32 * i) * BT + rg * RB;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) o[r] = acc[i][r];
+    }
+}
+
+// The exchange of a backward step: block p of part[nb] (rank p's units,
+// all BT rows) to recv[nb][q] of rank p, by one bulk copy each,
+// completing on rank p's bar[nb].
+__device__ __forceinline__ void rec_bwd_send(const RecBwdSmem& m, int nb,
+                                             int C, int U, int BT)
+{
+    fence_proxy_async();
+    __syncthreads();
+    const int p = threadIdx.x;
+    const uint32_t q = cluster_rank();
+    if (p < C && p != (int)q) {
+        const size_t blk = (size_t)U * BT;
+        const uint32_t src = smem_addr(m.part + ((size_t)nb * C + p) * blk);
+        const uint32_t dst = smem_addr(m.recv + ((size_t)nb * C + q) * blk);
+        bulk_copy_cluster(map_rank(dst, p), src, 4 * U * BT,
+                          map_rank(smem_addr(m.bar + nb), p));
+    }
+}
+
+// After the loop and its cluster barrier: the d_b sums of this thread's
+// cells (db[j][g]) through the ring, now free, into db_part[tile][G H],
+// each (unit, gate) summed over the tile's rows in order.
+template <int G>
+__device__ __forceinline__ void rec_bwd_store_db(
+    const RecBwdSmem& m, const RecCells& cl,
+    const float (&db)[REC_MAX_CELLS][G], float* __restrict__ db_part,
+    int tile, int H, int U, int u0, int nrow)
+{
+    float* s = m.ring;   // [BT][U][G]
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+                s[((size_t)cl.row[j] * U + cl.u_c[j]) * G + g] = db[j][g];
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < U * G; i += blockDim.x) {
+        const int u_c = i / G, g = i % G;
+        if (u0 + u_c >= H) continue;
+        float v = 0.f;
+        for (int row = 0; row < nrow; ++row)
+            v += s[((size_t)row * U + u_c) * G + g];
+        db_part[(size_t)tile * G * H + g * H + u0 + u_c] = v;
+    }
+}
+
 // The phase clock of a step, for probes/rec_phases.cu: RecClock<true>
 // sums, on each thread, the clock64 cycles of the step's phases (REC_TOP
 // the gate copies, REC_PRODUCT the product and its barrier, REC_CELLS,
 // REC_SEND, REC_WAIT the wait for the step's h) over the steps, and thread
-// 0 stores them at out[REC_PHASES blockIdx.x ..].  RecClock<false>, the
-// kernels' own, is empty and compiles to nothing.
+// 0 stores them at out[REC_PHASES blockIdx.x ..].  The backward kernels
+// time the same phases in their own order (REC_TOP the wait for the
+// step's ring copies, then the cells, the product with its barrier and
+// the next step's copies, the send and the wait for the partials).
+// RecClock<false>, the kernels' own, is empty and compiles to nothing.
 constexpr int REC_TOP = 0, REC_PRODUCT = 1, REC_CELLS = 2, REC_SEND = 3,
               REC_WAIT = 4, REC_PHASES = 5;
 
@@ -597,6 +904,17 @@ int rec_with_rb(int RB, F&& f)
     case 9: return f(std::integral_constant<int, 9>{});
     }
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// `f(rb, kl)` (integral constants) for the runtime RB and KL of a checked
+// backward plan.
+template <typename F>
+int rec_with_rb_kl(int RB, int KL, F&& f)
+{
+    return rec_with_rb(RB, [&](auto rb) {
+        return KL == 2 ? f(rb, std::integral_constant<int, 2>{})
+                       : f(rb, std::integral_constant<int, 1>{});
+    });
 }
 
 // The launch configuration of `kernel` as clusters of C CTAs (grid

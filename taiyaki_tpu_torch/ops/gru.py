@@ -22,9 +22,11 @@ without the input product, what pallas_rnn.py:1082 `gru_fwd` and :1407
 the gradients dgx (= d gates_x) and dgh, with iW also d_x.  They run the
 layer kernels' chains (csrc/gru.cu).
 
-The forward recurrence (of `gru_fwd` and `gru_scan_fwd`) has a cluster
-and an L2 instance that compute the same values, picked by
-`rnn_plan.rec_plan` and counted per instance as the LSTM's (ops/lstm.py).
+The forward recurrence (of `gru_fwd` and `gru_scan_fwd`) and the
+backward chain (of the two backwards and `gru_scan_bwd`) each have a
+cluster and an L2 instance that compute the same values, picked by
+`rnn_plan.rec_plan` and `rnn_plan.bwd_plan` and counted per instance as
+the LSTM's (ops/lstm.py); `instance=` forces one, for tests and timing.
 
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
@@ -35,17 +37,16 @@ import functools
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
-from taiyaki_tpu_torch.ops.lstm import (BATCH_TILE, _check_args,
-                                        _check_hidden, bwd_outputs,
-                                        prev_state)
+from taiyaki_tpu_torch.ops.lstm import (_check_args, _check_hidden,
+                                        bwd_outputs, prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 11 + [_P],
-               "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P],
-               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P],
+               "tt_gru_bwd": [_P] * 13 + [_I] * 12 + [_P],
+               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 12 + [_P],
                "tt_gru_scan_fwd": [_P] * 4 + [_I] * 10 + [_P],
                "tt_gru_cluster_occupancy": [_I] * 6,
-               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 5 + [_P]}
+               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 11 + [_P]}
 
 
 def _cell(gx_t, gh_t, h):
@@ -114,8 +115,7 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
             cuda_lib.ptr(gh), T, B, D, H, int(bool(reverse)),
             *rnn_plan.c_args(plan), cuda_lib.stream(x.device))
-        gru_fwd.launches += 1
-        gru_fwd.by_instance[plan.instance].launches += 1
+        rnn_plan.count(gru_fwd, plan)
     cuda_lib.check(lib, err, "gru_fwd kernel")
     return (h, gh, gx) if emit_residuals else h
 
@@ -172,11 +172,21 @@ def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
     return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
 
 
-def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False):
+def _bwd_plan(H, B, device, instance):
+    """The backward chain's plan on `device` (`rnn_plan.bwd_plan` on the
+    card's clusters a wave)."""
+    return rnn_plan.bwd_plan(3, H, B, clusters_per_wave(device.index),
+                             instance)
+
+
+def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
     """GRU layer backward; contract of `gru_bwd_recompute_plain`, except
     that the kernel returns d_sW and d_iW as [nsplit, ...] partials over
-    slices of the T*B rows and d_b as [ceil(B/8), 3H] partials over batch
-    tiles; the caller sums them."""
+    slices of the T*B rows and d_b as [ceil(B / BT), 3H] partials over the
+    chain plan's batch tiles; the caller sums them.  `instance`
+    ("cluster" or "l2") forces an instance of the chain on the card, for
+    tests and timing; None takes `rnn_plan.bwd_plan`'s."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse)
     cuda_lib.check_cuda(dh, "gru_bwd_recompute")
@@ -186,6 +196,7 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False):
         ("dh", dh, (T, B, H)), ("h", h, (T, B, H)), ("x", x, (T, B, D)),
         ("sW", sW, (3 * H, H)), ("iW", iW, (3 * H, D)), ("b", b, (3 * H,))))
     _check_hidden("gru_bwd_recompute", H)
+    plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
@@ -193,23 +204,25 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False):
         # gx and gh, overwritten in place by dgx and dgh
         g_x = torch.empty(T, B, 3 * H, device=dev)
         g_h = torch.empty(T, B, 3 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev)
+        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
         err = lib.tt_gru_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(iW), cuda_lib.ptr(b), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(g_x), cuda_lib.ptr(g_h),
             *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
-            cuda_lib.stream(dev))
-        gru_bwd_recompute.launches += 1
+            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+        rnn_plan.count(gru_bwd_recompute, plan)
     cuda_lib.check(lib, err, "gru_bwd_recompute kernel")
     return out
 
 
-def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
+def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
+                   instance=None):
     """GRU layer backward from the stored gate streams; contract of
-    `gru_bwd_fusedw_plain`, with the partials of `gru_bwd_recompute`.  gx
-    and gh are read, never written: the gradients go to scratch of their
-    own."""
+    `gru_bwd_fusedw_plain`, with the partials and `instance` of
+    `gru_bwd_recompute`.  gx and gh are read, never written: the gradients
+    go to scratch of their own."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
     cuda_lib.check_cuda(dh, "gru_bwd_fusedw")
@@ -221,20 +234,21 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
         ("x", x, (T, B, D)), ("sW", sW, (3 * H, H)),
         ("iW", iW, (3 * H, D))))
     _check_hidden("gru_bwd_fusedw", H)
+    plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         iwt = iW.t().contiguous()
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev)
+        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
         err = lib.tt_gru_bwd_fusedw(
             cuda_lib.ptr(dh), cuda_lib.ptr(gx), cuda_lib.ptr(gh),
             cuda_lib.ptr(h_prev), cuda_lib.ptr(x), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(dgx), cuda_lib.ptr(dgh),
             *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
-            cuda_lib.stream(dev))
-        gru_bwd_fusedw.launches += 1
+            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+        rnn_plan.count(gru_bwd_fusedw, plan)
     cuda_lib.check(lib, err, "gru_bwd_fusedw kernel")
     return out
 
@@ -274,8 +288,7 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
             cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(h),
             cuda_lib.ptr(gh), T, B, H, int(bool(reverse)),
             *rnn_plan.c_args(plan), cuda_lib.stream(dev))
-        gru_scan_fwd.launches += 1
-        gru_scan_fwd.by_instance[plan.instance].launches += 1
+        rnn_plan.count(gru_scan_fwd, plan)
     cuda_lib.check(lib, err, what + " kernel")
     return (h, gh) if residuals else h
 
@@ -292,9 +305,12 @@ def gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
     return dgx, dgh, torch.matmul(dgx, iW)
 
 
-def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
+def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
+                 instance=None):
     """The GRU gradient chain on given gates (kernel 17); contract of
-    `gru_scan_bwd_plain`.  gates_x and gh are read, never written."""
+    `gru_scan_bwd_plain`.  gates_x and gh are read, never written.
+    `instance` as `gru_bwd_recompute`'s."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse, iW)
     what = "gru_scan_bwd"
@@ -308,6 +324,7 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
         specs.append(("iW", iW, (3 * H, D)))
     _check_args(what, dh.device, specs)
     _check_hidden(what, H)
+    plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
@@ -315,14 +332,14 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
-        db = torch.empty(-(-B // BATCH_TILE), 3 * H, device=dev)
+        db = torch.empty(-(-B // plan.BT), 3 * H, device=dev)
         err = lib.tt_gru_scan_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(gates_x), cuda_lib.ptr(gh),
             cuda_lib.ptr(h_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
             cuda_lib.ptr(dgx), cuda_lib.ptr(dgh), cuda_lib.ptr(d_x),
             cuda_lib.ptr(db), T, B, D, H, int(bool(reverse)),
-            cuda_lib.stream(dev))
-        gru_scan_bwd.launches += 1
+            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+        rnn_plan.count(gru_scan_bwd, plan)
     cuda_lib.check(lib, err, what + " kernel")
     return (dgx, dgh) if iW is None else (dgx, dgh, d_x)
 
@@ -347,10 +364,7 @@ def clusters_per_wave(index):
         return rnn_plan.clusters_per_wave(cluster_occupancy)
 
 
-gru_fwd.launches = 0
-gru_fwd.by_instance = rnn_plan.instance_counters()
-gru_scan_fwd.launches = 0
-gru_scan_fwd.by_instance = rnn_plan.instance_counters()
-gru_scan_bwd.launches = 0
-gru_bwd_recompute.launches = 0
-gru_bwd_fusedw.launches = 0
+for _fn in (gru_fwd, gru_scan_fwd, gru_scan_bwd, gru_bwd_recompute,
+            gru_bwd_fusedw):
+    _fn.launches = 0
+    _fn.by_instance = rnn_plan.instance_counters()

@@ -20,12 +20,14 @@ gates without the input product, what pallas_rnn.py:141 `lstm_fwd` and
 [T, B, 4H], and the gate gradients dpre (= d gates_x), with iW also d_x.
 They run the layer kernels' chains (csrc/lstm.cu).
 
-The forward recurrence (of `lstm_fwd` and `lstm_scan_fwd`) has two
+The forward recurrence (of `lstm_fwd` and `lstm_scan_fwd`) and the
+backward chain (of the three backwards and `lstm_scan_bwd`) each have two
 instances that compute the same values, the cluster instance and the L2
-one; `rnn_plan.rec_plan` picks one before the launch, by shape and by
-the clusters the card runs at once (`clusters_per_wave`), and each
-wrapper counts its launches per instance (`<wrapper>.by_instance`).  The
-keyword `instance=` forces one, for tests and chip_smoke.py only.
+one; `rnn_plan.rec_plan` (forward) and `rnn_plan.bwd_plan` (backward) pick
+one before the launch, by shape and by the clusters the card runs at once
+(`clusters_per_wave`), and each wrapper counts its launches per instance
+(`<wrapper>.by_instance`).  The keyword `instance=` forces one, for tests
+and chip_smoke.py only.
 
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
@@ -40,16 +42,13 @@ from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
 # the L2 instance of the forward and the backward chains run one thread per
 # hidden unit (csrc/lstm.cu)
 MAX_HIDDEN = rnn_plan.MAX_HIDDEN
-# batch rows per block of the recurrence kernels: d_b comes back as one
-# partial per tile of this many rows
-BATCH_TILE = 8
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 12 + [_P],
-               "tt_lstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
-               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 6 + [_P],
+               "tt_lstm_bwd": [_P] * 13 + [_I] * 13 + [_P],
+               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 12 + [_P],
                "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 10 + [_P],
                "tt_lstm_cluster_occupancy": [_I] * 6,
-               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 5 + [_P]}
+               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 11 + [_P]}
 # the forward's emit modes, in the order csrc/lstm.cu numbers them, and
 # the residuals each returns after h
 RESIDUALS = {None: (), "c": ("c",), "pre": ("c", "pre"),
@@ -150,8 +149,7 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
             cuda_lib.ptr(c), cuda_lib.ptr(acts), cuda_lib.ptr(tc),
             T, B, D, H, int(bool(reverse)), EMITS.index(emit),
             *rnn_plan.c_args(plan), cuda_lib.stream(x.device))
-        lstm_fwd.launches += 1
-        lstm_fwd.by_instance[plan.instance].launches += 1
+        rnn_plan.count(lstm_fwd, plan)
     cuda_lib.check(lib, err, "lstm_fwd kernel")
     return {None: h, "c": (h, c), "pre": (h, c, gx),
             "acts": (h, c, acts, tc)}[emit]
@@ -243,21 +241,29 @@ def _nsplit(rows):
     return max(1, min(32, rows // 2048))
 
 
-def bwd_outputs(T, B, D, G, H, dev):
-    """The outputs of a recurrent backward kernel with G gate rows, (d_x
-    [T, B, D], d_sW [nsplit, G, H], d_iW [nsplit, G, D], d_b [ceil(B/8),
-    G]), and nsplit."""
+def bwd_outputs(T, B, D, G, H, dev, plan):
+    """The outputs of a recurrent backward kernel with G gate rows on
+    `plan` (its chain's), (d_x [T, B, D], d_sW [nsplit, G, H], d_iW
+    [nsplit, G, D], d_b [ceil(B / plan.BT), G]), and nsplit."""
     nsplit = _nsplit(T * B)
     return (torch.empty(T, B, D, device=dev),
             torch.empty(nsplit, G, H, device=dev),
             torch.empty(nsplit, G, D, device=dev),
-            torch.empty(-(-B // BATCH_TILE), G, device=dev)), nsplit
+            torch.empty(-(-B // plan.BT), G, device=dev)), nsplit
+
+
+def _bwd_plan(H, B, device, instance):
+    """The backward chain's plan on `device` (`rnn_plan.bwd_plan` on the
+    card's clusters a wave)."""
+    return rnn_plan.bwd_plan(4, H, B, clusters_per_wave(device.index),
+                             instance)
 
 
 def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
-                     reverse):
+                     reverse, instance):
     """tt_lstm_bwd for the wrapper `fn`: the backward from stored acts and
-    tanh(c) (from_pre 0) or pre and c (from_pre 1)."""
+    tanh(c) (from_pre 0) or pre and c (from_pre 1), its chain on
+    `rnn_plan.bwd_plan`'s instance (or the forced `instance`)."""
     what = fn.__name__
     cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
@@ -269,48 +275,59 @@ def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
         ("c_prev", c_prev, (T, B, H)), ("h", h, (T, B, H)),
         ("x", x, (T, B, D)), ("sW", sW, (4 * H, H)), ("iW", iW, (4 * H, D))))
     _check_hidden(what, H)
+    plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         iwt = iW.t().contiguous()
         dpre = torch.empty(T, B, 4 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 4 * H, H, dev)
+        out, nsplit = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
         err = lib.tt_lstm_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(gates), cuda_lib.ptr(cs),
             cuda_lib.ptr(c_prev), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(sW), cuda_lib.ptr(iwt), cuda_lib.ptr(dpre),
             *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
-            from_pre, cuda_lib.stream(dev))
-        fn.launches += 1
+            from_pre, *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+        rnn_plan.count(fn, plan)
     cuda_lib.check(lib, err, what + " kernel")
     return out
 
 
-def lstm_bwd_acts(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False):
+def lstm_bwd_acts(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False,
+                  instance=None):
     """LSTM layer backward; contract of `lstm_bwd_acts_plain`, except that
     the kernel returns d_sW and d_iW as [nsplit, ...] partials over slices
-    of the T*B rows and d_b as [ceil(B/8), 4H] partials over batch tiles;
-    the caller sums them."""
+    of the T*B rows and d_b as [ceil(B / BT), 4H] partials over the chain
+    plan's batch tiles; the caller sums them.  `instance` ("cluster" or
+    "l2") forces an instance of the chain on the card, for tests and
+    timing; None takes `rnn_plan.bwd_plan`'s."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return lstm_bwd_acts_plain(dh, acts, tc, c_prev, h, x, sW, iW,
                                    reverse)
     return _lstm_bwd_stored(lstm_bwd_acts, 0, dh, acts, tc, c_prev, h, x,
-                            sW, iW, reverse)
+                            sW, iW, reverse, instance)
 
 
-def lstm_bwd_fusedw(dh, pre, c, c_prev, h, x, sW, iW, reverse=False):
+def lstm_bwd_fusedw(dh, pre, c, c_prev, h, x, sW, iW, reverse=False,
+                    instance=None):
     """LSTM layer backward from the stored pre-activations; contract of
-    `lstm_bwd_fusedw_plain`, with the partials of `lstm_bwd_acts`."""
+    `lstm_bwd_fusedw_plain`, with the partials and `instance` of
+    `lstm_bwd_acts`."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return lstm_bwd_fusedw_plain(dh, pre, c, c_prev, h, x, sW, iW,
                                      reverse)
     return _lstm_bwd_stored(lstm_bwd_fusedw, 1, dh, pre, c, c_prev, h, x,
-                            sW, iW, reverse)
+                            sW, iW, reverse, instance)
 
 
-def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False):
+def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
+                       instance=None):
     """LSTM layer backward rebuilding pre; contract of
-    `lstm_bwd_recompute_plain`, with the partials of `lstm_bwd_acts`."""
+    `lstm_bwd_recompute_plain`, with the partials and `instance` of
+    `lstm_bwd_acts`."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return lstm_bwd_recompute_plain(dh, c, h, x, sW, iW, b, reverse)
     what = "lstm_bwd_recompute"
@@ -322,20 +339,22 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False):
         ("x", x, (T, B, D)), ("sW", sW, (4 * H, H)), ("iW", iW, (4 * H, D)),
         ("b", b, (4 * H,))))
     _check_hidden(what, H)
+    plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         iwt = iW.t().contiguous()
         pre = torch.empty(T, B, 4 * H, device=dev)
         dpre = torch.empty(T, B, 4 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 4 * H, H, dev)
+        out, nsplit = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
         err = lib.tt_lstm_bwd_recompute(
             cuda_lib.ptr(dh), cuda_lib.ptr(c), cuda_lib.ptr(h),
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(sW), cuda_lib.ptr(iwt), cuda_lib.ptr(pre),
             cuda_lib.ptr(dpre), *map(cuda_lib.ptr, out), T, B, D, H,
-            int(bool(reverse)), nsplit, cuda_lib.stream(dev))
-        lstm_bwd_recompute.launches += 1
+            int(bool(reverse)), nsplit, *rnn_plan.c_args(plan),
+            cuda_lib.stream(dev))
+        rnn_plan.count(lstm_bwd_recompute, plan)
     cuda_lib.check(lib, err, what + " kernel")
     return out
 
@@ -379,8 +398,7 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
             cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(pre),
             cuda_lib.ptr(h), cuda_lib.ptr(c), T, B, H, int(bool(reverse)),
             *rnn_plan.c_args(plan), cuda_lib.stream(dev))
-        lstm_scan_fwd.launches += 1
-        lstm_scan_fwd.by_instance[plan.instance].launches += 1
+        rnn_plan.count(lstm_scan_fwd, plan)
     cuda_lib.check(lib, err, what + " kernel")
     return (h, c, pre) if residuals else h
 
@@ -395,9 +413,11 @@ def lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse=False, iW=None):
     return dpre if iW is None else (dpre, torch.matmul(dpre, iW))
 
 
-def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None):
+def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
+                  instance=None):
     """The LSTM gradient chain on given gates (kernel 15); contract of
-    `lstm_scan_bwd_plain`."""
+    `lstm_scan_bwd_plain`.  `instance` as `lstm_bwd_acts`'s."""
+    rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
         return lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse, iW)
     what = "lstm_scan_bwd"
@@ -411,19 +431,21 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None):
         specs.append(("iW", iW, (4 * H, D)))
     _check_args(what, dh.device, specs)
     _check_hidden(what, H)
+    plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         iwt = None if iW is None else iW.t().contiguous()
         dpre = torch.empty(T, B, 4 * H, device=dev)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
-        db = torch.empty(-(-B // BATCH_TILE), 4 * H, device=dev)
+        db = torch.empty(-(-B // plan.BT), 4 * H, device=dev)
         err = lib.tt_lstm_scan_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(pre), cuda_lib.ptr(c),
             cuda_lib.ptr(c_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
             cuda_lib.ptr(dpre), cuda_lib.ptr(d_x), cuda_lib.ptr(db), T, B,
-            D, H, int(bool(reverse)), cuda_lib.stream(dev))
-        lstm_scan_bwd.launches += 1
+            D, H, int(bool(reverse)), *rnn_plan.c_args(plan),
+            cuda_lib.stream(dev))
+        rnn_plan.count(lstm_scan_bwd, plan)
     cuda_lib.check(lib, err, what + " kernel")
     return dpre if iW is None else (dpre, d_x)
 
@@ -448,11 +470,7 @@ def clusters_per_wave(index):
         return rnn_plan.clusters_per_wave(cluster_occupancy)
 
 
-lstm_fwd.launches = 0
-lstm_fwd.by_instance = rnn_plan.instance_counters()
-lstm_scan_fwd.launches = 0
-lstm_scan_fwd.by_instance = rnn_plan.instance_counters()
-lstm_scan_bwd.launches = 0
-lstm_bwd_acts.launches = 0
-lstm_bwd_fusedw.launches = 0
-lstm_bwd_recompute.launches = 0
+for _fn in (lstm_fwd, lstm_scan_fwd, lstm_scan_bwd, lstm_bwd_acts,
+            lstm_bwd_fusedw, lstm_bwd_recompute):
+    _fn.launches = 0
+    _fn.by_instance = rnn_plan.instance_counters()

@@ -1,29 +1,31 @@
-"""The launch plan of the forward recurrences (kernel 2 of csrc/lstm.cu and
-csrc/gru.cu): which of their two instances runs a layer of `gates` gate
-rows per hidden unit (4 for the LSTM, 3 for the GRU), H units and B batch
-rows, and on how many CTAs.  The plan is fixed by the shape and by how
-many clusters of each size the card runs at once (read from the card once,
+"""The launch plans of the recurrences (kernels 2 and 3 of csrc/lstm.cu
+and csrc/gru.cu): which of their two instances runs a layer of `gates`
+gate rows per hidden unit (4 for the LSTM, 3 for the GRU), H units and B
+batch rows, and on how many CTAs; `rec_plan` for the forward, `bwd_plan`
+for the backward chain.  A plan is fixed by the shape and by how many
+clusters of each size the card runs at once (read from the card once,
 `clusters_per_wave`), before the launch; nothing on the path changes it
 after a failure.
 
 The instances compute the same values (csrc/rec_cluster.cuh):
 - "cluster": a thread-block cluster of C CTAs walks each tile of BT batch
-  rows; each CTA keeps the sW^T slice of its ceil(H / C) units in shared
-  memory for the whole launch and receives h from the others through
-  distributed shared memory.  Taken wherever the slice, the h buffers and
-  the gate ring fit in one CTA's 232,448 bytes with C <= 16: every width
-  the repo's models and tests use (16, 96, 256, 384) and odd widths up to
-  about 450.
-- "l2": one block per tile of 8 rows, sW^T read again from L2 at every
+  rows; each CTA keeps the sW slice of its ceil(H / C) units in shared
+  memory for the whole launch and exchanges h (forward) or its partial
+  dh_prev (backward) with the others through distributed shared memory.
+  Taken wherever the slice, the exchange buffers and the ring fit in one
+  CTA's 232,448 bytes with C <= 16: every width the repo's models and
+  tests use (16, 96, 256, 384) and odd widths up to about 450.
+- "l2": one block per tile of 8 rows, sW read again from L2 at every
   step: for the rest (up to MAX_HIDDEN = 512, where an LSTM needs 4 MB of
-  sW^T, 262 KB a CTA even at C = 16).
+  sW, 262 KB a CTA even at C = 16).
 
 Among the cluster plans that fit (C ranks, BT rows a tile, RB rows a
-lane in the product, KS slices of its sum over k): one CTA per SM, the
+lane in the product, and KS slices of the forward's sum over k, or KL
+output units a lane of the backward's product): one CTA per SM, the
 fewest waves of clusters (as many clusters of each size as the card runs
 at once, `per_wave`, which the wrappers read from the card), then the
-most SMs busy, then the least modelled step time (`step_cycles`), then
-the smaller cluster.
+most SMs busy, then the least modelled step time (`step_cycles`,
+`bwd_step_cycles`), then the smaller cluster.
 """
 
 import collections
@@ -55,7 +57,24 @@ EXCHANGE_RANK_CYCLES = 100
 TOP_CYCLES = 450
 SYNC_CYCLES = 100
 CELL_CYCLES = {4: 1150, 3: 950}
+# the backward's, from the same probe: one cell of a thread (its
+# activations' derivatives and stores, LSTM and GRU), each rank's partial
+# its sum reads, and the top of a step (the wait for the ring)
+BWD_CELL_CYCLES = {4: 600, 3: 1000}
+SUM_RANK_CYCLES = 25
+BWD_TOP_CYCLES = 100
+# the stall a unit of a warp's product costs beside its instructions where
+# too few warps hide it (the probe: ~120 cycles a unit at 2 warps)
+BWD_LATENCY_CYCLES = 55
+# output units a lane in the backward's product: the kernels are
+# instantiated for these (rec_with_rb_kl of csrc/rec_cluster.cuh)
+UNITS_A_LANE = (1, 2)
+# words of a cell's inputs in the backward's ring (acts or pre, tc or c,
+# c_prev and dh; gx, gh, h_prev and dh)
+BWD_RING = {4: 7, 3: 8}
 
+# a backward plan's KS field holds KL, the output units a lane of its
+# product (the backward does not split its sum)
 Plan = collections.namedtuple("Plan", "instance C BT RB KS smem")
 
 
@@ -135,6 +154,61 @@ def clusters_per_wave(occupancy):
     return tuple(occupancy(*probe_plan(C)) for C in CLUSTER_SIZES)
 
 
+def bwd_smem(gates, H, C, BT):
+    """Bytes of shared memory of one CTA of the backward's cluster
+    instance: two mbarriers, the own cells' gate gradients [BT][U][4], the
+    partials received [2][C][U][BT] and made [2][C U][BT], the own gate
+    rows of sW [U][gates][H] and the ring of the next step's inputs
+    [BT][U][BWD_RING], U = ceil(H / C)."""
+    U = -(-H // C)
+    return (16 + 16 * BT * U + 16 * C * U * BT + 4 * gates * H * U
+            + 4 * BWD_RING[gates] * BT * U)
+
+
+def bwd_warps(H, BT, RB, KL):
+    """Warps of a backward CTA: one a group of 32 KL output units and row
+    group of RB rows."""
+    return -(-H // (32 * KL)) * (BT // RB)
+
+
+def bwd_cluster_fits(gates, H, C, BT, RB, KL):
+    """Whether the backward's cluster instance takes C ranks, BT rows a
+    tile, RB rows and KL output units a lane for H units: the forward's
+    rules, with the backward's warps and shared memory."""
+    if H < 1 or C not in CLUSTER_SIZES or RB not in ROWS_A_LANE \
+            or KL not in UNITS_A_LANE or not RB <= BT <= MAX_BATCH_TILE \
+            or BT % RB:
+        return False
+    U = -(-H // C)
+    nw = bwd_warps(H, BT, RB, KL)
+    return (-(-H // U) == C and nw <= MAX_WARPS
+            and U * BT <= MAX_CELLS * 32 * nw and U * BT % 4 == 0
+            and bwd_smem(gates, H, C, BT) <= SMEM_LIMIT)
+
+
+def bwd_step_cycles(gates, H, C, BT, RB, KL):
+    """Modelled cycles of one backward step of a cluster plan on one SM
+    (csrc/rec_cluster.cuh): the product over the own U units, its issue
+    (KL G weight loads, RB dS loads and KL G RB fmaf a unit, ceil(nw / 4)
+    warps a scheduler) plus its shared-memory reads (KL G wavefronts of
+    weights and RB broadcasts a unit of each warp): probes/rec_phases.cu
+    finds the two barely overlap.  With few warps the product is
+    latency-bound instead: a unit of one warp's instructions plus
+    BWD_LATENCY_CYCLES each.  Then the exchange, the cells with their sums
+    over C partials, the step's top and two barriers."""
+    U = -(-H // C)
+    nw = bwd_warps(H, BT, RB, KL)
+    per_unit = KL * gates + RB + KL * gates * RB
+    issue = U * per_unit * -(-nw // 4)
+    reads = nw * U * (KL * gates + RB)
+    latency = U * (BWD_LATENCY_CYCLES + per_unit)
+    exchange = EXCHANGE_CYCLES + C * EXCHANGE_RANK_CYCLES
+    cells = ((BWD_CELL_CYCLES[gates] + C * SUM_RANK_CYCLES)
+             * -(-(U * BT) // (32 * nw)))
+    return (max(issue + reads, latency) + exchange + cells + BWD_TOP_CYCLES
+            + 2 * SYNC_CYCLES)
+
+
 @functools.lru_cache(maxsize=None)
 def cluster_plans(gates, H):
     """Every (C, BT, RB, KS) the cluster instance takes for H units."""
@@ -146,6 +220,50 @@ def cluster_plans(gates, H):
 
 
 @functools.lru_cache(maxsize=None)
+def bwd_cluster_plans(gates, H):
+    """Every (C, BT, RB, KL) the backward's cluster instance takes for H
+    units."""
+    return tuple((C, BT, RB, KL) for C in CLUSTER_SIZES
+                 for RB in ROWS_A_LANE
+                 for BT in range(RB, MAX_BATCH_TILE + 1, RB)
+                 for KL in UNITS_A_LANE
+                 if bwd_cluster_fits(gates, H, C, BT, RB, KL))
+
+
+def _pick(what, gates, H, B, per_wave, instance, plans, cost, smem,
+          l2_smem):
+    """The plan among `plans` (C, BT, RB, KS) on the fewest waves, then
+    the most SMs busy, then the least nwave * cost(C, BT, RB, KS), then
+    the smaller cluster; else the L2 instance (l2_smem bytes)."""
+    check_instance(instance)
+    if gates not in (3, 4):
+        raise ValueError(what + ": gates must be 3 (GRU) or 4 (LSTM)")
+    if not 1 <= H <= MAX_HIDDEN:
+        raise ValueError("{}: hidden size {} is not in 1..{}".format(
+            what, H, MAX_HIDDEN))
+    if len(per_wave) != len(CLUSTER_SIZES):
+        raise ValueError("{}: per_wave needs a count for each of the "
+                         "cluster sizes {}".format(what, CLUSTER_SIZES))
+    if instance in (None, "cluster"):
+        best = None
+        for C, BT, RB, KS in plans:
+            if per_wave[CLUSTER_SIZES.index(C)] < 1:
+                continue
+            nwave, busy = waves(C, B, BT, per_wave)
+            key = (nwave, -busy, nwave * cost(C, BT, RB, KS), C, BT, RB, KS)
+            if best is None or key < best[0]:
+                best = (key, Plan("cluster", C, BT, RB, KS,
+                                  smem(C, BT, KS)))
+        if best is not None:
+            return best[1]
+    if instance == "cluster":
+        raise ValueError("{}: the cluster instance does not fit H={} "
+                         "(shared memory over {} bytes at every cluster "
+                         "size the card runs)".format(what, H, SMEM_LIMIT))
+    return Plan("l2", 1, L2_BATCH_TILE, 1, 1, l2_smem)
+
+
+@functools.lru_cache(maxsize=None)
 def rec_plan(gates, H, B, per_wave, instance=None):
     """The plan of a forward recurrence: Plan(instance, C, BT, RB, KS,
     smem), on a card that runs per_wave[i] clusters of CLUSTER_SIZES[i]
@@ -154,34 +272,27 @@ def rec_plan(gates, H, B, per_wave, instance=None):
     else the L2 one; "cluster" or "l2" forces one (tests and chip_smoke.py
     only, to time the two at one shape), raising ValueError where it
     cannot run."""
-    check_instance(instance)
-    if gates not in (3, 4):
-        raise ValueError("rec_plan: gates must be 3 (GRU) or 4 (LSTM)")
-    if not 1 <= H <= MAX_HIDDEN:
-        raise ValueError("rec_plan: hidden size {} is not in 1..{}".format(
-            H, MAX_HIDDEN))
-    if len(per_wave) != len(CLUSTER_SIZES):
-        raise ValueError("rec_plan: per_wave needs a count for each of the "
-                         "cluster sizes {}".format(CLUSTER_SIZES))
-    if instance in (None, "cluster"):
-        best = None
-        for C, BT, RB, KS in cluster_plans(gates, H):
-            if per_wave[CLUSTER_SIZES.index(C)] < 1:
-                continue
-            nwave, busy = waves(C, B, BT, per_wave)
-            key = (nwave, -busy,
-                   nwave * step_cycles(gates, H, C, BT, RB, KS), C, BT, RB,
-                   KS)
-            if best is None or key < best[0]:
-                best = (key, Plan("cluster", C, BT, RB, KS,
-                                  cluster_smem(H, C, BT, KS)))
-        if best is not None:
-            return best[1]
-    if instance == "cluster":
-        raise ValueError("rec_plan: the cluster instance does not fit H={} "
-                         "(shared memory over {} bytes at every cluster "
-                         "size the card runs)".format(H, SMEM_LIMIT))
-    return Plan("l2", 1, L2_BATCH_TILE, 1, 1, 8 * H * L2_BATCH_TILE)
+    return _pick("rec_plan", gates, H, B, per_wave, instance,
+                 cluster_plans(gates, H) if gates in (3, 4) else (),
+                 lambda C, BT, RB, KS: step_cycles(gates, H, C, BT, RB, KS),
+                 lambda C, BT, KS: cluster_smem(H, C, BT, KS),
+                 8 * H * L2_BATCH_TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(gates, H, B, per_wave, instance=None):
+    """The plan of a backward chain, as `rec_plan` (the same keys and
+    `instance`), with the backward's footprint (`bwd_smem`) and step model
+    (`bwd_step_cycles`); its KS field holds KL, the output units a lane
+    (1 for the L2 instance).  The L2 instance keeps its gate gradients of
+    8 rows double-buffered: 8 gates H 8 bytes.  d_b comes back as
+    ceil(B / BT) partials."""
+    return _pick("bwd_plan", gates, H, B, per_wave, instance,
+                 bwd_cluster_plans(gates, H) if gates in (3, 4) else (),
+                 lambda C, BT, RB, KL: bwd_step_cycles(gates, H, C, BT, RB,
+                                                       KL),
+                 lambda C, BT, KL: bwd_smem(gates, H, C, BT),
+                 8 * gates * H * L2_BATCH_TILE)
 
 
 def check_instance(instance):
@@ -197,17 +308,20 @@ def c_args(plan):
             plan.KS, plan.smem)
 
 
-def describe(plan, H, B, per_wave):
-    """One line for a log: instance, cluster, tiles, CTAs and bytes."""
+def describe(plan, H, B, per_wave, backward=False):
+    """One line for a log: instance, cluster, tiles, CTAs and bytes (of a
+    backward plan with `backward`)."""
     if plan.instance == "l2":
-        return "l2 (one block per {} rows: {} blocks, sW^T from L2)".format(
+        return "l2 (one block per {} rows: {} blocks, sW from L2)".format(
             plan.BT, -(-B // plan.BT))
     nwave, busy = waves(plan.C, B, plan.BT, per_wave)
-    return ("cluster C={} BT={} RB={} KS={} ({} units, {} warps a CTA): {} "
+    nw = (bwd_warps(H, plan.BT, plan.RB, plan.KS) if backward
+          else warps(H, plan.C, plan.BT, plan.RB, plan.KS))
+    return ("cluster C={} BT={} RB={} {}={} ({} units, {} warps a CTA): {} "
             "CTAs, {} SMs busy, {} wave(s), {} B shared memory a CTA".format(
-                plan.C, plan.BT, plan.RB, plan.KS, -(-H // plan.C),
-                warps(H, plan.C, plan.BT, plan.RB, plan.KS),
-                plan.C * -(-B // plan.BT), busy, nwave, plan.smem))
+                plan.C, plan.BT, plan.RB, "KL" if backward else "KS",
+                plan.KS, -(-H // plan.C), nw, plan.C * -(-B // plan.BT),
+                busy, nwave, plan.smem))
 
 
 class Launches:
@@ -221,3 +335,10 @@ class Launches:
 def instance_counters():
     """{instance: Launches()}, one counter per instance."""
     return {k: Launches() for k in INSTANCES}
+
+
+def count(fn, plan):
+    """One launch of the wrapper `fn` (its `launches` and `by_instance`
+    counters), on `plan`'s instance."""
+    fn.launches += 1
+    fn.by_instance[plan.instance].launches += 1

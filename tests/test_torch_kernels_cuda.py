@@ -28,7 +28,10 @@ the whole layers through autograd.  The shapes include H=384, the JAX
 trainer's default size, on a batch that is not a multiple of 8.  The
 forward recurrences' cluster instance (the plan's choice at every width
 below ~450) against the forced L2 instance: 1e-4 (it sums over k in
-slices; the L2 instance, still taken at H=512, in one chain).
+slices; the L2 instance, still taken at H=512, in one chain).  The
+backward chains' cluster instance against its twins and the forced L2
+instance: 1e-4 relative, as the backwards (each unit's partials summed
+in rank order).
 """
 
 import math
@@ -899,3 +902,172 @@ def test_cluster_kernel_refuses_a_bad_plan(dev, monkeypatch):
                         lambda *a, **k: odd._replace(RB=2))
     got = lstm.lstm_fwd(*args)
     assert (got - lstm.lstm_fwd_plain(*args)).abs().max().item() < 1e-4
+
+
+# The backward chains' cluster instance (ops/rnn_plan.py `bwd_plan`,
+# kernel 3a of csrc/lstm.cu and csrc/gru.cu), which every backward above
+# already takes by default: here each of the seven rows (kernels 4, 11,
+# 12, 15; 8, 13, 17) at H of 16, 17, 96, 100, 256 and 384, both
+# directions, T=1, B below the plan's tile (H=384, B=5: BT=10) and B not a
+# multiple of it, against the twins and the forced L2 instance, d_b
+# summed over its per-tile partials (ceil(B / BT) of them).  The cluster
+# instance sums each unit's C partials in rank order, the L2 one over all
+# gates in one chain: within 1e-4 relative of each other, as of the twins.
+BWD_SHAPES = [(37, 13, 7, 16), (19, 24, 12, 17), (1, 9, 32, 96),
+              (60, 3, 40, 96), (300, 64, 96, 96), (40, 21, 100, 100),
+              (50, 37, 64, 256), (200, 128, 256, 256), (12, 5, 32, 384),
+              (30, 128, 96, 384), (24, 341, 384, 384)]
+
+
+def _bwd_plan(gates, H, B):
+    """The backward plan the wrappers take on this card."""
+    mod = lstm if gates == 4 else gru
+    return rnn_plan.bwd_plan(gates, H, B, mod.clusters_per_wave(
+        torch.cuda.current_device()))
+
+
+def _lstm_bwd_rows(shape, reverse, dev):
+    """(wrapper, twin, args, keywords) of kernels 4, 11, 12 and 15 on one
+    layer's residuals."""
+    T, B, D, H = shape
+    x, iW, b, sW = (a.to(dev) for a in _lstm_inputs(*shape))
+    h, c, acts, tc = lstm.lstm_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                         emit="acts")
+    pre = lstm.lstm_fwd_plain(x, iW, b, sW, reverse=reverse, emit="pre")[2]
+    dh = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(T, B, H)).astype(np.float32)).to(dev)
+    c_prev = lstm.prev_state(c, reverse)
+    return [(lstm.lstm_bwd_acts, lstm.lstm_bwd_acts_plain,
+             (dh, acts, tc, c_prev, h, x, sW, iW), {}),
+            (lstm.lstm_bwd_fusedw, lstm.lstm_bwd_fusedw_plain,
+             (dh, pre, c, c_prev, h, x, sW, iW), {}),
+            (lstm.lstm_bwd_recompute, lstm.lstm_bwd_recompute_plain,
+             (dh, c, h, x, sW, iW, b), {}),
+            (lstm.lstm_scan_bwd, lstm.lstm_scan_bwd_plain,
+             (dh, pre, c, c_prev, sW), {"iW": iW})]
+
+
+def _gru_bwd_rows(shape, reverse, dev):
+    """(wrapper, twin, args, keywords) of kernels 8 (in place over its
+    rebuilt gate streams), 13 and 17 on one layer's residuals."""
+    x, iW, b, sW, dh = (a.to(dev) for a in _gru_inputs(*shape))
+    h, gh, gx = gru.gru_fwd_plain(x, iW, b, sW, reverse=reverse,
+                                  emit_residuals=True)
+    h_prev = lstm.prev_state(h, reverse)
+    return [(gru.gru_bwd_recompute, gru.gru_bwd_recompute_plain,
+             (dh, h, x, sW, iW, b), {}),
+            (gru.gru_bwd_fusedw, gru.gru_bwd_fusedw_plain,
+             (dh, gx, gh, h_prev, x, sW, iW), {}),
+            (gru.gru_scan_bwd, gru.gru_scan_bwd_plain,
+             (dh, gx, gh, h_prev, sW), {"iW": iW})]
+
+
+def _check_bwd_row(fn, plain, args, kw, reverse, B, plan):
+    """The row on the plan's instance against its twin and the forced L2
+    instance; its inputs left as they were; one launch of each instance."""
+    kept = [a.clone() for a in args]
+    want = plain(*args, reverse=reverse, **kw)
+    n = _counts(fn)
+    got = fn(*args, reverse=reverse, **kw)
+    l2 = fn(*args, reverse=reverse, instance="l2", **kw)
+    torch.cuda.synchronize()
+    assert _counts(fn) == {"cluster": n["cluster"] + 1, "l2": n["l2"] + 1}
+    assert all(torch.equal(a, k) for a, k in zip(args, kept))
+    if "scan" in fn.__name__:
+        for g, w, l in zip(got, want, l2):
+            assert g.shape == w.shape
+            assert _rel_err(g, w) < 1e-4 and _rel_err(g, l) < 1e-4
+    else:
+        assert got[3].shape[0] == -(-B // plan.BT)
+        assert l2[3].shape[0] == -(-B // 8)
+        _check_partials(got, want)
+        _check_partials(got, l2)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_lstm_bwd_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
+    """Kernels 4, 11, 12 and 15 on the backward's cluster plan."""
+    plan = _bwd_plan(4, shape[3], shape[1])
+    assert plan.instance == "cluster"
+    for row in _lstm_bwd_rows(shape, reverse, dev):
+        _check_bwd_row(*row, reverse, shape[1], plan)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_gru_bwd_cluster_instance_matches_twin_and_l2(dev, shape, reverse):
+    """Kernels 8, 13 and 17 on the backward's cluster plan; kernel 8 writes
+    its gradients over the gate streams it rebuilds."""
+    plan = _bwd_plan(3, shape[3], shape[1])
+    assert plan.instance == "cluster"
+    for row in _gru_bwd_rows(shape, reverse, dev):
+        _check_bwd_row(*row, reverse, shape[1], plan)
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bwd_tile_past_the_batch(dev, cell, monkeypatch):
+    """The plan of the training shape (C=8, BT=18 at H=256) on batches
+    below and past one tile (7 and 37 rows, a ragged last tile), both
+    directions, against the twins."""
+    G = 4 if cell == "lstm" else 3
+    plan = _bwd_plan(G, 256, 256)
+    assert (plan.instance, plan.C, plan.BT) == ("cluster", 8, 18)
+    monkeypatch.setattr(rnn_plan, "bwd_plan", lambda *a, **k: plan)
+    rows = _lstm_bwd_rows if cell == "lstm" else _gru_bwd_rows
+    for B in (7, 37):
+        for reverse in (False, True):
+            for fn, plain, args, kw in rows((9, B, 24, 256), reverse, dev):
+                got = fn(*args, reverse=reverse, **kw)
+                want = plain(*args, reverse=reverse, **kw)
+                torch.cuda.synchronize()
+                if "scan" in fn.__name__:
+                    for g, w in zip(got, want):
+                        assert _rel_err(g, w) < 1e-4
+                else:
+                    assert got[3].shape[0] == -(-B // 18)
+                    _check_partials(got, want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bwd_at_512(dev, reverse):
+    """H=512: the LSTM's chain fits no cluster plan (its gate rows of 32
+    units take 256 KB) and takes the L2 instance, counted as such; the
+    GRU's three rows of 32 units (192 KB) fit at C=16, and its cluster
+    plan is held against the twins and the forced L2 instance."""
+    shape = (20, 9, 64, 512)
+    assert _bwd_plan(4, 512, 9).instance == "l2"
+    for fn, plain, args, kw in _lstm_bwd_rows(shape, reverse, dev):
+        n = _counts(fn)
+        got = fn(*args, reverse=reverse, **kw)
+        want = plain(*args, reverse=reverse, **kw)
+        torch.cuda.synchronize()
+        assert _counts(fn) == dict(n, l2=n["l2"] + 1)
+        if "scan" in fn.__name__:
+            for g, w in zip(got, want):
+                assert _rel_err(g, w) < 1e-4
+        else:
+            _check_partials(got, want)
+    plan = _bwd_plan(3, 512, 9)
+    assert plan.instance == "cluster" and plan.C == 16
+    for row in _gru_bwd_rows(shape, reverse, dev):
+        _check_bwd_row(*row, reverse, 9, plan)
+
+
+def test_bwd_cluster_kernel_refuses_a_bad_plan(dev, monkeypatch):
+    """The backward entry points check the plan they are given before any
+    launch: a byte count that is not the layout's, rows a lane with no
+    instance (3, 11), a tile past 32 rows or 3 output units a lane raise;
+    the same plan runs."""
+    fn, plain, args, kw = _lstm_bwd_rows((5, 8, 16, 32), False, dev)[0]
+    good = _bwd_plan(4, 32, 8)
+    assert good.instance == "cluster"
+    for bad in (good._replace(smem=good.smem + 16), good._replace(RB=11),
+                good._replace(RB=3), good._replace(BT=33),
+                good._replace(KS=3)):
+        monkeypatch.setattr(rnn_plan, "bwd_plan",
+                            lambda *a, _p=bad, **k: _p)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            fn(*args, **kw)
+    monkeypatch.setattr(rnn_plan, "bwd_plan", lambda *a, **k: good)
+    _check_partials(fn(*args, **kw), plain(*args, **kw))
