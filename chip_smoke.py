@@ -105,13 +105,24 @@ card; run from the root of a checkout:
    a lattice of 20000 positions (T=20100, B=1) through the cat_mod loss
    and kernels 9-10 against their twins there: the kernels' instance
    that keeps the lattice vector in device memory.
-9. A `kernels` JSON line (17 rows), the card line, and the result line
+9. The two GEMMs under the layers (ops/gemm.py): each product
+   at the layers' shapes (GEMM_CASES: gx, d_x and d_iW/d_sW of the mLstm
+   and mGru training steps and of the trainer defaults' 341 x 600 batch,
+   the basecall batch's gx, the remap model's width H=96) on its plan's
+   tc instance (3xTF32 on the tensor cores) and on the forced simt
+   instance, each within 1e-5 of the largest output of its twin
+   (torch.matmul on the card, TF32 off), with its largest error against
+   an f64 product, timed beside the twin (also its library call); every
+   training and basecall path must have run all its GEMMs on the tc
+   instance (counted by instance, as the recurrences are).
+10. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows), the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Every kernel counter is set to 0 just before each path and read just
 after; the recurrences (the forwards and the backward chains) also count
 their cluster instance's launches, which on every path must be all of
-them.  Exits non-zero, printing no result line, if there is no card or
+them, and the GEMMs their tc instance's, likewise.  Exits non-zero, printing no result line, if there is no card or
 any phase fails.  Imports nothing of JAX.
 """
 
@@ -127,9 +138,10 @@ import time
 
 import numpy as np
 
-# Published peaks of one H100 SXM (dense): f32 outside the tensor cores and
-# device-memory bandwidth.
+# Published peaks of one H100 SXM (dense): f32 outside the tensor cores,
+# TF32 on them, and device-memory bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 T, B, H, NBASE = 1000, 128, 256, 4
 # production training shape (misc/rnn_roofline.py, misc/crf_fusion_probe.py)
@@ -228,9 +240,13 @@ def max_abs_diff(a, b):
     return d.masked_fill(a == b, 0.0).max().item()
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, tc_flops=0):
+    """The least time for `nbytes` moved and `flops` f32 operations at the
+    SIMT rate, plus `tc_flops` of GEMMs on the tc instance (3xTF32: three
+    TF32 passes at the tensor cores' rate): (ms, "bytes" or
+    "operations")."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + 3 * tc_flops / PEAK_TF32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -322,8 +338,10 @@ def check_lstm(torch, dev, rng):
         lib_err = (lib_h - lstm.lstm_fwd(x, iW, b, sW)).abs().max().item()
         library_ms = cuda_ms(torch, lambda: ref(x), reps=5)
     nbytes = 4 * (T * B * D + 4 * H * D + 4 * H + 4 * H * H + T * B * H)
-    flops = 2 * T * B * 4 * H * (D + H)
-    bound, by = bound_ms(nbytes, flops)
+    # the recurrence's product at the f32 rate, the input GEMM on the tc
+    # instance
+    bound, by = bound_ms(nbytes, 2 * T * B * 4 * H * H,
+                         2 * T * B * 4 * H * D)
     l2_diff, l2_ms = against_l2(torch, lstm.lstm_fwd, 2, x, iW, b, sW)
     _, plan = plan_of("lstm", H, B)
     say("lstm_fwd   T={} B={} D=H={}: max|err| {:.3g} (tol {}), kernel "
@@ -515,20 +533,23 @@ def check_lstm_train(torch, dev, rng):
     nbh = 4 * TT * TB * H
     nw = 4 * 4 * H * (D + H + 1)
     x_bytes = 4 * TT * TB * D
-    f_flops = 2 * TT * TB * 4 * H * (D + H)
+    # one 4H x k product over the T B rows
+    one = 2 * TT * TB * 4 * H
     # streams written beside h, in [T, B, H] units
     f_out = {"acts": 1 + 4 + 1, "pre": 1 + 4, "c": 1}
-    f_bound = {e: bound_ms(x_bytes + nw + (1 + f_out[e]) * nbh, f_flops)
+    f_bound = {e: bound_ms(x_bytes + nw + (1 + f_out[e]) * nbh, one * H,
+                           one * D)
                for e in emits}
-    # the chain and d_sW (4H x H each), d_x and d_iW (4H x D each); the
-    # rebuilding backward adds x iW^T and h_prev sW^T
-    b_flops = 2 * TT * TB * 4 * H * (2 * H + 2 * D)
+    # the chain (4H x H, f32 rate); d_sW (4H x H), d_x and d_iW (4H x D
+    # each) on the tc instance; the rebuilding backward adds x iW^T and
+    # h_prev sW^T
     stored_bytes = 8 * nbh + 2 * x_bytes + 2 * nw
     b_bound = {
-        "lstm_bwd_acts": bound_ms(stored_bytes, b_flops),
-        "lstm_bwd_fusedw": bound_ms(stored_bytes, b_flops),
+        "lstm_bwd_acts": bound_ms(stored_bytes, one * H, one * (H + 2 * D)),
+        "lstm_bwd_fusedw": bound_ms(stored_bytes, one * H,
+                                    one * (H + 2 * D)),
         "lstm_bwd_recompute": bound_ms(3 * nbh + 2 * x_bytes + 2 * nw,
-                                       2 * TT * TB * 4 * H * (3 * H + 3 * D))}
+                                       one * H, one * (2 * H + 3 * D))}
     _, plan = plan_of("lstm", H, TB)
     _, bplan = plan_of("lstm", H, TB, backward=True)
     for e in emits:
@@ -863,8 +884,10 @@ def _torch_gru(torch, dev, x, iW, b, sW):
 
 
 def _gru_fwd_bound(t, b, d, h):
+    """The recurrence's product at the f32 rate, the input GEMM on the tc
+    instance."""
     return bound_ms(4 * (t * b * d + 3 * h * (d + h + 1) + t * b * h),
-                    2 * t * b * (d + h) * 3 * h)
+                    2 * t * b * h * 3 * h, 2 * t * b * d * 3 * h)
 
 
 def check_gru(torch, dev, rng):
@@ -990,14 +1013,17 @@ def check_gru_train(torch, dev, rng):
     # gh and gx written beside h: six more [T, B, H] streams
     f_bound[True] = bound_ms(
         4 * (GT * TB * H + 3 * H * (2 * H + 1) + 7 * GT * TB * H),
-        2 * GT * TB * 2 * H * 3 * H)
+        2 * GT * TB * H * 3 * H, 2 * GT * TB * H * 3 * H)
     nw = 4 * (2 * 3 * H * 2 * H + 2 * 3 * H)
     one = 2 * GT * TB * 3 * H * H
     b_bound = {
-        # gx and gh rebuilt, the dh chain, d_x, d_iW, d_sW: six products
-        "gru_bwd_recompute": bound_ms(4 * 4 * GT * TB * H + nw, 6 * one),
+        # gx and gh rebuilt, d_x, d_iW, d_sW on the tc instance, the dh
+        # chain at the f32 rate: six products
+        "gru_bwd_recompute": bound_ms(4 * 4 * GT * TB * H + nw, one,
+                                      5 * one),
         # dh, gx, gh, h_prev, x in, d_x out: four products
-        "gru_bwd_fusedw": bound_ms(4 * 10 * GT * TB * H + nw, 4 * one)}
+        "gru_bwd_fusedw": bound_ms(4 * 10 * GT * TB * H + nw, one,
+                                   3 * one)}
     _, plan = plan_of("gru", H, TB)
     _, bplan = plan_of("gru", H, TB, backward=True)
     for res in (False, True):
@@ -1049,7 +1075,7 @@ def _scan_bounds(G, t, b, h, d):
         fwd_bytes = 2 * gates + state + w
         bwd_bytes = 4 * gates + 2 * state + w
     return (bound_ms(fwd_bytes, flops), bound_ms(bwd_bytes, flops),
-            bound_ms(bwd_bytes + dx[1], flops + dx[0]))
+            bound_ms(bwd_bytes + dx[1], flops, dx[0]))
 
 
 def check_scan(torch, dev, rng):
@@ -1430,7 +1456,8 @@ def check_defaults_fwd(torch, dev, rng):
         library_ms = cuda_ms(torch, lambda: ref(xr), reps=3)
         nbh = 4 * t * b * h
         bound, by = bound_ms(4 * t * b * d + 4 * 4 * h * (d + h + 1)
-                             + 7 * nbh, 2 * t * b * 4 * h * (d + h))
+                             + 7 * nbh, 2 * t * b * 4 * h * h,
+                             2 * t * b * 4 * h * d)
         say("lstm_fwd(acts) T={} B={} D=H={} (trainer defaults, {} samples "
             "a chunk): max|err| {:.3g} (tol 1e-4, both directions), kernel "
             "{:.3f} ms, plain {:.3f} ms, torch.nn.LSTM forward with grad "
@@ -1444,6 +1471,135 @@ def check_defaults_fwd(torch, dev, rng):
         del x, iW, bias, sW, ref, xr
         torch.cuda.empty_cache()
     return out
+
+
+# The two GEMMs at the layers' shapes: (cell, product, kind, (M, N, K) of a
+# gate product or (N1, N2, K rows) of an atb one, the path whose launches
+# the row reports, if one runs it): the mLstm and mGru training steps, the
+# trainer defaults' largest sub-batch (size 384, 341 chunks x T=600), the
+# mLstm basecall batch and the remap model's width (H=96, T=1000, B=256)
+GEMM_CASES = (
+    ("mLstm training", "gx", "gate", (TT * TB, 4 * H, H), "mLstm training"),
+    ("mLstm training", "d_x", "gate", (TT * TB, H, 4 * H), "mLstm training"),
+    ("mLstm training", "d_iW, d_sW", "atb", (4 * H, H, TT * TB),
+     "mLstm training"),
+    ("mGru training", "gx, gh", "gate", (GT * TB, 3 * H, H),
+     "mGru training"),
+    ("mGru training", "d_x", "gate", (GT * TB, H, 3 * H), "mGru training"),
+    ("mGru training", "d_iW, d_sW", "atb", (3 * H, H, GT * TB),
+     "mGru training"),
+    ("defaults 341 x 600", "gx", "gate", (341 * 600, 4 * DSIZE, DSIZE),
+     "mLstm trainer defaults"),
+    ("defaults 341 x 600", "d_x", "gate", (341 * 600, DSIZE, 4 * DSIZE),
+     "mLstm trainer defaults"),
+    ("defaults 341 x 600", "d_iW, d_sW", "atb", (4 * DSIZE, DSIZE,
+                                                 341 * 600),
+     "mLstm trainer defaults"),
+    ("basecall batch", "gx", "gate", (T * B, 4 * H, H), "mLstm basecall"),
+    ("remap H=96", "gx", "gate", (BWD96_T * TB, 4 * 96, 96),
+     "mGru real reads"),
+    ("remap H=96", "d_x", "gate", (BWD96_T * TB, 96, 4 * 96), None),
+    ("remap H=96", "d_iW, d_sW", "atb", (4 * 96, 96, BWD96_T * TB), None),
+)
+GEMM_TOL = 1e-5    # of the largest |output| of the twin
+
+
+def _gemm_bounds(kind, M, N, K, nsplit):
+    """(tc bound, its `by`, simt bound) of one product: the bytes (each
+    operand read once, the output written once) against 3 x 2MNK FLOP at
+    the TF32 rate, or 2MNK at the f32 SIMT rate."""
+    if kind == "gate":
+        nbytes = 4 * (M * K + N * K + N + M * N)
+    else:
+        nbytes = 4 * (K * M + K * N + nsplit * M * N)
+    flops = 2 * M * N * K
+    tc, by = bound_ms(nbytes, 0, flops)
+    return tc, by, bound_ms(nbytes, flops)[0]
+
+
+def check_gemms(torch, dev):
+    """Each GEMM of GEMM_CASES on its plan's tc instance and on the forced
+    simt instance (the first slices' kernels), against its twin on the card
+    (torch.matmul, TF32 off) within GEMM_TOL of the largest output and
+    against an f64 product (reported), timed beside the twin, which is
+    also the library call (`library_ms`).  The atb product at the backward
+    layer's shift (-B, h one step back); the bias on every gate product.
+    Returns the rows, without their launches."""
+    from taiyaki_tpu_torch.ops import gemm
+    rows = []
+    sms = gemm.card_sms(torch.cuda.current_device())
+    for cell, what, kind, (M, N, K), path in GEMM_CASES:
+        g = torch.Generator(device=dev).manual_seed(M + N + K)
+        if kind == "gate":
+            A = torch.randn(M, K, device=dev, generator=g)
+            W = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+            bias = torch.randn(N, device=dev, generator=g)
+            ref = torch.addmm(bias.double(), A.double(), W.double().t())
+            args, kw = (A, W, bias), {}
+            fn, plain = gemm.gate_gemm, gemm.gate_gemm_plain
+            nsplit = 1
+        else:
+            A = torch.randn(K, M, device=dev, generator=g)
+            Bm = torch.randn(K, N, device=dev, generator=g)
+            shift = -TB
+            ref = A.double().t() @ gemm.shifted(Bm, shift).double()
+            args, kw = (A, Bm, shift), {}
+            fn = gemm.atb_gemm
+            plan = gemm.gemm_plan(M, N, K, gemm.ATB, sms)
+            nsplit = plan.nsplit
+
+            def plain(A, Bm, shift, _p=plan):
+                return gemm.atb_gemm_plain(A, Bm, shift, _p.nsplit,
+                                           _p.kslice)
+        want = plain(*args)
+        out = {}
+        for inst in ("tc", "simt"):
+            got = fn(*args, instance=inst, **kw)
+            torch.cuda.synchronize()
+            if kind == "atb":
+                # the simt plan slices otherwise: compare the sums
+                err = max_abs_diff(got.sum(0), want.sum(0)) / \
+                    want.sum(0).abs().max().item() if inst == "simt" \
+                    else max_abs_diff(got, want) / want.abs().max().item()
+                got = got.sum(0)
+            else:
+                err = max_abs_diff(got, want) / want.abs().max().item()
+            f64 = ((got.double() - ref).abs().max()
+                   / ref.abs().max()).item()
+            del got
+            check(err <= GEMM_TOL, "{} {} ({}) on {}: {:.3g} of the largest "
+                  "output from its twin > {}".format(cell, what, kind, inst,
+                                                     err, GEMM_TOL))
+            out[inst] = (err, f64, cuda_ms(torch, lambda: fn(
+                *args, instance=inst, **kw), reps=5))
+        plain_ms = cuda_ms(torch, lambda: plain(*args), reps=5)
+        tc_bound, by, simt_bound = _gemm_bounds(kind, M, N, K, nsplit)
+        del A, ref, want, args
+        torch.cuda.empty_cache()
+        flops = 2 * M * N * K
+        row = dict(
+            name="{}_gemm".format(kind), cell=cell, product=what,
+            shape=[M, N, K], route="cuda",
+            source="taiyaki_tpu_torch/csrc/gemm_tc.cuh",
+            replaces=("taiyaki_tpu/ops/pallas_rnn.py:805" if kind == "gate"
+                      else "taiyaki_tpu/ops/pallas_rnn.py:299"),
+            path=path, max_abs_err=out["tc"][0], f64_err=out["tc"][1],
+            ms=out["tc"][2], plain_ms=plain_ms, bound_ms=tc_bound,
+            bound_by=by, library_ms=plain_ms, simt_ms=out["simt"][2],
+            simt_bound_ms=simt_bound, simt_err=out["simt"][0],
+            simt_f64_err=out["simt"][1],
+            tflops=flops / out["tc"][2] / 1e9)
+        rows.append(row)
+        say("{} {} ({} M={} N={} K={}): tc {:.3f} ms ({:.1f} TFLOP/s of "
+            "the f32 product; 3xTF32 bound {:.3f} ms, {}), simt {:.3f} ms "
+            "(f32 bound {:.3f}), torch.matmul {:.3f} ms; of the largest "
+            "output, from the twin tc {:.3g} simt {:.3g}, from f64 tc {:.3g} "
+            "simt {:.3g}".format(
+                cell, what, kind, M, N, K, row["ms"], row["tflops"],
+                tc_bound, by, row["simt_ms"], simt_bound, plain_ms,
+                row["max_abs_err"], row["simt_err"], row["f64_err"],
+                row["simt_f64_err"]))
+    return rows
 
 
 # -- phases 3 and 4 ----------------------------------------------------------
@@ -2399,7 +2555,7 @@ def run(seed):
                            "(taiyaki_tpu_torch/ not found)")
     sys.path.insert(0, ROOT)
     from taiyaki_tpu_torch import train
-    from taiyaki_tpu_torch.ops import crf, cuda_lib, gru, logz, lstm
+    from taiyaki_tpu_torch.ops import crf, cuda_lib, gemm, gru, logz, lstm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2442,6 +2598,8 @@ def run(seed):
     torch.cuda.empty_cache()
     bwd_shapes = check_bwd_shapes(torch, dev, rng)
     torch.cuda.empty_cache()
+    gemm_rows = check_gemms(torch, dev)
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -2468,6 +2626,12 @@ def run(seed):
                    "gru_scan_bwd")
     for k in recurrences:
         counters[k + "[cluster]"] = counters[k].by_instance["cluster"]
+    # the GEMMs under the layers (ops/gemm.py): every launch of a path, and
+    # its tc instance's, which must be all of them
+    gemms = ("gate_gemm", "atb_gemm")
+    for k in gemms:
+        counters[k] = getattr(gemm, k)
+        counters[k + "[tc]"] = counters[k].by_instance["tc"]
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
     streams = ("crf_fwd_streams", "crf_bwd_posteriors")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
@@ -2477,9 +2641,18 @@ def run(seed):
     gru_call = ("gru_fwd", "logz_fwd", "logz_posteriors")
 
     def pick(names):
+        """The counters of the kernels `names`, with the recurrences'
+        cluster instance and the GEMMs' tc instance: a path with a layer
+        backward runs both GEMMs, one with a layer forward the gate
+        GEMM."""
+        names = tuple(names)
+        if set(names) & (set(lstm_bwds.values()) | set(gru_bwds.values())):
+            names += gemms
+        elif set(names) & {"lstm_fwd", "gru_fwd"}:
+            names += ("gate_gemm",)
         return {k: counters[k] for n in names
                 for k in ((n, n + "[cluster]") if n in recurrences
-                          else (n,))}
+                          else (n, n + "[tc]") if n in gemms else (n,))}
 
     def train_policy(model, fwd, bwds, policy, niter):
         """The training path under `policy`: its backward launched, the
@@ -2644,6 +2817,20 @@ def run(seed):
                       "{} path: {} launches of {}, {} of them the cluster "
                       "instance".format(path, counts[k], k,
                                         counts[k + "[cluster]"]))
+        # every training and basecall path's GEMMs ran the tc instance
+        for k in gemms:
+            if k in counts:
+                check(counts[k] > 0 and counts[k + "[tc]"] == counts[k],
+                      "{} path: {} launches of {}, {} of them the tc "
+                      "instance".format(path, counts[k], k,
+                                        counts[k + "[tc]"]))
+    say("GEMM launches by path (all, tc instance): {}".format(json.dumps({
+        path: {k: [counts[k], counts[k + "[tc]"]] for k in gemms
+               if k in counts} for path, counts in launches.items()
+        if any(k in counts for k in gemms)})))
+    for r in gemm_rows:
+        r["launches"] = (launches[r["path"]][r["name"] + "[tc]"]
+                         if r["path"] else None)
     say("recurrences, the cluster instance against the forced L2 instance "
         "(max |diff| of the forwards, relative of the backwards): {}".format(
             json.dumps({k["name"]: {"ms": k["ms"], "l2_ms": k["l2_ms"],
@@ -2659,10 +2846,12 @@ def run(seed):
         .format(json.dumps(defaults_fwd)))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    check(len(kernels) == len(counters) - len(recurrences) == 17,
-          "kernels line: {} rows".format(len(kernels)))
+    check(len(kernels) == len(counters) - len(recurrences)
+          - 2 * len(gemms) == 17, "kernels line: {} rows".format(
+              len(kernels)))
     check(all(k["launches"] > 0 for k in kernels),
           "kernels line: a kernel its path did not launch")
+    print(json.dumps({"gemms": gemm_rows}))
     print(json.dumps({"kernels": [
         dict({key: k[key] for key in keys}, **(
             {"launches_by_instance": _by_instance(

@@ -1,4 +1,12 @@
-// Tiled f32 GEMMs shared by the recurrent layers (lstm.cu, gru.cu).
+// Tiled f32 GEMMs shared by the recurrent layers (lstm.cu, gru.cu) and
+// the standalone entry points (gemm.cu), in two instances that compute the
+// same functions: "tc", 3xTF32 on Hopper's tensor cores fed by TMA
+// (gemm_tc.cuh), wherever TMA can take the operands (rows a multiple of 4
+// floats, 16-byte aligned); "simt", the two f32 FMA kernels below, for the
+// rest (ragged widths).  ops/gemm.py `gemm_plan` picks the instance by
+// shape and gives its fields (GemmPlan); the entry points check every plan
+// before any launch (gate_plan_check, atb_plan_check) and run it
+// (gemm_gate, gemm_atb), with no fallback from one instance to the other.
 //
 // 1. gate_gemm_kernel: C[M, N] = A[M, K] . W[N, K]^T (+ bias) (+ C, with
 //    ACCUMULATE).  The input products of the layer forwards (gx = x .
@@ -8,8 +16,7 @@
 //    the LSTM's pre = gx + h_prev . sW^T, its second product accumulated
 //    onto the first).  128x128 output tiles, 8x8 per
 //    thread, k-major shared tiles, SIMT FMA.  Bound: operations, 2*M*N*K
-//    FLOP against the 67 TFLOP/s f32 rate (no tensor cores: the port is
-//    f32 without TF32).
+//    FLOP against the 67 TFLOP/s f32 rate.
 //
 // 2. atb_gemm_kernel: C_z[N1, N2] = sum over rows k of slice z of
 //    A[k, :]^T B[k + shift, :], with rows of B outside [0, K) read as zero.
@@ -28,6 +35,9 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "gemm_tc.cuh"
 
 namespace {
 
@@ -209,6 +219,108 @@ inline int set_smem(const void* fn, size_t smem)
     return static_cast<int>(cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem)));
+}
+
+// -- the plans --------------------------------------------------------------
+
+constexpr int GEMM_SIMT = 0;
+constexpr int GEMM_TC = 1;
+constexpr int GEMM_PLAN_INTS = 4;
+
+// A GEMM's plan as ops/gemm.py `gemm_plan` gives it (`c_args`): the
+// instance, the slices of an atb product's K rows and their length (a
+// gate product: 1 and 0), and the persistent CTAs of the tc instance.
+struct GemmPlan {
+    int instance, nsplit, kslice, ctas;
+};
+
+// plan i of an entry point's array of GEMM_PLAN_INTS ints a plan
+inline GemmPlan gemm_plan_at(const int* plans, int i)
+{
+    const int* p = plans + GEMM_PLAN_INTS * i;
+    return GemmPlan{p[0], p[1], p[2], p[3]};
+}
+
+inline bool gemm_aligned(const void* p)
+{
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// whether the tc instance's TMA takes a matrix of rows `inner` floats long
+// at `p`: 16-byte row strides and base
+inline bool gemm_tma_takes(const void* p, int inner)
+{
+    return inner % 4 == 0 && gemm_aligned(p);
+}
+
+// the gate product C[M, N] = A[M, K] W[N, K]^T on plan p
+inline cudaError_t gate_plan_check(const GemmPlan& p, const float* A,
+                                   const float* W, int K)
+{
+    if (p.nsplit != 1 || p.kslice != 0) return cudaErrorInvalidValue;
+    if (p.instance == GEMM_SIMT) return cudaSuccess;
+    if (p.instance != GEMM_TC || p.ctas < 1 || !gemm_tma_takes(A, K)
+            || !gemm_tma_takes(W, K))
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
+// the atb product of A [K, N1] and B [K, N2] on plan p: nsplit slices of
+// kslice rows, none empty (the simt kernel's kslice is ceil(K / nsplit),
+// the tc kernel's a multiple of its k tile)
+inline cudaError_t atb_plan_check(const GemmPlan& p, const float* A,
+                                  const float* B, int K, int N1, int N2)
+{
+    if (p.nsplit < 1 || p.kslice < 1
+            || (long long)p.nsplit * p.kslice < K
+            || (K > 0 && (long long)(p.nsplit - 1) * p.kslice >= K))
+        return cudaErrorInvalidValue;
+    if (p.instance == GEMM_SIMT)
+        return p.kslice == max(1, (K + p.nsplit - 1) / p.nsplit)
+            ? cudaSuccess : cudaErrorInvalidValue;
+    if (p.instance != GEMM_TC || p.ctas < 1 || p.kslice % TC_BK
+            || !gemm_tma_takes(A, N1) || !gemm_tma_takes(B, N2))
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
+// the three products after a backward chain on plans gemm[0..2]: d_x
+// [M, D] = dx_src [M, G] iwt [D, G]^T, the d_iW partials of dx_src^T x
+// [M, D] and the d_sW partials of ds_src^T hp [M, H]
+inline cudaError_t chain_plans_check(const int* gemm, const float* dx_src,
+                                     const float* ds_src, const float* iwt,
+                                     const float* x, const float* hp, int M,
+                                     int G, int D, int H)
+{
+    cudaError_t err = gate_plan_check(gemm_plan_at(gemm, 0), dx_src, iwt, G);
+    if (err == cudaSuccess)
+        err = atb_plan_check(gemm_plan_at(gemm, 1), dx_src, x, M, G, D);
+    if (err == cudaSuccess)
+        err = atb_plan_check(gemm_plan_at(gemm, 2), ds_src, hp, M, G, H);
+    return err;
+}
+
+// C[M, N] = A W^T (+ bias) (+ C) on its plan's instance
+inline cudaError_t gemm_gate(const GemmPlan& p, const float* A,
+                             const float* W, const float* bias, float* C,
+                             int M, int N, int K, cudaStream_t st,
+                             bool accumulate = false)
+{
+    if (p.instance == GEMM_TC)
+        return tc_gate_gemm(A, W, bias, C, M, N, K, accumulate, p.ctas, st);
+    return launch_gate_gemm(A, W, bias, C, M, N, K, st, accumulate);
+}
+
+// C[nsplit, N1, N2], the partials of A^T B[. + shift], on its plan's
+// instance
+inline cudaError_t gemm_atb(const GemmPlan& p, const float* A,
+                            const float* B, float* C, int K, int N1, int N2,
+                            int shift, cudaStream_t st)
+{
+    if (p.instance == GEMM_TC)
+        return tc_atb_gemm(A, B, C, K, N1, N2, shift, p.nsplit, p.kslice,
+                           p.ctas, st);
+    return launch_atb_gemm(A, B, C, K, N1, N2, shift, p.nsplit, st);
 }
 
 }  // namespace

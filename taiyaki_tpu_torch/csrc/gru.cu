@@ -35,13 +35,17 @@
 //
 // Kernels:
 //
-// 1. gate_gemm_kernel (gemm.cuh).  Forward: gx = x . iW^T + b [T, B, 3H],
-//    which the TPU kernel computes per time block in its body.  Recomputing
+// 1. The gate GEMM (gemm.cuh), on its plan's instance (ops/gemm.py): the
+//    tc kernel (3xTF32 on the tensor cores, TMA-fed, gemm_tc.cuh) or, for
+//    ragged widths, gate_gemm_kernel (f32 FMA).  Forward: gx = x . iW^T +
+//    b [T, B, 3H], which the TPU kernel computes per time block in its
+//    body.  Recomputing
 //    backward: gx again, gh = h_prev . sW^T for all steps at once (the TPU
 //    kernel forms it step by step inside its serial loop,
 //    pallas_rnn.py:1264-1268; here h is wholly known before the backward
 //    starts, so the product leaves the chain).  Both backwards, after the
-//    chain: d_x = dgx . iW.  Bound: operations at the f32 rate.  The two
+//    chain: d_x = dgx . iW.  Bound: operations (tc: 6MNK FLOP at the 495
+//    TFLOP/s TF32 rate; simt: 2MNK at the 67 TFLOP/s f32 rate).  The two
 //    [T, B, 3H] operands (1.57 GB each at T=2000, B=256, H=256) make a
 //    round trip through device memory that the TPU kernel avoids, ~1 ms at
 //    3.35 TB/s against ~100 ms of chain.
@@ -114,7 +118,8 @@
 //    step back in the forward's direction (recompute) or h_prev itself
 //    (offset 0).
 //
-// 4. atb_gemm_kernel (gemm.cuh): d_iW = dgx^T x and d_sW = dgh^T h_prev as
+// 4. The atb GEMM (gemm.cuh; the tc kernel or atb_gemm_kernel, as 1):
+//    d_iW = dgx^T x and d_sW = dgh^T h_prev as
 //    split-K partials over slices of the T*B rows, h_prev read from h by
 //    a -B (forward layer) or +B (reversed layer) row shift, or from
 //    h_prev as it is.  The TPU kernels accumulate them in VMEM across
@@ -663,12 +668,13 @@ int launch_gru_bwd_rec_plan(const float* dh, const float* hp, int hshift,
 }
 
 // The chain (kernel 3, on the plan's instance) and the three products
-// after it (d_x, d_iW, d_sW); h_prev of step t is hp[t + hshift].
+// after it (d_x, d_iW, d_sW, on the GEMM plans gemm[0..2], checked by
+// chain_plans_check); h_prev of step t is hp[t + hshift].
 int gru_bwd_chain(const float* dh, const float* hp, int hshift,
                   const float* gx, const float* gh, float* dgx, float* dgh,
                   const float* x, const float* sw, const float* iwt,
                   float* dx, float* dsw_part, float* diw_part, float* db_part,
-                  int T, int B, int D, int H, int reverse, int nsplit,
+                  int T, int B, int D, int H, int reverse, const int* gemm,
                   int instance, int C, int BT, int RB, int KL, int smem,
                   cudaStream_t st)
 {
@@ -678,14 +684,14 @@ int gru_bwd_chain(const float* dh, const float* hp, int hshift,
                                      BT, RB, KL, smem, st);
     if (rc) return rc;
     cudaError_t err;
-    if ((err = launch_gate_gemm(dgx, iwt, nullptr, dx, M, D, H3, st))
-            != cudaSuccess)
+    if ((err = gemm_gate(gemm_plan_at(gemm, 0), dgx, iwt, nullptr, dx, M, D,
+                         H3, st)) != cudaSuccess)
         return static_cast<int>(err);
-    if ((err = launch_atb_gemm(dgx, x, diw_part, M, H3, D, 0, nsplit, st))
-            != cudaSuccess)
+    if ((err = gemm_atb(gemm_plan_at(gemm, 1), dgx, x, diw_part, M, H3, D, 0,
+                        st)) != cudaSuccess)
         return static_cast<int>(err);
-    return static_cast<int>(launch_atb_gemm(dgh, hp, dsw_part, M, H3, H,
-                                            hshift * B, nsplit, st));
+    return static_cast<int>(gemm_atb(gemm_plan_at(gemm, 2), dgh, hp,
+                                     dsw_part, M, H3, H, hshift * B, st));
 }
 
 }  // namespace
@@ -701,14 +707,15 @@ const char* tt_error_string(int err)
 // and holds x iW^T + b on return; swt = sW^T [H, 3H].  With gh non-null
 // (emit_residuals) also gh [T, B, 3H].  The recurrence runs on the plan
 // (instance, C, BT, RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance
-// 0 the L2 kernel (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; a plan it
+// 0 the L2 kernel (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; the input
+// product on the GEMM plan gemm[0] of ops/gemm.py `gemm_plan`; a plan it
 // cannot take returns cudaErrorInvalidValue before any launch.  All f32,
 // contiguous, on one device.  Returns cudaGetLastError() after the first
 // failing launch (or the cluster launch's own error), else 0.
 int tt_gru_fwd(const float* x, const float* iW, const float* b,
                const float* swt, float* gx, float* h, float* gh, int T,
                int B, int D, int H, int reverse, int instance, int C, int BT,
-               int RB, int KS, int smem, void* stream)
+               int RB, int KS, int smem, const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B;
@@ -716,8 +723,10 @@ int tt_gru_fwd(const float* x, const float* iW, const float* b,
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess)
+        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_gate_gemm(x, iW, b, gx, M, 3 * H, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, gx, M, 3 * H, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     return launch_gru_rec_plan(gx, swt, h, gh, T, B, H, reverse, instance, C,
                                BT, RB, KS, smem, st);
@@ -743,31 +752,40 @@ int tt_gru_cluster_occupancy(int H, int C, int BT, int RB, int KS, int smem)
 // [T, B, H], x [T, B, D], iW [3H, D], b [3H], sw = sW [3H, H], iwt = iW^T
 // [D, 3H].  Scratch: g_x, g_h [T, B, 3H] (gx and gh, then dgx and dgh over
 // them).  Outputs: dx [T, B, D], dsw_part [nsplit, 3H, H], diw_part
-// [nsplit, 3H, D], db_part [ceil(B/BT), 3H].  The chain runs on the plan
-// (instance, C, BT, RB, KL, smem) of ops/rnn_plan.py `bwd_plan`: instance
-// 0 the L2 kernel (C 1, BT 8, RB 1, KL 1, 24 H BT bytes), 1 the cluster
-// kernel; a plan it cannot take returns cudaErrorInvalidValue before any
-// launch.
+// [nsplit, 3H, D], db_part [ceil(B/BT), 3H], the partials' counts those
+// of their GEMM plans.  The chain runs on the plan (instance, C, BT, RB,
+// KL, smem) of ops/rnn_plan.py `bwd_plan`: instance 0 the L2 kernel (C 1,
+// BT 8, RB 1, KL 1, 24 H BT bytes), 1 the cluster kernel; five GEMM plans
+// (ops/gemm.py): gemm[0] x iW^T, gemm[1] h_prev sW^T (for T > 1, on
+// (T - 1) B rows), then the chain's three; a plan it cannot take returns
+// cudaErrorInvalidValue before any launch.
 int tt_gru_bwd(const float* dh, const float* h, const float* x,
                const float* iW, const float* b, const float* sw,
                const float* iwt, float* g_x, float* g_h,
                float* dx, float* dsw_part, float* diw_part, float* db_part,
-               int T, int B, int D, int H, int reverse, int nsplit,
+               int T, int B, int D, int H, int reverse, const int* gemm,
                int instance, int C, int BT, int RB, int KL, int smem,
                void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B, H3 = 3 * H;
     if (M == 0) return 0;
-    if (H > REC_MAX_THREADS || nsplit < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const float* hsrc = reverse ? h + (size_t)B * H : h;
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess)
+        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
+    if (err == cudaSuccess)
+        err = gate_plan_check(gemm_plan_at(gemm, 1), hsrc, sw, H);
+    if (err == cudaSuccess)
+        err = chain_plans_check(gemm + 2 * GEMM_PLAN_INTS, g_x, g_h, iwt, x,
+                                h, M, H3, D, H);
     if (err != cudaSuccess) return static_cast<int>(err);
 
     // gx = x iW^T + b and gh[t] = h_prev[t] sW^T, h_prev[t] = h[t -/+ 1],
     // zero at the boundary step
-    err = launch_gate_gemm(x, iW, b, g_x, M, H3, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, g_x, M, H3, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t step = (size_t)B * H3;
     float* gh_zero = reverse ? g_h + (size_t)(T - 1) * step : g_h;
@@ -775,40 +793,41 @@ int tt_gru_bwd(const float* dh, const float* h, const float* x,
             != cudaSuccess)
         return static_cast<int>(err);
     if (T > 1) {
-        const float* hsrc = reverse ? h + (size_t)B * H : h;
         float* gdst = reverse ? g_h : g_h + step;
-        err = launch_gate_gemm(hsrc, sw, nullptr, gdst, (T - 1) * B, H3, H,
-                               st);
+        err = gemm_gate(gemm_plan_at(gemm, 1), hsrc, sw, nullptr, gdst,
+                        (T - 1) * B, H3, H, st);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     return gru_bwd_chain(dh, h, reverse ? 1 : -1, g_x, g_h, g_x, g_h, x, sw,
                          iwt, dx, dsw_part, diw_part, db_part, T, B, D, H,
-                         reverse, nsplit, instance, C, BT, RB, KL, smem,
-                         st);
+                         reverse, gemm + 2 * GEMM_PLAN_INTS, instance, C, BT,
+                         RB, KL, smem, st);
 }
 
 // GRU layer backward from the forward's gate streams.  Inputs: dh, hprev
 // [T, B, H], gx, gh [T, B, 3H] (read only), x [T, B, D], sw = sW [3H, H],
 // iwt = iW^T [D, 3H].  Scratch: dgx, dgh [T, B, 3H].  Outputs and plan as
-// tt_gru_bwd's.
+// tt_gru_bwd's; the chain's three GEMM plans gemm[0..2].
 int tt_gru_bwd_fusedw(const float* dh, const float* gx, const float* gh,
                       const float* hprev, const float* x, const float* sw,
                       const float* iwt, float* dgx, float* dgh, float* dx,
                       float* dsw_part, float* diw_part, float* db_part,
-                      int T, int B, int D, int H, int reverse, int nsplit,
-                      int instance, int C, int BT, int RB, int KL, int smem,
-                      void* stream)
+                      int T, int B, int D, int H, int reverse,
+                      const int* gemm, int instance, int C, int BT, int RB,
+                      int KL, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS || nsplit < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess)
+        err = chain_plans_check(gemm, dgx, dgh, iwt, x, hprev, T * B, 3 * H,
+                                D, H);
     if (err != cudaSuccess) return static_cast<int>(err);
     return gru_bwd_chain(dh, hprev, 0, gx, gh, dgx, dgh, x, sw, iwt, dx,
                          dsw_part, diw_part, db_part, T, B, D, H, reverse,
-                         nsplit, instance, C, BT, RB, KL, smem, st);
+                         gemm, instance, C, BT, RB, KL, smem, st);
 }
 
 // Kernel 16: the GRU recurrence on given gates.  gx [T, B, 3H] (read
@@ -832,26 +851,29 @@ int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
 // Kernel 17: the GRU gradient chain on the forward's residuals.  dh,
 // hprev [T, B, H], gx, gh [T, B, 3H] (read only), sw = sW [3H, H] -> dgx,
 // dgh [T, B, 3H]; db_part [ceil(B/BT), 3H] is scratch.  With iwt = iW^T
-// [D, 3H] non-null also dx [T, B, D] = dgx . iW.  The plan as
-// tt_gru_bwd's.
+// [D, 3H] non-null also dx [T, B, D] = dgx . iW, on the GEMM plan
+// gemm[0].  The plan as tt_gru_bwd's.
 int tt_gru_scan_bwd(const float* dh, const float* gx, const float* gh,
                     const float* hprev, const float* sw, const float* iwt,
                     float* dgx, float* dgh, float* dx, float* db_part, int T,
                     int B, int D, int H, int reverse, int instance, int C,
-                    int BT, int RB, int KL, int smem, void* stream)
+                    int BT, int RB, int KL, int smem, const int* gemm,
+                    void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && iwt != nullptr)
+        err = gate_plan_check(gemm_plan_at(gemm, 0), dgx, iwt, 3 * H);
     if (err != cudaSuccess) return static_cast<int>(err);
     int rc = launch_gru_bwd_rec_plan(dh, hprev, 0, gx, gh, dgx, dgh, sw,
                                      db_part, T, B, H, reverse, instance, C,
                                      BT, RB, KL, smem, st);
     if (rc || iwt == nullptr) return rc;
-    return static_cast<int>(launch_gate_gemm(dgx, iwt, nullptr, dx, T * B,
-                                             D, 3 * H, st));
+    return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dgx, iwt,
+                                      nullptr, dx, T * B, D, 3 * H, st));
 }
 
 }  // extern "C"

@@ -35,8 +35,11 @@
 //
 // Kernels:
 //
-// 1. gate_gemm_kernel (gemm.cuh): gx = x . iW^T + b, which the TPU kernel
-//    computes in its own body per time block (pallas_rnn.py:805-817);
+// 1. The gate GEMM (gemm.cuh), on its plan's instance (ops/gemm.py): the
+//    tc kernel (3xTF32 on the tensor cores, TMA-fed, gemm_tc.cuh) or, for
+//    ragged widths, gate_gemm_kernel (f32 FMA): gx = x . iW^T + b, which
+//    the TPU kernel computes in its own body per time block
+//    (pallas_rnn.py:805-817);
 //    in the backwards d_x = dpre . iW.  Its [T, B, 4H] operand makes one
 //    round trip through device memory that the TPU kernel avoids; at
 //    T=800, B=256, H=256 that is 0.84 GB, ~0.25 ms at 3.35 TB/s, small
@@ -120,7 +123,8 @@
 //    sequential time grid (pallas_rnn.py:272-278); Hopper blocks carry
 //    nothing across blocks, so those products are left to kernel 4.
 //
-// 4. atb_gemm_kernel (gemm.cuh): d_iW = dpre^T x and d_sW = dpre^T h_prev
+// 4. The atb GEMM (gemm.cuh; the tc kernel or atb_gemm_kernel, as 1):
+//    d_iW = dpre^T x and d_sW = dpre^T h_prev
 //    as split-K partials over slices of the T*B rows, h_prev read by a
 //    -B (forward layer) or +B (reversed layer) row shift.
 //
@@ -698,16 +702,17 @@ int launch_lstm_bwd_rec_plan(const float* dh, const float* gates,
 }
 
 // The chain (kernel 3, on the plan's instance) and the three products
-// after it (d_x, d_iW, d_sW); arguments as tt_lstm_bwd's, c_prev of step t
-// being cprev[t + cshift].
+// after it (d_x, d_iW, d_sW, on the GEMM plans gemm[0..2], checked by
+// chain_plans_check); arguments as tt_lstm_bwd's, c_prev of step t being
+// cprev[t + cshift].
 template <bool FROM_PRE>
 int lstm_bwd_chain(const float* dh, const float* gates, const float* cs,
                    const float* cprev, int cshift, const float* h,
                    const float* x, const float* sw, const float* iwt,
                    float* dpre, float* dx, float* dsw_part, float* diw_part,
                    float* db_part, int T, int B, int D, int H, int reverse,
-                   int nsplit, int instance, int C, int BT, int RB, int KL,
-                   int smem, cudaStream_t st)
+                   const int* gemm, int instance, int C, int BT, int RB,
+                   int KL, int smem, cudaStream_t st)
 {
     const int M = T * B, H4 = 4 * H;
     int rc = launch_lstm_bwd_rec_plan<FROM_PRE>(
@@ -715,15 +720,16 @@ int lstm_bwd_chain(const float* dh, const float* gates, const float* cs,
         instance, C, BT, RB, KL, smem, st);
     if (rc) return rc;
     cudaError_t err;
-    if ((err = launch_gate_gemm(dpre, iwt, nullptr, dx, M, D, H4, st))
-            != cudaSuccess)
+    if ((err = gemm_gate(gemm_plan_at(gemm, 0), dpre, iwt, nullptr, dx, M, D,
+                         H4, st)) != cudaSuccess)
         return static_cast<int>(err);
-    if ((err = launch_atb_gemm(dpre, x, diw_part, M, H4, D, 0, nsplit, st))
-            != cudaSuccess)
+    if ((err = gemm_atb(gemm_plan_at(gemm, 1), dpre, x, diw_part, M, H4, D,
+                        0, st)) != cudaSuccess)
         return static_cast<int>(err);
     // h_prev[t] = h[t - 1] for a forward layer, h[t + 1] for a reversed one
-    return static_cast<int>(launch_atb_gemm(dpre, h, dsw_part, M, H4, H,
-                                            reverse ? B : -B, nsplit, st));
+    return static_cast<int>(gemm_atb(gemm_plan_at(gemm, 2), dpre, h,
+                                     dsw_part, M, H4, H, reverse ? B : -B,
+                                     st));
 }
 
 }  // namespace
@@ -740,7 +746,8 @@ const char* tt_error_string(int err)
 // 2: also c, and pre [T, B, 4H] written over gx; 3: also c, tc [T, B, H]
 // and acts [T, B, 4H].  The recurrence runs on the plan (instance, C, BT,
 // RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance 0 the L2 kernel
-// (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; a plan it cannot take
+// (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; the input product on the
+// GEMM plan gemm[0] of ops/gemm.py `gemm_plan`; a plan it cannot take
 // returns cudaErrorInvalidValue before any launch.  All f32, contiguous,
 // on one device.  Returns cudaGetLastError() after the first failing
 // launch (or the cluster launch's own error), else 0.
@@ -748,7 +755,7 @@ int tt_lstm_fwd(const float* x, const float* iW, const float* b,
                 const float* swt, float* gx, float* h, float* c, float* acts,
                 float* tc, int T, int B, int D, int H, int reverse, int emit,
                 int instance, int C, int BT, int RB, int KS, int smem,
-                void* stream)
+                const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B;
@@ -757,8 +764,10 @@ int tt_lstm_fwd(const float* x, const float* iW, const float* b,
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess)
+        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_gate_gemm(x, iW, b, gx, M, 4 * H, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, gx, M, 4 * H, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     switch (emit) {
     case EMIT_H:
@@ -803,72 +812,84 @@ int tt_lstm_cluster_occupancy(int H, int C, int BT, int RB, int KS,
 // with tc [T, B, H] (from_pre 0) or pre [T, B, 4H] with c [T, B, H]
 // (from_pre 1) as gates and cs.  Scratch: dpre [T, B, 4H].  Outputs:
 // dx [T, B, D], dsw_part [nsplit, 4H, H], diw_part [nsplit, 4H, D],
-// db_part [ceil(B/BT), 4H].  The chain runs on the plan (instance, C, BT,
-// RB, KL, smem) of ops/rnn_plan.py `bwd_plan`: instance 0 the L2 kernel
-// (C 1, BT 8, RB 1, KL 1, 32 H BT bytes), 1 the cluster kernel; a plan it
-// cannot take returns cudaErrorInvalidValue before any launch.
+// db_part [ceil(B/BT), 4H], the partials' counts those of their GEMM
+// plans.  The chain runs on the plan (instance, C, BT, RB, KL, smem) of
+// ops/rnn_plan.py `bwd_plan`: instance 0 the L2 kernel (C 1, BT 8, RB 1,
+// KL 1, 32 H BT bytes), 1 the cluster kernel; d_x, d_iW and d_sW on the
+// GEMM plans gemm[0..2] (ops/gemm.py `chain_plans`); a plan it cannot
+// take returns cudaErrorInvalidValue before any launch.
 int tt_lstm_bwd(const float* dh, const float* gates, const float* cs,
                 const float* cprev, const float* h, const float* x,
                 const float* sw, const float* iwt, float* dpre, float* dx,
                 float* dsw_part, float* diw_part, float* db_part, int T,
-                int B, int D, int H, int reverse, int nsplit, int from_pre,
-                int instance, int C, int BT, int RB, int KL, int smem,
-                void* stream)
+                int B, int D, int H, int reverse, const int* gemm,
+                int from_pre, int instance, int C, int BT, int RB, int KL,
+                int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS || nsplit < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess)
+        err = chain_plans_check(gemm, dpre, dpre, iwt, x, h, T * B, 4 * H, D,
+                                H);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (from_pre)
         return lstm_bwd_chain<true>(dh, gates, cs, cprev, 0, h, x, sw, iwt,
                                     dpre, dx, dsw_part, diw_part, db_part, T,
-                                    B, D, H, reverse, nsplit, instance, C, BT,
+                                    B, D, H, reverse, gemm, instance, C, BT,
                                     RB, KL, smem, st);
     return lstm_bwd_chain<false>(dh, gates, cs, cprev, 0, h, x, sw, iwt,
                                  dpre, dx, dsw_part, diw_part, db_part, T, B,
-                                 D, H, reverse, nsplit, instance, C, BT, RB,
+                                 D, H, reverse, gemm, instance, C, BT, RB,
                                  KL, smem, st);
 }
 
 // LSTM layer backward rebuilding pre.  Inputs: dh, c, h [T, B, H], x
 // [T, B, D], iW [4H, D], b [4H], sw = sW [4H, H], iwt = iW^T [D, 4H].
-// Scratch: pre and dpre [T, B, 4H].  Outputs and plan as tt_lstm_bwd's.
+// Scratch: pre and dpre [T, B, 4H].  Outputs and plan as tt_lstm_bwd's;
+// five GEMM plans: gemm[0] x iW^T, gemm[1] h_prev sW^T (for T > 1, on
+// (T - 1) B rows), then the chain's three.
 int tt_lstm_bwd_recompute(const float* dh, const float* c, const float* h,
                           const float* x, const float* iW, const float* b,
                           const float* sw, const float* iwt, float* pre,
                           float* dpre, float* dx, float* dsw_part,
                           float* diw_part, float* db_part, int T, int B,
-                          int D, int H, int reverse, int nsplit, int instance,
-                          int C, int BT, int RB, int KL, int smem,
-                          void* stream)
+                          int D, int H, int reverse, const int* gemm,
+                          int instance, int C, int BT, int RB, int KL,
+                          int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int H4 = 4 * H;
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS || nsplit < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
+    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const float* hsrc = reverse ? h + (size_t)B * H : h;
+    float* pdst = reverse ? pre : pre + (size_t)B * H4;
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess)
+        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
+    if (err == cudaSuccess)
+        err = gate_plan_check(gemm_plan_at(gemm, 1), hsrc, sw, H);
+    if (err == cudaSuccess)
+        err = chain_plans_check(gemm + 2 * GEMM_PLAN_INTS, dpre, dpre, iwt, x,
+                                h, T * B, H4, D, H);
     if (err != cudaSuccess) return static_cast<int>(err);
     // pre[t] = x[t] iW^T + b + h_prev[t] sW^T, h_prev[t] = h[t -/+ 1]; the
     // boundary step's h_prev is zero and adds nothing
-    err = launch_gate_gemm(x, iW, b, pre, T * B, H4, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, pre, T * B, H4, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (T > 1) {
-        const float* hsrc = reverse ? h + (size_t)B * H : h;
-        float* pdst = reverse ? pre : pre + (size_t)B * H4;
-        err = launch_gate_gemm(hsrc, sw, nullptr, pdst, (T - 1) * B, H4, H,
-                               st, true);
+        err = gemm_gate(gemm_plan_at(gemm, 1), hsrc, sw, nullptr, pdst,
+                        (T - 1) * B, H4, H, st, true);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     // c_prev[t] = c[t - 1] forward, c[t + 1] reversed
     return lstm_bwd_chain<true>(dh, pre, c, c, reverse ? 1 : -1, h, x, sw,
                                 iwt, dpre, dx, dsw_part, diw_part, db_part,
-                                T, B, D, H, reverse, nsplit, instance, C, BT,
-                                RB, KL, smem, st);
+                                T, B, D, H, reverse, gemm + 2 * GEMM_PLAN_INTS,
+                                instance, C, BT, RB, KL, smem, st);
 }
 
 // Kernel 14: the LSTM recurrence on given gates.  gx [T, B, 4H] (read
@@ -904,25 +925,28 @@ int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
 // cprev [T, B, H], pre [T, B, 4H], sw = sW [4H, H] -> dpre [T, B, 4H];
 // db_part [ceil(B/BT), 4H] is scratch (the chain sums d_b, which the
 // recurrence on given gates has no use for).  With iwt = iW^T [D, 4H]
-// non-null also dx [T, B, D] = dpre . iW.  The plan as tt_lstm_bwd's.
+// non-null also dx [T, B, D] = dpre . iW, on the GEMM plan gemm[0].  The
+// plan as tt_lstm_bwd's.
 int tt_lstm_scan_bwd(const float* dh, const float* pre, const float* c,
                      const float* cprev, const float* sw, const float* iwt,
                      float* dpre, float* dx, float* db_part, int T, int B,
                      int D, int H, int reverse, int instance, int C, int BT,
-                     int RB, int KL, int smem, void* stream)
+                     int RB, int KL, int smem, const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
     if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && iwt != nullptr)
+        err = gate_plan_check(gemm_plan_at(gemm, 0), dpre, iwt, 4 * H);
     if (err != cudaSuccess) return static_cast<int>(err);
     int rc = launch_lstm_bwd_rec_plan<true>(dh, pre, c, cprev, 0, sw, dpre,
                                             db_part, T, B, H, reverse,
                                             instance, C, BT, RB, KL, smem, st);
     if (rc || iwt == nullptr) return rc;
-    return static_cast<int>(launch_gate_gemm(dpre, iwt, nullptr, dx, T * B,
-                                             D, 4 * H, st));
+    return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dpre, iwt,
+                                      nullptr, dx, T * B, D, 4 * H, st));
 }
 
 }  // extern "C"

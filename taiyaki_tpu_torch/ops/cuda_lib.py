@@ -21,7 +21,7 @@ import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-SOURCES = ("lstm", "logz", "crf", "gru")
+SOURCES = ("lstm", "logz", "crf", "gru", "gemm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -36,17 +36,19 @@ import functools
 
 import torch
 
-from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
+from taiyaki_tpu_torch.ops import cuda_lib, gemm, rnn_plan
 from taiyaki_tpu_torch.ops.lstm import (_check_args, _check_hidden,
                                         bwd_outputs, prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 11 + [_P],
-               "tt_gru_bwd": [_P] * 13 + [_I] * 12 + [_P],
-               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 12 + [_P],
+# (the GEMM plans go as one pointer, an int array: ops/gemm.py `c_args`)
+_SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 11 + [_P, _P],
+               "tt_gru_bwd": [_P] * 13 + [_I] * 5 + [_P] + [_I] * 6 + [_P],
+               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 5 + [_P] + [_I] * 6
+               + [_P],
                "tt_gru_scan_fwd": [_P] * 4 + [_I] * 10 + [_P],
                "tt_gru_cluster_occupancy": [_I] * 6,
-               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 11 + [_P]}
+               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 11 + [_P, _P]}
 
 
 def _cell(gx_t, gh_t, h):
@@ -102,6 +104,7 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
     _check_hidden("gru_fwd", H)
     plan = rnn_plan.rec_plan(3, H, B, clusters_per_wave(
         x.device.index), instance)
+    gplans = gemm.plans_for(x.device, (T * B, 3 * H, D, gemm.GATE))
     lib = cuda_lib.load("gru", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
@@ -114,8 +117,10 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
             cuda_lib.ptr(gh), T, B, D, H, int(bool(reverse)),
-            *rnn_plan.c_args(plan), cuda_lib.stream(x.device))
+            *rnn_plan.c_args(plan), gemm.c_args(gplans),
+            cuda_lib.stream(x.device))
         rnn_plan.count(gru_fwd, plan)
+        gemm.count(gplans)
     cuda_lib.check(lib, err, "gru_fwd kernel")
     return (h, gh, gx) if emit_residuals else h
 
@@ -204,14 +209,19 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
         # gx and gh, overwritten in place by dgx and dgh
         g_x = torch.empty(T, B, 3 * H, device=dev)
         g_h = torch.empty(T, B, 3 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
+        # gx = x iW^T + b and gh = h_prev sW^T on all but the boundary step
+        gplans = gemm.plans_for(dev, (T * B, 3 * H, D, gemm.GATE),
+                                ((T - 1) * B, 3 * H, H, gemm.GATE)) + gplans
         err = lib.tt_gru_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(iW), cuda_lib.ptr(b), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(g_x), cuda_lib.ptr(g_h),
-            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
-            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)),
+            gemm.c_args(gplans), *rnn_plan.c_args(plan),
+            cuda_lib.stream(dev))
         rnn_plan.count(gru_bwd_recompute, plan)
+        gemm.count(gplans if T > 1 else gplans[:1] + gplans[2:])
     cuda_lib.check(lib, err, "gru_bwd_recompute kernel")
     return out
 
@@ -241,14 +251,16 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
         iwt = iW.t().contiguous()
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
         err = lib.tt_gru_bwd_fusedw(
             cuda_lib.ptr(dh), cuda_lib.ptr(gx), cuda_lib.ptr(gh),
             cuda_lib.ptr(h_prev), cuda_lib.ptr(x), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(dgx), cuda_lib.ptr(dgh),
-            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
-            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)),
+            gemm.c_args(gplans), *rnn_plan.c_args(plan),
+            cuda_lib.stream(dev))
         rnn_plan.count(gru_bwd_fusedw, plan)
+        gemm.count(gplans)
     cuda_lib.check(lib, err, "gru_bwd_fusedw kernel")
     return out
 
@@ -333,13 +345,17 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
         dgh = torch.empty(T, B, 3 * H, device=dev)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
         db = torch.empty(-(-B // plan.BT), 3 * H, device=dev)
+        gplans = ([] if iW is None else
+                  gemm.plans_for(dev, (T * B, D, 3 * H, gemm.GATE)))
         err = lib.tt_gru_scan_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(gates_x), cuda_lib.ptr(gh),
             cuda_lib.ptr(h_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
             cuda_lib.ptr(dgx), cuda_lib.ptr(dgh), cuda_lib.ptr(d_x),
             cuda_lib.ptr(db), T, B, D, H, int(bool(reverse)),
-            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+            *rnn_plan.c_args(plan), gemm.c_args(gplans),
+            cuda_lib.stream(dev))
         rnn_plan.count(gru_scan_bwd, plan)
+        gemm.count(gplans)
     cuda_lib.check(lib, err, what + " kernel")
     return (dgx, dgh) if iW is None else (dgx, dgh, d_x)
 

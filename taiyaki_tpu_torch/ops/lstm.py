@@ -37,18 +37,20 @@ import functools
 
 import torch
 
-from taiyaki_tpu_torch.ops import cuda_lib, rnn_plan
+from taiyaki_tpu_torch.ops import cuda_lib, gemm, rnn_plan
 
 # the L2 instance of the forward and the backward chains run one thread per
 # hidden unit (csrc/lstm.cu)
 MAX_HIDDEN = rnn_plan.MAX_HIDDEN
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 12 + [_P],
-               "tt_lstm_bwd": [_P] * 13 + [_I] * 13 + [_P],
-               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 12 + [_P],
+# (the GEMM plans go as one pointer, an int array: ops/gemm.py `c_args`)
+_SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 12 + [_P, _P],
+               "tt_lstm_bwd": [_P] * 13 + [_I] * 5 + [_P] + [_I] * 7 + [_P],
+               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 5 + [_P]
+               + [_I] * 6 + [_P],
                "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 10 + [_P],
                "tt_lstm_cluster_occupancy": [_I] * 6,
-               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 11 + [_P]}
+               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 11 + [_P, _P]}
 # the forward's emit modes, in the order csrc/lstm.cu numbers them, and
 # the residuals each returns after h
 RESIDUALS = {None: (), "c": ("c",), "pre": ("c", "pre"),
@@ -131,6 +133,7 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
     _check_hidden("lstm_fwd", H)
     plan = rnn_plan.rec_plan(4, H, B, clusters_per_wave(
         x.device.index), instance)
+    gplans = gemm.plans_for(x.device, (T * B, 4 * H, D, gemm.GATE))
     lib = cuda_lib.load("lstm", _SIGNATURES)
     with torch.cuda.device(x.device):
         swt = sW.t().contiguous()
@@ -148,8 +151,10 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
             cuda_lib.ptr(c), cuda_lib.ptr(acts), cuda_lib.ptr(tc),
             T, B, D, H, int(bool(reverse)), EMITS.index(emit),
-            *rnn_plan.c_args(plan), cuda_lib.stream(x.device))
+            *rnn_plan.c_args(plan), gemm.c_args(gplans),
+            cuda_lib.stream(x.device))
         rnn_plan.count(lstm_fwd, plan)
+        gemm.count(gplans)
     cuda_lib.check(lib, err, "lstm_fwd kernel")
     return {None: h, "c": (h, c), "pre": (h, c, gx),
             "acts": (h, c, acts, tc)}[emit]
@@ -235,21 +240,17 @@ def lstm_bwd_recompute_plain(dh, c, h, x, sW, iW, b, reverse=False):
                                  sW, iW, reverse)
 
 
-def _nsplit(rows):
-    """Slices of the T*B reduction of the weight-gradient products: enough
-    blocks to fill the card, each slice at least 2048 rows long."""
-    return max(1, min(32, rows // 2048))
-
-
 def bwd_outputs(T, B, D, G, H, dev, plan):
     """The outputs of a recurrent backward kernel with G gate rows on
-    `plan` (its chain's), (d_x [T, B, D], d_sW [nsplit, G, H], d_iW
-    [nsplit, G, D], d_b [ceil(B / plan.BT), G]), and nsplit."""
-    nsplit = _nsplit(T * B)
+    `plan` (its chain's), (d_x [T, B, D], d_sW [ns, G, H], d_iW [ni, G,
+    D], d_b [ceil(B / plan.BT), G]), and the GEMM plans of the three
+    products after the chain (`gemm.chain_plans`), whose slices are ni and
+    ns."""
+    gplans = gemm.chain_plans(dev, T * B, G, D, H)
     return (torch.empty(T, B, D, device=dev),
-            torch.empty(nsplit, G, H, device=dev),
-            torch.empty(nsplit, G, D, device=dev),
-            torch.empty(-(-B // plan.BT), G, device=dev)), nsplit
+            torch.empty(gplans[2].nsplit, G, H, device=dev),
+            torch.empty(gplans[1].nsplit, G, D, device=dev),
+            torch.empty(-(-B // plan.BT), G, device=dev)), gplans
 
 
 def _bwd_plan(H, B, device, instance):
@@ -281,14 +282,16 @@ def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
     with torch.cuda.device(dev):
         iwt = iW.t().contiguous()
         dpre = torch.empty(T, B, 4 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
         err = lib.tt_lstm_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(gates), cuda_lib.ptr(cs),
             cuda_lib.ptr(c_prev), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(sW), cuda_lib.ptr(iwt), cuda_lib.ptr(dpre),
-            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)), nsplit,
-            from_pre, *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+            *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)),
+            gemm.c_args(gplans), from_pre, *rnn_plan.c_args(plan),
+            cuda_lib.stream(dev))
         rnn_plan.count(fn, plan)
+        gemm.count(gplans)
     cuda_lib.check(lib, err, what + " kernel")
     return out
 
@@ -346,15 +349,19 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
         iwt = iW.t().contiguous()
         pre = torch.empty(T, B, 4 * H, device=dev)
         dpre = torch.empty(T, B, 4 * H, device=dev)
-        out, nsplit = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
+        # pre = x iW^T + b, then += h_prev sW^T on all but the boundary step
+        gplans = gemm.plans_for(dev, (T * B, 4 * H, D, gemm.GATE),
+                                ((T - 1) * B, 4 * H, H, gemm.GATE)) + gplans
         err = lib.tt_lstm_bwd_recompute(
             cuda_lib.ptr(dh), cuda_lib.ptr(c), cuda_lib.ptr(h),
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(sW), cuda_lib.ptr(iwt), cuda_lib.ptr(pre),
             cuda_lib.ptr(dpre), *map(cuda_lib.ptr, out), T, B, D, H,
-            int(bool(reverse)), nsplit, *rnn_plan.c_args(plan),
+            int(bool(reverse)), gemm.c_args(gplans), *rnn_plan.c_args(plan),
             cuda_lib.stream(dev))
         rnn_plan.count(lstm_bwd_recompute, plan)
+        gemm.count(gplans if T > 1 else gplans[:1] + gplans[2:])
     cuda_lib.check(lib, err, what + " kernel")
     return out
 
@@ -439,13 +446,16 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
         dpre = torch.empty(T, B, 4 * H, device=dev)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
         db = torch.empty(-(-B // plan.BT), 4 * H, device=dev)
+        gplans = ([] if iW is None else
+                  gemm.plans_for(dev, (T * B, D, 4 * H, gemm.GATE)))
         err = lib.tt_lstm_scan_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(pre), cuda_lib.ptr(c),
             cuda_lib.ptr(c_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
             cuda_lib.ptr(dpre), cuda_lib.ptr(d_x), cuda_lib.ptr(db), T, B,
             D, H, int(bool(reverse)), *rnn_plan.c_args(plan),
-            cuda_lib.stream(dev))
+            gemm.c_args(gplans), cuda_lib.stream(dev))
         rnn_plan.count(lstm_scan_bwd, plan)
+        gemm.count(gplans)
     cuda_lib.check(lib, err, what + " kernel")
     return dpre if iW is None else (dpre, d_x)
 

@@ -31,7 +31,11 @@ below ~450) against the forced L2 instance: 1e-4 (it sums over k in
 slices; the L2 instance, still taken at H=512, in one chain).  The
 backward chains' cluster instance against its twins and the forced L2
 instance: 1e-4 relative, as the backwards (each unit's partials summed
-in rank order).
+in rank order).  The two GEMMs (ops/gemm.py), each instance: within
+1e-5 of the largest output of their twins (torch.matmul on the card,
+TF32 off) and of an f64 product (3xTF32 drops 2^-22 of a product; the
+f32 sums over slices of up to 51,200 rows stay under 1e-5 of the
+largest), the atb partials bitwise equal from run to run.
 """
 
 import math
@@ -40,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from taiyaki_tpu_torch.ops import crf, gru, lstm, logz, rnn, rnn_plan
+from taiyaki_tpu_torch.ops import crf, gemm, gru, lstm, logz, rnn, rnn_plan
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1071,3 +1075,179 @@ def test_bwd_cluster_kernel_refuses_a_bad_plan(dev, monkeypatch):
             fn(*args, **kw)
     monkeypatch.setattr(rnn_plan, "bwd_plan", lambda *a, **k: good)
     _check_partials(fn(*args, **kw), plain(*args, **kw))
+
+
+# The two GEMMs (ops/gemm.py, csrc/gemm.cuh): (M, N, K) of the gate product
+# and (N1, N2, K rows, B) of the atb product at the repo's cells (mLstm
+# and mGru training, the trainer defaults at size 384, the basecall batch,
+# the remap model's H=96) and at ragged widths (D = 7, H = 17: the simt
+# instance), each on both instances where TMA takes it.
+GEMM_GATE_SHAPES = [(204800, 1024, 256), (204800, 256, 1024),
+                    (512000, 768, 256), (204600, 1536, 384),
+                    (204600, 384, 1536), (128000, 1024, 256),
+                    (256000, 384, 96), (256000, 96, 384), (481, 64, 7),
+                    (481, 7, 64), (100, 51, 17), (1000, 300, 100),
+                    (129, 8, 4)]
+GEMM_ATB_SHAPES = [(1024, 256, 204800, 256), (768, 256, 512000, 256),
+                   (1536, 384, 204600, 341), (384, 96, 256000, 256),
+                   (64, 7, 481, 13), (51, 17, 100, 5), (132, 260, 4100, 41)]
+GEMM_TOL = 1e-5   # of the largest |output|
+
+
+def _gemm_rel(got, want):
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+def _gemm_instances(kind, M, N, K):
+    return ("simt", "tc") if gemm.tc_takes(kind, M, N, K) else ("simt",)
+
+
+@pytest.mark.parametrize("shape", GEMM_GATE_SHAPES)
+def test_gate_gemm_instances_match_twin_and_f64(dev, shape):
+    """Each instance within GEMM_TOL of its twin (torch.matmul on the
+    card) and of an f64 product, with bias, and added onto a C (the
+    recomputing LSTM backward's second product); small shapes also with
+    neither."""
+    M, N, K = shape
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    A = torch.randn(M, K, device=dev, generator=g)
+    W = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+    bias = torch.randn(N, device=dev, generator=g)
+    C = torch.randn(M, N, device=dev, generator=g)
+    cases = [(bias, None), (bias, C)]
+    if M * N * K < 1e9:
+        cases.append((None, None))
+    for b, c in cases:
+        ref = A.double() @ W.double().t()
+        ref = ref + (0 if b is None else b.double()) + (
+            0 if c is None else c.double())
+        want = gemm.gate_gemm_plain(A, W, b, c)
+        for inst in _gemm_instances(gemm.GATE, M, N, K):
+            n = _counts(gemm.gate_gemm)
+            got = gemm.gate_gemm(A, W, b, None if c is None else c.clone(),
+                                 instance=inst)
+            torch.cuda.synchronize()
+            assert _counts(gemm.gate_gemm) == dict(n, **{inst: n[inst] + 1})
+            assert got.shape == (M, N)
+            assert _gemm_rel(got, want) < GEMM_TOL, (inst, b is None, c)
+            assert _gemm_rel(got, ref) < GEMM_TOL, inst
+            del got
+        del ref, want
+
+
+@pytest.mark.parametrize("shape", GEMM_ATB_SHAPES)
+def test_atb_gemm_instances_match_twin_and_f64(dev, shape):
+    """Each instance's partials within GEMM_TOL of the twin's on the same
+    slices, their sum of an f64 product, at shifts -B, 0 and +B (rows of
+    B read across the slices' edges and past both ends as zero), on the
+    plan's slices, and the tc instance also on 5 asked for (slices of up
+    to 102,400 rows; the simt kernel's f32 FMA chain, its plan's slices at
+    most 16,000 rows, drifts past 1e-5 of the largest output on slices of
+    40,960)."""
+    N1, N2, K, B = shape
+    g = torch.Generator(device=dev).manual_seed(N1 + N2 + K)
+    A = torch.randn(K, N1, device=dev, generator=g)
+    Bm = torch.randn(K, N2, device=dev, generator=g)
+    sms = gemm.card_sms(torch.cuda.current_device())
+    for shift in (-B, 0, B):
+        ref = A.double().t() @ gemm.shifted(Bm, shift).double()
+        for inst in _gemm_instances(gemm.ATB, N1, N2, K):
+            for nsplit in ((None, 5) if inst == "tc" else (None,)):
+                plan = gemm.gemm_plan(N1, N2, K, gemm.ATB, sms, inst,
+                                      nsplit)
+                n = _counts(gemm.atb_gemm)
+                got = gemm.atb_gemm(A, Bm, shift, nsplit, instance=inst)
+                torch.cuda.synchronize()
+                assert _counts(gemm.atb_gemm) == dict(
+                    n, **{inst: n[inst] + 1})
+                assert got.shape == (plan.nsplit, N1, N2)
+                want = gemm.atb_gemm_plain(A, Bm, shift, plan.nsplit,
+                                           plan.kslice)
+                assert _gemm_rel(got, want) < GEMM_TOL, (inst, shift)
+                assert _gemm_rel(got.sum(0), ref) < GEMM_TOL, (inst, shift)
+                del got, want
+
+
+def test_atb_gemm_repeats_bit_for_bit(dev):
+    A = torch.randn(51200, 1024, device=dev)
+    Bm = torch.randn(51200, 256, device=dev)
+    first = gemm.atb_gemm(A, Bm, -256)
+    assert torch.equal(first, gemm.atb_gemm(A, Bm, -256))
+
+
+def test_gemms_reject_bad_input(dev):
+    A = torch.randn(64, 32, device=dev)
+    W = torch.randn(48, 32, device=dev)
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A.t(), W)                     # not contiguous
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A, W[:, :16].contiguous())    # K differs
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A.double(), W)
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A, W, torch.randn(47, device=dev))
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A, W, C=torch.randn(64, 47, device=dev))
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A, W.cpu())
+    with pytest.raises(ValueError):
+        gemm.atb_gemm(A, W)                          # rows differ
+    with pytest.raises(ValueError):                  # TMA cannot take D=7
+        gemm.gate_gemm(torch.randn(64, 7, device=dev),
+                       torch.randn(48, 7, device=dev), instance="tc")
+
+
+def test_gemm_entry_points_refuse_a_bad_plan(dev):
+    """The C side checks each plan before any launch: an atb slice that is
+    not whole k tiles, slices that leave rows out or an empty slice, a
+    simt slice length that is not ceil(K / nsplit), a tc plan on rows of
+    7 floats or on a base off 16 bytes, an unknown instance, no CTAs:
+    cudaErrorInvalidValue (1), and the output untouched."""
+    from taiyaki_tpu_torch.ops import cuda_lib
+    lib = cuda_lib.load("gemm", gemm._SIGNATURES)
+    st = torch.cuda.current_stream().cuda_stream
+    K, N1, N2 = 1000, 64, 32
+    A = torch.randn(K + 1, N1, device=dev)
+    B = torch.randn(K, N2, device=dev)
+    good = gemm.gemm_plan(N1, N2, K, gemm.ATB, 132, "tc", 3)
+    out = torch.zeros(8, N1, N2, device=dev)
+    for bad in (good._replace(kslice=good.kslice + 1),
+                good._replace(nsplit=good.nsplit - 1),
+                good._replace(nsplit=good.nsplit + 1),
+                good._replace(instance="simt"), good._replace(ctas=0)):
+        assert lib.tt_atb_gemm(A.data_ptr(), B.data_ptr(), out.data_ptr(),
+                               K, N1, N2, 0, gemm.c_args([bad]), st) == 1
+    assert lib.tt_atb_gemm(A.data_ptr() + 4, B.data_ptr(), out.data_ptr(),
+                           K, N1, N2, 0, gemm.c_args([good]), st) == 1
+    unknown = gemm.c_args([good])
+    unknown[0] = 2
+    assert lib.tt_atb_gemm(A.data_ptr(), B.data_ptr(), out.data_ptr(), K,
+                           N1, N2, 0, unknown, st) == 1
+    Ar = torch.randn(100, 7, device=dev)
+    Wr = torch.randn(9, 7, device=dev)
+    tc = gemm.gemm_plan(100, 9, 8, gemm.GATE, 132, "tc")
+    assert lib.tt_gate_gemm(Ar.data_ptr(), Wr.data_ptr(), None,
+                            out.data_ptr(), 100, 9, 7, 0, gemm.c_args([tc]),
+                            st) == 1
+    torch.cuda.synchronize()
+    assert not out.any()
+    assert lib.tt_atb_gemm(A.data_ptr(), B.data_ptr(), out.data_ptr(), K,
+                           N1, N2, 0, gemm.c_args([good]), st) == 0
+    torch.cuda.synchronize()
+    assert out.any()
+
+
+def test_layers_count_their_gemms_by_instance(dev):
+    """A layer's products go to the plan's instance: at D=7 the input
+    product (K=7) and d_iW (N2=7) take the simt instance, the rest tc."""
+    T, B, D, H = 37, 13, 7, 16
+    args = _lstm_bwd_inputs((T, B, D, H), False, dev)
+    gates, atbs = _counts(gemm.gate_gemm), _counts(gemm.atb_gemm)
+    lstm.lstm_fwd(*[a.to(dev) for a in _lstm_inputs(T, B, D, H)])
+    lstm.lstm_bwd_acts(*args)
+    torch.cuda.synchronize()
+    assert _counts(gemm.gate_gemm) == dict(simt=gates["simt"] + 1,
+                                           tc=gates["tc"] + 1)
+    assert _counts(gemm.atb_gemm) == dict(simt=atbs["simt"] + 1,
+                                          tc=atbs["tc"] + 1)
