@@ -27,32 +27,26 @@
 //
 // The TPU kernels select scores with one-hot matrix products because
 // gathers were slow there (ops/flipflop.py:146-153); here lp[t, b, :]
-// (S floats) is staged in shared memory each step and indexed directly
-// with the indices each thread holds in registers.
+// (S floats) is staged in shared memory and indexed directly.
 //
-// Layout: one block of 256 threads per batch row, P positions per thread
-// (l = tid + p*256, P in 1, 2, 4, 8, 16, 32 by L, so L <= 8192; the
+// Forward layout: one block of 256 threads per batch row, P positions per
+// thread (l = tid + p*256, P in 1, 2, 4, 8, 16, 32 by L, so L <= 8192; the
 // mGru default chunk range needs L <= 3637, P = 16).  The per-position
 // indices stay in registers; at P = 32 they outgrow the 255 a thread may
 // hold and the compiler spills the rest to local memory (cached in L1),
-// which costs time, not correctness.  The state vector lives in
-// shared memory, double-buffered and stored before renormalisation: the
-// step's max is only known after a block-wide reduction, and the next step
+// which costs time, not correctness.  The state vector lives in shared
+// memory, double-buffered and stored before renormalisation: the step's
+// max is only known after a block-wide reduction, and the next step
 // subtracts it when it reads the vector, so each forward step needs one
-// barrier.  The backward needs two: the max of the terms (with the max of
-// the new state) and then the sum of the exponentials.  Its scatter of
-// posteriors into S bins uses shared-memory atomics on unnormalised
-// exponentials (exact zeros skipped), divided by the sum afterwards; the
-// order of those float additions varies from run to run.
-//
-// Shared memory: 2L + a few dozen floats, 64 KB at L = 8192, under the
-// 227 KB a block may use.
-//
+// barrier.  Shared memory: 2L + a few dozen floats, 64 KB at L = 8192.
 // Bound: the serial chain of T steps of a few hundred cycles each (loads,
-// block reductions, exp/log), not bytes: at T=800, B=256, L=512 the lattice
-// is 0.42 GB, ~0.13 ms of device-memory time, while the chain is
+// block reductions, exp/log), not bytes: at T=800, B=256, L=512 the
+// lattice is 0.42 GB, ~0.13 ms of device-memory time, while the chain is
 // milliseconds.  B blocks run side by side, so B >= 132 fills the card.
 //
+// The backward (kernel 6) keeps the same chain, one barrier a step, and
+// takes the posteriors off it: see crf_bwd_kernel.
+
 // Kernels 9-10 (tt_crf_fwd_streams, tt_crf_bwd_posteriors) replace the
 // unfused TPU kernels pallas_crf.py:108 `crf_forward` and pallas_crf.py:218
 // `crf_backward_posteriors`: the same recursions on pre-selected f32 score
@@ -232,151 +226,498 @@ crf_fwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
     if (tid == 0) score_out[b] = score;
 }
 
-template <int P>
-__global__ void __launch_bounds__(THREADS)
+// ---- kernel 6: the backward, its posteriors off the chain ----------------
+//
+// Replaces pallas_crf.py:565 `crf_backward_fused`.  The chain does only
+// the backward recursion: per step, new[l] = logaddexp(stay[l] + bwd[l],
+// move[l] + bwd[l+1]) over the positions, then its block max, one
+// barrier.  Its
+// unrenormalised vectors go into a ring of K + 1 in shared memory with
+// their normalisers, and every K steps (a batch) the block forms those K
+// steps' posteriors at once, in parallel, off the chain:
+//   pass A  each position's stay and move terms, (fc + bwd) + score, fc
+//           the forward lattice row (copied in by cp.async while the chain
+//           ran), the stay term in place of fc, the move term in a
+//           register; each step's largest term; one barrier;
+//   exp     each position's own two exponentials, in place: the stay one
+//           over its term, the move one over the position's entry of its
+//           step's vector (every read of the vectors is done); one barrier;
+//   pass B  each (step, chunk) sum of those exponentials over the
+//           contributions to one column of d lp, grouped once per row at
+//           the start by a stable counting sort (column, then position,
+//           then stay / move / weighted mod), chunks of CHUNK entries, each
+//           chunk summed in its order by one thread;
+//   grad    one warp a step: the denominator (every chunk's stay and move
+//           sums, lanes strided then a butterfly), each column the sum of
+//           its chunks in order, divided, stored.
+// No float atomics: every sum is taken in an order fixed by the row's
+// indices, so d lp is bitwise the same from run to run.  The indices
+// live in shared memory (one packed word and the mod weight a position),
+// not in registers, so L = 8192 spills nothing.  A batch's lp rows are
+// copied in by cp.async (4 bytes each: an lp row of S = 46 is 184 bytes)
+// one batch ahead, its lattice rows (16 bytes each where L is a multiple
+// of 4, else 4) during its chain, so the chain never waits on device
+// memory.
+//
+// Bound: the chain (T steps of a logaddexp and a block max) and the
+// passes' arithmetic (~2L exponentials a step, issued beside the chain of
+// the SM's other block); bytes (lp read, d lp written, the lattice read
+// once: 0.11 ms at T=800, B=256, L=512) are far below.  K is 16 where
+// two blocks fit an SM's shared memory and the move terms KR x P <= 32
+// registers (L <= 512), fewer past that (1 at L = 8192); threads: 256,
+// or 512 past 2048 positions.  probes/posteriors.py times its phases.
+
+// entries of a column list a chunk: odd, so that the chunks a warp's lanes
+// sum start in different shared-memory banks
+constexpr int CHUNK = 31;
+constexpr int BWD_BATCH = 16;      // steps a batch, where shared memory allows
+constexpr size_t BWD_SMEM_SHARED = 100 * 1024;   // two blocks an SM
+constexpr size_t BWD_SMEM_MAX = 232448;          // one block an SM
+constexpr unsigned OK_BIT = 1u << 24, MOK_BIT = 1u << 25;
+
+__host__ __device__ inline int bwd_chunks(int L, int S)
+{
+    return (3 * L + CHUNK - 1) / CHUNK + S + 1;
+}
+
+// byte offsets of the backward's shared memory, each 16-byte aligned
+struct BwdLayout {
+    size_t parts, ring, fcs, prevs, lps, red_c, red_a, mf, pw, off, choff,
+        cnt, chst, ent, bytes;
+    __host__ __device__ static size_t take(size_t& o, size_t n)
+    {
+        const size_t at = o;
+        o += (n + 15) & ~(size_t)15;
+        return at;
+    }
+    __host__ __device__ BwdLayout(int L, int S, int K, int NW)
+    {
+        const size_t nch = bwd_chunks(L, S), f = sizeof(float);
+        size_t o = 0;
+        parts = take(o, sizeof(float2) * K * nch);   // [K][nch]
+        // [K+1][L] bwd vectors; a batch's become its move exponentials
+        ring = take(o, f * (K + 1) * L);
+        // [K][L] a batch's lattice rows, then its stay terms, exponentials
+        fcs = take(o, f * K * L);
+        prevs = take(o, f * (K + 1));
+        lps = take(o, f * 2 * K * S);                // [2][K][S]
+        red_c = take(o, f * 2 * NW);
+        red_a = take(o, f * K * NW);
+        mf = take(o, f * L);
+        pw = take(o, sizeof(unsigned) * L);
+        off = take(o, sizeof(int) * (S + 2));
+        choff = take(o, sizeof(int) * (S + 2));
+        cnt = take(o, sizeof(int) * (S + 1));
+        chst = take(o, sizeof(unsigned short) * (nch + 1));
+        ent = take(o, sizeof(unsigned short) * 3 * L);
+        bytes = o;
+    }
+};
+
+// The phase clock of the backward, for probes/posteriors.py: BwdClock<true>
+// sums thread 0's cycles in each phase of a batch (the wait for its lp
+// rows, the chain's arithmetic, the chain's barriers, the wait for its
+// lattice rows, pass A, the exponentials, pass B, the grad rows);
+// BwdClock<false>, the kernel's own, compiles to nothing.
+constexpr int BWD_PHASES = 8;
+
+template <bool ON>
+struct BwdClock {
+    __device__ __forceinline__ void start() {}
+    __device__ __forceinline__ void lap(int) {}
+    __device__ __forceinline__ void store(long long*) {}
+};
+
+template <>
+struct BwdClock<true> {
+    long long sum[BWD_PHASES] = {0, 0, 0, 0, 0, 0, 0, 0};
+    long long last = 0;
+    __device__ __forceinline__ void start() { last = clock64(); }
+    __device__ __forceinline__ void lap(int phase)
+    {
+        const long long now = clock64();
+        sum[phase] += now - last;
+        last = now;
+    }
+    __device__ __forceinline__ void store(long long* out)
+    {
+        if (threadIdx.x == 0)
+            for (int i = 0; i < BWD_PHASES; ++i)
+                out[blockIdx.x * BWD_PHASES + i] = sum[i];
+    }
+};
+
+// column index in [0, S], S for one outside [0, S) (it selects nothing)
+__device__ __forceinline__ unsigned col8(int idx, int S)
+{
+    return (unsigned)idx < (unsigned)S ? (unsigned)idx : (unsigned)S;
+}
+
+// which of position l's contributions (bit 0 stay, 1 move, 2 weighted
+// mod) go to column j; column S collects stays and moves whose index
+// selects nothing (they count in the denominator only)
+__device__ __forceinline__ unsigned contributions(unsigned w, float mf, int j,
+                                                  int S)
+{
+    unsigned m = 0;
+    if ((w & OK_BIT) && (w & 0xff) == (unsigned)j) m |= 1;
+    if (w & MOK_BIT) {
+        if (((w >> 8) & 0xff) == (unsigned)j) m |= 2;
+        if (j < S && mf != 0.f && ((w >> 16) & 0xff) == (unsigned)j) m |= 4;
+    }
+    return m;
+}
+
+__device__ __forceinline__ float stay_score(const float* row, unsigned w,
+                                            int S)
+{
+    return pick(row, w & 0xff, S);
+}
+
+// the move's score, with its weighted mod column where one is selected
+// (mod_fold of a column selecting nothing adds fact x 0: the same value)
+__device__ __forceinline__ float move_score(const float* row, unsigned w,
+                                            const float* mf, int S)
+{
+    const float move = pick(row, (w >> 8) & 0xff, S);
+    const unsigned mc = (w >> 16) & 0xff;
+    return mc < (unsigned)S ? mod_fold(move, *mf, row[mc]) : move;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src)
+{
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src)
+{
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// lattice rows of steps s, s + 1, ... (n of them) of row b: 16 bytes a
+// copy where the rows are 16-byte aligned (L a multiple of 4), else 4
+template <int NT>
+__device__ __forceinline__ void copy_lattice(float* dst, const float* lattice,
+                                             int s, int n, int T, int B,
+                                             int L, int b, bool wide)
+{
+    if (wide) {
+        const int q = L / 4;
+        for (int i = threadIdx.x; i < n * q; i += NT) {
+            const int k = i / q, j = i - k * q;
+            cp_async16(dst + k * L + 4 * j,
+                       lattice + ((size_t)(T - 1 - s - k) * B + b) * L
+                           + 4 * j);
+        }
+    } else {
+        for (int i = threadIdx.x; i < n * L; i += NT) {
+            const int k = i / L, j = i - k * L;
+            cp_async4(dst + i,
+                      lattice + ((size_t)(T - 1 - s - k) * B + b) * L + j);
+        }
+    }
+}
+
+// lp rows of steps s, s + 1, ... (n of them; t = T - 1 - s) of row b
+template <int NT>
+__device__ __forceinline__ void copy_rows(float* dst, const float* lp, int s,
+                                          int n, int T, int B, int S, int b)
+{
+    for (int i = threadIdx.x; i < n * S; i += NT) {
+        const int k = i / S, j = i - k * S;
+        cp_async4(dst + i, lp + ((size_t)(T - 1 - s - k) * B + b) * S + j);
+    }
+}
+
+// steps a batch at most, P positions a thread: the move terms of a batch
+// wait in KR x P <= 32 registers (at P = 1, 8 steps: with 16 the compiler
+// kept part of the unrolled batch in local memory)
+__host__ __device__ constexpr int bwd_batch_max(int P)
+{
+    return P == 1 ? 8 : 32 / P < BWD_BATCH ? 32 / P : BWD_BATCH;
+}
+
+template <int NT, int P, bool CLOCK = false>
+__global__ void __launch_bounds__(NT)
 crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                const int* __restrict__ move_idx,
                const int* __restrict__ mod_idx,
                const float* __restrict__ mod_fact,
                const float* __restrict__ lattice,
                const int* __restrict__ valid, const int* __restrict__ lastpos,
-               float* __restrict__ grad, int T, int B, int S, int L)
+               float* __restrict__ grad, int T, int B, int S, int L, int K,
+               long long* __restrict__ cyc)
 {
-    extern __shared__ __align__(16) float smem[];
-    float* state = smem;                       // [2][L], unrenormalised
-    float* lp_s = smem + 2 * L;                // [2][S]
-    float* bins = lp_s + 2 * S;                // [2][S]
-    float* red = bins + 2 * S;                 // [2][2][NWARP]
-    float* sums = red + 4 * NWARP;             // [2][NWARP]
+    constexpr int NW = NT / 32, KR = bwd_batch_max(P);
+    extern __shared__ __align__(16) float smem_f[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+    const BwdLayout lay(L, S, K, NW);
+    float2* parts = reinterpret_cast<float2*>(smem + lay.parts);
+    float* ring = reinterpret_cast<float*>(smem + lay.ring);
+    float* fcs = reinterpret_cast<float*>(smem + lay.fcs);
+    float* prevs = reinterpret_cast<float*>(smem + lay.prevs);
+    float* lps = reinterpret_cast<float*>(smem + lay.lps);
+    float* red_c = reinterpret_cast<float*>(smem + lay.red_c);
+    float* red_a = reinterpret_cast<float*>(smem + lay.red_a);
+    float* mf = reinterpret_cast<float*>(smem + lay.mf);
+    unsigned* pw = reinterpret_cast<unsigned*>(smem + lay.pw);
+    int* off = reinterpret_cast<int*>(smem + lay.off);
+    int* choff = reinterpret_cast<int*>(smem + lay.choff);
+    int* cnt = reinterpret_cast<int*>(smem + lay.cnt);
+    unsigned short* chst = reinterpret_cast<unsigned short*>(smem + lay.chst);
+    unsigned short* ent = reinterpret_cast<unsigned short*>(smem + lay.ent);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int b = blockIdx.x;
     const size_t rowoff = (size_t)b * L;
     const int last = lastpos[b];
+    const int R = K + 1;
+    const bool wide = L % 4 == 0
+        && reinterpret_cast<size_t>(lattice) % 16 == 0;
+    BwdClock<CLOCK> clk;
 
-    // per position: stay column, the move out of it (to l+1), validity
-    int sidx[P], midx[P], mmidx[P];
-    float mfact[P], fc[P];
-    bool ok[P], mok[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-        const int l = tid + p * THREADS;
-        const bool in = l < L;
-        sidx[p] = in ? stay_idx[rowoff + l] : S;
-        midx[p] = in ? move_idx[rowoff + l] : S;
-        mmidx[p] = in ? mod_idx[rowoff + l] : S;
-        mfact[p] = in ? mod_fact[rowoff + l] : 0.f;
-        ok[p] = in && valid[rowoff + l] != 0;
-        mok[p] = ok[p] && l < last && l + 1 < L
+    // per position: the packed columns and flags, the mod weight, the
+    // first vector (ring slot 0); the first batch's lp rows
+    for (int l = tid; l < L; l += NT) {
+        const bool ok = valid[rowoff + l] != 0;
+        const bool mok = ok && l < last && l + 1 < L
             && valid[rowoff + l + 1] != 0;
-        if (in) state[l] = (l == last && ok[p]) ? 0.f : NEG;
-        fc[p] = (in && T > 0)
-            ? lattice[((size_t)(T - 1) * B + b) * L + l] : NEG;
+        pw[l] = col8(stay_idx[rowoff + l], S)
+            | col8(move_idx[rowoff + l], S) << 8
+            | col8(mod_idx[rowoff + l], S) << 16
+            | (ok ? OK_BIT : 0u) | (mok ? MOK_BIT : 0u);
+        mf[l] = mod_fact[rowoff + l];
+        ring[l] = (l == last && ok) ? 0.f : NEG;
     }
-    const size_t tstride = (size_t)B * S;
-    if (tid < S) {
-        if (T > 0) lp_s[tid] = lp[(size_t)(T - 1) * tstride + (size_t)b * S + tid];
-        bins[tid] = 0.f;
-        bins[S + tid] = 0.f;
-    }
+    if (tid == 0) prevs[0] = 0.f;
+    copy_rows<NT>(lps, lp, 0, min(K, T), T, B, S, b);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
     __syncthreads();
 
-    float prev = 0.f;
-    for (int s = 0; s < T; ++s) {
-        const int t = T - 1 - s;
-        const int buf = s & 1;
-        const float* cur = state + buf * L;
-        float* nxt = state + (buf ^ 1) * L;
-        const float* row = lp_s + buf * S;
-        float* bin = bins + buf * S;
-        if (tid < S && t > 0)
-            lp_s[(buf ^ 1) * S + tid] =
-                lp[(size_t)(t - 1) * tstride + (size_t)b * S + tid];
-        float fn[P];
-        float ts[P], tm[P];
-        float mt = NEG, mn = NEG;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const int l = tid + p * THREADS;
-            fn[p] = (l < L && t > 0)
-                ? lattice[((size_t)(t - 1) * B + b) * L + l] : NEG;
-            ts[p] = NEG;
-            tm[p] = NEG;
-            if (l >= L) continue;
-            float nw = NEG;
-            if (ok[p]) {
-                const float bn = cur[l] - prev;
-                const float stay = pick(row, sidx[p], S);
-                ts[p] = fc[p] + bn + stay;
-                float mpart = NEG;
-                if (mok[p]) {
-                    const float move = mod_fold(pick(row, midx[p], S),
-                                                mfact[p],
-                                                pick(row, mmidx[p], S));
-                    const float bs = cur[l + 1] - prev;
-                    // (fc + bwd) + move, in the twin's order: cat_mod
-                    // moves reach tens of nats, so another order rounds
-                    // the posteriors of the weighted mod columns apart
-                    tm[p] = fc[p] + bs + move;
-                    mpart = move + bs;
-                }
-                nw = logaddexpf_(stay + bn, mpart);
-            }
-            nxt[l] = nw;
-            mt = fmaxf(mt, fmaxf(ts[p], tm[p]));
-            mn = fmaxf(mn, nw);
+    // the column lists: warp w counts and then fills columns w, w + NW, ...
+    for (int j = warp; j <= S; j += NW) {
+        int n = 0;
+        for (int base = 0; base < L; base += 32) {
+            const int l = base + lane;
+            const unsigned m = l < L ? contributions(pw[l], mf[l], j, S) : 0;
+            n += __reduce_add_sync(FULL, __popc(m));
         }
-        mt = warp_max(mt);
-        mn = warp_max(mn);
-        if (lane == 0) {
-            red[buf * 2 * NWARP + warp] = mt;
-            red[buf * 2 * NWARP + NWARP + warp] = mn;
-        }
-        __syncthreads();
-        float tmax = red[buf * 2 * NWARP], factor = red[buf * 2 * NWARP + NWARP];
-#pragma unroll
-        for (int w = 1; w < NWARP; ++w) {
-            tmax = fmaxf(tmax, red[buf * 2 * NWARP + w]);
-            factor = fmaxf(factor, red[buf * 2 * NWARP + NWARP + w]);
-        }
-        float part = 0.f;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const float es = ts[p] > 0.5f * NEG ? expf(ts[p] - tmax) : 0.f;
-            const float em = tm[p] > 0.5f * NEG ? expf(tm[p] - tmax) : 0.f;
-            if (es > 0.f && (unsigned)sidx[p] < (unsigned)S)
-                atomicAdd(&bin[sidx[p]], es);
-            if (em > 0.f) {
-                if ((unsigned)midx[p] < (unsigned)S)
-                    atomicAdd(&bin[midx[p]], em);
-                if (mfact[p] != 0.f && (unsigned)mmidx[p] < (unsigned)S)
-                    atomicAdd(&bin[mmidx[p]], mfact[p] * em);
-            }
-            part += es + em;
-            fc[p] = fn[p];
-        }
-        part = warp_sum(part);
-        if (lane == 0) sums[buf * NWARP + warp] = part;
-        __syncthreads();
-        if (tid < S) {
-            float den = 0.f;
-#pragma unroll
-            for (int w = 0; w < NWARP; ++w) den += sums[buf * NWARP + w];
-            den = den > 0.f ? den : 1.f;
-            grad[(size_t)t * tstride + (size_t)b * S + tid] = bin[tid] / den;
-            bin[tid] = 0.f;
-        }
-        prev = factor;
+        if (lane == 0) cnt[j] = n;
     }
+    __syncthreads();
+    if (tid == 0) {
+        int run = 0, crun = 0;
+        for (int j = 0; j <= S; ++j) {
+            off[j] = run;
+            choff[j] = crun;
+            run += cnt[j];
+            crun += (cnt[j] + CHUNK - 1) / CHUNK;
+        }
+        off[S + 1] = run;
+        choff[S + 1] = crun;
+        chst[crun] = (unsigned short)run;
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1;
+    for (int j = warp; j <= S; j += NW) {
+        int at = off[j];
+        for (int base = 0; base < L; base += 32) {
+            const int l = base + lane;
+            const unsigned m = l < L ? contributions(pw[l], mf[l], j, S) : 0;
+            const unsigned b0 = __ballot_sync(FULL, m & 1);
+            const unsigned b1 = __ballot_sync(FULL, m & 2);
+            const unsigned b2 = __ballot_sync(FULL, m & 4);
+            int r = at + __popc(b0 & below) + __popc(b1 & below)
+                + __popc(b2 & below);
+            if (m & 1) ent[r++] = (unsigned short)(4 * l);
+            if (m & 2) ent[r++] = (unsigned short)(4 * l + 1);
+            if (m & 4) ent[r] = (unsigned short)(4 * l + 2);
+            at += __popc(b0) + __popc(b1) + __popc(b2);
+        }
+        for (int q = choff[j] + lane; q < choff[j + 1]; q += 32)
+            chst[q] = (unsigned short)(off[j] + (q - choff[j]) * CHUNK);
+    }
+
+    const int nch_max = bwd_chunks(L, S);
+    const size_t tstride = (size_t)B * S;
+    float prev = 0.f;
+    int slot = 0;           // ring slot of the chain's current vector
+    clk.start();
+    for (int s0 = 0; s0 < T; s0 += K) {
+        const int n = min(K, T - s0);
+        const int slot0 = slot;
+        const float* rows = lps + ((s0 / K) & 1) * K * S;
+        // this batch's lp rows have landed (and the last batch's passes
+        // are done); its lattice rows and the next batch's lp rows start,
+        // to land while the chain runs
+        cp_async_wait_all();
+        __syncthreads();
+        copy_lattice<NT>(fcs, lattice, s0, n, T, B, L, b, wide);
+        if (s0 + K < T)
+            copy_rows<NT>(lps + (((s0 / K) & 1) ^ 1) * K * S, lp, s0 + K,
+                          min(K, T - s0 - K), T, B, S, b);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        clk.lap(0);
+
+        // the chain
+        for (int k = 0; k < n; ++k) {
+            const int next = slot + 1 == R ? 0 : slot + 1;
+            const float* cur = ring + (size_t)slot * L;
+            float* nxt = ring + (size_t)next * L;
+            const float* row = rows + k * S;
+            float mn = NEG;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const int l = tid + p * NT;
+                if (l >= L) continue;
+                const unsigned w = pw[l];
+                float nw = NEG;
+                if (w & OK_BIT) {
+                    const float bn = cur[l] - prev;
+                    const float stay = stay_score(row, w, S);
+                    float mpart = NEG;
+                    if (w & MOK_BIT)
+                        mpart = move_score(row, w, mf + l, S)
+                            + (cur[l + 1] - prev);
+                    nw = logaddexpf_(stay + bn, mpart);
+                }
+                nxt[l] = nw;
+                mn = fmaxf(mn, nw);
+            }
+            mn = warp_max(mn);
+            if (lane == 0) red_c[(k & 1) * NW + warp] = mn;
+            clk.lap(1);
+            __syncthreads();
+            float f = red_c[(k & 1) * NW];
+#pragma unroll
+            for (int w = 1; w < NW; ++w) f = fmaxf(f, red_c[(k & 1) * NW + w]);
+            prev = f;
+            if (tid == 0) prevs[next] = f;
+            slot = next;
+            clk.lap(2);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        clk.lap(3);
+
+        // pass A: each position's stay and move terms, (fc + bwd) + score in
+        // the twin's order (cat_mod moves reach tens of nats, and another
+        // order rounds the posteriors of the weighted mod columns apart),
+        // the stay term in place of its lattice value, the move term in a
+        // register; each step's largest term
+        float tmv[KR][P];
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+            if (k >= n) continue;
+            const int sk = slot0 + k < R ? slot0 + k : slot0 + k - R;
+            const float* cur = ring + (size_t)sk * L;
+            const float pv = prevs[sk];
+            const float* row = rows + k * S;
+            float* fcr = fcs + k * L;
+            float mt = NEG;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const int l = tid + p * NT;
+                tmv[k][p] = NEG;
+                if (l >= L) continue;
+                const unsigned w = pw[l];
+                float ts = NEG;
+                if (w & OK_BIT) {
+                    const float fc = fcr[l];
+                    ts = fc + (cur[l] - pv) + stay_score(row, w, S);
+                    if (w & MOK_BIT)
+                        tmv[k][p] = fc + (cur[l + 1] - pv)
+                            + move_score(row, w, mf + l, S);
+                }
+                fcr[l] = ts;
+                mt = fmaxf(mt, fmaxf(ts, tmv[k][p]));
+            }
+            mt = warp_max(mt);
+            if (lane == 0) red_a[k * NW + warp] = mt;
+        }
+        __syncthreads();
+        clk.lap(4);
+
+        // every read of the batch's vectors is done: each position's
+        // exponentials, the stay one in place, the move one into the
+        // position's entry of its step's vector (only this thread reads
+        // either from here on)
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+            if (k >= n) continue;
+            const int sk = slot0 + k < R ? slot0 + k : slot0 + k - R;
+            float tmax = red_a[k * NW];
+#pragma unroll
+            for (int w = 1; w < NW; ++w) tmax = fmaxf(tmax, red_a[k * NW + w]);
+            float* es = fcs + k * L;
+            float* em = ring + (size_t)sk * L;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const int l = tid + p * NT;
+                if (l >= L) continue;
+                const float ts = es[l], tm = tmv[k][p];
+                es[l] = ts > 0.5f * NEG ? expf(ts - tmax) : 0.f;
+                em[l] = tm > 0.5f * NEG ? expf(tm - tmax) : 0.f;
+            }
+        }
+        __syncthreads();
+        clk.lap(5);
+
+        // pass B: every (step, chunk): the stay and move exponentials and
+        // the weighted mod ones, summed apart in the chunk's order
+        const int nch = choff[S + 1];
+        for (int task = tid; task < n * nch; task += NT) {
+            const int k = task / nch, q = task - k * nch;
+            const float* es = fcs + k * L;
+            const float* em = ring
+                + (size_t)(slot0 + k < R ? slot0 + k : slot0 + k - R) * L;
+            float a = 0.f, c = 0.f;
+            const int e1 = chst[q + 1];
+#pragma unroll 4
+            for (int e = chst[q]; e < e1; ++e) {
+                const int l = ent[e] >> 2, kind = ent[e] & 3;
+                const float v = kind == 0 ? es[l] : em[l];
+                const bool mod = kind == 2;
+                a += mod ? 0.f : v;
+                c += mod ? mf[l] * v : 0.f;
+            }
+            parts[k * nch_max + q] = make_float2(a, c);
+        }
+        __syncthreads();
+        clk.lap(6);
+
+        // the batch's rows of d lp: one warp a step
+        for (int k = warp; k < n; k += NW) {
+            const float2* pk = parts + k * nch_max;
+            float den = 0.f;
+            for (int q = lane; q < nch; q += 32) den += pk[q].x;
+            den = warp_sum(den);
+            // a row with no path gets all-zero posteriors
+            den = den > 0.f ? den : 1.f;
+            float* g = grad + (size_t)(T - 1 - s0 - k) * tstride
+                + (size_t)b * S;
+            for (int j = lane; j < S; j += 32) {
+                float sum = 0.f;
+                for (int q = choff[j]; q < choff[j + 1]; ++q)
+                    sum += pk[q].x + pk[q].y;
+                g[j] = sum / den;
+            }
+        }
+        clk.lap(7);
+    }
+    if (CLOCK) clk.store(cyc);
 }
 
 template <int P>
 size_t fwd_smem(int S, int L) { return sizeof(float) * (2 * L + 2 * S + 2 * NWARP); }
-
-template <int P>
-size_t bwd_smem(int S, int L)
-{
-    return sizeof(float) * (2 * L + 4 * S + 6 * NWARP);
-}
 
 template <int P>
 int launch_fwd(const float* lp, const int* sidx, const int* midx,
@@ -397,23 +738,39 @@ int launch_fwd(const float* lp, const int* sidx, const int* midx,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int P>
+template <int NT, int P, bool CLOCK>
 int launch_bwd(const float* lp, const int* sidx, const int* midx,
                const int* mmidx, const float* mfact, const float* lattice,
                const int* valid, const int* last, float* grad, int T, int B,
-               int S, int L, cudaStream_t st)
+               int S, int L, int K, long long* cyc, cudaStream_t st)
 {
-    const size_t smem = bwd_smem<P>(S, L);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            crf_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    crf_bwd_kernel<P><<<B, THREADS, smem, st>>>(lp, sidx, midx, mmidx, mfact,
-                                                lattice, valid, last, grad,
-                                                T, B, S, L);
+    const size_t smem = BwdLayout(L, S, K, NT / 32).bytes;
+    if (smem > BWD_SMEM_MAX || K > bwd_batch_max(P))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = cudaFuncSetAttribute(
+        crf_bwd_kernel<NT, P, CLOCK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    crf_bwd_kernel<NT, P, CLOCK><<<B, NT, smem, st>>>(
+        lp, sidx, midx, mmidx, mfact, lattice, valid, last, grad, T, B, S, L,
+        K, cyc);
     return static_cast<int>(cudaGetLastError());
+}
+
+int bwd_threads(int L) { return L <= 2048 ? 256 : 512; }
+
+// the steps a batch: at most BWD_BATCH and the registers' KR (by the
+// positions a thread), fewer where the ring would not fit the block's
+// shared memory (two blocks an SM up to 2048 positions, one past that)
+int bwd_batch(int T, int S, int L)
+{
+    const int NT = bwd_threads(L), NW = NT / 32, P = (L + NT - 1) / NT;
+    const size_t budget = L <= 2048 ? BWD_SMEM_SHARED : BWD_SMEM_MAX;
+    int k = bwd_batch_max(P < 2 ? 1 : P <= 2 ? 2 : P <= 4 ? 4 : P <= 8 ? 8
+                          : 16);
+    if (T < k) k = T > 1 ? T : 1;
+    while (k > 1 && BwdLayout(L, S, k, NW).bytes > budget) --k;
+    return k;
 }
 
 // ---- kernels 9-10: the recursions on selected score streams --------------
@@ -836,6 +1193,31 @@ crf_bwd_posteriors_gmem_kernel(const float* __restrict__ stay,
     if (L <= 16384) return CALL(1024, 16);                      \
     return static_cast<int>(cudaErrorInvalidValue);
 
+// tt_crf_bwd with K steps a batch (K <= 0: bwd_batch's); with CLOCK, the
+// phase clock's cycles into cyc [B][BWD_PHASES]
+template <bool CLOCK>
+int crf_bwd_dispatch(const float* lp, const int* sidx, const int* midx,
+                     const int* mmidx, const float* mfact,
+                     const float* lattice, const int* valid, const int* last,
+                     float* grad, int T, int B, int S, int L, int K,
+                     long long* cyc, cudaStream_t st)
+{
+    if (B == 0 || T == 0) return 0;
+    if (S > MAX_S || L == 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (K <= 0) K = bwd_batch(T, S, L);
+#define TT_BWD(NT, P) launch_bwd<NT, P, CLOCK>(                          \
+        lp, sidx, midx, mmidx, mfact, lattice, valid, last, grad, T, B, S, \
+        L, K, cyc, st)
+    if (L <= 256) return TT_BWD(256, 1);
+    if (L <= 512) return TT_BWD(256, 2);
+    if (L <= 1024) return TT_BWD(256, 4);
+    if (L <= 2048) return TT_BWD(256, 8);
+    if (L <= 4096) return TT_BWD(512, 8);
+    if (L <= 8192) return TT_BWD(512, 16);
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef TT_BWD
+}
+
 #define TT_P_CASES(CALL)                                        \
     if (L <= THREADS) return CALL(1);                           \
     if (L <= 2 * THREADS) return CALL(2);                       \
@@ -876,13 +1258,16 @@ int tt_crf_bwd(const float* lp, const int* sidx, const int* midx,
                const int* valid, const int* last, float* grad, int T, int B,
                int S, int L, void* stream)
 {
-    if (B == 0 || T == 0) return 0;
-    if (S > MAX_S || L == 0) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TT_BWD(P) launch_bwd<P>(lp, sidx, midx, mmidx, mfact, lattice, \
-                                valid, last, grad, T, B, S, L, st)
-    TT_P_CASES(TT_BWD)
-#undef TT_BWD
+    return crf_bwd_dispatch<false>(lp, sidx, midx, mmidx, mfact, lattice,
+                                   valid, last, grad, T, B, S, L, 0, nullptr,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// the steps a batch of tt_crf_bwd at this shape
+int tt_crf_bwd_batch(int T, int B, int S, int L)
+{
+    (void)B;
+    return bwd_batch(T, S, L);
 }
 
 // stay, move [T, B, L]; valid [B, L] int32 -> fwd_final [B, L], score [B]

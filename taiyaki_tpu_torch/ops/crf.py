@@ -22,6 +22,11 @@ no padding.
 Impossible states hold NEG = -1e30 as in the JAX package's scan, so a row
 with no path keeps finite values and gets all-zero posteriors.
 
+The fused backward (kernel 6) runs the backward recursion alone on its
+serial chain and forms each batch of steps' posteriors off it, summing
+them into the columns of d lp in an order fixed by the row's indices, so
+its d lp is bitwise the same from run to run (csrc/crf.cu).
+
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
 """
@@ -31,7 +36,7 @@ import torch
 from taiyaki_tpu_torch.ops import cuda_lib
 
 NEG = -1e30
-MAX_L = 8192     # 256 threads x up to 32 positions each (csrc/crf.cu)
+MAX_L = 8192     # the fused kernels' widest lattice (csrc/crf.cu)
 MAX_S = 128
 # kernels 9-10 keep a row's lattice vector in shared memory up to this
 # many positions (1024 threads x 16), in device memory past it
@@ -39,6 +44,7 @@ MAX_L_STREAMS = 16384
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],
                "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P],
+               "tt_crf_bwd_batch": [_I] * 4,
                "tt_crf_fwd_streams": [_P] * 7 + [_I] * 3 + [_P],
                "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P]}
 
@@ -219,6 +225,61 @@ def crf_bwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, lattice,
         crf_bwd.launches += 1
     cuda_lib.check(lib, err, "crf_bwd kernel")
     return grad
+
+
+# entries a chunk of the backward kernel's column lists (csrc/crf.cu CHUNK)
+BWD_CHUNK = 31
+
+
+def column_lists(stay_idx, move_idx, modmove_idx, modmove_fact, valid, last,
+                 S):
+    """One row's contributions to the columns of d lp, grouped as the
+    backward kernel groups them once per row (csrc/crf.cu): a stable
+    counting sort by column, then position, then kind (0 the stay, 1 the
+    move, 2 the weighted mod column), column S collecting the stays and
+    moves whose index selects nothing (they count in the denominator
+    only); each column's list cut into chunks of BWD_CHUNK entries.  Kept
+    to test the grouping on the CPU; nothing on the main path calls it.
+
+    Args:
+        stay_idx, move_idx, modmove_idx, modmove_fact, valid: [L] tensors
+            of one row, as `crf_bwd` takes them; last: its final position.
+
+    Returns:
+        (ent [n] int64: 4 * position + kind, in list order; off [S + 2]:
+         each column's first entry; choff [S + 2]: its first chunk; chst
+         [nchunks + 1]: each chunk's first entry, then n).
+    """
+    L = stay_idx.shape[0]
+    pos = torch.arange(L)
+    ok = valid != 0
+    ok_next = torch.cat([ok[1:], torch.zeros(1, dtype=torch.bool)])
+    mok = ok & (pos < int(last)) & ok_next
+
+    def col(idx):
+        idx = idx.long()
+        return torch.where((idx >= 0) & (idx < S), idx, torch.full_like(
+            idx, S))
+
+    mod = mok & (modmove_fact != 0) & (col(modmove_idx) < S)
+    cols = torch.cat([col(stay_idx)[ok], col(move_idx)[mok],
+                      col(modmove_idx)[mod]])
+    ent = torch.cat([4 * pos[ok], 4 * pos[mok] + 1, 4 * pos[mod] + 2])
+    order = torch.argsort(cols * 4 * L + ent, stable=True)
+    ent = ent[order]
+    cnt = torch.bincount(cols, minlength=S + 1)
+    off = torch.cat([torch.zeros(1, dtype=torch.int64), cnt.cumsum(0)])
+    nch = (cnt + BWD_CHUNK - 1) // BWD_CHUNK
+    choff = torch.cat([torch.zeros(1, dtype=torch.int64), nch.cumsum(0)])
+    chst = [int(off[j]) + i * BWD_CHUNK for j in range(S + 1)
+            for i in range(int(nch[j]))]
+    return ent, off, choff, torch.tensor(chst + [len(ent)])
+
+
+def bwd_batch(T, B, S, L):
+    """The steps a batch of the backward kernel at this shape: the ring of
+    backward vectors whose posteriors it forms at once, off its chain."""
+    return cuda_lib.load("crf", _SIGNATURES).tt_crf_bwd_batch(T, B, S, L)
 
 
 crf_fwd.launches = 0

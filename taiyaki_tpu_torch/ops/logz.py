@@ -15,6 +15,13 @@ and flop stays (src >= nbase).
 A row with no path (every transition impossible, -inf) keeps -inf
 vectors, logZ -inf and all-zero posteriors instead of NaN.
 
+The posteriors' kernels cut T into segments of K steps (csrc/logz.cu):
+each segment's NFF x NFF transfer in parallel, a serial pass over the
+segments for the backward vector at each segment's end, then each
+segment's steps rerun from it in parallel.  `logz_posteriors_segmented`
+is a plain mirror of that arithmetic, held against the twin by the CPU
+tests; nothing on the main path calls it.
+
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
 """
@@ -29,7 +36,9 @@ from taiyaki_tpu_torch.ops import cuda_lib
 MAX_NBASE = 8   # kernels are instantiated for nbase 1..8 (csrc/logz.cu)
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_logz_fwd": [_P] * 4 + [_I] * 3 + [_P],
-               "tt_logz_posteriors": [_P] * 3 + [_I] * 3 + [_P]}
+               "tt_logz_posteriors": [_P] * 3 + [_I] * 3 + [_P],
+               "tt_logz_post_segment": [_I] * 3,
+               "tt_logz_post_kernels": [_I] * 3}
 
 
 def _lattice_maps(nbase, device):
@@ -103,6 +112,70 @@ def logz_posteriors_plain(scores, lattice, nbase):
     return post
 
 
+def logz_posteriors_segmented(scores, lattice, nbase, segment):
+    """Plain mirror of the posterior kernels' segmented arithmetic
+    (csrc/logz.cu): segments of `segment` steps (at least 2), (a) each
+    segment's transfer but the first's, its NFF columns run from the unit
+    vectors and renormalised by their joint max every step, (b) the serial
+    pass over segments for each segment's end vector, (c) each segment
+    rerun from it, a step's posteriors e_j exp(lattice[s] + m_s - M) /
+    sum_s exp(lattice[s] + new[s] - M) from the recursion's own terms.
+    Contract of `logz_posteriors_plain`."""
+    T, B, S = scores.shape
+    dev = scores.device
+    nff = 2 * nbase
+    K = max(2, segment)
+    nseg = -(-T // K)
+    _, dst = _lattice_maps(nbase, dev)
+    neg = torch.tensor(-math.inf, device=dev)
+    g_all = torch.arange(nseg, device=dev)
+    # (a) transfers P[b, g - 1] of segments g = 1 .. nseg - 1: [s, d]
+    eye = torch.eye(nff, dtype=torch.bool, device=dev)
+    c = torch.where(eye, 0.0, neg).expand(B, nseg - 1, nff, nff).clone()
+    for k in range(K):
+        t = (g_all[1:] + 1) * K - 1 - k
+        step = t < T
+        sc = scores[t.clamp(max=T - 1)].transpose(0, 1)
+        o = (sc[..., None] + c[:, :, dst, :]).view(
+            B, nseg - 1, nbase + 1, nff, nff)
+        new = torch.where(step[None, :, None, None],
+                          torch.logsumexp(o, dim=2), c)
+        m = new.amax(dim=(2, 3), keepdim=True)
+        c = torch.where(m > -math.inf, new - m, neg)
+    # (b) the end vector of every segment, the last's the recursion's start
+    v = torch.full((B, nff), -math.log(nff), device=dev)
+    ends = [v] * nseg
+    for g in range(nseg - 1, 0, -1):
+        w = torch.logsumexp(c[:, g - 1] + v[:, None, :], dim=2)
+        m = w.amax(dim=1, keepdim=True)
+        v = torch.where(m > -math.inf, w - m, neg)
+        ends[g - 1] = v
+    # (c) every segment rerun from its end vector
+    v = torch.stack(ends, dim=1)
+    post = scores.new_zeros(T, B, S)
+    for k in range(K):
+        t = (g_all + 1) * K - 1 - k
+        step = t < T
+        tc = t.clamp(max=T - 1)
+        o = (scores[tc].transpose(0, 1) + v[:, :, dst]).view(
+            B, nseg, nbase + 1, nff)
+        mx = o.amax(dim=2)
+        e = torch.exp(o - torch.where(mx > -math.inf, mx, 0.0)[:, :, None])
+        nw = torch.where(mx > -math.inf, mx + torch.log(e.sum(dim=2)), neg)
+        fw = lattice[tc].transpose(0, 1)
+        big = (fw + nw).amax(dim=2, keepdim=True)
+        ok = big > -math.inf
+        shift = torch.where(ok, big, 0.0)
+        den = torch.exp(fw + nw - shift).sum(dim=2, keepdim=True)
+        r = torch.where(ok, torch.exp(fw + mx - shift) / den, 0.0)
+        p = (e * r[:, :, None]).reshape(B, nseg, S)
+        post[t[step]] = p[:, step].transpose(0, 1)
+        f = nw.amax(dim=2, keepdim=True)
+        nv = torch.where(f > -math.inf, nw - f, neg)
+        v = torch.where(step[None, :, None], nv, v)
+    return post
+
+
 def _check_nbase(nbase, what):
     if not 1 <= nbase <= MAX_NBASE:
         raise ValueError("{}: nbase {} outside 1..{}".format(
@@ -156,15 +229,33 @@ def logz_posteriors(scores, lattice):
     _check("scores", scores, (T, B, S), scores.device, "logz_posteriors")
     _check("lattice", lattice, (T, B, 2 * nbase), scores.device,
            "logz_posteriors")
+    # the kernels load score rows 16 bytes and lattice rows 8 at a time
+    if scores.data_ptr() % 16 or lattice.data_ptr() % 8:
+        raise ValueError("logz_posteriors: scores must be 16-byte and the "
+                         "lattice 8-byte aligned")
     lib = cuda_lib.load("logz", _SIGNATURES)
     with torch.cuda.device(scores.device):
         post = torch.empty(T, B, S, device=scores.device)
         err = lib.tt_logz_posteriors(
             cuda_lib.ptr(scores), cuda_lib.ptr(lattice), cuda_lib.ptr(post),
             T, B, nbase, cuda_lib.stream(scores.device))
-        logz_posteriors.launches += 1
-    cuda_lib.check(lib, err, "logz_posteriors kernel")
+        if T and B:
+            logz_posteriors.launches += posterior_kernels(T, B, nbase)
+    cuda_lib.check(lib, err, "logz_posteriors kernels")
     return post
+
+
+def posterior_segment(T, B, nbase):
+    """The segment length the posterior kernels take at this shape."""
+    return cuda_lib.load("logz", _SIGNATURES).tt_logz_post_segment(T, B,
+                                                                  nbase)
+
+
+def posterior_kernels(T, B, nbase):
+    """The kernels one `logz_posteriors` call launches at this shape: 3
+    (transfers, boundaries, posteriors), or 1 when T is one segment."""
+    return cuda_lib.load("logz", _SIGNATURES).tt_logz_post_kernels(T, B,
+                                                                  nbase)
 
 
 logz_fwd.launches = 0

@@ -10,10 +10,12 @@ order, carried through the recurrence); LSTM backward 1e-4 relative to
 the largest value of each output (sums of up to T*B products in another
 order; the same for the backwards from stored pre and rebuilding pre);
 logZ rtol 1e-5 / atol 1e-3 over T up to 1000; lattices atol 1e-4;
-posteriors atol 1e-5; the CRF score 1e-3 + 1e-5 |score| and its gradient
-atol 1e-5 (posteriors, each in [0, 1]; 3e-4 over lattices of thousands of
-steps, see CRF_SHAPES), 1e-6 from run to run (the order
-of the shared-memory atomic adds); GRU h atol 1e-4 and its backward 1e-4
+posteriors atol 1e-5 (their kernels cut T into segments; T of one step,
+of one segment and one step more, a batch of one); the CRF score 1e-3 +
+1e-5 |score| and its gradient atol 1e-5 (posteriors, each in [0, 1]; 3e-4
+over lattices of thousands of steps, see CRF_SHAPES), bitwise equal from
+run to run (its sums are taken in an order fixed by the row's indices,
+no atomics); GRU h atol 1e-4 and its backward 1e-4
 relative, as the LSTM's (gh and gx of the forward atol 1e-4, as h).
 A retained graph gives bitwise the same gradients twice.  The CRF on
 score streams (kernels 9-10): the same score and lattice tolerances, its
@@ -96,23 +98,57 @@ def _scores(T, B, nbase, seed=1):
         (5.0 * np.tanh(rng.normal(size=(T, B, S)))).astype(np.float32))
 
 
+# the segmented posteriors: T = 1, T of one segment and one step past it,
+# B = 1, nbase 1 to 8
 @pytest.mark.parametrize("shape", [(37, 13, 4), (50, 5, 2), (50, 5, 3),
-                                   (1000, 128, 4)])
+                                   (1000, 128, 4), (1, 5, 4), (16, 3, 4),
+                                   (17, 3, 4), (37, 1, 4), (800, 256, 4),
+                                   (41, 3, 1), (40, 2, 5), (33, 3, 8)])
 def test_logz_kernels_match_twins(dev, shape):
     T, B, nbase = shape
     s = _scores(T, B, nbase).to(dev)
     f0, z0, l0 = logz.logz_fwd_plain(s, nbase)
     p0 = logz.logz_posteriors_plain(s, l0, nbase)
     f1, z1, l1 = logz.logz_fwd(s)
+    n = logz.logz_posteriors.launches
     p1 = logz.logz_posteriors(s, l1)
     _, z2, none = logz.logz_fwd(s, emit_lattice=False)
     torch.cuda.synchronize()
+    assert logz.logz_posteriors.launches == n + logz.posterior_kernels(
+        T, B, nbase)
     assert none is None
     torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-3)
     assert torch.equal(z1, z2)
     torch.testing.assert_close(l1, l0, rtol=0, atol=1e-4)
     torch.testing.assert_close(f1, f0, rtol=0, atol=1e-4)
     torch.testing.assert_close(p1, p0, rtol=0, atol=1e-5)
+
+
+def test_logz_posteriors_repeat_bit_for_bit(dev):
+    s = _scores(300, 7, 4).to(dev)
+    _, _, lat = logz.logz_fwd(s)
+    assert torch.equal(logz.logz_posteriors(s, lat),
+                       logz.logz_posteriors(s, lat))
+
+
+def test_logz_posteriors_reject_bad_input(dev):
+    s = _scores(20, 4, 4).to(dev)
+    _, _, lat = logz.logz_fwd(s)
+    with pytest.raises(ValueError, match="cpu"):
+        logz.logz_posteriors(s, lat.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        logz.logz_posteriors(s, lat.double())
+    with pytest.raises(ValueError, match="shape"):
+        logz.logz_posteriors(s, lat[:, :3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        logz.logz_posteriors(s.transpose(0, 1).contiguous().transpose(0, 1),
+                             lat)
+    with pytest.raises(ValueError, match="aligned"):
+        logz.logz_posteriors(torch.empty(s.numel() + 1, device=dev)[1:]
+                             .view(s.shape), lat)
+    with pytest.raises(ValueError, match="nbase"):
+        logz.logz_posteriors(torch.zeros(3, 2, 2 * 9 * 10, device=dev),
+                             torch.zeros(3, 2, 18, device=dev))
 
 
 def test_logz_no_path_row_on_card(dev):
@@ -214,7 +250,9 @@ def _lattice_close(got, want, atol):
     return (got[live] - want[live]).abs().max().item() <= atol
 
 
-# (T, B, L, mod columns, gradient atol).  Over the long lattices (T of
+# (T, B, L, mod columns, gradient atol); L = 37 and 45 make lattice rows
+# the backward cannot copy 16 bytes at a time, and S = 47 lp rows of 188
+# bytes.  Over the long lattices (T of
 # 4000 and 7000 steps) the log-space forward and backward lattices and the
 # score of kernel and twin each drift apart by up to their 1e-4
 # tolerance, so a posterior p = exp(fwd + bwd - score) moves by at most
@@ -222,7 +260,8 @@ def _lattice_close(got, want, atol):
 # gradient is held to 3e-4 there.
 CRF_SHAPES = [(37, 5, 12, 0, 1e-5), (41, 9, 300, 0, 1e-5),
               (30, 6, 20, 3, 1e-5), (800, 256, 512, 0, 1e-5),
-              (4000, 6, 3712, 0, 3e-4), (7000, 3, 8192, 0, 3e-4)]
+              (4000, 6, 3712, 0, 3e-4), (7000, 3, 8192, 0, 3e-4),
+              (50, 7, 37, 0, 1e-5), (60, 5, 45, 6, 1e-5)]
 
 
 @pytest.mark.parametrize("shape", CRF_SHAPES)
@@ -247,7 +286,7 @@ def test_crf_kernels_match_twins(dev, shape):
     assert torch.isfinite(g1).all()
     assert (g1[:, 1] == 0).all()            # the empty row
     torch.testing.assert_close(g1, g0, rtol=0, atol=g_tol)
-    torch.testing.assert_close(g1, g2, rtol=0, atol=1e-6)
+    assert torch.equal(g1, g2)
 
 
 def test_crf_bwd_catmod_weights_match_twin(dev):
@@ -270,6 +309,29 @@ def test_crf_bwd_catmod_weights_match_twin(dev):
     atol = 1e-5 * mfact.max().item()
     torch.testing.assert_close(g1, g0, rtol=0, atol=atol)
     torch.testing.assert_close(g_route, g0, rtol=0, atol=atol)
+    assert torch.equal(g1, crf.crf_bwd(lp, sidx, midx, mmidx, mfact, lat1,
+                                       valid, last))
+
+
+def test_crf_bwd_rejects_bad_input(dev):
+    lp, sidx, midx, mmidx, mfact, valid, last = _crf_inputs(
+        20, 4, 12, dev=dev)
+    _, _, lat = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid)
+    idx = (sidx, midx, mmidx, mfact)
+    with pytest.raises(ValueError, match="cpu"):
+        crf.crf_bwd(lp, *idx, lat.cpu(), valid, last)
+    with pytest.raises(ValueError, match="float32"):
+        crf.crf_bwd(lp, *idx, lat.double(), valid, last)
+    with pytest.raises(ValueError, match="int32"):
+        crf.crf_bwd(lp, *idx, lat, valid, last.long())
+    with pytest.raises(ValueError, match="shape"):
+        crf.crf_bwd(lp, *idx, lat[:, :3].contiguous(), valid, last)
+    with pytest.raises(ValueError, match="contiguous"):
+        crf.crf_bwd(lp, *idx, lat.transpose(0, 1).contiguous()
+                    .transpose(0, 1), valid, last)
+    with pytest.raises(ValueError, match="beyond"):
+        crf.crf_bwd(torch.zeros(3, 4, crf.MAX_S + 1, device=dev), *idx,
+                    lat[:3].contiguous(), valid, last)
 
 
 def _gru_inputs(T, B, D, H, seed=0):
