@@ -7,10 +7,12 @@ card; run from the root of a checkout:
 1. Card: name and power limit; builds the CUDA kernels from csrc/.
 2. Kernels: each against its plain PyTorch twin on the card, with its time
    (CUDA events), the twin's time, one PyTorch call computing the same
-   function where there is one, and its bound.  The logZ posteriors (T cut
-   into segments) also at the training shape; the CRF backward (its
-   posteriors formed off the chain) must give bitwise the same d lp on
-   two runs.  Basecall kernels at the
+   function where there is one, and its bound.  The logZ forward and
+   posteriors (T cut into segments) also at the training shape; the CRF
+   forward prints its layout (threads, positions a thread, CTAs a row) at
+   each width, and it and the CRF backward (its posteriors formed off the
+   chain) must give bitwise the same lattice and d lp on two runs.
+   Basecall kernels at the
    basecall path's shapes (T=1000 blocks, B=128 chunks, H=256, S=40; the
    GRU forward also at H=96, the shipped remap model's width); LSTM and
    CRF training kernels at the mLstm training shape (T=800 blocks, B=256
@@ -118,7 +120,11 @@ card; run from the root of a checkout:
    an f64 product, timed beside the twin (also its library call); every
    training and basecall path must have run all its GEMMs on the tc
    instance (counted by instance, as the recurrences are).
-10. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+10. Offset views: every input of the layers' forwards and backwards, of
+   the logZ forward and posteriors and of the CRF forward and backward as
+   a contiguous view at an odd float offset (4-byte aligned, not 16),
+   each against the aligned call on the same values.
+11. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
    line (17 rows), the card line, and the result line
    {"ok": true, "device": {...}}.
 
@@ -406,19 +412,25 @@ def _logz_case(torch, dev, rng, t, b):
 
 def check_logz(torch, dev, rng):
     """logZ forward and posteriors at the basecall shape (the kernels
-    line's rows) and the posteriors again at the training shape (T=TT,
-    B=TB), each against its twin.  The posteriors' kernels cut T into
-    segments (csrc/logz.cu): the segment length and the kernels a call
-    launches are printed."""
+    line's rows) and again at the training shape (T=TT, B=TB), each
+    against its twin.  Both passes' kernels cut T into segments
+    (csrc/logz.cu): the segment length and the kernels a call launches are
+    printed."""
     from taiyaki_tpu_torch.ops import logz
     (z_err, z_tol, l_err, p_err, f_ms, f_plain, p_ms, p_plain,
      (f_bound, f_by), (p_bound, p_by)) = _logz_case(torch, dev, rng, T, B)
-    say("logz_fwd   T={} B={} S={}: logZ max|err| {:.3g} (tol {:.3g}), "
-        "lattice {:.3g} (tol 1e-4), kernel {:.3f} ms, plain {:.3f} ms, "
-        "bound {:.4f} ms ({})".format(T, B, 2 * NBASE * (NBASE + 1), z_err,
-                                      z_tol, l_err, f_ms, f_plain, f_bound,
-                                      f_by))
     train = _logz_case(torch, dev, rng, TT, TB)
+    for (t, b), (ze, zt, le, fm, fp, (fb, fby)) in (
+            ((T, B), (z_err, z_tol, l_err, f_ms, f_plain, (f_bound, f_by))),
+            ((TT, TB), (train[0], train[1], train[2], train[4], train[5],
+                        train[8]))):
+        say("logz_fwd T={} B={} S={} (segments of {} steps, {} kernels a "
+            "call): logZ max|err| {:.3g} (tol {:.3g}), lattice {:.3g} (tol "
+            "1e-4), kernels {:.4f} ms, plain {:.3f} ms, bound {:.4f} ms ({})"
+            .format(t, b, 2 * NBASE * (NBASE + 1),
+                    logz.forward_segment(t, b, NBASE),
+                    logz.forward_kernels(t, b, NBASE), ze, zt, le, fm, fp,
+                    fb, fby))
     for (t, b), (pe, pm, pp, (pb, pby)) in (
             ((T, B), (p_err, p_ms, p_plain, (p_bound, p_by))),
             ((TT, TB), (train[3], train[6], train[7], train[9]))):
@@ -430,8 +442,10 @@ def check_logz(torch, dev, rng):
     return [dict(name="logz_fwd", route="cuda",
                  source="taiyaki_tpu_torch/csrc/logz.cu",
                  replaces="taiyaki_tpu/ops/pallas_logz.py:142",
-                 max_abs_err=max(z_err, l_err), ms=f_ms, plain_ms=f_plain,
-                 bound_ms=f_bound, bound_by=f_by, library_ms=None),
+                 max_abs_err=max(z_err, l_err, train[0], train[2]), ms=f_ms,
+                 plain_ms=f_plain, bound_ms=f_bound, bound_by=f_by,
+                 library_ms=None, train_ms=train[4],
+                 train_plain_ms=train[5], train_bound_ms=train[8][0]),
             dict(name="logz_posteriors", route="cuda",
                  source="taiyaki_tpu_torch/csrc/logz.cu",
                  replaces="taiyaki_tpu/ops/pallas_logz.py:249",
@@ -645,7 +659,8 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
     3e-4 p, and a gradient entry sums posteriors of total at most 1, so
     3e-4 there.  A mod column's entry sums posteriors times their weight,
     so its rounding scales with the largest weight.  The backward sums in
-    an order fixed by the row's indices: two runs must be bitwise equal.
+    an order fixed by the row's indices: two runs must be bitwise equal,
+    as must two runs of the forward (its lattice).
     At the cat_mod width the canonical and the mod columns are reported
     apart, and the streams route's gradient (kernels 9-10 and the
     scatter) is held to the same tolerance against this twin on the same
@@ -655,6 +670,7 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
     sidx, midx, mmidx, mfact, valid, last = args
     idx = (sidx, midx, mmidx, mfact)
     f1, s1, lat1 = crf.crf_fwd(lp, *idx, valid)
+    f_same = bool(torch.equal(lat1, crf.crf_fwd(lp, *idx, valid)[2]))
     f0, s0, lat0 = crf.crf_fwd_plain(lp, *idx, valid)
     g1 = crf.crf_bwd(lp, *idx, lat1, valid, last)
     g2 = crf.crf_bwd(lp, *idx, lat1, valid, last)
@@ -694,6 +710,7 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
     check(l_err <= 1e-4, "crf_fwd: lattice err {} > 1e-4".format(l_err))
     check(g_err <= g_tol, "crf_bwd: max |err| {} > {}".format(g_err, g_tol))
     check(g_same, "crf_bwd: two runs differ")
+    check(f_same, "crf_fwd: two runs' lattices differ")
     f_ms = cuda_ms(torch, lambda: crf.crf_fwd(lp, *idx, valid), reps=5)
     f_plain = cuda_ms(torch, lambda: crf.crf_fwd_plain(lp, *idx, valid),
                       reps=1)
@@ -711,10 +728,11 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
                              + idx_bytes, 10 * tt * npos)
     b_bound, b_by = bound_ms(4 * (2 * tt * tb * s + tt * npos)
                              + idx_bytes, 20 * tt * npos)
-    say("crf_fwd T={} B={} L={} S={}: score err {:.3g} (tol {:.3g}), "
-        "lattice {:.3g} (tol 1e-4), kernel {:.3f} ms, plain {:.3f} ms, "
-        "bound {:.4f} ms ({})".format(tt, tb, tl, s, s_err, s_tol, l_err,
-                                      f_ms, f_plain, f_bound, f_by))
+    say("crf_fwd T={} B={} L={} S={} (layout {} threads x {} positions x "
+        "{} CTAs a row): score err {:.3g} (tol {:.3g}), lattice {:.3g} (tol "
+        "1e-4), kernel {:.3f} ms, plain {:.3f} ms, bound {:.4f} ms ({})"
+        .format(tt, tb, tl, s, *crf.fwd_layout(tl), s_err, s_tol, l_err,
+                f_ms, f_plain, f_bound, f_by))
     say("crf_bwd T={} B={} L={} S={} (batches of {} steps): d lp max "
         "|err| {:.3g} (tol {:.3g}){}, two runs bitwise equal, kernel {:.3f} "
         "ms, plain {:.3f} ms, bound {:.4f} ms ({})".format(
@@ -1627,6 +1645,103 @@ def check_gemms(torch, dev):
                 row["max_abs_err"], row["simt_err"], row["f64_err"],
                 row["simt_f64_err"]))
     return rows
+
+
+def check_offset_views(torch, dev, rng):
+    """Contiguous views at an odd float offset (4-byte, not 16-byte
+    aligned) as every input of the layers' forwards and backwards (kernels
+    1, 4, 7, 8, 11-13; their tc GEMMs take aligned copies), of the logZ
+    forward and posteriors (4-byte loads) and of the CRF forward and
+    backward (kernels 2, 3, 5, 6) at the basecall width: each runs on the
+    card and gives the aligned call's results, within 1e-4 relative (the
+    layers), 1e-3 + 1e-5 |score| and 1e-4 (logZ, the CRF's score and
+    lattices), 1e-5 (posteriors, d lp).  Returns the largest error of
+    each."""
+    from taiyaki_tpu_torch.ops import crf, gru, logz, lstm
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+        return buf.view(t.shape).copy_(t)
+
+    def same(what, got, want, tol):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        check(err <= tol, "{} on offset views: {} > {}".format(what, err,
+                                                             tol))
+        return err
+
+    t, b, d, h = 200, 64, H, H
+    errs = {}
+    x = _tensor(torch, dev, rng.normal(size=(t, b, d)))
+    for cell, gates, mod in (("lstm", 4, lstm), ("gru", 3, gru)):
+        iW = _tensor(torch, dev, rng.normal(size=(gates * h, d)) / 16)
+        bias = _tensor(torch, dev, rng.normal(size=gates * h) / 2)
+        sW = _tensor(torch, dev, rng.normal(size=(gates * h, h)) / 16)
+        dh = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+        args = (x, iW, bias, sW)
+        off = tuple(offset(a) for a in args)
+        if cell == "lstm":
+            errs["lstm_fwd"] = same("lstm_fwd", lstm.lstm_fwd(*off),
+                                    lstm.lstm_fwd(*args), 1e-4)
+            hh, c, acts, tc = lstm.lstm_fwd(*args, emit="acts")
+            pre = lstm.lstm_fwd(*args, emit="pre")[2]
+            c_prev = lstm.prev_state(c, False)
+            rows = (("lstm_bwd_acts", lstm.lstm_bwd_acts,
+                     (dh, acts, tc, c_prev, hh, x, sW, iW)),
+                    ("lstm_bwd_fusedw", lstm.lstm_bwd_fusedw,
+                     (dh, pre, c, c_prev, hh, x, sW, iW)),
+                    ("lstm_bwd_recompute", lstm.lstm_bwd_recompute,
+                     (dh, c, hh, x, sW, iW, bias)))
+        else:
+            errs["gru_fwd"] = same("gru_fwd", gru.gru_fwd(*off),
+                                   gru.gru_fwd(*args), 1e-4)
+            hh, gh, gx = gru.gru_fwd(*args, emit_residuals=True)
+            rows = (("gru_bwd_recompute", gru.gru_bwd_recompute,
+                     (dh, hh, x, sW, iW, bias)),
+                    ("gru_bwd_fusedw", gru.gru_bwd_fusedw,
+                     (dh, gx, gh, lstm.prev_state(hh, False), x, sW, iW)))
+        for name, fn, a in rows:
+            errs[name] = same(name, fn(*(offset(v) for v in a)), fn(*a),
+                              1e-4)
+    s = _tensor(torch, dev, 5.0 * np.tanh(rng.normal(
+        size=(T, B, 2 * NBASE * (NBASE + 1)))))
+    f0, z0, l0 = logz.logz_fwd(s)
+    f1, z1, l1 = logz.logz_fwd(offset(s))
+    z_tol = 1e-3 + 1e-5 * z0.abs().max().item()
+    errs["logz_fwd logZ"] = max_abs_diff(z1, z0)
+    errs["logz_fwd"] = max(max_abs_diff(l1, l0), max_abs_diff(f1, f0))
+    check(errs["logz_fwd logZ"] <= z_tol and errs["logz_fwd"] <= 1e-4,
+          "logz_fwd on offset views: {} {}".format(errs["logz_fwd logZ"],
+                                                   errs["logz_fwd"]))
+    errs["logz_posteriors"] = max_abs_diff(
+        logz.logz_posteriors(offset(s), offset(l0)),
+        logz.logz_posteriors(s, l0))
+    check(errs["logz_posteriors"] <= 1e-5, "logz_posteriors on offset "
+          "views: {}".format(errs["logz_posteriors"]))
+    lp, seqlens, cargs = _crf_case(torch, dev, rng, 200, 32, 45, SC)
+    sidx, midx, mmidx, mfact, valid, last = cargs
+    idx = (sidx, midx, mmidx, mfact)
+    f0, s0, lat0 = crf.crf_fwd(lp, *idx, valid)
+    f1, s1, lat1 = crf.crf_fwd(*(offset(a) for a in (lp,) + idx + (valid,)))
+    live = lat0 > crf.NEG / 2
+    s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
+    check((s1 - s0).abs().max().item() <= s_tol and bool(
+        (lat1[~live] <= crf.NEG / 2).all()), "crf_fwd on offset views: "
+          "score or impossible states")
+    errs["crf_fwd"] = (lat1[live] - lat0[live]).abs().max().item()
+    check(errs["crf_fwd"] <= 1e-4, "crf_fwd on offset views: lattice "
+          "{}".format(errs["crf_fwd"]))
+    errs["crf_bwd"] = max_abs_diff(
+        crf.crf_bwd(*(offset(a) for a in (lp,) + idx + (lat0, valid, last))),
+        crf.crf_bwd(lp, *idx, lat0, valid, last))
+    check(errs["crf_bwd"] <= 1e-5 * mfact.max().item(), "crf_bwd on offset "
+          "views: {}".format(errs["crf_bwd"]))
+    torch.cuda.synchronize()
+    say("offset views (every input at an odd float offset, against the "
+        "aligned call; layers relative, logZ, CRF and posteriors absolute): "
+        "{}".format(json.dumps(errs)))
+    return errs
 
 
 # -- phases 3 and 4 ----------------------------------------------------------
@@ -2627,6 +2742,8 @@ def run(seed):
     torch.cuda.empty_cache()
     gemm_rows = check_gemms(torch, dev)
     torch.cuda.empty_cache()
+    check_offset_views(torch, dev, rng)
+    torch.cuda.empty_cache()
 
     # every counter is read per path: reset just before it, read just after
     counters = {"lstm_fwd": lstm.lstm_fwd, "logz_fwd": logz.logz_fwd,
@@ -2793,6 +2910,20 @@ def run(seed):
     say("posterior kernels (rows 3 and 6) by path: {}".format(json.dumps({
         path: {k: launches[path][k] for k in names}
         for path, names in posteriors.items()})))
+    # the redesigned forward kernels (rows 5 and 2) ran on every training
+    # and basecall path of both models
+    forwards = {"mLstm training": ("crf_fwd", "logz_fwd"),
+                "mGru training": ("crf_fwd", "logz_fwd"),
+                "mLstm basecall": ("logz_fwd",),
+                "mGru basecall": ("logz_fwd",),
+                "mGru real reads": ("logz_fwd",)}
+    for path, names in forwards.items():
+        for k in names:
+            check(launches[path].get(k, 0) > 0,
+                  "{} path: no launch of {}".format(path, k))
+    say("forward kernels (rows 5 and 2) by path: {}".format(json.dumps({
+        path: {k: launches[path][k] for k in names}
+        for path, names in forwards.items()})))
     say("residual policies (training step, peak memory, one layer): "
         "{}".format(json.dumps({"{} {}".format(*k): v
                                 for k, v in policies.items()})))

@@ -29,23 +29,15 @@
 // gathers were slow there (ops/flipflop.py:146-153); here lp[t, b, :]
 // (S floats) is staged in shared memory and indexed directly.
 //
-// Forward layout: one block of 256 threads per batch row, P positions per
-// thread (l = tid + p*256, P in 1, 2, 4, 8, 16, 32 by L, so L <= 8192; the
-// mGru default chunk range needs L <= 3637, P = 16).  The per-position
-// indices stay in registers; at P = 32 they outgrow the 255 a thread may
-// hold and the compiler spills the rest to local memory (cached in L1),
-// which costs time, not correctness.  The state vector lives in shared
-// memory, double-buffered and stored before renormalisation: the step's
-// max is only known after a block-wide reduction, and the next step
-// subtracts it when it reads the vector, so each forward step needs one
-// barrier.  Shared memory: 2L + a few dozen floats, 64 KB at L = 8192.
-// Bound: the serial chain of T steps of a few hundred cycles each (loads,
-// block reductions, exp/log), not bytes: at T=800, B=256, L=512 the
-// lattice is 0.42 GB, ~0.13 ms of device-memory time, while the chain is
-// milliseconds.  B blocks run side by side, so B >= 132 fills the card.
+// The forward (kernel 5) is a chain of T dependent steps, each a
+// logaddexp at every position and a max over the row: see crf_fwd_kernel.
+// The lattice it writes is the bytes bound (0.42 GB at T=800, B=256,
+// L=512, ~0.13 ms of device memory time); the chain's arithmetic at every
+// position (~50 instructions a position and step, issued on B rows' SMs)
+// bounds it near ~0.2 ms there.
 //
-// The backward (kernel 6) keeps the same chain, one barrier a step, and
-// takes the posteriors off it: see crf_bwd_kernel.
+// The backward (kernel 6) runs the same kind of chain backwards, one
+// barrier a step, and takes the posteriors off it: see crf_bwd_kernel.
 
 // Kernels 9-10 (tt_crf_fwd_streams, tt_crf_bwd_posteriors) replace the
 // unfused TPU kernels pallas_crf.py:108 `crf_forward` and pallas_crf.py:218
@@ -89,17 +81,17 @@
 // the step's sum is known.  Each position's arithmetic is the
 // shared-memory instance's, in the same order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARP = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 constexpr int MAX_S = 128;
+constexpr int MAX_L = 8192;      // the fused kernels' widest lattice
 
 __device__ __forceinline__ float logaddexpf_(float a, float b)
 {
@@ -138,92 +130,379 @@ __device__ __forceinline__ float pick(const float* row, int idx, int S)
     return (unsigned)idx < (unsigned)S ? row[idx] : 0.f;
 }
 
+// a position's columns and flags packed in one word: stay column, move
+// column (bits 8..15), weighted mod column (16..23), each in [0, S] (S
+// selecting nothing), the position valid (OK_BIT) and its move live
+// (MOK_BIT)
+constexpr unsigned OK_BIT = 1u << 24, MOK_BIT = 1u << 25;
+
+// column index in [0, S], S for one outside [0, S) (it selects nothing)
+__device__ __forceinline__ unsigned col8(int idx, int S)
+{
+    return (unsigned)idx < (unsigned)S ? (unsigned)idx : (unsigned)S;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src)
+{
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src)
+{
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A phase clock for the probes: PhaseClock<true, N> sums one thread's
+// cycles in each of N phases (clock64); PhaseClock<false, N>, the
+// kernels' own, compiles to nothing.
+template <bool ON, int N>
+struct PhaseClock {
+    __device__ __forceinline__ void start() {}
+    __device__ __forceinline__ void lap(int) {}
+    __device__ __forceinline__ void store(long long*, size_t) {}
+};
+
+template <int N>
+struct PhaseClock<true, N> {
+    long long sum[N] = {};
+    long long last = 0;
+    __device__ __forceinline__ void start() { last = clock64(); }
+    __device__ __forceinline__ void lap(int phase)
+    {
+        const long long now = clock64();
+        sum[phase] += now - last;
+        last = now;
+    }
+    __device__ __forceinline__ void store(long long* out, size_t row)
+    {
+        for (int i = 0; i < N; ++i) out[row * N + i] = sum[i];
+    }
+};
+
+// ---- kernel 5: the forward -----------------------------------------------
+//
+// Replaces pallas_crf.py:423 `crf_forward_fused`.  Per step t: new[l] =
+// logaddexp(fwd[l] + stay[l], fwd[l-1] + move[l-1]) at every valid
+// position, its max over the row (the step's factor, summed into the
+// score), fwd = new - factor; lattice[t] is fwd before the step.
+//
+// Layout: CL CTAs of NT threads a row (CL = 2, a thread-block cluster, at
+// the widest lattices), P consecutive positions a thread, l = (rank NT +
+// tid) P + p; NT is the launch's, at most the instance's MAXNT, the
+// fewest warps that hold L.  The state lives in registers,
+// renormalised: position l - 1 is the same thread's, or the lane below's
+// (__shfl_up_sync), and only a warp's first position needs the warp
+// below's last value, which it reads from shared memory after the step's
+// one barrier; that barrier also gives the block max (one redux a warp,
+// one more over the warps' maxima).  With MAXNT = 32 a row is one warp
+// and needs no barrier at all (FWD_WARP_ROWS rows a block); with CL = 2
+// the barrier is the cluster's, the other CTA's maxima and boundary value
+// read through distributed shared memory.  Each position's columns and
+// flags are one packed word in a register (col8), its mod weight another.
+//
+// What bounds it is the positions' arithmetic, issued on the SMs of B
+// rows: a logaddexp (accurate expf and log1pf, some 50 instructions) at
+// every position and step.  probes/forward.py measured the layouts by L
+// (PERF.md): 2 positions a thread beat 4 to 16 up to 2048 positions (more
+// warps to hide the chain's latency), one warp a row lost to more warps
+// with a barrier, and the cluster won only past 4096 positions, where one
+// CTA would need 8 positions a thread and spill.
+//
+// No step waits on device memory: the lp rows of K steps (a batch) go by
+// cp.async into a ring of two batches in shared memory, one batch ahead
+// (16 bytes a copy where S is a multiple of 4 and lp 16-byte aligned, else
+// 4), each row padded with a zero at column S, so a column outside [0, S)
+// reads 0 without a compare.  The lattice rows go out as 16-byte stores
+// where L is a multiple of 4, else 4-byte.
+//
+// Arithmetic as the plain twin's: the mod fold rounded as `mod_fold`, the
+// logaddexp as `logaddexpf_`, the exact max of the step, impossible states
+// NEG, so the lattice matches the twin to rounding.  (FAST, the probe's
+// alone: __expf and __logf, which missed the lattice's 1e-4 by 5-20x.)
+
+constexpr int FWD_WARP_ROWS = 4;   // rows a block where a row is one warp
+constexpr int FWD_BATCH = 16;      // steps of lp rows a batch
+// the phase clock's: lp wait, lattice stores, positions, barrier
+constexpr int FWD_PHASES = 4;
+
+__device__ __forceinline__ float logaddexp_fast(float a, float b)
+{
+    const float m = fmaxf(a, b);
+    return m + __logf(1.f + __expf(-fabsf(a - b)));
+}
+
+// the max of v over the warp: one redux on the floats' order-keeping ints
+__device__ __forceinline__ float warp_max_redux(float v)
+{
+    int k = __float_as_int(v);
+    k ^= (k >> 31) & 0x7fffffff;
+    k = __reduce_max_sync(FULL, k);
+    k ^= (k >> 31) & 0x7fffffff;
+    return __int_as_float(k);
+}
+
+// floats of an lp row in the ring: S and a zero, rounded up to 16 bytes
+__host__ __device__ inline int fwd_row_floats(int S) { return (S + 4) & ~3; }
+
+// dynamic shared memory of the forward on NT threads a row: the rings,
+// then the maxima and boundary values [2][NT / 32] each (none where a row
+// is one warp)
+inline size_t fwd_smem(int NT, int S, int K)
+{
+    const int rows = NT == 32 ? FWD_WARP_ROWS : 1;
+    return sizeof(float) * ((size_t)rows * 2 * K * fwd_row_floats(S)
+                            + (NT > 32 ? 4 * (NT / 32) : 0));
+}
+
+// lp rows t0 .. t0 + n - 1 of row b into dst (rows of SP floats), by the
+// NT threads of the row (rt its thread)
+__device__ __forceinline__ void fwd_copy_rows(float* dst, const float* lp,
+                                              int t0, int n, int B, int S,
+                                              int SP, int b, bool wide,
+                                              int rt, int NT)
+{
+    if (wide) {
+        const int q = S / 4;
+        for (int i = rt; i < n * q; i += NT) {
+            const int k = i / q, j = i - k * q;
+            cp_async16(dst + k * SP + 4 * j,
+                       lp + ((size_t)(t0 + k) * B + b) * S + 4 * j);
+        }
+    } else {
+        for (int i = rt; i < n * S; i += NT) {
+            const int k = i / S, j = i - k * S;
+            cp_async4(dst + k * SP + j, lp + ((size_t)(t0 + k) * B + b) * S
+                                             + j);
+        }
+    }
+}
+
+// P values of positions l0 .. l0 + P - 1 into out (a row of L): 16-byte
+// stores where L is a multiple of 4 (then out is 16-byte aligned), else
+// 4-byte, none past L
 template <int P>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void fwd_store(float* out, int l0, const float* v,
+                                          int L)
+{
+    if (P % 4 == 0 && (L & 3) == 0) {
+#pragma unroll
+        for (int q = 0; q < P / 4; ++q)
+            if (l0 + 4 * q < L)
+                *reinterpret_cast<float4*>(out + l0 + 4 * q) = make_float4(
+                    v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+            if (l0 + p < L) out[l0 + p] = v[p];
+    }
+}
+
+template <int MAXNT, int P, int CL, bool FAST, bool CLOCK>
+__global__ void __launch_bounds__(MAXNT == 32 ? 32 * FWD_WARP_ROWS : MAXNT)
 crf_fwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                const int* __restrict__ move_idx,
                const int* __restrict__ mod_idx,
                const float* __restrict__ mod_fact,
                const int* __restrict__ valid, float* __restrict__ fwd_final,
                float* __restrict__ score_out, float* __restrict__ lattice,
-               int T, int B, int S, int L)
+               int T, int B, int S, int L, int K,
+               long long* __restrict__ cyc)
 {
+    static_assert(MAXNT % 32 == 0 && (CL == 1 || MAXNT > 32), "layout");
+    const int NT = MAXNT == 32 ? 32 : blockDim.x, NW = NT / 32;
     extern __shared__ __align__(16) float smem[];
-    float* state = smem;                       // [2][L], unrenormalised
-    float* lp_s = smem + 2 * L;                // [2][S]
-    float* red = lp_s + 2 * S;                 // [2][NWARP]
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int b = blockIdx.x;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int SP = fwd_row_floats(S);
+    // the row, this CTA's rank in it, the thread in the row's CTA
+    const int b = MAXNT == 32 ? blockIdx.x * FWD_WARP_ROWS + warp
+                              : blockIdx.x / CL;
+    const int rank = CL == 1 ? 0 : blockIdx.x % CL;
+    const int rt = MAXNT == 32 ? lane : threadIdx.x;
+    if (MAXNT == 32 && b >= B) return;  // a whole warp, which syncs alone
+    float* ring = smem + (MAXNT == 32 ? warp * 2 * K * SP : 0);
+    float* red = smem + 2 * K * SP;     // [2][NW] maxima (MAXNT > 32)
+    float* edge = red + 2 * NW;         // [2][NW] last new value a warp
     const size_t rowoff = (size_t)b * L;
+    const int l0 = (rank * NT + rt) * P;
+    const bool wide = S % 4 == 0
+        && (reinterpret_cast<size_t>(lp) & 15) == 0;
+    PhaseClock<CLOCK, FWD_PHASES> clk;
+    auto row_sync = [&]() {
+        if (MAXNT == 32)
+            __syncwarp();
+        else
+            __syncthreads();
+    };
 
-    // per position: stay column, the move into it (from l-1), validity
-    int sidx[P], midx[P], mmidx[P];
-    float mfact[P];
-    bool ok[P], mok[P];
+    // per position: its packed columns and flags, the weight of its mod
+    // column, the state
+    unsigned pw[P];
+    float mf[P], f[P];
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-        const int l = tid + p * THREADS;
-        const bool in = l < L;
-        sidx[p] = in ? stay_idx[rowoff + l] : S;
-        midx[p] = (in && l > 0) ? move_idx[rowoff + l - 1] : S;
-        mmidx[p] = (in && l > 0) ? mod_idx[rowoff + l - 1] : S;
-        mfact[p] = (in && l > 0) ? mod_fact[rowoff + l - 1] : 0.f;
-        ok[p] = in && valid[rowoff + l] != 0;
-        mok[p] = ok[p] && l > 0 && valid[rowoff + l - 1] != 0;
-        if (in) state[l] = (l == 0 && ok[p]) ? 0.f : NEG;
-    }
-    const size_t tstride = (size_t)B * S;
-    if (tid < S && T > 0) lp_s[tid] = lp[(size_t)b * S + tid];
-    __syncthreads();
-
-    float prev = 0.f, score = 0.f;
-    for (int t = 0; t < T; ++t) {
-        const float* cur = state + (t & 1) * L;
-        float* nxt = state + ((t + 1) & 1) * L;
-        const float* row = lp_s + (t & 1) * S;
-        if (tid < S && t + 1 < T)
-            lp_s[((t + 1) & 1) * S + tid] =
-                lp[(size_t)(t + 1) * tstride + (size_t)b * S + tid];
-        float m = NEG;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            const int l = tid + p * THREADS;
-            if (l >= L) continue;
-            const float f = ok[p] ? cur[l] - prev : NEG;
-            if (lattice != nullptr)
-                lattice[((size_t)t * B + b) * L + l] = f;
-            float nw = NEG;
-            if (ok[p]) {
-                const float stay = f + pick(row, sidx[p], S);
-                float move = NEG;
-                if (mok[p]) {
-                    const float sc = mod_fold(pick(row, midx[p], S),
-                                              mfact[p],
-                                              pick(row, mmidx[p], S));
-                    move = (cur[l - 1] - prev) + sc;
-                }
-                nw = logaddexpf_(stay, move);
+        const int l = l0 + p;
+        unsigned w = (unsigned)S | (unsigned)S << 8 | (unsigned)S << 16;
+        float fact = 0.f, v = NEG;
+        if (l < L) {
+            const bool ok = valid[rowoff + l] != 0;
+            w = col8(stay_idx[rowoff + l], S);
+            if (l > 0) {
+                const bool mok = ok && valid[rowoff + l - 1] != 0;
+                w |= col8(move_idx[rowoff + l - 1], S) << 8
+                    | col8(mod_idx[rowoff + l - 1], S) << 16
+                    | (mok ? MOK_BIT : 0u);
+                fact = mod_fact[rowoff + l - 1];
+            } else {
+                w |= (unsigned)S << 8 | (unsigned)S << 16;
+                if (ok) v = 0.f;
             }
-            nxt[l] = nw;
-            m = fmaxf(m, nw);
+            w |= ok ? OK_BIT : 0u;
         }
-        m = warp_max(m);
-        if (lane == 0) red[(t & 1) * NWARP + warp] = m;
-        __syncthreads();
-        float factor = red[(t & 1) * NWARP];
-#pragma unroll
-        for (int w = 1; w < NWARP; ++w)
-            factor = fmaxf(factor, red[(t & 1) * NWARP + w]);
-        score += factor;
-        prev = factor;
+        pw[p] = w;
+        mf[p] = fact;
+        f[p] = v;
     }
-    const float* last = state + (T & 1) * L;
+    // the ring's padding columns read 0; the first batch's rows
+    for (int i = rt; i < 2 * K; i += NT)
+        for (int j = S; j < SP; ++j) ring[i * SP + j] = 0.f;
+    fwd_copy_rows(ring, lp, 0, min(K, T), B, S, SP, b, wide, rt, NT);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    const float* peer_red = CL == 1 ? red
+        : cluster.map_shared_rank(red, rank ^ 1);
+    const float* peer_edge = peer_red + 2 * NW;
+    float score = 0.f;
+    float below = NEG;  // lane 0: the position below its first, renormalised
+    clk.start();
+    for (int s0 = 0; s0 < T; s0 += K) {
+        const int n = min(K, T - s0);
+        const float* rows = ring + ((s0 / K) & 1) * K * SP;
+        // this batch's rows have landed, and every thread of the row is
+        // done with the last batch's: the next batch's rows start
+        cp_async_wait_all();
+        row_sync();
+        if (s0 + K < T)
+            fwd_copy_rows(ring + (((s0 / K) & 1) ^ 1) * K * SP, lp, s0 + K,
+                          min(K, T - s0 - K), B, S, SP, b, wide, rt, NT);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        clk.lap(0);
+
+        for (int k = 0; k < n; ++k) {
+            const int t = s0 + k, par = t & 1;
+            const float* row = rows + k * SP;
+            if (lattice != nullptr)
+                fwd_store<P>(lattice + ((size_t)t * B + b) * L, l0, f, L);
+            clk.lap(1);
+            float up = __shfl_up_sync(FULL, f[P - 1], 1);
+            if (lane == 0) up = below;
+            float nw[P], m = NEG;
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-        const int l = tid + p * THREADS;
-        if (l < L) fwd_final[rowoff + l] = ok[p] ? last[l] - prev : NEG;
+            for (int p = 0; p < P; ++p) {
+                const unsigned w = pw[p];
+                const float stay = f[p] + row[w & 0xff];
+                const unsigned mc = (w >> 16) & 0xff;
+                float mv = row[(w >> 8) & 0xff];
+                if (mc < (unsigned)S) mv = mod_fold(mv, mf[p], row[mc]);
+                const float move = (w & MOK_BIT)
+                    ? (p == 0 ? up : f[p > 0 ? p - 1 : 0]) + mv : NEG;
+                nw[p] = (w & OK_BIT) ? (FAST ? logaddexp_fast(stay, move)
+                                             : logaddexpf_(stay, move))
+                                     : NEG;
+                m = fmaxf(m, nw[p]);
+            }
+            m = warp_max_redux(m);
+            clk.lap(2);
+            float factor = m;
+            if (MAXNT > 32) {
+                if (lane == 0) red[par * NW + warp] = m;
+                if (lane == 31) edge[par * NW + warp] = nw[P - 1];
+                if (CL == 1)
+                    __syncthreads();
+                else
+                    cluster.sync();
+                float r = lane < NW ? red[par * NW + lane] : NEG;
+                if (CL > 1 && lane < NW)
+                    r = fmaxf(r, peer_red[par * NW + lane]);
+                factor = warp_max_redux(r);
+                if (lane == 0) {
+                    const float e = warp > 0 ? edge[par * NW + warp - 1]
+                        : rank > 0 ? peer_edge[par * NW + NW - 1] : NEG;
+                    below = e - factor;
+                }
+            }
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+                f[p] = (pw[p] & OK_BIT) ? nw[p] - factor : NEG;
+            score += factor;
+            clk.lap(3);
+        }
     }
-    if (tid == 0) score_out[b] = score;
+    fwd_store<P>(fwd_final + rowoff, l0, f, L);
+    if (rank == 0 && rt == 0) {
+        score_out[b] = score;
+        if (CLOCK) clk.store(cyc, b);
+    }
+    // the other CTA of the row may still read this one's shared memory
+    if (CL > 1) cluster.sync();
+}
+
+// the threads a row of an instance of at most MAXNT threads: the fewest
+// warps that hold L at P positions a thread and CL CTAs a row (at least
+// two, so that a barrier-free warp row stays MAXNT = 32's)
+template <int MAXNT, int P, int CL>
+int fwd_threads(int L)
+{
+    if (MAXNT == 32) return 32;
+    const int warps = (L + 32 * P * CL - 1) / (32 * P * CL);
+    return 32 * (warps < 2 ? 2 : warps);
+}
+
+template <int MAXNT, int P, int CL, bool FAST, bool CLOCK>
+int launch_fwd(const float* lp, const int* sidx, const int* midx,
+               const int* mmidx, const float* mfact, const int* valid,
+               float* fwd_final, float* score, float* lattice, int T, int B,
+               int S, int L, int K, int NT, long long* cyc, cudaStream_t st)
+{
+    if (K < 1 || NT > MAXNT || NT % 32 || (MAXNT == 32) != (NT == 32)
+            || L > NT * P * CL)
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = crf_fwd_kernel<MAXNT, P, CL, FAST, CLOCK>;
+    const size_t smem = fwd_smem(NT, S, K);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(NT == 32 ? (B + FWD_WARP_ROWS - 1) / FWD_WARP_ROWS
+                                : B * CL);
+    cfg.blockDim = dim3(NT == 32 ? 32 * FWD_WARP_ROWS : NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = CL > 1 ? 1 : 0;
+    cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, lp, sidx, midx, mmidx,
+                                       mfact, valid, fwd_final, score,
+                                       lattice, T, B, S, L, K, cyc);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // ---- kernel 6: the backward, its posteriors off the chain ----------------
@@ -273,7 +552,6 @@ constexpr int CHUNK = 31;
 constexpr int BWD_BATCH = 16;      // steps a batch, where shared memory allows
 constexpr size_t BWD_SMEM_SHARED = 100 * 1024;   // two blocks an SM
 constexpr size_t BWD_SMEM_MAX = 232448;          // one block an SM
-constexpr unsigned OK_BIT = 1u << 24, MOK_BIT = 1u << 25;
 
 __host__ __device__ inline int bwd_chunks(int L, int S)
 {
@@ -322,36 +600,7 @@ struct BwdLayout {
 constexpr int BWD_PHASES = 8;
 
 template <bool ON>
-struct BwdClock {
-    __device__ __forceinline__ void start() {}
-    __device__ __forceinline__ void lap(int) {}
-    __device__ __forceinline__ void store(long long*) {}
-};
-
-template <>
-struct BwdClock<true> {
-    long long sum[BWD_PHASES] = {0, 0, 0, 0, 0, 0, 0, 0};
-    long long last = 0;
-    __device__ __forceinline__ void start() { last = clock64(); }
-    __device__ __forceinline__ void lap(int phase)
-    {
-        const long long now = clock64();
-        sum[phase] += now - last;
-        last = now;
-    }
-    __device__ __forceinline__ void store(long long* out)
-    {
-        if (threadIdx.x == 0)
-            for (int i = 0; i < BWD_PHASES; ++i)
-                out[blockIdx.x * BWD_PHASES + i] = sum[i];
-    }
-};
-
-// column index in [0, S], S for one outside [0, S) (it selects nothing)
-__device__ __forceinline__ unsigned col8(int idx, int S)
-{
-    return (unsigned)idx < (unsigned)S ? (unsigned)idx : (unsigned)S;
-}
+using BwdClock = PhaseClock<ON, BWD_PHASES>;
 
 // which of position l's contributions (bit 0 stay, 1 move, 2 weighted
 // mod) go to column j; column S collects stays and moves whose index
@@ -382,25 +631,6 @@ __device__ __forceinline__ float move_score(const float* row, unsigned w,
     const float move = pick(row, (w >> 8) & 0xff, S);
     const unsigned mc = (w >> 16) & 0xff;
     return mc < (unsigned)S ? mod_fold(move, *mf, row[mc]) : move;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src)
-{
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src)
-{
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all()
-{
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // lattice rows of steps s, s + 1, ... (n of them) of row b: 16 bytes a
@@ -713,29 +943,7 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
         }
         clk.lap(7);
     }
-    if (CLOCK) clk.store(cyc);
-}
-
-template <int P>
-size_t fwd_smem(int S, int L) { return sizeof(float) * (2 * L + 2 * S + 2 * NWARP); }
-
-template <int P>
-int launch_fwd(const float* lp, const int* sidx, const int* midx,
-               const int* mmidx, const float* mfact, const int* valid,
-               float* fwd_final, float* score, float* lattice, int T, int B,
-               int S, int L, cudaStream_t st)
-{
-    const size_t smem = fwd_smem<P>(S, L);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            crf_fwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    crf_fwd_kernel<P><<<B, THREADS, smem, st>>>(lp, sidx, midx, mmidx, mfact,
-                                                valid, fwd_final, score,
-                                                lattice, T, B, S, L);
-    return static_cast<int>(cudaGetLastError());
+    if (CLOCK && threadIdx.x == 0) clk.store(cyc, blockIdx.x);
 }
 
 template <int NT, int P, bool CLOCK>
@@ -1218,14 +1426,36 @@ int crf_bwd_dispatch(const float* lp, const int* sidx, const int* midx,
 #undef TT_BWD
 }
 
-#define TT_P_CASES(CALL)                                        \
-    if (L <= THREADS) return CALL(1);                           \
-    if (L <= 2 * THREADS) return CALL(2);                       \
-    if (L <= 4 * THREADS) return CALL(4);                       \
-    if (L <= 8 * THREADS) return CALL(8);                       \
-    if (L <= 16 * THREADS) return CALL(16);                     \
-    if (L <= 32 * THREADS) return CALL(32);                     \
+// The forward's instance by lattice width: (at most MAXNT threads a row,
+// P positions a thread, CL CTAs a row), as probes/forward.py measured them
+// on the card: one warp a row (no barrier) up to 64 positions, 2 a thread
+// up to 2048, 4 up to 4096, and past that a cluster of two CTAs.
+#define TT_FWD_BANDS(CALL)                                      \
+    if (L <= 64) return CALL(32, 2, 1);                         \
+    if (L <= 1024) return CALL(512, 2, 1);                      \
+    if (L <= 2048) return CALL(1024, 2, 1);                     \
+    if (L <= 4096) return CALL(1024, 4, 1);                     \
+    if (L <= MAX_L) return CALL(1024, 4, 2);                    \
     return static_cast<int>(cudaErrorInvalidValue);
+
+// tt_crf_fwd with K steps of lp rows a batch (K <= 0: FWD_BATCH); with
+// CLOCK, the phase clock's cycles into cyc [B][FWD_PHASES]
+template <bool FAST, bool CLOCK>
+int crf_fwd_dispatch(const float* lp, const int* sidx, const int* midx,
+                     const int* mmidx, const float* mfact, const int* valid,
+                     float* fwd_final, float* score, float* lattice, int T,
+                     int B, int S, int L, int K, long long* cyc,
+                     cudaStream_t st)
+{
+    if (B == 0 || L == 0) return 0;
+    if (S > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
+    if (K <= 0) K = FWD_BATCH;
+#define TT_FWD(NT, P, CL) launch_fwd<NT, P, CL, FAST, CLOCK>(           \
+        lp, sidx, midx, mmidx, mfact, valid, fwd_final, score, lattice, T, \
+        B, S, L, K, fwd_threads<NT, P, CL>(L), cyc, st)
+    TT_FWD_BANDS(TT_FWD)
+#undef TT_FWD
+}
 
 extern "C" {
 
@@ -1243,13 +1473,20 @@ int tt_crf_fwd(const float* lp, const int* sidx, const int* midx,
                float* fwd_final, float* score, float* lattice, int T, int B,
                int S, int L, void* stream)
 {
-    if (B == 0 || L == 0) return 0;
-    if (S > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TT_FWD(P) launch_fwd<P>(lp, sidx, midx, mmidx, mfact, valid, \
-                                fwd_final, score, lattice, T, B, S, L, st)
-    TT_P_CASES(TT_FWD)
-#undef TT_FWD
+    return crf_fwd_dispatch<false, false>(
+        lp, sidx, midx, mmidx, mfact, valid, fwd_final, score, lattice, T,
+        B, S, L, 0, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// the layout tt_crf_fwd takes at lattice width L, packed: threads a row
+// << 16 | positions a thread << 8 | CTAs a row; 0 outside 1 .. MAX_L
+int tt_crf_fwd_layout(int L)
+{
+    if (L < 1 || L > MAX_L) return 0;
+#define TT_LAYOUT(NT, P, CL) \
+    (fwd_threads<NT, P, CL>(L) << 16 | (P) << 8 | (CL))
+    TT_FWD_BANDS(TT_LAYOUT)
+#undef TT_LAYOUT
 }
 
 // ... + lattice [T, B, L] of tt_crf_fwd, last [B] int32 -> grad [T, B, S].

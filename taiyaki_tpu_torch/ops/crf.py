@@ -22,10 +22,14 @@ no padding.
 Impossible states hold NEG = -1e30 as in the JAX package's scan, so a row
 with no path keeps finite values and gets all-zero posteriors.
 
-The fused backward (kernel 6) runs the backward recursion alone on its
-serial chain and forms each batch of steps' posteriors off it, summing
-them into the columns of d lp in an order fixed by the row's indices, so
-its d lp is bitwise the same from run to run (csrc/crf.cu).
+The fused forward (kernel 5) keeps each row's state in registers, a few
+consecutive positions a thread, on a layout chosen by L (`fwd_layout`:
+one warp a row up to 64 positions, more warps past that, two CTAs past
+4096), with its lp rows brought into shared memory a batch ahead.  The
+fused backward (kernel 6) runs the backward recursion alone on its serial
+chain and forms each batch of steps' posteriors off it, summing them into
+the columns of d lp in an order fixed by the row's indices, so its d lp
+is bitwise the same from run to run (csrc/crf.cu).
 
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
@@ -45,6 +49,7 @@ _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],
                "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P],
                "tt_crf_bwd_batch": [_I] * 4,
+               "tt_crf_fwd_layout": [_I],
                "tt_crf_fwd_streams": [_P] * 7 + [_I] * 3 + [_P],
                "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P]}
 
@@ -200,6 +205,15 @@ def crf_fwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, valid,
         crf_fwd.launches += 1
     cuda_lib.check(lib, err, "crf_fwd kernel")
     return fwd, score, lattice
+
+
+def fwd_layout(L):
+    """The forward kernel's layout at lattice width L: (threads a row,
+    positions a thread, CTAs a row); None past MAX_L."""
+    packed = cuda_lib.load("crf", _SIGNATURES).tt_crf_fwd_layout(L)
+    if not packed:
+        return None
+    return packed >> 16, (packed >> 8) & 0xff, packed & 0xff
 
 
 def crf_bwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, lattice,

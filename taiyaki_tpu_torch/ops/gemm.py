@@ -20,9 +20,13 @@ Each has two instances on the card that compute the same function:
 take every operand it loads (rows a multiple of 4 floats: 16-byte
 strides), "simt" for ragged widths.  No launch falls back from one to the
 other; the C entry points check each plan and refuse one the shape cannot
-take.  The layers' wrappers (ops/lstm.py, ops/gru.py) pass the plans of
-their products and count them here, by instance: `gate_gemm.by_instance`
-and `atb_gemm.by_instance` count every GEMM of every path.
+take.  TMA also needs each operand's base address 16-byte aligned, which a
+contiguous view at an odd float offset (`buf[1:].view(...)`) is not: the
+wrappers pass their operands through `tma_ready`, which copies such a
+view, so that the plan stays a function of shapes alone.  The layers'
+wrappers (ops/lstm.py, ops/gru.py) pass the plans of their products and
+count them here, by instance: `gate_gemm.by_instance` and
+`atb_gemm.by_instance` count every GEMM of every path.
 
 On a CPU tensor the plain twin runs; on a CUDA tensor the kernel launches,
 or the wrapper raises.
@@ -142,6 +146,21 @@ def gemm_plan(M, N, K, kind, sms=SMS_H100, instance=None, nsplit=None):
                     max(1, min(tc_tiles(M, N) * n, sms)))
 
 
+def tma_aligned(t):
+    """Whether TMA takes the base address of tensor `t` (16-byte aligned),
+    as the tc instance needs for every operand it loads (csrc/gemm.cuh
+    `gemm_tma_takes`)."""
+    return t.data_ptr() % 16 == 0
+
+
+def tma_ready(*tensors):
+    """The operands of a product as the tc instance takes them: each tensor
+    as it is where `tma_aligned`, else an aligned copy of it (None stays
+    None).  Returns a list in the order given."""
+    return [t if t is None or tma_aligned(t) else t.clone()
+            for t in tensors]
+
+
 def check_instance(instance):
     if instance is not None and instance not in INSTANCES:
         raise ValueError("instance must be None, 'simt' or 'tc', not "
@@ -245,6 +264,7 @@ def gate_gemm(A, W, bias=None, C=None, instance=None):
     if C is not None:
         specs.append(("C", C, (M, N)))
     _check("gate_gemm", A.device, specs)
+    A, W = tma_ready(A, W)
     plan = gemm_plan(M, N, K, GATE, card_sms(A.device.index), instance)
     lib = cuda_lib.load("gemm", _SIGNATURES)
     with torch.cuda.device(A.device):
@@ -272,6 +292,7 @@ def atb_gemm(A, B, shift=0, nsplit=None, instance=None):
         return atb_gemm_plain(A, B, shift, plan.nsplit, plan.kslice)
     cuda_lib.check_cuda(A, "atb_gemm")
     _check("atb_gemm", A.device, (("A", A, (K, N1)), ("B", B, (K, N2))))
+    A, B = tma_ready(A, B)
     plan = gemm_plan(N1, N2, K, ATB, card_sms(A.device.index), instance,
                      nsplit)
     lib = cuda_lib.load("gemm", _SIGNATURES)

@@ -107,6 +107,7 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
     gplans = gemm.plans_for(x.device, (T * B, 3 * H, D, gemm.GATE))
     lib = cuda_lib.load("gru", _SIGNATURES)
     with torch.cuda.device(x.device):
+        x, iW = gemm.tma_ready(x, iW)
         swt = sW.t().contiguous()
         # gx scratch, kept as the output gx under emit_residuals
         gx = torch.empty(T, B, 3 * H, device=x.device)
@@ -205,7 +206,8 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
-        iwt = iW.t().contiguous()
+        x, iW, h, sW, iwt = gemm.tma_ready(x, iW, h, sW,
+                                           iW.t().contiguous())
         # gx and gh, overwritten in place by dgx and dgh
         g_x = torch.empty(T, B, 3 * H, device=dev)
         g_h = torch.empty(T, B, 3 * H, device=dev)
@@ -248,7 +250,7 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
-        iwt = iW.t().contiguous()
+        x, h_prev, iwt = gemm.tma_ready(x, h_prev, iW.t().contiguous())
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
         out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
@@ -340,7 +342,7 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
-        iwt = None if iW is None else iW.t().contiguous()
+        iwt, = gemm.tma_ready(None if iW is None else iW.t().contiguous())
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)

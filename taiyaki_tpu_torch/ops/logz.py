@@ -15,12 +15,15 @@ and flop stays (src >= nbase).
 A row with no path (every transition impossible, -inf) keeps -inf
 vectors, logZ -inf and all-zero posteriors instead of NaN.
 
-The posteriors' kernels cut T into segments of K steps (csrc/logz.cu):
-each segment's NFF x NFF transfer in parallel, a serial pass over the
-segments for the backward vector at each segment's end, then each
-segment's steps rerun from it in parallel.  `logz_posteriors_segmented`
-is a plain mirror of that arithmetic, held against the twin by the CPU
-tests; nothing on the main path calls it.
+Both passes' kernels cut T into segments of K steps (csrc/logz.cu): each
+segment's NFF x NFF transfer in parallel, a serial pass over the segments
+for the vector at each segment's start (forward) or end (posteriors),
+then each segment's steps rerun from it in parallel; the forward's logZ
+is the segments' sums added in segment order.  `logz_fwd_segmented` and
+`logz_posteriors_segmented` are plain mirrors of that arithmetic, held
+against the twins by the CPU tests; nothing on the main path calls them.
+The kernels take any contiguous f32 view (4-byte loads where one is not
+16-byte aligned).
 
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
@@ -35,7 +38,10 @@ from taiyaki_tpu_torch.ops import cuda_lib
 
 MAX_NBASE = 8   # kernels are instantiated for nbase 1..8 (csrc/logz.cu)
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_logz_fwd": [_P] * 4 + [_I] * 3 + [_P],
+_SIGNATURES = {"tt_logz_fwd": [_P] * 5 + [_I] * 3 + [_P],
+               "tt_logz_fwd_segment": [_I] * 3,
+               "tt_logz_fwd_kernels": [_I] * 3,
+               "tt_logz_fwd_scratch": [_I] * 3,
                "tt_logz_posteriors": [_P] * 3 + [_I] * 3 + [_P],
                "tt_logz_post_segment": [_I] * 3,
                "tt_logz_post_kernels": [_I] * 3}
@@ -84,6 +90,79 @@ def logz_fwd_plain(scores, nbase, emit_lattice=True):
                           torch.full_like(new, -math.inf))
         logz = logz + factor[:, 0]
     return fwd, logz, lattice
+
+
+def _fwd_step(v, sc, nbase):
+    """One step of the forward recursion on v [..., nff] with scores sc
+    [..., S], unrenormalised: each flip base the logsumexp over every
+    source, each flop base over its flip base and itself."""
+    nff = 2 * nbase
+    src, _ = _lattice_maps(nbase, v.device)
+    cand = (v[..., src] + sc).unflatten(-1, (nbase + 1, nff))
+    flip = torch.logsumexp(cand[..., :nbase, :], dim=-1)
+    flop = torch.logsumexp(torch.stack([cand[..., nbase, :nbase],
+                                        cand[..., nbase, nbase:]]), dim=0)
+    return torch.cat([flip, flop], dim=-1)
+
+
+def _renorm(new, factor):
+    return torch.where(factor > -math.inf, new - factor,
+                       torch.full_like(new, -math.inf))
+
+
+def logz_fwd_segmented(scores, nbase, segment, emit_lattice=True):
+    """Plain mirror of the forward kernels' segmented arithmetic
+    (csrc/logz.cu): segments of `segment` steps, (a) the transfer of every
+    segment but the last, its NFF rows run from the unit vectors and
+    renormalised by their joint max every step, (b) the serial pass over
+    the segments for each one's start vector, renormalised to logsumexp
+    0, (c) each segment rerun from it, its lattice rows and the sum of its
+    factors; logZ the segments' sums added in segment order.  Contract of
+    `logz_fwd_plain`."""
+    T, B, _ = scores.shape
+    dev = scores.device
+    nff = 2 * nbase
+    K = max(1, segment)
+    nseg = max(1, -(-T // K))
+    neg = torch.tensor(-math.inf, device=dev)
+    start = torch.cat([torch.full((B, nbase), -math.log(nbase), device=dev),
+                       torch.full((B, nbase), -math.inf, device=dev)], dim=1)
+    # (a) transfers of segments 0 .. nseg - 2, [B, g, s, d]: all K steps
+    eye = torch.eye(nff, dtype=torch.bool, device=dev)
+    c = torch.where(eye, 0.0, neg).expand(B, nseg - 1, nff, nff).clone()
+    for k in range(K if nseg > 1 else 0):
+        t = torch.arange(nseg - 1, device=dev) * K + k
+        sc = scores[t].transpose(0, 1)[:, :, None, :]
+        new = _fwd_step(c, sc, nbase)
+        m = new.amax(dim=(2, 3), keepdim=True)
+        c = torch.where(m > -math.inf, new - m, neg)
+    # (b) the start vector of every segment
+    v = start
+    starts = [v]
+    for g in range(nseg - 1):
+        w = torch.logsumexp(v[:, :, None] + c[:, g], dim=1)
+        v = _renorm(w, torch.logsumexp(w, dim=1, keepdim=True))
+        starts.append(v)
+    # (c) every segment rerun from its start vector
+    v = torch.stack(starts, dim=1)
+    sums = scores.new_zeros(B, nseg)
+    lattice = scores.new_empty(T, B, nff) if emit_lattice else None
+    for k in range(K):
+        t = torch.arange(nseg, device=dev) * K + k
+        step = t < T
+        if not step.any():
+            break
+        if lattice is not None:
+            lattice[t[step]] = v[:, step].transpose(0, 1)
+        sc = scores[t.clamp(max=T - 1)].transpose(0, 1)
+        new = _fwd_step(v, sc, nbase)
+        f = torch.logsumexp(new, dim=2, keepdim=True)
+        v = torch.where(step[None, :, None], _renorm(new, f), v)
+        sums = sums + torch.where(step[None, :], f[..., 0], 0.0)
+    logz = scores.new_zeros(B)
+    for g in range(nseg):
+        logz = logz + sums[:, g]
+    return v[:, -1], logz, lattice
 
 
 def logz_posteriors_plain(scores, lattice, nbase):
@@ -203,16 +282,19 @@ def logz_fwd(scores, emit_lattice=True):
     _check("scores", scores, (T, B, S), scores.device, "logz_fwd")
     nff = 2 * nbase
     lib = cuda_lib.load("logz", _SIGNATURES)
-    with torch.cuda.device(scores.device):
-        fwd = torch.empty(B, nff, device=scores.device)
-        logz = torch.empty(B, device=scores.device)
-        lattice = (torch.empty(T, B, nff, device=scores.device)
-                   if emit_lattice else None)
+    dev = scores.device
+    with torch.cuda.device(dev):
+        fwd = torch.empty(B, nff, device=dev)
+        logz = torch.empty(B, device=dev)
+        lattice = torch.empty(T, B, nff, device=dev) if emit_lattice else None
+        n = lib.tt_logz_fwd_scratch(T, B, nbase)
+        scratch = torch.empty(n, device=dev) if n else None
         err = lib.tt_logz_fwd(
             cuda_lib.ptr(scores), cuda_lib.ptr(fwd), cuda_lib.ptr(logz),
-            cuda_lib.ptr(lattice),
-            T, B, nbase, cuda_lib.stream(scores.device))
-        logz_fwd.launches += 1
+            cuda_lib.ptr(lattice), cuda_lib.ptr(scratch), T, B, nbase,
+            cuda_lib.stream(dev))
+        if B:
+            logz_fwd.launches += forward_kernels(T, B, nbase)
     cuda_lib.check(lib, err, "logz_fwd kernel")
     return fwd, logz, lattice
 
@@ -229,10 +311,6 @@ def logz_posteriors(scores, lattice):
     _check("scores", scores, (T, B, S), scores.device, "logz_posteriors")
     _check("lattice", lattice, (T, B, 2 * nbase), scores.device,
            "logz_posteriors")
-    # the kernels load score rows 16 bytes and lattice rows 8 at a time
-    if scores.data_ptr() % 16 or lattice.data_ptr() % 8:
-        raise ValueError("logz_posteriors: scores must be 16-byte and the "
-                         "lattice 8-byte aligned")
     lib = cuda_lib.load("logz", _SIGNATURES)
     with torch.cuda.device(scores.device):
         post = torch.empty(T, B, S, device=scores.device)
@@ -243,6 +321,19 @@ def logz_posteriors(scores, lattice):
             logz_posteriors.launches += posterior_kernels(T, B, nbase)
     cuda_lib.check(lib, err, "logz_posteriors kernels")
     return post
+
+
+def forward_segment(T, B, nbase):
+    """The segment length the forward kernels take at this shape."""
+    return cuda_lib.load("logz", _SIGNATURES).tt_logz_fwd_segment(T, B,
+                                                                 nbase)
+
+
+def forward_kernels(T, B, nbase):
+    """The kernels one `logz_fwd` call launches at this shape: 3
+    (transfers, boundaries, rerun), or 1 when T is one segment."""
+    return cuda_lib.load("logz", _SIGNATURES).tt_logz_fwd_kernels(T, B,
+                                                                 nbase)
 
 
 def posterior_segment(T, B, nbase):

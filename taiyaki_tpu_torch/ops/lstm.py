@@ -136,6 +136,7 @@ def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
     gplans = gemm.plans_for(x.device, (T * B, 4 * H, D, gemm.GATE))
     lib = cuda_lib.load("lstm", _SIGNATURES)
     with torch.cuda.device(x.device):
+        x, iW = gemm.tma_ready(x, iW)
         swt = sW.t().contiguous()
         # gx scratch; under emit="pre" it comes back holding pre
         gx = torch.empty(T, B, 4 * H, device=x.device)
@@ -280,7 +281,7 @@ def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
-        iwt = iW.t().contiguous()
+        x, h, iwt = gemm.tma_ready(x, h, iW.t().contiguous())
         dpre = torch.empty(T, B, 4 * H, device=dev)
         out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
         err = lib.tt_lstm_bwd(
@@ -346,7 +347,8 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
-        iwt = iW.t().contiguous()
+        x, iW, h, sW, iwt = gemm.tma_ready(x, iW, h, sW,
+                                           iW.t().contiguous())
         pre = torch.empty(T, B, 4 * H, device=dev)
         dpre = torch.empty(T, B, 4 * H, device=dev)
         out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
@@ -442,7 +444,7 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
-        iwt = None if iW is None else iW.t().contiguous()
+        iwt, = gemm.tma_ready(None if iW is None else iW.t().contiguous())
         dpre = torch.empty(T, B, 4 * H, device=dev)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
         db = torch.empty(-(-B // plan.BT), 4 * H, device=dev)

@@ -12,7 +12,11 @@ gemm.py): their plain twins and their plan, on the CPU.
   `gate_plan_check` / `atb_plan_check`): "tc" exactly where TMA takes the
   operands, slices whole k tiles that fill the card's SMs, none empty;
 - the wrappers' `instance=` on the CPU: the plain twin whatever it says,
-  no launch counted; unknown names raise.
+  no launch counted; unknown names raise;
+- the alignment test beside the plan (`tma_aligned`, `tma_ready`): a
+  contiguous view at an odd float offset is not 16-byte aligned and gets
+  an aligned copy with its values; an aligned tensor and None pass as
+  they are.
 
 Tolerances: the twins are f32 products; against f64, 1e-5 of the largest
 |output| (K up to a few hundred rows a product here), against XLA's
@@ -254,3 +258,23 @@ def test_wrappers_take_the_twin_on_the_cpu(instance):
         gemm.gate_gemm(*t, instance="cuda")
     with pytest.raises(ValueError):
         gemm.atb_gemm(t[0], B, instance="l2")
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 5])
+def test_misaligned_operands_get_an_aligned_copy(offset):
+    """`gemm_plan` is a function of shapes alone; the tc instance's TMA
+    also needs each operand's base address 16-byte aligned, which a view
+    buf[offset:] of a 16-byte aligned buffer is only when offset % 4 == 0.
+    Such a view gets an aligned copy of its values, any other tensor and
+    None pass as they are."""
+    n = 6 * 40
+    buf = torch.arange(n + 8, dtype=torch.float32)
+    base = buf.data_ptr() % 16
+    view = buf[offset:offset + n].view(6, 40)
+    aligned = (base + 4 * offset) % 16 == 0
+    assert gemm.tma_aligned(view) == aligned
+    got, none, same = gemm.tma_ready(view, None, buf)
+    assert none is None and same is buf
+    assert gemm.tma_aligned(got) and torch.equal(got, view)
+    assert (got is view) == aligned
+    assert got.is_contiguous() and got.shape == view.shape

@@ -9,13 +9,15 @@ Tolerances: LSTM h (and c, acts, tanh c) atol 1e-4 (f32 sums in another
 order, carried through the recurrence); LSTM backward 1e-4 relative to
 the largest value of each output (sums of up to T*B products in another
 order; the same for the backwards from stored pre and rebuilding pre);
-logZ rtol 1e-5 / atol 1e-3 over T up to 1000; lattices atol 1e-4;
+logZ rtol 1e-5 / atol 1e-3 over T up to 4000 (the forward's segment sums
+added in segment order, bitwise the same with or without the lattice);
+lattices atol 1e-4;
 posteriors atol 1e-5 (their kernels cut T into segments; T of one step,
 of one segment and one step more, a batch of one); the CRF score 1e-3 +
 1e-5 |score| and its gradient atol 1e-5 (posteriors, each in [0, 1]; 3e-4
 over lattices of thousands of steps, see CRF_SHAPES), bitwise equal from
 run to run (its sums are taken in an order fixed by the row's indices,
-no atomics); GRU h atol 1e-4 and its backward 1e-4
+no atomics), and the forward's lattice bitwise equal from run to run; GRU h atol 1e-4 and its backward 1e-4
 relative, as the LSTM's (gh and gx of the forward atol 1e-4, as h).
 A retained graph gives bitwise the same gradients twice.  The CRF on
 score streams (kernels 9-10): the same score and lattice tolerances, its
@@ -98,25 +100,32 @@ def _scores(T, B, nbase, seed=1):
         (5.0 * np.tanh(rng.normal(size=(T, B, S)))).astype(np.float32))
 
 
-# the segmented posteriors: T = 1, T of one segment and one step past it,
-# B = 1, nbase 1 to 8
+# the segmented forward and posteriors: T = 1, T of one segment and one
+# step past it, B = 1, nbase 1 to 8, the basecall and training shapes and
+# T=4000, B=64
 @pytest.mark.parametrize("shape", [(37, 13, 4), (50, 5, 2), (50, 5, 3),
                                    (1000, 128, 4), (1, 5, 4), (16, 3, 4),
                                    (17, 3, 4), (37, 1, 4), (800, 256, 4),
-                                   (41, 3, 1), (40, 2, 5), (33, 3, 8)])
+                                   (41, 3, 1), (40, 2, 5), (33, 3, 8),
+                                   (4000, 64, 4)])
 def test_logz_kernels_match_twins(dev, shape):
     T, B, nbase = shape
     s = _scores(T, B, nbase).to(dev)
     f0, z0, l0 = logz.logz_fwd_plain(s, nbase)
     p0 = logz.logz_posteriors_plain(s, l0, nbase)
+    nf = logz.logz_fwd.launches
     f1, z1, l1 = logz.logz_fwd(s)
     n = logz.logz_posteriors.launches
     p1 = logz.logz_posteriors(s, l1)
-    _, z2, none = logz.logz_fwd(s, emit_lattice=False)
+    f2, z2, none = logz.logz_fwd(s, emit_lattice=False)
+    _, z3, l3 = logz.logz_fwd(s)
     torch.cuda.synchronize()
     assert logz.logz_posteriors.launches == n + logz.posterior_kernels(
         T, B, nbase)
-    assert none is None
+    assert logz.logz_fwd.launches == nf + 3 * logz.forward_kernels(
+        T, B, nbase)
+    assert none is None and torch.equal(f1, f2)
+    assert torch.equal(z1, z3) and torch.equal(l1, l3)
     torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-3)
     assert torch.equal(z1, z2)
     torch.testing.assert_close(l1, l0, rtol=0, atol=1e-4)
@@ -143,9 +152,13 @@ def test_logz_posteriors_reject_bad_input(dev):
     with pytest.raises(ValueError, match="contiguous"):
         logz.logz_posteriors(s.transpose(0, 1).contiguous().transpose(0, 1),
                              lat)
-    with pytest.raises(ValueError, match="aligned"):
-        logz.logz_posteriors(torch.empty(s.numel() + 1, device=dev)[1:]
-                             .view(s.shape), lat)
+    # a contiguous view at an odd float offset runs (4-byte loads) and
+    # gives the aligned call's posteriors
+    off = torch.empty(s.numel() + 1, device=dev)[1:].view(s.shape)
+    off.copy_(s)
+    torch.testing.assert_close(logz.logz_posteriors(off, lat),
+                               logz.logz_posteriors(s, lat), rtol=0,
+                               atol=1e-5)
     with pytest.raises(ValueError, match="nbase"):
         logz.logz_posteriors(torch.zeros(3, 2, 2 * 9 * 10, device=dev),
                              torch.zeros(3, 2, 18, device=dev))
@@ -258,10 +271,16 @@ def _lattice_close(got, want, atol):
 # tolerance, so a posterior p = exp(fwd + bwd - score) moves by at most
 # 3e-4 p, and a gradient entry sums posteriors of total at most 1: the
 # gradient is held to 3e-4 there.
+# The forward's bands (csrc/crf.cu TT_FWD_BANDS) change layout past 64,
+# 1024, 2048 and 4096 positions: each edge and one past it.
 CRF_SHAPES = [(37, 5, 12, 0, 1e-5), (41, 9, 300, 0, 1e-5),
               (30, 6, 20, 3, 1e-5), (800, 256, 512, 0, 1e-5),
               (4000, 6, 3712, 0, 3e-4), (7000, 3, 8192, 0, 3e-4),
-              (50, 7, 37, 0, 1e-5), (60, 5, 45, 6, 1e-5)]
+              (50, 7, 37, 0, 1e-5), (60, 5, 45, 6, 1e-5),
+              (40, 9, 64, 0, 1e-5), (40, 9, 65, 0, 1e-5),
+              (300, 4, 1024, 0, 1e-5), (300, 4, 1025, 0, 1e-5),
+              (300, 4, 2048, 0, 1e-5), (300, 4, 2049, 0, 1e-5),
+              (300, 3, 4096, 0, 1e-5), (300, 3, 4097, 0, 1e-5)]
 
 
 @pytest.mark.parametrize("shape", CRF_SHAPES)
@@ -277,9 +296,12 @@ def test_crf_kernels_match_twins(dev, shape):
     g2 = crf.crf_bwd(lp, sidx, midx, mmidx, mfact, lat1, valid, last)
     _, s3, none = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid,
                               emit_lattice=False)
+    f4, s4, lat4 = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid)
     torch.cuda.synchronize()
-    assert (crf.crf_fwd.launches, crf.crf_bwd.launches) == (nf + 2, nb + 2)
+    assert (crf.crf_fwd.launches, crf.crf_bwd.launches) == (nf + 3, nb + 2)
     assert none is None and torch.equal(s1, s3)
+    assert torch.equal(lat1, lat4) and torch.equal(f1, f4) \
+        and torch.equal(s1, s4)
     torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
     assert _lattice_close(lat1, lat0, 1e-4)
     assert _lattice_close(f1, f0, 1e-4)
@@ -307,6 +329,10 @@ def test_crf_bwd_catmod_weights_match_twin(dev):
     g_route = flipflop._scatter_posteriors(lp.shape, *post, sidx, midx,
                                            mmidx, mfact)
     atol = 1e-5 * mfact.max().item()
+    f0, s0, _ = crf.crf_fwd_plain(lp, sidx, midx, mmidx, mfact, valid)
+    f1, s1, _ = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(lat1, lat0, 1e-4) and _lattice_close(f1, f0, 1e-4)
     torch.testing.assert_close(g1, g0, rtol=0, atol=atol)
     torch.testing.assert_close(g_route, g0, rtol=0, atol=atol)
     assert torch.equal(g1, crf.crf_bwd(lp, sidx, midx, mmidx, mfact, lat1,
@@ -1313,3 +1339,69 @@ def test_layers_count_their_gemms_by_instance(dev):
                                            tc=gates["tc"] + 1)
     assert _counts(gemm.atb_gemm) == dict(simt=atbs["simt"] + 1,
                                           tc=atbs["tc"] + 1)
+
+
+def _offset(t):
+    """t as a contiguous view at an odd 4-byte offset of a fresh buffer
+    (never 16-byte aligned there), holding t's values."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return buf.view(t.shape).copy_(t)
+
+
+def _offset_all(args):
+    return [_offset(a) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _same_outputs(got, want, rel=1e-4):
+    for g, w in zip(_as_tuple(got), _as_tuple(want)):
+        assert g.shape == w.shape
+        assert _rel_err(g, w) < rel
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_offset_views_run_as_aligned(dev, reverse):
+    """Every input a contiguous view at an odd float offset (4-byte, not
+    16-byte aligned): the layers' forwards and backwards (whose GEMMs take
+    the tc instance at these widths: their operands get aligned copies),
+    the logZ forward and posteriors (4-byte loads) and the CRF forward and
+    backward run on the card and give the aligned call's results within
+    the kernels' tolerances (1e-4 relative for the layers)."""
+    shape = (40, 24, 32, 64)
+    args = [a.to(dev) for a in _lstm_inputs(*shape)]
+    for emit in (None, "acts"):
+        _same_outputs(lstm.lstm_fwd(*_offset_all(args), reverse=reverse,
+                                    emit=emit),
+                      lstm.lstm_fwd(*args, reverse=reverse, emit=emit))
+    x, iW, b, sW, _ = (a.to(dev) for a in _gru_inputs(*shape))
+    for res in (False, True):
+        _same_outputs(gru.gru_fwd(*_offset_all((x, iW, b, sW)),
+                                  reverse=reverse, emit_residuals=res),
+                      gru.gru_fwd(x, iW, b, sW, reverse=reverse,
+                                  emit_residuals=res))
+    rows = _lstm_bwd_rows(shape, reverse, dev) + _gru_bwd_rows(
+        shape, reverse, dev)
+    for fn, _, a, kw in rows:
+        got = fn(*_offset_all(a), reverse=reverse,
+                 **{k: _offset(v) for k, v in kw.items()})
+        _same_outputs(got, fn(*a, reverse=reverse, **kw))
+
+    s = _scores(300, 7, 4).to(dev)
+    f0, z0, l0 = logz.logz_fwd(s)
+    f1, z1, l1 = logz.logz_fwd(_offset(s))
+    torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(l1, l0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(f1, f0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(logz.logz_posteriors(_offset(s), _offset(l0)),
+                               logz.logz_posteriors(s, l0), rtol=0,
+                               atol=1e-5)
+
+    crf_args = _crf_inputs(60, 5, 45, nmod=6, dev=dev)
+    lp, sidx, midx, mmidx, mfact, valid, last = crf_args
+    f0, s0, lat0 = crf.crf_fwd(lp, sidx, midx, mmidx, mfact, valid)
+    f1, s1, lat1 = crf.crf_fwd(*_offset_all(crf_args[:6]))
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(lat1, lat0, 1e-4) and _lattice_close(f1, f0, 1e-4)
+    g0 = crf.crf_bwd(lp, sidx, midx, mmidx, mfact, lat0, valid, last)
+    g1 = crf.crf_bwd(*_offset_all((lp, sidx, midx, mmidx, mfact, lat0,
+                                   valid, last)))
+    torch.testing.assert_close(g1, g0, rtol=0, atol=1e-5 * mfact.max().item())
