@@ -77,17 +77,20 @@ card; run from the root of a checkout:
 6. mLstm_cat_mod_flipflop 256/5/19 (this slice) on the repo's mapped
    reads with modified bases (RESULTS/training_ingredients/
    mapped_remap_modref.hdf5, alphabet AYCZGT, 46 output columns):
-   kernels 9-10 (the CRF on score streams) against their twins at the
-   training shape (T=800, B=256, L=512, and L=640, the training step's
-   instance); the fused kernels 5-6 at the cat_mod width, with the
-   gradient's canonical and mod columns reported apart and the streams
-   route's scattered gradient held against the same twin; a lattice past the fused kernels' 8192
-   positions (T=10000, B=8, L=9000) through the cat_mod loss, which takes
-   the streams route with no switch, and kernels 9-10 against their
-   twins there; (a) training, 8 iterations by default (kernels 5-6 with
-   the mod column folded in, 9-10 idle) and 4 under
-   TAIYAKI_TPU_NO_SCORE_FUSE=1 (9-10 launched, 5-6 idle), whose losses
-   equal the default's; (b) card against CPU, one 8-chunk step on each
+   kernels 9-10 (the CRF on score streams: the forward, and the backward's
+   two entries, the posteriors and the route's d lp, crf_grad_streams)
+   against their twins at the training shape (T=800, B=256, L=512, and
+   L=640, the training step's width, and L=509, not a multiple of 4),
+   posteriors and d lp bitwise equal from run to run; the fused kernels
+   5-6 at the cat_mod width, with the gradient's canonical and mod
+   columns reported apart and the streams route's d lp held against the
+   same twin; a lattice past the fused kernels' 8192 positions (T=10000,
+   B=8, L=9000) through the cat_mod loss, which takes the streams route
+   with no switch, and kernels 9-10 against their twins there; (a)
+   training, 8 iterations by default (kernels 5-6 with the mod column
+   folded in, 9-10 idle) and 4 under TAIYAKI_TPU_NO_SCORE_FUSE=1 (9-10
+   launched, 5-6 idle, no scatter_add_), whose losses equal the default's;
+   (b) card against CPU, one 8-chunk step on each
    route; (c) --modified_base_output basecalling of the trained
    checkpoint, and of a seeded one that calls bases with a mod, on the
    three modref reads, written as fast5, on the card and the CPU: one mod
@@ -108,8 +111,8 @@ card; run from the root of a checkout:
    peak memory at 341 chunks x 3000 samples and at 128 x 8000; a
    card-against-CPU step on 5 chunks of 3000 samples at size 384.  And
    a lattice of 20000 positions (T=20100, B=1) through the cat_mod loss
-   and kernels 9-10 against their twins there: the kernels' instance
-   that keeps the lattice vector in device memory.
+   and kernels 9-10 against their twins there: their chains in a cluster
+   of 8 CTAs a row.
 9. The two GEMMs under the layers (ops/gemm.py): each product
    at the layers' shapes (GEMM_CASES: gx, d_x and d_iW/d_sW of the mLstm
    and mGru training steps and of the trainer defaults' 341 x 600 batch,
@@ -121,9 +124,9 @@ card; run from the root of a checkout:
    training and basecall path must have run all its GEMMs on the tc
    instance (counted by instance, as the recurrences are).
 10. Offset views: every input of the layers' forwards and backwards, of
-   the logZ forward and posteriors and of the CRF forward and backward as
-   a contiguous view at an odd float offset (4-byte aligned, not 16),
-   each against the aligned call on the same values.
+   the logZ forward and posteriors, of the CRF forward and backward and
+   of kernels 9-10 as a contiguous view at an odd float offset (4-byte
+   aligned, not 16), each against the aligned call on the same values.
 11. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
    line (17 rows), the card line, and the result line
    {"ok": true, "device": {...}}.
@@ -662,9 +665,9 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
     an order fixed by the row's indices: two runs must be bitwise equal,
     as must two runs of the forward (its lattice).
     At the cat_mod width the canonical and the mod columns are reported
-    apart, and the streams route's gradient (kernels 9-10 and the
-    scatter) is held to the same tolerance against this twin on the same
-    inputs."""
+    apart, and the streams route's gradient (kernels 9-10: the forward and
+    crf_grad_streams) is held to the same tolerance against this twin on
+    the same inputs."""
     from taiyaki_tpu_torch.ops import crf
     lp, seqlens, args = _crf_case(torch, dev, rng, tt, tb, tl, s)
     sidx, midx, mmidx, mfact, valid, last = args
@@ -691,11 +694,9 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
         from taiyaki_tpu_torch.ops import flipflop
         stay, move = flipflop._select_streams(lp, sidx, midx, mmidx, mfact)
         _, _, lat_s = crf.crf_fwd_streams(stay, move, valid)
-        post = crf.crf_bwd_posteriors(stay, move, lat_s, valid, last)
+        g_route = crf.crf_grad_streams(stay, move, lat_s, valid, last, *idx,
+                                       s)
         del stay, move, lat_s
-        g_route = flipflop._scatter_posteriors(lp.shape, *post, sidx, midx,
-                                               mmidx, mfact)
-        del post
         r_err = max_abs_diff(g_route, g0)
         del g_route
         can_err = max_abs_diff(g1[..., :S], g0[..., :S])
@@ -703,7 +704,7 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
         check(r_err <= g_tol, "streams route d lp: max |err| {} > {}".format(
             r_err, g_tol))
         cols = (" (canonical columns {:.3g}, mod columns {:.3g}; the streams "
-                "route's scattered d lp against this twin {:.3g})".format(
+                "route's d lp against this twin {:.3g})".format(
                     can_err, mod_err, r_err))
     del f0, s0, lat0, g0, g2
     check(s_err <= s_tol, "crf_fwd: score err {} > {}".format(s_err, s_tol))
@@ -754,21 +755,33 @@ def check_crf_streams(torch, dev, rng, tt=TT, tb=TB, tl=TL, p_tol=1e-5):
     """Kernels 9-10 (the CRF on score streams) at T=tt, B=tb, L=tl against
     their twins, on streams that the route's own gather selects from
     cat_mod scores (SC columns, a weighted mod column in every move); no
-    PyTorch call computes either.  Tolerances: score 1e-3 + 1e-5 |score|,
-    lattice 1e-4 on live states (as kernel 5), posteriors p_tol (1e-5 at
-    the training shape; 3e-4 over thousands of steps, as kernel 6's
-    gradient), bitwise equal from run to run (no atomics).  Also times the
-    route's gather of the two streams and its scatter of the posteriors
-    into d lp.  Returns the two kernel rows."""
+    PyTorch call computes any of them.  Kernel 9 (`crf_fwd_streams`), and
+    kernel 10's two entries, each its backward chain and posterior pass:
+    the posteriors (`crf_bwd_posteriors`) and the route's d lp
+    (`crf_grad_streams`, the posteriors summed into their columns).
+    Tolerances: score 1e-3 + 1e-5 |score|, lattice 1e-4 on live states (as
+    kernel 5), posteriors p_tol (1e-5 at the training shape; 3e-4 over
+    thousands of steps, as kernel 6's gradient), d lp p_tol times its
+    twin's largest entry (a mod column's entry sums posteriors times
+    weights up to 8); posteriors and d lp bitwise equal from run to run
+    (no atomics).  Also times the route's gather of the two streams and,
+    for the record, the scatter of the posteriors into d lp that
+    `crf_grad_streams` replaced.  Returns the rows of kernels 9 and 10
+    (10's for the d lp entry, the posteriors entry's numbers beside)."""
     from taiyaki_tpu_torch.ops import crf, flipflop
     lp, seqlens, args = _crf_case(torch, dev, rng, tt, tb, tl, SC)
     sidx, midx, mmidx, mfact, valid, last = args
-    stay, move = flipflop._select_streams(lp, sidx, midx, mmidx, mfact)
+    idx = (sidx, midx, mmidx, mfact)
+    stay, move = flipflop._select_streams(lp, *idx)
     f1, s1, lat1 = crf.crf_fwd_streams(stay, move, valid)
     p1 = crf.crf_bwd_posteriors(stay, move, lat1, valid, last)
     p2 = crf.crf_bwd_posteriors(stay, move, lat1, valid, last)
+    g1 = crf.crf_grad_streams(stay, move, lat1, valid, last, *idx, SC)
+    g2 = crf.crf_grad_streams(stay, move, lat1, valid, last, *idx, SC)
     f0, s0, lat0 = crf.crf_fwd_streams_plain(stay, move, valid)
     p0 = crf.crf_bwd_posteriors_plain(stay, move, lat0, valid, last)
+    # crf_grad_streams_plain is these posteriors scattered
+    g0 = crf.scatter_posteriors(lp.shape, p0[0], p0[1].clone(), *idx)
     torch.cuda.synchronize()
     live = lat0 > crf.NEG / 2
     check(bool((lat1[~live] <= crf.NEG / 2).all()),
@@ -779,16 +792,22 @@ def check_crf_streams(torch, dev, rng, tt=TT, tb=TB, tl=TL, p_tol=1e-5):
     s_err = (s1 - s0).abs().max().item()
     s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
     p_err = max(max_abs_diff(a, b) for a, b in zip(p1, p0))
+    g_err = max_abs_diff(g1, g0)
+    g_tol = p_tol * g0.abs().max().item()
     rerun = all(bool(torch.equal(a, b)) for a, b in zip(p1, p2))
+    g_same = bool(torch.equal(g1, g2))
     mass = p1[0].sum().item() + p1[1].sum().item()
-    del f0, s0, lat0, p0, p2
+    del f0, s0, lat0, p0, p2, g0, g2
     check(s_err <= s_tol, "crf_fwd_streams: score err {} > {}".format(
         s_err, s_tol))
     check(l_err <= 1e-4, "crf_fwd_streams: lattice err {} > 1e-4".format(
         l_err))
     check(p_err <= p_tol, "crf_bwd_posteriors: max |err| {} > {}".format(
         p_err, p_tol))
+    check(g_err <= g_tol, "crf_grad_streams: max |err| {} > {}".format(
+        g_err, g_tol))
     check(rerun, "crf_bwd_posteriors: not bitwise equal run to run")
+    check(g_same, "crf_grad_streams: not bitwise equal run to run")
     # every row has a path: each step's posteriors sum to 1
     check(abs(mass - tt * tb) <= 1e-3 * tt * tb,
           "crf_bwd_posteriors: total mass {} of {}".format(mass, tt * tb))
@@ -801,46 +820,59 @@ def check_crf_streams(torch, dev, rng, tt=TT, tb=TB, tl=TL, p_tol=1e-5):
         stay, move, lat1, valid, last), reps=reps)
     b_plain = cuda_ms(torch, lambda: crf.crf_bwd_posteriors_plain(
         stay, move, lat1, valid, last), reps=1, warmup=0)
-    sel_ms = cuda_ms(torch, lambda: flipflop._select_streams(
-        lp, sidx, midx, mmidx, mfact), reps=reps)
-    scat_ms = cuda_ms(torch, lambda: flipflop._scatter_posteriors(
-        lp.shape, p1[0], p1[1].clone(), sidx, midx, mmidx, mfact), reps=reps)
+    g_ms = cuda_ms(torch, lambda: crf.crf_grad_streams(
+        stay, move, lat1, valid, last, *idx, SC), reps=reps)
+    g_plain = cuda_ms(torch, lambda: crf.crf_grad_streams_plain(
+        stay, move, lat1, valid, last, *idx, SC), reps=1, warmup=0)
+    sel_ms = cuda_ms(torch, lambda: flipflop._select_streams(lp, *idx),
+                     reps=reps)
+    scat_ms = cuda_ms(torch, lambda: crf.scatter_posteriors(
+        lp.shape, p1[0], p1[1].clone(), *idx), reps=reps)
     # bytes: each stream read once where this data needs it (stay and the
     # lattice at valid positions, move at those a move enters forward and
-    # leaves backward), each output written once in full; operations on
-    # this data's valid positions, ~10 a position and step forward
-    # (logaddexp, max), ~20 backward (two exps, max, sum, logaddexp)
+    # leaves backward), each output written once in full (d lp [T, B, S]
+    # for the d lp entry); operations on this data's valid positions, ~10
+    # a position and step forward (logaddexp, max), ~20 backward (two
+    # exps, max, sum, logaddexp)
     npos = int(seqlens.sum())
     pos = torch.arange(tl, device=dev)[None]
     ok = valid != 0
     n_fmove = int(ok[:, 1:].sum().item())
     n_bmove = int((ok & (pos < last.long()[:, None])).sum().item())
     stream = 4 * tt * tb * tl
+    reads = 4 * tt * (2 * npos + n_bmove)
     f_bound, f_by = bound_ms(4 * tt * (npos + n_fmove) + stream
                              + 4 * (2 * tb * tl + tb), 10 * tt * npos)
-    b_bound, b_by = bound_ms(4 * tt * (2 * npos + n_bmove) + 2 * stream
-                             + 4 * (tb * tl + tb), 20 * tt * npos)
-    say("crf_fwd_streams T={} B={} L={} (cat_mod streams, S={}): score err "
-        "{:.3g} (tol {:.3g}), lattice {:.3g} (tol 1e-4), kernel {:.3f} ms, "
-        "plain {:.3f} ms, bound {:.4f} ms ({})".format(
-            tt, tb, tl, SC, s_err, s_tol, l_err, f_ms, f_plain, f_bound,
-            f_by))
+    b_bound, b_by = bound_ms(reads + 2 * stream + 4 * (tb * tl + tb),
+                             20 * tt * npos)
+    g_bound, g_by = bound_ms(reads + 4 * tt * tb * SC
+                             + 4 * (5 * tb * tl + tb), 20 * tt * npos)
+    say("crf_fwd_streams T={} B={} L={} (cat_mod streams, S={}; layout {}): "
+        "score err {:.3g} (tol {:.3g}), lattice {:.3g} (tol 1e-4), kernel "
+        "{:.3f} ms, plain {:.3f} ms, bound {:.4f} ms ({})".format(
+            tt, tb, tl, SC, crf.streams_layout(tl) or "device memory",
+            s_err, s_tol, l_err, f_ms, f_plain, f_bound, f_by))
     say("crf_bwd_posteriors T={} B={} L={}: max |err| {:.3g} (tol {:.0e}), "
-        "bitwise run to run, kernel {:.3f} ms, plain {:.3f} ms, bound "
-        "{:.4f} ms ({}); the route's gather of both streams {:.3f} ms, "
-        "scatter into d lp {:.3f} ms".format(
-            tt, tb, tl, p_err, p_tol, b_ms, b_plain, b_bound, b_by, sel_ms,
-            scat_ms))
+        "bitwise run to run, kernels {:.3f} ms, plain {:.3f} ms, bound "
+        "{:.4f} ms ({}); crf_grad_streams: d lp max |err| {:.3g} (tol "
+        "{:.3g}), bitwise run to run, kernels {:.3f} ms, plain {:.3f} ms, "
+        "bound {:.4f} ms ({}); the route's gather of both streams {:.3f} "
+        "ms; a scatter_add_ of the posteriors into d lp (no longer on the "
+        "route) {:.3f} ms".format(
+            tt, tb, tl, p_err, p_tol, b_ms, b_plain, b_bound, b_by, g_err,
+            g_tol, g_ms, g_plain, g_bound, g_by, sel_ms, scat_ms))
     return [dict(name="crf_fwd_streams", route="cuda",
                  source="taiyaki_tpu_torch/csrc/crf.cu",
                  replaces="taiyaki_tpu/ops/pallas_crf.py:108",
                  max_abs_err=max(s_err, l_err), ms=f_ms, plain_ms=f_plain,
                  bound_ms=f_bound, bound_by=f_by, library_ms=None),
-            dict(name="crf_bwd_posteriors", route="cuda",
+            dict(name="crf_grad_streams", route="cuda",
                  source="taiyaki_tpu_torch/csrc/crf.cu",
                  replaces="taiyaki_tpu/ops/pallas_crf.py:218",
-                 max_abs_err=p_err, ms=b_ms, plain_ms=b_plain,
-                 bound_ms=b_bound, bound_by=b_by, library_ms=None)]
+                 max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
+                 bound_ms=g_bound, bound_by=g_by, library_ms=None,
+                 post=dict(max_abs_err=p_err, ms=b_ms, plain_ms=b_plain,
+                           bound_ms=b_bound, bound_by=b_by))]
 
 
 def _catmod_case(rng, tt, tb, tl, lo):
@@ -864,12 +896,12 @@ def _catmod_case(rng, tt, tb, tl, lo):
 
 def long_lattice(torch, dev, rng, counters, shape=(XT, XB, XL)):
     """A lattice past the fused kernels' 8192 positions (T, B, L = shape;
-    XT, XB, XL, and YT, YB, YL past kernels 9-10's 16384 positions in
-    shared memory) through the cat_mod loss with no switch set: it takes
-    the streams route (kernels 9-10 launched once each, 5-6 never); the
-    loss is finite, every row has a path, the gradient is finite and each
-    step's posteriors sum to one per row.  Then kernels 9-10 against
-    their twins at that shape."""
+    XT, XB, XL in a cluster of 4 CTAs a row, YT, YB, YL in one of 8)
+    through the cat_mod loss with no switch set: it takes the streams
+    route (kernel 9 and kernel 10's d lp entry launched once each, 5-6
+    never, no scatter_add_); the loss is finite, every row has a path, the
+    gradient is finite and each step's posteriors sum to one per row.
+    Then kernels 9-10 against their twins at that shape."""
     from taiyaki_tpu_torch.ops import flipflop
     tt, tb, tl = shape
     check(tl > 8192 and tt >= tl, "the long lattice must pass 8192")
@@ -879,7 +911,8 @@ def long_lattice(torch, dev, rng, counters, shape=(XT, XB, XL)):
         fn.launches = 0
     tx = torch.from_numpy(x).to(dev).requires_grad_()
     with switches({"TAIYAKI_TPU_NO_SCORE_FUSE": "0",
-                   "TAIYAKI_TPU_F32_SCORES": "0"}):
+                   "TAIYAKI_TPU_F32_SCORES": "0"}), \
+            count_scatters(torch) as scatters:
         loss = flipflop.cat_mod_flipflop_loss(
             tx, *(torch.from_numpy(a).to(dev) for a in (seqs, seqlens, cats)),
             offsets, weights)
@@ -887,8 +920,10 @@ def long_lattice(torch, dev, rng, counters, shape=(XT, XB, XL)):
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     check(launches == {"crf_fwd": 0, "crf_bwd": 0, "crf_fwd_streams": 1,
-                       "crf_bwd_posteriors": 1},
+                       "crf_grad_streams": 1},
           "long lattice: launches {}".format(launches))
+    check(scatters["calls"] == 0, "long lattice: {} scatter_add_ calls on "
+          "the streams route".format(scatters["calls"]))
     costs = loss.detach().cpu().numpy()
     check(bool(np.isfinite(costs).all()) and bool((costs != 0).all())
           and bool(torch.isfinite(tx.grad).all()),
@@ -898,7 +933,7 @@ def long_lattice(torch, dev, rng, counters, shape=(XT, XB, XL)):
     check(abs(mass - tt * tb) <= 1e-3 * tt * tb,
           "long lattice: posterior mass {}".format(mass))
     say("long lattice T={} B={} L={} (S={}) through the cat_mod loss, no "
-        "switch: launches {}; costs {}".format(
+        "switch: launches {}, no scatter_add_; costs {}".format(
             tt, tb, tl, SC, launches,
             ", ".join("{:.5f}".format(c) for c in costs)))
     del tx, loss
@@ -1652,7 +1687,8 @@ def check_offset_views(torch, dev, rng):
     aligned) as every input of the layers' forwards and backwards (kernels
     1, 4, 7, 8, 11-13; their tc GEMMs take aligned copies), of the logZ
     forward and posteriors (4-byte loads) and of the CRF forward and
-    backward (kernels 2, 3, 5, 6) at the basecall width: each runs on the
+    backward (kernels 2, 3, 5, 6) at the basecall width, and of the CRF on
+    score streams (kernel 9, kernel 10's two entries): each runs on the
     card and gives the aligned call's results, within 1e-4 relative (the
     layers), 1e-3 + 1e-5 |score| and 1e-4 (logZ, the CRF's score and
     lattices), 1e-5 (posteriors, d lp).  Returns the largest error of
@@ -1737,6 +1773,32 @@ def check_offset_views(torch, dev, rng):
         crf.crf_bwd(lp, *idx, lat0, valid, last))
     check(errs["crf_bwd"] <= 1e-5 * mfact.max().item(), "crf_bwd on offset "
           "views: {}".format(errs["crf_bwd"]))
+    # kernels 9-10 on streams at an odd float offset (4-byte copies)
+    from taiyaki_tpu_torch.ops import flipflop
+    stay, move = flipflop._select_streams(lp, *idx)
+    f0, s0, lat0 = crf.crf_fwd_streams(stay, move, valid)
+    f1, s1, lat1 = crf.crf_fwd_streams(offset(stay), offset(move),
+                                       offset(valid))
+    live = lat0 > crf.NEG / 2
+    s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
+    check((s1 - s0).abs().max().item() <= s_tol and bool(
+        (lat1[~live] <= crf.NEG / 2).all()), "crf_fwd_streams on offset "
+          "views: score or impossible states")
+    errs["crf_fwd_streams"] = (lat1[live] - lat0[live]).abs().max().item()
+    check(errs["crf_fwd_streams"] <= 1e-4, "crf_fwd_streams on offset views: "
+          "lattice {}".format(errs["crf_fwd_streams"]))
+    sargs = (stay, move, lat0, valid, last)
+    errs["crf_bwd_posteriors"] = max(
+        max_abs_diff(a, b) for a, b in zip(
+            crf.crf_bwd_posteriors(*(offset(a) for a in sargs)),
+            crf.crf_bwd_posteriors(*sargs)))
+    errs["crf_grad_streams"] = max_abs_diff(
+        crf.crf_grad_streams(*(offset(a) for a in sargs + idx), SC),
+        crf.crf_grad_streams(*sargs, *idx, SC))
+    check(errs["crf_bwd_posteriors"] <= 1e-5
+          and errs["crf_grad_streams"] <= 1e-5 * mfact.max().item(),
+          "kernel 10 on offset views: posteriors {}, d lp {}".format(
+              errs["crf_bwd_posteriors"], errs["crf_grad_streams"]))
     torch.cuda.synchronize()
     say("offset views (every input at an odd float offset, against the "
         "aligned call; layers relative, logZ, CRF and posteriors absolute): "
@@ -1745,6 +1807,23 @@ def check_offset_views(torch, dev, rng):
 
 
 # -- phases 3 and 4 ----------------------------------------------------------
+
+@contextlib.contextmanager
+def count_scatters(torch):
+    """Counts the calls of Tensor.scatter_add_ while in the block (a dict
+    {"calls": n}): the streams route must make none."""
+    calls = {"calls": 0}
+    real = torch.Tensor.scatter_add_
+
+    def counted(*args, **kwargs):
+        calls["calls"] += 1
+        return real(*args, **kwargs)
+    torch.Tensor.scatter_add_ = counted
+    try:
+        yield calls
+    finally:
+        torch.Tensor.scatter_add_ = real
+
 
 @contextlib.contextmanager
 def switches(env):
@@ -2732,6 +2811,9 @@ def run(seed):
     torch.cuda.empty_cache()
     check_crf_streams(torch, dev, rng, tl=TRAIN_L)
     torch.cuda.empty_cache()
+    # a width that is not a multiple of 4 (4-byte stream copies)
+    check_crf_streams(torch, dev, rng, tl=TL - 3)
+    torch.cuda.empty_cache()
     kernels += check_scan(torch, dev, rng)
     torch.cuda.empty_cache()
     l2_512 = check_l2_512(torch, dev, rng)
@@ -2756,7 +2838,7 @@ def run(seed):
                 "gru_bwd_recompute": gru.gru_bwd_recompute,
                 "gru_bwd_fusedw": gru.gru_bwd_fusedw,
                 "crf_fwd_streams": crf.crf_fwd_streams,
-                "crf_bwd_posteriors": crf.crf_bwd_posteriors,
+                "crf_grad_streams": crf.crf_grad_streams,
                 "lstm_scan_fwd": lstm.lstm_scan_fwd,
                 "lstm_scan_bwd": lstm.lstm_scan_bwd,
                 "gru_scan_fwd": gru.gru_scan_fwd,
@@ -2777,7 +2859,7 @@ def run(seed):
         counters[k] = getattr(gemm, k)
         counters[k + "[tc]"] = counters[k].by_instance["tc"]
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
-    streams = ("crf_fwd_streams", "crf_bwd_posteriors")
+    streams = ("crf_fwd_streams", "crf_grad_streams")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
                  "recompute": "lstm_bwd_recompute"}
     gru_bwds = {"recompute": "gru_bwd_recompute", "stored": "gru_bwd_fusedw"}
@@ -2856,11 +2938,14 @@ def run(seed):
                                     + streams), MLSTM_CATMOD,
             idle=streams)
         torch.cuda.empty_cache()
-        launches["mLstm cat_mod training streams"], _, s_outdir = \
-            train_path(torch, work, seed,
-                       pick(("lstm_fwd", "lstm_bwd_acts") + loss + streams),
-                       MLSTM_CATMOD, policy=STREAMS, niter=4,
-                       idle=("crf_fwd", "crf_bwd"))
+        with count_scatters(torch) as scatters:
+            launches["mLstm cat_mod training streams"], _, s_outdir = \
+                train_path(torch, work, seed,
+                           pick(("lstm_fwd", "lstm_bwd_acts") + loss
+                                + streams), MLSTM_CATMOD, policy=STREAMS,
+                           niter=4, idle=("crf_fwd", "crf_bwd"))
+        check(scatters["calls"] == 0, "cat_mod streams training: {} "
+              "scatter_add_ calls".format(scatters["calls"]))
         same_losses(outdir, s_outdir, 4)
         torch.cuda.empty_cache()
         card_vs_cpu(torch, dev, seed, MLSTM_CATMOD, (STREAMS,))
@@ -2944,14 +3029,13 @@ def run(seed):
         "column in every move): {}".format(SC, TT, TB, TL, json.dumps(
             [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
                                 "max_abs_err")} for r in catmod_crf])))
-    say("crf on score streams at L={} (T={}, B={}): {}".format(
-        XL, XT, XB, json.dumps(
-            [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
-                                "max_abs_err")} for r in long_rows])))
-    say("crf on score streams at L={} (T={}, B={}; device-memory "
-        "instance): {}".format(YL, YT, YB, json.dumps(
-            [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
-                                "max_abs_err")} for r in longest_rows])))
+    for (lt, lb, ll), rows in (((XT, XB, XL), long_rows),
+                               ((YT, YB, YL), longest_rows)):
+        say("crf on score streams at L={} (T={}, B={}; layout {}): {}"
+            .format(ll, lt, lb, crf.streams_layout(ll), json.dumps(
+                [{k: r[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                    "max_abs_err", "post") if k in r}
+                 for r in rows])))
     say("cat_mod routes (training step, peak memory, loss alone): {}"
         .format(json.dumps(routes)))
     say("trainer defaults steps (mLstm {}/5/19): {}".format(
@@ -2975,7 +3059,7 @@ def run(seed):
               "lstm_bwd_recompute": "mLstm training recompute",
               "gru_bwd_fusedw": "mGru training stored",
               "crf_fwd_streams": "mLstm cat_mod training streams",
-              "crf_bwd_posteriors": "mLstm cat_mod training streams",
+              "crf_grad_streams": "mLstm cat_mod training streams",
               "lstm_scan_fwd": "lstm_scan", "lstm_scan_bwd": "lstm_scan",
               "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
     for k in kernels:
@@ -3028,7 +3112,8 @@ def run(seed):
         dict({key: k[key] for key in keys}, **(
             {"launches_by_instance": _by_instance(
                 launches[source[k["name"]]], k["name"]),
-             "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}))
+             "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}),
+            **({"post": k["post"]} if "post" in k else {}))
         for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

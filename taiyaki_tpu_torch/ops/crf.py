@@ -2,12 +2,16 @@
 (csrc/crf.cu) and their plain twins.
 
 Two pairs.  The fused pair (kernels 5-6) selects scores from lp itself;
-the streams pair (kernels 9-10, `crf_fwd_streams` and
-`crf_bwd_posteriors`) runs the same recursions on stay and move score
-streams [T, B, L] that the caller selected, and leaves the scatter of
-posteriors into d lp to the caller (`ops.flipflop` chooses the pair).
-The streams pair takes any L: past MAX_L_STREAMS positions its kernels'
-second instance keeps each row's vector in device memory.
+the streams pair (kernels 9-10) runs the same recursions on stay and move
+score streams [T, B, L] that the caller selected (`ops.flipflop` chooses
+the pair): `crf_fwd_streams` (kernel 5's chain on another reader), and
+the backward, kernel 10, which runs that chain backwards into a backward
+lattice and then a posterior pass without a serial chain, with two
+entries: `crf_bwd_posteriors` (the posteriors [T, B, L]) and
+`crf_grad_streams` (the posteriors summed into d lp [T, B, S] in a fixed
+order, no scatter).  The streams pair takes any L: its chains run in a
+thread-block cluster up to MAX_L_STREAMS positions (`streams_layout`)
+and keep each row's vector in device memory past it.
 
 `crf_fwd` computes what the TPU kernel taiyaki_tpu/ops/pallas_crf.py:423
 `crf_forward_fused` computes and `crf_bwd` what pallas_crf.py:565
@@ -35,6 +39,8 @@ On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
 """
 
+import ctypes
+
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib
@@ -42,16 +48,20 @@ from taiyaki_tpu_torch.ops import cuda_lib
 NEG = -1e30
 MAX_L = 8192     # the fused kernels' widest lattice (csrc/crf.cu)
 MAX_S = 128
-# kernels 9-10 keep a row's lattice vector in shared memory up to this
-# many positions (1024 threads x 16), in device memory past it
-MAX_L_STREAMS = 16384
+# kernels 9-10's chains keep a row's lattice vector in registers, in a
+# cluster of up to 8 CTAs, up to this many positions (1024 threads x 4 x
+# 8), in device memory past it
+MAX_L_STREAMS = 32768
 _P, _I = cuda_lib.P, cuda_lib.I
 _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],
                "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P],
                "tt_crf_bwd_batch": [_I] * 4,
                "tt_crf_fwd_layout": [_I],
                "tt_crf_fwd_streams": [_P] * 7 + [_I] * 3 + [_P],
-               "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P]}
+               "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P],
+               "tt_crf_grad_streams": [_P] * 11 + [_I] * 4 + [_P],
+               "tt_crf_streams_layout": [_I],
+               "tt_crf_streams_scratch": [_I] * 5}
 
 
 def _select(lp_t, idx):
@@ -302,6 +312,28 @@ crf_bwd.launches = 0
 
 # -- kernels 9-10: the recursions on selected score streams -------------------
 
+# the stream chains' bands (csrc/crf.cu TT_STREAM_BANDS): (widest L, most
+# threads a row, positions a thread, CTAs a row)
+STREAM_BANDS = ((64, 32, 2, 1), (1024, 512, 2, 1), (2048, 1024, 2, 1),
+                (4096, 1024, 4, 1), (MAX_L, 1024, 4, 2),
+                (2 * MAX_L, 1024, 4, 4), (MAX_L_STREAMS, 1024, 4, 8))
+
+
+def streams_layout(L):
+    """The layout of kernels 9-10's chains at lattice width L, as csrc/
+    crf.cu's TT_STREAM_BANDS picks it (tt_crf_streams_layout): (threads a
+    row, positions a thread, CTAs a row), the fewest warps of its band that
+    hold L, at least two where a row is more than one warp; None past
+    MAX_L_STREAMS, where the chains keep the row's vector in device
+    memory."""
+    for top, most, p, cl in STREAM_BANDS:
+        if 1 <= L <= top:
+            if most == 32:
+                return 32, p, cl
+            return 32 * max(2, -(-L // (32 * p * cl))), p, cl
+    return None
+
+
 def crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice=True):
     """Plain forward pass on score streams, as pallas_crf.crf_forward
     computes it: stay_all, move_all [T, B, L] (move column l is the move
@@ -333,6 +365,19 @@ def crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice=True):
     return fwd, score, lattice
 
 
+def _bwd_start(valid, last):
+    """(ok, move_ok, the backward vector before the last step) of rows
+    with final positions `last`."""
+    B, L = valid.shape
+    dev = valid.device
+    ok = valid != 0
+    pos = torch.arange(L, device=dev)[None, :]
+    last = last.long()[:, None]
+    bwd = torch.where((pos == last) & ok, torch.zeros(B, L, device=dev),
+                      torch.full((B, L), NEG, device=dev))
+    return ok, ok & (pos < last), bwd
+
+
 def crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid, last):
     """Plain backward pass on score streams, as
     pallas_crf.crf_backward_posteriors computes it.
@@ -343,14 +388,8 @@ def crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid, last):
         l -> l+1.  A row with no path gets zeros.
     """
     T, B, L = stay_all.shape
-    dev = stay_all.device
-    ok = valid != 0
-    pos = torch.arange(L, device=dev)[None, :]
-    last = last.long()[:, None]
-    move_ok = ok & (pos < last)
-    bwd = torch.where((pos == last) & ok, torch.zeros(B, L, device=dev),
-                      torch.full((B, L), NEG, device=dev))
-    neg_col = torch.full((B, 1), NEG, device=dev)
+    ok, move_ok, bwd = _bwd_start(valid, last)
+    neg_col = torch.full((B, 1), NEG, device=stay_all.device)
     post_stay = stay_all.new_empty(T, B, L)
     post_move = stay_all.new_empty(T, B, L)
     for t in range(T - 1, -1, -1):
@@ -377,6 +416,79 @@ def crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid, last):
     return post_stay, post_move
 
 
+def crf_bwd_chain_plain(stay_all, move_all, valid, last):
+    """The backward recursion of `crf_bwd_posteriors_plain` alone, as
+    kernel 10's chain runs it: the backward lattice [T, B, L], the
+    renormalised backward vector before every step (t = T-1 first)."""
+    T, B, L = stay_all.shape
+    ok, move_ok, bwd = _bwd_start(valid, last)
+    neg_col = torch.full((B, 1), NEG, device=stay_all.device)
+    blat = stay_all.new_empty(T, B, L)
+    for t in range(T - 1, -1, -1):
+        blat[t] = bwd
+        bwd_shift = torch.cat([bwd[:, 1:], neg_col], dim=1)
+        mpart = torch.where(move_ok, move_all[t] + bwd_shift,
+                            _neg_like(bwd))
+        new = torch.where(ok, torch.logaddexp(stay_all[t] + bwd, mpart),
+                          _neg_like(bwd))
+        factor = new.amax(dim=1, keepdim=True)
+        bwd = torch.where(ok, new - factor, _neg_like(new))
+    return blat
+
+
+def crf_post_pass_plain(stay_all, move_all, lattice, blat, valid, last):
+    """Kernel 10's posterior pass: every step's posteriors at once from the
+    forward and backward lattices [T, B, L] (no chain); the contract of
+    `crf_bwd_posteriors_plain`."""
+    ok, move_ok, _ = _bwd_start(valid, last)
+    neg = torch.full_like(blat[:, :, :1], NEG)
+    bshift = torch.cat([blat[:, :, 1:], neg], dim=2)
+    stay_terms = torch.where(ok, lattice + blat + stay_all, _neg_like(blat))
+    move_terms = torch.where(move_ok, lattice + bshift + move_all,
+                             _neg_like(blat))
+    tmax = torch.maximum(stay_terms.amax(dim=2, keepdim=True),
+                         move_terms.amax(dim=2, keepdim=True))
+    ex_s = torch.where(stay_terms > NEG / 2, torch.exp(stay_terms - tmax),
+                       torch.zeros_like(blat))
+    ex_m = torch.where(move_terms > NEG / 2, torch.exp(move_terms - tmax),
+                       torch.zeros_like(blat))
+    den = ex_s.sum(dim=2, keepdim=True) + ex_m.sum(dim=2, keepdim=True)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return ex_s / den, ex_m / den
+
+
+def scatter_posteriors(shape, post_stay, post_move, sidx, midx, mmidx,
+                       mfact):
+    """d(score)/d lp [T, B, S]: the posteriors scattered back into their
+    columns (the stay column, the move column and mfact x the mod column;
+    mmidx None for a canonical model), an index vector [B, L] clamped into
+    [0, S) (the columns it clamps carry zero posteriors or weigh 0).
+    scatter_add_ sums with atomics on the card, in an order that changes
+    from run to run.  post_move is scaled in place."""
+    T, _, S = shape
+
+    def expand(idx):
+        return idx.clamp(0, S - 1).long()[None].expand(T, *idx.shape)
+    grad = post_stay.new_zeros(shape)
+    grad.scatter_add_(2, expand(sidx), post_stay)
+    grad.scatter_add_(2, expand(midx), post_move)
+    if mmidx is not None:
+        grad.scatter_add_(2, expand(mmidx), post_move.mul_(mfact[None]))
+    return grad
+
+
+def crf_grad_streams_plain(stay_all, move_all, lattice, valid, last, sidx,
+                           midx, mmidx, mfact, S):
+    """d(score)/d lp [T, B, S] on score streams: `crf_bwd_posteriors_plain`
+    scattered into the columns sidx, midx and mfact x mmidx [B, L] (an
+    index outside [0, S) selects nothing) by `scatter_posteriors`."""
+    post_stay, post_move = crf_bwd_posteriors_plain(stay_all, move_all,
+                                                    lattice, valid, last)
+    T, B, _ = stay_all.shape
+    return scatter_posteriors((T, B, S), post_stay, post_move, sidx, midx,
+                              mmidx, mfact)
+
+
 def _check_streams(what, stay_all, move_all, valid):
     cuda_lib.check_cuda(stay_all, what)
     T, B, L = stay_all.shape
@@ -387,10 +499,13 @@ def _check_streams(what, stay_all, move_all, valid):
     return T, B, L
 
 
-def _state_scratch(B, L, dev):
-    """The device-memory lattice vectors [B, 2, L] of the kernels' instance
-    past MAX_L_STREAMS positions, or None below it."""
-    return torch.empty(B, 2, L, device=dev) if L > MAX_L_STREAMS else None
+def _streams_scratch(lib, T, B, L, S, grad, dev):
+    """Kernel 10's scratch (the backward lattice, the chains' vectors past
+    MAX_L_STREAMS, the pass's exponentials where they do not fit shared
+    memory, the column lists), as csrc/crf.cu sizes it."""
+    fn = lib.tt_crf_streams_scratch
+    fn.restype = ctypes.c_longlong
+    return torch.empty(max(fn(T, B, L, S, int(grad)), 1), device=dev)
 
 
 def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
@@ -405,7 +520,8 @@ def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
         fwd = torch.empty(B, L, device=dev)
         score = torch.empty(B, device=dev)
         lattice = torch.empty(T, B, L, device=dev) if emit_lattice else None
-        gstate = _state_scratch(B, L, dev)
+        gstate = (torch.empty(B, 2, L, device=dev) if L > MAX_L_STREAMS
+                  else None)
         err = lib.tt_crf_fwd_streams(
             cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
             cuda_lib.ptr(valid), cuda_lib.ptr(fwd), cuda_lib.ptr(score),
@@ -417,8 +533,8 @@ def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
 
 
 def crf_bwd_posteriors(stay_all, move_all, lattice, valid, last):
-    """CRF backward pass on score streams (kernel 10); contract of
-    `crf_bwd_posteriors_plain`."""
+    """CRF backward pass on score streams (kernel 10: the backward chain,
+    then the posterior pass); contract of `crf_bwd_posteriors_plain`."""
     if stay_all.device.type == "cpu":
         return crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid,
                                         last)
@@ -431,16 +547,52 @@ def crf_bwd_posteriors(stay_all, move_all, lattice, valid, last):
     with torch.cuda.device(dev):
         post_stay = torch.empty(T, B, L, device=dev)
         post_move = torch.empty(T, B, L, device=dev)
-        gstate = _state_scratch(B, L, dev)
+        scratch = _streams_scratch(lib, T, B, L, 0, False, dev)
         err = lib.tt_crf_bwd_posteriors(
             cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
             cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
             cuda_lib.ptr(post_stay), cuda_lib.ptr(post_move),
-            cuda_lib.ptr(gstate), T, B, L, cuda_lib.stream(dev))
+            cuda_lib.ptr(scratch), T, B, L, cuda_lib.stream(dev))
         crf_bwd_posteriors.launches += 1
     cuda_lib.check(lib, err, "crf_bwd_posteriors kernel")
     return post_stay, post_move
 
 
+def crf_grad_streams(stay_all, move_all, lattice, valid, last, sidx, midx,
+                     mmidx, mfact, S):
+    """d(score)/d lp [T, B, S] on score streams (kernel 10: the backward
+    chain, the rows' column lists, the posterior pass summing into d lp
+    in a fixed order, so bitwise the same from run to run); contract of
+    `crf_grad_streams_plain`, with the index vectors of `crf_bwd`
+    (mmidx and mfact required: a column outside [0, S) and weight 0 for a
+    canonical model)."""
+    if stay_all.device.type == "cpu":
+        return crf_grad_streams_plain(stay_all, move_all, lattice, valid,
+                                      last, sidx, midx, mmidx, mfact, S)
+    T, B, L = _check_streams("crf_grad_streams", stay_all, move_all, valid)
+    _check("crf_grad_streams", stay_all.device, (
+        ("lattice", lattice, (T, B, L), torch.float32),
+        ("last", last, (B,), torch.int32),
+        ("sidx", sidx, (B, L), torch.int32),
+        ("midx", midx, (B, L), torch.int32),
+        ("mmidx", mmidx, (B, L), torch.int32),
+        ("mfact", mfact, (B, L), torch.float32)))
+    lib = cuda_lib.load("crf", _SIGNATURES)
+    dev = stay_all.device
+    with torch.cuda.device(dev):
+        grad = torch.empty(T, B, S, device=dev)
+        scratch = _streams_scratch(lib, T, B, L, S, True, dev)
+        err = lib.tt_crf_grad_streams(
+            cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
+            cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
+            cuda_lib.ptr(sidx), cuda_lib.ptr(midx), cuda_lib.ptr(mmidx),
+            cuda_lib.ptr(mfact), cuda_lib.ptr(grad), cuda_lib.ptr(scratch),
+            T, B, L, S, cuda_lib.stream(dev))
+        crf_grad_streams.launches += 1
+    cuda_lib.check(lib, err, "crf_grad_streams kernel")
+    return grad
+
+
 crf_fwd_streams.launches = 0
 crf_bwd_posteriors.launches = 0
+crf_grad_streams.launches = 0

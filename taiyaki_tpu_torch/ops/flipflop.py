@@ -7,8 +7,10 @@ the backward pass) and `flipflop_logz` the logZ kernels of `ops.logz`
 (forward and posteriors), each as a `torch.autograd.Function`.  The CRF
 takes one of two routes (`use_score_streams`): by default the fused
 kernels 5-6, which select scores from lp themselves; or the JAX package's
-unfused route, which gathers stay and move score streams [T, B, L] here,
-runs kernels 9-10 on them and scatters the posteriors back into d lp.
+unfused route, which gathers stay and move score streams [T, B, L] here
+and runs kernels 9-10 on them, the backward summing the posteriors into
+the columns of d lp itself (`crf.crf_grad_streams`, bitwise the same from
+run to run).
 Values follow the JAX package's CPU scan: the loss is -score/nblk, zero
 for an empty row; logZ counts the initial logsumexp of the start vector,
 log(nbase), which the forward kernel leaves out and this module adds
@@ -88,10 +90,10 @@ def use_score_streams(nstate, npos):
 
 
 def _expand(idx, T, S):
-    """An [B, L] index vector as a [T, B, L] view for gather and
-    scatter_add_ (no copy over T), clamped into [0, S): the columns it
-    clamps are masked by position in kernels 9-10 (move column L-1 is
-    never a transition) or weigh 0 (a mod column's padding)."""
+    """An [B, L] index vector as a [T, B, L] view for gather (no copy over
+    T), clamped into [0, S): the columns it clamps are masked by position
+    in kernels 9-10 (move column L-1 is never a transition) or weigh 0 (a
+    mod column's padding)."""
     return idx.clamp(0, S - 1).long()[None].expand(T, *idx.shape)
 
 
@@ -108,20 +110,9 @@ def _select_streams(lp, sidx, midx, mmidx, mfact):
     return stay_all, move_all
 
 
-def _scatter_posteriors(shape, post_stay, post_move, sidx, midx, mmidx,
-                        mfact):
-    """d(score)/d lp [T, B, S]: the posteriors scattered back into their
-    columns (the stay column, the move column and mfact x the mod column).
-    scatter_add_ sums with atomics on the card, in an order that changes
-    from run to run.  post_move is scaled in place."""
-    T, _, S = shape
-    grad = post_stay.new_zeros(shape)
-    grad.scatter_add_(2, _expand(sidx, T, S), post_stay)
-    grad.scatter_add_(2, _expand(midx, T, S), post_move)
-    if mmidx is not None:
-        grad.scatter_add_(2, _expand(mmidx, T, S),
-                          post_move.mul_(mfact[None]))
-    return grad
+# the posteriors scattered into d lp, as the JAX package's route does (its
+# einsum); the streams route itself sums them in crf.crf_grad_streams
+_scatter_posteriors = crf.scatter_posteriors
 
 
 class _CrfLossCore(torch.autograd.Function):
@@ -152,7 +143,6 @@ class _CrfLossCore(torch.autograd.Function):
                                               valid, emit_lattice=grad)
             saved = (lp, None)
         score = score + fwd.gather(1, last.long()[:, None])[:, 0]
-        ctx.has_mod = modmove_idx is not None
         ctx.lp_shape = lp.shape
         ctx.save_for_backward(*saved, lattice, seqlens, *idx)
         return _masked_cost(score, seqlens, T)
@@ -163,11 +153,9 @@ class _CrfLossCore(torch.autograd.Function):
         first, second, lattice, seqlens, sidx, midx, mmidx, mfact, valid, \
             last = ctx.saved_tensors
         if ctx.streams:
-            post_stay, post_move = crf.crf_bwd_posteriors(
-                first, second, lattice, valid, last)
-            mod = (mmidx, mfact) if ctx.has_mod else (None, None)
-            post = _scatter_posteriors(ctx.lp_shape, post_stay, post_move,
-                                       sidx, midx, *mod)
+            post = crf.crf_grad_streams(first, second, lattice, valid, last,
+                                        sidx, midx, mmidx, mfact,
+                                        ctx.lp_shape[2])
         else:
             post = crf.crf_bwd(first, sidx, midx, mmidx, mfact, lattice,
                                valid, last)

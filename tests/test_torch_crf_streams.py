@@ -138,9 +138,10 @@ def test_stream_twins_give_the_fused_twins_gradient():
 
 
 class _Counts:
-    """Counts the calls of the four CRF entry points the loss reaches."""
+    """Counts the calls of the CRF entry points the loss may reach."""
 
-    NAMES = ("crf_fwd", "crf_bwd", "crf_fwd_streams", "crf_bwd_posteriors")
+    NAMES = ("crf_fwd", "crf_bwd", "crf_fwd_streams", "crf_bwd_posteriors",
+             "crf_grad_streams")
 
     def __init__(self, monkeypatch):
         self.n = dict.fromkeys(self.NAMES, 0)
@@ -190,7 +191,9 @@ def test_loss_takes_the_stream_route(route, kind, monkeypatch):
     """Under either switch, or with the fused kernels' width limit below
     the lattice, the loss runs kernels 9-10's twins (and not 5-6's); its
     value and gradient equal the JAX scan's (jax.vjp) and the fused
-    route's."""
+    route's.  The streams route's backward is `crf_grad_streams` (the
+    posteriors summed into d lp), not `crf_bwd_posteriors` and a
+    scatter."""
     rng = np.random.default_rng(40)
     lp, seqs, seqlens, _, _ = _case(seed=41)
     seqlens[2] = 5              # every row but the empty one has a path
@@ -211,7 +214,7 @@ def test_loss_takes_the_stream_route(route, kind, monkeypatch):
     counts = _Counts(monkeypatch)
     fused = port()
     assert counts.n == {"crf_fwd": 1, "crf_bwd": 1, "crf_fwd_streams": 0,
-                        "crf_bwd_posteriors": 0}
+                        "crf_bwd_posteriors": 0, "crf_grad_streams": 0}
     if route == "MAX_L":
         monkeypatch.setattr(tcrf, "MAX_L", seqs.shape[1] - 1)
     else:
@@ -219,7 +222,7 @@ def test_loss_takes_the_stream_route(route, kind, monkeypatch):
     counts = _Counts(monkeypatch)
     got, got_grad = port()
     assert counts.n == {"crf_fwd": 0, "crf_bwd": 0, "crf_fwd_streams": 1,
-                        "crf_bwd_posteriors": 1}
+                        "crf_bwd_posteriors": 0, "crf_grad_streams": 1}
     for value, grad in ((got, got_grad), fused):
         np.testing.assert_allclose(value, np.asarray(want), rtol=1e-5,
                                    atol=1e-6)
@@ -260,7 +263,7 @@ def test_switch_is_read_at_each_loss_call(monkeypatch):
     monkeypatch.setenv("TAIYAKI_TPU_NO_SCORE_FUSE", "1")
     out.sum().backward()
     assert counts.n == {"crf_fwd": 1, "crf_bwd": 1, "crf_fwd_streams": 0,
-                        "crf_bwd_posteriors": 0}
+                        "crf_bwd_posteriors": 0, "crf_grad_streams": 0}
 
 
 def test_stream_wrappers_reject_other_devices():

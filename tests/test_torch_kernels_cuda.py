@@ -23,9 +23,12 @@ A retained graph gives bitwise the same gradients twice.  The CRF on
 score streams (kernels 9-10): the same score and lattice tolerances, its
 posteriors atol 1e-5 (3e-4 over lattices of thousands of steps, as the
 fused kernels' gradient), bitwise equal from run to run (no atomics); the
-gradient the route scatters from them against the fused kernels' 1e-5,
-1e-6 from run to run (scatter_add_'s atomics); past 16384 positions (their
-device-memory instance) the long lattices' tolerances.  The recurrences
+gradient scattered from them against the fused kernels' 1e-5, 1e-6 from
+run to run (scatter_add_'s atomics); the route's d lp entry
+(crf_grad_streams) 1e-5 of its twin's largest entry and bitwise from run
+to run; at every band edge of the streams' chains, past 8192 positions
+(clusters of CTAs) and past 32768 (their device-memory instance) the long
+lattices' tolerances.  The recurrences
 on given gates (kernels 14-17, ops/rnn.py's lstm_scan and gru_scan) as
 the layer kernels: outputs 1e-4, backwards 1e-4 relative, also against
 the whole layers through autograd.  The shapes include H=384, the JAX
@@ -620,8 +623,9 @@ def test_crf_stream_kernels_reject_bad_input(dev):
                                  "TAIYAKI_TPU_F32_SCORES", None])
 def test_cat_mod_loss_routes_on_card(dev, env, monkeypatch):
     """The cat_mod loss on the card under each switch (or past the fused
-    width, with MAX_L lowered) launches kernels 9-10 and not 5-6, and
-    gives the CPU twins' value (1e-5 relative) and gradient (1e-5)."""
+    width, with MAX_L lowered) launches kernels 9-10 (the forward and the
+    d lp entry, crf_grad_streams) and not 5-6, and gives the CPU twins'
+    value (1e-5 relative) and gradient (1e-5)."""
     from taiyaki_tpu_torch import flipflopfings
     from taiyaki_tpu_torch.ops import flipflop
     for name in ("TAIYAKI_TPU_NO_SCORE_FUSE", "TAIYAKI_TPU_F32_SCORES"):
@@ -648,14 +652,14 @@ def test_cat_mod_loss_routes_on_card(dev, env, monkeypatch):
         tx = torch.from_numpy(x).to(device).requires_grad_()
         before = [k.launches for k in (crf.crf_fwd, crf.crf_bwd,
                                        crf.crf_fwd_streams,
-                                       crf.crf_bwd_posteriors)]
+                                       crf.crf_grad_streams)]
         loss = flipflop.cat_mod_flipflop_loss(
             tx, *(torch.from_numpy(a).to(device)
                   for a in (seqs, seqlens, cats)), offsets, weights, 2.0)
         loss.sum().backward()
         after = [k.launches for k in (crf.crf_fwd, crf.crf_bwd,
                                       crf.crf_fwd_streams,
-                                      crf.crf_bwd_posteriors)]
+                                      crf.crf_grad_streams)]
         ran = [a - b for a, b in zip(after, before)]
         assert ran == ([0, 0, 0, 0] if device == "cpu" else [0, 0, 1, 1])
         out[str(device)] = (loss.detach().cpu(), tx.grad.cpu())
@@ -665,9 +669,9 @@ def test_cat_mod_loss_routes_on_card(dev, env, monkeypatch):
 
 
 def test_crf_stream_kernels_past_16384_match_twins(dev):
-    """Kernels 9-10 at L=20000 (T=20100, B=1), past the shared-memory
-    instance's 16384 positions: the device-memory instance against the
-    twins, at the long lattices' tolerances (posteriors 3e-4)."""
+    """Kernels 9-10 at L=20000 (T=20100, B=1), past 16384 positions: their
+    chains in a cluster of 8 CTAs a row, against the twins, at the long
+    lattices' tolerances (posteriors 3e-4)."""
     from taiyaki_tpu_torch import flipflopfings
     from taiyaki_tpu_torch.ops import flipflop
     T, L = 20100, 20000
@@ -695,6 +699,145 @@ def test_crf_stream_kernels_past_16384_match_twins(dev):
         torch.testing.assert_close(got, want, rtol=0, atol=3e-4)
     mass = p1[0].sum().item() + p1[1].sum().item()
     assert abs(mass - T) <= 1e-3 * T
+
+
+# Kernel 10's redesign (the backward chain, then the posterior pass with
+# the `post` and `grad` epilogues) and kernel 9's, at every band edge of
+# csrc/crf.cu's TT_STREAM_BANDS and one past it: (L, T, B, seqlen of row
+# 0).  Up to 8193 positions row 0 fills the lattice with T = L + 8 (a
+# path), past that T = 8008 and row 0 holds 8000 positions, whose live
+# states still cross the CTAs of the cluster; 32769 takes the device-memory
+# instance.  Odd L copies 4 bytes at a time.
+STREAM_EDGES = [(64, 72, 5, 64), (65, 73, 5, 65), (1024, 1032, 4, 1024),
+                (1025, 1033, 4, 1025), (2048, 2056, 3, 2048),
+                (2049, 2057, 3, 2049), (4096, 4104, 2, 4096),
+                (4097, 4105, 2, 4097), (8192, 8200, 1, 8192),
+                (8193, 8201, 1, 8193), (16384, 8008, 1, 8000),
+                (16385, 8008, 1, 8000), (32768, 8008, 1, 8000),
+                (32769, 8008, 1, 8000), (600, 1, 4, 1)]
+
+
+def _stream_case(T, B, L, n0, dev, seed=5, nmod=2):
+    """Cat_mod streams of T x B rows of L positions (row 0 of n0
+    positions, the others shorter, one with none) with the route's index
+    vectors: (stay_all, move_all, valid, last, sidx, midx, mmidx, mfact,
+    S)."""
+    from taiyaki_tpu_torch import flipflopfings
+    from taiyaki_tpu_torch.ops import flipflop
+    rng = np.random.default_rng(seed)
+    S = 40 + 1 + nmod
+    seqlens = rng.integers(1, min(n0, T + 1) + 1, size=B).astype(np.int32)
+    seqlens[0] = n0
+    if B > 1:
+        seqlens[1] = 0
+    seqs = np.zeros((B, L), np.int32)
+    for i in range(B):
+        seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(
+            rng.integers(0, 4, size=seqlens[i]))
+    stay, move = flipflop.make_seq_indices(torch.from_numpy(seqs), 4)
+    mm = torch.from_numpy(rng.integers(40, S, size=(B, L - 1))
+                          .astype(np.int32))
+    mf = torch.from_numpy(rng.uniform(0.5, 2.0, size=(B, L - 1))
+                          .astype(np.float32))
+    sidx, midx, mmidx, mfact, valid, last = (
+        t.to(dev) for t in flipflop._lattice_inputs(
+            stay, move, torch.from_numpy(seqlens), S, mm, mf))
+    lp = torch.from_numpy(rng.normal(size=(T, B, S)).astype(np.float32))
+    stay_all, move_all = flipflop._select_streams(lp.to(dev), sidx, midx,
+                                                  mmidx, mfact)
+    return stay_all, move_all, valid, last, sidx, midx, mmidx, mfact, S
+
+
+def _check_streams(case, atol):
+    """Kernel 9, and kernel 10's entries twice each (bitwise the same),
+    against their twins: lattices 1e-4, posteriors atol, d lp atol times
+    its twin's largest entry."""
+    stay_all, move_all, valid, last, sidx, midx, mmidx, mfact, S = case
+    idx = (sidx, midx, mmidx, mfact)
+    f0, s0, lat0 = crf.crf_fwd_streams_plain(stay_all, move_all, valid)
+    p0 = crf.crf_bwd_posteriors_plain(stay_all, move_all, lat0, valid, last)
+    g0 = crf.scatter_posteriors(stay_all.shape[:2] + (S,), p0[0],
+                                p0[1].clone(), *idx)
+    n = [k.launches for k in (crf.crf_fwd_streams, crf.crf_bwd_posteriors,
+                              crf.crf_grad_streams)]
+    f1, s1, lat1 = crf.crf_fwd_streams(stay_all, move_all, valid)
+    p1 = crf.crf_bwd_posteriors(stay_all, move_all, lat1, valid, last)
+    p2 = crf.crf_bwd_posteriors(stay_all, move_all, lat1, valid, last)
+    g1 = crf.crf_grad_streams(stay_all, move_all, lat1, valid, last, *idx, S)
+    g2 = crf.crf_grad_streams(stay_all, move_all, lat1, valid, last, *idx, S)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (crf.crf_fwd_streams, crf.crf_bwd_posteriors,
+                                 crf.crf_grad_streams)] == [
+        n[0] + 1, n[1] + 2, n[2] + 2]
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(lat1, lat0, 1e-4)
+    assert _lattice_close(f1, f0, 1e-4)
+    for got, want, again in zip(p1, p0, p2):
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        assert torch.equal(got, again)
+    assert g1.shape == g0.shape
+    torch.testing.assert_close(g1, g0, rtol=0,
+                               atol=atol * max(1.0, g0.abs().max().item()))
+    assert torch.equal(g1, g2)
+    return p1
+
+
+@pytest.mark.parametrize("edge", STREAM_EDGES)
+def test_crf_streams_at_band_edges(dev, edge):
+    """Kernels 9-10 at each band edge and one past it (and T = 1): the
+    card's layout is the Python mirror's, and the kernels match their
+    twins, bitwise from run to run; a row with a path has posteriors
+    summing to 1 a step."""
+    L, T, B, n0 = edge
+    lib = crf.cuda_lib.load("crf", crf._SIGNATURES)
+    packed = lib.tt_crf_streams_layout(L)
+    mirror = crf.streams_layout(L)
+    assert (packed >> 16, (packed >> 8) & 0xff, packed & 0xff) == (
+        mirror if mirror else (0, 0, 0))
+    atol = 1e-5 if T <= 2100 else 3e-4
+    p1 = _check_streams(_stream_case(T, B, L, n0, dev), atol)
+    if n0 <= T + 1:
+        mass = (p1[0][:, 0].sum() + p1[1][:, 0].sum()).item()
+        assert abs(mass - T) <= 1e-3 * T
+
+
+def test_crf_streams_offset_and_unaligned(dev):
+    """Every input of kernels 9-10 a contiguous view at an odd float
+    offset, at L = 509 (not a multiple of 4), gives the aligned call's
+    results bitwise (the same arithmetic, 4-byte copies)."""
+    case = _stream_case(300, 6, 509, 280, dev)
+    stay_all, move_all, valid, last, sidx, midx, mmidx, mfact, S = case
+    _check_streams(case, 1e-5)
+    idx = (sidx, midx, mmidx, mfact)
+    off = _offset_all([stay_all, move_all, valid])
+    f0, s0, lat0 = crf.crf_fwd_streams(stay_all, move_all, valid)
+    f1, s1, lat1 = crf.crf_fwd_streams(*off)
+    assert torch.equal(s1, s0) and torch.equal(lat1, lat0)
+    sargs = [stay_all, move_all, lat0, valid, last]
+    for a, b in zip(crf.crf_bwd_posteriors(*_offset_all(sargs)),
+                    crf.crf_bwd_posteriors(*sargs)):
+        assert torch.equal(a, b)
+    assert torch.equal(
+        crf.crf_grad_streams(*_offset_all(sargs + list(idx)), S),
+        crf.crf_grad_streams(*sargs, *idx, S))
+
+
+def test_crf_grad_streams_wide_columns(dev):
+    """The d lp entry at S = 150 > 128 columns (the streams route's alone:
+    kernel 6's columns are 8-bit) against its twin."""
+    _check_streams(_stream_case(200, 5, 120, 120, dev, nmod=109), 1e-5)
+
+
+def test_crf_grad_streams_rejects_bad_input(dev):
+    case = _stream_case(20, 3, 16, 10, dev)
+    stay_all, move_all, valid, last, sidx, midx, mmidx, mfact, S = case
+    lat = torch.zeros_like(stay_all)
+    with pytest.raises(ValueError, match="mfact"):
+        crf.crf_grad_streams(stay_all, move_all, lat, valid, last, sidx,
+                             midx, mmidx, mfact.double(), S)
+    with pytest.raises(ValueError, match="sidx"):
+        crf.crf_grad_streams(stay_all, move_all, lat, valid, last,
+                             sidx[:, :8].contiguous(), midx, mmidx, mfact, S)
 
 
 def _scan_case(cell, shape, reverse, dev):
