@@ -4,7 +4,8 @@ card; run from the root of a checkout:
 
     python3 chip_smoke.py [--seed N]
 
-1. Card: name and power limit; builds the CUDA kernels from csrc/.
+1. Card: name and power limit; builds the CUDA kernels from csrc/ and
+   the host decoders (g++, taiyaki_tpu_torch/decodeutil/).
 2. Kernels: each against its plain PyTorch twin on the card, with its time
    (CUDA events), the twin's time, one PyTorch call computing the same
    function where there is one, and its bound.  The logZ forward and
@@ -127,7 +128,21 @@ card; run from the root of a checkout:
    the logZ forward and posteriors, of the CRF forward and backward and
    of kernels 9-10 as a contiguous view at an odd float offset (4-byte
    aligned, not 16), each against the aligned call on the same values.
-11. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+11. The remaining layers, the beam and the JSON export: every layer of
+   layers.py that no other phase runs, at width 256 (T=800, B=8), forward
+   and backward on the card against the CPU (1e-4; gradients 1e-4 of
+   their largest), CudnnGru (a loop of PyTorch ops) also at H=256,
+   T=1000, B=128 against torch.nn.GRU on the same weights, both timed; a
+   network of every layer but TimeLinear (ALL_LAYERS_SOURCE, size 256)
+   through one training step on the card against the CPU, then an AdamW
+   step; basecall --beam 5 1 with the 3c checkpoint on its synthetic reads
+   (ksample/s beside the Viterbi run's, the beam's share of a batch) and
+   --beam 5 1 --fastq on the three real reads with the shipped remap
+   checkpoint (identities at least 0.80, calls equal to the CPU's or beam
+   scores within 1e-4 of them); cli.dump_json of the trained mLstm
+   checkpoint of 3a, the every-layer network's and the remap checkpoint:
+   each parameter equal to the state_dict (GRU gates reordered).
+12. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
    line (17 rows), the card line, and the result line
    {"ok": true, "device": {...}}.
 
@@ -2764,6 +2779,448 @@ def profile_train_step(torch, dev, seed, model, nchunk=TB, chunk=CHUNK,
     say_profile("one {} training step".format(model[0]), kern, wall, total)
 
 
+# -- the remaining layers, the beam and the JSON export ---------------------
+
+# a flip-flop network of every layer of layers.py but TimeLinear (its
+# insize is a number of time points, checked alone in check_layers): the
+# layers phase trains it, the JSON phase exports it, and the port's CPU
+# tests hold it against the JAX package
+ALL_LAYERS_SOURCE = '''"""Every layer of layers.py but TimeLinear in one flip-flop network."""
+
+from taiyaki_tpu_torch import activation, layers
+
+
+def network(insize=1, size=256, winlen=19, stride=5, alphabet_info=None):
+    nbase = 4 if alphabet_info is None else alphabet_info.nbase
+    half = size // 2
+    return layers.Serial([
+        layers.DeltaSample(),
+        layers.Studentise(),
+        layers.Window(3),
+        layers.FeedForward(3 * insize, 16, fun=activation.tanh),
+        layers.Convolution(16, size, winlen, stride=stride,
+                           fun=activation.swish),
+        layers.birnn(layers.GruMod(size, half), layers.GruMod(size, half)),
+        layers.Residual(layers.Lstm(size, size)),
+        layers.GatedResidual(layers.CudnnGru(size, size)),
+        layers.Reverse(layers.CudnnGru(size, size, has_bias=False)),
+        layers.SoftChoice([layers.FeedForward(size, size,
+                                              fun=activation.tanh),
+                           layers.Identity(activation.tanh)]),
+        layers.Product([layers.FeedForward(size, size,
+                                           fun=activation.sigmoid),
+                        layers.FeedForward(size, size, has_bias=False)]),
+        layers.DownUpSample(layers.FeedForward(2 * size, 2 * size,
+                                               fun=activation.tanh), 2),
+        layers.Parallel([layers.FeedForward(size, half,
+                                            fun=activation.tanh),
+                         layers.Softmax(size, size - half)]),
+        layers.GlobalNormFlipFlop(size, nbase),
+    ])
+'''
+# the layers phase's card-against-CPU step: chunks, samples a chunk
+ALL_LAYERS_CHUNKS, ALL_LAYERS_CHUNK = 4, 2000
+# the beam's width and guide, as `--beam 5 1`
+BEAM = ("5", "1")
+
+
+def all_layers_model(work):
+    """(name, model file, stride) of ALL_LAYERS_SOURCE, written to work."""
+    path = os.path.join(work, "all_layers.py")
+    with open(path, "w") as fh:
+        fh.write(ALL_LAYERS_SOURCE)
+    return ("all_layers", path, 5)
+
+
+def _layer_cases(layers, activation, t):
+    """The layers of layers.py that no other phase runs, at width H
+    (TimeLinear over t time points): (name, layer)."""
+    ff = lambda: layers.FeedForward(H, H, fun=activation.tanh)  # noqa: E731
+    return [
+        ("FeedForward", ff()),
+        ("FeedForward no bias", layers.FeedForward(H, H, has_bias=False)),
+        ("Softmax", layers.Softmax(H, H)),
+        ("TimeLinear", layers.TimeLinear(t, t, fun=activation.tanh)),
+        ("Identity", layers.Identity(activation.tanh)),
+        ("Studentise", layers.Studentise()),
+        ("DeltaSample", layers.DeltaSample()),
+        ("Window", layers.Window(3)),
+        ("UpSample", layers.UpSample(2)),
+        ("DownSample", layers.DownSample(2)),
+        ("Parallel", layers.Parallel([ff(), layers.Softmax(H, H)])),
+        ("Product", layers.Product([ff(), ff()])),
+        ("Residual", layers.Residual(ff())),
+        ("GatedResidual", layers.GatedResidual(ff(), 0.5)),
+        ("SoftChoice", layers.SoftChoice([ff(), layers.Identity()])),
+        ("CudnnGru", layers.CudnnGru(H, H)),
+        ("CudnnGru no bias", layers.CudnnGru(H, H, has_bias=False)),
+        ("Reverse(CudnnGru)", layers.Reverse(layers.CudnnGru(H, H)))]
+
+
+def _fwd_bwd(torch, layer, x, dy):
+    """A layer's output and the gradients of sum(y * dy) with respect to
+    its input and parameters (in named_parameters order; zero for a
+    parameter that is not trained), on the host."""
+    x = x.clone().requires_grad_()
+    y = layer(x)
+    leaves = [x] + [p for _, p in layer.named_parameters()]
+    grads = torch.autograd.grad(y, leaves, dy, allow_unused=True)
+    return y.detach().cpu(), [(torch.zeros_like(p) if g is None else g).cpu()
+                              for p, g in zip(leaves, grads)]
+
+
+def check_layers(torch, dev, rng, t=TT, b=8):
+    """Each layer of _layer_cases at width 256 (t blocks, b chunks; seeded
+    weights and inputs), forward and backward on the card against the
+    port on the CPU: outputs within 1e-4, each gradient within 1e-4 of its
+    largest |value|.  Then CudnnGru at H=256, T=1000, B=128 against
+    torch.nn.GRU (bias_ih = ib, bias_hh = sb, gates r, z, n) on the same
+    weights: outputs within 1e-4, both timed (CUDA events), forward alone
+    and forward with backward.  Returns the CudnnGru timings."""
+    import copy
+    from taiyaki_tpu_torch import activation, layers
+    from taiyaki_tpu_torch.convert import load_jax_params
+    worst = {}
+    for name, layer in _layer_cases(layers, activation, t):
+        load_jax_params(layer, layer.init(rng))
+        x = torch.from_numpy(rng.normal(size=(t, b, H)).astype(np.float32))
+        with torch.no_grad():
+            shape = tuple(layer(x).shape)
+        dy = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        cpu = _fwd_bwd(torch, layer, x, dy)
+        card = _fwd_bwd(torch, copy.deepcopy(layer).to(dev), x.to(dev),
+                        dy.to(dev))
+        y_err = max_abs_diff(card[0], cpu[0])
+        g_err = max(rel_err(g, w) for g, w in zip(card[1], cpu[1]))
+        check(y_err <= 1e-4, "{}: card vs CPU output err {} > 1e-4".format(
+            name, y_err))
+        check(g_err <= 1e-4, "{}: card vs CPU gradient err {} > 1e-4 of "
+              "its largest".format(name, g_err))
+        worst[name] = (y_err, g_err)
+    say("the remaining layers at width {} (T={}, B={}), card vs CPU (output "
+        "max |err|, tol 1e-4; gradients' largest err relative to their "
+        "largest, tol 1e-4): {}".format(H, t, b, "; ".join(
+            "{} {:.3g} {:.3g}".format(k, *v) for k, v in worst.items())))
+
+    # CudnnGru beside cuDNN's GRU
+    layer = layers.CudnnGru(H, H)
+    load_jax_params(layer, layer.init(rng))
+    layer = layer.to(dev)
+    gru = torch.nn.GRU(H, H).to(dev)
+    with torch.no_grad():
+        for mine, theirs in (("iW", "weight_ih_l0"), ("sW", "weight_hh_l0"),
+                             ("ib", "bias_ih_l0"), ("sb", "bias_hh_l0")):
+            getattr(gru, theirs).copy_(getattr(layer, mine))
+    x = _tensor(torch, dev, rng.normal(size=(T, B, H)))
+    with torch.no_grad():
+        err = max_abs_diff(layer(x), gru(x)[0])
+    check(err <= 1e-4, "CudnnGru vs torch.nn.GRU: max |err| {}".format(err))
+    dy = _tensor(torch, dev, rng.normal(size=(T, B, H)))
+    xg = x.clone().requires_grad_()
+
+    def with_grad(fn, params):
+        return lambda: torch.autograd.grad(fn(xg), [xg] + params, dy)
+    with torch.no_grad():
+        f_ms = cuda_ms(torch, lambda: layer(x), reps=3)
+        lib_f_ms = cuda_ms(torch, lambda: gru(x), reps=3)
+    fb_ms = cuda_ms(torch, with_grad(layer, list(layer.parameters())),
+                    reps=2)
+    lib_fb_ms = cuda_ms(torch, with_grad(lambda v: gru(v)[0],
+                                         list(gru.parameters())), reps=2)
+    res = dict(fwd_ms=f_ms, fwd_bwd_ms=fb_ms, gru_fwd_ms=lib_f_ms,
+               gru_fwd_bwd_ms=lib_fb_ms, max_abs_err=err)
+    say("CudnnGru (plain PyTorch, a loop over time) at H={}, T={}, B={}: "
+        "forward {:.3f} ms, with backward {:.3f} ms; torch.nn.GRU (cuDNN) "
+        "on the same weights {:.3f} ms, {:.3f} ms; outputs max |diff| "
+        "{:.3g} (tol 1e-4)".format(H, T, B, f_ms, fb_ms, lib_f_ms,
+                                   lib_fb_ms, err))
+    return res
+
+
+def all_layers_path(torch, dev, seed, work, counters):
+    """The network of ALL_LAYERS_SOURCE at size 256 (seeded weights) on a
+    batch of the repo's mapped reads (ALL_LAYERS_CHUNKS chunks x
+    ALL_LAYERS_CHUNK samples): its output and one training step's loss and gradients on
+    the card against the port on the CPU (outputs within 1e-4; loss 1e-5
+    relative; each gradient within 1e-4 of its largest), then one AdamW
+    step on the card, which must change every parameter the loss reaches.
+    The LSTM and GRU kernels of its layers must launch.  Writes a
+    checkpoint of the trained net; returns (launches, checkpoint)."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.convert import leaf_names, params_to_jax
+    from taiyaki_tpu_torch.utils import helpers
+    model = all_layers_model(work)
+    batch, kwargs = step_batch(seed, ALL_LAYERS_CHUNKS, model,
+                               ALL_LAYERS_CHUNK, H)
+    def one(device):
+        net = new_net(seed, kwargs, device, model)
+        b = train.batch_to_device(batch, device)
+        with torch.no_grad():
+            y = net(b.signal).cpu()
+        loss, grads = train.make_grad_step(net)(b, 1.0)
+        return y, float(loss), [g.cpu() for g in grads], net
+
+    for fn in counters.values():
+        fn.launches = 0
+    y, loss, grads, net = one(dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    y_cpu, loss_cpu, grads_cpu, _ = one(torch.device("cpu"))
+    names = leaf_names(net)
+    y_err = max_abs_diff(y, y_cpu)
+    l_err = abs(loss - loss_cpu) / max(1.0, abs(loss_cpu))
+    errs = [rel_err(g, w) for g, w in zip(grads, grads_cpu)]
+    worst = names[int(np.argmax(errs))]
+    check(y_err <= 1e-4, "all layers: card vs CPU output err {}".format(
+        y_err))
+    check(l_err <= 1e-5, "all layers: loss {} vs {}".format(loss, loss_cpu))
+    check(max(errs) <= 1e-4, "all layers: gradient err {} ({})".format(
+        max(errs), worst))
+    for k, n in launches.items():
+        check(n > 0, "all layers step never launched kernel {}".format(k))
+
+    params = train.leaf_params(net)
+    before = [p.detach().clone() for p in params]
+    opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
+    step = train.make_train_step(net, opt)
+    loss2, grad_maxs = step(train.batch_to_device(batch, dev), 1.0,
+                            np.full(len(params), np.inf, np.float32))
+    torch.cuda.synchronize()
+    moved = [not torch.equal(p.detach(), q) for p, q in zip(params, before)]
+    reached = [float(m) > 0 for m in grad_maxs.cpu()]
+    check(np.isfinite(float(loss2)) and moved == reached,
+          "all layers: AdamW step loss {}, parameters moved {} of {} with "
+          "a gradient".format(float(loss2), sum(moved), sum(reached)))
+    outdir = os.path.join(work, "all_layers_model")
+    os.makedirs(outdir)
+    _, source, meta = helpers.new_model(model[1], **kwargs)
+    ckpt = helpers.save_model(outdir, net, params_to_jax(net), source,
+                              kwargs, meta)
+    say("all layers (every layer of layers.py but TimeLinear, size {}, "
+        "stride 5; {} chunks x {} samples): output {} card vs CPU max "
+        "|err| {:.3g} (tol 1e-4); loss {} vs {} (relative err {:.3g}, tol "
+        "1e-5); {} gradients, largest err relative to each one's largest "
+        "{:.3g} in {} (tol 1e-4); one AdamW step on the card: loss {}, "
+        "{} of {} parameters moved; launches {}".format(
+            H, ALL_LAYERS_CHUNKS, ALL_LAYERS_CHUNK, tuple(y.shape), y_err, loss,
+            loss_cpu, l_err, len(grads), max(errs), worst, float(loss2),
+            sum(moved), len(moved), launches))
+    return launches, ckpt
+
+
+def _beam_reads(torch, model, reads_dir, dev):
+    """Per read of reads_dir: the beam's call and score (width and guide
+    of BEAM) over the read's stitched posterior scores, the network and
+    make_trans run on `dev` (the CLI's defaults: chunks of 1000 blocks,
+    overlap 100).  Returns ({read id: (call, score)}, device ms, beam ms,
+    chunks)."""
+    from taiyaki_tpu_torch import basecall_helpers as bh
+    from taiyaki_tpu_torch import decodeutil
+    from taiyaki_tpu_torch.cli import basecall
+    from taiyaki_tpu_torch.convert import load_jax_params
+    from taiyaki_tpu_torch.data import fast5utils
+    from taiyaki_tpu_torch.flipflopfings import path_to_str
+    from taiyaki_tpu_torch.utils import helpers
+    net, params, *_ = helpers.load_model(model)
+    net = load_jax_params(net, params).to(dev).eval()
+    stride = net.stride
+    chunk = bh.DEFAULT_CHUNK_SIZE * stride
+    preps = [basecall.prepare_read(rid, basecall.get_signal(fname, rid),
+                                   chunk, bh.DEFAULT_OVERLAP * stride, None,
+                                   False)
+             for fname, rid in fast5utils.iterate_fast5_reads(reads_dir)]
+    caller = basecall.Basecaller(net, 40, True, 1.0, B, dev,
+                                 want_trans=True, want_paths=False)
+    chunks = np.concatenate([p["chunks"] for p in preps], axis=1)
+    with torch.inference_mode():
+        caller.gather(caller.submit(chunks[:, :B]))      # warm-up
+        t0 = time.perf_counter()
+        trans = caller.gather(caller.submit(chunks))[3]
+        dev_ms = (time.perf_counter() - t0) * 1e3
+    out, off, beam_ms = {}, 0, 0.0
+    for p in preps:
+        k = p["chunks"].shape[1]
+        tr = trans[:, off:off + k]
+        off += k
+        if p["true_len"] < chunk:
+            tr = tr[:-(-p["true_len"] // stride)]
+        st = bh.stitch_chunks(tr, p["chunk_starts"], p["chunk_ends"],
+                              stride)
+        t0 = time.perf_counter()
+        seq, score = decodeutil.beamsearch(st, beam_width=int(BEAM[0]),
+                                           guided=BEAM[1] == "1")
+        beam_ms += (time.perf_counter() - t0) * 1e3
+        out[p["read_id"]] = (path_to_str(seq, include_first_source=False),
+                             score)
+    return out, dev_ms, beam_ms, chunks.shape[1]
+
+
+def beam_real_reads(torch, dev, work, counters):
+    """The three real reads, written as fast5, called by the basecall
+    CLI with --beam 5 1 --fastq and the shipped mGru remap checkpoint, on
+    the card and on the CPU twins: every read gets a record, each call's
+    semi-global identity is at least 0.80, and the calls are equal, or,
+    where they differ, the card's beam score is within 1e-4 (relative to
+    |score|) of the CPU's.  Returns (launches, stats)."""
+    from taiyaki_tpu_torch.cli import basecall
+    reads = os.path.join(work, "reads_real_beam")
+    os.makedirs(reads)
+    refs = write_real_reads(os.path.join(reads, "real.fast5"))
+    calls, quals = {}, {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        fq = os.path.join(work, "real_beam_{}.fq".format(tag))
+        if tag == "card":
+            for fn in counters.values():
+                fn.launches = 0
+        stats = basecall.main(extra + ["--output", fq, "--quiet", "--fastq",
+                                       "--beam", BEAM[0], BEAM[1], reads,
+                                       REMAP_MODEL])
+        if tag == "card":
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            card_stats = stats
+        with open(fq) as fh:
+            lines = fh.read().splitlines()
+        calls[tag] = {lines[i][1:]: lines[i + 1]
+                      for i in range(0, len(lines), 4)}
+        quals[tag] = {lines[i][1:]: lines[i + 3]
+                      for i in range(0, len(lines), 4)}
+    for k, n in launches.items():
+        check(n > 0, "beam basecall never launched kernel {}".format(k))
+    check(sorted(calls["card"]) == sorted(refs), "beam real reads: records "
+          "{} of {}".format(sorted(calls["card"]), sorted(refs)))
+    for rid, call in calls["card"].items():
+        check(len(quals["card"][rid]) == len(call) > 0,
+              "beam fastq of {}: {} bases, {} q-scores".format(
+                  rid, len(call), len(quals["card"][rid])))
+    same = [rid for rid in refs
+            if calls["card"][rid] == calls["cpu"].get(rid)]
+    gap = 0.0
+    if len(same) < len(refs):
+        card, _, _, _ = _beam_reads(torch, REMAP_MODEL, reads, dev)
+        cpu, _, _, _ = _beam_reads(torch, REMAP_MODEL, reads,
+                                   torch.device("cpu"))
+        for rid in refs:
+            if card[rid][0] != cpu[rid][0]:
+                gap = max(gap, abs(card[rid][1] - cpu[rid][1])
+                          / max(1.0, abs(cpu[rid][1])))
+        check(gap <= 1e-4, "beam real reads: calls differ and the card's "
+              "beam score is {} (relative) off the CPU's (tol 1e-4)"
+              .format(gap))
+    ident = {rid: semiglobal_identity(calls["card"][rid], ref)
+             for rid, (ref, _) in refs.items()}
+    say("beam real reads (--beam {} {} --fastq, shipped mGru remap "
+        "checkpoint): {} reads, {} samples, {} bases in {:.3f} s: {:.3f} "
+        "ksample/s; launches {}; card vs CPU: {} of {} calls identical "
+        "(differing calls' beam score gap {:.3g}, tol 1e-4); semi-global "
+        "identity: {}".format(
+            BEAM[0], BEAM[1], card_stats["ncalled"], card_stats["nsample"],
+            card_stats["nbase"], card_stats["seconds"],
+            card_stats["nsample"] / card_stats["seconds"] / 1e3, launches,
+            len(same), len(refs), gap, ", ".join(
+                "{} {:.4f} ({} bases)".format(rid, ident[rid],
+                                              len(calls["card"][rid]))
+                for rid in sorted(refs))))
+    worst = min(ident.values())
+    check(worst >= 0.80, "beam real reads: identity {:.4f} < 0.80".format(
+        worst))
+    return launches, card_stats
+
+
+def beam_synthetic(torch, dev, work, model, reads, viterbi, counters):
+    """The basecall CLI with --beam 5 1 on main_path's synthetic reads and
+    checkpoint `model` (full-width mLstm), its ksample/s beside the
+    Viterbi run's (`viterbi`, main_path's stats); and the beam's share of
+    a batch: the network and make_trans of every chunk on the card
+    (synchronised, scores to the host) against the beam over every read
+    on the host, one thread.  Returns (launches, numbers)."""
+    from taiyaki_tpu_torch.cli import basecall
+    for fn in counters.values():
+        fn.launches = 0
+    fa = os.path.join(work, "beam.fa")
+    stats = basecall.main(["--output", fa, "--quiet", "--beam", BEAM[0],
+                           BEAM[1], reads, model])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        check(n > 0, "beam basecall never launched kernel {}".format(k))
+    check(stats["nread"] == viterbi["nread"]
+          and stats["nsample"] == viterbi["nsample"],
+          "beam basecall: {} reads, {} samples".format(stats["nread"],
+                                                      stats["nsample"]))
+    _, dev_ms, beam_ms, nchunk = _beam_reads(torch, model, reads, dev)
+    per_batch = B / nchunk
+    res = dict(beam_ksample_s=stats["nsample"] / stats["seconds"] / 1e3,
+               viterbi_ksample_s=viterbi["nsample"] / viterbi["seconds"]
+               / 1e3,
+               batch_device_ms=dev_ms * per_batch,
+               batch_beam_ms=beam_ms * per_batch,
+               beam_share=beam_ms / (beam_ms + dev_ms))
+    say("beam basecall (mLstm 256/5/19, synthetic reads, --beam {} {}, "
+        "fasta): {} reads, {} samples, {} bases in {:.3f} s: {:.3f} "
+        "ksample/s (Viterbi run: {:.3f}); launches {}; a batch of {} "
+        "chunks: network + make_trans + scores to the host {:.3f} ms, the "
+        "beam over its reads on the host {:.3f} ms (one thread): beam "
+        "share {:.1%}".format(
+            BEAM[0], BEAM[1], stats["ncalled"], stats["nsample"],
+            stats["nbase"], stats["seconds"], res["beam_ksample_s"],
+            res["viterbi_ksample_s"], launches, B, res["batch_device_ms"],
+            res["batch_beam_ms"], res["beam_share"]))
+    return launches, res
+
+
+def _json_matches(js, layer):
+    """The parameters under each `params` of an exported layer tree equal
+    the layer's state (GRU gates reordered from r, z, n to z, r, n);
+    returns how many were compared."""
+    n = 0
+    for name, p in layer.named_parameters(recurse=False):
+        want = p.detach().cpu().numpy()
+        if js["type"] in ("GruMod", "CudnnGru"):
+            k = want.shape[0] // 3
+            want = np.concatenate([want[k:2 * k], want[:k], want[2 * k:]])
+        got = np.asarray(js["params"][name], np.float32)
+        check(got.size == want.size
+              and np.array_equal(got.reshape(want.shape), want),
+              "dump_json: {} {} differs from the state".format(
+                  js["type"], name))
+        n += 1
+    subs = js.get("sublayers")
+    if isinstance(subs, list):
+        children = list(zip(subs, layer.sublayers))
+    else:
+        children = [] if subs is None else [(subs, layer.layer)]
+    return n + sum(_json_matches(c, child) for c, child in children)
+
+
+def json_export(work, checkpoints):
+    """`cli.dump_json` on each checkpoint {name: path}: the file parses,
+    its md5sum is the checkpoint's, and every parameter equals the loaded
+    network's state_dict after the GRU gate reorder."""
+    from taiyaki_tpu_torch.cli import dump_json
+    from taiyaki_tpu_torch.convert import load_jax_params
+    from taiyaki_tpu_torch.utils import helpers
+    done = {}
+    for name, ckpt in checkpoints.items():
+        out = os.path.join(work, name + ".json")
+        t0 = time.perf_counter()
+        dump_json.main(["--output", out, ckpt])
+        secs = time.perf_counter() - t0
+        with open(out) as fh:
+            js = json.load(fh)
+        net, params, *_ = helpers.load_model(ckpt)
+        net = load_jax_params(net, params)
+        check(js["md5sum"] == helpers.file_md5(ckpt),
+              "dump_json {}: md5sum".format(name))
+        n = _json_matches(js, net)
+        check(n == len(net.state_dict()), "dump_json {}: {} of {} "
+              "parameters".format(name, n, len(net.state_dict())))
+        done[name] = (n, os.path.getsize(out), secs)
+    say("dump_json: {}".format("; ".join(
+        "{}: {} parameters equal to the state_dict, {} bytes in {:.2f} s"
+        .format(k, *v) for k, v in done.items())))
+
+
 def run(seed):
     try:
         import torch
@@ -2792,6 +3249,11 @@ def run(seed):
     say("kernels built in {:.1f} s (nvcc, sm_90a): {}".format(
         time.time() - t0,
         ", ".join(os.path.basename(p) for p in libs.values())))
+    from taiyaki_tpu_torch import decodeutil
+    t0 = time.time()
+    decodeutil.library()
+    say("host decoders (beam search, remap Viterbi) built in {:.1f} s "
+        "(g++)".format(time.time() - t0))
 
     rng = np.random.default_rng(seed)
     kernels = [check_lstm(torch, dev, rng)] + check_logz(torch, dev, rng)
@@ -2901,9 +3363,11 @@ def run(seed):
                 MLSTM, "lstm_fwd", lstm_bwds, policy, 4)
             torch.cuda.empty_cache()
         card_vs_cpu(torch, dev, seed, MLSTM, LSTM_POLICIES[1:])
-        model = os.path.join(outdir, "model_final.checkpoint")
-        launches["mLstm basecall"], _, reads = main_path(
+        model = mlstm_ckpt = os.path.join(outdir, "model_final.checkpoint")
+        launches["mLstm basecall"], viterbi, reads = main_path(
             torch, dev, seed, work, model, pick(lstm_call), "mLstm")
+        launches["mLstm basecall beam"], beam = beam_synthetic(
+            torch, dev, work, model, reads, viterbi, pick(lstm_call))
         profile_batch(torch, dev, model, reads)
         torch.cuda.empty_cache()
         profile_train_step(torch, dev, seed, MLSTM)
@@ -2919,6 +3383,8 @@ def run(seed):
         card_vs_cpu(torch, dev, seed, MGRU, GRU_POLICIES[1:])
         launches["mGru real reads"], _ = real_reads(torch, dev, work,
                                                     pick(gru_call))
+        launches["mGru real reads beam"], _ = beam_real_reads(
+            torch, dev, work, pick(gru_call))
         model = seeded_checkpoint(work, seed, MGRU)
         launches["mGru basecall"], _, reads = main_path(
             torch, dev, seed, work, model, pick(gru_call), "mGru")
@@ -2978,6 +3444,19 @@ def run(seed):
         torch.cuda.empty_cache()
         card_vs_cpu(torch, dev, seed, MLSTM, nchunk=5, chunk=DMIN,
                     size=DSIZE)
+        torch.cuda.empty_cache()
+
+        # the remaining layers, and the JSON export of three checkpoints
+        cudnn_gru = check_layers(torch, dev, rng)
+        torch.cuda.empty_cache()
+        all_launches, all_ckpt = all_layers_path(
+            torch, dev, seed, work, {k: counters[k] for k in (
+                "lstm_fwd", "lstm_bwd_acts", "gru_fwd", "gru_bwd_recompute")
+                + loss})
+        torch.cuda.empty_cache()
+        json_export(work, {"mLstm trained": mlstm_ckpt,
+                           "all layers": all_ckpt,
+                           "mGru remap": REMAP_MODEL})
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say("launches by path: {}".format(json.dumps(launches)))
@@ -3040,6 +3519,9 @@ def run(seed):
         .format(json.dumps(routes)))
     say("trainer defaults steps (mLstm {}/5/19): {}".format(
         DSIZE, json.dumps(defaults)))
+    say("beam basecall {}; CudnnGru {}; all-layers step launches "
+        "{}".format(json.dumps(beam), json.dumps(cudnn_gru),
+                    json.dumps(all_launches)))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(

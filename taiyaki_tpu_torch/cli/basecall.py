@@ -5,10 +5,16 @@ bin/basecall.py).
 
 Per batch of chunks: network forward (LSTM kernels), temperature, posterior
 transition probabilities (logZ forward and posterior kernels), log, Viterbi
-(plain PyTorch), and for fastq the per-base error probabilities.  Chunks of
-consecutive reads are pooled into shared batches, the last part of a batch
-is padded by repeating its last chunk, and a read shorter than a chunk is
-zero-padded to the chunk length and trimmed after, as in bin/basecall.py.
+(plain PyTorch; not with --beam), and for fastq the per-base error
+probabilities.  Chunks of consecutive reads are pooled into shared
+batches, the last part of a batch is padded by repeating its last chunk,
+and a read shorter than a chunk is zero-padded to the chunk length and
+trimmed after, as in bin/basecall.py.
+With --beam, the posterior scores of each read's chunks come back to the
+host, are stitched and decoded there by the prefix beam search
+(`decodeutil.beamsearch`, C++), and for fastq the beam's bases are aligned
+back to the blocks by the remap Viterbi (`flipflop_remap`) to read their
+error probabilities, as bin/basecall.py does.
 With --modified_base_output and a cat_mod model, only the canonical
 transition columns go to the posterior and Viterbi; the mod columns are
 stitched and read per called base (`flipflopfings.path_mod_scores`) into
@@ -52,7 +58,7 @@ def get_parser():
     parser.add_argument(
         "--beam", default=None, metavar=("width", "guided"), nargs=2,
         type=(int, _boolish), action=ParseToNamedTuple,
-        help="Decode with the prefix beam search (not ported yet)")
+        help="Decode with the prefix beam search instead of Viterbi")
     parser.add_argument(
         "--chunk_size", type=Positive(int), metavar="blocks",
         default=basecall_helpers.DEFAULT_CHUNK_SIZE,
@@ -163,11 +169,12 @@ def get_per_read_params_dict_from_tsv(input_file):
 
 class Basecaller:
     """Network forward + (posterior) + Viterbi (+ error probabilities) for
-    batches of up to `max_batch` chunks on one device."""
+    batches of up to `max_batch` chunks on one device; with
+    want_paths=False (the beam decodes on the host) no Viterbi."""
 
     def __init__(self, net, n_can_state, posterior, temperature, max_batch,
                  device, want_errprobs=False, want_trans=False,
-                 want_mods=False):
+                 want_mods=False, want_paths=True):
         from taiyaki_tpu_torch import flipflopfings, qscores
         self.net = net
         self.n_can_state = n_can_state
@@ -178,6 +185,7 @@ class Basecaller:
         self.want_errprobs = want_errprobs
         self.want_trans = want_trans
         self.want_mods = want_mods
+        self.want_paths = want_paths
         self.nbases = flipflopfings.nbase_flipflop(n_can_state)
         mask = np.zeros((n_can_state, self.nbases), dtype=np.float32)
         for b in range(self.nbases):
@@ -198,20 +206,21 @@ class Basecaller:
                                      device=trans.device), 1.0 - p], dim=0)
 
     def call_chunks(self, chunks):
-        """chunks [T, n, 1] on the device -> {"paths", ("errprobs"),
-        ("trans": the scores Viterbi decoded), ("mods": the output's
-        columns past the canonical transitions)}."""
+        """chunks [T, n, 1] on the device -> {("paths"), ("errprobs"),
+        ("trans": the scores to decode), ("mods": the output's columns past
+        the canonical transitions)}."""
         from taiyaki_tpu_torch.ops import decode
         out = self.net(chunks)
         trans = out[:, :, :self.n_can_state] * self.temperature
         if self.posterior:
             trans = torch.log(decode.flipflop_make_trans(trans) + 1e-8)
-        _, _, paths = decode.flipflop_viterbi(trans)
-        res = {"paths": paths}
+        res = {}
+        if self.want_paths:
+            res["paths"] = decode.flipflop_viterbi(trans)[2]
         if self.want_mods:
             res["mods"] = out[:, :, self.n_can_state:]
         if self.want_errprobs:
-            res["errprobs"] = self.errprobs(trans, paths)
+            res["errprobs"] = self.errprobs(trans, res["paths"])
         if self.want_trans:
             res["trans"] = trans
         return res
@@ -233,23 +242,20 @@ class Basecaller:
 
     @staticmethod
     def gather(handles):
-        """Results to the host: (paths [nblk+1, nchunk] int32,
+        """Results to the host: (paths [nblk+1, nchunk] int32 or 0 rows,
         errprobs [nblk+1, nchunk] or 0 rows, mods [nblk, nchunk, nmodcol]
-        or 0 columns)."""
-        out_paths, out_errp, out_mods = [], [], []
+        or 0 columns, trans [nblk, nchunk, nstate] or 0 columns)."""
+        keys = ("paths", "errprobs", "mods", "trans")
+        out = {key: [] for key in keys}
         for k, res in handles:
-            paths = res["paths"][:, :k].cpu().numpy()
-            out_paths.append(paths)
-            out_errp.append(res["errprobs"][:, :k].cpu().numpy()
-                            if "errprobs" in res
-                            else np.zeros((0, k), np.float32))
-            out_mods.append(res["mods"][:, :k].cpu().numpy()
-                            if "mods" in res
-                            else np.zeros((paths.shape[0] - 1, k, 0),
-                                          np.float32))
-        return (np.concatenate(out_paths, axis=1),
-                np.concatenate(out_errp, axis=1),
-                np.concatenate(out_mods, axis=1))
+            nblk = (res["paths"].shape[0] - 1 if "paths" in res
+                    else res["trans"].shape[0])
+            empty = {"paths": (0, k), "errprobs": (0, k),
+                     "mods": (nblk, k, 0), "trans": (nblk, k, 0)}
+            for key in keys:
+                out[key].append(res[key][:, :k].cpu().numpy() if key in res
+                                else np.zeros(empty[key], np.float32))
+        return tuple(np.concatenate(out[key], axis=1) for key in keys)
 
 
 def prepare_read(read_id, signal, chunk_size, overlap, read_params,
@@ -278,10 +284,11 @@ def prepare_read(read_id, signal, chunk_size, overlap, read_params,
 
 def finalize_read(prep, paths, errprobs, chunk_size, stride, alphabet,
                   fastq, qscore_scale, qscore_offset, mods=None,
-                  can_nmods=None):
-    """Stitch one read's paths and assemble its call (and q-string, and
-    with can_nmods its mod scores from `mods`).  Returns (basecall,
-    qstring or None, mod scores [nbase, nmods] or None)."""
+                  can_nmods=None, trans=None, beam=None):
+    """Stitch one read's paths, or with `beam` (width, guided) decode its
+    stitched scores `trans` by the beam search, and assemble its call (and
+    q-string, and with can_nmods its mod scores from `mods`).  Returns
+    (basecall, qstring or None, mod scores [nbase, nmods] or None)."""
     from taiyaki_tpu_torch import qscores
     from taiyaki_tpu_torch.flipflopfings import path_to_str
     chunk_starts = prep["chunk_starts"]
@@ -293,14 +300,22 @@ def finalize_read(prep, paths, errprobs, chunk_size, stride, alphabet,
         errprobs = errprobs[:nblk + 1]
         if mods is not None:
             mods = mods[:nblk]
-    best_path = basecall_helpers.stitch_chunks(
-        paths, chunk_starts, chunk_ends, stride)
+        if trans is not None:
+            trans = trans[:nblk]
     qstring = None
-    if fastq:
-        stitched_errprobs = basecall_helpers.stitch_chunks(
-            errprobs, chunk_starts, chunk_ends, stride)
-        qstring = qscores.path_errprobs_to_qstring(
-            stitched_errprobs, best_path, qscore_scale, qscore_offset)
+    if beam is not None:
+        best_path, qstring = beam_call(
+            basecall_helpers.stitch_chunks(trans, chunk_starts, chunk_ends,
+                                           stride),
+            beam, alphabet, fastq, qscore_scale, qscore_offset)
+    else:
+        best_path = basecall_helpers.stitch_chunks(
+            paths, chunk_starts, chunk_ends, stride)
+        if fastq:
+            stitched_errprobs = basecall_helpers.stitch_chunks(
+                errprobs, chunk_starts, chunk_ends, stride)
+            qstring = qscores.path_errprobs_to_qstring(
+                stitched_errprobs, best_path, qscore_scale, qscore_offset)
     basecall = path_to_str(best_path, alphabet=alphabet,
                            include_first_source=False)
     mod_scores = None
@@ -315,6 +330,33 @@ def finalize_read(prep, paths, errprobs, chunk_size, stride, alphabet,
     return basecall, qstring, mod_scores
 
 
+def beam_call(stitched_trans, beam, alphabet, fastq, qscore_scale,
+              qscore_offset):
+    """One read's flip-flop state path by the prefix beam search over its
+    stitched scores [nblk, nstate], and for fastq its q-string: the beam's
+    bases carry no block alignment, so they are aligned back to the blocks
+    by the glocal remap Viterbi against the same scores, and each base's
+    error probability is read off that alignment as for a Viterbi path.
+    Returns (path, qstring or None)."""
+    from taiyaki_tpu_torch import decodeutil, flipflop_remap, qscores
+    from taiyaki_tpu_torch.flipflopfings import nbase_flipflop, path_to_str
+    best_path, _ = decodeutil.beamsearch(
+        stitched_trans, beam_width=beam.width, guided=beam.guided)
+    if not fastq:
+        return best_path, None
+    nbase = nbase_flipflop(stitched_trans.shape[1])
+    seq_str = path_to_str(best_path, alphabet=alphabet[:nbase],
+                          include_first_source=True)
+    _, pos_path = flipflop_remap.flipflop_remap(
+        stitched_trans, seq_str, alphabet=alphabet[:nbase])
+    pos_path = np.clip(pos_path, 0, len(best_path) - 1)
+    state_path = np.asarray(best_path)[pos_path]
+    block_errprobs = qscores.errprobs_from_trans(
+        stitched_trans[:, None, :], state_path[:, None])[:, 0]
+    return best_path, qscores.path_errprobs_to_qstring(
+        block_errprobs, state_path, qscore_scale, qscore_offset)
+
+
 def main(argv=None):
     """Run the basecaller; returns counts and wall time as a dict."""
     args = get_parser().parse_args(argv)
@@ -323,9 +365,6 @@ def main(argv=None):
         # scores cannot be read off it
         sys.exit("* Error: --modified_base_output requires the Viterbi "
                  "decoder (drop --beam)")
-    if args.beam is not None:
-        sys.exit("* Error: --beam is not ported to taiyaki_tpu_torch yet; "
-                 "use bin/basecall.py")
     if args.ndevices is not None and args.ndevices > 1:
         sys.exit("* Error: --ndevices > 1 is not ported to "
                  "taiyaki_tpu_torch yet")
@@ -376,8 +415,10 @@ def main(argv=None):
     caller = Basecaller(net, nstate_flipflop(len(args.alphabet)),
                         args.posterior, args.temperature,
                         args.max_concurrent_chunks, device,
-                        want_errprobs=args.fastq,
-                        want_mods=can_nmods is not None)
+                        want_errprobs=args.fastq and args.beam is None,
+                        want_trans=args.beam is not None,
+                        want_mods=can_nmods is not None,
+                        want_paths=args.beam is None)
 
     sys.stderr.write("* Calling reads on {}.\n".format(device))
     nbase = ncalled = nread = nsample = 0
@@ -410,7 +451,7 @@ def main(argv=None):
 
         def finalize_batch(batch_reads, handles):
             nonlocal nbase, ncalled, nsample
-            paths, errprobs, mods = caller.gather(handles)
+            paths, errprobs, mods, trans = caller.gather(handles)
             offs, off = [], 0
             for p in batch_reads:
                 offs.append(off)
@@ -422,7 +463,8 @@ def main(argv=None):
                     p, paths[:, off:off + k], errprobs[:, off:off + k],
                     chunk_size, stride, args.alphabet, args.fastq,
                     args.qscore_scale, args.qscore_offset,
-                    mods[:, off:off + k], can_nmods)
+                    mods[:, off:off + k], can_nmods, trans[:, off:off + k],
+                    args.beam)
 
             for p, (basecall, qstring, mod_scores) in zip(
                     batch_reads, pool.map(finalize_one, batch_reads, offs)):

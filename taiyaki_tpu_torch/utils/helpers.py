@@ -254,6 +254,14 @@ def load_model(model_file, params_file=None, model_metadata=None,
             ckpt.get("optimizer_state"))
 
 
+def guess_model_stride(net):
+    """Total time stride of a network, from its output's length on a zero
+    input (`layers.guess_model_stride`); the weights, loaded or not, do not
+    change it."""
+    from taiyaki_tpu_torch import layers
+    return layers.guess_model_stride(net)
+
+
 # -- progress / output --------------------------------------------------------
 
 COLOURS = [91, 93, 95, 92, 35, 33, 94]

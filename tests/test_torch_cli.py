@@ -210,15 +210,18 @@ def test_cli_default_device_is_cuda(calls):
     assert "CUDA" in r.stderr
 
 
-@pytest.mark.parametrize("flag", [["--beam", "5", "false"],
+@pytest.mark.parametrize("flag", [["--beam", "5", "false",
+                                   "--modified_base_output", "m.h5"],
                                   ["--modified_base_output", "m.h5"],
                                   ["--ndevices", "2"]])
 def test_cli_unported_options_stop(calls, flag):
-    """Options not ported stop; --modified_base_output, ported, stops on
-    this canonical checkpoint as bin/basecall.py does."""
+    """Options not ported stop; --modified_base_output stops on this
+    canonical checkpoint, and with --beam on any, as bin/basecall.py
+    does."""
     from taiyaki_tpu_torch.cli import basecall
     _, _, model, reads = calls
-    why = {"--modified_base_output": "requires a cat_mod model"}
+    why = {"--modified_base_output": "requires a cat_mod model",
+           "--beam": "requires the Viterbi decoder"}
     with pytest.raises(SystemExit, match=why.get(flag[0], "not ported")):
         basecall.main(flag + ["--device", "cpu", reads, model])
 
@@ -261,17 +264,14 @@ def _chip_smoke():
     return mod
 
 
-def test_real_read_calls_match_jax_on_shipped_gru_checkpoint(tmp_path):
-    """The shortest real read of the repo's mapped reads (19 039
-    samples), written as fast5 with h5py, called with the shipped
-    mGru_flipflop remap checkpoint (size 96, stride 4) by both CLIs with
-    their defaults but for batches of 8 chunks (the read has 6; the JAX
-    CLI pads every batch to the batch size): the fastas are equal byte for
-    byte, and the call's semi-global identity against the read's
-    reference is the JAX call's 0.870 (at least 0.80)."""
+REMAP_MODEL = os.path.join(REPO, "taiyaki_tpu", "models",
+                           "mGru_flipflop_remapping_model_r9_DNA.checkpoint")
+
+
+def write_real_read(reads):
+    """The shortest real read of the repo's mapped reads (19 039 samples)
+    as reads/real.fast5 (h5py); returns (read id, reference)."""
     import h5py
-    reads = tmp_path / "reads"
-    reads.mkdir()
     src = os.path.join(REPO, "RESULTS", "training_ingredients",
                        "mapped_remap_samref.hdf5")
     with h5py.File(src, "r") as f:
@@ -279,7 +279,7 @@ def test_real_read_calls_match_jax_on_shipped_gru_checkpoint(tmp_path):
         g = f["Reads"][rid]
         dacs = g["Dacs"][()]
         ref = "".join("ACGT"[i] for i in g["Reference"][()])
-        with h5py.File(str(reads / "real.fast5"), "w") as out:
+        with h5py.File(os.path.join(str(reads), "real.fast5"), "w") as out:
             grp = out.create_group("read_" + rid)
             ch = grp.create_group("channel_id")
             for k in ("digitisation", "offset", "range"):
@@ -291,8 +291,21 @@ def test_real_read_calls_match_jax_on_shipped_gru_checkpoint(tmp_path):
             raw.attrs["duration"] = len(dacs)
             raw.create_dataset("Signal", data=dacs.astype("i2"))
     assert len(dacs) == 19039
-    model = os.path.join(REPO, "taiyaki_tpu", "models",
-                         "mGru_flipflop_remapping_model_r9_DNA.checkpoint")
+    return rid, ref
+
+
+def test_real_read_calls_match_jax_on_shipped_gru_checkpoint(tmp_path):
+    """The shortest real read of the repo's mapped reads (19 039
+    samples), written as fast5 with h5py, called with the shipped
+    mGru_flipflop remap checkpoint (size 96, stride 4) by both CLIs with
+    their defaults but for batches of 8 chunks (the read has 6; the JAX
+    CLI pads every batch to the batch size): the fastas are equal byte for
+    byte, and the call's semi-global identity against the read's
+    reference is the JAX call's 0.870 (at least 0.80)."""
+    reads = tmp_path / "reads"
+    reads.mkdir()
+    rid, ref = write_real_read(reads)
+    model = REMAP_MODEL
     text = {}
     for tag, cmd in (
             ("jax", [sys.executable, os.path.join(REPO, "bin", "basecall.py"),
@@ -364,7 +377,10 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.models.mLstm_cat_mod_flipflop, "
             "taiyaki_tpu_torch.models.mGru_cat_mod_flipflop, "
             "taiyaki_tpu_torch.ops.gru, "
-            "taiyaki_tpu_torch.utils.helpers; "
+            "taiyaki_tpu_torch.utils.helpers, "
+            "taiyaki_tpu_torch.cli.dump_json, taiyaki_tpu_torch.decodeutil, "
+            "taiyaki_tpu_torch.flipflop_remap, taiyaki_tpu_torch.layers, "
+            "taiyaki_tpu_torch.utils.json; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {!r}))".format(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
