@@ -142,7 +142,29 @@ card; run from the root of a checkout:
    scores within 1e-4 of them); cli.dump_json of the trained mLstm
    checkpoint of 3a, the every-layer network's and the remap checkpoint:
    each parameter equal to the state_dict (GRU gates reordered).
-12. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+12. Training-data preparation (this slice): the three real reads,
+   each written 31 more times under new read ids, and one long read (the
+   longest, 34 188 samples, with its reference tiled 4x): 97 reads, 2.7 M
+   samples as fast5 (hdf5.Writer), their references as fasta and their
+   rows of RESULTS/training_ingredients/readparams.tsv.
+   `taiyaki_tpu_torch.cli.prepare_mapped_reads` remaps them on the card
+   with the shipped remap checkpoint (batches of 8 reads of one padded
+   length) in both layouts, and the port's reader reads the files back:
+   check() passes, 97 reads, Dacs and Reference as written, the mean
+   dwell of a middle 1000-sample chunk of every read in (5, 20), no read
+   tallied as failed, the GRU forward (cluster instance) and the tc gate
+   GEMM launched.  The same CLI with --device cpu (one read a forward)
+   on the three originals: each Ref_to_signal within the near-tie rule
+   of tests/test_misc_cli.py (under 1% of entries moved, none by more
+   than 32 samples) of the card's, as is every copy's of its original's.
+   The long read alone, and the trained mLstm checkpoint of 3a (size
+   256: the LSTM forward launched, check() passes).  Prints reads/s,
+   ksample/s, the forwards' time against the host's stage and finish
+   (Viterbi remap) time, the long read's, and peak device memory.  Rows
+   7 and 1 also alone at the remap path's largest batches of the real
+   reads (B=8, T=8704 at H=96; T=6964 at H=256) against their twins,
+   timed beside the twin and cuDNN.
+13. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
    line (17 rows), the card line, and the result line
    {"ok": true, "device": {...}}.
 
@@ -2406,26 +2428,30 @@ def write_real_reads(path, mapped=READS_HDF5):
     (hdf5.Writer, as a machine without h5py writes it); returns {read id:
     (reference sequence, samples)}."""
     from taiyaki_tpu_torch.data import mapped_signal_files
-    from taiyaki_tpu_torch.data.hdf5 import Writer
     with mapped_signal_files.MappedSignalReader(mapped) as msr:
         alphabet = msr.get_alphabet_information().alphabet
         reads = list(msr.reads())
-    refs = {}
+    write_fast5(path, [(r.read_id, r, r.Dacs) for r in reads])
+    return {r.read_id: ("".join(alphabet[i] for i in r.Reference),
+                        len(r.Dacs)) for r in reads}
+
+
+def write_fast5(path, reads):
+    """A multi-read fast5 (hdf5.Writer) of (read id, the mapped read whose
+    channel it takes, samples)."""
+    from taiyaki_tpu_torch.data.hdf5 import Writer
     with Writer(path) as f5:
-        for r in reads:
-            grp = f5.create_group("read_" + r.read_id)
+        for rid, r, dacs in reads:
+            grp = f5.create_group("read_" + rid)
             ch = grp.create_group("channel_id")
             for k in ("digitisation", "offset", "range"):
                 ch.attrs[k] = getattr(r, k)
             ch.attrs["sampling_rate"] = 4000.0
             raw = grp.create_group("Raw")
-            raw.attrs["read_id"] = r.read_id
+            raw.attrs["read_id"] = rid
             raw.attrs["start_time"] = 0
-            raw.attrs["duration"] = len(r.Dacs)
-            raw.create_dataset("Signal", data=r.Dacs.astype("i2"))
-            refs[r.read_id] = ("".join(alphabet[i] for i in r.Reference),
-                               len(r.Dacs))
-    return refs
+            raw.attrs["duration"] = len(dacs)
+            raw.create_dataset("Signal", data=dacs.astype("i2"))
 
 
 def real_reads(torch, dev, work, counters):
@@ -2475,6 +2501,244 @@ def real_reads(torch, dev, work, counters):
     worst = min(ident.values())
     check(worst >= 0.80, "real reads: identity {:.4f} < 0.80".format(worst))
     return launches, stats
+
+
+# training-data preparation: each real read written this many more times,
+# and the longest tiled this many times into one long read
+PREP_COPIES, PREP_TILE = 31, 4
+READ_PARAMS = os.path.join(ROOT, "RESULTS", "training_ingredients",
+                           "readparams.tsv")
+
+
+def write_prepare_inputs(d):
+    """The inputs of the data-preparation phase under `d`: fast5 reads in
+    all/ (the real reads, PREP_COPIES copies of each, the long read),
+    orig/ (the real reads) and long/ (the long read), refs.fa and
+    params.tsv (each read with its original's row of readparams.tsv).
+    Returns {read id: (original's read id, Dacs, integer Reference)}."""
+    from taiyaki_tpu_torch.data import mapped_signal_files
+    with mapped_signal_files.MappedSignalReader(READS_HDF5) as msr:
+        alphabet = msr.get_alphabet_information().alphabet
+        reads = sorted(msr.reads(), key=lambda r: r.read_id)
+    with open(READ_PARAMS) as fh:
+        lines = fh.read().splitlines()
+    rows = {line.split("\t")[0]: line.split("\t")[1:] for line in lines[1:]}
+    longest = max(reads, key=lambda r: len(r.Dacs))
+    records = {}
+    for r in reads:
+        records[r.read_id] = (r.read_id, r.Dacs, r.Reference, r)
+        for k in range(PREP_COPIES):
+            records["{}-copy{:02d}".format(r.read_id, k)] = (
+                r.read_id, r.Dacs, r.Reference, r)
+    records[longest.read_id + "-x{}".format(PREP_TILE)] = (
+        longest.read_id, np.tile(longest.Dacs, PREP_TILE),
+        np.tile(longest.Reference, PREP_TILE), longest)
+    dirs = {"all": list(records), "orig": [r.read_id for r in reads],
+            "long": [longest.read_id + "-x{}".format(PREP_TILE)]}
+    for name, rids in dirs.items():
+        os.makedirs(os.path.join(d, name))
+        write_fast5(os.path.join(d, name, "reads.fast5"),
+                    [(rid, records[rid][3], records[rid][1])
+                     for rid in rids])
+    with open(os.path.join(d, "refs.fa"), "w") as fh:
+        for rid, (_, _, ref, _) in records.items():
+            fh.write(">{}\n{}\n".format(rid, "".join(alphabet[i]
+                                                      for i in ref)))
+    with open(os.path.join(d, "params.tsv"), "w") as fh:
+        fh.write(lines[0] + "\n")
+        for rid, (orig, _, _, _) in records.items():
+            fh.write("\t".join([rid] + rows[orig]) + "\n")
+    return {rid: rec[:3] for rid, rec in records.items()}
+
+
+def near_tie(a, b):
+    """The JAX package's rule for two remappings of one read whose
+    forwards round differently (tests/test_misc_cli.py:210-219): under 1%
+    of Ref_to_signal entries moved, none by more than 32 samples.  (share
+    moved, largest move, holds)."""
+    if a.shape != b.shape:
+        return 1.0, None, False
+    moved = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    share, most = float((moved > 0).mean()), int(moved.max())
+    return share, most, share < 0.01 and most <= 32
+
+
+def read_mapped(path):
+    """{read id: SignalMapping} of a mapped-signal file (the port's
+    reader), and its check()."""
+    from taiyaki_tpu_torch.data import mapped_signal_files
+    with mapped_signal_files.MappedSignalReader(path) as msr:
+        return {r.read_id: r for r in msr}, msr.check()
+
+
+# the remap path's largest batches of the real reads: 8 reads of 34 816
+# padded samples, T = 8704 blocks at the remap model's stride 4 (H=96) and
+# 6964 at mLstm's stride 5 (H=256)
+REMAP_SHAPES = (("gru", 8704, 96), ("lstm", 6964, 256))
+
+
+def check_remap_shapes(torch, dev, rng, shapes=REMAP_SHAPES, b=8):
+    """Rows 7 and 1 at the remap path's shapes (B=8 whole reads) against
+    their twins (1e-4, both directions), timed beside the twin and cuDNN;
+    returns {row: its numbers}."""
+    from taiyaki_tpu_torch.ops import gru, lstm
+    out = {}
+    for cell, t, h in shapes:
+        gates = 3 if cell == "gru" else 4
+        op, plain = ((gru.gru_fwd, gru.gru_fwd_plain) if cell == "gru"
+                     else (lstm.lstm_fwd, lstm.lstm_fwd_plain))
+        x = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+        iW = _tensor(torch, dev, rng.normal(size=(gates * h, h)) / np.sqrt(h))
+        bias = _tensor(torch, dev, 0.5 * rng.normal(size=gates * h))
+        sW = _tensor(torch, dev, rng.normal(size=(gates * h, h)) / np.sqrt(h))
+        err = 0.0
+        for reverse in (False, True):
+            got = op(x, iW, bias, sW, reverse=reverse)
+            want = plain(x, iW, bias, sW, reverse=reverse)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  "{}_fwd at T={} B={}: bad output".format(cell, t, b))
+            err = max(err, max_abs_diff(got, want))
+        check(err <= 1e-4, "{}_fwd at T={} B={}: max |err| {} > 1e-4".format(
+            cell, t, b, err))
+        ms = cuda_ms(torch, lambda: op(x, iW, bias, sW), reps=3)
+        plain_ms = cuda_ms(torch, lambda: plain(x, iW, bias, sW), reps=1,
+                           warmup=0)
+        ref = (torch.nn.GRU if cell == "gru" else torch.nn.LSTM)(h, h).to(dev)
+        with torch.no_grad():
+            ref.weight_ih_l0.copy_(iW)
+            ref.weight_hh_l0.copy_(sW)
+            ref.bias_ih_l0.copy_(bias)
+            ref.bias_hh_l0.zero_()
+            lib_ms = cuda_ms(torch, lambda: ref(x), reps=3)
+        bound, by = bound_ms(4 * (2 * t * b * h + gates * h * (2 * h + 1)),
+                             2 * t * b * gates * h * h,
+                             2 * t * b * gates * h * h)
+        _, plan = plan_of(cell, h, b)
+        out[cell] = dict(T=t, B=b, H=h, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                         bound_by=by, plan=plan)
+        say("{}_fwd at the remap path's shape T={} B={} D=H={}: max|err| "
+            "{:.3g} (tol 1e-4), kernel {:.3f} ms ({:.3f} us a step), plain "
+            "{:.3f} ms, torch.nn.{} {:.3f} ms, bound {:.4f} ms ({}); plan "
+            "{}".format(cell, t, b, h, err, ms, 1e3 * ms / t, plain_ms,
+                        cell.upper(), lib_ms, bound, by, plan))
+    return out
+
+
+def prepare_path(torch, dev, work, pick, mlstm_ckpt, card):
+    """Training-data preparation through the port's CLI (phase 12 of the
+    module docstring); returns the launches of its card runs by path."""
+    from taiyaki_tpu_torch.cli import prepare_mapped_reads as pmr
+    d = os.path.join(work, "prepare")
+    records = write_prepare_inputs(d)
+    tsv, refs = os.path.join(d, "params.tsv"), os.path.join(d, "refs.fa")
+    launches, stats, mapped = {}, {}, {}
+    shapes = check_remap_shapes(torch, dev, np.random.default_rng(14))
+    torch.cuda.empty_cache()
+
+    def remap(tag, reads, model, counters=None, extra=()):
+        out = os.path.join(d, tag + ".hdf5")
+        if counters is not None:
+            for fn in counters.values():
+                fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        st = pmr.main(["--jobs", "4"] + list(extra) + [
+            os.path.join(d, reads), tsv, out, model, refs])
+        torch.cuda.synchronize()
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if counters is not None:
+            launches["prepare " + tag] = {k: fn.launches
+                                          for k, fn in counters.items()}
+        mapped[tag], verdict = read_mapped(out)
+        check(verdict == "pass", "prepare {}: check() {!r}".format(
+            tag, verdict))
+        check(not st["failures"], "prepare {}: reads failed {}".format(
+            tag, {str(k): v for k, v in st["failures"].items()}))
+        stats[tag] = st
+        return mapped[tag]
+
+    gru_counters = pick(("gru_fwd",))
+    for tag, extra in (("mGru", ()), ("mGru batch layout",
+                                      ("--batch_format",))):
+        got = remap(tag, "all", REMAP_MODEL, gru_counters, extra)
+        check(sorted(got) == sorted(records),
+              "prepare {}: {} reads of {}".format(tag, len(got),
+                                                  len(records)))
+        for rid, (orig, dacs, ref) in records.items():
+            r = got[rid]
+            check(np.array_equal(r.Dacs, dacs)
+                  and np.array_equal(r.Reference, ref),
+                  "prepare {}: {} Dacs or Reference not as written".format(
+                      tag, rid))
+            d_start, d_end = r.get_mapped_dacs_region()
+            n = len(records[orig][1])
+            # the long read's own middle is a junction of its tiles, where
+            # a read's start (its stalls) follows a read's end: take the
+            # middle of its second tile
+            centre = n + n // 2 if len(dacs) > n else (d_start + d_end) // 2
+            chunk = r.get_chunk_with_sample_length(
+                1000, start_sample=centre - 500 - d_start)
+            check(chunk.accepted and 5.0 < chunk.mean_dwell < 20.0,
+                  "prepare {}: {} middle chunk {} mean dwell {:.2f}".format(
+                      tag, rid, chunk.reject_reason, chunk.mean_dwell))
+        for k, n in launches["prepare " + tag].items():
+            check(n > 0, "prepare {}: no launch of {}".format(tag, k))
+    batched = mapped["mGru"]
+    for rid in batched:
+        a = mapped["mGru batch layout"][rid].Ref_to_signal
+        check(np.array_equal(a, batched[rid].Ref_to_signal),
+              "prepare: {} maps otherwise in the batch layout".format(rid))
+    # every copy maps as its original does (same batch or another)
+    copies = [near_tie(batched[rid].Ref_to_signal,
+                       batched[orig].Ref_to_signal)
+              for rid, (orig, _, _) in records.items()
+              if rid != orig and len(records[rid][1]) == len(
+                  records[orig][1])]
+    check(all(c[2] for c in copies), "prepare: a copy breaks the near-tie "
+          "rule against its original: {}".format(
+              [c for c in copies if not c[2]]))
+    # card (batches of 8) against the CPU (one read a forward)
+    cpu = remap("cpu", "orig", REMAP_MODEL,
+                extra=("--device", "cpu", "--jobs", "1"))
+    vs_cpu = {rid: near_tie(batched[rid].Ref_to_signal, r.Ref_to_signal)
+              for rid, r in cpu.items()}
+    check(len(vs_cpu) == 3 and all(v[2] for v in vs_cpu.values()),
+          "prepare: card against CPU breaks the near-tie rule: {}".format(
+              vs_cpu))
+    remap("long read", "long", REMAP_MODEL)
+    remap("mLstm", "orig", mlstm_ckpt, pick(("lstm_fwd",)))
+    check(launches["prepare mLstm"]["lstm_fwd"] > 0,
+          "prepare mLstm: no launch of lstm_fwd")
+
+    def rates(st):
+        text = ("{} reads, {} samples in {:.3f} s: {:.2f} reads/s, {:.1f} "
+                "ksample/s".format(st["nmapped"], st["nsample"],
+                                   st["seconds"], st["nmapped"] / st["seconds"],
+                                   st["nsample"] / st["seconds"] / 1e3))
+        if st["device"] == "cpu":
+            # the per-read path times no split and uses no card memory
+            return text
+        return text + ("; stage wait {:.3f} s, forwards {:.3f} s, host "
+                       "finish (Viterbi remap) {:.3f} s; peak device memory "
+                       "{:.3f} GiB".format(st["stage"], st["forward"],
+                                           st["finish"], st["peak_gib"]))
+
+    say("prepare_mapped_reads on {} (shipped mGru remap checkpoint, size "
+        "96, stride 4; --jobs 4): per-read layout {}; batch layout {}; "
+        "launches {}; the long read ({} samples) alone: {}; card against "
+        "CPU on the 3 real reads (share of Ref_to_signal moved, largest "
+        "move in samples): {}; {} copies within the rule of their "
+        "originals (largest share {:.4f}); CPU run {}; mLstm 256/5/19 "
+        "trained checkpoint: {}, launches {}".format(
+            card, rates(stats["mGru"]), rates(stats["mGru batch layout"]),
+            launches["prepare mGru"],
+            len(records[next(iter(mapped["long read"]))][1]),
+            rates(stats["long read"]),
+            {rid: v[:2] for rid, v in vs_cpu.items()}, len(copies),
+            max(c[0] for c in copies), rates(stats["cpu"]),
+            rates(stats["mLstm"]), launches["prepare mLstm"]))
+    return launches, dict(stats, shapes=shapes)
 
 
 def catmod_basecall(torch, dev, work, model, counters, what):
@@ -3385,6 +3649,10 @@ def run(seed):
                                                     pick(gru_call))
         launches["mGru real reads beam"], _ = beam_real_reads(
             torch, dev, work, pick(gru_call))
+        prep_launches, _ = prepare_path(torch, dev, work, pick, mlstm_ckpt,
+                                        card)
+        launches.update(prep_launches)
+        torch.cuda.empty_cache()
         model = seeded_checkpoint(work, seed, MGRU)
         launches["mGru basecall"], _, reads = main_path(
             torch, dev, seed, work, model, pick(gru_call), "mGru")

@@ -142,31 +142,6 @@ def get_signal(read_filename, read_id):
         return None
 
 
-def get_per_read_params_dict_from_tsv(input_file):
-    """Per-read params TSV (UUID, trim_start, trim_end, shift, scale) as a
-    dict keyed by UUID."""
-    from taiyaki_tpu_torch.utils.fileio import readtsv
-    try:
-        table = readtsv(input_file, ["UUID", "trim_start", "trim_end",
-                                     "shift", "scale"])
-    except Exception as e:
-        sys.stderr.write("Failed to get per-read parameters from {}.\n{}\n"
-                         .format(input_file, repr(e)))
-        return None
-    out = {}
-    for row in table:
-        try:
-            out[str(row["UUID"])] = {
-                "trim_start": int(row["trim_start"]),
-                "trim_end": int(row["trim_end"]),
-                "shift": float(row["shift"]),
-                "scale": float(row["scale"])}
-        except Exception:
-            sys.stderr.write("Warning: ignoring incorrect line {} in {}\n"
-                             .format(tuple(row), input_file))
-    return out
-
-
 class Basecaller:
     """Network forward + (posterior) + Viterbi (+ error probabilities) for
     batches of up to `max_batch` chunks on one device; with
@@ -386,6 +361,8 @@ def main(argv=None):
     if args.scaling is not None:
         sys.stderr.write("* Loading read scaling parameters from {}.\n"
                          .format(args.scaling))
+        from taiyaki_tpu_torch.prepare_mapping_funcs import (
+            get_per_read_params_dict_from_tsv)
         all_read_params = get_per_read_params_dict_from_tsv(args.scaling)
         fast5_reads = [rec for rec in fast5_reads
                        if rec[1] in all_read_params]

@@ -21,11 +21,14 @@ writes for datasets with at most one unlimited dimension).  The implicit and ver
 huge and tiny fractal-heap objects, other filters and shared messages
 raise NotImplementedError naming themselves (install h5py for those).
 
-Write (`Writer`): superblock 0, version-1 object headers, groups as link
-messages, contiguous datasets and scalar or array attributes of numeric
-and fixed-length string types; h5py and libhdf5 read what it writes.
+Write (`Writer`): superblock 0, version-1 object headers, groups as
+symbol tables (any number of children), contiguous datasets written when
+they are created, and scalar or array attributes and datasets of numeric,
+fixed-length string (bytes) and variable-length UTF-8 string (str) types;
+h5py and libhdf5 read what it writes.
 """
 
+import functools
 import mmap
 import struct
 import zlib
@@ -61,6 +64,7 @@ class File:
     def __init__(self, filename):
         with open(filename, "rb") as fh:
             self._buf = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
+        self._collections = {}
         try:
             self._root = Group(self, self._root_address(filename))
         except BaseException:
@@ -277,18 +281,25 @@ class File:
         return arr[()] if shape == () else arr
 
     def _global(self, coll, index):
-        buf = self._buf
-        _expect(buf, coll, b"GCOL")
-        end = coll + _u(buf, coll + 8, 8)
-        p = coll + 16
-        while p + 16 <= end:
-            idx, size = _u(buf, p, 2), _u(buf, p + 8, 8)
-            if idx == index:
-                return bytes(buf[p + 16:p + 16 + size])
-            if idx == 0:
-                break
-            p += 16 + _pad8(size)
-        raise KeyError("global heap object {} not found".format(index))
+        """Object `index` of the global heap collection at `coll` (each
+        collection's objects found once, on its first use)."""
+        objects = self._collections.get(coll)
+        if objects is None:
+            buf = self._buf
+            _expect(buf, coll, b"GCOL")
+            end = coll + _u(buf, coll + 8, 8)
+            p = coll + 16
+            objects = self._collections[coll] = {}
+            while p + 16 <= end:
+                idx, size = _u(buf, p, 2), _u(buf, p + 8, 8)
+                if idx == 0:
+                    break
+                objects[idx] = (p + 16, size)
+                p += 16 + _pad8(size)
+        if index not in objects:
+            raise KeyError("global heap object {} not found".format(index))
+        start, size = objects[index]
+        return bytes(self._buf[start:start + size])
 
     def attributes(self, messages):
         out = {}
@@ -794,8 +805,24 @@ def _extensible_array(buf, addr):
 
 # -- writer ------------------------------------------------------------------
 
+# Sizes of superblock 0's symbol tables (libhdf5's defaults, which the
+# superblock states): a symbol table node holds up to 2 * _LEAF_K names,
+# a group B-tree node up to 2 * _NODE_K children.  libhdf5 reads a node's
+# full size whatever it holds.
+_LEAF_K, _NODE_K = 4, 16
+_SNOD_SIZE = 8 + 2 * _LEAF_K * 40
+_TREE_SIZE = 24 + 2 * _NODE_K * 8 + (2 * _NODE_K + 1) * 8
+# A global heap collection: libhdf5 reads at least 4096 bytes of one.
+_GCOL_SIZE = 1 << 16
+# Variable-length UTF-8 string (null-terminated padding) of unsigned
+# 8-bit characters: what h5py writes for a Python str.
+_VLEN_STR = (bytes([0x19, 0x01, 0x01, 0x00]) + struct.pack("<I", 16)
+             + bytes([0x10, 0, 0, 0]) + struct.pack("<IHH", 1, 0, 8))
+_HEAP_FREE_NULL = 1         # a local heap's "no free block"
+
+
+@functools.lru_cache(maxsize=None)     # one entry a dtype
 def _encode_dtype(dt):
-    dt = np.dtype(dt)
     if dt.kind in "iu":
         bits = 0x08 if dt.kind == "i" else 0
         return (bytes([0x10]) + bits.to_bytes(3, "little")
@@ -821,44 +848,32 @@ def _encode_space(shape):
             + b"".join(int(d).to_bytes(8, "little") for d in shape))
 
 
-def _as_value(value):
-    if isinstance(value, str):
-        value = value.encode()
-    if isinstance(value, bytes):
-        return np.array(value, dtype="S{}".format(max(1, len(value))))
-    return np.asarray(value)
-
-
 def _message(mtype, data):
     data = bytes(data)
     data += b"\0" * (_pad8(len(data)) - len(data))
     return struct.pack("<HHB3x", mtype, len(data), 0) + data
 
 
-def _attr_message(name, value):
-    arr = _as_value(value)
-    nm = name.encode() + b"\0"
-    dt, sp = _encode_dtype(arr.dtype), _encode_space(arr.shape)
-    body = struct.pack("<BxHHH", 1, len(nm), len(dt), len(sp))
-    for part in (nm, dt, sp):
-        body += part + b"\0" * (_pad8(len(part)) - len(part))
-    return _message(0x0C, body + arr.tobytes())
-
-
 class _WNode:
-    def __init__(self):
+    def __init__(self, writer):
+        self._writer = writer
         self.attrs = {}
 
 
 class _WDataset(_WNode):
-    def __init__(self, data):
-        super().__init__()
-        self.data = np.ascontiguousarray(data)
+    """A dataset whose bytes are already in the file."""
+
+    def __init__(self, writer, data):
+        super().__init__(writer)
+        self.dtype_msg, raw, self.shape = writer._encode(data)
+        # an empty dataset has no storage: its address is undefined
+        self.addr = writer._write(raw) if raw else _UNDEF
+        self.nbytes = len(raw)
 
 
 class _WGroup(_WNode):
-    def __init__(self):
-        super().__init__()
+    def __init__(self, writer):
+        super().__init__(writer)
         self.children = {}
 
     def __contains__(self, name):
@@ -866,77 +881,206 @@ class _WGroup(_WNode):
 
     def create_group(self, name):
         head, _, rest = name.strip("/").partition("/")
-        grp = self.children.setdefault(head, _WGroup())
+        grp = self.children.get(head)
+        if grp is None:
+            grp = self.children[head] = _WGroup(self._writer)
         return grp.create_group(rest) if rest else grp
 
     def create_dataset(self, name, data):
         parent, _, leaf = name.strip("/").rpartition("/")
         grp = self.create_group(parent) if parent else self
-        ds = _WDataset(np.asarray(data))
+        ds = _WDataset(self._writer, data)
         grp.children[leaf] = ds
         return ds
 
 
 class Writer(_WGroup):
-    """Write a new HDF5 file: build groups, datasets and attrs with the
-    h5py calls `create_group`, `create_dataset(name, data=)` and
-    `attrs[key] = value`; the file is written on `close()` (or at the end
-    of a `with` block)."""
+    """Write a new HDF5 file with the h5py calls `create_group`,
+    `create_dataset(name, data=)` and `attrs[key] = value`.
+
+    A dataset's bytes go to the file when it is created, so host memory
+    holds names and attributes but no array.  Python str values, as
+    attributes or in arrays of str, are variable-length UTF-8 strings in
+    global heap collections, as h5py writes them (h5py reads them back as
+    str); bytes are fixed-length strings.  Every group is a symbol table
+    (v1 B-tree of symbol table nodes, names in a local heap), which holds
+    any number of children.  Groups, object headers and the superblock
+    are written on `close()` (or at the end of a `with` block)."""
 
     def __init__(self, filename):
-        super().__init__()
+        super().__init__(self)
         self.filename = filename
+        self._fh = open(filename, "w+b")
+        self._fh.write(bytes(96))
+        # the end of the file's space, and the file's own position
+        self._eof = self._at = 96
+        self._gcol = None
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        if exc[0] is None:
-            self.close()
+        self.close()
 
     def close(self):
-        out = bytearray(96)
-        root = self._emit(out, self)
-        sb = (_SIG + bytes([0, 0, 0, 0, 0, 8, 8, 0])
-              + struct.pack("<HHI", 4, 16, 0)
-              + struct.pack("<QQQQ", 0, _UNDEF, len(out), _UNDEF)
-              + struct.pack("<QQII16x", 0, root, 0, 0))
-        out[:96] = sb
-        with open(self.filename, "wb") as fh:
-            fh.write(out)
+        if self._fh is None:
+            return
+        try:
+            root = self._emit(self)
+            self._seal()
+            btree, heap = self._stab
+            sb = (_SIG + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                  + struct.pack("<HHI", _LEAF_K, _NODE_K, 0)
+                  + struct.pack("<QQQQ", 0, _UNDEF, self._eof, _UNDEF)
+                  + struct.pack("<QQII", 0, root, 1, 0)
+                  + struct.pack("<QQ", btree, heap))
+            self._fh.seek(0)
+            self._fh.write(sb)
+        finally:
+            self._fh.close()
+            self._fh = None
 
-    @staticmethod
-    def _align(out):
-        out.extend(b"\0" * (_pad8(len(out)) - len(out)))
-        return len(out)
+    # -- file space ----------------------------------------------------------
 
-    def _emit(self, out, node):
-        msgs = []
-        if isinstance(node, _WGroup):
-            addrs = {name: self._emit(out, child)
-                     for name, child in node.children.items()}
-            msgs.append(_message(0x02, bytes([0, 0])
-                                 + struct.pack("<QQ", _UNDEF, _UNDEF)))
-            msgs.append(_message(0x0A, bytes([0, 0])))
-            for name, addr in addrs.items():
-                nm = name.encode()
-                size_flag = 0 if len(nm) < 256 else 1
-                msgs.append(_message(0x06, bytes([1, size_flag])
-                                     + len(nm).to_bytes(1 << size_flag,
-                                                        "little")
-                                     + nm + struct.pack("<Q", addr)))
-        else:
-            data = node.data
-            # an empty dataset has no storage: its address is undefined
-            addr = self._align(out) if data.nbytes else _UNDEF
-            out.extend(data.tobytes())
-            msgs.append(_message(0x01, _encode_space(data.shape)))
-            msgs.append(_message(0x03, _encode_dtype(data.dtype)))
-            msgs.append(_message(0x08, bytes([3, 1]) + struct.pack(
-                "<QQ", addr, data.nbytes)))
-        msgs += [_attr_message(k, v) for k, v in node.attrs.items()]
-        body = b"".join(msgs)
-        addr = self._align(out)
-        out.extend(struct.pack("<BBHII4x", 1, 0, len(msgs), 1, len(body)))
-        out.extend(body)
+    def _write(self, raw):
+        """Append raw bytes, zero-padded to 8-byte boundaries; their
+        address."""
+        addr = self._reserve(len(raw))
+        if self._at != addr:
+            self._fh.seek(addr)
+        self._fh.write(raw)
+        self._fh.write(bytes(self._eof - addr - len(raw)))
+        self._at = self._eof
         return addr
+
+    def _reserve(self, size):
+        addr = self._eof
+        self._eof = addr + _pad8(size)
+        return addr
+
+    # -- values --------------------------------------------------------------
+
+    def _encode(self, value):
+        """(datatype message, raw bytes, shape) of an attribute's or a
+        dataset's value."""
+        if isinstance(value, str):
+            value = np.array(value, dtype=object)
+        elif isinstance(value, bytes):
+            value = np.array(value, dtype="S{}".format(max(1, len(value))))
+        arr = np.asarray(value)
+        if arr.dtype.kind in "UO":
+            raw = b"".join(self._heap_id(str(s)) for s in arr.ravel())
+            return _VLEN_STR, raw, arr.shape
+        return _encode_dtype(arr.dtype), arr.tobytes(), arr.shape
+
+    def _heap_id(self, text):
+        """Store a string in the open global heap collection (a new one
+        when it is full); its 16-byte reference: length, collection,
+        index."""
+        raw = text.encode("utf-8")
+        need = 16 + _pad8(len(raw))
+        h = self._gcol
+        if (h is None or h["index"] == 0xffff
+                or 16 + len(h["data"]) + need + 16 > h["size"]):
+            self._seal()
+            size = max(_GCOL_SIZE, 16 + need + 16)
+            h = self._gcol = {"addr": self._reserve(size), "size": size,
+                              "data": bytearray(), "index": 0}
+        h["index"] += 1
+        h["data"] += (struct.pack("<HH4xQ", h["index"], 0, len(raw)) + raw
+                      + bytes(need - 16 - len(raw)))
+        return struct.pack("<IQI", len(raw), h["addr"], h["index"])
+
+    def _seal(self):
+        """Write the open collection into its space, the rest of it one
+        free-space object."""
+        h, self._gcol = self._gcol, None
+        if h is None:
+            return
+        body = (b"GCOL" + bytes([1, 0, 0, 0]) + struct.pack("<Q", h["size"])
+                + h["data"])
+        free = h["size"] - len(body)
+        body += struct.pack("<HH4xQ", 0, 0, free) + bytes(free - 16)
+        self._fh.seek(h["addr"])
+        self._fh.write(body)
+        self._at = h["addr"] + len(body)
+
+    def _attr_message(self, name, value):
+        dt, raw, shape = self._encode(value)
+        nm = name.encode() + b"\0"
+        sp = _encode_space(shape)
+        body = struct.pack("<BxHHH", 1, len(nm), len(dt), len(sp))
+        for part in (nm, dt, sp):
+            body += part + b"\0" * (_pad8(len(part)) - len(part))
+        return _message(0x0C, body + raw)
+
+    # -- structure -----------------------------------------------------------
+
+    def _emit(self, node):
+        """Write a node's object header (a group's children first); its
+        address."""
+        if isinstance(node, _WGroup):
+            names = sorted(node.children)
+            addrs = [self._emit(node.children[n]) for n in names]
+            node._stab = self._symbol_table(names, addrs)
+            msgs = [_message(0x11, struct.pack("<QQ", *node._stab))]
+        else:
+            msgs = [_message(0x01, _encode_space(node.shape)),
+                    _message(0x03, node.dtype_msg),
+                    _message(0x08, bytes([3, 1]) + struct.pack(
+                        "<QQ", node.addr, node.nbytes))]
+        msgs += [self._attr_message(k, v) for k, v in node.attrs.items()]
+        body = b"".join(msgs)
+        return self._write(struct.pack("<BBHII4x", 1, 0, len(msgs), 1,
+                                       len(body)) + body)
+
+    def _symbol_table(self, names, addrs):
+        """A group's local heap of names, its symbol table nodes (names in
+        byte order, which is how libhdf5 searches them) and the B-tree
+        over them; (B-tree address, heap address)."""
+        data = bytearray(8)             # offset 0: the empty name
+        offs = []
+        for n in names:
+            offs.append(len(data))
+            nm = n.encode() + b"\0"
+            data += nm + bytes(_pad8(len(nm)) - len(nm))
+        addr = self._eof
+        heap = self._write(b"HEAP" + bytes(4) + struct.pack(
+            "<QQQ", len(data), _HEAP_FREE_NULL, addr + 32) + data)
+        # children of the level being built: (address, heap offset of the
+        # last name under it)
+        children = []
+        for i in range(0, len(names), 2 * _LEAF_K):
+            part = range(i, min(i + 2 * _LEAF_K, len(names)))
+            snod = (b"SNOD" + bytes([1, 0]) + struct.pack("<H", len(part))
+                    + b"".join(struct.pack("<QQII16x", offs[j], addrs[j], 0,
+                                           0) for j in part))
+            children.append((self._write(snod + bytes(_SNOD_SIZE
+                                                      - len(snod))),
+                             offs[part[-1]]))
+        level = 0
+        while True:
+            # a node's keys bound its children: key 0 is the last name
+            # left of the node (the empty name at the far left), key i + 1
+            # the last name under child i
+            parts = [children[i:i + 2 * _NODE_K]
+                     for i in range(0, len(children), 2 * _NODE_K)] or [[]]
+            base = self._eof
+            blob, left = bytearray(), 0
+            for k, part in enumerate(parts):
+                sib = [base + (k + d) * _TREE_SIZE
+                       if 0 <= k + d < len(parts) else _UNDEF
+                       for d in (-1, 1)]
+                node = (b"TREE" + bytes([0, level])
+                        + struct.pack("<HQQQ", len(part), sib[0], sib[1],
+                                      left)
+                        + b"".join(struct.pack("<QQ", a, key)
+                                   for a, key in part))
+                blob += node + bytes(_TREE_SIZE - len(node))
+                left = part[-1][1] if part else left
+            self._write(bytes(blob))
+            if len(parts) == 1:
+                return base, heap
+            children = [(base + k * _TREE_SIZE, part[-1][1])
+                        for k, part in enumerate(parts)]
+            level += 1

@@ -1,5 +1,6 @@
-"""A read's signal mapped to its reference, and training chunks cut from
-it (port of the reader side of taiyaki_tpu/data/signal_mapping.py).
+"""A read's signal mapped to its reference, built from a remapping path
+or read from a file, and training chunks cut from it (port of
+taiyaki_tpu/data/signal_mapping.py).
 
 Mapped-signal file fields (format v8): read_id (str), shift_frompA,
 scale_frompA, range, offset, digitisation (float), Dacs (int16),
@@ -13,6 +14,11 @@ does, so one seed draws the same chunks in both packages.
 """
 
 import numpy as np
+
+
+class TaiyakiSigMapError(Exception):
+    """Raised when a signal mapping fails integrity checks."""
+
 
 REQUIRED_FIELDS = {
     "read_id": str,
@@ -101,18 +107,28 @@ class SignalMapping:
 
     pass_str = "pass"
 
-    def __init__(self, Ref_to_signal, Reference, *, shift_frompA,
-                 scale_frompA, range, offset, digitisation, read_id, Dacs,
-                 mapping_score=None, mapping_method=None):
+    def __init__(self, Ref_to_signal, Reference, *, signalObj=None,
+                 signalstart=None, shift_frompA=None, scale_frompA=None,
+                 range=None, offset=None, digitisation=None, read_id=None,
+                 Dacs=None, mapping_score=None, mapping_method=None):
         self.Ref_to_signal = np.asarray(Ref_to_signal).astype(np.int32)
         self.Reference = np.asarray(Reference).astype(np.int16)
-        self.shift_frompA = float(shift_frompA)
-        self.scale_frompA = float(scale_frompA)
-        self.range = float(range)
-        self.offset = float(offset)
-        self.digitisation = float(digitisation)
-        self.read_id = str(read_id)
-        self.Dacs = np.asarray(Dacs).astype(np.int16)
+        if signalObj is not None:
+            self.shift_frompA = float(signalObj.shift_from_pA)
+            self.scale_frompA = float(signalObj.scale_from_pA)
+            self.range = float(signalObj.range)
+            self.offset = float(signalObj.offset)
+            self.digitisation = float(signalObj.digitisation)
+            self.read_id = str(signalObj.read_id)
+            self.Dacs = signalObj.untrimmed_dacs.astype(np.int16)
+        else:
+            self.shift_frompA = float(shift_frompA)
+            self.scale_frompA = float(scale_frompA)
+            self.range = float(range)
+            self.offset = float(offset)
+            self.digitisation = float(digitisation)
+            self.read_id = str(read_id)
+            self.Dacs = np.asarray(Dacs).astype(np.int16)
         self.mapping_score = (None if mapping_score is None
                               else float(mapping_score))
         self.mapping_method = (None if mapping_method is None
@@ -126,9 +142,18 @@ class SignalMapping:
     def siglen(self):
         return self.Dacs.shape[0]
 
+    # -- integrity ----------------------------------------------------------
+
     def check(self):
-        """Integrity check; 'pass' or a description of the problems."""
+        """Integrity check; returns 'pass' or a description of problems
+        (reference: signal_mapping.py:87-116)."""
         problems = []
+        if self.Dacs.dtype != np.int16:
+            problems.append("Dacs dtype is not int16")
+        if self.Ref_to_signal.dtype != np.int32:
+            problems.append("Ref_to_signal dtype is not int32")
+        if self.Reference.dtype != np.int16:
+            problems.append("Reference dtype is not int16")
         if len(self.Ref_to_signal) != self.reflen + 1:
             problems.append(
                 "Length of Ref_to_signal ({}) should be 1 + length of "
@@ -143,6 +168,81 @@ class SignalMapping:
         if not problems:
             return self.pass_str
         return "\n".join(problems) + "\n"
+
+    # -- construction helpers ------------------------------------------------
+
+    @staticmethod
+    def get_integer_reference(string_reference, alphabet):
+        """Integer-code a reference string against an alphabet."""
+        lut = np.full(256, -1, dtype=np.int16)
+        for i, b in enumerate(alphabet):
+            lut[ord(b)] = i
+        coded = lut[np.frombuffer(string_reference.encode(), dtype=np.uint8)]
+        if np.any(coded < 0):
+            raise ValueError("Reference contains bases outside alphabet")
+        return coded
+
+    @staticmethod
+    def get_reftosignal(signalpos_to_refpos, reflen, siglen):
+        """Invert a per-sample sig->ref assignment into the canonical
+        ref->sig vector (reference: signal_mapping.py:210-263).
+
+        Returns an int32 vector of length reflen + 1 where entry n is the
+        signal location where base n starts; leading unmapped positions are
+        -1 and trailing ones siglen + 1.
+        """
+        sig_idx = np.flatnonzero(signalpos_to_refpos != -1).astype(np.int32)
+        if len(sig_idx) == 0:
+            return np.full(reflen + 1, -1, dtype=np.int32)
+        ref_at_sig = signalpos_to_refpos[sig_idx]
+        # First mapped sample starts its base; subsequent entries repeat the
+        # sample index once per base advanced.
+        repeats = np.concatenate([[1], np.diff(ref_at_sig)])
+        ref_to_sig = np.repeat(sig_idx, repeats)
+        ref_to_sig = np.concatenate(
+            [ref_to_sig, np.int32([sig_idx[-1] + 1])])
+        head = int(ref_at_sig[0])
+        if head > 0:
+            ref_to_sig = np.concatenate(
+                [np.full(head, -1, dtype=np.int32), ref_to_sig])
+        tail = reflen + 1 - len(ref_to_sig)
+        if tail > 0:
+            ref_to_sig = np.concatenate(
+                [ref_to_sig, np.full(tail, siglen + 1, dtype=np.int32)])
+        return ref_to_sig.astype(np.int32)
+
+    @classmethod
+    def from_remapping_path(cls, sigtoref_downsampled, reference, stride,
+                            sig):
+        """Build a mapping from a stride-downsampled remapping path
+        (reference: signal_mapping.py:265-320; see its docstring picture:
+        downsampled entry n corresponds to untrimmed sample
+        n*stride - 1 + signalstart)."""
+        # Trimming: the network saw the trimmed signal, so block n starts
+        # at trimmed sample n * stride, and the path's entry n is put at
+        # untrimmed sample n * stride - 1 + signalstart (signalstart is
+        # the per-read TSV's trim_start; Dacs stay untrimmed)
+        full = np.full(len(sig.untrimmed_dacs), -1, dtype=np.int32)
+        siglocs = (np.arange(len(sigtoref_downsampled), dtype=np.int32)
+                   * stride - 1 + sig.signalstart)
+        ok = (siglocs >= 0) & (siglocs < len(full))
+        full[siglocs[ok]] = sigtoref_downsampled[ok]
+        ref_to_sig = cls.get_reftosignal(full, reference.shape[0],
+                                         sig.untrimmed_dacs.shape[0])
+        return cls(ref_to_sig, reference, signalObj=sig)
+
+    def get_read_dictionary(self, check=True):
+        """Flatten to a plain dict for the file writer; raises
+        TaiyakiSigMapError on integrity failure."""
+        if check:
+            verdict = self.check()
+            if verdict != self.pass_str:
+                raise TaiyakiSigMapError(verdict)
+        out = {k: getattr(self, k) for k in REQUIRED_FIELDS}
+        for k in OPTIONAL_FIELDS:
+            if getattr(self, k) is not None:
+                out[k] = getattr(self, k)
+        return out
 
     # -- regions & currents --------------------------------------------------
 
@@ -178,10 +278,19 @@ class SignalMapping:
         seq_end = np.searchsorted(self.Ref_to_signal, sig_end, "left")
         return np.array([seq_start, seq_end])
 
+    def get_reference(self, region=None):
+        if region is None:
+            return self.Reference
+        return self.Reference[region[0]:region[1]]
+
+    def get_dacs(self, region=None):
+        if region is None:
+            return self.Dacs
+        return self.Dacs[region[0]:region[1]]
+
     def get_current(self, region=None, standardize=True):
         """Signal in pA (or standardized units) over a region."""
-        dacs = self.Dacs if region is None else \
-            self.Dacs[region[0]:region[1]]
+        dacs = self.get_dacs(region)
         current = (dacs + self.offset) * self.range / self.digitisation
         if standardize:
             current = (current - self.shift_frompA) / self.scale_frompA

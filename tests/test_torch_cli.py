@@ -380,7 +380,14 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.utils.helpers, "
             "taiyaki_tpu_torch.cli.dump_json, taiyaki_tpu_torch.decodeutil, "
             "taiyaki_tpu_torch.flipflop_remap, taiyaki_tpu_torch.layers, "
-            "taiyaki_tpu_torch.utils.json; "
+            "taiyaki_tpu_torch.utils.json, "
+            "taiyaki_tpu_torch.cli.prepare_mapped_reads, "
+            "taiyaki_tpu_torch.cli.get_refs_from_sam, "
+            "taiyaki_tpu_torch.cli.generate_per_read_params, "
+            "taiyaki_tpu_torch.prepare_mapping_funcs, taiyaki_tpu_torch.bio, "
+            "taiyaki_tpu_torch.sam, taiyaki_tpu_torch.iterators, "
+            "taiyaki_tpu_torch.data.signal_mapping, "
+            "taiyaki_tpu_torch.data.hdf5; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {!r}))".format(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),

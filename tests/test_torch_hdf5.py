@@ -284,7 +284,8 @@ def test_writer_output_reads_in_h5py(tmp_path):
                                                         dtype="f4"))
     with h5py.File(path, "r") as f, hdf5.File(path) as ours:
         _same(ours, f)
-        assert f["read_3/Raw"].attrs["read_id"] == b"id3"
+        # a str goes out as h5py writes one: variable-length UTF-8
+        assert f["read_3/Raw"].attrs["read_id"] == "id3"
         assert f["read_4/channel_id"].attrs["range"] == 1404.0
         np.testing.assert_array_equal(f["read_5/Raw/Signal"][()], data[5])
         np.testing.assert_array_equal(f["a/b/floats"][()],

@@ -31,7 +31,10 @@ to run; at every band edge of the streams' chains, past 8192 positions
 lattices' tolerances.  The recurrences
 on given gates (kernels 14-17, ops/rnn.py's lstm_scan and gru_scan) as
 the layer kernels: outputs 1e-4, backwards 1e-4 relative, also against
-the whole layers through autograd.  The shapes include H=384, the JAX
+the whole layers through autograd.  The LSTM and GRU forwards also at
+the remap path's shapes (B=8 whole reads of T=8192 blocks; the mLstm 256
+and the shipped remap model's widths), at the layers' 1e-4.  The shapes
+include H=384, the JAX
 trainer's default size, on a batch that is not a multiple of 8.  The
 forward recurrences' cluster instance (the plan's choice at every width
 below ~450) against the forced L2 instance: 1e-4 (it sums over k in
@@ -396,6 +399,30 @@ def test_gru_kernels_match_twins(dev, shape, reverse):
     for g, w in zip(bk[1:], bw[1:]):
         assert g.shape[1:] == w.shape[1:]
         assert _rel_err(g.sum(0), w.sum(0)) < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell,width", [("lstm", 256), ("gru", 96)])
+def test_remap_shapes_match_twins(dev, cell, width, reverse):
+    """The forwards (rows 1 and 7) at the remap path's shapes
+    (prepare_mapped_reads: batches of 8 whole reads, here 8192 blocks,
+    a read of 32768 samples at stride 4): the mLstm 256 model's width and
+    the shipped remap model's, against their twins at the layers'
+    tolerance, on the plan's instance."""
+    T, B = 8192, 8
+    if cell == "lstm":
+        args = [a.to(dev) for a in _lstm_inputs(T, B, width, width)]
+        op, plain = lstm.lstm_fwd, lstm.lstm_fwd_plain
+    else:
+        args = [a.to(dev) for a in _gru_inputs(T, B, width, width)[:4]]
+        op, plain = gru.gru_fwd, gru.gru_fwd_plain
+    want = plain(*args, reverse=reverse)
+    n = op.launches
+    got = op(*args, reverse=reverse)
+    torch.cuda.synchronize()
+    assert op.launches == n + 1
+    assert got.shape == want.shape == (T, B, width)
+    assert (got - want).abs().max().item() < 1e-4
 
 
 @pytest.mark.parametrize("reverse", [False, True])
