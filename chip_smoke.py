@@ -164,9 +164,39 @@ card; run from the root of a checkout:
    7 and 1 also alone at the remap path's largest batches of the real
    reads (B=8, T=8704 at H=96; T=6964 at H=256) against their twins,
    timed beside the twin and cuDNN.
-13. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows), the card line, and the result line
+13. The squiggle predictor, ab-initio training and --remat (this slice),
+   on phase 12's files: (a) `taiyaki_tpu_torch.cli.train_squiggle` at
+   its defaults (size 32, depth 4, winlen 9, target_len 300, batch 100,
+   back_prob 1e-15) for 4 iterations on phase 12's 97-read mapped file:
+   losses finite; the squiggle-match cost (ops/squiggle.py, plain
+   PyTorch, no kernel of its own) of a batch of that shape on the trained
+   net's squiggles, card against the CPU (costs 1e-5 relative, the
+   gradient 1e-4 of its largest); its seconds a step, kernel launches a
+   step (torch.profiler), padded signal length and peak device memory;
+   (b) `cli.predict_squiggle` of the three real references with that
+   checkpoint, card against CPU, every number within 1e-5; (c)
+   `cli.map_to_squiggle` of the three real reads (phase 12's fast5)
+   against their references (RESULTS/training_ingredients/
+   per_read_references_from_sam.fa), card against CPU: scores within
+   1e-4 relative, paths equal or within the near-tie rule of phase 12;
+   (d) `cli.train_abinitio` at its defaults (mGru_flipflop 96/2/19,
+   batch 128) for 4 iterations on 256 chunks of 4000 samples cut from
+   phase 12's mapped file by the port's chunk sampler (a "chunks"
+   dataset written by hdf5.Writer, the sequences as an index-named
+   fasta): losses finite, the GRU forward and recomputing backward (on
+   their cluster instances), the CRF and logZ kernels launched; the first
+   step's loss on its first 8 chunks, card against CPU, within 1e-4
+   relative; (e) `cli.train_flipflop` on mLstm at phase 3's shape with
+   --remat and without, 2 iterations each, one seed: losses and every
+   parameter after each step within 1e-5 relative, the LSTM forward
+   launched again in each layer's rerun; a step's time and peak device
+   memory with and without (plain, remat, remat, plain).
+14. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows; each with its launches on phase 13's training paths,
+   `launches_on`), the card line, and the result line
    {"ok": true, "device": {...}}.
+
+Each phase prints its seconds on a line of its own ("phase N: s").
 
 Every kernel counter is set to 0 just before each path and read just
 after; the recurrences (the forwards and the backward chains) also count
@@ -179,6 +209,7 @@ import argparse
 import contextlib
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -266,6 +297,20 @@ def reads_of(model):
 
 def say(msg):
     print(msg, flush=True)
+
+
+class Phases:
+    """The seconds of each phase, each printed on a line of its own when
+    the next one starts (`next`, or `next(None)` after the last)."""
+
+    def __init__(self):
+        self.name, self.t0 = None, None
+
+    def next(self, name):
+        if self.name is not None:
+            say("phase {}: {:.1f} s".format(self.name,
+                                             time.time() - self.t0))
+        self.name, self.t0 = name, time.time()
 
 
 def cuda_ms(torch, fn, reps, warmup=1):
@@ -2054,14 +2099,16 @@ def layer_bwd_ms(torch, dev, model, policy, T):
     return f_ms, b_ms
 
 
-def timed_step(torch, dev, seed, model, batch, kwargs):
+def timed_step(torch, dev, seed, model, batch, kwargs, remat=False):
     """A full training step of `model` on `batch` (seeded weights, AdamW,
-    no clip; a cat_mod model at the mod factor of loss_args): the mean
+    no clip; a cat_mod model at the mod factor of loss_args; with remat,
+    each layer's forward run again in the backward pass): the mean
     synchronised wall time (ms) of 2 steps after a warm-up and the peak
     device memory (bytes, torch.cuda.max_memory_allocated) over them.
     Returns (step ms, peak, net, batch on the device)."""
-    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch import layers, train
     net = new_net(seed, kwargs, dev, model)
+    layers.set_remat(net, remat)
     args, factor = loss_args(net)
     params = train.leaf_params(net)
     opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
@@ -3485,6 +3532,386 @@ def json_export(work, checkpoints):
         .format(k, *v) for k, v in done.items())))
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# train_squiggle's defaults (bin/train_squiggle.py:20-72), 4 iterations
+SQ_ARGS = ("--size", "32", "--depth", "4", "--winlen", "9", "--target_len",
+           "300", "--batch_size", "100", "--back_prob", "1e-15")
+SQ_TARGET, SQ_BATCH, SQ_BACK, SQ_ITER = 300, 100, 1e-15, 4
+# train_abinitio's input: chunks of CHUNK samples cut from phase 12's
+# mapped reads; its defaults (size 96, stride 2, winlen 19, batch 128)
+AB_NCHUNK, AB_BATCH, AB_ITER, AB_CPU = 256, 128, 4, 8
+REMAP_REFS = os.path.join(ROOT, "RESULTS", "training_ingredients",
+                          "per_read_references_from_sam.fa")
+
+
+def device_launches(torch, fn):
+    """torch.profiler, device activity only, over one fn(): (kernel
+    launches, memset and copy operations, their summed device ms, the
+    profiled wall ms), read from the trace's raw events (key_averages
+    takes minutes over a few hundred thousand launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    evts = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    check(len(evts) > 0, "torch.profiler recorded no device time")
+    copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in evts)
+    return (len(evts) - copies, copies,
+            sum(e.duration_ns() for e in evts) / 1e6, wall)
+
+
+def _squiggle_batch(mapped, seed, max_siglen):
+    """A batch of train_squiggle's shape from the reads of `mapped`: its
+    chunk sampling (filter statistics from 1000 chunks), padded to the
+    CLI's max_siglen and batch size."""
+    from taiyaki_tpu_torch.cli import train_squiggle
+    from taiyaki_tpu_torch.data import chunk_selection, mapped_signal_files
+    with mapped_signal_files.MappedSignalReader(mapped) as msr:
+        reads = list(msr.reads())
+    np.random.seed(seed)
+    fp = chunk_selection.sample_filter_parameters(
+        reads, 1000, SQ_TARGET, 3.0, 10.0, 0.5, 1, 1.1,
+        chunk_len_means_sequence_len=True)
+    chunks, _ = chunk_selection.sample_chunks(
+        reads, SQ_BATCH, SQ_TARGET, fp, chunk_len_means_sequence_len=True)
+    chunks = [c for c in chunks if c.sig_len <= max_siglen]
+    return train_squiggle.make_batch(chunks, SQ_TARGET, max_siglen,
+                                     SQ_BATCH)
+
+
+def squiggle_path(torch, dev, work, seed, mapped):
+    """Phase 13a: train_squiggle at its defaults on the card; the squiggle
+    cost and its gradient on a batch of that shape, card against CPU; a
+    step's launches (torch.profiler).  Returns (checkpoint, numbers)."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.cli import predict_squiggle, train_squiggle
+    from taiyaki_tpu_torch.ops.squiggle import squiggle_match_cost
+    outdir = os.path.join(work, "squiggle")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    st = train_squiggle.main(list(SQ_ARGS) + [
+        "--niteration", str(SQ_ITER), "--save_every", str(SQ_ITER),
+        "--seed", str(seed), "--quiet", "--outdir", outdir, mapped])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = st["losses"]
+    check(len(losses) == SQ_ITER and all(np.isfinite(losses)),
+          "train_squiggle losses {}".format(losses))
+    ckpt = os.path.join(outdir, "model_final.checkpoint")
+    check(os.path.exists(ckpt), "train_squiggle wrote no checkpoint")
+
+    # the cost of one batch: card against CPU on the trained net's params
+    arrays = _squiggle_batch(mapped, seed, st["max_siglen"])
+    net = predict_squiggle.load_squiggle_model(ckpt, dev)
+    with torch.no_grad():
+        params = net(torch.from_numpy(arrays[0]).to(dev))
+
+    def cost_grad(device):
+        p = params.detach().to(device).requires_grad_()
+        t0 = time.perf_counter()
+        cost = squiggle_match_cost(p, torch.from_numpy(arrays[1]).to(device),
+                                   torch.from_numpy(arrays[2]).to(device),
+                                   SQ_BACK)
+        (grad,) = torch.autograd.grad(cost.sum(), p)
+        cost, grad = cost.detach().cpu(), grad.cpu()
+        return cost, grad, time.perf_counter() - t0
+
+    card, cpu = cost_grad(dev), cost_grad(torch.device("cpu"))
+    check(bool(torch.isfinite(card[0]).all() and torch.isfinite(
+        card[1]).all()), "squiggle cost on the card: not finite")
+    c_err = ((card[0] - cpu[0]).abs() / cpu[0].abs()).max().item()
+    g_err = ((card[1] - cpu[1]).abs().max()
+             / cpu[1].abs().max()).item()
+    check(c_err <= 1e-5, "squiggle cost, card vs CPU: relative err "
+          "{}".format(c_err))
+    check(g_err <= 1e-4, "squiggle cost gradient, card vs CPU: err {} of "
+          "its largest".format(g_err))
+
+    # one whole training step under the profiler: its kernel launches
+    net.train()
+    leaves = train.leaf_params(net)
+    opt = train.Optimizer(leaves, lambda i: 1e-4, lambda i: 0.9, 0.999,
+                          1e-6, 0.0)
+    batch = [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def step():
+        loss = train_squiggle.batch_loss(net, batch, SQ_BACK)
+        opt.step(torch.autograd.grad(loss, leaves))
+    step()
+    nkern, ncopy, busy, wall = device_launches(torch, step)
+    out = dict(losses=losses, step_s=st["step_seconds"], cli_s=cli_s,
+               max_siglen=st["max_siglen"], peak_gb=peak / 1e9,
+               launches_a_step=nkern, copies_a_step=ncopy,
+               device_ms_a_step=busy, profiled_step_ms=wall,
+               cost_card_s=card[2], cost_cpu_s=cpu[2], cost_rel_err=c_err,
+               grad_err=g_err)
+    say("train_squiggle (size 32, depth 4, winlen 9, target_len {}, batch "
+        "{}, back_prob {}, {} iterations): {:.1f} s; losses {}; step "
+        "seconds {}; "
+        "max_siglen {}; peak device memory {:.3f} GB; one step under the "
+        "profiler: {} kernel launches and {} memsets and copies, device "
+        "busy {:.1f} ms of {:.1f} ms; "
+        "squiggle cost + gradient at [{} samples, {} chunks, {} positions]: "
+        "card {:.2f} s, CPU {:.2f} s, cost relative err {:.3g} (tol 1e-5), "
+        "gradient err {:.3g} of its largest (tol 1e-4)".format(
+            SQ_TARGET, SQ_BATCH, SQ_BACK, SQ_ITER, cli_s,
+            ", ".join("{:.5f}".format(v) for v in losses),
+            ", ".join("{:.3f}".format(v) for v in st["step_seconds"]),
+            st["max_siglen"], peak / 1e9, nkern, ncopy, busy, wall,
+            st["max_siglen"], SQ_BATCH,
+            SQ_TARGET, card[2], cpu[2], c_err, g_err))
+    return ckpt, out
+
+
+def _tsv_numbers(path):
+    with open(path) as fh:
+        rows = [line.split("\t") for line in fh.read().splitlines()]
+    return ([r[0] for r in rows],
+            np.array([[float(v) for v in r[1:]] for r in rows
+                      if r[0] != "base"]))
+
+
+def predict_path(work, ckpt):
+    """Phase 13b: predict_squiggle of the three real references, card
+    against CPU: every number within 1e-5 (relative above 1)."""
+    from taiyaki_tpu_torch.cli import predict_squiggle
+    out = {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        out[tag] = os.path.join(work, "predict_{}.tsv".format(tag))
+        t0 = time.perf_counter()
+        predict_squiggle.main(extra + ["--output", out[tag], ckpt,
+                                       REMAP_REFS])
+        out[tag + "_s"] = time.perf_counter() - t0
+    (bases, got), (cbases, want) = (_tsv_numbers(out[k])
+                                    for k in ("card", "cpu"))
+    err = float((np.abs(got - want)
+                 / np.maximum(1.0, np.abs(want))).max())
+    check(bases == cbases and len(got) > 7000 and err <= 1e-5,
+          "predict_squiggle card vs CPU: {} rows, err {}".format(len(got),
+                                                                 err))
+    say("predict_squiggle of the 3 real references ({} bases): card {:.2f} "
+        "s, CPU {:.2f} s; largest err {:.3g} (tol 1e-5)".format(
+            len(got), out["card_s"], out["cpu_s"], err))
+    return err
+
+
+def _mapping(path):
+    """{read id: (score, positions)} of map_to_squiggle's output."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                rid, score = line[1:].split()
+                out[rid] = (float(score), [])
+            else:
+                out[rid][1].append(int(line.split("\t")[3]))
+    return {k: (s, np.array(p)) for k, (s, p) in out.items()}
+
+
+def map_path(work, ckpt):
+    """Phase 13c: map_to_squiggle of phase 12's three real reads (fast5)
+    to their references, card against CPU: scores within 1e-4 relative,
+    paths equal or within the near-tie rule (under 1% of samples moved,
+    none by more than 32 positions)."""
+    from taiyaki_tpu_torch.cli import map_to_squiggle
+    reads = os.path.join(work, "prepare", "orig")
+    out, secs = {}, {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        path = os.path.join(work, "map_{}.txt".format(tag))
+        t0 = time.perf_counter()
+        map_to_squiggle.main(extra + ["--output", path, ckpt, REMAP_REFS,
+                                      reads])
+        secs[tag] = time.perf_counter() - t0
+        out[tag] = _mapping(path)
+    check(sorted(out["card"]) == sorted(out["cpu"])
+          and len(out["card"]) == 3, "map_to_squiggle: reads {} vs {}".format(
+              sorted(out["card"]), sorted(out["cpu"])))
+    verdict = {}
+    for rid, (score, path) in out["card"].items():
+        cscore, cpath = out["cpu"][rid]
+        s_err = abs(score - cscore) / abs(cscore)
+        moved = path != cpath
+        worst = int(np.abs(path - cpath).max()) if moved.any() else 0
+        verdict[rid] = (s_err, float(moved.mean()), worst)
+        check(s_err <= 1e-4 and len(path) == len(cpath)
+              and moved.mean() < 0.01 and worst <= 32,
+              "map_to_squiggle {}: score err {}, {} of samples moved, "
+              "largest move {}".format(rid, s_err, moved.mean(), worst))
+    say("map_to_squiggle of the 3 real reads: card {:.2f} s, CPU {:.2f} s; "
+        "by read (score relative err, share of samples moved, largest "
+        "move): {}".format(secs["card"], secs["cpu"], json.dumps(verdict)))
+    return secs
+
+
+def write_abinitio_inputs(d, mapped, seed):
+    """AB_NCHUNK chunks of CHUNK samples cut from the reads of `mapped` by
+    the port's chunk sampler: their currents as a "chunks" dataset
+    (hdf5.Writer) and their sequences as an index-named fasta.  Returns
+    (chunks file, fasta)."""
+    from taiyaki_tpu_torch.data import chunk_selection, mapped_signal_files
+    from taiyaki_tpu_torch.data.hdf5 import Writer
+    with mapped_signal_files.MappedSignalReader(mapped) as msr:
+        reads = list(msr.reads())
+    np.random.seed(seed)
+    fp = chunk_selection.sample_filter_parameters(
+        reads, 1000, CHUNK, 3.0, 10.0, 0.5, MGRU[2], 1.1)
+    chunks, _ = chunk_selection.sample_chunks(reads, AB_NCHUNK, CHUNK, fp)
+    check(len(chunks) == AB_NCHUNK, "abinitio inputs: {} chunks".format(
+        len(chunks)))
+    os.makedirs(d)
+    path, fasta = os.path.join(d, "chunks.hdf5"), os.path.join(d, "refs.fa")
+    with Writer(path) as f:
+        f.create_dataset("chunks", data=np.stack(
+            [c.current for c in chunks]).astype(np.float32))
+    with open(fasta, "w") as fh:
+        for i, c in enumerate(chunks):
+            fh.write(">{}\n{}\n".format(i, "".join("ACGT"[b]
+                                                   for b in c.sequence)))
+    return path, fasta
+
+
+def abinitio_path(torch, dev, work, seed, mapped, counters):
+    """Phase 13d: train_abinitio at its defaults (mGru_flipflop, size 96,
+    stride 2, winlen 19, batch 128) for AB_ITER iterations; the first
+    step's loss on its first AB_CPU chunks, card against CPU (1e-4
+    relative).  Returns (launches, numbers)."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.cli import train_abinitio
+    from taiyaki_tpu_torch.convert import load_jax_params
+    from taiyaki_tpu_torch.utils import helpers
+    d = os.path.join(work, "abinitio")
+    chunks_path, fasta = write_abinitio_inputs(d, mapped, seed)
+    outdir = os.path.join(d, "out")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    st = train_abinitio.main([
+        "--batch_size", str(AB_BATCH), "--niteration", str(AB_ITER),
+        "--save_every", str(AB_ITER // 2), "--seed", str(seed), "--quiet",
+        "--outdir", outdir, MGRU[1],
+        chunks_path, fasta])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(all(n > 0 for n in launches.values()),
+          "train_abinitio path: launches {}".format(launches))
+    losses = st["losses"]
+    check(len(losses) == AB_ITER and all(np.isfinite(losses)),
+          "train_abinitio losses {}".format(losses))
+
+    # the first step's batch (the CLI's first draw after seeding), cut to
+    # AB_CPU chunks, on the initial checkpoint: card against CPU
+    chunks = train_abinitio.read_chunks(chunks_path)
+    with open(os.path.splitext(fasta)[0] + ".pkl", "rb") as fh:
+        seq_dict = pickle.load(fh)
+    np.random.seed(seed)
+    idx = np.random.choice(len(chunks), size=AB_BATCH, replace=False)
+    batch = train_abinitio.make_batch(
+        chunks, seq_dict, idx[:AB_CPU],
+        max(len(s) for s in seq_dict.values()))
+    net, params, *_ = helpers.load_model(
+        os.path.join(outdir, "model_checkpoint_00000.checkpoint"))
+    first = {}
+    for tag, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        tnet = load_jax_params(net, params).to(device)
+        with torch.no_grad():
+            first[tag] = float(train.make_loss_fn(tnet)(
+                train.batch_to_device(batch, device), 1.0, 1.0))
+    l_err = abs(first["card"] - first["cpu"]) / abs(first["cpu"])
+    check(l_err <= 1e-4, "train_abinitio first step, card vs CPU: {} vs "
+          "{}".format(first["card"], first["cpu"]))
+    out = dict(losses=losses, step_s=st["step_seconds"], peak_gb=peak / 1e9,
+               first_loss=first, first_loss_rel_err=l_err)
+    say("train_abinitio (mGru_flipflop 96/2/19, {} chunks x {} samples, "
+        "batch {}, {} iterations): losses {}; step seconds {}; peak device "
+        "memory {:.3f} GB; launches {}; first step's loss on {} chunks: "
+        "card {} vs CPU {} (relative err {:.3g}, tol 1e-4)".format(
+            AB_NCHUNK, CHUNK, AB_BATCH, AB_ITER,
+            ", ".join("{:.5f}".format(v) for v in losses),
+            ", ".join("{:.3f}".format(v) for v in st["step_seconds"]),
+            peak / 1e9, launches, AB_CPU, first["card"], first["cpu"],
+            l_err))
+    return launches, out
+
+
+def _ckpt_params(outdir, name):
+    """{name: array} of a checkpoint's .params."""
+    from taiyaki_tpu_torch.convert import flat_params
+    with open(os.path.join(outdir, name + ".params"), "rb") as fh:
+        return flat_params(pickle.load(fh))
+
+
+def remat_path(torch, dev, work, seed, counters):
+    """Phase 13e: the training CLI on mLstm_flipflop at phase 3's shape
+    with --remat and without, 2 iterations each, one seed: the losses and
+    every parameter after each step within 1e-5 relative; the remat run
+    launches the LSTM forward again in each layer's rerun.  Then a step's
+    time and peak device memory with and without.  Returns (launches by
+    run, numbers)."""
+    from taiyaki_tpu_torch.cli import train_flipflop
+    runs, launches = {}, {}
+    for tag, extra in (("remat", ["--remat"]), ("plain", [])):
+        outdir = os.path.join(work, "train_remat_" + tag)
+        for fn in counters.values():
+            fn.launches = 0
+        train_flipflop.main(extra + [
+            "--size", str(H), "--stride", str(MLSTM[2]), "--winlen", "19",
+            "--chunk_len_min", str(CHUNK), "--chunk_len_max", str(CHUNK),
+            "--min_sub_batch_size", str(TB), "--niteration", "2",
+            "--warmup_batches", "1", "--save_every", "1",
+            "--sample_nreads_before_filtering", "1000",
+            "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
+            "--outdir", outdir, MLSTM[1], READS_HDF5])
+        torch.cuda.synchronize()
+        launches[tag] = {k: fn.launches for k, fn in counters.items()}
+        check(all(n > 0 for n in launches[tag].values()),
+              "training {}: launches {}".format(tag, launches[tag]))
+        with open(os.path.join(outdir, "batch.log")) as fh:
+            runs[tag] = ([float(line.split("\t")[1]) for line in
+                          fh.read().splitlines()[1:]], outdir)
+    (rlosses, rdir), (plosses, pdir) = runs["remat"], runs["plain"]
+    check(len(rlosses) == len(plosses) == 2 and all(
+        abs(a - b) <= 1e-5 * abs(b) for a, b in zip(rlosses, plosses)),
+        "--remat losses {} vs {}".format(rlosses, plosses))
+    p_err = 0.0
+    for name in ("model_checkpoint_00001", "model_checkpoint_00002"):
+        got, want = _ckpt_params(rdir, name), _ckpt_params(pdir, name)
+        check(sorted(got) == sorted(want), "--remat: parameter names")
+        for k, b in want.items():
+            p_err = max(p_err, float(np.abs(got[k] - b).max()
+                                     / max(np.abs(b).max(), 1e-30)))
+    check(p_err <= 1e-5, "--remat parameters: relative err {}".format(p_err))
+    check(launches["remat"]["lstm_fwd"] > launches["plain"]["lstm_fwd"],
+          "--remat reran no LSTM forward: {} vs {}".format(
+              launches["remat"]["lstm_fwd"], launches["plain"]["lstm_fwd"]))
+
+    batch, kwargs = step_batch(seed, TB, MLSTM)
+    steps = {}
+    for tag in ("plain", "remat", "remat", "plain"):
+        step_ms, peak = timed_step(torch, dev, seed, MLSTM, batch, kwargs,
+                                   remat=tag == "remat")[:2]
+        torch.cuda.empty_cache()
+        steps.setdefault(tag, []).append((step_ms, peak / 1e9))
+    out = dict(loss_remat=rlosses, loss_plain=plosses, param_rel_err=p_err,
+               steps={k: [{"step_ms": a, "peak_gb": b} for a, b in v]
+                      for k, v in steps.items()})
+    say("train_flipflop --remat against no --remat (mLstm {}/5/19, {} "
+        "chunks x {} samples, 2 iterations): losses {} vs {}; parameters "
+        "after each step: largest relative err {:.3g} (tol 1e-5); LSTM "
+        "forward launches {} vs {}; a step (ms, peak device GB; plain, "
+        "remat, remat, plain): {}".format(
+            H, TB, CHUNK, rlosses, plosses, p_err,
+            launches["remat"]["lstm_fwd"], launches["plain"]["lstm_fwd"],
+            json.dumps(steps)))
+    return launches, out
+
+
 def run(seed):
     try:
         import torch
@@ -3508,6 +3935,8 @@ def run(seed):
         timeout=60).stdout.strip().splitlines()[0]
     say("card: {} (torch {}, CUDA {})".format(card, torch.__version__,
                                               torch.version.cuda))
+    phases = Phases()
+    phases.next("1 build")
     t0 = time.time()
     libs = cuda_lib.build_all()
     say("kernels built in {:.1f} s (nvcc, sm_90a): {}".format(
@@ -3516,9 +3945,10 @@ def run(seed):
     from taiyaki_tpu_torch import decodeutil
     t0 = time.time()
     decodeutil.library()
-    say("host decoders (beam search, remap Viterbi) built in {:.1f} s "
-        "(g++)".format(time.time() - t0))
+    say("host decoders (beam search, remap and squiggle Viterbi) built in "
+        "{:.1f} s (g++)".format(time.time() - t0))
 
+    phases.next("2 kernels against their twins")
     rng = np.random.default_rng(seed)
     kernels = [check_lstm(torch, dev, rng)] + check_logz(torch, dev, rng)
     lstm_fwd_rows, lstm_bwd_rows = check_lstm_train(torch, dev, rng)
@@ -3618,6 +4048,8 @@ def run(seed):
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     launches = {}
     try:
+        phases.next("3 mLstm: training, policies' paths, basecall, beam, "
+                    "profiles")
         launches["mLstm training"], _, outdir = train_path(
             torch, work, seed, pick(("lstm_fwd", "lstm_bwd_acts") + loss),
             MLSTM)
@@ -3637,6 +4069,7 @@ def run(seed):
         profile_train_step(torch, dev, seed, MLSTM)
         torch.cuda.empty_cache()
 
+        phases.next("4 mGru: training, stored policy, real reads, beam")
         launches["mGru training"], _, _ = train_path(
             torch, work, seed, pick(("gru_fwd", "gru_bwd_recompute") + loss),
             MGRU)
@@ -3649,10 +4082,12 @@ def run(seed):
                                                     pick(gru_call))
         launches["mGru real reads beam"], _ = beam_real_reads(
             torch, dev, work, pick(gru_call))
+        phases.next("12 data preparation")
         prep_launches, _ = prepare_path(torch, dev, work, pick, mlstm_ckpt,
                                         card)
         launches.update(prep_launches)
         torch.cuda.empty_cache()
+        phases.next("4 mGru: basecall, profiles")
         model = seeded_checkpoint(work, seed, MGRU)
         launches["mGru basecall"], _, reads = main_path(
             torch, dev, seed, work, model, pick(gru_call), "mGru")
@@ -3662,6 +4097,7 @@ def run(seed):
         torch.cuda.empty_cache()
 
         # cat_mod: the long lattices, then training on each route
+        phases.next("6 cat_mod")
         launches["long lattice"], long_rows = long_lattice(
             torch, dev, rng, pick(("crf_fwd", "crf_bwd") + streams))
         launches["longest lattice"], longest_rows = long_lattice(
@@ -3694,13 +4130,16 @@ def run(seed):
         torch.cuda.empty_cache()
         routes = catmod_steps(torch, dev, seed)
         torch.cuda.empty_cache()
+        phases.next("5 policy steps")
         policies = policy_steps(torch, dev, seed)
         torch.cuda.empty_cache()
 
         # the recurrences on given gates (kernels 14-17)
+        phases.next("7 scan ops")
         launches.update(scan_path(torch, dev, rng, counters, pick))
         torch.cuda.empty_cache()
         # the JAX trainer's own defaults
+        phases.next("8 trainer defaults")
         launches["mLstm trainer defaults"], _ = defaults_path(
             torch, work, seed, pick(("lstm_fwd", "lstm_bwd_acts") + loss))
         torch.cuda.empty_cache()
@@ -3715,6 +4154,7 @@ def run(seed):
         torch.cuda.empty_cache()
 
         # the remaining layers, and the JSON export of three checkpoints
+        phases.next("11 layers, JSON export")
         cudnn_gru = check_layers(torch, dev, rng)
         torch.cuda.empty_cache()
         all_launches, all_ckpt = all_layers_path(
@@ -3725,6 +4165,30 @@ def run(seed):
         json_export(work, {"mLstm trained": mlstm_ckpt,
                            "all layers": all_ckpt,
                            "mGru remap": REMAP_MODEL})
+
+        # the squiggle predictor, ab-initio training and --remat, on
+        # phase 12's mapped reads and real reads
+        mapped = os.path.join(work, "prepare", "mGru.hdf5")
+        phases.next("13a train_squiggle")
+        sq_ckpt, squiggle = squiggle_path(torch, dev, work, seed, mapped)
+        torch.cuda.empty_cache()
+        phases.next("13b predict_squiggle")
+        predict_path(work, sq_ckpt)
+        phases.next("13c map_to_squiggle")
+        map_path(work, sq_ckpt)
+        phases.next("13d train_abinitio")
+        launches["train_abinitio"], abinitio = abinitio_path(
+            torch, dev, work, seed, mapped,
+            pick(("gru_fwd", "gru_bwd_recompute") + loss))
+        torch.cuda.empty_cache()
+        phases.next("13e train_flipflop --remat")
+        remat_launches, remat = remat_path(
+            torch, dev, work, seed,
+            pick(("lstm_fwd", "lstm_bwd_acts") + loss))
+        launches["train_flipflop --remat"] = remat_launches["remat"]
+        launches["train_flipflop (no --remat)"] = remat_launches["plain"]
+        torch.cuda.empty_cache()
+        phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     say("launches by path: {}".format(json.dumps(launches)))
@@ -3790,6 +4254,9 @@ def run(seed):
     say("beam basecall {}; CudnnGru {}; all-layers step launches "
         "{}".format(json.dumps(beam), json.dumps(cudnn_gru),
                     json.dumps(all_launches)))
+    say("squiggle, ab-initio and --remat paths: {}".format(json.dumps(
+        {"train_squiggle": squiggle, "train_abinitio": abinitio,
+         "--remat": remat})))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -3812,8 +4279,13 @@ def run(seed):
               "crf_grad_streams": "mLstm cat_mod training streams",
               "lstm_scan_fwd": "lstm_scan", "lstm_scan_bwd": "lstm_scan",
               "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
+    # the paths of phase 13 that run the kernels of the table: each row's
+    # launches there beside its own path's
+    new_paths = ("train_abinitio", "train_flipflop --remat")
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
+        k["launches_on"] = {p: launches[p][k["name"]] for p in new_paths
+                            if launches[p].get(k["name"])}
     # every recurrence (forward and backward chain) of every path ran its
     # cluster instance
     for path, counts in launches.items():
@@ -3859,7 +4331,8 @@ def run(seed):
           "kernels line: a kernel its path did not launch")
     print(json.dumps({"gemms": gemm_rows}))
     print(json.dumps({"kernels": [
-        dict({key: k[key] for key in keys}, **(
+        dict({key: k[key] for key in keys},
+             launches_on=k["launches_on"], **(
             {"launches_by_instance": _by_instance(
                 launches[source[k["name"]]], k["name"]),
              "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}),

@@ -178,7 +178,9 @@ def get_parser():
     cmp.add_argument('--multihost', default=False, action=AutoBool,
                      help='Multi-host training (not ported yet)')
     cmp.add_argument('--remat', default=False, action=AutoBool,
-                     help='Rematerialize layer activations (not ported yet)')
+                     help='Rematerialize layer activations: keep no layer\'s '
+                          'activations for the backward pass, which runs '
+                          'each layer\'s forward again')
 
     out = parser.add_argument_group('Output Arguments')
     out.add_argument('--full_filter_status', default=False, action=AutoBool,
@@ -241,11 +243,9 @@ def main(argv=None):
     """Train; returns {"iterations", "samples", "bases", "seconds",
     "device"} of the training loop."""
     args = get_parser().parse_args(argv)
-    for flag, name in ((args.multihost, '--multihost'),
-                       (args.remat, '--remat')):
-        if flag:
-            sys.exit('* Error: {} is not ported to taiyaki_tpu_torch yet; '
-                     'use bin/train_flipflop.py'.format(name))
+    if args.multihost:
+        sys.exit('* Error: --multihost is not ported to taiyaki_tpu_torch '
+                 'yet; use bin/train_flipflop.py')
     import torch
     from taiyaki_tpu_torch import layers, train
     from taiyaki_tpu_torch.cli.basecall import select_device
@@ -351,6 +351,7 @@ def main(argv=None):
         mod_cat_weights = None
     cat_mod = (is_cat_mod, can_mods_offsets, mod_cat_weights)
     net = load_jax_params(net, params).to(device).train()
+    layers.set_remat(net, args.remat)
     stride = net.stride
     params = train.leaf_params(net)
     log.write('* Network has {} parameter tensors, stride {}.\n'.format(

@@ -1,7 +1,8 @@
 """Host decoders in C++: the prefix beam search, the forward and backward
-partition scans it is guided by, and the glocal remap Viterbi (the port's
-copies of taiyaki_tpu/decodeutil's beamsearch.cpp and remapviterbi.cpp,
-same C interface, loaded with ctypes).
+partition scans it is guided by, the glocal remap Viterbi and the glocal
+squiggle-match Viterbi (the port's copies of taiyaki_tpu/decodeutil's
+beamsearch.cpp, remapviterbi.cpp and squiggleviterbi.cpp, same C
+interface, loaded with ctypes).
 
 The shared library is built with g++ at first use into the port's build
 directory (`ops.cuda_lib.build_dir()`, `taiyaki_tpu_torch/_build/` by
@@ -27,7 +28,8 @@ from taiyaki_tpu_torch.ops.cuda_lib import build_dir
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, name)
-         for name in ("beamsearch.cpp", "remapviterbi.cpp")]
+         for name in ("beamsearch.cpp", "remapviterbi.cpp",
+                      "squiggleviterbi.cpp")]
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 _LOCK = threading.Lock()
 _LIB = None
@@ -95,6 +97,10 @@ def library():
         lib.tt_flipflop_remap_viterbi.argtypes = [
             f32p, ctypes.c_size_t, ctypes.c_size_t, i32p, i32p,
             ctypes.c_size_t, ctypes.c_double, i32p]
+        lib.tt_squiggle_viterbi.restype = ctypes.c_float
+        lib.tt_squiggle_viterbi.argtypes = [
+            f32p, ctypes.c_size_t, f32p, ctypes.c_size_t,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, i32p]
         _LIB = lib
         return lib
 
@@ -189,4 +195,36 @@ def remap_viterbi(scores, stay_index, step_index, localpen):
     score = library().tt_flipflop_remap_viterbi(
         scores, T, nstate, stay_index, step_index, M, float(localpen),
         path)
+    return float(score), path
+
+
+def squiggle_viterbi(params, signal, back_prob, localpen, minscore):
+    """Glocal squiggle-match Viterbi path for one read.
+
+    Args:
+        params: [npos, 3] (level, log scale, rate) of the predicted squiggle.
+        signal: [nsample] observed current.
+        back_prob: probability of a backward move.
+        localpen: per-sample cost of sitting in the start/end state
+            (`constants.LARGE_LOG_VAL` for a global alignment).
+        minscore: floor on each sample's emission cost
+            (`constants.LARGE_LOG_VAL` for none).
+
+    Returns:
+        (score, path [nsample] int32 of sequence positions, -1 in the
+        clipped head and tail)
+    """
+    params = np.ascontiguousarray(params, dtype=np.float32)
+    signal = np.ascontiguousarray(signal, dtype=np.float32)
+    if params.ndim != 2 or params.shape[1] != 3 or len(params) == 0:
+        raise ValueError("params has shape {}, want (npos > 0, 3)".format(
+            params.shape))
+    if signal.ndim != 1 or len(signal) == 0:
+        raise ValueError("signal has shape {}, want (nsample > 0,)".format(
+            signal.shape))
+    npos, nsample = len(params), len(signal)
+    path = np.empty(nsample, dtype=np.int32)
+    score = library().tt_squiggle_viterbi(
+        params, npos, signal, nsample, float(back_prob), float(localpen),
+        float(minscore), path)
     return float(score), path

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from taiyaki_tpu_torch import activation, flipflopfings
 
@@ -297,11 +298,16 @@ class DownSample(Layer):
 # -- combinators -------------------------------------------------------------
 
 class Serial(Layer):
-    """Apply layers in sequence."""
+    """Apply layers in sequence.  With `remat` set (`set_remat`), each
+    sublayer runs under `torch.utils.checkpoint` when grad is on: its
+    activations are not kept for the backward pass, which runs its forward
+    again (the JAX package's TAIYAKI_TPU_REMAT, jax.checkpoint of each
+    sublayer)."""
 
     def __init__(self, layers):
         super().__init__()
         self.sublayers = nn.ModuleList(layers)
+        self.remat = False
 
     @property
     def insize(self):
@@ -322,14 +328,24 @@ class Serial(Layer):
         return {"sublayers": [l.init(rng) for l in self.sublayers]}
 
     def forward(self, x):
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.sublayers:
-            x = layer(x)
+            x = (checkpoint(layer, x, use_reentrant=False) if remat
+                 else layer(x))
         return x
 
     def json(self):
         return OrderedDict([
             ("type", "serial"),
             ("sublayers", [l.json() for l in self.sublayers])])
+
+
+def set_remat(net, on=True):
+    """Set or clear `remat` on every Serial in `net` (the trainer's
+    --remat)."""
+    for module in net.modules():
+        if isinstance(module, Serial):
+            module.remat = on
 
 
 class Parallel(Layer):

@@ -387,7 +387,12 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.prepare_mapping_funcs, taiyaki_tpu_torch.bio, "
             "taiyaki_tpu_torch.sam, taiyaki_tpu_torch.iterators, "
             "taiyaki_tpu_torch.data.signal_mapping, "
-            "taiyaki_tpu_torch.data.hdf5; "
+            "taiyaki_tpu_torch.data.hdf5, taiyaki_tpu_torch.loss, "
+            "taiyaki_tpu_torch.ops.squiggle, "
+            "taiyaki_tpu_torch.cli.train_squiggle, "
+            "taiyaki_tpu_torch.cli.predict_squiggle, "
+            "taiyaki_tpu_torch.cli.map_to_squiggle, "
+            "taiyaki_tpu_torch.cli.train_abinitio; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {!r}))".format(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),

@@ -1575,3 +1575,29 @@ def test_offset_views_run_as_aligned(dev, reverse):
     g1 = crf.crf_bwd(*_offset_all((lp, sidx, midx, mmidx, mfact, lat0,
                                    valid, last)))
     torch.testing.assert_close(g1, g0, rtol=0, atol=1e-5 * mfact.max().item())
+
+
+def test_squiggle_cost_card_matches_cpu(dev):
+    """The squiggle-match cost (ops/squiggle.py, plain PyTorch ops, no
+    kernel of its own) and its gradient on the card against the CPU:
+    costs 1e-5 relative, the gradient 1e-4 of its largest (f32 through
+    the recursion in another order); a padded batch."""
+    from taiyaki_tpu_torch.ops import squiggle
+    rng = np.random.default_rng(4)
+    npos, nbatch, nsample = 40, 5, 150
+    params = rng.normal(size=(npos, nbatch, 3)).astype(np.float32)
+    params[:, :, 1] = -np.abs(params[:, :, 1]) * 0.5
+    signals = torch.from_numpy(
+        rng.normal(size=(nsample, nbatch)).astype(np.float32))
+    siglens = torch.tensor([150, 149, 120, 90, 150])
+    out = []
+    for d in (torch.device("cpu"), dev):
+        p = torch.tensor(params, device=d, requires_grad=True)
+        cost = squiggle.squiggle_match_cost(p, signals.to(d),
+                                            siglens.to(d), 1e-15)
+        (grad,) = torch.autograd.grad(cost.sum(), p)
+        out.append((cost.detach().cpu(), grad.cpu()))
+    (cost, grad), (dcost, dgrad) = out
+    assert torch.isfinite(dcost).all() and torch.isfinite(dgrad).all()
+    torch.testing.assert_close(dcost, cost, rtol=1e-5, atol=0)
+    assert (dgrad - grad).abs().max() <= 1e-4 * grad.abs().max()

@@ -488,7 +488,60 @@ def test_cli_default_device_is_cuda(tmp_path):
     assert "CUDA" in r.stderr
 
 
-@pytest.mark.parametrize("flag", [["--multihost"], ["--remat"],
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+def test_remat_gives_the_same_step(case, monkeypatch):
+    """The loss and every gradient with each layer's forward run again in
+    the backward pass (`layers.set_remat`, the CLI's --remat) equal those
+    without, under each residual policy's switch: the recurrences'
+    autograd Functions keep their policy on the context and rebuild every
+    saved tensor in the rerun."""
+    from taiyaki_tpu_torch import layers
+    models, env = STEP_CASES[case]
+    batch = ttrain.batch_to_device(_batch(seed=3), torch.device("cpu"))
+    _, _, tnet = _nets(seed=9, models=models)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    gstep = ttrain.make_grad_step(tnet)
+    loss, grads = gstep(batch, 1.0)
+    layers.set_remat(tnet)
+    assert all(m.remat for m in tnet.modules()
+               if isinstance(m, layers.Serial))
+    rloss, rgrads = gstep(batch, 1.0)
+    assert float(rloss) == float(loss)
+    for g, r in zip(grads, rgrads):
+        np.testing.assert_allclose(r.numpy(), g.numpy(), rtol=1e-6,
+                                   atol=1e-9)
+
+
+@pytest.fixture(scope="module")
+def trained_remat(tmp_path_factory):
+    """Both CLIs on mLstm_flipflop with --remat (one run, shared by the
+    workers)."""
+    return shared_run(tmp_path_factory, "train_remat",
+                      lambda d: _train_both(d, "mLstm_flipflop.py",
+                                            ["--remat"]))
+
+
+def _params(outdir, name):
+    with open(os.path.join(outdir, name + ".params"), "rb") as fh:
+        return jax.tree.leaves(pickle.load(fh))
+
+
+@pytest.mark.parametrize("name", ["model_checkpoint_00001", "model_final"])
+def test_cli_remat_matches_no_remat_and_jax(trained_remat, trained, name):
+    """The port's CLI with --remat against itself without it and against
+    bin/train_flipflop.py --remat, same seed and arguments: the parameters
+    after 2 iterations (the first checkpoint) and after 3 within 1e-5, and
+    the batch.log rows at the pair tolerances."""
+    got = _params(trained_remat["port"], name)
+    for want in (_params(trained["port"], name),
+                 _params(trained_remat["jax"], name)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+    _logs_match(trained_remat)
+
+
+@pytest.mark.parametrize("flag", [["--multihost"],
                                   ["--mod_prior_factor", "1.0"]])
 def test_cli_unported_options_stop(flag, tmp_path):
     """Options not ported stop; --mod_prior_factor, ported, stops on the
