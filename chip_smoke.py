@@ -191,9 +191,24 @@ card; run from the root of a checkout:
    parameter after each step within 1e-5 relative, the LSTM forward
    launched again in each layer's rerun; a step's time and peak device
    memory with and without (plain, remat, remat, plain).
-14. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows; each with its launches on phase 13's training paths,
-   `launches_on`), the card line, and the result line
+14. The host tools (this slice), after phase 4's real reads and phase
+   12's files: (a) the shipped remap checkpoint through `cli.dump_json`,
+   `cli.json_to_checkpoint` and `cli.upgrade_model`, every parameter
+   bitwise the shipped one's, then `cli.basecall` of the result with its
+   defaults on the three real reads: rows 7, 2 and 3 launched, the calls
+   equal to phase 4's; (b) `cli.align` of those calls against the three
+   references (the built-in aligner, `decodeutil.seq_align`, where no bwa
+   is installed) and the assessment, with no plot where matplotlib is
+   absent: each read aligned to its own reference on +, its accuracy
+   printed beside the semi-global identity, which must be at least 0.80;
+   (c) the mapped-signal tools through data/hdf5.py where h5py is absent:
+   `cli.synth_dataset` (8 + 3 reads of 600 bases), the check of its
+   train.hdf5 and of phase 12's 97-read file, their merge (the read count
+   the sum) and its check, and the alphabet tool's inspection of it.
+15. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows; each with its launches on phase 13's training paths and
+   phase 14's round-trip basecall, `launches_on`), the card line, and the
+   result line
    {"ok": true, "device": {...}}.
 
 Each phase prints its seconds on a line of its own ("phase N: s").
@@ -3912,6 +3927,190 @@ def remat_path(torch, dev, work, seed, counters):
     return launches, out
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+# synth_dataset's small set for the mapped-signal tools
+SYNTH_ARGS = ("--ntrain", "8", "--nholdout", "3", "--nbases", "600")
+SYNTH_NTRAIN = 8
+
+
+def _tool(main, argv):
+    """A tool's main in process, its stdout and stderr kept: (exit code,
+    stdout, stderr); a sys.exit() without a code is 0."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            code = main(argv)
+        except SystemExit as e:
+            code = e.code
+    return code or 0, out.getvalue(), err.getvalue()
+
+
+def round_trip_path(torch, dev, work, counters):
+    """Phase 14a: the shipped remap checkpoint through `cli.dump_json`,
+    `cli.json_to_checkpoint` and `cli.upgrade_model` (a no-op at version
+    3): every parameter bitwise the shipped one's; then `cli.basecall` with
+    its defaults on the card on the three real reads (phase 4's fast5):
+    rows 7, 2 and 3 launched, the calls equal to phase 4's.  Returns
+    (launches, calls file, stats)."""
+    from taiyaki_tpu_torch.cli import (
+        basecall, dump_json, json_to_checkpoint, upgrade_model)
+    from taiyaki_tpu_torch.convert import flat_params
+    from taiyaki_tpu_torch.utils import helpers
+    d = os.path.join(work, "host_tools")
+    os.makedirs(d)
+    js = os.path.join(d, "remap.json")
+    rt = os.path.join(d, "remap_rt.checkpoint")
+    up = os.path.join(d, "remap_up.checkpoint")
+    t0 = time.perf_counter()
+    for main, argv in ((dump_json.main, ["--output", js, REMAP_MODEL]),
+                       (json_to_checkpoint.main, ["--output", rt, js]),
+                       (upgrade_model.main, [rt, up])):
+        code, out, err = _tool(main, argv)
+        check(code == 0, "{}: exit {}: {}".format(main.__module__, code,
+                                                  err[-2000:]))
+    secs = time.perf_counter() - t0
+    check("Model already at version 3" in out,
+          "upgrade_model: {}".format(out))
+    want = flat_params(helpers.load_model(REMAP_MODEL)[1])
+    got = flat_params(helpers.load_model(up)[1])
+    check(sorted(got) == sorted(want), "round trip: parameters {} vs {}"
+          .format(sorted(got), sorted(want)))
+    for k in want:
+        check(got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+              and got[k].tobytes() == want[k].tobytes(),
+              "round trip: parameter {} differs from the shipped one's"
+              .format(k))
+    reads = os.path.join(work, "reads_real")
+    for fn in counters.values():
+        fn.launches = 0
+    fa = os.path.join(d, "calls.fa")
+    stats = basecall.main(["--output", fa, "--quiet", reads, up])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        check(n > 0, "round-trip basecall never launched kernel {}"
+              .format(k))
+    calls, first = read_fastx(fa), read_fastx(os.path.join(work, "real.fa"))
+    check(calls == first, "round-trip calls differ from phase 4's: {}"
+          .format([rid for rid in first if calls.get(rid) != first[rid]]))
+    say("checkpoint round trip (dump_json, json_to_checkpoint, "
+        "upgrade_model: {:.2f} s): {} parameters bitwise the shipped "
+        "checkpoint's; basecall of the result (defaults): {} reads, {} "
+        "samples in {:.3f} s: {:.3f} ksample/s; launches {}; calls equal "
+        "to phase 4's".format(
+            secs, len(want), stats["ncalled"], stats["nsample"],
+            stats["seconds"], stats["nsample"] / stats["seconds"] / 1e3,
+            launches))
+    return launches, fa, stats
+
+
+def scoring_path(work, calls_fa):
+    """Phase 14b: `cli.align` of the round-trip calls against the three
+    references (the built-in aligner where no bwa is installed) and its
+    assessment (no plot where matplotlib is absent): each read aligned to
+    its own reference on +; its accuracy beside the semi-global identity,
+    which must be at least 0.80.  Returns {read id: (accuracy, identity)}."""
+    from taiyaki_tpu_torch.cli import align, assess_alignment
+    from taiyaki_tpu_torch.data import mapped_signal_files
+    d = os.path.dirname(calls_fa)
+    with mapped_signal_files.MappedSignalReader(READS_HDF5) as msr:
+        alphabet = msr.get_alphabet_information().alphabet
+        refs = {r.read_id: "".join(alphabet[i] for i in r.Reference)
+                for r in msr.reads()}
+    refs_fa = os.path.join(d, "refs.fa")
+    with open(refs_fa, "w") as fh:
+        for rid in sorted(refs):
+            fh.write(">{}\n{}\n".format(rid, refs[rid]))
+    t0 = time.perf_counter()
+    code, out, err = _tool(align.main, [calls_fa, "--reference", refs_fa])
+    secs = time.perf_counter() - t0
+    check(code == 0, "align: exit {}: {}".format(code, err[-2000:]))
+    sam = os.path.splitext(calls_fa)[0] + ".sam"
+    recs = {r.query: r for r in assess_alignment.samacc(sam)}
+    check(sorted(recs) == sorted(refs), "align: reads assessed {} of {}"
+          .format(sorted(recs), sorted(refs)))
+    calls = read_fastx(calls_fa)
+    res = {}
+    for rid, r in sorted(recs.items()):
+        check(r.reference == rid and r.strand == "+",
+              "align: {} aligned to {} on {}".format(rid, r.reference,
+                                                    r.strand))
+        res[rid] = (r.accuracy, semiglobal_identity(calls[rid], refs[rid]))
+    plot = os.path.splitext(calls_fa)[0] + ".png"
+    say("align ({}, {:.2f} s; plot {}): {}".format(
+        "bwa mem" if shutil.which("bwa") else "built-in aligner", secs,
+        "written" if os.path.exists(plot) else "not written ({})".format(
+            err.strip().splitlines()[-1] if err.strip() else "no stderr"),
+        "; ".join("{} on + to its own reference: accuracy {:.4f}, "
+                  "semi-global identity {:.4f}".format(rid, *v)
+                  for rid, v in res.items())))
+    summary = [line for line in out.splitlines()
+               if line.startswith(("Mean accuracy", "Number of mapped"))]
+    say("assess: {}".format("; ".join(summary)))
+    worst = min(v[1] for v in res.values())
+    check(worst >= 0.80, "round-trip calls: identity {:.4f} < 0.80".format(
+        worst))
+    return res
+
+
+def msf_tools_path(work, mapped):
+    """Phase 14c: the mapped-signal tools (h5py where installed, else
+    data/hdf5.py, as on the card's host): `cli.synth_dataset` of a small
+    set, `cli.check_mapped_signal_file` of its train.hdf5 and of phase 12's
+    97-read file, `cli.merge_mappedsignalfiles` of the two and the check
+    of the merged file (its reads the sum of both), and
+    `cli.convert_alphabet_or_inspect_mapped_signal_file` inspecting it.
+    Returns {tool: seconds}."""
+    from taiyaki_tpu_torch.cli import (
+        check_mapped_signal_file, convert_alphabet_or_inspect_mapped_signal_file
+        as convert, merge_mappedsignalfiles, synth_dataset)
+    from taiyaki_tpu_torch.data import mapped_signal_files
+    d = os.path.join(work, "host_tools", "msf")
+    synth = os.path.join(d, "synth")
+    secs = {}
+
+    def tool(name, main, argv):
+        t0 = time.perf_counter()
+        res = _tool(main, argv)
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        check(res[0] == 0, "{}: exit {}: {}{}".format(name, res[0],
+                                                     res[1][-2000:],
+                                                     res[2][-2000:]))
+        return res
+
+    tool("synth_dataset", synth_dataset.main, [synth] + list(SYNTH_ARGS))
+    train = os.path.join(synth, "train.hdf5")
+    nreads = {}
+    for name, path in (("synth", train), ("phase 12", mapped)):
+        out = tool("check_mapped_signal_file", check_mapped_signal_file.main,
+                   [path])[1]
+        check("* Integrity check: pass" in out,
+              "check {}: {}".format(name, out))
+        with mapped_signal_files.MappedSignalReader(path) as msr:
+            nreads[name] = len(msr.get_read_ids())
+    check(nreads["synth"] == SYNTH_NTRAIN, "synth_dataset: {} reads".format(
+        nreads["synth"]))
+    merged = os.path.join(d, "merged.hdf5")
+    tool("merge_mappedsignalfiles", merge_mappedsignalfiles.main,
+         [merged, "--input", train, "None", "--input", mapped, "None"])
+    out = tool("check_mapped_signal_file", check_mapped_signal_file.main,
+               [merged])[1]
+    check("* Integrity check: pass" in out, "check merged: {}".format(out))
+    total = sum(nreads.values())
+    err = tool("convert_alphabet", convert.main,
+               [merged, "--print_only", "--print_read_total"])[2]
+    check("contains {} total reads".format(total) in err,
+          "merged file: {} (want {} reads)".format(err.strip(), total))
+    say("mapped-signal tools ({}): synth {} reads, phase 12's file {} "
+        "reads, merged {} reads, each check passes; seconds {}".format(
+            "h5py" if mapped_signal_files._h5py() else "data/hdf5.py, no "
+            "h5py", nreads["synth"], nreads["phase 12"], total,
+            json.dumps({k: round(v, 3) for k, v in secs.items()})))
+    return secs
+
+
 def run(seed):
     try:
         import torch
@@ -3945,8 +4144,8 @@ def run(seed):
     from taiyaki_tpu_torch import decodeutil
     t0 = time.time()
     decodeutil.library()
-    say("host decoders (beam search, remap and squiggle Viterbi) built in "
-        "{:.1f} s (g++)".format(time.time() - t0))
+    say("host decoders (beam search, remap and squiggle Viterbi, aligner) "
+        "built in {:.1f} s (g++)".format(time.time() - t0))
 
     phases.next("2 kernels against their twins")
     rng = np.random.default_rng(seed)
@@ -4188,6 +4387,13 @@ def run(seed):
         launches["train_flipflop --remat"] = remat_launches["remat"]
         launches["train_flipflop (no --remat)"] = remat_launches["plain"]
         torch.cuda.empty_cache()
+
+        # the host tools on phase 4's real reads and phase 12's file
+        phases.next("14 host tools")
+        launches["round-trip basecall"], calls_fa, round_trip = \
+            round_trip_path(torch, dev, work, pick(gru_call))
+        scores = scoring_path(work, calls_fa)
+        msf_secs = msf_tools_path(work, mapped)
         phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4257,6 +4463,10 @@ def run(seed):
     say("squiggle, ab-initio and --remat paths: {}".format(json.dumps(
         {"train_squiggle": squiggle, "train_abinitio": abinitio,
          "--remat": remat})))
+    say("host tools: {}".format(json.dumps(
+        {"round-trip basecall ksample/s": round_trip["nsample"]
+         / round_trip["seconds"] / 1e3,
+         "accuracy, identity": scores, "mapped-signal tools s": msf_secs})))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -4281,7 +4491,8 @@ def run(seed):
               "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
     # the paths of phase 13 that run the kernels of the table: each row's
     # launches there beside its own path's
-    new_paths = ("train_abinitio", "train_flipflop --remat")
+    new_paths = ("train_abinitio", "train_flipflop --remat",
+                 "round-trip basecall")
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
         k["launches_on"] = {p: launches[p][k["name"]] for p in new_paths

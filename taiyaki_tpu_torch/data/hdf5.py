@@ -26,10 +26,17 @@ symbol tables (any number of children), contiguous datasets written when
 they are created, and scalar or array attributes and datasets of numeric,
 fixed-length string (bytes) and variable-length UTF-8 string (str) types;
 h5py and libhdf5 read what it writes.
+
+Edit (`rewrite`, for the edits h5py makes in place with "r+"): the whole
+file read into memory, edited there, written anew beside it and renamed
+into place; the values of its datasets and attributes are kept, not its
+layout (datasets come out contiguous and unfiltered, a group's members
+in name order).
 """
 
 import functools
 import mmap
+import os
 import struct
 import zlib
 
@@ -1084,3 +1091,82 @@ class Writer(_WGroup):
             children = [(base + k * _TREE_SIZE, part[-1][1])
                         for k, part in enumerate(parts)]
             level += 1
+
+
+# -- whole-file edits ----------------------------------------------------------
+
+class MemoryDataset:
+    """A dataset read into memory: its value and its attributes."""
+
+    def __init__(self, value, attrs):
+        self.value = value
+        self.attrs = attrs
+
+
+class MemoryGroup:
+    """A group read into memory, with the h5py calls of an edit: iteration
+    over member names, `g["a/b"]`, and `attrs`, a dict (set, read,
+    `del`)."""
+
+    def __init__(self, attrs):
+        self.attrs = attrs
+        self.members = {}
+
+    def __iter__(self):
+        return iter(list(self.members))
+
+    def __getitem__(self, path):
+        node = self
+        for part in [p for p in path.split("/") if p]:
+            if not isinstance(node, MemoryGroup) or part not in node.members:
+                raise KeyError(path)
+            node = node.members[part]
+        return node
+
+
+def _node_attrs(node):
+    attrs = dict(node.attrs)
+    bad = [k for k, v in attrs.items() if v is None]
+    if bad:
+        raise NotImplementedError("HDF5 attributes of a datatype this "
+                                  "reader does not decode: {}".format(bad))
+    return attrs
+
+
+def _load(node):
+    if isinstance(node, Dataset):
+        return MemoryDataset(node[()], _node_attrs(node))
+    group = MemoryGroup(_node_attrs(node))
+    for name in node.keys():
+        group.members[name] = _load(node[name])
+    return group
+
+
+def _store(dst, src):
+    dst.attrs.update(src.attrs)
+    for name, member in src.members.items():
+        if isinstance(member, MemoryDataset):
+            dst.create_dataset(name, data=member.value).attrs.update(
+                member.attrs)
+        else:
+            _store(dst.create_group(name), member)
+
+
+def rewrite(filename, edit):
+    """edit(root) on the file read into memory (a `MemoryGroup`, every
+    dataset's value read), then the edited tree written through `Writer`
+    beside the file under a name of this process's and renamed into
+    place; returns edit's result.  Where edit raises, the file is left as
+    it was."""
+    with File(filename) as f:
+        tree = _load(f._root)
+    result = edit(tree)
+    tmp = "{}.{}.tmp".format(filename, os.getpid())
+    try:
+        with Writer(tmp) as w:
+            _store(w, tree)
+        os.replace(tmp, filename)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return result

@@ -40,10 +40,14 @@ def _is_array_field(name):
 
 
 class MappedSignalReader:
-    """Reader of a mapped-signal file of either layout."""
+    """Reader of a mapped-signal file of either layout.  With
+    `load_in_mem`, h5py reads the whole file into memory first, as the JAX
+    reader does; data.hdf5 maps the file either way."""
 
-    def __init__(self, filename):
-        self.hdf5 = open_file(filename)
+    def __init__(self, filename, load_in_mem=False):
+        h5 = _h5py() if load_in_mem else None
+        self.hdf5 = (open_file(filename) if h5 is None
+                     else h5.File(filename, "r", driver="core"))
         try:
             version = self.hdf5.attrs["version"]
             if version != _version:
@@ -68,6 +72,10 @@ class MappedSignalReader:
 
     def close(self):
         self.hdf5.close()
+
+    @property
+    def version(self):
+        return self.hdf5.attrs["version"]
 
     def get_alphabet_information(self):
         attrs = self.hdf5.attrs
@@ -164,6 +172,21 @@ def _h5py():
     except ImportError:
         return None
     return h5py
+
+
+def edit_in_place(filename, edit):
+    """edit(root) on an HDF5 file opened for writing, and its result: the
+    file opened "r+" by h5py where it is installed; else the whole file
+    read into memory, edited there and written anew beside it through
+    hdf5.Writer, then renamed into place (`hdf5.rewrite`).  `edit` sees a
+    group either way (iteration over
+    member names, `root[path]`, `attrs` set, read and deleted); the values
+    of datasets and attributes come out the same, the bytes not."""
+    h5 = _h5py()
+    if h5 is None:
+        return hdf5.rewrite(filename, edit)
+    with h5.File(filename, "r+") as root:
+        return edit(root)
 
 
 class _WriterBase:

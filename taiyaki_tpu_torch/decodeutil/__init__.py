@@ -1,8 +1,9 @@
 """Host decoders in C++: the prefix beam search, the forward and backward
-partition scans it is guided by, the glocal remap Viterbi and the glocal
-squiggle-match Viterbi (the port's copies of taiyaki_tpu/decodeutil's
-beamsearch.cpp, remapviterbi.cpp and squiggleviterbi.cpp, same C
-interface, loaded with ctypes).
+partition scans it is guided by, the glocal remap Viterbi, the glocal
+squiggle-match Viterbi and the glocal affine-gap sequence aligner (the
+port's copies of taiyaki_tpu/decodeutil's beamsearch.cpp,
+remapviterbi.cpp, squiggleviterbi.cpp and seqalign.cpp, same C interface,
+loaded with ctypes).
 
 The shared library is built with g++ at first use into the port's build
 directory (`ops.cuda_lib.build_dir()`, `taiyaki_tpu_torch/_build/` by
@@ -11,7 +12,9 @@ the flags and the host's processor (`-march=native` builds for it), so an
 edited source or another host builds anew.  Each build writes a name of
 its own process and renames it into place, so racing first uses never
 load a partial library.  A failed build raises with the compiler's
-output.  The scores are float32 numpy arrays on the host.
+output; it names the two switches that take the Viterbis' numpy loops
+instead (`NO_NATIVE_SWITCHES`), and nothing falls back unasked.  The
+scores are float32 numpy arrays on the host.
 """
 
 import ctypes
@@ -29,10 +32,15 @@ from taiyaki_tpu_torch.ops.cuda_lib import build_dir
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, name)
          for name in ("beamsearch.cpp", "remapviterbi.cpp",
-                      "squiggleviterbi.cpp")]
+                      "squiggleviterbi.cpp", "seqalign.cpp")]
 _FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 _LOCK = threading.Lock()
 _LIB = None
+# the environment switches that take the numpy loops of the remap Viterbi
+# (flipflop_remap.map_to_crf_viterbi) and of the squiggle Viterbi
+# (ops.squiggle.squiggle_match_viterbi_path) in place of this library
+NO_NATIVE_SWITCHES = ("TAIYAKI_TPU_NO_NATIVE_REMAP=1 (remap Viterbi) or "
+                      "TAIYAKI_TPU_NO_NATIVE=1 (squiggle Viterbi)")
 
 
 def _host_cpu():
@@ -63,11 +71,17 @@ def _lib_path():
 def _build(path):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = "{}.{}.tmp".format(path, os.getpid())
-    r = subprocess.run(["g++"] + _FLAGS + ["-o", tmp] + _SRCS,
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("decodeutil build failed (g++ exit {}):\n{}"
-                           .format(r.returncode, r.stderr[-4000:]))
+    try:
+        r = subprocess.run(["g++"] + _FLAGS + ["-o", tmp] + _SRCS,
+                           capture_output=True, text=True)
+        why = "g++ exit {}".format(r.returncode)
+        out = r.stderr[-4000:]
+    except FileNotFoundError:
+        r, why, out = None, "g++ not found", ""
+    if r is None or r.returncode != 0:
+        raise RuntimeError(
+            "decodeutil build failed ({}); set {} to run that decoder's "
+            "numpy loop instead:\n{}".format(why, NO_NATIVE_SWITCHES, out))
     os.replace(tmp, path)
 
 
@@ -101,6 +115,12 @@ def library():
         lib.tt_squiggle_viterbi.argtypes = [
             f32p, ctypes.c_size_t, f32p, ctypes.c_size_t,
             ctypes.c_float, ctypes.c_float, ctypes.c_float, i32p]
+        i32 = ctypes.POINTER(ctypes.c_int32)
+        lib.tt_seq_align.restype = ctypes.c_int32
+        lib.tt_seq_align.argtypes = [
+            i8p, ctypes.c_size_t, i8p, ctypes.c_size_t,
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            i32p, i32p, i32, i32, i32, i32]
         _LIB = lib
         return lib
 
@@ -228,3 +248,51 @@ def squiggle_viterbi(params, signal, back_prob, localpen, minscore):
         params, npos, signal, nsample, float(back_prob), float(localpen),
         float(minscore), path)
     return float(score), path
+
+
+_ALIGN_OPS = "MID"
+_BASE_CODE = {"A": 0, "C": 1, "G": 2, "T": 3,
+              "a": 0, "c": 1, "g": 2, "t": 3}
+
+
+def _encode_seq(seq):
+    return np.array([_BASE_CODE.get(b, -1) for b in seq], dtype=np.int8)
+
+
+def seq_align(query, ref, match=1, mismatch=2, gap_open=2, gap_extend=1):
+    """Glocal affine-gap alignment of one query to one reference.
+
+    The query is aligned end to end, the reference's ends are free: the
+    shape for scoring a basecall against its known reference.  The
+    scores default to bwa mem's flags as cli/align.py passes them (-A 1
+    -B 2 -O 2 -E 1); cli/align.py takes this aligner where no `bwa` is
+    installed.
+
+    Args:
+        query, ref: base strings (ACGT; anything else never matches).
+
+    Returns:
+        (score, ref_start, ref_end, cigar, nm): cigar is a list of (op,
+        length) with op in "MID"; nm is the SAM NM edit count.
+
+    Raises:
+        RuntimeError: an empty query or reference.
+    """
+    q = _encode_seq(query)
+    r = _encode_seq(ref)
+    cap = 2 * (len(q) + len(r)) + 4
+    ops = np.empty(cap, dtype=np.int32)
+    lens = np.empty(cap, dtype=np.int32)
+    ncig = ctypes.c_int32(cap)
+    rs = ctypes.c_int32(0)
+    re = ctypes.c_int32(0)
+    nm = ctypes.c_int32(0)
+    score = library().tt_seq_align(
+        q, len(q), r, len(r), int(match), int(mismatch), int(gap_open),
+        int(gap_extend), ops, lens, ctypes.byref(ncig), ctypes.byref(rs),
+        ctypes.byref(re), ctypes.byref(nm))
+    if score <= -(2 ** 29):
+        raise RuntimeError("alignment failed (empty input or cigar "
+                           "capacity exceeded)")
+    cigar = [(_ALIGN_OPS[ops[i]], int(lens[i])) for i in range(ncig.value)]
+    return int(score), int(rs.value), int(re.value), cigar, int(nm.value)

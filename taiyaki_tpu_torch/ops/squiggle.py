@@ -12,10 +12,12 @@ kernel here).  The emissions of every sample are formed in one batch of
 ops before the recursion, which then runs a few small ops a sample.
 
 The glocal Viterbi path that map_to_squiggle takes is host C++
-(`decodeutil.squiggle_viterbi`); a failed build raises.
+(`decodeutil.squiggle_viterbi`), or the JAX package's numpy loop under
+TAIYAKI_TPU_NO_NATIVE=1 (for a host without g++); a failed build raises.
 """
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -137,8 +139,107 @@ def squiggle_match_viterbi_path(params, signal, back_prob, localpen=None,
     Returns:
         (score, path [nsample]): path entries are sequence positions, -1
         in the clipped head and tail.
+
+    The C++ decoder unless TAIYAKI_TPU_NO_NATIVE=1, which takes the numpy
+    loop below (the JAX package's).  A failed build raises; it never falls
+    back to the loop unasked.
     """
     localpen = LARGE_LOG_VAL if localpen is None else localpen
     minscore = LARGE_LOG_VAL if minscore is None else minscore
-    return decodeutil.squiggle_viterbi(params, signal, back_prob, localpen,
-                                       minscore)
+    if os.environ.get("TAIYAKI_TPU_NO_NATIVE") != "1":
+        return decodeutil.squiggle_viterbi(params, signal, back_prob,
+                                           localpen, minscore)
+    params = np.asarray(params, dtype=np.float32)
+    signal = np.asarray(signal, dtype=np.float32)
+    npos = len(params)
+    nsample = len(signal)
+    nfstate = npos + 2                 # start + positions + end
+    nstate = nfstate + npos            # + backward states
+
+    loc, logscale, rate = params[:, 0], params[:, 1], params[:, 2]
+    scale = np.exp(logscale)
+    move_p = (1.0 - back_prob) * (0.5 * (1.0 + np.tanh(rate / 2.0)))
+    move_pen = np.empty(nfstate, dtype=np.float64)
+    stay_pen = np.empty(nfstate, dtype=np.float64)
+    move_pen[1:npos + 1] = np.log(move_p)
+    stay_pen[1:npos + 1] = np.log1p(-move_p - back_prob)
+    move_pen[0] = move_pen[npos + 1] = move_pen[1:npos + 1].mean()
+    stay_pen[0] = stay_pen[npos + 1] = stay_pen[1:npos + 1].mean()
+    move_back_pen = np.log(back_prob)
+    half = np.log(0.5)
+
+    fwd = np.full(nstate, -_LARGE)
+    fwd[0] = 0.0
+    traceback = np.zeros((nsample, nstate), dtype=np.int32)
+
+    for t in range(nsample):
+        prev = fwd
+        curr = prev + np.concatenate([stay_pen, np.full(npos, half)])
+        tb = np.arange(nstate, dtype=np.int32)
+        # move to next full state
+        cand = prev[:nfstate - 1] + move_pen[:nfstate - 1]
+        better = cand > curr[1:nfstate]
+        curr[1:nfstate] = np.where(better, cand, curr[1:nfstate])
+        tb[1:nfstate] = np.where(better, np.arange(nfstate - 1), tb[1:nfstate])
+        # start -> any position (local clipping of head), vectorized over
+        # destination positions 1..npos-1 (states 2..npos)
+        head = prev[0] + move_pen[0] - localpen * np.arange(1, npos)
+        better = head > curr[2:npos + 1]
+        curr[2:npos + 1] = np.where(better, head, curr[2:npos + 1])
+        tb[2:npos + 1] = np.where(better, 0, tb[2:npos + 1])
+        # any position -> end (local clipping of tail): only the best
+        # origin can win; argmax returns the FIRST maximum, matching the
+        # sequential loop's strict-improvement tie-break
+        origst = np.arange(1, npos)
+        tail = (prev[origst] + move_pen[origst]
+                - localpen * (npos - origst))
+        if len(tail):   # npos == 1: no tail origins (C++ guards npos > 1)
+            k = int(np.argmax(tail))
+            if tail[k] > curr[nfstate - 1]:
+                curr[nfstate - 1] = tail[k]
+                tb[nfstate - 1] = origst[k]
+        # position p+1 -> back state p
+        cand = prev[2:npos + 1] + move_back_pen
+        idx = nfstate + np.arange(npos - 1)
+        better = cand > curr[idx]
+        curr[idx] = np.where(better, cand, curr[idx])
+        tb[idx] = np.where(better, np.arange(2, npos + 1), tb[idx])
+        # back state p -> position p+1
+        cand = prev[nfstate:nfstate + npos - 1] + half
+        better = cand > curr[2:npos + 1]
+        curr[2:npos + 1] = np.where(better, cand, curr[2:npos + 1])
+        tb[2:npos + 1] = np.where(
+            better, nfstate + np.arange(npos - 1), tb[2:npos + 1])
+        # emissions
+        logscore = np.maximum(
+            -minscore,
+            -np.abs(signal[t] - loc) / scale - logscale - np.log(2.0))
+        curr[1:npos + 1] += logscore
+        curr[nfstate:] += logscore
+        curr[0] -= localpen
+        curr[nfstate - 1] -= localpen
+        traceback[t] = tb
+        fwd = curr
+
+    path = np.zeros(nsample, dtype=np.int32)
+    if fwd[nfstate - 2] > fwd[nfstate - 1]:
+        score, path[-1] = fwd[nfstate - 2], nfstate - 2
+    else:
+        score, path[-1] = fwd[nfstate - 1], nfstate - 1
+    for t in range(nsample - 1, 0, -1):
+        path[t - 1] = traceback[t, path[t]]
+
+    # encode start/end as -1; full states offset by 1; back states by nfstate
+    out = path.copy()
+    lo = 0
+    while lo < nsample and out[lo] == 0:
+        out[lo] = -1
+        lo += 1
+    hi = nsample
+    while hi > 0 and out[hi - 1] == nfstate - 1:
+        out[hi - 1] = -1
+        hi -= 1
+    mid = out[lo:hi]
+    mid = np.where(mid >= nfstate, mid - nfstate, mid - 1)
+    out[lo:hi] = mid
+    return float(score), out

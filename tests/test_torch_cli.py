@@ -392,7 +392,18 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.cli.train_squiggle, "
             "taiyaki_tpu_torch.cli.predict_squiggle, "
             "taiyaki_tpu_torch.cli.map_to_squiggle, "
-            "taiyaki_tpu_torch.cli.train_abinitio; "
+            "taiyaki_tpu_torch.cli.train_abinitio, "
+            "taiyaki_tpu_torch.cli.align, "
+            "taiyaki_tpu_torch.cli.assess_alignment, "
+            "taiyaki_tpu_torch.cli.check_mapped_signal_file, "
+            "taiyaki_tpu_torch.cli.merge_mappedsignalfiles, "
+            "taiyaki_tpu_torch.cli."
+            "convert_alphabet_or_inspect_mapped_signal_file, "
+            "taiyaki_tpu_torch.cli.upgrade_mapped_signal, "
+            "taiyaki_tpu_torch.cli.synth_dataset, "
+            "taiyaki_tpu_torch.cli.upgrade_model, "
+            "taiyaki_tpu_torch.cli.json_to_checkpoint, "
+            "taiyaki_tpu_torch.cli.import_torch_checkpoint; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {!r}))".format(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
