@@ -205,10 +205,26 @@ card; run from the root of a checkout:
    `cli.synth_dataset` (8 + 3 reads of 600 bases), the check of its
    train.hdf5 and of phase 12's 97-read file, their merge (the read count
    the sum) and its check, and the alphabet tool's inspection of it.
-15. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows; each with its launches on phase 13's training paths and
-   phase 14's round-trip basecall, `launches_on`), the card line, and the
-   result line
+15. Multi-card training and sharded basecalling on the one card, and the
+   analysis tools (this slice): (a) the data-parallel step of mLstm at
+   phase 3's shape in two ranks (processes of their own on card 0, gloo),
+   128 chunks each, rank 1's share padded by `_pad_batch`, against one
+   process's step on the 256: the losses of two steps 1e-5 relative,
+   every parameter after them 1e-5 of its tensor's largest, the replicas
+   bitwise alike, rows 1-6 launched in each rank, a step's ms beside one
+   rank's; (b) `cli.train_flipflop --multihost` in a job of one rank
+   (NCCL), 3 iterations: batch.log byte for byte the plain run's; (c)
+   phase 3's basecall through `Basecaller` on [card 0, card 0]: calls
+   equal phase 3's under the near-tie rule, a batch's ms on one device and
+   two, and `--ndevices 2` exiting with the JAX CLI's message; (d) with
+   no matplotlib, `cli.split_strandlist` and `cli.check_hdf5_contents` on
+   phase 12's file, `cli.motif` on the three references, and
+   `cli.calibrate_qscores_byread` on a --fastq call of phase 4's real
+   reads aligned by `cli.align` (its slope and shift, or its reason).
+16. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows; each with its launches on phase 13's training paths,
+   phase 14's round-trip basecall and phase 15's paths, `launches_on`),
+   the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Each phase prints its seconds on a line of its own ("phase N: s").
@@ -4111,6 +4127,431 @@ def msf_tools_path(work, mapped):
     return secs
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+# the 2-rank step: the global batch (phase 3's shape) and rank 1's real
+# rows (the rest of its half `_pad_batch` rows, seqlens 0)
+DP_BATCH, DP_REAL1 = TB, TB // 2 - 16
+# the counters a rank reads on the training path
+DP_KERNELS = ("lstm_fwd", "lstm_bwd_acts", "crf_fwd", "crf_bwd", "logz_fwd",
+              "logz_posteriors")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _counters_by_name(names):
+    """The launch counters of `names` ("lstm_fwd", "lstm_fwd[cluster]",
+    "gate_gemm[tc]", ...) in a process of their own."""
+    from taiyaki_tpu_torch.ops import crf, gemm, gru, logz, lstm
+    mods = {"lstm": lstm, "gru": gru, "crf": crf, "logz": logz}
+    out = {}
+    for name in names:
+        base, _, inst = name.partition("[")
+        fn = getattr(gemm if base.endswith("gemm")
+                     else mods[base.split("_")[0]], base)
+        out[name] = fn.by_instance[inst[:-1]] if inst else fn
+    return out
+
+
+def dp_batches(seed):
+    """Phase 15a's two global batches of DP_BATCH chunks (numpy Batch
+    tuples): the second as drawn, the first with rank 1's half cut to
+    DP_REAL1 real rows and padded back by the trainer's `_pad_batch`;
+    and the model's kwargs."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.cli.train_flipflop import _pad_batch
+    out = []
+    for k in range(2):
+        batch, kwargs = step_batch(seed + k, DP_BATCH, MLSTM)
+        check(batch.signal.shape[1] == DP_BATCH, "2-rank step: {} chunks "
+              "drawn".format(batch.signal.shape[1]))
+        if k == 0:
+            half = DP_BATCH // 2
+            rank1 = _pad_batch(train.Batch(
+                batch.signal[:, half:half + DP_REAL1],
+                batch.seqs[half:half + DP_REAL1],
+                batch.seqlens[half:half + DP_REAL1], None), half)
+            batch = train.Batch(
+                np.concatenate([batch.signal[:, :half], rank1.signal], 1),
+                np.concatenate([batch.seqs[:half], rank1.seqs]),
+                np.concatenate([batch.seqlens[:half], rank1.seqlens]), None)
+        out.append(tuple(batch))
+    return out, kwargs
+
+
+def dp_steps(torch, dev, seed, batches, kwargs, rows, group, counters,
+             ntime=3):
+    """Two training steps of mLstm (`kwargs`) on the seeded weights, on
+    the batches' `rows` (a slice) with the process `group` (AdamW at a
+    constant 1e-4, no clipping), then `ntime` timed steps (synchronised
+    host clock).  Returns the losses, the parameters after the two steps,
+    the launches of those two steps and the timed steps' ms."""
+    from taiyaki_tpu_torch import train
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    net = new_net(seed, kwargs, dev, MLSTM)
+    params = train.leaf_params(net)
+    opt, _ = train.make_optimizer(params, 1e-4, 10, 0, 1e-4, 1e-4)
+    step = train.make_train_step(net, opt, group=group)
+    threshs = np.full(len(params), np.inf, np.float32)
+    dev_batches = [train.batch_to_device(train.Batch(
+        b[0][:, rows], b[1][rows], b[2][rows], None), dev) for b in batches]
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [float(step(b, 1.0, threshs)[0]) for b in dev_batches]
+    sync()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    after = [p.detach().cpu().numpy().copy() for p in params]
+    ms = []
+    for _ in range(ntime):
+        sync()
+        t0 = time.perf_counter()
+        step(dev_batches[1], 1.0, threshs)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(losses=losses, params=after, launches=launches, ms=ms)
+
+
+def _dp_rank(rank, init, inputs, out_path):
+    """Rank `rank` of phase 15a's job, in a process of its own on the
+    parent's device: `dp_steps` on its half of the batches, its results
+    pickled to out_path."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from taiyaki_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(inputs, "rb") as fh:
+        dev, seed, batches, kwargs, names = pickle.load(fh)
+    dev = torch.device(dev)
+    half = batches[0][2].shape[0] // 2
+    job = mesh.start(dev, init, 2, rank)
+    try:
+        res = dp_steps(torch, dev, seed, batches, kwargs,
+                       slice(rank * half, (rank + 1) * half), job.group,
+                       _counters_by_name(names))
+        res["backend"] = job.backend
+    finally:
+        job.close()
+    with open(out_path, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def two_rank_training(torch, dev, work, seed, counters):
+    """Phase 15a: the data-parallel step of mLstm_flipflop at phase 3's
+    shape in two ranks on the one card (processes of their own, gloo, as
+    NCCL takes no two ranks on one card), DP_BATCH / 2 chunks each, rank
+    1's share with `_pad_batch` rows, against one process's step on all
+    DP_BATCH chunks: the losses of two steps 1e-5 relative, every
+    parameter after them 1e-5 of its tensor's largest value, the ranks'
+    parameters bitwise alike; each rank launched rows 1-6 of the training
+    path (counted in its process over the two steps).  Returns (rank 0's
+    launches, rank 1's, {ms of a step})."""
+    import multiprocessing
+    batches, kwargs = dp_batches(seed)
+    ref = dp_steps(torch, dev, seed, batches, kwargs, slice(None), None,
+                   counters)
+    torch.cuda.empty_cache()
+    d = os.path.join(work, "dp")
+    os.makedirs(d)
+    inputs = os.path.join(d, "inputs.pickle")
+    with open(inputs, "wb") as fh:
+        pickle.dump((str(dev), seed, batches, kwargs, sorted(counters)), fh)
+    init = "file://" + os.path.join(d, "rendezvous")
+    outs = [os.path.join(d, "rank{}.pickle".format(r)) for r in range(2)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, init, inputs, outs[r]))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs), "2-rank training: exit "
+          "codes {}".format([p.exitcode for p in procs]))
+    ranks = []
+    for out in outs:
+        with open(out, "rb") as fh:
+            ranks.append(pickle.load(fh))
+    r0, r1 = ranks
+    check(r0["backend"] == r1["backend"] == "gloo", "2-rank training: "
+          "backend {}".format(r0["backend"]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       ref["losses"]))
+    check(loss_err <= 1e-5, "2-rank training: losses {} against one "
+          "rank's {}".format(r0["losses"], ref["losses"]))
+    param_err = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                    for a, b in zip(r0["params"], ref["params"]))
+    check(param_err <= 1e-5, "2-rank training: parameters {:.3g} of their "
+          "largest from one rank's".format(param_err))
+    check(r0["losses"] == r1["losses"] and all(
+        np.array_equal(a, b) for a, b in zip(r0["params"], r1["params"])),
+        "2-rank training: the ranks' replicas differ")
+    for r, res in enumerate(ranks):
+        for k in DP_KERNELS:
+            check(res["launches"].get(k, 0) > 0, "2-rank training: rank {} "
+                  "never launched {}".format(r, k))
+    ms = {"one rank, {} chunks".format(DP_BATCH): float(np.median(
+              ref["ms"])),
+          "2 ranks on one card, {} chunks each (slower rank)".format(
+              DP_BATCH // 2): max(float(np.median(r["ms"])) for r in ranks)}
+    say("2-rank training (mLstm {}/5/19, chunk {}, {} + {} chunks, rank 1 "
+        "{} real; gloo on one card): losses {} against one rank's {} (max "
+        "relative err {:.3g}, tol 1e-5); parameters after 2 steps within "
+        "{:.3g} of their largest (tol 1e-5), the replicas bitwise alike; "
+        "step ms {} (each rank's: {}, {}); launches rank 0 {}, rank 1 {}"
+        .format(H, CHUNK, DP_BATCH // 2, DP_BATCH // 2, DP_REAL1,
+                ["{:.7f}".format(v) for v in r0["losses"]],
+                ["{:.7f}".format(v) for v in ref["losses"]], loss_err,
+                param_err, json.dumps(ms), r0["ms"], r1["ms"],
+                r0["launches"], r1["launches"]))
+    return r0["launches"], r1["launches"], ms
+
+
+def multihost_cli(torch, work, seed, counters, niter=3):
+    """Phase 15b: `cli.train_flipflop --multihost` in a job of one rank
+    (NCCL, its rendezvous from the TAIYAKI_* variables) against the plain
+    CLI, same seed and arguments at phase 3's shape, `niter` iterations:
+    batch.log byte for byte the plain run's; rows 1-6 launched.  Both
+    run with cuDNN's deterministic algorithms: its default convolution
+    backward sums in no fixed order, and two plain runs then differ in
+    the last bits of the convolutions' gradients.  Returns (launches,
+    stats)."""
+    logs, stats = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag in ("plain", "multihost"):
+            launches, stats[tag], logs[tag], model_log = _train_cli(
+                torch, work, seed, counters, tag, niter)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check("* Rank 0 of 1 on cuda:0; gradients all-reduced over nccl"
+          in model_log, "--multihost: model.log names no NCCL rank")
+    for k in DP_KERNELS:
+        check(launches.get(k, 0) > 0, "--multihost never launched "
+              "{}".format(k))
+    rows = logs["plain"].splitlines()[1:]
+    check(len(rows) == niter and logs["multihost"] == logs["plain"],
+          "--multihost batch.log differs from the plain run's:\n{}\n{}"
+          .format(logs["multihost"], logs["plain"]))
+    say("train_flipflop --multihost (one rank, NCCL; mLstm {}/5/19, chunk "
+        "{}, {} chunks, {} iterations; cuDNN deterministic in both): "
+        "batch.log byte for byte the plain run's (losses {}); {:.3f} s in "
+        "the loop against {:.3f}; launches {}".format(
+            H, CHUNK, TB, niter, ", ".join(r.split("\t")[1] for r in rows),
+            stats["multihost"]["seconds"], stats["plain"]["seconds"],
+            launches))
+    return launches, stats["multihost"]
+
+
+def _train_cli(torch, work, seed, counters, tag, niter):
+    """One run of multihost_cli's training CLI, `tag` "plain" or
+    "multihost": (launches, stats, batch.log, model.log)."""
+    from taiyaki_tpu_torch.cli import train_flipflop
+    _, model_py, stride = MLSTM
+    outdir = os.path.join(work, "train_" + tag)
+    env, extra = {}, []
+    if tag == "multihost":
+        env = {"TAIYAKI_COORDINATOR": "localhost:{}".format(_free_port()),
+               "TAIYAKI_NUM_PROCS": "1", "TAIYAKI_PROC_ID": "0"}
+        extra = ["--multihost"]
+    for fn in counters.values():
+        fn.launches = 0
+    with switches(env):
+        stats = train_flipflop.main(extra + [
+            "--size", str(H), "--stride", str(stride), "--winlen", "19",
+            "--chunk_len_min", str(CHUNK), "--chunk_len_max", str(CHUNK),
+            "--min_sub_batch_size", str(TB), "--niteration", str(niter),
+            "--warmup_batches", "1", "--save_every", str(niter),
+            "--sample_nreads_before_filtering", "1000",
+            "--reporting_sub_batches", "1", "--seed", str(seed), "--quiet",
+            "--outdir", outdir, model_py, reads_of(MLSTM)])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    logs = []
+    for name in ("batch.log", "model.log"):
+        with open(os.path.join(outdir, name)) as fh:
+            logs.append(fh.read())
+    return (launches, stats) + tuple(logs)
+
+
+def sharded_basecall(torch, dev, work, model, reads, counters):
+    """Phase 15c: phase 3's basecall (the trained mLstm checkpoint, its
+    synthetic reads, the CLI's defaults) through `Basecaller` on [card 0,
+    card 0] (`cli.basecall.main(..., devices=...)`): calls equal phase
+    3's, or per chunk of two reads, a path that differs scores the
+    one-device best within 1e-4 under the one-device scores; rows 1-3
+    launched.  One batch of B chunks of the fasta path (paths alone back
+    to the host) timed on one device and on two (synchronised host
+    clock, the median of 3 calls each).  `--ndevices 2` on this
+    one-card host exits with the JAX CLI's message.  Returns (launches,
+    stats, {ms})."""
+    from taiyaki_tpu_torch.cli import basecall
+    from taiyaki_tpu_torch.convert import load_jax_params
+    from taiyaki_tpu_torch.data import fast5utils
+    from taiyaki_tpu_torch.utils import helpers
+    for fn in counters.values():
+        fn.launches = 0
+    fa = os.path.join(work, "mLstm_sharded.fa")
+    stats = basecall.main(["--output", fa, "--quiet", reads, model],
+                          devices=[dev, dev])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in launches.items():
+        check(n > 0, "sharded basecall never launched kernel {}".format(k))
+    calls, first = read_fastx(fa), read_fastx(os.path.join(work,
+                                                           "mLstm.fa"))
+    same = [rid for rid in first if calls.get(rid) == first[rid]]
+    net, params, *_ = helpers.load_model(model)
+    net = load_jax_params(net, params).to(dev).eval()
+    stride = net.stride
+    parts = []
+    for fname, rid in fast5utils.iterate_fast5_reads(reads):
+        parts.append(basecall.prepare_read(
+            rid, basecall.get_signal(fname, rid), T * stride, 100 * stride,
+            None, False)["chunks"])
+    chunks = np.concatenate(parts, axis=1)[:, :B]
+    res, ms = [], {}
+    for devices in ([dev], [dev, dev]):
+        with torch.inference_mode():
+            caller = basecall.Basecaller(net, 40, True, 1.0, B, devices,
+                                         want_trans=True)
+            res.append(caller.gather(caller.submit(chunks)))
+            # the fasta path's batch: paths alone back to the host
+            caller = basecall.Basecaller(net, 40, True, 1.0, B, devices)
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                caller.gather(caller.submit(chunks))
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms["{} device(s)".format(len(devices))] = float(np.median(times))
+    (paths1, _, _, trans1), (paths2, _, _, _) = res
+    ndiff, gap = 0, 0.0
+    for i in range(chunks.shape[1]):
+        if np.array_equal(paths1[:, i], paths2[:, i]):
+            continue
+        ndiff += 1
+        gap = max(gap, abs(path_score(trans1[:, i], paths1[:, i], NBASE)
+                           - path_score(trans1[:, i], paths2[:, i], NBASE)))
+    check(gap <= 1e-4, "sharded Viterbi paths score {} below the one-device "
+          "best (tie tolerance 1e-4)".format(gap))
+    check(len(same) == len(first) or ndiff > 0,
+          "sharded and one-device calls differ with equal chunk paths")
+    code, _, _ = _tool(basecall.main, ["--ndevices", "2", reads, model])
+    check("--ndevices 2 requested but only 1 local devices are available"
+          in str(code), "--ndevices 2 on one card: {}".format(code))
+    say("sharded basecall (mLstm, 2 replicas on card 0): {} of {} calls "
+        "equal to phase 3's; {} of {} chunks with another Viterbi path "
+        "(score gap {:.3g}, tol 1e-4); {} samples in {:.3f} s: {:.3f} "
+        "ksample/s; one batch of {} chunks, ms {}; launches {}; --ndevices 2 "
+        "here: {!r}".format(len(same), len(first), ndiff, chunks.shape[1],
+                           gap, stats["nsample"], stats["seconds"],
+                           stats["nsample"] / stats["seconds"] / 1e3, B,
+                           json.dumps(ms), launches, code))
+    return launches, stats, ms
+
+
+def analysis_tools_path(work, mapped, seed):
+    """Phase 15d: the analysis tools on the card's host (no matplotlib):
+    `cli.split_strandlist` of phase 12's read ids, `cli.check_hdf5_contents`
+    of phase 12's file, `cli.motif` of sites on the three references, and
+    `cli.calibrate_qscores_byread` on a --fastq basecall of phase 4's real
+    reads (the shipped remap checkpoint) aligned by `cli.align`: its slope
+    and shift, or the tool's own reason for not fitting.  Returns {tool:
+    seconds}."""
+    from taiyaki_tpu_torch.cli import (
+        align, basecall, calibrate_qscores_byread, check_hdf5_contents,
+        motif, split_strandlist)
+    from taiyaki_tpu_torch.data import mapped_signal_files
+    from taiyaki_tpu_torch.utils.plotting import pyplot
+    d = os.path.join(work, "analysis")
+    os.makedirs(d)
+    secs = {}
+
+    def tool(name, main, argv):
+        t0 = time.perf_counter()
+        res = _tool(main, argv)
+        secs[name] = time.perf_counter() - t0
+        check(res[0] == 0, "{}: exit {}: {}{}".format(
+            name, res[0], res[1][-2000:], res[2][-2000:]))
+        return res
+
+    with mapped_signal_files.MappedSignalReader(mapped) as msr:
+        ids = msr.get_read_ids()
+    strands = os.path.join(d, "strands.tsv")
+    with open(strands, "w") as fh:
+        fh.write("read_id\n" + "".join(r + "\n" for r in ids))
+    tool("split_strandlist", split_strandlist.main,
+         ["--nparts", "3", strands])
+    parts = []
+    for i in range(3):
+        with open("{}_part{}.tsv".format(strands, i)) as fh:
+            parts += fh.read().splitlines()[1:]
+    check(parts == ids, "split_strandlist: {} of {} ids".format(
+        len(parts), len(ids)))
+    out = tool("check_hdf5_contents", check_hdf5_contents.main, [mapped])[1]
+    ndata = out.count(" dataset shape=")
+    check(out.startswith("Root attrs:") and ndata >= len(ids),
+          "check_hdf5_contents: {} datasets for {} reads".format(
+              ndata, len(ids)))
+    refs_fa = os.path.join(work, "host_tools", "refs.fa")
+    refs = read_fastx(refs_fa)
+    rng = np.random.default_rng(seed)
+    coords = os.path.join(d, "coords.tsv")
+    with open(coords, "w") as fh:
+        fh.write("filename\tpos\n")
+        for rid, seq in sorted(refs.items()):
+            for p in rng.integers(20, len(seq) - 20, 50):
+                fh.write("{}\t{}\n".format(rid, p))
+    out = tool("motif", motif.main, [refs_fa, coords])[1]
+    check(len(out.splitlines()) == 31, "motif: {}".format(out[-2000:]))
+    fq = os.path.join(d, "real.fastq")
+    t0 = time.perf_counter()
+    basecall.main(["--output", fq, "--fastq", "--quiet",
+                   os.path.join(work, "reads_real"), REMAP_MODEL])
+    secs["basecall --fastq"] = time.perf_counter() - t0
+    tool("align", align.main, [fq, "--reference", refs_fa])
+    fits = {}
+    for floor in ("7.0", "0"):
+        # the default q floor, then none: the remap checkpoint's q-scores
+        # are uncalibrated
+        t0 = time.perf_counter()
+        code, out, err = _tool(calibrate_qscores_byread.main, [
+            "--fastq", fq, "--alignment_summary",
+            os.path.join(d, "real.samacc"), "--min_fastqscore", floor,
+            "--plot_filename", os.path.join(d, "cal.png")])
+        secs["calibrate_qscores_byread"] = time.perf_counter() - t0
+        lines = [line.strip() for line in out.splitlines()
+                 if line.startswith(("    After", "Best-fit s"))]
+        check(code == 0 and len(lines) == 3
+              or code == 1 and "needed to fit" in err,
+              "calibrate_qscores_byread: exit {}: {}{}".format(
+                  code, out[-2000:], err[-2000:]))
+        fits["--min_fastqscore " + floor] = "; ".join(
+            lines + [err.strip()] if err.strip() else lines)
+    say("analysis tools (matplotlib {}): split_strandlist {} ids in 3 "
+        "parts; check_hdf5_contents {} datasets; motif {} offsets; "
+        "calibrate_qscores_byread on the {} real reads: {}; seconds {}"
+        .format("absent" if pyplot() is None else "present", len(ids),
+                ndata, 31, len(refs), json.dumps(fits),
+                json.dumps({k: round(v, 3) for k, v in secs.items()})))
+    return secs
+
+
 def run(seed):
     try:
         import torch
@@ -4394,6 +4835,26 @@ def run(seed):
             round_trip_path(torch, dev, work, pick(gru_call))
         scores = scoring_path(work, calls_fa)
         msf_secs = msf_tools_path(work, mapped)
+
+        # multi-card training and sharded basecalling, on the one card,
+        # then the analysis tools on its host
+        train_loss = ("lstm_fwd", "lstm_bwd_acts") + loss
+        phases.next("15a 2-rank training")
+        (launches["2-rank training rank 0"],
+         launches["2-rank training rank 1"], dp_ms) = two_rank_training(
+            torch, dev, work, seed, pick(train_loss))
+        torch.cuda.empty_cache()
+        phases.next("15b train_flipflop --multihost")
+        launches["train_flipflop --multihost"], _ = multihost_cli(
+            torch, work, seed, pick(train_loss))
+        torch.cuda.empty_cache()
+        phases.next("15c sharded basecall")
+        launches["sharded basecall"], _, shard_ms = sharded_basecall(
+            torch, dev, work, mlstm_ckpt, os.path.join(work, "reads_mLstm"),
+            pick(lstm_call))
+        torch.cuda.empty_cache()
+        phases.next("15d analysis tools")
+        analysis_secs = analysis_tools_path(work, mapped, seed)
         phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4467,6 +4928,9 @@ def run(seed):
         {"round-trip basecall ksample/s": round_trip["nsample"]
          / round_trip["seconds"] / 1e3,
          "accuracy, identity": scores, "mapped-signal tools s": msf_secs})))
+    say("multi-card paths on one card: {}".format(json.dumps(
+        {"training step ms": dp_ms, "basecall batch ms": shard_ms,
+         "analysis tools s": analysis_secs})))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -4489,10 +4953,12 @@ def run(seed):
               "crf_grad_streams": "mLstm cat_mod training streams",
               "lstm_scan_fwd": "lstm_scan", "lstm_scan_bwd": "lstm_scan",
               "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
-    # the paths of phase 13 that run the kernels of the table: each row's
-    # launches there beside its own path's
+    # the paths of phases 13-15 that run the kernels of the table: each
+    # row's launches there beside its own path's
     new_paths = ("train_abinitio", "train_flipflop --remat",
-                 "round-trip basecall")
+                 "round-trip basecall", "2-rank training rank 0",
+                 "2-rank training rank 1", "train_flipflop --multihost",
+                 "sharded basecall")
     for k in kernels:
         k["launches"] = launches[source[k["name"]]][k["name"]]
         k["launches_on"] = {p: launches[p][k["name"]] for p in new_paths

@@ -23,6 +23,7 @@ import numpy as np
 
 from taiyaki_tpu_torch.sam import iter_alignments
 from taiyaki_tpu_torch.utils.cmdargs import AutoBool, proportion
+from taiyaki_tpu_torch.utils.plotting import pyplot
 
 ACC_METRICS = namedtuple("ACC_METRICS", (
     "reference", "query", "strand", "reference_start", "reference_end",
@@ -116,12 +117,9 @@ def samacc(align_fn, min_coverage=0.6):
     return list(res.values())
 
 
-def acc_plot(acc, mode, median, title):
-    """A histogram of the accuracies with the mode (and the median) marked;
-    (figure, axes).  Imports matplotlib."""
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+def acc_plot(plt, acc, mode, median, title):
+    """A histogram of the accuracies with the mode (and the median) marked,
+    drawn with pyplot `plt`; (figure, axes)."""
     f, ax = plt.subplots()
     ax.hist(acc, bins=min(100, max(10, len(acc) // 2)), density=True,
             alpha=0.6)
@@ -171,15 +169,13 @@ def summary(acc_dat, data_name, show_median, quants):
 def _save_plot(plot, path):
     """Write the histogram to `path`; False, with a line on stderr, where
     matplotlib is not installed."""
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
+    plt = pyplot()
+    if plt is None:
         sys.stderr.write("matplotlib is not installed: no plot written "
                          "to {}\n".format(path))
         return False
-    f, _ = acc_plot(*plot)
+    f, _ = acc_plot(plt, *plot)
     f.savefig(path)
-    import matplotlib.pyplot as plt
     plt.close(f)
     return True
 

@@ -20,6 +20,10 @@ transition columns go to the posterior and Viterbi; the mod columns are
 stitched and read per called base (`flipflopfings.path_mod_scores`) into
 an HDF5 file (`data.hdf5.Writer`): `mod_long_names` and
 `Reads/<read_id>` f32 [nbase, nmods], NaN where a mod does not apply.
+With several devices (--ndevices, by default every card unless --device
+is an index) each batch's chunks split into equal contiguous parts, one
+a device, each run by its own replica of the network; the results come
+back in chunk order.
 All arithmetic is f32 (TF32 is switched off for matrix products and
 convolutions).  --device defaults to the card; --device cpu runs the plain
 PyTorch twins of the kernels.
@@ -72,8 +76,9 @@ def get_parser():
         help="Maximum number of chunks to call at once")
     parser.add_argument(
         "--ndevices", type=Positive(int), default=None,
-        help="Number of cards to shard chunk batches over (only 1 is "
-             "ported yet)")
+        help="Number of devices to shard chunk batches over (default: every "
+             "card, or 1 with an index for --device; with --device cpu, "
+             "replicas on the CPU)")
     parser.add_argument(
         "--overlap", type=NonNegative(int), metavar="blocks",
         default=basecall_helpers.DEFAULT_OVERLAP,
@@ -144,19 +149,26 @@ def get_signal(read_filename, read_id):
 
 class Basecaller:
     """Network forward + (posterior) + Viterbi (+ error probabilities) for
-    batches of up to `max_batch` chunks on one device; with
+    batches of up to `max_batch` chunks on `device`, or on a list of
+    devices: one replica of the network a device (the parameters copied
+    once), each batch split into equal contiguous parts, one a device,
+    `max_batch` rounded down to a multiple of their number.  With
     want_paths=False (the beam decodes on the host) no Viterbi."""
 
     def __init__(self, net, n_can_state, posterior, temperature, max_batch,
                  device, want_errprobs=False, want_trans=False,
                  want_mods=False, want_paths=True):
+        import copy
         from taiyaki_tpu_torch import flipflopfings, qscores
-        self.net = net
+        from taiyaki_tpu_torch.parallel.mesh import round_batch_to_mesh
+        self.devices = (list(device) if isinstance(device, (list, tuple))
+                        else [device])
+        self.nets = [net.to(self.devices[0])] + [
+            copy.deepcopy(net).to(d) for d in self.devices[1:]]
         self.n_can_state = n_can_state
         self.posterior = posterior
         self.temperature = temperature
-        self.max_batch = max_batch
-        self.device = device
+        self.max_batch = round_batch_to_mesh(max_batch, self.devices)
         self.want_errprobs = want_errprobs
         self.want_trans = want_trans
         self.want_mods = want_mods
@@ -165,14 +177,16 @@ class Basecaller:
         mask = np.zeros((n_can_state, self.nbases), dtype=np.float32)
         for b in range(self.nbases):
             mask[qscores.transitions_into_base(b, self.nbases), b] = 1.0
-        self.base_mask = torch.from_numpy(mask).to(device)
+        # a copy a device, by its name
+        self.base_masks = {str(d): torch.from_numpy(mask).to(d)
+                           for d in self.devices}
 
     def errprobs(self, trans, paths):
         """Per-path-position error probabilities, as
         qscores.errprobs_from_trans computes them (on log posteriors, as
         the reference does); row 0 is -1."""
         from taiyaki_tpu_torch.constants import SMALL_VAL
-        baseprobs = torch.matmul(trans, self.base_mask)
+        baseprobs = torch.matmul(trans, self.base_masks[str(trans.device)])
         baseprobs = baseprobs / (baseprobs.sum(dim=2, keepdim=True)
                                  + SMALL_VAL)
         dest = (paths[1:] % self.nbases).long()
@@ -180,12 +194,12 @@ class Basecaller:
         return torch.cat([torch.full((1, paths.shape[1]), -1.0,
                                      device=trans.device), 1.0 - p], dim=0)
 
-    def call_chunks(self, chunks):
-        """chunks [T, n, 1] on the device -> {("paths"), ("errprobs"),
-        ("trans": the scores to decode), ("mods": the output's columns past
-        the canonical transitions)}."""
+    def call_chunks(self, chunks, replica=0):
+        """chunks [T, n, 1] on the device of `replica` -> {("paths"),
+        ("errprobs"), ("trans": the scores to decode), ("mods": the
+        output's columns past the canonical transitions)}."""
         from taiyaki_tpu_torch.ops import decode
-        out = self.net(chunks)
+        out = self.nets[replica](chunks)
         trans = out[:, :, :self.n_can_state] * self.temperature
         if self.posterior:
             trans = torch.log(decode.flipflop_make_trans(trans) + 1e-8)
@@ -201,35 +215,42 @@ class Basecaller:
         return res
 
     def submit(self, chunks):
-        """Queue chunks [T, nchunk, 1] (numpy) on the device in parts of
-        max_batch, the last part padded by repeating its last chunk;
-        returns [(valid columns, device results)]."""
+        """Queue chunks [T, nchunk, 1] (numpy) on the devices in parts of
+        max_batch, the last part padded by repeating its last chunk, each
+        part split over the devices; returns [(valid columns, [device
+        results, a device])]."""
         handles = []
+        share = self.max_batch // len(self.devices)
         for i in range(0, chunks.shape[1], self.max_batch):
             part = chunks[:, i:i + self.max_batch]
             k = part.shape[1]
             if k < self.max_batch:
                 pad = np.repeat(part[:, -1:], self.max_batch - k, axis=1)
                 part = np.concatenate([part, pad], axis=1)
-            handles.append((k, self.call_chunks(
-                torch.from_numpy(part).to(self.device))))
+            handles.append((k, [
+                self.call_chunks(torch.from_numpy(
+                    part[:, j * share:(j + 1) * share]).to(d), j)
+                for j, d in enumerate(self.devices)]))
         return handles
 
     @staticmethod
     def gather(handles):
-        """Results to the host: (paths [nblk+1, nchunk] int32 or 0 rows,
-        errprobs [nblk+1, nchunk] or 0 rows, mods [nblk, nchunk, nmodcol]
-        or 0 columns, trans [nblk, nchunk, nstate] or 0 columns)."""
+        """Results to the host, in chunk order: (paths [nblk+1, nchunk]
+        int32 or 0 rows, errprobs [nblk+1, nchunk] or 0 rows, mods [nblk,
+        nchunk, nmodcol] or 0 columns, trans [nblk, nchunk, nstate] or 0
+        columns)."""
         keys = ("paths", "errprobs", "mods", "trans")
         out = {key: [] for key in keys}
-        for k, res in handles:
+        for k, parts in handles:
+            res = parts[0]
             nblk = (res["paths"].shape[0] - 1 if "paths" in res
                     else res["trans"].shape[0])
             empty = {"paths": (0, k), "errprobs": (0, k),
                      "mods": (nblk, k, 0), "trans": (nblk, k, 0)}
             for key in keys:
-                out[key].append(res[key][:, :k].cpu().numpy() if key in res
-                                else np.zeros(empty[key], np.float32))
+                out[key].append(np.concatenate(
+                    [r[key].cpu().numpy() for r in parts], axis=1)[:, :k]
+                    if key in res else np.zeros(empty[key], np.float32))
         return tuple(np.concatenate(out[key], axis=1) for key in keys)
 
 
@@ -332,21 +353,44 @@ def beam_call(stitched_trans, beam, alphabet, fastq, qscore_scale,
         block_errprobs, state_path, qscore_scale, qscore_offset)
 
 
-def main(argv=None):
-    """Run the basecaller; returns counts and wall time as a dict."""
+def select_devices(spec, ndevices):
+    """The devices of --device `spec` and --ndevices: every card by
+    default, one where `spec` is an index; `ndevices` replicas on the CPU
+    with spec "cpu".  Exits where more cards are asked for than there
+    are, or where a card is asked for and CUDA is not available."""
+    if spec == "cpu":
+        return [torch.device("cpu")] * (ndevices or 1)
+    if ndevices is None and isinstance(spec, int):
+        return [select_device(spec)]
+    have = torch.cuda.device_count()
+    if ndevices is not None and ndevices > have:
+        sys.exit("* Error: --ndevices {} requested but only {} local "
+                 "devices are available".format(ndevices, have))
+    if ndevices == 1 or (ndevices is None and have <= 1):
+        return [select_device(spec)]
+    from taiyaki_tpu_torch.parallel.mesh import local_data_mesh
+    return local_data_mesh()[:ndevices]
+
+
+def main(argv=None, devices=None):
+    """Run the basecaller on the devices of --device and --ndevices, or on
+    `devices` (a list of torch devices, which may name a card more than
+    once) where given; returns counts and wall time as a dict."""
     args = get_parser().parse_args(argv)
     if args.modified_base_output is not None and args.beam is not None:
         # the beam returns bases with no block alignment, so per-base mod
         # scores cannot be read off it
         sys.exit("* Error: --modified_base_output requires the Viterbi "
                  "decoder (drop --beam)")
-    if args.ndevices is not None and args.ndevices > 1:
-        sys.exit("* Error: --ndevices > 1 is not ported to "
-                 "taiyaki_tpu_torch yet")
     # f32 end to end: no TF32 in matrix products or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = select_device(args.device)
+    if devices is None:
+        devices = select_devices(args.device, args.ndevices)
+    device = devices[0]
+    if len(devices) > 1:
+        sys.stderr.write("* Sharding chunk batches over {} devices.\n"
+                         .format(len(devices)))
 
     from taiyaki_tpu_torch import layers
     from taiyaki_tpu_torch.convert import load_jax_params
@@ -385,19 +429,20 @@ def main(argv=None):
             "mod_long_names",
             data=np.array([n.encode() for n in head.ordered_mod_long_names]))
         mod_reads = mod_writer.create_group("Reads")
-    net = load_jax_params(net, params).to(device).eval()
+    net = load_jax_params(net, params).eval()
     stride = net.stride
     chunk_size = args.chunk_size * stride
     overlap = args.overlap * stride
     caller = Basecaller(net, nstate_flipflop(len(args.alphabet)),
                         args.posterior, args.temperature,
-                        args.max_concurrent_chunks, device,
+                        args.max_concurrent_chunks, devices,
                         want_errprobs=args.fastq and args.beam is None,
                         want_trans=args.beam is not None,
                         want_mods=can_nmods is not None,
                         want_paths=args.beam is None)
 
-    sys.stderr.write("* Calling reads on {}.\n".format(device))
+    sys.stderr.write("* Calling reads on {}.\n".format(
+        ", ".join(str(d) for d in devices)))
     nbase = ncalled = nread = nsample = 0
     t0 = time.time()
     progress = helpers.Progress(quiet=args.quiet)

@@ -13,6 +13,14 @@ logZ kernels forward and backward, clip, AdamW) and logs it.  A cat_mod
 model (a GlobalNormFlipFlopCatMod head) trains on the mapped reads' mod
 labels with the cat_mod loss, its mod weights (1, or the log-odds priors
 of --mod_prior_factor) scaled per iteration by the --mod_factor ramp.
+With --multihost this process is one rank of a data-parallel job, one
+process per card (`parallel.mesh.start`; the rendezvous from
+$TAIYAKI_COORDINATOR, $TAIYAKI_NUM_PROCS and $TAIYAKI_PROC_ID, or
+torchrun's variables): every rank draws its share of each sub-batch from
+seed + rank, the sequence padding and the count of real rows are agreed
+on a gloo group of their own (`utils.hostsync`), and each step sums the
+gradients of the global batch over the ranks; only rank 0 writes the
+outdir.  Without it the trainer uses one card.
 Outputs in --outdir: model.log, batch.log (iter, loss, gradientmax, gradientcap,
 learning_rate, chunk_len), validation.log and model_checkpoint_XXXXX /
 model_final .checkpoint and .params in the JAX package's checkpoint
@@ -22,6 +30,7 @@ runs the kernels' plain twins.  f32 throughout (TF32 off).
 """
 
 import argparse
+import itertools
 import os
 import sys
 import time
@@ -176,7 +185,10 @@ def get_parser():
                      help='Device: "cuda" (default), "cpu" or an integer '
                           'CUDA device index')
     cmp.add_argument('--multihost', default=False, action=AutoBool,
-                     help='Multi-host training (not ported yet)')
+                     help='Join a data-parallel job, one process per '
+                          'card (rendezvous from TAIYAKI_COORDINATOR, '
+                          'TAIYAKI_NUM_PROCS and TAIYAKI_PROC_ID, or '
+                          'torchrun\'s variables)')
     cmp.add_argument('--remat', default=False, action=AutoBool,
                      help='Rematerialize layer activations: keep no layer\'s '
                           'activations for the backward pass, which runs '
@@ -243,9 +255,33 @@ def main(argv=None):
     """Train; returns {"iterations", "samples", "bases", "seconds",
     "device"} of the training loop."""
     args = get_parser().parse_args(argv)
+    import torch
+    from taiyaki_tpu_torch.cli.basecall import select_device
+
+    # f32 end to end: no TF32 in matrix products or cuDNN convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = None
     if args.multihost:
-        sys.exit('* Error: --multihost is not ported to taiyaki_tpu_torch '
-                 'yet; use bin/train_flipflop.py')
+        from taiyaki_tpu_torch.parallel import mesh
+        try:
+            init = mesh.rendezvous()
+        except ValueError as e:
+            sys.exit('* Error: --multihost: {}'.format(e))
+        spec = args.device
+        if spec == 'cuda' and torch.cuda.is_available():
+            spec = init[2] % torch.cuda.device_count()   # a card a rank
+        job = mesh.start(select_device(spec), *init)
+    try:
+        return _train(args, job)
+    finally:
+        if job is not None:
+            job.close()
+
+
+def _train(args, job):
+    """The training run of `main` in a data-parallel `job`, or alone where
+    it is None."""
     import torch
     from taiyaki_tpu_torch import layers, train
     from taiyaki_tpu_torch.cli.basecall import select_device
@@ -256,24 +292,38 @@ def main(argv=None):
     from taiyaki_tpu_torch.data import chunk_selection, mapped_signal_files
     from taiyaki_tpu_torch.utils import helpers
 
-    # f32 end to end: no TF32 in matrix products or cuDNN convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = select_device(args.device)
+    device = select_device(args.device) if job is None else job.device
+    is_lead = job is None or job.is_lead
+    if is_lead:
+        helpers.prepare_outdir(args.outdir, args.overwrite)
 
-    helpers.prepare_outdir(args.outdir, args.overwrite)
-    log = helpers.Logger(os.path.join(args.outdir, MODEL_LOG_FILENAME),
-                         args.quiet)
-    batch_log = helpers.Logger(os.path.join(args.outdir, BATCH_LOG_FILENAME),
-                               quiet=True)
-    val_log = helpers.Logger(os.path.join(args.outdir, VALID_LOG_FILENAME),
-                             quiet=True)
+    def logger(name, quiet):
+        return helpers.Logger(os.path.join(args.outdir, name) if is_lead
+                              else None, quiet)
+
+    log = logger(MODEL_LOG_FILENAME, args.quiet)
+    batch_log = logger(BATCH_LOG_FILENAME, True)
+    val_log = logger(VALID_LOG_FILENAME, True)
     log.write(helpers.formatted_env_info(device))
     batch_log.write(BATCH_TMPLT.format(*BATCH_FIELDS))
     val_log.write(VAL_TMPLT.format('iter', 'loss'))
+    if job is not None:
+        log.write('* Rank {} of {} on {}; gradients all-reduced over {}.\n'
+                  .format(job.rank, job.world_size, device, job.backend))
+    elif device.type == 'cuda' and torch.cuda.device_count() > 1:
+        log.write('* Training on {} of {} cards: --multihost with one '
+                  'process per card uses them all.\n'.format(
+                      device, torch.cuda.device_count()))
 
     seed = (np.random.randint(0, 2 ** 31) if args.seed is None
             else args.seed)
+    reducer = None
+    if job is not None:
+        # every rank draws the same weights, holdout and chunk lengths
+        seed = job.broadcast(seed)
+        if job.world_size > 1:
+            from taiyaki_tpu_torch.utils import hostsync
+            reducer = hostsync.start()
     # the JAX trainer's streams, in its order: the global state (filter
     # sampling, holdout, then chunks), the init stream, the bucket stream
     np.random.seed(seed)
@@ -387,9 +437,10 @@ def main(argv=None):
         log.write('* Gradients will be clipped (by value) at {:3.2f} MADs '
                   'above the median of the last 1000 gradient maximums.\n'
                   .format(args.gradient_clip_num_mads))
-    step_fn = train.make_train_step(net, optimizer, *cat_mod)
+    group = None if job is None else job.group
+    step_fn = train.make_train_step(net, optimizer, *cat_mod, group=group)
     if args.sub_batches > 1:
-        grad_fn = train.make_grad_step(net, *cat_mod)
+        grad_fn = train.make_grad_step(net, *cat_mod, group=group)
         apply_fn = train.make_apply_step(optimizer)
 
     # ---- filters & reporting data ---------------------------------------
@@ -455,6 +506,7 @@ def main(argv=None):
     rejection_dict = defaultdict(int)
     total_bases = total_samples = 0
     counts = dict(samples=0, bases=0)
+    sample_counter = itertools.count()
 
     def sample_iteration():
         """Sample one iteration's sub-batches (host work, on the prefetch
@@ -462,30 +514,44 @@ def main(argv=None):
         batch_chunk_len = buckets[bucket_rng.integers(len(buckets))]
         sub_batch_size = train.sub_batch_size_for_chunk(
             args.min_sub_batch_size, args.chunk_len_max, batch_chunk_len)
+        if job is not None:
+            # the global sub-batch, rounded down to a multiple of the
+            # ranks, splits evenly: this rank's share
+            sub_batch_size = max(1, sub_batch_size // job.world_size)
         max_seqlen = train.max_seqlen_for_chunk(
             batch_chunk_len, stride, args.filter_path_buffer)
-        batches = []
+        it_idx = next(sample_counter)
+        batches, nvalids = [], []
         rejections_total = defaultdict(int)
         sample_count = base_count = 0
-        for _ in range(args.sub_batches):
+        for sub in range(args.sub_batches):
+            tag = '{}.{}'.format(it_idx, sub)
             batch, rejections = train.sample_batch(
                 read_data, batch_chunk_len, sub_batch_size, max_seqlen,
                 alphabet_info, filter_params, reverse=args.reverse,
                 standardize=args.standardize, can_labels=can_labels,
                 mod_labels=mod_labels, log=log,
-                seqlen_granularity=seqlen_gran)
+                seqlen_granularity=seqlen_gran,
+                seqlen_reduce=(_seqlen_sync(reducer, tag)
+                               if seqlen_gran and reducer is not None
+                               else None))
             for k, v in rejections.items():
                 rejections_total[k] += v
             if batch.signal.shape[1] < sub_batch_size:
                 batch = _pad_batch(batch, sub_batch_size)
             sample_count += int(batch.signal.size)
             base_count += int(np.sum(batch.seqlens))
+            # a rank's loss divides by the global batch's real rows
+            nvalid = None if job is None else int(np.sum(batch.seqlens > 0))
+            if reducer is not None:
+                nvalid = reducer.total(tag + '.n', nvalid)
+            nvalids.append(nvalid)
             batches.append(train.batch_to_device(batch, device))
-        return (batch_chunk_len, batches, rejections_total,
-                (sample_count, base_count))
+        return (batch_chunk_len, list(zip(batches, nvalids)),
+                rejections_total, (sample_count, base_count))
 
-    # from here on the global stream draws training chunks
-    np.random.seed(seed)
+    # from here on the global stream draws training chunks, a stream a rank
+    np.random.seed(seed + (0 if job is None else job.rank))
     prefetch = ThreadPoolExecutor(max_workers=1)
     next_batches = prefetch.submit(sample_iteration)
     time_last = t_start = time.time()
@@ -540,6 +606,8 @@ def main(argv=None):
 
     def save(index):
         nonlocal writing
+        if not is_lead:
+            return None
         if writing is not None:
             writing.result()
         writing = writer.submit(
@@ -551,7 +619,7 @@ def main(argv=None):
 
     prof = None
     for curr_iter in range(args.niteration):
-        if args.profile and curr_iter == 10:
+        if args.profile and is_lead and curr_iter == 10:
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
@@ -573,14 +641,14 @@ def main(argv=None):
         losses = []
         used_threshs = capper.thresholds.copy()
         if args.sub_batches == 1:
-            for batch in batches:
+            for batch, nvalid in batches:
                 loss, grad_maxs = step_fn(batch, sharpen, used_threshs,
-                                          mod_factor)
+                                          mod_factor, nvalid)
                 losses.append(loss)
         else:
             acc = None
-            for batch in batches:
-                loss, grads = grad_fn(batch, sharpen, mod_factor)
+            for batch, nvalid in batches:
+                loss, grads = grad_fn(batch, sharpen, mod_factor, nvalid)
                 acc = train.accumulate_grads(acc, grads)
                 losses.append(loss)
             grad_maxs = apply_fn(acc, float(args.sub_batches), used_threshs)
@@ -593,8 +661,10 @@ def main(argv=None):
                        samples=iter_samples, bases=iter_bases)
 
         if (curr_iter + 1) % args.save_every == 0:
+            # every rank feeds its capper, which sets the next clip
             process_iteration(pending)
             pending = None
+        if (curr_iter + 1) % args.save_every == 0 and is_lead:
             saved = save((curr_iter + 1) // args.save_every)
             log.write('Model saved to {}.\n'.format(saved))
             t0 = time.time()
@@ -623,13 +693,22 @@ def main(argv=None):
         prof.__exit__(None, None, None)
         _write_trace(prof, args.outdir, log)
     save(None)
-    writing.result()
+    if writing is not None:
+        writing.result()
     writer.shutdown()
     log.write('\n* Training complete.\n')
     for lg in (log, batch_log, val_log):
         lg.close()
     return dict(iterations=args.niteration, samples=counts['samples'],
                 bases=counts['bases'], seconds=seconds, device=str(device))
+
+
+def _seqlen_sync(reducer, tag):
+    """The cross-rank max of the sampled sequence length for `tag` (issued
+    in the same order on every rank: iteration.sub_batch), on the
+    reducer's own gloo group (`utils.hostsync`): the sampler runs on the
+    prefetch thread, beside the main thread's gradient all-reduces."""
+    return lambda local_max: reducer.reduce(tag, local_max)
 
 
 def _write_trace(prof, outdir, log):

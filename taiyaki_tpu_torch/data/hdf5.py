@@ -582,7 +582,14 @@ class _Node:
 
     @property
     def attrs(self):
-        return self._f.attributes(self.messages)
+        """The attributes in h5py's order: by name, or in the order they
+        were made where the object header tracks it."""
+        attrs = self._f.attributes(self.messages)
+        buf = self._f._buf
+        if buf[self._addr:self._addr + 4] == b"OHDR" \
+                and buf[self._addr + 5] & 0x04:
+            return attrs
+        return dict(sorted(attrs.items()))
 
 
 class Group(_Node):
@@ -613,6 +620,17 @@ class Dataset(_Node):
             if t == mtype:
                 return data
         return None
+
+    @property
+    def shape(self):
+        return _shape(self._find(0x01))
+
+    @property
+    def dtype(self):
+        """The numpy dtype of an element, object for a variable-length
+        string (as h5py gives them)."""
+        dt = _dtype(self._find(0x03))
+        return np.dtype(object) if dt == "vlen-str" else dt
 
     def __getitem__(self, key):
         lay = self._find(0x08)

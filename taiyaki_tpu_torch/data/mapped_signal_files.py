@@ -90,6 +90,12 @@ class MappedSignalReader:
             return [_dec(v) for v in self.hdf5["read_ids"][()]]
         return list(self.hdf5[READS_ROOT].keys())
 
+    def get_read(self, read_id):
+        """The SignalMapping of one read."""
+        if self.is_batch:
+            return self._load_batch(self._read_id_to_batch[read_id])[read_id]
+        return self._read_group(read_id)
+
     def _read_group(self, read_id):
         group = self.hdf5[READS_ROOT + "/" + read_id]
         fields = {k: group[k][()] for k in group.keys()}

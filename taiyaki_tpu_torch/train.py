@@ -346,10 +346,14 @@ def sample_batch(read_data, batch_chunk_len, sub_batch_size, max_seqlen,
                  alphabet_info, filter_params, reverse=False,
                  standardize=True, can_labels=None, mod_labels=None,
                  select_strands_randomly=True, first_strand_index=0,
-                 log=None, seqlen_granularity=None):
+                 log=None, seqlen_granularity=None, seqlen_reduce=None):
     """Sample and filter chunks and assemble a Batch; with
     seqlen_granularity, sequences pad to the smallest multiple of it that
-    fits the batch instead of to max_seqlen.
+    fits the batch instead of to max_seqlen.  The bucket depends on the
+    data each rank drew, so a multi-process job passes `seqlen_reduce`, a
+    callable mapping this rank's longest sequence to the length every rank
+    agrees on (the global max, `utils.hostsync`), and every rank pads to
+    the same bucket.
 
     Returns:
         (Batch, rejection_counts)
@@ -364,6 +368,8 @@ def sample_batch(read_data, batch_chunk_len, sub_batch_size, max_seqlen,
                   "{}).\n".format(len(chunk_batch), sub_batch_size))
     if seqlen_granularity:
         actual = max((c.seq_len for c in chunk_batch), default=1)
+        if seqlen_reduce is not None:
+            actual = int(seqlen_reduce(actual))
         max_seqlen = bucket_seqlen(actual, max_seqlen, seqlen_granularity)
     batch = prepare_batch(chunk_batch, batch_chunk_len, max_seqlen,
                           alphabet_info, reverse=reverse,
@@ -384,13 +390,14 @@ def make_loss_fn(net, is_cat_mod=False, can_mods_offsets=None,
                  mod_cat_weights=None):
     """Training loss of a batch on the device: CRF flip-flop loss (the
     cat_mod loss with weights mod_cat_weights x mod_factor for a cat_mod
-    model) + logZ/nblk of the transition columns per row, averaged over
-    the rows with a sequence (rows with seqlens == 0 are padding and cost
-    nothing)."""
+    model) + logZ/nblk of the transition columns per row, summed over the
+    rows with a sequence (rows with seqlens == 0 are padding and cost
+    nothing) and divided by their count, or by `nvalid` where given (a
+    rank's share of a global batch divides by the global count)."""
     if is_cat_mod:
         weights = np.asarray(mod_cat_weights, dtype=np.float32)
 
-    def loss_fn(batch, sharpen, mod_factor=1.0):
+    def loss_fn(batch, sharpen, mod_factor=1.0, nvalid=None):
         outputs = net(batch.signal)
         nblk = outputs.shape[0]
         ntrans = outputs.shape[2]
@@ -406,7 +413,10 @@ def make_loss_fn(net, is_cat_mod=False, can_mods_offsets=None,
         real = batch.seqlens > 0
         lossvector = lossvector + torch.where(real, logz,
                                               torch.zeros_like(logz))
-        nvalid = torch.clamp(real.sum(), min=1)
+        if nvalid is None:
+            nvalid = torch.clamp(real.sum(), min=1)
+        else:
+            nvalid = torch.tensor(max(int(nvalid), 1), device=real.device)
         return lossvector.sum() / nvalid
 
     return loss_fn
@@ -419,18 +429,39 @@ def leaf_params(net):
 
 
 def make_grad_step(net, is_cat_mod=False, can_mods_offsets=None,
-                   mod_cat_weights=None):
-    """(loss, grads in leaf order) of one sub-batch."""
+                   mod_cat_weights=None, group=None):
+    """(loss, grads in leaf order) of one sub-batch.
+
+    With a process `group` (a data-parallel job, `parallel.mesh.start`),
+    the batch is this rank's share of the global one, as the JAX mesh
+    step shards it: the loss is the local sum over rows with a sequence
+    divided by the global count of such rows (`nvalid`, all-reduced on
+    the group where not given), and the gradients and loss are summed
+    over the group in one flattened all-reduce, so every rank returns the
+    global batch's loss and gradients."""
+    import torch.distributed as dist
     loss_fn = make_loss_fn(net, is_cat_mod, can_mods_offsets,
                            mod_cat_weights)
     params = leaf_params(net)
 
-    def gstep(batch, sharpen, mod_factor=1.0):
-        loss = loss_fn(batch, sharpen, mod_factor)
+    def gstep(batch, sharpen, mod_factor=1.0, nvalid=None):
+        if group is not None and nvalid is None:
+            count = (batch.seqlens > 0).sum().reshape(1)
+            dist.all_reduce(count, group=group)
+            nvalid = int(count)
+        loss = loss_fn(batch, sharpen, mod_factor, nvalid)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        return loss.detach(), grads
+        loss = loss.detach()
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [loss.reshape(1)])
+            dist.all_reduce(flat, group=group)
+            parts = flat.split([g.numel() for g in grads] + [1])
+            grads = [p.view_as(g) for p, g in zip(parts, grads)]
+            loss = parts[-1][0]
+        return loss, grads
 
     return gstep
 
@@ -461,15 +492,17 @@ def make_apply_step(optimizer):
 
 
 def make_train_step(net, optimizer, is_cat_mod=False, can_mods_offsets=None,
-                    mod_cat_weights=None):
-    """step(batch, sharpen, clip_threshs, mod_factor) -> (loss,
-    grad_maxs): forward, backward, clip and update in one call."""
+                    mod_cat_weights=None, group=None):
+    """step(batch, sharpen, clip_threshs, mod_factor, nvalid) -> (loss,
+    grad_maxs): forward, backward, clip and update in one call; with a
+    process `group`, on the global batch's gradients (`make_grad_step`),
+    which every rank's update then sees alike."""
     gstep = make_grad_step(net, is_cat_mod, can_mods_offsets,
-                           mod_cat_weights)
+                           mod_cat_weights, group)
     astep = make_apply_step(optimizer)
 
-    def step(batch, sharpen, clip_threshs, mod_factor=1.0):
-        loss, grads = gstep(batch, sharpen, mod_factor)
+    def step(batch, sharpen, clip_threshs, mod_factor=1.0, nvalid=None):
+        loss, grads = gstep(batch, sharpen, mod_factor, nvalid)
         return loss, astep(grads, 1.0, clip_threshs)
 
     return step

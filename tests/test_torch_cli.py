@@ -213,17 +213,23 @@ def test_cli_default_device_is_cuda(calls):
 @pytest.mark.parametrize("flag", [["--beam", "5", "false",
                                    "--modified_base_output", "m.h5"],
                                   ["--modified_base_output", "m.h5"],
-                                  ["--ndevices", "2"]])
+                                  ["--ndevices", "2", "--device", "cuda"]])
 def test_cli_unported_options_stop(calls, flag):
-    """Options not ported stop; --modified_base_output stops on this
+    """Options stop where they cannot run: --modified_base_output on this
     canonical checkpoint, and with --beam on any, as bin/basecall.py
-    does."""
+    does; --ndevices (ported) asking for more cards than the host has,
+    with the JAX CLI's message."""
+    import torch
     from taiyaki_tpu_torch.cli import basecall
     _, _, model, reads = calls
     why = {"--modified_base_output": "requires a cat_mod model",
-           "--beam": "requires the Viterbi decoder"}
-    with pytest.raises(SystemExit, match=why.get(flag[0], "not ported")):
-        basecall.main(flag + ["--device", "cpu", reads, model])
+           "--beam": "requires the Viterbi decoder",
+           "--ndevices": "--ndevices 2 requested but only {} local devices"
+                         .format(torch.cuda.device_count())}
+    if flag[0] == "--ndevices" and torch.cuda.device_count() >= 2:
+        pytest.skip("the host has two cards")
+    with pytest.raises(SystemExit, match=why[flag[0]]):
+        basecall.main(["--device", "cpu"] + flag + [reads, model])
 
 
 def test_duplicate_read_ids_get_a_record_each(calls, tmp_path):
@@ -403,7 +409,19 @@ def test_importing_the_cli_loads_no_jax():
             "taiyaki_tpu_torch.cli.synth_dataset, "
             "taiyaki_tpu_torch.cli.upgrade_model, "
             "taiyaki_tpu_torch.cli.json_to_checkpoint, "
-            "taiyaki_tpu_torch.cli.import_torch_checkpoint; "
+            "taiyaki_tpu_torch.cli.import_torch_checkpoint, "
+            "taiyaki_tpu_torch.parallel.mesh, "
+            "taiyaki_tpu_torch.utils.hostsync, "
+            "taiyaki_tpu_torch.utils.plotting, "
+            "taiyaki_tpu_torch.cli.split_strandlist, "
+            "taiyaki_tpu_torch.cli.check_hdf5_contents, "
+            "taiyaki_tpu_torch.cli.motif, "
+            "taiyaki_tpu_torch.cli.calibrate_qscores_byread, "
+            "taiyaki_tpu_torch.cli.plot_training, "
+            "taiyaki_tpu_torch.cli."
+            "plot_accuracy_histogram_from_alignment_summary, "
+            "taiyaki_tpu_torch.cli.plot_mapped_signals, "
+            "taiyaki_tpu_torch.cli.plot_predict_squiggle_output; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in {!r}))".format(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),

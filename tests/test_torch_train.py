@@ -543,13 +543,17 @@ def test_cli_remat_matches_no_remat_and_jax(trained_remat, trained, name):
 
 @pytest.mark.parametrize("flag", [["--multihost"],
                                   ["--mod_prior_factor", "1.0"]])
-def test_cli_unported_options_stop(flag, tmp_path):
-    """Options not ported stop; --mod_prior_factor, ported, stops on the
-    repo's modref reads, which lack a label whose prior it needs, as
-    bin/train_flipflop.py does."""
+def test_cli_unported_options_stop(flag, tmp_path, monkeypatch):
+    """Options stop where they cannot run: --multihost (ported) with no
+    rendezvous in the environment, naming both sets of variables;
+    --mod_prior_factor (ported) on the repo's modref reads, which lack a
+    label whose prior it needs, as bin/train_flipflop.py does."""
     from taiyaki_tpu_torch.cli import train_flipflop
+    from taiyaki_tpu_torch.parallel import mesh
+    for name in mesh.COORDINATOR_VARS + mesh.TORCHRUN_VARS:
+        monkeypatch.delenv(name, raising=False)
     model, reads, err, why = "mLstm_flipflop.py", READS, SystemExit, \
-        "not ported"
+        "--multihost: .*TAIYAKI_COORDINATOR.*MASTER_ADDR"
     if flag[0] == "--mod_prior_factor":
         model, err, why = "mLstm_cat_mod_flipflop.py", NotImplementedError, \
             "must occur"
