@@ -221,10 +221,26 @@ card; run from the root of a checkout:
    phase 12's file, `cli.motif` on the three references, and
    `cli.calibrate_qscores_byread` on a --fastq call of phase 4's real
    reads aligned by `cli.align` (its slope and shift, or its reason).
-16. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows; each with its launches on phase 13's training paths,
-   phase 14's round-trip basecall and phase 15's paths, `launches_on`),
-   the card line, and the result line
+16. The bf16 streams of the LSTM layers (this slice;
+   TAIYAKI_TPU_BF16_STREAMS=1, ops/rnn.py): (a) the bf16 instances of
+   rows 1 (each emit mode), 4, 11 and 12 at the mLstm training shape (the
+   cluster instances) and at H=512 (the L2 ones), both directions,
+   against their twins (bf16 outputs equal as bf16 but for at most 1% of
+   them one bf16 step apart; f32 outputs at the f32 rows' tolerances),
+   each row's ms beside the f32 row's; (b) the tc GEMMs with the bf16
+   operands the layers give them (x, h, and d_x's bf16 output) against
+   their twins (GEMM_TOL), timed beside the same product in f32; (c) the
+   full-width mLstm step under the switch against the f32 step on the
+   same batch and weights under each residual policy (loss 5e-3
+   relative, gradients 2e-2 of each one's largest), the step's ms (median
+   of 3) and peak memory beside the f32 step's; (d) `cli.train_flipflop`
+   under the switch (4 iterations; rows 1 and 4 as bf16 launches), then
+   `cli.basecall` from its checkpoint with the switch exported, which the
+   CLI's opt-out keeps f32.
+17. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows and the 4 bf16 instances'; each with its launches on
+   phase 13's training paths, phase 14's round-trip basecall and phase
+   15's paths, `launches_on`), the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Each phase prints its seconds on a line of its own ("phase N: s").
@@ -250,10 +266,16 @@ import time
 import numpy as np
 
 # Published peaks of one H100 SXM (dense): f32 outside the tensor cores,
-# TF32 on them, and device-memory bandwidth.
+# TF32 and bf16 on them, and device-memory bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# the least time a flop of an exact product with one bf16 operand (the
+# other f32) takes on the tensor cores: the cheaper of two TF32 passes (the
+# bf16 operand has no small part) and three bf16 passes (the f32 operand
+# split into three bf16 parts)
+MIXED_S_PER_FLOP = min(2 / PEAK_TF32_FLOPS, 3 / PEAK_BF16_FLOPS)
 T, B, H, NBASE = 1000, 128, 256, 4
 # production training shape (misc/rnn_roofline.py, misc/crf_fusion_probe.py)
 TT, TB, TL, S = 800, 256, 512, 40
@@ -365,13 +387,15 @@ def max_abs_diff(a, b):
     return d.masked_fill(a == b, 0.0).max().item()
 
 
-def bound_ms(nbytes, flops, tc_flops=0):
+def bound_ms(nbytes, flops, tc_flops=0, mixed_flops=0):
     """The least time for `nbytes` moved and `flops` f32 operations at the
     SIMT rate, plus `tc_flops` of GEMMs on the tc instance (3xTF32: three
-    TF32 passes at the tensor cores' rate): (ms, "bytes" or
+    TF32 passes at the tensor cores' rate) and `mixed_flops` of exact
+    products with one bf16 operand (MIXED_S_PER_FLOP): (ms, "bytes" or
     "operations")."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_F32_FLOPS + 3 * tc_flops / PEAK_TF32_FLOPS) * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + 3 * tc_flops / PEAK_TF32_FLOPS
+             + mixed_flops * MIXED_S_PER_FLOP) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -4552,6 +4576,439 @@ def analysis_tools_path(work, mapped, seed):
     return secs
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# the bf16 streams (ops/rnn.py) as a training policy: (name, switches)
+BF16_STREAMS = ("bf16", {"TAIYAKI_TPU_BF16_STREAMS": "1"})
+# (name, x, h, dh) of the bf16 instances' cases: a later layer (every
+# stream bf16), the first layer (x f32), and TAIYAKI_TPU_F32_GATES=1 (h f32,
+# so the layer above's d_x, this layer's dh, f32)
+BF16_CASES = (("later layer", "bfloat16", "bfloat16", "bfloat16"),
+              ("first layer", "float32", "bfloat16", "bfloat16"),
+              ("F32_GATES", "float32", "float32", "float32"))
+# of a bf16 output, the share at most one bf16 step from its twin's
+BF16_SHARE = 0.01
+# the bf16 instances' rows: (name, its f32 row, the TPU kernel's line)
+BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", 880),
+             ("lstm_bwd_acts[bf16]", "lstm_bwd_acts", 385),
+             ("lstm_bwd_fusedw[bf16]", "lstm_bwd_fusedw", 456),
+             ("lstm_bwd_recompute[bf16]", "lstm_bwd_recompute", 625))
+# the step under the switch against the f32 step (the CPU tests' terms)
+BF16_LOSS_TOL, BF16_GRAD_TOL = 5e-3, 2e-2
+
+
+def bf16_err(torch, got, want, atol):
+    """A bf16 output against its twin's: (max |diff|, the share of
+    elements that differ, whether they are equal as bf16 but for at most
+    BF16_SHARE of them one bf16 step apart, or `atol` where a step is
+    smaller)."""
+    check(got.dtype == want.dtype == torch.bfloat16
+          and got.shape == want.shape, "bf16 output: {} {} against {} "
+          "{}".format(got.dtype, tuple(got.shape), want.dtype,
+                      tuple(want.shape)))
+    g, w = got.float(), want.float()
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(
+        torch.maximum(g.abs(), w.abs()))[1] - 8)
+    diff = (g - w).abs()
+    share = (diff > 0).float().mean().item()
+    ok = bool((diff <= step.clamp(min=atol)).all()) and share <= BF16_SHARE
+    return diff.max().item(), share, ok
+
+
+def _bf16_layer(torch, dev, rng, t, b, h):
+    """x, iW, b, sW and dh (all f32; x and dh cast to each case's types)
+    of one seeded LSTM layer at D=H."""
+    return (_tensor(torch, dev, rng.normal(size=(t, b, h))),
+            _tensor(torch, dev, rng.normal(size=(4 * h, h)) / np.sqrt(h)),
+            _tensor(torch, dev, 0.5 * rng.normal(size=4 * h)),
+            _tensor(torch, dev, rng.normal(size=(4 * h, h)) / np.sqrt(h)),
+            _tensor(torch, dev, rng.normal(size=(t, b, h))))
+
+
+def _bf16_out_err(torch, got, want, atol):
+    """An output of a bf16 instance against its twin's: a bf16 one as
+    `bf16_err`, an f32 one (h or d_x of an f32 stream) within `atol`:
+    (max |diff|, the share of bf16 elements that differ, ok)."""
+    if want.dtype == torch.bfloat16:
+        return bf16_err(torch, got, want, atol)
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          "output: {} {} against {} {}".format(
+              got.dtype, tuple(got.shape), want.dtype, tuple(want.shape)))
+    d = max_abs_diff(got, want)
+    return d, 0.0, d <= atol
+
+
+def _bf16_bounds():
+    """The bounds of the bf16 rows at the training shape (bf16 streams at
+    2 bytes; a product with a bf16 operand at MIXED_S_PER_FLOP)."""
+    nbh = 2 * TT * TB * H            # one bf16 [T, B, H] stream
+    nw = 4 * 4 * H * (2 * H + 1)     # the weights, f32, D = H
+    one = 2 * TT * TB * 4 * H * H    # one 4H x H product over T B rows
+    return {
+        # x, h, c, acts, tc; gx of a bf16 x
+        "lstm_fwd[bf16]": bound_ms((1 + 1 + 1 + 4 + 1) * nbh + nw, one, 0,
+                                   one),
+        # dh, acts or pre, tc or c, c_prev, h; x read, d_x written; d_x
+        # on f32 operands, d_iW and d_sW on a bf16 one
+        "lstm_bwd_acts[bf16]": bound_ms(10 * nbh + 2 * nw, one, one,
+                                        2 * one),
+        "lstm_bwd_fusedw[bf16]": bound_ms(10 * nbh + 2 * nw, one, one,
+                                          2 * one),
+        # dh, c, h; x read, d_x written; pre rebuilt by two products
+        "lstm_bwd_recompute[bf16]": bound_ms(5 * nbh + 2 * nw, one, one,
+                                             4 * one)}
+
+
+def check_bf16_kernels(torch, dev, rng, f32_rows):
+    """Phase 16a: the bf16 instances of rows 1 (each emit mode), 4, 11
+    and 12 at the mLstm training shape (T=TT, B=TB, H=D=256) on their
+    plans' cluster instances, in each case of BF16_CASES, and at H=512
+    (T=200, B=64) on the L2 ones in the first case, both directions,
+    against their twins: a bf16 output as `bf16_err` (atol 1e-4, of the
+    largest |d_x| for d_x), an f32 h within 1e-4, an f32 d_x within 1e-4
+    of its largest, the weight gradients within 1e-4 relative (summed
+    over their partials).  Each row timed (training shape, later layer)
+    beside its f32 row's ms (`f32_rows`, phase 2's at the same shape and
+    emit "acts") and its twin's.  Returns the four rows of the kernels
+    line, without their launches."""
+    from taiyaki_tpu_torch.ops import lstm
+    bf = torch.bfloat16
+    fns = {"lstm_fwd[bf16]": (lstm.lstm_fwd, lstm.lstm_fwd_plain),
+           "lstm_bwd_acts[bf16]": (lstm.lstm_bwd_acts,
+                                   lstm.lstm_bwd_acts_plain),
+           "lstm_bwd_fusedw[bf16]": (lstm.lstm_bwd_fusedw,
+                                     lstm.lstm_bwd_fusedw_plain),
+           "lstm_bwd_recompute[bf16]": (lstm.lstm_bwd_recompute,
+                                        lstm.lstm_bwd_recompute_plain)}
+    err = dict.fromkeys(fns, 0.0)
+    share = dict.fromkeys(fns, 0.0)
+    case_err = {}
+    ms, plain_ms, h512 = {}, {}, {}
+    for t, b, h, cases in ((TT, TB, H, BF16_CASES),
+                           (200, 64, 512, BF16_CASES[:1])):
+        x32, iW, bias, sW, dh32 = _bf16_layer(torch, dev, rng, t, b, h)
+        fplan, bplan = (plan_of("lstm", h, b, bwd)[0] for bwd in (0, 1))
+        want_inst = "cluster" if h == H else "l2"
+        check(fplan.instance == bplan.instance == want_inst,
+              "bf16 rows at H={}: plans {} {}".format(h, fplan, bplan))
+        before = {k: dict((i, c.launches) for i, c in
+                          fns[k][0].bf16_by_instance.items()) for k in fns}
+        for case, xdt, hdt, dhdt in cases:
+            xdt, hdt, dhdt = (getattr(torch, n) for n in (xdt, hdt, dhdt))
+            x, dh = x32.to(xdt), dh32.to(dhdt)
+            where = "{} (x {}, h {}, dh {}) H={}".format(
+                case, xdt, hdt, dhdt, h)
+            worst = case_err.setdefault(case, [0.0, 0.0])
+            for reverse in (False, True):
+                for emit in lstm.EMITS:
+                    kw = dict(reverse=reverse, emit=emit, h_dtype=hdt,
+                              res_dtype=bf)
+                    got, want = (f(x, iW, bias, sW, **kw) for f in fns[
+                        "lstm_fwd[bf16]"])
+                    torch.cuda.synchronize()
+                    got, want = ((got, want) if isinstance(got, tuple)
+                                 else ((got,), (want,)))
+                    for g, w in zip(got, want):
+                        d, s, ok = _bf16_out_err(torch, g, w, 1e-4)
+                        check(ok, "lstm_fwd[bf16] emit={} {}: |diff| {}, "
+                              "share {}".format(emit, where, d, s))
+                        err["lstm_fwd[bf16]"] = max(err["lstm_fwd[bf16]"],
+                                                    d)
+                        share["lstm_fwd[bf16]"] = max(
+                            share["lstm_fwd[bf16]"], s)
+                        worst[0] = max(worst[0], d)
+                    del got, want
+                hh, c, acts, tc = lstm.lstm_fwd_plain(
+                    x, iW, bias, sW, reverse, "acts", hdt, bf)
+                pre = lstm.lstm_fwd_plain(x, iW, bias, sW, reverse, "pre",
+                                          hdt, bf)[2]
+                cp = lstm.prev_state(c, reverse)
+                args = {"lstm_bwd_acts[bf16]": (dh, acts, tc, cp, hh, x, sW,
+                                                iW),
+                        "lstm_bwd_fusedw[bf16]": (dh, pre, c, cp, hh, x, sW,
+                                                  iW),
+                        "lstm_bwd_recompute[bf16]": (dh, c, hh, x, sW, iW,
+                                                     bias)}
+                for k, a in args.items():
+                    fn, plain = fns[k]
+                    got, want = fn(*a, reverse=reverse), plain(
+                        *a, reverse=reverse)
+                    torch.cuda.synchronize()
+                    scale = want[0].float().abs().max().item()
+                    d, s, ok = _bf16_out_err(torch, got[0], want[0],
+                                             1e-4 * scale)
+                    e = max(rel_err(g.sum(0), w.sum(0))
+                            for g, w in zip(got[1:], want[1:]))
+                    check(ok and e <= 1e-4, "{} {}: d_x |diff| {} (share "
+                          "{}), the weight gradients' largest relative err "
+                          "{}".format(k, where, d, s, e))
+                    err[k], share[k] = max(err[k], e), max(share[k], s)
+                    worst[1] = max(worst[1], e, d / scale)
+                    del got, want
+                if not reverse and case == cases[0][0]:
+                    timed = {"lstm_fwd[bf16]": (
+                        lambda: lstm.lstm_fwd(x, iW, bias, sW, emit="acts",
+                                              h_dtype=hdt, res_dtype=bf),
+                        lambda: lstm.lstm_fwd_plain(x, iW, bias, sW, False,
+                                                    "acts", hdt, bf))}
+                    for k, a in args.items():
+                        timed[k] = ((lambda f=fns[k][0], a=a: f(*a)),
+                                    (lambda f=fns[k][1], a=a: f(*a)))
+                    for k, (f, p) in timed.items():
+                        if h == H:
+                            ms[k] = cuda_ms(torch, f, reps=3)
+                            plain_ms[k] = cuda_ms(torch, p, reps=1)
+                        else:
+                            h512[k] = cuda_ms(torch, f, reps=1)
+                del hh, c, acts, tc, pre, cp, args
+            del x, dh
+        for k, (fn, _) in fns.items():
+            after = {i: c.launches for i, c in fn.bf16_by_instance.items()}
+            n = len(cases) * 2 * (len(lstm.EMITS) if k == "lstm_fwd[bf16]"
+                                  else 1) + 1
+            check(after[want_inst] - before[k][want_inst] >= n and all(
+                after[i] == before[k][i] for i in after if i != want_inst),
+                "{} H={}: bf16 launches by instance {} -> {}".format(
+                    k, h, before[k], after))
+        del x32, iW, bias, sW, dh32
+        torch.cuda.empty_cache()
+    say("bf16 instances T={} B={} D=H={} by case (x, h, dh types), both "
+        "directions: the forwards' largest |diff| and the backwards' "
+        "largest relative err (d_x of its largest, weight gradients): "
+        "{}".format(TT, TB, H, json.dumps(case_err)))
+    bounds = _bf16_bounds()
+    rows = []
+    for name, f32_name, line in BF16_ROWS:
+        f32 = f32_rows[f32_name]
+        rows.append(dict(
+            name=name, route="cuda", source="taiyaki_tpu_torch/csrc/lstm.cu",
+            replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(line),
+            max_abs_err=err[name], bf16_share=share[name], ms=ms[name],
+            plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], library_ms=f32["library_ms"],
+            f32_ms=f32["ms"], h512_ms=h512[name]))
+        say("{} T={} B={} D=H={} (the three cases; timed with x, h, dh "
+            "bf16; the cluster instances): "
+            "max err {:.3g} ({}), bf16 outputs one step apart {:.3g} of "
+            "them (at most {}), {:.3f} ms against the f32 row's {:.3f} ms, "
+            "twin {:.3f} ms, bound {:.3f} ms ({}); H=512 (T=200, B=64, L2 "
+            "instances) {:.3f} ms".format(
+                name, TT, TB, H, err[name], "|diff|" if "fwd" in name
+                else "relative", share[name], BF16_SHARE, ms[name], f32["ms"],
+                plain_ms[name], bounds[name][0], bounds[name][1],
+                h512[name]))
+    return rows
+
+
+def check_bf16_gemms(torch, dev):
+    """Phase 16b: the tc GEMMs with the bf16 operands the layers give them
+    at the mLstm training shape (M = TT TB rows, D=H=256): the gate
+    product of a bf16 x, d_x with a bf16 output, d_iW of a bf16 x and
+    d_sW of a bf16 h one step back; each against its twin (f32 outputs
+    within GEMM_TOL of the largest, the bf16 one as `bf16_err`) and timed
+    beside the same product on the widened (f32) operands.  Returns the
+    rows of the gemms line (their path the bf16 training path)."""
+    from taiyaki_tpu_torch.ops import gemm
+    bf = torch.bfloat16
+    M, G = TT * TB, 4 * H
+    sms = gemm.card_sms(torch.cuda.current_device())
+    rows = []
+    cases = (("gate", "gx of a bf16 x", (M, G, H), "A"),
+             ("gate", "d_x in bf16", (M, H, G), "out"),
+             ("atb", "d_iW of a bf16 x", (G, H, M), "B"),
+             ("atb", "d_sW of a bf16 h", (G, H, M), "B"))
+    for kind, what, (M_, N, K), side in cases:
+        g = torch.Generator(device=dev).manual_seed(M_ + N + K)
+        if kind == "gate":
+            A = torch.randn(M_, K, device=dev, generator=g)
+            W = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+            bias = torch.randn(N, device=dev, generator=g)
+            if side == "A":
+                A = A.to(bf)
+                args, kw, f32_args = (A, W, bias), {}, (A.float(), W, bias)
+            else:
+                args, kw, f32_args = (A, W), {"out_dtype": bf}, (A, W)
+            fn, nsplit = gemm.gate_gemm, 1
+            plain = gemm.gate_gemm_plain
+            bytes_ = (2 if side == "A" else 4) * M_ * K + 4 * (N * K + N) \
+                + (2 if side == "out" else 4) * M_ * N
+        else:
+            A = torch.randn(K, M_, device=dev, generator=g)
+            Bm = torch.randn(K, N, device=dev, generator=g).to(bf)
+            shift = 0 if "d_iW" in what else -TB
+            plan = gemm.gemm_plan(M_, N, K, gemm.ATB, sms, bf16=True)
+            args, kw, f32_args = (A, Bm, shift), {}, (A, Bm.float(), shift)
+            fn, nsplit = gemm.atb_gemm, plan.nsplit
+
+            def plain(A, Bm, shift, _p=plan):
+                return gemm.atb_gemm_plain(A, Bm, shift, _p.nsplit,
+                                           _p.kslice)
+            bytes_ = 4 * K * M_ + 2 * K * N + 4 * nsplit * M_ * N
+        n = fn.bf16.launches
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(fn.bf16.launches == n + 1, "{}: no bf16 launch".format(what))
+        if side == "out":
+            d, s, ok = bf16_err(torch, got, want,
+                                GEMM_TOL * want.float().abs().max().item())
+            err = d / want.float().abs().max().item()
+            check(ok, "{}: |diff| {} share {}".format(what, d, s))
+        else:
+            err = max_abs_diff(got, want) / want.abs().max().item()
+            check(err <= GEMM_TOL, "{}: {:.3g} of the largest output from "
+                  "its twin > {}".format(what, err, GEMM_TOL))
+        del got, want
+        t = cuda_ms(torch, lambda: fn(*args, **kw), reps=5)
+        t32 = cuda_ms(torch, lambda: fn(*f32_args), reps=5)
+        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), reps=3)
+        flops = 2 * M_ * N * K
+        bound, by = (bound_ms(bytes_, 0, flops) if side == "out"
+                     else bound_ms(bytes_, 0, 0, flops))
+        rows.append(dict(
+            name="{}_gemm".format(kind), cell="mLstm bf16", product=what,
+            shape=[M_, N, K], route="cuda",
+            source="taiyaki_tpu_torch/csrc/gemm_tc.cuh",
+            replaces=("taiyaki_tpu/ops/pallas_rnn.py:805" if kind == "gate"
+                      else "taiyaki_tpu/ops/pallas_rnn.py:299"),
+            path="mLstm training bf16", bf16=True, max_abs_err=err, ms=t,
+            f32_ms=t32, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=plain_ms, tflops=flops / t / 1e9))
+        say("{} ({} M={} N={} K={}): tc {:.3f} ms ({:.1f} TFLOP/s; bound "
+            "{:.3f} ms, {}), the same on f32 operands {:.3f} ms, twin "
+            "(torch.matmul on the widened operands) {:.3f} ms; {:.3g} of the "
+            "largest output from the twin".format(
+                what, kind, M_, N, K, t, flops / t / 1e9, bound, by, t32,
+                plain_ms, err))
+        del A, args, f32_args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _median_step(torch, dev, seed, model, batch, kwargs):
+    """A full training step of `model` on `batch` (seeded weights, AdamW):
+    the median synchronised wall time (ms) of 3 steps after a warm-up and
+    the peak device memory (bytes) over them."""
+    from taiyaki_tpu_torch import train
+    net = new_net(seed, kwargs, dev, model)
+    params = train.leaf_params(net)
+    opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
+    threshs = np.full(len(params), np.inf, np.float32)
+    b = train.batch_to_device(batch, dev)
+    step = train.make_train_step(net, opt)
+    step(b, 1.0, threshs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(b, 1.0, threshs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del net, opt, b, step
+    return float(np.median(times)), peak
+
+
+def bf16_steps(torch, dev, seed, counters):
+    """Phase 16c: the full-width mLstm step (TB chunks x CHUNK samples)
+    under the switch against the f32 step on the same batch and weights:
+    the loss within BF16_LOSS_TOL relative and each gradient within
+    BF16_GRAD_TOL of its largest (the CPU tests' terms; the CRF stays
+    f32), under each residual policy (the f32 step's of the same policy);
+    each policy's step under the switch with the counters of
+    `counters` set to 0 just before it and read just after.  The default
+    policy's step ms (median of 3) and peak memory beside the f32 step's.
+    Returns ({path: launches}, {numbers})."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.convert import leaf_names
+    batch, kwargs = step_batch(seed, TB, MLSTM)
+    launches, out = {}, {}
+    for policy in LSTM_POLICIES:
+        res = {}
+        for name, env in (("f32", {}), BF16_STREAMS):
+            with switches(dict(policy[1], **env)):
+                net = new_net(seed, kwargs, dev, MLSTM)
+                names = leaf_names(net)
+                if name == "bf16":
+                    for fn in counters.values():
+                        fn.launches = 0
+                loss, grads = train.make_grad_step(net)(
+                    train.batch_to_device(batch, dev), 1.0)
+                torch.cuda.synchronize()
+                if name == "bf16":
+                    launches["mLstm bf16 step " + policy[0]] = {
+                        k: fn.launches for k, fn in counters.items()}
+                res[name] = (float(loss), [g.float() for g in grads])
+                del net
+        (l32, g32), (l16, g16) = res["f32"], res["bf16"]
+        l_err = abs(l16 - l32) / abs(l32)
+        errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(g16, g32)]
+        worst = names[int(np.argmax(errs))]
+        check(np.isfinite(l16) and l_err <= BF16_LOSS_TOL,
+              "bf16 step ({}): loss {} vs f32 {}".format(policy[0], l16,
+                                                         l32))
+        check(max(errs) <= BF16_GRAD_TOL, "bf16 step ({}): gradient err {} "
+              "({})".format(policy[0], max(errs), worst))
+        out[policy[0]] = dict(loss=l16, f32_loss=l32, loss_err=l_err,
+                              grad_err=max(errs), worst=worst)
+        say("mLstm step ({} chunks x {} samples, size {}) under {}=1, policy "
+            "{}: loss {} against the f32 step's {} (relative {:.3g}, tol "
+            "{}); largest gradient err {:.3g} of its largest, in {} (tol "
+            "{})".format(TB, CHUNK, H, "TAIYAKI_TPU_BF16_STREAMS", policy[0],
+                         l16, l32, l_err, BF16_LOSS_TOL, max(errs), worst,
+                         BF16_GRAD_TOL))
+        del res, g32, g16
+        torch.cuda.empty_cache()
+    for name, env in (("f32", {}), BF16_STREAMS):
+        with switches(env):
+            ms, peak = _median_step(torch, dev, seed, MLSTM, batch, kwargs)
+        torch.cuda.empty_cache()
+        out[name + " step"] = dict(ms=ms, peak_gb=peak / 1e9)
+    f32, bf = out["f32 step"], out["bf16 step"]
+    say("mLstm training step (acts policy, AdamW; median of 3): f32 {:.3f} "
+        "ms, peak {:.3f} GB; bf16 streams {:.3f} ms, peak {:.3f} GB ({:.3f} "
+        "GB lower)".format(f32["ms"], f32["peak_gb"], bf["ms"],
+                           bf["peak_gb"], f32["peak_gb"] - bf["peak_gb"]))
+    return launches, out
+
+
+def bf16_cli(torch, work, seed, pick, reads):
+    """Phase 16d: `cli.train_flipflop` on mLstm_flipflop at phase 3's
+    shape under the switch (4 iterations; rows 1 and 4 launched as their
+    bf16 instances, the GEMMs with bf16 operands), then `cli.basecall` of
+    phase 3's reads from its checkpoint with the switch still exported:
+    the CLI's opt-out keeps it f32 (no bf16 launch) and every read is
+    processed.  Returns ({path: launches}, the training stats)."""
+    from taiyaki_tpu_torch.cli import basecall
+    from taiyaki_tpu_torch.ops import lstm
+    launches = {}
+    launches["mLstm training bf16"], stats, outdir = train_path(
+        torch, work, seed, pick, MLSTM, policy=BF16_STREAMS, niter=4)
+    fa = os.path.join(work, "mLstm_bf16.fa")
+    counted = {"lstm_fwd": lstm.lstm_fwd,
+               "lstm_fwd[cluster]": lstm.lstm_fwd.by_instance["cluster"],
+               "lstm_fwd[bf16]": lstm.lstm_fwd.bf16}
+    for fn in counted.values():
+        fn.launches = 0
+    with switches(BF16_STREAMS[1]):
+        calls = basecall.main(["--output", fa, "--quiet", reads, os.path.join(
+            outdir, "model_final.checkpoint")])
+    torch.cuda.synchronize()
+    launches["mLstm basecall bf16"] = {k: fn.launches
+                                       for k, fn in counted.items()}
+    check(launches["mLstm basecall bf16"]["lstm_fwd"] > 0
+          and launches["mLstm basecall bf16"]["lstm_fwd[bf16]"] == 0,
+          "basecall under the switch: launches {}".format(
+              launches["mLstm basecall bf16"]))
+    check(calls["nread"] == 9 and "TAIYAKI_TPU_F32_GATES" not in os.environ,
+          "basecall under the switch: {} reads".format(calls["nread"]))
+    say("basecall of the bf16-trained checkpoint with the switch exported: "
+        "{} reads, {} bases, f32 (launches {})".format(
+            calls["nread"], calls["nbase"], launches["mLstm basecall bf16"]))
+    return launches, stats
+
+
 def run(seed):
     try:
         import torch
@@ -4649,11 +5106,16 @@ def run(seed):
     for k in recurrences:
         counters[k + "[cluster]"] = counters[k].by_instance["cluster"]
     # the GEMMs under the layers (ops/gemm.py): every launch of a path, and
-    # its tc instance's, which must be all of them
+    # its tc instance's, which must be all of them, and those with a bf16
+    # operand or output (the bf16 streams)
     gemms = ("gate_gemm", "atb_gemm")
     for k in gemms:
         counters[k] = getattr(gemm, k)
         counters[k + "[tc]"] = counters[k].by_instance["tc"]
+        counters[k + "[bf16]"] = counters[k].bf16
+    # the bf16 instances of rows 1, 4, 11 and 12 (TAIYAKI_TPU_BF16_STREAMS)
+    for name, f32_name, _ in BF16_ROWS:
+        counters[name] = counters[f32_name].bf16
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
     streams = ("crf_fwd_streams", "crf_grad_streams")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
@@ -4855,6 +5317,33 @@ def run(seed):
         torch.cuda.empty_cache()
         phases.next("15d analysis tools")
         analysis_secs = analysis_tools_path(work, mapped, seed)
+
+        # the bf16 streams of the LSTM layers (TAIYAKI_TPU_BF16_STREAMS=1)
+        phases.next("16a bf16 instances against their twins")
+        f32_rows = {"lstm_fwd": lstm_fwd_rows["acts"]}
+        f32_rows.update({k["name"]: k for k in kernels
+                         if k["name"] in lstm_bwds.values()})
+        bf16_rows = check_bf16_kernels(torch, dev, rng, f32_rows)
+        torch.cuda.empty_cache()
+        phases.next("16b GEMMs with bf16 operands")
+        gemm_rows += check_bf16_gemms(torch, dev)
+        torch.cuda.empty_cache()
+        phases.next("16c bf16 steps against f32 steps")
+        bf16_names = tuple(n for n, _, _ in BF16_ROWS)
+        step_launches, bf16_step = bf16_steps(
+            torch, dev, seed, dict(pick(("lstm_fwd",) + tuple(
+                lstm_bwds.values())), **{k: counters[k]
+                                         for k in bf16_names}))
+        launches.update(step_launches)
+        torch.cuda.empty_cache()
+        phases.next("16d train_flipflop and basecall under the switch")
+        cli_launches, bf16_train = bf16_cli(
+            torch, work, seed, dict(pick(train_loss), **{
+                k: counters[k] for k in bf16_names[:2]
+                + ("gate_gemm[bf16]", "atb_gemm[bf16]")}),
+            os.path.join(work, "reads_mLstm"))
+        launches.update(cli_launches)
+        torch.cuda.empty_cache()
         phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4931,6 +5420,9 @@ def run(seed):
     say("multi-card paths on one card: {}".format(json.dumps(
         {"training step ms": dp_ms, "basecall batch ms": shard_ms,
          "analysis tools s": analysis_secs})))
+    say("bf16 streams: {}".format(json.dumps(
+        {"steps": bf16_step, "training CLI steps/s": bf16_train[
+            "iterations"] / bf16_train["seconds"]})))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -4952,7 +5444,14 @@ def run(seed):
               "crf_fwd_streams": "mLstm cat_mod training streams",
               "crf_grad_streams": "mLstm cat_mod training streams",
               "lstm_scan_fwd": "lstm_scan", "lstm_scan_bwd": "lstm_scan",
-              "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan"}
+              "gru_scan_fwd": "gru_scan", "gru_scan_bwd": "gru_scan",
+              # the bf16 instances: the training CLI under the switch, and
+              # its steps under the other residual policies
+              "lstm_fwd[bf16]": "mLstm training bf16",
+              "lstm_bwd_acts[bf16]": "mLstm training bf16",
+              "lstm_bwd_fusedw[bf16]": "mLstm bf16 step pre",
+              "lstm_bwd_recompute[bf16]": "mLstm bf16 step recompute"}
+    kernels += bf16_rows
     # the paths of phases 13-15 that run the kernels of the table: each
     # row's launches there beside its own path's
     new_paths = ("train_abinitio", "train_flipflop --remat",
@@ -4984,8 +5483,9 @@ def run(seed):
                if k in counts} for path, counts in launches.items()
         if any(k in counts for k in gemms)})))
     for r in gemm_rows:
-        r["launches"] = (launches[r["path"]][r["name"] + "[tc]"]
-                         if r["path"] else None)
+        r["launches"] = (launches[r["path"]][
+            r["name"] + ("[bf16]" if r.get("bf16") else "[tc]")]
+            if r["path"] else None)
     say("recurrences, the cluster instance against the forced L2 instance "
         "(max |diff| of the forwards, relative of the backwards): {}".format(
             json.dumps({k["name"]: {"ms": k["ms"], "l2_ms": k["l2_ms"],
@@ -5002,8 +5502,8 @@ def run(seed):
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     check(len(kernels) == len(counters) - len(recurrences)
-          - 2 * len(gemms) == 17, "kernels line: {} rows".format(
-              len(kernels)))
+          - 3 * len(gemms) == 17 + len(BF16_ROWS), "kernels line: {} rows"
+          .format(len(kernels)))
     check(all(k["launches"] > 0 for k in kernels),
           "kernels line: a kernel its path did not launch")
     print(json.dumps({"gemms": gemm_rows}))
@@ -5013,7 +5513,9 @@ def run(seed):
             {"launches_by_instance": _by_instance(
                 launches[source[k["name"]]], k["name"]),
              "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}),
-            **({"post": k["post"]} if "post" in k else {}))
+            **({"post": k["post"]} if "post" in k else {}),
+            **({key: k[key] for key in ("f32_ms", "h512_ms", "bf16_share")}
+               if "f32_ms" in k else {}))
         for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -101,7 +101,7 @@ void run(const char* what, int B, int H, int C, int BT, int KS,
         return rec_cluster_launch(
             kernel, C, ntiles, threads, smem, nullptr, in, in, out,
             static_cast<float*>(nullptr), static_cast<float*>(nullptr),
-            static_cast<float*>(nullptr), T, B, H, 0, C, U, BT, KS, cyc);
+            static_cast<float*>(nullptr), T, B, H, 0, C, U, BT, KS, cyc, 0);
     }, &rc);
     report(what, H, B, C, BT, RB, KS, rc, ms, C * ntiles, cyc, FWD_NAMES,
            FWD_ORDER);
@@ -135,7 +135,7 @@ void run_bwd(const char* what, int B, int H, int C, int BT, const float* in,
 #else
         return rec_cluster_launch(kernel, C, ntiles, threads, smem, nullptr,
                                   in, in, in, in, 0, in, out, db, T, B, H,
-                                  0, C, U, BT, cyc);
+                                  0, C, U, BT, cyc, 0);
 #endif
     }, &rc);
     report(what, H, B, C, BT, RB, KL, rc, ms, C * ntiles, cyc, BWD_NAMES,

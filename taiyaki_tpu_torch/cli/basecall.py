@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from taiyaki_tpu_torch import basecall_helpers
+from taiyaki_tpu_torch.ops.rnn import f32_inference
 from taiyaki_tpu_torch.utils.cmdargs import (
     AutoBool, FileExists, NonNegative, ParseToNamedTuple, Positive)
 from taiyaki_tpu_torch.utils.common_cmdargs import add_common_command_args
@@ -376,6 +377,11 @@ def main(argv=None, devices=None):
     """Run the basecaller on the devices of --device and --ndevices, or on
     `devices` (a list of torch devices, which may name a card more than
     once) where given; returns counts and wall time as a dict."""
+    with f32_inference():
+        return _main(argv, devices)
+
+
+def _main(argv=None, devices=None):
     args = get_parser().parse_args(argv)
     if args.modified_base_output is not None and args.beam is not None:
         # the beam returns bases with no block alignment, so per-base mod

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from taiyaki_tpu_torch.ops.rnn import f32_inference
 from taiyaki_tpu_torch.utils.cmdargs import FileExists, Maybe
 from taiyaki_tpu_torch.utils.common_cmdargs import add_common_command_args
 
@@ -68,6 +69,11 @@ def main(argv=None):
     """Remap the reads; returns the reads written, the failures by reason,
     the samples remapped, the wall time and, on the card, the seconds of
     staging, forwards and host finish."""
+    with f32_inference():
+        return _main(argv)
+
+
+def _main(argv=None):
     args = get_parser().parse_args(argv)
     print("Running prepare_mapping using flip-flop remapping")
 

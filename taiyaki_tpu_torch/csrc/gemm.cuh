@@ -28,6 +28,13 @@
 //    partial; the caller sums them, as it sums the TPU kernels' per-tile
 //    partials.  Bound: operations, 2*K*N1*N2 FLOP at the f32 rate.
 //
+// bf16 operands (the LSTM layers' bf16 streams, ops/rnn.py): the gate
+// product's A and the atb product's B may be bf16, and the gate product's
+// output (d_x).  Both instances widen a bf16 value exactly and sum in f32;
+// a bf16 output is the f32 sum rounded once.  The layers know their
+// streams' types only at run time: GemmIn / GemmOut carry a pointer and
+// its type, and gemm_gate / gemm_atb on them pick the kernels' instance.
+//
 // Each file that includes this header gets its own copy of the kernels
 // (anonymous namespace): every source builds into its own library.
 
@@ -79,11 +86,12 @@ __device__ __forceinline__ void gemm_tile_fma(
 
 // C[M, N] = A[M, K] . W[N, K]^T + bias[N] (bias may be null), plus the
 // C it finds with ACCUMULATE (a template flag, so the plain product's
-// epilogue carries no branch); all row-major, f32 FMA.
-template <bool ACCUMULATE>
+// epilogue carries no branch); all row-major, f32 FMA (A and C of type TA
+// and TC, f32 or bf16).
+template <bool ACCUMULATE, typename TA = float, typename TC = float>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gate_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                 const float* __restrict__ bias, float* __restrict__ C,
+gate_gemm_kernel(const TA* __restrict__ A, const float* __restrict__ W,
+                 const float* __restrict__ bias, TC* __restrict__ C,
                  int M, int N, int K)
 {
     __shared__ __align__(16) float As[GEMM_BK][GEMM_BM + GEMM_PAD];
@@ -106,7 +114,7 @@ gate_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
             const int r = i / GEMM_BK, c = i % GEMM_BK;
             const int k = k0 + c;
             const int m = m0 + r, n = n0 + r;
-            As[c][r] = (m < M && k < K) ? A[(size_t)m * K + k] : 0.f;
+            As[c][r] = (m < M && k < K) ? widen(A[(size_t)m * K + k]) : 0.f;
             Ws[c][r] = (n < N && k < K) ? W[(size_t)n * K + k] : 0.f;
         }
         __syncthreads();
@@ -123,17 +131,19 @@ gate_gemm_kernel(const float* __restrict__ A, const float* __restrict__ W,
             const int n = n0 + tx * GEMM_TN + j;
             if (n < N) {
                 float v = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
-                if (ACCUMULATE) v += C[(size_t)m * N + n];
-                C[(size_t)m * N + n] = v;
+                if (ACCUMULATE) v += widen(C[(size_t)m * N + n]);
+                C[(size_t)m * N + n] = narrow<TC>(v);
             }
         }
     }
 }
 
 // C[z, N1, N2] = sum_{k in slice z} A[k, :]^T . B[k + shift, :]; rows of B
-// outside [0, K) count as zero.  A [K, N1], B [K, N2], row-major.
+// outside [0, K) count as zero.  A [K, N1], B [K, N2] (of type TB, f32 or
+// bf16), row-major.
+template <typename TB = float>
 __global__ void __launch_bounds__(GEMM_THREADS)
-atb_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+atb_gemm_kernel(const float* __restrict__ A, const TB* __restrict__ B,
                 float* __restrict__ C, int K, int N1, int N2, int shift,
                 int kslice)
 {
@@ -163,7 +173,7 @@ atb_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
             const int m = m0 + r, n = n0 + r;
             As[c][r] = (k < kend && m < N1) ? A[(size_t)k * N1 + m] : 0.f;
             Bs[c][r] = (k < kend && n < N2 && kb >= 0 && kb < K)
-                ? B[(size_t)kb * N2 + n] : 0.f;
+                ? widen(B[(size_t)kb * N2 + n]) : 0.f;
         }
         __syncthreads();
         gemm_tile_fma(As, Bs, tx, ty, acc);
@@ -184,31 +194,38 @@ atb_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // Launch helpers: each returns cudaGetLastError() after its launch.
-inline cudaError_t launch_gate_gemm(const float* A, const float* W,
-                                    const float* bias, float* C, int M, int N,
-                                    int K, cudaStream_t st,
-                                    bool accumulate = false)
+template <typename TA = float, typename TC = float>
+cudaError_t launch_gate_gemm(const TA* A, const float* W, const float* bias,
+                             TC* C, int M, int N, int K, cudaStream_t st,
+                             bool accumulate = false)
 {
     if (M <= 0 || N <= 0) return cudaSuccess;
     dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-    if (accumulate)
-        gate_gemm_kernel<true><<<grid, GEMM_THREADS, 0, st>>>(A, W, bias, C,
-                                                             M, N, K);
-    else
-        gate_gemm_kernel<false><<<grid, GEMM_THREADS, 0, st>>>(A, W, bias, C,
-                                                              M, N, K);
+    if constexpr (is_bf16<TC>) {
+        // a bf16 output is never accumulated onto (d_x)
+        if (accumulate) return cudaErrorInvalidValue;
+        gate_gemm_kernel<false, TA, TC><<<grid, GEMM_THREADS, 0, st>>>(
+            A, W, bias, C, M, N, K);
+    } else if (accumulate) {
+        gate_gemm_kernel<true, TA, TC><<<grid, GEMM_THREADS, 0, st>>>(
+            A, W, bias, C, M, N, K);
+    } else {
+        gate_gemm_kernel<false, TA, TC><<<grid, GEMM_THREADS, 0, st>>>(
+            A, W, bias, C, M, N, K);
+    }
     return cudaGetLastError();
 }
 
-inline cudaError_t launch_atb_gemm(const float* A, const float* B, float* C,
-                                   int K, int N1, int N2, int shift,
-                                   int nsplit, cudaStream_t st)
+template <typename TB = float>
+cudaError_t launch_atb_gemm(const float* A, const TB* B, float* C, int K,
+                            int N1, int N2, int shift, int nsplit,
+                            cudaStream_t st)
 {
     const int kslice = (K + nsplit - 1) / nsplit;
     dim3 grid((N2 + GEMM_BN - 1) / GEMM_BN, (N1 + GEMM_BM - 1) / GEMM_BM,
               nsplit);
-    atb_gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, B, C, K, N1, N2, shift,
-                                                   kslice);
+    atb_gemm_kernel<TB><<<grid, GEMM_THREADS, 0, st>>>(A, B, C, K, N1, N2,
+                                                       shift, kslice);
     return cudaGetLastError();
 }
 
@@ -246,16 +263,18 @@ inline bool gemm_aligned(const void* p)
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// whether the tc instance's TMA takes a matrix of rows `inner` floats long
-// at `p`: 16-byte row strides and base
-inline bool gemm_tma_takes(const void* p, int inner)
+// whether the tc instance's TMA takes a matrix of rows `inner` elements of
+// T long at `p`: 16-byte row strides (4 floats, 8 bf16) and base
+template <typename T>
+bool gemm_tma_takes(const T* p, int inner)
 {
-    return inner % 4 == 0 && gemm_aligned(p);
+    return inner * sizeof(T) % 16 == 0 && gemm_aligned(p);
 }
 
 // the gate product C[M, N] = A[M, K] W[N, K]^T on plan p
-inline cudaError_t gate_plan_check(const GemmPlan& p, const float* A,
-                                   const float* W, int K)
+template <typename TA>
+cudaError_t gate_plan_check(const GemmPlan& p, const TA* A, const float* W,
+                            int K)
 {
     if (p.nsplit != 1 || p.kslice != 0) return cudaErrorInvalidValue;
     if (p.instance == GEMM_SIMT) return cudaSuccess;
@@ -268,8 +287,9 @@ inline cudaError_t gate_plan_check(const GemmPlan& p, const float* A,
 // the atb product of A [K, N1] and B [K, N2] on plan p: nsplit slices of
 // kslice rows, none empty (the simt kernel's kslice is ceil(K / nsplit),
 // the tc kernel's a multiple of its k tile)
-inline cudaError_t atb_plan_check(const GemmPlan& p, const float* A,
-                                  const float* B, int K, int N1, int N2)
+template <typename TB>
+cudaError_t atb_plan_check(const GemmPlan& p, const float* A, const TB* B,
+                           int K, int N1, int N2)
 {
     if (p.nsplit < 1 || p.kslice < 1
             || (long long)p.nsplit * p.kslice < K
@@ -287,10 +307,11 @@ inline cudaError_t atb_plan_check(const GemmPlan& p, const float* A,
 // the three products after a backward chain on plans gemm[0..2]: d_x
 // [M, D] = dx_src [M, G] iwt [D, G]^T, the d_iW partials of dx_src^T x
 // [M, D] and the d_sW partials of ds_src^T hp [M, H]
-inline cudaError_t chain_plans_check(const int* gemm, const float* dx_src,
-                                     const float* ds_src, const float* iwt,
-                                     const float* x, const float* hp, int M,
-                                     int G, int D, int H)
+template <typename TX, typename TH>
+cudaError_t chain_plans_check(const int* gemm, const float* dx_src,
+                              const float* ds_src, const float* iwt,
+                              const TX* x, const TH* hp, int M, int G, int D,
+                              int H)
 {
     cudaError_t err = gate_plan_check(gemm_plan_at(gemm, 0), dx_src, iwt, G);
     if (err == cudaSuccess)
@@ -301,10 +322,10 @@ inline cudaError_t chain_plans_check(const int* gemm, const float* dx_src,
 }
 
 // C[M, N] = A W^T (+ bias) (+ C) on its plan's instance
-inline cudaError_t gemm_gate(const GemmPlan& p, const float* A,
-                             const float* W, const float* bias, float* C,
-                             int M, int N, int K, cudaStream_t st,
-                             bool accumulate = false)
+template <typename TA, typename TC>
+cudaError_t gemm_gate(const GemmPlan& p, const TA* A, const float* W,
+                      const float* bias, TC* C, int M, int N, int K,
+                      cudaStream_t st, bool accumulate = false)
 {
     if (p.instance == GEMM_TC)
         return tc_gate_gemm(A, W, bias, C, M, N, K, accumulate, p.ctas, st);
@@ -313,14 +334,85 @@ inline cudaError_t gemm_gate(const GemmPlan& p, const float* A,
 
 // C[nsplit, N1, N2], the partials of A^T B[. + shift], on its plan's
 // instance
-inline cudaError_t gemm_atb(const GemmPlan& p, const float* A,
-                            const float* B, float* C, int K, int N1, int N2,
-                            int shift, cudaStream_t st)
+template <typename TB>
+cudaError_t gemm_atb(const GemmPlan& p, const float* A, const TB* B,
+                     float* C, int K, int N1, int N2, int shift,
+                     cudaStream_t st)
 {
     if (p.instance == GEMM_TC)
         return tc_atb_gemm(A, B, C, K, N1, N2, shift, p.nsplit, p.kslice,
                            p.ctas, st);
     return launch_atb_gemm(A, B, C, K, N1, N2, shift, p.nsplit, st);
+}
+
+// -- operands whose type is known at run time -------------------------------
+
+// a matrix operand: f32, or bf16 where `bf16` is set
+struct GemmIn {
+    const void* p;
+    bool bf16;
+    const float* f32() const { return static_cast<const float*>(p); }
+    const __nv_bfloat16* b16() const
+    {
+        return static_cast<const __nv_bfloat16*>(p);
+    }
+};
+
+struct GemmOut {
+    void* p;
+    bool bf16;
+};
+
+inline cudaError_t gate_plan_check(const GemmPlan& p, GemmIn A,
+                                   const float* W, int K)
+{
+    return A.bf16 ? gate_plan_check(p, A.b16(), W, K)
+                  : gate_plan_check(p, A.f32(), W, K);
+}
+
+inline cudaError_t atb_plan_check(const GemmPlan& p, const float* A,
+                                  GemmIn B, int K, int N1, int N2)
+{
+    return B.bf16 ? atb_plan_check(p, A, B.b16(), K, N1, N2)
+                  : atb_plan_check(p, A, B.f32(), K, N1, N2);
+}
+
+inline cudaError_t chain_plans_check(const int* gemm, const float* dx_src,
+                                     const float* ds_src, const float* iwt,
+                                     GemmIn x, GemmIn hp, int M, int G,
+                                     int D, int H)
+{
+    cudaError_t err = gate_plan_check(gemm_plan_at(gemm, 0), dx_src, iwt, G);
+    if (err == cudaSuccess)
+        err = atb_plan_check(gemm_plan_at(gemm, 1), dx_src, x, M, G, D);
+    if (err == cudaSuccess)
+        err = atb_plan_check(gemm_plan_at(gemm, 2), ds_src, hp, M, G, H);
+    return err;
+}
+
+// the gate product with a bf16 A or a bf16 C (not both; a bf16 C is never
+// accumulated onto)
+inline cudaError_t gemm_gate(const GemmPlan& p, GemmIn A, const float* W,
+                             const float* bias, GemmOut C, int M, int N,
+                             int K, cudaStream_t st, bool accumulate = false)
+{
+    if (A.bf16 && C.bf16) return cudaErrorInvalidValue;
+    if (A.bf16)
+        return gemm_gate(p, A.b16(), W, bias, static_cast<float*>(C.p), M, N,
+                         K, st, accumulate);
+    if (C.bf16)
+        return gemm_gate(p, A.f32(), W, bias, static_cast<__nv_bfloat16*>(C.p), M,
+                         N, K, st, accumulate);
+    return gemm_gate(p, A.f32(), W, bias, static_cast<float*>(C.p), M, N, K,
+                     st, accumulate);
+}
+
+inline cudaError_t gemm_atb(const GemmPlan& p, const float* A, GemmIn B,
+                            float* C, int K, int N1, int N2, int shift,
+                            cudaStream_t st)
+{
+    return B.bf16 ? gemm_atb(p, A, B.b16(), C, K, N1, N2, shift, st)
+                  : gemm_atb(p, A, B.f32(), C, K, N1, N2, shift, st);
 }
 
 }  // namespace

@@ -51,15 +51,45 @@
 //     next tile.
 // Shared memory: TC_STAGES x (A, B as loaded, B big, B small) of 16 KB =
 // 192 KB, one CTA an SM.
+//
+// bf16 operands (the bf16 streams of the LSTM layers, ops/rnn.py).  The
+// operand that a layer can hold in bf16 (TC_GATE's A: x or h_prev;
+// TC_ATB's B: x or h) may come as bf16: TMA brings its tile as it lies,
+// 2-byte elements with no swizzle (TC_GATE: [128 rows][32 k]; TC_ATB: one
+// box [32 k][128 n]), and the consumers widen each value as they read it.
+// A bf16 value is exact in TF32, so its small part is zero and the pass
+// that multiplies it goes: two passes instead of three, the same products.
+// TC_GATE may also write its output in bf16 (d_x of a bf16 layer input):
+// the f32 sum rounded to nearest even once, in the epilogue.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// whether T is the 2-byte stream type
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+// v stored as a T: itself, or rounded to the nearest bf16 (ties to even)
+template <typename T>
+__device__ __forceinline__ T narrow(float v)
+{
+    if constexpr (is_bf16<T>) return __float2bfloat16_rn(v);
+    else return v;
+}
 
 constexpr int TC_GATE = 0;
 constexpr int TC_ATB = 1;
@@ -268,23 +298,42 @@ __device__ __forceinline__ TcTile tc_tile(int t, int M, int N, int K,
 // The epilogue of a consumer thread: element i of its accumulator is row
 // m + 8 ((i / 2) % 2), column n + 8 (i / 4) + i % 2 of the output (m, n its
 // first).  Where the tile's columns all lie inside an even N and the
-// pointers allow, each pair of columns goes as one 8-byte store from two
-// row pointers (full 32-byte sectors a warp); else element by element.
-template <int KIND, bool ACCUMULATE>
+// pointers allow, each pair of columns goes as one store of two elements
+// from two row pointers (full 32-byte sectors a warp, for f32); else
+// element by element.  A bf16 output (TO) takes each sum rounded once.
+template <typename TO>
+__device__ __forceinline__ float2 tc_load2(const TO* p)
+{
+    if constexpr (is_bf16<TO>)
+        return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    else
+        return *reinterpret_cast<const float2*>(p);
+}
+
+template <typename TO>
+__device__ __forceinline__ void tc_store2(TO* p, float2 v)
+{
+    if constexpr (is_bf16<TO>)
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x,
+                                                                      v.y);
+    else
+        *reinterpret_cast<float2*>(p) = v;
+}
+
+template <int KIND, bool ACCUMULATE, typename TO>
 __device__ __forceinline__ void tc_epilogue(const float (&acc)[64],
                                             const float* __restrict__ bias,
-                                            float* __restrict__ out, int M,
+                                            TO* __restrict__ out, int M,
                                             int N, int m, int n)
 {
     const bool pairs = (N & 1) == 0 && n - (n & 7) + TC_BN <= N
-        && (reinterpret_cast<uintptr_t>(out) & 7) == 0
+        && (reinterpret_cast<uintptr_t>(out) & (2 * sizeof(TO) - 1)) == 0
         && (reinterpret_cast<uintptr_t>(bias) & 7) == 0;
     if (pairs) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             if (m + 8 * h >= M) continue;
-            float2* row = reinterpret_cast<float2*>(
-                out + (size_t)(m + 8 * h) * N + n);
+            TO* row = out + (size_t)(m + 8 * h) * N + n;
 #pragma unroll
             for (int j = 0; j < 16; ++j) {
                 float2 v = make_float2(acc[4 * j + 2 * h],
@@ -296,11 +345,11 @@ __device__ __forceinline__ void tc_epilogue(const float (&acc)[64],
                     v.y += b.y;
                 }
                 if (ACCUMULATE) {
-                    const float2 c = row[4 * j];
+                    const float2 c = tc_load2(row + 8 * j);
                     v.x += c.x;
                     v.y += c.y;
                 }
-                row[4 * j] = v;
+                tc_store2(row + 8 * j, v);
             }
         }
         return;
@@ -312,19 +361,30 @@ __device__ __forceinline__ void tc_epilogue(const float (&acc)[64],
         if (mi < M && ni < N) {
             float v = acc[i];
             if (KIND == TC_GATE && bias != nullptr) v += bias[ni];
-            if (ACCUMULATE) v += out[(size_t)mi * N + ni];
-            out[(size_t)mi * N + ni] = v;
+            if (ACCUMULATE) v += widen(out[(size_t)mi * N + ni]);
+            out[(size_t)mi * N + ni] = narrow<TO>(v);
         }
     }
 }
 
-template <int KIND, bool ACCUMULATE, bool PROMOTE>
+// TA, TB: the operands' element types (bf16 only for TC_GATE's A and
+// TC_ATB's B, never both); TO: the output's (bf16 only for TC_GATE)
+template <int KIND, bool ACCUMULATE, bool PROMOTE, typename TA = float,
+          typename TB = float, typename TO = float>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 tc_gemm_kernel(const __grid_constant__ CUtensorMap mapA,
                const __grid_constant__ CUtensorMap mapB,
-               const float* __restrict__ bias, float* __restrict__ C, int M,
+               const float* __restrict__ bias, TO* __restrict__ C, int M,
                int N, int K, int shift, int kslice, int ntiles)
 {
+    constexpr bool A_EXACT = is_bf16<TA>;   // small part zero: no pass
+    constexpr bool B_EXACT = is_bf16<TB>;
+    static_assert(!A_EXACT || KIND == TC_GATE, "bf16 A: TC_GATE only");
+    static_assert(!B_EXACT || KIND == TC_ATB, "bf16 B: TC_ATB only");
+    static_assert(!is_bf16<TO> || (KIND == TC_GATE && !ACCUMULATE),
+                  "bf16 output: TC_GATE without ACCUMULATE only");
+    constexpr uint32_t TILE_BYTES = TC_BM * TC_BK * (sizeof(TA)
+                                                     + sizeof(TB));
     extern __shared__ uint8_t tc_raw[];
     uint8_t* smem = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(tc_raw) + 1023) & ~(uintptr_t)1023);
@@ -352,18 +412,25 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap mapA,
             for (int kt = x.kt0; kt < x.kt0 + x.nkt; ++kt) {
                 tc_bar_wait(&empty[stage], phase ^ 1);
                 uint8_t* st = smem + stage * TC_STAGE;
-                tc_bar_expect(&full[stage], 2 * TC_TILE);
+                tc_bar_expect(&full[stage], TILE_BYTES);
                 const int k0 = kt * TC_BK;
                 if (KIND == TC_GATE) {
                     tc_tma_load(st, &mapA, k0, x.m0, &full[stage]);
                     tc_tma_load(st + TC_TILE, &mapB, k0, x.n0, &full[stage]);
                 } else {
 #pragma unroll
-                    for (int j = 0; j < 4; ++j) {
+                    for (int j = 0; j < 4; ++j)
                         tc_tma_load(st + j * 4096, &mapA, x.m0 + 32 * j, k0,
                                     &full[stage]);
-                        tc_tma_load(st + TC_TILE + j * 4096, &mapB,
-                                    x.n0 + 32 * j, k0 + shift, &full[stage]);
+                    if constexpr (B_EXACT) {
+                        tc_tma_load(st + TC_TILE, &mapB, x.n0, k0 + shift,
+                                    &full[stage]);
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            tc_tma_load(st + TC_TILE + j * 4096, &mapB,
+                                        x.n0 + 32 * j, k0 + shift,
+                                        &full[stage]);
                     }
                 }
                 if (++stage == TC_STAGES) {
@@ -402,7 +469,8 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap mapA,
             const uint8_t* braw = st + TC_TILE;
             uint8_t* bbig = st + 2 * TC_TILE;
             uint8_t* bsmall = st + 3 * TC_TILE;
-            // B, split into big and small, K-major and swizzled
+            // B, split into big and small, K-major and swizzled (a bf16
+            // B widened: its big part is itself, its small part zero)
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
                 const int c = tid + TC_CONSUMERS * i;   // 16-byte chunk
@@ -416,30 +484,48 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap mapA,
                 } else {
                     const int n = c & (TC_BN - 1), kc = c >> 7;
 #pragma unroll
-                    for (int e = 0; e < 4; ++e)
-                        v[e] = *reinterpret_cast<const float*>(
-                            braw + tc_mnmajor(n, 4 * kc + e));
+                    for (int e = 0; e < 4; ++e) {
+                        if constexpr (B_EXACT)
+                            v[e] = widen(reinterpret_cast<const bf16*>(
+                                braw)[(4 * kc + e) * TC_BN + n]);
+                        else
+                            v[e] = *reinterpret_cast<const float*>(
+                                braw + tc_mnmajor(n, 4 * kc + e));
+                    }
                     off = tc_kmajor(n, 4 * kc);
                 }
-                uint4 big, small;
-                tc_split(v[0], big.x, small.x);
-                tc_split(v[1], big.y, small.y);
-                tc_split(v[2], big.z, small.z);
-                tc_split(v[3], big.w, small.w);
-                *reinterpret_cast<uint4*>(bbig + off) = big;
-                *reinterpret_cast<uint4*>(bsmall + off) = small;
+                if constexpr (B_EXACT) {
+                    *reinterpret_cast<uint4*>(bbig + off) = make_uint4(
+                        __float_as_uint(v[0]), __float_as_uint(v[1]),
+                        __float_as_uint(v[2]), __float_as_uint(v[3]));
+                } else {
+                    uint4 big, small;
+                    tc_split(v[0], big.x, small.x);
+                    tc_split(v[1], big.y, small.y);
+                    tc_split(v[2], big.z, small.z);
+                    tc_split(v[3], big.w, small.w);
+                    *reinterpret_cast<uint4*>(bbig + off) = big;
+                    *reinterpret_cast<uint4*>(bsmall + off) = small;
+                }
             }
-            // A's fragments, split in registers
+            // A's fragments, split in registers (a bf16 A: [128][32] as
+            // it lies, widened)
 #pragma unroll
             for (int s = 0; s < 4; ++s) {
 #pragma unroll
                 for (int e = 0; e < 4; ++e) {
                     const int r = r0 + 8 * (e & 1);
                     const int k = 8 * s + t4 + 4 * (e >> 1);
-                    const float v = *reinterpret_cast<const float*>(
-                        st + (KIND == TC_GATE ? tc_kmajor(r, k)
-                                              : tc_mnmajor(r, k)));
-                    tc_split(v, abig[s][e], asmall[s][e]);
+                    if constexpr (A_EXACT) {
+                        abig[s][e] = __float_as_uint(widen(
+                            reinterpret_cast<const bf16*>(st)[r * TC_BK
+                                                              + k]));
+                    } else {
+                        const float v = *reinterpret_cast<const float*>(
+                            st + (KIND == TC_GATE ? tc_kmajor(r, k)
+                                                  : tc_mnmajor(r, k)));
+                        tc_split(v, abig[s][e], asmall[s][e]);
+                    }
                 }
             }
             asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -461,13 +547,17 @@ tc_gemm_kernel(const __grid_constant__ CUtensorMap mapA,
                 // k step s starts 32 bytes into each 128-byte row
                 const uint64_t db = tc_desc(big0 + 32 * s);
                 const uint64_t ds = tc_desc(small0 + 32 * s);
+                // a bf16 operand's small part is zero: its pass goes (the
+                // k tile's first pass overwrites part under PROMOTE)
                 if constexpr (PROMOTE) {
-                    tc_mma(part, asmall[s], db, s > 0);
-                    tc_mma(part, abig[s], ds, 1);
+                    if constexpr (!A_EXACT)
+                        tc_mma(part, asmall[s], db, s > 0);
+                    if constexpr (!B_EXACT)
+                        tc_mma(part, abig[s], ds, A_EXACT ? s > 0 : 1);
                     tc_mma(part, abig[s], db, 1);
                 } else {
-                    tc_mma(acc, asmall[s], db, 1);
-                    tc_mma(acc, abig[s], ds, 1);
+                    if constexpr (!A_EXACT) tc_mma(acc, asmall[s], db, 1);
+                    if constexpr (!B_EXACT) tc_mma(acc, abig[s], ds, 1);
                     tc_mma(acc, abig[s], db, 1);
                 }
             }
@@ -528,20 +618,24 @@ inline TcEncodeTiled tc_encode()
     return fn;
 }
 
-// the map of a row-major f32 matrix [outer][inner], boxes of box_inner x
-// box_outer with the 128-byte swizzle, zero outside it
-inline bool tc_map(CUtensorMap* map, const float* base, int inner, int outer,
+// the map of a row-major matrix [outer][inner] of T, boxes of box_inner x
+// box_outer, zero outside it: f32 with the 128-byte swizzle, bf16 with none
+template <typename T>
+inline bool tc_map(CUtensorMap* map, const T* base, int inner, int outer,
                    int box_inner, int box_outer)
 {
     const TcEncodeTiled enc = tc_encode();
     if (enc == nullptr) return false;
     const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-    const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(float)};
+    const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(T)};
     const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
     const cuuint32_t unit[2] = {1, 1};
-    return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-               const_cast<float*>(base), dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+    return enc(map, is_bf16<T> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+               const_cast<T*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE,
+               is_bf16<T> ? CU_TENSOR_MAP_SWIZZLE_NONE
+                          : CU_TENSOR_MAP_SWIZZLE_128B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -551,13 +645,14 @@ inline int tc_tiles(int M, int N)
     return ((M + TC_BM - 1) / TC_BM) * ((N + TC_BN - 1) / TC_BN);
 }
 
-template <int KIND, bool ACCUMULATE, bool PROMOTE>
+template <int KIND, bool ACCUMULATE, bool PROMOTE, typename TA, typename TB,
+          typename TO>
 cudaError_t tc_launch(const CUtensorMap& a, const CUtensorMap& b,
-                      const float* bias, float* C, int M, int N, int K,
+                      const float* bias, TO* C, int M, int N, int K,
                       int shift, int kslice, int ntiles, int ctas,
                       cudaStream_t st)
 {
-    const auto kernel = tc_gemm_kernel<KIND, ACCUMULATE, PROMOTE>;
+    const auto kernel = tc_gemm_kernel<KIND, ACCUMULATE, PROMOTE, TA, TB, TO>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TC_SMEM);
     if (err != cudaSuccess) return err;
@@ -567,40 +662,49 @@ cudaError_t tc_launch(const CUtensorMap& a, const CUtensorMap& b,
 }
 
 // C[M, N] = A[M, K] W[N, K]^T (+ bias) (+ C) on `ctas` persistent CTAs;
-// A and W 16-byte aligned, K a multiple of 4 (TMA's row strides)
-template <bool PROMOTE = true>
-cudaError_t tc_gate_gemm(const float* A, const float* W, const float* bias,
-                         float* C, int M, int N, int K, bool accumulate,
+// A and W 16-byte aligned, rows of K a multiple of 16 bytes (TMA's row
+// strides).  A may be bf16, or C (without accumulate), not both.
+template <bool PROMOTE = true, typename TA = float, typename TO = float>
+cudaError_t tc_gate_gemm(const TA* A, const float* W, const float* bias,
+                         TO* C, int M, int N, int K, bool accumulate,
                          int ctas, cudaStream_t st)
 {
+    static_assert(!(is_bf16<TA> && is_bf16<TO>), "one bf16 side at most");
     if (M <= 0 || N <= 0) return cudaSuccess;
     CUtensorMap a, b;
     if (!tc_map(&a, A, K, M, TC_BK, TC_BM) || !tc_map(&b, W, K, N, TC_BK,
                                                       TC_BN))
         return cudaErrorInvalidValue;
     const int ntiles = tc_tiles(M, N);
-    return accumulate
-        ? tc_launch<TC_GATE, true, PROMOTE>(a, b, bias, C, M, N, K, 0, 0,
-                                            ntiles, ctas, st)
-        : tc_launch<TC_GATE, false, PROMOTE>(a, b, bias, C, M, N, K, 0, 0,
-                                             ntiles, ctas, st);
+    if constexpr (is_bf16<TO>) {
+        if (accumulate) return cudaErrorInvalidValue;
+        return tc_launch<TC_GATE, false, PROMOTE, TA, float, TO>(
+            a, b, bias, C, M, N, K, 0, 0, ntiles, ctas, st);
+    } else {
+        return accumulate
+            ? tc_launch<TC_GATE, true, PROMOTE, TA, float, TO>(
+                  a, b, bias, C, M, N, K, 0, 0, ntiles, ctas, st)
+            : tc_launch<TC_GATE, false, PROMOTE, TA, float, TO>(
+                  a, b, bias, C, M, N, K, 0, 0, ntiles, ctas, st);
+    }
 }
 
 // C[z, N1, N2] = the partial of slice z (kslice rows, a multiple of TC_BK)
-// of A[K, N1]^T B[K + shift, N2], nsplit slices; N1 and N2 multiples of 4
-template <bool PROMOTE = true>
-cudaError_t tc_atb_gemm(const float* A, const float* B, float* C, int K,
+// of A[K, N1]^T B[K + shift, N2], nsplit slices; rows of N1 and N2
+// multiples of 16 bytes.  B may be bf16.
+template <bool PROMOTE = true, typename TB = float>
+cudaError_t tc_atb_gemm(const float* A, const TB* B, float* C, int K,
                         int N1, int N2, int shift, int nsplit, int kslice,
                         int ctas, cudaStream_t st)
 {
     if (N1 <= 0 || N2 <= 0) return cudaSuccess;
     CUtensorMap a, b;
-    if (!tc_map(&a, A, N1, K, 32, TC_BK) || !tc_map(&b, B, N2, K, 32, TC_BK))
+    if (!tc_map(&a, A, N1, K, 32, TC_BK)
+            || !tc_map(&b, B, N2, K, is_bf16<TB> ? TC_BN : 32, TC_BK))
         return cudaErrorInvalidValue;
     const int ntiles = tc_tiles(N1, N2) * nsplit;
-    return tc_launch<TC_ATB, false, PROMOTE>(a, b, nullptr, C, N1, N2, K,
-                                             shift, kslice, ntiles, ctas,
-                                             st);
+    return tc_launch<TC_ATB, false, PROMOTE, float, TB, float>(
+        a, b, nullptr, C, N1, N2, K, shift, kslice, ntiles, ctas, st);
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-// LSTM layer forward and backwards for Hopper (sm_90a), f32 throughout.
+// LSTM layer forward and backwards for Hopper (sm_90a), f32 arithmetic,
+// f32 or bf16 streams.
 //
 // Forward (tt_lstm_fwd) replaces the TPU kernel
 // taiyaki_tpu/ops/pallas_rnn.py:880 `lstm_fused_fwd`: h[t] of an LSTM layer
@@ -129,7 +130,28 @@
 //    -B (forward layer) or +B (reversed layer) row shift.
 //
 // Rows of the last batch tile past B run on zeros and are never stored.
+//
+// Streams (`streams`, STREAM_* below).  The f32 instances read and write
+// f32 alone.  The bf16 instances store what the JAX package's TPU kernels
+// store under its mixed precision (taiyaki_tpu/ops/rnn.py:29-42, the
+// port's TAIYAKI_TPU_BF16_STREAMS=1): the forward's residuals c, pre,
+// acts and tc in bf16 (pallas_rnn.py:862-872), h in bf16 or f32 (the act
+// stream), while the carry h, c stays f32 in registers and shared memory
+// and the gx scratch stays f32 (the TPU kernel's f32 VMEM); the backward
+// chains read dh (bf16 or f32), the residuals and c_prev in bf16 and widen
+// each value at load (pallas_rnn.py:323-333), the chain and dpre stay f32,
+// and d_x is written in x's type.  The GEMMs take x and h in bf16 where
+// the layer holds them so (gemm.cuh).  The rebuilt pre of the recomputing
+// backward is f32, as in the TPU kernel's VMEM.  Under the bf16 instance
+// EMIT_PRE writes pre (bf16) into the acts stream and leaves gx alone.
+// The bf16 instances are templates of the same kernels on the residuals'
+// type; the act and gradient streams' type is a run-time flag in them
+// (uniform across a launch), so that each kernel has two instances, not
+// four.  The backward cluster instance cannot copy 2-byte values with
+// cp.async (4 bytes at least): its bf16 instances load step s+1's inputs
+// into registers before the product and store them to the ring after it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -140,6 +162,45 @@
 #include "rec_cluster.cuh"
 
 namespace {
+
+// the entry points' `streams` bits: which tensors are bf16
+constexpr int STREAM_X_BF16 = 1;     // the layer input x (and d_x)
+constexpr int STREAM_H_BF16 = 2;     // h
+constexpr int STREAM_RES_BF16 = 4;   // the residuals: the bf16 instance
+constexpr int STREAM_DH_BF16 = 8;    // dh
+constexpr int STREAM_ALL = 15;
+
+// the residual streams' type of an instance
+template <bool BF16>
+using res_t = typename std::conditional<BF16, bf16, float>::type;
+
+// h of a cell into the act stream: f32, or bf16 where the bf16
+// instance's h_bf16 says so
+template <bool BF16>
+__device__ __forceinline__ void store_h(void* h_out, size_t o, float h,
+                                        int h_bf16)
+{
+    if (BF16 && h_bf16)
+        static_cast<bf16*>(h_out)[o] = __float2bfloat16_rn(h);
+    else
+        static_cast<float*>(h_out)[o] = h;
+}
+
+// dh of a cell from the gradient stream, as store_h
+template <bool BF16>
+__device__ __forceinline__ float load_dh(const void* dh, size_t o,
+                                         int dh_bf16)
+{
+    if (BF16 && dh_bf16) return widen(static_cast<const bf16*>(dh)[o]);
+    return static_cast<const float*>(dh)[o];
+}
+
+// `p` advanced by n elements of f32, or of bf16 with `bf`
+__host__ __device__ inline const void* advance(const void* p, size_t n,
+                                               bool bf)
+{
+    return static_cast<const char*>(p) + n * (bf ? 2 : 4);
+}
 
 __device__ __forceinline__ float sigmoidf_(float x)
 {
@@ -155,21 +216,26 @@ constexpr int EMIT_C = 1;          // c
 constexpr int EMIT_PRE = 2;        // c, and pre over gx
 constexpr int EMIT_ACTS = 3;       // c, acts and tc
 
-// gx is read only, except under EMIT_PRE, which writes pre over it
-template <int EMIT>
-using gx_ptr = typename std::conditional<EMIT == EMIT_PRE, float*,
+// gx is read only, except under EMIT_PRE of the f32 instance, which
+// writes pre over it (the bf16 instance writes pre into the acts stream)
+template <int EMIT, bool BF16 = false>
+using gx_ptr = typename std::conditional<EMIT == EMIT_PRE && !BF16, float*,
                                          const float*>::type;
 
 // h[t, b, :] for the BT-row batch tile of this block, and what EMIT asks.
-// gx [T, B, 4H] (input gates incl. bias; pre on return under EMIT_PRE),
-// swt [H, 4H] = sW^T, h [T, B, H].
-template <int BT, int EMIT>
+// gx [T, B, 4H] (input gates incl. bias; pre on return under EMIT_PRE of
+// the f32 instance), swt [H, 4H] = sW^T, h [T, B, H] (bf16 with h_bf16 in
+// the bf16 instance); the residuals in res_t<BF16>.
+template <int BT, int EMIT, bool BF16 = false>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
-lstm_rec_kernel(gx_ptr<EMIT> __restrict__ gx, const float* __restrict__ swt,
-                float* __restrict__ h_out, float* __restrict__ c_out,
-                float* __restrict__ acts_out, float* __restrict__ tc_out,
-                int T, int B, int H, int reverse)
+lstm_rec_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
+                const float* __restrict__ swt, void* __restrict__ h_out,
+                res_t<BF16>* __restrict__ c_out,
+                res_t<BF16>* __restrict__ acts_out,
+                res_t<BF16>* __restrict__ tc_out, int T, int B, int H,
+                int reverse, int h_bf16)
 {
+    using R = res_t<BF16>;
     extern __shared__ __align__(16) float h_s[];   // [2][H][BT]
     const int j = threadIdx.x;
     const bool active = j < H;
@@ -189,7 +255,7 @@ lstm_rec_kernel(gx_ptr<EMIT> __restrict__ gx, const float* __restrict__ swt,
         float* hn = h_s + ((s + 1) & 1) * H * BT;
         if (active) {
             float acc[4][BT];
-            const gx_ptr<EMIT> g = gx + ((size_t)t * B + b0) * H4 + j;
+            const gx_ptr<EMIT, BF16> g = gx + ((size_t)t * B + b0) * H4 + j;
 #pragma unroll
             for (int r = 0; r < BT; ++r)
 #pragma unroll
@@ -234,17 +300,23 @@ lstm_rec_kernel(gx_ptr<EMIT> __restrict__ gx, const float* __restrict__ swt,
                 hn[j * BT + r] = h;
                 if (r < nrow) {
                     const size_t o = (row + r) * H + j;
-                    h_out[o] = h;
-                    if (EMIT != EMIT_H) c_out[o] = c[r];
-                    if constexpr (EMIT == EMIT_PRE) {
+                    store_h<BF16>(h_out, o, h, h_bf16);
+                    if (EMIT != EMIT_H) c_out[o] = narrow<R>(c[r]);
+                    if constexpr (EMIT == EMIT_PRE && BF16) {
+                        R* p = acts_out + (row + r) * H4 + j;
+#pragma unroll
+                        for (int q = 0; q < 4; ++q)
+                            p[q * H] = narrow<R>(acc[q][r]);
+                    } else if constexpr (EMIT == EMIT_PRE) {
 #pragma unroll
                         for (int q = 0; q < 4; ++q)
                             g[(size_t)r * H4 + q * H] = acc[q][r];
                     }
                     if (EMIT == EMIT_ACTS) {
-                        tc_out[o] = tc;
-                        float* a = acts_out + (row + r) * H4 + j;
-                        a[0] = ig; a[H] = fg; a[2 * H] = gg; a[3 * H] = og;
+                        tc_out[o] = narrow<R>(tc);
+                        R* a = acts_out + (row + r) * H4 + j;
+                        a[0] = narrow<R>(ig); a[H] = narrow<R>(fg);
+                        a[2 * H] = narrow<R>(gg); a[3 * H] = narrow<R>(og);
                     }
                 }
             }
@@ -259,16 +331,18 @@ lstm_rec_kernel(gx_ptr<EMIT> __restrict__ gx, const float* __restrict__ swt,
 // (rec_cluster.cuh).  Arguments as lstm_rec_kernel's; C ranks of U units.
 // With CLOCK (probes/rec_phases.cu alone) the step's phases are timed
 // into `cycles` [blocks, REC_PHASES]; the layers pass nullptr.
-template <int RB, int EMIT, bool CLOCK = false>
+template <int RB, int EMIT, bool CLOCK = false, bool BF16 = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
-lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
+lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
                         const float* __restrict__ swt,
-                        float* __restrict__ h_out, float* __restrict__ c_out,
-                        float* __restrict__ acts_out,
-                        float* __restrict__ tc_out, int T, int B, int H,
-                        int reverse, int C, int U, int BT, int KS,
-                        long long* __restrict__ cycles)
+                        void* __restrict__ h_out,
+                        res_t<BF16>* __restrict__ c_out,
+                        res_t<BF16>* __restrict__ acts_out,
+                        res_t<BF16>* __restrict__ tc_out, int T, int B,
+                        int H, int reverse, int C, int U, int BT, int KS,
+                        long long* __restrict__ cycles, int h_bf16)
 {
+    using R = res_t<BF16>;
     extern __shared__ __align__(16) float smem[];
     const RecSmem m = rec_smem(smem, H, C, U, BT);
     const int b0 = cluster_id() * BT;
@@ -321,17 +395,22 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
             if (row < nrow) {
                 const size_t r = (size_t)t * B + b0 + row;
                 const size_t o = r * H + u;
-                h_out[o] = h;
-                if (EMIT != EMIT_H) c_out[o] = c[j];
-                if constexpr (EMIT == EMIT_PRE) {
+                store_h<BF16>(h_out, o, h, h_bf16);
+                if (EMIT != EMIT_H) c_out[o] = narrow<R>(c[j]);
+                if constexpr (EMIT == EMIT_PRE && BF16) {
+                    R* g = acts_out + r * H4 + u;
+                    g[0] = narrow<R>(pre.x); g[H] = narrow<R>(pre.y);
+                    g[2 * H] = narrow<R>(pre.z); g[3 * H] = narrow<R>(pre.w);
+                } else if constexpr (EMIT == EMIT_PRE) {
                     float* g = gx + r * H4 + u;
                     g[0] = pre.x; g[H] = pre.y; g[2 * H] = pre.z;
                     g[3 * H] = pre.w;
                 }
                 if (EMIT == EMIT_ACTS) {
-                    tc_out[o] = tc;
-                    float* a = acts_out + r * H4 + u;
-                    a[0] = ig; a[H] = fg; a[2 * H] = gg; a[3 * H] = og;
+                    tc_out[o] = narrow<R>(tc);
+                    R* a = acts_out + r * H4 + u;
+                    a[0] = narrow<R>(ig); a[H] = narrow<R>(fg);
+                    a[2 * H] = narrow<R>(gg); a[3 * H] = narrow<R>(og);
                 }
             }
         }
@@ -353,17 +432,21 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT> __restrict__ gx,
 // dh [T, B, H] (gradient of the layer's output); gates [T, B, 4H] = acts,
 // or pre with FROM_PRE; cs [T, B, H] = tanh(c), or c with FROM_PRE;
 // c_prev of step t is cprev[t + cshift] (zero outside [0, T));
-// sw [4H, H] = sW.
-template <int BT, bool FROM_PRE>
+// sw [4H, H] = sW.  The gates of type TG, cs and cprev of type TS (f32
+// for the f32 instance; bf16, and the gates bf16 or the recomputing
+// backward's f32 pre, for the bf16 ones); dh bf16 with dh_bf16 in the bf16
+// instances.
+template <int BT, bool FROM_PRE, typename TG = float, typename TS = float>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
-lstm_bwd_rec_kernel(const float* __restrict__ dh_out,
-                    const float* __restrict__ gates,
-                    const float* __restrict__ cs,
-                    const float* __restrict__ cprev, int cshift,
+lstm_bwd_rec_kernel(const void* __restrict__ dh_out,
+                    const TG* __restrict__ gates,
+                    const TS* __restrict__ cs,
+                    const TS* __restrict__ cprev, int cshift,
                     const float* __restrict__ sw, float* __restrict__ dpre,
                     float* __restrict__ db_part, int T, int B, int H,
-                    int reverse)
+                    int reverse, int dh_bf16)
 {
+    constexpr bool BF16 = is_bf16<TS>;
     extern __shared__ __align__(16) float g_s[];   // [2][4H][BT]
     const int j = threadIdx.x;
     const bool active = j < H;
@@ -388,21 +471,24 @@ lstm_bwd_rec_kernel(const float* __restrict__ dh_out,
                 float p[4] = {0.f, 0.f, 0.f, 0.f};
                 if (r < nrow) {
                     const size_t o = (row + r) * H + j;
-                    const float* a = gates + (row + r) * H4 + j;
+                    const TG* a = gates + (row + r) * H4 + j;
                     float ig, fg, gg, og, tc;
                     if (FROM_PRE) {
-                        ig = sigmoidf_(a[0]);
-                        fg = sigmoidf_(a[H]);
-                        gg = tanhf(a[2 * H]);
-                        og = sigmoidf_(a[3 * H]);
-                        tc = tanhf(cs[o]);
+                        ig = sigmoidf_(widen(a[0]));
+                        fg = sigmoidf_(widen(a[H]));
+                        gg = tanhf(widen(a[2 * H]));
+                        og = sigmoidf_(widen(a[3 * H]));
+                        tc = tanhf(widen(cs[o]));
                     } else {
-                        ig = a[0]; fg = a[H]; gg = a[2 * H]; og = a[3 * H];
-                        tc = cs[o];
+                        ig = widen(a[0]); fg = widen(a[H]);
+                        gg = widen(a[2 * H]); og = widen(a[3 * H]);
+                        tc = widen(cs[o]);
                     }
                     const float cp = has_prev
-                        ? cprev[((size_t)tp * B + b0 + r) * H + j] : 0.f;
-                    const float dh = dh_out[o] + dh_c[r];
+                        ? widen(cprev[((size_t)tp * B + b0 + r) * H + j])
+                        : 0.f;
+                    const float dh = load_dh<BF16>(dh_out, o, dh_bf16)
+                                     + dh_c[r];
                     const float d_o = dh * tc;
                     const float dc = dh * og * (1.f - tc * tc) + dc_c[r];
                     p[0] = dc * gg * ig * (1.f - ig);
@@ -455,7 +541,8 @@ lstm_bwd_rec_kernel(const float* __restrict__ dh_out,
 
 // Step t's inputs of this thread's cells into the ring [BT][U][7]: the
 // four gates, tc (or c), c_prev (zero where t + cshift is outside [0, T))
-// and dh.  Rows past B are left alone (no cell reads them).
+// and dh, by cp.async (the f32 instance).  Rows past B are left alone (no
+// cell reads them).
 __device__ __forceinline__ void lstm_bwd_prefetch(
     float* ring, const float* __restrict__ dh_out,
     const float* __restrict__ gates, const float* __restrict__ cs,
@@ -483,25 +570,74 @@ __device__ __forceinline__ void lstm_bwd_prefetch(
     }
 }
 
+// What lstm_bwd_prefetch copies, for the bf16 instances: read into v
+// [cell][word] and widened (lstm_bwd_load), then stored to the ring
+// (lstm_bwd_stash) once the step's product is done.
+constexpr int LSTM_BWD_WORDS = 7;
+
+template <typename TG, typename TS>
+__device__ __forceinline__ void lstm_bwd_load(
+    float (&v)[REC_MAX_CELLS][LSTM_BWD_WORDS], const void* __restrict__ dh,
+    int dh_bf16, const TG* __restrict__ gates, const TS* __restrict__ cs,
+    const TS* __restrict__ cprev, int cshift, int t, int T, int B, int b0,
+    int nrow, int H, int u0, const RecCells& cl)
+{
+    const int tp = t + cshift;
+    const bool has_prev = tp >= 0 && tp < T;
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            const int u = u0 + cl.u_c[j];
+            const size_t r = (size_t)t * B + b0 + cl.row[j];
+            const TG* g = gates + r * 4 * H + u;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) v[j][q] = widen(g[q * H]);
+            v[j][4] = widen(cs[r * H + u]);
+            v[j][5] = has_prev
+                ? widen(cprev[((size_t)tp * B + b0 + cl.row[j]) * H + u])
+                : 0.f;
+            v[j][6] = load_dh<true>(dh, r * H + u, dh_bf16);
+        }
+    }
+}
+
+__device__ __forceinline__ void lstm_bwd_stash(
+    float* ring, const float (&v)[REC_MAX_CELLS][LSTM_BWD_WORDS], int nrow,
+    int H, int U, int u0, const RecCells& cl)
+{
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            float* d = ring + ((size_t)cl.row[j] * U + cl.u_c[j])
+                       * rec_bwd_ring(4);
+#pragma unroll
+            for (int w = 0; w < LSTM_BWD_WORDS; ++w) d[w] = v[j][w];
+        }
+    }
+}
+
 // The cluster instance of the backward recurrence: what lstm_bwd_rec_kernel
 // computes, for the tile of BT rows of this cluster, rank q holding the
 // four gate rows of sW of units [q U, q U + U) and summing the partials of
 // those units (rec_cluster.cuh, the backward).  Arguments as
 // lstm_bwd_rec_kernel's; C ranks of U units; db_part [ceil(B / BT), 4H].
 // With CLOCK (probes/rec_phases.cu alone) the step's phases are timed
-// into `cycles`; the layers pass nullptr.
-template <int RB, int KL, bool FROM_PRE, bool CLOCK = false>
+// into `cycles`; the layers pass nullptr.  TG, TS and dh_bf16 as
+// lstm_bwd_rec_kernel's.
+template <int RB, int KL, bool FROM_PRE, bool CLOCK = false,
+          typename TG = float, typename TS = float>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
-lstm_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
-                            const float* __restrict__ gates,
-                            const float* __restrict__ cs,
-                            const float* __restrict__ cprev, int cshift,
+lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
+                            const TG* __restrict__ gates,
+                            const TS* __restrict__ cs,
+                            const TS* __restrict__ cprev, int cshift,
                             const float* __restrict__ sw,
                             float* __restrict__ dpre,
                             float* __restrict__ db_part, int T, int B, int H,
                             int reverse, int C, int U, int BT,
-                            long long* __restrict__ cycles)
+                            long long* __restrict__ cycles, int dh_bf16)
 {
+    constexpr bool BF16 = is_bf16<TS>;
     extern __shared__ __align__(16) float smem[];
     const RecBwdSmem m = rec_bwd_smem_of<4>(smem, H, C, U, BT);
     const int tile = cluster_id();
@@ -513,8 +649,16 @@ lstm_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
     const RecCells cl = rec_cells(H, U, BT, u0);
 
     rec_bwd_prologue<4>(m, sw, H, U, u0, BT);
-    lstm_bwd_prefetch(m.ring, dh_out, gates, cs, cprev, cshift,
-                      reverse ? 0 : T - 1, T, B, b0, nrow, H, U, u0, cl);
+    if constexpr (BF16) {
+        float v[REC_MAX_CELLS][LSTM_BWD_WORDS];
+        lstm_bwd_load(v, dh_out, dh_bf16, gates, cs, cprev, cshift,
+                      reverse ? 0 : T - 1, T, B, b0, nrow, H, u0, cl);
+        lstm_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
+    } else {
+        lstm_bwd_prefetch(m.ring, static_cast<const float*>(dh_out), gates,
+                          cs, cprev, cshift, reverse ? 0 : T - 1, T, B, b0,
+                          nrow, H, U, u0, cl);
+    }
     cp_async_commit();
     cp_async_wait<0>();
     cluster_sync();
@@ -575,12 +719,23 @@ lstm_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
         clk.template lap<REC_CELLS>();
         if (more) {
             __syncthreads();
-            lstm_bwd_prefetch(m.ring, dh_out, gates, cs, cprev, cshift,
-                              reverse ? t + 1 : t - 1, T, B, b0, nrow, H, U,
-                              u0, cl);
-            cp_async_commit();
-            rec_bwd_partials<4, RB, KL>(m, m.part + (size_t)nb * C * U * BT,
-                                        H, U, BT);
+            const int tn = reverse ? t + 1 : t - 1;
+            if constexpr (BF16) {
+                // the loads are in flight during the product
+                float v[REC_MAX_CELLS][LSTM_BWD_WORDS];
+                lstm_bwd_load(v, dh_out, dh_bf16, gates, cs, cprev, cshift,
+                              tn, T, B, b0, nrow, H, u0, cl);
+                rec_bwd_partials<4, RB, KL>(
+                    m, m.part + (size_t)nb * C * U * BT, H, U, BT);
+                lstm_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
+            } else {
+                lstm_bwd_prefetch(m.ring, static_cast<const float*>(dh_out),
+                                  gates, cs, cprev, cshift, tn, T, B, b0,
+                                  nrow, H, U, u0, cl);
+                cp_async_commit();
+                rec_bwd_partials<4, RB, KL>(
+                    m, m.part + (size_t)nb * C * U * BT, H, U, BT);
+            }
             clk.template lap<REC_PRODUCT>();
             rec_bwd_send(m, nb, C, U, BT);
             clk.template lap<REC_SEND>();
@@ -593,143 +748,186 @@ lstm_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
     clk.store(cycles);
 }
 
-template <int EMIT>
-int launch_lstm_rec(float* gx, const float* swt, float* h, float* c,
-                    float* acts, float* tc, int T, int B, int H, int reverse,
-                    cudaStream_t st)
+template <int EMIT, bool BF16>
+int launch_lstm_rec(float* gx, const float* swt, void* h, void* c,
+                    void* acts, void* tc, int T, int B, int H, int reverse,
+                    int h_bf16, cudaStream_t st)
 {
+    using R = res_t<BF16>;
+    const auto kernel = lstm_rec_kernel<REC_BT, EMIT, BF16>;
     const size_t smem = 2 * sizeof(float) * H * REC_BT;
     int rc;
-    if ((rc = set_smem((const void*)lstm_rec_kernel<REC_BT, EMIT>, smem)))
-        return rc;
+    if ((rc = set_smem((const void*)kernel, smem))) return rc;
     const int threads = (H + 31) / 32 * 32;
     const int blocks = (B + REC_BT - 1) / REC_BT;
-    lstm_rec_kernel<REC_BT, EMIT><<<blocks, threads, smem, st>>>(
-        gx, swt, h, c, acts, tc, T, B, H, reverse);
+    kernel<<<blocks, threads, smem, st>>>(
+        gx, swt, h, static_cast<R*>(c), static_cast<R*>(acts),
+        static_cast<R*>(tc), T, B, H, reverse, h_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster instance (kernel 2a) on a plan of C ranks, BT rows a tile,
 // RB rows a lane and KS k slices.
-template <int RB, int EMIT>
-int launch_lstm_rec_cluster(float* gx, const float* swt, float* h, float* c,
-                            float* acts, float* tc, int T, int B, int H,
-                            int reverse, int C, int BT, int KS, int smem,
-                            cudaStream_t st)
+template <int RB, int EMIT, bool BF16>
+int launch_lstm_rec_cluster(float* gx, const float* swt, void* h, void* c,
+                            void* acts, void* tc, int T, int B, int H,
+                            int reverse, int h_bf16, int C, int BT, int KS,
+                            int smem, cudaStream_t st)
 {
+    using R = res_t<BF16>;
     const int U = (H + C - 1) / C;
-    return rec_cluster_launch(lstm_rec_cluster_kernel<RB, EMIT>, C,
-                              (B + BT - 1) / BT,
+    return rec_cluster_launch(lstm_rec_cluster_kernel<RB, EMIT, false, BF16>,
+                              C, (B + BT - 1) / BT,
                               rec_cluster_threads(U, BT, RB, KS), smem, st,
-                              static_cast<gx_ptr<EMIT>>(gx), swt, h, c, acts,
-                              tc, T, B, H, reverse, C, U, BT, KS,
-                              static_cast<long long*>(nullptr));
+                              static_cast<gx_ptr<EMIT, BF16>>(gx), swt, h,
+                              static_cast<R*>(c), static_cast<R*>(acts),
+                              static_cast<R*>(tc), T, B, H, reverse, C, U,
+                              BT, KS, static_cast<long long*>(nullptr),
+                              h_bf16);
 }
 
 // Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.
-template <int EMIT>
-int launch_lstm_rec_plan(float* gx, const float* swt, float* h, float* c,
-                         float* acts, float* tc, int T, int B, int H,
-                         int reverse, int instance, int C, int BT, int RB,
-                         int KS, int smem, cudaStream_t st)
+template <int EMIT, bool BF16 = false>
+int launch_lstm_rec_plan(float* gx, const float* swt, void* h, void* c,
+                         void* acts, void* tc, int T, int B, int H,
+                         int reverse, int h_bf16, int instance, int C, int BT,
+                         int RB, int KS, int smem, cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
-        return launch_lstm_rec<EMIT>(gx, swt, h, c, acts, tc, T, B, H,
-                                     reverse, st);
+        return launch_lstm_rec<EMIT, BF16>(gx, swt, h, c, acts, tc, T, B, H,
+                                           reverse, h_bf16, st);
     return rec_with_rb(RB, [&](auto rb) {
-        return launch_lstm_rec_cluster<decltype(rb)::value, EMIT>(
-            gx, swt, h, c, acts, tc, T, B, H, reverse, C, BT, KS, smem, st);
+        return launch_lstm_rec_cluster<decltype(rb)::value, EMIT, BF16>(
+            gx, swt, h, c, acts, tc, T, B, H, reverse, h_bf16, C, BT, KS,
+            smem, st);
     });
 }
 
-// The backward chain (kernel 3) alone: dpre and the per-tile d_b.
-template <bool FROM_PRE>
-int launch_lstm_bwd_rec(const float* dh, const float* gates, const float* cs,
-                        const float* cprev, int cshift, const float* sw,
-                        float* dpre, float* db_part, int T, int B, int H,
-                        int reverse, cudaStream_t st)
+// Kernel 2 of the f32 or bf16 instance with the emit mode `emit`.
+template <bool BF16>
+int launch_lstm_rec_emit(int emit, float* gx, const float* swt, void* h,
+                         void* c, void* acts, void* tc, int T, int B, int H,
+                         int reverse, int h_bf16, int instance, int C,
+                         int BT, int RB, int KS, int smem, cudaStream_t st)
 {
+    switch (emit) {
+    case EMIT_H:
+        return launch_lstm_rec_plan<EMIT_H, BF16>(
+            gx, swt, h, nullptr, nullptr, nullptr, T, B, H, reverse, h_bf16,
+            instance, C, BT, RB, KS, smem, st);
+    case EMIT_C:
+        return launch_lstm_rec_plan<EMIT_C, BF16>(
+            gx, swt, h, c, nullptr, nullptr, T, B, H, reverse, h_bf16,
+            instance, C, BT, RB, KS, smem, st);
+    case EMIT_PRE:
+        return launch_lstm_rec_plan<EMIT_PRE, BF16>(
+            gx, swt, h, c, acts, nullptr, T, B, H, reverse, h_bf16, instance,
+            C, BT, RB, KS, smem, st);
+    default:
+        return launch_lstm_rec_plan<EMIT_ACTS, BF16>(
+            gx, swt, h, c, acts, tc, T, B, H, reverse, h_bf16, instance, C,
+            BT, RB, KS, smem, st);
+    }
+}
+
+// The backward chain (kernel 3) alone: dpre and the per-tile d_b.
+template <bool FROM_PRE, typename TG, typename TS>
+int launch_lstm_bwd_rec(const void* dh, const TG* gates, const TS* cs,
+                        const TS* cprev, int cshift, const float* sw,
+                        float* dpre, float* db_part, int T, int B, int H,
+                        int reverse, int dh_bf16, cudaStream_t st)
+{
+    const auto kernel = lstm_bwd_rec_kernel<REC_BT, FROM_PRE, TG, TS>;
     const size_t smem = 2 * sizeof(float) * 4 * H * REC_BT;
     int rc;
-    if ((rc = set_smem((const void*)lstm_bwd_rec_kernel<REC_BT, FROM_PRE>,
-                       smem)))
-        return rc;
+    if ((rc = set_smem((const void*)kernel, smem))) return rc;
     const int threads = (H + 31) / 32 * 32;
     const int blocks = (B + REC_BT - 1) / REC_BT;
-    lstm_bwd_rec_kernel<REC_BT, FROM_PRE><<<blocks, threads, smem, st>>>(
-        dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse);
+    kernel<<<blocks, threads, smem, st>>>(dh, gates, cs, cprev, cshift, sw,
+                                          dpre, db_part, T, B, H, reverse,
+                                          dh_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster instance of the chain (kernel 3a) on a plan of C ranks, BT
 // rows a tile, RB rows and KL output units a lane.
-template <int RB, int KL, bool FROM_PRE>
-int launch_lstm_bwd_rec_cluster(const float* dh, const float* gates,
-                                const float* cs, const float* cprev,
-                                int cshift, const float* sw, float* dpre,
-                                float* db_part, int T, int B, int H,
-                                int reverse, int C, int BT, int smem,
-                                cudaStream_t st)
+template <int RB, int KL, bool FROM_PRE, typename TG, typename TS>
+int launch_lstm_bwd_rec_cluster(const void* dh, const TG* gates,
+                                const TS* cs, const TS* cprev, int cshift,
+                                const float* sw, float* dpre, float* db_part,
+                                int T, int B, int H, int reverse, int dh_bf16,
+                                int C, int BT, int smem, cudaStream_t st)
 {
     const int U = (H + C - 1) / C;
     return rec_cluster_launch(
-        lstm_bwd_rec_cluster_kernel<RB, KL, FROM_PRE>, C, (B + BT - 1) / BT,
-        rec_bwd_threads(H, BT, RB, KL), smem, st, dh, gates, cs, cprev,
-        cshift, sw, dpre, db_part, T, B, H, reverse, C, U, BT,
-        static_cast<long long*>(nullptr));
+        lstm_bwd_rec_cluster_kernel<RB, KL, FROM_PRE, false, TG, TS>, C,
+        (B + BT - 1) / BT, rec_bwd_threads(H, BT, RB, KL), smem, st, dh,
+        gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse, C, U,
+        BT, static_cast<long long*>(nullptr), dh_bf16);
 }
 
 // Kernel 3 on a checked plan (rec_bwd_plan_check): the L2 or cluster
 // instance.
-template <bool FROM_PRE>
-int launch_lstm_bwd_rec_plan(const float* dh, const float* gates,
-                             const float* cs, const float* cprev, int cshift,
-                             const float* sw, float* dpre, float* db_part,
-                             int T, int B, int H, int reverse, int instance,
+template <bool FROM_PRE, typename TG, typename TS>
+int launch_lstm_bwd_rec_plan(const void* dh, const TG* gates, const TS* cs,
+                             const TS* cprev, int cshift, const float* sw,
+                             float* dpre, float* db_part, int T, int B,
+                             int H, int reverse, int dh_bf16, int instance,
                              int C, int BT, int RB, int KL, int smem,
                              cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
         return launch_lstm_bwd_rec<FROM_PRE>(dh, gates, cs, cprev, cshift,
                                              sw, dpre, db_part, T, B, H,
-                                             reverse, st);
+                                             reverse, dh_bf16, st);
     return rec_with_rb_kl(RB, KL, [&](auto rb, auto kl) {
         return launch_lstm_bwd_rec_cluster<decltype(rb)::value,
                                            decltype(kl)::value, FROM_PRE>(
             dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H,
-            reverse, C, BT, smem, st);
+            reverse, dh_bf16, C, BT, smem, st);
     });
 }
 
 // The chain (kernel 3, on the plan's instance) and the three products
 // after it (d_x, d_iW, d_sW, on the GEMM plans gemm[0..2], checked by
 // chain_plans_check); arguments as tt_lstm_bwd's, c_prev of step t being
-// cprev[t + cshift].
-template <bool FROM_PRE>
-int lstm_bwd_chain(const float* dh, const float* gates, const float* cs,
-                   const float* cprev, int cshift, const float* h,
-                   const float* x, const float* sw, const float* iwt,
-                   float* dpre, float* dx, float* dsw_part, float* diw_part,
-                   float* db_part, int T, int B, int D, int H, int reverse,
+// cprev[t + cshift]; h, x and dx of the types `streams` gives.
+template <bool FROM_PRE, typename TG, typename TS>
+int lstm_bwd_chain(const void* dh, const TG* gates, const TS* cs,
+                   const TS* cprev, int cshift, const void* h, const void* x,
+                   const float* sw, const float* iwt, float* dpre, void* dx,
+                   float* dsw_part, float* diw_part, float* db_part, int T,
+                   int B, int D, int H, int reverse, int streams,
                    const int* gemm, int instance, int C, int BT, int RB,
                    int KL, int smem, cudaStream_t st)
 {
     const int M = T * B, H4 = 4 * H;
+    const bool xb = streams & STREAM_X_BF16;
     int rc = launch_lstm_bwd_rec_plan<FROM_PRE>(
         dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse,
-        instance, C, BT, RB, KL, smem, st);
+        (streams & STREAM_DH_BF16) != 0, instance, C, BT, RB, KL, smem, st);
     if (rc) return rc;
     cudaError_t err;
-    if ((err = gemm_gate(gemm_plan_at(gemm, 0), dpre, iwt, nullptr, dx, M, D,
-                         H4, st)) != cudaSuccess)
+    if ((err = gemm_gate(gemm_plan_at(gemm, 0), GemmIn{dpre, false}, iwt,
+                         nullptr, GemmOut{dx, xb}, M, D, H4, st))
+            != cudaSuccess)
         return static_cast<int>(err);
-    if ((err = gemm_atb(gemm_plan_at(gemm, 1), dpre, x, diw_part, M, H4, D,
-                        0, st)) != cudaSuccess)
+    if ((err = gemm_atb(gemm_plan_at(gemm, 1), dpre, GemmIn{x, xb}, diw_part,
+                        M, H4, D, 0, st)) != cudaSuccess)
         return static_cast<int>(err);
     // h_prev[t] = h[t - 1] for a forward layer, h[t + 1] for a reversed one
-    return static_cast<int>(gemm_atb(gemm_plan_at(gemm, 2), dpre, h,
-                                     dsw_part, M, H4, H, reverse ? B : -B,
-                                     st));
+    return static_cast<int>(gemm_atb(
+        gemm_plan_at(gemm, 2), dpre,
+        GemmIn{h, (streams & STREAM_H_BF16) != 0}, dsw_part, M, H4, H,
+        reverse ? B : -B, st));
+}
+
+// The streams a launch may take: all f32 (0), or the bf16 instance
+// (STREAM_RES_BF16) with any of x, h and dh in bf16.
+inline bool streams_ok(int streams)
+{
+    return streams == 0
+        || ((streams & STREAM_RES_BF16) && (streams & ~STREAM_ALL) == 0);
 }
 
 }  // namespace
@@ -741,53 +939,48 @@ const char* tt_error_string(int err)
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// h [T, B, H] = LSTM over x [T, B, D]; gx is caller-allocated scratch
+// h [T, B, H] = LSTM over x [T, B, D]; gx is caller-allocated f32 scratch
 // [T, B, 4H]; swt = sW^T [H, 4H].  `emit` 0: h only; 1: also c [T, B, H];
-// 2: also c, and pre [T, B, 4H] written over gx; 3: also c, tc [T, B, H]
-// and acts [T, B, 4H].  The recurrence runs on the plan (instance, C, BT,
-// RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance 0 the L2 kernel
-// (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; the input product on the
-// GEMM plan gemm[0] of ops/gemm.py `gemm_plan`; a plan it cannot take
-// returns cudaErrorInvalidValue before any launch.  All f32, contiguous,
-// on one device.  Returns cudaGetLastError() after the first failing
-// launch (or the cluster launch's own error), else 0.
-int tt_lstm_fwd(const float* x, const float* iW, const float* b,
-                const float* swt, float* gx, float* h, float* c, float* acts,
-                float* tc, int T, int B, int D, int H, int reverse, int emit,
-                int instance, int C, int BT, int RB, int KS, int smem,
-                const int* gemm, void* stream)
+// 2: also c, and pre [T, B, 4H], written over gx by the f32 instance and
+// into `acts` by the bf16 one; 3: also c, tc [T, B, H] and acts
+// [T, B, 4H].  `streams` (STREAM_* bits): 0 for all f32, else the bf16
+// instance (STREAM_RES_BF16: c, pre, acts and tc in bf16), with x and h
+// in bf16 where their bits say.  The recurrence runs on the plan
+// (instance, C, BT, RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance 0
+// the L2 kernel (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; the input
+// product on the GEMM plan gemm[0] of ops/gemm.py `gemm_plan`; a plan it
+// cannot take returns cudaErrorInvalidValue before any launch.
+// Contiguous, on one device.  Returns cudaGetLastError() after the first
+// failing launch (or the cluster launch's own error), else 0.
+int tt_lstm_fwd(const void* x, const float* iW, const float* b,
+                const float* swt, float* gx, void* h, void* c, void* acts,
+                void* tc, int T, int B, int D, int H, int reverse, int emit,
+                int streams, int instance, int C, int BT, int RB, int KS,
+                int smem, const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B;
     if (M == 0) return 0;
-    if (H > REC_MAX_THREADS || emit < EMIT_H || emit > EMIT_ACTS)
+    if (H > REC_MAX_THREADS || emit < EMIT_H || emit > EMIT_ACTS
+            || !streams_ok(streams) || (streams & STREAM_DH_BF16))
         return static_cast<int>(cudaErrorInvalidValue);
+    const GemmIn xin{x, (streams & STREAM_X_BF16) != 0};
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess)
-        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
+        err = gate_plan_check(gemm_plan_at(gemm, 0), xin, iW, D);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, gx, M, 4 * H, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), xin, iW, b, GemmOut{gx, false}, M,
+                    4 * H, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    switch (emit) {
-    case EMIT_H:
-        return launch_lstm_rec_plan<EMIT_H>(gx, swt, h, nullptr, nullptr,
-                                            nullptr, T, B, H, reverse,
-                                            instance, C, BT, RB, KS, smem, st);
-    case EMIT_C:
-        return launch_lstm_rec_plan<EMIT_C>(gx, swt, h, c, nullptr, nullptr,
-                                            T, B, H, reverse, instance, C,
-                                            BT, RB, KS, smem, st);
-    case EMIT_PRE:
-        return launch_lstm_rec_plan<EMIT_PRE>(gx, swt, h, c, nullptr,
-                                              nullptr, T, B, H, reverse,
-                                              instance, C, BT, RB, KS, smem,
-                                              st);
-    default:
-        return launch_lstm_rec_plan<EMIT_ACTS>(gx, swt, h, c, acts, tc, T,
-                                               B, H, reverse, instance, C,
-                                               BT, RB, KS, smem, st);
-    }
+    const int hb = (streams & STREAM_H_BF16) != 0;
+    if (streams & STREAM_RES_BF16)
+        return launch_lstm_rec_emit<true>(emit, gx, swt, h, c, acts, tc, T,
+                                          B, H, reverse, hb, instance, C, BT,
+                                          RB, KS, smem, st);
+    return launch_lstm_rec_emit<false>(emit, gx, swt, h, c, acts, tc, T, B,
+                                       H, reverse, 0, instance, C, BT, RB,
+                                       KS, smem, st);
 }
 
 // How many clusters of the cluster instance's plan (C ranks, BT rows a
@@ -810,92 +1003,120 @@ int tt_lstm_cluster_occupancy(int H, int C, int BT, int RB, int KS,
 // LSTM layer backward from stored gates.  Inputs: dh, cprev, h [T, B, H],
 // x [T, B, D], sw = sW [4H, H], iwt = iW^T [D, 4H], and acts [T, B, 4H]
 // with tc [T, B, H] (from_pre 0) or pre [T, B, 4H] with c [T, B, H]
-// (from_pre 1) as gates and cs.  Scratch: dpre [T, B, 4H].  Outputs:
-// dx [T, B, D], dsw_part [nsplit, 4H, H], diw_part [nsplit, 4H, D],
-// db_part [ceil(B/BT), 4H], the partials' counts those of their GEMM
-// plans.  The chain runs on the plan (instance, C, BT, RB, KL, smem) of
-// ops/rnn_plan.py `bwd_plan`: instance 0 the L2 kernel (C 1, BT 8, RB 1,
-// KL 1, 32 H BT bytes), 1 the cluster kernel; d_x, d_iW and d_sW on the
-// GEMM plans gemm[0..2] (ops/gemm.py `chain_plans`); a plan it cannot
-// take returns cudaErrorInvalidValue before any launch.
-int tt_lstm_bwd(const float* dh, const float* gates, const float* cs,
-                const float* cprev, const float* h, const float* x,
-                const float* sw, const float* iwt, float* dpre, float* dx,
+// (from_pre 1) as gates and cs.  Scratch: dpre [T, B, 4H] f32.  Outputs:
+// dx [T, B, D] (x's type), dsw_part [nsplit, 4H, H], diw_part [nsplit,
+// 4H, D], db_part [ceil(B/BT), 4H], the partials' counts those of their
+// GEMM plans.  `streams` as tt_lstm_fwd's, with dh's bit: the bf16
+// instance reads gates, cs and cprev in bf16.  The chain runs on the plan
+// (instance, C, BT, RB, KL, smem) of ops/rnn_plan.py `bwd_plan`: instance
+// 0 the L2 kernel (C 1, BT 8, RB 1, KL 1, 32 H BT bytes), 1 the cluster
+// kernel; d_x, d_iW and d_sW on the GEMM plans gemm[0..2] (ops/gemm.py
+// `chain_plans`); a plan it cannot take returns cudaErrorInvalidValue
+// before any launch.
+int tt_lstm_bwd(const void* dh, const void* gates, const void* cs,
+                const void* cprev, const void* h, const void* x,
+                const float* sw, const float* iwt, float* dpre, void* dx,
                 float* dsw_part, float* diw_part, float* db_part, int T,
-                int B, int D, int H, int reverse, const int* gemm,
-                int from_pre, int instance, int C, int BT, int RB, int KL,
-                int smem, void* stream)
+                int B, int D, int H, int reverse, int streams,
+                const int* gemm, int from_pre, int instance, int C, int BT,
+                int RB, int KL, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    if (H > REC_MAX_THREADS || !streams_ok(streams))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess)
-        err = chain_plans_check(gemm, dpre, dpre, iwt, x, h, T * B, 4 * H, D,
-                                H);
+        err = chain_plans_check(
+            gemm, dpre, dpre, iwt, GemmIn{x, (streams & STREAM_X_BF16) != 0},
+            GemmIn{h, (streams & STREAM_H_BF16) != 0}, T * B, 4 * H, D, H);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (from_pre)
-        return lstm_bwd_chain<true>(dh, gates, cs, cprev, 0, h, x, sw, iwt,
-                                    dpre, dx, dsw_part, diw_part, db_part, T,
-                                    B, D, H, reverse, gemm, instance, C, BT,
-                                    RB, KL, smem, st);
-    return lstm_bwd_chain<false>(dh, gates, cs, cprev, 0, h, x, sw, iwt,
-                                 dpre, dx, dsw_part, diw_part, db_part, T, B,
-                                 D, H, reverse, gemm, instance, C, BT, RB,
-                                 KL, smem, st);
+    const auto run = [&](auto g, auto s, auto from) {
+        using TG = typename std::remove_pointer<decltype(g)>::type;
+        using TS = typename std::remove_pointer<decltype(s)>::type;
+        return lstm_bwd_chain<decltype(from)::value>(
+            dh, static_cast<const TG*>(gates), static_cast<const TS*>(cs),
+            static_cast<const TS*>(cprev), 0, h, x, sw, iwt, dpre, dx,
+            dsw_part, diw_part, db_part, T, B, D, H, reverse, streams, gemm,
+            instance, C, BT, RB, KL, smem, st);
+    };
+    using Pre = std::integral_constant<bool, true>;
+    using Acts = std::integral_constant<bool, false>;
+    const bf16* b = nullptr;
+    const float* f = nullptr;
+    if (streams & STREAM_RES_BF16)
+        return from_pre ? run(b, b, Pre{}) : run(b, b, Acts{});
+    return from_pre ? run(f, f, Pre{}) : run(f, f, Acts{});
 }
 
 // LSTM layer backward rebuilding pre.  Inputs: dh, c, h [T, B, H], x
 // [T, B, D], iW [4H, D], b [4H], sw = sW [4H, H], iwt = iW^T [D, 4H].
-// Scratch: pre and dpre [T, B, 4H].  Outputs and plan as tt_lstm_bwd's;
-// five GEMM plans: gemm[0] x iW^T, gemm[1] h_prev sW^T (for T > 1, on
-// (T - 1) B rows), then the chain's three.
-int tt_lstm_bwd_recompute(const float* dh, const float* c, const float* h,
-                          const float* x, const float* iW, const float* b,
+// Scratch: pre and dpre [T, B, 4H], f32.  Outputs, plan and `streams` as
+// tt_lstm_bwd's (the bf16 instance reads c in bf16; pre is f32); five
+// GEMM plans: gemm[0] x iW^T, gemm[1] h_prev sW^T (for T > 1, on (T - 1) B
+// rows), then the chain's three.
+int tt_lstm_bwd_recompute(const void* dh, const void* c, const void* h,
+                          const void* x, const float* iW, const float* b,
                           const float* sw, const float* iwt, float* pre,
-                          float* dpre, float* dx, float* dsw_part,
+                          float* dpre, void* dx, float* dsw_part,
                           float* diw_part, float* db_part, int T, int B,
-                          int D, int H, int reverse, const int* gemm,
-                          int instance, int C, int BT, int RB, int KL,
-                          int smem, void* stream)
+                          int D, int H, int reverse, int streams,
+                          const int* gemm, int instance, int C, int BT,
+                          int RB, int KL, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int H4 = 4 * H;
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    const float* hsrc = reverse ? h + (size_t)B * H : h;
+    if (H > REC_MAX_THREADS || !streams_ok(streams))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool hb = streams & STREAM_H_BF16;
+    const GemmIn xin{x, (streams & STREAM_X_BF16) != 0};
+    const GemmIn hsrc{reverse ? advance(h, (size_t)B * H, hb) : h, hb};
     float* pdst = reverse ? pre : pre + (size_t)B * H4;
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess)
-        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
+        err = gate_plan_check(gemm_plan_at(gemm, 0), xin, iW, D);
     if (err == cudaSuccess)
         err = gate_plan_check(gemm_plan_at(gemm, 1), hsrc, sw, H);
     if (err == cudaSuccess)
-        err = chain_plans_check(gemm + 2 * GEMM_PLAN_INTS, dpre, dpre, iwt, x,
-                                h, T * B, H4, D, H);
+        err = chain_plans_check(gemm + 2 * GEMM_PLAN_INTS, dpre, dpre, iwt,
+                                xin, GemmIn{h, hb}, T * B, H4, D, H);
     if (err != cudaSuccess) return static_cast<int>(err);
     // pre[t] = x[t] iW^T + b + h_prev[t] sW^T, h_prev[t] = h[t -/+ 1]; the
     // boundary step's h_prev is zero and adds nothing
-    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, pre, T * B, H4, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), xin, iW, b, GemmOut{pre, false},
+                    T * B, H4, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (T > 1) {
-        err = gemm_gate(gemm_plan_at(gemm, 1), hsrc, sw, nullptr, pdst,
-                        (T - 1) * B, H4, H, st, true);
+        err = gemm_gate(gemm_plan_at(gemm, 1), hsrc, sw, nullptr,
+                        GemmOut{pdst, false}, (T - 1) * B, H4, H, st, true);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     // c_prev[t] = c[t - 1] forward, c[t + 1] reversed
-    return lstm_bwd_chain<true>(dh, pre, c, c, reverse ? 1 : -1, h, x, sw,
-                                iwt, dpre, dx, dsw_part, diw_part, db_part,
-                                T, B, D, H, reverse, gemm + 2 * GEMM_PLAN_INTS,
-                                instance, C, BT, RB, KL, smem, st);
+    const int cshift = reverse ? 1 : -1;
+    const int* g = gemm + 2 * GEMM_PLAN_INTS;
+    if (streams & STREAM_RES_BF16) {
+        const bf16* cb = static_cast<const bf16*>(c);
+        return lstm_bwd_chain<true>(dh, static_cast<const float*>(pre), cb,
+                                    cb, cshift, h, x, sw, iwt, dpre, dx,
+                                    dsw_part, diw_part, db_part, T, B, D, H,
+                                    reverse, streams, g, instance, C, BT, RB,
+                                    KL, smem, st);
+    }
+    const float* cf = static_cast<const float*>(c);
+    return lstm_bwd_chain<true>(dh, static_cast<const float*>(pre), cf, cf,
+                                cshift, h, x, sw, iwt, dpre, dx, dsw_part,
+                                diw_part, db_part, T, B, D, H, reverse,
+                                streams, g, instance, C, BT, RB, KL, smem,
+                                st);
 }
 
 // Kernel 14: the LSTM recurrence on given gates.  gx [T, B, 4H] (read
 // only), swt = sW^T [H, 4H] -> h [T, B, H]; with pre non-null also c
 // [T, B, H] and pre [T, B, 4H] (gx copied into pre, then overwritten in
-// place by the chain).  The plan as tt_lstm_fwd's.  Returns
+// place by the chain).  All f32.  The plan as tt_lstm_fwd's.  Returns
 // cudaGetLastError() after the first failing launch or copy, else 0.
 int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
                      float* h, float* c, int T, int B, int H, int reverse,
@@ -911,22 +1132,22 @@ int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
     if (pre == nullptr)
         return launch_lstm_rec_plan<EMIT_H>(const_cast<float*>(gx), swt, h,
                                             nullptr, nullptr, nullptr, T, B,
-                                            H, reverse, instance, C, BT,
+                                            H, reverse, 0, instance, C, BT,
                                             RB, KS, smem, st);
     err = cudaMemcpyAsync(pre, gx, sizeof(float) * T * B * 4 * H,
                           cudaMemcpyDeviceToDevice, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     return launch_lstm_rec_plan<EMIT_PRE>(pre, swt, h, c, nullptr, nullptr,
-                                          T, B, H, reverse, instance, C, BT,
-                                          RB, KS, smem, st);
+                                          T, B, H, reverse, 0, instance, C,
+                                          BT, RB, KS, smem, st);
 }
 
 // Kernel 15: the LSTM gradient chain on the forward's residuals.  dh, c,
 // cprev [T, B, H], pre [T, B, 4H], sw = sW [4H, H] -> dpre [T, B, 4H];
 // db_part [ceil(B/BT), 4H] is scratch (the chain sums d_b, which the
 // recurrence on given gates has no use for).  With iwt = iW^T [D, 4H]
-// non-null also dx [T, B, D] = dpre . iW, on the GEMM plan gemm[0].  The
-// plan as tt_lstm_bwd's.
+// non-null also dx [T, B, D] = dpre . iW, on the GEMM plan gemm[0].  All
+// f32.  The plan as tt_lstm_bwd's.
 int tt_lstm_scan_bwd(const float* dh, const float* pre, const float* c,
                      const float* cprev, const float* sw, const float* iwt,
                      float* dpre, float* dx, float* db_part, int T, int B,
@@ -942,8 +1163,9 @@ int tt_lstm_scan_bwd(const float* dh, const float* pre, const float* c,
         err = gate_plan_check(gemm_plan_at(gemm, 0), dpre, iwt, 4 * H);
     if (err != cudaSuccess) return static_cast<int>(err);
     int rc = launch_lstm_bwd_rec_plan<true>(dh, pre, c, cprev, 0, sw, dpre,
-                                            db_part, T, B, H, reverse,
-                                            instance, C, BT, RB, KL, smem, st);
+                                            db_part, T, B, H, reverse, 0,
+                                            instance, C, BT, RB, KL, smem,
+                                            st);
     if (rc || iwt == nullptr) return rc;
     return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dpre, iwt,
                                       nullptr, dx, T * B, D, 4 * H, st));

@@ -84,6 +84,13 @@ def _linear_init(rng, size, insize, has_bias):
     return params
 
 
+def _promote(x, like):
+    """`x` in `like`'s dtype where they differ: JAX's promotion of a bf16
+    stream (an LSTM layer's h under TAIYAKI_TPU_BF16_STREAMS=1, ops/rnn.py)
+    beside an f32 parameter, bf16 with f32 giving f32."""
+    return x if x.dtype == like.dtype else x.to(like.dtype)
+
+
 def _as_np(t):
     """A parameter as a float32 numpy array on the host (JSON export)."""
     return t.detach().cpu().numpy().astype(np.float32)
@@ -142,7 +149,7 @@ class FeedForward(Layer):
         return _linear_init(rng, self.size, self.insize, self.has_bias)
 
     def linear(self, x):
-        y = torch.matmul(x, self.W.t())
+        y = torch.matmul(_promote(x, self.W), self.W.t())
         return y + self.b if self.has_bias else y
 
     def forward(self, x):
@@ -498,7 +505,8 @@ class GatedResidual(Layer):
 
     def forward(self, x):
         gate = torch.sigmoid(self.alpha[0])
-        return gate * x + (1.0 - gate) * self.layer(x)
+        return (gate * _promote(x, gate)
+                + (1.0 - gate) * _promote(self.layer(x), gate))
 
     def json(self):
         res = OrderedDict([("type", "GatedResidual"),
@@ -533,7 +541,7 @@ class SoftChoice(Layer):
 
     def forward(self, x):
         ps = torch.softmax(self.alpha, dim=0)
-        ys = [p * l(x) for p, l in zip(ps, self.sublayers)]
+        ys = [p * _promote(l(x), p) for p, l in zip(ps, self.sublayers)]
         return sum(ys[1:], start=ys[0])
 
     def json(self):
@@ -799,7 +807,7 @@ class GlobalNormFlipFlop(Layer):
         return _linear_init(rng, self.size, self.insize, self.has_bias)
 
     def forward(self, x):
-        y = torch.matmul(x, self.W.t())
+        y = torch.matmul(_promote(x, self.W), self.W.t())
         if self.has_bias:
             y = y + self.b
         return self.scale * self.activation(y)
@@ -901,7 +909,7 @@ class GlobalNormFlipFlopCatMod(Layer):
         return _linear_init(rng, self.size, self.insize, self.has_bias)
 
     def forward(self, x):
-        y = torch.matmul(x, self.W.t())
+        y = torch.matmul(_promote(x, self.W), self.W.t())
         if self.has_bias:
             y = y + self.b
         trans = 5.0 * torch.tanh(y[..., :self.ntrans_states])

@@ -1,5 +1,6 @@
-"""The two f32 GEMMs under the recurrent layers (csrc/gemm.cuh), their
-plan, their plain twins and standalone entry points.
+"""The two GEMMs under the recurrent layers (csrc/gemm.cuh), their plan,
+their plain twins and standalone entry points; f32 sums of f32 or bf16
+operands.
 
 - `gate_gemm`: C[M, N] = A[M, K] . W[N, K]^T (+ bias) (+ C): the input
   product of the layer forwards, d_x of the backwards and the gate streams
@@ -27,6 +28,15 @@ view, so that the plan stays a function of shapes alone.  The layers'
 wrappers (ops/lstm.py, ops/gru.py) pass the plans of their products and
 count them here, by instance: `gate_gemm.by_instance` and
 `atb_gemm.by_instance` count every GEMM of every path.
+
+bf16 operands (the LSTM layers' bf16 streams, ops/rnn.py): the gate
+product's A (x, or h_prev) and the atb product's B (x, or h) may be
+bf16, and the gate product's output (d_x, `out_dtype`); the rest is f32.
+Both instances widen a bf16 value exactly and sum in f32 (the tc
+instance drops the pass of its zero small part), so the twins compute
+the same products on the widened values; a bf16 output is the f32 sum
+rounded once.  TMA's 16-byte rows are 8 bf16 (`tc_takes`).  Each GEMM
+counts its launches with a bf16 operand or output (`<gemm>.bf16`).
 
 On a CPU tensor the plain twin runs; on a CUDA tensor the kernel launches,
 or the wrapper raises.
@@ -64,15 +74,19 @@ SMS_H100 = 132
 GemmPlan = collections.namedtuple("GemmPlan",
                                   "kind instance nsplit kslice ctas")
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_gate_gemm": [_P] * 4 + [_I] * 4 + [_P, _P],
-               "tt_atb_gemm": [_P] * 3 + [_I] * 4 + [_P, _P]}
+_SIGNATURES = {"tt_gate_gemm": [_P] * 4 + [_I] * 6 + [_P, _P],
+               "tt_atb_gemm": [_P] * 3 + [_I] * 5 + [_P, _P]}
+BF16 = torch.bfloat16
 
 
-def tc_takes(kind, M, N, K):
-    """Whether TMA takes every operand of the product: the gate product's
-    A [M, K] and W [N, K] need K % 4 == 0, the atb product's A [K, M] and
-    B [K, N] need M % 4 == 0 and N % 4 == 0."""
-    return K % 4 == 0 if kind == GATE else M % 4 == 0 and N % 4 == 0
+def tc_takes(kind, M, N, K, bf16=False):
+    """Whether TMA takes every operand of the product (rows of 16 bytes):
+    the gate product's A [M, K] and W [N, K] need K % 4 == 0 (K % 8 with
+    a bf16 A), the atb product's A [K, M] and B [K, N] need M % 4 == 0 and
+    N % 4 == 0 (N % 8 with a bf16 B)."""
+    if kind == GATE:
+        return K % (8 if bf16 else 4) == 0
+    return M % 4 == 0 and N % (8 if bf16 else 4) == 0
 
 
 def tc_tiles(M, N):
@@ -113,7 +127,8 @@ def simt_nsplit(K):
 
 
 @functools.lru_cache(maxsize=None)
-def gemm_plan(M, N, K, kind, sms=SMS_H100, instance=None, nsplit=None):
+def gemm_plan(M, N, K, kind, sms=SMS_H100, instance=None, nsplit=None,
+              bf16=False):
     """The plan of a product: GemmPlan(kind, instance, nsplit, kslice,
     ctas).  kind GATE: C[M, N] = A[M, K] W[N, K]^T; kind ATB: the partials
     of A[K, M]^T B[K, N] (K the reduction's rows).  "tc" wherever
@@ -122,18 +137,19 @@ def gemm_plan(M, N, K, kind, sms=SMS_H100, instance=None, nsplit=None):
     `nsplit` asks for that many atb slices (the tc instance may merge some:
     its slices are whole k tiles); None takes the plan's.  `sms` is the
     card's SM count: the tc instance runs min(tiles, sms) persistent CTAs,
-    and its atb slices fill them."""
+    and its atb slices fill them.  `bf16`: the gate product's A or the atb
+    product's B is bf16 (`tc_takes`)."""
     if kind not in (GATE, ATB):
         raise ValueError("gemm_plan: kind must be {!r} or {!r}".format(
             GATE, ATB))
     check_instance(instance)
     if min(M, N, K) < 0 or sms < 1 or (nsplit is not None and nsplit < 1):
         raise ValueError("gemm_plan: bad shape or counts")
-    takes = tc_takes(kind, M, N, K)
+    takes = tc_takes(kind, M, N, K, bf16)
     if instance == "tc" and not takes:
         raise ValueError("gemm_plan: the tc instance needs rows of a "
-                         "multiple of 4 floats ({} M={} N={} K={})".format(
-                             kind, M, N, K))
+                         "multiple of 16 bytes ({} M={} N={} K={}{})".format(
+                             kind, M, N, K, " bf16" if bf16 else ""))
     inst = instance or ("tc" if takes else "simt")
     if kind == GATE:
         return GemmPlan(GATE, inst, 1, 0, max(1, min(tc_tiles(M, N), sms))
@@ -182,35 +198,43 @@ def card_sms(index):
 
 
 def plans_for(device, *shapes):
-    """The plans of the products (M, N, K, kind) on `device`."""
+    """The plans of the products (M, N, K, kind) or (M, N, K, kind, bf16)
+    on `device`."""
     sms = card_sms(device.index if device.index is not None
                    else torch.cuda.current_device())
-    return [gemm_plan(M, N, K, kind, sms) for M, N, K, kind in shapes]
+    return [gemm_plan(*shape[:4], sms, bf16=bool(shape[4:] and shape[4]))
+            for shape in shapes]
 
 
-def chain_plans(device, M, G, D, H):
+def chain_plans(device, M, G, D, H, x_bf16=False, h_bf16=False):
     """The plans of a backward's three products after its chain, in the
     order the C side runs them: d_x [M, D] = dgates [M, G] . iW, d_iW
-    partials [G, D] and d_sW partials [G, H]."""
-    return plans_for(device, (M, D, G, GATE), (G, D, M, ATB),
-                     (G, H, M, ATB))
+    partials [G, D] (of x, bf16 with x_bf16) and d_sW partials [G, H] (of
+    h, bf16 with h_bf16)."""
+    return plans_for(device, (M, D, G, GATE), (G, D, M, ATB, x_bf16),
+                     (G, H, M, ATB, h_bf16))
 
 
-def count(plans):
+def count(plans, bf16=()):
     """One launch of each plan's kernel: its kind's `launches` and its
-    instance's counter."""
-    for p in plans:
+    instance's counter, and its kind's `bf16` counter where the flag of the
+    same place in `bf16` is set (a bf16 operand or output)."""
+    for i, p in enumerate(plans):
         fn = gate_gemm if p.kind == GATE else atb_gemm
         fn.launches += 1
         fn.by_instance[p.instance].launches += 1
+        if i < len(bf16) and bf16[i]:
+            fn.bf16.launches += 1
 
 
-def gate_gemm_plain(A, W, bias=None, C=None):
-    """Plain PyTorch C[M, N] = A[M, K] . W[N, K]^T (+ bias [N]) (+ C)."""
-    out = torch.matmul(A, W.t())
+def gate_gemm_plain(A, W, bias=None, C=None, out_dtype=None):
+    """Plain PyTorch C[M, N] = A[M, K] . W[N, K]^T (+ bias [N]) (+ C), in
+    f32 on A widened; the result in `out_dtype` (f32 by default)."""
+    out = torch.matmul(A.float(), W.t())
     if bias is not None:
         out = out + bias
-    return out if C is None else out + C
+    out = out if C is None else out + C
+    return out if out_dtype in (None, out.dtype) else out.to(out_dtype)
 
 
 def shifted(B, shift):
@@ -230,50 +254,64 @@ def atb_gemm_plain(A, B, shift=0, nsplit=1, kslice=None):
     default)."""
     K = A.shape[0]
     kslice = kslice or max(1, -(-K // nsplit))
-    Bs = shifted(B, shift)
+    Bs = shifted(B.float(), shift)
     return torch.stack([torch.matmul(A[z * kslice:(z + 1) * kslice].t(),
                                      Bs[z * kslice:(z + 1) * kslice])
                         for z in range(nsplit)])
 
 
 def _check(what, device, specs):
-    for name, t, shape in specs:
-        if t.device != device or t.dtype != torch.float32 \
+    """Each (name, tensor, shape[, dtypes]) of `specs` contiguous, of that
+    shape, on `device` and of one of `dtypes` (float32 alone by
+    default)."""
+    for name, t, shape, *dtypes in specs:
+        dtypes = dtypes[0] if dtypes else (torch.float32,)
+        if t.device != device or t.dtype not in dtypes \
                 or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(
-                "{}: {} must be a contiguous float32 tensor of shape {} on "
-                "{} (got {} {} {})".format(what, name, tuple(shape), device,
-                                           t.dtype, tuple(t.shape), t.device))
+                "{}: {} must be a contiguous {} tensor of shape {} on {} "
+                "(got {} {} {})".format(
+                    what, name, " or ".join(str(d).replace("torch.", "")
+                                            for d in dtypes),
+                    tuple(shape), device, t.dtype, tuple(t.shape), t.device))
 
 
-def gate_gemm(A, W, bias=None, C=None, instance=None):
+def gate_gemm(A, W, bias=None, C=None, instance=None, out_dtype=None):
     """C[M, N] = A[M, K] . W[N, K]^T (+ bias) (+ C), on `gemm_plan`'s
     instance or the forced `instance`; with C the product is added to it
     in place on the card (the recomputing LSTM backward's second product)
-    and C returned.  On the CPU, `gate_gemm_plain` whatever `instance`
-    says."""
+    and C returned.  A may be bf16; `out_dtype` bf16 gives a bf16 result
+    (with an f32 A and no C).  On the CPU, `gate_gemm_plain` whatever
+    `instance` says."""
     check_instance(instance)
+    out_dtype = out_dtype or torch.float32
     if A.device.type == "cpu":
-        return gate_gemm_plain(A, W, bias, C)
+        return gate_gemm_plain(A, W, bias, C, out_dtype)
     cuda_lib.check_cuda(A, "gate_gemm")
     M, K = A.shape
     N = W.shape[0]
-    specs = [("A", A, (M, K)), ("W", W, (N, K))]
+    a_bf16, c_bf16 = A.dtype == BF16, out_dtype == BF16
+    if out_dtype not in (torch.float32, BF16) or (c_bf16 and (
+            a_bf16 or C is not None)):
+        raise ValueError("gate_gemm: a bf16 output takes an f32 A and no C")
+    specs = [("A", A, (M, K), (torch.float32, BF16)), ("W", W, (N, K))]
     if bias is not None:
         specs.append(("bias", bias, (N,)))
     if C is not None:
         specs.append(("C", C, (M, N)))
     _check("gate_gemm", A.device, specs)
     A, W = tma_ready(A, W)
-    plan = gemm_plan(M, N, K, GATE, card_sms(A.device.index), instance)
+    plan = gemm_plan(M, N, K, GATE, card_sms(A.device.index), instance,
+                     bf16=a_bf16)
     lib = cuda_lib.load("gemm", _SIGNATURES)
     with torch.cuda.device(A.device):
-        out = C if C is not None else torch.empty(M, N, device=A.device)
+        out = C if C is not None else torch.empty(M, N, device=A.device,
+                                                  dtype=out_dtype)
         err = lib.tt_gate_gemm(
             cuda_lib.ptr(A), cuda_lib.ptr(W), cuda_lib.ptr(bias),
-            cuda_lib.ptr(out), M, N, K, int(C is not None), c_args([plan]),
-            cuda_lib.stream(A.device))
-        count([plan])
+            cuda_lib.ptr(out), M, N, K, int(C is not None), int(a_bf16),
+            int(c_bf16), c_args([plan]), cuda_lib.stream(A.device))
+        count([plan], [a_bf16 or c_bf16])
     cuda_lib.check(lib, err, "gate_gemm kernel")
     return out
 
@@ -281,27 +319,30 @@ def gate_gemm(A, W, bias=None, C=None, instance=None):
 def atb_gemm(A, B, shift=0, nsplit=None, instance=None):
     """Partials [nsplit, N1, N2] of A[K, N1]^T B[K, N2] shifted by `shift`
     rows, on `gemm_plan`'s instance and slices (or the forced `instance`,
-    and `nsplit` asked for); the caller sums them.  On the CPU,
-    `atb_gemm_plain` on the slices the plan gives (at 132 SMs) whatever
-    `instance` says."""
+    and `nsplit` asked for); the caller sums them.  B may be bf16.  On the
+    CPU, `atb_gemm_plain` on the slices the plan gives (at 132 SMs)
+    whatever `instance` says."""
     check_instance(instance)
     K, N1 = A.shape
     N2 = B.shape[1]
+    b_bf16 = B.dtype == BF16
     if A.device.type == "cpu":
-        plan = gemm_plan(N1, N2, K, ATB, SMS_H100, instance, nsplit)
+        plan = gemm_plan(N1, N2, K, ATB, SMS_H100, instance, nsplit, b_bf16)
         return atb_gemm_plain(A, B, shift, plan.nsplit, plan.kslice)
     cuda_lib.check_cuda(A, "atb_gemm")
-    _check("atb_gemm", A.device, (("A", A, (K, N1)), ("B", B, (K, N2))))
+    _check("atb_gemm", A.device, (("A", A, (K, N1)),
+                                  ("B", B, (K, N2), (torch.float32, BF16))))
     A, B = tma_ready(A, B)
     plan = gemm_plan(N1, N2, K, ATB, card_sms(A.device.index), instance,
-                     nsplit)
+                     nsplit, b_bf16)
     lib = cuda_lib.load("gemm", _SIGNATURES)
     with torch.cuda.device(A.device):
         out = torch.empty(plan.nsplit, N1, N2, device=A.device)
         err = lib.tt_atb_gemm(
             cuda_lib.ptr(A), cuda_lib.ptr(B), cuda_lib.ptr(out), K, N1, N2,
-            int(shift), c_args([plan]), cuda_lib.stream(A.device))
-        count([plan])
+            int(shift), int(b_bf16), c_args([plan]),
+            cuda_lib.stream(A.device))
+        count([plan], [b_bf16])
     cuda_lib.check(lib, err, "atb_gemm kernel")
     return out
 
@@ -309,3 +350,4 @@ def atb_gemm(A, B, shift=0, nsplit=None, instance=None):
 for _fn in (gate_gemm, atb_gemm):
     _fn.launches = 0
     _fn.by_instance = {k: Launches() for k in INSTANCES}
+    _fn.bf16 = Launches()

@@ -38,7 +38,7 @@ import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib, gemm, rnn_plan
 from taiyaki_tpu_torch.ops.lstm import (_check_args, _check_hidden,
-                                        bwd_outputs, prev_state)
+                                        bwd_outputs, no_bf16, prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
 # (the GEMM plans go as one pointer, an int array: ops/gemm.py `c_args`)
@@ -93,6 +93,7 @@ def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
     ("cluster" or "l2") forces an instance of the recurrence on the card,
     for tests and timing; None takes `rnn_plan.rec_plan`'s."""
     rnn_plan.check_instance(instance)
+    no_bf16("gru_fwd", x)
     if x.device.type == "cpu":
         return gru_fwd_plain(x, iW, b, sW, reverse, emit_residuals)
     cuda_lib.check_cuda(x, "gru_fwd")
@@ -193,6 +194,7 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
     ("cluster" or "l2") forces an instance of the chain on the card, for
     tests and timing; None takes `rnn_plan.bwd_plan`'s."""
     rnn_plan.check_instance(instance)
+    no_bf16("gru_bwd_recompute", dh, h, x)
     if dh.device.type == "cpu":
         return gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse)
     cuda_lib.check_cuda(dh, "gru_bwd_recompute")
@@ -235,6 +237,7 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
     `gru_bwd_recompute`.  gx and gh are read, never written: the gradients
     go to scratch of their own."""
     rnn_plan.check_instance(instance)
+    no_bf16("gru_bwd_fusedw", dh, gx, gh, h_prev, x)
     if dh.device.type == "cpu":
         return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
     cuda_lib.check_cuda(dh, "gru_bwd_fusedw")
@@ -281,6 +284,7 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
     `gru_scan_fwd_plain`.  gates_x is read, never written.  `instance` as
     `gru_fwd`'s."""
     rnn_plan.check_instance(instance)
+    no_bf16("gru_scan_fwd", gates_x, sW)
     if gates_x.device.type == "cpu":
         return gru_scan_fwd_plain(gates_x, sW, reverse, residuals)
     what = "gru_scan_fwd"
@@ -325,6 +329,7 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
     `gru_scan_bwd_plain`.  gates_x and gh are read, never written.
     `instance` as `gru_bwd_recompute`'s."""
     rnn_plan.check_instance(instance)
+    no_bf16("gru_scan_bwd", dh, gates_x, gh, h_prev, sW, iW)
     if dh.device.type == "cpu":
         return gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse, iW)
     what = "gru_scan_bwd"

@@ -29,6 +29,21 @@ one before the launch, by shape and by the clusters the card runs at once
 (`<wrapper>.by_instance`).  The keyword `instance=` forces one, for tests
 and chip_smoke.py only.
 
+Streams.  Every kernel has an f32 instance, which takes f32 tensors
+alone.  The layer forward and the three layer backwards also have a bf16
+instance: the JAX package's mixed precision on its accelerator
+(taiyaki_tpu/ops/rnn.py:29-42, the port's TAIYAKI_TPU_BF16_STREAMS=1,
+ops/rnn.py).  The forward's `res_dtype=torch.bfloat16` takes it: c, pre,
+acts and tc come back in bf16, h in `h_dtype` (bf16 or f32), from an x
+of f32 or bf16; the arithmetic, the carry and the gx scratch stay f32.
+The backwards take it when the residuals (acts and tc, pre and c, or c)
+are bf16: they widen every value at load, dh, h and x may each be bf16
+or f32, dpre stays f32 and d_x comes back in x's dtype.  The plain twins
+take the same dtypes and round exactly where the kernels store.  Each
+wrapper counts its bf16 launches (`<wrapper>.bf16`, and
+`<wrapper>.bf16_by_instance`).  The recurrences on given gates have no
+bf16 instance; a bf16 tensor given to one, or to an f32 instance, raises.
+
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
 """
@@ -44,9 +59,9 @@ from taiyaki_tpu_torch.ops import cuda_lib, gemm, rnn_plan
 MAX_HIDDEN = rnn_plan.MAX_HIDDEN
 _P, _I = cuda_lib.P, cuda_lib.I
 # (the GEMM plans go as one pointer, an int array: ops/gemm.py `c_args`)
-_SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 12 + [_P, _P],
-               "tt_lstm_bwd": [_P] * 13 + [_I] * 5 + [_P] + [_I] * 7 + [_P],
-               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 5 + [_P]
+_SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 13 + [_P, _P],
+               "tt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_P] + [_I] * 7 + [_P],
+               "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 6 + [_P]
                + [_I] * 6 + [_P],
                "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 10 + [_P],
                "tt_lstm_cluster_occupancy": [_I] * 6,
@@ -56,19 +71,32 @@ _SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 12 + [_P, _P],
 RESIDUALS = {None: (), "c": ("c",), "pre": ("c", "pre"),
              "acts": ("c", "acts", "tc")}
 EMITS = tuple(RESIDUALS)
+F32, BF16 = torch.float32, torch.bfloat16
+# the entry points' `streams` bits (csrc/lstm.cu STREAM_*): x (and d_x),
+# h, the residuals (the bf16 instance), dh in bf16
+STREAM_X, STREAM_H, STREAM_RES, STREAM_DH = 1, 2, 4, 8
 
 
-def lstm_fwd_plain(x, iW, b, sW, reverse=False, emit=None):
+def lstm_fwd_plain(x, iW, b, sW, reverse=False, emit=None, h_dtype=None,
+                   res_dtype=None):
     """Plain PyTorch LSTM forward: x [T, B, D], iW [4H, D], b [4H],
     sW [4H, H] -> h [T, B, H] (gate order i, f, g, o); with emit="c"
     (h, c [T, B, H]); emit="pre" (h, c, pre [T, B, 4H]); emit="acts"
-    (h, c, acts [T, B, 4H], tc [T, B, H])."""
+    (h, c, acts [T, B, 4H], tc [T, B, H]).  In f32 on x widened; h comes
+    back in `h_dtype` and the residuals in `res_dtype` (f32 by
+    default)."""
     keep = RESIDUALS[emit]
-    out, res = _lstm_rec_plain(torch.matmul(x, iW.t()) + b, sW, reverse,
-                               keep)
+    out, res = _lstm_rec_plain(torch.matmul(x.float(), iW.t()) + b, sW,
+                               reverse, keep)
+    out = _as(out, h_dtype)
     if emit is None:
         return out
-    return (out,) + tuple(res[k] for k in keep)
+    return (out,) + tuple(_as(res[k], res_dtype) for k in keep)
+
+
+def _as(t, dtype):
+    """t in `dtype` (None: as it is), rounded to nearest even for bf16."""
+    return t if dtype in (None, t.dtype) else t.to(dtype)
 
 
 def _lstm_rec_plain(gx, sW, reverse, keep):
@@ -99,14 +127,30 @@ def _lstm_rec_plain(gx, sW, reverse, keep):
     return out, res
 
 
-def _check_args(what, device, specs):
-    for name, t, shape in specs:
-        if t.device != device or t.dtype != torch.float32 \
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-            raise ValueError(
-                "{}: {} must be a contiguous float32 tensor of shape {} on "
-                "{} (got {} {} {})".format(what, name, tuple(shape), device,
-                                           t.dtype, tuple(t.shape), t.device))
+_check_args = gemm._check
+
+
+def no_bf16(what, *tensors):
+    """Raise where a kernel with no bf16 instance is given a bf16 tensor
+    (on the CPU too, where its twin would compute in bf16)."""
+    if any(t is not None and t.dtype == BF16 for t in tensors):
+        raise ValueError("{}: no bf16 instance; its tensors must be "
+                         "float32".format(what))
+
+
+def _streams(what, x, h, res):
+    """The `streams` bits of a launch whose x, h and residuals have the
+    dtypes given: 0 for all f32 (the f32 instance), else the bf16
+    instance's, which needs bf16 residuals."""
+    for name, dt in (("x", x), ("h", h), ("the residuals", res)):
+        if dt not in (F32, BF16):
+            raise ValueError("{}: {} must be float32 or bfloat16, not "
+                             "{}".format(what, name, dt))
+    if res == F32 and BF16 in (x, h):
+        raise ValueError("{}: bf16 x or h takes the bf16 instance, with "
+                         "bf16 residuals".format(what))
+    return ((STREAM_RES if res == BF16 else 0)
+            | (STREAM_X if x == BF16 else 0) | (STREAM_H if h == BF16 else 0))
 
 
 def _check_hidden(what, H):
@@ -115,49 +159,60 @@ def _check_hidden(what, H):
                          "kernel".format(what, H, MAX_HIDDEN))
 
 
-def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None):
+def lstm_fwd(x, iW, b, sW, reverse=False, emit=None, instance=None,
+             h_dtype=None, res_dtype=None):
     """LSTM layer forward; same contract as `lstm_fwd_plain`.  `instance`
     ("cluster" or "l2") forces an instance of the recurrence on the card,
-    for tests and timing; None takes `rnn_plan.rec_plan`'s."""
+    for tests and timing; None takes `rnn_plan.rec_plan`'s.
+    `res_dtype=torch.bfloat16` takes the bf16 instance (module notes);
+    else x and h must be f32."""
     if emit not in EMITS:
         raise ValueError("lstm_fwd: emit must be one of {}".format(EMITS))
     rnn_plan.check_instance(instance)
+    h_dtype, res_dtype = h_dtype or F32, res_dtype or F32
+    streams = _streams("lstm_fwd", x.dtype, h_dtype, res_dtype)
     if x.device.type == "cpu":
-        return lstm_fwd_plain(x, iW, b, sW, reverse, emit)
+        return lstm_fwd_plain(x, iW, b, sW, reverse, emit, h_dtype,
+                              res_dtype)
     cuda_lib.check_cuda(x, "lstm_fwd")
     T, B, D = x.shape
     H = sW.shape[1]
     _check_args("lstm_fwd", x.device, (
-        ("x", x, (T, B, D)), ("iW", iW, (4 * H, D)), ("b", b, (4 * H,)),
-        ("sW", sW, (4 * H, H))))
+        ("x", x, (T, B, D), (F32, BF16)), ("iW", iW, (4 * H, D)),
+        ("b", b, (4 * H,)), ("sW", sW, (4 * H, H))))
     _check_hidden("lstm_fwd", H)
     plan = rnn_plan.rec_plan(4, H, B, clusters_per_wave(
         x.device.index), instance)
-    gplans = gemm.plans_for(x.device, (T * B, 4 * H, D, gemm.GATE))
+    gplans = gemm.plans_for(x.device, (T * B, 4 * H, D, gemm.GATE,
+                                       x.dtype == BF16))
     lib = cuda_lib.load("lstm", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    dev = x.device
+    with torch.cuda.device(dev):
         x, iW = gemm.tma_ready(x, iW)
         swt = sW.t().contiguous()
-        # gx scratch; under emit="pre" it comes back holding pre
-        gx = torch.empty(T, B, 4 * H, device=x.device)
-        h = torch.empty(T, B, H, device=x.device)
+        # gx scratch (f32); under emit="pre" the f32 instance gives it back
+        # holding pre, the bf16 one writes pre into the acts stream
+        gx = torch.empty(T, B, 4 * H, device=dev)
+        h = torch.empty(T, B, H, device=dev, dtype=h_dtype)
         c = acts = tc = None
         if emit is not None:
-            c = torch.empty(T, B, H, device=x.device)
+            c = torch.empty(T, B, H, device=dev, dtype=res_dtype)
+        if emit == "acts" or (emit == "pre" and res_dtype == BF16):
+            acts = torch.empty(T, B, 4 * H, device=dev, dtype=res_dtype)
         if emit == "acts":
-            acts = torch.empty(T, B, 4 * H, device=x.device)
-            tc = torch.empty(T, B, H, device=x.device)
+            tc = torch.empty(T, B, H, device=dev, dtype=res_dtype)
         err = lib.tt_lstm_fwd(
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
             cuda_lib.ptr(c), cuda_lib.ptr(acts), cuda_lib.ptr(tc),
-            T, B, D, H, int(bool(reverse)), EMITS.index(emit),
+            T, B, D, H, int(bool(reverse)), EMITS.index(emit), streams,
             *rnn_plan.c_args(plan), gemm.c_args(gplans),
-            cuda_lib.stream(x.device))
-        rnn_plan.count(lstm_fwd, plan)
-        gemm.count(gplans)
+            cuda_lib.stream(dev))
+        rnn_plan.count(lstm_fwd, plan, bool(streams))
+        gemm.count(gplans, [bool(streams & STREAM_X)])
     cuda_lib.check(lib, err, "lstm_fwd kernel")
-    return {None: h, "c": (h, c), "pre": (h, c, gx),
+    pre = acts if res_dtype == BF16 else gx
+    return {None: h, "c": (h, c), "pre": (h, c, pre),
             "acts": (h, c, acts, tc)}[emit]
 
 
@@ -183,14 +238,17 @@ def lstm_bwd_acts_plain(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False):
 
     Returns:
         (d_x [T, B, D], d_sW [1, 4H, H], d_iW [1, 4H, D], d_b [1, 4H]):
-        the weight gradients as one partial each.
+        the weight gradients as one partial each.  Every input is widened
+        to f32; d_x comes back in x's dtype, the rest in f32.
     """
     T, B, H = dh.shape
-    dpre = _lstm_dpre_plain(dh, acts, tc, c_prev, sW, reverse)
+    dpre = _lstm_dpre_plain(dh.float(), acts.float(), tc.float(),
+                            c_prev.float(), sW, reverse)
     flat = dpre.reshape(T * B, 4 * H)
-    d_x = torch.matmul(dpre, iW)
-    d_iW = torch.matmul(flat.t(), x.reshape(T * B, -1))
-    d_sW = torch.matmul(flat.t(), prev_state(h, reverse).reshape(T * B, H))
+    d_x = _as(torch.matmul(dpre, iW), x.dtype)
+    d_iW = torch.matmul(flat.t(), x.float().reshape(T * B, -1))
+    d_sW = torch.matmul(flat.t(),
+                        prev_state(h.float(), reverse).reshape(T * B, H))
     return d_x, d_sW[None], d_iW[None], flat.sum(0)[None]
 
 
@@ -227,28 +285,29 @@ def lstm_bwd_fusedw_plain(dh, pre, c, c_prev, h, x, sW, iW, reverse=False):
     """Plain PyTorch LSTM backward from the stored pre-activations pre
     [T, B, 4H] and c [T, B, H]; the other arguments and the result as
     `lstm_bwd_acts_plain`'s."""
-    acts, tc = _acts_from_pre(pre, c)
+    acts, tc = _acts_from_pre(pre.float(), c.float())
     return lstm_bwd_acts_plain(dh, acts, tc, c_prev, h, x, sW, iW, reverse)
 
 
 def lstm_bwd_recompute_plain(dh, c, h, x, sW, iW, b, reverse=False):
     """Plain PyTorch LSTM backward from c and h alone: pre = x . iW^T + b +
-    h_prev . sW^T is rebuilt (b [4H]); the other arguments and the result
-    as `lstm_bwd_acts_plain`'s."""
-    pre = (torch.matmul(x, iW.t()) + b
-           + torch.matmul(prev_state(h, reverse), sW.t()))
+    h_prev . sW^T is rebuilt in f32 (b [4H]); the other arguments and the
+    result as `lstm_bwd_acts_plain`'s."""
+    pre = (torch.matmul(x.float(), iW.t()) + b
+           + torch.matmul(prev_state(h.float(), reverse), sW.t()))
     return lstm_bwd_fusedw_plain(dh, pre, c, prev_state(c, reverse), h, x,
                                  sW, iW, reverse)
 
 
-def bwd_outputs(T, B, D, G, H, dev, plan):
+def bwd_outputs(T, B, D, G, H, dev, plan, x_dtype=F32, h_dtype=F32):
     """The outputs of a recurrent backward kernel with G gate rows on
-    `plan` (its chain's), (d_x [T, B, D], d_sW [ns, G, H], d_iW [ni, G,
-    D], d_b [ceil(B / plan.BT), G]), and the GEMM plans of the three
-    products after the chain (`gemm.chain_plans`), whose slices are ni and
-    ns."""
-    gplans = gemm.chain_plans(dev, T * B, G, D, H)
-    return (torch.empty(T, B, D, device=dev),
+    `plan` (its chain's), (d_x [T, B, D] of x's dtype, d_sW [ns, G, H],
+    d_iW [ni, G, D], d_b [ceil(B / plan.BT), G]), and the GEMM plans of
+    the three products after the chain (`gemm.chain_plans`, on x and h of
+    the dtypes given), whose slices are ni and ns."""
+    gplans = gemm.chain_plans(dev, T * B, G, D, H, x_dtype == BF16,
+                              h_dtype == BF16)
+    return (torch.empty(T, B, D, device=dev, dtype=x_dtype),
             torch.empty(gplans[2].nsplit, G, H, device=dev),
             torch.empty(gplans[1].nsplit, G, D, device=dev),
             torch.empty(-(-B // plan.BT), G, device=dev)), gplans
@@ -261,6 +320,22 @@ def _bwd_plan(H, B, device, instance):
                              instance)
 
 
+def _bwd_streams(what, residuals, dh, h, x):
+    """The `streams` bits of a layer backward (`_streams`): the bf16
+    instance where the residuals (a list of tensors, all of one dtype) are
+    bf16, with dh's bit."""
+    res = {t.dtype for t in residuals}
+    if len(res) != 1:
+        raise ValueError("{}: the residuals must share one dtype (got "
+                         "{})".format(what, sorted(map(str, res))))
+    res = res.pop()
+    streams = _streams(what, x.dtype, h.dtype, res)
+    if dh.dtype not in (F32, BF16) or (dh.dtype == BF16 and res == F32):
+        raise ValueError("{}: dh must be float32, or bfloat16 beside bf16 "
+                         "residuals (got {})".format(what, dh.dtype))
+    return streams | (STREAM_DH if dh.dtype == BF16 else 0)
+
+
 def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
                      reverse, instance):
     """tt_lstm_bwd for the wrapper `fn`: the backward from stored acts and
@@ -270,12 +345,15 @@ def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
     cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
     D = x.shape[2]
+    streams = _bwd_streams(what, (gates, cs, c_prev), dh, h, x)
+    both = (F32, BF16)
     _check_args(what, dh.device, (
-        ("dh", dh, (T, B, H)),
-        ("pre" if from_pre else "acts", gates, (T, B, 4 * H)),
-        ("c" if from_pre else "tc", cs, (T, B, H)),
-        ("c_prev", c_prev, (T, B, H)), ("h", h, (T, B, H)),
-        ("x", x, (T, B, D)), ("sW", sW, (4 * H, H)), ("iW", iW, (4 * H, D))))
+        ("dh", dh, (T, B, H), both),
+        ("pre" if from_pre else "acts", gates, (T, B, 4 * H), both),
+        ("c" if from_pre else "tc", cs, (T, B, H), both),
+        ("c_prev", c_prev, (T, B, H), both), ("h", h, (T, B, H), both),
+        ("x", x, (T, B, D), both), ("sW", sW, (4 * H, H)),
+        ("iW", iW, (4 * H, D))))
     _check_hidden(what, H)
     plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
@@ -283,18 +361,25 @@ def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
     with torch.cuda.device(dev):
         x, h, iwt = gemm.tma_ready(x, h, iW.t().contiguous())
         dpre = torch.empty(T, B, 4 * H, device=dev)
-        out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan, x.dtype,
+                                  h.dtype)
         err = lib.tt_lstm_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(gates), cuda_lib.ptr(cs),
             cuda_lib.ptr(c_prev), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(sW), cuda_lib.ptr(iwt), cuda_lib.ptr(dpre),
             *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)),
-            gemm.c_args(gplans), from_pre, *rnn_plan.c_args(plan),
+            streams, gemm.c_args(gplans), from_pre, *rnn_plan.c_args(plan),
             cuda_lib.stream(dev))
-        rnn_plan.count(fn, plan)
-        gemm.count(gplans)
+        rnn_plan.count(fn, plan, bool(streams))
+        gemm.count(gplans, _chain_bf16(streams))
     cuda_lib.check(lib, err, what + " kernel")
     return out
+
+
+def _chain_bf16(streams):
+    """Which of a backward's three products after its chain (d_x, d_iW,
+    d_sW) have a bf16 operand or output."""
+    return [bool(streams & STREAM_X)] * 2 + [bool(streams & STREAM_H)]
 
 
 def lstm_bwd_acts(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False,
@@ -307,6 +392,7 @@ def lstm_bwd_acts(dh, acts, tc, c_prev, h, x, sW, iW, reverse=False,
     timing; None takes `rnn_plan.bwd_plan`'s."""
     rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
+        _bwd_streams("lstm_bwd_acts", (acts, tc, c_prev), dh, h, x)
         return lstm_bwd_acts_plain(dh, acts, tc, c_prev, h, x, sW, iW,
                                    reverse)
     return _lstm_bwd_stored(lstm_bwd_acts, 0, dh, acts, tc, c_prev, h, x,
@@ -320,6 +406,7 @@ def lstm_bwd_fusedw(dh, pre, c, c_prev, h, x, sW, iW, reverse=False,
     `lstm_bwd_acts`."""
     rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
+        _bwd_streams("lstm_bwd_fusedw", (pre, c, c_prev), dh, h, x)
         return lstm_bwd_fusedw_plain(dh, pre, c, c_prev, h, x, sW, iW,
                                      reverse)
     return _lstm_bwd_stored(lstm_bwd_fusedw, 1, dh, pre, c, c_prev, h, x,
@@ -333,15 +420,18 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
     `lstm_bwd_acts`."""
     rnn_plan.check_instance(instance)
     if dh.device.type == "cpu":
+        _bwd_streams("lstm_bwd_recompute", (c,), dh, h, x)
         return lstm_bwd_recompute_plain(dh, c, h, x, sW, iW, b, reverse)
     what = "lstm_bwd_recompute"
     cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
     D = x.shape[2]
+    streams = _bwd_streams(what, (c,), dh, h, x)
+    both = (F32, BF16)
     _check_args(what, dh.device, (
-        ("dh", dh, (T, B, H)), ("c", c, (T, B, H)), ("h", h, (T, B, H)),
-        ("x", x, (T, B, D)), ("sW", sW, (4 * H, H)), ("iW", iW, (4 * H, D)),
-        ("b", b, (4 * H,))))
+        ("dh", dh, (T, B, H), both), ("c", c, (T, B, H), both),
+        ("h", h, (T, B, H), both), ("x", x, (T, B, D), both),
+        ("sW", sW, (4 * H, H)), ("iW", iW, (4 * H, D)), ("b", b, (4 * H,))))
     _check_hidden(what, H)
     plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("lstm", _SIGNATURES)
@@ -351,19 +441,26 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
                                            iW.t().contiguous())
         pre = torch.empty(T, B, 4 * H, device=dev)
         dpre = torch.empty(T, B, 4 * H, device=dev)
-        out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan, x.dtype,
+                                  h.dtype)
         # pre = x iW^T + b, then += h_prev sW^T on all but the boundary step
-        gplans = gemm.plans_for(dev, (T * B, 4 * H, D, gemm.GATE),
-                                ((T - 1) * B, 4 * H, H, gemm.GATE)) + gplans
+        gplans = gemm.plans_for(
+            dev, (T * B, 4 * H, D, gemm.GATE, x.dtype == BF16),
+            ((T - 1) * B, 4 * H, H, gemm.GATE, h.dtype == BF16)) + gplans
         err = lib.tt_lstm_bwd_recompute(
             cuda_lib.ptr(dh), cuda_lib.ptr(c), cuda_lib.ptr(h),
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(sW), cuda_lib.ptr(iwt), cuda_lib.ptr(pre),
             cuda_lib.ptr(dpre), *map(cuda_lib.ptr, out), T, B, D, H,
-            int(bool(reverse)), gemm.c_args(gplans), *rnn_plan.c_args(plan),
-            cuda_lib.stream(dev))
-        rnn_plan.count(lstm_bwd_recompute, plan)
-        gemm.count(gplans if T > 1 else gplans[:1] + gplans[2:])
+            int(bool(reverse)), streams, gemm.c_args(gplans),
+            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+        rnn_plan.count(lstm_bwd_recompute, plan, bool(streams))
+        bf = ([bool(streams & STREAM_X), bool(streams & STREAM_H)]
+              + _chain_bf16(streams))
+        if T > 1:
+            gemm.count(gplans, bf)
+        else:
+            gemm.count(gplans[:1] + gplans[2:], bf[:1] + bf[2:])
     cuda_lib.check(lib, err, what + " kernel")
     return out
 
@@ -383,6 +480,7 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
     `lstm_scan_fwd_plain`.  gates_x is read, never written.  `instance`
     as `lstm_fwd`'s."""
     rnn_plan.check_instance(instance)
+    no_bf16("lstm_scan_fwd", gates_x, sW)
     if gates_x.device.type == "cpu":
         return lstm_scan_fwd_plain(gates_x, sW, reverse, residuals)
     what = "lstm_scan_fwd"
@@ -427,6 +525,7 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
     """The LSTM gradient chain on given gates (kernel 15); contract of
     `lstm_scan_bwd_plain`.  `instance` as `lstm_bwd_acts`'s."""
     rnn_plan.check_instance(instance)
+    no_bf16("lstm_scan_bwd", dh, pre, c, c_prev, sW, iW)
     if dh.device.type == "cpu":
         return lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse, iW)
     what = "lstm_scan_bwd"
@@ -486,3 +585,6 @@ for _fn in (lstm_fwd, lstm_scan_fwd, lstm_scan_bwd, lstm_bwd_acts,
             lstm_bwd_fusedw, lstm_bwd_recompute):
     _fn.launches = 0
     _fn.by_instance = rnn_plan.instance_counters()
+for _fn in (lstm_fwd, lstm_bwd_acts, lstm_bwd_fusedw, lstm_bwd_recompute):
+    _fn.bf16 = rnn_plan.Launches()
+    _fn.bf16_by_instance = rnn_plan.instance_counters()

@@ -27,8 +27,24 @@ forward keeps h, c and pre (LSTM, kernel 14) or h and gh (GRU, kernel
 sum_t dgates_t^T h_prev_t as one torch.matmul over all steps (the JAX
 package's einsum outside Pallas).  With no grad, the forward kernel
 emits h alone.
+
+Streams.  By default every stream is f32: the JAX package's precision on
+the CPU and in its inference CLIs.  TAIYAKI_TPU_BF16_STREAMS=1 (read once
+per forward call, kept for the backward) makes the LSTM layers store what
+the JAX package's TPU kernels store under its mixed precision
+(taiyaki_tpu/ops/rnn.py:29-42): the residuals in bf16, the activation
+stream h in bf16 unless TAIYAKI_TPU_F32_GATES=1 or
+TAIYAKI_TPU_BF16_ACTS=0, the gradient stream dh in bf16 unless
+TAIYAKI_TPU_F32_GRADS=1 (then dh keeps the dtype autograd gives it, h's),
+and d_x in x's dtype; the weight gradients stay f32.  The JAX package
+keeps f32 streams wherever Mosaic's B % 8 rule sends it to its scan path;
+the port applies the switch at any B.  Under the switch the GRU layer
+under grad or with h not held in f32, and the scans, raise (ROADMAP.md
+Queue 1 item 7): they have no bf16 instance yet.
 """
 
+import collections
+import contextlib
 import os
 
 import torch
@@ -72,14 +88,66 @@ def gru_policy():
     return "recompute" if _recompute_pre("gru") else "stored"
 
 
+BF16_SWITCH = "TAIYAKI_TPU_BF16_STREAMS"
+# the dtypes of the LSTM layers' streams under the switch: h (the act
+# stream) and dh (the gradient stream; None keeps dh's own dtype)
+Streams = collections.namedtuple("Streams", "h dh")
+
+
+def bf16_streams():
+    """The LSTM layers' Streams under TAIYAKI_TPU_BF16_STREAMS=1, read as
+    taiyaki_tpu/ops/rnn.py:136-174 reads its switches; None when unset
+    (every stream f32)."""
+    if os.environ.get(BF16_SWITCH) != "1":
+        return None
+    f32_h = (os.environ.get("TAIYAKI_TPU_F32_GATES") == "1"
+             or os.environ.get("TAIYAKI_TPU_BF16_ACTS") == "0")
+    return Streams(torch.float32 if f32_h else torch.bfloat16,
+                   None if os.environ.get("TAIYAKI_TPU_F32_GRADS") == "1"
+                   else torch.bfloat16)
+
+
+# the inference CLIs' opt-out of the bf16 streams (the JAX package's
+# bin/basecall.py:380-381, bin/prepare_mapped_reads.py:57-58)
+INFERENCE_F32 = ("TAIYAKI_TPU_F32_GATES", "TAIYAKI_TPU_F32_SCORES")
+
+
+@contextlib.contextmanager
+def f32_inference():
+    """Within: each of INFERENCE_F32 set to "1" unless exported, as the
+    JAX inference CLIs `setdefault` them, so that their calls stay f32
+    whatever TAIYAKI_TPU_BF16_STREAMS says; those set here are unset
+    again on leaving, since the port's CLIs also run inside other
+    processes (its tests, chip_smoke.py)."""
+    unset = [k for k in INFERENCE_F32 if k not in os.environ]
+    for k in unset:
+        os.environ[k] = "1"
+    try:
+        yield
+    finally:
+        for k in unset:
+            os.environ.pop(k, None)
+
+
+def _no_bf16_path(what):
+    raise ValueError(
+        "{}=1: {} has no bf16 streams yet (ROADMAP.md Queue 1 item 7, the "
+        "rest of the mixed precision); unset {} to run it in "
+        "f32".format(BF16_SWITCH, what, BF16_SWITCH))
+
+
 class _LstmLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, iW, b, sW, reverse):
         ctx.policy = lstm_policy()
+        ctx.streams = bf16_streams()
         ctx.reverse = reverse
         emit = "c" if ctx.policy == "recompute" else ctx.policy
-        h, c, *res = lstm_fwd(x, iW, b, sW, reverse=reverse, emit=emit)
+        dtypes = ({} if ctx.streams is None else
+                  {"h_dtype": ctx.streams.h, "res_dtype": torch.bfloat16})
+        h, c, *res = lstm_fwd(x, iW, b, sW, reverse=reverse, emit=emit,
+                              **dtypes)
         ctx.save_for_backward(x, h, c, iW, b, sW, *res)
         return h
 
@@ -87,6 +155,8 @@ class _LstmLayer(torch.autograd.Function):
     def backward(ctx, dh):
         x, h, c, iW, b, sW, *res = ctx.saved_tensors
         dh = dh.contiguous()
+        if ctx.streams is not None and ctx.streams.dh is not None:
+            dh = dh.to(ctx.streams.dh)
         rev = ctx.reverse
         if ctx.policy == "recompute":
             d_x, d_sW, d_iW, d_b = lstm_bwd_recompute(dh, c, h, x, sW, iW, b,
@@ -107,6 +177,8 @@ class _GruLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, iW, b, sW, reverse):
+        if bf16_streams() is not None:
+            _no_bf16_path("the GRU layer under grad")
         ctx.policy = gru_policy()
         ctx.reverse = reverse
         if ctx.policy == "stored":
@@ -139,17 +211,37 @@ def _layer(fn, forward, x, iW, b, sW, reverse):
     return forward(*args, reverse=reverse)
 
 
+def _lstm_infer(x, iW, b, sW, reverse=False):
+    """The LSTM layer's forward with no grad: h alone, in the act stream's
+    dtype under the switch (the bf16 instance wherever x or h is bf16)."""
+    streams = bf16_streams()
+    if streams is None or torch.bfloat16 not in (x.dtype, streams.h):
+        return lstm_fwd(x, iW, b, sW, reverse=reverse)
+    return lstm_fwd(x, iW, b, sW, reverse=reverse, h_dtype=streams.h,
+                    res_dtype=torch.bfloat16)
+
+
+def _gru_infer(x, iW, b, sW, reverse=False):
+    """The GRU layer's forward with no grad; under the switch only with h
+    held in f32 (TAIYAKI_TPU_F32_GATES=1 or TAIYAKI_TPU_BF16_ACTS=0)."""
+    streams = bf16_streams()
+    if streams is not None and streams.h != torch.float32:
+        _no_bf16_path("the GRU layer with a bf16 act stream")
+    return gru_fwd(x, iW, b, sW, reverse=reverse)
+
+
 def lstm_layer(x, iW, b, sW, reverse=False):
     """Whole LSTM layer: h = lstm(x @ iW.T + b; sW), direction `reverse`.
 
     Args:
-        x: [T, B, D] f32; iW: [4H, D]; b: [4H]; sW: [4H, H] (gate order
-            i, f, g, o).
+        x: [T, B, D] f32 (or bf16 under TAIYAKI_TPU_BF16_STREAMS=1); iW:
+            [4H, D]; b: [4H]; sW: [4H, H] (gate order i, f, g, o).
 
     Returns:
-        h: [T, B, H] hidden states.
+        h: [T, B, H] hidden states (f32, or the act stream's dtype under
+        the switch).
     """
-    return _layer(_LstmLayer, lstm_fwd, x, iW, b, sW, reverse)
+    return _layer(_LstmLayer, _lstm_infer, x, iW, b, sW, reverse)
 
 
 def gru_layer(x, iW, b, sW, reverse=False):
@@ -162,7 +254,7 @@ def gru_layer(x, iW, b, sW, reverse=False):
     Returns:
         h: [T, B, H] hidden states.
     """
-    return _layer(_GruLayer, gru_fwd, x, iW, b, sW, reverse)
+    return _layer(_GruLayer, _gru_infer, x, iW, b, sW, reverse)
 
 
 def _d_sW(dgates, h, reverse):
@@ -213,6 +305,8 @@ class _GruScan(torch.autograd.Function):
 
 
 def _scan(fn, forward, gates_x, sW, reverse):
+    if bf16_streams() is not None:
+        _no_bf16_path(forward.__name__.replace("_fwd", ""))
     args = [t.contiguous() for t in (gates_x, sW)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return fn.apply(*args, bool(reverse))

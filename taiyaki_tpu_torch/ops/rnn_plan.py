@@ -337,8 +337,12 @@ def instance_counters():
     return {k: Launches() for k in INSTANCES}
 
 
-def count(fn, plan):
+def count(fn, plan, bf16=False):
     """One launch of the wrapper `fn` (its `launches` and `by_instance`
-    counters), on `plan`'s instance."""
+    counters), on `plan`'s instance; with `bf16`, of its bf16 instance
+    (also its `bf16` and `bf16_by_instance` counters)."""
     fn.launches += 1
     fn.by_instance[plan.instance].launches += 1
+    if bf16:
+        fn.bf16.launches += 1
+        fn.bf16_by_instance[plan.instance].launches += 1

@@ -1475,23 +1475,23 @@ def test_gemm_entry_points_refuse_a_bad_plan(dev):
                 good._replace(nsplit=good.nsplit + 1),
                 good._replace(instance="simt"), good._replace(ctas=0)):
         assert lib.tt_atb_gemm(A.data_ptr(), B.data_ptr(), out.data_ptr(),
-                               K, N1, N2, 0, gemm.c_args([bad]), st) == 1
+                               K, N1, N2, 0, 0, gemm.c_args([bad]), st) == 1
     assert lib.tt_atb_gemm(A.data_ptr() + 4, B.data_ptr(), out.data_ptr(),
-                           K, N1, N2, 0, gemm.c_args([good]), st) == 1
+                           K, N1, N2, 0, 0, gemm.c_args([good]), st) == 1
     unknown = gemm.c_args([good])
     unknown[0] = 2
     assert lib.tt_atb_gemm(A.data_ptr(), B.data_ptr(), out.data_ptr(), K,
-                           N1, N2, 0, unknown, st) == 1
+                           N1, N2, 0, 0, unknown, st) == 1
     Ar = torch.randn(100, 7, device=dev)
     Wr = torch.randn(9, 7, device=dev)
     tc = gemm.gemm_plan(100, 9, 8, gemm.GATE, 132, "tc")
     assert lib.tt_gate_gemm(Ar.data_ptr(), Wr.data_ptr(), None,
-                            out.data_ptr(), 100, 9, 7, 0, gemm.c_args([tc]),
-                            st) == 1
+                            out.data_ptr(), 100, 9, 7, 0, 0, 0,
+                            gemm.c_args([tc]), st) == 1
     torch.cuda.synchronize()
     assert not out.any()
     assert lib.tt_atb_gemm(A.data_ptr(), B.data_ptr(), out.data_ptr(), K,
-                           N1, N2, 0, gemm.c_args([good]), st) == 0
+                           N1, N2, 0, 0, gemm.c_args([good]), st) == 0
     torch.cuda.synchronize()
     assert out.any()
 
@@ -1601,3 +1601,288 @@ def test_squiggle_cost_card_matches_cpu(dev):
     assert torch.isfinite(dcost).all() and torch.isfinite(dgrad).all()
     torch.testing.assert_close(dcost, cost, rtol=1e-5, atol=0)
     assert (dgrad - grad).abs().max() <= 1e-4 * grad.abs().max()
+
+
+# -- the bf16 instances (TAIYAKI_TPU_BF16_STREAMS=1) ---------------------------
+#
+# Kernels 1, 4, 11 and 12 with bf16 residuals, h and dh, and x in either
+# dtype, on both chain instances, against their twins on the card (which
+# round where the kernels store): f32 outputs at the f32 instances'
+# tolerances (h atol 1e-4; backwards 1e-4 relative, weight partials
+# summed); bf16 outputs equal as bf16 but for at most 1% of them one bf16
+# step apart, or 1e-4 (relative to the largest, for d_x) where a step is
+# smaller.  The GEMMs with a bf16 operand within GEMM_TOL of their twins
+# and of the f64 product of the widened operands (the widening is exact);
+# with a bf16 output equal as bf16 but for single steps.
+
+BF16 = torch.bfloat16
+# ragged widths (the simt GEMMs), the mLstm width, the trainer's 384 on a
+# batch not a multiple of 8, and H=512 (the L2 instance by plan)
+BF16_SHAPES = [(37, 13, 7, 16), (19, 24, 12, 17), (50, 24, 64, 256),
+               (120, 37, 384, 384), (20, 16, 64, 512)]
+BF16_SHARE = 0.01
+
+
+def _bf16_close(got, want, atol):
+    """Equal as bf16 but for at most BF16_SHARE of the elements, each at
+    most one bf16 step (of the larger magnitude) or `atol` apart."""
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    g, w = got.float(), want.float()
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(
+        torch.maximum(g.abs(), w.abs()))[1] - 8)
+    diff = (g - w).abs()
+    assert bool((diff <= step.clamp(min=atol)).all()), diff.max().item()
+    assert (diff > 0).float().mean().item() <= BF16_SHARE
+
+
+def _bf16_counts(fn):
+    return {k: c.launches for k, c in fn.bf16_by_instance.items()}
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_lstm_bf16_fwd_matches_twin(dev, shape, reverse):
+    """Kernel 1's bf16 instance in every emit mode, h in bf16 or f32, x in
+    f32 or bf16, on the plan's instance and the forced L2 one."""
+    x, iW, b, sW = (a.to(dev) for a in _lstm_inputs(*shape))
+    for xdt in (torch.float32, BF16):
+        xx = x.to(xdt)
+        for hdt in (BF16, torch.float32):
+            for emit in lstm.EMITS:
+                want = _as_tuple(lstm.lstm_fwd_plain(
+                    xx, iW, b, sW, reverse, emit, hdt, BF16))
+                for inst in (None, "l2"):
+                    n, nb = _counts(lstm.lstm_fwd), lstm.lstm_fwd.bf16.launches
+                    got = _as_tuple(lstm.lstm_fwd(
+                        xx, iW, b, sW, reverse=reverse, emit=emit,
+                        instance=inst, h_dtype=hdt, res_dtype=BF16))
+                    torch.cuda.synchronize()
+                    assert lstm.lstm_fwd.bf16.launches == nb + 1
+                    ran = {k for k, v in _counts(lstm.lstm_fwd).items()
+                           if v != n[k]}
+                    assert len(ran) == 1 and (inst is None or ran == {inst})
+                    assert len(got) == len(want)
+                    for g, w in zip(got, want):
+                        assert g.dtype == w.dtype
+                        if g.dtype == BF16:
+                            _bf16_close(g, w, 1e-4)
+                        else:
+                            assert (g - w).abs().max().item() < 1e-4
+
+
+def _bf16_bwd_rows(shape, reverse, dev, xdt, hdt, dhdt):
+    """(wrapper, twin, args) of kernels 4, 11 and 12 on the bf16
+    forward's residuals, x, h and dh of the dtypes given."""
+    T, B, D, H = shape
+    x, iW, b, sW = (a.to(dev) for a in _lstm_inputs(*shape))
+    x = x.to(xdt)
+    h, c, acts, tc = lstm.lstm_fwd_plain(x, iW, b, sW, reverse, "acts", hdt,
+                                         BF16)
+    pre = lstm.lstm_fwd_plain(x, iW, b, sW, reverse, "pre", hdt, BF16)[2]
+    dh = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(T, B, H)).astype(np.float32)).to(dev).to(dhdt)
+    c_prev = lstm.prev_state(c, reverse)
+    return [(lstm.lstm_bwd_acts, lstm.lstm_bwd_acts_plain,
+             (dh, acts, tc, c_prev, h, x, sW, iW)),
+            (lstm.lstm_bwd_fusedw, lstm.lstm_bwd_fusedw_plain,
+             (dh, pre, c, c_prev, h, x, sW, iW)),
+            (lstm.lstm_bwd_recompute, lstm.lstm_bwd_recompute_plain,
+             (dh, c, h, x, sW, iW, b))]
+
+
+def _check_bf16_bwd(got, want):
+    assert got[0].dtype == want[0].dtype
+    if got[0].dtype == BF16:
+        _bf16_close(got[0], want[0],
+                    1e-4 * max(1.0, want[0].float().abs().max().item()))
+    else:
+        assert _rel_err(got[0], want[0]) < 1e-4
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32 and g.shape[1:] == w.shape[1:]
+        assert _rel_err(g.sum(0), w.sum(0)) < 1e-4
+
+
+# (x, h, dh): a later layer (all bf16), the first layer (x f32), dh kept
+# f32 (TAIYAKI_TPU_F32_GRADS=1 beside an f32 h), h f32 (F32_GATES=1)
+BF16_BWD_DTYPES = [(BF16, BF16, BF16), (torch.float32, BF16, BF16),
+                   (torch.float32, torch.float32, torch.float32),
+                   (torch.float32, torch.float32, BF16)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_lstm_bf16_bwd_matches_twin(dev, shape, reverse):
+    """Kernels 4, 11 and 12's bf16 instances on the plan's chain instance
+    and the forced L2 one; their inputs left as they were."""
+    for dts in BF16_BWD_DTYPES:
+        for fn, plain, args in _bf16_bwd_rows(shape, reverse, dev, *dts):
+            kept = [a.clone() for a in args]
+            want = plain(*args, reverse=reverse)
+            for inst in (None, "l2"):
+                n, nb = _counts(fn), _bf16_counts(fn)
+                got = fn(*args, reverse=reverse, instance=inst)
+                torch.cuda.synchronize()
+                ran = {k for k, v in _bf16_counts(fn).items() if v != nb[k]}
+                assert _counts(fn) != n and len(ran) == 1 \
+                    and (inst is None or ran == {inst})
+                _check_bf16_bwd(got, want)
+            assert all(torch.equal(a, k) for a, k in zip(args, kept))
+
+
+def test_bf16_instances_on_both_chain_instances(dev):
+    """At the mLstm shape the plans take the cluster instances; H=512 the
+    L2 ones: the bf16 launches land on each."""
+    for shape, inst in (((50, 24, 64, 256), "cluster"),
+                        ((20, 16, 64, 512), "l2")):
+        assert _plan(4, shape[3], shape[1]).instance == inst
+        assert _bwd_plan(4, shape[3], shape[1]).instance == inst
+        for fn, _, args in _bf16_bwd_rows(shape, False, dev, BF16, BF16,
+                                          BF16):
+            nb = _bf16_counts(fn)
+            fn(*args)
+            assert _bf16_counts(fn) == dict(nb, **{inst: nb[inst] + 1})
+
+
+BF16_GATE_SHAPES = [(204800, 1024, 256), (256000, 1536, 384), (481, 64, 16),
+                    (481, 64, 12), (1000, 300, 100)]
+BF16_ATB_SHAPES = [(1024, 256, 204800, 256), (1536, 384, 102400, 256),
+                   (64, 16, 481, 13), (64, 12, 481, 13), (51, 17, 100, 5)]
+
+
+def _bf16_gemm_instances(kind, M, N, K):
+    return (("simt", "tc") if gemm.tc_takes(kind, M, N, K, bf16=True)
+            else ("simt",))
+
+
+@pytest.mark.parametrize("shape", BF16_GATE_SHAPES)
+def test_gate_gemm_bf16_matches_twin_and_f64(dev, shape):
+    """A bf16 A (x or h_prev), with bias and added onto C; and an f32 A
+    with a bf16 output (d_x)."""
+    M, N, K = shape
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    A = torch.randn(M, K, device=dev, generator=g).to(BF16)
+    W = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+    bias = torch.randn(N, device=dev, generator=g)
+    C = torch.randn(M, N, device=dev, generator=g)
+    for c in (None, C):
+        ref = A.double() @ W.double().t() + bias.double() + (
+            0 if c is None else c.double())
+        want = gemm.gate_gemm_plain(A, W, bias, c)
+        for inst in _bf16_gemm_instances(gemm.GATE, M, N, K):
+            nb = gemm.gate_gemm.bf16.launches
+            got = gemm.gate_gemm(A, W, bias, None if c is None else c.clone(),
+                                 instance=inst)
+            torch.cuda.synchronize()
+            assert gemm.gate_gemm.bf16.launches == nb + 1
+            assert got.dtype == torch.float32
+            assert _gemm_rel(got, want) < GEMM_TOL, (inst, c is None)
+            assert _gemm_rel(got, ref) < GEMM_TOL, inst
+        del ref, want
+    Af = A.float()
+    want = gemm.gate_gemm_plain(Af, W, None, None, BF16)
+    for inst in gemm.INSTANCES if gemm.tc_takes(gemm.GATE, M, N, K) \
+            else ("simt",):
+        got = gemm.gate_gemm(Af, W, instance=inst, out_dtype=BF16)
+        torch.cuda.synchronize()
+        _bf16_close(got, want, 1e-5 * want.float().abs().max().item())
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(A, W, out_dtype=BF16)
+    with pytest.raises(ValueError):
+        gemm.gate_gemm(Af, W, C=C, out_dtype=BF16)
+
+
+@pytest.mark.parametrize("shape", BF16_ATB_SHAPES)
+def test_atb_gemm_bf16_matches_twin_and_f64(dev, shape):
+    """A bf16 B (x, or h read by a row shift) at shifts -B, 0 and +B, on
+    the plan's slices."""
+    N1, N2, K, B = shape
+    g = torch.Generator(device=dev).manual_seed(N1 + N2 + K)
+    A = torch.randn(K, N1, device=dev, generator=g)
+    Bm = torch.randn(K, N2, device=dev, generator=g).to(BF16)
+    sms = gemm.card_sms(torch.cuda.current_device())
+    for shift in (-B, 0, B):
+        ref = A.double().t() @ gemm.shifted(Bm.float(), shift).double()
+        for inst in _bf16_gemm_instances(gemm.ATB, N1, N2, K):
+            plan = gemm.gemm_plan(N1, N2, K, gemm.ATB, sms, inst, bf16=True)
+            got = gemm.atb_gemm(A, Bm, shift, instance=inst)
+            torch.cuda.synchronize()
+            assert got.shape == (plan.nsplit, N1, N2)
+            want = gemm.atb_gemm_plain(A, Bm, shift, plan.nsplit,
+                                       plan.kslice)
+            assert _gemm_rel(got, want) < GEMM_TOL, (inst, shift)
+            assert _gemm_rel(got.sum(0), ref) < GEMM_TOL, (inst, shift)
+            del got, want
+
+
+BF16_POLICIES = [{}, {"TAIYAKI_TPU_ACTS_BWD": "0"},
+                 {"TAIYAKI_TPU_RECOMPUTE": "1"}]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("env", BF16_POLICIES)
+def test_lstm_layers_bf16_streams_on_card(dev, env, reverse, monkeypatch):
+    """Two stacked layers under the switch on the card against the same
+    on the CPU (the twins): h equal as bf16 but for single steps; every
+    gradient within one bf16 step (2^-8) of its largest, since the second
+    layer's d_x is a bf16 stream whose single steps against the CPU's
+    carry into the first layer's gradients (2e-4 to 4e-4 seen); each
+    layer's launches of its bf16 instance, and the GEMMs' with bf16
+    operands (no f32 copy of x or h: the layer's GEMMs take them as they
+    are)."""
+    for name in ("TAIYAKI_TPU_ACTS_BWD", "TAIYAKI_TPU_RECOMPUTE",
+                 "TAIYAKI_TPU_NO_RECOMPUTE", "TAIYAKI_TPU_F32_GATES",
+                 "TAIYAKI_TPU_BF16_ACTS", "TAIYAKI_TPU_F32_GRADS"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
+    x, iW, b, sW = _lstm_inputs(41, 16, 24, 32)
+    iW2 = torch.from_numpy((np.random.default_rng(6).normal(
+        size=(128, 32)) / np.sqrt(32)).astype(np.float32))
+    dh = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(41, 16, 32)).astype(np.float32))
+    out = {}
+    bwd = _policy_kernel("lstm")
+    for device in ("cpu", dev):
+        leaves = [a.to(device).requires_grad_() for a in (x, iW, b, sW, iW2)]
+        n = (lstm.lstm_fwd.bf16.launches,
+             getattr(lstm, bwd).bf16.launches,
+             gemm.gate_gemm.bf16.launches, gemm.atb_gemm.bf16.launches)
+        h1 = rnn.lstm_layer(*leaves[:4], reverse=reverse)
+        h2 = rnn.lstm_layer(h1, leaves[4], leaves[2], leaves[3],
+                            reverse=not reverse)
+        grads = torch.autograd.grad(h2, leaves, dh.to(device).to(BF16))
+        assert h1.dtype == h2.dtype == BF16
+        out[str(device)] = [h2.detach().cpu()] + [g.cpu() for g in grads]
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert (lstm.lstm_fwd.bf16.launches - n[0],
+                    getattr(lstm, bwd).bf16.launches - n[1]) == (2, 2)
+            assert gemm.gate_gemm.bf16.launches > n[2]
+            assert gemm.atb_gemm.bf16.launches > n[3]
+    cpu, card = out["cpu"], out[str(dev)]
+    _bf16_close(card[0], cpu[0], 1e-4)
+    for g, w in zip(card[1:], cpu[1:]):
+        assert g.dtype == w.dtype == torch.float32
+        assert _rel_err(g, w) < 2.0 ** -8
+
+
+def test_bf16_refused_on_card(dev, monkeypatch):
+    """A bf16 tensor given to a kernel with no bf16 instance, or bf16 x or
+    h to the f32 instance, raises before any launch; the scans and the
+    GRU layer raise under the switch."""
+    x, iW, b, sW = (a.to(dev) for a in _gru_inputs(9, 8, 12, 16)[:4])
+    with pytest.raises(ValueError):
+        gru.gru_fwd(x.to(BF16), iW, b, sW)
+    with pytest.raises(ValueError):
+        lstm.lstm_scan_fwd(torch.zeros(9, 8, 64, device=dev, dtype=BF16),
+                           torch.zeros(64, 16, device=dev))
+    xl, iWl, bl, sWl = (a.to(dev) for a in _lstm_inputs(9, 8, 12, 16))
+    with pytest.raises(ValueError):
+        lstm.lstm_fwd(xl.to(BF16), iWl, bl, sWl)
+    monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
+    with pytest.raises(ValueError, match="TAIYAKI_TPU_BF16_STREAMS"):
+        rnn.lstm_scan(torch.zeros(9, 8, 64, device=dev),
+                      torch.zeros(64, 16, device=dev))
+    with pytest.raises(ValueError, match="TAIYAKI_TPU_BF16_STREAMS"):
+        rnn.gru_layer(x, iW.requires_grad_(), b, sW)
