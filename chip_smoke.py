@@ -221,8 +221,8 @@ card; run from the root of a checkout:
    phase 12's file, `cli.motif` on the three references, and
    `cli.calibrate_qscores_byread` on a --fastq call of phase 4's real
    reads aligned by `cli.align` (its slope and shift, or its reason).
-16. The bf16 streams of the LSTM layers (this slice;
-   TAIYAKI_TPU_BF16_STREAMS=1, ops/rnn.py): (a) the bf16 instances of
+16. The bf16 streams of the LSTM layers (TAIYAKI_TPU_BF16_STREAMS=1,
+   ops/rnn.py): (a) the bf16 instances of
    rows 1 (each emit mode), 4, 11 and 12 at the mLstm training shape (the
    cluster instances) and at H=512 (the L2 ones), both directions,
    against their twins (bf16 outputs equal as bf16 but for at most 1% of
@@ -237,8 +237,22 @@ card; run from the root of a checkout:
    under the switch (4 iterations; rows 1 and 4 as bf16 launches), then
    `cli.basecall` from its checkpoint with the switch exported, which the
    CLI's opt-out keeps f32.
-17. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows and the 4 bf16 instances'; each with its launches on
+17. The bf16 streams of the GRU layers (this slice): (a) the bf16
+   instances of rows 7 (both emit modes), 8 and 13 at the mGru training
+   shape (T=2000, B=256, H=D=256; x, h and dh as a later layer's, the
+   first layer's and under TAIYAKI_TPU_F32_GATES=1) and at
+   train_abinitio's (B=128, H=D=96; the first two), both directions, on
+   the cluster instances, against their twins on phase 16a's terms, each
+   row's ms beside the f32 row's, counted by instance; (b) the
+   full-width mGru step under the switch against the f32 step under each
+   residual policy (16c's terms), each policy's step ms (median of 3) and
+   peak memory beside the f32 step's; (c) `cli.train_flipflop` on mGru
+   under the switch (4 iterations; rows 7 and 8 as bf16 launches),
+   `cli.train_abinitio` at its defaults under the switch with each GRU
+   policy (rows 7 and 8, or 7 and 13), and `cli.basecall` from the
+   trained checkpoint with the switch exported (no bf16 launch).
+18. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows and the 7 bf16 instances'; each with its launches on
    phase 13's training paths, phase 14's round-trip basecall and phase
    15's paths, `launches_on`), the card line, and the result line
    {"ok": true, "device": {...}}.
@@ -474,7 +488,7 @@ def check_lstm(torch, dev, rng):
         ms[reverse] = cuda_ms(torch, lambda: lstm.lstm_fwd(
             x, iW, b, sW, reverse=reverse), reps=5)
         plain_ms[reverse] = cuda_ms(torch, lambda: lstm.lstm_fwd_plain(
-            x, iW, b, sW, reverse=reverse), reps=2)
+            x, iW, b, sW, reverse=reverse), reps=1, warmup=0)
     tol = 1e-4
     check(err <= tol, "lstm_fwd: max |err| {} > {}".format(err, tol))
     ref = torch.nn.LSTM(D, H).to(dev)
@@ -536,10 +550,11 @@ def _logz_case(torch, dev, rng, t, b):
           .format(t, b, p_err))
     check(bool(torch.isfinite(p1).all()), "logz_posteriors: non-finite")
     f_ms = cuda_ms(torch, lambda: logz.logz_fwd(s), reps=10)
-    f_plain = cuda_ms(torch, lambda: logz.logz_fwd_plain(s, NBASE), reps=2)
+    f_plain = cuda_ms(torch, lambda: logz.logz_fwd_plain(s, NBASE), reps=1,
+                      warmup=0)
     p_ms = cuda_ms(torch, lambda: logz.logz_posteriors(s, l1), reps=10)
     p_plain = cuda_ms(torch, lambda: logz.logz_posteriors_plain(s, l1, NBASE),
-                      reps=2)
+                      reps=1, warmup=0)
     # ops per row and step: forward S adds, S exp, S max/sum, 2nff log/add;
     # posteriors about twice that
     f_bound = bound_ms(4 * (t * b * S + t * b * nff + b * nff + b),
@@ -682,7 +697,7 @@ def check_lstm_train(torch, dev, rng):
             b_ms[k][reverse] = cuda_ms(torch, lambda: kernel(
                 *args[k], reverse=reverse), reps=3)
             b_plain[k][reverse] = cuda_ms(torch, lambda: plain(
-                *args[k], reverse=reverse), reps=1)
+                *args[k], reverse=reverse), reps=1, warmup=0)
         if not reverse:
             for e in emits:
                 f_ms[e] = cuda_ms(torch, lambda: lstm.lstm_fwd(
@@ -851,11 +866,11 @@ def check_crf(torch, dev, rng, tt=TT, tb=TB, tl=TL, g_tol=1e-5, s=S):
     check(f_same, "crf_fwd: two runs' lattices differ")
     f_ms = cuda_ms(torch, lambda: crf.crf_fwd(lp, *idx, valid), reps=5)
     f_plain = cuda_ms(torch, lambda: crf.crf_fwd_plain(lp, *idx, valid),
-                      reps=1)
+                      reps=1, warmup=0)
     b_ms = cuda_ms(torch, lambda: crf.crf_bwd(lp, *idx, lat1, valid, last),
                    reps=5)
     b_plain = cuda_ms(torch, lambda: crf.crf_bwd_plain(
-        lp, *idx, lat1, valid, last), reps=1)
+        lp, *idx, lat1, valid, last), reps=1, warmup=0)
     # positions this data needs: each row's valid ones; per position and
     # step ~10 f32 operations forward (logaddexp, max), ~20 backward
     # bytes: lp read and d lp written in full, the lattice written in full
@@ -1126,7 +1141,7 @@ def check_gru(torch, dev, rng):
             ms[reverse] = cuda_ms(torch, lambda: gru.gru_fwd(
                 x, iW, b, sW, reverse=reverse), reps=5)
             plain[reverse] = cuda_ms(torch, lambda: gru.gru_fwd_plain(
-                x, iW, b, sW, reverse=reverse), reps=2)
+                x, iW, b, sW, reverse=reverse), reps=1, warmup=0)
         check(err <= 1e-4, "gru_fwd H={}: max |err| {} > 1e-4".format(h, err))
         ref = _torch_gru(torch, dev, x, iW, b, sW)
         with torch.no_grad():
@@ -1201,7 +1216,7 @@ def check_gru_train(torch, dev, rng):
             b_ms[k][reverse] = cuda_ms(torch, lambda: kernel(
                 *args[k], reverse=reverse), reps=3)
             b_plain[k][reverse] = cuda_ms(torch, lambda: plain(
-                *args[k], reverse=reverse), reps=1)
+                *args[k], reverse=reverse), reps=1, warmup=0)
         for res in (False, True):
             f_ms[res, reverse] = cuda_ms(torch, lambda: gru.gru_fwd(
                 x, iW, b, sW, reverse=reverse, emit_residuals=res), reps=3)
@@ -4588,11 +4603,15 @@ BF16_CASES = (("later layer", "bfloat16", "bfloat16", "bfloat16"),
               ("F32_GATES", "float32", "float32", "float32"))
 # of a bf16 output, the share at most one bf16 step from its twin's
 BF16_SHARE = 0.01
-# the bf16 instances' rows: (name, its f32 row, the TPU kernel's line)
+# the bf16 instances' rows: (name, its f32 row, the TPU kernel's line);
+# the LSTM's (phase 16), then the GRU's (phase 17)
 BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", 880),
              ("lstm_bwd_acts[bf16]", "lstm_bwd_acts", 385),
              ("lstm_bwd_fusedw[bf16]", "lstm_bwd_fusedw", 456),
-             ("lstm_bwd_recompute[bf16]", "lstm_bwd_recompute", 625))
+             ("lstm_bwd_recompute[bf16]", "lstm_bwd_recompute", 625),
+             ("gru_fwd[bf16]", "gru_fwd", 995),
+             ("gru_bwd_recompute[bf16]", "gru_bwd_recompute", 1311),
+             ("gru_bwd_fusedw[bf16]", "gru_bwd_fusedw", 1184))
 # the step under the switch against the f32 step (the CPU tests' terms)
 BF16_LOSS_TOL, BF16_GRAD_TOL = 5e-3, 2e-2
 
@@ -4757,7 +4776,8 @@ def check_bf16_kernels(torch, dev, rng, f32_rows):
                     for k, (f, p) in timed.items():
                         if h == H:
                             ms[k] = cuda_ms(torch, f, reps=3)
-                            plain_ms[k] = cuda_ms(torch, p, reps=1)
+                            plain_ms[k] = cuda_ms(torch, p, reps=1,
+                                                  warmup=0)
                         else:
                             h512[k] = cuda_ms(torch, f, reps=1)
                 del hh, c, acts, tc, pre, cp, args
@@ -4779,6 +4799,8 @@ def check_bf16_kernels(torch, dev, rng, f32_rows):
     bounds = _bf16_bounds()
     rows = []
     for name, f32_name, line in BF16_ROWS:
+        if name not in fns:
+            continue
         f32 = f32_rows[f32_name]
         rows.append(dict(
             name=name, route="cuda", source="taiyaki_tpu_torch/csrc/lstm.cu",
@@ -4909,25 +4931,28 @@ def _median_step(torch, dev, seed, model, batch, kwargs):
     return float(np.median(times)), peak
 
 
-def bf16_steps(torch, dev, seed, counters):
-    """Phase 16c: the full-width mLstm step (TB chunks x CHUNK samples)
-    under the switch against the f32 step on the same batch and weights:
-    the loss within BF16_LOSS_TOL relative and each gradient within
-    BF16_GRAD_TOL of its largest (the CPU tests' terms; the CRF stays
-    f32), under each residual policy (the f32 step's of the same policy);
-    each policy's step under the switch with the counters of
-    `counters` set to 0 just before it and read just after.  The default
-    policy's step ms (median of 3) and peak memory beside the f32 step's.
-    Returns ({path: launches}, {numbers})."""
+def bf16_steps(torch, dev, seed, counters, model=MLSTM,
+               policies=LSTM_POLICIES, timed=LSTM_POLICIES[:1]):
+    """Phase 16c (17b for mGru): the full-width step of `model` (TB
+    chunks x CHUNK samples) under the switch against the f32 step on the
+    same batch and weights: the loss within BF16_LOSS_TOL relative and
+    each gradient within BF16_GRAD_TOL of its largest (the CPU tests'
+    terms; the CRF stays f32), under each residual policy of `policies`
+    (the f32 step's of the same policy); each policy's step under the
+    switch with the counters of `counters` set to 0 just before it and
+    read just after.  The step ms (median of 3) and peak memory of each
+    policy of `timed` beside the f32 step's.  Returns ({path: launches},
+    {numbers})."""
     from taiyaki_tpu_torch import train
     from taiyaki_tpu_torch.convert import leaf_names
-    batch, kwargs = step_batch(seed, TB, MLSTM)
+    tag = model[0].split("_")[0]
+    batch, kwargs = step_batch(seed, TB, model)
     launches, out = {}, {}
-    for policy in LSTM_POLICIES:
+    for policy in policies:
         res = {}
         for name, env in (("f32", {}), BF16_STREAMS):
             with switches(dict(policy[1], **env)):
-                net = new_net(seed, kwargs, dev, MLSTM)
+                net = new_net(seed, kwargs, dev, model)
                 names = leaf_names(net)
                 if name == "bf16":
                     for fn in counters.values():
@@ -4936,7 +4961,7 @@ def bf16_steps(torch, dev, seed, counters):
                     train.batch_to_device(batch, dev), 1.0)
                 torch.cuda.synchronize()
                 if name == "bf16":
-                    launches["mLstm bf16 step " + policy[0]] = {
+                    launches["{} bf16 step {}".format(tag, policy[0])] = {
                         k: fn.launches for k, fn in counters.items()}
                 res[name] = (float(loss), [g.float() for g in grads])
                 del net
@@ -4952,24 +4977,29 @@ def bf16_steps(torch, dev, seed, counters):
               "({})".format(policy[0], max(errs), worst))
         out[policy[0]] = dict(loss=l16, f32_loss=l32, loss_err=l_err,
                               grad_err=max(errs), worst=worst)
-        say("mLstm step ({} chunks x {} samples, size {}) under {}=1, policy "
+        say("{} step ({} chunks x {} samples, size {}) under {}=1, policy "
             "{}: loss {} against the f32 step's {} (relative {:.3g}, tol "
             "{}); largest gradient err {:.3g} of its largest, in {} (tol "
-            "{})".format(TB, CHUNK, H, "TAIYAKI_TPU_BF16_STREAMS", policy[0],
-                         l16, l32, l_err, BF16_LOSS_TOL, max(errs), worst,
-                         BF16_GRAD_TOL))
+            "{})".format(tag, TB, CHUNK, H, "TAIYAKI_TPU_BF16_STREAMS",
+                         policy[0], l16, l32, l_err, BF16_LOSS_TOL,
+                         max(errs), worst, BF16_GRAD_TOL))
         del res, g32, g16
         torch.cuda.empty_cache()
-    for name, env in (("f32", {}), BF16_STREAMS):
-        with switches(env):
-            ms, peak = _median_step(torch, dev, seed, MLSTM, batch, kwargs)
-        torch.cuda.empty_cache()
-        out[name + " step"] = dict(ms=ms, peak_gb=peak / 1e9)
-    f32, bf = out["f32 step"], out["bf16 step"]
-    say("mLstm training step (acts policy, AdamW; median of 3): f32 {:.3f} "
-        "ms, peak {:.3f} GB; bf16 streams {:.3f} ms, peak {:.3f} GB ({:.3f} "
-        "GB lower)".format(f32["ms"], f32["peak_gb"], bf["ms"],
-                           bf["peak_gb"], f32["peak_gb"] - bf["peak_gb"]))
+    for policy in timed:
+        # the first policy's keys carry no policy name
+        key = "" if policy is policies[0] else " " + policy[0]
+        for name, env in (("f32", {}), BF16_STREAMS):
+            with switches(dict(policy[1], **env)):
+                ms, peak = _median_step(torch, dev, seed, model, batch,
+                                        kwargs)
+            torch.cuda.empty_cache()
+            out[name + " step" + key] = dict(ms=ms, peak_gb=peak / 1e9)
+        f32, bf = out["f32 step" + key], out["bf16 step" + key]
+        say("{} training step ({} policy, AdamW; median of 3): f32 {:.3f} "
+            "ms, peak {:.3f} GB; bf16 streams {:.3f} ms, peak {:.3f} GB "
+            "({:.3f} GB lower)".format(
+                tag, policy[0], f32["ms"], f32["peak_gb"], bf["ms"],
+                bf["peak_gb"], f32["peak_gb"] - bf["peak_gb"]))
     return launches, out
 
 
@@ -4980,33 +5010,280 @@ def bf16_cli(torch, work, seed, pick, reads):
     phase 3's reads from its checkpoint with the switch still exported:
     the CLI's opt-out keeps it f32 (no bf16 launch) and every read is
     processed.  Returns ({path: launches}, the training stats)."""
-    from taiyaki_tpu_torch.cli import basecall
     from taiyaki_tpu_torch.ops import lstm
     launches = {}
     launches["mLstm training bf16"], stats, outdir = train_path(
         torch, work, seed, pick, MLSTM, policy=BF16_STREAMS, niter=4)
-    fa = os.path.join(work, "mLstm_bf16.fa")
-    counted = {"lstm_fwd": lstm.lstm_fwd,
-               "lstm_fwd[cluster]": lstm.lstm_fwd.by_instance["cluster"],
-               "lstm_fwd[bf16]": lstm.lstm_fwd.bf16}
+    launches["mLstm basecall bf16"] = basecall_opt_out(
+        torch, work, "mLstm", reads, outdir, lstm.lstm_fwd)
+    return launches, stats
+
+
+def basecall_opt_out(torch, work, tag, reads, outdir, fwd):
+    """`cli.basecall` of the 9 reads `reads` from the checkpoint that a
+    training path under the switch left in `outdir`, with the switch still
+    exported: the CLI's opt-out keeps it f32 (the layer forward `fwd`
+    launched, its bf16 instance never) and every read is processed.
+    Returns the launches."""
+    from taiyaki_tpu_torch.cli import basecall
+    name = fwd.__name__
+    counted = {name: fwd, name + "[cluster]": fwd.by_instance["cluster"],
+               name + "[bf16]": fwd.bf16}
     for fn in counted.values():
         fn.launches = 0
     with switches(BF16_STREAMS[1]):
-        calls = basecall.main(["--output", fa, "--quiet", reads, os.path.join(
-            outdir, "model_final.checkpoint")])
+        calls = basecall.main([
+            "--output", os.path.join(work, tag + "_bf16.fa"), "--quiet",
+            reads, os.path.join(outdir, "model_final.checkpoint")])
     torch.cuda.synchronize()
-    launches["mLstm basecall bf16"] = {k: fn.launches
-                                       for k, fn in counted.items()}
-    check(launches["mLstm basecall bf16"]["lstm_fwd"] > 0
-          and launches["mLstm basecall bf16"]["lstm_fwd[bf16]"] == 0,
-          "basecall under the switch: launches {}".format(
-              launches["mLstm basecall bf16"]))
+    launches = {k: fn.launches for k, fn in counted.items()}
+    check(launches[name] > 0 and launches[name + "[bf16]"] == 0,
+          "{} basecall under the switch: launches {}".format(tag, launches))
     check(calls["nread"] == 9 and "TAIYAKI_TPU_F32_GATES" not in os.environ,
-          "basecall under the switch: {} reads".format(calls["nread"]))
-    say("basecall of the bf16-trained checkpoint with the switch exported: "
-        "{} reads, {} bases, f32 (launches {})".format(
-            calls["nread"], calls["nbase"], launches["mLstm basecall bf16"]))
-    return launches, stats
+          "{} basecall under the switch: {} reads".format(tag,
+                                                         calls["nread"]))
+    say("basecall of the bf16-trained {} checkpoint with the switch "
+        "exported: {} reads, {} bases, f32 (launches {})".format(
+            tag, calls["nread"], calls["nbase"], launches))
+    return launches
+
+
+# -- phase 17 ----------------------------------------------------------------
+
+# the GRU's bf16 rows against their twins: at the mGru training shape
+# (T=GT, B=TB, H=D=H) in each case of BF16_CASES, and at train_abinitio's
+# (T=GT, B=AB_BATCH, H=D=96) as a later and as the first layer
+GRU96 = 96
+
+
+def _bf16_gru_bounds(t, b, h):
+    """The bounds of the GRU's bf16 rows at T=t, B=b, H=D=h, timed as a
+    later layer's (x, h, dh and the residuals bf16): bf16 streams at 2
+    bytes, a product with a bf16 operand at MIXED_S_PER_FLOP, d_x's (on
+    f32 operands) at the tc rate, the chain's dh . sW at the f32 rate."""
+    nbh = 2 * t * b * h              # one bf16 [T, B, H] stream
+    nw = 4 * 3 * h * (2 * h + 1)     # the weights, f32, D = H
+    one = 2 * t * b * 3 * h * h      # one 3H x H product over T B rows
+    return {
+        # x in, h out; gx of a bf16 x, the recurrence
+        "gru_fwd[bf16]": bound_ms(2 * nbh + nw, one, 0, one),
+        # gh and gx (3H each) written beside h
+        "gru_fwd[bf16] residuals": bound_ms(8 * nbh + nw, one, 0, one),
+        # dh, h, x in, d_x out; gx and gh rebuilt and d_iW, d_sW on bf16
+        # operands, d_x on f32 ones, the chain
+        "gru_bwd_recompute[bf16]": bound_ms(4 * nbh + 2 * nw, one, one,
+                                            4 * one),
+        # dh, gx, gh, h_prev, x in, d_x out
+        "gru_bwd_fusedw[bf16]": bound_ms(10 * nbh + 2 * nw, one, one,
+                                         2 * one)}
+
+
+def check_bf16_gru_kernels(torch, dev, rng, f32_rows):
+    """Phase 17a: the GRU's bf16 instances of rows 7 (both emit modes), 8
+    and 13 at the mGru training shape (T=GT, B=TB, H=D=256) in each case
+    of BF16_CASES and at train_abinitio's (B=AB_BATCH, H=D=96) in the
+    first two, both directions, on their plans' cluster instances,
+    against their twins on phase 16a's terms; each counted by instance
+    (the recompute with every stream f32 runs its f32 instance).  Each row
+    timed (later layer, forward direction) at both shapes beside its f32
+    row's ms at the training shape (`f32_rows`, phase 2's) and its twin's.
+    Returns the three rows of the kernels line, without their
+    launches."""
+    from taiyaki_tpu_torch.ops import gru, lstm
+    bf = torch.bfloat16
+    fns = {"gru_fwd[bf16]": (gru.gru_fwd, gru.gru_fwd_plain),
+           "gru_bwd_recompute[bf16]": (gru.gru_bwd_recompute,
+                                       gru.gru_bwd_recompute_plain),
+           "gru_bwd_fusedw[bf16]": (gru.gru_bwd_fusedw,
+                                    gru.gru_bwd_fusedw_plain)}
+    err = dict.fromkeys(fns, 0.0)
+    share = dict.fromkeys(fns, 0.0)
+    case_err = {}
+    ms, plain_ms, h96, res_ms = {}, {}, {}, {}
+    for t, b, h, cases in ((GT, TB, H, BF16_CASES),
+                           (GT, AB_BATCH, GRU96, BF16_CASES[:2])):
+        x32, iW, bias, sW = _gru_inputs(torch, dev, rng, t, b, h, h)
+        dh32 = _tensor(torch, dev, rng.normal(size=(t, b, h)))
+        fplan, bplan = (plan_of("gru", h, b, bwd)[0] for bwd in (0, 1))
+        check(fplan.instance == bplan.instance == "cluster",
+              "GRU bf16 rows at H={}: plans {} {}".format(h, fplan, bplan))
+        before = {k: dict((i, c.launches) for i, c in
+                          fns[k][0].bf16_by_instance.items()) for k in fns}
+        for case, xdt, hdt, dhdt in cases:
+            xdt, hdt, dhdt = (getattr(torch, n) for n in (xdt, hdt, dhdt))
+            x, dh = x32.to(xdt), dh32.to(dhdt)
+            where = "{} (x {}, h {}, dh {}) T={} B={} H={}".format(
+                case, xdt, hdt, dhdt, t, b, h)
+            worst = case_err.setdefault("{} H={}".format(case, h),
+                                        [0.0, 0.0])
+            for reverse in (False, True):
+                want = gru.gru_fwd_plain(x, iW, bias, sW, reverse, True, hdt,
+                                         bf)
+                for res in (False, True):
+                    got = gru.gru_fwd(x, iW, bias, sW, reverse=reverse,
+                                      emit_residuals=res, h_dtype=hdt,
+                                      res_dtype=bf)
+                    torch.cuda.synchronize()
+                    for g, w in zip(got if res else (got,), want):
+                        d, s, ok = _bf16_out_err(torch, g, w, 1e-4)
+                        check(ok, "gru_fwd[bf16] emit_residuals={} {}: "
+                              "|diff| {}, share {}".format(res, where, d, s))
+                        err["gru_fwd[bf16]"] = max(err["gru_fwd[bf16]"], d)
+                        share["gru_fwd[bf16]"] = max(
+                            share["gru_fwd[bf16]"], s)
+                        worst[0] = max(worst[0], d)
+                    del got
+                hh, gh, gx = want
+                args = {"gru_bwd_recompute[bf16]": (dh, hh, x, sW, iW, bias),
+                        "gru_bwd_fusedw[bf16]": (
+                            dh, gx, gh, lstm.prev_state(hh, reverse), x, sW,
+                            iW)}
+                for k, a in args.items():
+                    fn, plain = fns[k]
+                    got, wb = fn(*a, reverse=reverse), plain(*a,
+                                                             reverse=reverse)
+                    torch.cuda.synchronize()
+                    scale = wb[0].float().abs().max().item()
+                    d, s, ok = _bf16_out_err(torch, got[0], wb[0],
+                                             1e-4 * scale)
+                    e = max(rel_err(g.sum(0), w.sum(0))
+                            for g, w in zip(got[1:], wb[1:]))
+                    check(ok and e <= 1e-4, "{} {}: d_x |diff| {} (share "
+                          "{}), the weight gradients' largest relative err "
+                          "{}".format(k, where, d, s, e))
+                    err[k], share[k] = max(err[k], e), max(share[k], s)
+                    worst[1] = max(worst[1], e, d / scale)
+                    del got, wb
+                if not reverse and case == cases[0][0]:
+                    timed = {"gru_fwd[bf16]": (
+                        lambda: gru.gru_fwd(x, iW, bias, sW, h_dtype=hdt,
+                                            res_dtype=bf),
+                        lambda: gru.gru_fwd_plain(x, iW, bias, sW, False,
+                                                  False, hdt, bf))}
+                    for k, a in args.items():
+                        timed[k] = ((lambda f=fns[k][0], a=a: f(*a)),
+                                    (lambda f=fns[k][1], a=a: f(*a)))
+                    for k, (f, p) in timed.items():
+                        if h == H:
+                            ms[k] = cuda_ms(torch, f, reps=3)
+                            plain_ms[k] = cuda_ms(torch, p, reps=1,
+                                                  warmup=0)
+                        else:
+                            h96[k] = cuda_ms(torch, f, reps=3)
+                    res_ms[h] = cuda_ms(torch, lambda: gru.gru_fwd(
+                        x, iW, bias, sW, emit_residuals=True, h_dtype=hdt,
+                        res_dtype=bf), reps=3)
+                del want, hh, gh, gx, args
+            del x, dh
+        # a case's launches, both directions: the forward's two emit modes,
+        # each backward once (the recompute's f32 case on its f32
+        # instance), then the timed ones
+        n16 = sum("bfloat16" in c for c in cases)
+        need = {"gru_fwd[bf16]": 4 * len(cases),
+                "gru_bwd_recompute[bf16]": 2 * n16,
+                "gru_bwd_fusedw[bf16]": 2 * len(cases)}
+        for k, (fn, _) in fns.items():
+            after = {i: c.launches for i, c in fn.bf16_by_instance.items()}
+            check(after["cluster"] - before[k]["cluster"] > need[k]
+                  and after["l2"] == before[k]["l2"],
+                  "{} H={}: bf16 launches by instance {} -> {}".format(
+                      k, h, before[k], after))
+        del x32, iW, bias, sW, dh32
+        torch.cuda.empty_cache()
+    say("GRU bf16 instances T={} by case (x, h, dh types) and width, both "
+        "directions: the forwards' largest |diff| and the backwards' "
+        "largest relative err (d_x of its largest, weight gradients): "
+        "{}".format(GT, json.dumps(case_err)))
+    bounds = _bf16_gru_bounds(GT, TB, H)
+    bounds96 = _bf16_gru_bounds(GT, AB_BATCH, GRU96)
+    rows = []
+    for name, f32_name, line in BF16_ROWS:
+        if name not in fns:
+            continue
+        f32 = f32_rows[f32_name]
+        row = dict(
+            name=name, route="cuda", source="taiyaki_tpu_torch/csrc/gru.cu",
+            replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(line),
+            max_abs_err=err[name], bf16_share=share[name], ms=ms[name],
+            plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], library_ms=f32["library_ms"],
+            f32_ms=f32["ms"], h96_ms=h96[name],
+            h96_bound_ms=bounds96[name][0])
+        if name == "gru_fwd[bf16]":
+            res = bounds[name + " residuals"]
+            row.update(residuals_ms=res_ms[H],
+                       f32_residuals_ms=f32["residuals_ms"],
+                       residuals_bound_ms=res[0],
+                       h96_residuals_ms=res_ms[GRU96])
+        rows.append(row)
+        say("{} T={} B={} D=H={} (the three cases; timed with x, h, dh "
+            "bf16; the cluster instances): max err {:.3g} ({}), bf16 outputs "
+            "one step apart {:.3g} of them (at most {}), {:.3f} ms against "
+            "the f32 row's {:.3f} ms, twin {:.3f} ms, bound {:.3f} ms ({}); "
+            "H=96 (B={}) {:.3f} ms, bound {:.3f} ms{}".format(
+                name, GT, TB, H, err[name], "|diff|" if "fwd" in name
+                else "relative", share[name], BF16_SHARE, ms[name],
+                f32["ms"], plain_ms[name], bounds[name][0], bounds[name][1],
+                AB_BATCH, h96[name], bounds96[name][0],
+                "" if "fwd" not in name else
+                "; with its residuals {:.3f} ms against the f32 row's "
+                "{:.3f} (bound {:.3f}), H=96 {:.3f} ms".format(
+                    res_ms[H], f32["residuals_ms"], res[0], res_ms[GRU96])))
+    return rows
+
+
+def bf16_gru_cli(torch, work, seed, counters, reads):
+    """Phase 17c: `cli.train_flipflop` on mGru_flipflop at phase 4's shape
+    under the switch (4 iterations; rows 7 and 8 launched as their bf16
+    instances, the GEMMs with bf16 operands), `cli.train_abinitio` at its
+    defaults on phase 13d's chunks under the switch with each GRU policy
+    (AB_ITER iterations; rows 7 and 8 or 13 as bf16 instances), then
+    `cli.basecall` of phase 4's reads `reads` from the trained checkpoint
+    with the switch still exported: the CLI's opt-out keeps it f32 (no
+    bf16 launch).  `counters` {name: counter}.  Returns ({path:
+    launches}, {numbers})."""
+    from taiyaki_tpu_torch.cli import train_abinitio
+    from taiyaki_tpu_torch.ops import gru
+    launches, out = {}, {}
+    path_counters = {
+        k: counters[k] for k in counters
+        if k.split("[")[0] != "gru_bwd_fusedw"}
+    launches["mGru training bf16"], stats, outdir = train_path(
+        torch, work, seed, path_counters, MGRU, policy=BF16_STREAMS, niter=4)
+    out["training CLI steps/s"] = stats["iterations"] / stats["seconds"]
+    d = os.path.join(work, "abinitio")
+    for policy in GRU_POLICIES:
+        bwd = "gru_bwd_" + ("recompute" if policy[0] == "recompute"
+                            else "fusedw")
+        mine = {k: fn for k, fn in counters.items()
+                if k.split("[")[0] in ("gru_fwd", bwd)}
+        for fn in mine.values():
+            fn.launches = 0
+        with switches(dict(policy[1], **BF16_STREAMS[1])):
+            st = train_abinitio.main([
+                "--batch_size", str(AB_BATCH), "--niteration", str(AB_ITER),
+                "--save_every", str(AB_ITER // 2), "--seed", str(seed),
+                "--quiet", "--outdir",
+                os.path.join(d, "out_bf16_" + policy[0]), MGRU[1],
+                os.path.join(d, "chunks.hdf5"), os.path.join(d, "refs.fa")])
+        torch.cuda.synchronize()
+        path = "train_abinitio bf16 " + policy[0]
+        launches[path] = {k: fn.launches for k, fn in mine.items()}
+        check(all(n > 0 for n in launches[path].values()),
+              "{}: launches {}".format(path, launches[path]))
+        check(len(st["losses"]) == AB_ITER
+              and all(np.isfinite(st["losses"])),
+              "{}: losses {}".format(path, st["losses"]))
+        out[path] = dict(losses=st["losses"], step_s=st["step_seconds"])
+        say("{} (mGru_flipflop 96/2/19, batch {}, {} iterations): losses "
+            "{}; step seconds {}; launches {}".format(
+                path, AB_BATCH, AB_ITER,
+                ", ".join("{:.5f}".format(v) for v in st["losses"]),
+                ", ".join("{:.3f}".format(v) for v in st["step_seconds"]),
+                launches[path]))
+    launches["mGru basecall bf16"] = basecall_opt_out(
+        torch, work, "mGru", reads, outdir, gru.gru_fwd)
+    return launches, out
 
 
 def run(seed):
@@ -5344,6 +5621,35 @@ def run(seed):
             os.path.join(work, "reads_mLstm"))
         launches.update(cli_launches)
         torch.cuda.empty_cache()
+
+        # the bf16 streams of the GRU layers
+        phases.next("17a GRU bf16 instances against their twins")
+        f32_gru = {"gru_fwd": dict(gru_fwd_rows[False],
+                                   residuals_ms=gru_fwd_rows[True]["ms"])}
+        f32_gru.update({k["name"]: k for k in kernels
+                        if k["name"] in gru_bwds.values()})
+        bf16_rows += check_bf16_gru_kernels(torch, dev, rng, f32_gru)
+        torch.cuda.empty_cache()
+        phases.next("17b GRU bf16 steps against f32 steps")
+        gru_bf16 = {k: counters[k] for k in bf16_names[4:]}
+        step_launches, gru_bf16_step = bf16_steps(
+            torch, dev, seed, dict(pick(("gru_fwd",) + tuple(
+                gru_bwds.values())), **gru_bf16), MGRU, GRU_POLICIES,
+            GRU_POLICIES)
+        launches.update(step_launches)
+        torch.cuda.empty_cache()
+        phases.next("17c train_flipflop, train_abinitio and basecall under "
+                    "the switch")
+        cli_launches, gru_bf16_cli = bf16_gru_cli(
+            torch, work, seed, dict(pick(("gru_fwd", "gru_bwd_recompute",
+                                          "gru_bwd_fusedw") + loss),
+                                    **gru_bf16, **{
+                                        k: counters[k] for k in (
+                                            "gate_gemm[bf16]",
+                                            "atb_gemm[bf16]")}),
+            os.path.join(work, "reads_mGru"))
+        launches.update(cli_launches)
+        torch.cuda.empty_cache()
         phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5423,6 +5729,8 @@ def run(seed):
     say("bf16 streams: {}".format(json.dumps(
         {"steps": bf16_step, "training CLI steps/s": bf16_train[
             "iterations"] / bf16_train["seconds"]})))
+    say("GRU bf16 streams: {}".format(json.dumps(
+        {"steps": gru_bf16_step, "CLIs": gru_bf16_cli})))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -5450,7 +5758,12 @@ def run(seed):
               "lstm_fwd[bf16]": "mLstm training bf16",
               "lstm_bwd_acts[bf16]": "mLstm training bf16",
               "lstm_bwd_fusedw[bf16]": "mLstm bf16 step pre",
-              "lstm_bwd_recompute[bf16]": "mLstm bf16 step recompute"}
+              "lstm_bwd_recompute[bf16]": "mLstm bf16 step recompute",
+              # the GRU's: the training CLI under the switch, and the step
+              # under the stored policy
+              "gru_fwd[bf16]": "mGru training bf16",
+              "gru_bwd_recompute[bf16]": "mGru training bf16",
+              "gru_bwd_fusedw[bf16]": "mGru bf16 step stored"}
     kernels += bf16_rows
     # the paths of phases 13-15 that run the kernels of the table: each
     # row's launches there beside its own path's
@@ -5514,8 +5827,10 @@ def run(seed):
                 launches[source[k["name"]]], k["name"]),
              "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}),
             **({"post": k["post"]} if "post" in k else {}),
-            **({key: k[key] for key in ("f32_ms", "h512_ms", "bf16_share")}
-               if "f32_ms" in k else {}))
+            **{key: k[key] for key in (
+                "f32_ms", "h512_ms", "h96_ms", "h96_bound_ms", "bf16_share",
+                "residuals_ms", "f32_residuals_ms", "residuals_bound_ms",
+                "h96_residuals_ms") if key in k})
         for k in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

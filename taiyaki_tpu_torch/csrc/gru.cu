@@ -1,4 +1,5 @@
-// GRU layer forward and backwards for Hopper (sm_90a), f32.
+// GRU layer forward and backwards for Hopper (sm_90a), f32 arithmetic,
+// f32 or bf16 streams.
 //
 // The cell (CUDNN gate order r, z, n; no hidden bias):
 //     r = sigmoid(gx_r + gh_r),  z = sigmoid(gx_z + gh_z),
@@ -10,8 +11,9 @@
 // Forward (tt_gru_fwd) replaces the TPU kernel
 // taiyaki_tpu/ops/pallas_rnn.py:995 `gru_fused_fwd`: h of the layer, for
 // inference and for the recomputing backward (emit_residuals=False), or
-// with gh beside it and the gx scratch kept as the output gx
-// (emit_residuals=True), for the backward from stored gate streams.
+// with gh beside it and gx (the f32 instance keeps its gx scratch as the
+// output, the bf16 one writes a bf16 copy) (emit_residuals=True), for the
+// backward from stored gate streams.
 //
 // Backwards, each to d_x, d_sW, d_iW and d_b, the weight gradients as
 // partial sums for the caller to add up:
@@ -56,11 +58,11 @@
 //    picks one by shape before the launch.  Both replace the recurrence
 //    of pallas_rnn.py:995 `gru_fused_fwd` (and, on given gates, of
 //    pallas_rnn.py:1082 `gru_fwd`).
-//    a. gru_rec_cluster_kernel<RB, RES> (the cluster instance, the plan's
-//       choice wherever it fits, up to H ~ 450): a cluster of C CTAs per
-//       tile of BT batch rows, rank q keeping the three gate rows of its
-//       H/C units over all H inputs in shared memory for the whole launch
-//       (as float4 with a zero fourth gate: 72 KB at the shipped remap
+//    a. gru_rec_cluster_kernel<RB, RES, BF16> (the cluster instance, the
+//       plan's choice wherever it fits, up to H ~ 450): a cluster of C
+//       CTAs per tile of BT batch rows, rank q keeping the three gate
+//       rows of its H/C units over all H inputs in shared memory for the
+//       whole launch (as float4 with a zero fourth gate: 72 KB at the shipped remap
 //       model's H = 96 with C = 2, 128 KB at H = 256, C = 8), h exchanged
 //       by bulk copies between the ranks' shared memories with one
 //       mbarrier wait a step, the product in KS slices of k, the cells
@@ -74,14 +76,15 @@
 //       shared-memory reads plus the exchange and the cells; at H = 96
 //       the fixed costs of a step (the cells, the exchange), not the
 //       product, take most of it.
-//    b. gru_rec_kernel<BT, RES> (the L2 instance, where the slice does not
-//       fit: H = 512).  One block per tile of BT = 8 batch rows, one thread
-//       per hidden unit j owning the gate rows j, H+j and 2H+j for the BT
-//       rows (24 accumulators) and its h in registers; h of the tile lives
-//       in shared memory, double-buffered so one barrier per step
-//       suffices; every step reads sW^T again from L2 (coalesced: thread j
-//       reads column j of each row).
-//    With RES either stores the step's gh, a value it holds anyway.
+//    b. gru_rec_kernel<BT, RES, BF16> (the L2 instance, where the slice
+//       does not fit: H = 512).  One block per tile of BT = 8 batch rows,
+//       one thread per hidden unit j owning the gate rows j, H+j and 2H+j
+//       for the BT rows (24 accumulators) and its h in registers; h of the
+//       tile lives in shared memory, double-buffered so one barrier per
+//       step suffices; every step reads sW^T again from L2 (coalesced:
+//       thread j reads column j of each row).
+//    With RES either stores the step's gh, a value it holds anyway, and
+//    the bf16 instance a bf16 copy of the step's gx.
 //
 // 3. The backward recurrence, walking opposite to the forward, in two
 //    instances that compute the same function (within 1e-4 relative; the
@@ -95,8 +98,9 @@
 //    (pallas_rnn.py:1120-1137), writes dgx and dgh, sums d_b per batch
 //    tile, and then
 //        dh_prev[k] = sum_g dgh[g] sW[g, k] + dh z.
-//    a. gru_bwd_rec_cluster_kernel<RB> (the cluster instance, wherever it
-//       fits: every width the repo's models use): rank q keeps the three
+//    a. gru_bwd_rec_cluster_kernel<RB, KL, CLOCK, TG, BF16> (the cluster
+//       instance, wherever it fits: every width the repo's models use):
+//       rank q keeps the three
 //       gate rows of sW of its units over all H columns in shared memory
 //       (96 KB at H = 256, C = 8), forms a partial dh_prev over all H units
 //       from its own dgh, and sends each rank its block by a bulk copy;
@@ -104,8 +108,9 @@
 //       it carries in registers (rec_cluster.cuh, the backward).  The next
 //       step's 8 input words of a cell arrive by cp.async during the
 //       product.  At B = 256, H = 256: C = 8, BT = 18, 120 CTAs.
-//    b. gru_bwd_rec_kernel<BT> (the L2 instance, where the slice does not
-//       fit: H = 512): thread k the cells of unit k for a tile of 8 rows,
+//    b. gru_bwd_rec_kernel<BT, TG, BF16> (the L2 instance, where the slice
+//       does not fit: H = 512): thread k the cells of unit k for a tile of
+//       8 rows,
 //       dgh of the tile in shared memory (double-buffered, 48 KB at H =
 //       256), column k of sW (3H values) read from L2 each step.
 //    Bound: the serial chain.  The recomputing backward passes its gx and
@@ -126,15 +131,79 @@
 //    their sequential time grid; Hopper blocks carry nothing across blocks.
 //
 // Rows of the last batch tile past B run on zeros and are never stored.
+//
+// Streams (`streams`, STREAM_* below, the bits of csrc/lstm.cu).  The f32
+// instances read and write f32 alone.  The bf16 instances store what the
+// JAX package's TPU kernels store under its mixed precision
+// (taiyaki_tpu/ops/rnn.py:29-42, :612-700; the port's
+// TAIYAKI_TPU_BF16_STREAMS=1): the forward writes gh and a bf16 copy of
+// the gx it reads as the residuals (pallas_rnn.py:959-993; the f32 gx
+// scratch, the TPU kernel's f32 VMEM, is never handed back as the
+// residual) and h in bf16 or f32 (the act stream), while the carry h
+// stays f32 in registers and shared memory; the backward chains read dh
+// and h_prev (bf16 or f32, run-time flags) and the gate streams (the
+// recompute's rebuilt f32 scratch, row 8, or the stored bf16 residuals,
+// row 13) and widen each value at load (_gru_cell_bwd, pallas_rnn.py:
+// 1120-1137); the chain, dgx and dgh stay f32, and d_x is written in x's
+// type.  The GEMMs take x and h in bf16 where the layer holds them so
+// (gemm.cuh).  The forward kernels are templated on the residuals' type
+// (h's type a run-time flag), the chains on the gate streams' type with
+// dh's and h_prev's types run-time flags of the bf16 instance, so that the
+// instances double (the chains: f32; f32 gates with the flags; bf16
+// gates), not quadruple.  The chains' bf16 instances cannot copy 2-byte
+// values, nor values whose type is known only at run time, with cp.async:
+// they load step s+1's dh and h_prev (and bf16 gates) into registers
+// before the product and store them to the ring after it; f32 gates still
+// go by cp.async.  The in-place chain (row 8) only ever pairs f32 gates
+// with f32 gradients.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "gemm.cuh"
 #include "rec_cluster.cuh"
 
 namespace {
+
+// the entry points' `streams` bits: which tensors are bf16
+constexpr int STREAM_X_BF16 = 1;     // the layer input x (and d_x)
+constexpr int STREAM_H_BF16 = 2;     // h (the backwards' h_prev)
+constexpr int STREAM_RES_BF16 = 4;   // the residuals gh and gx
+constexpr int STREAM_DH_BF16 = 8;    // dh
+constexpr int STREAM_ALL = 15;
+
+// the residual streams' type of a forward instance
+template <bool BF16>
+using res_t = typename std::conditional<BF16, bf16, float>::type;
+
+// v into a stream of f32, or of bf16 where the bf16 instance's flag `bf`
+// says so
+template <bool BF16>
+__device__ __forceinline__ void store_f(void* p, size_t o, float v, int bf)
+{
+    if (BF16 && bf)
+        static_cast<bf16*>(p)[o] = __float2bfloat16_rn(v);
+    else
+        static_cast<float*>(p)[o] = v;
+}
+
+// a value of a stream of f32, or of bf16 (widened) as store_f
+template <bool BF16>
+__device__ __forceinline__ float load_f(const void* p, size_t o, int bf)
+{
+    if (BF16 && bf) return widen(static_cast<const bf16*>(p)[o]);
+    return static_cast<const float*>(p)[o];
+}
+
+// `p` advanced by n elements of f32, or of bf16 with `bf`
+inline const void* advance(const void* p, size_t n, bool bf)
+{
+    return static_cast<const char*>(p) + n * (bf ? 2 : 4);
+}
 
 __device__ __forceinline__ float sigmoidf_(float x)
 {
@@ -146,14 +215,17 @@ constexpr int REC_MAX_THREADS = 512;
 
 // h[t, b, :] for the BT-row batch tile of this block; with RES also
 // gh[t, b, :] = h_prev . sW^T.
-// gx [T, B, 3H] (input gates incl. bias), swt [H, 3H] = sW^T, h [T, B, H],
-// gh [T, B, 3H].
-template <int BT, bool RES>
+// gx [T, B, 3H] (input gates incl. bias), swt [H, 3H] = sW^T, h [T, B, H]
+// (bf16 with h_bf16 in the bf16 instance), gh [T, B, 3H] in res_t<BF16>;
+// with RES the bf16 instance also writes gx_out [T, B, 3H], gx in bf16.
+template <int BT, bool RES, bool BF16 = false>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
 gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
-               float* __restrict__ h_out, float* __restrict__ gh_out, int T,
-               int B, int H, int reverse)
+               void* __restrict__ h_out, res_t<BF16>* __restrict__ gh_out,
+               res_t<BF16>* __restrict__ gx_out, int T, int B, int H,
+               int reverse, int h_bf16)
 {
+    using R = res_t<BF16>;
     extern __shared__ __align__(16) float h_s[];   // [2][H][BT]
     const int j = threadIdx.x;
     const bool active = j < H;
@@ -210,9 +282,15 @@ gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
                     const float* gr = g + (size_t)r * H3;
                     g0 = gr[0]; g1 = gr[H]; g2 = gr[2 * H];
                     if (RES) {
-                        float* o = gh_out + (row + r) * H3 + j;
-                        o[0] = acc[0][r]; o[H] = acc[1][r];
-                        o[2 * H] = acc[2][r];
+                        R* o = gh_out + (row + r) * H3 + j;
+                        o[0] = narrow<R>(acc[0][r]);
+                        o[H] = narrow<R>(acc[1][r]);
+                        o[2 * H] = narrow<R>(acc[2][r]);
+                        if constexpr (BF16) {
+                            R* q = gx_out + (row + r) * H3 + j;
+                            q[0] = narrow<R>(g0); q[H] = narrow<R>(g1);
+                            q[2 * H] = narrow<R>(g2);
+                        }
                     }
                 }
                 const float rg = sigmoidf_(g0 + acc[0][r]);
@@ -221,7 +299,8 @@ gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
                 const float h = (1.f - zg) * ng + zg * hr[r];
                 hr[r] = h;
                 hn[j * BT + r] = h;
-                if (r < nrow) h_out[(row + r) * H + j] = h;
+                if (r < nrow)
+                    store_f<BF16>(h_out, (row + r) * H + j, h, h_bf16);
             }
         }
         __syncthreads();
@@ -232,14 +311,16 @@ gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
 // computes, for the tile of BT rows of this cluster, rank q holding units
 // [q U, q U + U); the product in KS k slices of RB rows a lane
 // (rec_cluster.cuh).  Arguments as gru_rec_kernel's; C ranks of U units.
-template <int RB, bool RES>
+template <int RB, bool RES, bool BF16 = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
 gru_rec_cluster_kernel(const float* __restrict__ gx,
                        const float* __restrict__ swt,
-                       float* __restrict__ h_out, float* __restrict__ gh_out,
-                       int T, int B, int H, int reverse, int C, int U, int BT,
-                       int KS)
+                       void* __restrict__ h_out,
+                       res_t<BF16>* __restrict__ gh_out,
+                       res_t<BF16>* __restrict__ gx_out, int T, int B, int H,
+                       int reverse, int C, int U, int BT, int KS, int h_bf16)
 {
+    using R = res_t<BF16>;
     extern __shared__ __align__(16) float smem[];
     const RecSmem m = rec_smem(smem, H, C, U, BT);
     const int b0 = cluster_id() * BT;
@@ -283,10 +364,16 @@ gru_rec_cluster_kernel(const float* __restrict__ gx,
             m.hS[(size_t)(nb * C * U + u) * BT + row] = h;
             if (row < nrow) {
                 const size_t r = (size_t)t * B + b0 + row;
-                h_out[r * H + u] = h;
+                store_f<BF16>(h_out, r * H + u, h, h_bf16);
                 if (RES) {
-                    float* o = gh_out + r * H3 + u;
-                    o[0] = gh.x; o[H] = gh.y; o[2 * H] = gh.z;
+                    R* o = gh_out + r * H3 + u;
+                    o[0] = narrow<R>(gh.x); o[H] = narrow<R>(gh.y);
+                    o[2 * H] = narrow<R>(gh.z);
+                    if constexpr (BF16) {
+                        R* q = gx_out + r * H3 + u;
+                        q[0] = narrow<R>(g0); q[H] = narrow<R>(g1);
+                        q[2 * H] = narrow<R>(g2);
+                    }
                 }
             }
         }
@@ -304,15 +391,18 @@ gru_rec_cluster_kernel(const float* __restrict__ gx,
 // streams; dgx, dgh [T, B, 3H] their gradients, which may be gx and gh
 // themselves; sw [3H, H] = sW; db_part [nbt, 3H] per-tile bias gradients.
 // No __restrict__ on the four streams, for the in-place case: every load
-// of a step precedes its stores.
-template <int BT>
+// of a step precedes its stores.  The gate streams of type TG (bf16 only
+// in the bf16 instance, and then never in place); dh and h_prev f32, or
+// bf16 with dh_bf16 / hp_bf16 in the bf16 instance.
+template <int BT, typename TG = float, bool BF16 = false>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
-gru_bwd_rec_kernel(const float* __restrict__ dh_out,
-                   const float* __restrict__ hp, int hshift, const float* gx,
-                   const float* gh, float* dgx, float* dgh,
+gru_bwd_rec_kernel(const void* __restrict__ dh_out,
+                   const void* __restrict__ hp, int hshift, const TG* gx,
+                   const TG* gh, float* dgx, float* dgh,
                    const float* __restrict__ sw, float* __restrict__ db_part,
-                   int T, int B, int H, int reverse)
+                   int T, int B, int H, int reverse, int dh_bf16, int hp_bf16)
 {
+    static_assert(BF16 || !is_bf16<TG>, "bf16 gates: the bf16 instance");
     extern __shared__ __align__(16) float g_s[];   // [2][3H][BT]
     const int k = threadIdx.x;
     const bool active = k < H;
@@ -341,13 +431,15 @@ gru_bwd_rec_kernel(const float* __restrict__ dh_out,
                 for (int q = 0; q < 8; ++q) v[r][q] = 0.f;
                 if (r < nrow) {
                     const size_t og = (row + r) * H3 + k;
-                    v[r][0] = gx[og]; v[r][1] = gx[og + H];
-                    v[r][2] = gx[og + 2 * H];
-                    v[r][3] = gh[og]; v[r][4] = gh[og + H];
-                    v[r][5] = gh[og + 2 * H];
+                    v[r][0] = widen(gx[og]); v[r][1] = widen(gx[og + H]);
+                    v[r][2] = widen(gx[og + 2 * H]);
+                    v[r][3] = widen(gh[og]); v[r][4] = widen(gh[og + H]);
+                    v[r][5] = widen(gh[og + 2 * H]);
                     if (has_prev)
-                        v[r][6] = hp[((size_t)tp * B + b0 + r) * H + k];
-                    v[r][7] = dh_out[(row + r) * H + k];
+                        v[r][6] = load_f<BF16>(
+                            hp, ((size_t)tp * B + b0 + r) * H + k, hp_bf16);
+                    v[r][7] = load_f<BF16>(dh_out, (row + r) * H + k,
+                                           dh_bf16);
                 }
             }
 #pragma unroll
@@ -413,10 +505,12 @@ gru_bwd_rec_kernel(const float* __restrict__ dh_out,
 }
 
 // Step t's inputs of this thread's cells into the ring [BT][U][8]: gx and
-// gh (3 each), h_prev (zero where t + hshift is outside [0, T)) and dh.
+// gh (3 each), h_prev (zero where t + hshift is outside [0, T)) and dh;
+// with GATES the gate words alone (the f32 gates of a bf16 instance).
 // Rows past B are left alone (no cell reads them).  gx and gh may be the
 // streams the chain writes its gradients over: never at row t before
 // this step's cells (rec_cluster.cuh, the backward).
+template <bool GATES = false>
 __device__ __forceinline__ void gru_bwd_prefetch(
     float* ring, const float* __restrict__ dh_out,
     const float* __restrict__ hp, int hshift, const float* gx,
@@ -438,11 +532,94 @@ __device__ __forceinline__ void gru_bwd_prefetch(
                 cp_async4(d + q, gx + og + q * H, true);
                 cp_async4(d + 3 + q, gh + og + q * H, true);
             }
-            cp_async4(d + 6, has_prev
-                      ? hp + ((size_t)tp * B + b0 + cl.row[j]) * H + u
-                      : dh_out, has_prev);
-            cp_async4(d + 7, dh_out + r * H + u, true);
+            if (!GATES) {
+                cp_async4(d + 6, has_prev
+                          ? hp + ((size_t)tp * B + b0 + cl.row[j]) * H + u
+                          : dh_out, has_prev);
+                cp_async4(d + 7, dh_out + r * H + u, true);
+            }
         }
+    }
+}
+
+// The words of a cell's ring entry a bf16 instance loads into registers:
+// the last W of the 8 (h_prev and dh; with bf16 gates all 8)
+template <typename TG>
+constexpr int GRU_BWD_REG_WORDS = is_bf16<TG> ? 8 : 2;
+
+// What gru_bwd_prefetch copies, for the bf16 instances: the words of
+// GRU_BWD_REG_WORDS read into v [cell][word] and widened (gru_bwd_load),
+// then stored to the ring's last W words (gru_bwd_stash) once the step's
+// product is done.
+template <typename TG>
+__device__ __forceinline__ void gru_bwd_load(
+    float (&v)[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>],
+    const void* __restrict__ dh, int dh_bf16, const void* __restrict__ hp,
+    int hp_bf16, int hshift, const TG* gx, const TG* gh, int t, int T,
+    int B, int b0, int nrow, int H, int u0, const RecCells& cl)
+{
+    constexpr int W = GRU_BWD_REG_WORDS<TG>;
+    const int tp = t + hshift;
+    const bool has_prev = tp >= 0 && tp < T;
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            const int u = u0 + cl.u_c[j];
+            const size_t r = (size_t)t * B + b0 + cl.row[j];
+            if constexpr (W == 8) {
+                const size_t og = r * 3 * H + u;
+#pragma unroll
+                for (int q = 0; q < 3; ++q) {
+                    v[j][q] = widen(gx[og + q * H]);
+                    v[j][3 + q] = widen(gh[og + q * H]);
+                }
+            }
+            v[j][W - 2] = has_prev
+                ? load_f<true>(hp, ((size_t)tp * B + b0 + cl.row[j]) * H + u,
+                               hp_bf16)
+                : 0.f;
+            v[j][W - 1] = load_f<true>(dh, r * H + u, dh_bf16);
+        }
+    }
+}
+
+template <int W>
+__device__ __forceinline__ void gru_bwd_stash(
+    float* ring, const float (&v)[REC_MAX_CELLS][W], int nrow, int H, int U,
+    int u0, const RecCells& cl)
+{
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            float* d = ring + ((size_t)cl.row[j] * U + cl.u_c[j])
+                       * rec_bwd_ring(3) + (rec_bwd_ring(3) - W);
+#pragma unroll
+            for (int w = 0; w < W; ++w) d[w] = v[j][w];
+        }
+    }
+}
+
+// Step t's inputs of this thread's cells into the ring, as the instance
+// (BF16, TG) takes them: by cp.async alone (the f32 instance), or the f32
+// gates by cp.async and the rest loaded into v, to be stashed after the
+// product.  The caller commits the copies.
+template <typename TG, bool BF16>
+__device__ __forceinline__ void gru_bwd_fetch(
+    float* ring, float (&v)[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>],
+    const void* dh_out, int dh_bf16, const void* hp, int hp_bf16,
+    int hshift, const TG* gx, const TG* gh, int t, int T, int B, int b0,
+    int nrow, int H, int U, int u0, const RecCells& cl)
+{
+    if constexpr (!BF16) {
+        gru_bwd_prefetch(ring, static_cast<const float*>(dh_out),
+                         static_cast<const float*>(hp), hshift, gx, gh, t, T,
+                         B, b0, nrow, H, U, u0, cl);
+    } else {
+        if constexpr (!is_bf16<TG>)
+            gru_bwd_prefetch<true>(ring, nullptr, nullptr, hshift, gx, gh, t,
+                                   T, B, b0, nrow, H, U, u0, cl);
+        gru_bwd_load(v, dh_out, dh_bf16, hp, hp_bf16, hshift, gx, gh, t, T,
+                     B, b0, nrow, H, u0, cl);
     }
 }
 
@@ -453,16 +630,20 @@ __device__ __forceinline__ void gru_bwd_prefetch(
 // gru_bwd_rec_kernel's (dgx and dgh may be gx and gh); C ranks of U units;
 // db_part [ceil(B / BT), 3H].  With CLOCK (probes/rec_phases.cu alone)
 // the step's phases are timed into `cycles`; the layers pass nullptr.
-template <int RB, int KL, bool CLOCK = false>
+// TG, BF16, dh_bf16 and hp_bf16 as gru_bwd_rec_kernel's.
+template <int RB, int KL, bool CLOCK = false, typename TG = float,
+          bool BF16 = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
-gru_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
-                           const float* __restrict__ hp, int hshift,
-                           const float* gx, const float* gh, float* dgx,
+gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
+                           const void* __restrict__ hp, int hshift,
+                           const TG* gx, const TG* gh, float* dgx,
                            float* dgh, const float* __restrict__ sw,
                            float* __restrict__ db_part, int T, int B, int H,
                            int reverse, int C, int U, int BT,
-                           long long* __restrict__ cycles)
+                           long long* __restrict__ cycles, int dh_bf16,
+                           int hp_bf16)
 {
+    static_assert(BF16 || !is_bf16<TG>, "bf16 gates: the bf16 instance");
     extern __shared__ __align__(16) float smem[];
     const RecBwdSmem m = rec_bwd_smem_of<3>(smem, H, C, U, BT);
     const int tile = cluster_id();
@@ -474,8 +655,13 @@ gru_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
     const RecCells cl = rec_cells(H, U, BT, u0);
 
     rec_bwd_prologue<3>(m, sw, H, U, u0, BT);
-    gru_bwd_prefetch(m.ring, dh_out, hp, hshift, gx, gh,
-                     reverse ? 0 : T - 1, T, B, b0, nrow, H, U, u0, cl);
+    {
+        float v[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>];
+        gru_bwd_fetch<TG, BF16>(m.ring, v, dh_out, dh_bf16, hp, hp_bf16,
+                                hshift, gx, gh, reverse ? 0 : T - 1, T, B,
+                                b0, nrow, H, U, u0, cl);
+        if constexpr (BF16) gru_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
+    }
     cp_async_commit();
     cp_async_wait<0>();
     cluster_sync();
@@ -534,12 +720,15 @@ gru_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
         clk.template lap<REC_CELLS>();
         if (more) {
             __syncthreads();
-            gru_bwd_prefetch(m.ring, dh_out, hp, hshift, gx, gh,
-                             reverse ? t + 1 : t - 1, T, B, b0, nrow, H, U,
-                             u0, cl);
+            // the bf16 instance's loads are in flight during the product
+            float v[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>];
+            gru_bwd_fetch<TG, BF16>(m.ring, v, dh_out, dh_bf16, hp, hp_bf16,
+                                    hshift, gx, gh, reverse ? t + 1 : t - 1,
+                                    T, B, b0, nrow, H, U, u0, cl);
             cp_async_commit();
             rec_bwd_partials<3, RB, KL>(m, m.part + (size_t)nb * C * U * BT,
                                         H, U, BT);
+            if constexpr (BF16) gru_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
             clk.template lap<REC_PRODUCT>();
             rec_bwd_send(m, nb, C, U, BT);
             clk.template lap<REC_SEND>();
@@ -552,146 +741,178 @@ gru_bwd_rec_cluster_kernel(const float* __restrict__ dh_out,
     clk.store(cycles);
 }
 
-template <bool RES>
-int launch_gru_rec(const float* gx, const float* swt, float* h, float* gh,
-                   int T, int B, int H, int reverse, cudaStream_t st)
+template <bool RES, bool BF16>
+int launch_gru_rec(const float* gx, const float* swt, void* h, void* gh,
+                   void* gxr, int T, int B, int H, int reverse, int h_bf16,
+                   cudaStream_t st)
 {
+    using R = res_t<BF16>;
+    const auto kernel = gru_rec_kernel<REC_BT, RES, BF16>;
     const size_t smem = 2 * sizeof(float) * H * REC_BT;
     int rc;
-    if ((rc = set_smem((const void*)gru_rec_kernel<REC_BT, RES>, smem)))
-        return rc;
+    if ((rc = set_smem((const void*)kernel, smem))) return rc;
     const int threads = (H + 31) / 32 * 32;
     const int blocks = (B + REC_BT - 1) / REC_BT;
-    gru_rec_kernel<REC_BT, RES><<<blocks, threads, smem, st>>>(
-        gx, swt, h, gh, T, B, H, reverse);
+    kernel<<<blocks, threads, smem, st>>>(gx, swt, h, static_cast<R*>(gh),
+                                          static_cast<R*>(gxr), T, B, H,
+                                          reverse, h_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster instance (kernel 2a) on a plan of C ranks, BT rows a tile,
 // RB rows a lane and KS k slices.
-template <int RB, bool RES>
-int launch_gru_rec_cluster(const float* gx, const float* swt, float* h,
-                           float* gh, int T, int B, int H, int reverse, int C,
-                           int BT, int KS, int smem, cudaStream_t st)
+template <int RB, bool RES, bool BF16>
+int launch_gru_rec_cluster(const float* gx, const float* swt, void* h,
+                           void* gh, void* gxr, int T, int B, int H,
+                           int reverse, int h_bf16, int C, int BT, int KS,
+                           int smem, cudaStream_t st)
 {
+    using R = res_t<BF16>;
     const int U = (H + C - 1) / C;
-    return rec_cluster_launch(gru_rec_cluster_kernel<RB, RES>, C,
+    return rec_cluster_launch(gru_rec_cluster_kernel<RB, RES, BF16>, C,
                               (B + BT - 1) / BT,
                               rec_cluster_threads(U, BT, RB, KS), smem, st,
-                              gx, swt, h, gh, T, B, H, reverse, C, U, BT, KS);
+                              gx, swt, h, static_cast<R*>(gh),
+                              static_cast<R*>(gxr), T, B, H, reverse, C, U,
+                              BT, KS, h_bf16);
 }
 
 // Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.
-template <bool RES>
-int launch_gru_rec_plan_res(const float* gx, const float* swt, float* h,
-                            float* gh, int T, int B, int H, int reverse,
-                            int instance, int C, int BT, int RB, int KS,
-                            int smem, cudaStream_t st)
+template <bool RES, bool BF16>
+int launch_gru_rec_plan_res(const float* gx, const float* swt, void* h,
+                            void* gh, void* gxr, int T, int B, int H,
+                            int reverse, int h_bf16, int instance, int C,
+                            int BT, int RB, int KS, int smem,
+                            cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
-        return launch_gru_rec<RES>(gx, swt, h, gh, T, B, H, reverse, st);
+        return launch_gru_rec<RES, BF16>(gx, swt, h, gh, gxr, T, B, H,
+                                         reverse, h_bf16, st);
     return rec_with_rb(RB, [&](auto rb) {
-        return launch_gru_rec_cluster<decltype(rb)::value, RES>(
-            gx, swt, h, gh, T, B, H, reverse, C, BT, KS, smem, st);
+        return launch_gru_rec_cluster<decltype(rb)::value, RES, BF16>(
+            gx, swt, h, gh, gxr, T, B, H, reverse, h_bf16, C, BT, KS, smem,
+            st);
     });
 }
 
-// gh non-null stores the residual gh.
-int launch_gru_rec_plan(const float* gx, const float* swt, float* h,
-                        float* gh, int T, int B, int H, int reverse,
-                        int instance, int C, int BT, int RB, int KS, int smem,
-                        cudaStream_t st)
+// Kernel 2 of the f32 or bf16 instance; gh non-null stores the residual
+// gh (and, in the bf16 instance, gx into gxr).
+template <bool BF16>
+int launch_gru_rec_plan(const float* gx, const float* swt, void* h, void* gh,
+                        void* gxr, int T, int B, int H, int reverse,
+                        int h_bf16, int instance, int C, int BT, int RB,
+                        int KS, int smem, cudaStream_t st)
 {
     if (gh != nullptr)
-        return launch_gru_rec_plan_res<true>(gx, swt, h, gh, T, B, H,
-                                             reverse, instance, C, BT, RB,
-                                             KS, smem, st);
-    return launch_gru_rec_plan_res<false>(gx, swt, h, nullptr, T, B, H,
-                                          reverse, instance, C, BT, RB, KS,
-                                          smem, st);
+        return launch_gru_rec_plan_res<true, BF16>(
+            gx, swt, h, gh, gxr, T, B, H, reverse, h_bf16, instance, C, BT,
+            RB, KS, smem, st);
+    return launch_gru_rec_plan_res<false, BF16>(
+        gx, swt, h, nullptr, nullptr, T, B, H, reverse, h_bf16, instance, C,
+        BT, RB, KS, smem, st);
 }
 
 // The backward chain (kernel 3b, the L2 instance) alone: dgx, dgh and the
 // per-tile d_b.
-int launch_gru_bwd_rec(const float* dh, const float* hp, int hshift,
-                       const float* gx, const float* gh, float* dgx,
-                       float* dgh, const float* sw, float* db_part, int T,
-                       int B, int H, int reverse, cudaStream_t st)
+template <typename TG, bool BF16>
+int launch_gru_bwd_rec(const void* dh, const void* hp, int hshift,
+                       const TG* gx, const TG* gh, float* dgx, float* dgh,
+                       const float* sw, float* db_part, int T, int B, int H,
+                       int reverse, int dh_bf16, int hp_bf16,
+                       cudaStream_t st)
 {
+    const auto kernel = gru_bwd_rec_kernel<REC_BT, TG, BF16>;
     const size_t smem = 2 * sizeof(float) * 3 * H * REC_BT;
     int rc;
-    if ((rc = set_smem((const void*)gru_bwd_rec_kernel<REC_BT>, smem)))
-        return rc;
+    if ((rc = set_smem((const void*)kernel, smem))) return rc;
     const int threads = (H + 31) / 32 * 32;
     const int blocks = (B + REC_BT - 1) / REC_BT;
-    gru_bwd_rec_kernel<REC_BT><<<blocks, threads, smem, st>>>(
-        dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse);
+    kernel<<<blocks, threads, smem, st>>>(
+        dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
+        dh_bf16, hp_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster instance of the chain (kernel 3a) on a plan of C ranks, BT
 // rows a tile and RB rows a lane.
-template <int RB, int KL>
-int launch_gru_bwd_rec_cluster(const float* dh, const float* hp, int hshift,
-                               const float* gx, const float* gh, float* dgx,
+template <int RB, int KL, typename TG, bool BF16>
+int launch_gru_bwd_rec_cluster(const void* dh, const void* hp, int hshift,
+                               const TG* gx, const TG* gh, float* dgx,
                                float* dgh, const float* sw, float* db_part,
-                               int T, int B, int H, int reverse, int C,
-                               int BT, int smem, cudaStream_t st)
+                               int T, int B, int H, int reverse, int dh_bf16,
+                               int hp_bf16, int C, int BT, int smem,
+                               cudaStream_t st)
 {
     const int U = (H + C - 1) / C;
-    return rec_cluster_launch(gru_bwd_rec_cluster_kernel<RB, KL>, C,
-                              (B + BT - 1) / BT,
-                              rec_bwd_threads(H, BT, RB, KL), smem, st, dh,
-                              hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B,
-                              H, reverse, C, U, BT,
-                              static_cast<long long*>(nullptr));
+    return rec_cluster_launch(
+        gru_bwd_rec_cluster_kernel<RB, KL, false, TG, BF16>, C,
+        (B + BT - 1) / BT, rec_bwd_threads(H, BT, RB, KL), smem, st, dh, hp,
+        hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse, C, U, BT,
+        static_cast<long long*>(nullptr), dh_bf16, hp_bf16);
 }
 
 // Kernel 3 on a checked plan (rec_bwd_plan_check): the L2 or cluster
 // instance.
-int launch_gru_bwd_rec_plan(const float* dh, const float* hp, int hshift,
-                            const float* gx, const float* gh, float* dgx,
+template <typename TG, bool BF16>
+int launch_gru_bwd_rec_plan(const void* dh, const void* hp, int hshift,
+                            const TG* gx, const TG* gh, float* dgx,
                             float* dgh, const float* sw, float* db_part,
-                            int T, int B, int H, int reverse, int instance,
-                            int C, int BT, int RB, int KL, int smem,
-                            cudaStream_t st)
+                            int T, int B, int H, int reverse, int dh_bf16,
+                            int hp_bf16, int instance, int C, int BT, int RB,
+                            int KL, int smem, cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
-        return launch_gru_bwd_rec(dh, hp, hshift, gx, gh, dgx, dgh, sw,
-                                  db_part, T, B, H, reverse, st);
+        return launch_gru_bwd_rec<TG, BF16>(dh, hp, hshift, gx, gh, dgx, dgh,
+                                            sw, db_part, T, B, H, reverse,
+                                            dh_bf16, hp_bf16, st);
     return rec_with_rb_kl(RB, KL, [&](auto rb, auto kl) {
         return launch_gru_bwd_rec_cluster<decltype(rb)::value,
-                                          decltype(kl)::value>(
+                                          decltype(kl)::value, TG, BF16>(
             dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
-            C, BT, smem, st);
+            dh_bf16, hp_bf16, C, BT, smem, st);
     });
 }
 
 // The chain (kernel 3, on the plan's instance) and the three products
 // after it (d_x, d_iW, d_sW, on the GEMM plans gemm[0..2], checked by
-// chain_plans_check); h_prev of step t is hp[t + hshift].
-int gru_bwd_chain(const float* dh, const float* hp, int hshift,
-                  const float* gx, const float* gh, float* dgx, float* dgh,
-                  const float* x, const float* sw, const float* iwt,
-                  float* dx, float* dsw_part, float* diw_part, float* db_part,
-                  int T, int B, int D, int H, int reverse, const int* gemm,
-                  int instance, int C, int BT, int RB, int KL, int smem,
-                  cudaStream_t st)
+// chain_plans_check); h_prev of step t is hp[t + hshift]; dh, hp, x and
+// dx of the types `streams` gives.
+template <typename TG, bool BF16>
+int gru_bwd_chain(const void* dh, const void* hp, int hshift, const TG* gx,
+                  const TG* gh, float* dgx, float* dgh, const void* x,
+                  const float* sw, const float* iwt, void* dx,
+                  float* dsw_part, float* diw_part, float* db_part, int T,
+                  int B, int D, int H, int reverse, int streams,
+                  const int* gemm, int instance, int C, int BT, int RB,
+                  int KL, int smem, cudaStream_t st)
 {
     const int M = T * B, H3 = 3 * H;
-    int rc = launch_gru_bwd_rec_plan(dh, hp, hshift, gx, gh, dgx, dgh, sw,
-                                     db_part, T, B, H, reverse, instance, C,
-                                     BT, RB, KL, smem, st);
+    const bool xb = streams & STREAM_X_BF16;
+    const bool hb = streams & STREAM_H_BF16;
+    int rc = launch_gru_bwd_rec_plan<TG, BF16>(
+        dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
+        (streams & STREAM_DH_BF16) != 0, hb, instance, C, BT, RB, KL, smem,
+        st);
     if (rc) return rc;
     cudaError_t err;
-    if ((err = gemm_gate(gemm_plan_at(gemm, 0), dgx, iwt, nullptr, dx, M, D,
-                         H3, st)) != cudaSuccess)
+    if ((err = gemm_gate(gemm_plan_at(gemm, 0), GemmIn{dgx, false}, iwt,
+                         nullptr, GemmOut{dx, xb}, M, D, H3, st))
+            != cudaSuccess)
         return static_cast<int>(err);
-    if ((err = gemm_atb(gemm_plan_at(gemm, 1), dgx, x, diw_part, M, H3, D, 0,
-                        st)) != cudaSuccess)
+    if ((err = gemm_atb(gemm_plan_at(gemm, 1), dgx, GemmIn{x, xb}, diw_part,
+                        M, H3, D, 0, st)) != cudaSuccess)
         return static_cast<int>(err);
-    return static_cast<int>(gemm_atb(gemm_plan_at(gemm, 2), dgh, hp,
-                                     dsw_part, M, H3, H, hshift * B, st));
+    return static_cast<int>(gemm_atb(gemm_plan_at(gemm, 2), dgh,
+                                     GemmIn{hp, hb}, dsw_part, M, H3, H,
+                                     hshift * B, st));
+}
+
+// The streams a launch may take: all f32 (0), or the bf16 instance
+// (STREAM_RES_BF16: bf16 residuals) with any of x, h and dh in bf16.
+inline bool streams_ok(int streams)
+{
+    return streams == 0
+        || ((streams & STREAM_RES_BF16) && (streams & ~STREAM_ALL) == 0);
 }
 
 }  // namespace
@@ -704,32 +925,49 @@ const char* tt_error_string(int err)
 }
 
 // h [T, B, H] = GRU over x [T, B, D]; gx [T, B, 3H] is caller-allocated
-// and holds x iW^T + b on return; swt = sW^T [H, 3H].  With gh non-null
-// (emit_residuals) also gh [T, B, 3H].  The recurrence runs on the plan
-// (instance, C, BT, RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance
-// 0 the L2 kernel (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; the input
-// product on the GEMM plan gemm[0] of ops/gemm.py `gemm_plan`; a plan it
-// cannot take returns cudaErrorInvalidValue before any launch.  All f32,
-// contiguous, on one device.  Returns cudaGetLastError() after the first
-// failing launch (or the cluster launch's own error), else 0.
-int tt_gru_fwd(const float* x, const float* iW, const float* b,
-               const float* swt, float* gx, float* h, float* gh, int T,
-               int B, int D, int H, int reverse, int instance, int C, int BT,
-               int RB, int KS, int smem, const int* gemm, void* stream)
+// f32 scratch and holds x iW^T + b on return; swt = sW^T [H, 3H].  With gh
+// non-null (emit_residuals) also gh [T, B, 3H], and from the bf16
+// instance gx in bf16 into gxr [T, B, 3H] (the f32 instance's residual gx
+// is the scratch).  `streams` (STREAM_* bits): 0 for all f32, else the
+// bf16 instance (STREAM_RES_BF16: gh and gxr bf16), with x and h in bf16
+// where their bits say.  The recurrence runs on the plan (instance, C,
+// BT, RB, KS, smem) of ops/rnn_plan.py `rec_plan`: instance 0 the L2
+// kernel (C 1, BT 8, RB 1, KS 1), 1 the cluster kernel; the input product
+// on the GEMM plan gemm[0] of ops/gemm.py `gemm_plan`; a plan it cannot
+// take returns cudaErrorInvalidValue before any launch.  Contiguous, on
+// one device.  Returns cudaGetLastError() after the first failing launch
+// (or the cluster launch's own error), else 0.
+int tt_gru_fwd(const void* x, const float* iW, const float* b,
+               const float* swt, float* gx, void* h, void* gh, void* gxr,
+               int T, int B, int D, int H, int reverse, int streams,
+               int instance, int C, int BT, int RB, int KS, int smem,
+               const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B;
     if (M == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const bool res16 = streams & STREAM_RES_BF16;
+    if (H > REC_MAX_THREADS || !streams_ok(streams)
+            || (streams & STREAM_DH_BF16)
+            || (res16 && gh != nullptr && gxr == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const GemmIn xin{x, (streams & STREAM_X_BF16) != 0};
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess)
-        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
+        err = gate_plan_check(gemm_plan_at(gemm, 0), xin, iW, D);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, gx, M, 3 * H, D, st);
+    err = gemm_gate(gemm_plan_at(gemm, 0), xin, iW, b, GemmOut{gx, false}, M,
+                    3 * H, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return launch_gru_rec_plan(gx, swt, h, gh, T, B, H, reverse, instance, C,
-                               BT, RB, KS, smem, st);
+    if (res16)
+        return launch_gru_rec_plan<true>(
+            gx, swt, h, gh, gxr, T, B, H, reverse,
+            (streams & STREAM_H_BF16) != 0, instance, C, BT, RB, KS, smem,
+            st);
+    return launch_gru_rec_plan<false>(gx, swt, h, gh, nullptr, T, B, H,
+                                      reverse, 0, instance, C, BT, RB, KS,
+                                      smem, st);
 }
 
 // How many clusters of the cluster instance's plan (C ranks, BT rows a
@@ -750,42 +988,49 @@ int tt_gru_cluster_occupancy(int H, int C, int BT, int RB, int KS, int smem)
 
 // GRU layer backward recomputing both gate streams.  Inputs: dh, h
 // [T, B, H], x [T, B, D], iW [3H, D], b [3H], sw = sW [3H, H], iwt = iW^T
-// [D, 3H].  Scratch: g_x, g_h [T, B, 3H] (gx and gh, then dgx and dgh over
-// them).  Outputs: dx [T, B, D], dsw_part [nsplit, 3H, H], diw_part
-// [nsplit, 3H, D], db_part [ceil(B/BT), 3H], the partials' counts those
-// of their GEMM plans.  The chain runs on the plan (instance, C, BT, RB,
-// KL, smem) of ops/rnn_plan.py `bwd_plan`: instance 0 the L2 kernel (C 1,
-// BT 8, RB 1, KL 1, 24 H BT bytes), 1 the cluster kernel; five GEMM plans
-// (ops/gemm.py): gemm[0] x iW^T, gemm[1] h_prev sW^T (for T > 1, on
-// (T - 1) B rows), then the chain's three; a plan it cannot take returns
-// cudaErrorInvalidValue before any launch.
-int tt_gru_bwd(const float* dh, const float* h, const float* x,
+// [D, 3H].  Scratch: g_x, g_h [T, B, 3H] f32 (gx and gh, then dgx and dgh
+// over them).  Outputs: dx [T, B, D] (x's type), dsw_part [nsplit, 3H, H],
+// diw_part [nsplit, 3H, D], db_part [ceil(B/BT), 3H], the partials' counts
+// those of their GEMM plans.  `streams`: x, h and dh bf16 where their bits
+// say (no residuals: STREAM_RES_BF16 is refused); any of them takes the
+// chain's bf16 instance on the f32 rebuilt streams.  The chain runs on the
+// plan (instance, C, BT, RB, KL, smem) of ops/rnn_plan.py `bwd_plan`:
+// instance 0 the L2 kernel (C 1, BT 8, RB 1, KL 1, 24 H BT bytes), 1 the
+// cluster kernel; five GEMM plans (ops/gemm.py): gemm[0] x iW^T, gemm[1]
+// h_prev sW^T (for T > 1, on (T - 1) B rows), then the chain's three; a
+// plan it cannot take returns cudaErrorInvalidValue before any launch.
+int tt_gru_bwd(const void* dh, const void* h, const void* x,
                const float* iW, const float* b, const float* sw,
-               const float* iwt, float* g_x, float* g_h,
-               float* dx, float* dsw_part, float* diw_part, float* db_part,
-               int T, int B, int D, int H, int reverse, const int* gemm,
-               int instance, int C, int BT, int RB, int KL, int smem,
-               void* stream)
+               const float* iwt, float* g_x, float* g_h, void* dx,
+               float* dsw_part, float* diw_part, float* db_part, int T,
+               int B, int D, int H, int reverse, int streams,
+               const int* gemm, int instance, int C, int BT, int RB, int KL,
+               int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int M = T * B, H3 = 3 * H;
     if (M == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-    const float* hsrc = reverse ? h + (size_t)B * H : h;
+    if (H > REC_MAX_THREADS
+            || (streams & ~(STREAM_X_BF16 | STREAM_H_BF16 | STREAM_DH_BF16)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool hb = streams & STREAM_H_BF16;
+    const GemmIn xin{x, (streams & STREAM_X_BF16) != 0};
+    const GemmIn hsrc{reverse ? advance(h, (size_t)B * H, hb) : h, hb};
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess)
-        err = gate_plan_check(gemm_plan_at(gemm, 0), x, iW, D);
+        err = gate_plan_check(gemm_plan_at(gemm, 0), xin, iW, D);
     if (err == cudaSuccess)
         err = gate_plan_check(gemm_plan_at(gemm, 1), hsrc, sw, H);
     if (err == cudaSuccess)
-        err = chain_plans_check(gemm + 2 * GEMM_PLAN_INTS, g_x, g_h, iwt, x,
-                                h, M, H3, D, H);
+        err = chain_plans_check(gemm + 2 * GEMM_PLAN_INTS, g_x, g_h, iwt, xin,
+                                GemmIn{h, hb}, M, H3, D, H);
     if (err != cudaSuccess) return static_cast<int>(err);
 
     // gx = x iW^T + b and gh[t] = h_prev[t] sW^T, h_prev[t] = h[t -/+ 1],
-    // zero at the boundary step
-    err = gemm_gate(gemm_plan_at(gemm, 0), x, iW, b, g_x, M, H3, D, st);
+    // zero at the boundary step (f32 scratch in either instance)
+    err = gemm_gate(gemm_plan_at(gemm, 0), xin, iW, b, GemmOut{g_x, false},
+                    M, H3, D, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t step = (size_t)B * H3;
     float* gh_zero = reverse ? g_h + (size_t)(T - 1) * step : g_h;
@@ -794,46 +1039,66 @@ int tt_gru_bwd(const float* dh, const float* h, const float* x,
         return static_cast<int>(err);
     if (T > 1) {
         float* gdst = reverse ? g_h : g_h + step;
-        err = gemm_gate(gemm_plan_at(gemm, 1), hsrc, sw, nullptr, gdst,
-                        (T - 1) * B, H3, H, st);
+        err = gemm_gate(gemm_plan_at(gemm, 1), hsrc, sw, nullptr,
+                        GemmOut{gdst, false}, (T - 1) * B, H3, H, st);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    return gru_bwd_chain(dh, h, reverse ? 1 : -1, g_x, g_h, g_x, g_h, x, sw,
-                         iwt, dx, dsw_part, diw_part, db_part, T, B, D, H,
-                         reverse, gemm + 2 * GEMM_PLAN_INTS, instance, C, BT,
-                         RB, KL, smem, st);
+    const int hshift = reverse ? 1 : -1;
+    const int* g = gemm + 2 * GEMM_PLAN_INTS;
+    if (streams)
+        return gru_bwd_chain<float, true>(
+            dh, h, hshift, g_x, g_h, g_x, g_h, x, sw, iwt, dx, dsw_part,
+            diw_part, db_part, T, B, D, H, reverse, streams, g, instance, C,
+            BT, RB, KL, smem, st);
+    return gru_bwd_chain<float, false>(
+        dh, h, hshift, g_x, g_h, g_x, g_h, x, sw, iwt, dx, dsw_part,
+        diw_part, db_part, T, B, D, H, reverse, 0, g, instance, C, BT, RB,
+        KL, smem, st);
 }
 
 // GRU layer backward from the forward's gate streams.  Inputs: dh, hprev
 // [T, B, H], gx, gh [T, B, 3H] (read only), x [T, B, D], sw = sW [3H, H],
-// iwt = iW^T [D, 3H].  Scratch: dgx, dgh [T, B, 3H].  Outputs and plan as
-// tt_gru_bwd's; the chain's three GEMM plans gemm[0..2].
-int tt_gru_bwd_fusedw(const float* dh, const float* gx, const float* gh,
-                      const float* hprev, const float* x, const float* sw,
-                      const float* iwt, float* dgx, float* dgh, float* dx,
+// iwt = iW^T [D, 3H].  Scratch: dgx, dgh [T, B, 3H] f32.  Outputs and
+// plan as tt_gru_bwd's; the chain's three GEMM plans gemm[0..2].
+// `streams` as tt_gru_fwd's, with dh's bit: the bf16 instance reads gx
+// and gh in bf16.
+int tt_gru_bwd_fusedw(const void* dh, const void* gx, const void* gh,
+                      const void* hprev, const void* x, const float* sw,
+                      const float* iwt, float* dgx, float* dgh, void* dx,
                       float* dsw_part, float* diw_part, float* db_part,
-                      int T, int B, int D, int H, int reverse,
+                      int T, int B, int D, int H, int reverse, int streams,
                       const int* gemm, int instance, int C, int BT, int RB,
                       int KL, int smem, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    if (H > REC_MAX_THREADS || !streams_ok(streams))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess)
-        err = chain_plans_check(gemm, dgx, dgh, iwt, x, hprev, T * B, 3 * H,
-                                D, H);
+        err = chain_plans_check(
+            gemm, dgx, dgh, iwt, GemmIn{x, (streams & STREAM_X_BF16) != 0},
+            GemmIn{hprev, (streams & STREAM_H_BF16) != 0}, T * B, 3 * H, D,
+            H);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return gru_bwd_chain(dh, hprev, 0, gx, gh, dgx, dgh, x, sw, iwt, dx,
-                         dsw_part, diw_part, db_part, T, B, D, H, reverse,
-                         gemm, instance, C, BT, RB, KL, smem, st);
+    if (streams & STREAM_RES_BF16)
+        return gru_bwd_chain<bf16, true>(
+            dh, hprev, 0, static_cast<const bf16*>(gx),
+            static_cast<const bf16*>(gh), dgx, dgh, x, sw, iwt, dx, dsw_part,
+            diw_part, db_part, T, B, D, H, reverse, streams, gemm, instance,
+            C, BT, RB, KL, smem, st);
+    return gru_bwd_chain<float, false>(
+        dh, hprev, 0, static_cast<const float*>(gx),
+        static_cast<const float*>(gh), dgx, dgh, x, sw, iwt, dx, dsw_part,
+        diw_part, db_part, T, B, D, H, reverse, 0, gemm, instance, C, BT, RB,
+        KL, smem, st);
 }
 
 // Kernel 16: the GRU recurrence on given gates.  gx [T, B, 3H] (read
 // only), swt = sW^T [H, 3H] -> h [T, B, H]; with gh non-null also gh
-// [T, B, 3H] = h_prev . sW^T.  The plan as tt_gru_fwd's.  Returns
-// cudaGetLastError().
+// [T, B, 3H] = h_prev . sW^T.  All f32.  The plan as tt_gru_fwd's.
+// Returns cudaGetLastError().
 int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
                     int T, int B, int H, int reverse, int instance, int C,
                     int BT, int RB, int KS, int smem, void* stream)
@@ -844,15 +1109,16 @@ int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return launch_gru_rec_plan(gx, swt, h, gh, T, B, H, reverse, instance, C,
-                               BT, RB, KS, smem, st);
+    return launch_gru_rec_plan<false>(gx, swt, h, gh, nullptr, T, B, H,
+                                      reverse, 0, instance, C, BT, RB, KS,
+                                      smem, st);
 }
 
 // Kernel 17: the GRU gradient chain on the forward's residuals.  dh,
 // hprev [T, B, H], gx, gh [T, B, 3H] (read only), sw = sW [3H, H] -> dgx,
 // dgh [T, B, 3H]; db_part [ceil(B/BT), 3H] is scratch.  With iwt = iW^T
 // [D, 3H] non-null also dx [T, B, D] = dgx . iW, on the GEMM plan
-// gemm[0].  The plan as tt_gru_bwd's.
+// gemm[0].  All f32.  The plan as tt_gru_bwd's.
 int tt_gru_scan_bwd(const float* dh, const float* gx, const float* gh,
                     const float* hprev, const float* sw, const float* iwt,
                     float* dgx, float* dgh, float* dx, float* db_part, int T,
@@ -868,9 +1134,9 @@ int tt_gru_scan_bwd(const float* dh, const float* gx, const float* gh,
     if (err == cudaSuccess && iwt != nullptr)
         err = gate_plan_check(gemm_plan_at(gemm, 0), dgx, iwt, 3 * H);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int rc = launch_gru_bwd_rec_plan(dh, hprev, 0, gx, gh, dgx, dgh, sw,
-                                     db_part, T, B, H, reverse, instance, C,
-                                     BT, RB, KL, smem, st);
+    int rc = launch_gru_bwd_rec_plan<float, false>(
+        dh, hprev, 0, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse, 0, 0,
+        instance, C, BT, RB, KL, smem, st);
     if (rc || iwt == nullptr) return rc;
     return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dgx, iwt,
                                       nullptr, dx, T * B, D, 3 * H, st));

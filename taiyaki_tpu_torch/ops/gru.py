@@ -28,8 +28,28 @@ cluster and an L2 instance that compute the same values, picked by
 `rnn_plan.rec_plan` and `rnn_plan.bwd_plan` and counted per instance as
 the LSTM's (ops/lstm.py); `instance=` forces one, for tests and timing.
 
+Streams.  Every kernel has an f32 instance, which takes f32 tensors
+alone.  The layer forward and the two layer backwards also have a bf16
+instance: the JAX package's mixed precision on its accelerator
+(taiyaki_tpu/ops/rnn.py:29-42, :612-700; the port's
+TAIYAKI_TPU_BF16_STREAMS=1, ops/rnn.py), with the contract of the LSTM's
+(ops/lstm.py).  The forward's `res_dtype=torch.bfloat16` takes it: gh and
+gx come back in bf16 (gx the f32 input product rounded once; the f32
+scratch is never the residual), h in `h_dtype` (bf16 or f32), from an x of
+f32 or bf16; the arithmetic, the carry and the gx scratch stay f32.
+`gru_bwd_fusedw` takes it when gx and gh are bf16, `gru_bwd_recompute`
+wherever any of dh, h and x is bf16 (it stores no residuals: its rebuilt
+gx and gh are f32 scratch); dh, h (h_prev) and x may each be bf16 or f32,
+every value is widened at load, dgx and dgh stay f32, d_x comes back in
+x's dtype and the weight partials in f32.  The plain twins take the same
+dtypes and round exactly where the kernels store.  Each wrapper counts its
+bf16 launches (`<wrapper>.bf16`, and `<wrapper>.bf16_by_instance`).  The
+recurrences on given gates have no bf16 instance; a bf16 tensor given to
+one, or to an f32 instance, raises.
+
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
-launches, or the wrapper raises.
+launches, or the wrapper raises.  A failed build or launch of a bf16
+instance raises; nothing falls back to the f32 instance or the twin.
 """
 
 import functools
@@ -37,14 +57,17 @@ import functools
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib, gemm, rnn_plan
-from taiyaki_tpu_torch.ops.lstm import (_check_args, _check_hidden,
+from taiyaki_tpu_torch.ops.lstm import (BF16, F32, STREAM_DH, STREAM_H,
+                                        STREAM_X, _as, _bwd_streams,
+                                        _chain_bf16, _check_args,
+                                        _check_hidden, _streams,
                                         bwd_outputs, no_bf16, prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
 # (the GEMM plans go as one pointer, an int array: ops/gemm.py `c_args`)
-_SIGNATURES = {"tt_gru_fwd": [_P] * 7 + [_I] * 11 + [_P, _P],
-               "tt_gru_bwd": [_P] * 13 + [_I] * 5 + [_P] + [_I] * 6 + [_P],
-               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 5 + [_P] + [_I] * 6
+_SIGNATURES = {"tt_gru_fwd": [_P] * 8 + [_I] * 12 + [_P, _P],
+               "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P] + [_I] * 6 + [_P],
+               "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P] + [_I] * 6
                + [_P],
                "tt_gru_scan_fwd": [_P] * 4 + [_I] * 10 + [_P],
                "tt_gru_cluster_occupancy": [_I] * 6,
@@ -61,13 +84,19 @@ def _cell(gx_t, gh_t, h):
     return r, z, n, (1.0 - z) * n + z * h
 
 
-def gru_fwd_plain(x, iW, b, sW, reverse=False, emit_residuals=False):
+def gru_fwd_plain(x, iW, b, sW, reverse=False, emit_residuals=False,
+                  h_dtype=None, res_dtype=None):
     """Plain PyTorch GRU forward: x [T, B, D], iW [3H, D], b [3H],
     sW [3H, H] -> h [T, B, H]; with emit_residuals (h, gh, gx), gh and gx
-    [T, B, 3H] (the order of the JAX package)."""
-    gx = torch.matmul(x, iW.t()) + b
+    [T, B, 3H] (the order of the JAX package).  In f32 on x widened, the
+    next step on the f32 carry; h comes back in `h_dtype` and gh, gx in
+    `res_dtype` (f32 by default)."""
+    gx = torch.matmul(x.float(), iW.t()) + b
     out, gh = _gru_rec_plain(gx, sW, reverse, emit_residuals)
-    return (out, gh, gx) if emit_residuals else out
+    out = _as(out, h_dtype)
+    if not emit_residuals:
+        return out
+    return out, _as(gh, res_dtype), _as(gx, res_dtype)
 
 
 def _gru_rec_plain(gx, sW, reverse, residuals):
@@ -88,43 +117,55 @@ def _gru_rec_plain(gx, sW, reverse, residuals):
 
 
 def gru_fwd(x, iW, b, sW, reverse=False, emit_residuals=False,
-            instance=None):
+            instance=None, h_dtype=None, res_dtype=None):
     """GRU layer forward; same contract as `gru_fwd_plain`.  `instance`
     ("cluster" or "l2") forces an instance of the recurrence on the card,
-    for tests and timing; None takes `rnn_plan.rec_plan`'s."""
+    for tests and timing; None takes `rnn_plan.rec_plan`'s.
+    `res_dtype=torch.bfloat16` takes the bf16 instance (module notes),
+    with or without residuals; else x and h must be f32."""
     rnn_plan.check_instance(instance)
-    no_bf16("gru_fwd", x)
+    h_dtype, res_dtype = h_dtype or F32, res_dtype or F32
+    streams = _streams("gru_fwd", x.dtype, h_dtype, res_dtype)
     if x.device.type == "cpu":
-        return gru_fwd_plain(x, iW, b, sW, reverse, emit_residuals)
+        return gru_fwd_plain(x, iW, b, sW, reverse, emit_residuals, h_dtype,
+                             res_dtype)
     cuda_lib.check_cuda(x, "gru_fwd")
     T, B, D = x.shape
     H = sW.shape[1]
     _check_args("gru_fwd", x.device, (
-        ("x", x, (T, B, D)), ("iW", iW, (3 * H, D)), ("b", b, (3 * H,)),
-        ("sW", sW, (3 * H, H))))
+        ("x", x, (T, B, D), (F32, BF16)), ("iW", iW, (3 * H, D)),
+        ("b", b, (3 * H,)), ("sW", sW, (3 * H, H))))
     _check_hidden("gru_fwd", H)
     plan = rnn_plan.rec_plan(3, H, B, clusters_per_wave(
         x.device.index), instance)
-    gplans = gemm.plans_for(x.device, (T * B, 3 * H, D, gemm.GATE))
+    gplans = gemm.plans_for(x.device, (T * B, 3 * H, D, gemm.GATE,
+                                       x.dtype == BF16))
     lib = cuda_lib.load("gru", _SIGNATURES)
-    with torch.cuda.device(x.device):
+    dev = x.device
+    with torch.cuda.device(dev):
         x, iW = gemm.tma_ready(x, iW)
         swt = sW.t().contiguous()
-        # gx scratch, kept as the output gx under emit_residuals
-        gx = torch.empty(T, B, 3 * H, device=x.device)
-        h = torch.empty(T, B, H, device=x.device)
-        gh = (torch.empty(T, B, 3 * H, device=x.device) if emit_residuals
-              else None)
+        # gx scratch (f32), kept as the output gx of the f32 instance under
+        # emit_residuals; the bf16 instance writes a bf16 copy into gxr
+        gx = torch.empty(T, B, 3 * H, device=dev)
+        h = torch.empty(T, B, H, device=dev, dtype=h_dtype)
+        gh = gxr = None
+        if emit_residuals:
+            gh = torch.empty(T, B, 3 * H, device=dev, dtype=res_dtype)
+            gxr = (torch.empty(T, B, 3 * H, device=dev, dtype=BF16)
+                   if res_dtype == BF16 else None)
         err = lib.tt_gru_fwd(
             cuda_lib.ptr(x), cuda_lib.ptr(iW), cuda_lib.ptr(b),
             cuda_lib.ptr(swt), cuda_lib.ptr(gx), cuda_lib.ptr(h),
-            cuda_lib.ptr(gh), T, B, D, H, int(bool(reverse)),
-            *rnn_plan.c_args(plan), gemm.c_args(gplans),
-            cuda_lib.stream(x.device))
-        rnn_plan.count(gru_fwd, plan)
-        gemm.count(gplans)
+            cuda_lib.ptr(gh), cuda_lib.ptr(gxr), T, B, D, H,
+            int(bool(reverse)), streams, *rnn_plan.c_args(plan),
+            gemm.c_args(gplans), cuda_lib.stream(dev))
+        rnn_plan.count(gru_fwd, plan, bool(streams))
+        gemm.count(gplans, [bool(streams & STREAM_X)])
     cuda_lib.check(lib, err, "gru_fwd kernel")
-    return (h, gh, gx) if emit_residuals else h
+    if not emit_residuals:
+        return h
+    return h, gh, gx if gxr is None else gxr
 
 
 def gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
@@ -138,13 +179,16 @@ def gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse=False):
 
     Returns:
         (d_x [T, B, D], d_sW [1, 3H, H], d_iW [1, 3H, D], d_b [1, 3H]):
-        the weight gradients as one partial each.
+        the weight gradients as one partial each.  Every input is widened
+        to f32; d_x comes back in x's dtype, the rest in f32.
     """
     T, B, H = dh.shape
-    dgx, dgh = _gru_dgrads_plain(dh, gx, gh, h_prev, sW, reverse)
-    d_x = torch.matmul(dgx, iW)
+    h_prev = h_prev.float()
+    dgx, dgh = _gru_dgrads_plain(dh.float(), gx.float(), gh.float(), h_prev,
+                                 sW, reverse)
+    d_x = _as(torch.matmul(dgx, iW), x.dtype)
     fx = dgx.reshape(T * B, 3 * H)
-    d_iW = torch.matmul(fx.t(), x.reshape(T * B, -1))
+    d_iW = torch.matmul(fx.t(), x.float().reshape(T * B, -1))
     d_sW = torch.matmul(dgh.reshape(T * B, 3 * H).t(),
                         h_prev.reshape(T * B, H))
     return d_x, d_sW[None], d_iW[None], fx.sum(0)[None]
@@ -171,11 +215,12 @@ def _gru_dgrads_plain(dh, gx, gh, h_prev, sW, reverse):
 
 def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
     """Plain PyTorch GRU backward, rebuilding the gate streams gx = x .
-    iW^T + b and gh = h_prev . sW^T from h [T, B, H] (the forward's
-    hidden states) and b [3H]; the rest as `gru_bwd_fusedw_plain`."""
+    iW^T + b and gh = h_prev . sW^T in f32 from h [T, B, H] (the
+    forward's hidden states) and b [3H]; the rest as
+    `gru_bwd_fusedw_plain`."""
     h_prev = prev_state(h, reverse)
-    gx = torch.matmul(x, iW.t()) + b
-    gh = torch.matmul(h_prev, sW.t())
+    gx = torch.matmul(x.float(), iW.t()) + b
+    gh = torch.matmul(h_prev.float(), sW.t())
     return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
 
 
@@ -186,6 +231,20 @@ def _bwd_plan(H, B, device, instance):
                              instance)
 
 
+def _recompute_streams(dh, h, x):
+    """The `streams` bits of the recomputing backward, which reads no
+    residuals: dh, h and x each f32 or bf16, and any of them bf16 takes
+    the bf16 instance."""
+    what = "gru_bwd_recompute"
+    for name, t in (("dh", dh), ("h", h), ("x", x)):
+        if t.dtype not in (F32, BF16):
+            raise ValueError("{}: {} must be float32 or bfloat16, not "
+                             "{}".format(what, name, t.dtype))
+    return ((STREAM_X if x.dtype == BF16 else 0)
+            | (STREAM_H if h.dtype == BF16 else 0)
+            | (STREAM_DH if dh.dtype == BF16 else 0))
+
+
 def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
     """GRU layer backward; contract of `gru_bwd_recompute_plain`, except
     that the kernel returns d_sW and d_iW as [nsplit, ...] partials over
@@ -194,39 +253,49 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
     ("cluster" or "l2") forces an instance of the chain on the card, for
     tests and timing; None takes `rnn_plan.bwd_plan`'s."""
     rnn_plan.check_instance(instance)
-    no_bf16("gru_bwd_recompute", dh, h, x)
+    streams = _recompute_streams(dh, h, x)
     if dh.device.type == "cpu":
         return gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse)
-    cuda_lib.check_cuda(dh, "gru_bwd_recompute")
+    what = "gru_bwd_recompute"
+    cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
     D = x.shape[2]
-    _check_args("gru_bwd_recompute", dh.device, (
-        ("dh", dh, (T, B, H)), ("h", h, (T, B, H)), ("x", x, (T, B, D)),
-        ("sW", sW, (3 * H, H)), ("iW", iW, (3 * H, D)), ("b", b, (3 * H,))))
-    _check_hidden("gru_bwd_recompute", H)
+    both = (F32, BF16)
+    _check_args(what, dh.device, (
+        ("dh", dh, (T, B, H), both), ("h", h, (T, B, H), both),
+        ("x", x, (T, B, D), both), ("sW", sW, (3 * H, H)),
+        ("iW", iW, (3 * H, D)), ("b", b, (3 * H,))))
+    _check_hidden(what, H)
     plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         x, iW, h, sW, iwt = gemm.tma_ready(x, iW, h, sW,
                                            iW.t().contiguous())
-        # gx and gh, overwritten in place by dgx and dgh
+        # gx and gh (f32), overwritten in place by dgx and dgh
         g_x = torch.empty(T, B, 3 * H, device=dev)
         g_h = torch.empty(T, B, 3 * H, device=dev)
-        out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan, x.dtype,
+                                  h.dtype)
         # gx = x iW^T + b and gh = h_prev sW^T on all but the boundary step
-        gplans = gemm.plans_for(dev, (T * B, 3 * H, D, gemm.GATE),
-                                ((T - 1) * B, 3 * H, H, gemm.GATE)) + gplans
+        gplans = gemm.plans_for(
+            dev, (T * B, 3 * H, D, gemm.GATE, x.dtype == BF16),
+            ((T - 1) * B, 3 * H, H, gemm.GATE, h.dtype == BF16)) + gplans
         err = lib.tt_gru_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(h), cuda_lib.ptr(x),
             cuda_lib.ptr(iW), cuda_lib.ptr(b), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(g_x), cuda_lib.ptr(g_h),
             *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)),
-            gemm.c_args(gplans), *rnn_plan.c_args(plan),
+            streams, gemm.c_args(gplans), *rnn_plan.c_args(plan),
             cuda_lib.stream(dev))
-        rnn_plan.count(gru_bwd_recompute, plan)
-        gemm.count(gplans if T > 1 else gplans[:1] + gplans[2:])
-    cuda_lib.check(lib, err, "gru_bwd_recompute kernel")
+        rnn_plan.count(gru_bwd_recompute, plan, bool(streams))
+        bf = ([bool(streams & STREAM_X), bool(streams & STREAM_H)]
+              + _chain_bf16(streams))
+        if T > 1:
+            gemm.count(gplans, bf)
+        else:
+            gemm.count(gplans[:1] + gplans[2:], bf[:1] + bf[2:])
+    cuda_lib.check(lib, err, what + " kernel")
     return out
 
 
@@ -235,20 +304,23 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
     """GRU layer backward from the stored gate streams; contract of
     `gru_bwd_fusedw_plain`, with the partials and `instance` of
     `gru_bwd_recompute`.  gx and gh are read, never written: the gradients
-    go to scratch of their own."""
+    go to scratch of their own.  bf16 gx and gh take the bf16 instance;
+    bf16 dh, h_prev or x need it."""
     rnn_plan.check_instance(instance)
-    no_bf16("gru_bwd_fusedw", dh, gx, gh, h_prev, x)
+    what = "gru_bwd_fusedw"
+    streams = _bwd_streams(what, (gx, gh), dh, h_prev, x)
     if dh.device.type == "cpu":
         return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
-    cuda_lib.check_cuda(dh, "gru_bwd_fusedw")
+    cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
     D = x.shape[2]
-    _check_args("gru_bwd_fusedw", dh.device, (
-        ("dh", dh, (T, B, H)), ("gx", gx, (T, B, 3 * H)),
-        ("gh", gh, (T, B, 3 * H)), ("h_prev", h_prev, (T, B, H)),
-        ("x", x, (T, B, D)), ("sW", sW, (3 * H, H)),
-        ("iW", iW, (3 * H, D))))
-    _check_hidden("gru_bwd_fusedw", H)
+    both = (F32, BF16)
+    _check_args(what, dh.device, (
+        ("dh", dh, (T, B, H), both), ("gx", gx, (T, B, 3 * H), both),
+        ("gh", gh, (T, B, 3 * H), both),
+        ("h_prev", h_prev, (T, B, H), both), ("x", x, (T, B, D), both),
+        ("sW", sW, (3 * H, H)), ("iW", iW, (3 * H, D))))
+    _check_hidden(what, H)
     plan = _bwd_plan(H, B, dh.device, instance)
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
@@ -256,17 +328,18 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
         x, h_prev, iwt = gemm.tma_ready(x, h_prev, iW.t().contiguous())
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
-        out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan)
+        out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan, x.dtype,
+                                  h_prev.dtype)
         err = lib.tt_gru_bwd_fusedw(
             cuda_lib.ptr(dh), cuda_lib.ptr(gx), cuda_lib.ptr(gh),
             cuda_lib.ptr(h_prev), cuda_lib.ptr(x), cuda_lib.ptr(sW),
             cuda_lib.ptr(iwt), cuda_lib.ptr(dgx), cuda_lib.ptr(dgh),
             *map(cuda_lib.ptr, out), T, B, D, H, int(bool(reverse)),
-            gemm.c_args(gplans), *rnn_plan.c_args(plan),
+            streams, gemm.c_args(gplans), *rnn_plan.c_args(plan),
             cuda_lib.stream(dev))
-        rnn_plan.count(gru_bwd_fusedw, plan)
-        gemm.count(gplans)
-    cuda_lib.check(lib, err, "gru_bwd_fusedw kernel")
+        rnn_plan.count(gru_bwd_fusedw, plan, bool(streams))
+        gemm.count(gplans, _chain_bf16(streams))
+    cuda_lib.check(lib, err, what + " kernel")
     return out
 
 
@@ -391,3 +464,6 @@ for _fn in (gru_fwd, gru_scan_fwd, gru_scan_bwd, gru_bwd_recompute,
             gru_bwd_fusedw):
     _fn.launches = 0
     _fn.by_instance = rnn_plan.instance_counters()
+for _fn in (gru_fwd, gru_bwd_recompute, gru_bwd_fusedw):
+    _fn.bf16 = rnn_plan.Launches()
+    _fn.bf16_by_instance = rnn_plan.instance_counters()

@@ -30,17 +30,19 @@ emits h alone.
 
 Streams.  By default every stream is f32: the JAX package's precision on
 the CPU and in its inference CLIs.  TAIYAKI_TPU_BF16_STREAMS=1 (read once
-per forward call, kept for the backward) makes the LSTM layers store what
-the JAX package's TPU kernels store under its mixed precision
-(taiyaki_tpu/ops/rnn.py:29-42): the residuals in bf16, the activation
-stream h in bf16 unless TAIYAKI_TPU_F32_GATES=1 or
+per forward call, kept for the backward) makes the LSTM and GRU layers
+store what the JAX package's TPU kernels store under its mixed precision
+(taiyaki_tpu/ops/rnn.py:29-42, :345-470 and :612-712): the residuals
+(LSTM c, pre, acts, tc; GRU gh and gx, stored policy) in bf16, the
+activation stream h in bf16 unless TAIYAKI_TPU_F32_GATES=1 or
 TAIYAKI_TPU_BF16_ACTS=0, the gradient stream dh in bf16 unless
 TAIYAKI_TPU_F32_GRADS=1 (then dh keeps the dtype autograd gives it, h's),
-and d_x in x's dtype; the weight gradients stay f32.  The JAX package
-keeps f32 streams wherever Mosaic's B % 8 rule sends it to its scan path;
-the port applies the switch at any B.  Under the switch the GRU layer
-under grad or with h not held in f32, and the scans, raise (ROADMAP.md
-Queue 1 item 7): they have no bf16 instance yet.
+and d_x in x's dtype; the carries, every product's sums, the weight
+gradients, the optimizer state and the checkpoints stay f32.  The JAX
+package keeps f32 streams wherever Mosaic's B % 8 rule sends it to its
+scan path; the port applies the switch at any B.  Under the switch the
+scans raise (ROADMAP.md Queue 1 item 7.2): they have no bf16 instance
+yet.
 """
 
 import collections
@@ -89,15 +91,15 @@ def gru_policy():
 
 
 BF16_SWITCH = "TAIYAKI_TPU_BF16_STREAMS"
-# the dtypes of the LSTM layers' streams under the switch: h (the act
+# the dtypes of the recurrent layers' streams under the switch: h (the act
 # stream) and dh (the gradient stream; None keeps dh's own dtype)
 Streams = collections.namedtuple("Streams", "h dh")
 
 
 def bf16_streams():
-    """The LSTM layers' Streams under TAIYAKI_TPU_BF16_STREAMS=1, read as
-    taiyaki_tpu/ops/rnn.py:136-174 reads its switches; None when unset
-    (every stream f32)."""
+    """The recurrent layers' Streams under TAIYAKI_TPU_BF16_STREAMS=1,
+    read as taiyaki_tpu/ops/rnn.py:136-174 reads its switches; None when
+    unset (every stream f32)."""
     if os.environ.get(BF16_SWITCH) != "1":
         return None
     f32_h = (os.environ.get("TAIYAKI_TPU_F32_GATES") == "1"
@@ -131,9 +133,16 @@ def f32_inference():
 
 def _no_bf16_path(what):
     raise ValueError(
-        "{}=1: {} has no bf16 streams yet (ROADMAP.md Queue 1 item 7, the "
-        "rest of the mixed precision); unset {} to run it in "
+        "{}=1: {} has no bf16 streams yet (ROADMAP.md Queue 1 item 7.2, "
+        "the rest of the mixed precision); unset {} to run it in "
         "f32".format(BF16_SWITCH, what, BF16_SWITCH))
+
+
+def _stream_dtypes(streams):
+    """The forward's dtype arguments under the switch's Streams (none when
+    unset): h in the act stream's dtype, the bf16 instance."""
+    return ({} if streams is None else
+            {"h_dtype": streams.h, "res_dtype": torch.bfloat16})
 
 
 class _LstmLayer(torch.autograd.Function):
@@ -144,10 +153,8 @@ class _LstmLayer(torch.autograd.Function):
         ctx.streams = bf16_streams()
         ctx.reverse = reverse
         emit = "c" if ctx.policy == "recompute" else ctx.policy
-        dtypes = ({} if ctx.streams is None else
-                  {"h_dtype": ctx.streams.h, "res_dtype": torch.bfloat16})
         h, c, *res = lstm_fwd(x, iW, b, sW, reverse=reverse, emit=emit,
-                              **dtypes)
+                              **_stream_dtypes(ctx.streams))
         ctx.save_for_backward(x, h, c, iW, b, sW, *res)
         return h
 
@@ -177,16 +184,16 @@ class _GruLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, iW, b, sW, reverse):
-        if bf16_streams() is not None:
-            _no_bf16_path("the GRU layer under grad")
         ctx.policy = gru_policy()
+        ctx.streams = bf16_streams()
         ctx.reverse = reverse
+        dtypes = _stream_dtypes(ctx.streams)
         if ctx.policy == "stored":
             h, gh, gx = gru_fwd(x, iW, b, sW, reverse=reverse,
-                                emit_residuals=True)
+                                emit_residuals=True, **dtypes)
             ctx.save_for_backward(x, h, iW, b, sW, gx, gh)
         else:
-            h = gru_fwd(x, iW, b, sW, reverse=reverse)
+            h = gru_fwd(x, iW, b, sW, reverse=reverse, **dtypes)
             ctx.save_for_backward(x, h, iW, b, sW)
         return h
 
@@ -194,6 +201,8 @@ class _GruLayer(torch.autograd.Function):
     def backward(ctx, dh):
         x, h, iW, b, sW, *res = ctx.saved_tensors
         dh = dh.contiguous()
+        if ctx.streams is not None and ctx.streams.dh is not None:
+            dh = dh.to(ctx.streams.dh)
         rev = ctx.reverse
         if ctx.policy == "stored":
             d_x, d_sW, d_iW, d_b = gru_bwd_fusedw(
@@ -211,23 +220,23 @@ def _layer(fn, forward, x, iW, b, sW, reverse):
     return forward(*args, reverse=reverse)
 
 
-def _lstm_infer(x, iW, b, sW, reverse=False):
-    """The LSTM layer's forward with no grad: h alone, in the act stream's
+def _infer(fwd, x, iW, b, sW, reverse):
+    """A layer's forward `fwd` with no grad: h alone, in the act stream's
     dtype under the switch (the bf16 instance wherever x or h is bf16)."""
     streams = bf16_streams()
     if streams is None or torch.bfloat16 not in (x.dtype, streams.h):
-        return lstm_fwd(x, iW, b, sW, reverse=reverse)
-    return lstm_fwd(x, iW, b, sW, reverse=reverse, h_dtype=streams.h,
-                    res_dtype=torch.bfloat16)
+        return fwd(x, iW, b, sW, reverse=reverse)
+    return fwd(x, iW, b, sW, reverse=reverse, **_stream_dtypes(streams))
+
+
+def _lstm_infer(x, iW, b, sW, reverse=False):
+    """The LSTM layer's forward with no grad (`_infer`)."""
+    return _infer(lstm_fwd, x, iW, b, sW, reverse)
 
 
 def _gru_infer(x, iW, b, sW, reverse=False):
-    """The GRU layer's forward with no grad; under the switch only with h
-    held in f32 (TAIYAKI_TPU_F32_GATES=1 or TAIYAKI_TPU_BF16_ACTS=0)."""
-    streams = bf16_streams()
-    if streams is not None and streams.h != torch.float32:
-        _no_bf16_path("the GRU layer with a bf16 act stream")
-    return gru_fwd(x, iW, b, sW, reverse=reverse)
+    """The GRU layer's forward with no grad (`_infer`)."""
+    return _infer(gru_fwd, x, iW, b, sW, reverse)
 
 
 def lstm_layer(x, iW, b, sW, reverse=False):
@@ -248,11 +257,12 @@ def gru_layer(x, iW, b, sW, reverse=False):
     """Whole GRU layer: h = gru(x @ iW.T + b; sW), direction `reverse`.
 
     Args:
-        x: [T, B, D] f32; iW: [3H, D]; b: [3H]; sW: [3H, H] (gate order
-            r, z, n).
+        x: [T, B, D] f32 (or bf16 under TAIYAKI_TPU_BF16_STREAMS=1); iW:
+            [3H, D]; b: [3H]; sW: [3H, H] (gate order r, z, n).
 
     Returns:
-        h: [T, B, H] hidden states.
+        h: [T, B, H] hidden states (f32, or the act stream's dtype under
+        the switch).
     """
     return _layer(_GruLayer, _gru_infer, x, iW, b, sW, reverse)
 

@@ -19,6 +19,14 @@ The instances compute the same values (csrc/rec_cluster.cuh):
   step: for the rest (up to MAX_HIDDEN = 512, where an LSTM needs 4 MB of
   sW, 262 KB a CTA even at C = 16).
 
+The bf16 instances of both cells (TAIYAKI_TPU_BF16_STREAMS=1,
+ops/rnn.py) keep the f32 instances' shared memory as it is: h, the
+exchange, the partial sums and the backward's ring stay f32 (the bf16
+values are widened as they are loaded), so `cluster_smem` and `bwd_smem`
+count both, and a plan holds for either instance.  Their registers are
+held to the same launch bounds (512 threads, one CTA an SM); what does
+not fit spills, which the build reports (`-Xptxas -v`).
+
 Among the cluster plans that fit (C ranks, BT rows a tile, RB rows a
 lane in the product, and KS slices of the forward's sum over k, or KL
 output units a lane of the backward's product): one CTA per SM, the

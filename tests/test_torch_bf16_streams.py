@@ -29,9 +29,10 @@ the same seeded numpy inputs:
     route's own distance from its f32 step beside them (the JAX CRF
     rounds its scores to bf16 under its mixed precision, the port's CRF
     does not);
-(f) the GRU layer under grad or with a bf16 act stream, `lstm_scan` and
-    `gru_scan` raise under the switch, naming it; a bf16 tensor given to
-    a kernel with no bf16 instance raises; the switch unset, the layer is
+(f) `lstm_scan` and `gru_scan` raise under the switch, naming it, while
+    the GRU layer under grad and with a bf16 act stream run (their bf16
+    instances: tests/test_torch_bf16_gru.py); a bf16 tensor given to a
+    kernel with no bf16 instance raises; the switch unset, the layer is
     the f32 one bit for bit; the inference CLIs' opt-out
     (`rnn.f32_inference`) keeps a basecall's forward f32 and equal to
     the unswitched one, and leaves the environment as it found it;
@@ -397,15 +398,29 @@ def _gru_args():
 @pytest.mark.parametrize("case", ["gru grad", "gru bf16 h", "lstm_scan",
                                   "gru_scan"])
 def test_paths_without_bf16_streams_raise(case, monkeypatch):
+    """Under the switch the scans raise, naming it and ROADMAP.md's
+    Queue 1 item 7.  The GRU layer's two cases have bf16 instances and run
+    instead, with the JAX route's dtypes: under grad h bf16 and every
+    gradient f32 (x f32); with no grad a bf16 h, and a second layer on it
+    a bf16 h too."""
     monkeypatch.setenv(SWITCH, "1")
     x, iW, b, sW = _gru_args()
-    with pytest.raises(ValueError, match=SWITCH):
-        if case == "gru grad":
-            trnn.gru_layer(x, iW.requires_grad_(), b, sW)
-        elif case == "gru bf16 h":
-            with torch.no_grad():
-                trnn.gru_layer(x, iW, b, sW)
-        elif case == "lstm_scan":
+    if case == "gru grad":
+        leaves = [t.clone().requires_grad_() for t in (x, iW, b, sW)]
+        h = trnn.gru_layer(*leaves)
+        grads = torch.autograd.grad(h, leaves, torch.ones_like(h))
+        assert h.dtype == BF16 and bool(torch.isfinite(h.float()).all())
+        assert [g.dtype for g in grads] == [F32] * 4
+        assert all(bool(torch.isfinite(g).all()) for g in grads)
+        return
+    if case == "gru bf16 h":
+        with torch.no_grad():
+            h = trnn.gru_layer(x, iW, b, sW)
+            h2 = trnn.gru_layer(h, sW, b, sW, reverse=True)
+        assert h.dtype == h2.dtype == BF16 and h2.shape == (T, B, H)
+        return
+    with pytest.raises(ValueError, match=SWITCH + ".*Queue 1 item 7"):
+        if case == "lstm_scan":
             trnn.lstm_scan(torch.zeros(T, B, 4 * H), torch.zeros(4 * H, H))
         else:
             trnn.gru_scan(torch.zeros(T, B, 3 * H), sW)

@@ -1869,8 +1869,8 @@ def test_lstm_layers_bf16_streams_on_card(dev, env, reverse, monkeypatch):
 
 def test_bf16_refused_on_card(dev, monkeypatch):
     """A bf16 tensor given to a kernel with no bf16 instance, or bf16 x or
-    h to the f32 instance, raises before any launch; the scans and the
-    GRU layer raise under the switch."""
+    h to the f32 instance, raises before any launch; the scans raise
+    under the switch (the GRU layer runs its bf16 instances)."""
     x, iW, b, sW = (a.to(dev) for a in _gru_inputs(9, 8, 12, 16)[:4])
     with pytest.raises(ValueError):
         gru.gru_fwd(x.to(BF16), iW, b, sW)
@@ -1885,4 +1885,164 @@ def test_bf16_refused_on_card(dev, monkeypatch):
         rnn.lstm_scan(torch.zeros(9, 8, 64, device=dev),
                       torch.zeros(64, 16, device=dev))
     with pytest.raises(ValueError, match="TAIYAKI_TPU_BF16_STREAMS"):
-        rnn.gru_layer(x, iW.requires_grad_(), b, sW)
+        rnn.gru_scan(torch.zeros(9, 8, 48, device=dev), sW)
+
+
+# -- the GRU's bf16 instances ------------------------------------------------
+#
+# Kernels 7, 8 and 13 with bf16 residuals, h and dh, and x in either
+# dtype, on both chain instances, against their twins on the card, on the
+# terms of the LSTM's above.  Ragged widths take the simt GEMMs; H=96 is
+# train_abinitio's width (3H = 288); at H=512 the forward's plan takes the
+# L2 instance.
+
+BF16_GRU_SHAPES = [(37, 13, 7, 16), (19, 24, 12, 17), (50, 24, 64, 256),
+                   (40, 16, 96, 96), (120, 37, 384, 384), (20, 16, 64, 512)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BF16_GRU_SHAPES)
+def test_gru_bf16_fwd_matches_twin(dev, shape, reverse):
+    """Kernel 7's bf16 instance with and without its residuals (gh and a
+    bf16 copy of gx), h in bf16 or f32, x in f32 or bf16, on the plan's
+    instance and the forced L2 one."""
+    x, iW, b, sW = (a.to(dev) for a in _gru_inputs(*shape)[:4])
+    for xdt in (torch.float32, BF16):
+        xx = x.to(xdt)
+        for hdt in (BF16, torch.float32):
+            for res in (False, True):
+                want = _as_tuple(gru.gru_fwd_plain(xx, iW, b, sW, reverse,
+                                                   res, hdt, BF16))
+                for inst in (None, "l2"):
+                    n, nb = _counts(gru.gru_fwd), gru.gru_fwd.bf16.launches
+                    got = _as_tuple(gru.gru_fwd(
+                        xx, iW, b, sW, reverse=reverse, emit_residuals=res,
+                        instance=inst, h_dtype=hdt, res_dtype=BF16))
+                    torch.cuda.synchronize()
+                    assert gru.gru_fwd.bf16.launches == nb + 1
+                    ran = {k for k, v in _counts(gru.gru_fwd).items()
+                           if v != n[k]}
+                    assert len(ran) == 1 and (inst is None or ran == {inst})
+                    assert len(got) == len(want) == (3 if res else 1)
+                    for g, w in zip(got, want):
+                        assert g.dtype == w.dtype
+                        if g.dtype == BF16:
+                            _bf16_close(g, w, 1e-4)
+                        else:
+                            assert (g - w).abs().max().item() < 1e-4
+
+
+def _bf16_gru_bwd_rows(shape, reverse, dev, xdt, hdt, dhdt):
+    """(wrapper, twin, args) of kernels 8 and 13 on the bf16 forward's
+    residuals, x, h and dh of the dtypes given."""
+    x, iW, b, sW, dh = (a.to(dev) for a in _gru_inputs(*shape))
+    x = x.to(xdt)
+    h, gh, gx = gru.gru_fwd_plain(x, iW, b, sW, reverse, True, hdt, BF16)
+    dh = dh.to(dhdt)
+    return [(gru.gru_bwd_recompute, gru.gru_bwd_recompute_plain,
+             (dh, h, x, sW, iW, b)),
+            (gru.gru_bwd_fusedw, gru.gru_bwd_fusedw_plain,
+             (dh, gx, gh, lstm.prev_state(h, reverse), x, sW, iW))]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BF16_GRU_SHAPES)
+def test_gru_bf16_bwd_matches_twin(dev, shape, reverse):
+    """Kernels 8 and 13's bf16 instances on the plan's chain instance and
+    the forced L2 one, in each case of BF16_BWD_DTYPES; the recompute
+    with every stream f32 runs its f32 instance (it stores no residuals);
+    their inputs left as they were."""
+    for dts in BF16_BWD_DTYPES:
+        for fn, plain, args in _bf16_gru_bwd_rows(shape, reverse, dev,
+                                                  *dts):
+            bf16 = fn is gru.gru_bwd_fusedw or BF16 in dts
+            kept = [a.clone() for a in args]
+            want = plain(*args, reverse=reverse)
+            for inst in (None, "l2"):
+                n, nb = _counts(fn), _bf16_counts(fn)
+                got = fn(*args, reverse=reverse, instance=inst)
+                torch.cuda.synchronize()
+                ran = {k for k, v in _counts(fn).items() if v != n[k]}
+                ran16 = {k for k, v in _bf16_counts(fn).items()
+                         if v != nb[k]}
+                assert len(ran) == 1 and (inst is None or ran == {inst})
+                assert ran16 == (ran if bf16 else set())
+                _check_bf16_bwd(got, want)
+            assert all(torch.equal(a, k) for a, k in zip(args, kept))
+
+
+def test_gru_bf16_instances_on_both_chain_instances(dev):
+    """At the mGru width and train_abinitio's the plans take the cluster
+    instances; at H=512 the forward's plan the L2 one (the GRU's backward
+    slice still fits a cluster of 16): the bf16 launches land on the
+    plans' instances."""
+    for shape, inst, bwd_inst in (((50, 24, 64, 256), "cluster", "cluster"),
+                                  ((40, 16, 96, 96), "cluster", "cluster"),
+                                  ((20, 16, 64, 512), "l2", "cluster")):
+        assert _plan(3, shape[3], shape[1]).instance == inst
+        assert _bwd_plan(3, shape[3], shape[1]).instance == bwd_inst
+        x, iW, b, sW = (a.to(dev) for a in _gru_inputs(*shape)[:4])
+        nb = _bf16_counts(gru.gru_fwd)
+        gru.gru_fwd(x.to(BF16), iW, b, sW, h_dtype=BF16, res_dtype=BF16)
+        assert _bf16_counts(gru.gru_fwd) == dict(nb, **{inst: nb[inst] + 1})
+        for fn, _, args in _bf16_gru_bwd_rows(shape, False, dev, BF16, BF16,
+                                              BF16):
+            nb = _bf16_counts(fn)
+            fn(*args)
+            assert _bf16_counts(fn) == dict(
+                nb, **{bwd_inst: nb[bwd_inst] + 1})
+
+
+GRU_BF16_POLICIES = [{}, {"TAIYAKI_TPU_NO_RECOMPUTE": "1"}]
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, BF16], ids=["x32", "x16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("env", GRU_BF16_POLICIES)
+def test_gru_layers_bf16_streams_on_card(dev, env, reverse, xdt,
+                                         monkeypatch):
+    """One GRU layer under the switch on the card against the same on the
+    CPU (the twins), as the first layer (x f32) and as a later one (x
+    bf16), under each policy: h equal as bf16 but for single steps (the
+    same inputs: the kernels' terms against their twins), every gradient
+    within one bf16 step (2^-8) of its largest (the backward reads the
+    forward's bf16 h, which may differ by single steps); the layer's
+    launches of its bf16 instances, and the GEMMs' with bf16 operands.  A
+    stack of layers is held on the card against the f32 step instead
+    (chip_smoke.py phase 17b): a single step in one layer's h moves the
+    next layer's by more than one."""
+    for name in ("TAIYAKI_TPU_RECOMPUTE", "TAIYAKI_TPU_NO_RECOMPUTE",
+                 "TAIYAKI_TPU_F32_GATES", "TAIYAKI_TPU_BF16_ACTS",
+                 "TAIYAKI_TPU_F32_GRADS"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
+    x, iW, b, sW, _ = _gru_inputs(41, 16, 24, 32)
+    dh = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(41, 16, 32)).astype(np.float32))
+    out = {}
+    bwd = _policy_kernel("gru")
+    # a bf16 operand: gx of a bf16 x, gh rebuilt from the bf16 h
+    # (recompute), d_x in bf16; d_sW of the bf16 h always
+    gate16 = xdt == BF16 or bwd == "gru_bwd_recompute"
+    for device in ("cpu", dev):
+        leaves = [x.to(device).to(xdt).requires_grad_()] + [
+            a.to(device).requires_grad_() for a in (iW, b, sW)]
+        n = (gru.gru_fwd.bf16.launches, getattr(gru, bwd).bf16.launches,
+             gemm.gate_gemm.bf16.launches, gemm.atb_gemm.bf16.launches)
+        h = rnn.gru_layer(*leaves, reverse=reverse)
+        grads = torch.autograd.grad(h, leaves, dh.to(device).to(BF16))
+        assert h.dtype == BF16 and grads[0].dtype == xdt
+        out[str(device)] = [h.detach().cpu()] + [g.cpu() for g in grads]
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert (gru.gru_fwd.bf16.launches - n[0],
+                    getattr(gru, bwd).bf16.launches - n[1]) == (1, 1)
+            assert (gemm.gate_gemm.bf16.launches > n[2]) == gate16
+            assert gemm.atb_gemm.bf16.launches > n[3]
+    cpu, card = out["cpu"], out[str(dev)]
+    _bf16_close(card[0], cpu[0], 1e-4)
+    for g, w in zip(card[1:], cpu[1:]):
+        assert g.dtype == w.dtype
+        assert _rel_err(g.float(), w.float()) < 2.0 ** -8
