@@ -230,13 +230,15 @@ card; run from the root of a checkout:
    each row's ms beside the f32 row's; (b) the tc GEMMs with the bf16
    operands the layers give them (x, h, and d_x's bf16 output) against
    their twins (GEMM_TOL), timed beside the same product in f32; (c) the
-   full-width mLstm step under the switch against the f32 step on the
-   same batch and weights under each residual policy (loss 5e-3
-   relative, gradients 2e-2 of each one's largest), the step's ms (median
-   of 3) and peak memory beside the f32 step's; (d) `cli.train_flipflop`
-   under the switch (4 iterations; rows 1 and 4 as bf16 launches), then
-   `cli.basecall` from its checkpoint with the switch exported, which the
-   CLI's opt-out keeps f32.
+   full-width mLstm step under the switch (the CRF and logZ kept f32)
+   against the f32 step on the same batch and weights under each
+   residual policy (loss 5e-3 relative, gradients 2e-2 of each one's
+   largest), the step's ms (median of 3) and peak memory beside the f32
+   step's; (d) `cli.train_flipflop`
+   under the switch (4 iterations; rows 1 and 4 as bf16 launches, and
+   rows 2, 3, 5 and 6 since phase 18's slice), then `cli.basecall` from
+   its checkpoint with the switch exported, which the CLI's opt-out keeps
+   f32.
 17. The bf16 streams of the GRU layers (this slice): (a) the bf16
    instances of rows 7 (both emit modes), 8 and 13 at the mGru training
    shape (T=2000, B=256, H=D=256; x, h and dh as a later layer's, the
@@ -244,15 +246,33 @@ card; run from the root of a checkout:
    train_abinitio's (B=128, H=D=96; the first two), both directions, on
    the cluster instances, against their twins on phase 16a's terms, each
    row's ms beside the f32 row's, counted by instance; (b) the
-   full-width mGru step under the switch against the f32 step under each
-   residual policy (16c's terms), each policy's step ms (median of 3) and
-   peak memory beside the f32 step's; (c) `cli.train_flipflop` on mGru
+   full-width mGru step under the switch (the CRF and logZ kept f32)
+   against the f32 step under each residual policy (16c's terms), each
+   policy's step ms (median of 3) and peak memory beside the f32 step's; (c) `cli.train_flipflop` on mGru
    under the switch (4 iterations; rows 7 and 8 as bf16 launches),
    `cli.train_abinitio` at its defaults under the switch with each GRU
-   policy (rows 7 and 8, or 7 and 13), and `cli.basecall` from the
-   trained checkpoint with the switch exported (no bf16 launch).
-18. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows and the 7 bf16 instances'; each with its launches on
+   policy (rows 7 and 8, or 7 and 13; both with rows 2, 3, 5 and 6's),
+   and `cli.basecall` from the trained checkpoint with the switch
+   exported (no bf16 launch).
+18. The bf16 score streams of the CRF's fused route and logZ (this
+   slice; the same switch): (a) the bf16 instances of rows 2, 3, 5 and 6
+   at the mLstm training shape (T=800, B=256, L=512, S=40), at the
+   cat_mod width (S=46; the CRF alone) and on the widest fused lattice
+   (T=4000, B=64, L=3712) against their twins, which round where the
+   kernels round (bf16 lattices and logZ's posteriors equal as bf16 but
+   for at most 1% one step apart; logZ and the CRF score at the f32 rows'
+   tolerances; d lp within a bf16 step of a posterior, past the f32 row's
+   atol at most 1% of it), each row's ms beside its f32 instance's on the
+   same inputs; (b) the full-width mLstm and cat_mod steps under the
+   switch against their f32 steps (16c's terms), each step's ms (median
+   of 3) and peak memory: f32, under the switch, and under the switch
+   with the CRF and logZ kept f32 (the previous slice's step); (c)
+   `cli.train_flipflop` on mLstm and on cat_mod under the switch (4
+   iterations each; rows 2, 3, 5 and 6 as bf16 launches), then
+   `cli.basecall` from the mLstm checkpoint with the switch exported (no
+   bf16 CRF or logZ launch).
+19. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows and the 11 bf16 instances'; each with its launches on
    phase 13's training paths, phase 14's round-trip basecall and phase
    15's paths, `launches_on`), the card line, and the result line
    {"ok": true, "device": {...}}.
@@ -4603,15 +4623,29 @@ BF16_CASES = (("later layer", "bfloat16", "bfloat16", "bfloat16"),
               ("F32_GATES", "float32", "float32", "float32"))
 # of a bf16 output, the share at most one bf16 step from its twin's
 BF16_SHARE = 0.01
-# the bf16 instances' rows: (name, its f32 row, the TPU kernel's line);
-# the LSTM's (phase 16), then the GRU's (phase 17)
-BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", 880),
-             ("lstm_bwd_acts[bf16]", "lstm_bwd_acts", 385),
-             ("lstm_bwd_fusedw[bf16]", "lstm_bwd_fusedw", 456),
-             ("lstm_bwd_recompute[bf16]", "lstm_bwd_recompute", 625),
-             ("gru_fwd[bf16]", "gru_fwd", 995),
-             ("gru_bwd_recompute[bf16]", "gru_bwd_recompute", 1311),
-             ("gru_bwd_fusedw[bf16]", "gru_bwd_fusedw", 1184))
+# the bf16 instances' rows: (name, its f32 row, the TPU kernel's file and
+# line under taiyaki_tpu/ops/); the LSTM's (phase 16), the GRU's (phase
+# 17), then the CRF's and logZ's (phase 18)
+BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", "pallas_rnn.py:880"),
+             ("lstm_bwd_acts[bf16]", "lstm_bwd_acts", "pallas_rnn.py:385"),
+             ("lstm_bwd_fusedw[bf16]", "lstm_bwd_fusedw",
+              "pallas_rnn.py:456"),
+             ("lstm_bwd_recompute[bf16]", "lstm_bwd_recompute",
+              "pallas_rnn.py:625"),
+             ("gru_fwd[bf16]", "gru_fwd", "pallas_rnn.py:995"),
+             ("gru_bwd_recompute[bf16]", "gru_bwd_recompute",
+              "pallas_rnn.py:1311"),
+             ("gru_bwd_fusedw[bf16]", "gru_bwd_fusedw", "pallas_rnn.py:1184"),
+             ("logz_fwd[bf16]", "logz_fwd", "pallas_logz.py:142"),
+             ("logz_posteriors[bf16]", "logz_posteriors",
+              "pallas_logz.py:249"),
+             ("crf_fwd[bf16]", "crf_fwd", "pallas_crf.py:423"),
+             ("crf_bwd[bf16]", "crf_bwd", "pallas_crf.py:565"))
+# the names of the LSTM's, the GRU's and the score rows' bf16 instances
+LSTM_BF16 = tuple(n for n, _, _ in BF16_ROWS if n.startswith("lstm"))
+GRU_BF16 = tuple(n for n, _, _ in BF16_ROWS if n.startswith("gru"))
+SCORE_BF16 = tuple(n for n, _, _ in BF16_ROWS
+                   if n.startswith(("crf", "logz")))
 # the step under the switch against the f32 step (the CPU tests' terms)
 BF16_LOSS_TOL, BF16_GRAD_TOL = 5e-3, 2e-2
 
@@ -4804,7 +4838,7 @@ def check_bf16_kernels(torch, dev, rng, f32_rows):
         f32 = f32_rows[f32_name]
         rows.append(dict(
             name=name, route="cuda", source="taiyaki_tpu_torch/csrc/lstm.cu",
-            replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(line),
+            replaces="taiyaki_tpu/ops/" + line,
             max_abs_err=err[name], bf16_share=share[name], ms=ms[name],
             plain_ms=plain_ms[name], bound_ms=bounds[name][0],
             bound_by=bounds[name][1], library_ms=f32["library_ms"],
@@ -4907,28 +4941,46 @@ def check_bf16_gemms(torch, dev):
 
 
 def _median_step(torch, dev, seed, model, batch, kwargs):
-    """A full training step of `model` on `batch` (seeded weights, AdamW):
-    the median synchronised wall time (ms) of 3 steps after a warm-up and
-    the peak device memory (bytes) over them."""
+    """A full training step of `model` on `batch` (seeded weights, AdamW;
+    a cat_mod model at the mod factor of loss_args): the median
+    synchronised wall time (ms) of 3 steps after a warm-up and the peak
+    device memory (bytes) over them."""
     from taiyaki_tpu_torch import train
     net = new_net(seed, kwargs, dev, model)
+    args, factor = loss_args(net)
     params = train.leaf_params(net)
     opt, _ = train.make_optimizer(params, 4e-3, 8, 2, 1e-4, 1e-4)
     threshs = np.full(len(params), np.inf, np.float32)
     b = train.batch_to_device(batch, dev)
-    step = train.make_train_step(net, opt)
-    step(b, 1.0, threshs)
+    step = train.make_train_step(net, opt, *args)
+    step(b, 1.0, threshs, *factor)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        step(b, 1.0, threshs)
+        step(b, 1.0, threshs, *factor)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated(dev)
     del net, opt, b, step
     return float(np.median(times)), peak
+
+
+@contextlib.contextmanager
+def scores_kept_f32():
+    """Within: the CRF and logZ in f32 whatever the switch says (ops/
+    flipflop.py `score_dtype` patched): the step under the switch with the
+    layers' bf16 streams alone, as phases 16c and 17b hold it and as the
+    slices before phase 18's ran it."""
+    from taiyaki_tpu_torch.ops import flipflop
+    import torch
+    real = flipflop.score_dtype
+    flipflop.score_dtype = lambda: torch.float32
+    try:
+        yield
+    finally:
+        flipflop.score_dtype = real
 
 
 def bf16_steps(torch, dev, seed, counters, model=MLSTM,
@@ -4937,7 +4989,9 @@ def bf16_steps(torch, dev, seed, counters, model=MLSTM,
     chunks x CHUNK samples) under the switch against the f32 step on the
     same batch and weights: the loss within BF16_LOSS_TOL relative and
     each gradient within BF16_GRAD_TOL of its largest (the CPU tests'
-    terms; the CRF stays f32), under each residual policy of `policies`
+    terms), the CRF and logZ kept f32 (`scores_kept_f32`: these phases
+    hold the layers' streams; phase 18b runs the step with the CRF's and
+    logZ's bf16 instances too), under each residual policy of `policies`
     (the f32 step's of the same policy); each policy's step under the
     switch with the counters of `counters` set to 0 just before it and
     read just after.  The step ms (median of 3) and peak memory of each
@@ -4951,7 +5005,7 @@ def bf16_steps(torch, dev, seed, counters, model=MLSTM,
     for policy in policies:
         res = {}
         for name, env in (("f32", {}), BF16_STREAMS):
-            with switches(dict(policy[1], **env)):
+            with switches(dict(policy[1], **env)), scores_kept_f32():
                 net = new_net(seed, kwargs, dev, model)
                 names = leaf_names(net)
                 if name == "bf16":
@@ -4989,7 +5043,7 @@ def bf16_steps(torch, dev, seed, counters, model=MLSTM,
         # the first policy's keys carry no policy name
         key = "" if policy is policies[0] else " " + policy[0]
         for name, env in (("f32", {}), BF16_STREAMS):
-            with switches(dict(policy[1], **env)):
+            with switches(dict(policy[1], **env)), scores_kept_f32():
                 ms, peak = _median_step(torch, dev, seed, model, batch,
                                         kwargs)
             torch.cuda.empty_cache()
@@ -5003,32 +5057,35 @@ def bf16_steps(torch, dev, seed, counters, model=MLSTM,
     return launches, out
 
 
-def bf16_cli(torch, work, seed, pick, reads):
+def bf16_cli(torch, work, seed, pick, reads, idle):
     """Phase 16d: `cli.train_flipflop` on mLstm_flipflop at phase 3's
     shape under the switch (4 iterations; rows 1 and 4 launched as their
-    bf16 instances, the GEMMs with bf16 operands), then `cli.basecall` of
-    phase 3's reads from its checkpoint with the switch still exported:
-    the CLI's opt-out keeps it f32 (no bf16 launch) and every read is
+    bf16 instances, the GEMMs with bf16 operands, and since phase 18's
+    slice rows 2, 3, 5 and 6), then `cli.basecall` of phase 3's reads from
+    its checkpoint with the switch still exported: the CLI's opt-out keeps
+    it f32 (no bf16 launch, none of the counters `idle`) and every read is
     processed.  Returns ({path: launches}, the training stats)."""
     from taiyaki_tpu_torch.ops import lstm
     launches = {}
     launches["mLstm training bf16"], stats, outdir = train_path(
         torch, work, seed, pick, MLSTM, policy=BF16_STREAMS, niter=4)
     launches["mLstm basecall bf16"] = basecall_opt_out(
-        torch, work, "mLstm", reads, outdir, lstm.lstm_fwd)
+        torch, work, "mLstm", reads, outdir, lstm.lstm_fwd, idle)
     return launches, stats
 
 
-def basecall_opt_out(torch, work, tag, reads, outdir, fwd):
+def basecall_opt_out(torch, work, tag, reads, outdir, fwd, idle=None):
     """`cli.basecall` of the 9 reads `reads` from the checkpoint that a
     training path under the switch left in `outdir`, with the switch still
-    exported: the CLI's opt-out keeps it f32 (the layer forward `fwd`
-    launched, its bf16 instance never) and every read is processed.
-    Returns the launches."""
+    exported: the CLI's opt-out keeps it f32 (the kernel `fwd` launched,
+    its bf16 instance never, nor any of the counters `idle` {name:
+    counter}) and every read is processed.  Returns the launches."""
     from taiyaki_tpu_torch.cli import basecall
     name = fwd.__name__
-    counted = {name: fwd, name + "[cluster]": fwd.by_instance["cluster"],
-               name + "[bf16]": fwd.bf16}
+    counted = {name: fwd, name + "[bf16]": fwd.bf16}
+    if hasattr(fwd, "by_instance"):
+        counted[name + "[cluster]"] = fwd.by_instance["cluster"]
+    counted.update(idle or {})
     for fn in counted.values():
         fn.launches = 0
     with switches(BF16_STREAMS[1]):
@@ -5037,7 +5094,8 @@ def basecall_opt_out(torch, work, tag, reads, outdir, fwd):
             reads, os.path.join(outdir, "model_final.checkpoint")])
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
-    check(launches[name] > 0 and launches[name + "[bf16]"] == 0,
+    check(launches[name] > 0 and launches[name + "[bf16]"] == 0
+          and not any(launches[k] for k in idle or {}),
           "{} basecall under the switch: launches {}".format(tag, launches))
     check(calls["nread"] == 9 and "TAIYAKI_TPU_F32_GATES" not in os.environ,
           "{} basecall under the switch: {} reads".format(tag,
@@ -5203,7 +5261,7 @@ def check_bf16_gru_kernels(torch, dev, rng, f32_rows):
         f32 = f32_rows[f32_name]
         row = dict(
             name=name, route="cuda", source="taiyaki_tpu_torch/csrc/gru.cu",
-            replaces="taiyaki_tpu/ops/pallas_rnn.py:{}".format(line),
+            replaces="taiyaki_tpu/ops/" + line,
             max_abs_err=err[name], bf16_share=share[name], ms=ms[name],
             plain_ms=plain_ms[name], bound_ms=bounds[name][0],
             bound_by=bounds[name][1], library_ms=f32["library_ms"],
@@ -5256,7 +5314,7 @@ def bf16_gru_cli(torch, work, seed, counters, reads):
         bwd = "gru_bwd_" + ("recompute" if policy[0] == "recompute"
                             else "fusedw")
         mine = {k: fn for k, fn in counters.items()
-                if k.split("[")[0] in ("gru_fwd", bwd)}
+                if k.split("[")[0] in ("gru_fwd", bwd) or k in SCORE_BF16}
         for fn in mine.values():
             fn.launches = 0
         with switches(dict(policy[1], **BF16_STREAMS[1])):
@@ -5282,8 +5340,317 @@ def bf16_gru_cli(torch, work, seed, counters, reads):
                 ", ".join("{:.3f}".format(v) for v in st["step_seconds"]),
                 launches[path]))
     launches["mGru basecall bf16"] = basecall_opt_out(
-        torch, work, "mGru", reads, outdir, gru.gru_fwd)
+        torch, work, "mGru", reads, outdir, gru.gru_fwd,
+        {k: fn for k, fn in counters.items() if k in SCORE_BF16})
     return launches, out
+
+
+# -- phase 18 ----------------------------------------------------------------
+
+# the shapes of the score rows' bf16 instances: (tag, T, B, L, S) the
+# mLstm training shape, its cat_mod width (the CRF alone: logZ takes the
+# canonical columns) and the widest fused lattice (the mGru chunk range's)
+SCORE_SHAPES = (("training", TT, TB, TL, S), ("cat_mod", TT, TB, TL, SC),
+                ("widest", LT, LB, LL, S))
+# the training CLI under the switch in phase 18c (a name of its own, so
+# that its output directory is not phase 16d's)
+BF16_SCORES = ("bf16 scores", BF16_STREAMS[1])
+# the cat_mod step's gradients under the switch against its f32 step: a
+# mod move's score rounds to bf16 at its weight (x8 at the --mod_factor
+# ramp's start), and the JAX package's own mixed route is as far from its
+# f32 step there, growing with the chunk (size 16, x8, 500 samples: 1.8e-2
+# of the head's largest gradient, the port 1.3e-5 from the JAX mixed
+# step; tests/test_torch_bf16_scores.py)
+BF16_CATMOD_GRAD_TOL = 0.1
+
+
+def _states_bf16(torch, t):
+    """A bf16 lattice with -inf states (logZ's impossible ones) as
+    -1e30, so that equal infinities compare as equal."""
+    return t.float().clamp(min=-1e30).to(torch.bfloat16)
+
+
+def _score_bounds(tt, tb, tl, s, npos):
+    """The bounds of the score rows' bf16 instances at one shape, their
+    streams at 2 bytes (bf16 scores, lattices and posteriors; lp, d lp,
+    logZ and the state f32), their arithmetic as the f32 rows'."""
+    nff = 2 * NBASE
+    idx_bytes = 4 * 6 * tb * tl
+    return {
+        "logz_fwd[bf16]": bound_ms(
+            2 * (tt * tb * S + tt * tb * nff) + 4 * (tb * nff + tb),
+            tt * tb * (4 * S + 4 * nff)),
+        "logz_posteriors[bf16]": bound_ms(
+            2 * (2 * tt * tb * S + tt * tb * nff),
+            tt * tb * (8 * S + 4 * nff)),
+        "crf_fwd[bf16]": bound_ms(
+            4 * (tt * tb * s + tb * tl + tb) + 2 * tt * tb * tl + idx_bytes,
+            10 * tt * npos),
+        "crf_bwd[bf16]": bound_ms(
+            4 * 2 * tt * tb * s + 2 * tt * npos + idx_bytes,
+            20 * tt * npos)}
+
+
+def check_bf16_score_kernels(torch, dev, rng):
+    """Phase 18a: the bf16 instances of rows 2, 3, 5 and 6 at SCORE_SHAPES
+    against their twins, which round where the kernels round: logZ and the
+    CRF score at the f32 rows' tolerances (1e-3 + 1e-5 |value|); the
+    lattices and logZ's posteriors as `bf16_err` (atol 1e-4, 1e-5); each
+    backward on the twin's lattice, so that both read the same one; d lp
+    (sums of bf16 posteriors) within one bf16 step of a posterior (2^-8
+    times the largest mod weight), and past the f32 row's atol (1e-5, 3e-4
+    at the widest) at most BF16_SHARE of its entries; the backward bitwise
+    from run to run.  Each row timed at each shape beside its f32
+    instance on the same inputs (the scores widened), the twin at the
+    training shape.  Returns the four rows of the kernels line, without
+    their launches."""
+    from taiyaki_tpu_torch.ops import crf, logz
+    bf = torch.bfloat16
+    names = ("logz_fwd[bf16]", "logz_posteriors[bf16]", "crf_fwd[bf16]",
+             "crf_bwd[bf16]")
+    err, share = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    ms, f32_ms, plain_ms, bounds = {}, {}, {}, {}
+    counts = {n: getattr(logz if "logz" in n else crf,
+                         n.split("[")[0]).bf16 for n in names}
+    before = {n: c.launches for n, c in counts.items()}
+
+    def record(name, tag, d, s):
+        err[name], share[name] = max(err[name], d), max(share[name], s)
+        say("{} at the {} shape: |diff| {:.3g}, share of bf16 values one "
+            "step apart {:.3g} (at most {})".format(name, tag, d, s,
+                                                    BF16_SHARE))
+
+    for tag, tt, tb, tl, s in SCORE_SHAPES:
+        if s == S:
+            sc32 = _tensor(torch, dev, 5.0 * np.tanh(
+                rng.normal(size=(tt, tb, S))))
+            sc = sc32.to(bf)
+            f0, z0, l0 = logz.logz_fwd_plain(sc, NBASE)
+            p0 = logz.logz_posteriors_plain(sc, l0, NBASE)
+            f1, z1, l1 = logz.logz_fwd(sc)
+            p1 = logz.logz_posteriors(sc, l0)
+            torch.cuda.synchronize()
+            z_err = max_abs_diff(z1, z0)
+            z_tol = 1e-3 + 1e-5 * z0.abs().max().item()
+            check(z_err <= z_tol and max_abs_diff(f1, f0) <= 1e-4,
+                  "logz_fwd[bf16] {}: logZ err {} (tol {})".format(
+                      tag, z_err, z_tol))
+            d, sh, ok = bf16_err(torch, _states_bf16(torch, l1),
+                                 _states_bf16(torch, l0), 1e-4)
+            check(ok, "logz_fwd[bf16] {}: lattice |diff| {} share {}".format(
+                tag, d, sh))
+            record("logz_fwd[bf16]", tag, max(z_err, d), sh)
+            d, sh, ok = bf16_err(torch, p1, p0, 1e-5)
+            check(ok, "logz_posteriors[bf16] {}: |diff| {} share {}".format(
+                tag, d, sh))
+            record("logz_posteriors[bf16]", tag, d, sh)
+            _, _, l32 = logz.logz_fwd(sc32)
+            for n, f, f32 in (
+                    ("logz_fwd[bf16]", lambda: logz.logz_fwd(sc),
+                     lambda: logz.logz_fwd(sc32)),
+                    ("logz_posteriors[bf16]",
+                     lambda: logz.logz_posteriors(sc, l1),
+                     lambda: logz.logz_posteriors(sc32, l32))):
+                ms[n, tag] = cuda_ms(torch, f, reps=5)
+                f32_ms[n, tag] = cuda_ms(torch, f32, reps=5)
+            if tag == "training":
+                plain_ms["logz_fwd[bf16]"] = cuda_ms(
+                    torch, lambda: logz.logz_fwd_plain(sc, NBASE), reps=1,
+                    warmup=0)
+                plain_ms["logz_posteriors[bf16]"] = cuda_ms(
+                    torch, lambda: logz.logz_posteriors_plain(sc, l0, NBASE),
+                    reps=1, warmup=0)
+            del sc32, sc, f0, z0, l0, p0, f1, z1, l1, p1, l32
+        lp, seqlens, args = _crf_case(torch, dev, rng, tt, tb, tl, s)
+        sidx, midx, mmidx, mfact, valid, last = args
+        idx = (sidx, midx, mmidx, mfact)
+        f0, s0, lat0 = crf.crf_fwd_plain(lp, *idx, valid, score_dtype=bf)
+        g0 = crf.crf_bwd_plain(lp, *idx, lat0, valid, last, score_dtype=bf)
+        f1, s1, lat1 = crf.crf_fwd(lp, *idx, valid, score_dtype=bf)
+        g1 = crf.crf_bwd(lp, *idx, lat0, valid, last, score_dtype=bf)
+        g2 = crf.crf_bwd(lp, *idx, lat0, valid, last, score_dtype=bf)
+        torch.cuda.synchronize()
+        s_err = max_abs_diff(s1, s0)
+        s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
+        check(s_err <= s_tol, "crf_fwd[bf16] {}: score err {} > {}".format(
+            tag, s_err, s_tol))
+        d, sh, ok = bf16_err(torch, lat1, lat0, 1e-4)
+        check(ok, "crf_fwd[bf16] {}: lattice |diff| {} share {}".format(
+            tag, d, sh))
+        record("crf_fwd[bf16]", tag, max(s_err, d), sh)
+        weight = max(1.0, mfact.max().item())
+        g_tol = (3e-4 if tag == "widest" else 1e-5) * weight
+        diff = (g1 - g0).abs()
+        g_err = diff.max().item()
+        past = (diff > g_tol).float().mean().item()
+        check(g_err <= 2.0 ** -8 * weight and past <= BF16_SHARE,
+              "crf_bwd[bf16] {}: d lp |diff| {} (at most 2^-8 x {}), {} of "
+              "it past {}".format(tag, g_err, weight, past, g_tol))
+        check(bool(torch.equal(g1, g2)), "crf_bwd[bf16] {}: two runs "
+              "differ".format(tag))
+        record("crf_bwd[bf16]", tag, g_err, past)
+        del f0, s0, g0, g1, g2, diff
+        _, _, lat32 = crf.crf_fwd(lp, *idx, valid)
+        for n, f, f32 in (
+                ("crf_fwd[bf16]",
+                 lambda: crf.crf_fwd(lp, *idx, valid, score_dtype=bf),
+                 lambda: crf.crf_fwd(lp, *idx, valid)),
+                ("crf_bwd[bf16]",
+                 lambda: crf.crf_bwd(lp, *idx, lat1, valid, last,
+                                     score_dtype=bf),
+                 lambda: crf.crf_bwd(lp, *idx, lat32, valid, last))):
+            ms[n, tag] = cuda_ms(torch, f, reps=5)
+            f32_ms[n, tag] = cuda_ms(torch, f32, reps=5)
+        say("crf at the {} shape (T={}, B={}, L={}, S={}; backward batches "
+            "of {} steps, {} in f32): bf16 forward {:.3f} ms, backward "
+            "{:.3f} ms; f32 {:.3f}, {:.3f} ms".format(
+                tag, tt, tb, tl, s, crf.bwd_batch(tt, tb, s, tl, bf),
+                crf.bwd_batch(tt, tb, s, tl), ms["crf_fwd[bf16]", tag],
+                ms["crf_bwd[bf16]", tag], f32_ms["crf_fwd[bf16]", tag],
+                f32_ms["crf_bwd[bf16]", tag]))
+        if tag == "training":
+            plain_ms["crf_fwd[bf16]"] = cuda_ms(
+                torch, lambda: crf.crf_fwd_plain(lp, *idx, valid,
+                                                 score_dtype=bf),
+                reps=1, warmup=0)
+            plain_ms["crf_bwd[bf16]"] = cuda_ms(
+                torch, lambda: crf.crf_bwd_plain(lp, *idx, lat1, valid, last,
+                                                 score_dtype=bf),
+                reps=1, warmup=0)
+            bounds = _score_bounds(tt, tb, tl, s, int(seqlens.sum()))
+        del lp, args, lat0, f1, s1, lat1, lat32
+        torch.cuda.empty_cache()
+    for n, c in counts.items():
+        check(c.launches > before[n], "{}: no bf16 launch".format(n))
+    rows = []
+    for name, f32_name, where in BF16_ROWS:
+        if name not in names:
+            continue
+        shapes = [t for t, *_ in SCORE_SHAPES if (name, t) in ms]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="taiyaki_tpu_torch/csrc/{}.cu".format(
+                "logz" if "logz" in name else "crf"),
+            replaces="taiyaki_tpu/ops/" + where, max_abs_err=err[name],
+            bf16_share=share[name], ms=ms[name, "training"],
+            plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], library_ms=None,
+            f32_ms=f32_ms[name, "training"],
+            shapes_ms={t: [ms[name, t], f32_ms[name, t]] for t in shapes}))
+        say("{} (T={} B={} L={}; bf16 scores, lattice{}): max err {:.3g}, "
+            "share {:.3g}; {:.3f} ms against the f32 instance's {:.3f} ms on "
+            "the same inputs, twin {:.3f} ms, bound {:.4f} ms ({}); [bf16, "
+            "f32] ms by shape {}".format(
+                name, TT, TB, TL,
+                ", posteriors" if "posteriors" in name or "bwd" in name
+                else "", err[name], share[name], ms[name, "training"],
+                f32_ms[name, "training"], plain_ms[name], bounds[name][0],
+                bounds[name][1], json.dumps(rows[-1]["shapes_ms"])))
+    return rows
+
+
+def bf16_score_steps(torch, dev, seed, counters):
+    """Phase 18b: the full-width mLstm step and the cat_mod step (TB
+    chunks x CHUNK samples, the mod columns x8) under the switch against
+    the f32 step on the same batch and weights: the loss within
+    BF16_LOSS_TOL relative and each gradient within BF16_GRAD_TOL of its
+    largest (phase 16c's terms; BF16_CATMOD_GRAD_TOL for cat_mod), the
+    step under the switch counted
+    (`counters`, set to 0 just before it and read just after: rows 2, 3,
+    5 and 6's bf16 instances must launch).  Each step's ms (median of 3)
+    and peak memory: f32, under the switch, and under the switch with the
+    CRF and logZ kept f32 (`scores_kept_f32`: phase 16c's step as the
+    previous slice ran it).  Returns ({path: launches}, {numbers})."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.convert import leaf_names
+    launches, out = {}, {}
+    for model in (MLSTM, MLSTM_CATMOD):
+        tag = model[0].split("_flipflop")[0]
+        batch, kwargs = step_batch(seed, TB, model)
+        res = {}
+        for name, env in (("f32", {}), BF16_STREAMS):
+            with switches(env):
+                net = new_net(seed, kwargs, dev, model)
+                names = leaf_names(net)
+                args, factor = loss_args(net)
+                if name == "bf16":
+                    for fn in counters.values():
+                        fn.launches = 0
+                loss, grads = train.make_grad_step(net, *args)(
+                    train.batch_to_device(batch, dev), 1.0, *factor)
+                torch.cuda.synchronize()
+                if name == "bf16":
+                    path = "{} bf16 scores step".format(tag)
+                    launches[path] = {k: fn.launches
+                                      for k, fn in counters.items()}
+                    check(all(n > 0 for n in launches[path].values()),
+                          "{}: launches {}".format(path, launches[path]))
+                res[name] = (float(loss), [g.float() for g in grads])
+                del net
+        (l32, g32), (l16, g16) = res["f32"], res["bf16"]
+        l_err = abs(l16 - l32) / abs(l32)
+        errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(g16, g32)]
+        worst = names[int(np.argmax(errs))]
+        check(np.isfinite(l16) and l_err <= BF16_LOSS_TOL,
+              "{} bf16 scores step: loss {} vs f32 {}".format(tag, l16, l32))
+        g_tol = BF16_CATMOD_GRAD_TOL if is_cat_mod(model) else BF16_GRAD_TOL
+        check(max(errs) <= g_tol, "{} bf16 scores step: gradient err {} "
+              "({}) > {}".format(tag, max(errs), worst, g_tol))
+        num = dict(loss=l16, f32_loss=l32, loss_err=l_err,
+                   grad_err=max(errs), worst=worst)
+        del res, g32, g16
+        torch.cuda.empty_cache()
+        for name, env, keep in (("f32", {}, False),
+                                ("bf16", BF16_STREAMS[1], False),
+                                ("bf16, scores f32", BF16_STREAMS[1], True)):
+            with switches(env), (scores_kept_f32() if keep
+                                 else contextlib.nullcontext()):
+                step_ms, peak = _median_step(torch, dev, seed, model, batch,
+                                             kwargs)
+            torch.cuda.empty_cache()
+            num[name] = dict(ms=step_ms, peak_gb=peak / 1e9)
+        out[tag] = num
+        say("{} step ({} chunks x {} samples, size {}, L={}) under "
+            "TAIYAKI_TPU_BF16_STREAMS=1 with the bf16 CRF and logZ: loss {} "
+            "against the f32 step's {} (relative {:.3g}, tol {}); largest "
+            "gradient err {:.3g} of its largest, in {} (tol {}); median of 3: "
+            "f32 {:.3f} ms, {:.3f} GB; bf16 {:.3f} ms, {:.3f} GB; bf16 with "
+            "the CRF and logZ f32 (the previous slice's) {:.3f} ms, {:.3f} "
+            "GB".format(tag, TB, CHUNK, H, batch.seqs.shape[1], l16, l32,
+                        l_err, BF16_LOSS_TOL, max(errs), worst, g_tol,
+                        num["f32"]["ms"],
+                        num["f32"]["peak_gb"], num["bf16"]["ms"],
+                        num["bf16"]["peak_gb"],
+                        num["bf16, scores f32"]["ms"],
+                        num["bf16, scores f32"]["peak_gb"]))
+    return launches, out
+
+
+def bf16_score_cli(torch, work, seed, pick, scores, reads):
+    """Phase 18c: `cli.train_flipflop` on mLstm_flipflop and on
+    mLstm_cat_mod_flipflop at phase 3's shape under the switch (4
+    iterations each; rows 2, 3, 5 and 6 launched as their bf16 instances,
+    `scores` {name: counter}), then `cli.basecall` of phase 3's reads
+    `reads` from the mLstm checkpoint with the switch exported: the CLI's
+    opt-out keeps logZ f32 (launched, its bf16 instance and the CRF's
+    never).  Returns {path: launches}."""
+    from taiyaki_tpu_torch.ops import logz
+    launches = {}
+    train_loss = ("lstm_fwd", "lstm_bwd_acts", "crf_fwd", "crf_bwd",
+                  "logz_fwd", "logz_posteriors")
+    for model in (MLSTM, MLSTM_CATMOD):
+        launches["{} training bf16 scores".format(
+            model[0].split("_flipflop")[0])], _, outdir = train_path(
+            torch, work, seed, dict(pick(train_loss), **scores), model,
+            policy=BF16_SCORES, niter=4)
+        if model is MLSTM:
+            mlstm_out = outdir
+        torch.cuda.empty_cache()
+    launches["mLstm basecall bf16 scores"] = basecall_opt_out(
+        torch, work, "mLstm_scores", reads, mlstm_out, logz.logz_fwd,
+        idle=scores)
+    return launches
 
 
 def run(seed):
@@ -5606,19 +5973,19 @@ def run(seed):
         gemm_rows += check_bf16_gemms(torch, dev)
         torch.cuda.empty_cache()
         phases.next("16c bf16 steps against f32 steps")
-        bf16_names = tuple(n for n, _, _ in BF16_ROWS)
+        score_bf16 = {k: counters[k] for k in SCORE_BF16}
         step_launches, bf16_step = bf16_steps(
             torch, dev, seed, dict(pick(("lstm_fwd",) + tuple(
                 lstm_bwds.values())), **{k: counters[k]
-                                         for k in bf16_names}))
+                                         for k in LSTM_BF16}))
         launches.update(step_launches)
         torch.cuda.empty_cache()
         phases.next("16d train_flipflop and basecall under the switch")
         cli_launches, bf16_train = bf16_cli(
             torch, work, seed, dict(pick(train_loss), **{
-                k: counters[k] for k in bf16_names[:2]
-                + ("gate_gemm[bf16]", "atb_gemm[bf16]")}),
-            os.path.join(work, "reads_mLstm"))
+                k: counters[k] for k in LSTM_BF16[:2]
+                + ("gate_gemm[bf16]", "atb_gemm[bf16]")}, **score_bf16),
+            os.path.join(work, "reads_mLstm"), score_bf16)
         launches.update(cli_launches)
         torch.cuda.empty_cache()
 
@@ -5631,7 +5998,7 @@ def run(seed):
         bf16_rows += check_bf16_gru_kernels(torch, dev, rng, f32_gru)
         torch.cuda.empty_cache()
         phases.next("17b GRU bf16 steps against f32 steps")
-        gru_bf16 = {k: counters[k] for k in bf16_names[4:]}
+        gru_bf16 = {k: counters[k] for k in GRU_BF16}
         step_launches, gru_bf16_step = bf16_steps(
             torch, dev, seed, dict(pick(("gru_fwd",) + tuple(
                 gru_bwds.values())), **gru_bf16), MGRU, GRU_POLICIES,
@@ -5643,12 +6010,30 @@ def run(seed):
         cli_launches, gru_bf16_cli = bf16_gru_cli(
             torch, work, seed, dict(pick(("gru_fwd", "gru_bwd_recompute",
                                           "gru_bwd_fusedw") + loss),
-                                    **gru_bf16, **{
+                                    **gru_bf16, **score_bf16, **{
                                         k: counters[k] for k in (
                                             "gate_gemm[bf16]",
                                             "atb_gemm[bf16]")}),
             os.path.join(work, "reads_mGru"))
         launches.update(cli_launches)
+        torch.cuda.empty_cache()
+
+        # the bf16 score streams of the CRF's fused route and logZ
+        phases.next("18a CRF and logZ bf16 instances against their twins")
+        bf16_rows += check_bf16_score_kernels(torch, dev, rng)
+        torch.cuda.empty_cache()
+        phases.next("18b mLstm and cat_mod steps with the bf16 CRF and "
+                    "logZ")
+        step_launches, score_steps = bf16_score_steps(
+            torch, dev, seed, dict(pick(("lstm_fwd", "lstm_bwd_acts")
+                                        + loss), **score_bf16))
+        launches.update(step_launches)
+        torch.cuda.empty_cache()
+        phases.next("18c train_flipflop and basecall with the bf16 CRF and "
+                    "logZ")
+        launches.update(bf16_score_cli(
+            torch, work, seed, pick, score_bf16,
+            os.path.join(work, "reads_mLstm")))
         torch.cuda.empty_cache()
         phases.next(None)
     finally:
@@ -5731,6 +6116,7 @@ def run(seed):
             "iterations"] / bf16_train["seconds"]})))
     say("GRU bf16 streams: {}".format(json.dumps(
         {"steps": gru_bf16_step, "CLIs": gru_bf16_cli})))
+    say("bf16 CRF and logZ steps: {}".format(json.dumps(score_steps)))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -5763,7 +6149,13 @@ def run(seed):
               # under the stored policy
               "gru_fwd[bf16]": "mGru training bf16",
               "gru_bwd_recompute[bf16]": "mGru training bf16",
-              "gru_bwd_fusedw[bf16]": "mGru bf16 step stored"}
+              "gru_bwd_fusedw[bf16]": "mGru bf16 step stored",
+              # the CRF's and logZ's: the mLstm training CLI under the
+              # switch (phase 18c)
+              "logz_fwd[bf16]": "mLstm training bf16 scores",
+              "logz_posteriors[bf16]": "mLstm training bf16 scores",
+              "crf_fwd[bf16]": "mLstm training bf16 scores",
+              "crf_bwd[bf16]": "mLstm training bf16 scores"}
     kernels += bf16_rows
     # the paths of phases 13-15 that run the kernels of the table: each
     # row's launches there beside its own path's
@@ -5829,6 +6221,7 @@ def run(seed):
             **({"post": k["post"]} if "post" in k else {}),
             **{key: k[key] for key in (
                 "f32_ms", "h512_ms", "h96_ms", "h96_bound_ms", "bf16_share",
+                "shapes_ms",
                 "residuals_ms", "f32_residuals_ms", "residuals_bound_ms",
                 "h96_residuals_ms") if key in k})
         for k in kernels]}))

@@ -1,4 +1,5 @@
-// Flip-flop CRF lattice forward and backward for Hopper (sm_90a), f32.
+// Flip-flop CRF lattice forward and backward for Hopper (sm_90a), f32
+// arithmetic.
 //
 // Replaces the TPU kernels taiyaki_tpu/ops/pallas_crf.py:423
 // `crf_forward_fused` (tt_crf_fwd) and pallas_crf.py:565
@@ -51,10 +52,21 @@
 // sums them into d lp [T, B, S] in a fixed order: see "kernels 9-10"
 // below.  Positions are masked by index (l == 0, valid[l], l < last),
 // never by the padding value of a stream.
+//
+// Kernels 5 and 6 have bf16 instances (BF16; the JAX trainer's mixed
+// precision, TAIYAKI_TPU_BF16_STREAMS=1): lp stays f32, each selected
+// stay and move score is rounded to bf16 once (the cat_mod factor first,
+// then the folded move), kernel 5 stores its lattice as bf16 rounded from
+// its f32 state, and kernel 6 reads that lattice, rounds each posterior to
+// bf16 and sums the rounded posteriors into d lp in f32, where
+// pallas_crf.py's fused kernels round in interpret mode.  Kernels 9-10
+// have none (f32 streams).
 
 #include <algorithm>
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 #include <math.h>
 #include <stddef.h>
 
@@ -85,6 +97,32 @@ __device__ __forceinline__ float warp_sum(float v)
     for (int off = 16; off > 0; off >>= 1)
         v += __shfl_xor_sync(FULL, v, off);
     return v;
+}
+
+using bf16 = __nv_bfloat16;
+
+// the lattice's element type of an instance
+template <bool BF16>
+using LatT = typename std::conditional<BF16, bf16, float>::type;
+
+// x rounded to the nearest bf16 (ties to even), as a float
+__device__ __forceinline__ float round_bf16(float x)
+{
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a selected score as an instance uses it: rounded to bf16 in BF16
+template <bool BF16>
+__device__ __forceinline__ float score_as(float x)
+{
+    return BF16 ? round_bf16(x) : x;
+}
+
+// two floats rounded to bf16, the first in the low half
+__device__ __forceinline__ unsigned pack2(float a, float b)
+{
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a))
+        | (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16;
 }
 
 // a move's score with its weighted cat_mod column, rounded after the
@@ -287,6 +325,35 @@ __device__ __forceinline__ void fwd_store(float* out, int l0, const float* v,
     }
 }
 
+// the same into a bf16 row, each value rounded: 8-byte stores where P is
+// a multiple of 4 and L of P, 4-byte pairs where P is even and L a
+// multiple of P (then a thread's P positions lie inside the row together),
+// else 2-byte, none past L
+template <int P>
+__device__ __forceinline__ void fwd_store(bf16* out, int l0, const float* v,
+                                          int L)
+{
+    if (P % 2 == 0 && L % P == 0) {
+        if (l0 >= L) return;
+        if (P % 4 == 0) {
+#pragma unroll
+            for (int q = 0; q < P / 4; ++q)
+                *reinterpret_cast<uint2*>(out + l0 + 4 * q) = make_uint2(
+                    pack2(v[4 * q], v[4 * q + 1]),
+                    pack2(v[4 * q + 2], v[4 * q + 3]));
+        } else {
+#pragma unroll
+            for (int q = 0; q < P / 2; ++q)
+                *reinterpret_cast<unsigned*>(out + l0 + 2 * q) =
+                    pack2(v[2 * q], v[2 * q + 1]);
+        }
+    } else {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+            if (l0 + p < L) out[l0 + p] = __float2bfloat16_rn(v[p]);
+    }
+}
+
 __device__ __forceinline__ void cp_async8(float* dst, const float* src)
 {
     const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -349,8 +416,9 @@ struct StreamSource {
 // A thread's view of a step's scores, one reader a source.  Each gives the
 // position flags (ok: valid; mok: its move live), and per step the stay
 // score of each of the thread's positions and the score of the move that
-// the recursion adds at it (into l forward, out of l backward).
-template <int P>
+// the recursion adds at it (into l forward, out of l backward).  LpReader
+// in BF16 rounds each to bf16, the mod factor rounded first.
+template <int P, bool BF16 = false>
 struct LpReader {
     using Src = LpSource;
     static constexpr bool BATCH_SYNC = true;   // a row barrier a batch
@@ -409,7 +477,7 @@ struct LpReader {
                 w |= ok ? OK_BIT : 0u;
             }
             pw[p] = w;
-            mf[p] = fact;
+            mf[p] = score_as<BF16>(fact);
         }
     }
     __device__ bool ok(int p) const { return pw[p] & OK_BIT; }
@@ -439,12 +507,16 @@ struct LpReader {
         (void)s;
         row = rows + k * SP;
     }
-    __device__ float stay(int p) const { return row[pw[p] & 0xff]; }
+    __device__ float stay(int p) const
+    {
+        return score_as<BF16>(row[pw[p] & 0xff]);
+    }
     __device__ float move(int p) const
     {
         const unsigned w = pw[p], mc = (w >> 16) & 0xff;
         const float mv = row[(w >> 8) & 0xff];
-        return mc < (unsigned)S ? mod_fold(mv, mf[p], row[mc]) : mv;
+        return score_as<BF16>(mc < (unsigned)S ? mod_fold(mv, mf[p], row[mc])
+                                               : mv);
     }
 };
 
@@ -572,12 +644,12 @@ struct StreamReader {
 };
 
 template <int MAXNT, int P, int CL, bool FAST, bool CLOCK, bool BWD,
-          class RD>
+          class RD, class LT = float>
 __global__ void __launch_bounds__(MAXNT == 32 ? 32 * FWD_WARP_ROWS : MAXNT)
 crf_chain_kernel(typename RD::Src src, const int* __restrict__ valid,
                  const int* __restrict__ lastpos,
                  float* __restrict__ fwd_final,
-                 float* __restrict__ score_out, float* __restrict__ lattice,
+                 float* __restrict__ score_out, LT* __restrict__ lattice,
                  int T, int B, int L, int K, long long* __restrict__ cyc)
 {
     static_assert(MAXNT % 32 == 0 && (CL == 1 || MAXNT > 32), "layout");
@@ -736,16 +808,16 @@ size_t chain_smem(int NT, int K, int S)
 }
 
 template <int MAXNT, int P, int CL, bool FAST, bool CLOCK, bool BWD,
-          class RD>
+          class RD, class LT = float>
 int launch_chain(typename RD::Src src, const int* valid, const int* last,
-                 float* fwd_final, float* score, float* lattice, int T,
+                 float* fwd_final, float* score, LT* lattice, int T,
                  int B, int L, int K, int NT, int S, long long* cyc,
                  cudaStream_t st)
 {
     if (K < 1 || NT > MAXNT || NT % 32 || (MAXNT == 32) != (NT == 32)
             || L > NT * P * CL)
         return static_cast<int>(cudaErrorInvalidValue);
-    auto kernel = crf_chain_kernel<MAXNT, P, CL, FAST, CLOCK, BWD, RD>;
+    auto kernel = crf_chain_kernel<MAXNT, P, CL, FAST, CLOCK, BWD, RD, LT>;
     const size_t smem = chain_smem<RD>(NT, K, S);
     if (smem > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -773,14 +845,17 @@ int launch_chain(typename RD::Src src, const int* valid, const int* last,
     return static_cast<int>(cudaGetLastError());
 }
 
-// kernel 5 on NT threads a row, K steps of lp rows a batch
-template <int MAXNT, int P, int CL, bool FAST, bool CLOCK>
+// kernel 5 on NT threads a row, K steps of lp rows a batch (BF16: its
+// bf16 instance)
+template <int MAXNT, int P, int CL, bool FAST, bool CLOCK, bool BF16 = false>
 int launch_fwd(const float* lp, const int* sidx, const int* midx,
                const int* mmidx, const float* mfact, const int* valid,
-               float* fwd_final, float* score, float* lattice, int T, int B,
-               int S, int L, int K, int NT, long long* cyc, cudaStream_t st)
+               float* fwd_final, float* score, LatT<BF16>* lattice, int T,
+               int B, int S, int L, int K, int NT, long long* cyc,
+               cudaStream_t st)
 {
-    return launch_chain<MAXNT, P, CL, FAST, CLOCK, false, LpReader<P>>(
+    return launch_chain<MAXNT, P, CL, FAST, CLOCK, false,
+                        LpReader<P, BF16>, LatT<BF16>>(
         LpSource{lp, sidx, midx, mmidx, mfact, S}, valid, nullptr,
         fwd_final, score, lattice, T, B, L, K, NT, S, cyc, st);
 }
@@ -825,6 +900,17 @@ int launch_fwd(const float* lp, const int* sidx, const int* midx,
 // two blocks fit an SM's shared memory and the move terms KR x P <= 32
 // registers (L <= 512), fewer past that (1 at L = 8192); threads: 256,
 // or 512 past 2048 positions.  probes/posteriors.py times its phases.
+//
+// The bf16 instance (BF16) rounds each selected score as kernel 5's does,
+// stages its bf16 lattice rows by cp.async in the region of the chunk sums
+// (live at other times of a batch: the rows until pass A, the sums from
+// pass B on), sums each step's exponentials into its denominator as it
+// forms them (each warp's part, then the warps' in order), and in pass B
+// sums each posterior, its exponential times the reciprocal of that
+// denominator rounded to bf16 (the mod one weighted by the rounded
+// factor), so the grad rows only add the chunks.  The twin divides: the
+// two round apart only where an f32 value lies within an ulp of a bf16
+// rounding boundary.
 
 // entries of a column list a chunk: odd, so that the chunks a warp's lanes
 // sum start in different shared-memory banks
@@ -838,21 +924,34 @@ __host__ __device__ inline int bwd_chunks(int L, int S)
     return (3 * L + CHUNK - 1) / CHUNK + S + 1;
 }
 
+// bf16 values a staged lattice row of the bf16 instance: L where its rows
+// go by 16-byte copies (L a multiple of 8), else room for pairs of values
+// from the even element at or below the row's first
+__host__ __device__ inline int bwd_lat_row(int L, bool wide)
+{
+    return wide ? L : ((L + 1) & ~1) + 2;
+}
+
 // byte offsets of the backward's shared memory, each 16-byte aligned
 struct BwdLayout {
     size_t parts, ring, fcs, prevs, lps, red_c, red_a, mf, pw, off, choff,
-        cnt, chst, ent, bytes;
+        cnt, chst, ent, dsum, bytes;
     __host__ __device__ static size_t take(size_t& o, size_t n)
     {
         const size_t at = o;
         o += (n + 15) & ~(size_t)15;
         return at;
     }
-    __host__ __device__ BwdLayout(int L, int S, int K, int NW)
+    __host__ __device__ BwdLayout(int L, int S, int K, int NW,
+                                  bool lat16 = false)
     {
         const size_t nch = bwd_chunks(L, S), f = sizeof(float);
         size_t o = 0;
-        parts = take(o, sizeof(float2) * K * nch);   // [K][nch]
+        // [K][nch]; in bf16 also a batch's lattice rows [K][bwd_lat_row]
+        const size_t sums = sizeof(float2) * K * nch;
+        const size_t lat = lat16 ? sizeof(bf16) * K * bwd_lat_row(L, false)
+                                 : 0;
+        parts = take(o, sums > lat ? sums : lat);
         // [K+1][L] bwd vectors; a batch's become its move exponentials
         ring = take(o, f * (K + 1) * L);
         // [K][L] a batch's lattice rows, then its stay terms, exponentials
@@ -868,6 +967,8 @@ struct BwdLayout {
         cnt = take(o, sizeof(int) * (S + 1));
         chst = take(o, sizeof(unsigned short) * (nch + 1));
         ent = take(o, sizeof(unsigned short) * 3 * L);
+        // the bf16 instance's [K][NW] parts of each step's denominator
+        dsum = take(o, lat16 ? f * K * NW : 0);
         bytes = o;
     }
 };
@@ -897,20 +998,64 @@ __device__ __forceinline__ unsigned contributions(unsigned w, float mf, int j,
     return m;
 }
 
+// the stay's score, rounded to bf16 in the bf16 instance
+template <bool BF16>
 __device__ __forceinline__ float stay_score(const float* row, unsigned w,
                                             int S)
 {
-    return pick(row, w & 0xff, S);
+    return score_as<BF16>(pick(row, w & 0xff, S));
 }
 
 // the move's score, with its weighted mod column where one is selected
-// (mod_fold of a column selecting nothing adds fact x 0: the same value)
+// (mod_fold of a column selecting nothing adds fact x 0: the same value),
+// rounded to bf16 in the bf16 instance
+template <bool BF16>
 __device__ __forceinline__ float move_score(const float* row, unsigned w,
                                             const float* mf, int S)
 {
     const float move = pick(row, (w >> 8) & 0xff, S);
     const unsigned mc = (w >> 16) & 0xff;
-    return mc < (unsigned)S ? mod_fold(move, *mf, row[mc]) : move;
+    return score_as<BF16>(mc < (unsigned)S ? mod_fold(move, *mf, row[mc])
+                                           : move);
+}
+
+// bf16 lattice rows of steps s, s + 1, ... (n of them) of row b into
+// staged rows of bwd_lat_row(L, wide) values: 16 bytes a copy where the
+// rows are 16-byte aligned (L a multiple of 8), else pairs of values by
+// 4-byte copies from the even element at or below each row's first (the
+// row then at offset 1 of its staged row where its first element is odd);
+// a pair that would pass the lattice's end (T B L odd) is its last value
+// alone, copied through a register
+template <int NT>
+__device__ __forceinline__ void copy_lattice(bf16* dst, const bf16* lattice,
+                                             int s, int n, int T, int B,
+                                             int L, int b, bool wide)
+{
+    if (wide) {
+        const int q = L / 8;
+        for (int i = threadIdx.x; i < n * q; i += NT) {
+            const int k = i / q, j = i - k * q;
+            cp_async16(reinterpret_cast<float*>(dst + k * L + 8 * j),
+                       reinterpret_cast<const float*>(
+                           lattice + ((size_t)(T - 1 - s - k) * B + b) * L
+                           + 8 * j));
+        }
+    } else {
+        const int Lp = bwd_lat_row(L, false), q = Lp / 2;
+        const size_t total = (size_t)T * B * L;
+        for (int i = threadIdx.x; i < n * q; i += NT) {
+            const int k = i / q, j = i - k * q;
+            const size_t e0 = ((size_t)(T - 1 - s - k) * B + b) * L;
+            const size_t e = (e0 & ~(size_t)1) + 2 * (size_t)j;
+            if (e >= e0 + L) continue;
+            bf16* d = dst + k * Lp + 2 * j;
+            if (e + 1 < total)
+                cp_async4(reinterpret_cast<float*>(d),
+                          reinterpret_cast<const float*>(lattice + e));
+            else
+                d[0] = lattice[e];
+        }
+    }
 }
 
 // lattice rows of steps s, s + 1, ... (n of them) of row b: 16 bytes a
@@ -956,13 +1101,13 @@ __host__ __device__ constexpr int bwd_batch_max(int P)
     return P == 1 ? 8 : 32 / P < BWD_BATCH ? 32 / P : BWD_BATCH;
 }
 
-template <int NT, int P, bool CLOCK = false>
+template <int NT, int P, bool CLOCK = false, bool BF16 = false>
 __global__ void __launch_bounds__(NT)
 crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                const int* __restrict__ move_idx,
                const int* __restrict__ mod_idx,
                const float* __restrict__ mod_fact,
-               const float* __restrict__ lattice,
+               const LatT<BF16>* __restrict__ lattice,
                const int* __restrict__ valid, const int* __restrict__ lastpos,
                float* __restrict__ grad, int T, int B, int S, int L, int K,
                long long* __restrict__ cyc)
@@ -970,7 +1115,7 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
     constexpr int NW = NT / 32, KR = bwd_batch_max(P);
     extern __shared__ __align__(16) float smem_f[];
     unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
-    const BwdLayout lay(L, S, K, NW);
+    const BwdLayout lay(L, S, K, NW, BF16);
     float2* parts = reinterpret_cast<float2*>(smem + lay.parts);
     float* ring = reinterpret_cast<float*>(smem + lay.ring);
     float* fcs = reinterpret_cast<float*>(smem + lay.fcs);
@@ -990,8 +1135,13 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
     const size_t rowoff = (size_t)b * L;
     const int last = lastpos[b];
     const int R = K + 1;
-    const bool wide = L % 4 == 0
+    const bool wide = L % (BF16 ? 8 : 4) == 0
         && reinterpret_cast<size_t>(lattice) % 16 == 0;
+    // the bf16 instance's staged lattice rows, in the chunk sums' region,
+    // and its denominators' parts
+    bf16* fch = reinterpret_cast<bf16*>(smem + lay.parts);
+    const int Lp = bwd_lat_row(L, wide);
+    float* dsum = reinterpret_cast<float*>(smem + lay.dsum);
     BwdClock<CLOCK> clk;
 
     // per position: the packed columns and flags, the mod weight, the
@@ -1004,7 +1154,7 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
             | col8(move_idx[rowoff + l], S) << 8
             | col8(mod_idx[rowoff + l], S) << 16
             | (ok ? OK_BIT : 0u) | (mok ? MOK_BIT : 0u);
-        mf[l] = mod_fact[rowoff + l];
+        mf[l] = score_as<BF16>(mod_fact[rowoff + l]);
         ring[l] = (l == last && ok) ? 0.f : NEG;
     }
     if (tid == 0) prevs[0] = 0.f;
@@ -1070,7 +1220,10 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
         // to land while the chain runs
         cp_async_wait_all();
         __syncthreads();
-        copy_lattice<NT>(fcs, lattice, s0, n, T, B, L, b, wide);
+        if constexpr (BF16)
+            copy_lattice<NT>(fch, lattice, s0, n, T, B, L, b, wide);
+        else
+            copy_lattice<NT>(fcs, lattice, s0, n, T, B, L, b, wide);
         if (s0 + K < T)
             copy_rows<NT>(lps + (((s0 / K) & 1) ^ 1) * K * S, lp, s0 + K,
                           min(K, T - s0 - K), T, B, S, b);
@@ -1092,10 +1245,10 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                 float nw = NEG;
                 if (w & OK_BIT) {
                     const float bn = cur[l] - prev;
-                    const float stay = stay_score(row, w, S);
+                    const float stay = stay_score<BF16>(row, w, S);
                     float mpart = NEG;
                     if (w & MOK_BIT)
-                        mpart = move_score(row, w, mf + l, S)
+                        mpart = move_score<BF16>(row, w, mf + l, S)
                             + (cur[l + 1] - prev);
                     nw = logaddexpf_(stay + bn, mpart);
                 }
@@ -1132,6 +1285,10 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
             const float pv = prevs[sk];
             const float* row = rows + k * S;
             float* fcr = fcs + k * L;
+            // BF16: the step's staged bf16 lattice row
+            const bf16* fhr = fch + k * Lp;
+            if (BF16 && !wide)
+                fhr += (((size_t)(T - 1 - s0 - k) * B + b) * L) & 1;
             float mt = NEG;
 #pragma unroll
             for (int p = 0; p < P; ++p) {
@@ -1141,11 +1298,12 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
                 const unsigned w = pw[l];
                 float ts = NEG;
                 if (w & OK_BIT) {
-                    const float fc = fcr[l];
-                    ts = fc + (cur[l] - pv) + stay_score(row, w, S);
+                    const float fc = BF16 ? __bfloat162float(fhr[l])
+                                          : fcr[l];
+                    ts = fc + (cur[l] - pv) + stay_score<BF16>(row, w, S);
                     if (w & MOK_BIT)
                         tmv[k][p] = fc + (cur[l + 1] - pv)
-                            + move_score(row, w, mf + l, S);
+                            + move_score<BF16>(row, w, mf + l, S);
                 }
                 fcr[l] = ts;
                 mt = fmaxf(mt, fmaxf(ts, tmv[k][p]));
@@ -1169,32 +1327,49 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
             for (int w = 1; w < NW; ++w) tmax = fmaxf(tmax, red_a[k * NW + w]);
             float* es = fcs + k * L;
             float* em = ring + (size_t)sk * L;
+            float part = 0.f;
 #pragma unroll
             for (int p = 0; p < P; ++p) {
                 const int l = tid + p * NT;
                 if (l >= L) continue;
                 const float ts = es[l], tm = tmv[k][p];
-                es[l] = ts > 0.5f * NEG ? expf(ts - tmax) : 0.f;
-                em[l] = tm > 0.5f * NEG ? expf(tm - tmax) : 0.f;
+                const float xs = ts > 0.5f * NEG ? expf(ts - tmax) : 0.f;
+                const float xm = tm > 0.5f * NEG ? expf(tm - tmax) : 0.f;
+                es[l] = xs;
+                em[l] = xm;
+                if (BF16) part += xs + xm;
+            }
+            if constexpr (BF16) {
+                part = warp_sum(part);
+                if (lane == 0) dsum[k * NW + warp] = part;
             }
         }
         __syncthreads();
         clk.lap(5);
 
         // pass B: every (step, chunk): the stay and move exponentials and
-        // the weighted mod ones, summed apart in the chunk's order
+        // the weighted mod ones, summed apart in the chunk's order (BF16:
+        // each posterior, the exponential times the reciprocal of its
+        // step's denominator, rounded to bf16 first)
         const int nch = choff[S + 1];
         for (int task = tid; task < n * nch; task += NT) {
             const int k = task / nch, q = task - k * nch;
             const float* es = fcs + k * L;
             const float* em = ring
                 + (size_t)(slot0 + k < R ? slot0 + k : slot0 + k - R) * L;
-            float a = 0.f, c = 0.f;
+            float a = 0.f, c = 0.f, inv = 1.f;
+            if constexpr (BF16) {
+                float den = 0.f;
+                for (int w = 0; w < NW; ++w) den += dsum[k * NW + w];
+                // a row with no path gets all-zero posteriors
+                inv = 1.f / (den > 0.f ? den : 1.f);
+            }
             const int e1 = chst[q + 1];
 #pragma unroll 4
             for (int e = chst[q]; e < e1; ++e) {
                 const int l = ent[e] >> 2, kind = ent[e] & 3;
-                const float v = kind == 0 ? es[l] : em[l];
+                const float x = kind == 0 ? es[l] : em[l];
+                const float v = BF16 ? round_bf16(x * inv) : x;
                 const bool mod = kind == 2;
                 a += mod ? 0.f : v;
                 c += mod ? mf[l] * v : 0.f;
@@ -1207,18 +1382,22 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
         // the batch's rows of d lp: one warp a step
         for (int k = warp; k < n; k += NW) {
             const float2* pk = parts + k * nch_max;
-            float den = 0.f;
-            for (int q = lane; q < nch; q += 32) den += pk[q].x;
-            den = warp_sum(den);
-            // a row with no path gets all-zero posteriors
-            den = den > 0.f ? den : 1.f;
+            // BF16: the chunks hold posteriors already
+            float den = 1.f;
+            if constexpr (!BF16) {
+                den = 0.f;
+                for (int q = lane; q < nch; q += 32) den += pk[q].x;
+                den = warp_sum(den);
+                // a row with no path gets all-zero posteriors
+                den = den > 0.f ? den : 1.f;
+            }
             float* g = grad + (size_t)(T - 1 - s0 - k) * tstride
                 + (size_t)b * S;
             for (int j = lane; j < S; j += 32) {
                 float sum = 0.f;
                 for (int q = choff[j]; q < choff[j + 1]; ++q)
                     sum += pk[q].x + pk[q].y;
-                g[j] = sum / den;
+                g[j] = BF16 ? sum : sum / den;
             }
         }
         clk.lap(7);
@@ -1226,20 +1405,21 @@ crf_bwd_kernel(const float* __restrict__ lp, const int* __restrict__ stay_idx,
     if (CLOCK && threadIdx.x == 0) clk.store(cyc, blockIdx.x);
 }
 
-template <int NT, int P, bool CLOCK>
+template <int NT, int P, bool CLOCK, bool BF16 = false>
 int launch_bwd(const float* lp, const int* sidx, const int* midx,
-               const int* mmidx, const float* mfact, const float* lattice,
-               const int* valid, const int* last, float* grad, int T, int B,
-               int S, int L, int K, long long* cyc, cudaStream_t st)
+               const int* mmidx, const float* mfact,
+               const LatT<BF16>* lattice, const int* valid, const int* last,
+               float* grad, int T, int B, int S, int L, int K, long long* cyc,
+               cudaStream_t st)
 {
-    const size_t smem = BwdLayout(L, S, K, NT / 32).bytes;
+    const size_t smem = BwdLayout(L, S, K, NT / 32, BF16).bytes;
     if (smem > BWD_SMEM_MAX || K > bwd_batch_max(P))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t e = cudaFuncSetAttribute(
-        crf_bwd_kernel<NT, P, CLOCK>,
+        crf_bwd_kernel<NT, P, CLOCK, BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
-    crf_bwd_kernel<NT, P, CLOCK><<<B, NT, smem, st>>>(
+    crf_bwd_kernel<NT, P, CLOCK, BF16><<<B, NT, smem, st>>>(
         lp, sidx, midx, mmidx, mfact, lattice, valid, last, grad, T, B, S, L,
         K, cyc);
     return static_cast<int>(cudaGetLastError());
@@ -1249,15 +1429,16 @@ int bwd_threads(int L) { return L <= 2048 ? 256 : 512; }
 
 // the steps a batch: at most BWD_BATCH and the registers' KR (by the
 // positions a thread), fewer where the ring would not fit the block's
-// shared memory (two blocks an SM up to 2048 positions, one past that)
-int bwd_batch(int T, int S, int L)
+// shared memory (two blocks an SM up to 2048 positions, one past that;
+// the bf16 instance's layout stages its lattice rows beside the sums)
+int bwd_batch(int T, int S, int L, bool lat16 = false)
 {
     const int NT = bwd_threads(L), NW = NT / 32, P = (L + NT - 1) / NT;
     const size_t budget = L <= 2048 ? BWD_SMEM_SHARED : BWD_SMEM_MAX;
     int k = bwd_batch_max(P < 2 ? 1 : P <= 2 ? 2 : P <= 4 ? 4 : P <= 8 ? 8
                           : 16);
     if (T < k) k = T > 1 ? T : 1;
-    while (k > 1 && BwdLayout(L, S, k, NW).bytes > budget) --k;
+    while (k > 1 && BwdLayout(L, S, k, NW, lat16).bytes > budget) --k;
     return k;
 }
 
@@ -1757,18 +1938,18 @@ int stream_ring(int ntb, int P)
 }  // namespace
 
 // tt_crf_bwd with K steps a batch (K <= 0: bwd_batch's); with CLOCK, the
-// phase clock's cycles into cyc [B][BWD_PHASES]
-template <bool CLOCK>
+// phase clock's cycles into cyc [B][BWD_PHASES]; BF16 the bf16 instance
+template <bool CLOCK, bool BF16 = false>
 int crf_bwd_dispatch(const float* lp, const int* sidx, const int* midx,
                      const int* mmidx, const float* mfact,
-                     const float* lattice, const int* valid, const int* last,
-                     float* grad, int T, int B, int S, int L, int K,
-                     long long* cyc, cudaStream_t st)
+                     const LatT<BF16>* lattice, const int* valid,
+                     const int* last, float* grad, int T, int B, int S,
+                     int L, int K, long long* cyc, cudaStream_t st)
 {
     if (B == 0 || T == 0) return 0;
     if (S > MAX_S || L == 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (K <= 0) K = bwd_batch(T, S, L);
-#define TT_BWD(NT, P) launch_bwd<NT, P, CLOCK>(                          \
+    if (K <= 0) K = bwd_batch(T, S, L, BF16);
+#define TT_BWD(NT, P) launch_bwd<NT, P, CLOCK, BF16>(                    \
         lp, sidx, midx, mmidx, mfact, lattice, valid, last, grad, T, B, S, \
         L, K, cyc, st)
     if (L <= 256) return TT_BWD(256, 1);
@@ -1794,18 +1975,19 @@ int crf_bwd_dispatch(const float* lp, const int* sidx, const int* midx,
     return static_cast<int>(cudaErrorInvalidValue);
 
 // tt_crf_fwd with K steps of lp rows a batch (K <= 0: FWD_BATCH); with
-// CLOCK, the phase clock's cycles into cyc [B][FWD_PHASES]
-template <bool FAST, bool CLOCK>
+// CLOCK, the phase clock's cycles into cyc [B][FWD_PHASES]; BF16 the
+// bf16 instance
+template <bool FAST, bool CLOCK, bool BF16 = false>
 int crf_fwd_dispatch(const float* lp, const int* sidx, const int* midx,
                      const int* mmidx, const float* mfact, const int* valid,
-                     float* fwd_final, float* score, float* lattice, int T,
-                     int B, int S, int L, int K, long long* cyc,
+                     float* fwd_final, float* score, LatT<BF16>* lattice,
+                     int T, int B, int S, int L, int K, long long* cyc,
                      cudaStream_t st)
 {
     if (B == 0 || L == 0) return 0;
     if (S > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
     if (K <= 0) K = FWD_BATCH;
-#define TT_FWD(NT, P, CL) launch_fwd<NT, P, CL, FAST, CLOCK>(           \
+#define TT_FWD(NT, P, CL) launch_fwd<NT, P, CL, FAST, CLOCK, BF16>(     \
         lp, sidx, midx, mmidx, mfact, valid, fwd_final, score, lattice, T, \
         B, S, L, K, fwd_threads<NT, P, CL>(L), cyc, st)
     TT_FWD_BANDS(TT_FWD)
@@ -1920,15 +2102,22 @@ const char* tt_error_string(int err)
 // lp [T, B, S]; stay/move/mod idx, valid [B, L] int32; mod_fact [B, L];
 // -> fwd_final [B, L], score [B] (the summed renormalisers; the caller
 // adds fwd_final at the row's last position), lattice [T, B, L] (may be
-// null).  Returns cudaGetLastError().
+// null; bf16 where bf16 is 1: the bf16 instance, its scores rounded).
+// Returns cudaGetLastError().
 int tt_crf_fwd(const float* lp, const int* sidx, const int* midx,
                const int* mmidx, const float* mfact, const int* valid,
-               float* fwd_final, float* score, float* lattice, int T, int B,
-               int S, int L, void* stream)
+               float* fwd_final, float* score, void* lattice, int T, int B,
+               int S, int L, int bf16, void* stream)
 {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16)
+        return crf_fwd_dispatch<false, false, true>(
+            lp, sidx, midx, mmidx, mfact, valid, fwd_final, score,
+            static_cast<__nv_bfloat16*>(lattice), T, B, S, L, 0, nullptr,
+            st);
     return crf_fwd_dispatch<false, false>(
-        lp, sidx, midx, mmidx, mfact, valid, fwd_final, score, lattice, T,
-        B, S, L, 0, nullptr, static_cast<cudaStream_t>(stream));
+        lp, sidx, midx, mmidx, mfact, valid, fwd_final, score,
+        static_cast<float*>(lattice), T, B, S, L, 0, nullptr, st);
 }
 
 // the layout tt_crf_fwd takes at lattice width L, packed: threads a row
@@ -1942,22 +2131,30 @@ int tt_crf_fwd_layout(int L)
 #undef TT_LAYOUT
 }
 
-// ... + lattice [T, B, L] of tt_crf_fwd, last [B] int32 -> grad [T, B, S].
+// ... + lattice [T, B, L] of tt_crf_fwd (bf16 where bf16 is 1: the bf16
+// instance), last [B] int32 -> grad [T, B, S].
 int tt_crf_bwd(const float* lp, const int* sidx, const int* midx,
-               const int* mmidx, const float* mfact, const float* lattice,
+               const int* mmidx, const float* mfact, const void* lattice,
                const int* valid, const int* last, float* grad, int T, int B,
-               int S, int L, void* stream)
+               int S, int L, int bf16, void* stream)
 {
-    return crf_bwd_dispatch<false>(lp, sidx, midx, mmidx, mfact, lattice,
-                                   valid, last, grad, T, B, S, L, 0, nullptr,
-                                   static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16)
+        return crf_bwd_dispatch<false, true>(
+            lp, sidx, midx, mmidx, mfact,
+            static_cast<const __nv_bfloat16*>(lattice), valid, last, grad, T,
+            B, S, L, 0, nullptr, st);
+    return crf_bwd_dispatch<false>(lp, sidx, midx, mmidx, mfact,
+                                   static_cast<const float*>(lattice), valid,
+                                   last, grad, T, B, S, L, 0, nullptr, st);
 }
 
-// the steps a batch of tt_crf_bwd at this shape
-int tt_crf_bwd_batch(int T, int B, int S, int L)
+// the steps a batch of tt_crf_bwd at this shape (of its bf16 instance
+// where bf16 is 1)
+int tt_crf_bwd_batch(int T, int B, int S, int L, int bf16)
 {
     (void)B;
-    return bwd_batch(T, S, L);
+    return bwd_batch(T, S, L, bf16 != 0);
 }
 
 // stay, move [T, B, L]; valid [B, L] int32 -> fwd_final [B, L], score [B]

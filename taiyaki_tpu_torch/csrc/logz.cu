@@ -1,4 +1,4 @@
-// Flip-flop partition function for Hopper (sm_90a), f32 throughout.
+// Flip-flop partition function for Hopper (sm_90a), f32 arithmetic.
 //
 // Replaces the TPU kernels taiyaki_tpu/ops/pallas_logz.py:142
 // `logz_forward` (tt_logz_fwd) and pallas_logz.py:249
@@ -34,7 +34,16 @@
 // pass over the segments, then every segment rerun in parallel from its
 // start vector (forward) or end vector (posteriors): a chain ~2K + T/K
 // steps deep, on B T / K threads instead of B chains.
+//
+// Two instances of every kernel: f32 scores, lattice and posteriors, and
+// bf16 ones (the JAX trainer's mixed precision, pallas_logz.py under
+// residual_dtype / out_dtype bf16): the scores read as bf16 and widened,
+// the lattice stored as bf16 rounded from the f32 vector (the recursion
+// goes on from the f32 vector), the posteriors formed in f32 from the
+// bf16 lattice widened and stored as bf16.  Carries, sums, logZ and the
+// scratch stay f32 in both.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -42,6 +51,30 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+
+using bf16 = __nv_bfloat16;
+
+// a score of either instance, widened to f32
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const bf16* p)
+{
+    return __bfloat162float(__ldg(p));
+}
+
+// two bf16 values in one word (the first in the low half), widened
+__device__ __forceinline__ void unpack2(float* out, unsigned w)
+{
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+// two floats rounded to bf16 (to nearest, ties to even), the first in the
+// low half
+__device__ __forceinline__ unsigned pack2(float a, float b)
+{
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a))
+        | (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16;
+}
 
 template <int NFF>
 struct Group {
@@ -119,6 +152,40 @@ __device__ __forceinline__ void load_row(float* out, const float* row)
     }
 }
 
+// N bf16 values of a row into registers, widened: 16-byte loads where N %
+// 8 == 0, 8-byte where N % 4 == 0, else 4-byte (N is even), each needing
+// the row aligned to it; with VEC false 2-byte loads
+template <int N, bool VEC = true>
+__device__ __forceinline__ void load_row(float* out, const bf16* row)
+{
+    if constexpr (!VEC) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) out[k] = __bfloat162float(row[k]);
+    } else if constexpr (N % 8 == 0) {
+        const uint4* r = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+        for (int k = 0; k < N / 8; ++k) {
+            const uint4 x = r[k];
+            unpack2(out + 8 * k, x.x);
+            unpack2(out + 8 * k + 2, x.y);
+            unpack2(out + 8 * k + 4, x.z);
+            unpack2(out + 8 * k + 6, x.w);
+        }
+    } else if constexpr (N % 4 == 0) {
+        const uint2* r = reinterpret_cast<const uint2*>(row);
+#pragma unroll
+        for (int k = 0; k < N / 4; ++k) {
+            const uint2 x = r[k];
+            unpack2(out + 4 * k, x.x);
+            unpack2(out + 4 * k + 2, x.y);
+        }
+    } else {
+        const unsigned* r = reinterpret_cast<const unsigned*>(row);
+#pragma unroll
+        for (int k = 0; k < N / 2; ++k) unpack2(out + 2 * k, r[k]);
+    }
+}
+
 // N floats from registers into an aligned row of this file's outputs or
 // scratch (16-byte stores where N % 4 == 0, else 8-byte)
 template <int N>
@@ -135,6 +202,33 @@ __device__ __forceinline__ void store_row(float* row, const float* v)
 #pragma unroll
         for (int k = 0; k < N / 2; ++k)
             r[k] = make_float2(v[2 * k], v[2 * k + 1]);
+    }
+}
+
+// N floats rounded to bf16 into an aligned bf16 row of this file's
+// outputs (16-byte stores where N % 8 == 0, 8-byte where N % 4 == 0, else
+// 4-byte)
+template <int N>
+__device__ __forceinline__ void store_row(bf16* row, const float* v)
+{
+    if constexpr (N % 8 == 0) {
+        uint4* r = reinterpret_cast<uint4*>(row);
+#pragma unroll
+        for (int k = 0; k < N / 8; ++k)
+            r[k] = make_uint4(pack2(v[8 * k], v[8 * k + 1]),
+                              pack2(v[8 * k + 2], v[8 * k + 3]),
+                              pack2(v[8 * k + 4], v[8 * k + 5]),
+                              pack2(v[8 * k + 6], v[8 * k + 7]));
+    } else if constexpr (N % 4 == 0) {
+        uint2* r = reinterpret_cast<uint2*>(row);
+#pragma unroll
+        for (int k = 0; k < N / 4; ++k)
+            r[k] = make_uint2(pack2(v[4 * k], v[4 * k + 1]),
+                              pack2(v[4 * k + 2], v[4 * k + 3]));
+    } else {
+        unsigned* r = reinterpret_cast<unsigned*>(row);
+#pragma unroll
+        for (int k = 0; k < N / 2; ++k) r[k] = pack2(v[2 * k], v[2 * k + 1]);
     }
 }
 
@@ -212,9 +306,9 @@ __device__ __forceinline__ void fwd_step(float (&nw)[2 * NB],
     }
 }
 
-template <int NB, bool VEC>
+template <int NB, bool VEC, class ST>
 __global__ void __launch_bounds__(SEG_THREADS)
-logz_fwd_transfer_kernel(const float* __restrict__ scores,
+logz_fwd_transfer_kernel(const ST* __restrict__ scores,
                          float* __restrict__ scratch, int B, int K,
                          int nseg)
 {
@@ -227,7 +321,7 @@ logz_fwd_transfer_kernel(const float* __restrict__ scores,
     const int b = live ? (int)(grp % B) : 0;
     const int t0 = live ? (int)(grp / B) * K : 0;
     const size_t rowstride = (size_t)B * S;
-    const float* srow = scores + (size_t)b * S;
+    const ST* srow = scores + (size_t)b * S;
 
     float c[NFF];
 #pragma unroll
@@ -243,10 +337,10 @@ logz_fwd_transfer_kernel(const float* __restrict__ scores,
             if (live && k + 1 < K)
                 load_row<S, VEC>(nxt, srow + (t + 1) * rowstride);
         }
-        const float* row = srow + (size_t)t * rowstride;
+        const ST* row = srow + (size_t)t * rowstride;
         float nw[NFF], m = -INFINITY;
         fwd_step<NB>(nw, c, [&](int j) {
-            return REG ? cur[REG ? j : 0] : __ldg(row + j);
+            return REG ? cur[REG ? j : 0] : ldg_f(row + j);
         });
 #pragma unroll
         for (int d = 0; d < NFF; ++d) m = fmaxf(m, nw[d]);
@@ -309,12 +403,12 @@ logz_fwd_boundary_kernel(float* __restrict__ scratch, int B, int nseg)
     if (b < B && d == 0) reinterpret_cast<int*>(scratch + at.cnt)[b] = 0;
 }
 
-template <int NB, bool VEC>
+template <int NB, bool VEC, class ST>
 __global__ void __launch_bounds__(POST_THREADS)
-logz_fwd_rerun_kernel(const float* __restrict__ scores,
+logz_fwd_rerun_kernel(const ST* __restrict__ scores,
                       float* __restrict__ fwd_final,
                       float* __restrict__ logz_out,
-                      float* __restrict__ lattice,
+                      ST* __restrict__ lattice,
                       float* __restrict__ scratch, int T, int B, int K,
                       int nseg)
 {
@@ -326,7 +420,7 @@ logz_fwd_rerun_kernel(const float* __restrict__ scores,
     const int t0 = g * K, t1 = min(T, t0 + K);
     const FwdScratch at(B, NFF, nseg);
     const size_t rowstride = (size_t)B * S;
-    const float* srow = scores + (size_t)b * S;
+    const ST* srow = scores + (size_t)b * S;
 
     float v[NFF];
     if (g == 0) {
@@ -349,10 +443,10 @@ logz_fwd_rerun_kernel(const float* __restrict__ scores,
         }
         if (lattice != nullptr)
             store_row<NFF>(lattice + ((size_t)t * B + b) * NFF, v);
-        const float* row = srow + (size_t)t * rowstride;
+        const ST* row = srow + (size_t)t * rowstride;
         float nw[NFF];
         fwd_step<NB>(nw, v, [&](int j) {
-            return REG ? cur[REG ? j : 0] : __ldg(row + j);
+            return REG ? cur[REG ? j : 0] : ldg_f(row + j);
         });
         const float f = lse<NFF>(nw);
 #pragma unroll
@@ -407,10 +501,11 @@ logz_fwd_rerun_kernel(const float* __restrict__ scores,
 // threads share the chain work instead of B x NFF lanes.
 //
 // Scratch, without an allocation: the transfer of segment g (g >= 1) and
-// the end vector of segment g - 1 live in the output rows of segment
-// g - 1 of their row (K steps x S floats, of which NFF^2 + NFF are used),
-// which kernel C of that (row, segment) overwrites only after it has read
-// its end vector there.
+// the end vector of segment g - 1 live, as f32, in the output rows of
+// segment g - 1 of their row (K steps x S floats, or S / 2 floats a step
+// in the bf16 instance's rows; NFF^2 + NFF are used, which K >= 2 holds,
+// K >= 4 in bf16), which kernel C of that (row, segment) overwrites only
+// after it has read its end vector there.
 //
 // In C one thread holds the whole NFF-vector in registers, so a step is
 // register arithmetic (no shuffles); the next step's score and lattice
@@ -429,20 +524,22 @@ logz_fwd_rerun_kernel(const float* __restrict__ scores,
 // and a linear-space transfer would flush paths more than ~87 nats below
 // a step's best to zero.
 
-// index in the output of element i of the scratch of (row b, segment
-// starting at t0)
-template <int S>
+// index, in floats of the output, of element i of the scratch of (row b,
+// segment starting at t0), SF the floats an output row holds (S, or S / 2
+// in bf16)
+template <int SF>
 __device__ __forceinline__ size_t scratch_at(int i, int t0, int B, int b)
 {
-    return ((size_t)(t0 + i / S) * B + b) * S + i % S;
+    return ((size_t)(t0 + i / SF) * B + b) * SF + i % SF;
 }
 
-template <int NB, bool VEC>
+template <int NB, bool VEC, class ST>
 __global__ void __launch_bounds__(SEG_THREADS)
-logz_transfer_kernel(const float* __restrict__ scores,
+logz_transfer_kernel(const ST* __restrict__ scores,
                      float* __restrict__ post, int T, int B, int K, int nseg)
 {
     constexpr int NFF = 2 * NB, S = NFF * (NB + 1), G = Group<NFF>::G;
+    constexpr int SF = S * (int)sizeof(ST) / 4;
     constexpr bool REG = NB <= 4;
     const size_t grp = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
     const int d = threadIdx.x & (G - 1);
@@ -450,7 +547,7 @@ logz_transfer_kernel(const float* __restrict__ scores,
     const int b = live ? (int)(grp % B) : 0;
     const int t0 = live ? (1 + (int)(grp / B)) * K : K;
     const size_t rowstride = (size_t)B * S;
-    const float* srow = scores + (size_t)b * S;
+    const ST* srow = scores + (size_t)b * S;
 
     float c[NFF];
 #pragma unroll
@@ -468,7 +565,7 @@ logz_transfer_kernel(const float* __restrict__ scores,
             if (step && t > t0)
                 load_row<S, VEC>(nxt, srow + (t - 1) * rowstride);
         }
-        const float* row = srow + (size_t)(step ? t : 0) * rowstride;
+        const ST* row = srow + (size_t)(step ? t : 0) * rowstride;
         float nw[NFF], m = -INFINITY;
 #pragma unroll
         for (int s = 0; s < NFF; ++s) {
@@ -476,7 +573,7 @@ logz_transfer_kernel(const float* __restrict__ scores,
 #pragma unroll
             for (int q = 0; q <= NB; ++q) {
                 const int j = q * NFF + s;
-                o[q] = (REG ? cur[REG ? j : 0] : __ldg(row + j))
+                o[q] = (REG ? cur[REG ? j : 0] : ldg_f(row + j))
                     + c[dst_of<NB>(q, s)];
             }
             nw[s] = step ? lse<NB + 1>(o) : c[s];
@@ -496,15 +593,15 @@ logz_transfer_kernel(const float* __restrict__ scores,
     if (live && d < NFF) {
 #pragma unroll
         for (int s = 0; s < NFF; ++s)
-            post[scratch_at<S>(s * NFF + d, t0 - K, B, b)] = c[s];
+            post[scratch_at<SF>(s * NFF + d, t0 - K, B, b)] = c[s];
     }
 }
 
-template <int NB>
+template <int NB, int SF>
 __global__ void __launch_bounds__(SEG_THREADS)
 logz_boundary_kernel(float* __restrict__ post, int T, int B, int K, int nseg)
 {
-    constexpr int NFF = 2 * NB, S = NFF * (NB + 1), G = Group<NFF>::G;
+    constexpr int NFF = 2 * NB, G = Group<NFF>::G;
     const int s = threadIdx.x & (G - 1);
     const int gbase = (threadIdx.x & 31) - s;
     const int b = (blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -515,14 +612,14 @@ logz_boundary_kernel(float* __restrict__ post, int T, int B, int K, int nseg)
 #pragma unroll
     for (int d = 0; d < NFF; ++d) {
         v[d] = -logf((float)NFF);
-        p[d] = live ? post[scratch_at<S>(s * NFF + d, (nseg - 2) * K, B, b)]
+        p[d] = live ? post[scratch_at<SF>(s * NFF + d, (nseg - 2) * K, B, b)]
                     : -INFINITY;
     }
     for (int g = nseg - 1; g >= 1; --g) {
 #pragma unroll
         for (int d = 0; d < NFF; ++d) {
             np[d] = live && g > 1
-                ? post[scratch_at<S>(s * NFF + d, (g - 2) * K, B, b)]
+                ? post[scratch_at<SF>(s * NFF + d, (g - 2) * K, B, b)]
                 : -INFINITY;
         }
         float o[NFF];
@@ -538,33 +635,35 @@ logz_boundary_kernel(float* __restrict__ post, int T, int B, int K, int nseg)
 #pragma unroll
         for (int d = 0; d < NFF; ++d)
             v[d] = m == -INFINITY ? -INFINITY : v[d] - m;
-        if (live) post[scratch_at<S>(NFF * NFF + s, (g - 1) * K, B, b)] = v[s];
+        if (live) post[scratch_at<SF>(NFF * NFF + s, (g - 1) * K, B, b)] = v[s];
 #pragma unroll
         for (int d = 0; d < NFF; ++d) p[d] = np[d];
     }
 }
 
-template <int NB, bool VEC>
+template <int NB, bool VEC, class ST>
 __global__ void __launch_bounds__(POST_THREADS)
-logz_post_kernel(const float* __restrict__ scores,
-                 const float* __restrict__ lattice, float* __restrict__ post,
+logz_post_kernel(const ST* __restrict__ scores,
+                 const ST* __restrict__ lattice, ST* __restrict__ post,
                  int T, int B, int K, int nseg)
 {
     constexpr int NFF = 2 * NB, S = NFF * (NB + 1);
+    constexpr int SF = S * (int)sizeof(ST) / 4;
     constexpr bool REG = NB <= 4;
     const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (size_t)B * nseg) return;
     const int b = (int)(i % B), g = (int)(i / B);
     const int t0 = g * K, t1 = min(T, t0 + K);
     const size_t rowstride = (size_t)B * S, lstride = (size_t)B * NFF;
-    const float* srow = scores + (size_t)b * S;
-    const float* lrow = lattice + (size_t)b * NFF;
+    const ST* srow = scores + (size_t)b * S;
+    const ST* lrow = lattice + (size_t)b * NFF;
+    const float* scr = reinterpret_cast<const float*>(post);
 
     float v[NFF];
 #pragma unroll
     for (int s = 0; s < NFF; ++s)
         v[s] = g == nseg - 1 ? -logf((float)NFF)
-                             : post[scratch_at<S>(NFF * NFF + s, t0, B, b)];
+                             : scr[scratch_at<SF>(NFF * NFF + s, t0, B, b)];
     float cur[REG ? S : 1], nxt[REG ? S : 1], fw[NFF], nfw[NFF];
     if constexpr (REG) load_row<S, VEC>(cur, srow + (t1 - 1) * rowstride);
     load_row<NFF, VEC>(fw, lrow + (t1 - 1) * lstride);
@@ -573,7 +672,7 @@ logz_post_kernel(const float* __restrict__ scores,
             if constexpr (REG) load_row<S, VEC>(nxt, srow + (t - 1) * rowstride);
             load_row<NFF, VEC>(nfw, lrow + (t - 1) * lstride);
         }
-        const float* row = srow + t * rowstride;
+        const ST* row = srow + t * rowstride;
         // the recursion's terms, grouped by source state
         float e[REG ? S : 1], m[NFF], nw[NFF];
 #pragma unroll
@@ -582,7 +681,7 @@ logz_post_kernel(const float* __restrict__ scores,
 #pragma unroll
             for (int q = 0; q <= NB; ++q) {
                 const int j = q * NFF + s;
-                o[q] = (REG ? cur[REG ? j : 0] : __ldg(row + j))
+                o[q] = (REG ? cur[REG ? j : 0] : ldg_f(row + j))
                     + v[dst_of<NB>(q, s)];
                 mx = fmaxf(mx, o[q]);
             }
@@ -614,7 +713,7 @@ logz_post_kernel(const float* __restrict__ scores,
             for (int s = 0; s < NFF; ++s)
                 r[s] = expf(fw[s] + m[s] - big) * inv;
         }
-        float4* prow = reinterpret_cast<float4*>(post + ((size_t)t * B + b) * S);
+        ST* prow = post + ((size_t)t * B + b) * S;
 #pragma unroll
         for (int k = 0; k < S / 4; ++k) {
             float x[4];
@@ -626,11 +725,12 @@ logz_post_kernel(const float* __restrict__ scores,
                     ex = e[j];
                 } else {
                     const float shift = m[s] == -INFINITY ? 0.f : m[s];
-                    ex = expf(__ldg(row + j) + v[dst_of<NB>(q, s)] - shift);
+                    ex = expf(ldg_f(row + j) + v[dst_of<NB>(q, s)] - shift);
                 }
                 x[u] = ex * r[s];
             }
-            prow[k] = make_float4(x[0], x[1], x[2], x[3]);
+            // one 16-byte store, or an 8-byte one of four bf16 values
+            store_row<4>(prow + 4 * k, x);
         }
         // the recursion: renormalised by its max
         float f = -INFINITY;
@@ -652,9 +752,9 @@ logz_post_kernel(const float* __restrict__ scores,
 
 // the forward with segments of K steps (the scratch may be null when T is
 // one segment); VEC: the scores are 16-byte aligned
-template <int NB, bool VEC>
-int launch_fwd(const float* scores, float* fwd_final, float* logz,
-               float* lattice, float* scratch, int T, int B, int K,
+template <int NB, bool VEC, class ST>
+int launch_fwd(const ST* scores, float* fwd_final, float* logz,
+               ST* lattice, float* scratch, int T, int B, int K,
                cudaStream_t st)
 {
     constexpr int G = Group<2 * NB>::G;
@@ -662,7 +762,7 @@ int launch_fwd(const float* scores, float* fwd_final, float* logz,
     if (nseg > 1) {
         if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
         const size_t lanes = (size_t)B * (nseg - 1) * G;
-        logz_fwd_transfer_kernel<NB, VEC>
+        logz_fwd_transfer_kernel<NB, VEC, ST>
             <<<(unsigned)((lanes + SEG_THREADS - 1) / SEG_THREADS),
                SEG_THREADS, 0, st>>>(scores, scratch, B, K, nseg);
         cudaError_t e = cudaGetLastError();
@@ -674,7 +774,7 @@ int launch_fwd(const float* scores, float* fwd_final, float* logz,
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const size_t threads = (size_t)B * nseg;
-    logz_fwd_rerun_kernel<NB, VEC>
+    logz_fwd_rerun_kernel<NB, VEC, ST>
         <<<(unsigned)((threads + POST_THREADS - 1) / POST_THREADS),
            POST_THREADS, 0, st>>>(scores, fwd_final, logz, lattice, scratch,
                                   T, B, K, nseg);
@@ -683,27 +783,29 @@ int launch_fwd(const float* scores, float* fwd_final, float* logz,
 
 // the posteriors with segments of K steps; VEC: the scores and the lattice
 // are 16-byte aligned
-template <int NB, bool VEC>
-int launch_post(const float* scores, const float* lattice, float* post,
-                int T, int B, int K, cudaStream_t st)
+template <int NB, bool VEC, class ST>
+int launch_post(const ST* scores, const ST* lattice, ST* post, int T, int B,
+                int K, cudaStream_t st)
 {
     constexpr int G = Group<2 * NB>::G;
+    constexpr int SF = 2 * NB * (NB + 1) * (int)sizeof(ST) / 4;
+    float* scr = reinterpret_cast<float*>(post);
     const int nseg = (T + K - 1) / K;
     if (nseg > 1) {
         const size_t lanes = (size_t)B * (nseg - 1) * G;
-        logz_transfer_kernel<NB, VEC>
+        logz_transfer_kernel<NB, VEC, ST>
             <<<(unsigned)((lanes + SEG_THREADS - 1) / SEG_THREADS),
-               SEG_THREADS, 0, st>>>(scores, post, T, B, K, nseg);
+               SEG_THREADS, 0, st>>>(scores, scr, T, B, K, nseg);
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
-        logz_boundary_kernel<NB>
+        logz_boundary_kernel<NB, SF>
             <<<(unsigned)(((size_t)B * G + SEG_THREADS - 1) / SEG_THREADS),
-               SEG_THREADS, 0, st>>>(post, T, B, K, nseg);
+               SEG_THREADS, 0, st>>>(scr, T, B, K, nseg);
         e = cudaGetLastError();
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const size_t threads = (size_t)B * nseg;
-    logz_post_kernel<NB, VEC>
+    logz_post_kernel<NB, VEC, ST>
         <<<(unsigned)((threads + POST_THREADS - 1) / POST_THREADS),
            POST_THREADS, 0, st>>>(scores, lattice, post, T, B, K, nseg);
     return static_cast<int>(cudaGetLastError());
@@ -780,68 +882,127 @@ int tt_logz_post_kernels(int T, int B, int nbase)
 
 }  // extern "C"
 
-// scores [T, B, S] -> fwd_final [B, NFF], logz [B], lattice [T, B, NFF]
-// (may be null), with segments of K steps (K <= 0: tt_logz_fwd_segment's)
-// and the scratch of FwdScratch(B, NFF, nseg) floats.  Any contiguous f32
-// scores (16-byte loads where aligned, else 4-byte).
-int logz_fwd_launch(const float* scores, float* fwd_final, float* logz,
-                    float* lattice, float* scratch, int T, int B, int nbase,
-                    int K, cudaStream_t st)
+namespace {
+
+// the forward in storage type ST (see logz_fwd_launch)
+template <class ST>
+int fwd_launch(const ST* scores, float* fwd_final, float* logz, ST* lattice,
+               float* scratch, int T, int B, int nbase, int K,
+               cudaStream_t st)
 {
     if (B == 0) return 0;
     if (K <= 0) K = tt_logz_fwd_segment(T, B, nbase);
     if (aligned16(scores)) {
-#define TT_FWD(NB) launch_fwd<NB, true>(scores, fwd_final, logz, lattice, \
-                                         scratch, T, B, K, st)
+#define TT_FWD(NB) launch_fwd<NB, true, ST>(scores, fwd_final, logz, \
+                                             lattice, scratch, T, B, K, st)
         TT_NBASE_CASES(TT_FWD)
 #undef TT_FWD
     }
-#define TT_FWD(NB) launch_fwd<NB, false>(scores, fwd_final, logz, lattice, \
-                                          scratch, T, B, K, st)
+#define TT_FWD(NB) launch_fwd<NB, false, ST>(scores, fwd_final, logz, \
+                                              lattice, scratch, T, B, K, st)
     TT_NBASE_CASES(TT_FWD)
 #undef TT_FWD
+}
+
+// the posteriors in storage type ST (see logz_post_launch): K at least 2,
+// 4 in bf16, so that a segment's rows hold the scratch of the next
+template <class ST>
+int post_launch(const ST* scores, const ST* lattice, ST* post, int T, int B,
+                int nbase, int K, cudaStream_t st)
+{
+    if (B == 0 || T == 0) return 0;
+    constexpr int KMIN = sizeof(ST) == 4 ? 2 : 4;
+    if (K <= 0) K = tt_logz_post_segment(T, B, nbase);
+    if (K < KMIN) K = KMIN;
+    if (aligned16(scores) && aligned16(lattice)) {
+#define TT_POST(NB) launch_post<NB, true, ST>(scores, lattice, post, T, B, \
+                                               K, st)
+        TT_NBASE_CASES(TT_POST)
+#undef TT_POST
+    }
+#define TT_POST(NB) launch_post<NB, false, ST>(scores, lattice, post, T, B, \
+                                                K, st)
+    TT_NBASE_CASES(TT_POST)
+#undef TT_POST
+}
+
+}  // namespace
+
+// scores [T, B, S] -> fwd_final [B, NFF], logz [B], lattice [T, B, NFF]
+// (may be null), with segments of K steps (K <= 0: tt_logz_fwd_segment's)
+// and the scratch of FwdScratch(B, NFF, nseg) floats.  Any contiguous f32
+// scores (16-byte loads where aligned, else 4-byte); the bf16 instance
+// takes bf16 scores (16-byte loads where aligned, else 2-byte) and writes
+// a bf16 lattice.
+int logz_fwd_launch(const float* scores, float* fwd_final, float* logz,
+                    float* lattice, float* scratch, int T, int B, int nbase,
+                    int K, cudaStream_t st)
+{
+    return fwd_launch(scores, fwd_final, logz, lattice, scratch, T, B, nbase,
+                      K, st);
+}
+
+int logz_fwd_launch(const bf16* scores, float* fwd_final, float* logz,
+                    bf16* lattice, float* scratch, int T, int B, int nbase,
+                    int K, cudaStream_t st)
+{
+    return fwd_launch(scores, fwd_final, logz, lattice, scratch, T, B, nbase,
+                      K, st);
 }
 
 // scores [T, B, S], lattice [T, B, NFF] -> post [T, B, S], with segments of
 // K steps (K <= 0: tt_logz_post_segment's; at least 2, so that a
 // segment's rows hold the scratch of the next).  Any contiguous f32
 // scores and lattice (16- and 8-byte loads where both are 16-byte
-// aligned, else 4-byte).
+// aligned, else 4-byte); the bf16 instance: bf16 scores, lattice and
+// posteriors, K at least 4.
 int logz_post_launch(const float* scores, const float* lattice, float* post,
                      int T, int B, int nbase, int K, cudaStream_t st)
 {
-    if (B == 0 || T == 0) return 0;
-    if (K <= 0) K = tt_logz_post_segment(T, B, nbase);
-    if (K < 2) K = 2;
-    if (aligned16(scores) && aligned16(lattice)) {
-#define TT_POST(NB) launch_post<NB, true>(scores, lattice, post, T, B, K, st)
-        TT_NBASE_CASES(TT_POST)
-#undef TT_POST
-    }
-#define TT_POST(NB) launch_post<NB, false>(scores, lattice, post, T, B, K, st)
-    TT_NBASE_CASES(TT_POST)
-#undef TT_POST
+    return post_launch(scores, lattice, post, T, B, nbase, K, st);
+}
+
+int logz_post_launch(const bf16* scores, const bf16* lattice, bf16* post,
+                     int T, int B, int nbase, int K, cudaStream_t st)
+{
+    return post_launch(scores, lattice, post, T, B, nbase, K, st);
 }
 
 extern "C" {
 
 // scores [T, B, S] -> fwd_final [B, NFF], logz [B] (without log(nbase)),
 // lattice [T, B, NFF] (may be null); scratch of tt_logz_fwd_scratch
-// floats (null when that is 0).  Returns cudaGetLastError().
-int tt_logz_fwd(const float* scores, float* fwd_final, float* logz,
-                float* lattice, float* scratch, int T, int B, int nbase,
-                void* stream)
+// floats (null when that is 0); scores and lattice f32, or bf16 where
+// bf16 is 1.  Returns cudaGetLastError().
+int tt_logz_fwd(const void* scores, float* fwd_final, float* logz,
+                void* lattice, float* scratch, int T, int B, int nbase,
+                int bf16, void* stream)
 {
-    return logz_fwd_launch(scores, fwd_final, logz, lattice, scratch, T, B,
-                           nbase, 0, static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16)
+        return logz_fwd_launch(static_cast<const __nv_bfloat16*>(scores),
+                               fwd_final, logz,
+                               static_cast<__nv_bfloat16*>(lattice), scratch,
+                               T, B, nbase, 0, st);
+    return logz_fwd_launch(static_cast<const float*>(scores), fwd_final, logz,
+                           static_cast<float*>(lattice), scratch, T, B,
+                           nbase, 0, st);
 }
 
-// scores [T, B, S], lattice [T, B, NFF] -> post [T, B, S].
-int tt_logz_posteriors(const float* scores, const float* lattice, float* post,
-                       int T, int B, int nbase, void* stream)
+// scores [T, B, S], lattice [T, B, NFF] -> post [T, B, S], all f32, or
+// all bf16 where bf16 is 1.
+int tt_logz_posteriors(const void* scores, const void* lattice, void* post,
+                       int T, int B, int nbase, int bf16, void* stream)
 {
-    return logz_post_launch(scores, lattice, post, T, B, nbase, 0,
-                            static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (bf16)
+        return logz_post_launch(static_cast<const __nv_bfloat16*>(scores),
+                                static_cast<const __nv_bfloat16*>(lattice),
+                                static_cast<__nv_bfloat16*>(post), T, B,
+                                nbase, 0, st);
+    return logz_post_launch(static_cast<const float*>(scores),
+                            static_cast<const float*>(lattice),
+                            static_cast<float*>(post), T, B, nbase, 0, st);
 }
 
 }  // extern "C"

@@ -35,6 +35,21 @@ chain and forms each batch of steps' posteriors off it, summing them into
 the columns of d lp in an order fixed by the row's indices, so its d lp
 is bitwise the same from run to run (csrc/crf.cu).
 
+The fused pair has a bf16 instance (`score_dtype=torch.bfloat16`), the
+JAX trainer's mixed precision, which ops/flipflop.py runs under
+TAIYAKI_TPU_BF16_STREAMS=1: lp stays f32, each selected stay and move
+score is rounded to bf16 once (the cat_mod factor rounded first, the move
+score lp[m] + bf16(fact) x lp[mm] summed in f32 and then rounded), the
+forward stores its lattice as bf16 from its f32 state, and the backward
+widens that lattice, rounds each posterior to bf16 and sums the rounded
+posteriors (the mod column's weighted by bf16(fact)) into d lp in f32.
+That is where the TPU kernels round in interpret mode (pallas_crf.py:
+`_build_selectors` 324-348, `_fused_scores` 351-364, the bf16 lattice and
+posterior scratch 479-482, 536-562, 608-613).  On a TPU the selector
+product at precision=None also rounds lp to bf16 before it: a canonical
+score is the same, a cat_mod move score may differ by one bf16 step.  The
+streams pair has no bf16 instance (ROADMAP.md Queue 1 item 7.3b).
+
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
 """
@@ -44,6 +59,7 @@ import ctypes
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib
+from taiyaki_tpu_torch.ops.rnn_plan import Launches
 
 NEG = -1e30
 MAX_L = 8192     # the fused kernels' widest lattice (csrc/crf.cu)
@@ -53,9 +69,9 @@ MAX_S = 128
 # 8), in device memory past it
 MAX_L_STREAMS = 32768
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 4 + [_P],
-               "tt_crf_bwd": [_P] * 9 + [_I] * 4 + [_P],
-               "tt_crf_bwd_batch": [_I] * 4,
+_SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 5 + [_P],
+               "tt_crf_bwd": [_P] * 9 + [_I] * 5 + [_P],
+               "tt_crf_bwd_batch": [_I] * 5,
                "tt_crf_fwd_layout": [_I],
                "tt_crf_fwd_streams": [_P] * 7 + [_I] * 3 + [_P],
                "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P],
@@ -81,16 +97,33 @@ def _neg_like(x):
     return torch.full_like(x, NEG)
 
 
+SCORE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _rounder(score_dtype):
+    """The rounding of a selected score (and of the cat_mod factor) in
+    the instance of `score_dtype`: none in f32, to the nearest bf16 (ties
+    to even, as the kernels' __float2bfloat16_rn) in bf16."""
+    if score_dtype not in SCORE_DTYPES:
+        raise ValueError("score_dtype must be one of {} (got {})".format(
+            SCORE_DTYPES, score_dtype))
+    if score_dtype == torch.float32:
+        return lambda x: x
+    return lambda x: x.to(torch.bfloat16).float()
+
+
 def crf_fwd_plain(lp, stay_idx, move_idx, modmove_idx, modmove_fact, valid,
-                  emit_lattice=True):
+                  emit_lattice=True, score_dtype=torch.float32):
     """Plain forward pass.
 
     Returns:
         (fwd_final [B, L], score [B]: the summed per-step renormalisers,
          without fwd_final at the row's last position, which the caller
-         adds; lattice [T, B, L], the renormalised forward vector before
-         every step, or None).
+         adds; lattice [T, B, L] of score_dtype, the renormalised forward
+         vector before every step, or None).
     """
+    rb = _rounder(score_dtype)
+    modmove_fact = rb(modmove_fact)
     T, B, _ = lp.shape
     L = stay_idx.shape[1]
     ok = valid != 0
@@ -98,14 +131,15 @@ def crf_fwd_plain(lp, stay_idx, move_idx, modmove_idx, modmove_fact, valid,
     fwd = torch.where((pos == 0) & ok, torch.zeros(B, L, device=lp.device),
                       torch.full((B, L), NEG, device=lp.device))
     score = lp.new_zeros(B)
-    lattice = lp.new_empty(T, B, L) if emit_lattice else None
+    lattice = (lp.new_empty(T, B, L, dtype=score_dtype) if emit_lattice
+               else None)
     neg_col = torch.full((B, 1), NEG, device=lp.device)
     for t in range(T):
         if lattice is not None:
             lattice[t] = fwd
-        stay = fwd + _select(lp[t], stay_idx)
-        move = fwd + _move_scores(lp[t], move_idx, modmove_idx,
-                                  modmove_fact)
+        stay = fwd + rb(_select(lp[t], stay_idx))
+        move = fwd + rb(_move_scores(lp[t], move_idx, modmove_idx,
+                                     modmove_fact))
         move = torch.cat([neg_col, move[:, :-1]], dim=1)
         new = torch.where(ok, torch.logaddexp(stay, move), _neg_like(stay))
         factor = new.amax(dim=1, keepdim=True)
@@ -115,9 +149,14 @@ def crf_fwd_plain(lp, stay_idx, move_idx, modmove_idx, modmove_fact, valid,
 
 
 def crf_bwd_plain(lp, stay_idx, move_idx, modmove_idx, modmove_fact,
-                  lattice, valid, last):
+                  lattice, valid, last, score_dtype=torch.float32):
     """Plain backward pass: d(score)/d(lp) [T, B, S] from the forward
-    lattice of `crf_fwd_plain`; `last` [B] is each row's final position."""
+    lattice of `crf_fwd_plain` (of score_dtype); `last` [B] is each row's
+    final position.  In bf16 each posterior is rounded to bf16 before it
+    is summed into its columns."""
+    rb = _rounder(score_dtype)
+    bf16 = score_dtype == torch.bfloat16
+    modmove_fact = rb(modmove_fact)
     T, B, S = lp.shape
     L = stay_idx.shape[1]
     ok = valid != 0
@@ -136,9 +175,9 @@ def crf_bwd_plain(lp, stay_idx, move_idx, modmove_idx, modmove_fact,
     mmidx = modmove_idx.clamp(0, S - 1).long()
     mmok = (modmove_idx >= 0) & (modmove_idx < S)
     for t in range(T - 1, -1, -1):
-        fc = lattice[t]
-        stay = _select(lp[t], stay_idx)
-        move = _move_scores(lp[t], move_idx, modmove_idx, modmove_fact)
+        fc = lattice[t].float()
+        stay = rb(_select(lp[t], stay_idx))
+        move = rb(_move_scores(lp[t], move_idx, modmove_idx, modmove_fact))
         bwd_next = torch.cat([bwd[:, 1:], neg_col], dim=1)
         stay_terms = torch.where(ok, fc + bwd + stay, _neg_like(fc))
         move_terms = torch.where(move_ok, fc + bwd_next + move, _neg_like(fc))
@@ -150,12 +189,16 @@ def crf_bwd_plain(lp, stay_idx, move_idx, modmove_idx, modmove_fact,
                            torch.zeros_like(fc))
         den = ex_s.sum(dim=1, keepdim=True) + ex_m.sum(dim=1, keepdim=True)
         den = torch.where(den > 0, den, torch.ones_like(den))
+        if bf16:
+            # the posteriors rounded, then summed into their columns
+            ex_s, ex_m = rb(ex_s / den), rb(ex_m / den)
         g = grad[t]
         g.scatter_add_(1, sidx, torch.where(sok, ex_s, torch.zeros_like(ex_s)))
         g.scatter_add_(1, midx, torch.where(mok, ex_m, torch.zeros_like(ex_m)))
         g.scatter_add_(1, mmidx, torch.where(mmok, modmove_fact * ex_m,
                                              torch.zeros_like(ex_m)))
-        grad[t] = g / den
+        if not bf16:
+            grad[t] = g / den
         mpart = torch.where(move_ok, move + bwd_next, _neg_like(move))
         new = torch.where(ok, torch.logaddexp(stay + bwd, mpart),
                           _neg_like(stay))
@@ -194,11 +237,13 @@ def _check_inputs(what, lp, stay_idx, move_idx, modmove_idx, modmove_fact,
 
 
 def crf_fwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, valid,
-            emit_lattice=True):
-    """CRF forward pass; contract of `crf_fwd_plain`."""
+            emit_lattice=True, score_dtype=torch.float32):
+    """CRF forward pass; contract of `crf_fwd_plain` (score_dtype bf16:
+    the bf16 instance)."""
+    _rounder(score_dtype)
     if lp.device.type == "cpu":
         return crf_fwd_plain(lp, stay_idx, move_idx, modmove_idx,
-                             modmove_fact, valid, emit_lattice)
+                             modmove_fact, valid, emit_lattice, score_dtype)
     T, B, S, L = _check_inputs("crf_fwd", lp, stay_idx, move_idx,
                                modmove_idx, modmove_fact, valid)
     lib = cuda_lib.load("crf", _SIGNATURES)
@@ -206,13 +251,16 @@ def crf_fwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, valid,
     with torch.cuda.device(dev):
         fwd = torch.empty(B, L, device=dev)
         score = torch.empty(B, device=dev)
-        lattice = torch.empty(T, B, L, device=dev) if emit_lattice else None
+        lattice = (torch.empty(T, B, L, device=dev, dtype=score_dtype)
+                   if emit_lattice else None)
         err = lib.tt_crf_fwd(
             cuda_lib.ptr(lp), cuda_lib.ptr(stay_idx), cuda_lib.ptr(move_idx),
             cuda_lib.ptr(modmove_idx), cuda_lib.ptr(modmove_fact),
             cuda_lib.ptr(valid), cuda_lib.ptr(fwd), cuda_lib.ptr(score),
-            cuda_lib.ptr(lattice), T, B, S, L, cuda_lib.stream(dev))
+            cuda_lib.ptr(lattice), T, B, S, L,
+            int(score_dtype == torch.bfloat16), cuda_lib.stream(dev))
         crf_fwd.launches += 1
+        crf_fwd.bf16.launches += score_dtype == torch.bfloat16
     cuda_lib.check(lib, err, "crf_fwd kernel")
     return fwd, score, lattice
 
@@ -227,16 +275,25 @@ def fwd_layout(L):
 
 
 def crf_bwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, lattice,
-            valid, last):
-    """CRF backward pass; contract of `crf_bwd_plain`."""
+            valid, last, score_dtype=torch.float32):
+    """CRF backward pass; contract of `crf_bwd_plain` (score_dtype bf16:
+    the bf16 instance, on a bf16 lattice)."""
+    _rounder(score_dtype)
+    if lattice.dtype != score_dtype:
+        raise ValueError("crf_bwd: a {} lattice for score_dtype {}".format(
+            lattice.dtype, score_dtype))
     if lp.device.type == "cpu":
         return crf_bwd_plain(lp, stay_idx, move_idx, modmove_idx,
-                             modmove_fact, lattice, valid, last)
+                             modmove_fact, lattice, valid, last, score_dtype)
     T, B, S, L = _check_inputs("crf_bwd", lp, stay_idx, move_idx,
                                modmove_idx, modmove_fact, valid)
     _check("crf_bwd", lp.device, (
-        ("lattice", lattice, (T, B, L), torch.float32),
+        ("lattice", lattice, (T, B, L), score_dtype),
         ("last", last, (B,), torch.int32)))
+    if score_dtype == torch.bfloat16 and lattice.data_ptr() % 4:
+        # the kernel copies its rows in pairs of values
+        raise ValueError("crf_bwd: a bf16 lattice must start on a 4-byte "
+                         "boundary")
     lib = cuda_lib.load("crf", _SIGNATURES)
     dev = lp.device
     with torch.cuda.device(dev):
@@ -245,8 +302,10 @@ def crf_bwd(lp, stay_idx, move_idx, modmove_idx, modmove_fact, lattice,
             cuda_lib.ptr(lp), cuda_lib.ptr(stay_idx), cuda_lib.ptr(move_idx),
             cuda_lib.ptr(modmove_idx), cuda_lib.ptr(modmove_fact),
             cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
-            cuda_lib.ptr(grad), T, B, S, L, cuda_lib.stream(dev))
+            cuda_lib.ptr(grad), T, B, S, L,
+            int(score_dtype == torch.bfloat16), cuda_lib.stream(dev))
         crf_bwd.launches += 1
+        crf_bwd.bf16.launches += score_dtype == torch.bfloat16
     cuda_lib.check(lib, err, "crf_bwd kernel")
     return grad
 
@@ -300,14 +359,20 @@ def column_lists(stay_idx, move_idx, modmove_idx, modmove_fact, valid, last,
     return ent, off, choff, torch.tensor(chst + [len(ent)])
 
 
-def bwd_batch(T, B, S, L):
+def bwd_batch(T, B, S, L, score_dtype=torch.float32):
     """The steps a batch of the backward kernel at this shape: the ring of
-    backward vectors whose posteriors it forms at once, off its chain."""
-    return cuda_lib.load("crf", _SIGNATURES).tt_crf_bwd_batch(T, B, S, L)
+    backward vectors whose posteriors it forms at once, off its chain
+    (the bf16 instance stages its bf16 lattice rows in shared memory of
+    their own)."""
+    return cuda_lib.load("crf", _SIGNATURES).tt_crf_bwd_batch(
+        T, B, S, L, int(score_dtype == torch.bfloat16))
 
 
 crf_fwd.launches = 0
 crf_bwd.launches = 0
+# the bf16 instances' launches (also counted in `launches`)
+crf_fwd.bf16 = Launches()
+crf_bwd.bf16 = Launches()
 
 
 # -- kernels 9-10: the recursions on selected score streams -------------------

@@ -15,6 +15,14 @@ Values follow the JAX package's CPU scan: the loss is -score/nblk, zero
 for an empty row; logZ counts the initial logsumexp of the start vector,
 log(nbase), which the forward kernel leaves out and this module adds
 back.
+
+Under TAIYAKI_TPU_BF16_STREAMS=1 (`score_dtype`) the fused route and logZ
+run the bf16 instances of kernels 5-6 and 2-3, as the JAX trainer's
+score streams do on a TPU (taiyaki_tpu/ops/flipflop.py
+`_score_stream_dtype`): scores rounded to bf16, bf16 lattices, bf16
+posteriors; losses, logZ and gradients f32.  TAIYAKI_TPU_F32_SCORES=1
+keeps them f32.  The streams route keeps f32 streams under the switch
+(ROADMAP.md Queue 1 item 7.3b).
 """
 
 import math
@@ -26,6 +34,25 @@ import torch
 from taiyaki_tpu_torch import flipflopfings
 from taiyaki_tpu_torch.ops import crf
 from taiyaki_tpu_torch.ops.logz import logz_fwd, logz_posteriors
+from taiyaki_tpu_torch.ops.rnn import BF16_SWITCH
+
+
+def score_dtype():
+    """The dtype of the CRF's selected scores and lattice and of logZ's
+    scores, lattice and posteriors: bf16 under TAIYAKI_TPU_BF16_STREAMS=1
+    unless TAIYAKI_TPU_F32_SCORES=1, else f32; the counterpart of
+    taiyaki_tpu/ops/flipflop.py `_score_stream_dtype`, read once a
+    forward call."""
+    if os.environ.get(BF16_SWITCH) != "1" \
+            or os.environ.get("TAIYAKI_TPU_F32_SCORES") == "1":
+        return torch.float32
+    return torch.bfloat16
+
+
+def _dtype_kwargs(name, dtype):
+    """A kernel wrapper's dtype argument in bf16 (none in f32: the call is
+    the f32 one as it was)."""
+    return {} if dtype == torch.float32 else {name: dtype}
 
 
 def make_seq_indices(seqs, nbase):
@@ -120,7 +147,8 @@ class _CrfLossCore(torch.autograd.Function):
     -posterior/nblk, zeroed for rows with seqlens == 0.  modmove_idx and
     modmove_fact are None for a canonical model.  The route (fused
     kernels 5-6 or the streams and kernels 9-10) is chosen once per call
-    by `use_score_streams`."""
+    by `use_score_streams`, and the fused route's instance (f32 or bf16)
+    by `score_dtype`."""
 
     @staticmethod
     def forward(ctx, lp, stay_idx, move_idx, modmove_idx, modmove_fact,
@@ -132,6 +160,7 @@ class _CrfLossCore(torch.autograd.Function):
         sidx, midx, mmidx, mfact, valid, last = idx
         grad = ctx.needs_input_grad[0]
         ctx.streams = use_score_streams(S, sidx.shape[1])
+        ctx.dtype = torch.float32 if ctx.streams else score_dtype()
         if ctx.streams:
             mod = (None, None) if modmove_idx is None else (mmidx, mfact)
             stay_all, move_all = _select_streams(lp, sidx, midx, *mod)
@@ -139,8 +168,9 @@ class _CrfLossCore(torch.autograd.Function):
                 stay_all, move_all, valid, emit_lattice=grad)
             saved = (stay_all, move_all) if grad else (None, None)
         else:
-            fwd, score, lattice = crf.crf_fwd(lp, sidx, midx, mmidx, mfact,
-                                              valid, emit_lattice=grad)
+            fwd, score, lattice = crf.crf_fwd(
+                lp, sidx, midx, mmidx, mfact, valid, emit_lattice=grad,
+                **_dtype_kwargs("score_dtype", ctx.dtype))
             saved = (lp, None)
         score = score + fwd.gather(1, last.long()[:, None])[:, 0]
         ctx.lp_shape = lp.shape
@@ -158,7 +188,8 @@ class _CrfLossCore(torch.autograd.Function):
                                         ctx.lp_shape[2])
         else:
             post = crf.crf_bwd(first, sidx, midx, mmidx, mfact, lattice,
-                               valid, last)
+                               valid, last,
+                               **_dtype_kwargs("score_dtype", ctx.dtype))
         gm = torch.where(seqlens > 0, g, torch.zeros_like(g))
         return ((-post / ctx.lp_shape[0]) * gm[None, :, None], None, None,
                 None, None, None)
@@ -235,27 +266,37 @@ def cat_mod_flipflop_loss(logprob, seqs, seqlens, mod_cats, can_mods_offsets,
 
 class _LogZ(torch.autograd.Function):
     """logZ [B] of scores [T, B, S]; its gradient is the posterior over
-    the transitions times the incoming gradient."""
+    the transitions times the incoming gradient.  In bf16 (`score_dtype`)
+    the scores are cast to bf16 once, and that copy is what the kernels
+    read and what is saved; the bf16 posteriors are widened to f32 before
+    the product with g, as taiyaki_tpu/ops/flipflop.py `_logz_pallas_bwd`
+    does."""
 
     @staticmethod
     def forward(ctx, scores):
         nbase = flipflopfings.nbase_flipflop(scores.shape[2])
+        dtype = score_dtype()
+        scores = scores.to(dtype)
         _, logz, lattice = logz_fwd(scores,
-                                    emit_lattice=ctx.needs_input_grad[0])
+                                    emit_lattice=ctx.needs_input_grad[0],
+                                    **_dtype_kwargs("lattice_dtype", dtype))
         ctx.save_for_backward(scores, lattice)
         return logz + math.log(nbase)
 
     @staticmethod
     def backward(ctx, g):
         scores, lattice = ctx.saved_tensors
-        return logz_posteriors(scores, lattice) * g[None, :, None]
+        post = logz_posteriors(scores, lattice,
+                               **_dtype_kwargs("out_dtype", scores.dtype))
+        return post.float() * g[None, :, None]
 
 
 def flipflop_logz(scores):
     """Log partition function of the flip-flop transition lattice.
 
     Args:
-        scores: [nblk, batch, nstate] f32 transition weights.
+        scores: [nblk, batch, nstate] f32 transition weights (bf16 in the
+            kernels under `score_dtype`).
 
     Returns:
         [batch] f32 log partition values.

@@ -25,6 +25,19 @@ against the twins by the CPU tests; nothing on the main path calls them.
 The kernels take any contiguous f32 view (4-byte loads where one is not
 16-byte aligned).
 
+Each kernel has a bf16 instance, the JAX trainer's mixed precision
+(ops/flipflop.py runs it under TAIYAKI_TPU_BF16_STREAMS=1): bf16 scores,
+a bf16 lattice and bf16 posteriors, with f32 arithmetic, carries and
+logZ.  The twins round where the TPU kernels round: the forward stores
+each lattice row as bf16 from its f32 vector and goes on from the f32
+vector (pallas_logz.py:100-140); the posteriors are formed in f32 from
+the bf16 lattice widened and stored as bf16 (pallas_logz.py:207-248).
+The posterior kernels rerun each segment from its end vector but read
+the bf16 lattice row at every step, as the TPU kernel does, so they
+round at the same points; the segments change only the f32 order of the
+backward vector's sums.  Scores, lattice and posteriors of one call share
+one dtype.
+
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
 """
@@ -35,14 +48,15 @@ import torch
 
 from taiyaki_tpu_torch import flipflopfings
 from taiyaki_tpu_torch.ops import cuda_lib
+from taiyaki_tpu_torch.ops.rnn_plan import Launches
 
 MAX_NBASE = 8   # kernels are instantiated for nbase 1..8 (csrc/logz.cu)
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_logz_fwd": [_P] * 5 + [_I] * 3 + [_P],
+_SIGNATURES = {"tt_logz_fwd": [_P] * 5 + [_I] * 4 + [_P],
                "tt_logz_fwd_segment": [_I] * 3,
                "tt_logz_fwd_kernels": [_I] * 3,
                "tt_logz_fwd_scratch": [_I] * 3,
-               "tt_logz_posteriors": [_P] * 3 + [_I] * 3 + [_P],
+               "tt_logz_posteriors": [_P] * 3 + [_I] * 4 + [_P],
                "tt_logz_post_segment": [_I] * 3,
                "tt_logz_post_kernels": [_I] * 3}
 
@@ -57,19 +71,23 @@ def _lattice_maps(nbase, device):
     return src, dst
 
 
-def logz_fwd_plain(scores, nbase, emit_lattice=True):
+def logz_fwd_plain(scores, nbase, emit_lattice=True, lattice_dtype=None):
     """Plain forward pass.
 
     Args:
-        scores: [T, B, S] f32 transition scores.
+        scores: [T, B, S] f32 or bf16 transition scores.
         nbase: number of canonical bases (S = 2*nbase*(nbase+1)).
         emit_lattice: also return the renormalised forward vector before
             every step.
+        lattice_dtype: the lattice's dtype (None: the scores'); a bf16
+            lattice is each f32 vector rounded.
 
     Returns:
-        (fwd_final [B, 2nb], logz [B] without the initial log(nbase) term,
-         lattice [T, B, 2nb] or None).
+        (fwd_final [B, 2nb] f32, logz [B] f32 without the initial
+         log(nbase) term, lattice [T, B, 2nb] or None).
     """
+    lattice_dtype = lattice_dtype or scores.dtype
+    scores = scores.float()
     T, B, _ = scores.shape
     nff = 2 * nbase
     src, _ = _lattice_maps(nbase, scores.device)
@@ -77,7 +95,8 @@ def logz_fwd_plain(scores, nbase, emit_lattice=True):
         torch.full((B, nbase), -math.log(nbase), device=scores.device),
         torch.full((B, nbase), -math.inf, device=scores.device)], dim=1)
     logz = scores.new_zeros(B)
-    lattice = scores.new_empty(T, B, nff) if emit_lattice else None
+    lattice = (scores.new_empty(T, B, nff, dtype=lattice_dtype)
+               if emit_lattice else None)
     for t in range(T):
         if lattice is not None:
             lattice[t] = fwd
@@ -110,7 +129,8 @@ def _renorm(new, factor):
                        torch.full_like(new, -math.inf))
 
 
-def logz_fwd_segmented(scores, nbase, segment, emit_lattice=True):
+def logz_fwd_segmented(scores, nbase, segment, emit_lattice=True,
+                       lattice_dtype=None):
     """Plain mirror of the forward kernels' segmented arithmetic
     (csrc/logz.cu): segments of `segment` steps, (a) the transfer of every
     segment but the last, its NFF rows run from the unit vectors and
@@ -119,6 +139,8 @@ def logz_fwd_segmented(scores, nbase, segment, emit_lattice=True):
     0, (c) each segment rerun from it, its lattice rows and the sum of its
     factors; logZ the segments' sums added in segment order.  Contract of
     `logz_fwd_plain`."""
+    lattice_dtype = lattice_dtype or scores.dtype
+    scores = scores.float()
     T, B, _ = scores.shape
     dev = scores.device
     nff = 2 * nbase
@@ -146,14 +168,15 @@ def logz_fwd_segmented(scores, nbase, segment, emit_lattice=True):
     # (c) every segment rerun from its start vector
     v = torch.stack(starts, dim=1)
     sums = scores.new_zeros(B, nseg)
-    lattice = scores.new_empty(T, B, nff) if emit_lattice else None
+    lattice = (scores.new_empty(T, B, nff, dtype=lattice_dtype)
+               if emit_lattice else None)
     for k in range(K):
         t = torch.arange(nseg, device=dev) * K + k
         step = t < T
         if not step.any():
             break
         if lattice is not None:
-            lattice[t[step]] = v[:, step].transpose(0, 1)
+            lattice[t[step]] = v[:, step].transpose(0, 1).to(lattice.dtype)
         sc = scores[t.clamp(max=T - 1)].transpose(0, 1)
         new = _fwd_step(v, sc, nbase)
         f = torch.logsumexp(new, dim=2, keepdim=True)
@@ -165,18 +188,22 @@ def logz_fwd_segmented(scores, nbase, segment, emit_lattice=True):
     return v[:, -1], logz, lattice
 
 
-def logz_posteriors_plain(scores, lattice, nbase):
+def logz_posteriors_plain(scores, lattice, nbase, out_dtype=None):
     """Plain reverse pass: per-step posterior over the S transitions
-    (= d logZ / d scores) from the forward lattice.
+    (= d logZ / d scores) from the forward lattice, formed in f32 from the
+    scores and lattice widened.
 
     Returns:
-        post [T, B, S] f32; all-zero at steps of a row with no path.
+        post [T, B, S] of out_dtype (None: the scores'; bf16 each f32
+        posterior rounded); all-zero at steps of a row with no path.
     """
+    out_dtype = out_dtype or scores.dtype
+    scores, lattice = scores.float(), lattice.float()
     T, B, S = scores.shape
     nff = 2 * nbase
     src, dst = _lattice_maps(nbase, scores.device)
     bwd = torch.full((B, nff), -math.log(nff), device=scores.device)
-    post = scores.new_empty(T, B, S)
+    post = scores.new_empty(T, B, S, dtype=out_dtype)
     for t in range(T - 1, -1, -1):
         out_terms = scores[t] + bwd[:, dst]
         terms = lattice[t][:, src] + out_terms
@@ -191,7 +218,8 @@ def logz_posteriors_plain(scores, lattice, nbase):
     return post
 
 
-def logz_posteriors_segmented(scores, lattice, nbase, segment):
+def logz_posteriors_segmented(scores, lattice, nbase, segment,
+                              out_dtype=None):
     """Plain mirror of the posterior kernels' segmented arithmetic
     (csrc/logz.cu): segments of `segment` steps (at least 2), (a) each
     segment's transfer but the first's, its NFF columns run from the unit
@@ -200,6 +228,8 @@ def logz_posteriors_segmented(scores, lattice, nbase, segment):
     rerun from it, a step's posteriors e_j exp(lattice[s] + m_s - M) /
     sum_s exp(lattice[s] + new[s] - M) from the recursion's own terms.
     Contract of `logz_posteriors_plain`."""
+    out_dtype = out_dtype or scores.dtype
+    scores, lattice = scores.float(), lattice.float()
     T, B, S = scores.shape
     dev = scores.device
     nff = 2 * nbase
@@ -231,7 +261,7 @@ def logz_posteriors_segmented(scores, lattice, nbase, segment):
         ends[g - 1] = v
     # (c) every segment rerun from its end vector
     v = torch.stack(ends, dim=1)
-    post = scores.new_zeros(T, B, S)
+    post = scores.new_zeros(T, B, S, dtype=out_dtype)
     for k in range(K):
         t = (g_all + 1) * K - 1 - k
         step = t < T
@@ -248,7 +278,7 @@ def logz_posteriors_segmented(scores, lattice, nbase, segment):
         den = torch.exp(fw + nw - shift).sum(dim=2, keepdim=True)
         r = torch.where(ok, torch.exp(fw + mx - shift) / den, 0.0)
         p = (e * r[:, :, None]).reshape(B, nseg, S)
-        post[t[step]] = p[:, step].transpose(0, 1)
+        post[t[step]] = p[:, step].transpose(0, 1).to(post.dtype)
         f = nw.amax(dim=2, keepdim=True)
         nv = torch.where(f > -math.inf, nw - f, neg)
         v = torch.where(step[None, :, None], nv, v)
@@ -261,64 +291,93 @@ def _check_nbase(nbase, what):
             what, nbase, MAX_NBASE))
 
 
-def _check(name, t, shape, device, what):
-    if t.device != device or t.dtype != torch.float32 \
+def _check(name, t, shape, device, what, dtype=torch.float32):
+    if t.device != device or t.dtype != dtype \
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
-            "{}: {} must be a contiguous float32 tensor of shape {} on {} "
-            "(got {} {} {})".format(what, name, tuple(shape), device,
+            "{}: {} must be a contiguous {} tensor of shape {} on {} "
+            "(got {} {} {})".format(what, name, dtype, tuple(shape), device,
                                     t.dtype, tuple(t.shape), t.device))
 
 
-def logz_fwd(scores, emit_lattice=True):
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_dtypes(what, dtype, *others):
+    """One dtype for a call's scores, lattice and posteriors: the f32
+    kernels' or the bf16 instance's."""
+    if dtype not in DTYPES or any(o != dtype for o in others):
+        raise ValueError(
+            "{}: scores, lattice and posteriors must share one dtype of {} "
+            "(got {})".format(what, DTYPES, (dtype,) + others))
+
+
+def logz_fwd(scores, emit_lattice=True, lattice_dtype=None):
     """Forward pass of the flip-flop partition function; contract of
-    `logz_fwd_plain`, with nbase inferred from S."""
+    `logz_fwd_plain`, with nbase inferred from S.  The lattice's dtype is
+    the scores' (f32, or bf16: the bf16 instance)."""
     nbase = flipflopfings.nbase_flipflop(scores.shape[2])
+    lattice_dtype = lattice_dtype or scores.dtype
+    _check_dtypes("logz_fwd", scores.dtype, lattice_dtype)
     if scores.device.type == "cpu":
-        return logz_fwd_plain(scores, nbase, emit_lattice)
+        return logz_fwd_plain(scores, nbase, emit_lattice, lattice_dtype)
     cuda_lib.check_cuda(scores, "logz_fwd")
     T, B, S = scores.shape
     _check_nbase(nbase, "logz_fwd")
-    _check("scores", scores, (T, B, S), scores.device, "logz_fwd")
+    _check("scores", scores, (T, B, S), scores.device, "logz_fwd",
+           scores.dtype)
     nff = 2 * nbase
     lib = cuda_lib.load("logz", _SIGNATURES)
     dev = scores.device
     with torch.cuda.device(dev):
         fwd = torch.empty(B, nff, device=dev)
         logz = torch.empty(B, device=dev)
-        lattice = torch.empty(T, B, nff, device=dev) if emit_lattice else None
+        lattice = (torch.empty(T, B, nff, device=dev, dtype=lattice_dtype)
+                   if emit_lattice else None)
         n = lib.tt_logz_fwd_scratch(T, B, nbase)
         scratch = torch.empty(n, device=dev) if n else None
         err = lib.tt_logz_fwd(
             cuda_lib.ptr(scores), cuda_lib.ptr(fwd), cuda_lib.ptr(logz),
             cuda_lib.ptr(lattice), cuda_lib.ptr(scratch), T, B, nbase,
-            cuda_lib.stream(dev))
+            int(scores.dtype == torch.bfloat16), cuda_lib.stream(dev))
         if B:
-            logz_fwd.launches += forward_kernels(T, B, nbase)
+            n = forward_kernels(T, B, nbase)
+            logz_fwd.launches += n
+            if scores.dtype == torch.bfloat16:
+                logz_fwd.bf16.launches += n
     cuda_lib.check(lib, err, "logz_fwd kernel")
     return fwd, logz, lattice
 
 
-def logz_posteriors(scores, lattice):
+def logz_posteriors(scores, lattice, out_dtype=None):
     """Posterior transition probabilities from scores and the forward
-    lattice of `logz_fwd`; contract of `logz_posteriors_plain`."""
+    lattice of `logz_fwd`; contract of `logz_posteriors_plain`.  Scores,
+    lattice and posteriors share one dtype (f32, or bf16: the bf16
+    instance)."""
     nbase = flipflopfings.nbase_flipflop(scores.shape[2])
+    out_dtype = out_dtype or scores.dtype
+    _check_dtypes("logz_posteriors", scores.dtype, lattice.dtype, out_dtype)
     if scores.device.type == "cpu":
-        return logz_posteriors_plain(scores, lattice, nbase)
+        return logz_posteriors_plain(scores, lattice, nbase, out_dtype)
     cuda_lib.check_cuda(scores, "logz_posteriors")
     T, B, S = scores.shape
     _check_nbase(nbase, "logz_posteriors")
-    _check("scores", scores, (T, B, S), scores.device, "logz_posteriors")
+    _check("scores", scores, (T, B, S), scores.device, "logz_posteriors",
+           out_dtype)
     _check("lattice", lattice, (T, B, 2 * nbase), scores.device,
-           "logz_posteriors")
+           "logz_posteriors", out_dtype)
     lib = cuda_lib.load("logz", _SIGNATURES)
     with torch.cuda.device(scores.device):
-        post = torch.empty(T, B, S, device=scores.device)
+        post = torch.empty(T, B, S, device=scores.device, dtype=out_dtype)
         err = lib.tt_logz_posteriors(
             cuda_lib.ptr(scores), cuda_lib.ptr(lattice), cuda_lib.ptr(post),
-            T, B, nbase, cuda_lib.stream(scores.device))
+            T, B, nbase, int(out_dtype == torch.bfloat16),
+            cuda_lib.stream(scores.device))
         if T and B:
-            logz_posteriors.launches += posterior_kernels(T, B, nbase)
+            n = posterior_kernels(T, B, nbase)
+            logz_posteriors.launches += n
+            if out_dtype == torch.bfloat16:
+                logz_posteriors.bf16.launches += n
     cuda_lib.check(lib, err, "logz_posteriors kernels")
     return post
 
@@ -351,3 +410,6 @@ def posterior_kernels(T, B, nbase):
 
 logz_fwd.launches = 0
 logz_posteriors.launches = 0
+# the bf16 instances' launches (also counted in `launches`)
+logz_fwd.bf16 = Launches()
+logz_posteriors.bf16 = Launches()

@@ -64,10 +64,26 @@ def squiggle_match_cost(params, signals, siglens, back_prob):
 
     Returns:
         [batch] f32 costs (-forward score) on params' device.
+
+    The recursion runs in f64 (the emissions, penalties and states; the
+    costs and the gradient into f32 params are rounded to f32 at the
+    end).  In f32 it was too short: over up to 4352 samples the states
+    reach thousands in log space, where an f32 ulp is ~5e-4, and every
+    logaddexp's weight exp(a - result) carries that rounding into the
+    gradient (1.2e-4 of its largest against the recursion in f64 at 2000
+    samples, tests/test_torch_squiggle.py).  Shifting each sample's
+    states by their maximum keeps them near 0, but not the states far
+    below it that later carry the path, whose rounding still walks over
+    the samples; each device rounds exp and log1p its own way, so the
+    card and the CPU drift apart by as much (chip_smoke.py's phase 13a
+    compares them).  The loop is bound by its launches, not its
+    arithmetic: f64 costs the card little time and doubles what autograd
+    keeps.
     """
     dev = params.device
-    params = params.float()
-    signals = torch.as_tensor(signals, dtype=torch.float32, device=dev)
+    params = params.double()
+    signals = torch.as_tensor(signals, dtype=torch.float32,
+                              device=dev).double()
     siglens = torch.as_tensor(siglens, device=dev)
     npos, nbatch, _ = params.shape
     nsample = signals.shape[0]
@@ -100,7 +116,8 @@ def squiggle_match_cost(params, signals, siglens, back_prob):
     move_pen = move_pen[:, 1:]
 
     # state [batch, 2*npos] = [positions | backward states]; at position 0
-    fwd = torch.full((nbatch, 2 * npos), -_LARGE, device=dev)
+    fwd = torch.full((nbatch, 2 * npos), -_LARGE, dtype=torch.float64,
+                     device=dev)
     fwd[:, 0] = 0.0
     for t in range(nsample):
         stayed = fwd + stay
@@ -117,7 +134,7 @@ def squiggle_match_cost(params, signals, siglens, back_prob):
                         dim=1) + logscore[t]
         # finished signals keep their state
         fwd = torch.where(active[t], new, fwd)
-    return -fwd[:, npos - 1]
+    return -fwd[:, npos - 1].float()
 
 
 squiggle_match_loss = squiggle_match_cost

@@ -26,9 +26,9 @@ the same seeded numpy inputs:
 (e) one training step of a size-16 mLstm_flipflop (B=8, chunks of 500
     samples) under the switch against the JAX package's: the loss within
     5e-3 relative and each gradient within 2e-2 of its largest, the JAX
-    route's own distance from its f32 step beside them (the JAX CRF
-    rounds its scores to bf16 under its mixed precision, the port's CRF
-    does not);
+    route's own distance from its f32 step beside them (both CRFs and
+    logZs round their scores to bf16 under the mixed precision:
+    tests/test_torch_bf16_scores.py);
 (f) `lstm_scan` and `gru_scan` raise under the switch, naming it, while
     the GRU layer under grad and with a bf16 act stream run (their bf16
     instances: tests/test_torch_bf16_gru.py); a bf16 tensor given to a

@@ -2046,3 +2046,166 @@ def test_gru_layers_bf16_streams_on_card(dev, env, reverse, xdt,
     for g, w in zip(card[1:], cpu[1:]):
         assert g.dtype == w.dtype
         assert _rel_err(g.float(), w.float()) < 2.0 ** -8
+
+
+# -- the bf16 instances of rows 2, 3, 5 and 6 (the score streams) -------------
+#
+# bf16 scores (logZ) or bf16-rounded selected scores (the CRF), bf16
+# lattices and bf16 posteriors, against their twins on the card, which
+# round at the same points: logZ and the CRF score at the f32 rows'
+# tolerances; a lattice or posterior row equal as bf16 but for at most 1%
+# of its elements one bf16 step apart, or the f32 rows' atol (1e-4, 1e-5)
+# where a step is smaller; each backward on the twin's lattice so that
+# both read the same one.  The CRF's d lp sums bf16 posteriors: within
+# its f32 row's atol, but for at most 1% of its entries within one bf16
+# step of a posterior (2^-8, times the largest mod weight) where the
+# rounding of one falls the other way.
+
+F32 = torch.float32
+SCORE_LOGZ_SHAPES = [(37, 13, 4), (800, 256, 4), (1, 5, 4), (17, 3, 4),
+                     (41, 3, 1), (50, 5, 3), (33, 3, 8), (4000, 64, 4)]
+# (T, B, L, mod columns, d lp atol): odd L and an odd T B L (the
+# lattice's last value copied alone), cat_mod, the training shape, the
+# forward's bands past 64, 2048 and 4096 positions, the widest fused
+# lattice of the mGru chunk range
+SCORE_CRF_SHAPES = [(37, 5, 13, 0, 1e-5), (50, 7, 37, 0, 1e-5),
+                    (60, 5, 45, 6, 1e-5), (800, 256, 512, 0, 1e-5),
+                    (40, 9, 65, 0, 1e-5), (300, 4, 2049, 0, 1e-5),
+                    (300, 3, 4097, 3, 1e-5), (4000, 6, 3712, 0, 3e-4)]
+
+
+def _bf16_states_close(got, want, atol):
+    """`_bf16_close` where equal infinities count as equal."""
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    g, w = got.float(), want.float()
+    step = torch.ldexp(torch.ones_like(w), torch.frexp(
+        torch.maximum(g.abs(), w.abs()).nan_to_num(posinf=0.0))[1] - 8)
+    diff = (g - w).abs().masked_fill(g == w, 0.0)
+    assert bool((diff <= step.clamp(min=atol)).all()), diff.max().item()
+    assert (diff > 0).float().mean().item() <= BF16_SHARE
+
+
+@pytest.mark.parametrize("shape", SCORE_LOGZ_SHAPES)
+def test_logz_bf16_matches_twin(dev, shape):
+    T, B, nbase = shape
+    s = _scores(T, B, nbase).to(dev).to(BF16)
+    f0, z0, l0 = logz.logz_fwd_plain(s, nbase)
+    p0 = logz.logz_posteriors_plain(s, l0, nbase)
+    n = (logz.logz_fwd.bf16.launches, logz.logz_posteriors.bf16.launches)
+    f1, z1, l1 = logz.logz_fwd(s)
+    p1 = logz.logz_posteriors(s, l0)
+    p2 = logz.logz_posteriors(s, l1)
+    _, z3, none = logz.logz_fwd(s, emit_lattice=False)
+    torch.cuda.synchronize()
+    assert (logz.logz_fwd.bf16.launches - n[0],
+            logz.logz_posteriors.bf16.launches - n[1]) == (
+        2 * logz.forward_kernels(T, B, nbase),
+        2 * logz.posterior_kernels(T, B, nbase))
+    assert l1.dtype == p1.dtype == BF16 and z1.dtype == f1.dtype == F32
+    assert none is None and torch.equal(z1, z3)
+    torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(f1, f0, rtol=0, atol=1e-4)
+    _bf16_states_close(l1, l0, 1e-4)
+    _bf16_states_close(p1, p0, 1e-5)
+    assert bool(torch.isfinite(p2.float()).all())
+    assert torch.equal(p1, logz.logz_posteriors(s, l0))
+
+
+def test_logz_bf16_refuses_mixed_dtypes(dev):
+    s = _scores(20, 4, 4).to(dev)
+    _, _, lat = logz.logz_fwd(s.to(BF16))
+    with pytest.raises(ValueError, match="one dtype"):
+        logz.logz_fwd(s, lattice_dtype=BF16)
+    with pytest.raises(ValueError, match="one dtype"):
+        logz.logz_posteriors(s, lat)
+    # a bf16 view at an odd offset runs (2-byte loads), as the aligned call
+    off = torch.empty(s.numel() + 1, device=dev, dtype=BF16)[1:].view(
+        s.shape)
+    off.copy_(s)
+    assert torch.equal(logz.logz_posteriors(off, lat),
+                       logz.logz_posteriors(s.to(BF16), lat))
+
+
+@pytest.mark.parametrize("shape", SCORE_CRF_SHAPES)
+def test_crf_bf16_matches_twin(dev, shape):
+    T, B, L, nmod, g_tol = shape
+    lp, sidx, midx, mmidx, mfact, valid, last = _crf_inputs(
+        T, B, L, nmod=nmod, dev=dev)
+    idx = (sidx, midx, mmidx, mfact)
+    f0, s0, lat0 = crf.crf_fwd_plain(lp, *idx, valid, score_dtype=BF16)
+    g0 = crf.crf_bwd_plain(lp, *idx, lat0, valid, last, score_dtype=BF16)
+    n = (crf.crf_fwd.bf16.launches, crf.crf_bwd.bf16.launches)
+    f1, s1, lat1 = crf.crf_fwd(lp, *idx, valid, score_dtype=BF16)
+    g1 = crf.crf_bwd(lp, *idx, lat0, valid, last, score_dtype=BF16)
+    g2 = crf.crf_bwd(lp, *idx, lat0, valid, last, score_dtype=BF16)
+    g3 = crf.crf_bwd(lp, *idx, lat1, valid, last, score_dtype=BF16)
+    _, s4, none = crf.crf_fwd(lp, *idx, valid, emit_lattice=False,
+                              score_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (crf.crf_fwd.bf16.launches - n[0],
+            crf.crf_bwd.bf16.launches - n[1]) == (2, 3)
+    assert lat1.dtype == BF16 and g1.dtype == s1.dtype == F32
+    assert none is None and torch.equal(s1, s4)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(f1, f0, 1e-4)
+    _bf16_states_close(lat1, lat0, 1e-4)
+    weight = max(1.0, mfact.max().item())
+    diff = (g1 - g0).abs()
+    assert diff.max().item() <= 2.0 ** -8 * weight, diff.max().item()
+    assert (diff > g_tol * weight).float().mean().item() <= BF16_SHARE
+    assert torch.equal(g1, g2)
+    assert bool(torch.isfinite(g3).all()) and (g3[:, 1] == 0).all()
+
+
+def test_crf_bf16_refuses_what_it_does_not_take(dev):
+    lp, sidx, midx, mmidx, mfact, valid, last = _crf_inputs(
+        20, 4, 12, dev=dev)
+    idx = (sidx, midx, mmidx, mfact)
+    _, _, lat = crf.crf_fwd(lp, *idx, valid)
+    _, _, lat16 = crf.crf_fwd(lp, *idx, valid, score_dtype=BF16)
+    with pytest.raises(ValueError, match="lattice"):
+        crf.crf_bwd(lp, *idx, lat, valid, last, score_dtype=BF16)
+    with pytest.raises(ValueError, match="lattice"):
+        crf.crf_bwd(lp, *idx, lat16, valid, last)
+    with pytest.raises(ValueError, match="4-byte"):
+        odd = torch.empty(lat16.numel() + 1, device=dev, dtype=BF16)[1:]
+        crf.crf_bwd(lp, *idx, odd.view(lat16.shape), valid, last,
+                    score_dtype=BF16)
+    with pytest.raises(ValueError, match="float32"):
+        crf.crf_fwd(lp.to(BF16), *idx, valid, score_dtype=BF16)
+
+
+def test_loss_under_the_switch_on_card(dev, monkeypatch):
+    """The training loss's CRF and logZ / T through autograd under the
+    switch: the card against the CPU, bf16 instances launched, the
+    gradients within a bf16 step of a posterior of each, over T."""
+    from taiyaki_tpu_torch.ops import flipflop
+    monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
+    monkeypatch.delenv("TAIYAKI_TPU_F32_SCORES", raising=False)
+    monkeypatch.delenv("TAIYAKI_TPU_NO_SCORE_FUSE", raising=False)
+    rng = np.random.default_rng(9)
+    T, Bn, L = 200, 8, 60
+    lp = rng.normal(size=(T, Bn, 40)).astype(np.float32)
+    seqlens = rng.integers(20, L + 1, size=Bn).astype(np.int32)
+    from taiyaki_tpu_torch import flipflopfings
+    seqs = np.zeros((Bn, L), np.int32)
+    for i in range(Bn):
+        seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(
+            rng.integers(0, 4, size=seqlens[i]))
+    out = {}
+    for device in ("cpu", dev):
+        x = torch.from_numpy(lp).to(device).requires_grad_()
+        n = (crf.crf_fwd.bf16.launches, logz.logz_fwd.bf16.launches)
+        loss = (flipflop.crf_flipflop_loss(
+            x, torch.from_numpy(seqs).to(device),
+            torch.from_numpy(seqlens).to(device)).sum()
+            + flipflop.flipflop_logz(x).sum() / T)
+        (g,) = torch.autograd.grad(loss, x)
+        out[str(device)] = (loss.item(), g.cpu())
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert crf.crf_fwd.bf16.launches == n[0] + 1
+            assert logz.logz_fwd.bf16.launches > n[1]
+    (lc, gc), (ld, gd) = out["cpu"], out[str(dev)]
+    assert abs(ld - lc) <= 1e-5 * abs(lc)
+    assert (gd - gc).abs().max().item() <= 2 * 2.0 ** -8 / T

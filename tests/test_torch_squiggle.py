@@ -131,3 +131,50 @@ def test_viterbi_rejects_empty_inputs():
     with pytest.raises(ValueError, match="params"):
         tsq.squiggle_match_viterbi_path(np.zeros((0, 3), np.float32),
                                         np.zeros(5, np.float32), 0.1)
+
+
+def _cost_f64(params, signals, siglens, back_prob):
+    """The squiggle match recursion in f64, written out here: the same
+    states and transitions as ops/squiggle.py."""
+    npos, nbatch, _ = params.shape
+    sig = torch.as_tensor(signals, dtype=torch.float64)
+    loc, logscale, rate = (params[:, :, i].t() for i in range(3))
+    log_no_back = np.log1p(-back_prob)
+    move = log_no_back + torch.nn.functional.logsigmoid(rate)[:, 1:]
+    stay = torch.cat([log_no_back + torch.nn.functional.logsigmoid(-rate),
+                      torch.full_like(rate, np.log(0.5))], dim=1)
+    emit = (-torch.abs(sig[:, :, None] - loc) / torch.exp(logscale)
+            - logscale - np.log(2.0))
+    emit = torch.cat([emit, emit], dim=2)
+    fwd = torch.full((nbatch, 2 * npos), -1e300, dtype=torch.float64)
+    fwd[:, 0] = 0.0
+    for t in range(sig.shape[0]):
+        s = fwd + stay
+        pos = torch.logaddexp(torch.logaddexp(s[:, 1:npos],
+                                              fwd[:, :npos - 1] + move),
+                              s[:, npos:-1])
+        back = torch.logaddexp(s[:, npos:-1],
+                               fwd[:, 1:npos] + np.log(back_prob))
+        new = torch.cat([s[:, :1], pos, back, s[:, -1:]], dim=1) + emit[t]
+        fwd = torch.where(torch.as_tensor(t < siglens)[:, None], new, fwd)
+    return -fwd[:, npos - 1]
+
+
+def test_long_signal_gradient_against_f64():
+    """2000 samples, where the forward reaches -3000 in log space: the
+    port's f32 cost and gradient against the recursion in f64.  With the
+    recursion in f32 the gradient was 1.2e-4 of its largest away (and the
+    cost 6e-6)."""
+    rng = np.random.default_rng(0)
+    npos, nsample = 300, 2000
+    params = rng.normal(size=(npos, 2, 3)).astype(np.float32)
+    params[:, :, 1] = -np.abs(params[:, :, 1]) * 0.5
+    signals = rng.normal(size=(nsample, 2)).astype(np.float32)
+    siglens = np.array([nsample, nsample - 7], dtype=np.int32)
+    cost, grad = _port_cost_grad(params, signals, siglens, 0.05)
+    p64 = torch.tensor(params, dtype=torch.float64, requires_grad=True)
+    cost64 = _cost_f64(p64, signals, siglens, 0.05)
+    (grad64,) = torch.autograd.grad(cost64.sum(), p64)
+    cost64, grad64 = cost64.detach().numpy(), grad64.numpy()
+    np.testing.assert_allclose(cost, cost64, rtol=5e-6)
+    assert np.abs(grad - grad64).max() <= 1e-5 * np.abs(grad64).max()
