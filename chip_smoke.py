@@ -39,8 +39,9 @@ card; run from the root of a checkout:
    repo uses: each backward row is held against its twin and the forced
    L2 instance of its chain (1e-4 relative), timed beside both and
    cuDNN's backward, at the training shapes, at the trainer defaults'
-   shapes (H=D=384: 341 x T=600 and 128 x 1600) and at H=D=96 (T=1000,
-   B=256); at H=512 the LSTM's chain takes the L2 instance and the GRU's
+   batches (H=D=384: 341 x T=150 and 128 x 400, a quarter of their
+   chunks' T) and at H=D=96 (T=250, B=256); at H=512 the LSTM's chain
+   takes the L2 instance and the GRU's
    a cluster of 16, each against its twins, each counted by instance.
 3. mLstm_flipflop 256/5/19, as in the earlier slices:
    a. training path: `taiyaki_tpu_torch.cli.train_flipflop` on the
@@ -271,8 +272,20 @@ card; run from the root of a checkout:
    iterations each; rows 2, 3, 5 and 6 as bf16 launches), then
    `cli.basecall` from the mLstm checkpoint with the switch exported (no
    bf16 CRF or logZ launch).
-19. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows and the 11 bf16 instances'; each with its launches on
+19. The scans' mixed precision (this slice; the same switch): (a) the
+   bf16 instances of rows 14-17 (h f32; c and pre, or gh, bf16; the
+   gradient streams bf16 from a bf16 dh) at phase 7's shapes, gx bf16 and
+   f32 (TAIYAKI_TPU_F32_GATES), and at H=512 (T=200, B=64: the L2
+   instances but the GRU's chain), both directions, against their twins
+   (h 1e-4 relative, bf16 outputs as phase 16a's), counted by instance,
+   each row's ms beside the f32 row's with its bound and cuDNN's; (b)
+   `lstm_scan` and `gru_scan` under the switch through
+   torch.autograd.grad, both directions: every scan launch the bf16
+   instance, d_sW on the atb GEMM's bf16 instance; h, d gates_x and d_sW
+   against the f32 scans within 2e-2 of each one's largest, and the peak
+   memory of each.
+20. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows and the 15 bf16 instances'; each with its launches on
    phase 13's training paths, phase 14's round-trip basecall and phase
    15's paths, `launches_on`), the card line, and the result line
    {"ok": true, "device": {...}}.
@@ -314,7 +327,12 @@ T, B, H, NBASE = 1000, 128, 256, 4
 # production training shape (misc/rnn_roofline.py, misc/crf_fusion_probe.py)
 TT, TB, TL, S = 800, 256, 512, 40
 # the backward rows at the shipped remap model's width: T of that check
+# (and of the GEMM cases at that width)
 BWD96_T = 1000
+# phase 2's backward rows at other shapes (check_bwd_shapes) run T / 4 of
+# the trainer defaults' chunks and of BWD96_T: their plans, checks and
+# tolerances depend on B and H alone, and their twins' time on T
+BWD_T_DIV = 4
 # the lattice width of the mLstm training steps' batch of 256 chunks x
 # 4000 samples (their log lines give it), another kernel 9-10 instance
 TRAIN_L = 640
@@ -1599,17 +1617,17 @@ def _cudnn_bwd_ms(torch, dev, cell, t, b, h, rng):
 
 def check_bwd_shapes(torch, dev, rng):
     """The seven backward rows (kernels 4, 11, 12, 15; 8, 13, 17) at the
-    trainer defaults' shapes (H=D=384, 341 chunks x T=600 and 128 x
-    T=1600) and at the shipped remap model's width (H=D=96, T=1000,
-    B=256), both directions, on the chain plan's (cluster) instance
-    against their twins and the forced L2 instance (1e-4 relative); timed
-    beside the L2 instance and cuDNN's backward of the same cell.  Returns
-    {"B x T, H": {row: numbers}}."""
+    trainer defaults' batches (H=D=384, 341 chunks and 128, T=150 and 400:
+    BWD_T_DIV of their T=600 and 1600) and at the shipped remap model's
+    width (H=D=96, B=256, T=250), both directions, on the chain plan's
+    (cluster) instance against their twins and the forced L2 instance
+    (1e-4 relative); timed beside the L2 instance and cuDNN's backward of
+    the same cell.  Returns {"B x T, H": {row: numbers}}."""
     from taiyaki_tpu_torch import train
     out = {}
-    shapes = [(DMIN // MLSTM[2], train.sub_batch_size_for_chunk(
-        DSUB, DMAX, DMIN), DSIZE), (DMAX // MLSTM[2], DSUB, DSIZE),
-        (BWD96_T, TB, 96)]
+    shapes = [(DMIN // MLSTM[2] // BWD_T_DIV, train.sub_batch_size_for_chunk(
+        DSUB, DMAX, DMIN), DSIZE), (DMAX // MLSTM[2] // BWD_T_DIV, DSUB,
+                                    DSIZE), (BWD96_T // BWD_T_DIV, TB, 96)]
     for t, b, h in shapes:
         key = "{} x {}, H={}".format(b, t, h)
         out[key] = {}
@@ -4625,7 +4643,7 @@ BF16_CASES = (("later layer", "bfloat16", "bfloat16", "bfloat16"),
 BF16_SHARE = 0.01
 # the bf16 instances' rows: (name, its f32 row, the TPU kernel's file and
 # line under taiyaki_tpu/ops/); the LSTM's (phase 16), the GRU's (phase
-# 17), then the CRF's and logZ's (phase 18)
+# 17), the CRF's and logZ's (phase 18), then the scans' (phase 19)
 BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", "pallas_rnn.py:880"),
              ("lstm_bwd_acts[bf16]", "lstm_bwd_acts", "pallas_rnn.py:385"),
              ("lstm_bwd_fusedw[bf16]", "lstm_bwd_fusedw",
@@ -4640,10 +4658,18 @@ BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", "pallas_rnn.py:880"),
              ("logz_posteriors[bf16]", "logz_posteriors",
               "pallas_logz.py:249"),
              ("crf_fwd[bf16]", "crf_fwd", "pallas_crf.py:423"),
-             ("crf_bwd[bf16]", "crf_bwd", "pallas_crf.py:565"))
-# the names of the LSTM's, the GRU's and the score rows' bf16 instances
-LSTM_BF16 = tuple(n for n, _, _ in BF16_ROWS if n.startswith("lstm"))
-GRU_BF16 = tuple(n for n, _, _ in BF16_ROWS if n.startswith("gru"))
+             ("crf_bwd[bf16]", "crf_bwd", "pallas_crf.py:565"),
+             ("lstm_scan_fwd[bf16]", "lstm_scan_fwd", "pallas_rnn.py:141"),
+             ("lstm_scan_bwd[bf16]", "lstm_scan_bwd", "pallas_rnn.py:726"),
+             ("gru_scan_fwd[bf16]", "gru_scan_fwd", "pallas_rnn.py:1082"),
+             ("gru_scan_bwd[bf16]", "gru_scan_bwd", "pallas_rnn.py:1407"))
+# the names of the scans', the LSTM layers', the GRU layers' and the score
+# rows' bf16 instances
+SCAN_BF16 = tuple(n for n, _, _ in BF16_ROWS if "_scan_" in n)
+LSTM_BF16 = tuple(n for n, _, _ in BF16_ROWS
+                  if n.startswith("lstm") and n not in SCAN_BF16)
+GRU_BF16 = tuple(n for n, _, _ in BF16_ROWS
+                 if n.startswith("gru") and n not in SCAN_BF16)
 SCORE_BF16 = tuple(n for n, _, _ in BF16_ROWS
                    if n.startswith(("crf", "logz")))
 # the step under the switch against the f32 step (the CPU tests' terms)
@@ -5653,6 +5679,250 @@ def bf16_score_cli(torch, work, seed, pick, scores, reads):
     return launches
 
 
+def _bf16_scan_bounds(G, t, b, h):
+    """The bounds of the scans' bf16 rows with G gate rows a unit at T=t,
+    B=b, H=h (the JAX scans' streams: gx, the residuals and the gradient
+    streams bf16 at 2 bytes, h and h_prev f32), the recurrent product at
+    the f32 rate: {name: (ms, by)}."""
+    rows = t * b
+    g16, s16, s32 = 2 * rows * G * h, 2 * rows * h, 4 * rows * h
+    w, flops = 4 * G * h * h, 2 * rows * G * h * h
+    cell = "lstm" if G == 4 else "gru"
+    if G == 4:
+        # gx in; h out, c and pre out / dh, pre, c, c_prev in; dpre out
+        fwd, bwd = g16 + s32 + s16 + g16 + w, 3 * s16 + 2 * g16 + w
+    else:
+        # gx in; h, gh out / dh, gx, gh, h_prev in; dgx, dgh out
+        fwd, bwd = g16 + s32 + g16 + w, s16 + 2 * g16 + s32 + w + 2 * g16
+    return {cell + "_scan_fwd[bf16]": bound_ms(fwd, flops),
+            cell + "_scan_bwd[bf16]": bound_ms(bwd, flops)}
+
+
+# phase 19a's stream cases: (name, gx, dh and the stored gradients), the
+# JAX scans' under the switch alone and under TAIYAKI_TPU_F32_GATES=1
+SCAN_CASES = (("default", "bfloat16"), ("F32_GATES", "float32"))
+SCAN512 = (200, 64)                 # T, B of the H=512 (L2) shapes
+
+
+def check_bf16_scan_kernels(torch, dev, rng, f32_rows):
+    """Phase 19a: the bf16 instances of rows 14-17 (the JAX scans' mixed
+    precision: h f32; c and pre, or gh, bf16; dpre, or dgx and dgh, bf16
+    from a bf16 dh) at phase 7's shapes (mLstm T=TT, mGru T=GT, B=TB,
+    H=256) in each case of SCAN_CASES (gx bf16, or f32 as under
+    TAIYAKI_TPU_F32_GATES), and at H=512 (T, B = SCAN512) in the first,
+    both directions, against their twins: f32 outputs (h) within 1e-4
+    relative, bf16 ones as `bf16_err` (atol 1e-4 of the largest).  Each
+    counted by instance: the cluster instances at H=256; at H=512 the
+    forwards and the LSTM's chain the L2 ones, the GRU's chain a cluster.
+    Timed (default case, forward direction) at the training shapes beside
+    the f32 rows (`f32_rows`, phase 2's). Returns the four rows of the
+    kernels line, without their launches."""
+    from taiyaki_tpu_torch.ops import gru, lstm
+    bf = torch.bfloat16
+    rows, case_err = [], {}
+    for cell, t, G, mod in (("lstm", TT, 4, lstm), ("gru", GT, 3, gru)):
+        fwd, fwd_plain, bwd, bwd_plain = (
+            getattr(mod, "{}_scan_{}{}".format(cell, way, k))
+            for way in ("fwd", "bwd") for k in ("", "_plain"))
+        names = (cell + "_scan_fwd[bf16]", cell + "_scan_bwd[bf16]")
+        err, share, ms, plain_ms, h512 = {}, {}, {}, {}, {}
+        for h, tt, b, cases in ((H, t, TB, SCAN_CASES),
+                                (512, SCAN512[0], SCAN512[1],
+                                 SCAN_CASES[:1])):
+            x = _tensor(torch, dev, rng.normal(size=(tt, b, h)))
+            iW = _tensor(torch, dev, rng.normal(size=(G * h, h)) / np.sqrt(h))
+            bias = _tensor(torch, dev, 0.5 * rng.normal(size=G * h))
+            sW = _tensor(torch, dev, rng.normal(size=(G * h, h)) / np.sqrt(h))
+            dh = _tensor(torch, dev, rng.normal(size=(tt, b, h))).to(bf)
+            gx32 = torch.matmul(x, iW.t()) + bias
+            del x, iW, bias
+            plans = [plan_of(cell, h, b, k)[0].instance for k in (0, 1)]
+            check(plans == (["cluster", "cluster"] if h == H else
+                            ["l2", "l2" if cell == "lstm" else "cluster"]),
+                  "{} scans at H={}: plans {}".format(cell, h, plans))
+            before = [dict((i, c.launches) for i, c in
+                           fn.bf16_by_instance.items()) for fn in (fwd, bwd)]
+            for case, gdt in cases:
+                gx = gx32.to(getattr(torch, gdt))
+                worst = case_err.setdefault("{} {} H={}".format(
+                    cell, case, h), [0.0, 0.0])
+                for reverse in (False, True):
+                    want = fwd_plain(gx, sW, reverse, True, bf)
+                    got = fwd(gx, sW, reverse=reverse, residuals=True,
+                              res_dtype=bf)
+                    h_only = fwd(gx, sW, reverse=reverse, res_dtype=bf)
+                    torch.cuda.synchronize()
+                    e = max(rel_err(g, want[0]) for g in (got[0], h_only))
+                    ok, d, sh = e <= 1e-4, e, 0.0
+                    for g, w in zip(got[1:], want[1:]):
+                        dd, ss, okk = bf16_err(torch, g, w, 1e-4)
+                        ok, d, sh = ok and okk, max(d, dd), max(sh, ss)
+                    check(ok, "{} {} H={} reverse={}: h relative err {}, "
+                          "residuals |diff| {} (share {})".format(
+                              names[0], case, h, reverse, e, d, sh))
+                    err[names[0]] = max(err.get(names[0], 0.0), d)
+                    share[names[0]] = max(share.get(names[0], 0.0), sh)
+                    worst[0] = max(worst[0], d)
+                    del got, h_only
+                    if cell == "lstm":
+                        hh, c, pre = want
+                        args = (dh, pre, c, lstm.prev_state(c, reverse), sW)
+                    else:
+                        hh, gh = want
+                        args = (dh, gx, gh, lstm.prev_state(hh, reverse), sW)
+                    gk = bwd(*args, reverse=reverse)
+                    gp = bwd_plain(*args, reverse=reverse)
+                    torch.cuda.synchronize()
+                    gk, gp = ((gk, gp) if isinstance(gk, tuple)
+                              else ((gk,), (gp,)))
+                    for g, w in zip(gk, gp):
+                        scale = w.float().abs().max().item()
+                        dd, ss, okk = bf16_err(torch, g, w, 1e-4 * scale)
+                        check(okk, "{} {} H={} reverse={}: |diff| {} of "
+                              "{} (share {})".format(names[1], case, h,
+                                                     reverse, dd, scale, ss))
+                        err[names[1]] = max(err.get(names[1], 0.0),
+                                            dd / max(scale, 1.0))
+                        share[names[1]] = max(share.get(names[1], 0.0), ss)
+                        worst[1] = max(worst[1], dd / max(scale, 1.0))
+                    del gk, gp
+                    if not reverse and case == "default":
+                        timed = {names[0]: (
+                            lambda: fwd(gx, sW, residuals=True,
+                                        res_dtype=bf),
+                            lambda: fwd_plain(gx, sW, False, True, bf)),
+                            names[1]: ((lambda a=args: bwd(*a)),
+                                       (lambda a=args: bwd_plain(*a)))}
+                        for k, (f, p) in timed.items():
+                            if h == H:
+                                ms[k] = cuda_ms(torch, f, reps=3)
+                                plain_ms[k] = cuda_ms(torch, p, reps=1,
+                                                      warmup=0)
+                            else:
+                                h512[k] = cuda_ms(torch, f, reps=3)
+                    del want, args
+                del gx
+            for fn, name, was, inst in ((fwd, names[0], before[0],
+                                         plans[0]),
+                                        (bwd, names[1], before[1],
+                                         plans[1])):
+                after = {i: c.launches for i, c in
+                         fn.bf16_by_instance.items()}
+                other = "l2" if inst == "cluster" else "cluster"
+                check(after[inst] - was[inst] >= 2 * len(cases)
+                      and after[other] == was[other],
+                      "{} H={}: bf16 launches by instance {} -> {}".format(
+                          name, h, was, after))
+            del gx32, sW, dh
+            torch.cuda.empty_cache()
+        bounds = _bf16_scan_bounds(G, t, TB, H)
+        b512 = _bf16_scan_bounds(G, SCAN512[0], SCAN512[1], 512)
+        for name in names:
+            f32 = f32_rows[name.replace("[bf16]", "")]
+            rows.append(dict(
+                name=name, route="cuda",
+                source="taiyaki_tpu_torch/csrc/{}.cu".format(cell),
+                replaces="taiyaki_tpu/ops/" + dict(
+                    (n, line) for n, _, line in BF16_ROWS)[name],
+                max_abs_err=err[name], bf16_share=share[name], ms=ms[name],
+                plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+                bound_by=bounds[name][1], library_ms=f32["library_ms"],
+                f32_ms=f32["ms"], h512_ms=h512[name],
+                h512_bound_ms=b512[name][0]))
+            say("{} T={} B={} H={} (gx bf16 and f32, both directions; timed "
+                "with gx, dh and the gradients bf16 on the cluster "
+                "instances): max err {:.3g} ({}), bf16 outputs one step "
+                "apart {:.3g} of them (at most {}), {:.3f} ms against the "
+                "f32 row's {:.3f} ms, twin {:.3f} ms, bound {:.3f} ms ({}); "
+                "H=512 (T={}, B={}) {:.3f} ms, bound {:.3f} ms".format(
+                    name, t, TB, H, err[name],
+                    "|diff| of c, pre, gh; h relative" if "fwd" in name
+                    else "relative to the largest", share[name], BF16_SHARE,
+                    ms[name], f32["ms"], plain_ms[name], bounds[name][0],
+                    bounds[name][1], SCAN512[0], SCAN512[1], h512[name],
+                    b512[name][0]))
+    say("scan bf16 instances by cell, case and width, both directions: the "
+        "forwards' and backwards' largest err: {}".format(
+            json.dumps(case_err)))
+    return rows
+
+
+def bf16_scan_path(torch, dev, rng, counters):
+    """Phase 19b: the public ops `lstm_scan` and `gru_scan` under
+    TAIYAKI_TPU_BF16_STREAMS=1 through torch.autograd.grad, both
+    directions, at phase 7's shapes, `counters` (the scans' kernels, their
+    bf16 instances and the atb GEMM) set to 0 just before each cell's path
+    and read just after: every scan launch the bf16 instance, d_sW of the
+    bf16 gradients on the atb GEMM.  Then the f32 scans (switch unset) on
+    the same inputs: h, d gates_x and d_sW within BF16_GRAD_TOL of each
+    one's largest (the JAX route's own distance, ~5e-3 in a CPU run at
+    T=800 and 2000, B=8-16), and the peak memory of each.  Returns
+    ({"<cell>_scan bf16": launches}, {cell: numbers})."""
+    from taiyaki_tpu_torch.ops import rnn
+    launches, out = {}, {}
+    for cell, t, G in (("lstm", TT, 4), ("gru", GT, 3)):
+        scan = rnn.lstm_scan if cell == "lstm" else rnn.gru_scan
+        # phase 7's inputs: gates_x = x . iW^T + b of one seeded layer
+        x = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
+        iW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
+        gx = (torch.matmul(x, iW.t())
+              + _tensor(torch, dev, 0.5 * rng.normal(size=G * H)))
+        sW = _tensor(torch, dev, rng.normal(size=(G * H, H)) / np.sqrt(H))
+        dh = _tensor(torch, dev, rng.normal(size=(t, TB, H)))
+        del x, iW
+        mine = {k: c for k, c in counters.items() if k.startswith(cell)
+                or k.startswith("atb_gemm")}
+        res, peak, n = {}, {}, {}
+        for tag, env in (("bf16", BF16_STREAMS[1]), ("f32", {})):
+            with switches(env):
+                for c in mine.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                for reverse in (False, True):
+                    leaves = [a.clone().requires_grad_() for a in (gx, sW)]
+                    hh = scan(*leaves, reverse=reverse)
+                    res[tag, reverse] = [hh.detach()] + list(
+                        torch.autograd.grad(hh, leaves, dh))
+                    del hh, leaves
+                torch.cuda.synchronize()
+                peak[tag] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                n[tag] = {k: c.launches for k, c in mine.items()}
+        launches[cell + "_scan bf16"] = n["bf16"]
+        check(all(n[tag]["{}_scan_{}".format(cell, w)] == 2
+                  and n[tag]["{}_scan_{}[bf16]".format(cell, w)] == (
+                      2 if tag == "bf16" else 0)
+                  for w in ("fwd", "bwd") for tag in n)
+              and n["bf16"]["atb_gemm[bf16]"] == n["bf16"]["atb_gemm"] == 2,
+              "{}_scan under the switch and unset: launches {}".format(
+                  cell, n))
+        errs = [0.0, 0.0, 0.0]
+        for reverse in (False, True):
+            for i, (a, b) in enumerate(zip(res["bf16", reverse],
+                                           res["f32", reverse])):
+                check(a.dtype == b.dtype == torch.float32
+                      and bool(torch.isfinite(a).all()),
+                      "{}_scan under the switch: output {} {}".format(
+                          cell, i, a.dtype))
+                errs[i] = max(errs[i], ((a - b).abs().max()
+                                        / b.abs().max()).item())
+        del res
+        torch.cuda.empty_cache()
+        check(max(errs) <= BF16_GRAD_TOL, "{}_scan bf16 against f32: h, d "
+              "gates_x, d_sW {} (tol {})".format(cell, errs, BF16_GRAD_TOL))
+        out[cell] = {"h": errs[0], "d_gates_x": errs[1], "d_sW": errs[2],
+                     "peak_gb": peak["bf16"], "f32_peak_gb": peak["f32"]}
+        say("{}_scan under the switch T={} B={} H={} (autograd, both "
+            "directions): launches {}; against the f32 scan (of each one's "
+            "largest, tol {}): h {:.3g}, d gates_x {:.3g}, d_sW {:.3g}; "
+            "peak {:.3f} GB against {:.3f} GB".format(
+                cell, t, TB, H, n["bf16"], BF16_GRAD_TOL, *errs,
+                peak["bf16"], peak["f32"]))
+        del gx, sW, dh
+    return launches, out
+
+
 def run(seed):
     try:
         import torch
@@ -6035,6 +6305,21 @@ def run(seed):
             torch, work, seed, pick, score_bf16,
             os.path.join(work, "reads_mLstm")))
         torch.cuda.empty_cache()
+
+        # the scans' mixed precision (rows 14-17)
+        phases.next("19a scan bf16 instances against their twins")
+        bf16_rows += check_bf16_scan_kernels(
+            torch, dev, rng, {k["name"]: k for k in kernels
+                              if "_scan_" in k["name"]})
+        torch.cuda.empty_cache()
+        phases.next("19b lstm_scan and gru_scan under the switch")
+        scan_launches, scan_bf16 = bf16_scan_path(torch, dev, rng, dict(
+            pick(("lstm_scan_fwd", "lstm_scan_bwd", "gru_scan_fwd",
+                  "gru_scan_bwd")), **{k: counters[k] for k in SCAN_BF16
+                                       + ("atb_gemm", "atb_gemm[tc]",
+                                          "atb_gemm[bf16]")}))
+        launches.update(scan_launches)
+        torch.cuda.empty_cache()
         phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6117,6 +6402,7 @@ def run(seed):
     say("GRU bf16 streams: {}".format(json.dumps(
         {"steps": gru_bf16_step, "CLIs": gru_bf16_cli})))
     say("bf16 CRF and logZ steps: {}".format(json.dumps(score_steps)))
+    say("bf16 scans against f32 scans: {}".format(json.dumps(scan_bf16)))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -6155,7 +6441,12 @@ def run(seed):
               "logz_fwd[bf16]": "mLstm training bf16 scores",
               "logz_posteriors[bf16]": "mLstm training bf16 scores",
               "crf_fwd[bf16]": "mLstm training bf16 scores",
-              "crf_bwd[bf16]": "mLstm training bf16 scores"}
+              "crf_bwd[bf16]": "mLstm training bf16 scores",
+              # the scans': their paths under the switch (phase 19b)
+              "lstm_scan_fwd[bf16]": "lstm_scan bf16",
+              "lstm_scan_bwd[bf16]": "lstm_scan bf16",
+              "gru_scan_fwd[bf16]": "gru_scan bf16",
+              "gru_scan_bwd[bf16]": "gru_scan bf16"}
     kernels += bf16_rows
     # the paths of phases 13-15 that run the kernels of the table: each
     # row's launches there beside its own path's
@@ -6220,7 +6511,8 @@ def run(seed):
              "l2_ms": k["l2_ms"]} if "l2_ms" in k else {}),
             **({"post": k["post"]} if "post" in k else {}),
             **{key: k[key] for key in (
-                "f32_ms", "h512_ms", "h96_ms", "h96_bound_ms", "bf16_share",
+                "f32_ms", "h512_ms", "h512_bound_ms", "h96_ms",
+                "h96_bound_ms", "bf16_share",
                 "shapes_ms",
                 "residuals_ms", "f32_residuals_ms", "residuals_bound_ms",
                 "h96_residuals_ms") if key in k})

@@ -69,8 +69,10 @@ def outputs():
     return out
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def main(outputs=outputs, doc=__doc__):
+    """--save the `outputs()` of this checkout, or --compare two saved
+    sets (probes/lstm_bitwise.py runs it on the LSTM's)."""
+    parser = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     parser.add_argument("--save", metavar="PATH")
     parser.add_argument("--compare", nargs=2, metavar="PATH")
     args = parser.parse_args()

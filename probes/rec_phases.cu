@@ -131,11 +131,11 @@ void run_bwd(const char* what, int B, int H, int C, int BT, const float* in,
 #ifdef PROBE_GRU
         return rec_cluster_launch(kernel, C, ntiles, threads, smem, nullptr,
                                   in, in, 0, in, in, out, out, in, db, T, B,
-                                  H, 0, C, U, BT, cyc, 0, 0);
+                                  H, 0, C, U, BT, cyc, 0, 0, 0, 0);
 #else
         return rec_cluster_launch(kernel, C, ntiles, threads, smem, nullptr,
                                   in, in, in, in, 0, in, out, db, T, B, H,
-                                  0, C, U, BT, cyc, 0);
+                                  0, C, U, BT, cyc, 0, 0);
 #endif
     }, &rc);
     report(what, H, B, C, BT, RB, KL, rc, ms, C * ntiles, cyc, BWD_NAMES,

@@ -29,8 +29,9 @@
 //   caller's gates, never writing them);
 // - tt_gru_scan_bwd replaces pallas_rnn.py:1407 `gru_bwd`: dgx and dgh
 //   [T, B, 3H] from dh, gates_x, gh and h_prev (kernel 3 with scratch of
-//   its own), and with iW also d_x = dgx . iW by kernel 1, the product the
-//   TPU kernel forms in its body (`_gru_bwd_dx_kernel`).
+//   its own), and with iW also d_x = dgx . iW by kernel 1 from the stored
+//   dgx, the product the TPU kernel forms in its body
+//   (`_gru_bwd_dx_kernel`).
 // Bound: the serial chain, as for the layer kernels (at T=2000, B=256,
 // H=256 the operations bound is 3.0 ms and the bytes bound 1.1-2.2 ms,
 // against tens of ms of chain).
@@ -155,7 +156,15 @@
 // they load step s+1's dh and h_prev (and bf16 gates) into registers
 // before the product and store them to the ring after it; f32 gates still
 // go by cp.async.  The in-place chain (row 8) only ever pairs f32 gates
-// with f32 gradients.
+// with f32 gradients.  The recurrence on given gates under the JAX scans'
+// mixed precision (taiyaki_tpu/ops/rnn.py:542-588): the forward's bf16
+// instance on the caller's gate stream in bf16 (GX16: the gates through
+// registers, rec_cluster.cuh) or f32, h f32, gh bf16, and no gx copy (the
+// caller keeps gx); the stored chain's bf16 instance (bf16 gh) with gx's
+// type a run-time flag (f32 under TAIYAKI_TPU_F32_GATES) and dgx and dgh
+// stored in dh's type (the run-time flag d_bf16), rounded where they are
+// stored while the chain goes on from the f32 values
+// (pallas_rnn.py:1388-1392), the layers passing 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -173,12 +182,18 @@ namespace {
 constexpr int STREAM_X_BF16 = 1;     // the layer input x (and d_x)
 constexpr int STREAM_H_BF16 = 2;     // h (the backwards' h_prev)
 constexpr int STREAM_RES_BF16 = 4;   // the residuals gh and gx
-constexpr int STREAM_DH_BF16 = 8;    // dh
-constexpr int STREAM_ALL = 15;
+constexpr int STREAM_DH_BF16 = 8;    // dh (and dgx and dgh, as the scan's
+                                     // chain stores them)
+constexpr int STREAM_ALL = 15;       // what the layers' entry points take
 
 // the residual streams' type of a forward instance
 template <bool BF16>
 using res_t = typename std::conditional<BF16, bf16, float>::type;
+
+// the gate stream's type of a forward instance: bf16 with GX16 (the bf16
+// instance on a bf16 gate stream, the scans)
+template <bool GX16>
+using gx_t = typename std::conditional<GX16, bf16, float>::type;
 
 // v into a stream of f32, or of bf16 where the bf16 instance's flag `bf`
 // says so
@@ -215,16 +230,19 @@ constexpr int REC_MAX_THREADS = 512;
 
 // h[t, b, :] for the BT-row batch tile of this block; with RES also
 // gh[t, b, :] = h_prev . sW^T.
-// gx [T, B, 3H] (input gates incl. bias), swt [H, 3H] = sW^T, h [T, B, H]
-// (bf16 with h_bf16 in the bf16 instance), gh [T, B, 3H] in res_t<BF16>;
-// with RES the bf16 instance also writes gx_out [T, B, 3H], gx in bf16.
-template <int BT, bool RES, bool BF16 = false>
+// gx [T, B, 3H] (input gates incl. bias; bf16 with GX16), swt [H, 3H] =
+// sW^T, h [T, B, H] (bf16 with h_bf16 in the bf16 instance), gh [T, B, 3H]
+// in res_t<BF16>; with RES the bf16 instance also writes gx_out [T, B,
+// 3H], gx in bf16, where gx_out is not null.
+template <int BT, bool RES, bool BF16 = false, bool GX16 = false>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
-gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
+gru_rec_kernel(const gx_t<GX16>* __restrict__ gx,
+               const float* __restrict__ swt,
                void* __restrict__ h_out, res_t<BF16>* __restrict__ gh_out,
                res_t<BF16>* __restrict__ gx_out, int T, int B, int H,
                int reverse, int h_bf16)
 {
+    static_assert(BF16 || !GX16, "a bf16 gate stream: the bf16 instance");
     using R = res_t<BF16>;
     extern __shared__ __align__(16) float h_s[];   // [2][H][BT]
     const int j = threadIdx.x;
@@ -274,19 +292,20 @@ gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
             }
 
             const size_t row = (size_t)t * B + b0;
-            const float* g = gx + row * H3 + j;
+            const gx_t<GX16>* g = gx + row * H3 + j;
 #pragma unroll
             for (int r = 0; r < BT; ++r) {
                 float g0 = 0.f, g1 = 0.f, g2 = 0.f;
                 if (r < nrow) {
-                    const float* gr = g + (size_t)r * H3;
-                    g0 = gr[0]; g1 = gr[H]; g2 = gr[2 * H];
+                    const gx_t<GX16>* gr = g + (size_t)r * H3;
+                    g0 = widen(gr[0]); g1 = widen(gr[H]);
+                    g2 = widen(gr[2 * H]);
                     if (RES) {
                         R* o = gh_out + (row + r) * H3 + j;
                         o[0] = narrow<R>(acc[0][r]);
                         o[H] = narrow<R>(acc[1][r]);
                         o[2 * H] = narrow<R>(acc[2][r]);
-                        if constexpr (BF16) {
+                        if (BF16 && gx_out != nullptr) {
                             R* q = gx_out + (row + r) * H3 + j;
                             q[0] = narrow<R>(g0); q[H] = narrow<R>(g1);
                             q[2 * H] = narrow<R>(g2);
@@ -311,15 +330,18 @@ gru_rec_kernel(const float* __restrict__ gx, const float* __restrict__ swt,
 // computes, for the tile of BT rows of this cluster, rank q holding units
 // [q U, q U + U); the product in KS k slices of RB rows a lane
 // (rec_cluster.cuh).  Arguments as gru_rec_kernel's; C ranks of U units.
-template <int RB, bool RES, bool BF16 = false>
+// With GX16 the bf16 gates go through registers (rec_step_top,
+// rec_stash_gates).
+template <int RB, bool RES, bool BF16 = false, bool GX16 = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
-gru_rec_cluster_kernel(const float* __restrict__ gx,
+gru_rec_cluster_kernel(const gx_t<GX16>* __restrict__ gx,
                        const float* __restrict__ swt,
                        void* __restrict__ h_out,
                        res_t<BF16>* __restrict__ gh_out,
                        res_t<BF16>* __restrict__ gx_out, int T, int B, int H,
                        int reverse, int C, int U, int BT, int KS, int h_bf16)
 {
+    static_assert(BF16 || !GX16, "a bf16 gate stream: the bf16 instance");
     using R = res_t<BF16>;
     extern __shared__ __align__(16) float smem[];
     const RecSmem m = rec_smem(smem, H, C, U, BT);
@@ -338,9 +360,13 @@ gru_rec_cluster_kernel(const float* __restrict__ gx,
         const int nb = (s + 1) & 1;
         const bool more = s + 1 < T;
         const float* hc = m.hS + (s & 1) * C * U * BT;
-        rec_step_top<3>(m, gx, s, T, reverse ? t - 1 : t + 1, B, b0, nrow, H,
-                        C, U, u0, BT, cl);
+        float v[REC_MAX_CELLS][4];
+        rec_step_top<3>(m, gx, v, s, T, reverse ? t - 1 : t + 1, B, b0, nrow,
+                        H, C, U, u0, BT, cl);
         if (works) rec_partials<3, RB>(m, hc, wk, U, BT);
+        if constexpr (GX16)
+            if (more) rec_stash_gates<3>(m.ring + nb * BT * U * 4, v, nrow,
+                                         H, U, u0, cl);
         __syncthreads();
         cp_async_wait<1>();
         const float4* g4 =
@@ -369,7 +395,7 @@ gru_rec_cluster_kernel(const float* __restrict__ gx,
                     R* o = gh_out + r * H3 + u;
                     o[0] = narrow<R>(gh.x); o[H] = narrow<R>(gh.y);
                     o[2 * H] = narrow<R>(gh.z);
-                    if constexpr (BF16) {
+                    if (BF16 && gx_out != nullptr) {
                         R* q = gx_out + r * H3 + u;
                         q[0] = narrow<R>(g0); q[H] = narrow<R>(g1);
                         q[2 * H] = narrow<R>(g2);
@@ -392,15 +418,19 @@ gru_rec_cluster_kernel(const float* __restrict__ gx,
 // themselves; sw [3H, H] = sW; db_part [nbt, 3H] per-tile bias gradients.
 // No __restrict__ on the four streams, for the in-place case: every load
 // of a step precedes its stores.  The gate streams of type TG (bf16 only
-// in the bf16 instance, and then never in place); dh and h_prev f32, or
-// bf16 with dh_bf16 / hp_bf16 in the bf16 instance.
+// in the bf16 instance, and then never in place), gx f32 there too where
+// gx_bf16 is 0 (the scans under TAIYAKI_TPU_F32_GATES); dh and h_prev f32,
+// or bf16 with dh_bf16 / hp_bf16 in the bf16 instance; dgx and dgh f32, or
+// bf16 with d_bf16 in the bf16 instance (rounded where they are stored;
+// the chain goes on from the f32 values).
 template <int BT, typename TG = float, bool BF16 = false>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
 gru_bwd_rec_kernel(const void* __restrict__ dh_out,
-                   const void* __restrict__ hp, int hshift, const TG* gx,
-                   const TG* gh, float* dgx, float* dgh,
+                   const void* __restrict__ hp, int hshift, const void* gx,
+                   const TG* gh, void* dgx, void* dgh,
                    const float* __restrict__ sw, float* __restrict__ db_part,
-                   int T, int B, int H, int reverse, int dh_bf16, int hp_bf16)
+                   int T, int B, int H, int reverse, int dh_bf16, int hp_bf16,
+                   int gx_bf16, int d_bf16)
 {
     static_assert(BF16 || !is_bf16<TG>, "bf16 gates: the bf16 instance");
     extern __shared__ __align__(16) float g_s[];   // [2][3H][BT]
@@ -431,8 +461,9 @@ gru_bwd_rec_kernel(const void* __restrict__ dh_out,
                 for (int q = 0; q < 8; ++q) v[r][q] = 0.f;
                 if (r < nrow) {
                     const size_t og = (row + r) * H3 + k;
-                    v[r][0] = widen(gx[og]); v[r][1] = widen(gx[og + H]);
-                    v[r][2] = widen(gx[og + 2 * H]);
+                    v[r][0] = load_f<BF16>(gx, og, gx_bf16);
+                    v[r][1] = load_f<BF16>(gx, og + H, gx_bf16);
+                    v[r][2] = load_f<BF16>(gx, og + 2 * H, gx_bf16);
                     v[r][3] = widen(gh[og]); v[r][4] = widen(gh[og + H]);
                     v[r][5] = widen(gh[og + 2 * H]);
                     if (has_prev)
@@ -458,12 +489,12 @@ gru_bwd_rec_kernel(const void* __restrict__ dh_out,
                     p[1] = dz * zg * (1.f - zg);
                     p[2] = dn_pre * rg;
                     dhz[r] = dh * zg;
-                    dgx[og] = p[0];
-                    dgx[og + H] = p[1];
-                    dgx[og + 2 * H] = dn_pre;
-                    dgh[og] = p[0];
-                    dgh[og + H] = p[1];
-                    dgh[og + 2 * H] = p[2];
+                    store_f<BF16>(dgx, og, p[0], d_bf16);
+                    store_f<BF16>(dgx, og + H, p[1], d_bf16);
+                    store_f<BF16>(dgx, og + 2 * H, dn_pre, d_bf16);
+                    store_f<BF16>(dgh, og, p[0], d_bf16);
+                    store_f<BF16>(dgh, og + H, p[1], d_bf16);
+                    store_f<BF16>(dgh, og + 2 * H, p[2], d_bf16);
                     db[0] += p[0];
                     db[1] += p[1];
                     db[2] += dn_pre;
@@ -555,8 +586,9 @@ template <typename TG>
 __device__ __forceinline__ void gru_bwd_load(
     float (&v)[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>],
     const void* __restrict__ dh, int dh_bf16, const void* __restrict__ hp,
-    int hp_bf16, int hshift, const TG* gx, const TG* gh, int t, int T,
-    int B, int b0, int nrow, int H, int u0, const RecCells& cl)
+    int hp_bf16, int hshift, const void* gx, int gx_bf16, const TG* gh,
+    int t, int T, int B, int b0, int nrow, int H, int u0,
+    const RecCells& cl)
 {
     constexpr int W = GRU_BWD_REG_WORDS<TG>;
     const int tp = t + hshift;
@@ -570,7 +602,7 @@ __device__ __forceinline__ void gru_bwd_load(
                 const size_t og = r * 3 * H + u;
 #pragma unroll
                 for (int q = 0; q < 3; ++q) {
-                    v[j][q] = widen(gx[og + q * H]);
+                    v[j][q] = load_f<true>(gx, og + q * H, gx_bf16);
                     v[j][3 + q] = widen(gh[og + q * H]);
                 }
             }
@@ -602,24 +634,27 @@ __device__ __forceinline__ void gru_bwd_stash(
 // Step t's inputs of this thread's cells into the ring, as the instance
 // (BF16, TG) takes them: by cp.async alone (the f32 instance), or the f32
 // gates by cp.async and the rest loaded into v, to be stashed after the
-// product.  The caller commits the copies.
+// product (gx of either type, by gx_bf16, with bf16 gh).  The caller
+// commits the copies.
 template <typename TG, bool BF16>
 __device__ __forceinline__ void gru_bwd_fetch(
     float* ring, float (&v)[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>],
     const void* dh_out, int dh_bf16, const void* hp, int hp_bf16,
-    int hshift, const TG* gx, const TG* gh, int t, int T, int B, int b0,
-    int nrow, int H, int U, int u0, const RecCells& cl)
+    int hshift, const void* gx, int gx_bf16, const TG* gh, int t, int T,
+    int B, int b0, int nrow, int H, int U, int u0, const RecCells& cl)
 {
     if constexpr (!BF16) {
         gru_bwd_prefetch(ring, static_cast<const float*>(dh_out),
-                         static_cast<const float*>(hp), hshift, gx, gh, t, T,
-                         B, b0, nrow, H, U, u0, cl);
+                         static_cast<const float*>(hp), hshift,
+                         static_cast<const float*>(gx), gh, t, T, B, b0,
+                         nrow, H, U, u0, cl);
     } else {
         if constexpr (!is_bf16<TG>)
-            gru_bwd_prefetch<true>(ring, nullptr, nullptr, hshift, gx, gh, t,
-                                   T, B, b0, nrow, H, U, u0, cl);
-        gru_bwd_load(v, dh_out, dh_bf16, hp, hp_bf16, hshift, gx, gh, t, T,
-                     B, b0, nrow, H, u0, cl);
+            gru_bwd_prefetch<true>(ring, nullptr, nullptr, hshift,
+                                   static_cast<const float*>(gx), gh, t, T,
+                                   B, b0, nrow, H, U, u0, cl);
+        gru_bwd_load(v, dh_out, dh_bf16, hp, hp_bf16, hshift, gx, gx_bf16,
+                     gh, t, T, B, b0, nrow, H, u0, cl);
     }
 }
 
@@ -630,18 +665,18 @@ __device__ __forceinline__ void gru_bwd_fetch(
 // gru_bwd_rec_kernel's (dgx and dgh may be gx and gh); C ranks of U units;
 // db_part [ceil(B / BT), 3H].  With CLOCK (probes/rec_phases.cu alone)
 // the step's phases are timed into `cycles`; the layers pass nullptr.
-// TG, BF16, dh_bf16 and hp_bf16 as gru_bwd_rec_kernel's.
+// TG, BF16, dh_bf16, hp_bf16, gx_bf16 and d_bf16 as gru_bwd_rec_kernel's.
 template <int RB, int KL, bool CLOCK = false, typename TG = float,
           bool BF16 = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
 gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
                            const void* __restrict__ hp, int hshift,
-                           const TG* gx, const TG* gh, float* dgx,
-                           float* dgh, const float* __restrict__ sw,
+                           const void* gx, const TG* gh, void* dgx,
+                           void* dgh, const float* __restrict__ sw,
                            float* __restrict__ db_part, int T, int B, int H,
                            int reverse, int C, int U, int BT,
                            long long* __restrict__ cycles, int dh_bf16,
-                           int hp_bf16)
+                           int hp_bf16, int gx_bf16, int d_bf16)
 {
     static_assert(BF16 || !is_bf16<TG>, "bf16 gates: the bf16 instance");
     extern __shared__ __align__(16) float smem[];
@@ -658,8 +693,8 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
     {
         float v[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>];
         gru_bwd_fetch<TG, BF16>(m.ring, v, dh_out, dh_bf16, hp, hp_bf16,
-                                hshift, gx, gh, reverse ? 0 : T - 1, T, B,
-                                b0, nrow, H, U, u0, cl);
+                                hshift, gx, gx_bf16, gh, reverse ? 0 : T - 1,
+                                T, B, b0, nrow, H, U, u0, cl);
         if constexpr (BF16) gru_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
     }
     cp_async_commit();
@@ -706,12 +741,12 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
                                          0.f);
             dhz[j] = dh * zg;
             const size_t og = ((size_t)t * B + b0 + row) * H3 + u;
-            dgx[og] = p.x;
-            dgx[og + H] = p.y;
-            dgx[og + 2 * H] = dn_pre;
-            dgh[og] = p.x;
-            dgh[og + H] = p.y;
-            dgh[og + 2 * H] = p.z;
+            store_f<BF16>(dgx, og, p.x, d_bf16);
+            store_f<BF16>(dgx, og + H, p.y, d_bf16);
+            store_f<BF16>(dgx, og + 2 * H, dn_pre, d_bf16);
+            store_f<BF16>(dgh, og, p.x, d_bf16);
+            store_f<BF16>(dgh, og + H, p.y, d_bf16);
+            store_f<BF16>(dgh, og + 2 * H, p.z, d_bf16);
             db[j][0] += p.x;
             db[j][1] += p.y;
             db[j][2] += dn_pre;
@@ -723,8 +758,9 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
             // the bf16 instance's loads are in flight during the product
             float v[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>];
             gru_bwd_fetch<TG, BF16>(m.ring, v, dh_out, dh_bf16, hp, hp_bf16,
-                                    hshift, gx, gh, reverse ? t + 1 : t - 1,
-                                    T, B, b0, nrow, H, U, u0, cl);
+                                    hshift, gx, gx_bf16, gh,
+                                    reverse ? t + 1 : t - 1, T, B, b0, nrow,
+                                    H, U, u0, cl);
             cp_async_commit();
             rec_bwd_partials<3, RB, KL>(m, m.part + (size_t)nb * C * U * BT,
                                         H, U, BT);
@@ -741,73 +777,75 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
     clk.store(cycles);
 }
 
-template <bool RES, bool BF16>
-int launch_gru_rec(const float* gx, const float* swt, void* h, void* gh,
+template <bool RES, bool BF16, bool GX16>
+int launch_gru_rec(const void* gx, const float* swt, void* h, void* gh,
                    void* gxr, int T, int B, int H, int reverse, int h_bf16,
                    cudaStream_t st)
 {
     using R = res_t<BF16>;
-    const auto kernel = gru_rec_kernel<REC_BT, RES, BF16>;
+    const auto kernel = gru_rec_kernel<REC_BT, RES, BF16, GX16>;
     const size_t smem = 2 * sizeof(float) * H * REC_BT;
     int rc;
     if ((rc = set_smem((const void*)kernel, smem))) return rc;
     const int threads = (H + 31) / 32 * 32;
     const int blocks = (B + REC_BT - 1) / REC_BT;
-    kernel<<<blocks, threads, smem, st>>>(gx, swt, h, static_cast<R*>(gh),
-                                          static_cast<R*>(gxr), T, B, H,
-                                          reverse, h_bf16);
+    kernel<<<blocks, threads, smem, st>>>(
+        static_cast<const gx_t<GX16>*>(gx), swt, h, static_cast<R*>(gh),
+        static_cast<R*>(gxr), T, B, H, reverse, h_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster instance (kernel 2a) on a plan of C ranks, BT rows a tile,
 // RB rows a lane and KS k slices.
-template <int RB, bool RES, bool BF16>
-int launch_gru_rec_cluster(const float* gx, const float* swt, void* h,
+template <int RB, bool RES, bool BF16, bool GX16>
+int launch_gru_rec_cluster(const void* gx, const float* swt, void* h,
                            void* gh, void* gxr, int T, int B, int H,
                            int reverse, int h_bf16, int C, int BT, int KS,
                            int smem, cudaStream_t st)
 {
     using R = res_t<BF16>;
     const int U = (H + C - 1) / C;
-    return rec_cluster_launch(gru_rec_cluster_kernel<RB, RES, BF16>, C,
+    return rec_cluster_launch(gru_rec_cluster_kernel<RB, RES, BF16, GX16>, C,
                               (B + BT - 1) / BT,
                               rec_cluster_threads(U, BT, RB, KS), smem, st,
-                              gx, swt, h, static_cast<R*>(gh),
+                              static_cast<const gx_t<GX16>*>(gx), swt, h,
+                              static_cast<R*>(gh),
                               static_cast<R*>(gxr), T, B, H, reverse, C, U,
                               BT, KS, h_bf16);
 }
 
 // Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.
-template <bool RES, bool BF16>
-int launch_gru_rec_plan_res(const float* gx, const float* swt, void* h,
+template <bool RES, bool BF16, bool GX16>
+int launch_gru_rec_plan_res(const void* gx, const float* swt, void* h,
                             void* gh, void* gxr, int T, int B, int H,
                             int reverse, int h_bf16, int instance, int C,
                             int BT, int RB, int KS, int smem,
                             cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
-        return launch_gru_rec<RES, BF16>(gx, swt, h, gh, gxr, T, B, H,
-                                         reverse, h_bf16, st);
+        return launch_gru_rec<RES, BF16, GX16>(gx, swt, h, gh, gxr, T, B, H,
+                                               reverse, h_bf16, st);
     return rec_with_rb(RB, [&](auto rb) {
-        return launch_gru_rec_cluster<decltype(rb)::value, RES, BF16>(
+        return launch_gru_rec_cluster<decltype(rb)::value, RES, BF16, GX16>(
             gx, swt, h, gh, gxr, T, B, H, reverse, h_bf16, C, BT, KS, smem,
             st);
     });
 }
 
-// Kernel 2 of the f32 or bf16 instance; gh non-null stores the residual
-// gh (and, in the bf16 instance, gx into gxr).
-template <bool BF16>
-int launch_gru_rec_plan(const float* gx, const float* swt, void* h, void* gh,
+// Kernel 2 of the f32 or bf16 instance (on a bf16 gate stream with
+// GX16); gh non-null stores the residual gh (and, in the bf16 instance,
+// gx into gxr where that is not null).
+template <bool BF16, bool GX16 = false>
+int launch_gru_rec_plan(const void* gx, const float* swt, void* h, void* gh,
                         void* gxr, int T, int B, int H, int reverse,
                         int h_bf16, int instance, int C, int BT, int RB,
                         int KS, int smem, cudaStream_t st)
 {
     if (gh != nullptr)
-        return launch_gru_rec_plan_res<true, BF16>(
+        return launch_gru_rec_plan_res<true, BF16, GX16>(
             gx, swt, h, gh, gxr, T, B, H, reverse, h_bf16, instance, C, BT,
             RB, KS, smem, st);
-    return launch_gru_rec_plan_res<false, BF16>(
+    return launch_gru_rec_plan_res<false, BF16, GX16>(
         gx, swt, h, nullptr, nullptr, T, B, H, reverse, h_bf16, instance, C,
         BT, RB, KS, smem, st);
 }
@@ -816,10 +854,10 @@ int launch_gru_rec_plan(const float* gx, const float* swt, void* h, void* gh,
 // per-tile d_b.
 template <typename TG, bool BF16>
 int launch_gru_bwd_rec(const void* dh, const void* hp, int hshift,
-                       const TG* gx, const TG* gh, float* dgx, float* dgh,
+                       const void* gx, const TG* gh, void* dgx, void* dgh,
                        const float* sw, float* db_part, int T, int B, int H,
-                       int reverse, int dh_bf16, int hp_bf16,
-                       cudaStream_t st)
+                       int reverse, int dh_bf16, int hp_bf16, int gx_bf16,
+                       int d_bf16, cudaStream_t st)
 {
     const auto kernel = gru_bwd_rec_kernel<REC_BT, TG, BF16>;
     const size_t smem = 2 * sizeof(float) * 3 * H * REC_BT;
@@ -829,7 +867,7 @@ int launch_gru_bwd_rec(const void* dh, const void* hp, int hshift,
     const int blocks = (B + REC_BT - 1) / REC_BT;
     kernel<<<blocks, threads, smem, st>>>(
         dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
-        dh_bf16, hp_bf16);
+        dh_bf16, hp_bf16, gx_bf16, d_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -837,39 +875,42 @@ int launch_gru_bwd_rec(const void* dh, const void* hp, int hshift,
 // rows a tile and RB rows a lane.
 template <int RB, int KL, typename TG, bool BF16>
 int launch_gru_bwd_rec_cluster(const void* dh, const void* hp, int hshift,
-                               const TG* gx, const TG* gh, float* dgx,
-                               float* dgh, const float* sw, float* db_part,
+                               const void* gx, const TG* gh, void* dgx,
+                               void* dgh, const float* sw, float* db_part,
                                int T, int B, int H, int reverse, int dh_bf16,
-                               int hp_bf16, int C, int BT, int smem,
-                               cudaStream_t st)
+                               int hp_bf16, int gx_bf16, int d_bf16, int C,
+                               int BT, int smem, cudaStream_t st)
 {
     const int U = (H + C - 1) / C;
     return rec_cluster_launch(
         gru_bwd_rec_cluster_kernel<RB, KL, false, TG, BF16>, C,
         (B + BT - 1) / BT, rec_bwd_threads(H, BT, RB, KL), smem, st, dh, hp,
         hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse, C, U, BT,
-        static_cast<long long*>(nullptr), dh_bf16, hp_bf16);
+        static_cast<long long*>(nullptr), dh_bf16, hp_bf16, gx_bf16, d_bf16);
 }
 
 // Kernel 3 on a checked plan (rec_bwd_plan_check): the L2 or cluster
-// instance.
+// instance; gx of type TG (or, in the bf16 instance of bf16 gh, f32 with
+// gx_bf16 0), dgx and dgh f32 (or bf16 with d_bf16, the bf16 instance).
 template <typename TG, bool BF16>
 int launch_gru_bwd_rec_plan(const void* dh, const void* hp, int hshift,
-                            const TG* gx, const TG* gh, float* dgx,
-                            float* dgh, const float* sw, float* db_part,
+                            const void* gx, const TG* gh, void* dgx,
+                            void* dgh, const float* sw, float* db_part,
                             int T, int B, int H, int reverse, int dh_bf16,
-                            int hp_bf16, int instance, int C, int BT, int RB,
-                            int KL, int smem, cudaStream_t st)
+                            int hp_bf16, int gx_bf16, int d_bf16,
+                            int instance, int C, int BT, int RB, int KL,
+                            int smem, cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
         return launch_gru_bwd_rec<TG, BF16>(dh, hp, hshift, gx, gh, dgx, dgh,
                                             sw, db_part, T, B, H, reverse,
-                                            dh_bf16, hp_bf16, st);
+                                            dh_bf16, hp_bf16, gx_bf16, d_bf16,
+                                            st);
     return rec_with_rb_kl(RB, KL, [&](auto rb, auto kl) {
         return launch_gru_bwd_rec_cluster<decltype(rb)::value,
                                           decltype(kl)::value, TG, BF16>(
             dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
-            dh_bf16, hp_bf16, C, BT, smem, st);
+            dh_bf16, hp_bf16, gx_bf16, d_bf16, C, BT, smem, st);
     });
 }
 
@@ -891,8 +932,8 @@ int gru_bwd_chain(const void* dh, const void* hp, int hshift, const TG* gx,
     const bool hb = streams & STREAM_H_BF16;
     int rc = launch_gru_bwd_rec_plan<TG, BF16>(
         dh, hp, hshift, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse,
-        (streams & STREAM_DH_BF16) != 0, hb, instance, C, BT, RB, KL, smem,
-        st);
+        (streams & STREAM_DH_BF16) != 0, hb, is_bf16<TG>, 0, instance, C, BT,
+        RB, KL, smem, st);
     if (rc) return rc;
     cudaError_t err;
     if ((err = gemm_gate(gemm_plan_at(gemm, 0), GemmIn{dgx, false}, iwt,
@@ -1096,19 +1137,37 @@ int tt_gru_bwd_fusedw(const void* dh, const void* gx, const void* gh,
 }
 
 // Kernel 16: the GRU recurrence on given gates.  gx [T, B, 3H] (read
-// only), swt = sW^T [H, 3H] -> h [T, B, H]; with gh non-null also gh
-// [T, B, 3H] = h_prev . sW^T.  All f32.  The plan as tt_gru_fwd's.
+// only), swt = sW^T [H, 3H] -> h [T, B, H] (f32); with gh non-null also gh
+// [T, B, 3H] = h_prev . sW^T.  `streams` (STREAM_* bits): 0 for all f32,
+// or the bf16 instance (STREAM_RES_BF16: gh stored in bf16), whose gx is
+// bf16 where STREAM_X_BF16 says (read through registers,
+// rec_cluster.cuh); h stays f32 in both, and neither copies gx (the
+// caller keeps it as the backward's residual).  The plan as tt_gru_fwd's.
 // Returns cudaGetLastError().
-int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
-                    int T, int B, int H, int reverse, int instance, int C,
-                    int BT, int RB, int KS, int smem, void* stream)
+int tt_gru_scan_fwd(const void* gx, const float* swt, float* h, void* gh,
+                    int T, int B, int H, int reverse, int streams,
+                    int instance, int C, int BT, int RB, int KS, int smem,
+                    void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const bool res16 = streams & STREAM_RES_BF16;
+    const bool gx16 = streams & STREAM_X_BF16;
+    if (H > REC_MAX_THREADS
+            || (streams & ~(STREAM_X_BF16 | STREAM_RES_BF16))
+            || (gx16 && !res16))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (gx16)
+        return launch_gru_rec_plan<true, true>(gx, swt, h, gh, nullptr, T, B,
+                                               H, reverse, 0, instance, C,
+                                               BT, RB, KS, smem, st);
+    if (res16)
+        return launch_gru_rec_plan<true>(gx, swt, h, gh, nullptr, T, B, H,
+                                         reverse, 0, instance, C, BT, RB, KS,
+                                         smem, st);
     return launch_gru_rec_plan<false>(gx, swt, h, gh, nullptr, T, B, H,
                                       reverse, 0, instance, C, BT, RB, KS,
                                       smem, st);
@@ -1117,29 +1176,48 @@ int tt_gru_scan_fwd(const float* gx, const float* swt, float* h, float* gh,
 // Kernel 17: the GRU gradient chain on the forward's residuals.  dh,
 // hprev [T, B, H], gx, gh [T, B, 3H] (read only), sw = sW [3H, H] -> dgx,
 // dgh [T, B, 3H]; db_part [ceil(B/BT), 3H] is scratch.  With iwt = iW^T
-// [D, 3H] non-null also dx [T, B, D] = dgx . iW, on the GEMM plan
-// gemm[0].  All f32.  The plan as tt_gru_bwd's.
-int tt_gru_scan_bwd(const float* dh, const float* gx, const float* gh,
-                    const float* hprev, const float* sw, const float* iwt,
-                    float* dgx, float* dgh, float* dx, float* db_part, int T,
-                    int B, int D, int H, int reverse, int instance, int C,
-                    int BT, int RB, int KL, int smem, const int* gemm,
-                    void* stream)
+// [D, 3H] non-null also dx [T, B, D] (f32) = dgx . iW from the stored dgx,
+// on the GEMM plan gemm[0].  `streams`: 0 for all f32, or the bf16
+// instance (STREAM_RES_BF16: gh bf16, every word through registers), with
+// gx, hprev and dh bf16 where STREAM_X_BF16, STREAM_H_BF16 and
+// STREAM_DH_BF16 say, and dgx and dgh stored in dh's type (rounded where
+// they are stored; the chain goes on from the f32 values).  The plan as tt_gru_bwd's.
+int tt_gru_scan_bwd(const void* dh, const void* gx, const void* gh,
+                    const void* hprev, const float* sw, const float* iwt,
+                    void* dgx, void* dgh, float* dx, float* db_part, int T,
+                    int B, int D, int H, int reverse, int streams,
+                    int instance, int C, int BT, int RB, int KL, int smem,
+                    const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const bool res16 = streams & STREAM_RES_BF16;
+    const int d16 = (streams & STREAM_DH_BF16) != 0;
+    if (H > REC_MAX_THREADS || (streams & ~STREAM_ALL)
+            || (streams && !res16))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const GemmIn dsrc{dgx, d16 != 0};
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess && iwt != nullptr)
-        err = gate_plan_check(gemm_plan_at(gemm, 0), dgx, iwt, 3 * H);
+        err = gate_plan_check(gemm_plan_at(gemm, 0), dsrc, iwt, 3 * H);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int rc = launch_gru_bwd_rec_plan<float, false>(
-        dh, hprev, 0, gx, gh, dgx, dgh, sw, db_part, T, B, H, reverse, 0, 0,
-        instance, C, BT, RB, KL, smem, st);
+    int rc;
+    if (res16)
+        rc = launch_gru_bwd_rec_plan<bf16, true>(
+            dh, hprev, 0, gx, static_cast<const bf16*>(gh), dgx, dgh, sw,
+            db_part, T, B, H, reverse, d16,
+            (streams & STREAM_H_BF16) != 0, (streams & STREAM_X_BF16) != 0,
+            d16, instance, C, BT, RB, KL, smem, st);
+    else
+        rc = launch_gru_bwd_rec_plan<float, false>(
+            dh, hprev, 0, gx, static_cast<const float*>(gh), dgx, dgh, sw,
+            db_part, T, B, H, reverse, 0, 0, 0, 0, instance, C, BT, RB, KL,
+            smem, st);
     if (rc || iwt == nullptr) return rc;
-    return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dgx, iwt,
-                                      nullptr, dx, T * B, D, 3 * H, st));
+    return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dsrc, iwt,
+                                      nullptr, GemmOut{dx, false}, T * B, D,
+                                      3 * H, st));
 }
 
 }  // extern "C"

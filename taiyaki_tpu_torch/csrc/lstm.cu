@@ -25,11 +25,12 @@
 // - tt_lstm_scan_fwd replaces pallas_rnn.py:141 `lstm_fwd`: h, and for the
 //   backward c and pre, from gates_x [T, B, 4H] (kernel 2 under EMIT_H, or
 //   EMIT_PRE on a copy of gates_x in the pre output, since EMIT_PRE writes
-//   pre over the stream it reads and gates_x belongs to the caller);
+//   pre over the stream it reads and gates_x belongs to the caller; the
+//   bf16 instance writes pre into its own stream and needs no copy);
 // - tt_lstm_scan_bwd replaces pallas_rnn.py:726 `lstm_bwd`: dpre [T, B,
 //   4H] (= d gates_x) from dh, pre, c and c_prev (kernel 3 with FROM_PRE),
-//   and with iW also d_x = dpre . iW by kernel 1, the product the TPU
-//   kernel forms in its body (`_lstm_bwd_dx_kernel`).
+//   and with iW also d_x = dpre . iW by kernel 1 from the stored dpre, the
+//   product the TPU kernel forms in its body (`_lstm_bwd_dx_kernel`).
 // Bound: the serial chain, as for the layer kernels (at T=800, B=256,
 // H=256 the operations bound is 1.6 ms and the bytes bound 0.6-0.7 ms,
 // against tens of ms of chain).
@@ -150,6 +151,14 @@
 // four.  The backward cluster instance cannot copy 2-byte values with
 // cp.async (4 bytes at least): its bf16 instances load step s+1's inputs
 // into registers before the product and store them to the ring after it.
+// The recurrence on given gates under the JAX scans' mixed precision
+// (taiyaki_tpu/ops/rnn.py:222-257): the forward's bf16 instance on the
+// caller's gate stream in bf16 (GX16: the gates through registers, as the
+// backward's inputs, rec_cluster.cuh) or f32, h f32, c and pre bf16; the
+// chain's bf16 instance (FROM_PRE on bf16 pre and c) storing dpre in dh's
+// type (the run-time flag d_bf16), rounded where it is stored while the
+// chain goes on from the f32 value (pallas_rnn.py:708-711), the layers
+// passing 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,23 +176,23 @@ namespace {
 constexpr int STREAM_X_BF16 = 1;     // the layer input x (and d_x)
 constexpr int STREAM_H_BF16 = 2;     // h
 constexpr int STREAM_RES_BF16 = 4;   // the residuals: the bf16 instance
-constexpr int STREAM_DH_BF16 = 8;    // dh
-constexpr int STREAM_ALL = 15;
+constexpr int STREAM_DH_BF16 = 8;    // dh (and dpre, as the scan's chain
+                                     // stores it)
+constexpr int STREAM_ALL = 15;       // what the layers' entry points take
 
 // the residual streams' type of an instance
 template <bool BF16>
 using res_t = typename std::conditional<BF16, bf16, float>::type;
 
-// h of a cell into the act stream: f32, or bf16 where the bf16
-// instance's h_bf16 says so
+// v into a stream of f32, or of bf16 where the bf16 instance's flag `bf`
+// says so (h into the act stream, dpre into the gradient stream)
 template <bool BF16>
-__device__ __forceinline__ void store_h(void* h_out, size_t o, float h,
-                                        int h_bf16)
+__device__ __forceinline__ void store_f(void* p, size_t o, float v, int bf)
 {
-    if (BF16 && h_bf16)
-        static_cast<bf16*>(h_out)[o] = __float2bfloat16_rn(h);
+    if (BF16 && bf)
+        static_cast<bf16*>(p)[o] = __float2bfloat16_rn(v);
     else
-        static_cast<float*>(h_out)[o] = h;
+        static_cast<float*>(p)[o] = v;
 }
 
 // dh of a cell from the gradient stream, as store_h
@@ -217,24 +226,29 @@ constexpr int EMIT_PRE = 2;        // c, and pre over gx
 constexpr int EMIT_ACTS = 3;       // c, acts and tc
 
 // gx is read only, except under EMIT_PRE of the f32 instance, which
-// writes pre over it (the bf16 instance writes pre into the acts stream)
-template <int EMIT, bool BF16 = false>
-using gx_ptr = typename std::conditional<EMIT == EMIT_PRE && !BF16, float*,
-                                         const float*>::type;
+// writes pre over it (the bf16 instance writes pre into the acts stream);
+// with GX16 (the bf16 instance on a bf16 gate stream, the scans) it is
+// bf16
+template <int EMIT, bool BF16 = false, bool GX16 = false>
+using gx_ptr = typename std::conditional<
+    GX16, const bf16*,
+    typename std::conditional<EMIT == EMIT_PRE && !BF16, float*,
+                              const float*>::type>::type;
 
 // h[t, b, :] for the BT-row batch tile of this block, and what EMIT asks.
 // gx [T, B, 4H] (input gates incl. bias; pre on return under EMIT_PRE of
-// the f32 instance), swt [H, 4H] = sW^T, h [T, B, H] (bf16 with h_bf16 in
-// the bf16 instance); the residuals in res_t<BF16>.
-template <int BT, int EMIT, bool BF16 = false>
+// the f32 instance; bf16 with GX16), swt [H, 4H] = sW^T, h [T, B, H] (bf16
+// with h_bf16 in the bf16 instance); the residuals in res_t<BF16>.
+template <int BT, int EMIT, bool BF16 = false, bool GX16 = false>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
-lstm_rec_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
+lstm_rec_kernel(gx_ptr<EMIT, BF16, GX16> __restrict__ gx,
                 const float* __restrict__ swt, void* __restrict__ h_out,
                 res_t<BF16>* __restrict__ c_out,
                 res_t<BF16>* __restrict__ acts_out,
                 res_t<BF16>* __restrict__ tc_out, int T, int B, int H,
                 int reverse, int h_bf16)
 {
+    static_assert(BF16 || !GX16, "a bf16 gate stream: the bf16 instance");
     using R = res_t<BF16>;
     extern __shared__ __align__(16) float h_s[];   // [2][H][BT]
     const int j = threadIdx.x;
@@ -255,12 +269,14 @@ lstm_rec_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
         float* hn = h_s + ((s + 1) & 1) * H * BT;
         if (active) {
             float acc[4][BT];
-            const gx_ptr<EMIT, BF16> g = gx + ((size_t)t * B + b0) * H4 + j;
+            const gx_ptr<EMIT, BF16, GX16> g =
+                gx + ((size_t)t * B + b0) * H4 + j;
 #pragma unroll
             for (int r = 0; r < BT; ++r)
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                    acc[q][r] = r < nrow ? g[(size_t)r * H4 + q * H] : 0.f;
+                    acc[q][r] = r < nrow ? widen(g[(size_t)r * H4 + q * H])
+                                         : 0.f;
 
             const float* w = swt + j;
 #pragma unroll 4
@@ -300,7 +316,7 @@ lstm_rec_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
                 hn[j * BT + r] = h;
                 if (r < nrow) {
                     const size_t o = (row + r) * H + j;
-                    store_h<BF16>(h_out, o, h, h_bf16);
+                    store_f<BF16>(h_out, o, h, h_bf16);
                     if (EMIT != EMIT_H) c_out[o] = narrow<R>(c[r]);
                     if constexpr (EMIT == EMIT_PRE && BF16) {
                         R* p = acts_out + (row + r) * H4 + j;
@@ -330,10 +346,12 @@ lstm_rec_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
 // [q U, q U + U); the product in KS k slices of RB rows a lane
 // (rec_cluster.cuh).  Arguments as lstm_rec_kernel's; C ranks of U units.
 // With CLOCK (probes/rec_phases.cu alone) the step's phases are timed
-// into `cycles` [blocks, REC_PHASES]; the layers pass nullptr.
-template <int RB, int EMIT, bool CLOCK = false, bool BF16 = false>
+// into `cycles` [blocks, REC_PHASES]; the layers pass nullptr.  With GX16
+// the bf16 gates go through registers (rec_step_top, rec_stash_gates).
+template <int RB, int EMIT, bool CLOCK = false, bool BF16 = false,
+          bool GX16 = false>
 __global__ void __launch_bounds__(REC_CLUSTER_THREADS, 1)
-lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
+lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16, GX16> __restrict__ gx,
                         const float* __restrict__ swt,
                         void* __restrict__ h_out,
                         res_t<BF16>* __restrict__ c_out,
@@ -342,6 +360,7 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
                         int H, int reverse, int C, int U, int BT, int KS,
                         long long* __restrict__ cycles, int h_bf16)
 {
+    static_assert(BF16 || !GX16, "a bf16 gate stream: the bf16 instance");
     using R = res_t<BF16>;
     extern __shared__ __align__(16) float smem[];
     const RecSmem m = rec_smem(smem, H, C, U, BT);
@@ -365,11 +384,15 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
         const int nb = (s + 1) & 1;
         const bool more = s + 1 < T;
         clk.start();
-        rec_step_top<4>(m, gx, s, T, reverse ? t - 1 : t + 1, B, b0, nrow, H,
-                        C, U, u0, BT, cl);
+        float v[REC_MAX_CELLS][4];
+        rec_step_top<4>(m, gx, v, s, T, reverse ? t - 1 : t + 1, B, b0, nrow,
+                        H, C, U, u0, BT, cl);
         clk.template lap<REC_TOP>();
         if (works)
             rec_partials<4, RB>(m, m.hS + (s & 1) * C * U * BT, wk, U, BT);
+        if constexpr (GX16)
+            if (more) rec_stash_gates<4>(m.ring + nb * BT * U * 4, v, nrow,
+                                         H, U, u0, cl);
         __syncthreads();
         cp_async_wait<1>();
         clk.template lap<REC_PRODUCT>();
@@ -395,7 +418,7 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
             if (row < nrow) {
                 const size_t r = (size_t)t * B + b0 + row;
                 const size_t o = r * H + u;
-                store_h<BF16>(h_out, o, h, h_bf16);
+                store_f<BF16>(h_out, o, h, h_bf16);
                 if (EMIT != EMIT_H) c_out[o] = narrow<R>(c[j]);
                 if constexpr (EMIT == EMIT_PRE && BF16) {
                     R* g = acts_out + r * H4 + u;
@@ -434,17 +457,18 @@ lstm_rec_cluster_kernel(gx_ptr<EMIT, BF16> __restrict__ gx,
 // c_prev of step t is cprev[t + cshift] (zero outside [0, T));
 // sw [4H, H] = sW.  The gates of type TG, cs and cprev of type TS (f32
 // for the f32 instance; bf16, and the gates bf16 or the recomputing
-// backward's f32 pre, for the bf16 ones); dh bf16 with dh_bf16 in the bf16
-// instances.
+// backward's f32 pre, for the bf16 ones); dh and dpre bf16 with dh_bf16
+// and d_bf16 in the bf16 instances (dpre rounded where it is stored; the
+// chain goes on from the f32 value).
 template <int BT, bool FROM_PRE, typename TG = float, typename TS = float>
 __global__ void __launch_bounds__(REC_MAX_THREADS)
 lstm_bwd_rec_kernel(const void* __restrict__ dh_out,
                     const TG* __restrict__ gates,
                     const TS* __restrict__ cs,
                     const TS* __restrict__ cprev, int cshift,
-                    const float* __restrict__ sw, float* __restrict__ dpre,
+                    const float* __restrict__ sw, void* __restrict__ dpre,
                     float* __restrict__ db_part, int T, int B, int H,
-                    int reverse, int dh_bf16)
+                    int reverse, int dh_bf16, int d_bf16)
 {
     constexpr bool BF16 = is_bf16<TS>;
     extern __shared__ __align__(16) float g_s[];   // [2][4H][BT]
@@ -496,10 +520,10 @@ lstm_bwd_rec_kernel(const void* __restrict__ dh_out,
                     p[2] = dc * ig * (1.f - gg * gg);
                     p[3] = d_o * og * (1.f - og);
                     dc_c[r] = dc * fg;
-                    float* d = dpre + (row + r) * H4 + j;
+                    const size_t od = (row + r) * H4 + j;
 #pragma unroll
                     for (int q = 0; q < 4; ++q) {
-                        d[q * H] = p[q];
+                        store_f<BF16>(dpre, od + q * H, p[q], d_bf16);
                         db[q] += p[q];
                     }
                 }
@@ -622,7 +646,7 @@ __device__ __forceinline__ void lstm_bwd_stash(
 // those units (rec_cluster.cuh, the backward).  Arguments as
 // lstm_bwd_rec_kernel's; C ranks of U units; db_part [ceil(B / BT), 4H].
 // With CLOCK (probes/rec_phases.cu alone) the step's phases are timed
-// into `cycles`; the layers pass nullptr.  TG, TS and dh_bf16 as
+// into `cycles`; the layers pass nullptr.  TG, TS, dh_bf16 and d_bf16 as
 // lstm_bwd_rec_kernel's.
 template <int RB, int KL, bool FROM_PRE, bool CLOCK = false,
           typename TG = float, typename TS = float>
@@ -632,10 +656,11 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
                             const TS* __restrict__ cs,
                             const TS* __restrict__ cprev, int cshift,
                             const float* __restrict__ sw,
-                            float* __restrict__ dpre,
+                            void* __restrict__ dpre,
                             float* __restrict__ db_part, int T, int B, int H,
                             int reverse, int C, int U, int BT,
-                            long long* __restrict__ cycles, int dh_bf16)
+                            long long* __restrict__ cycles, int dh_bf16,
+                            int d_bf16)
 {
     constexpr bool BF16 = is_bf16<TS>;
     extern __shared__ __align__(16) float smem[];
@@ -710,8 +735,11 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
             p.z = dc * ig * (1.f - gg * gg);
             p.w = d_o * og * (1.f - og);
             dc_c[j] = dc * fg;
-            float* d = dpre + ((size_t)t * B + b0 + row) * H4 + u;
-            d[0] = p.x; d[H] = p.y; d[2 * H] = p.z; d[3 * H] = p.w;
+            const size_t od = ((size_t)t * B + b0 + row) * H4 + u;
+            store_f<BF16>(dpre, od, p.x, d_bf16);
+            store_f<BF16>(dpre, od + H, p.y, d_bf16);
+            store_f<BF16>(dpre, od + 2 * H, p.z, d_bf16);
+            store_f<BF16>(dpre, od + 3 * H, p.w, d_bf16);
             db[j][0] += p.x; db[j][1] += p.y; db[j][2] += p.z;
             db[j][3] += p.w;
             reinterpret_cast<float4*>(m.dS)[(size_t)row * U + u_c] = p;
@@ -748,38 +776,41 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
     clk.store(cycles);
 }
 
-template <int EMIT, bool BF16>
-int launch_lstm_rec(float* gx, const float* swt, void* h, void* c,
+template <int EMIT, bool BF16, bool GX16>
+int launch_lstm_rec(void* gx, const float* swt, void* h, void* c,
                     void* acts, void* tc, int T, int B, int H, int reverse,
                     int h_bf16, cudaStream_t st)
 {
     using R = res_t<BF16>;
-    const auto kernel = lstm_rec_kernel<REC_BT, EMIT, BF16>;
+    const auto kernel = lstm_rec_kernel<REC_BT, EMIT, BF16, GX16>;
     const size_t smem = 2 * sizeof(float) * H * REC_BT;
     int rc;
     if ((rc = set_smem((const void*)kernel, smem))) return rc;
     const int threads = (H + 31) / 32 * 32;
     const int blocks = (B + REC_BT - 1) / REC_BT;
     kernel<<<blocks, threads, smem, st>>>(
-        gx, swt, h, static_cast<R*>(c), static_cast<R*>(acts),
-        static_cast<R*>(tc), T, B, H, reverse, h_bf16);
+        static_cast<gx_ptr<EMIT, BF16, GX16>>(gx), swt, h,
+        static_cast<R*>(c), static_cast<R*>(acts), static_cast<R*>(tc), T,
+        B, H, reverse, h_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
 // The cluster instance (kernel 2a) on a plan of C ranks, BT rows a tile,
 // RB rows a lane and KS k slices.
-template <int RB, int EMIT, bool BF16>
-int launch_lstm_rec_cluster(float* gx, const float* swt, void* h, void* c,
+template <int RB, int EMIT, bool BF16, bool GX16>
+int launch_lstm_rec_cluster(void* gx, const float* swt, void* h, void* c,
                             void* acts, void* tc, int T, int B, int H,
                             int reverse, int h_bf16, int C, int BT, int KS,
                             int smem, cudaStream_t st)
 {
     using R = res_t<BF16>;
     const int U = (H + C - 1) / C;
-    return rec_cluster_launch(lstm_rec_cluster_kernel<RB, EMIT, false, BF16>,
+    return rec_cluster_launch(lstm_rec_cluster_kernel<RB, EMIT, false, BF16,
+                                                      GX16>,
                               C, (B + BT - 1) / BT,
                               rec_cluster_threads(U, BT, RB, KS), smem, st,
-                              static_cast<gx_ptr<EMIT, BF16>>(gx), swt, h,
+                              static_cast<gx_ptr<EMIT, BF16, GX16>>(gx), swt,
+                              h,
                               static_cast<R*>(c), static_cast<R*>(acts),
                               static_cast<R*>(tc), T, B, H, reverse, C, U,
                               BT, KS, static_cast<long long*>(nullptr),
@@ -787,17 +818,18 @@ int launch_lstm_rec_cluster(float* gx, const float* swt, void* h, void* c,
 }
 
 // Kernel 2 on a checked plan (rec_plan_check): the L2 or cluster instance.
-template <int EMIT, bool BF16 = false>
-int launch_lstm_rec_plan(float* gx, const float* swt, void* h, void* c,
+template <int EMIT, bool BF16 = false, bool GX16 = false>
+int launch_lstm_rec_plan(void* gx, const float* swt, void* h, void* c,
                          void* acts, void* tc, int T, int B, int H,
                          int reverse, int h_bf16, int instance, int C, int BT,
                          int RB, int KS, int smem, cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
-        return launch_lstm_rec<EMIT, BF16>(gx, swt, h, c, acts, tc, T, B, H,
-                                           reverse, h_bf16, st);
+        return launch_lstm_rec<EMIT, BF16, GX16>(gx, swt, h, c, acts, tc, T,
+                                                 B, H, reverse, h_bf16, st);
     return rec_with_rb(RB, [&](auto rb) {
-        return launch_lstm_rec_cluster<decltype(rb)::value, EMIT, BF16>(
+        return launch_lstm_rec_cluster<decltype(rb)::value, EMIT, BF16,
+                                       GX16>(
             gx, swt, h, c, acts, tc, T, B, H, reverse, h_bf16, C, BT, KS,
             smem, st);
     });
@@ -834,8 +866,9 @@ int launch_lstm_rec_emit(int emit, float* gx, const float* swt, void* h,
 template <bool FROM_PRE, typename TG, typename TS>
 int launch_lstm_bwd_rec(const void* dh, const TG* gates, const TS* cs,
                         const TS* cprev, int cshift, const float* sw,
-                        float* dpre, float* db_part, int T, int B, int H,
-                        int reverse, int dh_bf16, cudaStream_t st)
+                        void* dpre, float* db_part, int T, int B, int H,
+                        int reverse, int dh_bf16, int d_bf16,
+                        cudaStream_t st)
 {
     const auto kernel = lstm_bwd_rec_kernel<REC_BT, FROM_PRE, TG, TS>;
     const size_t smem = 2 * sizeof(float) * 4 * H * REC_BT;
@@ -845,7 +878,7 @@ int launch_lstm_bwd_rec(const void* dh, const TG* gates, const TS* cs,
     const int blocks = (B + REC_BT - 1) / REC_BT;
     kernel<<<blocks, threads, smem, st>>>(dh, gates, cs, cprev, cshift, sw,
                                           dpre, db_part, T, B, H, reverse,
-                                          dh_bf16);
+                                          dh_bf16, d_bf16);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -854,37 +887,38 @@ int launch_lstm_bwd_rec(const void* dh, const TG* gates, const TS* cs,
 template <int RB, int KL, bool FROM_PRE, typename TG, typename TS>
 int launch_lstm_bwd_rec_cluster(const void* dh, const TG* gates,
                                 const TS* cs, const TS* cprev, int cshift,
-                                const float* sw, float* dpre, float* db_part,
+                                const float* sw, void* dpre, float* db_part,
                                 int T, int B, int H, int reverse, int dh_bf16,
-                                int C, int BT, int smem, cudaStream_t st)
+                                int d_bf16, int C, int BT, int smem,
+                                cudaStream_t st)
 {
     const int U = (H + C - 1) / C;
     return rec_cluster_launch(
         lstm_bwd_rec_cluster_kernel<RB, KL, FROM_PRE, false, TG, TS>, C,
         (B + BT - 1) / BT, rec_bwd_threads(H, BT, RB, KL), smem, st, dh,
         gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse, C, U,
-        BT, static_cast<long long*>(nullptr), dh_bf16);
+        BT, static_cast<long long*>(nullptr), dh_bf16, d_bf16);
 }
 
 // Kernel 3 on a checked plan (rec_bwd_plan_check): the L2 or cluster
-// instance.
+// instance; dpre f32, or bf16 with d_bf16 (the bf16 instance).
 template <bool FROM_PRE, typename TG, typename TS>
 int launch_lstm_bwd_rec_plan(const void* dh, const TG* gates, const TS* cs,
                              const TS* cprev, int cshift, const float* sw,
-                             float* dpre, float* db_part, int T, int B,
-                             int H, int reverse, int dh_bf16, int instance,
-                             int C, int BT, int RB, int KL, int smem,
-                             cudaStream_t st)
+                             void* dpre, float* db_part, int T, int B,
+                             int H, int reverse, int dh_bf16, int d_bf16,
+                             int instance, int C, int BT, int RB, int KL,
+                             int smem, cudaStream_t st)
 {
     if (instance == INSTANCE_L2)
         return launch_lstm_bwd_rec<FROM_PRE>(dh, gates, cs, cprev, cshift,
                                              sw, dpre, db_part, T, B, H,
-                                             reverse, dh_bf16, st);
+                                             reverse, dh_bf16, d_bf16, st);
     return rec_with_rb_kl(RB, KL, [&](auto rb, auto kl) {
         return launch_lstm_bwd_rec_cluster<decltype(rb)::value,
                                            decltype(kl)::value, FROM_PRE>(
             dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H,
-            reverse, dh_bf16, C, BT, smem, st);
+            reverse, dh_bf16, d_bf16, C, BT, smem, st);
     });
 }
 
@@ -905,7 +939,8 @@ int lstm_bwd_chain(const void* dh, const TG* gates, const TS* cs,
     const bool xb = streams & STREAM_X_BF16;
     int rc = launch_lstm_bwd_rec_plan<FROM_PRE>(
         dh, gates, cs, cprev, cshift, sw, dpre, db_part, T, B, H, reverse,
-        (streams & STREAM_DH_BF16) != 0, instance, C, BT, RB, KL, smem, st);
+        (streams & STREAM_DH_BF16) != 0, 0, instance, C, BT, RB, KL, smem,
+        st);
     if (rc) return rc;
     cudaError_t err;
     if ((err = gemm_gate(gemm_plan_at(gemm, 0), GemmIn{dpre, false}, iwt,
@@ -1114,26 +1149,50 @@ int tt_lstm_bwd_recompute(const void* dh, const void* c, const void* h,
 }
 
 // Kernel 14: the LSTM recurrence on given gates.  gx [T, B, 4H] (read
-// only), swt = sW^T [H, 4H] -> h [T, B, H]; with pre non-null also c
-// [T, B, H] and pre [T, B, 4H] (gx copied into pre, then overwritten in
-// place by the chain).  All f32.  The plan as tt_lstm_fwd's.  Returns
+// only), swt = sW^T [H, 4H] -> h [T, B, H] (f32); with pre non-null also
+// c [T, B, H] and pre [T, B, 4H].  `streams` (STREAM_* bits): 0 for all
+// f32 (gx copied into pre, then overwritten in place by the chain), or
+// the bf16 instance (STREAM_RES_BF16: c and pre stored in bf16, pre
+// written into its own stream), whose gx is bf16 where STREAM_X_BF16 says
+// (read through registers, rec_cluster.cuh); h stays f32 in both, as the
+// JAX scans keep it.  The plan as tt_lstm_fwd's.  Returns
 // cudaGetLastError() after the first failing launch or copy, else 0.
-int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
-                     float* h, float* c, int T, int B, int H, int reverse,
+int tt_lstm_scan_fwd(const void* gx, const float* swt, void* pre, float* h,
+                     void* c, int T, int B, int H, int reverse, int streams,
                      int instance, int C, int BT, int RB, int KS, int smem,
                      void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const bool res16 = streams & STREAM_RES_BF16;
+    const bool gx16 = streams & STREAM_X_BF16;
+    if (H > REC_MAX_THREADS
+            || (streams & ~(STREAM_X_BF16 | STREAM_RES_BF16))
+            || (gx16 && !res16) || ((pre == nullptr) != (c == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_plan_check(instance, H, C, BT, RB, KS, smem,
                                      REC_BT, REC_MAX_THREADS);
     if (err != cudaSuccess) return static_cast<int>(err);
+    void* g = const_cast<void*>(gx);
+    if (res16 && pre == nullptr)
+        return gx16 ? launch_lstm_rec_plan<EMIT_H, true, true>(
+                          g, swt, h, nullptr, nullptr, nullptr, T, B, H,
+                          reverse, 0, instance, C, BT, RB, KS, smem, st)
+                    : launch_lstm_rec_plan<EMIT_H, true>(
+                          g, swt, h, nullptr, nullptr, nullptr, T, B, H,
+                          reverse, 0, instance, C, BT, RB, KS, smem, st);
+    if (res16)
+        return gx16 ? launch_lstm_rec_plan<EMIT_PRE, true, true>(
+                          g, swt, h, c, pre, nullptr, T, B, H, reverse, 0,
+                          instance, C, BT, RB, KS, smem, st)
+                    : launch_lstm_rec_plan<EMIT_PRE, true>(
+                          g, swt, h, c, pre, nullptr, T, B, H, reverse, 0,
+                          instance, C, BT, RB, KS, smem, st);
     if (pre == nullptr)
-        return launch_lstm_rec_plan<EMIT_H>(const_cast<float*>(gx), swt, h,
-                                            nullptr, nullptr, nullptr, T, B,
-                                            H, reverse, 0, instance, C, BT,
-                                            RB, KS, smem, st);
+        return launch_lstm_rec_plan<EMIT_H>(g, swt, h, nullptr, nullptr,
+                                            nullptr, T, B, H, reverse, 0,
+                                            instance, C, BT, RB, KS, smem,
+                                            st);
     err = cudaMemcpyAsync(pre, gx, sizeof(float) * T * B * 4 * H,
                           cudaMemcpyDeviceToDevice, st);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1146,29 +1205,48 @@ int tt_lstm_scan_fwd(const float* gx, const float* swt, float* pre,
 // cprev [T, B, H], pre [T, B, 4H], sw = sW [4H, H] -> dpre [T, B, 4H];
 // db_part [ceil(B/BT), 4H] is scratch (the chain sums d_b, which the
 // recurrence on given gates has no use for).  With iwt = iW^T [D, 4H]
-// non-null also dx [T, B, D] = dpre . iW, on the GEMM plan gemm[0].  All
-// f32.  The plan as tt_lstm_bwd's.
-int tt_lstm_scan_bwd(const float* dh, const float* pre, const float* c,
-                     const float* cprev, const float* sw, const float* iwt,
-                     float* dpre, float* dx, float* db_part, int T, int B,
-                     int D, int H, int reverse, int instance, int C, int BT,
-                     int RB, int KL, int smem, const int* gemm, void* stream)
+// non-null also dx [T, B, D] (f32) = dpre . iW from the stored dpre, on
+// the GEMM plan gemm[0].  `streams`: 0 for all f32, or the bf16 instance
+// (STREAM_RES_BF16: pre, c and cprev bf16), with dh bf16 where
+// STREAM_DH_BF16 says and dpre stored in dh's type (rounded where it is
+// stored; the chain goes on from the f32 value).
+// The plan as tt_lstm_bwd's.
+int tt_lstm_scan_bwd(const void* dh, const void* pre, const void* c,
+                     const void* cprev, const float* sw, const float* iwt,
+                     void* dpre, float* dx, float* db_part, int T, int B,
+                     int D, int H, int reverse, int streams, int instance,
+                     int C, int BT, int RB, int KL, int smem,
+                     const int* gemm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (T * B == 0) return 0;
-    if (H > REC_MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+    const bool res16 = streams & STREAM_RES_BF16;
+    const int dh16 = (streams & STREAM_DH_BF16) != 0;
+    if (H > REC_MAX_THREADS
+            || (streams & ~(STREAM_RES_BF16 | STREAM_DH_BF16))
+            || (streams && !res16))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const GemmIn dsrc{dpre, dh16 != 0};
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
     if (err == cudaSuccess && iwt != nullptr)
-        err = gate_plan_check(gemm_plan_at(gemm, 0), dpre, iwt, 4 * H);
+        err = gate_plan_check(gemm_plan_at(gemm, 0), dsrc, iwt, 4 * H);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int rc = launch_lstm_bwd_rec_plan<true>(dh, pre, c, cprev, 0, sw, dpre,
-                                            db_part, T, B, H, reverse, 0,
-                                            instance, C, BT, RB, KL, smem,
-                                            st);
+    int rc;
+    if (res16)
+        rc = launch_lstm_bwd_rec_plan<true>(
+            dh, static_cast<const bf16*>(pre), static_cast<const bf16*>(c),
+            static_cast<const bf16*>(cprev), 0, sw, dpre, db_part, T, B, H,
+            reverse, dh16, dh16, instance, C, BT, RB, KL, smem, st);
+    else
+        rc = launch_lstm_bwd_rec_plan<true>(
+            dh, static_cast<const float*>(pre), static_cast<const float*>(c),
+            static_cast<const float*>(cprev), 0, sw, dpre, db_part, T, B, H,
+            reverse, 0, 0, instance, C, BT, RB, KL, smem, st);
     if (rc || iwt == nullptr) return rc;
-    return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dpre, iwt,
-                                      nullptr, dx, T * B, D, 4 * H, st));
+    return static_cast<int>(gemm_gate(gemm_plan_at(gemm, 0), dsrc, iwt,
+                                      nullptr, GemmOut{dx, false}, T * B, D,
+                                      4 * H, st));
 }
 
 }  // extern "C"

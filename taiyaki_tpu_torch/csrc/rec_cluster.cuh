@@ -93,6 +93,13 @@
 //    goes below zero until the arrive, and the phase cannot complete while
 //    the arrival pends.
 //  - Step T-1 exchanges nothing (no later step reads it).
+//  - A bf16 gate stream (the bf16 instances of the recurrences on given
+//    gates) cannot go by cp.async, which copies 4 bytes at least, and a
+//    thread's gates of a cell lie H apart: each thread loads step s+1's
+//    gates of its cells into registers at the top of step s
+//    (rec_step_top), before the product, and stores them widened to its
+//    ring slot after it (rec_stash_gates); a thread still reads only the
+//    ring words it wrote itself.
 //  - Before the loop: the mbarriers are initialised (fence.mbarrier_init
 //    at cluster scope), hS[0] is zeroed (the initial state), the weights
 //    and step 0's gates are copied, and a cluster barrier makes sure every
@@ -175,6 +182,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -548,6 +556,41 @@ __device__ __forceinline__ void rec_prefetch(float* slot,
     }
 }
 
+// The input gates of time t of this thread's cells from a bf16 gate
+// stream, widened into v [cell][gate] (the bf16 gate reader: what
+// rec_prefetch copies, through registers).
+template <int G>
+__device__ __forceinline__ void rec_load_gates(
+    float (&v)[REC_MAX_CELLS][4], const __nv_bfloat16* __restrict__ gx,
+    int t, int B, int b0, int nrow, int H, int u0, const RecCells& cl)
+{
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            const __nv_bfloat16* g = gx
+                + ((size_t)t * B + b0 + cl.row[j]) * G * H + u0 + cl.u_c[j];
+#pragma unroll
+            for (int q = 0; q < G; ++q) v[j][q] = __bfloat162float(g[q * H]);
+        }
+    }
+}
+
+// What rec_load_gates loaded into ring slot [BT][U][4].
+template <int G>
+__device__ __forceinline__ void rec_stash_gates(
+    float* slot, const float (&v)[REC_MAX_CELLS][4], int nrow, int H, int U,
+    int u0, const RecCells& cl)
+{
+#pragma unroll
+    for (int j = 0; j < REC_MAX_CELLS; ++j) {
+        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
+            float* d = slot + ((size_t)cl.row[j] * U + cl.u_c[j]) * 4;
+#pragma unroll
+            for (int q = 0; q < G; ++q) d[q] = v[j][q];
+        }
+    }
+}
+
 // acc[q][r] = fmaf chain over k = k0 .. k1-1 of wS[k][ul_c].q *
 // hS[k][rg RB + r], from zero.
 template <int G, int RB>
@@ -633,11 +676,12 @@ __device__ __forceinline__ void rec_send(const RecSmem& m, int nb, int C,
     }
 }
 
-// The start of the kernel: mbarriers, weights, h = 0, step 0's gates, and
-// the cluster barrier after which remote stores may come.
-template <int G>
+// The start of the kernel: mbarriers, weights, h = 0, step 0's gates
+// (of type TX: f32, or bf16 through registers), and the cluster barrier
+// after which remote stores may come.
+template <int G, typename TX>
 __device__ __forceinline__ void rec_prologue(const RecSmem& m,
-                                             const float* __restrict__ gx,
+                                             const TX* __restrict__ gx,
                                              const float* __restrict__ swt,
                                              int t0, int B, int b0, int nrow,
                                              int H, int C, int U, int u0,
@@ -650,18 +694,26 @@ __device__ __forceinline__ void rec_prologue(const RecSmem& m,
     }
     rec_load_weights<G>(m.wS, swt, H, U, u0);
     for (int i = threadIdx.x; i < C * U * BT; i += blockDim.x) m.hS[i] = 0.f;
-    rec_prefetch<G>(m.ring, gx, t0, B, b0, nrow, H, U, u0, cl);
+    if constexpr (std::is_same<TX, float>::value) {
+        rec_prefetch<G>(m.ring, gx, t0, B, b0, nrow, H, U, u0, cl);
+    } else {
+        float v[REC_MAX_CELLS][4];
+        rec_load_gates<G>(v, gx, t0, B, b0, nrow, H, u0, cl);
+        rec_stash_gates<G>(m.ring, v, nrow, H, U, u0, cl);
+    }
     cp_async_commit();
     cp_async_wait<0>();
     cluster_sync();
 }
 
 // The top of step s: thread 0's arrival on the buffer the step fills (the
-// other C-1 ranks' blocks to come), and the copies of step s+1's gates
-// (time tn) into the other ring slot.
-template <int G>
+// other C-1 ranks' blocks to come), and step s+1's gates (time tn): f32
+// ones copied into the other ring slot, bf16 ones loaded into v, which
+// the kernel stashes there after the product (rec_stash_gates).
+template <int G, typename TX>
 __device__ __forceinline__ void rec_step_top(const RecSmem& m,
-                                             const float* __restrict__ gx,
+                                             const TX* __restrict__ gx,
+                                             float (&v)[REC_MAX_CELLS][4],
                                              int s, int T, int tn, int B,
                                              int b0, int nrow, int H, int C,
                                              int U, int u0, int BT,
@@ -671,8 +723,11 @@ __device__ __forceinline__ void rec_step_top(const RecSmem& m,
     if (s + 1 < T) {
         if (threadIdx.x == 0)
             mbar_arrive_expect(m.bar + nb, 4 * (C - 1) * U * BT);
-        rec_prefetch<G>(m.ring + nb * BT * U * 4, gx, tn, B, b0, nrow, H, U,
-                        u0, cl);
+        if constexpr (std::is_same<TX, float>::value)
+            rec_prefetch<G>(m.ring + nb * BT * U * 4, gx, tn, B, b0, nrow, H,
+                            U, u0, cl);
+        else
+            rec_load_gates<G>(v, gx, tn, B, b0, nrow, H, u0, cl);
     }
     cp_async_commit();
 }

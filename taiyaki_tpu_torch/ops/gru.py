@@ -42,10 +42,16 @@ wherever any of dh, h and x is bf16 (it stores no residuals: its rebuilt
 gx and gh are f32 scratch); dh, h (h_prev) and x may each be bf16 or f32,
 every value is widened at load, dgx and dgh stay f32, d_x comes back in
 x's dtype and the weight partials in f32.  The plain twins take the same
-dtypes and round exactly where the kernels store.  Each wrapper counts its
-bf16 launches (`<wrapper>.bf16`, and `<wrapper>.bf16_by_instance`).  The
-recurrences on given gates have no bf16 instance; a bf16 tensor given to
-one, or to an f32 instance, raises.
+dtypes and round exactly where the kernels store.  The recurrences on
+given gates have their bf16 instance too, the JAX scans' mixed precision
+(taiyaki_tpu/ops/rnn.py:548-588): `gru_scan_fwd(res_dtype=torch.bfloat16)`
+reads gates_x of f32 or bf16 (a bf16 gate stream through registers) and
+gives h in f32 and gh in bf16; `gru_scan_bwd` on a bf16 gh reads gates_x,
+h_prev and dh each in f32 or bf16 and stores dgx and dgh in dh's dtype,
+the chain going on from the f32 values.  Each wrapper
+counts its bf16 launches (`<wrapper>.bf16`, and
+`<wrapper>.bf16_by_instance`).  A bf16 tensor given to an f32 instance,
+or a pairing no JAX route produces, raises.
 
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.  A failed build or launch of a bf16
@@ -60,8 +66,8 @@ from taiyaki_tpu_torch.ops import cuda_lib, gemm, rnn_plan
 from taiyaki_tpu_torch.ops.lstm import (BF16, F32, STREAM_DH, STREAM_H,
                                         STREAM_X, _as, _bwd_streams,
                                         _chain_bf16, _check_args,
-                                        _check_hidden, _streams,
-                                        bwd_outputs, no_bf16, prev_state)
+                                        _check_hidden, _streams, bwd_outputs,
+                                        prev_state)
 
 _P, _I = cuda_lib.P, cuda_lib.I
 # (the GEMM plans go as one pointer, an int array: ops/gemm.py `c_args`)
@@ -69,9 +75,9 @@ _SIGNATURES = {"tt_gru_fwd": [_P] * 8 + [_I] * 12 + [_P, _P],
                "tt_gru_bwd": [_P] * 13 + [_I] * 6 + [_P] + [_I] * 6 + [_P],
                "tt_gru_bwd_fusedw": [_P] * 13 + [_I] * 6 + [_P] + [_I] * 6
                + [_P],
-               "tt_gru_scan_fwd": [_P] * 4 + [_I] * 10 + [_P],
+               "tt_gru_scan_fwd": [_P] * 4 + [_I] * 11 + [_P],
                "tt_gru_cluster_occupancy": [_I] * 6,
-               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 11 + [_P, _P]}
+               "tt_gru_scan_bwd": [_P] * 10 + [_I] * 12 + [_P, _P]}
 
 
 def _cell(gx_t, gh_t, h):
@@ -343,29 +349,36 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
     return out
 
 
-def gru_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False):
+def gru_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False,
+                       res_dtype=None):
     """Plain PyTorch GRU recurrence on given input gates gates_x [T, B, 3H]
-    (= x . iW^T + b, gate order r, z, n), sW [3H, H] -> h [T, B, H]; with
-    residuals (h, gh [T, B, 3H])."""
-    out, gh = _gru_rec_plain(gates_x, sW, reverse, residuals)
-    return (out, gh) if residuals else out
+    (= x . iW^T + b, gate order r, z, n; f32 or bf16, widened), sW [3H, H]
+    -> h [T, B, H] (f32); with residuals (h, gh [T, B, 3H]), gh rounded to
+    `res_dtype` (f32 by default) where the kernel stores it."""
+    out, gh = _gru_rec_plain(gates_x.float(), sW, reverse, residuals)
+    return (out, _as(gh, res_dtype)) if residuals else out
 
 
 def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
-                 instance=None):
+                 instance=None, res_dtype=None):
     """The GRU recurrence on given gates (kernel 16); contract of
-    `gru_scan_fwd_plain`.  gates_x is read, never written.  `instance` as
+    `gru_scan_fwd_plain`.  gates_x is read, never written, nor copied (the
+    caller keeps it for the backward).  `res_dtype=torch.bfloat16` takes
+    the bf16 instance, on gates_x of f32 or bf16 (the JAX scans' mixed
+    precision: h f32, gh bf16); else gates_x must be f32.  `instance` as
     `gru_fwd`'s."""
     rnn_plan.check_instance(instance)
-    no_bf16("gru_scan_fwd", gates_x, sW)
-    if gates_x.device.type == "cpu":
-        return gru_scan_fwd_plain(gates_x, sW, reverse, residuals)
     what = "gru_scan_fwd"
+    res_dtype = res_dtype or F32
+    streams = _streams(what, gates_x.dtype, F32, res_dtype)
+    if gates_x.device.type == "cpu":
+        return gru_scan_fwd_plain(gates_x, sW, reverse, residuals, res_dtype)
     cuda_lib.check_cuda(gates_x, what)
     T, B = gates_x.shape[:2]
     H = sW.shape[1]
     _check_args(what, gates_x.device, (
-        ("gates_x", gates_x, (T, B, 3 * H)), ("sW", sW, (3 * H, H))))
+        ("gates_x", gates_x, (T, B, 3 * H), (F32, BF16)),
+        ("sW", sW, (3 * H, H))))
     _check_hidden(what, H)
     plan = rnn_plan.rec_plan(3, H, B, clusters_per_wave(
         gates_x.device.index), instance)
@@ -374,12 +387,13 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
     with torch.cuda.device(dev):
         swt = sW.t().contiguous()
         h = torch.empty(T, B, H, device=dev)
-        gh = torch.empty(T, B, 3 * H, device=dev) if residuals else None
+        gh = (torch.empty(T, B, 3 * H, device=dev, dtype=res_dtype)
+              if residuals else None)
         err = lib.tt_gru_scan_fwd(
             cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(h),
-            cuda_lib.ptr(gh), T, B, H, int(bool(reverse)),
+            cuda_lib.ptr(gh), T, B, H, int(bool(reverse)), streams,
             *rnn_plan.c_args(plan), cuda_lib.stream(dev))
-        rnn_plan.count(gru_scan_fwd, plan)
+        rnn_plan.count(gru_scan_fwd, plan, bool(streams))
     cuda_lib.check(lib, err, what + " kernel")
     return (h, gh) if residuals else h
 
@@ -387,30 +401,39 @@ def gru_scan_fwd(gates_x, sW, reverse=False, residuals=False,
 def gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None):
     """Plain PyTorch GRU gradient chain on the recurrence's residuals: dh,
     h_prev [T, B, H], gates_x, gh [T, B, 3H], sW [3H, H] -> (dgx, dgh)
-    [T, B, 3H] (dgx = d gates_x); with iW [3H, D] (dgx, dgh, d_x = dgx .
-    iW [T, B, D]).  `reverse` is the forward's direction; the chain walks
-    opposite."""
-    dgx, dgh = _gru_dgrads_plain(dh, gates_x, gh, h_prev, sW, reverse)
+    [T, B, 3H] (dgx = d gates_x), each input widened, dgx and dgh rounded
+    to dh's dtype where the kernel stores them, the chain going on from
+    the f32 values; with iW [3H, D] (dgx, dgh, d_x = dgx . iW [T, B, D],
+    f32, from the stored dgx).  `reverse` is the
+    forward's direction; the chain walks opposite."""
+    dgx, dgh = (_as(g, dh.dtype) for g in _gru_dgrads_plain(
+        dh.float(), gates_x.float(), gh.float(), h_prev.float(), sW,
+        reverse))
     if iW is None:
         return dgx, dgh
-    return dgx, dgh, torch.matmul(dgx, iW)
+    return dgx, dgh, torch.matmul(dgx.float(), iW)
 
 
 def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
                  instance=None):
     """The GRU gradient chain on given gates (kernel 17); contract of
-    `gru_scan_bwd_plain`.  gates_x and gh are read, never written.
-    `instance` as `gru_bwd_recompute`'s."""
+    `gru_scan_bwd_plain`.  gates_x and gh are read, never written.  A bf16
+    gh takes the bf16 instance, with gates_x, h_prev and dh (and so the
+    stored gradients) each bf16 or f32 (the JAX scans give f32 gates_x
+    under TAIYAKI_TPU_F32_GATES); an f32 gh the
+    f32 instance, all f32.  `instance` as `gru_bwd_recompute`'s."""
     rnn_plan.check_instance(instance)
-    no_bf16("gru_scan_bwd", dh, gates_x, gh, h_prev, sW, iW)
+    what = "gru_scan_bwd"
+    streams = _bwd_streams(what, (gh,), dh, h_prev, gates_x)
     if dh.device.type == "cpu":
         return gru_scan_bwd_plain(dh, gates_x, gh, h_prev, sW, reverse, iW)
-    what = "gru_scan_bwd"
     cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
-    specs = [("dh", dh, (T, B, H)), ("gates_x", gates_x, (T, B, 3 * H)),
-             ("gh", gh, (T, B, 3 * H)), ("h_prev", h_prev, (T, B, H)),
-             ("sW", sW, (3 * H, H))]
+    both = (F32, BF16)
+    specs = [("dh", dh, (T, B, H), both),
+             ("gates_x", gates_x, (T, B, 3 * H), both),
+             ("gh", gh, (T, B, 3 * H), both),
+             ("h_prev", h_prev, (T, B, H), both), ("sW", sW, (3 * H, H))]
     D = 0 if iW is None else iW.shape[1]
     if iW is not None:
         specs.append(("iW", iW, (3 * H, D)))
@@ -421,21 +444,21 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
     dev = dh.device
     with torch.cuda.device(dev):
         iwt, = gemm.tma_ready(None if iW is None else iW.t().contiguous())
-        dgx = torch.empty(T, B, 3 * H, device=dev)
-        dgh = torch.empty(T, B, 3 * H, device=dev)
+        dgx = torch.empty(T, B, 3 * H, device=dev, dtype=dh.dtype)
+        dgh = torch.empty(T, B, 3 * H, device=dev, dtype=dh.dtype)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
         db = torch.empty(-(-B // plan.BT), 3 * H, device=dev)
-        gplans = ([] if iW is None else
-                  gemm.plans_for(dev, (T * B, D, 3 * H, gemm.GATE)))
+        gplans = ([] if iW is None else gemm.plans_for(
+            dev, (T * B, D, 3 * H, gemm.GATE, dh.dtype == BF16)))
         err = lib.tt_gru_scan_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(gates_x), cuda_lib.ptr(gh),
             cuda_lib.ptr(h_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
             cuda_lib.ptr(dgx), cuda_lib.ptr(dgh), cuda_lib.ptr(d_x),
-            cuda_lib.ptr(db), T, B, D, H, int(bool(reverse)),
+            cuda_lib.ptr(db), T, B, D, H, int(bool(reverse)), streams,
             *rnn_plan.c_args(plan), gemm.c_args(gplans),
             cuda_lib.stream(dev))
-        rnn_plan.count(gru_scan_bwd, plan)
-        gemm.count(gplans)
+        rnn_plan.count(gru_scan_bwd, plan, bool(streams))
+        gemm.count(gplans, [dh.dtype == BF16])
     cuda_lib.check(lib, err, what + " kernel")
     return (dgx, dgh) if iW is None else (dgx, dgh, d_x)
 
@@ -464,6 +487,7 @@ for _fn in (gru_fwd, gru_scan_fwd, gru_scan_bwd, gru_bwd_recompute,
             gru_bwd_fusedw):
     _fn.launches = 0
     _fn.by_instance = rnn_plan.instance_counters()
-for _fn in (gru_fwd, gru_bwd_recompute, gru_bwd_fusedw):
+for _fn in (gru_fwd, gru_scan_fwd, gru_scan_bwd, gru_bwd_recompute,
+            gru_bwd_fusedw):
     _fn.bf16 = rnn_plan.Launches()
     _fn.bf16_by_instance = rnn_plan.instance_counters()

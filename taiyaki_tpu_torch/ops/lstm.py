@@ -39,10 +39,15 @@ of f32 or bf16; the arithmetic, the carry and the gx scratch stay f32.
 The backwards take it when the residuals (acts and tc, pre and c, or c)
 are bf16: they widen every value at load, dh, h and x may each be bf16
 or f32, dpre stays f32 and d_x comes back in x's dtype.  The plain twins
-take the same dtypes and round exactly where the kernels store.  Each
-wrapper counts its bf16 launches (`<wrapper>.bf16`, and
-`<wrapper>.bf16_by_instance`).  The recurrences on given gates have no
-bf16 instance; a bf16 tensor given to one, or to an f32 instance, raises.
+take the same dtypes and round exactly where the kernels store.  The
+recurrences on given gates have their bf16 instance too, the JAX scans'
+mixed precision (taiyaki_tpu/ops/rnn.py:222-257):
+`lstm_scan_fwd(res_dtype=torch.bfloat16)` reads gates_x of f32 or bf16 (a
+bf16 gate stream through registers) and gives h in f32, c and pre in
+bf16; `lstm_scan_bwd` on bf16 pre, c and c_prev reads dh in f32 or bf16
+and stores dpre in dh's dtype, the chain going on from the f32 value.  Each wrapper counts its bf16 launches (`<wrapper>.bf16`,
+and `<wrapper>.bf16_by_instance`).  A bf16 tensor given to an f32
+instance, or a pairing no JAX route produces, raises.
 
 On a CPU tensor the plain PyTorch twin runs; on a CUDA tensor the kernel
 launches, or the wrapper raises.
@@ -63,17 +68,18 @@ _SIGNATURES = {"tt_lstm_fwd": [_P] * 9 + [_I] * 13 + [_P, _P],
                "tt_lstm_bwd": [_P] * 13 + [_I] * 6 + [_P] + [_I] * 7 + [_P],
                "tt_lstm_bwd_recompute": [_P] * 14 + [_I] * 6 + [_P]
                + [_I] * 6 + [_P],
-               "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 10 + [_P],
+               "tt_lstm_scan_fwd": [_P] * 5 + [_I] * 11 + [_P],
                "tt_lstm_cluster_occupancy": [_I] * 6,
-               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 11 + [_P, _P]}
+               "tt_lstm_scan_bwd": [_P] * 9 + [_I] * 12 + [_P, _P]}
 # the forward's emit modes, in the order csrc/lstm.cu numbers them, and
 # the residuals each returns after h
 RESIDUALS = {None: (), "c": ("c",), "pre": ("c", "pre"),
              "acts": ("c", "acts", "tc")}
 EMITS = tuple(RESIDUALS)
 F32, BF16 = torch.float32, torch.bfloat16
-# the entry points' `streams` bits (csrc/lstm.cu STREAM_*): x (and d_x),
-# h, the residuals (the bf16 instance), dh in bf16
+# the entry points' `streams` bits (csrc/lstm.cu STREAM_*): x (and d_x;
+# the gate stream gx of the scans), h, the residuals (the bf16 instance),
+# and dh (with the gradient streams the scans' chains store), in bf16
 STREAM_X, STREAM_H, STREAM_RES, STREAM_DH = 1, 2, 4, 8
 
 
@@ -128,14 +134,6 @@ def _lstm_rec_plain(gx, sW, reverse, keep):
 
 
 _check_args = gemm._check
-
-
-def no_bf16(what, *tensors):
-    """Raise where a kernel with no bf16 instance is given a bf16 tensor
-    (on the CPU too, where its twin would compute in bf16)."""
-    if any(t is not None and t.dtype == BF16 for t in tensors):
-        raise ValueError("{}: no bf16 instance; its tensors must be "
-                         "float32".format(what))
 
 
 def _streams(what, x, h, res):
@@ -320,20 +318,28 @@ def _bwd_plan(H, B, device, instance):
                              instance)
 
 
-def _bwd_streams(what, residuals, dh, h, x):
-    """The `streams` bits of a layer backward (`_streams`): the bf16
-    instance where the residuals (a list of tensors, all of one dtype) are
-    bf16, with dh's bit."""
+def _bwd_streams(what, residuals, dh, h=None, x=None):
+    """The `streams` bits of a backward chain: the bf16 instance where the
+    residuals (a list of tensors, all of one dtype) are bf16, beside which
+    dh, h (h_prev) and x (the scans' gate stream) may each be bf16 or f32;
+    the f32 instance takes f32 alone.  A scan's chain stores its gradient
+    streams in dh's dtype."""
     res = {t.dtype for t in residuals}
-    if len(res) != 1:
-        raise ValueError("{}: the residuals must share one dtype (got "
-                         "{})".format(what, sorted(map(str, res))))
-    res = res.pop()
-    streams = _streams(what, x.dtype, h.dtype, res)
-    if dh.dtype not in (F32, BF16) or (dh.dtype == BF16 and res == F32):
-        raise ValueError("{}: dh must be float32, or bfloat16 beside bf16 "
-                         "residuals (got {})".format(what, dh.dtype))
-    return streams | (STREAM_DH if dh.dtype == BF16 else 0)
+    if len(res) != 1 or not res <= {F32, BF16}:
+        raise ValueError("{}: the residuals must share one dtype, float32 "
+                         "or bfloat16 (got {})".format(
+                             what, sorted(map(str, res))))
+    streams = STREAM_RES if res == {BF16} else 0
+    for name, t, bit in (("dh", dh, STREAM_DH), ("h", h, STREAM_H),
+                         ("x", x, STREAM_X)):
+        if t is None:
+            continue
+        if t.dtype not in (F32, BF16) or (t.dtype == BF16 and not streams):
+            raise ValueError("{}: {} must be float32, or bfloat16 beside "
+                             "bf16 residuals (got {})".format(what, name,
+                                                              t.dtype))
+        streams |= bit if t.dtype == BF16 else 0
+    return streams
 
 
 def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
@@ -465,30 +471,40 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
     return out
 
 
-def lstm_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False):
+def lstm_scan_fwd_plain(gates_x, sW, reverse=False, residuals=False,
+                        res_dtype=None):
     """Plain PyTorch LSTM recurrence on given input gates gates_x [T, B,
-    4H] (= x . iW^T + b, gate order i, f, g, o), sW [4H, H] -> h [T, B, H];
-    with residuals (h, c [T, B, H], pre [T, B, 4H])."""
-    out, res = _lstm_rec_plain(gates_x, sW, reverse,
+    4H] (= x . iW^T + b, gate order i, f, g, o; f32 or bf16, widened),
+    sW [4H, H] -> h [T, B, H] (f32); with residuals (h, c [T, B, H], pre
+    [T, B, 4H]), c and pre rounded to `res_dtype` (f32 by default) where
+    the kernel stores them, the carry going on in f32."""
+    out, res = _lstm_rec_plain(gates_x.float(), sW, reverse,
                                ("c", "pre") if residuals else ())
-    return (out, res["c"], res["pre"]) if residuals else out
+    if not residuals:
+        return out
+    return out, _as(res["c"], res_dtype), _as(res["pre"], res_dtype)
 
 
 def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
-                  instance=None):
+                  instance=None, res_dtype=None):
     """The LSTM recurrence on given gates (kernel 14); contract of
-    `lstm_scan_fwd_plain`.  gates_x is read, never written.  `instance`
-    as `lstm_fwd`'s."""
+    `lstm_scan_fwd_plain`.  gates_x is read, never written.
+    `res_dtype=torch.bfloat16` takes the bf16 instance, on gates_x of f32
+    or bf16 (the JAX scans' mixed precision: h f32, c and pre bf16); else
+    gates_x must be f32.  `instance` as `lstm_fwd`'s."""
     rnn_plan.check_instance(instance)
-    no_bf16("lstm_scan_fwd", gates_x, sW)
-    if gates_x.device.type == "cpu":
-        return lstm_scan_fwd_plain(gates_x, sW, reverse, residuals)
     what = "lstm_scan_fwd"
+    res_dtype = res_dtype or F32
+    streams = _streams(what, gates_x.dtype, F32, res_dtype)
+    if gates_x.device.type == "cpu":
+        return lstm_scan_fwd_plain(gates_x, sW, reverse, residuals,
+                                   res_dtype)
     cuda_lib.check_cuda(gates_x, what)
     T, B = gates_x.shape[:2]
     H = sW.shape[1]
     _check_args(what, gates_x.device, (
-        ("gates_x", gates_x, (T, B, 4 * H)), ("sW", sW, (4 * H, H))))
+        ("gates_x", gates_x, (T, B, 4 * H), (F32, BF16)),
+        ("sW", sW, (4 * H, H))))
     _check_hidden(what, H)
     plan = rnn_plan.rec_plan(4, H, B, clusters_per_wave(
         gates_x.device.index), instance)
@@ -499,13 +515,13 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
         h = torch.empty(T, B, H, device=dev)
         c = pre = None
         if residuals:
-            c = torch.empty(T, B, H, device=dev)
-            pre = torch.empty(T, B, 4 * H, device=dev)
+            c = torch.empty(T, B, H, device=dev, dtype=res_dtype)
+            pre = torch.empty(T, B, 4 * H, device=dev, dtype=res_dtype)
         err = lib.tt_lstm_scan_fwd(
             cuda_lib.ptr(gates_x), cuda_lib.ptr(swt), cuda_lib.ptr(pre),
             cuda_lib.ptr(h), cuda_lib.ptr(c), T, B, H, int(bool(reverse)),
-            *rnn_plan.c_args(plan), cuda_lib.stream(dev))
-        rnn_plan.count(lstm_scan_fwd, plan)
+            streams, *rnn_plan.c_args(plan), cuda_lib.stream(dev))
+        rnn_plan.count(lstm_scan_fwd, plan, bool(streams))
     cuda_lib.check(lib, err, what + " kernel")
     return (h, c, pre) if residuals else h
 
@@ -513,26 +529,33 @@ def lstm_scan_fwd(gates_x, sW, reverse=False, residuals=False,
 def lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse=False, iW=None):
     """Plain PyTorch LSTM gradient chain on the recurrence's residuals:
     dh, c, c_prev [T, B, H], pre [T, B, 4H], sW [4H, H] -> dpre [T, B, 4H]
-    (= d gates_x); with iW [4H, D] (dpre, d_x = dpre . iW [T, B, D]).
-    `reverse` is the forward's direction; the chain walks opposite."""
-    acts, tc = _acts_from_pre(pre, c)
-    dpre = _lstm_dpre_plain(dh, acts, tc, c_prev, sW, reverse)
-    return dpre if iW is None else (dpre, torch.matmul(dpre, iW))
+    (= d gates_x), each input widened, dpre rounded to dh's dtype where
+    the kernel stores it, the chain going on from the f32 value; with iW
+    [4H, D] (dpre, d_x = dpre . iW [T, B, D], f32, from the stored dpre).  `reverse` is the forward's direction; the chain
+    walks opposite."""
+    acts, tc = _acts_from_pre(pre.float(), c.float())
+    dpre = _as(_lstm_dpre_plain(dh.float(), acts, tc, c_prev.float(), sW,
+                                reverse), dh.dtype)
+    return dpre if iW is None else (dpre, torch.matmul(dpre.float(), iW))
 
 
 def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
                   instance=None):
     """The LSTM gradient chain on given gates (kernel 15); contract of
-    `lstm_scan_bwd_plain`.  `instance` as `lstm_bwd_acts`'s."""
+    `lstm_scan_bwd_plain`.  bf16 pre, c and c_prev take the bf16
+    instance, with dh, and so the stored dpre, bf16 or f32; f32 ones the
+    f32 instance, all f32.  `instance` as
+    `lstm_bwd_acts`'s."""
     rnn_plan.check_instance(instance)
-    no_bf16("lstm_scan_bwd", dh, pre, c, c_prev, sW, iW)
+    what = "lstm_scan_bwd"
+    streams = _bwd_streams(what, (pre, c, c_prev), dh)
     if dh.device.type == "cpu":
         return lstm_scan_bwd_plain(dh, pre, c, c_prev, sW, reverse, iW)
-    what = "lstm_scan_bwd"
     cuda_lib.check_cuda(dh, what)
     T, B, H = dh.shape
-    specs = [("dh", dh, (T, B, H)), ("pre", pre, (T, B, 4 * H)),
-             ("c", c, (T, B, H)), ("c_prev", c_prev, (T, B, H)),
+    both = (F32, BF16)
+    specs = [("dh", dh, (T, B, H), both), ("pre", pre, (T, B, 4 * H), both),
+             ("c", c, (T, B, H), both), ("c_prev", c_prev, (T, B, H), both),
              ("sW", sW, (4 * H, H))]
     D = 0 if iW is None else iW.shape[1]
     if iW is not None:
@@ -544,19 +567,19 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
     dev = dh.device
     with torch.cuda.device(dev):
         iwt, = gemm.tma_ready(None if iW is None else iW.t().contiguous())
-        dpre = torch.empty(T, B, 4 * H, device=dev)
+        dpre = torch.empty(T, B, 4 * H, device=dev, dtype=dh.dtype)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
         db = torch.empty(-(-B // plan.BT), 4 * H, device=dev)
-        gplans = ([] if iW is None else
-                  gemm.plans_for(dev, (T * B, D, 4 * H, gemm.GATE)))
+        gplans = ([] if iW is None else gemm.plans_for(
+            dev, (T * B, D, 4 * H, gemm.GATE, dh.dtype == BF16)))
         err = lib.tt_lstm_scan_bwd(
             cuda_lib.ptr(dh), cuda_lib.ptr(pre), cuda_lib.ptr(c),
             cuda_lib.ptr(c_prev), cuda_lib.ptr(sW), cuda_lib.ptr(iwt),
             cuda_lib.ptr(dpre), cuda_lib.ptr(d_x), cuda_lib.ptr(db), T, B,
-            D, H, int(bool(reverse)), *rnn_plan.c_args(plan),
+            D, H, int(bool(reverse)), streams, *rnn_plan.c_args(plan),
             gemm.c_args(gplans), cuda_lib.stream(dev))
-        rnn_plan.count(lstm_scan_bwd, plan)
-        gemm.count(gplans)
+        rnn_plan.count(lstm_scan_bwd, plan, bool(streams))
+        gemm.count(gplans, [dh.dtype == BF16])
     cuda_lib.check(lib, err, what + " kernel")
     return dpre if iW is None else (dpre, d_x)
 
@@ -585,6 +608,7 @@ for _fn in (lstm_fwd, lstm_scan_fwd, lstm_scan_bwd, lstm_bwd_acts,
             lstm_bwd_fusedw, lstm_bwd_recompute):
     _fn.launches = 0
     _fn.by_instance = rnn_plan.instance_counters()
-for _fn in (lstm_fwd, lstm_bwd_acts, lstm_bwd_fusedw, lstm_bwd_recompute):
+for _fn in (lstm_fwd, lstm_scan_fwd, lstm_scan_bwd, lstm_bwd_acts,
+            lstm_bwd_fusedw, lstm_bwd_recompute):
     _fn.bf16 = rnn_plan.Launches()
     _fn.bf16_by_instance = rnn_plan.instance_counters()

@@ -22,10 +22,11 @@ time order.
 
 `lstm_scan` and `gru_scan` are the recurrences over given input gates
 (the JAX package's ops/rnn.py:330 and :597, each with its own VJP): the
-forward keeps h, c and pre (LSTM, kernel 14) or h and gh (GRU, kernel
-16); the backward gives d gates_x from kernel 15 or 17 and d_sW =
-sum_t dgates_t^T h_prev_t as one torch.matmul over all steps (the JAX
-package's einsum outside Pallas).  With no grad, the forward kernel
+forward keeps h, c and pre (LSTM, kernel 14) or h, gates_x and gh (GRU,
+kernel 16); the backward gives d gates_x from kernel 15 or 17 and d_sW =
+sum_t dgates_t^T h_prev_t as one product over all steps (the JAX
+package's einsum outside Pallas): torch.matmul of f32 gradients, the tc
+atb GEMM (ops/gemm.py) of bf16 ones.  With no grad, the forward kernel
 emits h alone.
 
 Streams.  By default every stream is f32: the JAX package's precision on
@@ -38,11 +39,15 @@ activation stream h in bf16 unless TAIYAKI_TPU_F32_GATES=1 or
 TAIYAKI_TPU_BF16_ACTS=0, the gradient stream dh in bf16 unless
 TAIYAKI_TPU_F32_GRADS=1 (then dh keeps the dtype autograd gives it, h's),
 and d_x in x's dtype; the carries, every product's sums, the weight
-gradients, the optimizer state and the checkpoints stay f32.  The JAX
-package keeps f32 streams wherever Mosaic's B % 8 rule sends it to its
-scan path; the port applies the switch at any B.  Under the switch the
-scans raise (ROADMAP.md Queue 1 item 7.2): they have no bf16 instance
-yet.
+gradients, the optimizer state and the checkpoints stay f32.  Under the
+switch the scans store what the JAX scans store (its ops/rnn.py:222-228,
+:248, :548-575, `scan_streams`): the gate stream gx in bf16 unless
+TAIYAKI_TPU_F32_GATES=1, the residuals (LSTM c and pre, GRU gh) in bf16,
+h in f32 whatever TAIYAKI_TPU_BF16_ACTS says, dh and the gradient streams
+(dpre, or dgx and dgh) in bf16 unless TAIYAKI_TPU_F32_GRADS=1, and d
+gates_x comes back in dh's dtype.  The JAX package keeps f32 streams
+wherever Mosaic's B % 8 rule sends it to its scan path; the port applies
+the switch at any B.
 """
 
 import collections
@@ -51,6 +56,7 @@ import os
 
 import torch
 
+from taiyaki_tpu_torch.ops.gemm import atb_gemm
 from taiyaki_tpu_torch.ops.gru import gru_bwd_fusedw, gru_bwd_recompute, \
     gru_fwd, gru_scan_bwd, gru_scan_fwd
 from taiyaki_tpu_torch.ops.lstm import lstm_bwd_acts, lstm_bwd_fusedw, \
@@ -94,6 +100,10 @@ BF16_SWITCH = "TAIYAKI_TPU_BF16_STREAMS"
 # the dtypes of the recurrent layers' streams under the switch: h (the act
 # stream) and dh (the gradient stream; None keeps dh's own dtype)
 Streams = collections.namedtuple("Streams", "h dh")
+# the dtypes of the scans' streams under the switch: gx (the gate stream;
+# None keeps gates_x's own dtype), the residuals, and dh with the gradient
+# streams (None keeps dh's own dtype); h stays f32
+ScanStreams = collections.namedtuple("ScanStreams", "gx res dh")
 
 
 def bf16_streams():
@@ -107,6 +117,20 @@ def bf16_streams():
     return Streams(torch.float32 if f32_h else torch.bfloat16,
                    None if os.environ.get("TAIYAKI_TPU_F32_GRADS") == "1"
                    else torch.bfloat16)
+
+
+def scan_streams():
+    """The scans' ScanStreams under TAIYAKI_TPU_BF16_STREAMS=1, the JAX
+    scans' (taiyaki_tpu/ops/rnn.py:124-134 `_gate_stream_dtype`, :166-174
+    `_grad_stream_dtype`; residuals bf16 and h f32 whatever
+    TAIYAKI_TPU_BF16_ACTS says); None when unset (every stream f32)."""
+    if os.environ.get(BF16_SWITCH) != "1":
+        return None
+    return ScanStreams(
+        None if os.environ.get("TAIYAKI_TPU_F32_GATES") == "1"
+        else torch.bfloat16, torch.bfloat16,
+        None if os.environ.get("TAIYAKI_TPU_F32_GRADS") == "1"
+        else torch.bfloat16)
 
 
 # the inference CLIs' opt-out of the bf16 streams (the JAX package's
@@ -129,13 +153,6 @@ def f32_inference():
     finally:
         for k in unset:
             os.environ.pop(k, None)
-
-
-def _no_bf16_path(what):
-    raise ValueError(
-        "{}=1: {} has no bf16 streams yet (ROADMAP.md Queue 1 item 7.2, "
-        "the rest of the mixed precision); unset {} to run it in "
-        "f32".format(BF16_SWITCH, what, BF16_SWITCH))
 
 
 def _stream_dtypes(streams):
@@ -269,19 +286,49 @@ def gru_layer(x, iW, b, sW, reverse=False):
 
 def _d_sW(dgates, h, reverse):
     """sum over steps of dgates_t^T h_prev_t [G, H]: the recurrent weights'
-    gradient, one product over all T*B rows."""
-    G, H = dgates.shape[-1], h.shape[-1]
+    gradient, one product over all T*B rows; with bf16 dgates (the scans
+    under the switch) the tc atb GEMM's partials of h^T dgates shifted a
+    step, summed and transposed (no f32 copy of dgates)."""
+    T, B, G = dgates.shape
+    H = h.shape[-1]
+    if dgates.dtype == torch.bfloat16:
+        # h_prev_t = h_{t-1} (h_{t+1} reversed): row k of h meets row k +
+        # B (k - B) of dgates
+        return atb_gemm(h.reshape(-1, H), dgates.reshape(-1, G),
+                        shift=-B if reverse else B).sum(0).t()
     return torch.matmul(dgates.reshape(-1, G).t(),
                         prev_state(h, reverse).reshape(-1, H))
+
+
+def _gates(gates_x, streams):
+    """The scan's gate stream: gates_x in the switch's gx dtype."""
+    if streams is None or streams.gx is None:
+        return gates_x
+    return gates_x.to(streams.gx)
+
+
+def _scan_dtypes(streams):
+    """The scan forward's dtype argument under the switch (none unset)."""
+    return {} if streams is None else {"res_dtype": streams.res}
+
+
+def _grad_stream(dh, streams):
+    """dh as the scan's chain reads it: in the switch's gradient dtype."""
+    dh = dh.contiguous()
+    if streams is None or streams.dh is None:
+        return dh
+    return dh.to(streams.dh)
 
 
 class _LstmScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gates_x, sW, reverse):
-        h, c, pre = lstm_scan_fwd(gates_x, sW, reverse=reverse,
-                                  residuals=True)
+        ctx.streams = scan_streams()
         ctx.reverse = reverse
+        h, c, pre = lstm_scan_fwd(_gates(gates_x, ctx.streams), sW,
+                                  reverse=reverse, residuals=True,
+                                  **_scan_dtypes(ctx.streams))
         ctx.save_for_backward(h, c, pre, sW)
         return h
 
@@ -289,38 +336,42 @@ class _LstmScan(torch.autograd.Function):
     def backward(ctx, dh):
         h, c, pre, sW = ctx.saved_tensors
         rev = ctx.reverse
-        dpre = lstm_scan_bwd(dh.contiguous(), pre, c, prev_state(c, rev), sW,
-                             reverse=rev)
+        dpre = lstm_scan_bwd(_grad_stream(dh, ctx.streams), pre, c,
+                             prev_state(c, rev), sW, reverse=rev)
         d_sW = _d_sW(dpre, h, rev) if ctx.needs_input_grad[1] else None
-        return dpre, d_sW, None
+        # d gates_x in dh's dtype, as the JAX scan returns it
+        return dpre.to(dh.dtype), d_sW, None
 
 
 class _GruScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gates_x, sW, reverse):
-        h, gh = gru_scan_fwd(gates_x, sW, reverse=reverse, residuals=True)
+        ctx.streams = scan_streams()
         ctx.reverse = reverse
-        ctx.save_for_backward(h, gates_x, gh, sW)
+        gx = _gates(gates_x, ctx.streams)
+        h, gh = gru_scan_fwd(gx, sW, reverse=reverse, residuals=True,
+                             **_scan_dtypes(ctx.streams))
+        ctx.save_for_backward(h, gx, gh, sW)
         return h
 
     @staticmethod
     def backward(ctx, dh):
-        h, gates_x, gh, sW = ctx.saved_tensors
+        h, gx, gh, sW = ctx.saved_tensors
         rev = ctx.reverse
-        dgx, dgh = gru_scan_bwd(dh.contiguous(), gates_x, gh,
+        dgx, dgh = gru_scan_bwd(_grad_stream(dh, ctx.streams), gx, gh,
                                 prev_state(h, rev), sW, reverse=rev)
         d_sW = _d_sW(dgh, h, rev) if ctx.needs_input_grad[1] else None
-        return dgx, d_sW, None
+        return dgx.to(dh.dtype), d_sW, None
 
 
 def _scan(fn, forward, gates_x, sW, reverse):
-    if bf16_streams() is not None:
-        _no_bf16_path(forward.__name__.replace("_fwd", ""))
     args = [t.contiguous() for t in (gates_x, sW)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return fn.apply(*args, bool(reverse))
-    return forward(*args, reverse=reverse)
+    streams = scan_streams()
+    return forward(_gates(args[0], streams), args[1], reverse=reverse,
+                   **_scan_dtypes(streams))
 
 
 def lstm_scan(gates_x, sW, reverse=False):
@@ -333,7 +384,8 @@ def lstm_scan(gates_x, sW, reverse=False):
             in natural time order).
 
     Returns:
-        h: [T, B, H] hidden states.
+        h: [T, B, H] hidden states, f32 (under TAIYAKI_TPU_BF16_STREAMS=1
+        too, as the JAX scan's).
     """
     return _scan(_LstmScan, lstm_scan_fwd, gates_x, sW, reverse)
 
@@ -348,6 +400,7 @@ def gru_scan(gates_x, sW, reverse=False):
             in natural time order).
 
     Returns:
-        h: [T, B, H] hidden states.
+        h: [T, B, H] hidden states, f32 (under TAIYAKI_TPU_BF16_STREAMS=1
+        too, as the JAX scan's).
     """
     return _scan(_GruScan, gru_scan_fwd, gates_x, sW, reverse)

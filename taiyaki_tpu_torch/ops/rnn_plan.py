@@ -20,8 +20,8 @@ The instances compute the same values (csrc/rec_cluster.cuh):
   sW, 262 KB a CTA even at C = 16).
 
 The bf16 instances of both cells (TAIYAKI_TPU_BF16_STREAMS=1,
-ops/rnn.py) keep the f32 instances' shared memory as it is: h, the
-exchange, the partial sums and the backward's ring stay f32 (the bf16
+ops/rnn.py; the scans' too) keep the f32 instances' shared memory as it
+is: h, the exchange, the partial sums and both rings stay f32 (the bf16
 values are widened as they are loaded), so `cluster_smem` and `bwd_smem`
 count both, and a plan holds for either instance.  Their registers are
 held to the same launch bounds (512 threads, one CTA an SM); what does

@@ -398,11 +398,12 @@ def _gru_args():
 @pytest.mark.parametrize("case", ["gru grad", "gru bf16 h", "lstm_scan",
                                   "gru_scan"])
 def test_paths_without_bf16_streams_raise(case, monkeypatch):
-    """Under the switch the scans raise, naming it and ROADMAP.md's
-    Queue 1 item 7.  The GRU layer's two cases have bf16 instances and run
-    instead, with the JAX route's dtypes: under grad h bf16 and every
-    gradient f32 (x f32); with no grad a bf16 h, and a second layer on it
-    a bf16 h too."""
+    """Every case has its bf16 instances now and runs under the switch,
+    with the JAX route's dtypes.  The GRU layer: under grad h bf16 and
+    every gradient f32 (x f32); with no grad a bf16 h, and a second layer
+    on it a bf16 h too.  The scans (ROADMAP.md Queue 1 item 7.2): h f32
+    and both gradients f32, finite, the gates and residuals bf16 inside
+    (tests/test_torch_bf16_scan.py holds the values)."""
     monkeypatch.setenv(SWITCH, "1")
     x, iW, b, sW = _gru_args()
     if case == "gru grad":
@@ -419,11 +420,16 @@ def test_paths_without_bf16_streams_raise(case, monkeypatch):
             h2 = trnn.gru_layer(h, sW, b, sW, reverse=True)
         assert h.dtype == h2.dtype == BF16 and h2.shape == (T, B, H)
         return
-    with pytest.raises(ValueError, match=SWITCH + ".*Queue 1 item 7"):
-        if case == "lstm_scan":
-            trnn.lstm_scan(torch.zeros(T, B, 4 * H), torch.zeros(4 * H, H))
-        else:
-            trnn.gru_scan(torch.zeros(T, B, 3 * H), sW)
+    scan, G = ((trnn.lstm_scan, 4) if case == "lstm_scan"
+               else (trnn.gru_scan, 3))
+    rng = np.random.default_rng(8)
+    leaves = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+              .requires_grad_() for shape in ((T, B, G * H), (G * H, H))]
+    h = scan(*leaves)
+    grads = torch.autograd.grad(h, leaves, torch.ones_like(h))
+    assert h.dtype == F32 and bool(torch.isfinite(h).all())
+    assert [g.dtype for g in grads] == [F32] * 2
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
 def test_gru_inference_with_f32_h_runs(monkeypatch):

@@ -1869,8 +1869,9 @@ def test_lstm_layers_bf16_streams_on_card(dev, env, reverse, monkeypatch):
 
 def test_bf16_refused_on_card(dev, monkeypatch):
     """A bf16 tensor given to a kernel with no bf16 instance, or bf16 x or
-    h to the f32 instance, raises before any launch; the scans raise
-    under the switch (the GRU layer runs its bf16 instances)."""
+    h to the f32 instance, raises before any launch; under the switch the
+    scans run their bf16 instances (since ROADMAP.md Queue 1 item 7.2),
+    with the JAX scans' dtypes: h f32, both gradients f32."""
     x, iW, b, sW = (a.to(dev) for a in _gru_inputs(9, 8, 12, 16)[:4])
     with pytest.raises(ValueError):
         gru.gru_fwd(x.to(BF16), iW, b, sW)
@@ -1881,11 +1882,17 @@ def test_bf16_refused_on_card(dev, monkeypatch):
     with pytest.raises(ValueError):
         lstm.lstm_fwd(xl.to(BF16), iWl, bl, sWl)
     monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
-    with pytest.raises(ValueError, match="TAIYAKI_TPU_BF16_STREAMS"):
-        rnn.lstm_scan(torch.zeros(9, 8, 64, device=dev),
-                      torch.zeros(64, 16, device=dev))
-    with pytest.raises(ValueError, match="TAIYAKI_TPU_BF16_STREAMS"):
-        rnn.gru_scan(torch.zeros(9, 8, 48, device=dev), sW)
+    for scan, G in ((rnn.lstm_scan, 4), (rnn.gru_scan, 3)):
+        fwd = lstm.lstm_scan_fwd if G == 4 else gru.gru_scan_fwd
+        n = fwd.bf16.launches
+        leaves = [torch.zeros(9, 8, G * 16, device=dev).requires_grad_(),
+                  torch.full((G * 16, 16), 0.1, device=dev).requires_grad_()]
+        h = scan(*leaves)
+        grads = torch.autograd.grad(h, leaves, torch.ones_like(h))
+        torch.cuda.synchronize()
+        assert fwd.bf16.launches == n + 1
+        assert h.dtype == torch.float32
+        assert [g.dtype for g in grads] == [torch.float32] * 2
 
 
 # -- the GRU's bf16 instances ------------------------------------------------
@@ -2209,3 +2216,183 @@ def test_loss_under_the_switch_on_card(dev, monkeypatch):
     (lc, gc), (ld, gd) = out["cpu"], out[str(dev)]
     assert abs(ld - lc) <= 1e-5 * abs(lc)
     assert (gd - gc).abs().max().item() <= 2 * 2.0 ** -8 / T
+
+
+# -- the scans' bf16 instances -----------------------------------------------
+#
+# Kernels 14-17 under the JAX scans' mixed precision (ops/rnn.py
+# `scan_streams`): the gate stream bf16 (or f32 under
+# TAIYAKI_TPU_F32_GATES), h f32, the residuals (c and pre, gh) bf16, dh and
+# the stored gradients (dpre, dgx and dgh) bf16 (or f32 under
+# TAIYAKI_TPU_F32_GRADS), on the plan's instance and the forced L2 one,
+# against their twins: h 1e-4, d_x 1e-4 relative, f32 gradients 1e-4
+# relative, bf16 outputs equal as bf16 but for at most 1% one step apart.
+# H=96 is train_abinitio's width; at H=512 the forwards' plans (and the
+# LSTM's chain) take the L2 instance.
+
+BF16_SCAN_SHAPES = [(37, 13, 7, 16), (19, 24, 12, 17), (50, 24, 64, 256),
+                    (40, 16, 96, 96), (120, 37, 384, 384), (20, 16, 64, 512)]
+F32 = torch.float32
+# (gx, dh and the stored gradients): the default, F32_GATES, F32_GRADS,
+# both
+SCAN_DTYPES = [(BF16, BF16), (F32, BF16), (BF16, F32), (F32, F32)]
+
+
+def _scan_fns(cell):
+    """(forward, its twin, chain, its twin) of `cell`'s scan kernels."""
+    mod = lstm if cell == "lstm" else gru
+    return tuple(getattr(mod, "{}_scan_{}{}".format(cell, way, k))
+                 for way in ("fwd", "bwd") for k in ("", "_plain"))
+
+
+def _scan_bf16_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == BF16:
+        _bf16_close(got, want,
+                    1e-4 * max(1.0, want.float().abs().max().item()))
+    else:
+        assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BF16_SCAN_SHAPES)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_scan_bf16_fwd_matches_twin(dev, cell, shape, reverse):
+    """Kernels 14 and 16's bf16 instances, gates bf16 or f32, with and
+    without their residuals: h f32, c, pre and gh bf16; gates_x left as
+    it was."""
+    fwd, plain = _scan_fns(cell)[:2]
+    gx, sW = _scan_case(cell, shape, reverse, dev)[:2]
+    for gdt in (BF16, F32):
+        g = gx.to(gdt)
+        kept = g.clone()
+        for res in (False, True):
+            want = _as_tuple(plain(g, sW, reverse, res, BF16))
+            for inst in (None, "l2"):
+                n, nb = _counts(fwd), fwd.bf16.launches
+                got = _as_tuple(fwd(g, sW, reverse=reverse, residuals=res,
+                                    instance=inst, res_dtype=BF16))
+                torch.cuda.synchronize()
+                assert fwd.bf16.launches == nb + 1
+                ran = {k for k, v in _counts(fwd).items() if v != n[k]}
+                assert len(ran) == 1 and (inst is None or ran == {inst})
+                assert len(got) == len(want) == (
+                    1 if not res else 3 if cell == "lstm" else 2)
+                assert got[0].dtype == F32
+                assert (got[0] - want[0]).abs().max().item() < 1e-4
+                for o, w in zip(got[1:], want[1:]):
+                    assert o.dtype == BF16
+                    _bf16_close(o, w, 1e-4)
+        assert torch.equal(g, kept)
+
+
+def _scan_bwd_args(cell, shape, reverse, dev, gdt, dhdt):
+    """The chain's arguments on the bf16 forward twin's residuals, and
+    iW."""
+    gx, sW, iW, dh = _scan_case(cell, shape, reverse, dev)
+    g = gx.to(gdt)
+    if cell == "lstm":
+        _, c, pre = lstm.lstm_scan_fwd_plain(g, sW, reverse, True, BF16)
+        return (dh.to(dhdt), pre, c, lstm.prev_state(c, reverse), sW), iW
+    h, gh = gru.gru_scan_fwd_plain(g, sW, reverse, True, BF16)
+    return (dh.to(dhdt), g, gh, lstm.prev_state(h, reverse), sW), iW
+
+
+@pytest.mark.parametrize("with_iw", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", BF16_SCAN_SHAPES)
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_scan_bf16_bwd_matches_twin(dev, cell, shape, reverse, with_iw):
+    """Kernels 15 and 17's bf16 instances in each case of SCAN_DTYPES:
+    the gradients stored in dh's dtype; d_x f32, within 1e-4 of the
+    product of the kernel's own stored gradient (dpre or dgx) and, where
+    that is bf16, within one bf16 step (2^-8) of the largest of the
+    twin's (a stored value may round the other way); their inputs left
+    as they were."""
+    fn, plain = _scan_fns(cell)[2:]
+    for gdt, gd in SCAN_DTYPES:
+        args, iW = _scan_bwd_args(cell, shape, reverse, dev, gdt, gd)
+        iw = iW if with_iw else None
+        kept = [a.clone() for a in args]
+        want = _as_tuple(plain(*args, reverse=reverse, iW=iw))
+        for inst in (None, "l2"):
+            n, nb = _counts(fn), _bf16_counts(fn)
+            got = _as_tuple(fn(*args, reverse=reverse, iW=iw,
+                               instance=inst))
+            torch.cuda.synchronize()
+            ran = {k for k, v in _bf16_counts(fn).items() if v != nb[k]}
+            assert _counts(fn) != n and len(ran) == 1 \
+                and (inst is None or ran == {inst})
+            assert len(got) == len(want)
+            grads = len(got) - with_iw
+            for g, w in zip(got[:grads], want[:grads]):
+                assert g.dtype == gd
+                _scan_bf16_close(g, w)
+            if with_iw:
+                assert got[-1].dtype == F32
+                assert _rel_err(got[-1],
+                                torch.matmul(got[0].float(), iW)) < 1e-4
+                assert _rel_err(got[-1], want[-1]) < (
+                    1e-4 if gd == F32 else 2.0 ** -8)
+        assert all(torch.equal(a, k) for a, k in zip(args, kept))
+
+
+def test_scan_bf16_instances_on_both_chain_instances(dev):
+    """At the mLstm and mGru width the plans take the cluster instances; at
+    H=512 the forwards' plans and the LSTM's chain the L2 ones (the GRU's
+    backward slice still fits a cluster of 16): the bf16 launches of the
+    four scans land on the plans' instances."""
+    for cell, G in (("lstm", 4), ("gru", 3)):
+        fwd, _, bwd, _ = _scan_fns(cell)
+        for shape in ((50, 24, 64, 256), (20, 16, 64, 512)):
+            fi = _plan(G, shape[3], shape[1]).instance
+            bi = _bwd_plan(G, shape[3], shape[1]).instance
+            assert fi == ("cluster" if shape[3] == 256 else "l2")
+            assert bi == ("l2" if (cell, shape[3]) == ("lstm", 512)
+                          else "cluster")
+            args, _ = _scan_bwd_args(cell, shape, False, dev, BF16, BF16)
+            gx = _scan_case(cell, shape, False, dev)[0].to(BF16)
+            nb = _bf16_counts(fwd)
+            fwd(gx, args[-1], residuals=True, res_dtype=BF16)
+            assert _bf16_counts(fwd) == dict(nb, **{fi: nb[fi] + 1})
+            nb = _bf16_counts(bwd)
+            bwd(*args)
+            assert _bf16_counts(bwd) == dict(nb, **{bi: nb[bi] + 1})
+
+
+@pytest.mark.parametrize("sub", ["default", "F32_GATES", "F32_GRADS"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_scans_bf16_streams_on_card(dev, cell, reverse, sub, monkeypatch):
+    """`rnn.lstm_scan` / `gru_scan` under the switch on the card against
+    the same on the CPU (the twins): h f32 within 1e-4, d gates_x and d_sW
+    f32 within one bf16 step of the largest (a stored gradient may round
+    the other way); the card launched the bf16 instances, the f32 ones
+    not, and d_sW of bf16 gradients took the atb GEMM."""
+    monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
+    if sub != "default":
+        monkeypatch.setenv("TAIYAKI_TPU_" + sub, "1")
+    scan = rnn.lstm_scan if cell == "lstm" else rnn.gru_scan
+    fwd, _, bwd, _ = _scan_fns(cell)
+    gx, sW, _, dh = _scan_case(cell, (60, 24, 32, 64), reverse, dev)
+    out = {}
+    for device in ("cpu", dev):
+        leaves = [a.to(device).clone().requires_grad_() for a in (gx, sW)]
+        n = [fn.launches for fn in (fwd, bwd, gemm.atb_gemm)]
+        nb = [fn.bf16.launches for fn in (fwd, bwd)]
+        h = scan(*leaves, reverse=reverse)
+        grads = torch.autograd.grad(h, leaves, dh.to(device))
+        assert h.dtype == F32 and [g.dtype for g in grads] == [F32] * 2
+        out[str(device)] = [h.detach().cpu()] + [g.cpu() for g in grads]
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert [fn.bf16.launches - k for fn, k in
+                    zip((fwd, bwd), nb)] == [1, 1]
+            assert [fn.launches - k for fn, k in
+                    zip((fwd, bwd), n)] == [1, 1]
+            assert gemm.atb_gemm.launches - n[2] == (
+                0 if sub == "F32_GRADS" else 1)
+    cpu, card = out["cpu"], out[str(dev)]
+    assert (card[0] - cpu[0]).abs().max().item() < 1e-4
+    for g, w in zip(card[1:], cpu[1:]):
+        assert _rel_err(g, w) < 2.0 ** -8
