@@ -35,13 +35,17 @@
 // start vector (forward) or end vector (posteriors): a chain ~2K + T/K
 // steps deep, on B T / K threads instead of B chains.
 //
-// Two instances of every kernel: f32 scores, lattice and posteriors, and
-// bf16 ones (the JAX trainer's mixed precision, pallas_logz.py under
-// residual_dtype / out_dtype bf16): the scores read as bf16 and widened,
-// the lattice stored as bf16 rounded from the f32 vector (the recursion
-// goes on from the f32 vector), the posteriors formed in f32 from the
-// bf16 lattice widened and stored as bf16.  Carries, sums, logZ and the
-// scratch stay f32 in both.
+// Three instances of every kernel, by (score type ST, lattice and
+// posterior type LT): f32 scores, lattice and posteriors; bf16 ones (the
+// JAX trainer's mixed precision, pallas_logz.py under residual_dtype /
+// out_dtype bf16); and f32 scores with a bf16 lattice and posteriors (the
+// same trainer under TAIYAKI_TPU_F32_SCORES=1, and its basecall:
+// taiyaki_tpu/ops/flipflop.py keeps logZ's lattice and posteriors bf16
+// whatever the scores' dtype).  bf16 scores are read as bf16 and widened,
+// a bf16 lattice is stored rounded from the f32 vector (the recursion
+// goes on from the f32 vector), bf16 posteriors are formed in f32 from
+// the lattice widened and stored rounded.  Carries, sums, logZ and the
+// scratch stay f32 in all three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -403,12 +407,12 @@ logz_fwd_boundary_kernel(float* __restrict__ scratch, int B, int nseg)
     if (b < B && d == 0) reinterpret_cast<int*>(scratch + at.cnt)[b] = 0;
 }
 
-template <int NB, bool VEC, class ST>
+template <int NB, bool VEC, class ST, class LT>
 __global__ void __launch_bounds__(POST_THREADS)
 logz_fwd_rerun_kernel(const ST* __restrict__ scores,
                       float* __restrict__ fwd_final,
                       float* __restrict__ logz_out,
-                      ST* __restrict__ lattice,
+                      LT* __restrict__ lattice,
                       float* __restrict__ scratch, int T, int B, int K,
                       int nseg)
 {
@@ -533,13 +537,13 @@ __device__ __forceinline__ size_t scratch_at(int i, int t0, int B, int b)
     return ((size_t)(t0 + i / SF) * B + b) * SF + i % SF;
 }
 
-template <int NB, bool VEC, class ST>
+template <int NB, bool VEC, class ST, class LT>
 __global__ void __launch_bounds__(SEG_THREADS)
 logz_transfer_kernel(const ST* __restrict__ scores,
                      float* __restrict__ post, int T, int B, int K, int nseg)
 {
     constexpr int NFF = 2 * NB, S = NFF * (NB + 1), G = Group<NFF>::G;
-    constexpr int SF = S * (int)sizeof(ST) / 4;
+    constexpr int SF = S * (int)sizeof(LT) / 4;
     constexpr bool REG = NB <= 4;
     const size_t grp = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / G;
     const int d = threadIdx.x & (G - 1);
@@ -641,14 +645,14 @@ logz_boundary_kernel(float* __restrict__ post, int T, int B, int K, int nseg)
     }
 }
 
-template <int NB, bool VEC, class ST>
+template <int NB, bool VEC, class ST, class LT>
 __global__ void __launch_bounds__(POST_THREADS)
 logz_post_kernel(const ST* __restrict__ scores,
-                 const ST* __restrict__ lattice, ST* __restrict__ post,
+                 const LT* __restrict__ lattice, LT* __restrict__ post,
                  int T, int B, int K, int nseg)
 {
     constexpr int NFF = 2 * NB, S = NFF * (NB + 1);
-    constexpr int SF = S * (int)sizeof(ST) / 4;
+    constexpr int SF = S * (int)sizeof(LT) / 4;
     constexpr bool REG = NB <= 4;
     const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (size_t)B * nseg) return;
@@ -656,7 +660,7 @@ logz_post_kernel(const ST* __restrict__ scores,
     const int t0 = g * K, t1 = min(T, t0 + K);
     const size_t rowstride = (size_t)B * S, lstride = (size_t)B * NFF;
     const ST* srow = scores + (size_t)b * S;
-    const ST* lrow = lattice + (size_t)b * NFF;
+    const LT* lrow = lattice + (size_t)b * NFF;
     const float* scr = reinterpret_cast<const float*>(post);
 
     float v[NFF];
@@ -713,7 +717,7 @@ logz_post_kernel(const ST* __restrict__ scores,
             for (int s = 0; s < NFF; ++s)
                 r[s] = expf(fw[s] + m[s] - big) * inv;
         }
-        ST* prow = post + ((size_t)t * B + b) * S;
+        LT* prow = post + ((size_t)t * B + b) * S;
 #pragma unroll
         for (int k = 0; k < S / 4; ++k) {
             float x[4];
@@ -752,9 +756,9 @@ logz_post_kernel(const ST* __restrict__ scores,
 
 // the forward with segments of K steps (the scratch may be null when T is
 // one segment); VEC: the scores are 16-byte aligned
-template <int NB, bool VEC, class ST>
+template <int NB, bool VEC, class ST, class LT>
 int launch_fwd(const ST* scores, float* fwd_final, float* logz,
-               ST* lattice, float* scratch, int T, int B, int K,
+               LT* lattice, float* scratch, int T, int B, int K,
                cudaStream_t st)
 {
     constexpr int G = Group<2 * NB>::G;
@@ -774,7 +778,7 @@ int launch_fwd(const ST* scores, float* fwd_final, float* logz,
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const size_t threads = (size_t)B * nseg;
-    logz_fwd_rerun_kernel<NB, VEC, ST>
+    logz_fwd_rerun_kernel<NB, VEC, ST, LT>
         <<<(unsigned)((threads + POST_THREADS - 1) / POST_THREADS),
            POST_THREADS, 0, st>>>(scores, fwd_final, logz, lattice, scratch,
                                   T, B, K, nseg);
@@ -783,17 +787,17 @@ int launch_fwd(const ST* scores, float* fwd_final, float* logz,
 
 // the posteriors with segments of K steps; VEC: the scores and the lattice
 // are 16-byte aligned
-template <int NB, bool VEC, class ST>
-int launch_post(const ST* scores, const ST* lattice, ST* post, int T, int B,
+template <int NB, bool VEC, class ST, class LT>
+int launch_post(const ST* scores, const LT* lattice, LT* post, int T, int B,
                 int K, cudaStream_t st)
 {
     constexpr int G = Group<2 * NB>::G;
-    constexpr int SF = 2 * NB * (NB + 1) * (int)sizeof(ST) / 4;
+    constexpr int SF = 2 * NB * (NB + 1) * (int)sizeof(LT) / 4;
     float* scr = reinterpret_cast<float*>(post);
     const int nseg = (T + K - 1) / K;
     if (nseg > 1) {
         const size_t lanes = (size_t)B * (nseg - 1) * G;
-        logz_transfer_kernel<NB, VEC, ST>
+        logz_transfer_kernel<NB, VEC, ST, LT>
             <<<(unsigned)((lanes + SEG_THREADS - 1) / SEG_THREADS),
                SEG_THREADS, 0, st>>>(scores, scr, T, B, K, nseg);
         cudaError_t e = cudaGetLastError();
@@ -805,7 +809,7 @@ int launch_post(const ST* scores, const ST* lattice, ST* post, int T, int B,
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const size_t threads = (size_t)B * nseg;
-    logz_post_kernel<NB, VEC, ST>
+    logz_post_kernel<NB, VEC, ST, LT>
         <<<(unsigned)((threads + POST_THREADS - 1) / POST_THREADS),
            POST_THREADS, 0, st>>>(scores, lattice, post, T, B, K, nseg);
     return static_cast<int>(cudaGetLastError());
@@ -884,44 +888,47 @@ int tt_logz_post_kernels(int T, int B, int nbase)
 
 namespace {
 
-// the forward in storage type ST (see logz_fwd_launch)
-template <class ST>
-int fwd_launch(const ST* scores, float* fwd_final, float* logz, ST* lattice,
+// the forward on ST scores into an LT lattice (see logz_fwd_launch)
+template <class ST, class LT>
+int fwd_launch(const ST* scores, float* fwd_final, float* logz, LT* lattice,
                float* scratch, int T, int B, int nbase, int K,
                cudaStream_t st)
 {
     if (B == 0) return 0;
     if (K <= 0) K = tt_logz_fwd_segment(T, B, nbase);
     if (aligned16(scores)) {
-#define TT_FWD(NB) launch_fwd<NB, true, ST>(scores, fwd_final, logz, \
-                                             lattice, scratch, T, B, K, st)
+#define TT_FWD(NB) launch_fwd<NB, true, ST, LT>(scores, fwd_final, logz, \
+                                                 lattice, scratch, T, B, K, \
+                                                 st)
         TT_NBASE_CASES(TT_FWD)
 #undef TT_FWD
     }
-#define TT_FWD(NB) launch_fwd<NB, false, ST>(scores, fwd_final, logz, \
-                                              lattice, scratch, T, B, K, st)
+#define TT_FWD(NB) launch_fwd<NB, false, ST, LT>(scores, fwd_final, logz, \
+                                                  lattice, scratch, T, B, K, \
+                                                  st)
     TT_NBASE_CASES(TT_FWD)
 #undef TT_FWD
 }
 
-// the posteriors in storage type ST (see logz_post_launch): K at least 2,
-// 4 in bf16, so that a segment's rows hold the scratch of the next
-template <class ST>
-int post_launch(const ST* scores, const ST* lattice, ST* post, int T, int B,
+// the posteriors on ST scores and an LT lattice into LT posteriors (see
+// logz_post_launch): K at least 2, 4 in bf16 posteriors, so that a
+// segment's rows hold the scratch of the next
+template <class ST, class LT>
+int post_launch(const ST* scores, const LT* lattice, LT* post, int T, int B,
                 int nbase, int K, cudaStream_t st)
 {
     if (B == 0 || T == 0) return 0;
-    constexpr int KMIN = sizeof(ST) == 4 ? 2 : 4;
+    constexpr int KMIN = sizeof(LT) == 4 ? 2 : 4;
     if (K <= 0) K = tt_logz_post_segment(T, B, nbase);
     if (K < KMIN) K = KMIN;
     if (aligned16(scores) && aligned16(lattice)) {
-#define TT_POST(NB) launch_post<NB, true, ST>(scores, lattice, post, T, B, \
-                                               K, st)
+#define TT_POST(NB) launch_post<NB, true, ST, LT>(scores, lattice, post, T, \
+                                                   B, K, st)
         TT_NBASE_CASES(TT_POST)
 #undef TT_POST
     }
-#define TT_POST(NB) launch_post<NB, false, ST>(scores, lattice, post, T, B, \
-                                                K, st)
+#define TT_POST(NB) launch_post<NB, false, ST, LT>(scores, lattice, post, T, \
+                                                    B, K, st)
     TT_NBASE_CASES(TT_POST)
 #undef TT_POST
 }
@@ -933,7 +940,8 @@ int post_launch(const ST* scores, const ST* lattice, ST* post, int T, int B,
 // and the scratch of FwdScratch(B, NFF, nseg) floats.  Any contiguous f32
 // scores (16-byte loads where aligned, else 4-byte); the bf16 instance
 // takes bf16 scores (16-byte loads where aligned, else 2-byte) and writes
-// a bf16 lattice.
+// a bf16 lattice; the mixed instance takes f32 scores and writes a bf16
+// lattice.
 int logz_fwd_launch(const float* scores, float* fwd_final, float* logz,
                     float* lattice, float* scratch, int T, int B, int nbase,
                     int K, cudaStream_t st)
@@ -950,12 +958,21 @@ int logz_fwd_launch(const bf16* scores, float* fwd_final, float* logz,
                       K, st);
 }
 
+int logz_fwd_launch(const float* scores, float* fwd_final, float* logz,
+                    bf16* lattice, float* scratch, int T, int B, int nbase,
+                    int K, cudaStream_t st)
+{
+    return fwd_launch(scores, fwd_final, logz, lattice, scratch, T, B, nbase,
+                      K, st);
+}
+
 // scores [T, B, S], lattice [T, B, NFF] -> post [T, B, S], with segments of
 // K steps (K <= 0: tt_logz_post_segment's; at least 2, so that a
 // segment's rows hold the scratch of the next).  Any contiguous f32
 // scores and lattice (16- and 8-byte loads where both are 16-byte
 // aligned, else 4-byte); the bf16 instance: bf16 scores, lattice and
-// posteriors, K at least 4.
+// posteriors, K at least 4; the mixed instance: f32 scores, a bf16
+// lattice and bf16 posteriors, K at least 4.
 int logz_post_launch(const float* scores, const float* lattice, float* post,
                      int T, int B, int nbase, int K, cudaStream_t st)
 {
@@ -968,35 +985,58 @@ int logz_post_launch(const bf16* scores, const bf16* lattice, bf16* post,
     return post_launch(scores, lattice, post, T, B, nbase, K, st);
 }
 
+int logz_post_launch(const float* scores, const bf16* lattice, bf16* post,
+                     int T, int B, int nbase, int K, cudaStream_t st)
+{
+    return post_launch(scores, lattice, post, T, B, nbase, K, st);
+}
+
 extern "C" {
 
 // scores [T, B, S] -> fwd_final [B, NFF], logz [B] (without log(nbase)),
 // lattice [T, B, NFF] (may be null); scratch of tt_logz_fwd_scratch
-// floats (null when that is 0); scores and lattice f32, or bf16 where
-// bf16 is 1.  Returns cudaGetLastError().
+// floats (null when that is 0); the scores bf16 where bf16_scores is 1,
+// the lattice bf16 where bf16_lattice is 1, else f32 (bf16 scores with an
+// f32 lattice: no instance, cudaErrorInvalidValue).  Returns
+// cudaGetLastError().
 int tt_logz_fwd(const void* scores, float* fwd_final, float* logz,
                 void* lattice, float* scratch, int T, int B, int nbase,
-                int bf16, void* stream)
+                int bf16_scores, int bf16_lattice, void* stream)
 {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16)
+    if (bf16_scores && !bf16_lattice)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16_scores)
         return logz_fwd_launch(static_cast<const __nv_bfloat16*>(scores),
                                fwd_final, logz,
                                static_cast<__nv_bfloat16*>(lattice), scratch,
                                T, B, nbase, 0, st);
+    if (bf16_lattice)
+        return logz_fwd_launch(static_cast<const float*>(scores), fwd_final,
+                               logz, static_cast<__nv_bfloat16*>(lattice),
+                               scratch, T, B, nbase, 0, st);
     return logz_fwd_launch(static_cast<const float*>(scores), fwd_final, logz,
                            static_cast<float*>(lattice), scratch, T, B,
                            nbase, 0, st);
 }
 
-// scores [T, B, S], lattice [T, B, NFF] -> post [T, B, S], all f32, or
-// all bf16 where bf16 is 1.
+// scores [T, B, S], lattice [T, B, NFF] -> post [T, B, S]: the scores bf16
+// where bf16_scores is 1, the lattice and the posteriors bf16 where
+// bf16_lattice is 1, else f32 (as tt_logz_fwd's instances).
 int tt_logz_posteriors(const void* scores, const void* lattice, void* post,
-                       int T, int B, int nbase, int bf16, void* stream)
+                       int T, int B, int nbase, int bf16_scores,
+                       int bf16_lattice, void* stream)
 {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bf16)
+    if (bf16_scores && !bf16_lattice)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16_scores)
         return logz_post_launch(static_cast<const __nv_bfloat16*>(scores),
+                                static_cast<const __nv_bfloat16*>(lattice),
+                                static_cast<__nv_bfloat16*>(post), T, B,
+                                nbase, 0, st);
+    if (bf16_lattice)
+        return logz_post_launch(static_cast<const float*>(scores),
                                 static_cast<const __nv_bfloat16*>(lattice),
                                 static_cast<__nv_bfloat16*>(post), T, B,
                                 nbase, 0, st);

@@ -3,15 +3,17 @@ path, posterior transition probabilities, global normalisation.
 
 `flipflop_viterbi` is plain PyTorch, as it is a `lax.scan` and not a
 kernel in the JAX package; `flipflop_make_trans` runs the logZ forward
-and posterior kernels of `ops.logz`.
+and posterior kernels of `ops.logz`, in the instance that the switches
+pick (`ops.flipflop.logz_lattice`), as the JAX package takes its
+posteriors through `_logz_pallas`'s vjp.
 """
 
 import torch
 
 from taiyaki_tpu_torch import flipflopfings
 from taiyaki_tpu_torch.constants import LARGE_VAL
-from taiyaki_tpu_torch.ops.flipflop import flipflop_logz
-from taiyaki_tpu_torch.ops.logz import logz_fwd, logz_posteriors
+from taiyaki_tpu_torch.ops.flipflop import flipflop_logz, logz_lattice, \
+    logz_post
 
 
 def flipflop_viterbi(scores):
@@ -63,11 +65,11 @@ def flipflop_make_trans(scores):
         scores: [T, batch, nstate] globally-normalisable transition scores.
 
     Returns:
-        [T, batch, nstate] f32 posterior probabilities.
+        [T, batch, nstate] f32 posterior probabilities (under
+        TAIYAKI_TPU_BF16_STREAMS=1 bf16 ones widened).
     """
-    scores = scores.to(torch.float32).contiguous()
-    _, _, lattice = logz_fwd(scores, emit_lattice=True)
-    return logz_posteriors(scores, lattice)
+    scores, _, lattice = logz_lattice(scores.to(torch.float32))
+    return logz_post(scores, lattice).float()
 
 
 def global_norm_flipflop(scores):

@@ -21,8 +21,10 @@ run the bf16 instances of kernels 5-6 and 2-3, as the JAX trainer's
 score streams do on a TPU (taiyaki_tpu/ops/flipflop.py
 `_score_stream_dtype`): scores rounded to bf16, bf16 lattices, bf16
 posteriors; losses, logZ and gradients f32.  TAIYAKI_TPU_F32_SCORES=1
-keeps them f32.  The streams route keeps f32 streams under the switch
-(ROADMAP.md Queue 1 item 7.3b).
+keeps the scores f32 (`score_dtype`) but not logZ's lattice and
+posteriors (`lattice_dtype`), as the JAX package stores them.  The
+streams route keeps f32 streams under the switch (ROADMAP.md Queue 1
+item 7.3b).
 """
 
 import math
@@ -37,16 +39,33 @@ from taiyaki_tpu_torch.ops.logz import logz_fwd, logz_posteriors
 from taiyaki_tpu_torch.ops.rnn import BF16_SWITCH
 
 
+def _score_dtypes():
+    """(scores, lattices) dtypes under the switches: f32 both unless
+    TAIYAKI_TPU_BF16_STREAMS=1; under it bf16 lattices and posteriors,
+    and bf16 scores unless TAIYAKI_TPU_F32_SCORES=1."""
+    if os.environ.get(BF16_SWITCH) != "1":
+        return torch.float32, torch.float32
+    if os.environ.get("TAIYAKI_TPU_F32_SCORES") == "1":
+        return torch.float32, torch.bfloat16
+    return torch.bfloat16, torch.bfloat16
+
+
 def score_dtype():
-    """The dtype of the CRF's selected scores and lattice and of logZ's
-    scores, lattice and posteriors: bf16 under TAIYAKI_TPU_BF16_STREAMS=1
+    """The dtype of the CRF's selected scores (its streams on the streams
+    route) and of logZ's scores: bf16 under TAIYAKI_TPU_BF16_STREAMS=1
     unless TAIYAKI_TPU_F32_SCORES=1, else f32; the counterpart of
     taiyaki_tpu/ops/flipflop.py `_score_stream_dtype`, read once a
     forward call."""
-    if os.environ.get(BF16_SWITCH) != "1" \
-            or os.environ.get("TAIYAKI_TPU_F32_SCORES") == "1":
-        return torch.float32
-    return torch.bfloat16
+    return _score_dtypes()[0]
+
+
+def lattice_dtype():
+    """The dtype of the CRF's and logZ's forward lattices and posteriors:
+    bf16 under TAIYAKI_TPU_BF16_STREAMS=1 whatever TAIYAKI_TPU_F32_SCORES
+    says, as taiyaki_tpu/ops/flipflop.py stores them (residual_dtype and
+    out_dtype bf16 at :286, :362, :603, :617), else f32; read once a
+    forward call."""
+    return _score_dtypes()[1]
 
 
 def _dtype_kwargs(name, dtype):
@@ -264,31 +283,44 @@ def cat_mod_flipflop_loss(logprob, seqs, seqlens, mod_cats, can_mods_offsets,
     return core + (core / sharpfact - core).detach()
 
 
+def logz_lattice(scores, emit_lattice=True):
+    """(scores in `score_dtype`, logZ [B] without log(nbase), the lattice
+    in `lattice_dtype` or None): logZ's forward kernels as the switches
+    pick their instance (logz.INSTANCES)."""
+    sdt, ldt = _score_dtypes()
+    scores = scores.to(sdt).contiguous()
+    _, logz, lattice = logz_fwd(scores, emit_lattice=emit_lattice,
+                                **_dtype_kwargs("lattice_dtype", ldt))
+    return scores, logz, lattice
+
+
+def logz_post(scores, lattice):
+    """The posteriors [T, B, S] of `logz_lattice`'s scores and lattice, in
+    the lattice's dtype."""
+    return logz_posteriors(scores, lattice,
+                           **_dtype_kwargs("out_dtype", lattice.dtype))
+
+
 class _LogZ(torch.autograd.Function):
     """logZ [B] of scores [T, B, S]; its gradient is the posterior over
-    the transitions times the incoming gradient.  In bf16 (`score_dtype`)
-    the scores are cast to bf16 once, and that copy is what the kernels
-    read and what is saved; the bf16 posteriors are widened to f32 before
-    the product with g, as taiyaki_tpu/ops/flipflop.py `_logz_pallas_bwd`
+    the transitions times the incoming gradient.  Under the switch the
+    scores are cast to `score_dtype` once, and that copy is what the
+    kernels read and what is saved; the lattice and the posteriors are
+    bf16 (`lattice_dtype`), the posteriors widened to f32 before the
+    product with g, as taiyaki_tpu/ops/flipflop.py `_logz_pallas_bwd`
     does."""
 
     @staticmethod
     def forward(ctx, scores):
         nbase = flipflopfings.nbase_flipflop(scores.shape[2])
-        dtype = score_dtype()
-        scores = scores.to(dtype)
-        _, logz, lattice = logz_fwd(scores,
-                                    emit_lattice=ctx.needs_input_grad[0],
-                                    **_dtype_kwargs("lattice_dtype", dtype))
+        scores, logz, lattice = logz_lattice(scores, ctx.needs_input_grad[0])
         ctx.save_for_backward(scores, lattice)
         return logz + math.log(nbase)
 
     @staticmethod
     def backward(ctx, g):
         scores, lattice = ctx.saved_tensors
-        post = logz_posteriors(scores, lattice,
-                               **_dtype_kwargs("out_dtype", scores.dtype))
-        return post.float() * g[None, :, None]
+        return logz_post(scores, lattice).float() * g[None, :, None]
 
 
 def flipflop_logz(scores):
@@ -296,7 +328,8 @@ def flipflop_logz(scores):
 
     Args:
         scores: [nblk, batch, nstate] f32 transition weights (bf16 in the
-            kernels under `score_dtype`).
+            kernels under `score_dtype`, a bf16 lattice under
+            `lattice_dtype`).
 
     Returns:
         [batch] f32 log partition values.

@@ -25,18 +25,21 @@ against the twins by the CPU tests; nothing on the main path calls them.
 The kernels take any contiguous f32 view (4-byte loads where one is not
 16-byte aligned).
 
-Each kernel has a bf16 instance, the JAX trainer's mixed precision
-(ops/flipflop.py runs it under TAIYAKI_TPU_BF16_STREAMS=1): bf16 scores,
-a bf16 lattice and bf16 posteriors, with f32 arithmetic, carries and
-logZ.  The twins round where the TPU kernels round: the forward stores
-each lattice row as bf16 from its f32 vector and goes on from the f32
-vector (pallas_logz.py:100-140); the posteriors are formed in f32 from
-the bf16 lattice widened and stored as bf16 (pallas_logz.py:207-248).
-The posterior kernels rerun each segment from its end vector but read
-the bf16 lattice row at every step, as the TPU kernel does, so they
-round at the same points; the segments change only the f32 order of the
-backward vector's sums.  Scores, lattice and posteriors of one call share
-one dtype.
+Each kernel has two more instances, the JAX trainer's mixed precision
+(ops/flipflop.py runs them under TAIYAKI_TPU_BF16_STREAMS=1): bf16
+scores, a bf16 lattice and bf16 posteriors; and, under
+TAIYAKI_TPU_F32_SCORES=1 (and in the basecall), f32 scores with a bf16
+lattice and bf16 posteriors, since taiyaki_tpu/ops/flipflop.py:595-623
+keeps logZ's lattice and posteriors bf16 whatever the scores' dtype.
+Arithmetic, carries and logZ stay f32.  The twins round where the TPU
+kernels round: the forward stores each lattice row as bf16 from its f32
+vector and goes on from the f32 vector (pallas_logz.py:100-140); the
+posteriors are formed in f32 from the bf16 lattice widened and stored as
+bf16 (pallas_logz.py:207-248).  The posterior kernels rerun each segment
+from its end vector but read the bf16 lattice row at every step, as the
+TPU kernel does, so they round at the same points; the segments change
+only the f32 order of the backward vector's sums.  A call's (scores,
+lattice and posteriors) dtypes are one of `INSTANCES`.
 
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
@@ -52,11 +55,11 @@ from taiyaki_tpu_torch.ops.rnn_plan import Launches
 
 MAX_NBASE = 8   # kernels are instantiated for nbase 1..8 (csrc/logz.cu)
 _P, _I = cuda_lib.P, cuda_lib.I
-_SIGNATURES = {"tt_logz_fwd": [_P] * 5 + [_I] * 4 + [_P],
+_SIGNATURES = {"tt_logz_fwd": [_P] * 5 + [_I] * 5 + [_P],
                "tt_logz_fwd_segment": [_I] * 3,
                "tt_logz_fwd_kernels": [_I] * 3,
                "tt_logz_fwd_scratch": [_I] * 3,
-               "tt_logz_posteriors": [_P] * 3 + [_I] * 4 + [_P],
+               "tt_logz_posteriors": [_P] * 3 + [_I] * 5 + [_P],
                "tt_logz_post_segment": [_I] * 3,
                "tt_logz_post_kernels": [_I] * 3}
 
@@ -300,25 +303,35 @@ def _check(name, t, shape, device, what, dtype=torch.float32):
                                     t.dtype, tuple(t.shape), t.device))
 
 
-DTYPES = (torch.float32, torch.bfloat16)
+# the (scores, lattice and posteriors) dtypes of the kernels' instances:
+# f32, bf16, and f32 scores with a bf16 lattice and posteriors
+INSTANCES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.bfloat16))
 
 
-def _check_dtypes(what, dtype, *others):
-    """One dtype for a call's scores, lattice and posteriors: the f32
-    kernels' or the bf16 instance's."""
-    if dtype not in DTYPES or any(o != dtype for o in others):
+def check_instance(what, scores, lattice, *post):
+    """A call's dtypes are an instance's: (scores, lattice) one of
+    INSTANCES, the posteriors the lattice's (logZ's kernels, and the CRF's
+    on score streams, the scores there the streams)."""
+    if (scores, lattice) not in INSTANCES or any(p != lattice for p in post):
         raise ValueError(
-            "{}: scores, lattice and posteriors must share one dtype of {} "
-            "(got {})".format(what, DTYPES, (dtype,) + others))
+            "{}: (scores, lattice, posteriors) dtypes {} are no instance's; "
+            "(scores, lattice and posteriors) must be one of {}".format(
+                what, (scores, lattice) + post, INSTANCES))
+
+
+def instance_flags(scores, lattice):
+    """The C entry points' instance flags: bf16 scores, a bf16 lattice."""
+    return int(scores == torch.bfloat16), int(lattice == torch.bfloat16)
 
 
 def logz_fwd(scores, emit_lattice=True, lattice_dtype=None):
     """Forward pass of the flip-flop partition function; contract of
-    `logz_fwd_plain`, with nbase inferred from S.  The lattice's dtype is
-    the scores' (f32, or bf16: the bf16 instance)."""
+    `logz_fwd_plain`, with nbase inferred from S.  The lattice's dtype
+    (None: the scores') and the scores' pick the instance (INSTANCES)."""
     nbase = flipflopfings.nbase_flipflop(scores.shape[2])
     lattice_dtype = lattice_dtype or scores.dtype
-    _check_dtypes("logz_fwd", scores.dtype, lattice_dtype)
+    check_instance("logz_fwd", scores.dtype, lattice_dtype)
     if scores.device.type == "cpu":
         return logz_fwd_plain(scores, nbase, emit_lattice, lattice_dtype)
     cuda_lib.check_cuda(scores, "logz_fwd")
@@ -339,31 +352,30 @@ def logz_fwd(scores, emit_lattice=True, lattice_dtype=None):
         err = lib.tt_logz_fwd(
             cuda_lib.ptr(scores), cuda_lib.ptr(fwd), cuda_lib.ptr(logz),
             cuda_lib.ptr(lattice), cuda_lib.ptr(scratch), T, B, nbase,
-            int(scores.dtype == torch.bfloat16), cuda_lib.stream(dev))
+            *instance_flags(scores.dtype, lattice_dtype), cuda_lib.stream(dev))
         if B:
             n = forward_kernels(T, B, nbase)
             logz_fwd.launches += n
-            if scores.dtype == torch.bfloat16:
-                logz_fwd.bf16.launches += n
+            count_instance(logz_fwd, scores.dtype, lattice_dtype, n)
     cuda_lib.check(lib, err, "logz_fwd kernel")
     return fwd, logz, lattice
 
 
 def logz_posteriors(scores, lattice, out_dtype=None):
     """Posterior transition probabilities from scores and the forward
-    lattice of `logz_fwd`; contract of `logz_posteriors_plain`.  Scores,
-    lattice and posteriors share one dtype (f32, or bf16: the bf16
-    instance)."""
+    lattice of `logz_fwd`; contract of `logz_posteriors_plain`.  The
+    posteriors' dtype (None: the scores') is the lattice's, and with the
+    scores' picks the instance (INSTANCES)."""
     nbase = flipflopfings.nbase_flipflop(scores.shape[2])
     out_dtype = out_dtype or scores.dtype
-    _check_dtypes("logz_posteriors", scores.dtype, lattice.dtype, out_dtype)
+    check_instance("logz_posteriors", scores.dtype, lattice.dtype, out_dtype)
     if scores.device.type == "cpu":
         return logz_posteriors_plain(scores, lattice, nbase, out_dtype)
     cuda_lib.check_cuda(scores, "logz_posteriors")
     T, B, S = scores.shape
     _check_nbase(nbase, "logz_posteriors")
     _check("scores", scores, (T, B, S), scores.device, "logz_posteriors",
-           out_dtype)
+           scores.dtype)
     _check("lattice", lattice, (T, B, 2 * nbase), scores.device,
            "logz_posteriors", out_dtype)
     lib = cuda_lib.load("logz", _SIGNATURES)
@@ -371,13 +383,12 @@ def logz_posteriors(scores, lattice, out_dtype=None):
         post = torch.empty(T, B, S, device=scores.device, dtype=out_dtype)
         err = lib.tt_logz_posteriors(
             cuda_lib.ptr(scores), cuda_lib.ptr(lattice), cuda_lib.ptr(post),
-            T, B, nbase, int(out_dtype == torch.bfloat16),
+            T, B, nbase, *instance_flags(scores.dtype, out_dtype),
             cuda_lib.stream(scores.device))
         if T and B:
             n = posterior_kernels(T, B, nbase)
             logz_posteriors.launches += n
-            if out_dtype == torch.bfloat16:
-                logz_posteriors.bf16.launches += n
+            count_instance(logz_posteriors, scores.dtype, out_dtype, n)
     cuda_lib.check(lib, err, "logz_posteriors kernels")
     return post
 
@@ -408,8 +419,17 @@ def posterior_kernels(T, B, nbase):
                                                                   nbase)
 
 
+def count_instance(fn, scores, lattice, n=1):
+    """n launches of `fn`'s instance on these dtypes, on its counter: `bf16`
+    (bf16 scores) or `mixed` (f32 scores, a bf16 lattice)."""
+    if lattice == torch.bfloat16:
+        (fn.bf16 if scores == torch.bfloat16 else fn.mixed).launches += n
+
+
 logz_fwd.launches = 0
 logz_posteriors.launches = 0
-# the bf16 instances' launches (also counted in `launches`)
+# the bf16 and mixed instances' launches (also counted in `launches`)
 logz_fwd.bf16 = Launches()
 logz_posteriors.bf16 = Launches()
+logz_fwd.mixed = Launches()
+logz_posteriors.mixed = Launches()

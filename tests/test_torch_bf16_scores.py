@@ -394,8 +394,13 @@ def test_score_switches_keep_the_streams_route_f32(other, monkeypatch):
     for name, dtypes, kw in calls:
         if name.startswith("crf"):
             assert set(dtypes) == {F32}, name
+        elif name == "logz_fwd":
+            assert dtypes == (tff.score_dtype(),), name
+            assert kw["lattice_dtype"] == BF16
         else:
-            assert set(dtypes) == {tff.score_dtype()}, name
+            # logZ's lattice and posteriors bf16 whatever the scores' dtype
+            assert dtypes == (tff.score_dtype(), BF16), name
+            assert kw["out_dtype"] == BF16
 
 
 def test_switch_runs_the_bf16_instances(monkeypatch):
@@ -429,14 +434,16 @@ def test_switch_runs_the_bf16_instances(monkeypatch):
 
 
 def test_wrappers_refuse_mixed_dtypes():
+    """logZ's wrappers refuse the dtypes of no instance (logz.INSTANCES:
+    f32, bf16, and f32 scores with a bf16 lattice and posteriors)."""
     s = torch.from_numpy(_scores(6, 2, 4, seed=26))
-    with pytest.raises(ValueError, match="one dtype"):
-        tlogz.logz_fwd(s, lattice_dtype=BF16)
+    with pytest.raises(ValueError, match="no instance"):
+        tlogz.logz_fwd(s.to(BF16), lattice_dtype=F32)
     _, _, lat = tlogz.logz_fwd(s.to(BF16))
     assert lat.dtype == BF16
-    with pytest.raises(ValueError, match="one dtype"):
+    with pytest.raises(ValueError, match="no instance"):
         tlogz.logz_posteriors(s, lat)
-    with pytest.raises(ValueError, match="one dtype"):
+    with pytest.raises(ValueError, match="no instance"):
         tlogz.logz_posteriors(s.to(BF16), lat, out_dtype=F32)
     lp, seqs, seqlens, _, _ = _case(T=6, B=8, seed=27)
     idx = _port_inputs(lp, seqs, seqlens, None, None)
