@@ -284,8 +284,23 @@ card; run from the root of a checkout:
    instance, d_sW on the atb GEMM's bf16 instance; h, d gates_x and d_sW
    against the f32 scans within 2e-2 of each one's largest, and the peak
    memory of each.
-20. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
-   line (17 rows and the 15 bf16 instances'; each with its launches on
+20. The score-stream route's bf16 instances (this slice; the same
+   switch with TAIYAKI_TPU_NO_SCORE_FUSE=1 or TAIYAKI_TPU_F32_SCORES=1):
+   (a) rows 9 and 10 on bf16 streams and on f32 streams, each with a
+   bf16 lattice and bf16 posteriors, at the training shape, at S=46, at
+   L=9000 and L=20000 (clusters of 4 and 8 CTAs, T cut to 2600-2700) and
+   past 32768 positions (T=600), against their twins on phase 18a's
+   terms, and logZ's mixed instance (rows 2-3: f32 scores, a bf16 lattice
+   and posteriors) at the training shape; each timed beside its f32
+   instance and counted; (b) the mLstm and cat_mod steps on the streams
+   route under the switch with each score switch against the f32 step
+   (16c's terms), each row's instances launched, the cat_mod step's ms
+   and peak memory; (c) `cli.basecall` of phase 3's reads with the switch
+   exported (make_trans on logZ's mixed instance), its calls against
+   phase 3's and each chunk's path against the f32 one within the bf16
+   envelope.
+21. A `gemms` JSON line (one row a product and shape), a `kernels` JSON
+   line (17 rows and the 21 bf16 and mixed instances'; each with its launches on
    phase 13's training paths, phase 14's round-trip basecall and phase
    15's paths, `launches_on`), the card line, and the result line
    {"ok": true, "device": {...}}.
@@ -817,14 +832,16 @@ def check_lstm_train(torch, dev, rng):
         l2_ms=b_l2_ms[k], l2_diff=b_l2[k], plan=bplan) for k in bwds]
 
 
-def _crf_case(torch, dev, rng, tt, tb, tl, s):
+def _crf_case(torch, dev, rng, tt, tb, tl, s, lens=None):
     """Scores [tt, tb, s] and the lattice index vectors of random ragged
-    sequences (L=tl, lengths tl/2 .. tl); past 40 columns, a cat_mod
-    column with a weight for every move, as the cat_mod loss folds it."""
+    sequences (L=tl, lengths `lens` (lo, hi), else tl/2 .. tl); past 40
+    columns, a cat_mod column with a weight for every move, as the
+    cat_mod loss folds it."""
     from taiyaki_tpu_torch import flipflopfings
     from taiyaki_tpu_torch.ops import flipflop
     lp = _tensor(torch, dev, rng.normal(size=(tt, tb, s)))
-    seqlens = rng.integers(tl // 2, tl + 1, size=tb).astype(np.int32)
+    lo, hi = lens or (tl // 2, tl)
+    seqlens = rng.integers(lo, hi + 1, size=tb).astype(np.int32)
     seqs = np.zeros((tb, tl), np.int32)
     for i in range(tb):
         seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(
@@ -4662,16 +4679,30 @@ BF16_ROWS = (("lstm_fwd[bf16]", "lstm_fwd", "pallas_rnn.py:880"),
              ("lstm_scan_fwd[bf16]", "lstm_scan_fwd", "pallas_rnn.py:141"),
              ("lstm_scan_bwd[bf16]", "lstm_scan_bwd", "pallas_rnn.py:726"),
              ("gru_scan_fwd[bf16]", "gru_scan_fwd", "pallas_rnn.py:1082"),
-             ("gru_scan_bwd[bf16]", "gru_scan_bwd", "pallas_rnn.py:1407"))
-# the names of the scans', the LSTM layers', the GRU layers' and the score
+             ("gru_scan_bwd[bf16]", "gru_scan_bwd", "pallas_rnn.py:1407"),
+             ("crf_fwd_streams[bf16]", "crf_fwd_streams",
+              "pallas_crf.py:108"),
+             ("crf_grad_streams[bf16]", "crf_grad_streams",
+              "pallas_crf.py:218"),
+             ("crf_fwd_streams[mixed]", "crf_fwd_streams",
+              "pallas_crf.py:108"),
+             ("crf_grad_streams[mixed]", "crf_grad_streams",
+              "pallas_crf.py:218"),
+             ("logz_fwd[mixed]", "logz_fwd", "pallas_logz.py:142"),
+             ("logz_posteriors[mixed]", "logz_posteriors",
+              "pallas_logz.py:249"))
+# the names of the score-stream route's instances and logZ's mixed one
+# (phase 20), the scans', the LSTM layers', the GRU layers' and the score
 # rows' bf16 instances
+STREAM_BF16 = tuple(n for n, _, _ in BF16_ROWS
+                    if "_streams[" in n or "[mixed]" in n)
 SCAN_BF16 = tuple(n for n, _, _ in BF16_ROWS if "_scan_" in n)
 LSTM_BF16 = tuple(n for n, _, _ in BF16_ROWS
                   if n.startswith("lstm") and n not in SCAN_BF16)
 GRU_BF16 = tuple(n for n, _, _ in BF16_ROWS
                  if n.startswith("gru") and n not in SCAN_BF16)
 SCORE_BF16 = tuple(n for n, _, _ in BF16_ROWS
-                   if n.startswith(("crf", "logz")))
+                   if n.startswith(("crf", "logz")) and n not in STREAM_BF16)
 # the step under the switch against the f32 step (the CPU tests' terms)
 BF16_LOSS_TOL, BF16_GRAD_TOL = 5e-3, 2e-2
 
@@ -4996,17 +5027,18 @@ def _median_step(torch, dev, seed, model, batch, kwargs):
 @contextlib.contextmanager
 def scores_kept_f32():
     """Within: the CRF and logZ in f32 whatever the switch says (ops/
-    flipflop.py `score_dtype` patched): the step under the switch with the
-    layers' bf16 streams alone, as phases 16c and 17b hold it and as the
-    slices before phase 18's ran it."""
+    flipflop.py `_score_dtypes`, the scores' and the lattices' dtypes,
+    patched): the step under the switch with the layers' bf16 streams
+    alone, as phases 16c and 17b hold it and as the slices before phase
+    18's ran it."""
     from taiyaki_tpu_torch.ops import flipflop
     import torch
-    real = flipflop.score_dtype
-    flipflop.score_dtype = lambda: torch.float32
+    real = flipflop._score_dtypes
+    flipflop._score_dtypes = lambda: (torch.float32, torch.float32)
     try:
         yield
     finally:
-        flipflop.score_dtype = real
+        flipflop._score_dtypes = real
 
 
 def bf16_steps(torch, dev, seed, counters, model=MLSTM,
@@ -5103,9 +5135,11 @@ def bf16_cli(torch, work, seed, pick, reads, idle):
 def basecall_opt_out(torch, work, tag, reads, outdir, fwd, idle=None):
     """`cli.basecall` of the 9 reads `reads` from the checkpoint that a
     training path under the switch left in `outdir`, with the switch still
-    exported: the CLI's opt-out keeps it f32 (the kernel `fwd` launched,
-    its bf16 instance never, nor any of the counters `idle` {name:
-    counter}) and every read is processed.  Returns the launches."""
+    exported: the CLI's opt-out keeps its layers and scores f32 (the
+    kernel `fwd` launched, its bf16 instance never, nor any of the
+    counters `idle` {name: counter}; logZ's lattice is bf16 since phase
+    20's slice, its mixed instance) and every read is processed.  Returns
+    the launches."""
     from taiyaki_tpu_torch.cli import basecall
     name = fwd.__name__
     counted = {name: fwd, name + "[bf16]": fwd.bf16}
@@ -5923,6 +5957,435 @@ def bf16_scan_path(torch, dev, rng, counters):
     return launches, out
 
 
+# -- phase 20 ----------------------------------------------------------------
+
+# the shapes of the score-stream route's bf16 instances: (tag, T, B, L,
+# S, sequence lengths (None: L/2 .. L)): the mLstm training shape, its
+# cat_mod width, a cluster of 4 CTAs a row (L=9000) and of 8 (L=20000),
+# whose rows of 2300-2700 positions cross a CTA of the cluster, and the
+# device-memory instance past 32768 positions; T cut at the long lattices
+# (the twins' Python loop is what costs there)
+STREAM_BF16_SHAPES = (("training", TT, TB, TL, S, None),
+                      ("cat_mod", TT, TB, TL, SC, None),
+                      ("L=9000", 2600, XB, XL, SC, (2300, 2590)),
+                      ("L=20000", 2700, YB, YL, S, (2600, 2690)),
+                      ("device memory", 600, 1, 32776, SC, (400, 590)))
+# the score switch of each instance under TAIYAKI_TPU_BF16_STREAMS=1: bf16
+# streams (and logZ scores), or f32 ones, with bf16 lattices and
+# posteriors
+STREAM_ROWS = (("bf16", "TAIYAKI_TPU_NO_SCORE_FUSE"),
+               ("mixed", "TAIYAKI_TPU_F32_SCORES"))
+
+
+def _stream_bounds(tt, tb, tl, npos, n_fmove, n_bmove, sbytes, s):
+    """The bounds of kernels 9-10 at one shape (check_crf_streams' counts:
+    each stream read where this data needs it), the streams at `sbytes`
+    a value, the lattice and the posteriors bf16 (2 bytes), d lp f32:
+    (forward, posteriors entry, d lp entry), each (ms, by)."""
+    lat = 2 * tt * tb * tl
+    reads = sbytes * tt * (npos + n_bmove) + 2 * tt * npos
+    return (bound_ms(sbytes * tt * (npos + n_fmove) + lat
+                     + 4 * (2 * tb * tl + tb), 10 * tt * npos),
+            bound_ms(reads + 2 * lat + 4 * (tb * tl + tb), 20 * tt * npos),
+            bound_ms(reads + 4 * tt * tb * s + 4 * (5 * tb * tl + tb),
+                     20 * tt * npos))
+
+
+def check_bf16_stream_kernels(torch, dev, rng):
+    """Phase 20a: the bf16-stream and the mixed (f32 streams, bf16
+    lattice) instances of rows 9 and 10 at STREAM_BF16_SHAPES against
+    their twins, which round where the kernels round, on phase 18a's
+    terms: the score 1e-3 + 1e-5 |score|, fwd_final 1e-4 on live states,
+    the bf16 lattice and posteriors as `bf16_err` (atol 1e-4; 1e-5, 3e-4
+    past T=800), each backward on the twin's lattice; d lp (sums of bf16
+    posteriors, the mod ones weighted by bf16(fact)) within one bf16 step
+    of a posterior times the largest weight, past the posteriors' atol
+    times it at most BF16_SHARE of its entries; the posteriors and d lp
+    bitwise from run to run.  Then logZ's mixed instance (rows 2-3: f32
+    scores, a bf16 lattice and posteriors) at the training shape, as 18a
+    holds its bf16 one.  Each instance counted, and timed at each shape
+    beside the f32 instance on the same streams (the twins at the
+    training shape).  Returns the six rows of the kernels line, without
+    their launches."""
+    from taiyaki_tpu_torch.ops import crf, flipflop, logz
+    bf = torch.bfloat16
+    crf_names = ["{}[{}]".format(n, i) for i, _ in STREAM_ROWS
+                 for n in ("crf_fwd_streams", "crf_grad_streams")]
+    names = crf_names + ["logz_fwd[mixed]", "logz_posteriors[mixed]"]
+    err, share = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    post = {}
+    ms, f32_ms, plain_ms, bounds = {}, {}, {}, {}
+    counts = {n: getattr(getattr(logz if "logz" in n else crf,
+                                 n.split("[")[0]), n[:-1].split("[")[1])
+              for n in names}
+    counts.update({"crf_bwd_posteriors[{}]".format(i): getattr(
+        crf.crf_bwd_posteriors, i) for i, _ in STREAM_ROWS})
+    before = {n: c.launches for n, c in counts.items()}
+
+    def record(name, tag, d, sh):
+        err[name], share[name] = max(err[name], d), max(share[name], sh)
+        say("{} at the {} shape: |diff| {:.3g}, share one bf16 step apart "
+            "{:.3g} (at most {})".format(name, tag, d, sh, BF16_SHARE))
+
+    for tag, tt, tb, tl, s, lens in STREAM_BF16_SHAPES:
+        lp, seqlens, args = _crf_case(torch, dev, rng, tt, tb, tl, s, lens)
+        sidx, midx, mmidx, mfact, valid, last = args
+        idx = (sidx, midx, mmidx, mfact)
+        mod = (mmidx, mfact) if s > S else (None, None)
+        stay32, move32 = flipflop._select_streams(lp, sidx, midx, *mod)
+        del lp
+        p_tol = 1e-5 if tt <= TT else 3e-4
+        reps = 5 if tt <= TT else 2
+        weight = max(1.0, mfact.max().item())
+        for inst, _ in STREAM_ROWS:
+            fwd_n, grad_n = ("crf_fwd_streams[{}]".format(inst),
+                             "crf_grad_streams[{}]".format(inst))
+            stay, move = ((stay32.to(bf), move32.to(bf)) if inst == "bf16"
+                          else (stay32, move32))
+            f0, s0, lat0 = crf.crf_fwd_streams_plain(stay, move, valid,
+                                                     lattice_dtype=bf)
+            p0 = crf.crf_bwd_posteriors_plain(stay, move, lat0, valid, last)
+            # crf_grad_streams_plain is these posteriors scattered
+            g0 = crf.scatter_posteriors(
+                stay.shape[:2] + (s,), p0[0].float(), p0[1].float(), sidx,
+                midx, mmidx, crf._rounder(bf)(mfact))
+            f1, s1, lat1 = crf.crf_fwd_streams(stay, move, valid,
+                                               lattice_dtype=bf)
+            p1 = crf.crf_bwd_posteriors(stay, move, lat0, valid, last)
+            p2 = crf.crf_bwd_posteriors(stay, move, lat0, valid, last)
+            g1 = crf.crf_grad_streams(stay, move, lat0, valid, last, *idx, s)
+            g2 = crf.crf_grad_streams(stay, move, lat0, valid, last, *idx, s)
+            torch.cuda.synchronize()
+            s_err = max_abs_diff(s1, s0)
+            s_tol = 1e-3 + 1e-5 * s0.abs().max().item()
+            live = f0 > crf.NEG / 2
+            f_err = (f1 - f0).abs().masked_fill(~live, 0).max().item()
+            check(s_err <= s_tol and f_err <= 1e-4, "{} {}: score err {} "
+                  "(tol {}), fwd_final {}".format(fwd_n, tag, s_err, s_tol,
+                                                  f_err))
+            d, sh, ok = bf16_err(torch, lat1, lat0, 1e-4)
+            check(ok, "{} {}: lattice |diff| {} share {}".format(
+                fwd_n, tag, d, sh))
+            record(fwd_n, tag, max(s_err, f_err, d), sh)
+            p_err, p_sh = 0.0, 0.0
+            for a, b, again in zip(p1, p0, p2):
+                d, sh, ok = bf16_err(torch, a, b, p_tol)
+                check(ok and bool(torch.equal(a, again)), "crf_bwd_posteriors"
+                      "[{}] {}: |diff| {} share {}, bitwise run to run {}"
+                      .format(inst, tag, d, sh, torch.equal(a, again)))
+                p_err, p_sh = max(p_err, d), max(p_sh, sh)
+            diff = (g1 - g0).abs()
+            g_err = diff.max().item()
+            past = (diff > p_tol * weight).float().mean().item()
+            check(g_err <= 2.0 ** -8 * weight and past <= BF16_SHARE
+                  and bool(torch.equal(g1, g2)), "{} {}: d lp |diff| {} (at "
+                  "most 2^-8 x {}), {} of it past {}, bitwise run to run {}"
+                  .format(grad_n, tag, g_err, weight, past, p_tol * weight,
+                          torch.equal(g1, g2)))
+            record(grad_n, tag, g_err, past)
+            post.setdefault(inst, dict(max_abs_err=0.0))
+            post[inst]["max_abs_err"] = max(post[inst]["max_abs_err"], p_err)
+            del f0, s0, g0, f1, s1, lat1, p1, p2, g1, g2, diff
+            ms[fwd_n, tag] = cuda_ms(torch, lambda: crf.crf_fwd_streams(
+                stay, move, valid, lattice_dtype=bf), reps=reps)
+            ms["post", inst, tag] = cuda_ms(
+                torch, lambda: crf.crf_bwd_posteriors(stay, move, lat0,
+                                                      valid, last),
+                reps=reps)
+            ms[grad_n, tag] = cuda_ms(torch, lambda: crf.crf_grad_streams(
+                stay, move, lat0, valid, last, *idx, s), reps=reps)
+            if tag == "training":
+                plain_ms[fwd_n] = cuda_ms(
+                    torch, lambda: crf.crf_fwd_streams_plain(
+                        stay, move, valid, lattice_dtype=bf),
+                    reps=1, warmup=0)
+                plain_ms["post", inst] = cuda_ms(
+                    torch, lambda: crf.crf_bwd_posteriors_plain(
+                        stay, move, lat0, valid, last), reps=1, warmup=0)
+                plain_ms[grad_n] = cuda_ms(
+                    torch, lambda: crf.crf_grad_streams_plain(
+                        stay, move, lat0, valid, last, *idx, s),
+                    reps=1, warmup=0)
+                pos = torch.arange(tl, device=dev)[None]
+                ok_pos = valid != 0
+                bounds[fwd_n], bounds["post", inst], bounds[grad_n] = \
+                    _stream_bounds(tt, tb, tl, int(seqlens.sum()),
+                                   int(ok_pos[:, 1:].sum().item()),
+                                   int((ok_pos & (pos < last.long()[:, None]))
+                                       .sum().item()),
+                                   2 if inst == "bf16" else 4, s)
+            del stay, move, lat0
+        _, _, lat32 = crf.crf_fwd_streams(stay32, move32, valid)
+        f32_ms["fwd", tag] = cuda_ms(torch, lambda: crf.crf_fwd_streams(
+            stay32, move32, valid), reps=reps)
+        f32_ms["post", tag] = cuda_ms(torch, lambda: crf.crf_bwd_posteriors(
+            stay32, move32, lat32, valid, last), reps=reps)
+        f32_ms["grad", tag] = cuda_ms(torch, lambda: crf.crf_grad_streams(
+            stay32, move32, lat32, valid, last, *idx, s), reps=reps)
+        times = [[ms["crf_fwd_streams[%s]" % i, tag], ms["post", i, tag],
+                  ms["crf_grad_streams[%s]" % i, tag]]
+                 for i, _ in STREAM_ROWS]
+        say("crf on score streams at the {} shape (T={}, B={}, L={}, S={}; "
+            "layout {}): forward, posteriors, d lp ms: bf16 streams {}, f32 "
+            "streams with a bf16 lattice {}, f32 {}".format(
+                tag, tt, tb, tl, s, crf.streams_layout(tl) or
+                "device memory", *times, [f32_ms[k, tag] for k in (
+                    "fwd", "post", "grad")]))
+        del stay32, move32, lat32, args
+        torch.cuda.empty_cache()
+
+    # logZ's mixed instance at the training shape
+    sc = _tensor(torch, dev, 5.0 * np.tanh(rng.normal(size=(TT, TB, S))))
+    f0, z0, l0 = logz.logz_fwd_plain(sc, NBASE, lattice_dtype=bf)
+    p0 = logz.logz_posteriors_plain(sc, l0, NBASE, out_dtype=bf)
+    f1, z1, l1 = logz.logz_fwd(sc, lattice_dtype=bf)
+    p1 = logz.logz_posteriors(sc, l0, out_dtype=bf)
+    p2 = logz.logz_posteriors(sc, l0, out_dtype=bf)
+    torch.cuda.synchronize()
+    z_err = max_abs_diff(z1, z0)
+    z_tol = 1e-3 + 1e-5 * z0.abs().max().item()
+    check(z_err <= z_tol and max_abs_diff(f1, f0) <= 1e-4,
+          "logz_fwd[mixed]: logZ err {} (tol {})".format(z_err, z_tol))
+    d, sh, ok = bf16_err(torch, _states_bf16(torch, l1),
+                         _states_bf16(torch, l0), 1e-4)
+    check(ok, "logz_fwd[mixed]: lattice |diff| {} share {}".format(d, sh))
+    record("logz_fwd[mixed]", "training", max(z_err, d), sh)
+    d, sh, ok = bf16_err(torch, p1, p0, 1e-5)
+    check(ok and bool(torch.equal(p1, p2)), "logz_posteriors[mixed]: |diff| "
+          "{} share {}, bitwise run to run {}".format(d, sh,
+                                                      torch.equal(p1, p2)))
+    record("logz_posteriors[mixed]", "training", d, sh)
+    _, _, l32 = logz.logz_fwd(sc)
+    for n, f, f32 in (
+            ("logz_fwd[mixed]", lambda: logz.logz_fwd(sc, lattice_dtype=bf),
+             lambda: logz.logz_fwd(sc)),
+            ("logz_posteriors[mixed]",
+             lambda: logz.logz_posteriors(sc, l1, out_dtype=bf),
+             lambda: logz.logz_posteriors(sc, l32))):
+        ms[n, "training"] = cuda_ms(torch, f, reps=5)
+        f32_ms[n, "training"] = cuda_ms(torch, f32, reps=5)
+    plain_ms["logz_fwd[mixed]"] = cuda_ms(
+        torch, lambda: logz.logz_fwd_plain(sc, NBASE, lattice_dtype=bf),
+        reps=1, warmup=0)
+    plain_ms["logz_posteriors[mixed]"] = cuda_ms(
+        torch, lambda: logz.logz_posteriors_plain(sc, l0, NBASE,
+                                                  out_dtype=bf),
+        reps=1, warmup=0)
+    nff = 2 * NBASE
+    bounds["logz_fwd[mixed]"] = bound_ms(
+        4 * TT * TB * S + 2 * TT * TB * nff + 4 * (TB * nff + TB),
+        TT * TB * (4 * S + 4 * nff))
+    bounds["logz_posteriors[mixed]"] = bound_ms(
+        4 * TT * TB * S + 2 * TT * TB * nff + 2 * TT * TB * S,
+        TT * TB * (8 * S + 4 * nff))
+    del sc, f0, z0, l0, p0, f1, z1, l1, p1, p2, l32
+    torch.cuda.empty_cache()
+    for n, c in counts.items():
+        check(c.launches > before[n], "{}: no launch of the instance".format(
+            n))
+
+    rows = []
+    for name, f32_name, where in BF16_ROWS:
+        if name not in names:
+            continue
+        inst = name[:-1].split("[")[1]
+        # the f32 instance's times: by kernel 9 / 10 (fwd, grad), or logZ's
+        kind = (("fwd" if "fwd" in name else "grad") if "crf" in name
+                else name)
+        shapes = [t for t, *_ in STREAM_BF16_SHAPES if (name, t) in ms]
+        row = dict(
+            name=name, route="cuda",
+            source="taiyaki_tpu_torch/csrc/{}.cu".format(
+                "logz" if "logz" in name else "crf"),
+            replaces="taiyaki_tpu/ops/" + where, max_abs_err=err[name],
+            bf16_share=share[name], ms=ms[name, "training"],
+            plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+            bound_by=bounds[name][1], library_ms=None,
+            f32_ms=f32_ms[kind, "training"],
+            shapes_ms={t: [ms[name, t], f32_ms[kind, t]] for t in shapes})
+        if kind == "grad":
+            row["post"] = dict(
+                post[inst], ms=ms["post", inst, "training"],
+                f32_ms=f32_ms["post", "training"],
+                plain_ms=plain_ms["post", inst],
+                bound_ms=bounds["post", inst][0],
+                bound_by=bounds["post", inst][1],
+                shapes_ms={t: [ms["post", inst, t], f32_ms["post", t]]
+                           for t in shapes})
+        rows.append(row)
+        say("{} (T={} B={} L={}): max err {:.3g}, share {:.3g}; {:.3f} ms "
+            "against the f32 instance's {:.3f} ms on the same inputs, twin "
+            "{:.3f} ms, bound {:.4f} ms ({}); [instance, f32] ms by shape "
+            "{}{}".format(name, TT, TB, TL, err[name], share[name],
+                          row["ms"], row["f32_ms"], row["plain_ms"],
+                          row["bound_ms"], row["bound_by"],
+                          json.dumps(row["shapes_ms"]),
+                          "; posteriors entry {}".format(json.dumps(
+                              row["post"])) if "post" in row else ""))
+    return rows
+
+
+def bf16_stream_steps(torch, dev, seed, counters):
+    """Phase 20b: the full-width mLstm and cat_mod steps (TB chunks x
+    CHUNK samples, the mod columns x8) on the streams route under the
+    switch, with each score switch of STREAM_ROWS, against the f32 step
+    under the same score switch on the same batch and weights: the loss
+    within BF16_LOSS_TOL relative and each gradient within BF16_GRAD_TOL
+    of its largest (BF16_CATMOD_GRAD_TOL for cat_mod), phase 18b's terms.
+    Each step under the switch counted (`counters`, set to 0 just before
+    it and read just after): the row's instances of rows 9-10 and 2-3
+    launched, the other row's and the fused kernels 5-6 never.  The
+    cat_mod step's ms (median of 3) and peak memory under each.  Returns
+    ({path: launches}, {numbers})."""
+    from taiyaki_tpu_torch import train
+    from taiyaki_tpu_torch.convert import leaf_names
+    launches, out = {}, {}
+    for model in (MLSTM, MLSTM_CATMOD):
+        tag = model[0].split("_flipflop")[0]
+        batch, kwargs = step_batch(seed, TB, model)
+        num = {}
+        for inst, env in STREAM_ROWS:
+            res = {}
+            for on in (False, True):
+                with switches(dict({env: "1"}, **(BF16_STREAMS[1] if on
+                                                  else {}))):
+                    net = new_net(seed, kwargs, dev, model)
+                    names = leaf_names(net)
+                    args, factor = loss_args(net)
+                    if on:
+                        for fn in counters.values():
+                            fn.launches = 0
+                    loss, grads = train.make_grad_step(net, *args)(
+                        train.batch_to_device(batch, dev), 1.0, *factor)
+                    torch.cuda.synchronize()
+                    if on:
+                        path = "{} {} streams step".format(tag, inst)
+                        launches[path] = got = {
+                            k: fn.launches for k, fn in counters.items()}
+                        # kernels 9-10 and logZ, each as the row's
+                        # instance
+                        want = {k for k in got if k.startswith((
+                            "crf_fwd_streams", "crf_grad_streams", "logz"))
+                            and (k.endswith("[%s]" % inst) or "[" not in k)}
+                        check(all(got[k] > 0 for k in want)
+                              and not any(got[k] for k in got
+                                          if k not in want),
+                              "{}: launches {}".format(path, got))
+                    res[on] = (float(loss), [g.float() for g in grads])
+                    del net
+            (l32, g32), (l16, g16) = res[False], res[True]
+            l_err = abs(l16 - l32) / abs(l32)
+            errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                    .item() for a, b in zip(g16, g32)]
+            worst = names[int(np.argmax(errs))]
+            g_tol = (BF16_CATMOD_GRAD_TOL if is_cat_mod(model)
+                     else BF16_GRAD_TOL)
+            check(np.isfinite(l16) and l_err <= BF16_LOSS_TOL
+                  and max(errs) <= g_tol, "{} {} streams step: loss {} vs "
+                  "f32 {} (relative {}), gradient err {} ({}, tol {})".format(
+                      tag, inst, l16, l32, l_err, max(errs), worst, g_tol))
+            num[inst] = dict(loss=l16, f32_loss=l32, loss_err=l_err,
+                             grad_err=max(errs), worst=worst)
+            del res, g32, g16
+            torch.cuda.empty_cache()
+        if is_cat_mod(model):
+            for name, env in (("f32 streams", {STREAM_ROWS[0][1]: "1"}),) + \
+                    tuple((inst, dict({env: "1"}, **BF16_STREAMS[1]))
+                          for inst, env in STREAM_ROWS):
+                with switches(env):
+                    step_ms, peak = _median_step(torch, dev, seed, model,
+                                                 batch, kwargs)
+                torch.cuda.empty_cache()
+                num.setdefault(name, {}).update(ms=step_ms,
+                                                peak_gb=peak / 1e9)
+        out[tag] = num
+        say("{} step ({} chunks x {} samples, size {}, L={}) on the streams "
+            "route under TAIYAKI_TPU_BF16_STREAMS=1, against the f32 step "
+            "(loss tol {}, gradient tol {} of each one's largest): {}".format(
+                tag, TB, CHUNK, H, batch.seqs.shape[1], BF16_LOSS_TOL,
+                BF16_CATMOD_GRAD_TOL if is_cat_mod(model) else BF16_GRAD_TOL,
+                json.dumps(num)))
+    return launches, out
+
+
+def bf16_stream_basecall(torch, dev, work, model, reads, counters, idle):
+    """Phase 20c: `cli.basecall` of phase 3's reads `reads` from its mLstm
+    checkpoint `model` with the switch exported: the CLI's opt-out sets
+    TAIYAKI_TPU_F32_SCORES=1, so make_trans runs logZ's mixed instance
+    (`counters`, each launched; `idle`, the bf16 instances, never).  Its
+    calls against phase 3's f32 calls (work/mLstm.fa), and per chunk of
+    the first B chunks of the reads (Basecaller, want_trans) the path
+    under the switch against the f32 one, by the near-tie rule under
+    rounded scores: a path that differs must score the f32 best, under
+    the f32 scores, within 1e-4 plus what the rounding moved the two
+    paths' scores (|S32(p) - S16(p)| of each path p; the best path under
+    one set of scores is within that of the best under the other).
+    Returns (launches, stats)."""
+    from taiyaki_tpu_torch.cli import basecall
+    from taiyaki_tpu_torch.convert import load_jax_params
+    from taiyaki_tpu_torch.data import fast5utils
+    from taiyaki_tpu_torch.ops.rnn import f32_inference
+    from taiyaki_tpu_torch.utils import helpers
+    counted = dict(counters, **idle)
+    for fn in counted.values():
+        fn.launches = 0
+    fa = os.path.join(work, "mLstm_bf16_streams.fa")
+    with switches(BF16_STREAMS[1]):
+        stats = basecall.main(["--output", fa, "--quiet", reads, model])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    check(all(launches[k] > 0 for k in counters)
+          and not any(launches[k] for k in idle) and stats["nread"] == 9,
+          "basecall under the switch: launches {}, {} reads".format(
+              launches, stats["nread"]))
+    calls, first = read_fastx(fa), read_fastx(os.path.join(work, "mLstm.fa"))
+    same = [rid for rid in first if calls.get(rid) == first[rid]]
+    net, params, *_ = helpers.load_model(model)
+    net = load_jax_params(net, params).to(dev).eval()
+    parts = []
+    for fname, rid in fast5utils.iterate_fast5_reads(reads):
+        parts.append(basecall.prepare_read(
+            rid, basecall.get_signal(fname, rid), T * net.stride,
+            100 * net.stride, None, False)["chunks"])
+    chunks = torch.from_numpy(np.concatenate(parts, axis=1)[:, :B]).to(dev)
+    res = []
+    for env in ({}, BF16_STREAMS[1]):
+        with switches(env), f32_inference(), torch.inference_mode():
+            caller = basecall.Basecaller(net, 40, True, 1.0, B, dev,
+                                         want_trans=True)
+            res.append({k: v.cpu().numpy()
+                        for k, v in caller.call_chunks(chunks).items()})
+    f32, b16 = res
+    ndiff, worst, moved = 0, 0.0, 0.0
+    for i in range(chunks.shape[1]):
+        if np.array_equal(b16["paths"][:, i], f32["paths"][:, i]):
+            continue
+        ndiff += 1
+        # score[s, p]: path p's score under the scores s
+        score = {(s, p): path_score(t["trans"][:, i], q["paths"][:, i], NBASE)
+                 for s, t in (("32", f32), ("16", b16))
+                 for p, q in (("32", f32), ("16", b16))}
+        gap = score["32", "32"] - score["32", "16"]
+        bound = (abs(score["32", "32"] - score["16", "32"])
+                 + abs(score["32", "16"] - score["16", "16"]))
+        check(gap <= 1e-4 + bound, "chunk {}: the path under the switch "
+              "scores {} below the f32 best (rounding moved the paths' "
+              "scores by {})".format(i, gap, bound))
+        worst, moved = max(worst, gap), max(moved, bound)
+    check(len(same) == len(first) or ndiff > 0,
+          "calls under the switch differ with equal chunk paths")
+    post_err = float(np.abs(np.exp(b16["trans"]) - np.exp(f32["trans"]))
+                     .max())
+    out = dict(equal_calls=len(same), reads=len(first), chunks=int(
+        chunks.shape[1]), differing_chunks=ndiff, worst_gap=worst,
+        largest_moved=moved, posterior_err=post_err,
+        ksample_s=stats["nsample"] / stats["seconds"] / 1e3)
+    say("basecall under TAIYAKI_TPU_BF16_STREAMS=1 (mLstm, phase 3's "
+        "reads; logZ's mixed instance): {}; launches {}".format(
+            json.dumps(out), launches))
+    return launches, out
+
+
 def run(seed):
     try:
         import torch
@@ -6027,9 +6490,10 @@ def run(seed):
         counters[k] = getattr(gemm, k)
         counters[k + "[tc]"] = counters[k].by_instance["tc"]
         counters[k + "[bf16]"] = counters[k].bf16
-    # the bf16 instances of rows 1, 4, 11 and 12 (TAIYAKI_TPU_BF16_STREAMS)
+    # the bf16 instances of rows 1, 4, 11 and 12 (TAIYAKI_TPU_BF16_STREAMS),
+    # and since phase 20 the mixed ones (f32 scores, bf16 lattices)
     for name, f32_name, _ in BF16_ROWS:
-        counters[name] = counters[f32_name].bf16
+        counters[name] = getattr(counters[f32_name], name[:-1].split("[")[1])
     loss = ("crf_fwd", "crf_bwd", "logz_fwd", "logz_posteriors")
     streams = ("crf_fwd_streams", "crf_grad_streams")
     lstm_bwds = {"acts": "lstm_bwd_acts", "pre": "lstm_bwd_fusedw",
@@ -6320,6 +6784,26 @@ def run(seed):
                                           "atb_gemm[bf16]")}))
         launches.update(scan_launches)
         torch.cuda.empty_cache()
+
+        # the score-stream route's bf16 instances and logZ's mixed one
+        phases.next("20a score-stream bf16 instances against their twins")
+        bf16_rows += check_bf16_stream_kernels(torch, dev, rng)
+        torch.cuda.empty_cache()
+        phases.next("20b steps on the streams route under the switch")
+        step_launches, stream_steps = bf16_stream_steps(
+            torch, dev, seed, {k: counters[k] for k in (
+                "crf_fwd", "crf_bwd") + streams + lstm_call[1:] + SCORE_BF16 + STREAM_BF16})
+        launches.update(step_launches)
+        torch.cuda.empty_cache()
+        phases.next("20c basecall under the switch")
+        launches["mLstm basecall bf16 lattice"], stream_call = \
+            bf16_stream_basecall(
+                torch, dev, work, mlstm_ckpt,
+                os.path.join(work, "reads_mLstm"),
+                dict(pick(lstm_call), **{k: counters[k] for k in (
+                    "logz_fwd[mixed]", "logz_posteriors[mixed]")}),
+                {k: counters[k] for k in SCORE_BF16 + ("lstm_fwd[bf16]",)})
+        torch.cuda.empty_cache()
         phases.next(None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6403,6 +6887,8 @@ def run(seed):
         {"steps": gru_bf16_step, "CLIs": gru_bf16_cli})))
     say("bf16 CRF and logZ steps: {}".format(json.dumps(score_steps)))
     say("bf16 scans against f32 scans: {}".format(json.dumps(scan_bf16)))
+    say("streams route and logZ under the switch: {}".format(json.dumps(
+        {"steps": stream_steps, "basecall": stream_call})))
     for k in kernels:
         if "iw_ms" in k:
             say("{} with iW (d_x, D={}): {:.3f} ms, bound {:.3f} ms".format(
@@ -6446,7 +6932,16 @@ def run(seed):
               "lstm_scan_fwd[bf16]": "lstm_scan bf16",
               "lstm_scan_bwd[bf16]": "lstm_scan bf16",
               "gru_scan_fwd[bf16]": "gru_scan bf16",
-              "gru_scan_bwd[bf16]": "gru_scan bf16"}
+              "gru_scan_bwd[bf16]": "gru_scan bf16",
+              # the score-stream route's: the cat_mod steps under the
+              # switch with each score switch (phase 20b); logZ's mixed
+              # instance: the basecall under the switch (phase 20c)
+              "crf_fwd_streams[bf16]": "mLstm_cat_mod bf16 streams step",
+              "crf_grad_streams[bf16]": "mLstm_cat_mod bf16 streams step",
+              "crf_fwd_streams[mixed]": "mLstm_cat_mod mixed streams step",
+              "crf_grad_streams[mixed]": "mLstm_cat_mod mixed streams step",
+              "logz_fwd[mixed]": "mLstm basecall bf16 lattice",
+              "logz_posteriors[mixed]": "mLstm basecall bf16 lattice"}
     kernels += bf16_rows
     # the paths of phases 13-15 that run the kernels of the table: each
     # row's launches there beside its own path's

@@ -1,5 +1,7 @@
 """The f32 instances of the CRF and logZ kernels (rows 2, 3, 5, 6, 9 and
-10) on seeded inputs, saved so that two checkouts' outputs can be
+10) on seeded inputs, and the losses, logZ, their gradients and
+make_trans through the port's ops with TAIYAKI_TPU_BF16_STREAMS unset
+(the CRF on each route), saved so that two checkouts' outputs can be
 compared bit for bit: a change that adds instances beside the f32 ones
 (the bf16 score streams) must leave every f32 launch as it was.  Only
 csrc/logz.cu and csrc/crf.cu are built.
@@ -100,7 +102,57 @@ def outputs():
         out.update({key + k: v.cpu() for k, v in (
             ("fwd", f), ("logZ", z), ("lattice", lat), ("posteriors",
                                                         post))})
+    out.update(route_outputs(torch, dev))
     return out
+
+
+def route_outputs(torch, dev):
+    """The CRF loss (fused, and on the streams route), the cat_mod loss on
+    the streams route, logZ, their gradients, and make_trans, with the
+    switches unset but the route's."""
+    from taiyaki_tpu_torch import flipflopfings
+    from taiyaki_tpu_torch.ops import decode, flipflop
+    for k in ("TAIYAKI_TPU_BF16_STREAMS", "TAIYAKI_TPU_F32_SCORES",
+              "TAIYAKI_TPU_NO_SCORE_FUSE"):
+        os.environ.pop(k, None)
+    rng = np.random.default_rng(23)
+    T, B, L = 300, 16, 61
+    x = rng.normal(size=(T, B, 46)).astype(np.float32)
+    seqlens = rng.integers(20, L + 1, size=B).astype(np.int32)
+    seqs = np.zeros((B, L), np.int32)
+    cats = np.zeros((B, L), np.int32)
+    for i in range(B):
+        bases = rng.integers(0, 4, size=seqlens[i])
+        seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(bases)
+        cats[i, :seqlens[i]] = np.where(bases < 2, rng.integers(
+            0, 2, size=seqlens[i]), 0)
+    t_seqs, t_lens, t_cats = (torch.from_numpy(a).to(dev)
+                              for a in (seqs, seqlens, cats))
+    out = {}
+    for route in ("fused", "streams"):
+        if route == "streams":
+            os.environ["TAIYAKI_TPU_NO_SCORE_FUSE"] = "1"
+        tx = torch.from_numpy(x[:, :, :40]).to(dev).requires_grad_()
+        loss = flipflop.crf_flipflop_loss(tx, t_seqs, t_lens, 1.5)
+        (g,) = torch.autograd.grad(loss.sum(), tx)
+        out["route crf loss " + route] = loss.detach()
+        out["route crf d lp " + route] = g
+    tx = torch.from_numpy(x).to(dev).requires_grad_()
+    loss = flipflop.cat_mod_flipflop_loss(
+        tx, t_seqs, t_lens, t_cats, np.array([0, 2, 4, 5, 6]),
+        rng.uniform(0.5, 2.0, size=6).astype(np.float32), 1.5)
+    (g,) = torch.autograd.grad(loss.sum(), tx)
+    out.update({"route cat_mod loss streams": loss.detach(),
+                "route cat_mod d lp streams": g})
+    os.environ.pop("TAIYAKI_TPU_NO_SCORE_FUSE")
+    ts = torch.from_numpy(x[:, :, :40]).to(dev).requires_grad_()
+    z = flipflop.flipflop_logz(ts)
+    (g,) = torch.autograd.grad(z.sum(), ts)
+    out.update({"route logZ": z.detach(), "route d logZ": g,
+                "route make_trans": decode.flipflop_make_trans(
+                    ts.detach())})
+    torch.cuda.synchronize()
+    return {k: v.cpu() for k, v in out.items()}
 
 
 def main():

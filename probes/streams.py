@@ -102,8 +102,9 @@ def build():
     lib.tt_crf_streams_layout.argtypes = [I]
     lib.tt_crf_streams_scratch.argtypes = [I] * 5
     lib.tt_crf_streams_scratch.restype = ctypes.c_longlong
-    lib.tt_crf_bwd_posteriors.argtypes = [P] * 8 + [I] * 3 + [P]
-    lib.tt_crf_grad_streams.argtypes = [P] * 11 + [I] * 4 + [P]
+    # the f32 instance: bf16_streams and bf16_lattice 0
+    lib.tt_crf_bwd_posteriors.argtypes = [P] * 8 + [I] * 5 + [P]
+    lib.tt_crf_grad_streams.argtypes = [P] * 11 + [I] * 6 + [P]
     return lib
 
 
@@ -345,12 +346,14 @@ def probe_new(lib, ks, T, B, L, lp, st, mv, valid, last, idx, ref, reps,
 
     def entry_post():
         return lib.tt_crf_bwd_posteriors(*ptrs(st, mv, lat0, valid, last,
-                                               ps, pm, scratch), T, B, L, cs)
+                                               ps, pm, scratch), T, B, L, 0,
+                                         0, cs)
 
     def entry_grad(out):
         return lib.tt_crf_grad_streams(*ptrs(st, mv, lat0, valid, last,
                                              sidx, midx, mmidx, mfact, out,
-                                             scratch), T, B, L, S, cs)
+                                             scratch), T, B, L, S, 0, 0,
+                                       cs)
     assert entry_post() == 0
     torch.cuda.synchronize()
     p_err = max(diff(ps, ps0), diff(pm, pm0))

@@ -59,8 +59,30 @@
 // then the folded move), kernel 5 stores its lattice as bf16 rounded from
 // its f32 state, and kernel 6 reads that lattice, rounds each posterior to
 // bf16 and sums the rounded posteriors into d lp in f32, where
-// pallas_crf.py's fused kernels round in interpret mode.  Kernels 9-10
-// have none (f32 streams).
+// pallas_crf.py's fused kernels round in interpret mode.
+//
+// Kernels 9-10 have two more instances, by (stream type ST, lattice type
+// LT): bf16 streams with a bf16 lattice (the JAX trainer's default
+// mixed precision on this route, under TAIYAKI_TPU_NO_SCORE_FUSE=1) and f32
+// streams with a bf16 lattice (under TAIYAKI_TPU_F32_SCORES=1:
+// taiyaki_tpu/ops/flipflop.py stores the lattice bf16 whatever the
+// streams' dtype).  bf16 streams are read as bf16 and widened; the forward
+// stores its lattice rounded from its f32 state (pallas_crf.py:82); the
+// backward chain keeps its f32 backward lattice (the TPU kernel's carry is
+// f32 too), and the posterior pass widens the bf16 lattice and rounds each
+// posterior to bf16 (pallas_crf.py:197-198): `post` stores them, `grad`
+// sums the rounded posteriors (the mod one weighted by bf16(fact), kernel
+// 6's bf16 convention) into d lp in f32.
+//
+// A bf16 stream's copy into a chain's ring is 2P bytes a thread (4 at P =
+// 2, 8 at P = 4), which cp.async carries only whole and aligned, and the
+// forward's lane 0 also needs the move into its first position, one 2-byte
+// value at an odd offset.  The port gathers its streams itself
+// (ops/flipflop.py), so the bf16-stream instances take only streams whose
+// rows keep every copy whole: L a multiple of 8 and the streams 16-byte
+// aligned (the route pads L with invalid positions), and lane 0 copies
+// the 4-byte pair that ends with its value.  Any other bf16 stream is
+// refused (cudaErrorInvalidValue), never copied another way.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -123,6 +145,24 @@ __device__ __forceinline__ unsigned pack2(float a, float b)
 {
     return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a))
         | (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16;
+}
+
+// a value of either type, widened
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// v stored as the type of *p (rounded to bf16 there)
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v)
+{
+    *p = __float2bfloat16_rn(v);
+}
+
+// two bf16 values in one word (the first in the low half), widened
+__device__ __forceinline__ void unpack2(float* out, unsigned w)
+{
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
 }
 
 // a move's score with its weighted cat_mod column, rounded after the
@@ -407,11 +447,46 @@ struct LpSource {
 };
 
 // Kernels 9-10's scores: the stay and move streams [T, B, L] (move column
-// l the move l -> l+1).
+// l the move l -> l+1), of f32 or bf16.
+template <class ST>
 struct StreamSource {
-    const float* stay;
-    const float* move;
+    const ST* stay;
+    const ST* move;
 };
+
+// P consecutive bf16 values (P even) in one copy of 2P bytes, both ends
+// aligned to it
+template <int P>
+__device__ __forceinline__ void cp_async_b16(bf16* dst, const bf16* src)
+{
+    static_assert(P == 2 || P == 4 || P == 8, "a bf16 copy of 4 to 16 bytes");
+    float* d = reinterpret_cast<float*>(dst);
+    const float* v = reinterpret_cast<const float*>(src);
+    if (P == 2)
+        cp_async4(d, v);
+    else if (P == 4)
+        cp_async8(d, v);
+    else
+        cp_async16(d, v);
+}
+
+// P consecutive bf16 values of shared memory into v, widened, as
+// cp_async_b16 copies them
+template <int P>
+__device__ __forceinline__ void ld_vec(float* v, const bf16* src)
+{
+    const unsigned* w = reinterpret_cast<const unsigned*>(src);
+    if (P == 2) {
+        unpack2(v, w[0]);
+    } else if (P == 4) {
+        const uint2 x = *reinterpret_cast<const uint2*>(src);
+        unpack2(v, x.x);
+        unpack2(v + 2, x.y);
+    } else {
+#pragma unroll
+        for (int q = 0; q < P / 2; ++q) unpack2(v + 2 * q, w[q]);
+    }
+}
 
 // A thread's view of a step's scores, one reader a source.  Each gives the
 // position flags (ok: valid; mok: its move live), and per step the stay
@@ -521,20 +596,22 @@ struct LpReader {
 };
 
 // floats of a step's slot of the stream ring: stay [ntb][P], move
-// [ntb][P], the move into each warp's first position [ntb / 32], rounded
-// up to 16 bytes
-__host__ __device__ inline int stream_slot_floats(int ntb, int P)
+// [ntb][P] (values of es bytes), the move into each warp's first position
+// [ntb / 32] (a bf16 instance's: the 4-byte pair that ends with it),
+// rounded up to 16 bytes
+__host__ __device__ inline int stream_slot_floats(int ntb, int P, int es)
 {
-    return (2 * ntb * P + ntb / 32 + 3) & ~3;
+    return (2 * ntb * P * es / 4 + ntb / 32 + 3) & ~3;
 }
 
-template <int P, bool BWD>
+template <int P, bool BWD, class ST = float>
 struct StreamReader {
-    using Src = StreamSource;
+    using Src = StreamSource<ST>;
     static constexpr bool BATCH_SYNC = false;  // each thread its own slots
+    static constexpr bool B16 = sizeof(ST) == 2;
     unsigned flags;       // bit p: position l0 + p valid; bit P + p: its move
-    const float* sp;      // the streams at (t = 0, row b, l0)
-    const float* mp;
+    const ST* sp;         // the streams at (t = 0, row b, l0)
+    const ST* mp;
     float* ring;          // [2][K][slot]
     const float* rows;    // this batch's half
     size_t tstride;
@@ -547,10 +624,12 @@ struct StreamReader {
     {
         (void)rowsb;
         (void)S_;
-        return (size_t)2 * K_ * stream_slot_floats(ntb_, P);
+        return (size_t)2 * K_ * stream_slot_floats(ntb_, P, sizeof(ST));
     }
+    // floats of one stream's part of a slot
+    __device__ int part() const { return ntb * P * (int)sizeof(ST) / 4; }
 
-    __device__ void init(const StreamSource& src, float* smem_ring,
+    __device__ void init(const Src& src, float* smem_ring,
                          const int* valid, int last, size_t rowoff, int l0,
                          int L, int T_, int B, int K_, int b, int rt,
                          int NT, int ringrow)
@@ -563,15 +642,16 @@ struct StreamReader {
         tix = threadIdx.x;
         K = K_;
         T = T_;
-        SF = stream_slot_floats(ntb, P);
+        SF = stream_slot_floats(ntb, P, sizeof(ST));
         ring = smem_ring;
         tstride = (size_t)B * L;
         sp = src.stay + rowoff + l0;
         mp = src.move + rowoff + l0;
         nvalid = L - l0;      // positions of this thread inside the row
-        wide = (P == 2 || P % 4 == 0) && L % P == 0
+        // (a bf16 instance's layout is the launch's to check)
+        wide = B16 || ((P == 2 || P % 4 == 0) && L % P == 0
             && ((reinterpret_cast<size_t>(src.stay)
-                 | reinterpret_cast<size_t>(src.move)) & (4 * P - 1)) == 0;
+                 | reinterpret_cast<size_t>(src.move)) & (4 * P - 1)) == 0);
         // forward: lane 0 copies the move into its first position
         xtra = !BWD && (tix & 31) == 0 && l0 > 0 && l0 <= L;
         flags = 0;
@@ -594,20 +674,34 @@ struct StreamReader {
             const int s = s0 + k;
             const size_t off = (size_t)(BWD ? T - 1 - s : s) * tstride;
             float* dst = ring + (size_t)(h * K + k) * SF;
-            float* ds = dst + tix * P;
-            float* dm = dst + ntb * P + tix * P;
-            if (wide && nvalid >= P) {
-                cp_async_vec<P>(ds, sp + off);
-                cp_async_vec<P>(dm, mp + off);
+            if constexpr (B16) {
+                // whole 2P-byte copies (L % 8 == 0), none past the row; the
+                // pair (l0 - 2, l0 - 1) for lane 0
+                bf16* ds = reinterpret_cast<bf16*>(dst) + tix * P;
+                if (nvalid >= P) {
+                    cp_async_b16<P>(ds, sp + off);
+                    cp_async_b16<P>(ds + ntb * P, mp + off);
+                }
+                if (xtra)
+                    cp_async4(dst + 2 * part() + (tix >> 5),
+                              reinterpret_cast<const float*>(mp + off - 2));
             } else {
+                float* ds = dst + tix * P;
+                float* dm = dst + ntb * P + tix * P;
+                if (wide && nvalid >= P) {
+                    cp_async_vec<P>(ds, sp + off);
+                    cp_async_vec<P>(dm, mp + off);
+                } else {
 #pragma unroll
-                for (int p = 0; p < P; ++p)
-                    if (p < nvalid) {
-                        cp_async4(ds + p, sp + off + p);
-                        cp_async4(dm + p, mp + off + p);
-                    }
+                    for (int p = 0; p < P; ++p)
+                        if (p < nvalid) {
+                            cp_async4(ds + p, sp + off + p);
+                            cp_async4(dm + p, mp + off + p);
+                        }
+                }
+                if (xtra)
+                    cp_async4(dst + 2 * ntb * P + (tix >> 5), mp + off - 1);
             }
-            if (xtra) cp_async4(dst + 2 * ntb * P + (tix >> 5), mp + off - 1);
         }
         asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
@@ -628,12 +722,24 @@ struct StreamReader {
     {
         (void)s;
         const float* slot = rows + (size_t)k * SF;
-        ld_vec<P>(sv, slot + tix * P);
-        ld_vec<P>(mo, slot + ntb * P + tix * P);
+        float x0 = 0.f;
+        if constexpr (B16) {
+            const bf16* s16 = reinterpret_cast<const bf16*>(slot) + tix * P;
+            ld_vec<P>(sv, s16);
+            ld_vec<P>(mo, s16 + ntb * P);
+            if (xtra) {
+                float pair[2];
+                unpack2(pair, __float_as_uint(slot[2 * part() + (tix >> 5)]));
+                x0 = pair[1];
+            }
+        } else {
+            ld_vec<P>(sv, slot + tix * P);
+            ld_vec<P>(mo, slot + ntb * P + tix * P);
+            if (xtra) x0 = slot[2 * ntb * P + (tix >> 5)];
+        }
         if (!BWD) {
             mv0 = __shfl_up_sync(FULL, mo[P - 1], 1);
-            if ((tix & 31) == 0) mv0 = xtra ? slot[2 * ntb * P + (tix >> 5)]
-                                            : 0.f;
+            if ((tix & 31) == 0) mv0 = x0;
         }
     }
     __device__ float stay(int p) const { return sv[p]; }
@@ -1502,15 +1608,15 @@ __device__ __forceinline__ float block_max(float v, float* red, int lane,
     return m;
 }
 
-template <int NT, bool BWD>
+template <int NT, bool BWD, class ST, class LT>
 __global__ void __launch_bounds__(NT)
-crf_chain_gmem_kernel(const float* __restrict__ stay,
-                      const float* __restrict__ move,
+crf_chain_gmem_kernel(const ST* __restrict__ stay,
+                      const ST* __restrict__ move,
                       const int* __restrict__ valid,
                       const int* __restrict__ lastpos,
                       float* __restrict__ fwd_final,
                       float* __restrict__ score_out,
-                      float* __restrict__ lattice, float* gstate, int T,
+                      LT* __restrict__ lattice, float* gstate, int T,
                       int B, int L)
 {
     constexpr int NW = NT / 32;
@@ -1534,17 +1640,17 @@ crf_chain_gmem_kernel(const float* __restrict__ stay,
         for (int l = tid; l < L; l += NT) {
             const bool ok = valid[row + l] != 0;
             const float f = ok ? cur[l] - prev : NEG;
-            if (lattice != nullptr) lattice[off + l] = f;
+            if (lattice != nullptr) put(lattice + off + l, f);
             float nw = NEG;
             if (ok) {
                 if (BWD) {
                     const float mpart = l < last
-                        ? move[off + l] + (cur[l + 1] - prev) : NEG;
-                    nw = logaddexpf_(stay[off + l] + f, mpart);
+                        ? to_f(move[off + l]) + (cur[l + 1] - prev) : NEG;
+                    nw = logaddexpf_(to_f(stay[off + l]) + f, mpart);
                 } else {
                     const float mpart = l > 0
-                        ? (cur[l - 1] - prev) + move[off + l - 1] : NEG;
-                    nw = logaddexpf_(f + stay[off + l], mpart);
+                        ? (cur[l - 1] - prev) + to_f(move[off + l - 1]) : NEG;
+                    nw = logaddexpf_(f + to_f(stay[off + l]), mpart);
                 }
             }
             nxt[l] = nw;
@@ -1705,20 +1811,28 @@ inline bool lists_in_smem(int L, int S)
         <= POST_SMEM_SHARED;
 }
 
-template <int NT, bool GRAD, bool CLOCK>
+// the posterior pass's output type: d lp f32 (GRAD), else the posteriors
+// in the lattice's type
+template <bool GRAD, class LT>
+using PostOut = typename std::conditional<GRAD, float, LT>::type;
+
+template <int NT, bool GRAD, bool CLOCK, class ST, class LT>
 __global__ void __launch_bounds__(NT)
-crf_post_kernel(const float* __restrict__ stay,
-                const float* __restrict__ move,
-                const float* __restrict__ lattice,
+crf_post_kernel(const ST* __restrict__ stay,
+                const ST* __restrict__ move,
+                const LT* __restrict__ lattice,
                 const float* __restrict__ blat,
                 const int* __restrict__ valid,
                 const int* __restrict__ lastpos,
                 const float* __restrict__ mfact,
-                const int* __restrict__ lists, float* __restrict__ out0,
-                float* __restrict__ out1, float* gex, int T, int B, int L,
-                int S, int stage, long long* __restrict__ cyc)
+                const int* __restrict__ lists,
+                PostOut<GRAD, LT>* __restrict__ out0,
+                PostOut<GRAD, LT>* __restrict__ out1, float* gex, int T,
+                int B, int L, int S, int stage, long long* __restrict__ cyc)
 {
     constexpr int NW = NT / 32;
+    // bf16 posteriors: each rounded before it is stored or summed
+    constexpr bool B16 = sizeof(LT) == 2;
     extern __shared__ __align__(16) float smem[];
     const PostLayout lay(L, S, GRAD, gex == nullptr, stage != 0);
     float* red = smem;                         // [2][32] maxima, sums
@@ -1765,9 +1879,10 @@ crf_post_kernel(const float* __restrict__ stay,
         for (int l = tid; l < L; l += NT) {
             float ts = NEG, tm = NEG;
             if (valid[rowoff + l] != 0) {
-                const float fc = lattice[base + l];
-                ts = fc + blat[base + l] + stay[base + l];
-                if (l < last) tm = fc + blat[base + l + 1] + move[base + l];
+                const float fc = to_f(lattice[base + l]);
+                ts = fc + blat[base + l] + to_f(stay[base + l]);
+                if (l < last)
+                    tm = fc + blat[base + l + 1] + to_f(move[base + l]);
             }
             es[l] = ts;
             em[l] = tm;
@@ -1795,13 +1910,25 @@ crf_post_kernel(const float* __restrict__ stay,
         for (int w = 0; w < NW; ++w) den += red[32 + w];
         // a row with no path gets all-zero posteriors (pallas_crf.py:197)
         den = den > 0.f ? den : 1.f;
-        clk.lap(1);
-        if (!GRAD) {
+        if constexpr (GRAD && B16) {
+            // the bf16 posteriors, each rounded once, in place of the
+            // exponentials that the column sums read
             for (int l = tid; l < L; l += NT) {
-                out0[base + l] = es[l] / den;
-                out1[base + l] = em[l] / den;
+                es[l] = round_bf16(es[l] / den);
+                em[l] = round_bf16(em[l] / den);
+            }
+            __syncthreads();
+        }
+        clk.lap(1);
+        if constexpr (!GRAD) {
+            for (int l = tid; l < L; l += NT) {
+                put(out0 + base + l, es[l] / den);
+                put(out1 + base + l, em[l] / den);
             }
         } else {
+            // f32: the sums of the exponentials, divided once; bf16: the
+            // sums of the rounded posteriors (the mod one weighted by
+            // bf16(fact)) are d lp
             const int* chst = choff + S + 2;
             const int* ent = chst + list_chunks(L, S) + 1;
             const int nch = choff[S + 1];
@@ -1818,7 +1945,7 @@ crf_post_kernel(const float* __restrict__ stay,
                         else if ((x & 3) == 1)
                             a += em[l];
                         else
-                            c += mf[l] * em[l];
+                            c += (B16 ? round_bf16(mf[l]) : mf[l]) * em[l];
                     }
                 }
                 parts[q] = make_float2(a, c);
@@ -1829,7 +1956,7 @@ crf_post_kernel(const float* __restrict__ stay,
                 float sum = 0.f;
                 for (int q = choff[j]; q < choff[j + 1]; ++q)
                     sum += parts[q].x + parts[q].y;
-                g[j] = sum / den;
+                g[j] = B16 ? sum : sum / den;
             }
         }
         clk.lap(2);
@@ -1873,14 +2000,14 @@ struct StreamScratch {
 // the posterior pass over every item (t, b): persistent, as many CTAs as
 // fit the card (one an SM where the exponentials live in device memory,
 // gex)
-template <int NT, bool GRAD, bool CLOCK>
-int launch_post(const float* stay, const float* move, const float* lattice,
+template <int NT, bool GRAD, bool CLOCK, class ST, class LT>
+int launch_post(const ST* stay, const ST* move, const LT* lattice,
                 const float* blat, const int* valid, const int* last,
-                const float* mfact, const int* lists, float* out0,
-                float* out1, float* gex, int T, int B, int L, int S,
-                long long* cyc, cudaStream_t st)
+                const float* mfact, const int* lists,
+                PostOut<GRAD, LT>* out0, PostOut<GRAD, LT>* out1, float* gex,
+                int T, int B, int L, int S, long long* cyc, cudaStream_t st)
 {
-    auto kernel = crf_post_kernel<NT, GRAD, CLOCK>;
+    auto kernel = crf_post_kernel<NT, GRAD, CLOCK, ST, LT>;
     const bool stage = GRAD && gex == nullptr && lists_in_smem(L, S);
     const size_t smem = sizeof(float)
         * PostLayout(L, S, GRAD, gex == nullptr, stage).floats;
@@ -1906,14 +2033,15 @@ int launch_post(const float* stay, const float* move, const float* lattice,
     return static_cast<int>(cudaGetLastError());
 }
 
-template <bool GRAD, bool CLOCK>
-int post_dispatch(const float* stay, const float* move, const float* lattice,
+template <bool GRAD, bool CLOCK, class ST, class LT>
+int post_dispatch(const ST* stay, const ST* move, const LT* lattice,
                   const float* blat, const int* valid, const int* last,
-                  const float* mfact, const int* lists, float* out0,
-                  float* out1, float* gex, int T, int B, int L, int S,
-                  long long* cyc, cudaStream_t st)
+                  const float* mfact, const int* lists,
+                  PostOut<GRAD, LT>* out0, PostOut<GRAD, LT>* out1,
+                  float* gex, int T, int B, int L, int S, long long* cyc,
+                  cudaStream_t st)
 {
-#define TT_POST(NT) launch_post<NT, GRAD, CLOCK>(                        \
+#define TT_POST(NT) launch_post<NT, GRAD, CLOCK, ST, LT>(                \
         stay, move, lattice, blat, valid, last, mfact, lists, out0, out1, \
         gex, T, B, L, S, cyc, st)
     switch (post_threads(L)) {
@@ -1925,11 +2053,12 @@ int post_dispatch(const float* stay, const float* move, const float* lattice,
 }
 
 // the steps a batch of a stream chain on ntb threads a block (its ring
-// two batches): at most STREAM_BATCH_MAX, the ring at most 96 KB (two CTAs
-// an SM) up to 512 threads, 200 KB past that (one CTA an SM)
-int stream_ring(int ntb, int P)
+// two batches; streams of es bytes a value): at most STREAM_BATCH_MAX, the
+// ring at most 96 KB (two CTAs an SM) up to 512 threads, 200 KB past that
+// (one CTA an SM)
+int stream_ring(int ntb, int P, int es)
 {
-    const size_t slot = sizeof(float) * stream_slot_floats(ntb, P);
+    const size_t slot = sizeof(float) * stream_slot_floats(ntb, P, es);
     const size_t budget = (ntb <= 512 ? 96 : 200) * 1024;
     const int k = (int)(budget / (2 * slot));
     return k < 1 ? 1 : k > STREAM_BATCH_MAX ? STREAM_BATCH_MAX : k;
@@ -2003,35 +2132,53 @@ int crf_fwd_dispatch(const float* lp, const int* sidx, const int* midx,
     if (L <= MAX_L_CLUSTER) return CALL(1024, 4, 8);            \
     return static_cast<int>(cudaErrorInvalidValue);
 
+// whether the bf16-stream instances take these streams: L a multiple of
+// 8 and both streams 16-byte aligned, so that every copy of the chains'
+// readers is whole (f32 streams: any)
+template <class ST>
+bool streams_taken(const ST* stay, const ST* move, int L)
+{
+    return sizeof(ST) == 4
+        || (L % 8 == 0 && ((reinterpret_cast<size_t>(stay)
+                            | reinterpret_cast<size_t>(move)) & 15) == 0);
+}
+
 // a stream chain in layout (MAXNT, P, CL) at ring depth K (<= 0:
-// stream_ring's); with CLOCK, cycles into cyc [B][FWD_PHASES]
-template <int MAXNT, int P, int CL, bool BWD, bool CLOCK>
-int stream_chain_at(const float* stay, const float* move, const int* valid,
+// stream_ring's) on ST streams into an LT lattice; with CLOCK, cycles into
+// cyc [B][FWD_PHASES]
+template <int MAXNT, int P, int CL, bool BWD, bool CLOCK, class ST,
+          class LT>
+int stream_chain_at(const ST* stay, const ST* move, const int* valid,
                     const int* last, float* fwd_final, float* score,
-                    float* lattice, int T, int B, int L, int K,
+                    LT* lattice, int T, int B, int L, int K,
                     long long* cyc, cudaStream_t st)
 {
+    if (!streams_taken(stay, move, L))
+        return static_cast<int>(cudaErrorInvalidValue);
     const int NT = fwd_threads<MAXNT, P, CL>(L);
-    if (K <= 0) K = stream_ring(NT == 32 ? 32 * FWD_WARP_ROWS : NT, P);
+    if (K <= 0)
+        K = stream_ring(NT == 32 ? 32 * FWD_WARP_ROWS : NT, P, sizeof(ST));
     return launch_chain<MAXNT, P, CL, false, CLOCK, BWD,
-                        StreamReader<P, BWD>>(
-        StreamSource{stay, move}, valid, last, fwd_final, score, lattice, T,
-        B, L, K, NT, 0, cyc, st);
+                        StreamReader<P, BWD, ST>, LT>(
+        StreamSource<ST>{stay, move}, valid, last, fwd_final, score,
+        lattice, T, B, L, K, NT, 0, cyc, st);
 }
 
 // kernel 9 (forward) or kernel 10's chain (BWD: the backward lattice into
 // `lattice`) in its band; past MAX_L_CLUSTER the device-memory instance on
 // gstate [B, 2, L]
-template <bool BWD, bool CLOCK>
-int stream_chain(const float* stay, const float* move, const int* valid,
+template <bool BWD, bool CLOCK, class ST, class LT>
+int stream_chain(const ST* stay, const ST* move, const int* valid,
                  const int* last, float* fwd_final, float* score,
-                 float* lattice, float* gstate, int T, int B, int L, int K,
+                 LT* lattice, float* gstate, int T, int B, int L, int K,
                  long long* cyc, cudaStream_t st)
 {
+    if (!streams_taken(stay, move, L))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (L > MAX_L_CLUSTER) {
         if (gstate == nullptr)
             return static_cast<int>(cudaErrorInvalidValue);
-        crf_chain_gmem_kernel<GMEM_NT, BWD><<<B, GMEM_NT, 0, st>>>(
+        crf_chain_gmem_kernel<GMEM_NT, BWD, ST, LT><<<B, GMEM_NT, 0, st>>>(
             stay, move, valid, last, fwd_final, score, lattice, gstate, T, B,
             L);
         return static_cast<int>(cudaGetLastError());
@@ -2064,13 +2211,13 @@ inline int launch_lists(const int* sidx, const int* midx, const int* mmidx,
 
 // kernel 10: the backward chain into the scratch's backward lattice, then
 // (GRAD) the column lists and the pass into d lp out0 [T, B, S], or the
-// pass into the posteriors out0, out1 [T, B, L]
-template <bool GRAD>
-int bwd_streams(const float* stay, const float* move, const float* lattice,
+// pass into the posteriors out0, out1 [T, B, L] (of the lattice's type)
+template <bool GRAD, class ST, class LT>
+int bwd_streams(const ST* stay, const ST* move, const LT* lattice,
                 const int* valid, const int* last, const int* sidx,
                 const int* midx, const int* mmidx, const float* mfact,
-                float* out0, float* out1, float* scratch, int T, int B,
-                int L, int S, cudaStream_t st)
+                PostOut<GRAD, LT>* out0, PostOut<GRAD, LT>* out1,
+                float* scratch, int T, int B, int L, int S, cudaStream_t st)
 {
     if (B == 0 || T == 0 || L == 0 || (GRAD && S == 0)) return 0;
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -2090,6 +2237,20 @@ int bwd_streams(const float* stay, const float* move, const float* lattice,
     return post_dispatch<GRAD, false>(stay, move, lattice, blat, valid, last,
                                       mfact, lists, out0, out1, gex, T, B, L,
                                       S, nullptr, st);
+}
+
+// f(ST{}, LT{}) on the instance of kernels 9-10 that the flags name: the
+// streams bf16 where bf16_streams is 1, the lattice (and the posteriors)
+// bf16 where bf16_lattice is 1, else f32; bf16 streams with an f32
+// lattice have no instance
+template <class F>
+int stream_instance(int bf16_streams, int bf16_lattice, F f)
+{
+    if (bf16_streams && !bf16_lattice)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (bf16_streams) return f(__nv_bfloat16{}, __nv_bfloat16{});
+    if (bf16_lattice) return f(float{}, __nv_bfloat16{});
+    return f(float{}, float{});
 }
 
 extern "C" {
@@ -2158,19 +2319,25 @@ int tt_crf_bwd_batch(int T, int B, int S, int L, int bf16)
 }
 
 // stay, move [T, B, L]; valid [B, L] int32 -> fwd_final [B, L], score [B]
-// (the summed renormalisers), lattice [T, B, L] (may be null).  Past
-// MAX_L_CLUSTER positions the vector lives in gstate [B, 2, L] (scratch;
-// may be null below).
-int tt_crf_fwd_streams(const float* stay, const float* move,
+// (the summed renormalisers), lattice [T, B, L] (may be null); the
+// instance by bf16_streams and bf16_lattice (stream_instance; bf16
+// streams: L a multiple of 8, 16-byte aligned).  Past MAX_L_CLUSTER
+// positions the vector lives in gstate [B, 2, L] (scratch; may be null
+// below).
+int tt_crf_fwd_streams(const void* stay, const void* move,
                        const int* valid, float* fwd_final, float* score,
-                       float* lattice, float* gstate, int T, int B, int L,
-                       void* stream)
+                       void* lattice, float* gstate, int T, int B, int L,
+                       int bf16_streams, int bf16_lattice, void* stream)
 {
     if (B == 0 || L == 0) return 0;
-    return stream_chain<false, false>(stay, move, valid, nullptr, fwd_final,
-                                      score, lattice, gstate, T, B, L, 0,
-                                      nullptr,
-                                      static_cast<cudaStream_t>(stream));
+    return stream_instance(bf16_streams, bf16_lattice, [&](auto s, auto l) {
+        using ST = decltype(s);
+        using LT = decltype(l);
+        return stream_chain<false, false>(
+            static_cast<const ST*>(stay), static_cast<const ST*>(move),
+            valid, nullptr, fwd_final, score, static_cast<LT*>(lattice),
+            gstate, T, B, L, 0, nullptr, static_cast<cudaStream_t>(stream));
+    });
 }
 
 // the layout of the stream chains at lattice width L, packed as
@@ -2193,34 +2360,47 @@ long long tt_crf_streams_scratch(int T, int B, int L, int S, int grad)
 }
 
 // ... + lattice [T, B, L] of tt_crf_fwd_streams, last [B] int32 ->
-// post_stay, post_move [T, B, L]; scratch of tt_crf_streams_scratch's
-// floats.
-int tt_crf_bwd_posteriors(const float* stay, const float* move,
-                          const float* lattice, const int* valid,
-                          const int* last, float* post_stay,
-                          float* post_move, float* scratch, int T, int B,
-                          int L, void* stream)
+// post_stay, post_move [T, B, L] (of the lattice's type); scratch of
+// tt_crf_streams_scratch's floats.
+int tt_crf_bwd_posteriors(const void* stay, const void* move,
+                          const void* lattice, const int* valid,
+                          const int* last, void* post_stay, void* post_move,
+                          float* scratch, int T, int B, int L,
+                          int bf16_streams, int bf16_lattice, void* stream)
 {
-    return bwd_streams<false>(stay, move, lattice, valid, last, nullptr,
-                              nullptr, nullptr, nullptr, post_stay,
-                              post_move, scratch, T, B, L, 0,
-                              static_cast<cudaStream_t>(stream));
+    return stream_instance(bf16_streams, bf16_lattice, [&](auto s, auto l) {
+        using ST = decltype(s);
+        using LT = decltype(l);
+        return bwd_streams<false>(
+            static_cast<const ST*>(stay), static_cast<const ST*>(move),
+            static_cast<const LT*>(lattice), valid, last, nullptr, nullptr,
+            nullptr, nullptr, static_cast<LT*>(post_stay),
+            static_cast<LT*>(post_move), scratch, T, B, L, 0,
+            static_cast<cudaStream_t>(stream));
+    });
 }
 
 // ... + the route's columns: sidx, midx, mmidx [B, L] int32 (move column l
 // the move l -> l+1; an index outside [0, S) selects nothing), mfact [B,
 // L] -> grad [T, B, S], d score / d lp: the posteriors summed into their
-// columns (the weighted mod column gets mfact x the move's).
-int tt_crf_grad_streams(const float* stay, const float* move,
-                        const float* lattice, const int* valid,
+// columns (the weighted mod column gets mfact x the move's; with a bf16
+// lattice the posteriors rounded to bf16 and the factor too).
+int tt_crf_grad_streams(const void* stay, const void* move,
+                        const void* lattice, const int* valid,
                         const int* last, const int* sidx, const int* midx,
                         const int* mmidx, const float* mfact, float* grad,
                         float* scratch, int T, int B, int L, int S,
-                        void* stream)
+                        int bf16_streams, int bf16_lattice, void* stream)
 {
-    return bwd_streams<true>(stay, move, lattice, valid, last, sidx, midx,
-                             mmidx, mfact, grad, nullptr, scratch, T, B, L,
-                             S, static_cast<cudaStream_t>(stream));
+    return stream_instance(bf16_streams, bf16_lattice, [&](auto s, auto l) {
+        using ST = decltype(s);
+        using LT = decltype(l);
+        return bwd_streams<true>(
+            static_cast<const ST*>(stay), static_cast<const ST*>(move),
+            static_cast<const LT*>(lattice), valid, last, sidx, midx, mmidx,
+            mfact, grad, static_cast<float*>(nullptr), scratch, T, B, L, S,
+            static_cast<cudaStream_t>(stream));
+    });
 }
 
 }  // extern "C"

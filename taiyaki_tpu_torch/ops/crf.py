@@ -47,8 +47,21 @@ That is where the TPU kernels round in interpret mode (pallas_crf.py:
 `_build_selectors` 324-348, `_fused_scores` 351-364, the bf16 lattice and
 posterior scratch 479-482, 536-562, 608-613).  On a TPU the selector
 product at precision=None also rounds lp to bf16 before it: a canonical
-score is the same, a cat_mod move score may differ by one bf16 step.  The
-streams pair has no bf16 instance (ROADMAP.md Queue 1 item 7.3b).
+score is the same, a cat_mod move score may differ by one bf16 step.
+
+The streams pair has two more instances (`logz.INSTANCES`, by the
+streams' dtype and `lattice_dtype`): bf16 streams with a bf16 lattice,
+and f32 streams with a bf16 lattice, the JAX trainer's route under
+TAIYAKI_TPU_NO_SCORE_FUSE=1 and TAIYAKI_TPU_F32_SCORES=1
+(taiyaki_tpu/ops/flipflop.py:99-113, 272-290, 351-369).  The forward
+stores its lattice rounded from its f32 state (pallas_crf.py:82); the
+backward widens it, keeps its backward vector f32, and rounds each
+posterior to bf16 (pallas_crf.py:197-198): `crf_bwd_posteriors` returns
+them, `crf_grad_streams` sums them into d lp in f32, the mod column's
+weighted by bf16(fact) as the fused bf16 instance weighs it (the JAX
+route's einsum weighs them by the f32 fact).  The bf16-stream instance
+takes L a multiple of 8 and 16-byte aligned streams (csrc/crf.cu), and
+refuses others.
 
 On a CPU tensor the plain PyTorch twins run; on a CUDA tensor the kernels
 launch, or the wrappers raise.
@@ -59,6 +72,8 @@ import ctypes
 import torch
 
 from taiyaki_tpu_torch.ops import cuda_lib
+from taiyaki_tpu_torch.ops.logz import check_instance, count_instance, \
+    instance_flags
 from taiyaki_tpu_torch.ops.rnn_plan import Launches
 
 NEG = -1e30
@@ -73,9 +88,9 @@ _SIGNATURES = {"tt_crf_fwd": [_P] * 9 + [_I] * 5 + [_P],
                "tt_crf_bwd": [_P] * 9 + [_I] * 5 + [_P],
                "tt_crf_bwd_batch": [_I] * 5,
                "tt_crf_fwd_layout": [_I],
-               "tt_crf_fwd_streams": [_P] * 7 + [_I] * 3 + [_P],
-               "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 3 + [_P],
-               "tt_crf_grad_streams": [_P] * 11 + [_I] * 4 + [_P],
+               "tt_crf_fwd_streams": [_P] * 7 + [_I] * 5 + [_P],
+               "tt_crf_bwd_posteriors": [_P] * 8 + [_I] * 5 + [_P],
+               "tt_crf_grad_streams": [_P] * 11 + [_I] * 6 + [_P],
                "tt_crf_streams_layout": [_I],
                "tt_crf_streams_scratch": [_I] * 5}
 
@@ -399,15 +414,18 @@ def streams_layout(L):
     return None
 
 
-def crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice=True):
+def crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice=True,
+                          lattice_dtype=None):
     """Plain forward pass on score streams, as pallas_crf.crf_forward
     computes it: stay_all, move_all [T, B, L] (move column l is the move
-    l -> l+1), valid [B, L].
+    l -> l+1; f32, or bf16 widened), valid [B, L].
 
     Returns:
-        (fwd_final [B, L], score [B]: the summed per-step renormalisers,
-         without fwd_final at the row's last position; lattice [T, B, L],
-         the renormalised forward vector before every step, or None).
+        (fwd_final [B, L] f32, score [B] f32: the summed per-step
+         renormalisers, without fwd_final at the row's last position;
+         lattice [T, B, L] of lattice_dtype (None: the streams'; bf16 each
+         f32 vector rounded), the renormalised forward vector before every
+         step, or None).
     """
     T, B, L = stay_all.shape
     dev = stay_all.device
@@ -415,14 +433,17 @@ def crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice=True):
     pos = torch.arange(L, device=dev)[None, :]
     fwd = torch.where((pos == 0) & ok, torch.zeros(B, L, device=dev),
                       torch.full((B, L), NEG, device=dev))
-    score = stay_all.new_zeros(B)
-    lattice = stay_all.new_empty(T, B, L) if emit_lattice else None
+    score = torch.zeros(B, device=dev)
+    lattice = (torch.empty(T, B, L, device=dev,
+                           dtype=lattice_dtype or stay_all.dtype)
+               if emit_lattice else None)
     neg_col = torch.full((B, 1), NEG, device=dev)
     for t in range(T):
         if lattice is not None:
             lattice[t] = fwd
-        move = torch.cat([neg_col, fwd[:, :-1] + move_all[t, :, :-1]], dim=1)
-        new = torch.logaddexp(fwd + stay_all[t], move)
+        stay, move = stay_all[t].float(), move_all[t].float()
+        move = torch.cat([neg_col, fwd[:, :-1] + move[:, :-1]], dim=1)
+        new = torch.logaddexp(fwd + stay, move)
         new = torch.where(ok, new, _neg_like(new))
         factor = new.amax(dim=1, keepdim=True)
         fwd = torch.where(ok, new - factor, _neg_like(new))
@@ -445,20 +466,23 @@ def _bwd_start(valid, last):
 
 def crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid, last):
     """Plain backward pass on score streams, as
-    pallas_crf.crf_backward_posteriors computes it.
+    pallas_crf.crf_backward_posteriors computes it (the streams and the
+    lattice widened, the backward vector f32).
 
     Returns:
-        (post_stay [T, B, L], post_move [T, B, L]): each step's posterior
-        over its 2L-1 transitions; post_move column l is the move
-        l -> l+1.  A row with no path gets zeros.
+        (post_stay [T, B, L], post_move [T, B, L]) of the lattice's dtype
+        (bf16: each f32 posterior rounded): each step's posterior over its
+        2L-1 transitions; post_move column l is the move l -> l+1.  A row
+        with no path gets zeros.
     """
     T, B, L = stay_all.shape
     ok, move_ok, bwd = _bwd_start(valid, last)
     neg_col = torch.full((B, 1), NEG, device=stay_all.device)
-    post_stay = stay_all.new_empty(T, B, L)
-    post_move = stay_all.new_empty(T, B, L)
+    post_stay = lattice.new_empty(T, B, L)
+    post_move = lattice.new_empty(T, B, L)
     for t in range(T - 1, -1, -1):
-        fc, stay, move = lattice[t], stay_all[t], move_all[t]
+        fc, stay, move = (lattice[t].float(), stay_all[t].float(),
+                          move_all[t].float())
         bwd_shift = torch.cat([bwd[:, 1:], neg_col], dim=1)
         stay_terms = torch.where(ok, fc + bwd + stay, _neg_like(fc))
         move_terms = torch.where(move_ok, fc + bwd_shift + move,
@@ -488,14 +512,14 @@ def crf_bwd_chain_plain(stay_all, move_all, valid, last):
     T, B, L = stay_all.shape
     ok, move_ok, bwd = _bwd_start(valid, last)
     neg_col = torch.full((B, 1), NEG, device=stay_all.device)
-    blat = stay_all.new_empty(T, B, L)
+    blat = torch.empty(T, B, L, device=stay_all.device)
     for t in range(T - 1, -1, -1):
         blat[t] = bwd
         bwd_shift = torch.cat([bwd[:, 1:], neg_col], dim=1)
-        mpart = torch.where(move_ok, move_all[t] + bwd_shift,
+        mpart = torch.where(move_ok, move_all[t].float() + bwd_shift,
                             _neg_like(bwd))
-        new = torch.where(ok, torch.logaddexp(stay_all[t] + bwd, mpart),
-                          _neg_like(bwd))
+        new = torch.where(ok, torch.logaddexp(stay_all[t].float() + bwd,
+                                              mpart), _neg_like(bwd))
         factor = new.amax(dim=1, keepdim=True)
         bwd = torch.where(ok, new - factor, _neg_like(new))
     return blat
@@ -508,8 +532,10 @@ def crf_post_pass_plain(stay_all, move_all, lattice, blat, valid, last):
     ok, move_ok, _ = _bwd_start(valid, last)
     neg = torch.full_like(blat[:, :, :1], NEG)
     bshift = torch.cat([blat[:, :, 1:], neg], dim=2)
-    stay_terms = torch.where(ok, lattice + blat + stay_all, _neg_like(blat))
-    move_terms = torch.where(move_ok, lattice + bshift + move_all,
+    fc = lattice.float()
+    stay_terms = torch.where(ok, fc + blat + stay_all.float(),
+                             _neg_like(blat))
+    move_terms = torch.where(move_ok, fc + bshift + move_all.float(),
                              _neg_like(blat))
     tmax = torch.maximum(stay_terms.amax(dim=2, keepdim=True),
                          move_terms.amax(dim=2, keepdim=True))
@@ -519,7 +545,7 @@ def crf_post_pass_plain(stay_all, move_all, lattice, blat, valid, last):
                        torch.zeros_like(blat))
     den = ex_s.sum(dim=2, keepdim=True) + ex_m.sum(dim=2, keepdim=True)
     den = torch.where(den > 0, den, torch.ones_like(den))
-    return ex_s / den, ex_m / den
+    return (ex_s / den).to(lattice.dtype), (ex_m / den).to(lattice.dtype)
 
 
 def scatter_posteriors(shape, post_stay, post_move, sidx, midx, mmidx,
@@ -544,23 +570,35 @@ def scatter_posteriors(shape, post_stay, post_move, sidx, midx, mmidx,
 
 def crf_grad_streams_plain(stay_all, move_all, lattice, valid, last, sidx,
                            midx, mmidx, mfact, S):
-    """d(score)/d lp [T, B, S] on score streams: `crf_bwd_posteriors_plain`
+    """d(score)/d lp [T, B, S] f32 on score streams:
+    `crf_bwd_posteriors_plain` (bf16 with a bf16 lattice) widened and
     scattered into the columns sidx, midx and mfact x mmidx [B, L] (an
-    index outside [0, S) selects nothing) by `scatter_posteriors`."""
+    index outside [0, S) selects nothing; with a bf16 lattice the factor
+    rounded, `_rounder`) by `scatter_posteriors`."""
     post_stay, post_move = crf_bwd_posteriors_plain(stay_all, move_all,
                                                     lattice, valid, last)
     T, B, _ = stay_all.shape
-    return scatter_posteriors((T, B, S), post_stay, post_move, sidx, midx,
-                              mmidx, mfact)
+    return scatter_posteriors((T, B, S), post_stay.float(),
+                              post_move.float(), sidx, midx, mmidx,
+                              _rounder(lattice.dtype)(mfact))
 
 
 def _check_streams(what, stay_all, move_all, valid):
+    """The streams' shapes on the card: T, B, L.  bf16 streams must keep
+    the chains' copies whole (csrc/crf.cu): L a multiple of 8, both
+    16-byte aligned."""
     cuda_lib.check_cuda(stay_all, what)
     T, B, L = stay_all.shape
     _check(what, stay_all.device, (
-        ("stay_all", stay_all, (T, B, L), torch.float32),
-        ("move_all", move_all, (T, B, L), torch.float32),
+        ("stay_all", stay_all, (T, B, L), stay_all.dtype),
+        ("move_all", move_all, (T, B, L), stay_all.dtype),
         ("valid", valid, (B, L), torch.int32)))
+    if stay_all.dtype == torch.bfloat16 and (
+            L % 8 or (stay_all.data_ptr() | move_all.data_ptr()) % 16):
+        raise ValueError(
+            "{}: bf16 streams need L a multiple of 8 and 16-byte aligned "
+            "tensors (got L={}, offsets {} and {} bytes past 16)".format(
+                what, L, stay_all.data_ptr() % 16, move_all.data_ptr() % 16))
     return T, B, L
 
 
@@ -573,52 +611,65 @@ def _streams_scratch(lib, T, B, L, S, grad, dev):
     return torch.empty(max(fn(T, B, L, S, int(grad)), 1), device=dev)
 
 
-def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True):
+def crf_fwd_streams(stay_all, move_all, valid, emit_lattice=True,
+                    lattice_dtype=None):
     """CRF forward pass on score streams (kernel 9); contract of
-    `crf_fwd_streams_plain`."""
+    `crf_fwd_streams_plain`, the instance by the streams' dtype and
+    lattice_dtype (None: the streams'; `logz.INSTANCES`)."""
+    lattice_dtype = lattice_dtype or stay_all.dtype
+    check_instance("crf_fwd_streams", stay_all.dtype, lattice_dtype)
     if stay_all.device.type == "cpu":
-        return crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice)
+        return crf_fwd_streams_plain(stay_all, move_all, valid, emit_lattice,
+                                     lattice_dtype)
     T, B, L = _check_streams("crf_fwd_streams", stay_all, move_all, valid)
     lib = cuda_lib.load("crf", _SIGNATURES)
     dev = stay_all.device
     with torch.cuda.device(dev):
         fwd = torch.empty(B, L, device=dev)
         score = torch.empty(B, device=dev)
-        lattice = torch.empty(T, B, L, device=dev) if emit_lattice else None
+        lattice = (torch.empty(T, B, L, device=dev, dtype=lattice_dtype)
+                   if emit_lattice else None)
         gstate = (torch.empty(B, 2, L, device=dev) if L > MAX_L_STREAMS
                   else None)
         err = lib.tt_crf_fwd_streams(
             cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
             cuda_lib.ptr(valid), cuda_lib.ptr(fwd), cuda_lib.ptr(score),
             cuda_lib.ptr(lattice), cuda_lib.ptr(gstate), T, B, L,
+            *instance_flags(stay_all.dtype, lattice_dtype),
             cuda_lib.stream(dev))
         crf_fwd_streams.launches += 1
+        count_instance(crf_fwd_streams, stay_all.dtype, lattice_dtype)
     cuda_lib.check(lib, err, "crf_fwd_streams kernel")
     return fwd, score, lattice
 
 
 def crf_bwd_posteriors(stay_all, move_all, lattice, valid, last):
     """CRF backward pass on score streams (kernel 10: the backward chain,
-    then the posterior pass); contract of `crf_bwd_posteriors_plain`."""
+    then the posterior pass); contract of `crf_bwd_posteriors_plain`, the
+    instance by the streams' and the lattice's dtypes."""
+    check_instance("crf_bwd_posteriors", stay_all.dtype, lattice.dtype)
     if stay_all.device.type == "cpu":
         return crf_bwd_posteriors_plain(stay_all, move_all, lattice, valid,
                                         last)
     T, B, L = _check_streams("crf_bwd_posteriors", stay_all, move_all, valid)
     _check("crf_bwd_posteriors", stay_all.device, (
-        ("lattice", lattice, (T, B, L), torch.float32),
+        ("lattice", lattice, (T, B, L), lattice.dtype),
         ("last", last, (B,), torch.int32)))
     lib = cuda_lib.load("crf", _SIGNATURES)
     dev = stay_all.device
     with torch.cuda.device(dev):
-        post_stay = torch.empty(T, B, L, device=dev)
-        post_move = torch.empty(T, B, L, device=dev)
+        post_stay = torch.empty(T, B, L, device=dev, dtype=lattice.dtype)
+        post_move = torch.empty(T, B, L, device=dev, dtype=lattice.dtype)
         scratch = _streams_scratch(lib, T, B, L, 0, False, dev)
         err = lib.tt_crf_bwd_posteriors(
             cuda_lib.ptr(stay_all), cuda_lib.ptr(move_all),
             cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
             cuda_lib.ptr(post_stay), cuda_lib.ptr(post_move),
-            cuda_lib.ptr(scratch), T, B, L, cuda_lib.stream(dev))
+            cuda_lib.ptr(scratch), T, B, L,
+            *instance_flags(stay_all.dtype, lattice.dtype),
+            cuda_lib.stream(dev))
         crf_bwd_posteriors.launches += 1
+        count_instance(crf_bwd_posteriors, stay_all.dtype, lattice.dtype)
     cuda_lib.check(lib, err, "crf_bwd_posteriors kernel")
     return post_stay, post_move
 
@@ -630,13 +681,15 @@ def crf_grad_streams(stay_all, move_all, lattice, valid, last, sidx, midx,
     in a fixed order, so bitwise the same from run to run); contract of
     `crf_grad_streams_plain`, with the index vectors of `crf_bwd`
     (mmidx and mfact required: a column outside [0, S) and weight 0 for a
-    canonical model)."""
+    canonical model), the instance by the streams' and the lattice's
+    dtypes."""
+    check_instance("crf_grad_streams", stay_all.dtype, lattice.dtype)
     if stay_all.device.type == "cpu":
         return crf_grad_streams_plain(stay_all, move_all, lattice, valid,
                                       last, sidx, midx, mmidx, mfact, S)
     T, B, L = _check_streams("crf_grad_streams", stay_all, move_all, valid)
     _check("crf_grad_streams", stay_all.device, (
-        ("lattice", lattice, (T, B, L), torch.float32),
+        ("lattice", lattice, (T, B, L), lattice.dtype),
         ("last", last, (B,), torch.int32),
         ("sidx", sidx, (B, L), torch.int32),
         ("midx", midx, (B, L), torch.int32),
@@ -652,8 +705,10 @@ def crf_grad_streams(stay_all, move_all, lattice, valid, last, sidx, midx,
             cuda_lib.ptr(lattice), cuda_lib.ptr(valid), cuda_lib.ptr(last),
             cuda_lib.ptr(sidx), cuda_lib.ptr(midx), cuda_lib.ptr(mmidx),
             cuda_lib.ptr(mfact), cuda_lib.ptr(grad), cuda_lib.ptr(scratch),
-            T, B, L, S, cuda_lib.stream(dev))
+            T, B, L, S, *instance_flags(stay_all.dtype, lattice.dtype),
+            cuda_lib.stream(dev))
         crf_grad_streams.launches += 1
+        count_instance(crf_grad_streams, stay_all.dtype, lattice.dtype)
     cuda_lib.check(lib, err, "crf_grad_streams kernel")
     return grad
 
@@ -661,3 +716,7 @@ def crf_grad_streams(stay_all, move_all, lattice, valid, last, sidx, midx,
 crf_fwd_streams.launches = 0
 crf_bwd_posteriors.launches = 0
 crf_grad_streams.launches = 0
+# the bf16-stream and the mixed (f32 streams, bf16 lattice) instances'
+# launches (also counted in `launches`)
+for _fn in (crf_fwd_streams, crf_bwd_posteriors, crf_grad_streams):
+    _fn.bf16, _fn.mixed = Launches(), Launches()

@@ -16,15 +16,17 @@ for an empty row; logZ counts the initial logsumexp of the start vector,
 log(nbase), which the forward kernel leaves out and this module adds
 back.
 
-Under TAIYAKI_TPU_BF16_STREAMS=1 (`score_dtype`) the fused route and logZ
-run the bf16 instances of kernels 5-6 and 2-3, as the JAX trainer's
-score streams do on a TPU (taiyaki_tpu/ops/flipflop.py
-`_score_stream_dtype`): scores rounded to bf16, bf16 lattices, bf16
-posteriors; losses, logZ and gradients f32.  TAIYAKI_TPU_F32_SCORES=1
-keeps the scores f32 (`score_dtype`) but not logZ's lattice and
-posteriors (`lattice_dtype`), as the JAX package stores them.  The
-streams route keeps f32 streams under the switch (ROADMAP.md Queue 1
-item 7.3b).
+Under TAIYAKI_TPU_BF16_STREAMS=1 the CRF and logZ run the JAX trainer's
+mixed precision on a TPU (taiyaki_tpu/ops/flipflop.py): scores rounded
+to bf16 (`score_dtype`; the fused route's selected scores, the streams
+route's gathered streams, each rounded once after its f32 sum, and
+logZ's scores) unless TAIYAKI_TPU_F32_SCORES=1, and bf16 lattices and
+posteriors (`lattice_dtype`) whatever that switch says, as the JAX
+package stores them: the bf16 instances of kernels 5-6, 9-10 and 2-3, or
+on f32 scores the mixed instances of kernels 9-10 and 2-3.  Losses,
+logZ and gradients are f32.  The bf16 streams are laid out for kernels
+9-10's bf16 instance (L padded to a multiple of 8 with invalid
+positions).
 """
 
 import math
@@ -98,26 +100,37 @@ def _masked_cost(score, seqlens, nblk):
 
 
 def _lattice_inputs(stay_idx, move_idx, seqlens, nstate, modmove_idx=None,
-                    modmove_fact=None):
-    """The [B, L] index vectors of `ops.crf` (L = npos), move-type columns
-    padded past npos-1 with an index that selects nothing; valid; last."""
+                    modmove_fact=None, width=None):
+    """The [B, W] index vectors of `ops.crf` (L = npos, W = width or L),
+    columns past their own padded with an index that selects nothing
+    (move-type columns past npos-1, every column past npos) and weight 0;
+    valid (0 past npos); last."""
     B, L = stay_idx.shape
+    W = width or L
     dev = stay_idx.device
-    pad = torch.full((B, 1), nstate, dtype=torch.int32, device=dev)
-    midx = torch.cat([move_idx.int(), pad], dim=1)
+
+    def padded(x, value, dtype=torch.int32):
+        pad = torch.full((B, W - x.shape[1]), value, dtype=dtype, device=dev)
+        return torch.cat([x.to(dtype), pad], dim=1)
+    midx = padded(move_idx, nstate)
     if modmove_idx is None:
-        mmidx = torch.full((B, L), nstate, dtype=torch.int32, device=dev)
-        mfact = torch.zeros(B, L, device=dev)
+        mmidx = torch.full((B, W), nstate, dtype=torch.int32, device=dev)
+        mfact = torch.zeros(B, W, device=dev)
     else:
-        mmidx = torch.cat([modmove_idx.int(), pad], dim=1)
-        mfact = torch.cat([modmove_fact.float(),
-                           torch.zeros(B, 1, device=dev)], dim=1)
-    pos = torch.arange(L, device=dev)[None, :]
+        mmidx = padded(modmove_idx, nstate)
+        mfact = padded(modmove_fact, 0.0, torch.float32)
+    pos = torch.arange(W, device=dev)[None, :]
     valid = (pos < seqlens[:, None]).int()
     last = torch.clamp(seqlens - 1, 0, L - 1).int()
-    return (stay_idx.int().contiguous(), midx.contiguous(),
+    return (padded(stay_idx, nstate).contiguous(), midx.contiguous(),
             mmidx.contiguous(), mfact.contiguous(), valid.contiguous(),
             last.contiguous())
+
+
+def stream_width(npos, dtype):
+    """The width of the streams route's lattice: npos, or for bf16 streams
+    npos padded to a multiple of 8 (kernels 9-10's bf16 instance)."""
+    return -(-npos // 8) * 8 if dtype == torch.bfloat16 else npos
 
 
 def use_score_streams(nstate, npos):
@@ -166,25 +179,32 @@ class _CrfLossCore(torch.autograd.Function):
     -posterior/nblk, zeroed for rows with seqlens == 0.  modmove_idx and
     modmove_fact are None for a canonical model.  The route (fused
     kernels 5-6 or the streams and kernels 9-10) is chosen once per call
-    by `use_score_streams`, and the fused route's instance (f32 or bf16)
-    by `score_dtype`."""
+    by `use_score_streams`, and its instance by `score_dtype` and
+    `lattice_dtype`: on the streams route the gathered streams are cast
+    once to `score_dtype`, and those copies are what the kernels read and
+    what is saved."""
 
     @staticmethod
     def forward(ctx, lp, stay_idx, move_idx, modmove_idx, modmove_fact,
                 seqlens):
         T, _, S = lp.shape
         lp = lp.contiguous()
-        idx = _lattice_inputs(stay_idx, move_idx, seqlens, S, modmove_idx,
-                              modmove_fact)
+        npos = stay_idx.shape[1]
+        ctx.streams = use_score_streams(S, npos)
+        ctx.dtype, ldt = _score_dtypes()
+        idx = _lattice_inputs(
+            stay_idx, move_idx, seqlens, S, modmove_idx, modmove_fact,
+            stream_width(npos, ctx.dtype) if ctx.streams else None)
         sidx, midx, mmidx, mfact, valid, last = idx
         grad = ctx.needs_input_grad[0]
-        ctx.streams = use_score_streams(S, sidx.shape[1])
-        ctx.dtype = torch.float32 if ctx.streams else score_dtype()
         if ctx.streams:
             mod = (None, None) if modmove_idx is None else (mmidx, mfact)
-            stay_all, move_all = _select_streams(lp, sidx, midx, *mod)
+            # each stream rounded once, after its f32 sum
+            stay_all, move_all = (x.to(ctx.dtype) for x in _select_streams(
+                lp, sidx, midx, *mod))
             fwd, score, lattice = crf.crf_fwd_streams(
-                stay_all, move_all, valid, emit_lattice=grad)
+                stay_all, move_all, valid, emit_lattice=grad,
+                **_dtype_kwargs("lattice_dtype", ldt))
             saved = (stay_all, move_all) if grad else (None, None)
         else:
             fwd, score, lattice = crf.crf_fwd(

@@ -28,11 +28,12 @@ numpy inputs:
     bit for bit the f32 twins', the fused forward's lattice bit for bit
     the streams twin's (kernel 9's, which this slice leaves alone);
 (d) under the switch with TAIYAKI_TPU_F32_SCORES=1 the CRF takes the
-    streams route in f32 and logZ stays f32; with
-    TAIYAKI_TPU_NO_SCORE_FUSE=1 the streams route stays f32 (ROADMAP.md
-    Queue 1 item 7.3b) while logZ runs in bf16; validation (no grad)
-    rounds the scores and emits no lattice; the wrappers refuse mixed
-    dtypes;
+    streams route on f32 streams and logZ reads f32 scores, both with
+    bf16 lattices and posteriors; with TAIYAKI_TPU_NO_SCORE_FUSE=1 the
+    streams, logZ's scores, lattices and posteriors are all bf16 (the
+    streams route's own tests: tests/test_torch_bf16_score_streams.py);
+    validation (no grad) rounds the scores and emits no lattice; the
+    wrappers refuse dtypes of no instance;
 (e) one training step of a size-16 mLstm_flipflop (B=8, chunks of 500
     samples) under the switch against the port's f32 step (loss 5e-3
     relative, each gradient 2e-2 of its largest), the four bf16
@@ -378,6 +379,12 @@ def test_switch_unset_is_the_f32_call(monkeypatch):
 @pytest.mark.parametrize("other", ["TAIYAKI_TPU_F32_SCORES",
                                    "TAIYAKI_TPU_NO_SCORE_FUSE"])
 def test_score_switches_keep_the_streams_route_f32(other, monkeypatch):
+    """Under the switch either score switch takes the CRF to the streams
+    route, whose streams and logZ's scores are f32 under
+    TAIYAKI_TPU_F32_SCORES=1 and bf16 under TAIYAKI_TPU_NO_SCORE_FUSE=1,
+    with bf16 lattices and posteriors under either, as the JAX package
+    stores them.  (The name is from before the streams route had bf16
+    instances, when both cases kept its streams f32.)"""
     lp, seqs, seqlens, _, _ = _case(T=20, B=8, seed=22)
     seqlens[2] = 9
     scores = _scores(20, 8, 4, seed=23)
@@ -385,22 +392,21 @@ def test_score_switches_keep_the_streams_route_f32(other, monkeypatch):
     _recording(monkeypatch, calls)
     monkeypatch.setenv(SWITCH, "1")
     monkeypatch.setenv(other, "1")
-    assert tff.score_dtype() == (F32 if other == "TAIYAKI_TPU_F32_SCORES"
-                                 else BF16)
+    sdt = F32 if other == "TAIYAKI_TPU_F32_SCORES" else BF16
+    assert tff.score_dtype() == sdt and tff.lattice_dtype() == BF16
     _loss_and_grads(lp, seqs, seqlens, scores)
-    names = {c[0] for c in calls}
-    assert names == {"crf_fwd_streams", "crf_grad_streams", "logz_fwd",
-                     "logz_posteriors"}
-    for name, dtypes, kw in calls:
-        if name.startswith("crf"):
-            assert set(dtypes) == {F32}, name
-        elif name == "logz_fwd":
-            assert dtypes == (tff.score_dtype(),), name
-            assert kw["lattice_dtype"] == BF16
-        else:
-            # logZ's lattice and posteriors bf16 whatever the scores' dtype
-            assert dtypes == (tff.score_dtype(), BF16), name
-            assert kw["out_dtype"] == BF16
+    seen = {c[0]: c for c in calls}
+    assert len(seen) == len(calls) == 4
+    assert set(seen) == {"crf_fwd_streams", "crf_grad_streams", "logz_fwd",
+                         "logz_posteriors"}
+    # (stay, move) and the lattice; (scores) and the lattice, posteriors
+    assert seen["crf_fwd_streams"][1] == (sdt, sdt)
+    assert seen["crf_fwd_streams"][2]["lattice_dtype"] == BF16
+    assert seen["crf_grad_streams"][1] == (sdt, sdt, BF16, F32)  # + mfact
+    assert seen["logz_fwd"][1] == (sdt,)
+    assert seen["logz_fwd"][2]["lattice_dtype"] == BF16
+    assert seen["logz_posteriors"][1] == (sdt, BF16)
+    assert seen["logz_posteriors"][2]["out_dtype"] == BF16
 
 
 def test_switch_runs_the_bf16_instances(monkeypatch):

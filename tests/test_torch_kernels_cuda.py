@@ -2119,11 +2119,14 @@ def test_logz_bf16_matches_twin(dev, shape):
 
 
 def test_logz_bf16_refuses_mixed_dtypes(dev):
+    """The dtypes of no instance raise (bf16 scores with an f32 lattice,
+    f32 posteriors of a bf16 lattice); f32 scores with a bf16 lattice and
+    posteriors are the mixed instance's."""
     s = _scores(20, 4, 4).to(dev)
     _, _, lat = logz.logz_fwd(s.to(BF16))
-    with pytest.raises(ValueError, match="one dtype"):
-        logz.logz_fwd(s, lattice_dtype=BF16)
-    with pytest.raises(ValueError, match="one dtype"):
+    with pytest.raises(ValueError, match="no instance"):
+        logz.logz_fwd(s.to(BF16), lattice_dtype=torch.float32)
+    with pytest.raises(ValueError, match="no instance"):
         logz.logz_posteriors(s, lat)
     # a bf16 view at an odd offset runs (2-byte loads), as the aligned call
     off = torch.empty(s.numel() + 1, device=dev, dtype=BF16)[1:].view(
@@ -2216,6 +2219,212 @@ def test_loss_under_the_switch_on_card(dev, monkeypatch):
     (lc, gc), (ld, gd) = out["cpu"], out[str(dev)]
     assert abs(ld - lc) <= 1e-5 * abs(lc)
     assert (gd - gc).abs().max().item() <= 2 * 2.0 ** -8 / T
+
+
+# -- the score-stream route's bf16 instances ---------------------------------
+#
+# Kernels 9-10 with bf16 streams and with f32 streams, each with a bf16
+# lattice and bf16 posteriors (the JAX trainer's route under
+# TAIYAKI_TPU_NO_SCORE_FUSE=1 and TAIYAKI_TPU_F32_SCORES=1), and logZ's
+# mixed instance (f32 scores, a bf16 lattice and posteriors), against
+# their twins, which round where the kernels round: the score 1e-3 + 1e-5
+# |score|, fwd_final 1e-4 on live states, lattices and posteriors equal as
+# bf16 but for at most 1% one bf16 step apart (posteriors on the twin's
+# lattice; atol 1e-5, 3e-4 over thousands of steps), d lp within a bf16
+# step of a posterior times the largest weight and past the f32 atol at
+# most 1% of it, the posteriors and d lp bitwise from run to run.  Widths
+# a multiple of 8 for bf16 streams (the band edges' bands, the clusters
+# and the device-memory instance), and any for f32 streams.
+
+BF16_STREAM_SHAPES = [(37, 5, 16, 16), (41, 9, 304, 300), (60, 4, 904, 60),
+                      (800, 256, 512, 500), (2000, 3, 1904, 1900),
+                      (7000, 3, 8192, 6990), (10000, 3, 9000, 8990),
+                      (8008, 1, 20000, 8000), (600, 1, 32776, 590)]
+MIXED_ONLY_SHAPES = [(300, 6, 509, 280), (73, 5, 65, 65)]
+
+
+def _check_bf16_streams(case, sdt, atol):
+    """Kernel 9, and kernel 10's entries twice each, on `sdt` streams with
+    a bf16 lattice, against their twins; each launch counted as its
+    instance's."""
+    stay32, move32, valid, last, sidx, midx, mmidx, mfact, S = case
+    stay, move = stay32.to(sdt), move32.to(sdt)
+    idx = (sidx, midx, mmidx, mfact)
+    f0, s0, lat0 = crf.crf_fwd_streams_plain(stay, move, valid,
+                                             lattice_dtype=BF16)
+    p0 = crf.crf_bwd_posteriors_plain(stay, move, lat0, valid, last)
+    g0 = crf.crf_grad_streams_plain(stay, move, lat0, valid, last, *idx, S)
+    fns = (crf.crf_fwd_streams, crf.crf_bwd_posteriors, crf.crf_grad_streams)
+    inst = "bf16" if sdt == BF16 else "mixed"
+    n = [getattr(k, inst).launches for k in fns]
+    f1, s1, lat1 = crf.crf_fwd_streams(stay, move, valid, lattice_dtype=BF16)
+    p1 = crf.crf_bwd_posteriors(stay, move, lat0, valid, last)
+    p2 = crf.crf_bwd_posteriors(stay, move, lat0, valid, last)
+    g1 = crf.crf_grad_streams(stay, move, lat0, valid, last, *idx, S)
+    g2 = crf.crf_grad_streams(stay, move, lat0, valid, last, *idx, S)
+    torch.cuda.synchronize()
+    assert [getattr(k, inst).launches for k in fns] == [
+        n[0] + 1, n[1] + 2, n[2] + 2]
+    assert lat1.dtype == BF16 and s1.dtype == f1.dtype == torch.float32
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-3)
+    assert _lattice_close(f1, f0, 1e-4)
+    _bf16_close(lat1, lat0, 1e-4)
+    for got, want, again in zip(p1, p0, p2):
+        assert got.dtype == BF16
+        _bf16_close(got, want, atol)
+        assert torch.equal(got, again)
+    weight = max(1.0, mfact.max().item())
+    diff = (g1 - g0).abs()
+    assert diff.max().item() <= 2.0 ** -8 * weight, diff.max().item()
+    assert (diff > atol * weight).float().mean().item() <= BF16_SHARE
+    assert torch.equal(g1, g2)
+    return p1
+
+
+@pytest.mark.parametrize("sdt", [BF16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", BF16_STREAM_SHAPES)
+def test_crf_stream_bf16_instances_match_twins(dev, shape, sdt):
+    T, B, L, n0 = shape
+    atol = 1e-5 if T <= 2100 else 3e-4
+    p1 = _check_bf16_streams(_stream_case(T, B, L, n0, dev), sdt, atol)
+    if n0 <= T + 1:
+        mass = (p1[0][:, 0].float().sum() + p1[1][:, 0].float().sum()).item()
+        assert abs(mass - T) <= 1e-2 * T
+
+
+@pytest.mark.parametrize("shape", MIXED_ONLY_SHAPES)
+def test_crf_stream_mixed_instance_at_any_width(dev, shape):
+    """f32 streams with a bf16 lattice at widths the bf16 streams do not
+    take (4-byte copies, odd widths)."""
+    T, B, L, n0 = shape
+    _check_bf16_streams(_stream_case(T, B, L, n0, dev), torch.float32, 1e-5)
+
+
+def test_crf_stream_bf16_refuses_what_it_does_not_take(dev):
+    """bf16 streams at a width not a multiple of 8, or not 16-byte
+    aligned, raise in the wrapper and are refused by the C entry itself
+    (no other copy is tried); dtypes of no instance raise."""
+    case = _stream_case(20, 3, 24, 10, dev)
+    stay, move, valid, last = (t.to(BF16) if t.is_floating_point() else t
+                               for t in case[:4])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        crf.crf_fwd_streams(stay[:, :, :20].contiguous(),
+                            move[:, :, :20].contiguous(),
+                            valid[:, :20].contiguous())
+    odd = torch.empty(stay.numel() + 1, device=dev, dtype=BF16)[1:]
+    odd = odd.view(stay.shape).copy_(stay)
+    with pytest.raises(ValueError, match="16-byte"):
+        crf.crf_fwd_streams(odd, move, valid)
+    with pytest.raises(ValueError, match="no instance"):
+        crf.crf_fwd_streams(stay, move, valid, lattice_dtype=torch.float32)
+    with pytest.raises(ValueError, match="no instance"):
+        crf.crf_bwd_posteriors(stay, move, torch.zeros_like(case[0]), valid,
+                               last)
+    lib = crf.cuda_lib.load("crf", crf._SIGNATURES)
+    T, B, L = 20, 3, 20
+    out = torch.empty(B, L, device=dev)
+    err = lib.tt_crf_fwd_streams(
+        stay.data_ptr(), move.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        out.data_ptr(), None, None, T, B, L, 1, 1,
+        crf.cuda_lib.stream(dev))
+    assert err != 0
+    err = lib.tt_crf_fwd_streams(
+        stay.data_ptr(), move.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        out.data_ptr(), None, None, T, B, 24, 1, 0,
+        crf.cuda_lib.stream(dev))
+    assert err != 0
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 4), (37, 5, 4), (300, 16, 4),
+                                   (1000, 64, 4), (200, 8, 1), (90, 8, 8)])
+def test_logz_mixed_instance_matches_twins(dev, shape):
+    """logZ's kernels on f32 scores with a bf16 lattice and posteriors
+    against their twins (logZ rtol 1e-5 / atol 1e-3, the lattice and the
+    posteriors as bf16), counted as the mixed instance's, the posteriors
+    bitwise from run to run."""
+    T, B, nbase = shape
+    rng = np.random.default_rng(T + nbase)
+    S = 2 * nbase * (nbase + 1)
+    s = torch.from_numpy((5.0 * np.tanh(rng.normal(size=(T, B, S))))
+                         .astype(np.float32)).to(dev)
+    f0, z0, l0 = logz.logz_fwd_plain(s, nbase, lattice_dtype=BF16)
+    p0 = logz.logz_posteriors_plain(s, l0, nbase, out_dtype=BF16)
+    n = (logz.logz_fwd.mixed.launches, logz.logz_posteriors.mixed.launches,
+         logz.logz_fwd.bf16.launches, logz.logz_posteriors.bf16.launches)
+    f1, z1, l1 = logz.logz_fwd(s, lattice_dtype=BF16)
+    p1 = logz.logz_posteriors(s, l0, out_dtype=BF16)
+    p2 = logz.logz_posteriors(s, l0, out_dtype=BF16)
+    torch.cuda.synchronize()
+    assert (logz.logz_fwd.mixed.launches - n[0],
+            logz.logz_posteriors.mixed.launches - n[1]) == (
+        logz.forward_kernels(T, B, nbase),
+        2 * logz.posterior_kernels(T, B, nbase))
+    assert (logz.logz_fwd.bf16.launches,
+            logz.logz_posteriors.bf16.launches) == n[2:]
+    torch.testing.assert_close(z1, z0, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(f1, f0, rtol=0, atol=1e-4)
+
+    def states(t):
+        return t.float().clamp(min=-1e30).to(BF16)
+    _bf16_close(states(l1), states(l0), 1e-4)
+    assert p1.dtype == BF16
+    _bf16_close(p1, p0, 1e-5)
+    assert torch.equal(p1, p2)
+    with pytest.raises(ValueError, match="no instance"):
+        logz.logz_posteriors(s, l0)
+
+
+@pytest.mark.parametrize("env", ["TAIYAKI_TPU_NO_SCORE_FUSE",
+                                 "TAIYAKI_TPU_F32_SCORES"])
+def test_stream_route_under_the_switch_on_card(dev, env, monkeypatch):
+    """The cat_mod loss and logZ / T through autograd, and make_trans,
+    under the switch with each score switch: the card against the CPU,
+    the streams route's and logZ's instances of the row launched (bf16
+    streams, or the mixed ones), the loss 1e-5 relative, the gradient
+    within a bf16 step of a posterior times the largest weight, over T;
+    make_trans within a bf16 step."""
+    from taiyaki_tpu_torch import flipflopfings
+    from taiyaki_tpu_torch.ops import decode, flipflop
+    monkeypatch.setenv("TAIYAKI_TPU_BF16_STREAMS", "1")
+    for name in ("TAIYAKI_TPU_NO_SCORE_FUSE", "TAIYAKI_TPU_F32_SCORES"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv(env, "1")
+    inst = "mixed" if env == "TAIYAKI_TPU_F32_SCORES" else "bf16"
+    rng = np.random.default_rng(13)
+    T, B, L = 200, 8, 61
+    offsets = np.array([0, 2, 3, 5, 6], np.int32)
+    x = rng.normal(size=(T, B, 40 + 6)).astype(np.float32)
+    seqlens = rng.integers(20, L + 1, size=B).astype(np.int32)
+    seqs = np.zeros((B, L), np.int32)
+    cats = np.zeros((B, L), np.int32)
+    for i in range(B):
+        bases = rng.integers(0, 4, size=seqlens[i])
+        seqs[i, :seqlens[i]] = flipflopfings.flipflop_code(bases)
+        cats[i, :seqlens[i]] = np.where(np.isin(bases, [0, 2]),
+                                        rng.integers(0, 2, seqlens[i]), 0)
+    weights = rng.uniform(0.5, 2.0, size=6).astype(np.float32)
+    counted = (crf.crf_fwd_streams, crf.crf_grad_streams, logz.logz_fwd,
+               logz.logz_posteriors)
+    out = {}
+    for device in ("cpu", dev):
+        tx = torch.from_numpy(x).to(device).requires_grad_()
+        n = [getattr(k, inst).launches for k in counted]
+        loss = (flipflop.cat_mod_flipflop_loss(
+            tx, *(torch.from_numpy(a).to(device)
+                  for a in (seqs, seqlens, cats)), offsets, weights).sum()
+            + flipflop.flipflop_logz(tx[:, :, :40]).sum() / T)
+        (g,) = torch.autograd.grad(loss, tx)
+        trans = decode.flipflop_make_trans(tx.detach()[:, :, :40])
+        out[str(device)] = (loss.item(), g.cpu(), trans.cpu())
+        if device != "cpu":
+            torch.cuda.synchronize()
+            ran = [getattr(k, inst).launches - c for k, c in zip(counted, n)]
+            assert ran[0] == 1 and ran[1] == 1 and ran[2] > 0 and ran[3] > 0
+    (lc, gc, tc), (ld, gd, td) = out["cpu"], out[str(dev)]
+    assert abs(ld - lc) <= 1e-5 * abs(lc)
+    assert (gd - gc).abs().max().item() <= 2 * 2.0 ** -8 * 2.0 / T
+    assert td.dtype == torch.float32
+    assert (td - tc).abs().max().item() <= 2.0 ** -8
 
 
 # -- the scans' bf16 instances -----------------------------------------------
