@@ -1,10 +1,13 @@
 """The layers' bf16 instances (rows 1, 4, 11, 12 at the mLstm training
-shape, rows 7, 8, 13 at the mGru one) and their f32 rows, timed with CUDA
+shape, rows 7, 8, 13 at the mGru one) and the scans' chains (rows 15 and
+17 at the same shapes, without iW) with their f32 rows, timed with CUDA
 events: to hold two checkouts' times side by side in one call on one
 card, where a change to the shared kernel templates may move the layers'
 instances.  Every stream bf16 but the f32 carry (the later layer's case
-of chip_smoke.py's phases 16a and 17a); inputs seeded, residuals from the
-checkout's own forwards.  Only csrc/lstm.cu and csrc/gru.cu are built.
+of chip_smoke.py's phases 16a and 17a; the scans' default case of phase
+19a: gates_x, residuals and dh bf16, h f32); inputs seeded, residuals
+from the checkout's own forwards.  Only csrc/lstm.cu and csrc/gru.cu are
+built.
 
 From the root of each checkout, on the card (run the same probe file in
 both: it imports the checkout it runs in):
@@ -13,13 +16,18 @@ both: it imports the checkout it runs in):
     (cd other_checkout && python3 /path/to/probes/layer_bf16_times.py \\
         --tag parent)
 
-Prints one line "TIMES <json>": {"tag", "card", "ms": {row: median of
-ROUNDS rounds of REPS calls}}.
+Prints one line "PTXAS <json>": [{"kernel", "args" (its template
+arguments), "registers", "spill_stores", "spill_loads", "stack"}] of every
+instance of the backward chains' cluster kernels in the build's report
+(<library>.log, nvcc -Xptxas -v), and one line "TIMES <json>": {"tag",
+"card", "ms": {row: median of ROUNDS rounds of REPS calls}, "spread"}.
 """
 
 import argparse
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -87,7 +95,66 @@ def cases(torch, dev):
             "gru_bwd_fusedw" + tag: (
                 lambda a=(dh, gx, gh, hp, x, sW, iW): gru.gru_bwd_fusedw(
                     *a))})
+    # the scans' chains (rows 15, 17): their forwards' residuals from gates
+    # of the scans' dtype
+    for dt, tag in ((bf, "[bf16]"), (torch.float32, "")):
+        kw = dict(res_dtype=dt) if dt == bf else {}
+        for cell, G, T, mod in (("lstm", 4, T_LSTM, lstm),
+                                ("gru", 3, T_GRU, gru)):
+            g = t(T, B, G * H).to(dt)
+            sW, dh = t(G * H, H, scale=H ** -0.5), t(T, B, H).to(dt)
+            res = getattr(mod, cell + "_scan_fwd")(g, sW, residuals=True,
+                                                   **kw)
+            if cell == "lstm":
+                _, c, pre = res
+                args = (dh, pre, c, lstm.prev_state(c, False), sW)
+            else:
+                hs, ghs = res
+                args = (dh, g, ghs, lstm.prev_state(hs, False), sW)
+            out[cell + "_scan_bwd" + tag] = (
+                lambda f=getattr(mod, cell + "_scan_bwd"), a=args: f(*a))
     return out
+
+
+def ptxas_report(cuda_lib):
+    """The registers, spill bytes and stack frame of every instance of the
+    backward chains' cluster kernels, from the build's report of
+    csrc/lstm.cu and csrc/gru.cu (names demangled by cu++filt or
+    c++filt where the machine has one)."""
+    props = {}
+    for lib in ("lstm", "gru"):
+        name = None
+        with open(cuda_lib._target(lib)[1] + ".log") as fh:
+            for line in fh:
+                m = re.search(r"Function properties for (\S+)", line)
+                if m:
+                    name = m.group(1)
+                    props.setdefault(name, {})
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
+                if m and name:
+                    props[name].update(stack=int(m.group(1)),
+                                       spill_stores=int(m.group(2)),
+                                       spill_loads=int(m.group(3)))
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    props[name]["registers"] = int(m.group(1))
+    names = [n for n in props if "bwd_rec_cluster_kernel" in n]
+    filt = next((p for p in (os.path.join(os.path.dirname(cuda_lib._nvcc()),
+                                          "cu++filt"),
+                             shutil.which("cu++filt"), shutil.which("c++filt"))
+                 if p and os.path.isfile(p)), None)
+    plain = names
+    if filt:
+        plain = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=False).stdout.split("\n")[:len(names)]
+    rows = []
+    for mangled, readable in zip(names, plain):
+        m = re.search(r"(\w+_bwd_rec_cluster_kernel)<(.*?)>\(", readable)
+        rows.append(dict(kernel=m.group(1) if m else mangled,
+                         args=m.group(2) if m else "", **props[mangled]))
+    return sorted(rows, key=lambda r: (r["kernel"], r["args"]))
 
 
 def main():
@@ -99,6 +166,7 @@ def main():
     from taiyaki_tpu_torch.ops import cuda_lib
     cuda_lib.SOURCES = ("lstm", "gru")
     cuda_lib.build_all()
+    print("PTXAS " + json.dumps(ptxas_report(cuda_lib)), flush=True)
     dev = torch.device("cuda", 0)
     fns = cases(torch, dev)
     times = {k: [] for k in fns}

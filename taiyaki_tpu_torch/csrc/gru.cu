@@ -108,7 +108,9 @@
 //       the owner sums the C partials in rank order and adds dh z, which
 //       it carries in registers (rec_cluster.cuh, the backward).  The next
 //       step's 8 input words of a cell arrive by cp.async during the
-//       product.  At B = 256, H = 256: C = 8, BT = 18, 120 CTAs.
+//       product (the bf16 instances: the tile's words as runs of U units,
+//       copied by all threads).  At B = 256, H = 256: C = 8, BT = 18, 120
+//       CTAs.
 //    b. gru_bwd_rec_kernel<BT, TG, BF16> (the L2 instance, where the slice
 //       does not fit: H = 512): thread k the cells of unit k for a tile of
 //       8 rows,
@@ -151,11 +153,12 @@
 // (h's type a run-time flag), the chains on the gate streams' type with
 // dh's and h_prev's types run-time flags of the bf16 instance, so that the
 // instances double (the chains: f32; f32 gates with the flags; bf16
-// gates), not quadruple.  The chains' bf16 instances cannot copy 2-byte
-// values, nor values whose type is known only at run time, with cp.async:
-// they load step s+1's dh and h_prev (and bf16 gates) into registers
-// before the product and store them to the ring after it; f32 gates still
-// go by cp.async.  The in-place chain (row 8) only ever pairs f32 gates
+// gates), not quadruple.  The chains' bf16 instances lay the cluster
+// instance's ring out word-major, [8][BT][U] in each word's own type
+// (2 bytes a bf16 unit, 4 an f32 one, whatever the flags say), and fill
+// it by cp.async of whole runs of U units, the CTA's threads sharing the
+// copies; the cells widen each word at use (rec_cluster.cuh, the bf16
+// chains' ring).  The in-place chain (row 8) only ever pairs f32 gates
 // with f32 gradients.  The recurrence on given gates under the JAX scans'
 // mixed precision (taiyaki_tpu/ops/rnn.py:542-588): the forward's bf16
 // instance on the caller's gate stream in bf16 (GX16: the gates through
@@ -536,12 +539,11 @@ gru_bwd_rec_kernel(const void* __restrict__ dh_out,
 }
 
 // Step t's inputs of this thread's cells into the ring [BT][U][8]: gx and
-// gh (3 each), h_prev (zero where t + hshift is outside [0, T)) and dh;
-// with GATES the gate words alone (the f32 gates of a bf16 instance).
-// Rows past B are left alone (no cell reads them).  gx and gh may be the
-// streams the chain writes its gradients over: never at row t before
-// this step's cells (rec_cluster.cuh, the backward).
-template <bool GATES = false>
+// gh (3 each), h_prev (zero where t + hshift is outside [0, T)) and dh, by
+// cp.async (the f32 instance).  Rows past B are left alone (no cell reads
+// them).  gx and gh may be the streams the chain writes its gradients
+// over: never at row t before this step's cells (rec_cluster.cuh, the
+// backward).
 __device__ __forceinline__ void gru_bwd_prefetch(
     float* ring, const float* __restrict__ dh_out,
     const float* __restrict__ hp, int hshift, const float* gx,
@@ -563,99 +565,74 @@ __device__ __forceinline__ void gru_bwd_prefetch(
                 cp_async4(d + q, gx + og + q * H, true);
                 cp_async4(d + 3 + q, gh + og + q * H, true);
             }
-            if (!GATES) {
-                cp_async4(d + 6, has_prev
-                          ? hp + ((size_t)tp * B + b0 + cl.row[j]) * H + u
-                          : dh_out, has_prev);
-                cp_async4(d + 7, dh_out + r * H + u, true);
-            }
+            cp_async4(d + 6, has_prev
+                      ? hp + ((size_t)tp * B + b0 + cl.row[j]) * H + u
+                      : dh_out, has_prev);
+            cp_async4(d + 7, dh_out + r * H + u, true);
         }
     }
 }
 
-// The words of a cell's ring entry a bf16 instance loads into registers:
-// the last W of the 8 (h_prev and dh; with bf16 gates all 8)
+// Step t's inputs of the tile into the bf16 instances' word-major ring
+// [8][BT][U] (rec_cluster.cuh, the bf16 chains' ring): gx (f32, or bf16
+// where the gates are bf16 and gx_bf16 says), gh (TG), h_prev (zero where
+// t + hshift is outside [0, T)) and dh, each bf16 or f32 by its flag; this
+// thread's share of the CTA's copies.  gx and gh may be the streams the
+// chain writes its gradients over (the recompute's f32 scratch): the
+// copies read row t -/+ 1 only after step t's cells (rec_cluster.cuh).
+constexpr int GRU_BWD_WORDS = 8;
+
 template <typename TG>
-constexpr int GRU_BWD_REG_WORDS = is_bf16<TG> ? 8 : 2;
+__device__ __forceinline__ int gru_gx_bytes(int gx_bf16)
+{
+    return is_bf16<TG> && gx_bf16 ? 2 : 4;
+}
 
-// What gru_bwd_prefetch copies, for the bf16 instances: the words of
-// GRU_BWD_REG_WORDS read into v [cell][word] and widened (gru_bwd_load),
-// then stored to the ring's last W words (gru_bwd_stash) once the step's
-// product is done.
 template <typename TG>
-__device__ __forceinline__ void gru_bwd_load(
-    float (&v)[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>],
-    const void* __restrict__ dh, int dh_bf16, const void* __restrict__ hp,
-    int hp_bf16, int hshift, const void* gx, int gx_bf16, const TG* gh,
-    int t, int T, int B, int b0, int nrow, int H, int u0,
-    const RecCells& cl)
-{
-    constexpr int W = GRU_BWD_REG_WORDS<TG>;
-    const int tp = t + hshift;
-    const bool has_prev = tp >= 0 && tp < T;
-#pragma unroll
-    for (int j = 0; j < REC_MAX_CELLS; ++j) {
-        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
-            const int u = u0 + cl.u_c[j];
-            const size_t r = (size_t)t * B + b0 + cl.row[j];
-            if constexpr (W == 8) {
-                const size_t og = r * 3 * H + u;
-#pragma unroll
-                for (int q = 0; q < 3; ++q) {
-                    v[j][q] = load_f<true>(gx, og + q * H, gx_bf16);
-                    v[j][3 + q] = widen(gh[og + q * H]);
-                }
-            }
-            v[j][W - 2] = has_prev
-                ? load_f<true>(hp, ((size_t)tp * B + b0 + cl.row[j]) * H + u,
-                               hp_bf16)
-                : 0.f;
-            v[j][W - 1] = load_f<true>(dh, r * H + u, dh_bf16);
-        }
-    }
-}
-
-template <int W>
-__device__ __forceinline__ void gru_bwd_stash(
-    float* ring, const float (&v)[REC_MAX_CELLS][W], int nrow, int H, int U,
-    int u0, const RecCells& cl)
-{
-#pragma unroll
-    for (int j = 0; j < REC_MAX_CELLS; ++j) {
-        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
-            float* d = ring + ((size_t)cl.row[j] * U + cl.u_c[j])
-                       * rec_bwd_ring(3) + (rec_bwd_ring(3) - W);
-#pragma unroll
-            for (int w = 0; w < W; ++w) d[w] = v[j][w];
-        }
-    }
-}
-
-// Step t's inputs of this thread's cells into the ring, as the instance
-// (BF16, TG) takes them: by cp.async alone (the f32 instance), or the f32
-// gates by cp.async and the rest loaded into v, to be stashed after the
-// product (gx of either type, by gx_bf16, with bf16 gh).  The caller
-// commits the copies.
-template <typename TG, bool BF16>
-__device__ __forceinline__ void gru_bwd_fetch(
-    float* ring, float (&v)[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>],
-    const void* dh_out, int dh_bf16, const void* hp, int hp_bf16,
+__device__ __forceinline__ void gru_bwd_ring_fill(
+    float* ring, const void* dh, int dh_bf16, const void* hp, int hp_bf16,
     int hshift, const void* gx, int gx_bf16, const TG* gh, int t, int T,
-    int B, int b0, int nrow, int H, int U, int u0, const RecCells& cl)
+    int B, int b0, int nrow, int H, int U, int u0, int BT)
 {
-    if constexpr (!BF16) {
-        gru_bwd_prefetch(ring, static_cast<const float*>(dh_out),
-                         static_cast<const float*>(hp), hshift,
-                         static_cast<const float*>(gx), gh, t, T, B, b0,
-                         nrow, H, U, u0, cl);
-    } else {
-        if constexpr (!is_bf16<TG>)
-            gru_bwd_prefetch<true>(ring, nullptr, nullptr, hshift,
-                                   static_cast<const float*>(gx), gh, t, T,
-                                   B, b0, nrow, H, U, u0, cl);
-        gru_bwd_load(v, dh_out, dh_bf16, hp, hp_bf16, hshift, gx, gx_bf16,
-                     gh, t, T, B, b0, nrow, H, u0, cl);
+    const int tp = t + hshift;
+    const size_t wb = rec_opaque(BT * U);   // floats a word's region
+    const RecRingGeo g2 = rec_ring_geo(2, H, U, u0, nrow, ring);
+    const RecRingGeo g4 = rec_ring_geo(4, H, U, u0, nrow, ring);
+    constexpr int he = sizeof(TG);
+    const int xe = gru_gx_bytes<TG>(gx_bf16);
+    const int pe = hp_bf16 ? 2 : 4, de = dh_bf16 ? 2 : 4;
+    int i = threadIdx.x;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+        rec_ring_word(ring + q * wb, gx, xe == 2 ? g2 : g4, xe, 3 * H, q * H,
+                      t, true, B, b0, u0, i);
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+        rec_ring_word(ring + (3 + q) * wb, gh, he == 2 ? g2 : g4, he, 3 * H,
+                      q * H, t, true, B, b0, u0, i);
+    rec_ring_word(ring + 6 * wb, hp, pe == 2 ? g2 : g4, pe, H, 0, tp,
+                  tp >= 0 && tp < T, B, b0, u0, i);
+    rec_ring_word(ring + 7 * wb, dh, de == 2 ? g2 : g4, de, H, 0, t, true, B,
+                  b0, u0, i);
+}
+
+// The eight words of cell e (row U + u_c) from that ring, widened: the
+// cells' inputs as the f32 instance reads them from its slot.
+template <typename TG>
+__device__ __forceinline__ void gru_bwd_words(
+    float (&v)[GRU_BWD_WORDS], const float* ring, int BT, int U, int e,
+    int gx_bf16, int hp_bf16, int dh_bf16)
+{
+    BT = rec_opaque(BT);   // the words' addresses: recomputed a step
+    e = rec_opaque(e);
+    const int gx16 = gru_gx_bytes<TG>(gx_bf16) == 2;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+        v[q] = rec_ring_at(ring, q, BT, U, e, gx16);
+        v[3 + q] = rec_ring_at<TG>(ring, 3 + q, BT, U, e);
     }
+    v[6] = rec_ring_at(ring, 6, BT, U, e, hp_bf16);
+    v[7] = rec_ring_at(ring, 7, BT, U, e, dh_bf16);
 }
 
 // The cluster instance of the backward recurrence: what gru_bwd_rec_kernel
@@ -690,13 +667,15 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
     const RecCells cl = rec_cells(H, U, BT, u0);
 
     rec_bwd_prologue<3>(m, sw, H, U, u0, BT);
-    {
-        float v[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>];
-        gru_bwd_fetch<TG, BF16>(m.ring, v, dh_out, dh_bf16, hp, hp_bf16,
-                                hshift, gx, gx_bf16, gh, reverse ? 0 : T - 1,
-                                T, B, b0, nrow, H, U, u0, cl);
-        if constexpr (BF16) gru_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
-    }
+    if constexpr (BF16)
+        gru_bwd_ring_fill<TG>(m.ring, dh_out, dh_bf16, hp, hp_bf16, hshift,
+                              gx, gx_bf16, gh, reverse ? 0 : T - 1, T, B, b0,
+                              nrow, H, U, u0, BT);
+    else
+        gru_bwd_prefetch(m.ring, static_cast<const float*>(dh_out),
+                         static_cast<const float*>(hp), hshift,
+                         static_cast<const float*>(gx), gh,
+                         reverse ? 0 : T - 1, T, B, b0, nrow, H, U, u0, cl);
     cp_async_commit();
     cp_async_wait<0>();
     cluster_sync();
@@ -720,13 +699,24 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
             mbar_arrive_expect(m.bar + nb, 4 * (C - 1) * U * BT);
         cp_async_wait<0>();
         clk.template lap<REC_TOP>();
+        // the bf16 instances rebuild their cells at each step rather than
+        // hold them through the product (its registers)
+        const RecCells cells = BF16 ? rec_cells(H, rec_opaque(U), BT, u0)
+                                    : cl;
 #pragma unroll
         for (int j = 0; j < REC_MAX_CELLS; ++j) {
-            if (j >= cl.n) break;
-            const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
+            if (j >= cells.n) break;
+            const int u_c = cells.u_c[j], row = cells.row[j], u = u0 + u_c;
             if (row >= nrow || u >= H) continue;
-            const float* v = m.ring + ((size_t)row * U + u_c)
-                                      * rec_bwd_ring(3);
+            // the cell's words: its slot of the f32 ring, or widened from
+            // the bf16 instances' word-major ring
+            float vb[BF16 ? GRU_BWD_WORDS : 1];
+            if constexpr (BF16)
+                gru_bwd_words<TG>(vb, m.ring, BT, U, row * U + u_c, gx_bf16,
+                                  hp_bf16, dh_bf16);
+            const float* v = BF16 ? vb
+                                  : m.ring + ((size_t)row * U + u_c)
+                                                 * rec_bwd_ring(3);
             const float rg = sigmoidf_(v[0] + v[3]);
             const float zg = sigmoidf_(v[1] + v[4]);
             const float ng = tanhf(v[2] + rg * v[5]);
@@ -755,16 +745,23 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
         clk.template lap<REC_CELLS>();
         if (more) {
             __syncthreads();
-            // the bf16 instance's loads are in flight during the product
-            float v[REC_MAX_CELLS][GRU_BWD_REG_WORDS<TG>];
-            gru_bwd_fetch<TG, BF16>(m.ring, v, dh_out, dh_bf16, hp, hp_bf16,
-                                    hshift, gx, gx_bf16, gh,
-                                    reverse ? t + 1 : t - 1, T, B, b0, nrow,
-                                    H, U, u0, cl);
+            const int tn = reverse ? t + 1 : t - 1;
+            // the copies are in flight during the product
+            if constexpr (BF16)
+                gru_bwd_ring_fill<TG>(m.ring, dh_out, dh_bf16, hp, hp_bf16,
+                                      hshift, gx, gx_bf16, gh, tn, T, B, b0,
+                                      nrow, H, U, u0, BT);
+            else
+                gru_bwd_prefetch(m.ring, static_cast<const float*>(dh_out),
+                                 static_cast<const float*>(hp), hshift,
+                                 static_cast<const float*>(gx), gh, tn, T, B,
+                                 b0, nrow, H, U, u0, cl);
             cp_async_commit();
             rec_bwd_partials<3, RB, KL>(m, m.part + (size_t)nb * C * U * BT,
                                         H, U, BT);
-            if constexpr (BF16) gru_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
+            // the shared ring: every thread's copies land before the send's
+            // barrier publishes it to step s+1's cells
+            if constexpr (BF16) cp_async_wait<0>();
             clk.template lap<REC_PRODUCT>();
             rec_bwd_send(m, nb, C, U, BT);
             clk.template lap<REC_SEND>();
@@ -773,7 +770,9 @@ gru_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
         }
     }
     cluster_sync();
-    rec_bwd_store_db<3>(m, cl, db, db_part, tile, H, U, u0, nrow);
+    // the bf16 instances' cells again, not held through the loop
+    rec_bwd_store_db<3>(m, BF16 ? rec_cells(H, U, BT, u0) : cl, db, db_part,
+                          tile, H, U, u0, nrow);
     clk.store(cycles);
 }
 
@@ -1039,7 +1038,11 @@ int tt_gru_cluster_occupancy(int H, int C, int BT, int RB, int KS, int smem)
 // instance 0 the L2 kernel (C 1, BT 8, RB 1, KL 1, 24 H BT bytes), 1 the
 // cluster kernel; five GEMM plans (ops/gemm.py): gemm[0] x iW^T, gemm[1]
 // h_prev sW^T (for T > 1, on (T - 1) B rows), then the chain's three; a
-// plan it cannot take returns cudaErrorInvalidValue before any launch.
+// plan it cannot take returns cudaErrorInvalidValue before any launch, and
+// so does the bf16 instance on the cluster instance where its ring's fill
+// takes no cp.async (a bf16 stream with H or U odd), or
+// cudaErrorMisalignedAddress where a stream's base is not aligned to its
+// copies (rec_ring_check; the wrappers copy such a view first).
 int tt_gru_bwd(const void* dh, const void* h, const void* x,
                const float* iW, const float* b, const float* sw,
                const float* iwt, float* g_x, float* g_h, void* dx,
@@ -1059,6 +1062,10 @@ int tt_gru_bwd(const void* dh, const void* h, const void* x,
     const GemmIn hsrc{reverse ? advance(h, (size_t)B * H, hb) : h, hb};
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && streams)
+        err = rec_ring_check(instance, H, C,
+                             {{dh, streams & STREAM_DH_BF16 ? 2 : 4},
+                              {h, hb ? 2 : 4}, {g_x, 4}, {g_h, 4}});
     if (err == cudaSuccess)
         err = gate_plan_check(gemm_plan_at(gemm, 0), xin, iW, D);
     if (err == cudaSuccess)
@@ -1117,6 +1124,11 @@ int tt_gru_bwd_fusedw(const void* dh, const void* gx, const void* gh,
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && (streams & STREAM_RES_BF16))
+        err = rec_ring_check(instance, H, C,
+                             {{dh, streams & STREAM_DH_BF16 ? 2 : 4},
+                              {hprev, streams & STREAM_H_BF16 ? 2 : 4},
+                              {gx, 2}, {gh, 2}});
     if (err == cudaSuccess)
         err = chain_plans_check(
             gemm, dgx, dgh, iwt, GemmIn{x, (streams & STREAM_X_BF16) != 0},
@@ -1178,7 +1190,7 @@ int tt_gru_scan_fwd(const void* gx, const float* swt, float* h, void* gh,
 // dgh [T, B, 3H]; db_part [ceil(B/BT), 3H] is scratch.  With iwt = iW^T
 // [D, 3H] non-null also dx [T, B, D] (f32) = dgx . iW from the stored dgx,
 // on the GEMM plan gemm[0].  `streams`: 0 for all f32, or the bf16
-// instance (STREAM_RES_BF16: gh bf16, every word through registers), with
+// instance (STREAM_RES_BF16: gh bf16), with
 // gx, hprev and dh bf16 where STREAM_X_BF16, STREAM_H_BF16 and
 // STREAM_DH_BF16 say, and dgx and dgh stored in dh's type (rounded where
 // they are stored; the chain goes on from the f32 values).  The plan as tt_gru_bwd's.
@@ -1199,6 +1211,12 @@ int tt_gru_scan_bwd(const void* dh, const void* gx, const void* gh,
     const GemmIn dsrc{dgx, d16 != 0};
     cudaError_t err = rec_bwd_plan_check(instance, 3, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && res16)
+        err = rec_ring_check(instance, H, C,
+                             {{dh, d16 ? 2 : 4},
+                              {hprev, streams & STREAM_H_BF16 ? 2 : 4},
+                              {gx, streams & STREAM_X_BF16 ? 2 : 4},
+                              {gh, 2}});
     if (err == cudaSuccess && iwt != nullptr)
         err = gate_plan_check(gemm_plan_at(gemm, 0), dsrc, iwt, 3 * H);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -112,7 +112,9 @@
 //       the unit's owner by a bulk copy, and the owner sums the C partials
 //       in rank order in its next step's cells.  The next step's inputs of
 //       a thread's cells (7 words) arrive by cp.async during the product
-//       (rec_cluster.cuh: layout, protocol, safety, per-step cost).  At
+//       (the bf16 instances: the tile's words as runs of U units, copied by
+//       all threads; rec_cluster.cuh: layout, protocol, safety, per-step
+//       cost).  At
 //       B = 256, H = 256: C = 8, BT = 18, 120 CTAs in one wave (the L2
 //       instance 32 blocks).  Bound: the serial chain of T steps, each the
 //       product's shared-memory reads, the exchange and the cells.
@@ -148,9 +150,12 @@
 // The bf16 instances are templates of the same kernels on the residuals'
 // type; the act and gradient streams' type is a run-time flag in them
 // (uniform across a launch), so that each kernel has two instances, not
-// four.  The backward cluster instance cannot copy 2-byte values with
-// cp.async (4 bytes at least): its bf16 instances load step s+1's inputs
-// into registers before the product and store them to the ring after it.
+// four.  The backward cluster instance's bf16 instances lay their ring
+// out word-major, [7][BT][U] in each word's own type, so that a word of a
+// tile row is the rank's U units in a row, and fill it by cp.async of 16
+// bytes where the shape allows (8 or 4 elsewhere), the CTA's threads
+// sharing the copies; the cells widen each word at use (rec_cluster.cuh,
+// the bf16 chains' ring).
 // The recurrence on given gates under the JAX scans' mixed precision
 // (taiyaki_tpu/ops/rnn.py:222-257): the forward's bf16 instance on the
 // caller's gate stream in bf16 (GX16: the gates through registers, as the
@@ -594,50 +599,53 @@ __device__ __forceinline__ void lstm_bwd_prefetch(
     }
 }
 
-// What lstm_bwd_prefetch copies, for the bf16 instances: read into v
-// [cell][word] and widened (lstm_bwd_load), then stored to the ring
-// (lstm_bwd_stash) once the step's product is done.
+// Step t's inputs of the tile into the bf16 instances' word-major ring
+// [7][BT][U] (rec_cluster.cuh, the bf16 chains' ring): the four gates (TG:
+// bf16, or the recompute's f32 pre), tc or c and c_prev (TS; zero where
+// t + cshift is outside [0, T)) and dh (bf16 or f32 by dh_bf16), this
+// thread's share of the CTA's copies.
 constexpr int LSTM_BWD_WORDS = 7;
 
 template <typename TG, typename TS>
-__device__ __forceinline__ void lstm_bwd_load(
-    float (&v)[REC_MAX_CELLS][LSTM_BWD_WORDS], const void* __restrict__ dh,
-    int dh_bf16, const TG* __restrict__ gates, const TS* __restrict__ cs,
+__device__ __forceinline__ void lstm_bwd_ring_fill(
+    float* ring, const void* __restrict__ dh, int dh_bf16,
+    const TG* __restrict__ gates, const TS* __restrict__ cs,
     const TS* __restrict__ cprev, int cshift, int t, int T, int B, int b0,
-    int nrow, int H, int u0, const RecCells& cl)
+    int nrow, int H, int U, int u0, int BT)
 {
     const int tp = t + cshift;
-    const bool has_prev = tp >= 0 && tp < T;
+    const size_t wb = rec_opaque(BT * U);   // floats a word's region
+    const RecRingGeo g2 = rec_ring_geo(2, H, U, u0, nrow, ring);
+    const RecRingGeo g4 = rec_ring_geo(4, H, U, u0, nrow, ring);
+    constexpr int ge = sizeof(TG), se = sizeof(TS);
+    const int de = dh_bf16 ? 2 : 4;
+    int i = threadIdx.x;
 #pragma unroll
-    for (int j = 0; j < REC_MAX_CELLS; ++j) {
-        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
-            const int u = u0 + cl.u_c[j];
-            const size_t r = (size_t)t * B + b0 + cl.row[j];
-            const TG* g = gates + r * 4 * H + u;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) v[j][q] = widen(g[q * H]);
-            v[j][4] = widen(cs[r * H + u]);
-            v[j][5] = has_prev
-                ? widen(cprev[((size_t)tp * B + b0 + cl.row[j]) * H + u])
-                : 0.f;
-            v[j][6] = load_dh<true>(dh, r * H + u, dh_bf16);
-        }
-    }
+    for (int g = 0; g < 4; ++g)
+        rec_ring_word(ring + g * wb, gates, ge == 2 ? g2 : g4, ge, 4 * H,
+                      g * H, t, true, B, b0, u0, i);
+    rec_ring_word(ring + 4 * wb, cs, se == 2 ? g2 : g4, se, H, 0, t, true, B,
+                  b0, u0, i);
+    rec_ring_word(ring + 5 * wb, cprev, se == 2 ? g2 : g4, se, H, 0, tp,
+                  tp >= 0 && tp < T, B, b0, u0, i);
+    rec_ring_word(ring + 6 * wb, dh, de == 2 ? g2 : g4, de, H, 0, t, true, B,
+                  b0, u0, i);
 }
 
-__device__ __forceinline__ void lstm_bwd_stash(
-    float* ring, const float (&v)[REC_MAX_CELLS][LSTM_BWD_WORDS], int nrow,
-    int H, int U, int u0, const RecCells& cl)
+// The seven words of cell e (row U + u_c) from that ring, widened: the
+// cells' inputs as the f32 instance reads them from its slot.
+template <typename TG, typename TS>
+__device__ __forceinline__ void lstm_bwd_words(
+    float (&v)[LSTM_BWD_WORDS], const float* ring, int BT, int U, int e,
+    int dh_bf16)
 {
+    BT = rec_opaque(BT);   // the words' addresses: recomputed a step
+    e = rec_opaque(e);
 #pragma unroll
-    for (int j = 0; j < REC_MAX_CELLS; ++j) {
-        if (j < cl.n && cl.row[j] < nrow && u0 + cl.u_c[j] < H) {
-            float* d = ring + ((size_t)cl.row[j] * U + cl.u_c[j])
-                       * rec_bwd_ring(4);
-#pragma unroll
-            for (int w = 0; w < LSTM_BWD_WORDS; ++w) d[w] = v[j][w];
-        }
-    }
+    for (int g = 0; g < 4; ++g) v[g] = rec_ring_at<TG>(ring, g, BT, U, e);
+    v[4] = rec_ring_at<TS>(ring, 4, BT, U, e);
+    v[5] = rec_ring_at<TS>(ring, 5, BT, U, e);
+    v[6] = rec_ring_at(ring, 6, BT, U, e, dh_bf16);
 }
 
 // The cluster instance of the backward recurrence: what lstm_bwd_rec_kernel
@@ -674,16 +682,13 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
     const RecCells cl = rec_cells(H, U, BT, u0);
 
     rec_bwd_prologue<4>(m, sw, H, U, u0, BT);
-    if constexpr (BF16) {
-        float v[REC_MAX_CELLS][LSTM_BWD_WORDS];
-        lstm_bwd_load(v, dh_out, dh_bf16, gates, cs, cprev, cshift,
-                      reverse ? 0 : T - 1, T, B, b0, nrow, H, u0, cl);
-        lstm_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
-    } else {
+    if constexpr (BF16)
+        lstm_bwd_ring_fill(m.ring, dh_out, dh_bf16, gates, cs, cprev, cshift,
+                           reverse ? 0 : T - 1, T, B, b0, nrow, H, U, u0, BT);
+    else
         lstm_bwd_prefetch(m.ring, static_cast<const float*>(dh_out), gates,
                           cs, cprev, cshift, reverse ? 0 : T - 1, T, B, b0,
                           nrow, H, U, u0, cl);
-    }
     cp_async_commit();
     cp_async_wait<0>();
     cluster_sync();
@@ -706,13 +711,24 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
             mbar_arrive_expect(m.bar + nb, 4 * (C - 1) * U * BT);
         cp_async_wait<0>();
         clk.template lap<REC_TOP>();
+        // the bf16 instances rebuild their cells at each step rather than
+        // hold them through the product (its registers)
+        const RecCells cells = BF16 ? rec_cells(H, rec_opaque(U), BT, u0)
+                                    : cl;
 #pragma unroll
         for (int j = 0; j < REC_MAX_CELLS; ++j) {
-            if (j >= cl.n) break;
-            const int u_c = cl.u_c[j], row = cl.row[j], u = u0 + u_c;
+            if (j >= cells.n) break;
+            const int u_c = cells.u_c[j], row = cells.row[j], u = u0 + u_c;
             if (row >= nrow || u >= H) continue;
-            const float* v = m.ring + ((size_t)row * U + u_c)
-                                      * rec_bwd_ring(4);
+            // the cell's words: its slot of the f32 ring, or widened from
+            // the bf16 instances' word-major ring
+            float vb[BF16 ? LSTM_BWD_WORDS : 1];
+            if constexpr (BF16)
+                lstm_bwd_words<TG, TS>(vb, m.ring, BT, U, row * U + u_c,
+                                       dh_bf16);
+            const float* v = BF16 ? vb
+                                  : m.ring + ((size_t)row * U + u_c)
+                                                 * rec_bwd_ring(4);
             float ig, fg, gg, og, tc;
             if (FROM_PRE) {
                 ig = sigmoidf_(v[0]);
@@ -748,22 +764,20 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
         if (more) {
             __syncthreads();
             const int tn = reverse ? t + 1 : t - 1;
-            if constexpr (BF16) {
-                // the loads are in flight during the product
-                float v[REC_MAX_CELLS][LSTM_BWD_WORDS];
-                lstm_bwd_load(v, dh_out, dh_bf16, gates, cs, cprev, cshift,
-                              tn, T, B, b0, nrow, H, u0, cl);
-                rec_bwd_partials<4, RB, KL>(
-                    m, m.part + (size_t)nb * C * U * BT, H, U, BT);
-                lstm_bwd_stash(m.ring, v, nrow, H, U, u0, cl);
-            } else {
+            // the copies are in flight during the product
+            if constexpr (BF16)
+                lstm_bwd_ring_fill(m.ring, dh_out, dh_bf16, gates, cs, cprev,
+                                   cshift, tn, T, B, b0, nrow, H, U, u0, BT);
+            else
                 lstm_bwd_prefetch(m.ring, static_cast<const float*>(dh_out),
                                   gates, cs, cprev, cshift, tn, T, B, b0,
                                   nrow, H, U, u0, cl);
-                cp_async_commit();
-                rec_bwd_partials<4, RB, KL>(
-                    m, m.part + (size_t)nb * C * U * BT, H, U, BT);
-            }
+            cp_async_commit();
+            rec_bwd_partials<4, RB, KL>(
+                m, m.part + (size_t)nb * C * U * BT, H, U, BT);
+            // the shared ring: every thread's copies land before the send's
+            // barrier publishes it to step s+1's cells
+            if constexpr (BF16) cp_async_wait<0>();
             clk.template lap<REC_PRODUCT>();
             rec_bwd_send(m, nb, C, U, BT);
             clk.template lap<REC_SEND>();
@@ -772,7 +786,9 @@ lstm_bwd_rec_cluster_kernel(const void* __restrict__ dh_out,
         }
     }
     cluster_sync();
-    rec_bwd_store_db<4>(m, cl, db, db_part, tile, H, U, u0, nrow);
+    // the bf16 instances' cells again, not held through the loop
+    rec_bwd_store_db<4>(m, BF16 ? rec_cells(H, U, BT, u0) : cl, db, db_part,
+                          tile, H, U, u0, nrow);
     clk.store(cycles);
 }
 
@@ -1047,7 +1063,10 @@ int tt_lstm_cluster_occupancy(int H, int C, int BT, int RB, int KS,
 // 0 the L2 kernel (C 1, BT 8, RB 1, KL 1, 32 H BT bytes), 1 the cluster
 // kernel; d_x, d_iW and d_sW on the GEMM plans gemm[0..2] (ops/gemm.py
 // `chain_plans`); a plan it cannot take returns cudaErrorInvalidValue
-// before any launch.
+// before any launch, and so does the bf16 instance on the cluster
+// instance where its ring's fill takes no cp.async (H or U odd), or
+// cudaErrorMisalignedAddress where a stream's base is not aligned to its
+// copies (rec_ring_check; the wrappers copy such a view first).
 int tt_lstm_bwd(const void* dh, const void* gates, const void* cs,
                 const void* cprev, const void* h, const void* x,
                 const float* sw, const float* iwt, float* dpre, void* dx,
@@ -1062,6 +1081,10 @@ int tt_lstm_bwd(const void* dh, const void* gates, const void* cs,
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && (streams & STREAM_RES_BF16))
+        err = rec_ring_check(instance, H, C,
+                             {{dh, streams & STREAM_DH_BF16 ? 2 : 4},
+                              {gates, 2}, {cs, 2}, {cprev, 2}});
     if (err == cudaSuccess)
         err = chain_plans_check(
             gemm, dpre, dpre, iwt, GemmIn{x, (streams & STREAM_X_BF16) != 0},
@@ -1111,6 +1134,10 @@ int tt_lstm_bwd_recompute(const void* dh, const void* c, const void* h,
     float* pdst = reverse ? pre : pre + (size_t)B * H4;
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && (streams & STREAM_RES_BF16))
+        err = rec_ring_check(instance, H, C,
+                             {{dh, streams & STREAM_DH_BF16 ? 2 : 4},
+                              {pre, 4}, {c, 2}});
     if (err == cudaSuccess)
         err = gate_plan_check(gemm_plan_at(gemm, 0), xin, iW, D);
     if (err == cudaSuccess)
@@ -1229,6 +1256,10 @@ int tt_lstm_scan_bwd(const void* dh, const void* pre, const void* c,
     const GemmIn dsrc{dpre, dh16 != 0};
     cudaError_t err = rec_bwd_plan_check(instance, 4, H, C, BT, RB, KL, smem,
                                          REC_BT, REC_MAX_THREADS);
+    if (err == cudaSuccess && res16)
+        err = rec_ring_check(instance, H, C,
+                             {{dh, dh16 ? 2 : 4}, {pre, 2}, {c, 2},
+                              {cprev, 2}});
     if (err == cudaSuccess && iwt != nullptr)
         err = gate_plan_check(gemm_plan_at(gemm, 0), dsrc, iwt, 4 * H);
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -93,13 +93,15 @@
 //    goes below zero until the arrive, and the phase cannot complete while
 //    the arrival pends.
 //  - Step T-1 exchanges nothing (no later step reads it).
-//  - A bf16 gate stream (the bf16 instances of the recurrences on given
-//    gates) cannot go by cp.async, which copies 4 bytes at least, and a
-//    thread's gates of a cell lie H apart: each thread loads step s+1's
-//    gates of its cells into registers at the top of step s
+//  - A bf16 gate stream (the forwards' bf16 instances on given gates,
+//    GX16) does not go by this per-cell copy: cp.async copies 4 bytes at
+//    least, and a thread's gates of a cell lie H apart.  Each thread loads
+//    step s+1's gates of its cells into registers at the top of step s
 //    (rec_step_top), before the product, and stores them widened to its
 //    ring slot after it (rec_stash_gates); a thread still reads only the
-//    ring words it wrote itself.
+//    ring words it wrote itself.  (The backward chains' bf16 instances
+//    copy their 2-byte words by cp.async after all, through a word-major
+//    ring whose runs are U units long: "The bf16 chains' ring" below.)
 //  - Before the loop: the mbarriers are initialised (fence.mbarrier_init
 //    at cluster scope), hS[0] is zeroed (the initial state), the weights
 //    and step 0's gates are copied, and a cluster barrier makes sure every
@@ -131,10 +133,12 @@
 //     wS[U][G][H]         (the own gate rows of sW: row
 //                          g H + u0 + u at [u][g])           4 G H U bytes
 //     ring[BT][U][R]      (step s+1's inputs of the own
-//                          cells, R = 7 LSTM, 8 GRU words)   4 R BT U bytes
+//                          cells, R = 7 LSTM, 8 GRU words;
+//                          the bf16 instances' [R][BT][U],
+//                          below)                            4 R BT U bytes
 // rec_bwd_smem below and ops/rnn_plan.py `bwd_smem` compute the same sum
 // (230,160 bytes for the LSTM at H = 256, C = 8, BT = 18; 199,696 for the
-// GRU, whose three gate rows are not padded to four).
+// GRU, whose three gate rows are not padded to four), for both instances.
 // A step s (time t = T-1-s, or s for a reversed layer):
 //  1. The cells: each thread waits for its own ring copies, sums its
 //     cells' C partials of step s-1 in rank order (its own block from
@@ -142,7 +146,9 @@
 //     keeps the carried dc (LSTM) or dh z (GRU) and the d_b sums in
 //     registers, stores the gate gradients to device memory and to dS.
 //  2. __syncthreads, then each thread copies step s+1's inputs of its
-//     cells into the ring (cp.async; it read its words of step s in 1) and
+//     cells into the ring (cp.async; it read its words of step s in 1; the
+//     bf16 instances: its share of the whole ring's copies, waited for
+//     before the send's barrier, below) and
 //     the product runs: with nkg = ceil(H / (32 KL)), warp w takes the KL
 //     output units (w % nkg) 32 KL + lane + 32 i (i < KL) and row group
 //     w / nkg (RB rows); per own unit u it loads the KL G weights of its
@@ -171,6 +177,53 @@
 // After the loop a cluster barrier; then the ring holds the cells' d_b
 // and each (unit, gate) of the tile is summed over the rows in order into
 // db_part[tile].
+//
+// The bf16 chains' ring.  A bf16 word is 2 bytes and cp.async copies 4 at
+// least, and a cell's words lie H units apart in device memory, so the
+// per-cell ring above cannot take them.  The bf16 instances lay the ring
+// out word-major instead, [R][BT][U], each word in its stream's own type
+// (2 bytes a unit for bf16, 4 for f32: the recompute's rebuilt gates, an
+// f32 dh or h_prev) in a region of 4 BT U bytes (the f32 ring's bytes, so
+// rec_bwd_smem holds for both).  A word of tile row r is then the rank's U
+// units, one run of U es bytes both in device memory and in shared
+// memory, and a step's inputs are one list of (word, row, chunk) copies
+// that the CTA's threads share (rec_ring_word):
+//  - copy i of a word (i < nrow per, per = U es / W chunks a run) is tile
+//    row i / per, bytes (i % per) W of its run; thread x takes copies x,
+//    x + nt, ... of the words' lists laid end to end;
+//  - W is the widest cp.async (16 bytes by .cg, else 8 or 4 by .ca) that
+//    divides a stream row's H es bytes, the run's U es and the ring's
+//    address (rec_ring_width; every stream's base is aligned to it), the
+//    same for all words of one size (rec_ring_geo): for bf16 words, 16 at
+//    every plan of H = 256 and 384 and at H = 16 and 96 with C = 2 (U = 8,
+//    48), 8 at H = 16 with C = 4 (U = 4) and H = 96 with C = 8 (U = 12), 4
+//    at H = 100 (C = 2, U = 50); a ragged last rank (H % C != 0) copies on
+//    its cluster's width (H = 124, C = 16: U = 8, 8 bytes; H = 30, C = 4:
+//    4 bytes);
+//  - rows past B are not copied; a run's units past H (the last rank's,
+//    where H % C != 0) are zero-filled by a short src-size, so no byte past
+//    a stream row's H units, or past the stream, is read; c_prev or h_prev
+//    outside [0, T) is zero-filled whole (src-size 0, read from the
+//    stream's base);
+//  - a bf16 word with no cp.async width (H or U odd) has no fill: the plan
+//    gives a bf16 instance no such cluster plan (ops/rnn_plan.py `bwd_plan`
+//    with ring16) and the launch refuses one, and a stream whose base the
+//    shape's width does not divide (rec_ring_check; the wrappers copy such
+//    a view first).
+// The cells read their words from the ring and widen them at use.  The
+// fill's geometry, the words' addresses and the cells themselves are
+// rebuilt at every step (rec_opaque) rather than held through the product,
+// where the launch bounds leave 128 registers a thread: held, they
+// spilled.  Step
+// s+1's copies are issued after the __syncthreads that ends step s's
+// cells (the ring's last readers), stay in flight during the product, and
+// each thread waits for its own (cp.async.wait_group 0) before the
+// __syncthreads of rec_bwd_send, which then publishes the whole ring to
+// step s+1's cells; no barrier is added.  The GRU's in-place case holds
+// as in the per-cell ring: step s+1's copies read time row t -/+ 1, never
+// row t, the only row step s's cells write, and every copy has landed
+// (each thread waited, then that barrier) before any cell of step s+1
+// writes row t -/+ 1.
 // Cost of a step, in cycles (ops/rnn_plan.py `bwd_step_cycles`, its
 // constants from probes/rec_phases.cu; nw = nkg BT / RB warps, p = KL G +
 // RB + KL G RB instructions a unit): the product's issue U p ceil(nw / 4)
@@ -187,6 +240,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -312,6 +366,45 @@ inline cudaError_t rec_bwd_check(int G, int H, int C, int BT, int RB,
     return cudaSuccess;
 }
 
+// The bytes of each cp.async of a word of the bf16 chains' ring (the
+// layout above): the widest of 16, 8 and 4 that divides a stream row's H
+// units and a run's U units of es bytes and the address `a` (the stream's
+// base and the ring's, or 0 for the shape alone); 0 where none does.
+// ops/rnn_plan.py `ring_width` restates it.
+__host__ __device__ inline int rec_ring_width(int es, int H, int U, size_t a)
+{
+    const size_t v = (size_t)es * H | (size_t)es * U | a | 16;
+    const int w = static_cast<int>(v & (~v + 1));   // its lowest set bit
+    return w >= 4 ? w : 0;
+}
+
+// A stream of a bf16 chain's ring: its base and bytes a unit.
+struct RecRingStream {
+    const void* p;
+    int es;
+};
+
+// Whether a bf16 chain on `instance` takes its streams, checked by the
+// entry points before any launch: on the cluster instance, the ring fill
+// of H units in runs of U takes each stream by cp.async of its shape's
+// width, so cudaErrorInvalidValue where no cp.async takes a shape (H or U
+// odd for bf16: a plan the bf16 instance does not run) and
+// cudaErrorMisalignedAddress where a base is not aligned to its width
+// (the first refusal); the L2 instance reads the streams as they are.
+inline cudaError_t rec_ring_check(int instance, int H, int C,
+                                  std::initializer_list<RecRingStream> s)
+{
+    if (instance != INSTANCE_CLUSTER) return cudaSuccess;
+    const int U = (H + C - 1) / C;
+    for (const RecRingStream& x : s) {
+        const int w = rec_ring_width(x.es, H, U, 0);
+        if (w == 0) return cudaErrorInvalidValue;
+        if (reinterpret_cast<size_t>(x.p) % w)
+            return cudaErrorMisalignedAddress;
+    }
+    return cudaSuccess;
+}
+
 // Checks a backward launch plan before any work is queued: the L2
 // instance takes C = 1, its tile of l2_bt rows (RB and KL 1) and 8 G H
 // l2_bt bytes, for H up to l2_max_h; the cluster one what rec_bwd_check
@@ -382,6 +475,23 @@ __device__ __forceinline__ void cp_async4(void* dst, const float* src,
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 4 : 0)
                  : "memory");
+}
+
+// W-byte asynchronous copy (W 16, 8 or 4; the shared address `dst` and
+// `src` aligned to it) of which the first `bytes` come from `src` and the
+// rest are zero-filled
+__device__ __forceinline__ void cp_async_w(uint32_t dst, const void* src,
+                                           int W, int bytes)
+{
+    if (W == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                     :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+    else if (W == 8)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+                     :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                     :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit()
@@ -873,6 +983,103 @@ __device__ __forceinline__ void rec_bwd_send(const RecBwdSmem& m, int nb,
         bulk_copy_cluster(map_rank(dst, p), src, 4 * U * BT,
                           map_rank(smem_addr(m.bar + nb), p));
     }
+}
+
+// `v` through an opaque register move: what a loop derives from it is
+// recomputed in the loop, not hoisted out of it and held in a register
+// across the rest of the body.  The bf16 chains pass their ring's
+// geometry through it, which would otherwise stay live through the
+// product (one set of chunk widths, counts and region addresses a word
+// type) and spill.
+__device__ __forceinline__ int rec_opaque(int v)
+{
+    int r;
+    asm volatile("mov.b32 %0, %1;" : "=r"(r) : "r"(v));
+    return r;
+}
+
+// The geometry of the bf16 chains' ring fill for words of es bytes a
+// unit: W bytes a copy (rec_ring_width of the shape and the ring's
+// address; each stream's base is aligned to the shape's width,
+// rec_ring_check), `run` = U es bytes of a tile row's word, `per` copies
+// a run, n = nrow per of the tile, `have` bytes of a run below H, inv =
+// 1 / per.  The fills build one for 2-byte and one for 4-byte words at
+// every step (es passes rec_opaque: the compiler would otherwise hold
+// both through the product).
+struct RecRingGeo {
+    int W, run, per, n, have;
+    float inv;
+};
+
+__device__ __forceinline__ RecRingGeo rec_ring_geo(int es, int H, int U,
+                                                   int u0, int nrow,
+                                                   const float* ring)
+{
+    es = rec_opaque(es);
+    RecRingGeo g;
+    g.W = rec_ring_width(es, H, U, smem_addr(ring));
+    g.run = es * U;
+    g.per = g.run >> (__ffs(g.W) - 1);
+    g.n = nrow * g.per;
+    g.have = es * min(U, H - u0);
+    // i / per by a reciprocal: (i + 0.5) / per lies at least 0.5 / per
+    // (>= 2^-10, per <= 512) from an integer, and its float error is below
+    // nrow 2^-23 <= 2^-18
+    g.inv = __frcp_rn(static_cast<float>(g.per));
+    return g;
+}
+
+// This thread's copies of one word of a bf16 chain's step into its ring
+// region `dst` ([BT][U] units of es bytes, geometry g): the stream `p`,
+// rows of `pitch` units, the word at unit `col` of a row (g H for gate g),
+// read at time row t for tile rows b0 .. b0 + nrow - 1 (zero-filled where
+// !ok), the rank's units u0 .. u0 + U - 1 (zero-filled past H).  `i` is
+// the thread's next index in the step's list of copies, carried from word
+// to word (threadIdx.x for the first).  Issues the copies; the caller
+// commits and waits.
+__device__ __forceinline__ void rec_ring_word(float* dst, const void* p,
+                                              const RecRingGeo& g, int es,
+                                              int pitch, int col, int t,
+                                              bool ok, int B, int b0, int u0,
+                                              int& i)
+{
+    u0 = rec_opaque(u0);
+    const char* base = static_cast<const char*>(p);
+    const uint32_t d = smem_addr(dst);
+    const int have = ok ? g.have : 0;
+    const size_t pitchb = (size_t)pitch * es;
+    const char* row0 = ok ? base + ((size_t)t * B + b0) * pitchb
+                                 + (size_t)(col + u0) * es
+                          : base;
+    for (; i < g.n; i += blockDim.x) {
+        const int r = __float2int_rz((static_cast<float>(i) + 0.5f) * g.inv);
+        const int off = (i - r * g.per) * g.W;
+        const int bytes = min(max(have - off, 0), g.W);
+        cp_async_w(d + r * g.run + off, bytes ? row0 + r * pitchb + off : base,
+                   g.W, bytes);
+    }
+    i -= g.n;
+}
+
+// Unit e (row U + u_c) of word w of the bf16 chains' ring, of type T
+// (float or __nv_bfloat16), widened.
+template <typename T>
+__device__ __forceinline__ float rec_ring_at(const float* ring, int w,
+                                             int BT, int U, int e)
+{
+    const float* r = ring + (size_t)w * BT * U;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+        return __bfloat162float(reinterpret_cast<const T*>(r)[e]);
+    else
+        return r[e];
+}
+
+// The same for a word whose type is a run-time flag (bf16 where bf)
+__device__ __forceinline__ float rec_ring_at(const float* ring, int w,
+                                             int BT, int U, int e, int bf)
+{
+    return bf ? rec_ring_at<__nv_bfloat16>(ring, w, BT, U, e)
+              : rec_ring_at<float>(ring, w, BT, U, e);
 }
 
 // After the loop and its cluster barrier: the d_b sums of this thread's

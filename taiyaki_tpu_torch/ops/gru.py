@@ -230,11 +230,12 @@ def gru_bwd_recompute_plain(dh, h, x, sW, iW, b, reverse=False):
     return gru_bwd_fusedw_plain(dh, gx, gh, h_prev, x, sW, iW, reverse)
 
 
-def _bwd_plan(H, B, device, instance):
+def _bwd_plan(H, B, device, instance, ring16=False):
     """The backward chain's plan on `device` (`rnn_plan.bwd_plan` on the
-    card's clusters a wave)."""
+    card's clusters a wave; `ring16` for a bf16 instance whose ring holds
+    bf16 words)."""
     return rnn_plan.bwd_plan(3, H, B, clusters_per_wave(device.index),
-                             instance)
+                             instance, ring16)
 
 
 def _recompute_streams(dh, h, x):
@@ -272,12 +273,16 @@ def gru_bwd_recompute(dh, h, x, sW, iW, b, reverse=False, instance=None):
         ("x", x, (T, B, D), both), ("sW", sW, (3 * H, H)),
         ("iW", iW, (3 * H, D)), ("b", b, (3 * H,))))
     _check_hidden(what, H)
-    plan = _bwd_plan(H, B, dh.device, instance)
+    # the bf16 instance's ring holds bf16 words where h or dh is bf16 (its
+    # gx and gh are the rebuilt f32 streams)
+    plan = _bwd_plan(H, B, dh.device, instance,
+                     bool(streams & (STREAM_H | STREAM_DH)))
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         x, iW, h, sW, iwt = gemm.tma_ready(x, iW, h, sW,
                                            iW.t().contiguous())
+        dh, h = rnn_plan.ring_ready(plan, H, bool(streams), dh, h)
         # gx and gh (f32), overwritten in place by dgx and dgh
         g_x = torch.empty(T, B, 3 * H, device=dev)
         g_h = torch.empty(T, B, 3 * H, device=dev)
@@ -327,11 +332,13 @@ def gru_bwd_fusedw(dh, gx, gh, h_prev, x, sW, iW, reverse=False,
         ("h_prev", h_prev, (T, B, H), both), ("x", x, (T, B, D), both),
         ("sW", sW, (3 * H, H)), ("iW", iW, (3 * H, D))))
     _check_hidden(what, H)
-    plan = _bwd_plan(H, B, dh.device, instance)
+    plan = _bwd_plan(H, B, dh.device, instance, bool(streams))
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         x, h_prev, iwt = gemm.tma_ready(x, h_prev, iW.t().contiguous())
+        dh, gx, gh, h_prev = rnn_plan.ring_ready(plan, H, bool(streams), dh,
+                                                 gx, gh, h_prev)
         dgx = torch.empty(T, B, 3 * H, device=dev)
         dgh = torch.empty(T, B, 3 * H, device=dev)
         out, gplans = bwd_outputs(T, B, D, 3 * H, H, dev, plan, x.dtype,
@@ -439,11 +446,13 @@ def gru_scan_bwd(dh, gates_x, gh, h_prev, sW, reverse=False, iW=None,
         specs.append(("iW", iW, (3 * H, D)))
     _check_args(what, dh.device, specs)
     _check_hidden(what, H)
-    plan = _bwd_plan(H, B, dh.device, instance)
+    plan = _bwd_plan(H, B, dh.device, instance, bool(streams))
     lib = cuda_lib.load("gru", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         iwt, = gemm.tma_ready(None if iW is None else iW.t().contiguous())
+        dh, gates_x, gh, h_prev = rnn_plan.ring_ready(
+            plan, H, bool(streams), dh, gates_x, gh, h_prev)
         dgx = torch.empty(T, B, 3 * H, device=dev, dtype=dh.dtype)
         dgh = torch.empty(T, B, 3 * H, device=dev, dtype=dh.dtype)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)

@@ -311,11 +311,12 @@ def bwd_outputs(T, B, D, G, H, dev, plan, x_dtype=F32, h_dtype=F32):
             torch.empty(-(-B // plan.BT), G, device=dev)), gplans
 
 
-def _bwd_plan(H, B, device, instance):
+def _bwd_plan(H, B, device, instance, ring16=False):
     """The backward chain's plan on `device` (`rnn_plan.bwd_plan` on the
-    card's clusters a wave)."""
+    card's clusters a wave; `ring16` for the bf16 instance, whose ring
+    holds bf16 words)."""
     return rnn_plan.bwd_plan(4, H, B, clusters_per_wave(device.index),
-                             instance)
+                             instance, ring16)
 
 
 def _bwd_streams(what, residuals, dh, h=None, x=None):
@@ -361,11 +362,13 @@ def _lstm_bwd_stored(fn, from_pre, dh, gates, cs, c_prev, h, x, sW, iW,
         ("x", x, (T, B, D), both), ("sW", sW, (4 * H, H)),
         ("iW", iW, (4 * H, D))))
     _check_hidden(what, H)
-    plan = _bwd_plan(H, B, dh.device, instance)
+    plan = _bwd_plan(H, B, dh.device, instance, bool(streams))
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         x, h, iwt = gemm.tma_ready(x, h, iW.t().contiguous())
+        dh, gates, cs, c_prev = rnn_plan.ring_ready(
+            plan, H, bool(streams), dh, gates, cs, c_prev)
         dpre = torch.empty(T, B, 4 * H, device=dev)
         out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan, x.dtype,
                                   h.dtype)
@@ -439,12 +442,13 @@ def lstm_bwd_recompute(dh, c, h, x, sW, iW, b, reverse=False,
         ("h", h, (T, B, H), both), ("x", x, (T, B, D), both),
         ("sW", sW, (4 * H, H)), ("iW", iW, (4 * H, D)), ("b", b, (4 * H,))))
     _check_hidden(what, H)
-    plan = _bwd_plan(H, B, dh.device, instance)
+    plan = _bwd_plan(H, B, dh.device, instance, bool(streams))
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         x, iW, h, sW, iwt = gemm.tma_ready(x, iW, h, sW,
                                            iW.t().contiguous())
+        dh, c = rnn_plan.ring_ready(plan, H, bool(streams), dh, c)
         pre = torch.empty(T, B, 4 * H, device=dev)
         dpre = torch.empty(T, B, 4 * H, device=dev)
         out, gplans = bwd_outputs(T, B, D, 4 * H, H, dev, plan, x.dtype,
@@ -562,11 +566,13 @@ def lstm_scan_bwd(dh, pre, c, c_prev, sW, reverse=False, iW=None,
         specs.append(("iW", iW, (4 * H, D)))
     _check_args(what, dh.device, specs)
     _check_hidden(what, H)
-    plan = _bwd_plan(H, B, dh.device, instance)
+    plan = _bwd_plan(H, B, dh.device, instance, bool(streams))
     lib = cuda_lib.load("lstm", _SIGNATURES)
     dev = dh.device
     with torch.cuda.device(dev):
         iwt, = gemm.tma_ready(None if iW is None else iW.t().contiguous())
+        dh, pre, c, c_prev = rnn_plan.ring_ready(plan, H, bool(streams), dh,
+                                                 pre, c, c_prev)
         dpre = torch.empty(T, B, 4 * H, device=dev, dtype=dh.dtype)
         d_x = None if iW is None else torch.empty(T, B, D, device=dev)
         db = torch.empty(-(-B // plan.BT), 4 * H, device=dev)

@@ -20,12 +20,18 @@ The instances compute the same values (csrc/rec_cluster.cuh):
   sW, 262 KB a CTA even at C = 16).
 
 The bf16 instances of both cells (TAIYAKI_TPU_BF16_STREAMS=1,
-ops/rnn.py; the scans' too) keep the f32 instances' shared memory as it
-is: h, the exchange, the partial sums and both rings stay f32 (the bf16
-values are widened as they are loaded), so `cluster_smem` and `bwd_smem`
-count both, and a plan holds for either instance.  Their registers are
-held to the same launch bounds (512 threads, one CTA an SM); what does
-not fit spills, which the build reports (`-Xptxas -v`).
+ops/rnn.py; the scans' too) keep the f32 instances' shared memory: h,
+the exchange and the partial sums stay f32, the forward's gate ring too
+(a bf16 gate stream goes through registers and is widened into it), and
+the backward's ring keeps its f32 bytes, laid out word-major with each
+word in its stream's type ([R][BT][U]) and filled by cp.async of whole
+runs of U units (csrc/rec_cluster.cuh, the bf16 chains' ring; `ring_width`
+and `ring_copies` restate its fill).  So `cluster_smem` and `bwd_smem`
+count both instances.  A bf16 word takes cp.async only where H and U are
+even (a copy is 4 bytes at least): `bwd_plan` with `ring16` takes no other
+cluster plan, and a plan holds for either instance wherever that does.
+Their registers are held to the same launch bounds (512 threads, one CTA
+an SM); what does not fit spills, which the build reports (`-Xptxas -v`).
 
 Among the cluster plans that fit (C ranks, BT rows a tile, RB rows a
 lane in the product, and KS slices of the forward's sum over k, or KL
@@ -228,14 +234,73 @@ def cluster_plans(gates, H):
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_cluster_plans(gates, H):
+def bwd_cluster_plans(gates, H, ring16=False):
     """Every (C, BT, RB, KL) the backward's cluster instance takes for H
-    units."""
+    units; with `ring16` (a bf16 word in the chain's ring) only those
+    whose ring a cp.async fills (`ring_width` of 2-byte units)."""
     return tuple((C, BT, RB, KL) for C in CLUSTER_SIZES
                  for RB in ROWS_A_LANE
                  for BT in range(RB, MAX_BATCH_TILE + 1, RB)
                  for KL in UNITS_A_LANE
-                 if bwd_cluster_fits(gates, H, C, BT, RB, KL))
+                 if bwd_cluster_fits(gates, H, C, BT, RB, KL)
+                 and (not ring16 or ring_width(2, H, -(-H // C))))
+
+
+def ring_width(es, H, U, base=0):
+    """The bytes of each cp.async of a word of the bf16 chains' ring
+    (csrc/rec_cluster.cuh `rec_ring_width`): the widest of 16, 8 and 4
+    that divides a stream row's H units and a run's U units of es bytes
+    and the address `base` (the ring's; a stream's base must be aligned
+    to the width of the shape alone); 0 where none does."""
+    v = es * H | es * U | base | 16
+    w = v & -v
+    return w if w >= 4 else 0
+
+
+# One word of the bf16 chains' ring as `ring_copies` reads it: es bytes a
+# unit, rows of `pitch` units, the word at unit `col` of a row, read at
+# time row t + shift, the stream at address `base`
+RingWord = collections.namedtuple("RingWord", "es pitch col shift base")
+
+
+def ring_copies(words, T, B, t, b0, nrow, BT, H, U, u0, nt, ring=0):
+    """The cp.async copies of one step's fill of the bf16 chains' ring, as
+    csrc/rec_cluster.cuh `rec_ring_geo` and `rec_ring_word` deal them
+    over nt threads: a list of (thread, word, ring byte, source address or
+    None, W, bytes) for the words (RingWord) of tile rows b0 .. b0 + nrow
+    - 1 at time row t, rank units u0 .. u0 + U - 1; word w's region
+    starts at ring byte 4 BT U w (`ring` the ring's address); `bytes` < W
+    zero-fills the rest of a copy, and a copy reading nothing (source
+    None) reads from the stream's base.  Raises ValueError where no
+    cp.async takes a word or its stream's base (`rec_ring_check`)."""
+    out = []
+    nxt = list(range(nt))
+    for w, wd in enumerate(words):
+        region = 4 * BT * U * w
+        W = ring_width(wd.es, H, U, ring)
+        if not W or wd.base % ring_width(wd.es, H, U):
+            raise ValueError("ring_copies: no cp.async takes word {} "
+                             "({} bytes a unit at {:#x}, H={}, U={})".format(
+                                 w, wd.es, wd.base, H, U))
+        run = wd.es * U
+        per = run // W
+        n = nrow * per
+        tr = t + wd.shift
+        ok = 0 <= tr < T
+        have = wd.es * min(U, H - u0) if ok else 0
+        row0 = ((tr * B + b0) * wd.pitch + wd.col + u0) * wd.es if ok else 0
+        for x in range(nt):
+            i = nxt[x]
+            while i < n:
+                r, c = divmod(i, per)
+                off = c * W
+                nbytes = min(max(have - off, 0), W)
+                src = (wd.base + row0 + r * wd.pitch * wd.es + off
+                       if nbytes else None)
+                out.append((x, w, region + r * run + off, src, W, nbytes))
+                i += nt
+            nxt[x] = i - n
+    return out
 
 
 def _pick(what, gates, H, B, per_wave, instance, plans, cost, smem,
@@ -288,19 +353,39 @@ def rec_plan(gates, H, B, per_wave, instance=None):
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_plan(gates, H, B, per_wave, instance=None):
+def bwd_plan(gates, H, B, per_wave, instance=None, ring16=False):
     """The plan of a backward chain, as `rec_plan` (the same keys and
     `instance`), with the backward's footprint (`bwd_smem`) and step model
     (`bwd_step_cycles`); its KS field holds KL, the output units a lane
     (1 for the L2 instance).  The L2 instance keeps its gate gradients of
     8 rows double-buffered: 8 gates H 8 bytes.  d_b comes back as
-    ceil(B / BT) partials."""
+    ceil(B / BT) partials.  `ring16`: the chain's bf16 instance with a
+    bf16 word in its ring, which takes only the cluster plans of even H
+    and U (`bwd_cluster_plans`), else the L2 instance."""
     return _pick("bwd_plan", gates, H, B, per_wave, instance,
-                 bwd_cluster_plans(gates, H) if gates in (3, 4) else (),
+                 bwd_cluster_plans(gates, H, ring16) if gates in (3, 4)
+                 else (),
                  lambda C, BT, RB, KL: bwd_step_cycles(gates, H, C, BT, RB,
                                                        KL),
                  lambda C, BT, KL: bwd_smem(gates, H, C, BT),
                  8 * gates * H * L2_BATCH_TILE)
+
+
+def ring_ready(plan, H, bf16, *tensors):
+    """The streams of a backward chain as its ring's fill takes them: with
+    `bf16` (the chain's bf16 instance) on the cluster instance, a copy of
+    each tensor whose base address is not aligned to its `ring_width` (a
+    view at an offset), else the tensor itself (None stays None);
+    csrc/rec_cluster.cuh `rec_ring_check` refuses the views this would
+    leave.  Returns a list in the order given."""
+    if not bf16 or plan.instance != "cluster":
+        return list(tensors)
+    U = -(-H // plan.C)
+
+    def ready(t):
+        w = ring_width(t.element_size(), H, U)
+        return t if not w or t.data_ptr() % w == 0 else t.clone()
+    return [t if t is None else ready(t) for t in tensors]
 
 
 def check_instance(instance):

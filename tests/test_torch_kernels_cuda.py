@@ -2605,3 +2605,105 @@ def test_scans_bf16_streams_on_card(dev, cell, reverse, sub, monkeypatch):
     assert (card[0] - cpu[0]).abs().max().item() < 1e-4
     for g, w in zip(card[1:], cpu[1:]):
         assert _rel_err(g, w) < 2.0 ** -8
+
+
+# -- the bf16 chains' word-major ring -----------------------------------------
+#
+# The bf16 instances of the chains (kernels 4, 11, 12, 15; 8, 13, 17) on
+# the cluster instance fill their ring [R][BT][U] by cp.async of whole runs
+# of U units (csrc/rec_cluster.cuh, the bf16 chains' ring): here at each
+# width a bf16 word's copies take (16 bytes: H=256, C=8; 8: H=96, C=8; 4:
+# H=100, C=2), both directions, with a tile past the batch (B one row
+# past a tile), in each case of BF16_BWD_DTYPES (dh f32 as under
+# TAIYAKI_TPU_F32_GRADS, the recompute's f32 pre and gates, the GRU's
+# recompute in place over them) and of SCAN_DTYPES, against their twins
+# on the terms of the bf16 tests above; then a view whose offset cuts the
+# width, copied by the wrapper, or refused by the C entry when it is
+# passed as it is.
+
+RING_WIDTHS = [(16, 256, 8), (8, 96, 8), (4, 100, 2)]
+
+
+def _ring_plan(gates, H, C):
+    """A cluster plan of C ranks for H that the bf16 instances take, with
+    a tile of more than one row."""
+    for c, BT, RB, KL in rnn_plan.bwd_cluster_plans(gates, H, True):
+        if c == C and BT > 1:
+            return rnn_plan.Plan("cluster", C, BT, RB, KL,
+                                 rnn_plan.bwd_smem(gates, H, C, BT))
+    raise AssertionError("no plan of {} ranks for H={}".format(C, H))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("W, H, C", RING_WIDTHS)
+def test_bf16_ring_widths_match_twins(dev, W, H, C, reverse, monkeypatch):
+    """Every bf16 chain on a cluster plan whose bf16 words copy W bytes at
+    a time, launched on the cluster instance (the GRU recompute with every
+    stream f32 on its f32 instance), against its twin."""
+    assert rnn_plan.ring_width(2, H, -(-H // C)) == W
+    for cell, G in (("lstm", 4), ("gru", 3)):
+        plan = _ring_plan(G, H, C)
+        monkeypatch.setattr(rnn_plan, "bwd_plan",
+                            lambda *a, _p=plan, **k: _p)
+        shape = (9, plan.BT + 1, 24, H)
+        rows = _bf16_bwd_rows if cell == "lstm" else _bf16_gru_bwd_rows
+        for dts in BF16_BWD_DTYPES:
+            for fn, plain, args in rows(shape, reverse, dev, *dts):
+                nb = _bf16_counts(fn)
+                got = fn(*args, reverse=reverse)
+                torch.cuda.synchronize()
+                bf16 = (fn is not gru.gru_bwd_recompute
+                        or BF16 in dts)
+                assert _bf16_counts(fn) == (
+                    dict(nb, cluster=nb["cluster"] + 1) if bf16 else nb)
+                _check_bf16_bwd(got, plain(*args, reverse=reverse))
+        fn, plain = _scan_fns(cell)[2:]
+        for gdt, gd in SCAN_DTYPES:
+            args, iW = _scan_bwd_args(cell, shape, reverse, dev, gdt, gd)
+            nb = _bf16_counts(fn)
+            got = _as_tuple(fn(*args, reverse=reverse, iW=iW))
+            torch.cuda.synchronize()
+            assert _bf16_counts(fn) == dict(nb, cluster=nb["cluster"] + 1)
+            want = _as_tuple(plain(*args, reverse=reverse, iW=iW))
+            for g, w in zip(got[:-1], want[:-1]):
+                assert g.dtype == gd
+                _scan_bf16_close(g, w)
+            assert _rel_err(got[-1], torch.matmul(got[0].float(), iW)) < 1e-4
+
+
+def _view_at(t, k):
+    """t's values in a view k elements into a buffer of its own."""
+    buf = torch.empty(t.numel() + k, device=t.device, dtype=t.dtype)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("cell", ["lstm", "gru"])
+def test_bf16_ring_takes_a_misaligned_view(dev, cell, monkeypatch):
+    """At the training plan (C=8, 16-byte copies) a bf16 dh 2 bytes off
+    and 8 bytes off, and an f32 one 4 bytes off: the wrapper's copy
+    (`rnn_plan.ring_ready`) gives the aligned call's outputs bit for bit;
+    passed to the C entry as they are, each is refused (misaligned
+    address) before any launch."""
+    shape = (9, 19, 24, 256)
+    rows = _bf16_bwd_rows if cell == "lstm" else _bf16_gru_bwd_rows
+    for dhdt, ks in ((BF16, (1, 4)), (torch.float32, (1,))):
+        fn, _, args = rows(shape, False, dev, BF16, BF16, dhdt)[1]
+        want = fn(*args)
+        for patched in (False, True):
+            if patched:
+                monkeypatch.setattr(rnn_plan, "ring_ready",
+                                    lambda plan, H, bf16, *t: list(t))
+            for k in ks:
+                dh = _view_at(args[0], k)
+                if patched:
+                    with pytest.raises(RuntimeError,
+                                       match="misaligned address"):
+                        fn(dh, *args[1:])
+                    continue
+                got = fn(dh, *args[1:])
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+            monkeypatch.undo()
